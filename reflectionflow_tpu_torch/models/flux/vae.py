@@ -1,0 +1,139 @@
+"""FLUX AutoencoderKL (16-channel): the decoder.
+
+Counterpart of `reflectionflow_tpu/models/flux/vae.py::vae_decode`. The
+public layout is the JAX package's NHWC, in and out; inside, the decoder
+runs NCHW, PyTorch's convolution layout. Parameters carry diffusers'
+AutoencoderKL names (`decoder.up_blocks.{i}.resnets.{j}.conv1`, ...), the
+names `reflectionflow_tpu/utils/hf_convert.py::convert_flux_vae_state`
+reads. The encoder (`vae_encode`) is ROADMAP slice 3, item 13.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...config import FluxVAEConfig
+
+
+def group_norm(x: torch.Tensor, norm: nn.GroupNorm, eps: float = 1e-6) -> torch.Tensor:
+    """GroupNorm on NCHW with fp32 statistics, result in x's dtype."""
+    B, C, H, W = x.shape
+    G = norm.num_groups
+    xf = x.float().reshape(B, G, C // G, H, W)
+    var, mu = torch.var_mean(xf, dim=(2, 3, 4), keepdim=True, unbiased=False)
+    xf = ((xf - mu) * torch.rsqrt(var + eps)).reshape(B, C, H, W)
+    return (xf * norm.weight.float()[:, None, None] + norm.bias.float()[:, None, None]).to(x.dtype)
+
+
+class _Resnet(nn.Module):
+    def __init__(self, c_in: int, c_out: int, groups: int):
+        super().__init__()
+        self.norm1 = nn.GroupNorm(groups, c_in)
+        self.conv1 = nn.Conv2d(c_in, c_out, 3, padding=1)
+        self.norm2 = nn.GroupNorm(groups, c_out)
+        self.conv2 = nn.Conv2d(c_out, c_out, 3, padding=1)
+        if c_in != c_out:
+            self.conv_shortcut = nn.Conv2d(c_in, c_out, 1)
+
+    def forward(self, x):
+        h = self.conv1(F.silu(group_norm(x, self.norm1)))
+        h = self.conv2(F.silu(group_norm(h, self.norm2)))
+        if hasattr(self, "conv_shortcut"):
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class _MidAttention(nn.Module):
+    """Single-head self-attention over the H*W positions; the projections
+    are Linear, as current diffusers checkpoints store them."""
+
+    def __init__(self, c: int, groups: int):
+        super().__init__()
+        self.group_norm = nn.GroupNorm(groups, c)
+        self.to_q, self.to_k, self.to_v = nn.Linear(c, c), nn.Linear(c, c), nn.Linear(c, c)
+        self.to_out = nn.ModuleList([nn.Linear(c, c)])
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        h = group_norm(x, self.group_norm).flatten(2).transpose(1, 2)  # (B, HW, C)
+        q, k, v = self.to_q(h), self.to_k(h), self.to_v(h)
+        logits = torch.einsum("bqc,bkc->bqk", q.float(), k.float()) / math.sqrt(C)
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = self.to_out[0](torch.einsum("bqk,bkc->bqc", probs, v))
+        return x + out.transpose(1, 2).reshape(B, C, H, W)
+
+
+class _MidBlock(nn.Module):
+    def __init__(self, c: int, groups: int):
+        super().__init__()
+        self.resnets = nn.ModuleList([_Resnet(c, c, groups), _Resnet(c, c, groups)])
+        self.attentions = nn.ModuleList([_MidAttention(c, groups)])
+
+    def forward(self, x):
+        x = self.resnets[0](x)
+        x = self.attentions[0](x)
+        return self.resnets[1](x)
+
+
+class _Upsampler(nn.Module):
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv = nn.Conv2d(c, c, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+class _UpBlock(nn.Module):
+    def __init__(self, c_in: int, c_out: int, layers: int, groups: int, upsample: bool):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            _Resnet(c_in if j == 0 else c_out, c_out, groups) for j in range(layers + 1))
+        if upsample:
+            self.upsamplers = nn.ModuleList([_Upsampler(c_out)])
+
+    def forward(self, x):
+        for r in self.resnets:
+            x = r(x)
+        if hasattr(self, "upsamplers"):
+            x = self.upsamplers[0](x)
+        return x
+
+
+class _Decoder(nn.Module):
+    def __init__(self, cfg: FluxVAEConfig):
+        super().__init__()
+        chans = list(reversed(cfg.block_out_channels))
+        g = cfg.norm_num_groups
+        self.conv_in = nn.Conv2d(cfg.latent_channels, chans[0], 3, padding=1)
+        self.mid_block = _MidBlock(chans[0], g)
+        self.up_blocks = nn.ModuleList(
+            _UpBlock(chans[max(i - 1, 0)], c, cfg.layers_per_block, g, i < len(chans) - 1)
+            for i, c in enumerate(chans))
+        self.conv_norm_out = nn.GroupNorm(g, chans[-1])
+        self.conv_out = nn.Conv2d(chans[-1], cfg.in_channels, 3, padding=1)
+
+
+class FluxVAE(nn.Module):
+    """The AutoencoderKL's parameters; this slice holds the decoder."""
+
+    def __init__(self, cfg: FluxVAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.decoder = _Decoder(cfg)
+
+
+def vae_decode(vae: FluxVAE, latents: torch.Tensor) -> torch.Tensor:
+    """Scaled latents (B, h, w, C_lat) NHWC -> images (B, H, W, 3) in [-1, 1]."""
+    cfg, dec = vae.cfg, vae.decoder
+    z = latents / cfg.scaling_factor + cfg.shift_factor
+    x = dec.conv_in(z.permute(0, 3, 1, 2))
+    x = dec.mid_block(x)
+    for block in dec.up_blocks:
+        x = block(x)
+    x = F.silu(group_norm(x, dec.conv_norm_out))
+    return dec.conv_out(x).permute(0, 2, 3, 1)

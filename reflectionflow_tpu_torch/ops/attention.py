@@ -1,0 +1,78 @@
+"""Joint multi-stream attention.
+
+Counterpart of `reflectionflow_tpu/ops/attention.py`. One attention over the
+concatenated token streams ([txt | img] for FLUX t2i), outputs re-split per
+stream. `impl` keeps the reference's names:
+
+  * "xla"    -> `sdpa`, this package's plain PyTorch attention;
+  * "pallas" -> kernel K1 (`ops.flash_attention`), the hand-written CUDA
+    flash-attention forward; CPU tensors take its plain version.
+
+Other impls of the reference are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .flash_attention import flash_attention
+
+_NOT_PORTED = {
+    "pallas_nr": "ROADMAP queue 2, K9 (norm+rope fused flash forward)",
+    "pallas_int8": "ROADMAP queue 2, K8 (int8 QK^T flash forward)",
+    "ring": "ROADMAP slice 7, item 23 (ring attention over K7)",
+}
+
+
+def check_impl(impl: str) -> None:
+    """Raise for an attention impl the port does not have."""
+    if impl in ("xla", "pallas"):
+        return
+    for prefix, where in _NOT_PORTED.items():
+        if impl.startswith(prefix):
+            raise NotImplementedError(f"attn_impl={impl!r} is not ported yet: {where}")
+    if impl.endswith("interpret"):
+        raise NotImplementedError(
+            f"attn_impl={impl!r}: Pallas interpret mode has no CUDA counterpart; "
+            "use 'pallas' (K1 on CUDA tensors, its plain version on CPU tensors)")
+    raise ValueError(f"unknown attn_impl {impl!r}")
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Scaled dot-product attention on (B, L, H, D) q/k/v; fp32 logits and
+    softmax, probabilities cast to q's dtype before P.V (as the reference)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def joint_attention(
+    streams_q: list[torch.Tensor],
+    streams_k: list[torch.Tensor],
+    streams_v: list[torch.Tensor],
+    bias: torch.Tensor | None = None,
+    impl: str = "xla",
+    cond_len: int = 0,
+    cross_bias: float = 0.0,
+) -> list[torch.Tensor]:
+    """Attention over concatenated (B, L_i, H, D) streams; returns per-stream
+    outputs. The cond-stream modifier is dense `bias` on the "xla" path and
+    structural (`cond_len`, `cross_bias`) on the "pallas" path."""
+    check_impl(impl)
+    lens = [s.shape[1] for s in streams_q]
+    q = torch.cat(streams_q, dim=1) if len(streams_q) > 1 else streams_q[0]
+    k = torch.cat(streams_k, dim=1) if len(streams_k) > 1 else streams_k[0]
+    v = torch.cat(streams_v, dim=1) if len(streams_v) > 1 else streams_v[0]
+    if impl == "pallas":
+        if bias is not None:
+            raise ValueError("impl='pallas' takes the structural (cond_len, cross_bias) form")
+        out = flash_attention(q, k, v, main_len=q.shape[1] - cond_len, cross_bias=cross_bias)
+    else:
+        out = sdpa(q, k, v, bias=bias)
+    return list(torch.split(out, lens, dim=1))

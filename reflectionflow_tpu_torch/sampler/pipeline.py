@@ -1,0 +1,200 @@
+"""FluxPipeline: weights + tokenizers + the sampling loop.
+
+Counterpart of `reflectionflow_tpu/sampler/pipeline.py::FluxPipeline` for the
+bf16 text-to-image path: text encoding (T5 sequence + CLIP pooled), packed
+noise, the dynamic-shift schedule, the Euler loop over the DiT, and the VAE
+decode. Condition images, LoRA, quantization, the phase swap and the prompt
+cache are later ROADMAP slices.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import CLIPTextConfig, FluxDiTConfig, FluxVAEConfig, T5Config
+from ..models.flux.dit import FluxDiT
+from ..models.flux.latents import draw_packed_noise, latent_tokens, unpack_latents
+from ..models.flux.rope import make_image_ids, make_text_ids
+from ..models.flux.text import CLIPTextEncoder, T5Encoder, clip_text_encode, t5_encode
+from ..models.flux.vae import FluxVAE, vae_decode
+from ..utils.tokenizers import load_tokenizer
+from .generate import denoise, make_schedule
+
+# std of the normal init of each embedding table (the JAX package's recipe)
+_EMBED_STD = {
+    "shared": 1.0,
+    "encoder.block.0.layer.0.SelfAttention.relative_attention_bias": 0.1,
+    "text_model.embeddings.token_embedding": 0.02,
+    "text_model.embeddings.position_embedding": 0.02,
+}
+
+
+@torch.no_grad()
+def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill `module`'s parameters in place with the JAX package's init recipe:
+    linear and conv weights ~ N(0, 1/fan_in), zero biases, unit norm scales,
+    and the per-table embedding stds of `_EMBED_STD`."""
+    for name, m in module.named_modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            m.weight.normal_(0.0, m.weight[0].numel() ** -0.5, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, _EMBED_STD[name], generator=generator)
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        else:  # QK-norm and T5 norm scales
+            for p in m.parameters(recurse=False):
+                p.fill_(1.0)
+    return module
+
+
+def _build(cls, cfg, dtype, device, generator):
+    """Construct without allocating, then materialise in `dtype` on `device`
+    and fill with random weights (no fp32 copy of a full-size model)."""
+    with torch.device("meta"):
+        module = cls(cfg)
+    module = module.to(dtype).to_empty(device=device)
+    return random_init_(module, generator).eval().requires_grad_(False)
+
+
+@dataclass
+class FluxPipeline:
+    dit_cfg: FluxDiTConfig
+    vae_cfg: FluxVAEConfig
+    t5_cfg: T5Config
+    clip_cfg: CLIPTextConfig
+    dit: FluxDiT
+    vae: FluxVAE
+    t5: T5Encoder
+    clip: CLIPTextEncoder
+    t5_tokenizer: Any
+    clip_tokenizer: Any
+    dtype: torch.dtype = torch.bfloat16
+    device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    attn_impl: str = "xla"
+
+    # -- construction -------------------------------------------------------
+
+    @classmethod
+    def random_init(
+        cls,
+        generator: torch.Generator,
+        dit_cfg: FluxDiTConfig | None = None,
+        vae_cfg: FluxVAEConfig | None = None,
+        t5_cfg: T5Config | None = None,
+        clip_cfg: CLIPTextConfig | None = None,
+        dtype: torch.dtype = torch.bfloat16,
+        device: str | torch.device | None = None,
+        tokenizer_path: str | None = None,
+    ) -> "FluxPipeline":
+        """Random weights at the given configs (default FLUX.1-dev), made on
+        `device` (default: the generator's) from `generator`."""
+        dit_cfg = dit_cfg or FluxDiTConfig()
+        vae_cfg = vae_cfg or FluxVAEConfig()
+        t5_cfg = t5_cfg or T5Config()
+        clip_cfg = clip_cfg or CLIPTextConfig()
+        device = torch.device(device) if device is not None else generator.device
+        return cls(
+            dit_cfg=dit_cfg,
+            vae_cfg=vae_cfg,
+            t5_cfg=t5_cfg,
+            clip_cfg=clip_cfg,
+            dit=_build(FluxDiT, dit_cfg, dtype, device, generator),
+            vae=_build(FluxVAE, vae_cfg, dtype, device, generator),
+            t5=_build(T5Encoder, t5_cfg, dtype, device, generator),
+            clip=_build(CLIPTextEncoder, clip_cfg, dtype, device, generator),
+            t5_tokenizer=load_tokenizer(tokenizer_path, "t5", t5_cfg.vocab_size, 1),
+            clip_tokenizer=load_tokenizer(tokenizer_path, "clip", clip_cfg.vocab_size,
+                                          clip_cfg.eos_token_id),
+            dtype=dtype,
+            device=device,
+        )
+
+    # -- text ---------------------------------------------------------------
+
+    @torch.no_grad()
+    def encode_prompts(self, prompts: Sequence[str], max_sequence_length: int = 512,
+                       prompts_2: Sequence[str] | None = None):
+        """-> (txt (B, L, text_dim), pooled (B, pooled_dim)) on the device.
+        `prompts_2` splits the towers as diffusers' prompt_2 does: CLIP pools
+        `prompts`, T5 encodes `prompts_2`."""
+        if prompts_2 is not None and len(prompts_2) != len(prompts):
+            raise ValueError(
+                f"prompts_2 must pair 1:1 with prompts: got {len(prompts_2)} vs {len(prompts)}")
+        t5_prompts = list(prompts_2) if prompts_2 is not None else list(prompts)
+        t5_ids = self.t5_tokenizer(t5_prompts, max_length=max_sequence_length)["input_ids"]
+        txt = t5_encode(self.t5, torch.from_numpy(t5_ids).long().to(self.device))
+        clip_ids = self.clip_tokenizer(list(prompts), max_length=self.clip_cfg.max_position_embeddings)
+        _, pooled = clip_text_encode(self.clip, torch.from_numpy(clip_ids["input_ids"]).long().to(self.device))
+        return txt.to(self.dtype), pooled.to(self.dtype)
+
+    # -- generation ---------------------------------------------------------
+
+    @torch.no_grad()
+    def generate(
+        self,
+        prompts: Sequence[str],
+        height: int = 1024,
+        width: int = 1024,
+        num_inference_steps: int = 30,
+        guidance_scale: float = 3.5,
+        max_sequence_length: int = 512,
+        seed: int | None = 0,
+        latents: torch.Tensor | np.ndarray | None = None,
+        conditions: list | None = None,
+        output_type: str = "np",
+        txt: torch.Tensor | None = None,
+        pooled: torch.Tensor | None = None,
+        prompts_2: Sequence[str] | None = None,
+    ):
+        """Sample images: uint8 numpy (B, H, W, 3) for "np", the final packed
+        latents for "latent". `latents` injection (packed (B, L, C)) bypasses
+        seeding: same latents -> same images."""
+        if conditions:
+            raise NotImplementedError("condition images are ROADMAP slice 3, item 13")
+        if output_type not in ("np", "latent"):
+            raise ValueError(f"output_type must be 'np' or 'latent', got {output_type!r}")
+        B = len(prompts)
+        down = self.vae_cfg.downscale
+        ty, tx = latent_tokens(height, width, down)
+        if latents is None:
+            if seed is None:  # fresh entropy when the caller doesn't pin one
+                import secrets
+
+                seed = secrets.randbits(31)
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            latents = draw_packed_noise(gen, B, height, width, self.vae_cfg.latent_channels,
+                                        self.dtype, vae_downscale=down)
+        latents = torch.as_tensor(latents).to(self.device, self.dtype)
+        if txt is None or pooled is None:
+            txt, pooled = self.encode_prompts(prompts, max_sequence_length, prompts_2=prompts_2)
+        final = denoise(
+            self.dit,
+            latents,
+            txt,
+            pooled,
+            torch.from_numpy(make_image_ids(ty, tx)).to(self.device),
+            torch.from_numpy(make_text_ids(txt.shape[1])).to(self.device),
+            make_schedule(num_inference_steps, ty * tx),
+            guidance_scale,
+            num_inference_steps,
+            attn_impl=self.attn_impl,
+        )
+        if output_type == "latent":
+            return final
+        return self.decode_latents(final, height, width)
+
+    @torch.no_grad()
+    def decode_latents(self, final: torch.Tensor, height: int, width: int) -> np.ndarray:
+        """Packed latents -> uint8 images (B, H, W, 3) on the host."""
+        grid = unpack_latents(final, *latent_tokens(height, width, self.vae_cfg.downscale))
+        images = vae_decode(self.vae, grid)
+        images = ((images.float() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
+        return images.cpu().numpy()

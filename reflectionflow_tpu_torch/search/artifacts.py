@@ -1,0 +1,78 @@
+"""Filesystem artifact contract (the stage-1 part).
+
+Counterpart of `reflectionflow_tpu/search/artifacts.py`: the same directory
+and JSONL layout per prompt index,
+
+    {output_root}/{index:05d}/
+        metadata.jsonl
+        samples/                  {round}_round@{seed}.png
+
+and `save_image` writes PNG with the standard library (zlib + struct), so the
+port needs no imaging package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import struct
+import zlib
+from dataclasses import dataclass
+
+import numpy as np
+
+_PNG_COLOR_TYPE = {1: 0, 3: 2, 4: 6}  # channels -> grey, RGB, RGBA
+
+
+def round_image_name(round_idx: int, seed: int) -> str:
+    return f"{round_idx}_round@{seed}.png"
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
+
+
+def encode_png(image: np.ndarray) -> bytes:
+    """uint8 (H, W), (H, W, 3) or (H, W, 4) -> PNG bytes (8-bit, no filter)."""
+    img = np.asarray(image)
+    if img.dtype != np.uint8:
+        raise TypeError(f"PNG encoding takes uint8, got {img.dtype}")
+    if img.ndim == 2:
+        img = img[:, :, None]
+    if img.ndim != 3 or img.shape[2] not in _PNG_COLOR_TYPE:
+        raise ValueError(f"PNG encoding takes (H, W[, 1|3|4]) images, got {image.shape}")
+    h, w, c = img.shape
+    # each scanline starts with filter type 0 (None)
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOR_TYPE[c], 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
+            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _png_chunk(b"IEND", b""))
+
+
+def save_image(path: str, image: np.ndarray) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(encode_png(image))
+
+
+@dataclass
+class PromptDirs:
+    root: str
+
+    @classmethod
+    def create(cls, output_root: str, prompt_index: int) -> "PromptDirs":
+        d = cls(os.path.join(output_root, f"{prompt_index:05d}"))
+        os.makedirs(d.samples, exist_ok=True)
+        return d
+
+    @property
+    def samples(self):
+        return os.path.join(self.root, "samples")
+
+    @property
+    def metadata(self):
+        return os.path.join(self.root, "metadata.jsonl")
+
+    def append_metadata(self, datapoint: dict) -> None:
+        with open(self.metadata, "a") as f:
+            f.write(json.dumps(datapoint) + "\n")

@@ -1,0 +1,158 @@
+"""Weight bridge: the JAX package's parameter trees -> this package's state dicts.
+
+The inverse of `reflectionflow_tpu/utils/hf_convert.py`: linear weights go
+back from (in, out) to torch's (out, in), per-block stacks are unstacked, and
+HWIO convolutions go back to OIHW. Input leaves are numpy arrays (the caller
+moves them off JAX); outputs are CPU tensors for `load_state_dict`, whose
+keys are the diffusers/transformers names the converters read.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import CLIPTextConfig, FluxDiTConfig, T5Config
+
+
+def _t(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bf16 has no torch view
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))  # a contiguous, writable copy
+
+
+def _lin(sd: dict, name: str, p: dict, bias: bool = True) -> None:
+    sd[f"{name}.weight"] = _t(np.asarray(p["w"]).T)
+    if bias:
+        sd[f"{name}.bias"] = _t(p["b"])
+
+
+def _block(tree: dict, i: int) -> dict:
+    """Slice block i out of a tree of stacked leaves."""
+    return {k: _block(v, i) if isinstance(v, dict) else np.asarray(v)[i] for k, v in tree.items()}
+
+
+def dit_state_dict(params: dict, cfg: FluxDiTConfig) -> dict[str, torch.Tensor]:
+    """`flux_dit_init` / `convert_flux_dit_state` tree -> `FluxDiT` state dict."""
+    sd: dict[str, torch.Tensor] = {}
+    _lin(sd, "x_embedder", params["img_in"])
+    _lin(sd, "context_embedder", params["txt_in"])
+    embeds = [("timestep_embedder", "time_in"), ("text_embedder", "vector_in")]
+    if cfg.guidance_embeds:
+        embeds.append(("guidance_embedder", "guidance_in"))
+    for ours, theirs in embeds:
+        _lin(sd, f"time_text_embed.{ours}.linear_1", params[theirs]["fc1"])
+        _lin(sd, f"time_text_embed.{ours}.linear_2", params[theirs]["fc2"])
+    _lin(sd, "norm_out.linear", params["final_mod"])
+    _lin(sd, "proj_out", params["final_proj"])
+    for i in range(cfg.num_double_blocks):
+        bp, b = _block(params["double_blocks"], i), f"transformer_blocks.{i}"
+        a = bp["attn"]
+        _lin(sd, f"{b}.norm1.linear", bp["img_mod"])
+        _lin(sd, f"{b}.norm1_context.linear", bp["txt_mod"])
+        for ours, theirs in (("to_q", "q"), ("to_k", "k"), ("to_v", "v"),
+                             ("add_q_proj", "txt_q"), ("add_k_proj", "txt_k"),
+                             ("add_v_proj", "txt_v"), ("to_out.0", "out"),
+                             ("to_add_out", "txt_out")):
+            _lin(sd, f"{b}.attn.{ours}", a[theirs])
+        for ours, theirs in (("norm_q", "q_norm"), ("norm_k", "k_norm"),
+                             ("norm_added_q", "txt_q_norm"), ("norm_added_k", "txt_k_norm")):
+            sd[f"{b}.attn.{ours}.weight"] = _t(a[theirs]["scale"])
+        for ours, theirs in (("ff", "img_mlp"), ("ff_context", "txt_mlp")):
+            _lin(sd, f"{b}.{ours}.net.0.proj", bp[theirs]["fc1"])
+            _lin(sd, f"{b}.{ours}.net.2", bp[theirs]["fc2"])
+    for i in range(cfg.num_single_blocks):
+        bp, b = _block(params["single_blocks"], i), f"single_transformer_blocks.{i}"
+        a = bp["attn"]
+        _lin(sd, f"{b}.norm.linear", bp["mod"])
+        for ours, theirs in (("to_q", "q"), ("to_k", "k"), ("to_v", "v")):
+            _lin(sd, f"{b}.attn.{ours}", a[theirs])
+        sd[f"{b}.attn.norm_q.weight"] = _t(a["q_norm"]["scale"])
+        sd[f"{b}.attn.norm_k.weight"] = _t(a["k_norm"]["scale"])
+        _lin(sd, f"{b}.proj_mlp", bp["mlp_in"])
+        _lin(sd, f"{b}.proj_out", bp["out"])
+    return sd
+
+
+def t5_state_dict(params: dict, cfg: T5Config) -> dict[str, torch.Tensor]:
+    """`t5_encoder_init` / `convert_t5_state` tree -> `T5Encoder` state dict."""
+    sd = {
+        "shared.weight": _t(params["embed"]),
+        "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight": _t(params["rel_bias"]),
+        "encoder.final_layer_norm.weight": _t(params["final_ln"]["scale"]),
+    }
+    for i in range(cfg.num_layers):
+        bp, b = _block(params["blocks"], i), f"encoder.block.{i}"
+        sd[f"{b}.layer.0.layer_norm.weight"] = _t(bp["ln1"]["scale"])
+        for n in ("q", "k", "v", "o"):
+            _lin(sd, f"{b}.layer.0.SelfAttention.{n}", bp[n], bias=False)
+        sd[f"{b}.layer.1.layer_norm.weight"] = _t(bp["ln2"]["scale"])
+        for ours, theirs in (("wi_0", "wi0"), ("wi_1", "wi1"), ("wo", "wo")):
+            _lin(sd, f"{b}.layer.1.DenseReluDense.{ours}", bp[theirs], bias=False)
+    return sd
+
+
+def clip_state_dict(params: dict, cfg: CLIPTextConfig) -> dict[str, torch.Tensor]:
+    """`clip_text_init` / `convert_clip_text_state` tree -> `CLIPTextEncoder` state dict."""
+    pre = "text_model."
+    sd = {
+        f"{pre}embeddings.token_embedding.weight": _t(params["tok_embed"]),
+        f"{pre}embeddings.position_embedding.weight": _t(params["pos_embed"]),
+        f"{pre}final_layer_norm.weight": _t(params["final_ln"]["scale"]),
+        f"{pre}final_layer_norm.bias": _t(params["final_ln"]["bias"]),
+    }
+    for i in range(cfg.num_layers):
+        bp, b = _block(params["blocks"], i), f"{pre}encoder.layers.{i}"
+        for ours, theirs in (("layer_norm1", "ln1"), ("layer_norm2", "ln2")):
+            sd[f"{b}.{ours}.weight"] = _t(bp[theirs]["scale"])
+            sd[f"{b}.{ours}.bias"] = _t(bp[theirs]["bias"])
+        for ours, theirs in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"), ("out_proj", "o")):
+            _lin(sd, f"{b}.self_attn.{ours}", bp[theirs])
+        _lin(sd, f"{b}.mlp.fc1", bp["fc1"])
+        _lin(sd, f"{b}.mlp.fc2", bp["fc2"])
+    return sd
+
+
+def _conv(sd: dict, name: str, p: dict) -> None:
+    sd[f"{name}.weight"] = _t(np.asarray(p["w"]).transpose(3, 2, 0, 1))  # HWIO -> OIHW
+    sd[f"{name}.bias"] = _t(p["b"])
+
+
+def _gn(sd: dict, name: str, p: dict) -> None:
+    sd[f"{name}.weight"] = _t(p["scale"])
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _resnet(sd: dict, name: str, p: dict) -> None:
+    _gn(sd, f"{name}.norm1", p["norm1"])
+    _conv(sd, f"{name}.conv1", p["conv1"])
+    _gn(sd, f"{name}.norm2", p["norm2"])
+    _conv(sd, f"{name}.conv2", p["conv2"])
+    if "shortcut" in p:
+        _conv(sd, f"{name}.conv_shortcut", p["shortcut"])
+
+
+def vae_state_dict(decoder: dict) -> dict[str, torch.Tensor]:
+    """The `decoder` subtree of `vae_init` / `convert_flux_vae_state` ->
+    `FluxVAE` state dict (decoder keys)."""
+    sd: dict[str, torch.Tensor] = {}
+    d = "decoder"
+    _conv(sd, f"{d}.conv_in", decoder["conv_in"])
+    mid = decoder["mid"]
+    _resnet(sd, f"{d}.mid_block.resnets.0", mid["res1"])
+    _resnet(sd, f"{d}.mid_block.resnets.1", mid["res2"])
+    at, a = mid["attn"], f"{d}.mid_block.attentions.0"
+    _gn(sd, f"{a}.group_norm", at["norm"])
+    for ours, theirs in (("to_q", "q"), ("to_k", "k"), ("to_v", "v"), ("to_out.0", "out")):
+        # 1x1 conv (1, 1, C_in, C_out) -> Linear (C_out, C_in)
+        sd[f"{a}.{ours}.weight"] = _t(np.asarray(at[theirs]["w"])[0, 0].T)
+        sd[f"{a}.{ours}.bias"] = _t(at[theirs]["b"])
+    for i, block in enumerate(decoder["up"]):
+        for j, rp in enumerate(block["resnets"]):
+            _resnet(sd, f"{d}.up_blocks.{i}.resnets.{j}", rp)
+        if "up" in block:
+            _conv(sd, f"{d}.up_blocks.{i}.upsamplers.0.conv", block["up"])
+    _gn(sd, f"{d}.conv_norm_out", decoder["norm_out"])
+    _conv(sd, f"{d}.conv_out", decoder["conv_out"])
+    return sd

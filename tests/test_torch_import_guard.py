@@ -1,0 +1,38 @@
+"""The PyTorch port imports no JAX, no JAX-package module and none of the
+packages its target machine lacks: every port module, and the noise-scaling
+CLI's --help, run in a subprocess where those imports fail."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "reflectionflow_tpu", "pydantic", "PIL", "safetensors", "transformers")
+
+_SCRIPT = f"""
+import importlib, pkgutil, sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None  # any import of it now raises ImportError
+import reflectionflow_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+assert not any(n.split(".")[0] in {BLOCKED!r} for n in sys.modules if sys.modules[n] is not None)
+print(len(names))
+sys.argv = ["tts_t2i_noise_scaling", "--help"]
+from reflectionflow_tpu_torch.cli.tts_t2i_noise_scaling import main
+main()
+"""
+
+
+def test_port_imports_without_jax_and_friends():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    n_modules, rest = proc.stdout.split("\n", 1)
+    expected = sum(1 for m in pkgutil.walk_packages(
+        [os.path.join(REPO, "reflectionflow_tpu_torch")], "reflectionflow_tpu_torch."))
+    assert int(n_modules) == expected >= 20
+    assert "--synthetic_weights" in rest and "--attn_impl" in rest
