@@ -7,18 +7,35 @@ Run from the repository root with no arguments:
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. device: requires CUDA; prints `nvidia-smi` name and power limit;
-  2. build: compiles kernel K1 (`csrc/flash_fwd.cu`) into `.build/kernels/`;
+  2. build: compiles K1 (`csrc/flash_fwd.cu`), K3–K5 (`csrc/act_quant.cu`) and
+     K2 (`csrc/norm_rope.cu`) into `.build/kernels/`, one nvcc per source, all
+     started together;
   3. K1 against its plain PyTorch version on the card (fp32 reference), at
      the main-path shape (B=1, 2; L=4608; H=24; D=128), a ragged L, and the
      cross-segment bias forms; times both at the main-path shape;
-  4. main path: FLUX.1-dev at full width and depth, random bf16 weights from
-     a seeded CUDA generator, attn_impl="pallas", served through
+  4. K2–K5 against their plain versions on the card at every shape the W8A8
+     path gives them (strided panel slices included) and at a ragged
+     L = 4608 + 77; times each kernel and its plain version in turns at
+     each of those shapes but the ragged one, as device time (profiler) and
+     as time per call (CUDA events, host gaps included);
+  5. bf16 main path: FLUX.1-dev at full width and depth, random bf16 weights
+     from a seeded CUDA generator, attn_impl="pallas", served through
      `run_noise_scaling` (the noise-scaling CLI's function) for 2 prompts x 2
      candidates at 1024x1024, 8 Euler steps (cut from 30 to bound the run);
      checks finite latents, 4 PNGs of 1024x1024x3, and exactly
-     8 steps x 57 attention calls x 2 generate calls = 912 K1 launches; and a
-     full-width DiT forward on a small input agrees between K1 and the
-     plain attention.
+     8 steps x 57 attention calls x 2 generate calls = 912 K1 launches (and no
+     K2–K5 launch); and a full-width DiT forward on a small input agrees
+     between K1 and the plain attention;
+  6. W8A8 main path: the same pipeline quantized in place with the CLI's int8
+     profile (`pipe.quantize(int4=(), weight_only=("t5",))`: fused, split-RoPE
+     W8A8 DiT + w8a16 T5), served the same way; checks finite latents, 4 PNGs
+     and exactly 912 K1, 2432 K2, 1824 K3, 1216 K4 and 1216 K5 launches; a
+     full-width W8A8 DiT forward on a small input agrees between the fused path
+     (K1–K5) and the plain "xla" serving path (cosine >= 0.999); the same at
+     lengths that are not multiples of 8 (a served 1008x1008 generate call with
+     77 text tokens must launch K1–K5 once per W8A8 linear, as at 1024px, and
+     a small ragged forward must agree with the plain path); and a profiler
+     split of one W8A8 step at B=2.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -37,7 +54,19 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_TOL, LSE_TOL = 1e-2, 1e-3  # K1 (bf16 out, fp32 lse) against the fp32 plain version
 DIT_REL_TOL = 3e-2  # bf16 DiT forward, K1 vs plain attention, relative to max |output|
+NR_REL, NR_ABS = 7.9e-3, 1e-3  # K2: |err| <= NR_REL * |ref| + NR_ABS (two bf16 ulps)
+Q_SCALE_RTOL, Q_MISMATCH = 1e-5, 1e-3  # K3/K4: scale rtol; |dq| <= 1 on <= 0.1% of values
+W8A8_COS = 0.999  # full-width W8A8 DiT, fused path vs plain serving path
 STEPS, N_PROMPTS, BRANCH = 8, 2, 2
+H, M, D, LT, LI = 3072, 12288, 128, 512, 4096  # FLUX.1-dev widths; txt and img tokens at 1024px
+HBM_TBS = 3.35  # H100 SXM HBM3, TB/s (data sheet)
+PQ = "reflectionflow_tpu/ops/pallas_quant.py"
+KERNELS = (  # name, source, TPU kernel it replaces
+    ("norm_rope", "norm_rope.cu", f"{PQ}:116"),
+    ("adaln_quant", "act_quant.cu", f"{PQ}:32"),
+    ("gelu_quant", "act_quant.cu", f"{PQ}:44"),
+    ("rowquant", "act_quant.cu", f"{PQ}:52"),
+)
 
 
 def log(msg: str) -> None:
@@ -70,6 +99,44 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def in_turns(torch, kern, plain, k_iters: int, p_iters: int):
+    """(kernel ms, plain ms), timed plain, kernel, kernel, plain."""
+    p1, k1, k2, p2 = (cuda_ms(torch, plain, p_iters), cuda_ms(torch, kern, k_iters),
+                      cuda_ms(torch, kern, k_iters), cuda_ms(torch, plain, p_iters))
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def profiled(torch, fn):
+    """[(kernel name, self device µs)] of the device kernels `fn()` ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            out.append((evt.key, us))
+    return out
+
+
+def device_ms(torch, fn, iters: int) -> float:
+    """Device time per call: the kernels' own durations, without the host's
+    gaps between launches (which a short kernel's event timing includes)."""
+    fn()
+
+    def loop():
+        for _ in range(iters):
+            fn()
+
+    us = sum(t for _, t in profiled(torch, loop))
+    check(us > 0, "the profiler saw no device time")
+    return us / 1e3 / iters
+
+
 def k1_phase(torch):
     from reflectionflow_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_ref
 
@@ -98,18 +165,123 @@ def k1_phase(torch):
         times = {}
         for B in (1, 2):
             q, k, v = qkv(B, 4608)
-            kern = lambda: flash_attention_fwd(q, k, v)  # noqa: E731
-            plain = lambda: flash_attention_ref(q, k, v)  # noqa: E731
-            # in turns: plain, kernel, kernel, plain
-            p1, k1, k2, p2 = (cuda_ms(torch, plain, 5), cuda_ms(torch, kern, 20),
-                              cuda_ms(torch, kern, 20), cuda_ms(torch, plain, 5))
-            times[B] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            times[B] = in_turns(torch, lambda: flash_attention_fwd(q, k, v),  # noqa: B023
+                                lambda: flash_attention_ref(q, k, v), 20, 5)  # noqa: B023
             flops = 4 * 4608 * 4608 * 128 * 24 * B
             log(f"K1 B={B} L=4608: kernel {times[B][0]:.4f} ms ({flops / times[B][0] / 1e9:.1f} TFLOP/s), "
                 f"plain {times[B][1]:.4f} ms")
             del q, k, v
     torch.cuda.empty_cache()
     return err_out, err_lse, times
+
+
+def fused_phase(torch):
+    """K2–K5 against their plain versions at the W8A8 path's shapes, each timed
+    there against its plain version; the result line keeps the B=2, L=4608
+    single-block shape."""
+    from reflectionflow_tpu_torch.ops import fused_quant as fq
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    def tables(L):
+        ang = torch.rand((L, D // 2), generator=gen, device="cuda") * 6.283
+        return (torch.cat([ang.cos()] * 2, -1).to(torch.bfloat16),
+                torch.cat([ang.sin()] * 2, -1).to(torch.bfloat16))
+
+    res = {name: {"err": 0.0, "by_shape": {}} for name, _, _ in KERNELS}
+
+    def timed(name, label, kern, plain, nbytes):
+        """Kernel and plain version in turns, per call: device time (the
+        kernels' own durations, from the profiler) and event time (which
+        includes the host's gaps between launches when the wrapper's host
+        work outlasts the kernel). nbytes is what the kernel must read and
+        write; GB/s is taken over device time. Inputs up to ~50 MB may stay in
+        the 50 MB L2 across the repeated calls."""
+        ev_ms, ev_plain_ms = in_turns(torch, kern, plain, 50, 5)
+        p1, k1, k2, p2 = (device_ms(torch, plain, 5), device_ms(torch, kern, 20),
+                          device_ms(torch, kern, 20), device_ms(torch, plain, 5))
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        gbps = nbytes / ms / 1e6
+        res[name]["by_shape"][label] = {"ms": ms, "plain_ms": plain_ms, "gbps": gbps,
+                                        "event_ms": ev_ms, "plain_event_ms": ev_plain_ms}
+        if label.endswith(f"L={LT + LI}"):  # the single-block shape: the result line's numbers
+            res[name].update(ms=ms, plain_ms=plain_ms, gbps=gbps)
+        log(f"  {name} {label}: device {ms:.4f} ms ({gbps:.0f} GB/s, {gbps / (HBM_TBS * 1e3):.1%} "
+            f"of {HBM_TBS} TB/s), plain {plain_ms:.4f} ms; per call with host gaps "
+            f"{ev_ms:.4f} ms, plain {ev_plain_ms:.4f} ms")
+
+    def check_quant(name, got, ref, exact):
+        (q, s), (rq, rs) = got, ref
+        torch.cuda.synchronize()
+        dq = (q.int() - rq.int()).abs()
+        frac = (dq > 0).float().mean().item()
+        s_rel = ((s - rs).abs() / rs).max().item()
+        if exact:
+            ok = torch.equal(q, rq) and torch.equal(s, rs)
+        else:
+            ok = dq.max().item() <= 1 and frac <= Q_MISMATCH and s_rel <= Q_SCALE_RTOL
+        r = res[name]
+        r["err"] = max(r["err"], float(dq.max().item()))
+        r["scale_rel_err"] = max(r.get("scale_rel_err", 0.0), s_rel)
+        r["mismatch_frac"] = max(r.get("mismatch_frac", 0.0), frac)
+        return ok, f"max|dq| {dq.max().item()}, differing {frac:.2e}, scale rel err {s_rel:.2e}"
+
+    with torch.no_grad():
+        # K2 on the k slice of the qkv panel (row stride 3H) or of in_proj (3H + M);
+        # the img stream reads the joint table from row LT on
+        for L, row, table_off in ((LT, 3 * H, 0), (LI, 3 * H, LT), (LT + LI, 3 * H + M, 0),
+                                  (LT + LI + 77, 3 * H + M, 0)):
+            x = randn(2, L, row)[..., H:2 * H]
+            scale = (1.0 + 0.1 * randn(D)).contiguous()
+            cos, sin = (t[table_off:] for t in tables(L + table_off))
+            got = fq.norm_rope(x, scale, cos, sin)
+            ref = fq.norm_rope_ref(x, scale, cos, sin)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs()
+            ok = bool((err <= NR_REL * ref.float().abs() + NR_ABS).all())
+            res["norm_rope"]["err"] = max(res["norm_rope"]["err"], err.max().item())
+            log(f"K2 x (2, {L}, {H}) row stride {row}: max|err| {err.max().item():.3e}, "
+                f"bit-identical {torch.equal(got, ref)}")
+            check(ok, f"K2 disagrees with its plain version at L={L}")
+            if L <= LT + LI:  # bytes: the slice read and the output written, bf16
+                timed("norm_rope", f"row stride {row} L={L}", lambda: fq.norm_rope(x, scale, cos, sin),
+                      lambda: fq.norm_rope_ref(x, scale, cos, sin), 2 * (2 * L * H * 2))
+        for L in (LT, LI, LT + LI, LT + LI + 77):
+            x = randn(2, L, H, scale=2.0)
+            mod = randn(2, 6 * H, scale=0.5)  # shift/scale: strided chunks of the modulation output
+            shift, scale = mod[:, H:2 * H], mod[:, 4 * H:5 * H]
+            ok, msg = check_quant("adaln_quant", fq.adaln_quant(x, shift, scale),
+                                  fq.adaln_quant_ref(x, shift, scale), False)
+            log(f"K3 x (2, {L}, {H}): {msg}")
+            check(ok, f"K3 disagrees with its plain version at L={L}")
+            if L <= LT + LI:  # bytes: bf16 read, int8 written
+                timed("adaln_quant", f"L={L}", lambda: fq.adaln_quant(x, shift, scale),
+                      lambda: fq.adaln_quant_ref(x, shift, scale), 3 * L * H * 2)
+        for L, row in ((LT, M), (LI, M), (LT + LI, 3 * H + M), (LT + LI + 77, 3 * H + M)):
+            x = randn(2, L, row, scale=2.0)[..., row - M:]  # single blocks: fused[..., 3H:]
+            ok, msg = check_quant("gelu_quant", fq.gelu_quant(x), fq.gelu_quant_ref(x), False)
+            log(f"K4 x (2, {L}, {M}) row stride {row}: {msg}")
+            check(ok, f"K4 disagrees with its plain version at L={L}")
+            if L <= LT + LI:
+                timed("gelu_quant", f"row stride {row} L={L}", lambda: fq.gelu_quant(x),
+                      lambda: fq.gelu_quant_ref(x), 3 * L * M * 2)
+        joint = randn(2, LT + LI, 24, D)  # K1's output; the out-projections read views of it
+        for label, x in (("joint[:, :512]", joint[:, :LT].flatten(2)),
+                         ("joint[:, 512:]", joint[:, LT:].flatten(2)),
+                         ("joint", joint.flatten(2)),
+                         ("ragged", randn(2, LT + LI + 77, H))):
+            ok, msg = check_quant("rowquant", fq.rowquant(x), fq.rowquant_ref(x), True)
+            log(f"K5 {label} {tuple(x.shape)}: {msg}")
+            check(ok, f"K5 is not bit-exact against its plain version on {label}")
+            if label != "ragged":
+                timed("rowquant", f"{label} L={x.shape[1]}", lambda: fq.rowquant(x),
+                      lambda: fq.rowquant_ref(x), 3 * x.shape[1] * H * 2)
+    del x, joint
+    torch.cuda.empty_cache()
+    return res
 
 
 def read_png_header(path: str):
@@ -120,21 +292,19 @@ def read_png_header(path: str):
     return w, h, depth, color
 
 
-def main_path_phase(torch):
-    from reflectionflow_tpu_torch.config import TTSConfig
+def _counters():
+    from reflectionflow_tpu_torch.ops import fused_quant as fq
     from reflectionflow_tpu_torch.ops.flash_attention import flash_attention_fwd
-    from reflectionflow_tpu_torch.sampler.pipeline import FluxPipeline
+
+    return {"flash_fwd": flash_attention_fwd, **{n: getattr(fq, n) for n, _, _ in KERNELS}}
+
+
+def serve(torch, pipe, label: str):
+    """run_noise_scaling over 2 prompts x 2 candidates with every launch count
+    set to 0 just before and read just after; checks latents and PNGs."""
+    from reflectionflow_tpu_torch.config import TTSConfig
     from reflectionflow_tpu_torch.search.noise_scaling import run_noise_scaling
     from reflectionflow_tpu_torch.utils.timing import PhaseTimer
-
-    t0 = time.perf_counter()
-    pipe = FluxPipeline.random_init(torch.Generator(device="cuda").manual_seed(0),
-                                    dtype=torch.bfloat16, device="cuda")
-    pipe.attn_impl = "pallas"
-    torch.cuda.synchronize()
-    n_params = {name: sum(p.numel() for p in getattr(pipe, name).parameters())
-                for name in ("dit", "t5", "clip", "vae")}
-    log(f"random_init {time.perf_counter() - t0:.1f} s, params {n_params}")
 
     cfg = TTSConfig.load(os.path.join(REPO, "configs", "flux.1_dev_fake.json"))
     cfg.search_args.search_rounds = 1
@@ -161,7 +331,7 @@ def main_path_phase(torch):
         t_c = time.perf_counter()
         check(tuple(lat.shape) == (len(flux_prompts), (kw["height"] // 16) * (kw["width"] // 16), 64),
               f"latents shape {tuple(lat.shape)}")
-        check(bool(torch.isfinite(lat).all()), "non-finite final latents")
+        check(bool(torch.isfinite(lat).all()), f"{label}: non-finite final latents")
         images = pipe.decode_latents(lat, kw["height"], kw["width"])
         t_d = time.perf_counter()
         calls.append({"encode_s": t_b - t_a, "denoise_s": t_c - t_b, "decode_s": t_d - t_c})
@@ -169,11 +339,13 @@ def main_path_phase(torch):
 
     pipe.generate = generate_checked
     timer = PhaseTimer()
+    counters = _counters()
     with tempfile.TemporaryDirectory() as out_dir:
         torch.cuda.reset_peak_memory_stats()
-        flash_attention_fwd.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
         run_noise_scaling(pipe, cfg, prompts, out_dir, timer=timer)
-        launches = flash_attention_fwd.launches
+        launches = {name: fn.launches for name, fn in counters.items()}
         peak = torch.cuda.max_memory_allocated()
         pngs = sorted(os.path.join(dp, f) for dp, _, fs in os.walk(out_dir) for f in fs
                       if f.endswith(".png"))
@@ -181,37 +353,170 @@ def main_path_phase(torch):
         meta_rows = sum(1 for dp, _, fs in os.walk(out_dir) for f in fs if f == "metadata.jsonl")
     pipe.generate = generate
 
-    expected = STEPS * (pipe.dit_cfg.num_double_blocks + pipe.dit_cfg.num_single_blocks) * N_PROMPTS
-    log(f"K1 launches in the main path: {launches} (expected {expected})")
-    check(launches == expected, "the main path did not run K1 the expected number of times")
     check(len(pngs) == N_PROMPTS * BRANCH and meta_rows == N_PROMPTS,
-          f"{len(pngs)} PNGs and {meta_rows} metadata files written")
+          f"{label}: {len(pngs)} PNGs and {meta_rows} metadata files written")
     check(all(h == (pa.width, pa.height, 8, 2) for h in headers), f"PNG headers {headers}")
     for i, c in enumerate(calls):
-        log(f"generate call {i}: encode {c['encode_s']:.3f} s, denoise {c['denoise_s']:.3f} s "
-            f"({c['denoise_s'] / STEPS:.3f} s/step, B={BRANCH}), decode {c['decode_s']:.3f} s")
-    gen_spans = timer.spans["generate"]
-    log(f"per-call seconds (generate span): {[round(s, 3) for s in gen_spans]}; "
-        f"peak device memory {peak / 2**30:.2f} GiB")
+        log(f"{label} generate call {i}: encode {c['encode_s']:.3f} s, denoise {c['denoise_s']:.3f} s "
+            f"({c['denoise_s'] / STEPS:.4f} s/step, B={BRANCH}), decode {c['decode_s']:.3f} s")
+    log(f"{label} per-call seconds (generate span): {[round(s, 3) for s in timer.spans['generate']]}; "
+        f"peak device memory {peak / 2**30:.2f} GiB; launches {launches}")
+    return launches, calls, peak
 
-    # the whole DiT at full width on a small input: K1 against the plain attention
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    cfg_d = pipe.dit_cfg
-    img = torch.randn((1, 256, cfg_d.in_channels), generator=gen, device="cuda").to(torch.bfloat16)
-    txt = torch.randn((1, 64, cfg_d.text_dim), generator=gen, device="cuda").to(torch.bfloat16)
-    pooled = torch.randn((1, cfg_d.pooled_dim), generator=gen, device="cuda").to(torch.bfloat16)
+
+def small_dit_inputs(torch, cfg_d, B=1, ty=16, tx=16, lt=64, seed=1):
     from reflectionflow_tpu_torch.models.flux.rope import make_image_ids, make_text_ids
 
-    args = (img, txt, pooled, torch.full((1,), 0.5, dtype=torch.bfloat16, device="cuda"),
-            torch.from_numpy(make_image_ids(16, 16)).cuda(), torch.from_numpy(make_text_ids(64)).cuda())
-    g = torch.full((1,), 3.5, dtype=torch.bfloat16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bf = torch.bfloat16
+    args = (torch.randn((B, ty * tx, cfg_d.in_channels), generator=gen, device="cuda").to(bf),
+            torch.randn((B, lt, cfg_d.text_dim), generator=gen, device="cuda").to(bf),
+            torch.randn((B, cfg_d.pooled_dim), generator=gen, device="cuda").to(bf),
+            torch.full((B,), 0.5, dtype=bf, device="cuda"),
+            torch.from_numpy(make_image_ids(ty, tx)).cuda(), torch.from_numpy(make_text_ids(lt)).cuda())
+    return args, torch.full((B,), 3.5, dtype=bf, device="cuda")
+
+
+def bf16_phase(torch):
+    from reflectionflow_tpu_torch.sampler.pipeline import FluxPipeline
+
+    t0 = time.perf_counter()
+    pipe = FluxPipeline.random_init(torch.Generator(device="cuda").manual_seed(0),
+                                    dtype=torch.bfloat16, device="cuda")
+    pipe.attn_impl = "pallas"
+    torch.cuda.synchronize()
+    n_params = {name: sum(p.numel() for p in getattr(pipe, name).parameters())
+                for name in ("dit", "t5", "clip", "vae")}
+    log(f"random_init {time.perf_counter() - t0:.1f} s, params {n_params}")
+
+    launches, calls, peak = serve(torch, pipe, "bf16")
+    n_blocks = pipe.dit_cfg.num_double_blocks + pipe.dit_cfg.num_single_blocks
+    expected = {"flash_fwd": STEPS * n_blocks * N_PROMPTS, "norm_rope": 0, "adaln_quant": 0,
+                "gelu_quant": 0, "rowquant": 0}
+    log(f"bf16 launches in the main path: {launches} (expected {expected})")
+    check(launches == expected, "the bf16 main path did not run K1 the expected number of times")
+
+    # the whole DiT at full width on a small input: K1 against the plain attention
+    args, g = small_dit_inputs(torch, pipe.dit_cfg)
     with torch.no_grad():
         v_k1 = pipe.dit(*args, guidance=g, attn_impl="pallas").float()
         v_plain = pipe.dit(*args, guidance=g, attn_impl="xla").float()
     rel = ((v_k1 - v_plain).abs().max() / v_plain.abs().max()).item()
     log(f"DiT forward (full width, L=320): max|K1 - plain| / max|plain| = {rel:.3e} (tol {DIT_REL_TOL})")
     check(bool(torch.isfinite(v_k1).all()) and rel <= DIT_REL_TOL, "DiT with K1 disagrees with plain attention")
-    return launches, calls, gen_spans, peak
+    return pipe, launches, calls, peak
+
+
+def profile_step(torch, pipe):
+    """Device time of one W8A8 DiT forward at B=2, 1024px, by kernel family."""
+    args, g = small_dit_inputs(torch, pipe.dit_cfg, B=2, ty=64, tx=64, lt=LT, seed=3)
+    kw = dict(guidance=g, attn_impl="pallas", rope_layout="split")
+    wall = []
+
+    def step():
+        t0 = time.perf_counter()
+        pipe.dit(*args, **kw)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+
+    with torch.no_grad():
+        pipe.dit(*args, **kw)
+        torch.cuda.synchronize()
+        events = profiled(torch, step)
+    wall = wall[0]
+    groups: dict[str, float] = {}
+    other: dict[str, float] = {}
+    for key, us in events:
+        name = key.lower()
+        if "flash_fwd" in name:
+            grp = "K1 flash_fwd"
+        elif "norm_rope" in name:
+            grp = "K2 norm_rope"
+        elif "act_quant" in name:
+            grp = "K3-K5 act_quant"
+        elif any(s in name for s in ("gemm", "xmma", "cutlass", "imma", "nvjet")):
+            grp = "int8 GEMM" if any(s in name for s in ("s8", "i8", "int8", "imma")) else "bf16 GEMM"
+        else:
+            grp = "other"
+            other[key[:90]] = other.get(key[:90], 0.0) + us
+        groups[grp] = groups.get(grp, 0.0) + us
+    busy = sum(groups.values()) / 1e3
+    log(f"W8A8 step profile (B=2, L={LT}+{LI}): wall {wall * 1e3:.1f} ms, device kernels {busy:.1f} ms "
+        f"({busy / (wall * 1e3):.1%} busy)")
+    for grp, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"  {grp}: {us / 1e3:.2f} ms ({us / 1e3 / busy:.1%})")
+    for name, us in sorted(other.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    other: {us / 1e3:.2f} ms  {name}")
+    return {"wall_ms": wall * 1e3, "device_ms": busy, **{k: v / 1e3 for k, v in groups.items()}}
+
+
+def w8a8_phase(torch, pipe):
+    from reflectionflow_tpu_torch.ops.quant import QuantLinear
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.quantize(int4=(), weight_only=("t5",))  # the CLI's --quantize int8 profile
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    modes = {name: [m.act_quant for m in getattr(pipe, name).modules() if isinstance(m, QuantLinear)]
+             for name in ("dit", "t5")}
+    log(f"quantize {time.perf_counter() - t0:.1f} s: DiT {sum(modes['dit'])} W8A8 + "
+        f"{len(modes['dit']) - sum(modes['dit'])} w8a16 linears, T5 {len(modes['t5'])} w8a16; "
+        f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    check(pipe.rope_layout == "split" and all(modes["dit"]) and modes["t5"] and not any(modes["t5"]),
+          "pipe.quantize did not make the W8A8 serving layout")
+
+    launches, calls, peak = serve(torch, pipe, "w8a8")
+    cfg_d = pipe.dit_cfg
+    nd, ns = cfg_d.num_double_blocks, cfg_d.num_single_blocks
+    per_forward = {"flash_fwd": nd + ns, "norm_rope": 4 * nd + 2 * ns, "adaln_quant": 4 * nd + ns,
+                   "gelu_quant": 2 * nd + ns, "rowquant": 2 * nd + ns}
+    expected = {k: v * STEPS * N_PROMPTS for k, v in per_forward.items()}
+    log(f"W8A8 launches in the main path: {launches} (expected {expected})")
+    check(launches == expected, "the W8A8 main path did not run K1–K5 the expected number of times")
+
+    # the whole W8A8 DiT at full width on a small input: fused (K1–K5) vs plain serving path
+    args, g = small_dit_inputs(torch, cfg_d)
+    with torch.no_grad():
+        v_fused = pipe.dit(*args, guidance=g, attn_impl="pallas", rope_layout="split").float()
+        v_plain = pipe.dit(*args, guidance=g, attn_impl="xla", rope_layout="split").float()
+    cos = torch.nn.functional.cosine_similarity(v_fused.flatten(), v_plain.flatten(), dim=0).item()
+    log(f"W8A8 DiT forward (full width, L=320): cosine(fused, plain serving path) = {cos:.6f} "
+        f"(min {W8A8_COS})")
+    check(bool(torch.isfinite(v_fused).all()) and cos >= W8A8_COS,
+          "the fused W8A8 DiT disagrees with the plain serving path")
+    ragged = ragged_phase(torch, pipe, per_forward)
+    return launches, calls, peak, profile_step(torch, pipe), ragged
+
+
+def ragged_phase(torch, pipe, per_forward):
+    """The W8A8 path at lengths that are not multiples of 8, where the JAX
+    package's gate leaves its fused kernels: one served `generate` call at
+    1008x1008 (3969 image tokens) with 77 text tokens, one Euler step, B=2,
+    must launch K1–K5 as often as one forward at 1024px does; and a full-width
+    forward at such lengths agrees between the fused and plain serving paths."""
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    lat = pipe.generate(["a photo of a red cube", "a photo of a blue sphere"], height=1008, width=1008,
+                        num_inference_steps=1, max_sequence_length=77, seed=0, output_type="latent")
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"W8A8 ragged generate (L=77+3969): launches {launches} (expected {per_forward})")
+    check(tuple(lat.shape) == (2, 63 * 63, 64) and bool(torch.isfinite(lat).all()),
+          "the ragged W8A8 generate gave bad latents")
+    check(launches == per_forward, "the ragged W8A8 generate did not run K1–K5 once per linear")
+
+    args, g = small_dit_inputs(torch, pipe.dit_cfg, ty=15, tx=15, lt=77, seed=4)
+    with torch.no_grad():
+        v_fused = pipe.dit(*args, guidance=g, attn_impl="pallas", rope_layout="split").float()
+        v_plain = pipe.dit(*args, guidance=g, attn_impl="xla", rope_layout="split").float()
+    cos = torch.nn.functional.cosine_similarity(v_fused.flatten(), v_plain.flatten(), dim=0).item()
+    log(f"W8A8 DiT forward (full width, L=77+225): cosine(fused, plain serving path) = {cos:.6f} "
+        f"(min {W8A8_COS})")
+    check(bool(torch.isfinite(v_fused).all()) and cos >= W8A8_COS,
+          "the fused W8A8 DiT disagrees with the plain serving path at ragged lengths")
+    return {"launches": launches, "cosine": cos}
 
 
 def main() -> int:
@@ -222,24 +527,41 @@ def main() -> int:
     from reflectionflow_tpu_torch.ops import kernel_build
 
     t0 = time.perf_counter()
-    kernel_build.build("flash_fwd.cu")
-    log(f"build K1: {time.perf_counter() - t0:.2f} s")
+    kernel_build.build_all()
+    log(f"build {', '.join(kernel_build.SOURCES)} (in parallel): {time.perf_counter() - t0:.2f} s")
     err_out, err_lse, times = k1_phase(torch)
-    launches, _, _, _ = main_path_phase(torch)
-    kernels = {"kernels": [{
+    fused = fused_phase(torch)
+    pipe, bf16_launches, bf16_calls, bf16_peak = bf16_phase(torch)
+    w8_launches, w8_calls, w8_peak, prof, ragged = w8a8_phase(torch, pipe)
+    step = {name: calls[-1]["denoise_s"] / STEPS for name, calls in (("bf16", bf16_calls),
+                                                                      ("w8a8", w8_calls))}
+    log(f"s/step at B={BRANCH} (second call): bf16 {step['bf16']:.4f}, W8A8 {step['w8a8']:.4f}; "
+        f"peak device memory bf16 {bf16_peak / 2**30:.2f} GiB, W8A8 {w8_peak / 2**30:.2f} GiB")
+    kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "reflectionflow_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "reflectionflow_tpu/ops/pallas_attention.py:63",
-        "launches": launches,
+        "launches": bf16_launches["flash_fwd"],
+        "launches_w8a8": w8_launches["flash_fwd"],
         "max_abs_err": err_out,
         "lse_max_abs_err": err_lse,
         "ms": times[2][0],
         "plain_ms": times[2][1],
         "ms_b1": times[1][0],
         "plain_ms_b1": times[1][1],
-    }]}
-    log(json.dumps(kernels))
+    }]
+    for name, source, replaces in KERNELS:
+        r = fused[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"reflectionflow_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": w8_launches[name],
+            "launches_ragged": ragged["launches"][name], "max_abs_err": r["err"],
+            **{k: r[k] for k in ("scale_rel_err", "mismatch_frac") if k in r},
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "gbps": r["gbps"], "by_shape": r["by_shape"],
+        })
+    log(json.dumps({"kernels": kernels, "s_per_step": step, "w8a8_step_profile_ms": prof,
+                    "peak_gib": {"bf16": bf16_peak / 2**30, "w8a8": w8_peak / 2**30}}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -1,8 +1,13 @@
 """Shared CLI plumbing for the port's tts_* entry points.
 
 Counterpart of `reflectionflow_tpu/cli/common.py`, with the same flags. The
-port runs the bf16 text-to-image path; options that select later ROADMAP
-slices raise `NotImplementedError` naming the slice.
+port runs the bf16 text-to-image path and, with `--quantize int8`, the W8A8
+serving profile; options that select later ROADMAP slices raise
+`NotImplementedError` naming the slice.
+
+One divergence: the int8 profile keeps T5 resident and does not phase-swap it
+(the JAX package offloads it to fit a 16 GB chip; the card has 80 GB). That
+changes memory orchestration only, never outputs.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import torch
 
 from ..config import CLIPTextConfig, FluxDiTConfig, FluxVAEConfig, T5Config, TTSConfig
 from ..ops.attention import check_impl
+from ..ops.quant import NF4_NOT_PORTED
 from ..sampler.pipeline import FluxPipeline
 
 
@@ -37,11 +43,13 @@ def build_parser(description: str) -> argparse.ArgumentParser:
         "kernel K1 on CUDA tensors; the other pallas_* impls are not ported yet",
     )
     p.add_argument("--quantize", type=str, default=None, choices=["none", "int8"],
-                   help="int8 (W8A8) is not ported yet (ROADMAP slice 2)")
+                   help="int8: W8A8 DiT in the fused split-RoPE serving layout + w8a16 T5; "
+                   "unset -> the config's pipeline_args.quantize; none turns it off")
     p.add_argument("--phase_swap", action="store_true",
                    help="not ported: text-encoder offload is a 16 GB-device measure")
     p.add_argument("--act_quant_exclude", type=str, nargs="*", default=[],
-                   help="W8A8 option; not ported yet (ROADMAP slice 2)")
+                   help="JAX tree-path substrings (e.g. _mod) of DiT linears kept weight-only "
+                   "int8 (w8a16) under --quantize int8")
     p.add_argument("--compilation_cache", type=str, default=None,
                    help="accepted for flag compatibility; PyTorch runs eagerly")
     return p
@@ -79,12 +87,42 @@ def print_throughput(timer, pipe) -> None:
         print(f"candidates/sec/chip: {rate:.4f} ({timer.counts['candidates']} candidates, 1 chip(s))")
 
 
+def _int8_profile(pa) -> None:
+    """Validate the int8 serving profile's t5_quant/dit_quant as the JAX CLI
+    does; the NF4 profiles (ROADMAP item 12) raise NotImplementedError."""
+    t5_mode, dit_mode = pa.t5_quant, pa.dit_quant
+    if t5_mode not in (None, "int4", "int8"):
+        raise ValueError(
+            f"pipeline_args.t5_quant={t5_mode!r}: expected 'int8' (w8a16, "
+            "phase-swap fast encode) or 'int4' (packed NF4, co-residency)")
+    if dit_mode not in ("int8", "int8_int4mlp"):
+        raise ValueError(
+            f"pipeline_args.dit_quant={dit_mode!r}: expected 'int8' (full "
+            "W8A8 + phase swap) or 'int8_int4mlp' (NF4 MLP co-residency)")
+    if dit_mode == "int8_int4mlp" and t5_mode == "int8":
+        raise ValueError(
+            "pipeline_args.t5_quant='int8' cannot combine with "
+            "dit_quant='int8_int4mlp': the 4.8 GB w8a16 T5 does not "
+            "co-reside with the DiT on 16 GB — use t5_quant='int4' or "
+            "leave it unset")
+    if dit_mode == "int8_int4mlp" or t5_mode == "int4":
+        raise NotImplementedError(
+            f"dit_quant={dit_mode!r}, t5_quant={t5_mode!r}: {NF4_NOT_PORTED}")
+
+
 def load_pipeline(cfg: TTSConfig, args) -> FluxPipeline:
     pa = cfg.pipeline_args
     cli_quant = getattr(args, "quantize", None)
     quantize = pa.quantize if cli_quant is None else (None if cli_quant == "none" else cli_quant)
-    if quantize is not None:
-        raise NotImplementedError(f"quantize={quantize!r} (W8A8 DiT, int8/NF4 T5) is ROADMAP slice 2")
+    if quantize == "int8":
+        _int8_profile(pa)
+    elif cli_quant is None and (pa.t5_quant or pa.dit_quant != "int8"):
+        # the quant fields only act under quantize="int8": set without it, the
+        # profile is misconfigured; an explicit --quantize none is allowed
+        raise ValueError(
+            f"pipeline_args sets t5_quant={pa.t5_quant!r} / dit_quant={pa.dit_quant!r} but "
+            f"quantization is disabled (quantize={quantize!r}) — set pipeline_args.quantize="
+            "'int8' or remove the quant fields (use --quantize none to force a bf16 run)")
     if getattr(args, "phase_swap", False):
         raise NotImplementedError("--phase_swap offloads text encoders for 16 GB devices; "
                                   "it is on the ROADMAP's do-not-port list")
@@ -109,4 +147,8 @@ def load_pipeline(cfg: TTSConfig, args) -> FluxPipeline:
         dtype=torch.float32,
     )
     pipe.attn_impl = attn_impl
+    if quantize == "int8":
+        # the JAX int8 profile; T5 stays resident (no phase swap)
+        pipe.quantize(act_quant_exclude=tuple(getattr(args, "act_quant_exclude", None) or ()),
+                      int4=(), weight_only=("t5",))
     return pipe

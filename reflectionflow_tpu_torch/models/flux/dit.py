@@ -1,21 +1,35 @@
-"""FLUX.1 rectified-flow DiT in PyTorch: the plain text-to-image forward.
+"""FLUX.1 rectified-flow DiT in PyTorch: the text-to-image forward, in the
+published layout and in the W8A8 serving layout.
 
 Counterpart of `reflectionflow_tpu/models/flux/dit.py::flux_dit_apply` with no
-cond stream, unfused q/k/v and the interleaved-pair RoPE layout: 19 double-
-stream blocks, 38 single-stream blocks (FLUX.1-dev), AdaLN-Zero modulation
-from the (timestep, guidance, pooled CLIP) embedding, and attention through
-`ops.attention.joint_attention`, whose "pallas" impl is kernel K1.
+cond stream: 19 double-stream blocks, 38 single-stream blocks (FLUX.1-dev),
+AdaLN-Zero modulation from the (timestep, guidance, pooled CLIP) embedding, and
+attention through `ops.attention.joint_attention`, whose "pallas" impl is
+kernel K1.
 
 Parameter names follow diffusers' FluxTransformer2DModel
 (`transformer_blocks.{i}.attn.to_q`, `norm1.linear`, ...), the names
 `reflectionflow_tpu/utils/hf_convert.py::convert_flux_dit_state` reads, so a
 `state_dict()` of this module feeds that converter unchanged and published
 checkpoints load by name.
+
+The serving layout is made by module surgery (`ops/fuse.py`): fused q/k/v
+panels under the JAX key names (`attn.qkv`, `attn.txt_qkv`, and in single
+blocks `in_proj`, `out_attn`, `out_mlp`), q/k permuted to the half-split RoPE
+layout (`rope_layout="split"`), then int8 linears (`ops.quant.QuantLinear`).
+The forward dispatches on what the modules hold, as the JAX forward dispatches
+on its parameter keys. With "pallas" attention and W8A8 linears, each W8A8
+linear is fed by a fused kernel (`ops/fused_quant.py`) at any sequence length:
+K3 modulate+quant for qkv, `in_proj` and fc1, K4 gelu+quant for fc2 and
+`out_mlp`, K5 quant for the attention out-projection, and K2 QK-norm+RoPE on
+the q and k panels. (The JAX gate also asks for L % 8 == 0, the TPU kernels'
+row tiling; at other lengths it runs the unfused chain.)
 """
 
 from __future__ import annotations
 
 import math
+import re
 
 import torch
 import torch.nn.functional as F
@@ -23,8 +37,10 @@ from torch import nn
 
 from ...config import FluxDiTConfig
 from ...ops.attention import joint_attention
+from ...ops.fused_quant import adaln_quant, gelu_quant, norm_rope, rowquant
 from ...ops.norms import adaln_modulate, layer_norm, rms_norm
-from .rope import apply_rope, rope_tables
+from ...ops.quant import QuantLinear
+from .rope import apply_rope, apply_rope_split, rope_split_perm, rope_tables
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -82,7 +98,8 @@ class _RMSScale(nn.Module):
 
 class _Attention(nn.Module):
     """Per-stream q/k/v projections and QK-norm scales (diffusers names);
-    `dual` adds the txt-stream projections and both out projections."""
+    `dual` adds the txt-stream projections and both out projections. After
+    `ops.fuse.fuse_dit_qkv` the projections are the panels `qkv`/`txt_qkv`."""
 
     def __init__(self, cfg: FluxDiTConfig, dual: bool):
         super().__init__()
@@ -97,14 +114,20 @@ class _Attention(nn.Module):
             self.to_out = nn.ModuleList([nn.Linear(H, H)])
             self.to_add_out = nn.Linear(H, H)
 
+    def img_proj(self):
+        """The img (or single) stream's projection: the fused panel or (q, k, v)."""
+        return self.qkv if hasattr(self, "qkv") else (self.to_q, self.to_k, self.to_v)
+
+    def txt_proj(self):
+        if hasattr(self, "txt_qkv"):
+            return self.txt_qkv
+        return self.add_q_proj, self.add_k_proj, self.add_v_proj
+
 
 class _GELUProj(nn.Module):
     def __init__(self, d_in: int, d_out: int):
         super().__init__()
         self.proj = nn.Linear(d_in, d_out)
-
-    def forward(self, x):
-        return gelu_tanh(self.proj(x))
 
 
 class _FeedForward(nn.Module):
@@ -115,20 +138,123 @@ class _FeedForward(nn.Module):
         self.net = nn.ModuleList([_GELUProj(hidden, mlp_hidden), nn.Identity(),
                                   nn.Linear(mlp_hidden, hidden)])
 
-    def forward(self, x):
-        for layer in self.net:
-            x = layer(x)
-        return x
+
+# ---------------------------------------------------------------------------
+# forward pieces (JAX `dit.py` names)
+# ---------------------------------------------------------------------------
 
 
 def _heads(cfg: FluxDiTConfig, x: torch.Tensor) -> torch.Tensor:
     return x.unflatten(-1, (cfg.num_heads, cfg.head_dim))
 
 
-def _qkv(cfg, to_q, to_k, to_v, norm_q, norm_k, x):
-    q = rms_norm(_heads(cfg, to_q(x)), norm_q.weight)
-    k = rms_norm(_heads(cfg, to_k(x)), norm_k.weight)
+def _rms_fast(x, scale, eps: float = 1e-6):
+    """Serving QK-norm: fp32 only for the per-row reduce; the elementwise
+    stays in the storage dtype."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    return x * torch.rsqrt(var + eps).to(x.dtype) * scale.to(x.dtype)
+
+
+def _adaln_fast(x, shift, scale, eps: float = 1e-6):
+    """Serving AdaLN-Zero modulate: fp32 only for the per-row mean/var; the
+    (L, H) elementwise runs in the storage dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf * xf).mean(dim=-1, keepdim=True) - mu * mu
+    r = torch.rsqrt(var.clamp_min(0.0) + eps)
+    a, b = r.to(x.dtype), (-mu * r).to(x.dtype)
+    return (x * a + b) * (1.0 + scale[:, None, :].to(x.dtype)) + shift[:, None, :].to(x.dtype)
+
+
+def _modulate(x, shift, scale, fast):
+    return _adaln_fast(x, shift, scale) if fast else adaln_modulate(x, shift, scale)
+
+
+def _qk_norm(x, scale, fast):
+    return _rms_fast(x, scale) if fast else rms_norm(x, scale)
+
+
+def _is_w8a8(m) -> bool:
+    return isinstance(m, QuantLinear) and m.act_quant
+
+
+def _use_fused_quant(flags, attn_impl, m) -> bool:
+    """Gate for the fused act-quant kernels: serving layout, a W8A8 linear and
+    K1 attention. Unlike the JAX gate there is no L % 8 == 0 condition: that is
+    the TPU kernels' row tiling, and K3–K5 take any length."""
+    return flags["fast_qk"] and attn_impl == "pallas" and _is_w8a8(m)
+
+
+def _nr_gate(flags, attn_impl, tables) -> bool:
+    """Use the fused QK-norm+RoPE kernel (K2)? Split tables and K1 attention,
+    at any length (no JAX L % 8 == 0 condition, as in `_use_fused_quant`)."""
+    return flags["fast_qk"] and tables[2] and attn_impl == "pallas"
+
+
+def _adaln_quant_matmul(x, shift, scale, m, dtype):
+    xq, xs = adaln_quant(x, shift, scale)
+    return m.matmul_pre(xq, xs, dtype)
+
+
+def _gelu_quant_matmul(x_pre, m, dtype):
+    xq, xs = gelu_quant(x_pre)
+    return m.matmul_pre(xq, xs, dtype)
+
+
+def _rowquant_matmul(x, m, dtype):
+    xq, xs = rowquant(x)
+    return m.matmul_pre(xq, xs, dtype)
+
+
+def _qkv_split(cfg, qkv, norm_q, norm_k, fast, rope=None):
+    """Split a (B, L, 3H[+extra]) panel into normed per-head q/k/v. With
+    `rope=(cos, sin)` the QK-norm and the split rotation run as K2 on each of
+    the q and k panel slices (the caller then skips `_rope_qk`)."""
+    H = cfg.num_heads * cfg.head_dim
+    q_r, k_r, v_r = qkv[..., :H], qkv[..., H:2 * H], qkv[..., 2 * H:3 * H]
+    if rope is not None:
+        cos, sin = rope
+        q = _heads(cfg, norm_rope(q_r, norm_q.weight, cos, sin))
+        k = _heads(cfg, norm_rope(k_r, norm_k.weight, cos, sin))
+        return q, k, _heads(cfg, v_r)
+    q = _qk_norm(_heads(cfg, q_r), norm_q.weight, fast)
+    k = _qk_norm(_heads(cfg, k_r), norm_k.weight, fast)
+    return q, k, _heads(cfg, v_r)
+
+
+def _qkv(cfg, proj, norm_q, norm_k, x, fast, rope=None):
+    """q/k/v of one stream; `proj` is a fused panel or the (q, k, v) linears."""
+    if not isinstance(proj, tuple):
+        return _qkv_split(cfg, proj(x), norm_q, norm_k, fast, rope)
+    if rope is not None:  # K2 takes the panel layout
+        return _qkv_split(cfg, torch.cat([p(x) for p in proj], dim=-1), norm_q, norm_k, fast, rope)
+    to_q, to_k, to_v = proj
+    q = _qk_norm(_heads(cfg, to_q(x)), norm_q.weight, fast)
+    k = _qk_norm(_heads(cfg, to_k(x)), norm_k.weight, fast)
     return q, k, _heads(cfg, to_v(x))
+
+
+def _rope_qk(q, k, tables):
+    cos, sin, split = tables
+    fn = apply_rope_split if split else apply_rope
+    return fn(q, cos, sin), fn(k, cos, sin)
+
+
+def _proj(m, x, flags, attn_impl):
+    """Attention out-projection: K5 + the int8 GEMM on the serving path."""
+    if _use_fused_quant(flags, attn_impl, m):
+        return _rowquant_matmul(x, m, x.dtype)
+    return m(x)
+
+
+def _mlp_apply(ff: _FeedForward, x, sh2, sc2, flags, attn_impl, fast):
+    """modulate -> fc1 -> gelu -> fc2; K3 and K4 feed both W8A8 GEMMs on the
+    serving path."""
+    fc1, fc2 = ff.net[0].proj, ff.net[2]
+    if _use_fused_quant(flags, attn_impl, fc1) and _is_w8a8(fc2):
+        pre = _adaln_quant_matmul(x, sh2, sc2, fc1, x.dtype)
+        return _gelu_quant_matmul(pre, fc2, x.dtype)
+    return fc2(gelu_tanh(fc1(_modulate(x, sh2, sc2, fast))))
 
 
 class DoubleBlock(nn.Module):
@@ -141,32 +267,49 @@ class DoubleBlock(nn.Module):
         self.ff = _FeedForward(cfg.hidden_size, cfg.mlp_hidden)
         self.ff_context = _FeedForward(cfg.hidden_size, cfg.mlp_hidden)
 
-    def forward(self, img, txt, temb, cos, sin, attn_impl):
+    def forward(self, img, txt, temb, rope, flags, attn_impl):
         cfg, a = self.cfg, self.attn
+        fast = flags["fast_qk"]
         # modulation order: shift, scale, gate for attention, then for the MLP
         i_sh1, i_sc1, i_g1, i_sh2, i_sc2, i_g2 = self.norm1(temb)
         t_sh1, t_sc1, t_g1, t_sh2, t_sc2, t_g2 = self.norm1_context(temb)
-        img_q, img_k, img_v = _qkv(cfg, a.to_q, a.to_k, a.to_v, a.norm_q, a.norm_k,
-                                   adaln_modulate(img, i_sh1, i_sc1))
-        txt_q, txt_k, txt_v = _qkv(cfg, a.add_q_proj, a.add_k_proj, a.add_v_proj,
-                                   a.norm_added_q, a.norm_added_k,
-                                   adaln_modulate(txt, t_sh1, t_sc1))
+        Lt = txt.shape[1]
+        nr = _nr_gate(flags, attn_impl, rope)
+        cos, sin, _ = rope
+
+        def stream_qkv(proj, norm_q, norm_k, x, sh, sc, r):
+            if not isinstance(proj, tuple) and _use_fused_quant(flags, attn_impl, proj):
+                panel = _adaln_quant_matmul(x, sh, sc, proj, x.dtype)
+                return _qkv_split(cfg, panel, norm_q, norm_k, True, r)
+            return _qkv(cfg, proj, norm_q, norm_k, _modulate(x, sh, sc, fast), fast, r)
+
+        img_q, img_k, img_v = stream_qkv(a.img_proj(), a.norm_q, a.norm_k, img, i_sh1, i_sc1,
+                                         (cos[Lt:], sin[Lt:]) if nr else None)
+        txt_q, txt_k, txt_v = stream_qkv(a.txt_proj(), a.norm_added_q, a.norm_added_k, txt,
+                                         t_sh1, t_sc1, (cos[:Lt], sin[:Lt]) if nr else None)
         # RoPE covers [txt | img] jointly
-        q = apply_rope(torch.cat([txt_q, img_q], dim=1), cos, sin)
-        k = apply_rope(torch.cat([txt_k, img_k], dim=1), cos, sin)
+        q = torch.cat([txt_q, img_q], dim=1)
+        k = torch.cat([txt_k, img_k], dim=1)
+        if not nr:
+            q, k = _rope_qk(q, k, rope)
         v = torch.cat([txt_v, img_v], dim=1)
         (joint,) = joint_attention([q], [k], [v], impl=attn_impl)
-        Lt = txt.shape[1]
-        txt_attn = a.to_add_out(joint[:, :Lt].flatten(2))
-        img_attn = a.to_out[0](joint[:, Lt:].flatten(2))
+        txt_attn = _proj(a.to_add_out, joint[:, :Lt].flatten(2), flags, attn_impl)
+        img_attn = _proj(a.to_out[0], joint[:, Lt:].flatten(2), flags, attn_impl)
         img = img + i_g1[:, None, :] * img_attn
         txt = txt + t_g1[:, None, :] * txt_attn
-        img = img + i_g2[:, None, :] * self.ff(adaln_modulate(img, i_sh2, i_sc2))
-        txt = txt + t_g2[:, None, :] * self.ff_context(adaln_modulate(txt, t_sh2, t_sc2))
+        img = img + i_g2[:, None, :] * _mlp_apply(self.ff, img, i_sh2, i_sc2, flags, attn_impl, fast)
+        txt = txt + t_g2[:, None, :] * _mlp_apply(self.ff_context, txt, t_sh2, t_sc2, flags,
+                                                  attn_impl, fast)
         return img, txt
 
 
 class SingleBlock(nn.Module):
+    """Published layout: `proj_mlp` beside the attention's q/k/v and
+    `proj_out` over concat([attn, mlp]). Serving layout (`ops.fuse.
+    fuse_single_block_io`): `in_proj` = [q|k|v|mlp_in] and `out_attn` +
+    `out_mlp`, so the (L, H+M) concat is never built."""
+
     def __init__(self, cfg: FluxDiTConfig):
         super().__init__()
         self.cfg = cfg
@@ -174,19 +317,76 @@ class SingleBlock(nn.Module):
         self.norm = _Modulation(H, 3)
         self.attn = _Attention(cfg, dual=False)
         self.proj_mlp = nn.Linear(H, M)
-        # proj_out consumes concat([attn_out, gelu(mlp)], -1)
         self.proj_out = nn.Linear(H + M, H)
 
-    def forward(self, hidden, temb, cos, sin, attn_impl):
-        a = self.attn
+    def _stream_in(self, x, sh, sc, flags, attn_impl, rope):
+        """q/k/v and the MLP context: ("pre", pre-GELU values) when K3 fed the
+        fused `in_proj` GEMM, else ("gelu", activated values)."""
+        cfg, a = self.cfg, self.attn
+        fast = flags["fast_qk"]
+        H3 = 3 * cfg.num_heads * cfg.head_dim
+        fused = hasattr(self, "in_proj")
+        if fused and _use_fused_quant(flags, attn_impl, self.in_proj):
+            panel = _adaln_quant_matmul(x, sh, sc, self.in_proj, x.dtype)
+            q, k, v = _qkv_split(cfg, panel, a.norm_q, a.norm_k, True, rope)
+            return q, k, v, ("pre", panel[..., H3:])
+        h_n = _modulate(x, sh, sc, fast)
+        if fused:
+            panel = self.in_proj(h_n)
+            q, k, v = _qkv_split(cfg, panel, a.norm_q, a.norm_k, fast, rope)
+            return q, k, v, ("gelu", gelu_tanh(panel[..., H3:]))
+        q, k, v = _qkv(cfg, a.img_proj(), a.norm_q, a.norm_k, h_n, fast, rope)
+        return q, k, v, ("gelu", gelu_tanh(self.proj_mlp(h_n)))
+
+    def _stream_out(self, attn_out, mlp_ctx, flags, attn_impl):
+        kind, val = mlp_ctx
+        if kind == "pre":
+            if _is_w8a8(self.out_mlp):
+                return (_proj(self.out_attn, attn_out, flags, attn_impl)
+                        + _gelu_quant_matmul(val, self.out_mlp, attn_out.dtype))
+            val = gelu_tanh(val)
+        if hasattr(self, "out_attn"):
+            return self.out_attn(attn_out) + self.out_mlp(val)
+        return self.proj_out(torch.cat([attn_out, val], dim=-1))
+
+    def forward(self, hidden, temb, rope, flags, attn_impl):
         sh, sc, gate = self.norm(temb)
-        h_n = adaln_modulate(hidden, sh, sc)
-        mlp = gelu_tanh(self.proj_mlp(h_n))
-        q, k, v = _qkv(self.cfg, a.to_q, a.to_k, a.to_v, a.norm_q, a.norm_k, h_n)
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        nr = _nr_gate(flags, attn_impl, rope)
+        q, k, v, mlp_ctx = self._stream_in(hidden, sh, sc, flags, attn_impl,
+                                           rope[:2] if nr else None)
+        if not nr:
+            q, k = _rope_qk(q, k, rope)
         (attn,) = joint_attention([q], [k], [v], impl=attn_impl)
-        out = self.proj_out(torch.cat([attn.flatten(2), mlp], dim=-1))
+        out = self._stream_out(attn.flatten(2), mlp_ctx, flags, attn_impl)
         return hidden + gate[:, None, :] * out
+
+
+# port module name -> JAX tree path, outside the blocks and per block family
+_TOP_PATHS = {
+    "x_embedder": "img_in", "context_embedder": "txt_in", "norm_out.linear": "final_mod",
+    "proj_out": "final_proj",
+    **{f"time_text_embed.{ours}.linear_{i}": f"{theirs}/fc{i}"
+       for ours, theirs in (("timestep_embedder", "time_in"), ("text_embedder", "vector_in"),
+                            ("guidance_embedder", "guidance_in")) for i in (1, 2)},
+}
+_ATTN_PATHS = {"attn.to_q": "attn/q", "attn.to_k": "attn/k", "attn.to_v": "attn/v",
+               "attn.qkv": "attn/qkv", "attn.norm_q": "attn/q_norm", "attn.norm_k": "attn/k_norm"}
+_BLOCK_PATHS = {
+    "double_blocks": {
+        **_ATTN_PATHS, "norm1.linear": "img_mod", "norm1_context.linear": "txt_mod",
+        "attn.add_q_proj": "attn/txt_q", "attn.add_k_proj": "attn/txt_k",
+        "attn.add_v_proj": "attn/txt_v", "attn.txt_qkv": "attn/txt_qkv",
+        "attn.norm_added_q": "attn/txt_q_norm", "attn.norm_added_k": "attn/txt_k_norm",
+        "attn.to_out.0": "attn/out", "attn.to_add_out": "attn/txt_out",
+        "ff.net.0.proj": "img_mlp/fc1", "ff.net.2": "img_mlp/fc2",
+        "ff_context.net.0.proj": "txt_mlp/fc1", "ff_context.net.2": "txt_mlp/fc2",
+    },
+    "single_blocks": {
+        **_ATTN_PATHS, "norm.linear": "mod", "proj_mlp": "mlp_in", "proj_out": "out",
+        "in_proj": "in_proj", "out_attn": "out_attn", "out_mlp": "out_mlp",
+    },
+}
+_FAMILY = {"transformer_blocks": "double_blocks", "single_transformer_blocks": "single_blocks"}
 
 
 class FluxDiT(nn.Module):
@@ -204,6 +404,19 @@ class FluxDiT(nn.Module):
             SingleBlock(cfg) for _ in range(cfg.num_single_blocks))
         self.norm_out = _Modulation(H, 2)
         self.proj_out = nn.Linear(H, cfg.in_channels)
+        # "split" once ops.fuse.permute_rope_layout has permuted q/k
+        self.rope_layout = "pair"
+
+    def jax_path(self, name: str):
+        """Module name -> (JAX tree path, block index or None, blocks stacked in
+        that path's leaves): `transformer_blocks.3.attn.qkv` ->
+        ("double_blocks/attn/qkv", 3, 19)."""
+        m = re.fullmatch(r"(transformer_blocks|single_transformer_blocks)\.(\d+)\.(.+)", name)
+        if m is None:
+            return _TOP_PATHS[name], None, 1
+        family = _FAMILY[m[1]]
+        n = self.cfg.num_double_blocks if family == "double_blocks" else self.cfg.num_single_blocks
+        return f"{family}/{_BLOCK_PATHS[family][m[3]]}", int(m[2]), n
 
     def time_text_embed_apply(self, pooled, timestep, guidance, dtype):
         """timestep + pooled-text (+ guidance) MLP embeddings (t x 1000)."""
@@ -235,30 +448,40 @@ class FluxDiT(nn.Module):
     ) -> torch.Tensor:
         """Predict the rectified-flow velocity (B, L_img, in_channels).
 
-        Quantized and LoRA weights are not modes of this module: the pipeline
-        and CLI reject them (ROADMAP slices 2 and 3)."""
+        `rope_layout="split"` is the serving layout: it needs q/k permuted by
+        `ops.fuse.permute_rope_layout` and runs the storage-dtype QK-norm,
+        AdaLN and RoPE of the JAX package's serving forward."""
         if return_img_residual or module_cache is not None or return_module_outs:
             raise NotImplementedError("velocity-cache modes are ROADMAP slice 5, item 20")
         if cond is not None:
             raise NotImplementedError("the cond stream is ROADMAP slice 3, item 14")
         if controlnet_block_samples is not None or controlnet_single_block_samples is not None:
             raise NotImplementedError("ControlNet residuals are ROADMAP slice 3, item 14")
-        if rope_layout != "pair":
-            raise NotImplementedError("the split RoPE serving layout is ROADMAP slice 2, item 10")
+        if rope_layout != self.rope_layout:
+            raise ValueError(
+                f"rope_layout={rope_layout!r}, but this model's q/k weights are in the "
+                f"{self.rope_layout!r} layout (ops.fuse.permute_rope_layout makes 'split')")
         cfg = self.cfg
         if cfg.guidance_embeds and guidance is None:
             raise ValueError("FLUX.1-dev requires a guidance scale")
+        split = rope_layout == "split"
+        flags = {"fast_qk": split}
         dtype = img.dtype
         img = self.x_embedder(img)
         txt = self.context_embedder(txt)
         temb = self.time_text_embed_apply(pooled, timestep, guidance, dtype)
         cos, sin = rope_tables(torch.cat([txt_ids, img_ids], dim=0), cfg.axes_dims_rope,
                                cfg.rope_theta)
+        if split:
+            perm = torch.from_numpy(rope_split_perm(cfg.head_dim)).to(cos.device)
+            # tables in the activation dtype select the all-bf16 rotation
+            cos, sin = cos[:, perm].to(dtype), sin[:, perm].to(dtype)
+        rope = (cos, sin, split)
         for block in self.transformer_blocks:
-            img, txt = block(img, txt, temb, cos, sin, attn_impl)
+            img, txt = block(img, txt, temb, rope, flags, attn_impl)
         hidden = torch.cat([txt, img], dim=1)
         for block in self.single_transformer_blocks:
-            hidden = block(hidden, temb, cos, sin, attn_impl)
+            hidden = block(hidden, temb, rope, flags, attn_impl)
         img = hidden[:, txt.shape[1]:]
         # final AdaLN: scale first, then shift
         sc, sh = self.norm_out(temb)

@@ -1,11 +1,12 @@
 """FLUX 3-axis rotary position embedding.
 
-Counterpart of `reflectionflow_tpu/models/flux/rope.py`, pair layout only.
-Position ids are (L, 3) = (type, y, x); each axis gets its own frequency band
-of size `axes_dims[i]` (FLUX.1: 16/56/56 summing to head_dim 128). The
-cos/sin tables are fp32 with each frequency repeated twice, and the rotation
-acts on interleaved (even, odd) element pairs, the convention of the
-published weights.
+Counterpart of `reflectionflow_tpu/models/flux/rope.py`. Position ids are
+(L, 3) = (type, y, x); each axis gets its own frequency band of size
+`axes_dims[i]` (FLUX.1: 16/56/56 summing to head_dim 128). The cos/sin tables
+are fp32 with each frequency repeated twice, and the rotation acts on
+interleaved (even, odd) element pairs, the convention of the published
+weights. The serving layout ("split") permutes each head to evens-then-odds
+(`rope_split_perm`), so the rotation partner of element i is i + D/2.
 """
 
 from __future__ import annotations
@@ -34,6 +35,23 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     xf = x.float()
     pairs = xf.unflatten(-1, (-1, 2))
     rotated = torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).flatten(-2)
+    c = cos[None, :, None, :]
+    s = sin[None, :, None, :]
+    return (xf * c + rotated * s).to(x.dtype)
+
+
+def rope_split_perm(head_dim: int) -> np.ndarray:
+    """Permutation old -> new ordering of a head: evens, then odds."""
+    return np.concatenate([np.arange(0, head_dim, 2), np.arange(1, head_dim, 2)])
+
+
+def apply_rope_split(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate (B, L, H, D) in the half-split layout by tables permuted with
+    `rope_split_perm`. fp32 tables rotate in fp32; tables in x's dtype (bf16 on
+    the serving path) select the all-bf16 rotation, as the JAX package."""
+    xf = x if cos.dtype == x.dtype else x.float()
+    half = x.shape[-1] // 2
+    rotated = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
     c = cos[None, :, None, :]
     s = sin[None, :, None, :]
     return (xf * c + rotated * s).to(x.dtype)

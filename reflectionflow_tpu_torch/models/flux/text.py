@@ -5,11 +5,14 @@ parameters under transformers' names (`encoder.block.{i}.layer.0.SelfAttention.q
 `text_model.encoder.layers.{i}.self_attn.q_proj`, ...), the names
 `reflectionflow_tpu/utils/hf_convert.py::convert_t5_state` and
 `convert_clip_text_state` read; `t5_encode` and `clip_text_encode` compute.
+T5's linears may be `ops.quant.QuantLinear`s (the w8a16 serving profile), as
+the JAX T5 runs its matmuls through `dit.linear`.
 """
 
 from __future__ import annotations
 
 import math
+import re
 
 import numpy as np
 import torch
@@ -85,6 +88,19 @@ class _T5Stack(nn.Module):
         self.final_layer_norm = _T5Norm(cfg.d_model)
 
 
+# port module name -> JAX tree path (`t5_encoder_init`), outside and inside the blocks
+_T5_TOP_PATHS = {
+    "shared": "embed", "encoder.final_layer_norm": "final_ln",
+    "encoder.block.0.layer.0.SelfAttention.relative_attention_bias": "rel_bias",
+}
+_T5_BLOCK_PATHS = {
+    "layer.0.layer_norm": "ln1", "layer.1.layer_norm": "ln2",
+    **{f"layer.0.SelfAttention.{n}": n for n in ("q", "k", "v", "o")},
+    "layer.1.DenseReluDense.wi_0": "wi0", "layer.1.DenseReluDense.wi_1": "wi1",
+    "layer.1.DenseReluDense.wo": "wo",
+}
+
+
 class T5Encoder(nn.Module):
     """Parameters of a T5 v1.1 encoder (T5EncoderModel names)."""
 
@@ -93,6 +109,13 @@ class T5Encoder(nn.Module):
         self.cfg = cfg
         self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model)
         self.encoder = _T5Stack(cfg)
+
+    def jax_path(self, name: str):
+        """Module name -> (JAX tree path, block index or None, blocks stacked)."""
+        if name in _T5_TOP_PATHS:
+            return _T5_TOP_PATHS[name], None, 1
+        m = re.fullmatch(r"encoder\.block\.(\d+)\.(.+)", name)
+        return f"blocks/{_T5_BLOCK_PATHS[m[2]]}", int(m[1]), self.cfg.num_layers
 
 
 def _t5_relative_buckets(rel_pos: np.ndarray, num_buckets: int, max_distance: int) -> np.ndarray:

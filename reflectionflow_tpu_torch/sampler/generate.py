@@ -27,6 +27,7 @@ def denoise(
     guidance_scale: float,
     num_steps: int,
     attn_impl: str = "xla",
+    rope_layout: str = "pair",
 ) -> torch.Tensor:
     """Run the Euler loop; returns the final packed latents (B, L_img, C).
 
@@ -39,7 +40,8 @@ def denoise(
     for i in range(num_steps):
         timestep = torch.full((B,), float(sig[i]), dtype=dtype, device=device)
         v = dit(latents, txt, pooled, timestep, img_ids, txt_ids,
-                guidance=guidance if dit.cfg.guidance_embeds else None, attn_impl=attn_impl)
+                guidance=guidance if dit.cfg.guidance_embeds else None, attn_impl=attn_impl,
+                rope_layout=rope_layout)
         delta = float(sig[i + 1] - sig[i])  # fp32 difference, as the reference
         latents = (latents.float() + delta * v.float()).to(dtype)
     return latents

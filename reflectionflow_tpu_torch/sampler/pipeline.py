@@ -1,10 +1,12 @@
 """FluxPipeline: weights + tokenizers + the sampling loop.
 
 Counterpart of `reflectionflow_tpu/sampler/pipeline.py::FluxPipeline` for the
-bf16 text-to-image path: text encoding (T5 sequence + CLIP pooled), packed
-noise, the dynamic-shift schedule, the Euler loop over the DiT, and the VAE
-decode. Condition images, LoRA, quantization, the phase swap and the prompt
-cache are later ROADMAP slices.
+text-to-image path: text encoding (T5 sequence + CLIP pooled), packed noise,
+the dynamic-shift schedule, the Euler loop over the DiT, and the VAE decode,
+in bf16 or, after `quantize`, in the W8A8 serving layout. Condition images,
+LoRA, NF4, the phase swap and the prompt cache are later ROADMAP slices (the
+phase swap is on its do-not-port list: the card holds the int8 DiT and T5
+together).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from ..models.flux.latents import draw_packed_noise, latent_tokens, unpack_laten
 from ..models.flux.rope import make_image_ids, make_text_ids
 from ..models.flux.text import CLIPTextEncoder, T5Encoder, clip_text_encode, t5_encode
 from ..models.flux.vae import FluxVAE, vae_decode
+from ..ops.quant import NF4_NOT_PORTED
 from ..utils.tokenizers import load_tokenizer
 from .generate import denoise, make_schedule
 
@@ -79,6 +82,7 @@ class FluxPipeline:
     dtype: torch.dtype = torch.bfloat16
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     attn_impl: str = "xla"
+    rope_layout: str = "pair"  # "split" after quantize() permutes q/k (ops.fuse)
 
     # -- construction -------------------------------------------------------
 
@@ -116,6 +120,41 @@ class FluxPipeline:
             dtype=dtype,
             device=device,
         )
+
+    @torch.no_grad()
+    def quantize(
+        self,
+        which: tuple[str, ...] = ("dit",),
+        int4: tuple[str, ...] = ("t5",),
+        act_quant_exclude: tuple[str, ...] = (),
+        weight_only: tuple[str, ...] = (),
+        dit_int4_mlp: bool = False,
+        min_size: int = 1 << 20,
+    ) -> "FluxPipeline":
+        """Quantize the big models in place on their device: `which` models go
+        int8 W8A8, `weight_only` ones int8 w8a16. The DiT's q/k/v panels are
+        always fused and permuted to the split RoPE layout first (`ops.fuse`),
+        the only layout the fused kernels serve. `int4` / `dit_int4_mlp` (NF4)
+        are ROADMAP item 12 and raise. Models: "dit" and "t5"."""
+        from ..ops.fuse import fuse_dit_qkv, fuse_single_block_io, permute_rope_layout
+        from ..ops.quant import quantize_dit_params
+
+        nf4 = [n for n in int4 if n not in which and n not in weight_only]
+        if dit_int4_mlp or nf4:
+            raise NotImplementedError(f"int4={tuple(nf4)}, dit_int4_mlp={dit_int4_mlp}: {NF4_NOT_PORTED}")
+        for name in (*which, *weight_only):
+            if name not in ("dit", "t5"):
+                raise ValueError(f"quantize: no quantizable model {name!r} (expected 'dit' or 't5')")
+        if self.rope_layout != "split":
+            permute_rope_layout(fuse_single_block_io(fuse_dit_qkv(self.dit)))
+            self.rope_layout = "split"
+        for name in which:
+            quantize_dit_params(getattr(self, name), min_size=min_size,
+                                act_quant_exclude=act_quant_exclude)
+        for name in weight_only:
+            if name not in which:
+                quantize_dit_params(getattr(self, name), min_size=min_size, act_quant=False)
+        return self
 
     # -- text ---------------------------------------------------------------
 
@@ -186,6 +225,7 @@ class FluxPipeline:
             guidance_scale,
             num_inference_steps,
             attn_impl=self.attn_impl,
+            rope_layout=self.rope_layout,
         )
         if output_type == "latent":
             return final

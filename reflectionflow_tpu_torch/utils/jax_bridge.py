@@ -5,14 +5,25 @@ back from (in, out) to torch's (out, in), per-block stacks are unstacked, and
 HWIO convolutions go back to OIHW. Input leaves are numpy arrays (the caller
 moves them off JAX); outputs are CPU tensors for `load_state_dict`, whose
 keys are the diffusers/transformers names the converters read.
+
+Quantized trees (`reflectionflow_tpu/ops/quant.py`: int8 nodes {w_q, w_scale,
+b, act_q}) go by `load_jax_tree_`, which walks the port model's modules and
+reads each one's JAX node through the model's `jax_path`:
+`serving_dit_from_jax` for the W8A8 serving DiT, `t5_from_jax` for a
+(w8a16 or float) T5.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..config import CLIPTextConfig, FluxDiTConfig, T5Config
+from ..models.flux.dit import FluxDiT
+from ..models.flux.text import T5Encoder
+from ..ops.fuse import fuse_dit_qkv, fuse_single_block_io
+from ..ops.quant import NF4_NOT_PORTED, QuantLinear
 
 
 def _t(a) -> torch.Tensor:
@@ -73,6 +84,55 @@ def dit_state_dict(params: dict, cfg: FluxDiTConfig) -> dict[str, torch.Tensor]:
         _lin(sd, f"{b}.proj_mlp", bp["mlp_in"])
         _lin(sd, f"{b}.proj_out", bp["out"])
     return sd
+
+
+def _node(tree: dict, path: str, index: int | None):
+    for part in path.split("/"):
+        tree = tree[part]
+    if index is None:
+        return tree
+    return _block(tree, index) if isinstance(tree, dict) else np.asarray(tree)[index]
+
+
+@torch.no_grad()
+def load_jax_tree_(model: nn.Module, params: dict) -> nn.Module:
+    """Copy a JAX parameter tree into `model` in place. Each linear takes its
+    node's float weight, or becomes a `QuantLinear` for an int8 node (W8A8 when
+    the node has the `act_q` marker); embeddings and norm scales take their
+    leaves. NF4 nodes raise."""
+    for name, mod in list(model.named_modules()):
+        if isinstance(mod, nn.Linear):
+            node = _node(params, *model.jax_path(name)[:2])
+            if "w_p4" in node or "w_p4p" in node:
+                raise NotImplementedError(f"{name}: {NF4_NOT_PORTED}")
+            if "w_q" not in node:
+                mod.weight.copy_(_t(np.asarray(node["w"]).T))
+                if mod.bias is not None:
+                    mod.bias.copy_(_t(node["b"]))
+                continue
+            bias = _t(node["b"]) if "b" in node else None
+            model.set_submodule(name, QuantLinear(
+                _t(np.asarray(node["w_q"]).T).contiguous(), _t(np.asarray(node["w_scale"]).reshape(-1)),
+                bias, act_quant="act_q" in node).to(mod.weight.device))
+        elif list(mod.parameters(recurse=False)):  # norm scales, embedding tables
+            node = _node(params, *model.jax_path(name)[:2])
+            mod.weight.copy_(_t(node["scale"] if isinstance(node, dict) else node))
+    return model
+
+
+def serving_dit_from_jax(params: dict, cfg: FluxDiTConfig) -> FluxDiT:
+    """The JAX serving tree, `quantize_dit_params(permute_rope_layout(
+    fuse_single_block_io(fuse_dit_qkv(p))))`, -> a `FluxDiT` in the same fused,
+    split-layout, int8 form."""
+    dit = fuse_single_block_io(fuse_dit_qkv(FluxDiT(cfg)))
+    dit.rope_layout = "split"  # the tree's q/k are permuted already
+    return load_jax_tree_(dit, params).eval()
+
+
+def t5_from_jax(params: dict, cfg: T5Config) -> T5Encoder:
+    """A JAX T5 tree (float, or int8 w8a16 from `quantize_dit_params(t5,
+    act_quant=False)`) -> `T5Encoder`."""
+    return load_jax_tree_(T5Encoder(cfg), params).eval()
 
 
 def t5_state_dict(params: dict, cfg: T5Config) -> dict[str, torch.Tensor]:

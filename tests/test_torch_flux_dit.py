@@ -109,10 +109,13 @@ def test_dit_rejects_unported_modes():
     _, tcfg = _cfg()
     dit = FluxDiT(tcfg)
     x = {k: _t(v) for k, v in _inputs(tcfg, seed=4).items()}
-    for kw in ({"cond": x["img"]}, {"rope_layout": "split"}, {"return_img_residual": True},
+    for kw in ({"cond": x["img"]}, {"return_img_residual": True},
                {"controlnet_block_samples": [x["img"]]}):
         with pytest.raises(NotImplementedError):
             dit(**x, **kw)
+    # the split serving layout needs q/k permuted first (ops.fuse.permute_rope_layout)
+    with pytest.raises(ValueError, match="permute_rope_layout"):
+        dit(**x, rope_layout="split")
 
 
 def test_state_dict_names_are_diffusers():
