@@ -7,12 +7,17 @@ Run from the repository root with no arguments:
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. device: requires CUDA; prints `nvidia-smi` name and power limit;
-  2. build: compiles K1 (`csrc/flash_fwd.cu`), K3–K5 (`csrc/act_quant.cu`) and
-     K2 (`csrc/norm_rope.cu`) into `.build/kernels/`, one nvcc per source, all
-     started together;
+  2. build: compiles K1 (`csrc/flash_fwd.cu`), K6a/K6b (`csrc/flash_bwd.cu`),
+     K3–K5 (`csrc/act_quant.cu`) and K2 (`csrc/norm_rope.cu`) into
+     `.build/kernels/`, one nvcc per source, all started together;
   3. K1 against its plain PyTorch version on the card (fp32 reference), at
      the main-path shape (B=1, 2; L=4608; H=24; D=128), a ragged L, and the
-     cross-segment bias forms; times both at the main-path shape;
+     cross-segment bias forms; times both at the main-path shape, and
+     PyTorch's SDPA forward as the yardstick;
+  3b. K6a/K6b against the fp32 plain backward at the training shape (B=8,
+     L=512+1024+1024, main_len 1536, cross bias 0, -1e30, log 0.5), at
+     (B=2, L=4608) and at a ragged L; times both kernels, the plain version
+     and PyTorch's SDPA backward (the yardstick only);
   4. K2–K5 against their plain versions on the card at every shape the W8A8
      path gives them (strided panel slices included) and at a ragged
      L = 4608 + 77; times each kernel and its plain version in turns at
@@ -24,8 +29,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      candidates at 1024x1024, 8 Euler steps (cut from 30 to bound the run);
      checks finite latents, 4 PNGs of 1024x1024x3, and exactly
      8 steps x 57 attention calls x 2 generate calls = 912 K1 launches (and no
-     K2–K5 launch); and a full-width DiT forward on a small input agrees
+     K2–K6 launch); and a full-width DiT forward on a small input agrees
      between K1 and the plain attention;
+  5b. training: on that bf16 pipeline, `train()` of the FLUX-Corrector LoRA
+     with TrainConfig's defaults (B=8, 512 px target and condition, r=32,
+     prodigy, clip 0.5) and attn_impl="pallas" for 3 steps over a synthetic
+     PNG shard; checks finite loss, grad_norm > 0, moved adapters, the
+     checkpoint marker and 3 metric rows, and exactly 342 K1, 171 K6a and
+     171 K6b launches (no K2–K5); prints s/step, peak memory and a profiler
+     split of one step; at B=1 the adapter gradients with K1 + K6 agree with
+     the plain attention's (cosine >= 0.99 per adapter family);
   6. W8A8 main path: the same pipeline quantized in place with the CLI's int8
      profile (`pipe.quantize(int4=(), weight_only=("t5",))`: fused, split-RoPE
      W8A8 DiT + w8a16 T5), served the same way; checks finite latents, 4 PNGs
@@ -36,8 +49,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      77 text tokens must launch K1–K5 once per W8A8 linear, as at 1024px, and
      a small ragged forward must agree with the plain path); and a profiler
      split of one W8A8 step at B=2.
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+The training numbers are on the line {"train": {...}}; the line before the
+last is {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -57,9 +70,13 @@ DIT_REL_TOL = 3e-2  # bf16 DiT forward, K1 vs plain attention, relative to max |
 NR_REL, NR_ABS = 7.9e-3, 1e-3  # K2: |err| <= NR_REL * |ref| + NR_ABS (two bf16 ulps)
 Q_SCALE_RTOL, Q_MISMATCH = 1e-5, 1e-3  # K3/K4: scale rtol; |dq| <= 1 on <= 0.1% of values
 W8A8_COS = 0.999  # full-width W8A8 DiT, fused path vs plain serving path
+K6_REL_TOL = 1e-2  # K6a/K6b: max |err| <= K6_REL_TOL * max |ref| for each of dQ, dK, dV
+TRAIN_STEPS = 3  # corrector training steps at TrainConfig defaults (B=8, 512 px, r=32)
+TRAIN_COS = 0.99  # adapter gradients, K1 + K6 vs plain attention, cosine per adapter family
 STEPS, N_PROMPTS, BRANCH = 8, 2, 2
 H, M, D, LT, LI = 3072, 12288, 128, 512, 4096  # FLUX.1-dev widths; txt and img tokens at 1024px
 HBM_TBS = 3.35  # H100 SXM HBM3, TB/s (data sheet)
+BF16_TFLOPS = 989.0  # H100 SXM dense bf16 tensor-core peak, TFLOP/s (data sheet)
 PQ = "reflectionflow_tpu/ops/pallas_quant.py"
 KERNELS = (  # name, source, TPU kernel it replaces
     ("norm_rope", "norm_rope.cu", f"{PQ}:116"),
@@ -132,9 +149,11 @@ def device_ms(torch, fn, iters: int) -> float:
         for _ in range(iters):
             fn()
 
-    us = sum(t for _, t in profiled(torch, loop))
-    check(us > 0, "the profiler saw no device time")
-    return us / 1e3 / iters
+    for _ in range(3):  # a short window's trace can come back empty; take it again
+        us = sum(t for _, t in profiled(torch, loop))
+        if us > 0:
+            return us / 1e3 / iters
+    raise RuntimeError("the profiler saw no device time")
 
 
 def k1_phase(torch):
@@ -170,9 +189,93 @@ def k1_phase(torch):
             flops = 4 * 4608 * 4608 * 128 * 24 * B
             log(f"K1 B={B} L=4608: kernel {times[B][0]:.4f} ms ({flops / times[B][0] / 1e9:.1f} TFLOP/s), "
                 f"plain {times[B][1]:.4f} ms")
-            del q, k, v
+        # yardstick only: PyTorch's SDPA forward on (B, H, L, D) copies of the same inputs
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        library_ms = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh), 20)
+        bound_k1 = bound(4 * 4608 * 4608 * 128 * 24 * 2, 4 * 2 * 4608 * 24 * 128 * 2 + 2 * 24 * 4608 * 4)
+        log(f"K1 B=2 L=4608: SDPA forward {library_ms:.4f} ms; bound {bound_k1[0]:.4f} ms ({bound_k1[1]})")
+        del q, k, v, qh, kh, vh
     torch.cuda.empty_cache()
-    return err_out, err_lse, times
+    return err_out, err_lse, times, library_ms, bound_k1
+
+
+def bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of the operations over the bf16 peak
+    and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / (BF16_TFLOPS * 1e9), nbytes / (HBM_TBS * 1e9)
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k6_phase(torch):
+    """K6a/K6b against the fp32 plain backward at the training shape (B=8,
+    L=512+1024+1024, main_len 1536, three cross-bias forms), the serving shape
+    (B=2, L=4608) and a ragged L; times both kernels in turns against the plain
+    version and against PyTorch's SDPA backward (the yardstick only)."""
+    import torch.nn.functional as F
+
+    from reflectionflow_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_ref, flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq)
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def inputs(B, L, main_len, cross_bias):
+        q, k, v, do = (torch.randn((B, L, 24, D), generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        out, lse = flash_attention_fwd(q, k, v, main_len, cross_bias)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        return q, k, v, do, out, lse, delta
+
+    res = {"dq": {"err": 0.0, "rel": 0.0}, "dkv": {"err": 0.0, "rel": 0.0}, "by_shape": {}}
+    cases = [(8, 2560, 1536, 0.0), (8, 2560, 1536, -1e30), (8, 2560, 1536, math.log(0.5)),
+             (2, 4608, 4608, 0.0), (1, 4608 + 77, 4608 + 77, 0.0)]
+    with torch.no_grad():
+        for B, L, main_len, cb in cases:
+            q, k, v, do, out, lse, delta = inputs(B, L, main_len, cb)
+            got = (flash_bwd_dq(q, k, v, do, lse, delta, main_len, cb),
+                   *flash_bwd_dkv(q, k, v, do, lse, delta, main_len, cb))
+            torch.cuda.synchronize()
+            want = flash_attention_bwd_ref(q, k, v, out, lse, do, main_len, cb)
+            msg = []
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                err = (g.float() - w).abs().max().item()
+                rel = err / w.abs().max().item()
+                r = res["dq" if name == "dq" else "dkv"]
+                r["err"], r["rel"] = max(r["err"], err), max(r["rel"], rel)
+                msg.append(f"{name} max|err| {err:.3e} ({rel:.2e} of max|ref|)")
+                check(bool(torch.isfinite(g).all()) and rel <= K6_REL_TOL,
+                      f"K6 {name} disagrees with its plain version at B={B} L={L} cross_bias={cb}")
+            log(f"K6 B={B} L={L} main_len={main_len} cross_bias={cb}: {', '.join(msg)} "
+                f"(tol {K6_REL_TOL} of max|ref|)")
+            del got, want
+            if cb == 0.0 and L % 8 == 0:
+                t_dq, plain = in_turns(
+                    torch, lambda: flash_bwd_dq(q, k, v, do, lse, delta, main_len),  # noqa: B023
+                    lambda: flash_attention_bwd_ref(q, k, v, out, lse, do, main_len), 10, 2)  # noqa: B023
+                t_dkv, _ = in_turns(
+                    torch, lambda: flash_bwd_dkv(q, k, v, do, lse, delta, main_len),  # noqa: B023
+                    lambda: flash_attention_bwd_ref(q, k, v, out, lse, do, main_len), 10, 2)  # noqa: B023
+                with torch.enable_grad():
+                    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+                    o = F.scaled_dot_product_attention(qs, ks, vs)
+                    dos = do.transpose(1, 2).contiguous()
+                    lib = cuda_ms(torch, lambda: torch.autograd.grad(  # noqa: B023
+                        o, (qs, ks, vs), dos, retain_graph=True), 10)  # noqa: B023
+                    del o, qs, ks, vs, dos
+                pairs = B * 24 * L * L * D
+                io = B * L * 24 * D * 2
+                b_dq = bound(6 * pairs, 5 * io + 2 * B * 24 * L * 4)
+                b_dkv = bound(8 * pairs, 6 * io + 2 * B * 24 * L * 4)
+                res["by_shape"][f"B={B} L={L}"] = {
+                    "dq": {"ms": t_dq, "bound_ms": b_dq[0], "bound_by": b_dq[1]},
+                    "dkv": {"ms": t_dkv, "bound_ms": b_dkv[0], "bound_by": b_dkv[1]},
+                    "plain_ms": plain, "library_ms": lib}
+                log(f"K6 B={B} L={L}: K6a {t_dq:.3f} ms ({6 * pairs / t_dq / 1e9:.1f} TFLOP/s, bound "
+                    f"{b_dq[0]:.3f} ms), K6b {t_dkv:.3f} ms ({8 * pairs / t_dkv / 1e9:.1f} TFLOP/s, "
+                    f"bound {b_dkv[0]:.3f} ms), plain backward {plain:.3f} ms, "
+                    f"SDPA backward {lib:.3f} ms")
+            del q, k, v, do, out, lse, delta
+            torch.cuda.empty_cache()
+    return res
 
 
 def fused_phase(torch):
@@ -208,7 +311,7 @@ def fused_phase(torch):
         res[name]["by_shape"][label] = {"ms": ms, "plain_ms": plain_ms, "gbps": gbps,
                                         "event_ms": ev_ms, "plain_event_ms": ev_plain_ms}
         if label.endswith(f"L={LT + LI}"):  # the single-block shape: the result line's numbers
-            res[name].update(ms=ms, plain_ms=plain_ms, gbps=gbps)
+            res[name].update(ms=ms, plain_ms=plain_ms, gbps=gbps, bound_ms=nbytes / (HBM_TBS * 1e9))
         log(f"  {name} {label}: device {ms:.4f} ms ({gbps:.0f} GB/s, {gbps / (HBM_TBS * 1e3):.1%} "
             f"of {HBM_TBS} TB/s), plain {plain_ms:.4f} ms; per call with host gaps "
             f"{ev_ms:.4f} ms, plain {ev_plain_ms:.4f} ms")
@@ -294,9 +397,10 @@ def read_png_header(path: str):
 
 def _counters():
     from reflectionflow_tpu_torch.ops import fused_quant as fq
-    from reflectionflow_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from reflectionflow_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq
 
-    return {"flash_fwd": flash_attention_fwd, **{n: getattr(fq, n) for n, _, _ in KERNELS}}
+    return {"flash_fwd": flash_attention_fwd, "flash_bwd_dq": flash_bwd_dq,
+            "flash_bwd_dkv": flash_bwd_dkv, **{n: getattr(fq, n) for n, _, _ in KERNELS}}
 
 
 def serve(torch, pipe, label: str):
@@ -391,8 +495,8 @@ def bf16_phase(torch):
 
     launches, calls, peak = serve(torch, pipe, "bf16")
     n_blocks = pipe.dit_cfg.num_double_blocks + pipe.dit_cfg.num_single_blocks
-    expected = {"flash_fwd": STEPS * n_blocks * N_PROMPTS, "norm_rope": 0, "adaln_quant": 0,
-                "gelu_quant": 0, "rowquant": 0}
+    expected = {"flash_fwd": STEPS * n_blocks * N_PROMPTS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                "norm_rope": 0, "adaln_quant": 0, "gelu_quant": 0, "rowquant": 0}
     log(f"bf16 launches in the main path: {launches} (expected {expected})")
     check(launches == expected, "the bf16 main path did not run K1 the expected number of times")
 
@@ -405,6 +509,162 @@ def bf16_phase(torch):
     log(f"DiT forward (full width, L=320): max|K1 - plain| / max|plain| = {rel:.3e} (tol {DIT_REL_TOL})")
     check(bool(torch.isfinite(v_k1).all()) and rel <= DIT_REL_TOL, "DiT with K1 disagrees with plain attention")
     return pipe, launches, calls, peak
+
+
+def _family(key: str) -> str:
+    """Kernel name -> family of the profiler splits."""
+    name = key.lower()
+    for tag, grp in (("flash_fwd", "K1 flash_fwd"), ("flash_bwd_dq", "K6a flash_bwd_dq"),
+                     ("flash_bwd_dkv", "K6b flash_bwd_dkv"), ("norm_rope", "K2 norm_rope"),
+                     ("act_quant", "K3-K5 act_quant")):
+        if tag in name:
+            return grp
+    if any(t in name for t in ("gemm", "xmma", "cutlass", "imma", "nvjet")):
+        return "int8 GEMM" if any(t in name for t in ("s8", "i8", "int8", "imma")) else "bf16 GEMM"
+    if "elementwise" in name or "vectorized" in name or "reduce" in name:
+        return "elementwise"
+    return "other"
+
+
+def log_split(label: str, events, wall_s: float) -> dict:
+    groups: dict[str, float] = {}
+    other: dict[str, float] = {}
+    for key, us in events:
+        grp = _family(key)
+        if grp == "other":
+            other[key[:90]] = other.get(key[:90], 0.0) + us
+        groups[grp] = groups.get(grp, 0.0) + us
+    busy = sum(groups.values()) / 1e3
+    log(f"{label}: wall {wall_s * 1e3:.1f} ms, device kernels {busy:.1f} ms "
+        f"({busy / (wall_s * 1e3):.1%} busy)")
+    for grp, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"  {grp}: {us / 1e3:.2f} ms ({us / 1e3 / busy:.1%})")
+    for name, us in sorted(other.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    other: {us / 1e3:.2f} ms  {name}")
+    return {"wall_ms": wall_s * 1e3, "device_ms": busy, **{k: v / 1e3 for k, v in groups.items()}}
+
+
+def train_phase(torch, pipe):
+    """Corrector LoRA training on the bf16 FLUX.1-dev pipeline at full width
+    and depth: `train()` with TrainConfig's defaults (batch 8, target and
+    condition 512 px, r = alpha = 32, prodigy, grad clip 0.5) and
+    attn_impl="pallas", over a synthetic 512 px PNG shard, for 3 steps. Checks
+    the loss, the gradient norm, the adapters, the checkpoint and the metric
+    rows, and exactly 114 K1, 57 K6a and 57 K6b launches per step (forward,
+    recomputation, backward of 57 attention calls). Then a profiler split of
+    one more step, and at B=1 the adapter gradients with K1 + K6 against the
+    plain attention."""
+    from reflectionflow_tpu_torch.config import TrainConfig
+    from reflectionflow_tpu_torch.lora.lora import lora_parameters
+    from reflectionflow_tpu_torch.train.data import GenRefDataset, write_synthetic_shard
+    from reflectionflow_tpu_torch.train.rectified_flow import (
+        make_optimizer, make_train_step, prepare_batch_tensors, rf_loss)
+    from reflectionflow_tpu_torch.train.train_loop import latest_checkpoint, train
+
+    cfg = TrainConfig()
+    cfg.attn_impl, cfg.max_steps = "pallas", TRAIN_STEPS
+    d = cfg.data
+    n_blocks = pipe.dit_cfg.num_double_blocks + pipe.dit_cfg.num_single_blocks
+    moved = []
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.checkpoint_dir = os.path.join(tmp, "ckpt")
+        shard = os.path.join(tmp, "genref_000.tar")
+        t0 = time.perf_counter()
+        write_synthetic_shard(shard, n=2 * d.batch_size, size=d.target_size)
+        log(f"train: synthetic shard of {2 * d.batch_size} samples at {d.target_size} px in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        def dataset():
+            return GenRefDataset(shards=[shard], batch_size=d.batch_size, target_size=d.target_size,
+                                 condition_size=d.condition_size, seed=cfg.seed)
+
+        def hook(step, adapters, row):
+            if step == 0:
+                moved.append(any(bool(ab["lora_B"].abs().sum() > 0) for ab in adapters.values()))
+
+        counters = _counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = train(pipe, cfg, dataset(), hooks=[hook])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(cfg.checkpoint_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+        latest = latest_checkpoint(cfg.checkpoint_dir)
+
+        expected = {name: 0 for name in launches}
+        expected.update(flash_fwd=2 * n_blocks * TRAIN_STEPS, flash_bwd_dq=n_blocks * TRAIN_STEPS,
+                        flash_bwd_dkv=n_blocks * TRAIN_STEPS)
+        for r in rows:
+            log(f"train step {r['step']}: loss {r['loss']:.5f}, grad_norm {r['grad_norm']:.4e}, "
+                f"t_mean {r['t_mean']:.3f}, {r['step_time_s']:.3f} s")
+        s_per_step = sum(r["step_time_s"] for r in rows[1:]) / (len(rows) - 1)
+        log(f"train: {TRAIN_STEPS} steps in {wall:.1f} s; {s_per_step:.3f} s/step (steps 2-{TRAIN_STEPS}, "
+            f"B={d.batch_size}, {d.target_size} px); peak device memory {peak / 2**30:.2f} GiB; "
+            f"launches {launches} (expected {expected})")
+        check(len(rows) == TRAIN_STEPS and latest == TRAIN_STEPS, f"{len(rows)} metric rows, latest {latest}")
+        check(all(math.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in rows), "bad loss or grad_norm")
+        check(moved == [True], "the adapters' B did not move after step 1")
+        check(launches == expected, "training did not run K1/K6a/K6b the expected number of times")
+
+        # a profiler split of one more step on the trained adapters
+        raw = next(iter(dataset()))
+        delta = (0, -d.condition_size // 16)
+        batch = prepare_batch_tensors(pipe, raw, delta)
+        adapters = out["adapters"]
+        opt = make_optimizer(cfg)
+        opt_state = opt.init(lora_parameters({"adapters": adapters}))
+        step = make_train_step(pipe.dit, opt, alpha=cfg.lora.alpha, r=cfg.lora.r, attn_impl="pallas")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        wall_prof = []
+
+        def one_step():
+            t1 = time.perf_counter()
+            step(adapters, opt_state, batch, gen)
+            torch.cuda.synchronize()
+            wall_prof.append(time.perf_counter() - t1)
+
+        events = profiled(torch, one_step)
+        prof = log_split(f"train step profile (B={d.batch_size}, L=512+1024+1024)", events, wall_prof[0])
+        del opt_state, batch
+
+        # B=1: adapter gradients with K1 + K6 against the plain attention
+        one = {k: v[:1] for k, v in raw.items()}
+        batch = prepare_batch_tensors(pipe, one, delta)
+        g = torch.Generator(device="cuda").manual_seed(2)
+        t = torch.sigmoid(torch.randn((1,), generator=g, device="cuda"))
+        noise = torch.randn(batch["x0"].shape, generator=g, device="cuda")
+        names = list(adapters)
+        params = [adapters[n][k] for n in names for k in ("lora_A", "lora_B")]
+        grads = {}
+        for impl in ("pallas", "xla"):
+            loss, _ = rf_loss(adapters, pipe.dit, batch, alpha=cfg.lora.alpha, r=cfg.lora.r,
+                              attn_impl=impl, t=t, noise=noise)
+            gs = torch.autograd.grad(loss, params, allow_unused=True)
+            grads[impl] = [torch.zeros_like(p) if x is None else x for x, p in zip(gs, params)]
+            log(f"train B=1 {impl}: loss {loss.item():.6f}")
+        fams: dict[str, list[int]] = {}
+        for i, n in enumerate(names):
+            fam = ".".join(p for p in n.split(".") if not p.isdigit())
+            fams.setdefault(fam, []).extend((2 * i, 2 * i + 1))
+        cos = {}
+        for fam, idx in fams.items():
+            a = torch.cat([grads["pallas"][i].flatten().float() for i in idx])
+            b = torch.cat([grads["xla"][i].flatten().float() for i in idx])
+            cos[fam] = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+        log(f"train B=1 adapter-gradient cosine, K1 + K6 vs plain attention, per family: "
+            + ", ".join(f"{f} {c:.6f}" for f, c in cos.items()))
+        check(min(cos.values()) >= TRAIN_COS, f"adapter gradients disagree (min cosine {min(cos.values())})")
+        del grads, params, batch, out, adapters
+    torch.cuda.empty_cache()
+    return {"s_per_step": s_per_step, "peak_gib": peak / 2**30, "launches": launches,
+            "rows": rows, "profile_ms": prof, "grad_cosine_min": min(cos.values()),
+            "grad_cosine": cos}
 
 
 def profile_step(torch, pipe):
@@ -423,31 +683,7 @@ def profile_step(torch, pipe):
         pipe.dit(*args, **kw)
         torch.cuda.synchronize()
         events = profiled(torch, step)
-    wall = wall[0]
-    groups: dict[str, float] = {}
-    other: dict[str, float] = {}
-    for key, us in events:
-        name = key.lower()
-        if "flash_fwd" in name:
-            grp = "K1 flash_fwd"
-        elif "norm_rope" in name:
-            grp = "K2 norm_rope"
-        elif "act_quant" in name:
-            grp = "K3-K5 act_quant"
-        elif any(s in name for s in ("gemm", "xmma", "cutlass", "imma", "nvjet")):
-            grp = "int8 GEMM" if any(s in name for s in ("s8", "i8", "int8", "imma")) else "bf16 GEMM"
-        else:
-            grp = "other"
-            other[key[:90]] = other.get(key[:90], 0.0) + us
-        groups[grp] = groups.get(grp, 0.0) + us
-    busy = sum(groups.values()) / 1e3
-    log(f"W8A8 step profile (B=2, L={LT}+{LI}): wall {wall * 1e3:.1f} ms, device kernels {busy:.1f} ms "
-        f"({busy / (wall * 1e3):.1%} busy)")
-    for grp, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"  {grp}: {us / 1e3:.2f} ms ({us / 1e3 / busy:.1%})")
-    for name, us in sorted(other.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"    other: {us / 1e3:.2f} ms  {name}")
-    return {"wall_ms": wall * 1e3, "device_ms": busy, **{k: v / 1e3 for k, v in groups.items()}}
+    return log_split(f"W8A8 step profile (B=2, L={LT}+{LI})", events, wall[0])
 
 
 def w8a8_phase(torch, pipe):
@@ -469,7 +705,8 @@ def w8a8_phase(torch, pipe):
     launches, calls, peak = serve(torch, pipe, "w8a8")
     cfg_d = pipe.dit_cfg
     nd, ns = cfg_d.num_double_blocks, cfg_d.num_single_blocks
-    per_forward = {"flash_fwd": nd + ns, "norm_rope": 4 * nd + 2 * ns, "adaln_quant": 4 * nd + ns,
+    per_forward = {"flash_fwd": nd + ns, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                   "norm_rope": 4 * nd + 2 * ns, "adaln_quant": 4 * nd + ns,
                    "gelu_quant": 2 * nd + ns, "rowquant": 2 * nd + ns}
     expected = {k: v * STEPS * N_PROMPTS for k, v in per_forward.items()}
     log(f"W8A8 launches in the main path: {launches} (expected {expected})")
@@ -529,14 +766,17 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_build.build_all()
     log(f"build {', '.join(kernel_build.SOURCES)} (in parallel): {time.perf_counter() - t0:.2f} s")
-    err_out, err_lse, times = k1_phase(torch)
+    err_out, err_lse, times, k1_library_ms, k1_bound = k1_phase(torch)
+    k6 = k6_phase(torch)
     fused = fused_phase(torch)
     pipe, bf16_launches, bf16_calls, bf16_peak = bf16_phase(torch)
+    training = train_phase(torch, pipe)
     w8_launches, w8_calls, w8_peak, prof, ragged = w8a8_phase(torch, pipe)
     step = {name: calls[-1]["denoise_s"] / STEPS for name, calls in (("bf16", bf16_calls),
                                                                       ("w8a8", w8_calls))}
     log(f"s/step at B={BRANCH} (second call): bf16 {step['bf16']:.4f}, W8A8 {step['w8a8']:.4f}; "
-        f"peak device memory bf16 {bf16_peak / 2**30:.2f} GiB, W8A8 {w8_peak / 2**30:.2f} GiB")
+        f"peak device memory bf16 {bf16_peak / 2**30:.2f} GiB, W8A8 {w8_peak / 2**30:.2f} GiB; "
+        f"training {training['s_per_step']:.4f} s/step at B=8, peak {training['peak_gib']:.2f} GiB")
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -544,13 +784,32 @@ def main() -> int:
         "replaces": "reflectionflow_tpu/ops/pallas_attention.py:63",
         "launches": bf16_launches["flash_fwd"],
         "launches_w8a8": w8_launches["flash_fwd"],
+        "launches_train": training["launches"]["flash_fwd"],
         "max_abs_err": err_out,
         "lse_max_abs_err": err_lse,
         "ms": times[2][0],
         "plain_ms": times[2][1],
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
+        "library_ms": k1_library_ms,
         "ms_b1": times[1][0],
         "plain_ms_b1": times[1][1],
     }]
+    train_shape, serve_shape = "B=8 L=2560", "B=2 L=4608"
+    for name, key, replaces in (("flash_bwd_dq", "dq", "reflectionflow_tpu/ops/pallas_attention.py:126"),
+                                ("flash_bwd_dkv", "dkv", "reflectionflow_tpu/ops/pallas_attention.py:175")):
+        at = {label: k6["by_shape"][label] for label in (train_shape, serve_shape)}
+        kernels.append({
+            "name": name, "route": "cuda", "source": "reflectionflow_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": replaces, "launches": training["launches"][name],
+            "max_abs_err": k6[key]["err"], "rel_err": k6[key]["rel"],
+            "ms": at[train_shape][key]["ms"], "plain_ms": at[train_shape]["plain_ms"],
+            "bound_ms": at[train_shape][key]["bound_ms"], "bound_by": at[train_shape][key]["bound_by"],
+            "library_ms": at[train_shape]["library_ms"],
+            "serving_shape": {"ms": at[serve_shape][key]["ms"], "plain_ms": at[serve_shape]["plain_ms"],
+                              "bound_ms": at[serve_shape][key]["bound_ms"],
+                              "library_ms": at[serve_shape]["library_ms"]},
+        })
     for name, source, replaces in KERNELS:
         r = fused[name]
         kernels.append({
@@ -558,8 +817,11 @@ def main() -> int:
             "replaces": replaces, "launches": w8_launches[name],
             "launches_ragged": ragged["launches"][name], "max_abs_err": r["err"],
             **{k: r[k] for k in ("scale_rel_err", "mismatch_frac") if k in r},
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "gbps": r["gbps"], "by_shape": r["by_shape"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "gbps": r["gbps"], "by_shape": r["by_shape"],
         })
+    log(json.dumps({"train": {k: training[k] for k in ("s_per_step", "peak_gib", "profile_ms",
+                                                       "grad_cosine_min", "grad_cosine")}}))
     log(json.dumps({"kernels": kernels, "s_per_step": step, "w8a8_step_profile_ms": prof,
                     "peak_gib": {"bf16": bf16_peak / 2**30, "w8a8": w8_peak / 2**30}}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

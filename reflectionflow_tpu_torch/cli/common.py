@@ -5,6 +5,12 @@ port runs the bf16 text-to-image path and, with `--quantize int8`, the W8A8
 serving profile; options that select later ROADMAP slices raise
 `NotImplementedError` naming the slice.
 
+`--device` (default `cuda`) picks where the pipeline is built and runs; when
+CUDA is missing the CLI raises unless `--device cpu` was given, and never
+falls back. `--synthetic_weights` keeps the JAX recipe of tiny fp32 weights
+on either device; on the card, fp32 with `--attn_impl pallas` raises K1's
+dtype error (the kernels take bf16), as any non-bf16 input does.
+
 One divergence: the int8 profile keeps T5 resident and does not phase-swap it
 (the JAX package offloads it to fit a 16 GB chip; the card has 80 GB). That
 changes memory orchestration only, never outputs.
@@ -23,6 +29,36 @@ from ..ops.quant import NF4_NOT_PORTED
 from ..sampler.pipeline import FluxPipeline
 
 
+def add_device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", type=str, default="cuda",
+                   help="where the pipeline runs: cuda (default; raises when CUDA is missing) "
+                   "or cpu")
+
+
+def resolve_device(name: str) -> torch.device:
+    """`--device` -> torch.device; a CUDA device without CUDA raises."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: CUDA is not available; pass --device cpu to run "
+                           "on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"--device {name}: expected cuda[:N] or cpu")
+    return device
+
+
+def synthetic_pipeline(device: torch.device) -> FluxPipeline:
+    """The tiny fp32 pipeline of `--synthetic_weights`, seeded, on `device`."""
+    return FluxPipeline.random_init(
+        torch.Generator(device=device).manual_seed(0),
+        dit_cfg=FluxDiTConfig.tiny(),
+        vae_cfg=FluxVAEConfig.tiny(),
+        t5_cfg=T5Config.tiny(),
+        clip_cfg=CLIPTextConfig.tiny(),
+        dtype=torch.float32,
+        device=device,
+    )
+
+
 def build_parser(description: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--pipeline_config_path", type=str, required=True)
@@ -34,7 +70,8 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--prompt", type=str, default=None, help="single prompt override (skips meta_path)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--synthetic_weights", action="store_true",
-                   help="random tiny fp32 weights on the CPU (smoke runs, no model files)")
+                   help="random tiny fp32 weights (smoke runs, no model files)")
+    add_device_arg(p)
     p.add_argument(
         "--attn_impl", type=str, default=None,
         choices=["xla", "pallas", "pallas_interpret", "pallas_nr", "pallas_nr_interpret",
@@ -112,6 +149,7 @@ def _int8_profile(pa) -> None:
 
 def load_pipeline(cfg: TTSConfig, args) -> FluxPipeline:
     pa = cfg.pipeline_args
+    device = resolve_device(args.device)
     cli_quant = getattr(args, "quantize", None)
     quantize = pa.quantize if cli_quant is None else (None if cli_quant == "none" else cli_quant)
     if quantize == "int8":
@@ -138,14 +176,7 @@ def load_pipeline(cfg: TTSConfig, args) -> FluxPipeline:
         raise NotImplementedError(
             "loading published weights (FluxPipeline.from_pretrained) is ROADMAP slice 1, "
             "item 9; use --synthetic_weights")
-    pipe = FluxPipeline.random_init(
-        torch.Generator().manual_seed(0),
-        dit_cfg=FluxDiTConfig.tiny(),
-        vae_cfg=FluxVAEConfig.tiny(),
-        t5_cfg=T5Config.tiny(),
-        clip_cfg=CLIPTextConfig.tiny(),
-        dtype=torch.float32,
-    )
+    pipe = synthetic_pipeline(device)
     pipe.attn_impl = attn_impl
     if quantize == "int8":
         # the JAX int8 profile; T5 stays resident (no phase swap)

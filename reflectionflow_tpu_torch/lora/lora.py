@@ -1,0 +1,178 @@
+"""LoRA for the FLUX DiT: adapters, the low-rank view the cond stream reads,
+and folding.
+
+Counterpart of `reflectionflow_tpu/lora/lora.py`. The JAX package stacks an
+adapter per block family (`{path: {A: (N, in, r), B: (N, r, out)}}`); this
+port keeps one per linear, under the diffusers module name and in the
+diffusers-peft layout:
+
+    lora = {"_alpha": alpha, "_r": r,
+            "adapters": {"transformer_blocks.0.attn.to_q": {"lora_A": (r, in), "lora_B": (out, r)}, ...}}
+
+so that a linear's output gains `scale * alpha / r * x @ A^T @ B^T`.
+
+Two ways to apply an adapter, as in the JAX package:
+  * `attach_lora(dit, lora)` -> a view of the DiT that shares every module and
+    parameter of `dit` but wraps each adapted linear in `LoRALinear`, which
+    adds the low-rank product to the frozen base output. This is the training
+    form: W + AB is never materialised, and gradients reach the fp32 adapters
+    through the adds;
+  * `fold_lora(dit, lora)` -> a copy with W' = W + scale * alpha / r * B A.
+
+`make_dit_param_views` gives the (main, cond) pair `FluxDiT.forward` reads:
+the corrector adapter acts on the condition stream only, unless
+`latent_lora=True`.
+
+The target set is the corrector's: x_embedder; in double blocks the
+image-side norm1.linear, attn to_q/to_k/to_v/to_out.0 and ff.net.2; in single
+blocks norm.linear, attn to_q/to_k/to_v, proj_mlp and proj_out. Text-side
+projections are never adapted.
+"""
+
+from __future__ import annotations
+
+import copy
+import re
+
+import numpy as np
+import torch
+from torch import nn
+
+_DOUBLE = ("norm1.linear", "attn.to_q", "attn.to_k", "attn.to_v", "attn.to_out.0", "ff.net.2")
+_SINGLE = ("norm.linear", "attn.to_q", "attn.to_k", "attn.to_v", "proj_mlp", "proj_out")
+_BLOCK = re.compile(r"(transformer_blocks|single_transformer_blocks)\.\d+\.(.+)")
+
+
+def corrector_target_paths() -> tuple[str, ...]:
+    """Adapted module names, with the block index left out."""
+    return ("x_embedder", *(f"transformer_blocks.{m}" for m in _DOUBLE),
+            *(f"single_transformer_blocks.{m}" for m in _SINGLE))
+
+
+def _is_target(name: str, targets: tuple[str, ...]) -> bool:
+    m = _BLOCK.fullmatch(name)
+    return (f"{m[1]}.{m[2]}" if m else name) in targets
+
+
+class LoRALinear(nn.Module):
+    """A frozen base linear plus the low-rank add `x @ A^T @ (scaling B)^T`,
+    computed in x's dtype (the JAX package's `linear` with `lora_A`/`lora_B`)."""
+
+    def __init__(self, base: nn.Linear, lora_A: torch.Tensor, lora_B: torch.Tensor, scaling: float):
+        super().__init__()
+        self.base, self.lora_A, self.lora_B, self.scaling = base, lora_A, lora_B, scaling
+
+    def forward(self, x):
+        B = (self.lora_B * self.scaling).to(x.dtype)
+        return self.base(x) + (x @ self.lora_A.to(x.dtype).t()) @ B.t()
+
+
+def lora_init(generator: torch.Generator, dit: nn.Module, r: int = 32, alpha: float = 32.0,
+              init: str = "gaussian", targets: tuple[str, ...] | None = None) -> dict:
+    """A zero-effect adapter (B = 0) for every target linear of `dit`:
+    A ~ N(0, (1/r)^2) for init="gaussian" (else 0), fp32 trainable
+    parameters on `dit`'s device, drawn from `generator` in module order."""
+    targets = targets or corrector_target_paths()
+    adapters = {}
+    for name, m in dit.named_modules():
+        if not (isinstance(m, nn.Linear) and _is_target(name, targets)):
+            continue
+        A = torch.randn((r, m.in_features), generator=generator, device=generator.device)
+        A = A * (1.0 / r if init == "gaussian" else 0.0)
+        adapters[name] = {
+            "lora_A": nn.Parameter(A.to(m.weight.device)),
+            "lora_B": nn.Parameter(torch.zeros((m.out_features, r), device=m.weight.device)),
+        }
+    if not adapters:
+        raise ValueError("lora_init: no target linear in the model (fused serving layout?)")
+    return {"_alpha": float(alpha), "_r": int(r), "adapters": adapters}
+
+
+def lora_parameters(lora: dict) -> list[torch.Tensor]:
+    """The adapter tensors in a fixed order (A then B of each module)."""
+    return [ab[k] for ab in lora["adapters"].values() for k in ("lora_A", "lora_B")]
+
+
+def lora_param_count(lora: dict) -> int:
+    return sum(int(np.prod(x.shape)) for x in lora_parameters(lora))
+
+
+def _with_modules(root: nn.Module, replacements: dict[str, nn.Module]) -> nn.Module:
+    """A copy of `root` that shares every module, parameter and buffer with
+    it, except that the modules named in `replacements` are swapped (only the
+    modules on the paths to them are copied, shallowly)."""
+    new_root = copy.copy(root)
+    new_root._modules = dict(root._modules)
+    copied = {id(new_root)}
+    for name, rep in replacements.items():
+        *path, leaf = name.split(".")
+        parent = new_root
+        for part in path:
+            child = parent._modules[part]
+            if id(child) not in copied:
+                child = copy.copy(child)
+                child._modules = dict(child._modules)
+                copied.add(id(child))
+                parent._modules[part] = child
+            parent = child
+        if not isinstance(parent._modules.get(leaf), nn.Linear):
+            raise KeyError(f"{name} is not a linear of the model")
+        parent._modules[leaf] = rep
+    return new_root
+
+
+def attach_lora(dit: nn.Module, lora: dict, scale: float = 1.0) -> nn.Module:
+    """A view of `dit` whose adapted linears add the low-rank product; the base
+    weights are shared and left untouched."""
+    scaling = scale * lora["_alpha"] / lora["_r"]
+    modules = dict(dit.named_modules())
+    return _with_modules(dit, {
+        name: LoRALinear(modules[name], ab["lora_A"], ab["lora_B"], scaling)
+        for name, ab in lora["adapters"].items()})
+
+
+@torch.no_grad()
+def fold_lora(dit: nn.Module, lora: dict, scale: float = 1.0) -> nn.Module:
+    """A copy of `dit` with W' = W + scale * alpha / r * B A for every adapter
+    (the delta in fp32, added in the weight's dtype)."""
+    scaling = scale * lora["_alpha"] / lora["_r"]
+    out = copy.deepcopy(dit)
+    modules = dict(out.named_modules())
+    for name, ab in lora["adapters"].items():
+        w = modules[name].weight
+        delta = scaling * (ab["lora_B"].float() @ ab["lora_A"].float())
+        w.add_(delta.to(w.device, w.dtype))
+    return out
+
+
+def make_dit_param_views(dit: nn.Module, lora: dict | None, latent_lora: bool = False,
+                         scale: float = 1.0):
+    """-> (main, cond) models for `FluxDiT.forward(..., cond_params=cond)`: the
+    cond stream reads the folded model; the main stream reads the base one, or
+    the folded one when `latent_lora`."""
+    if lora is None:
+        return dit, None
+    folded = fold_lora(dit, lora, scale)
+    return (folded, folded) if latent_lora else (dit, folded)
+
+
+def convert_diffusers_lora(sd: dict, alpha: float | None = None) -> dict:
+    """A diffusers-peft FLUX LoRA state dict (`transformer.<module>.lora_A.weight`
+    (r, in), `.lora_B.weight` (out, r); tensors of any float dtype or numpy
+    arrays) -> this module's adapter dict (fp32 tensors). `alpha` defaults to
+    r, as peft's default."""
+    adapters: dict[str, dict] = {}
+    r = None
+    for key, val in sd.items():
+        key = key.removeprefix("transformer.")
+        for which in ("lora_A", "lora_B"):
+            if f".{which}." in key:
+                module = key.split(f".{which}.")[0]
+                t = (val.float() if isinstance(val, torch.Tensor)
+                     else torch.from_numpy(np.asarray(val, np.float32)))
+                adapters.setdefault(module, {})[which] = t
+                if which == "lora_A":
+                    r = t.shape[0]
+    if r is None:
+        raise ValueError("no lora_A weights in the state dict")
+    return {"_alpha": float(alpha if alpha is not None else r), "_r": int(r), "adapters": adapters}

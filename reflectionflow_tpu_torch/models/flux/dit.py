@@ -1,11 +1,13 @@
-"""FLUX.1 rectified-flow DiT in PyTorch: the text-to-image forward, in the
-published layout and in the W8A8 serving layout.
+"""FLUX.1 rectified-flow DiT in PyTorch: the forward with its optional
+condition stream, in the published layout and in the W8A8 serving layout.
 
-Counterpart of `reflectionflow_tpu/models/flux/dit.py::flux_dit_apply` with no
-cond stream: 19 double-stream blocks, 38 single-stream blocks (FLUX.1-dev),
-AdaLN-Zero modulation from the (timestep, guidance, pooled CLIP) embedding, and
+Counterpart of `reflectionflow_tpu/models/flux/dit.py::flux_dit_apply`:
+19 double-stream blocks, 38 single-stream blocks (FLUX.1-dev), AdaLN-Zero
+modulation from the (timestep, guidance, pooled CLIP) embedding, the cond
+token stream that shares the image-stream weights (optionally through a LoRA
+view, `lora/lora.py`), per-block recomputation for training (`remat`), and
 attention through `ops.attention.joint_attention`, whose "pallas" impl is
-kernel K1.
+kernel K1 forward and K6a/K6b backward.
 
 Parameter names follow diffusers' FluxTransformer2DModel
 (`transformer_blocks.{i}.attn.to_q`, `norm1.linear`, ...), the names
@@ -31,12 +33,14 @@ from __future__ import annotations
 import math
 import re
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...config import FluxDiTConfig
-from ...ops.attention import joint_attention
+from ...ops.attention import cond_attention_bias, joint_attention
 from ...ops.fused_quant import adaln_quant, gelu_quant, norm_rope, rowquant
 from ...ops.norms import adaln_modulate, layer_norm, rms_norm
 from ...ops.quant import QuantLinear
@@ -267,7 +271,10 @@ class DoubleBlock(nn.Module):
         self.ff = _FeedForward(cfg.hidden_size, cfg.mlp_hidden)
         self.ff_context = _FeedForward(cfg.hidden_size, cfg.mlp_hidden)
 
-    def forward(self, img, txt, temb, rope, flags, attn_impl):
+    def forward(self, img, txt, temb, rope, flags, attn_impl, cond=None, cond_temb=None,
+                rope_cond=None, attn_kw=None, bc=None):
+        """One block; with `cond` the cond stream runs beside [txt | img] in the
+        joint attention, reading block `bc` (this block, or its LoRA view)."""
         cfg, a = self.cfg, self.attn
         fast = flags["fast_qk"]
         # modulation order: shift, scale, gate for attention, then for the MLP
@@ -287,21 +294,43 @@ class DoubleBlock(nn.Module):
                                          (cos[Lt:], sin[Lt:]) if nr else None)
         txt_q, txt_k, txt_v = stream_qkv(a.txt_proj(), a.norm_added_q, a.norm_added_k, txt,
                                          t_sh1, t_sc1, (cos[:Lt], sin[:Lt]) if nr else None)
-        # RoPE covers [txt | img] jointly
+        # RoPE covers [txt | img] jointly; the cond stream has its own tables
         q = torch.cat([txt_q, img_q], dim=1)
         k = torch.cat([txt_k, img_k], dim=1)
         if not nr:
             q, k = _rope_qk(q, k, rope)
         v = torch.cat([txt_v, img_v], dim=1)
-        (joint,) = joint_attention([q], [k], [v], impl=attn_impl)
+        streams = [[q], [k], [v]]
+        if cond is not None:
+            ca = bc.attn
+            c_sh1, c_sc1, c_g1, c_sh2, c_sc2, c_g2 = bc.norm1(cond_temb)
+            nr_c = _nr_gate(flags, attn_impl, rope_cond)
+            cq, ck, cv = stream_qkv(ca.img_proj(), ca.norm_q, ca.norm_k, cond, c_sh1, c_sc1,
+                                    rope_cond[:2] if nr_c else None)
+            if not nr_c:
+                cq, ck = _rope_qk(cq, ck, rope_cond)
+            for lst, x in zip(streams, (cq, ck, cv)):
+                lst.append(x)
+        outs = joint_attention(*streams, impl=attn_impl, **(attn_kw or {}))
+        joint = outs[0]
         txt_attn = _proj(a.to_add_out, joint[:, :Lt].flatten(2), flags, attn_impl)
         img_attn = _proj(a.to_out[0], joint[:, Lt:].flatten(2), flags, attn_impl)
         img = img + i_g1[:, None, :] * img_attn
         txt = txt + t_g1[:, None, :] * txt_attn
+        if cond is not None:
+            gated = c_g1[:, None, :] * _proj(ca.to_out[0], outs[1].flatten(2), flags, attn_impl)
+            cond = cond + gated
+            if flags["add_cond_attn"]:
+                if cond.shape[1] != img.shape[1]:
+                    raise ValueError("add_cond_attn requires L_cond == L_img")
+                img = img + gated
         img = img + i_g2[:, None, :] * _mlp_apply(self.ff, img, i_sh2, i_sc2, flags, attn_impl, fast)
         txt = txt + t_g2[:, None, :] * _mlp_apply(self.ff_context, txt, t_sh2, t_sc2, flags,
                                                   attn_impl, fast)
-        return img, txt
+        if cond is not None:
+            cond = cond + c_g2[:, None, :] * _mlp_apply(bc.ff, cond, c_sh2, c_sc2, flags,
+                                                        attn_impl, fast)
+        return img, txt, cond
 
 
 class SingleBlock(nn.Module):
@@ -349,16 +378,31 @@ class SingleBlock(nn.Module):
             return self.out_attn(attn_out) + self.out_mlp(val)
         return self.proj_out(torch.cat([attn_out, val], dim=-1))
 
-    def forward(self, hidden, temb, rope, flags, attn_impl):
+    def forward(self, hidden, temb, rope, flags, attn_impl, cond=None, cond_temb=None,
+                rope_cond=None, attn_kw=None, bc=None):
         sh, sc, gate = self.norm(temb)
         nr = _nr_gate(flags, attn_impl, rope)
         q, k, v, mlp_ctx = self._stream_in(hidden, sh, sc, flags, attn_impl,
                                            rope[:2] if nr else None)
         if not nr:
             q, k = _rope_qk(q, k, rope)
-        (attn,) = joint_attention([q], [k], [v], impl=attn_impl)
-        out = self._stream_out(attn.flatten(2), mlp_ctx, flags, attn_impl)
-        return hidden + gate[:, None, :] * out
+        streams = [[q], [k], [v]]
+        if cond is not None:
+            c_sh, c_sc, c_gate = bc.norm(cond_temb)
+            nr_c = _nr_gate(flags, attn_impl, rope_cond)
+            cq, ck, cv, c_ctx = bc._stream_in(cond, c_sh, c_sc, flags, attn_impl,
+                                              rope_cond[:2] if nr_c else None)
+            if not nr_c:
+                cq, ck = _rope_qk(cq, ck, rope_cond)
+            for lst, x in zip(streams, (cq, ck, cv)):
+                lst.append(x)
+        outs = joint_attention(*streams, impl=attn_impl, **(attn_kw or {}))
+        out = self._stream_out(outs[0].flatten(2), mlp_ctx, flags, attn_impl)
+        hidden = hidden + gate[:, None, :] * out
+        if cond is not None:
+            cond = cond + c_gate[:, None, :] * bc._stream_out(outs[1].flatten(2), c_ctx, flags,
+                                                              attn_impl)
+        return hidden, cond
 
 
 # port module name -> JAX tree path, outside the blocks and per block family
@@ -428,6 +472,16 @@ class FluxDiT(nn.Module):
             temb = temb + e.guidance_embedder(g_feat.to(dtype))
         return temb
 
+    def rope(self, ids: torch.Tensor, split: bool, dtype: torch.dtype):
+        """(cos, sin, split) tables for (L, 3) ids; the split layout permutes
+        them and keeps them in the activation dtype (the all-bf16 rotation)."""
+        cfg = self.cfg
+        cos, sin = rope_tables(ids, cfg.axes_dims_rope, cfg.rope_theta)
+        if split:
+            perm = torch.from_numpy(rope_split_perm(cfg.head_dim)).to(cos.device)
+            cos, sin = cos[:, perm].to(dtype), sin[:, perm].to(dtype)
+        return cos, sin, split
+
     def forward(
         self,
         img: torch.Tensor,  # (B, L_img, in_channels) packed latents
@@ -439,7 +493,14 @@ class FluxDiT(nn.Module):
         guidance: torch.Tensor | None = None,  # (B,) distilled-guidance scale
         attn_impl: str = "xla",
         rope_layout: str = "pair",
-        cond: torch.Tensor | None = None,
+        cond: torch.Tensor | None = None,  # (B, L_cond, in_channels)
+        cond_ids: torch.Tensor | None = None,  # (L_cond, 3)
+        c_t: float = 0.0,
+        union_cond_attn: bool = True,
+        add_cond_attn: bool = False,
+        c_factor: float | None = None,
+        remat: bool = False,
+        cond_params: "FluxDiT | None" = None,
         controlnet_block_samples=None,
         controlnet_single_block_samples=None,
         return_img_residual: bool = False,
@@ -448,13 +509,24 @@ class FluxDiT(nn.Module):
     ) -> torch.Tensor:
         """Predict the rectified-flow velocity (B, L_img, in_channels).
 
+        `cond` adds the condition token stream: it shares the image-stream
+        weights, read from `cond_params` (this model, or a LoRA view of it from
+        `lora.attach_lora` / `make_dit_param_views`), gets its own timestep
+        embedding at `c_t` with guidance 1.0 and its own RoPE ids. Its coupling
+        to the main tokens is the union mask (`union_cond_attn=False` masks
+        it) or log(`c_factor`), which takes precedence: a dense bias on "xla",
+        the structural (cond_len, cross_bias) form on "pallas".
+        `add_cond_attn` also adds the cond stream's gated attention output to
+        the image stream.
+
+        `remat=True` recomputes each block in the backward pass
+        (`torch.utils.checkpoint`), as `jax.checkpoint` wraps each scan body.
+
         `rope_layout="split"` is the serving layout: it needs q/k permuted by
         `ops.fuse.permute_rope_layout` and runs the storage-dtype QK-norm,
         AdaLN and RoPE of the JAX package's serving forward."""
         if return_img_residual or module_cache is not None or return_module_outs:
             raise NotImplementedError("velocity-cache modes are ROADMAP slice 5, item 20")
-        if cond is not None:
-            raise NotImplementedError("the cond stream is ROADMAP slice 3, item 14")
         if controlnet_block_samples is not None or controlnet_single_block_samples is not None:
             raise NotImplementedError("ControlNet residuals are ROADMAP slice 3, item 14")
         if rope_layout != self.rope_layout:
@@ -464,24 +536,51 @@ class FluxDiT(nn.Module):
         cfg = self.cfg
         if cfg.guidance_embeds and guidance is None:
             raise ValueError("FLUX.1-dev requires a guidance scale")
+        use_cond = cond is not None
+        if use_cond and cond_ids is None:
+            raise ValueError("a cond stream needs its RoPE ids (cond_ids)")
+        cp = self if cond_params is None else cond_params
         split = rope_layout == "split"
-        flags = {"fast_qk": split}
+        flags = {"fast_qk": split, "add_cond_attn": add_cond_attn}
         dtype = img.dtype
         img = self.x_embedder(img)
         txt = self.context_embedder(txt)
         temb = self.time_text_embed_apply(pooled, timestep, guidance, dtype)
-        cos, sin = rope_tables(torch.cat([txt_ids, img_ids], dim=0), cfg.axes_dims_rope,
-                               cfg.rope_theta)
-        if split:
-            perm = torch.from_numpy(rope_split_perm(cfg.head_dim)).to(cos.device)
-            # tables in the activation dtype select the all-bf16 rotation
-            cos, sin = cos[:, perm].to(dtype), sin[:, perm].to(dtype)
-        rope = (cos, sin, split)
-        for block in self.transformer_blocks:
-            img, txt = block(img, txt, temb, rope, flags, attn_impl)
+        rope = self.rope(torch.cat([txt_ids, img_ids], dim=0), split, dtype)
+        cond_h = cond_temb = rope_cond = None
+        attn_kw = {}
+        if use_cond:
+            cond_h = cp.x_embedder(cond)
+            # the cond stream: t fixed at c_t, guidance forced to 1.0
+            cond_temb = self.time_text_embed_apply(
+                pooled, torch.full_like(timestep, c_t),
+                torch.ones_like(timestep) if cfg.guidance_embeds else None, dtype)
+            rope_cond = self.rope(cond_ids, split, dtype)
+            L_main, L_cond = img.shape[1] + txt.shape[1], cond_h.shape[1]
+            if attn_impl == "pallas":
+                # c_factor takes precedence over the union mask
+                if c_factor is not None:
+                    cross = float(np.log(np.float32(c_factor)))
+                else:
+                    cross = 0.0 if union_cond_attn else -1e30
+                attn_kw = {"cond_len": L_cond, "cross_bias": cross}
+            else:
+                attn_kw = {"bias": cond_attention_bias(L_main + L_cond, L_cond, union_cond_attn,
+                                                       c_factor, device=img.device)}
+
+        def run(block, *args):
+            if remat:
+                return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
+            return block(*args)
+
+        tail = (cond_temb, rope_cond, attn_kw)
+        for i, block in enumerate(self.transformer_blocks):
+            bc = cp.transformer_blocks[i] if use_cond else None
+            img, txt, cond_h = run(block, img, txt, temb, rope, flags, attn_impl, cond_h, *tail, bc)
         hidden = torch.cat([txt, img], dim=1)
-        for block in self.single_transformer_blocks:
-            hidden = block(hidden, temb, rope, flags, attn_impl)
+        for i, block in enumerate(self.single_transformer_blocks):
+            bc = cp.single_transformer_blocks[i] if use_cond else None
+            hidden, cond_h = run(block, hidden, temb, rope, flags, attn_impl, cond_h, *tail, bc)
         img = hidden[:, txt.shape[1]:]
         # final AdaLN: scale first, then shift
         sc, sh = self.norm_out(temb)

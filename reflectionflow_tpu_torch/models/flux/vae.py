@@ -1,11 +1,13 @@
-"""FLUX AutoencoderKL (16-channel): the decoder.
+"""FLUX AutoencoderKL (16-channel): the encoder and the decoder.
 
-Counterpart of `reflectionflow_tpu/models/flux/vae.py::vae_decode`. The
-public layout is the JAX package's NHWC, in and out; inside, the decoder
-runs NCHW, PyTorch's convolution layout. Parameters carry diffusers'
-AutoencoderKL names (`decoder.up_blocks.{i}.resnets.{j}.conv1`, ...), the
-names `reflectionflow_tpu/utils/hf_convert.py::convert_flux_vae_state`
-reads. The encoder (`vae_encode`) is ROADMAP slice 3, item 13.
+Counterpart of `reflectionflow_tpu/models/flux/vae.py::vae_encode` and
+`vae_decode`. The public layout is the JAX package's NHWC, in and out;
+inside, both halves run NCHW, PyTorch's convolution layout. Parameters carry
+diffusers' AutoencoderKL names (`encoder.down_blocks.{i}.resnets.{j}.conv1`,
+`decoder.up_blocks.{i}...`), the names
+`reflectionflow_tpu/utils/hf_convert.py::convert_flux_vae_state` reads. The
+tiled encode and decode (`vae_encode_tiled`, `vae_decode_tiled`) are not
+ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -104,6 +106,46 @@ class _UpBlock(nn.Module):
         return x
 
 
+class _Downsampler(nn.Module):
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv = nn.Conv2d(c, c, 3, stride=2)
+
+    def forward(self, x):
+        # asymmetric (0, 1) pad on H and W, then the stride-2 conv
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
+class _DownBlock(nn.Module):
+    def __init__(self, c_in: int, c_out: int, layers: int, groups: int, downsample: bool):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            _Resnet(c_in if j == 0 else c_out, c_out, groups) for j in range(layers))
+        if downsample:
+            self.downsamplers = nn.ModuleList([_Downsampler(c_out)])
+
+    def forward(self, x):
+        for r in self.resnets:
+            x = r(x)
+        if hasattr(self, "downsamplers"):
+            x = self.downsamplers[0](x)
+        return x
+
+
+class _Encoder(nn.Module):
+    def __init__(self, cfg: FluxVAEConfig):
+        super().__init__()
+        chans = cfg.block_out_channels
+        g = cfg.norm_num_groups
+        self.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
+        self.down_blocks = nn.ModuleList(
+            _DownBlock(chans[max(i - 1, 0)], c, cfg.layers_per_block, g, i < len(chans) - 1)
+            for i, c in enumerate(chans))
+        self.mid_block = _MidBlock(chans[-1], g)
+        self.conv_norm_out = nn.GroupNorm(g, chans[-1])
+        self.conv_out = nn.Conv2d(chans[-1], 2 * cfg.latent_channels, 3, padding=1)
+
+
 class _Decoder(nn.Module):
     def __init__(self, cfg: FluxVAEConfig):
         super().__init__()
@@ -119,12 +161,39 @@ class _Decoder(nn.Module):
 
 
 class FluxVAE(nn.Module):
-    """The AutoencoderKL's parameters; this slice holds the decoder."""
+    """The AutoencoderKL's parameters: `encoder` and `decoder`."""
 
     def __init__(self, cfg: FluxVAEConfig):
         super().__init__()
         self.cfg = cfg
+        self.encoder = _Encoder(cfg)
         self.decoder = _Decoder(cfg)
+
+
+def vae_encode_moments(vae: FluxVAE, images: torch.Tensor) -> torch.Tensor:
+    """Images (B, H, W, 3) NHWC in [-1, 1] -> moments (B, h, w, 2 * C_lat),
+    mean then logvar."""
+    enc = vae.encoder
+    x = enc.conv_in(images.permute(0, 3, 1, 2))
+    for block in enc.down_blocks:
+        x = block(x)
+    x = enc.mid_block(x)
+    x = F.silu(group_norm(x, enc.conv_norm_out))
+    return enc.conv_out(x).permute(0, 2, 3, 1)
+
+
+def vae_encode(vae: FluxVAE, images: torch.Tensor,
+               generator: torch.Generator | None = None) -> torch.Tensor:
+    """Images (B, H, W, 3) in [-1, 1] -> scaled latents (B, h, w, C_lat):
+    (mean - shift) * scale, the posterior's mode; with a `generator`, a
+    sample mean + exp(logvar / 2) * N(0, 1) (logvar clipped to [-30, 20])."""
+    cfg = vae.cfg
+    mean, logvar = vae_encode_moments(vae, images).chunk(2, dim=-1)
+    if generator is not None:
+        noise = torch.randn(mean.shape, generator=generator, device=generator.device)
+        std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+        mean = mean + std * noise.to(mean.device, mean.dtype)
+    return (mean - cfg.shift_factor) * cfg.scaling_factor
 
 
 def vae_decode(vae: FluxVAE, latents: torch.Tensor) -> torch.Tensor:

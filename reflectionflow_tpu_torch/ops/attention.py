@@ -5,8 +5,8 @@ concatenated token streams ([txt | img] for FLUX t2i), outputs re-split per
 stream. `impl` keeps the reference's names:
 
   * "xla"    -> `sdpa`, this package's plain PyTorch attention;
-  * "pallas" -> kernel K1 (`ops.flash_attention`), the hand-written CUDA
-    flash-attention forward; CPU tensors take its plain version.
+  * "pallas" -> `ops.flash_attention`: kernel K1 forward and K6a/K6b
+    backward (hand-written CUDA); CPU tensors take their plain versions.
 
 Other impls of the reference are not ported yet and raise.
 """
@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .flash_attention import flash_attention
@@ -38,6 +39,25 @@ def check_impl(impl: str) -> None:
             f"attn_impl={impl!r}: Pallas interpret mode has no CUDA counterpart; "
             "use 'pallas' (K1 on CUDA tensors, its plain version on CPU tensors)")
     raise ValueError(f"unknown attn_impl {impl!r}")
+
+
+def cond_attention_bias(total_len: int, cond_len: int, union_cond_attn: bool = True,
+                        c_factor: float | None = None, device=None) -> torch.Tensor | None:
+    """The (1, 1, L, L) fp32 additive bias of the "xla" path for a cond segment
+    of the last `cond_len` tokens, or None. `c_factor` adds log(c_factor) to the
+    (cond x main) logits and takes precedence over the union mask;
+    `union_cond_attn=False` sets them to -inf."""
+    if cond_len == 0:
+        return None
+    if c_factor is not None:
+        fill = float(np.log(np.float32(c_factor)))
+    elif not union_cond_attn:
+        fill = float("-inf")
+    else:
+        return None
+    is_cond = torch.arange(total_len, device=device) >= total_len - cond_len
+    cross = is_cond[:, None] != is_cond[None, :]
+    return torch.where(cross, fill, 0.0).to(torch.float32)[None, None]
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -19,10 +19,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / ".build" / "kernels"
-SOURCES = ("flash_fwd.cu", "act_quant.cu", "norm_rope.cu")
-# K1 takes the approximate exp and division; the act-quant and norm+rope
-# kernels need correctly rounded arithmetic to round int8 and bf16 values as
-# their plain versions do.
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "act_quant.cu", "norm_rope.cu")
+# K1 takes the approximate exp and division; the flash backward, act-quant
+# and norm+rope kernels need accurate arithmetic to round bf16 and int8
+# values as their plain versions do.
 FAST_MATH = frozenset({"flash_fwd.cu"})
 
 _LOADED: dict[str, ctypes.CDLL] = {}

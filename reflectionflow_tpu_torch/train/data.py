@@ -1,0 +1,349 @@
+"""GenRef streaming data pipeline (tar shards of keyed sample files).
+
+Counterpart of `reflectionflow_tpu/train/data.py`, with the same semantics
+and the same numpy PCG64 seeds, so that subset choices, crops and drops
+match the JAX package's run draw for draw:
+  * a sample is the group of files `{key}.good_image.{png,jpg}`,
+    `{key}.bad_image.*`, `{key}.reflection.txt`, `{key}.prompt.txt`,
+    `{key}.subset.txt` in one shard, read with Python's `tarfile`;
+  * subset streams (general/length/rule/editing) mixed with stage-scheduled
+    ratios (`StageSchedule`); each stream loops over the shards forever;
+  * paired augmentation: bad resized to good, shorter-edge resize to
+    target_size, the same random crop for both, bad resized to
+    condition_size;
+  * drops: text -> empty prompt, image -> black condition (not for
+    "editing"), reflection (or one shorter than 5 characters) -> the
+    description falls back to the prompt; description =
+    "{prompt} [Reflexion] {reflection}".
+
+Divergences (the port's machine has no PIL): images are decoded by a PNG
+reader written here (8-bit grey/RGB/RGBA, non-interlaced); JPEG raises. The
+resize is `torch.nn.functional.interpolate(mode="bicubic", antialias=True)`
+run as PIL runs it (width pass, rounded to uint8, then height pass), which is
+not bit-exact to PIL's fixed-point bicubic (tests/test_torch_train.py states
+the bound). An identity resize is a copy, as in PIL.
+"""
+
+from __future__ import annotations
+
+import io
+import os
+import struct
+import tarfile
+import zlib
+from dataclasses import dataclass
+from typing import Iterator
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..search.artifacts import encode_png
+
+_JPEG_NOT_PORTED = "JPEG decoding is not ported yet (ROADMAP queue 1); shards must hold PNG"
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # color type -> channels (grey, RGB, RGBA)
+
+
+def _to_float(img: np.ndarray) -> np.ndarray:
+    return img.astype(np.float32) / 127.5 - 1.0
+
+
+def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-scanline PNG filters (None, Sub, Up, Average, Paeth)."""
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    rows = raw.reshape(h, stride + 1)
+    for y in range(h):
+        ftype, line = rows[y, 0], rows[y, 1:].astype(np.int32)
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:  # Sub: a running sum per channel
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) & 0xFF
+        elif ftype == 2:  # Up
+            cur = (line + prev) & 0xFF
+        elif ftype in (3, 4):  # Average, Paeth: sequential along the row
+            cur = line.copy()
+            for x in range(stride):
+                a = cur[x - bpp] if x >= bpp else 0
+                b = prev[x]
+                if ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = prev[x - bpp] if x >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[x] = (cur[x] + pred) & 0xFF
+        else:
+            raise ValueError(f"bad PNG filter type {ftype}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes (8-bit grey, RGB or RGBA, non-interlaced) -> (H, W, 3) uint8 RGB."""
+    if not data.startswith(_PNG_MAGIC):
+        raise ValueError("not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if header is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or color not in _PNG_CHANNELS or interlace:
+        raise NotImplementedError(f"PNG with bit depth {depth}, color type {color}, interlace "
+                                  f"{interlace}: the port reads 8-bit grey/RGB/RGBA, non-interlaced")
+    c = _PNG_CHANNELS[color]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    img = _unfilter(raw, h, w * c, c).reshape(h, w, c)
+    if c == 1:
+        return np.repeat(img, 3, axis=2)
+    return np.ascontiguousarray(img[..., :3])
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    if data.startswith(b"\xff\xd8"):
+        raise NotImplementedError(_JPEG_NOT_PORTED)
+    return decode_png(data)
+
+
+def _resize_axis(x: torch.Tensor, size: int, axis: int) -> torch.Tensor:
+    """One bicubic antialiased pass over `axis` (2 = H, 3 = W) of (1, C, H, W)
+    float pixel values, rounded half up and clamped to [0, 255]."""
+    out = list(x.shape[2:])
+    out[axis - 2] = size
+    y = F.interpolate(x, size=tuple(out), mode="bicubic", antialias=True, align_corners=False)
+    return torch.floor(y + 0.5).clamp(0, 255)
+
+
+def resize(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """(H, W, 3) uint8 -> (size[1], size[0], 3) uint8, PIL's `Image.resize(size)`
+    with its default bicubic filter: width first, then height."""
+    w, h = size
+    if (img.shape[1], img.shape[0]) == (w, h):
+        return img.copy()
+    x = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None].double()
+    if img.shape[1] != w:
+        x = _resize_axis(x, w, 3)
+    if img.shape[0] != h:
+        x = _resize_axis(x, h, 2)
+    return x[0].permute(1, 2, 0).to(torch.uint8).numpy()
+
+
+@dataclass
+class Sample:
+    good: np.ndarray  # (H, W, 3) uint8
+    bad: np.ndarray
+    prompt: str
+    reflection: str
+    subset: str
+
+
+_FIELD_SUFFIXES = (
+    "good_image.jpg", "good_image.png", "bad_image.jpg", "bad_image.png",
+    "reflection.txt", "prompt.txt", "subset.txt",
+)
+
+
+def iter_tar_samples(shard_path: str) -> Iterator[Sample]:
+    """Stream grouped samples out of one tar shard (consecutive members that
+    share a key form a sample)."""
+    with tarfile.open(shard_path, "r") as tar:
+        current_key, parts = None, {}
+        for member in tar:
+            if not member.isfile():
+                continue
+            base = member.name.split("/")[-1]
+            for suffix in _FIELD_SUFFIXES:
+                if base.endswith("." + suffix):
+                    key = base[: -(len(suffix) + 1)]
+                    break
+            else:
+                continue
+            if current_key is not None and key != current_key and parts:
+                sample = _assemble(parts)
+                if sample is not None:
+                    yield sample
+                parts = {}
+            current_key = key
+            parts[suffix] = tar.extractfile(member).read()
+        if parts:
+            sample = _assemble(parts)
+            if sample is not None:
+                yield sample
+
+
+def _assemble(parts: dict[str, bytes]) -> Sample | None:
+    good_b = parts.get("good_image.jpg") or parts.get("good_image.png")
+    bad_b = parts.get("bad_image.jpg") or parts.get("bad_image.png")
+    if good_b is None or bad_b is None:
+        return None
+    try:
+        good, bad = decode_image(good_b), decode_image(bad_b)
+    except (ValueError, zlib.error, struct.error):  # corrupt sample -> skip
+        return None
+    return Sample(
+        good=good,
+        bad=bad,
+        prompt=parts.get("prompt.txt", b"").decode("utf-8", "ignore").strip(),
+        reflection=parts.get("reflection.txt", b"").decode("utf-8", "ignore").strip(),
+        subset=parts.get("subset.txt", b"general").decode("utf-8", "ignore").strip() or "general",
+    )
+
+
+def _paired_crop(good: np.ndarray, bad: np.ndarray, target: int, rng: np.random.Generator):
+    """Resize bad to good's size, shorter-edge resize both to `target`, apply
+    the same random crop; returns (good_t, bad_t), each (target, target, 3)."""
+    h, w = good.shape[:2]
+    bad = resize(bad, (w, h))
+    scale = target / min(w, h)
+    nw, nh = max(target, round(w * scale)), max(target, round(h * scale))
+    g, b = resize(good, (nw, nh)), resize(bad, (nw, nh))
+    x0 = int(rng.integers(0, nw - target + 1))
+    y0 = int(rng.integers(0, nh - target + 1))
+    return g[y0:y0 + target, x0:x0 + target], b[y0:y0 + target, x0:x0 + target]
+
+
+@dataclass
+class StageSchedule:
+    """Linear interpolation of subset mix ratios over training stages.
+
+    split_ratios: {subset: [ratio_stage0, ratio_stage1, ...]};
+    training_stages: [step0, step1, ...] boundaries."""
+
+    split_ratios: dict[str, list[float]]
+    training_stages: list[int]
+
+    def ratios_at(self, step: int) -> dict[str, float]:
+        stages = self.training_stages
+        if not stages or len(stages) == 1:
+            return {k: v[0] for k, v in self.split_ratios.items()}
+        if step <= stages[0]:
+            frac, lo = 0.0, 0
+        elif step >= stages[-1]:
+            frac, lo = 1.0, len(stages) - 2
+        else:
+            lo = max(i for i in range(len(stages) - 1) if stages[i] <= step)
+            span = stages[lo + 1] - stages[lo]
+            frac = (step - stages[lo]) / max(span, 1)
+        out = {}
+        for k, vals in self.split_ratios.items():
+            v0 = vals[min(lo, len(vals) - 1)]
+            v1 = vals[min(lo + 1, len(vals) - 1)]
+            out[k] = v0 + (v1 - v0) * frac
+        total = sum(out.values())
+        return {k: v / max(total, 1e-9) for k, v in out.items()}
+
+
+@dataclass
+class GenRefDataset:
+    shards: list[str]
+    batch_size: int = 8
+    target_size: int = 512
+    condition_size: int = 512
+    drop_text_prob: float = 0.1
+    drop_image_prob: float = 0.1
+    drop_reflection_prob: float = 0.2
+    schedule: StageSchedule | None = None
+    seed: int = 0
+    host_index: int = 0
+    host_count: int = 1
+    step: int = 0
+
+    def set_step(self, step: int) -> None:
+        self.step = step
+
+    def _host_shards(self) -> list[str]:
+        return [s for i, s in enumerate(self.shards) if i % self.host_count == self.host_index]
+
+    def _subset_iter(self, subset: str) -> Iterator[Sample]:
+        """Infinite stream of one subset, re-opening the shards forever."""
+        shards = self._host_shards()
+        epoch = 0
+        while True:
+            rng = np.random.Generator(np.random.PCG64(
+                [self.seed, zlib.crc32(subset.encode()) & 0xFFFF, epoch]))
+            for si in rng.permutation(len(shards)):
+                for sample in iter_tar_samples(shards[si]):
+                    if sample.subset == subset:
+                        yield sample
+            epoch += 1
+
+    def __iter__(self) -> Iterator[dict]:
+        subsets = list(self.schedule.split_ratios.keys()) if self.schedule else ["general"]
+        iters = {s: self._subset_iter(s) for s in subsets}
+        rng = np.random.Generator(np.random.PCG64([self.seed, self.host_index]))
+        while True:
+            ratios = self.schedule.ratios_at(self.step) if self.schedule else {"general": 1.0}
+            names = list(ratios.keys())
+            probs = np.asarray([ratios[n] for n in names])
+            probs = probs / probs.sum()
+            batch = []
+            for _ in range(self.batch_size):
+                subset = names[int(rng.choice(len(names), p=probs))]
+                batch.append(self._transform(next(iters[subset]), rng))
+            yield self._collate(batch)
+
+    def _transform(self, s: Sample, rng: np.random.Generator) -> dict:
+        good_t, bad_t = _paired_crop(s.good, s.bad, self.target_size, rng)
+        if self.condition_size != self.target_size:
+            bad_t = resize(bad_t, (self.condition_size, self.condition_size))
+        prompt, reflection = s.prompt, s.reflection
+        if rng.random() < self.drop_text_prob:
+            prompt = ""
+        if rng.random() < self.drop_image_prob and s.subset != "editing":
+            bad_t = np.zeros_like(bad_t)  # black condition (pixel 0 -> -1.0)
+        if rng.random() < self.drop_reflection_prob or len(reflection) < 5:
+            description = prompt
+        else:
+            description = f"{prompt} [Reflexion] {reflection}"
+        return {
+            "image": _to_float(good_t),
+            "condition": _to_float(bad_t),
+            "original_prompt": prompt,
+            "description": description,
+            "subset": s.subset,
+        }
+
+    @staticmethod
+    def _collate(rows: list[dict]) -> dict:
+        return {
+            "image": np.stack([r["image"] for r in rows]),
+            "condition": np.stack([r["condition"] for r in rows]),
+            "original_prompt": [r["original_prompt"] for r in rows],
+            "description": [r["description"] for r in rows],
+            "subset": [r["subset"] for r in rows],
+            "condition_type": ["cot"] * len(rows),
+        }
+
+
+def write_synthetic_shard(path: str, n: int = 8, size: int = 32, seed: int = 0,
+                          subsets=("general", "editing")) -> None:
+    """A small GenRef-format shard of random PNG images (the JAX package's
+    draws, written as PNG instead of JPEG)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    rng = np.random.default_rng(seed)
+    with tarfile.open(path, "w") as tar:
+        for i in range(n):
+            key = f"{i:06d}"
+            files = {
+                "good_image.png": encode_png(rng.integers(0, 255, (size, size, 3), dtype=np.uint8)),
+                "bad_image.png": encode_png(rng.integers(0, 255, (size, size, 3), dtype=np.uint8)),
+                "prompt.txt": f"prompt {i}".encode(),
+                "reflection.txt": f"make object {i} sharper and correctly colored".encode(),
+                "subset.txt": subsets[i % len(subsets)].encode(),
+            }
+            for name, data in files.items():
+                info = tarfile.TarInfo(f"{key}.{name}")
+                info.size = len(data)
+                tar.addfile(info, io.BytesIO(data))

@@ -1,0 +1,109 @@
+"""Corrector training loop: LoRA rectified-flow tuning on one device.
+
+Counterpart of `reflectionflow_tpu/train/train_loop.py::train`: streaming
+GenRef batches, the stage-ratio schedule advanced per step, one
+`metrics.jsonl` row per step (loss, t_mean, grad_norm, step, ema_loss,
+step_time_s), a checkpoint every `save_interval` steps and at the end, and
+resume from the latest one.
+
+Divergence: a checkpoint is `torch.save` of {adapters, opt_state} at
+`<checkpoint_dir>/<step>/state.pt` (the JAX package writes orbax
+checkpoints); the `latest` marker file is the same. As in the JAX package, a
+resumed run restarts its random draws and its data stream from the seed.
+The multi-device mesh and the validation hook (which needs the conditioned
+generate) are not ported yet; `train(hooks=...)` takes any callables.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import torch
+
+from ..lora.lora import lora_init, lora_parameters
+from ..utils.jsonl import append_jsonl
+from ..utils.safetensors_io import save_file
+from .rectified_flow import make_optimizer, make_train_step, prepare_batch_tensors
+
+
+def save_checkpoint(ckpt_dir: str, step: int, adapters: dict, opt_state) -> None:
+    path = os.path.join(ckpt_dir, str(step))
+    os.makedirs(path, exist_ok=True)
+    state = {name: {k: t.detach() for k, t in ab.items()} for name, ab in adapters.items()}
+    torch.save({"adapters": state, "opt_state": opt_state}, os.path.join(path, "state.pt"))
+    with open(os.path.join(ckpt_dir, "latest"), "w") as f:
+        f.write(str(step))
+
+
+def latest_checkpoint(ckpt_dir: str) -> int | None:
+    marker = os.path.join(ckpt_dir, "latest")
+    if not os.path.exists(marker):
+        return None
+    with open(marker) as f:
+        return int(f.read().strip())
+
+
+def restore_checkpoint(ckpt_dir: str, step: int, device) -> dict:
+    return torch.load(os.path.join(ckpt_dir, str(step), "state.pt"), map_location=device,
+                      weights_only=True)
+
+
+def train(pipeline, cfg, dataset, mesh=None, position_delta: tuple[int, int] | None = None,
+          log_path: str | None = None, hooks: list | None = None) -> dict:
+    """Run (or resume) training; returns {adapters, metrics} of the last step."""
+    if mesh is not None:
+        raise NotImplementedError("data-parallel training over a device mesh is ROADMAP slice 7")
+    gen = torch.Generator(device=pipeline.device).manual_seed(cfg.seed)
+    lora = lora_init(gen, pipeline.dit, r=cfg.lora.r, alpha=cfg.lora.alpha, init=cfg.lora.init)
+    adapters = lora["adapters"]
+    optimizer = make_optimizer(cfg)
+    opt_state = optimizer.init(lora_parameters(lora))
+    step_fn = make_train_step(pipeline.dit, optimizer, alpha=cfg.lora.alpha, r=cfg.lora.r,
+                              latent_lora=False, attn_impl=cfg.attn_impl)
+
+    start_step = 0
+    last = latest_checkpoint(cfg.checkpoint_dir) if os.path.isdir(cfg.checkpoint_dir) else None
+    if last is not None:
+        restored = restore_checkpoint(cfg.checkpoint_dir, last, pipeline.device)
+        with torch.no_grad():
+            for name, ab in adapters.items():
+                for k, t in ab.items():
+                    t.copy_(restored["adapters"][name][k])
+        opt_state, start_step = restored["opt_state"], last
+
+    if position_delta is None:
+        position_delta = (0, -cfg.data.condition_size // 16)
+    log_path = log_path or os.path.join(cfg.checkpoint_dir, "metrics.jsonl")
+    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+
+    data_iter = iter(dataset)
+    metrics: dict = {}
+    ema_loss = None
+    for step in range(start_step, cfg.max_steps):
+        if hasattr(dataset, "set_step"):
+            dataset.set_step(step)
+        t0 = time.perf_counter()
+        raw = next(data_iter)
+        batch = prepare_batch_tensors(pipeline, raw, position_delta)
+        adapters, opt_state, metrics = step_fn(adapters, opt_state, batch, gen)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        ema_loss = metrics["loss"] if ema_loss is None else 0.95 * ema_loss + 0.05 * metrics["loss"]
+        row = dict(metrics, step=step, ema_loss=ema_loss, step_time_s=time.perf_counter() - t0)
+        append_jsonl(log_path, row)
+        for hook in hooks or []:
+            hook(step, adapters, row)
+        if (step + 1) % cfg.save_interval == 0 or step + 1 == cfg.max_steps:
+            save_checkpoint(cfg.checkpoint_dir, step + 1, adapters, opt_state)
+    return {"adapters": adapters, "metrics": metrics}
+
+
+def export_diffusers_lora(adapters: dict, path: str) -> None:
+    """Write the adapters as a diffusers/peft FLUX LoRA safetensors file
+    (`transformer.<module>.lora_A.weight` (r, in), `.lora_B.weight` (out, r),
+    fp32), the keys `lora.convert_diffusers_lora` reads back."""
+    out = {}
+    for name, ab in adapters.items():
+        for which in ("lora_A", "lora_B"):
+            out[f"transformer.{name}.{which}.weight"] = ab[which].detach().float()
+    save_file(out, path)

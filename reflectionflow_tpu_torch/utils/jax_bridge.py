@@ -6,6 +6,10 @@ HWIO convolutions go back to OIHW. Input leaves are numpy arrays (the caller
 moves them off JAX); outputs are CPU tensors for `load_state_dict`, whose
 keys are the diffusers/transformers names the converters read.
 
+LoRA adapters go both ways (`lora_from_jax`, `lora_to_jax`): the JAX
+package stacks them per block family, `{path: {A: (N, in, r), B: (N, r,
+out)}}`; the port keeps one per linear in the diffusers-peft layout.
+
 Quantized trees (`reflectionflow_tpu/ops/quant.py`: int8 nodes {w_q, w_scale,
 b, act_q}) go by `load_jax_tree_`, which walks the port model's modules and
 reads each one's JAX node through the model's `jax_path`:
@@ -193,21 +197,34 @@ def _resnet(sd: dict, name: str, p: dict) -> None:
         _conv(sd, f"{name}.conv_shortcut", p["shortcut"])
 
 
-def vae_state_dict(decoder: dict) -> dict[str, torch.Tensor]:
-    """The `decoder` subtree of `vae_init` / `convert_flux_vae_state` ->
-    `FluxVAE` state dict (decoder keys)."""
-    sd: dict[str, torch.Tensor] = {}
-    d = "decoder"
-    _conv(sd, f"{d}.conv_in", decoder["conv_in"])
-    mid = decoder["mid"]
-    _resnet(sd, f"{d}.mid_block.resnets.0", mid["res1"])
-    _resnet(sd, f"{d}.mid_block.resnets.1", mid["res2"])
-    at, a = mid["attn"], f"{d}.mid_block.attentions.0"
+def _mid(sd: dict, name: str, mid: dict) -> None:
+    _resnet(sd, f"{name}.resnets.0", mid["res1"])
+    _resnet(sd, f"{name}.resnets.1", mid["res2"])
+    at, a = mid["attn"], f"{name}.attentions.0"
     _gn(sd, f"{a}.group_norm", at["norm"])
     for ours, theirs in (("to_q", "q"), ("to_k", "k"), ("to_v", "v"), ("to_out.0", "out")):
         # 1x1 conv (1, 1, C_in, C_out) -> Linear (C_out, C_in)
         sd[f"{a}.{ours}.weight"] = _t(np.asarray(at[theirs]["w"])[0, 0].T)
         sd[f"{a}.{ours}.bias"] = _t(at[theirs]["b"])
+
+
+def vae_state_dict(vae: dict) -> dict[str, torch.Tensor]:
+    """`vae_init` / `convert_flux_vae_state` tree ({encoder, decoder}) ->
+    `FluxVAE` state dict."""
+    sd: dict[str, torch.Tensor] = {}
+    enc, e = vae["encoder"], "encoder"
+    _conv(sd, f"{e}.conv_in", enc["conv_in"])
+    for i, block in enumerate(enc["down"]):
+        for j, rp in enumerate(block["resnets"]):
+            _resnet(sd, f"{e}.down_blocks.{i}.resnets.{j}", rp)
+        if "down" in block:
+            _conv(sd, f"{e}.down_blocks.{i}.downsamplers.0.conv", block["down"])
+    _mid(sd, f"{e}.mid_block", enc["mid"])
+    _gn(sd, f"{e}.conv_norm_out", enc["norm_out"])
+    _conv(sd, f"{e}.conv_out", enc["conv_out"])
+    decoder, d = vae["decoder"], "decoder"
+    _conv(sd, f"{d}.conv_in", decoder["conv_in"])
+    _mid(sd, f"{d}.mid_block", decoder["mid"])
     for i, block in enumerate(decoder["up"]):
         for j, rp in enumerate(block["resnets"]):
             _resnet(sd, f"{d}.up_blocks.{i}.resnets.{j}", rp)
@@ -216,3 +233,51 @@ def vae_state_dict(decoder: dict) -> dict[str, torch.Tensor]:
     _gn(sd, f"{d}.conv_norm_out", decoder["norm_out"])
     _conv(sd, f"{d}.conv_out", decoder["conv_out"])
     return sd
+
+
+def _lora_names(dit: FluxDiT) -> dict[tuple[str, int | None], str]:
+    """(JAX weight path, block index) -> port module name, for every linear."""
+    out = {}
+    for name, m in dit.named_modules():
+        if isinstance(m, nn.Linear):
+            path, index, _ = dit.jax_path(name)
+            out[(f"{path}/w", index)] = name
+    return out
+
+
+def lora_from_jax(lora: dict, dit: FluxDiT) -> dict:
+    """A JAX adapter tree ({_alpha, _r, adapters: {path: {A (N, in, r), B (N, r,
+    out)}}}) -> the port's per-module dict ({name: {lora_A (r, in), lora_B
+    (out, r)}}, fp32 parameters on `dit`'s device)."""
+    names = _lora_names(dit)
+    device = next(dit.parameters()).device
+    adapters = {}
+    for path, ab in lora["adapters"].items():
+        A, B = np.asarray(ab["A"], np.float32), np.asarray(ab["B"], np.float32)
+        stacked = A.ndim == 3
+        for i in range(A.shape[0] if stacked else 1):
+            a, b = (A[i], B[i]) if stacked else (A, B)
+            adapters[names[(path, i if stacked else None)]] = {
+                "lora_A": nn.Parameter(_t(a.T).to(device)),
+                "lora_B": nn.Parameter(_t(b.T).to(device)),
+            }
+    return {"_alpha": float(lora["_alpha"]), "_r": int(lora["_r"]), "adapters": adapters}
+
+
+def lora_to_jax(lora: dict, dit: FluxDiT) -> dict:
+    """Inverse of `lora_from_jax`: numpy leaves, blocks stacked per path."""
+    paths = {name: key for key, name in _lora_names(dit).items()}
+    cfg = dit.cfg
+    adapters: dict[str, dict] = {}
+    for name, ab in lora["adapters"].items():
+        path, index = paths[name]
+        A = ab["lora_A"].detach().float().cpu().numpy().T
+        B = ab["lora_B"].detach().float().cpu().numpy().T
+        if index is None:
+            adapters[path] = {"A": A, "B": B}
+            continue
+        n = cfg.num_double_blocks if path.startswith("double_blocks") else cfg.num_single_blocks
+        node = adapters.setdefault(path, {"A": np.zeros((n, *A.shape), np.float32),
+                                          "B": np.zeros((n, *B.shape), np.float32)})
+        node["A"][index], node["B"][index] = A, B
+    return {"_alpha": lora["_alpha"], "_r": lora["_r"], "adapters": adapters}

@@ -85,16 +85,9 @@ def test_bridge_round_trips_vae_decoder(chans):
     cfg = dataclasses.replace(jconfig.FluxVAEConfig.tiny(), block_out_channels=chans)
     params = jax.tree.map(np.asarray, vae_init(jax.random.PRNGKey(3), cfg))
     sd = _numpy_sd(FluxVAE(tconfig.FluxVAEConfig(**dataclasses.asdict(cfg))),
-                   jax_bridge.vae_state_dict(params["decoder"]))
-    # the converter reads a whole AutoencoderKL: give it the encoder keys from
-    # the tests' torch VAE oracle, whose names it already converts
-    from torch_flux_vae_ref import TorchFluxVAERef
-
-    ref = TorchFluxVAERef(in_channels=cfg.in_channels, latent_channels=cfg.latent_channels,
-                          block_out_channels=cfg.block_out_channels,
-                          layers_per_block=cfg.layers_per_block, norm_num_groups=cfg.norm_num_groups,
-                          scaling_factor=cfg.scaling_factor, shift_factor=cfg.shift_factor)
-    sd.update({k: v.detach().numpy() for k, v in ref.state_dict().items() if k.startswith("encoder.")})
+                   jax_bridge.vae_state_dict(params))
+    # the converter reads the whole AutoencoderKL; the encoder half is checked
+    # in tests/test_torch_vae_encode.py
     _assert_trees_equal(hf_convert.convert_flux_vae_state(sd, cfg)["decoder"], params["decoder"])
 
 

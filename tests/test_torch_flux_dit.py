@@ -109,10 +109,12 @@ def test_dit_rejects_unported_modes():
     _, tcfg = _cfg()
     dit = FluxDiT(tcfg)
     x = {k: _t(v) for k, v in _inputs(tcfg, seed=4).items()}
-    for kw in ({"cond": x["img"]}, {"return_img_residual": True},
-               {"controlnet_block_samples": [x["img"]]}):
+    for kw in ({"return_img_residual": True}, {"controlnet_block_samples": [x["img"]]}):
         with pytest.raises(NotImplementedError):
             dit(**x, **kw)
+    # the cond stream is ported (tests/test_torch_cond_dit.py); it needs its ids
+    with pytest.raises(ValueError, match="cond_ids"):
+        dit(**x, cond=x["img"])
     # the split serving layout needs q/k permuted first (ops.fuse.permute_rope_layout)
     with pytest.raises(ValueError, match="permute_rope_layout"):
         dit(**x, rope_layout="split")

@@ -1,6 +1,6 @@
 """The PyTorch port imports no JAX, no JAX-package module and none of the
 packages its target machine lacks: every port module, and the noise-scaling
-CLI's --help, run in a subprocess where those imports fail."""
+and train CLIs' --help, run in a subprocess where those imports fail."""
 
 import os
 import pkgutil
@@ -20,9 +20,17 @@ for name in names:
     importlib.import_module(name)
 assert not any(n.split(".")[0] in {BLOCKED!r} for n in sys.modules if sys.modules[n] is not None)
 print(len(names))
-sys.argv = ["tts_t2i_noise_scaling", "--help"]
-from reflectionflow_tpu_torch.cli.tts_t2i_noise_scaling import main
-main()
+import contextlib, io
+for cli in ("tts_t2i_noise_scaling", "train"):
+    main = importlib.import_module("reflectionflow_tpu_torch.cli." + cli).main
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            main(["--help"])
+        except SystemExit:
+            pass
+    print("=== " + cli)
+    print(out.getvalue())
 """
 
 
@@ -35,4 +43,7 @@ def test_port_imports_without_jax_and_friends():
     expected = sum(1 for m in pkgutil.walk_packages(
         [os.path.join(REPO, "reflectionflow_tpu_torch")], "reflectionflow_tpu_torch."))
     assert int(n_modules) == expected >= 20
-    assert "--synthetic_weights" in rest and "--attn_impl" in rest
+    noise_help, train_help = rest.split("=== tts_t2i_noise_scaling\n")[1].split("=== train\n")
+    assert "--synthetic_weights" in noise_help and "--attn_impl" in noise_help
+    assert "--device" in noise_help
+    assert "--device" in train_help and "--synthetic_data" in train_help

@@ -15,6 +15,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from reflectionflow_tpu.config import CLIPTextConfig, FluxDiTConfig, FluxVAEConfig, T5Config
@@ -57,7 +58,7 @@ def _pipelines():
     tpipe = FluxPipeline.random_init(torch.Generator().manual_seed(0), *port_cfgs, dtype=torch.float32)
     p = jax.tree.map(np.asarray, jpipe.params)
     tpipe.dit.load_state_dict(jax_bridge.dit_state_dict(p["dit"], CFGS[0]))
-    tpipe.vae.load_state_dict(jax_bridge.vae_state_dict(p["vae"]["decoder"]))
+    tpipe.vae.load_state_dict(jax_bridge.vae_state_dict(p["vae"]))
     tpipe.t5.load_state_dict(jax_bridge.t5_state_dict(p["t5"], CFGS[2]))
     tpipe.clip.load_state_dict(jax_bridge.clip_state_dict(p["clip"], CFGS[3]))
     return jpipe, tpipe
@@ -116,9 +117,26 @@ def test_noise_scaling_cli_artifacts_match_jax(tmp_path):
     common = ["--pipeline_config_path", str(tmp_path / "cfg.json"), "--meta_path",
               str(tmp_path / "meta.jsonl"), "--synthetic_weights", "--seed", "3", "--start_index", "1"]
     jax_main(common + ["--output_dir", str(tmp_path / "jax"), "--attn_impl", "pallas_interpret"])
-    torch_main(common + ["--output_dir", str(tmp_path / "torch"), "--attn_impl", "pallas"])
+    torch_main(common + ["--output_dir", str(tmp_path / "torch"), "--attn_impl", "pallas",
+                         "--device", "cpu"])
     jfiles, jmeta = _cli_tree(tmp_path / "jax")
     tfiles, tmeta = _cli_tree(tmp_path / "torch")
     assert tfiles == jfiles and tmeta == jmeta
     assert sum(f.endswith(".png") for f in tfiles) == 2 * 2 * 2  # prompts 1..2 x rounds x branch
     assert tmeta["00001/metadata.jsonl"][0]["seeds"] == t_candidate_seeds(3, 1, 1, 2)
+
+
+def test_cli_device_defaults_to_cuda_without_fallback():
+    """Both CLIs build on cuda unless told otherwise; without CUDA that raises
+    and never silently takes the CPU."""
+    from reflectionflow_tpu_torch.cli.common import build_parser, resolve_device
+    from reflectionflow_tpu_torch.cli.train import build_parser as train_parser
+
+    assert build_parser("x").parse_args(["--pipeline_config_path", "c"]).device == "cuda"
+    assert train_parser().parse_args([]).device == "cuda"
+    assert resolve_device("cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            resolve_device("cuda")
+    with pytest.raises(ValueError, match="cuda"):
+        resolve_device("meta")

@@ -198,7 +198,8 @@ def _tiny_cfg(tmp_path, **pipeline_args):
 
 def _args(cfg_path, quantize="int8"):
     return Namespace(pipeline_config_path=str(cfg_path), output_dir=None, synthetic_weights=True,
-                     attn_impl="pallas", quantize=quantize, phase_swap=False, act_quant_exclude=[])
+                     attn_impl="pallas", quantize=quantize, phase_swap=False, act_quant_exclude=[],
+                     device="cpu")
 
 
 def _load(cfg_path, quantize="int8"):
@@ -238,7 +239,7 @@ def test_noise_scaling_cli_int8_smoke(tmp_path):
     before = fq.norm_rope.launches
     main(["--pipeline_config_path", str(_tiny_cfg(tmp_path)), "--meta_path", str(tmp_path / "meta.jsonl"),
           "--synthetic_weights", "--quantize", "int8", "--attn_impl", "pallas",
-          "--output_dir", str(tmp_path / "out")])
+          "--output_dir", str(tmp_path / "out"), "--device", "cpu"])
     pngs = sorted(p.name for p in (tmp_path / "out").rglob("*.png"))
     assert len(pngs) == 2
     rows = [json.loads(line) for line in (tmp_path / "out" / "00000" / "metadata.jsonl").read_text().splitlines()]

@@ -63,7 +63,7 @@ def test_vae_decode_matches_jax(chans):
                         norm_num_groups=4, scaling_factor=0.3611, shift_factor=0.1159)
     params = perturbed(vae_init(jax.random.PRNGKey(0), cfg), seed=5)
     vae = tvae.FluxVAE(_port_cfg(cfg, tconfig.FluxVAEConfig))
-    vae.load_state_dict(vae_state_dict(params["decoder"]))
+    vae.load_state_dict(vae_state_dict(params))
     lat = np.random.default_rng(6).standard_normal((2, 4, 6, 4)).astype(np.float32)
     want = vae_decode(jax.tree.map(jnp.asarray, params["decoder"]), cfg, jnp.asarray(lat))
     with torch.no_grad():
