@@ -8,7 +8,8 @@ Run from the repository root with no arguments:
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. device: requires CUDA; prints `nvidia-smi` name and power limit;
   2. build: compiles K1 (`csrc/flash_fwd.cu`), K6a/K6b (`csrc/flash_bwd.cu`),
-     K3–K5 (`csrc/act_quant.cu`) and K2 (`csrc/norm_rope.cu`) into
+     K3–K5 (`csrc/act_quant.cu`), K2 (`csrc/norm_rope.cu`), K8
+     (`csrc/flash_fwd_int8.cu`) and K9 (`csrc/flash_fwd_nr.cu`) into
      `.build/kernels/`, one nvcc per source, all started together;
   3. K1 against its plain PyTorch version on the card (fp32 reference), at
      the main-path shape (B=1, 2; L=4608; H=24; D=128), a ragged L, and the
@@ -23,6 +24,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      L = 4608 + 77; times each kernel and its plain version in turns at
      each of those shapes but the ragged one, as device time (profiler) and
      as time per call (CUDA events, host gaps included);
+  4b. K8 (`csrc/flash_fwd_int8.cu`) and K9 (`csrc/flash_fwd_nr.cu`) against
+     their plain versions at the corrector shape (B=2, L=512+4096+1024,
+     main_len 4608, cross bias 0, log 0.5, -1e30), the t2i shape (B=2,
+     L=4608) and a ragged L, K9 in the double (txt_len 512) and single
+     (txt_len 0) layouts; K8's K codes against the plain quantizer and its
+     output against exact fp32 attention (cosine >= 0.999, max |err| < 0.05);
+     times both, their plain versions and SDPA's forward (the yardstick only)
+     at (2, 5632) and (2, 4608);
   5. bf16 main path: FLUX.1-dev at full width and depth, random bf16 weights
      from a seeded CUDA generator, attn_impl="pallas", served through
      `run_noise_scaling` (the noise-scaling CLI's function) for 2 prompts x 2
@@ -39,16 +48,32 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      171 K6b launches (no K2–K5); prints s/step, peak memory and a profiler
      split of one step; at B=1 the adapter gradients with K1 + K6 agree with
      the plain attention's (cosine >= 0.99 per adapter family);
-  6. W8A8 main path: the same pipeline quantized in place with the CLI's int8
-     profile (`pipe.quantize(int4=(), weight_only=("t5",))`: fused, split-RoPE
-     W8A8 DiT + w8a16 T5), served the same way; checks finite latents, 4 PNGs
+  5c. the training validation hook (`make_validation_hook`) once on the
+     trained adapters: a conditioned generate of 2 val samples at 512 px,
+     20 steps: exactly 20 x 57 = 1140 K1 launches, 2 PNGs of 512x512x3, and
+     `cond_dit_params` restored;
+  6. W8A8 main path: the trained adapters folded into `pipe.cond_dit_params`
+     (a copy of the bf16 DiT), then the pipeline quantized in place with the
+     CLI's int8 profile (`pipe.quantize(int4=(), weight_only=("t5",))`: fused,
+     split-RoPE W8A8 DiT and cond model + w8a16 T5), served the same way;
+     checks finite latents, 4 PNGs
      and exactly 912 K1, 2432 K2, 1824 K3, 1216 K4 and 1216 K5 launches; a
      full-width W8A8 DiT forward on a small input agrees between the fused path
      (K1–K5) and the plain "xla" serving path (cosine >= 0.999); the same at
      lengths that are not multiples of 8 (a served 1008x1008 generate call with
      77 text tokens must launch K1–K5 once per W8A8 linear, as at 1024px, and
      a small ragged forward must agree with the plain path); and a profiler
-     split of one W8A8 step at B=2.
+     split of one W8A8 step at B=2;
+  7. corrector: `run_samples` (the corrector sampler CLI's function) over 2
+     synthetic (bad, good, reflection) items at 1024 px with a 512 px
+     condition, 8 Euler steps, image_guidance_scale 1.5 (one doubled-batch
+     forward per step: B=2, L=512+4096+1024), once under attn_impl="pallas_nr"
+     and once under "pallas_int8"; checks finite latents, 2 sheets of
+     1024x3072x3 per run and exact launch counts (per forward 57 K9, or 57 K8
+     and 266 K2; 190 K3, 133 K4, 133 K5; no K1); a full-width W8A8 forward
+     with the cond stream under each impl agrees with the plain "xla" serving
+     path (cosine >= 0.999); and a profiler split of one corrector step under
+     "pallas_nr".
 The training numbers are on the line {"train": {...}}; the line before the
 last is {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
 """
@@ -70,13 +95,18 @@ DIT_REL_TOL = 3e-2  # bf16 DiT forward, K1 vs plain attention, relative to max |
 NR_REL, NR_ABS = 7.9e-3, 1e-3  # K2: |err| <= NR_REL * |ref| + NR_ABS (two bf16 ulps)
 Q_SCALE_RTOL, Q_MISMATCH = 1e-5, 1e-3  # K3/K4: scale rtol; |dq| <= 1 on <= 0.1% of values
 W8A8_COS = 0.999  # full-width W8A8 DiT, fused path vs plain serving path
+K8_COS, K8_EXACT_ERR = 0.999, 0.05  # K8 against exact fp32 attention (the JAX test's bounds)
 K6_REL_TOL = 1e-2  # K6a/K6b: max |err| <= K6_REL_TOL * max |ref| for each of dQ, dK, dV
 TRAIN_STEPS = 3  # corrector training steps at TrainConfig defaults (B=8, 512 px, r=32)
 TRAIN_COS = 0.99  # adapter gradients, K1 + K6 vs plain attention, cosine per adapter family
 STEPS, N_PROMPTS, BRANCH = 8, 2, 2
 H, M, D, LT, LI = 3072, 12288, 128, 512, 4096  # FLUX.1-dev widths; txt and img tokens at 1024px
+LC = 1024  # cond tokens of a 512 px condition
+CORR_ITEMS, IMAGE_CFG = 2, 1.5  # corrector items served per impl; image guidance scale
 HBM_TBS = 3.35  # H100 SXM HBM3, TB/s (data sheet)
 BF16_TFLOPS = 989.0  # H100 SXM dense bf16 tensor-core peak, TFLOP/s (data sheet)
+INT8_TOPS = 1979.0  # H100 SXM dense int8 tensor-core peak, TOP/s (data sheet)
+PA = "reflectionflow_tpu/ops/pallas_attention.py"
 PQ = "reflectionflow_tpu/ops/pallas_quant.py"
 KERNELS = (  # name, source, TPU kernel it replaces
     ("norm_rope", "norm_rope.cu", f"{PQ}:116"),
@@ -199,10 +229,12 @@ def k1_phase(torch):
     return err_out, err_lse, times, library_ms, bound_k1
 
 
-def bound(flops: float, nbytes: float):
-    """(bound_ms, bound_by): the larger of the operations over the bf16 peak
-    and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / (BF16_TFLOPS * 1e9), nbytes / (HBM_TBS * 1e9)
+def bound(flops: float, nbytes: float, int8_ops: float = 0.0):
+    """(bound_ms, bound_by): the larger of the operations over their peaks
+    (bf16 FLOPs at the bf16 peak plus int8 operations at the int8 peak) and
+    the bytes over the memory rate."""
+    t_ops = flops / (BF16_TFLOPS * 1e9) + int8_ops / (INT8_TOPS * 1e9)
+    t_bytes = nbytes / (HBM_TBS * 1e9)
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -387,6 +419,103 @@ def fused_phase(torch):
     return res
 
 
+def serving_attn_phase(torch):
+    """K8 and K9 against their plain versions at the corrector shape (B=2,
+    L=5632, main_len 4608) in the three cross-bias forms, the t2i shape (B=2,
+    L=4608) and a ragged L; K9 in the double and single layouts. K8's K codes
+    against the plain quantizer and its output against exact fp32 attention.
+    Both kernels, their plain versions and SDPA's forward timed in turns at the
+    two B=2 shapes with no cross bias (the main paths' form)."""
+    import torch.nn.functional as F
+
+    from reflectionflow_tpu_torch.ops.flash_attention import flash_attention_ref
+    from reflectionflow_tpu_torch.ops.flash_attention_int8 import (
+        flash_attention_int8, flash_attention_int8_ref, quantize_k, quantize_k_ref)
+    from reflectionflow_tpu_torch.ops.flash_attention_nr import flash_attention_nr, flash_attention_nr_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    def tables(L):
+        ang = torch.rand((L, D // 2), generator=gen, device="cuda") * 6.283
+        return (torch.cat([ang.cos()] * 2, -1).to(torch.bfloat16),
+                torch.cat([ang.sin()] * 2, -1).to(torch.bfloat16))
+
+    Lc = LT + LI + LC
+    cases = [(2, Lc, LT + LI, 0.0), (2, Lc, LT + LI, math.log(0.5)), (2, Lc, LT + LI, -1e30),
+             (2, LT + LI, LT + LI, 0.0), (1, LT + LI + 77, LT + LI, math.log(0.5))]
+    nr = {"err": 0.0, "by_shape": {}}
+    i8 = {"err": 0.0, "by_shape": {}, "code_max_diff": 0, "code_mismatch_frac": 0.0,
+          "scale_rel_err": 0.0, "exact_cosine_min": 1.0, "exact_max_abs_err": 0.0}
+    with torch.no_grad():
+        for B, L, main_len, cb in cases:
+            q, k, v = (randn(B, L, 24, D) for _ in range(3))
+            cos, sin = tables(L)
+            scq, sck = (1.0 + randn(2, D, scale=0.1, dtype=torch.float32) for _ in range(2))
+            for txt_len in (LT, 0) if cb == 0.0 else (LT,):
+                out = flash_attention_nr(q, k, v, cos, sin, scq, sck, txt_len, main_len, cb)
+                torch.cuda.synchronize()
+                ref = flash_attention_nr_ref(q, k, v, cos, sin, scq, sck, txt_len, main_len, cb)
+                err = (out.float() - ref.float()).abs().max().item()
+                nr["err"] = max(nr["err"], err)
+                log(f"K9 B={B} L={L} main_len={main_len} cross_bias={cb} txt_len={txt_len}: "
+                    f"max|out err| {err:.3e} (tol {OUT_TOL})")
+                check(bool(torch.isfinite(out).all()) and err <= OUT_TOL,
+                      "K9 disagrees with its plain version")
+                del out, ref
+            k8, ks = quantize_k(k)
+            torch.cuda.synchronize()
+            rk8, rks = quantize_k_ref(k)
+            dq = (k8.int() - rk8.int()).abs()
+            frac, s_rel = (dq > 0).float().mean().item(), ((ks - rks).abs() / rks).max().item()
+            out = flash_attention_int8(q, k, v, main_len, cb)
+            torch.cuda.synchronize()
+            err = (out.float() - flash_attention_int8_ref(q, k, v, main_len, cb).float()).abs().max().item()
+            exact = flash_attention_ref(q.float(), k.float(), v.float(), main_len, cb)[0]
+            e_cos = torch.nn.functional.cosine_similarity(out.float().flatten(), exact.flatten(), dim=0).item()
+            e_err = (out.float() - exact).abs().max().item()
+            i8.update(err=max(i8["err"], err), code_max_diff=max(i8["code_max_diff"], dq.max().item()),
+                      code_mismatch_frac=max(i8["code_mismatch_frac"], frac),
+                      scale_rel_err=max(i8["scale_rel_err"], s_rel),
+                      exact_cosine_min=min(i8["exact_cosine_min"], e_cos),
+                      exact_max_abs_err=max(i8["exact_max_abs_err"], e_err))
+            log(f"K8 B={B} L={L} main_len={main_len} cross_bias={cb}: K codes max|diff| {dq.max().item()}, "
+                f"differing {frac:.2e}, scale rel err {s_rel:.2e}; max|out err| {err:.3e} (tol {OUT_TOL}); "
+                f"against exact fp32 attention cosine {e_cos:.6f}, max|err| {e_err:.3e}")
+            check(dq.max().item() <= 1 and frac <= Q_MISMATCH and s_rel <= Q_SCALE_RTOL,
+                  "K8's K codes disagree with the plain quantizer")
+            check(bool(torch.isfinite(out).all()) and err <= OUT_TOL, "K8 disagrees with its plain version")
+            check(e_cos >= K8_COS and e_err < K8_EXACT_ERR, "K8 is too far from exact attention")
+            del k8, ks, rk8, rks, dq, out, exact
+            if B == 2 and cb == 0.0:
+                t_nr, p_nr = in_turns(
+                    torch, lambda: flash_attention_nr(q, k, v, cos, sin, scq, sck, LT, main_len),  # noqa: B023
+                    lambda: flash_attention_nr_ref(q, k, v, cos, sin, scq, sck, LT, main_len), 20, 3)  # noqa: B023
+                t_i8, p_i8 = in_turns(
+                    torch, lambda: flash_attention_int8(q, k, v, main_len),  # noqa: B023
+                    lambda: flash_attention_int8_ref(q, k, v, main_len), 20, 3)  # noqa: B023
+                qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+                lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh), 20)  # noqa: B023
+                del qh, kh, vh
+                pairs = B * 24 * L * L * D
+                io = 4 * B * L * 24 * D * 2  # q, k, v read and out written, bf16
+                b_nr = bound(4 * pairs, io + 2 * L * D * 2 + 2 * 2 * D * 4)  # + tables and scales
+                b_i8 = bound(2 * pairs, io, int8_ops=2 * pairs)
+                label = f"B={B} L={L}"
+                nr["by_shape"][label] = {"ms": t_nr, "plain_ms": p_nr, "bound_ms": b_nr[0],
+                                         "bound_by": b_nr[1], "library_ms": lib}
+                i8["by_shape"][label] = {"ms": t_i8, "plain_ms": p_i8, "bound_ms": b_i8[0],
+                                         "bound_by": b_i8[1], "library_ms": lib}
+                log(f"{label}: K9 {t_nr:.4f} ms ({4 * pairs / t_nr / 1e9:.1f} TFLOP/s, bound {b_nr[0]:.4f} ms), "
+                    f"plain {p_nr:.3f} ms; K8 {t_i8:.4f} ms (bound {b_i8[0]:.4f} ms), plain {p_i8:.3f} ms; "
+                    f"SDPA forward {lib:.4f} ms")
+            del q, k, v
+            torch.cuda.empty_cache()
+    return {"flash_fwd_nr": nr, "flash_fwd_int8": i8}
+
+
 def read_png_header(path: str):
     with open(path, "rb") as f:
         head = f.read(26)
@@ -398,9 +527,20 @@ def read_png_header(path: str):
 def _counters():
     from reflectionflow_tpu_torch.ops import fused_quant as fq
     from reflectionflow_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq
+    from reflectionflow_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
+    from reflectionflow_tpu_torch.ops.flash_attention_nr import flash_attention_nr
 
     return {"flash_fwd": flash_attention_fwd, "flash_bwd_dq": flash_bwd_dq,
-            "flash_bwd_dkv": flash_bwd_dkv, **{n: getattr(fq, n) for n, _, _ in KERNELS}}
+            "flash_bwd_dkv": flash_bwd_dkv, "flash_fwd_nr": flash_attention_nr,
+            "flash_fwd_int8": flash_attention_int8, **{n: getattr(fq, n) for n, _, _ in KERNELS}}
+
+
+def zero_counts():
+    """Every launch count set to 0; returns the counters."""
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
 
 
 def serve(torch, pipe, label: str):
@@ -443,11 +583,9 @@ def serve(torch, pipe, label: str):
 
     pipe.generate = generate_checked
     timer = PhaseTimer()
-    counters = _counters()
     with tempfile.TemporaryDirectory() as out_dir:
         torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
+        counters = zero_counts()
         run_noise_scaling(pipe, cfg, prompts, out_dir, timer=timer)
         launches = {name: fn.launches for name, fn in counters.items()}
         peak = torch.cuda.max_memory_allocated()
@@ -495,8 +633,8 @@ def bf16_phase(torch):
 
     launches, calls, peak = serve(torch, pipe, "bf16")
     n_blocks = pipe.dit_cfg.num_double_blocks + pipe.dit_cfg.num_single_blocks
-    expected = {"flash_fwd": STEPS * n_blocks * N_PROMPTS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                "norm_rope": 0, "adaln_quant": 0, "gelu_quant": 0, "rowquant": 0}
+    expected = {name: 0 for name in launches}
+    expected["flash_fwd"] = STEPS * n_blocks * N_PROMPTS
     log(f"bf16 launches in the main path: {launches} (expected {expected})")
     check(launches == expected, "the bf16 main path did not run K1 the expected number of times")
 
@@ -514,7 +652,9 @@ def bf16_phase(torch):
 def _family(key: str) -> str:
     """Kernel name -> family of the profiler splits."""
     name = key.lower()
-    for tag, grp in (("flash_fwd", "K1 flash_fwd"), ("flash_bwd_dq", "K6a flash_bwd_dq"),
+    for tag, grp in (("flash_fwd_nr", "K9 flash_fwd_nr"), ("nr_prep_k", "K9 flash_fwd_nr"),
+                     ("flash_fwd_int8", "K8 flash_fwd_int8"), ("int8_prep_k", "K8 flash_fwd_int8"),
+                     ("flash_fwd", "K1 flash_fwd"), ("flash_bwd_dq", "K6a flash_bwd_dq"),
                      ("flash_bwd_dkv", "K6b flash_bwd_dkv"), ("norm_rope", "K2 norm_rope"),
                      ("act_quant", "K3-K5 act_quant")):
         if tag in name:
@@ -582,11 +722,9 @@ def train_phase(torch, pipe):
             if step == 0:
                 moved.append(any(bool(ab["lora_B"].abs().sum() > 0) for ab in adapters.values()))
 
-        counters = _counters()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
+        counters = zero_counts()
         t0 = time.perf_counter()
         out = train(pipe, cfg, dataset(), hooks=[hook])
         torch.cuda.synchronize()
@@ -660,11 +798,54 @@ def train_phase(torch, pipe):
         log(f"train B=1 adapter-gradient cosine, K1 + K6 vs plain attention, per family: "
             + ", ".join(f"{f} {c:.6f}" for f, c in cos.items()))
         check(min(cos.values()) >= TRAIN_COS, f"adapter gradients disagree (min cosine {min(cos.values())})")
-        del grads, params, batch, out, adapters
+        del grads, params, batch, out
     torch.cuda.empty_cache()
     return {"s_per_step": s_per_step, "peak_gib": peak / 2**30, "launches": launches,
             "rows": rows, "profile_ms": prof, "grad_cosine_min": min(cos.values()),
-            "grad_cosine": cos}
+            "grad_cosine": cos, "adapters": adapters}
+
+
+def validation_phase(torch, pipe, adapters):
+    """`make_validation_hook` once on the trained adapters, as `train` would
+    call it at step `sample_interval`: a conditioned generate (no image CFG)
+    of 2 val samples at TrainConfig's 512 px, 20 steps, through the bf16
+    pipeline with K1: exactly 20 x 57 K1 launches, 2 PNGs of 512x512x3, and
+    `cond_dit_params` restored."""
+    import numpy as np
+
+    from reflectionflow_tpu_torch.config import TrainConfig
+    from reflectionflow_tpu_torch.train.train_loop import make_validation_hook
+
+    cfg = TrainConfig()
+    d = cfg.data
+    rng = np.random.default_rng(7)
+    val = [{"prompt": p, "condition": rng.integers(0, 256, (d.condition_size, d.condition_size, 3),
+                                                   dtype=np.uint8)}
+           for p in ("a photo of a red cube", "a photo of a blue sphere")]
+    n_blocks = pipe.dit_cfg.num_double_blocks + pipe.dit_cfg.num_single_blocks
+    before = pipe.cond_dit_params
+    with tempfile.TemporaryDirectory() as out_dir:
+        hook = make_validation_hook(pipe, cfg, val, out_dir)
+        torch.cuda.synchronize()
+        counters = zero_counts()
+        t0 = time.perf_counter()
+        hook(cfg.sample_interval - 1, adapters, {})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        pngs = sorted(os.listdir(out_dir))
+        headers = [read_png_header(os.path.join(out_dir, p)) for p in pngs]
+    torch.cuda.empty_cache()
+    expected = {name: 0 for name in launches}
+    expected["flash_fwd"] = 20 * n_blocks
+    log(f"validation hook (2 samples, {d.target_size} px, 20 steps, fold included): {wall:.1f} s; "
+        f"files {pngs}; launches {launches} (expected {expected})")
+    check(pngs == [f"step{cfg.sample_interval}_{i:02d}.png" for i in range(2)]
+          and all(h == (d.target_size, d.target_size, 8, 2) for h in headers),
+          f"validation hook wrote {pngs} {headers}")
+    check(launches == expected, "the validation hook did not run K1 the expected number of times")
+    check(pipe.cond_dit_params is before, "the validation hook did not restore cond_dit_params")
+    return {"wall_s": wall, "launches": launches}
 
 
 def profile_step(torch, pipe):
@@ -686,28 +867,50 @@ def profile_step(torch, pipe):
     return log_split(f"W8A8 step profile (B=2, L={LT}+{LI})", events, wall[0])
 
 
-def w8a8_phase(torch, pipe):
+def w8a8_phase(torch, pipe, adapters):
+    from reflectionflow_tpu_torch.config import TrainConfig
+    from reflectionflow_tpu_torch.lora.lora import make_dit_param_views
     from reflectionflow_tpu_torch.ops.quant import QuantLinear
 
+    # the corrector's cond model: the trained adapters folded into a copy of the
+    # bf16 DiT before quantization, the JAX CLI's order; quantize converts both
+    lc = TrainConfig().lora
     torch.cuda.synchronize()
+    log(f"device memory before the fold: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    _, pipe.cond_dit_params = make_dit_param_views(
+        pipe.dit, {"_alpha": lc.alpha, "_r": lc.r, "adapters": adapters})
+    torch.cuda.synchronize()
+    log(f"fold of the trained adapters into the cond model: {time.perf_counter() - t0:.1f} s; "
+        f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     t0 = time.perf_counter()
     pipe.quantize(int4=(), weight_only=("t5",))  # the CLI's --quantize int8 profile
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    modes = {name: [m.act_quant for m in getattr(pipe, name).modules() if isinstance(m, QuantLinear)]
-             for name in ("dit", "t5")}
+    modes = {name: [m.act_quant for m in model.modules() if isinstance(m, QuantLinear)]
+             for name, model in (("dit", pipe.dit), ("cond", pipe.cond_dit_params), ("t5", pipe.t5))}
     log(f"quantize {time.perf_counter() - t0:.1f} s: DiT {sum(modes['dit'])} W8A8 + "
-        f"{len(modes['dit']) - sum(modes['dit'])} w8a16 linears, T5 {len(modes['t5'])} w8a16; "
-        f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    check(pipe.rope_layout == "split" and all(modes["dit"]) and modes["t5"] and not any(modes["t5"]),
-          "pipe.quantize did not make the W8A8 serving layout")
+        f"{len(modes['dit']) - sum(modes['dit'])} w8a16 linears, cond model {sum(modes['cond'])} W8A8, "
+        f"T5 {len(modes['t5'])} w8a16; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    check(pipe.rope_layout == "split" and all(modes["dit"]) and modes["t5"] and not any(modes["t5"])
+          and modes["cond"] == modes["dit"] and pipe.cond_dit_params.rope_layout == "split",
+          "pipe.quantize did not make the W8A8 serving layout of both models")
+
+    # the cond model's own weights (what it does not share with the DiT), resident while t2i serves
+    dit_ptrs = {t.data_ptr() for t in (*pipe.dit.parameters(), *pipe.dit.buffers())}
+    cond_gib = sum(t.numel() * t.element_size() for t in (*pipe.cond_dit_params.parameters(),
+                                                          *pipe.cond_dit_params.buffers())
+                   if t.data_ptr() not in dit_ptrs) / 2**30
+    log(f"W8A8 cond model weights resident: {cond_gib:.2f} GiB")
 
     launches, calls, peak = serve(torch, pipe, "w8a8")
+    log(f"W8A8 t2i peak {peak / 2**30:.2f} GiB, of which {cond_gib:.2f} GiB are the resident cond "
+        f"model's weights ({peak / 2**30 - cond_gib:.2f} GiB without them)")
     cfg_d = pipe.dit_cfg
     nd, ns = cfg_d.num_double_blocks, cfg_d.num_single_blocks
-    per_forward = {"flash_fwd": nd + ns, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                   "norm_rope": 4 * nd + 2 * ns, "adaln_quant": 4 * nd + ns,
-                   "gelu_quant": 2 * nd + ns, "rowquant": 2 * nd + ns}
+    per_forward = {name: 0 for name in launches}
+    per_forward.update(flash_fwd=nd + ns, norm_rope=4 * nd + 2 * ns, adaln_quant=4 * nd + ns,
+                       gelu_quant=2 * nd + ns, rowquant=2 * nd + ns)
     expected = {k: v * STEPS * N_PROMPTS for k, v in per_forward.items()}
     log(f"W8A8 launches in the main path: {launches} (expected {expected})")
     check(launches == expected, "the W8A8 main path did not run K1–K5 the expected number of times")
@@ -723,7 +926,7 @@ def w8a8_phase(torch, pipe):
     check(bool(torch.isfinite(v_fused).all()) and cos >= W8A8_COS,
           "the fused W8A8 DiT disagrees with the plain serving path")
     ragged = ragged_phase(torch, pipe, per_forward)
-    return launches, calls, peak, profile_step(torch, pipe), ragged
+    return launches, calls, peak, cond_gib, profile_step(torch, pipe), ragged
 
 
 def ragged_phase(torch, pipe, per_forward):
@@ -732,9 +935,7 @@ def ragged_phase(torch, pipe, per_forward):
     1008x1008 (3969 image tokens) with 77 text tokens, one Euler step, B=2,
     must launch K1–K5 as often as one forward at 1024px does; and a full-width
     forward at such lengths agrees between the fused and plain serving paths."""
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = zero_counts()
     lat = pipe.generate(["a photo of a red cube", "a photo of a blue sphere"], height=1008, width=1008,
                         num_inference_steps=1, max_sequence_length=77, seed=0, output_type="latent")
     torch.cuda.synchronize()
@@ -756,6 +957,150 @@ def ragged_phase(torch, pipe, per_forward):
     return {"launches": launches, "cosine": cos}
 
 
+def _cond_inputs(torch, cfg_d, B, ty, tx, seed):
+    """Random cond tokens (B, ty*tx, C) and their ids at the 'cot' position delta."""
+    from reflectionflow_tpu_torch.models.flux.rope import make_image_ids
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cond = torch.randn((B, ty * tx, cfg_d.in_channels), generator=gen, device="cuda").to(torch.bfloat16)
+    return cond, torch.from_numpy(make_image_ids(ty, tx, position_delta=(0, -tx))).cuda()
+
+
+def corrector_phase(torch, pipe):
+    """`run_samples` over 2 synthetic items at 1024 px (512 px condition, 8
+    steps, image CFG 1.5: B=2, L=512+4096+1024 per forward) under "pallas_nr"
+    and "pallas_int8", with every launch count set to 0 just before each run
+    and read just after; then a full-width W8A8 forward with the cond stream
+    under each impl against the plain "xla" serving path, and a profiler split
+    of one corrector step under "pallas_nr"."""
+    from argparse import Namespace
+
+    import numpy as np
+
+    from reflectionflow_tpu_torch.cli.sample import run_samples
+    from reflectionflow_tpu_torch.config import TTSConfig
+    from reflectionflow_tpu_torch.sampler import pipeline as pipeline_mod
+    from reflectionflow_tpu_torch.search.artifacts import save_image
+
+    cfg = TTSConfig.load(os.path.join(REPO, "configs", "flux.1_dev_fake.json"))
+    pa = cfg.pipeline_args
+    pa.num_inference_steps = STEPS
+    check(pa.height == pa.width == LT * 2 and pa.condition_size == LT,
+          "flux.1_dev_fake.json no longer serves 1024 px with a 512 px condition")
+    pipe.model_flags = {"union_cond_attn": cfg.model.union_cond_attn,
+                        "add_cond_attn": cfg.model.add_cond_attn}
+    cfg_d = pipe.dit_cfg
+    nd, ns = cfg_d.num_double_blocks, cfg_d.num_single_blocks
+    quant = {"adaln_quant": 6 * nd + 2 * ns, "gelu_quant": 3 * nd + 2 * ns, "rowquant": 3 * nd + 2 * ns}
+    per_forward = {"pallas_nr": {"flash_fwd_nr": nd + ns, **quant},
+                   "pallas_int8": {"flash_fwd_int8": nd + ns, "norm_rope": 6 * nd + 4 * ns, **quant}}
+    rng = np.random.default_rng(9)
+    runs = {}
+    generate, denoise = pipe.generate, pipeline_mod.denoise
+    with tempfile.TemporaryDirectory() as tmp:
+        items = []
+        for i in range(CORR_ITEMS):
+            save_image(os.path.join(tmp, f"bad{i}.png"), rng.integers(0, 256, (768, 1024, 3), dtype=np.uint8))
+            save_image(os.path.join(tmp, f"good{i}.png"), rng.integers(0, 256, (1024, 1024, 3), dtype=np.uint8))
+            items.append({"prompt": ("a photo of a red cube", "a photo of two dogs")[i],
+                          "bad_image": f"bad{i}.png", "good_image": f"good{i}.png",
+                          "reflection": ("make the cube blue", "add a second dog on the left")[i]})
+        for impl in ("pallas_nr", "pallas_int8"):
+            pipe.attn_impl = impl
+            calls, denoise_s = [], []
+
+            def denoise_timed(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = denoise(*a, **kw)
+                torch.cuda.synchronize()
+                denoise_s.append(time.perf_counter() - t0)
+                return out
+
+            def generate_checked(prompts, **kw):
+                torch.cuda.synchronize()
+                txt, pooled = pipe.encode_prompts(prompts, kw["max_sequence_length"], kw["prompts_2"])
+                torch.cuda.synchronize()
+                t_b = time.perf_counter()
+                lat = generate(prompts, txt=txt, pooled=pooled, **{**kw, "output_type": "latent"})
+                torch.cuda.synchronize()
+                calls.append(time.perf_counter() - t_b)
+                check(tuple(lat.shape) == (1, LI, 64) and bool(torch.isfinite(lat).all()),
+                      f"corrector {impl}: bad final latents {tuple(lat.shape)}")
+                return pipe.decode_latents(lat, kw["height"], kw["width"])
+
+            pipe.generate, pipeline_mod.denoise = generate_checked, denoise_timed
+            cfg.output_dir = os.path.join(tmp, impl)
+            args = Namespace(seed=0, start_index=0, root_dir=tmp, image_guidance_scale=IMAGE_CFG)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counters = zero_counts()
+            run_samples(pipe, items, cfg, args)
+            launches = {name: fn.launches for name, fn in counters.items()}
+            peak = torch.cuda.max_memory_allocated()
+            pipe.generate, pipeline_mod.denoise = generate, denoise
+            sheets = sorted(os.listdir(cfg.output_dir))
+            headers = [read_png_header(os.path.join(cfg.output_dir, f)) for f in sheets]
+            expected = {name: 0 for name in launches}
+            expected.update({k: v * CORR_ITEMS * STEPS for k, v in per_forward[impl].items()})
+            check(len(calls) == len(denoise_s) == CORR_ITEMS,
+                  f"corrector {impl}: {len(calls)} generate and {len(denoise_s)} denoise calls timed")
+            encode = [c - d for c, d in zip(calls, denoise_s)]
+            log(f"corrector {impl}: per item denoise {[round(d, 3) for d in denoise_s]} s, condition "
+                f"encode {[round(e, 3) for e in encode]} s; {denoise_s[-1] / STEPS:.4f} s/step over "
+                f"denoise (second item, B=2 with image CFG, L={LT}+{LI}+{LC}); peak device memory "
+                f"{peak / 2**30:.2f} GiB; launches {launches} (expected {expected})")
+            check(sheets == [f"result_{i}.png" for i in range(CORR_ITEMS)]
+                  and all(h == (3 * pa.width, pa.height, 8, 2) for h in headers),
+                  f"corrector {impl} wrote {sheets} {headers}")
+            check(launches == expected, f"the corrector under {impl} did not run its kernels as expected")
+            runs[impl] = {"s_per_step": denoise_s[-1] / STEPS, "encode_s": encode[-1],
+                          "peak_gib": peak / 2**30, "launches": launches}
+
+    # the whole W8A8 DiT with the cond stream at full width on a small input
+    args, g = small_dit_inputs(torch, cfg_d)
+    cond, cond_ids = _cond_inputs(torch, cfg_d, 1, 8, 8, seed=5)
+    kw = dict(guidance=g, rope_layout="split", cond=cond, cond_ids=cond_ids, cond_params=pipe.cond_dit_params)
+    with torch.no_grad():
+        v_plain = pipe.dit(*args, attn_impl="xla", **kw).float()
+        for impl in ("pallas_nr", "pallas_int8"):
+            v = pipe.dit(*args, attn_impl=impl, **kw).float()
+            cos = torch.nn.functional.cosine_similarity(v.flatten(), v_plain.flatten(), dim=0).item()
+            log(f"W8A8 DiT forward with the cond stream (full width, L=64+256+64), {impl}: "
+                f"cosine(fused, plain serving path) = {cos:.6f} (min {W8A8_COS})")
+            check(bool(torch.isfinite(v).all()) and cos >= W8A8_COS,
+                  f"the W8A8 DiT with the cond stream under {impl} disagrees with the plain serving path")
+            runs[impl]["cosine"] = cos
+
+    # a profiler split of one corrector step (one doubled-batch forward) under pallas_nr
+    args, g = small_dit_inputs(torch, cfg_d, B=2, ty=64, tx=64, lt=LT, seed=6)
+    cond, cond_ids = _cond_inputs(torch, cfg_d, 2, 32, 32, seed=7)
+    kw = dict(kw, guidance=g, attn_impl="pallas_nr", cond=cond, cond_ids=cond_ids)
+    wall = []
+
+    def step():
+        t0 = time.perf_counter()
+        pipe.dit(*args, **kw)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+
+    with torch.no_grad():
+        step()
+        events = profiled(torch, step)
+    runs["profile_ms"] = log_split(f"W8A8 corrector step profile (pallas_nr, B=2, L={LT}+{LI}+{LC})",
+                                   events, wall[-1])
+    return runs
+
+
+def kernel_entry(name, source, replaces, launches, res, main_shape, other_shape):
+    at = res["by_shape"][main_shape]
+    return {"name": name, "route": "cuda", "source": f"reflectionflow_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": res["err"],
+            **{k: at[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shape": main_shape, "t2i_shape": {"shape": other_shape, **res["by_shape"][other_shape]},
+            **{k: v for k, v in res.items() if k not in ("err", "by_shape")}}
+
+
 def main() -> int:
     import torch
 
@@ -766,22 +1111,33 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_build.build_all()
     log(f"build {', '.join(kernel_build.SOURCES)} (in parallel): {time.perf_counter() - t0:.2f} s")
+    ptxas = {src: kernel_build.ptxas_report(src) for src in kernel_build.SOURCES}
+    log(json.dumps({"ptxas": ptxas}))
     err_out, err_lse, times, k1_library_ms, k1_bound = k1_phase(torch)
     k6 = k6_phase(torch)
     fused = fused_phase(torch)
+    serving_attn = serving_attn_phase(torch)
     pipe, bf16_launches, bf16_calls, bf16_peak = bf16_phase(torch)
     training = train_phase(torch, pipe)
-    w8_launches, w8_calls, w8_peak, prof, ragged = w8a8_phase(torch, pipe)
+    adapters = training.pop("adapters")
+    validation = validation_phase(torch, pipe, adapters)
+    w8_launches, w8_calls, w8_peak, cond_gib, prof, ragged = w8a8_phase(torch, pipe, adapters)
+    del adapters
+    corrector = corrector_phase(torch, pipe)
     step = {name: calls[-1]["denoise_s"] / STEPS for name, calls in (("bf16", bf16_calls),
                                                                       ("w8a8", w8_calls))}
+    step.update({f"corrector_{impl}": corrector[impl]["s_per_step"] for impl in ("pallas_nr", "pallas_int8")})
     log(f"s/step at B={BRANCH} (second call): bf16 {step['bf16']:.4f}, W8A8 {step['w8a8']:.4f}; "
         f"peak device memory bf16 {bf16_peak / 2**30:.2f} GiB, W8A8 {w8_peak / 2**30:.2f} GiB; "
-        f"training {training['s_per_step']:.4f} s/step at B=8, peak {training['peak_gib']:.2f} GiB")
+        f"training {training['s_per_step']:.4f} s/step at B=8, peak {training['peak_gib']:.2f} GiB; "
+        f"corrector (B=2, L={LT + LI + LC}) pallas_nr {step['corrector_pallas_nr']:.4f}, "
+        f"pallas_int8 {step['corrector_pallas_int8']:.4f} s/step, peaks "
+        f"{corrector['pallas_nr']['peak_gib']:.2f} / {corrector['pallas_int8']['peak_gib']:.2f} GiB")
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "reflectionflow_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "reflectionflow_tpu/ops/pallas_attention.py:63",
+        "replaces": f"{PA}:63",
         "launches": bf16_launches["flash_fwd"],
         "launches_w8a8": w8_launches["flash_fwd"],
         "launches_train": training["launches"]["flash_fwd"],
@@ -796,8 +1152,7 @@ def main() -> int:
         "plain_ms_b1": times[1][1],
     }]
     train_shape, serve_shape = "B=8 L=2560", "B=2 L=4608"
-    for name, key, replaces in (("flash_bwd_dq", "dq", "reflectionflow_tpu/ops/pallas_attention.py:126"),
-                                ("flash_bwd_dkv", "dkv", "reflectionflow_tpu/ops/pallas_attention.py:175")):
+    for name, key, replaces in (("flash_bwd_dq", "dq", f"{PA}:126"), ("flash_bwd_dkv", "dkv", f"{PA}:175")):
         at = {label: k6["by_shape"][label] for label in (train_shape, serve_shape)}
         kernels.append({
             "name": name, "route": "cuda", "source": "reflectionflow_tpu_torch/csrc/flash_bwd.cu",
@@ -820,10 +1175,20 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "gbps": r["gbps"], "by_shape": r["by_shape"],
         })
+    corr_shape, t2i_shape = f"B=2 L={LT + LI + LC}", f"B=2 L={LT + LI}"
+    for name, source, line, impl in (("flash_fwd_int8", "flash_fwd_int8.cu", 234, "pallas_int8"),
+                                     ("flash_fwd_nr", "flash_fwd_nr.cu", 313, "pallas_nr")):
+        kernels.append(kernel_entry(name, source, f"{PA}:{line}", corrector[impl]["launches"][name],
+                                    serving_attn[name], corr_shape, t2i_shape))
     log(json.dumps({"train": {k: training[k] for k in ("s_per_step", "peak_gib", "profile_ms",
-                                                       "grad_cosine_min", "grad_cosine")}}))
+                                                       "grad_cosine_min", "grad_cosine")},
+                    "validation_hook": validation}))
     log(json.dumps({"kernels": kernels, "s_per_step": step, "w8a8_step_profile_ms": prof,
-                    "peak_gib": {"bf16": bf16_peak / 2**30, "w8a8": w8_peak / 2**30}}))
+                    "corrector_step_profile_ms": corrector["profile_ms"],
+                    "peak_gib": {"bf16": bf16_peak / 2**30, "w8a8": w8_peak / 2**30,
+                                 "w8a8_cond_weights": cond_gib,
+                                 **{f"corrector_{i}": corrector[i]["peak_gib"]
+                                    for i in ("pallas_nr", "pallas_int8")}}}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0

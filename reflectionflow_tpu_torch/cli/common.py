@@ -2,8 +2,8 @@
 
 Counterpart of `reflectionflow_tpu/cli/common.py`, with the same flags. The
 port runs the bf16 text-to-image path and, with `--quantize int8`, the W8A8
-serving profile; options that select later ROADMAP slices raise
-`NotImplementedError` naming the slice.
+serving profile, with or without the corrector's condition stream; options
+that select later ROADMAP slices raise `NotImplementedError` naming the slice.
 
 `--device` (default `cuda`) picks where the pipeline is built and runs; when
 CUDA is missing the CLI raises unless `--device cpu` was given, and never
@@ -76,8 +76,10 @@ def build_parser(description: str) -> argparse.ArgumentParser:
         "--attn_impl", type=str, default=None,
         choices=["xla", "pallas", "pallas_interpret", "pallas_nr", "pallas_nr_interpret",
                  "pallas_int8", "pallas_int8_interpret"],
-        help="unset -> the config's pipeline_args.attn_impl (default xla). 'pallas' is "
-        "kernel K1 on CUDA tensors; the other pallas_* impls are not ported yet",
+        help="unset -> the config's pipeline_args.attn_impl (default xla). On CUDA tensors "
+        "'pallas' is kernel K1, 'pallas_int8' K8 (int8 QK^T), and 'pallas_nr' K9 (QK-norm + "
+        "RoPE inside the attention) in the --quantize int8 split layout and K1 otherwise; "
+        "the *_interpret impls have no CUDA counterpart and raise",
     )
     p.add_argument("--quantize", type=str, default=None, choices=["none", "int8"],
                    help="int8: W8A8 DiT in the fused split-RoPE serving layout + w8a16 T5; "
@@ -147,6 +149,22 @@ def _int8_profile(pa) -> None:
             f"dit_quant={dit_mode!r}, t5_quant={t5_mode!r}: {NF4_NOT_PORTED}")
 
 
+def apply_lora_path(pipe: FluxPipeline, cfg: TTSConfig, args) -> None:
+    """`pipeline_args.lora_path`: a diffusers-peft FLUX LoRA file (read by
+    `utils/safetensors_io.py`) folded into the cond stream's model,
+    `pipe.cond_dit_params`; the main stream keeps the base weights. Skipped
+    under --synthetic_weights, as in the JAX CLI (random tiny weights match
+    no published adapter). Call it before `quantize`."""
+    path = cfg.pipeline_args.lora_path
+    if not path or args.synthetic_weights:
+        return
+    from ..lora.lora import convert_diffusers_lora, make_dit_param_views
+    from ..utils.safetensors_io import load_file
+
+    lora = convert_diffusers_lora(load_file(path))
+    pipe.dit, pipe.cond_dit_params = make_dit_param_views(pipe.dit, lora, latent_lora=False)
+
+
 def load_pipeline(cfg: TTSConfig, args) -> FluxPipeline:
     pa = cfg.pipeline_args
     device = resolve_device(args.device)
@@ -170,14 +188,15 @@ def load_pipeline(cfg: TTSConfig, args) -> FluxPipeline:
         raise NotImplementedError("the velocity cache is ROADMAP slice 5, item 20")
     attn_impl = args.attn_impl or pa.attn_impl or "xla"
     check_impl(attn_impl)
-    if pa.lora_path and not args.synthetic_weights:
-        raise NotImplementedError("LoRA adapters (lora_path) are ROADMAP slice 3, item 15")
     if not args.synthetic_weights:
         raise NotImplementedError(
             "loading published weights (FluxPipeline.from_pretrained) is ROADMAP slice 1, "
             "item 9; use --synthetic_weights")
     pipe = synthetic_pipeline(device)
     pipe.attn_impl = attn_impl
+    pipe.model_flags = {"union_cond_attn": cfg.model.union_cond_attn,
+                        "add_cond_attn": cfg.model.add_cond_attn}
+    apply_lora_path(pipe, cfg, args)  # before quantize: the fold needs float weights
     if quantize == "int8":
         # the JAX int8 profile; T5 stays resident (no phase swap)
         pipe.quantize(act_quant_exclude=tuple(getattr(args, "act_quant_exclude", None) or ()),

@@ -40,16 +40,10 @@
 // and ds round to bf16 where the plain version's do, at a cost that is small next to the four
 // products. On an H100 the outputs stay within 4e-3 of max |ref| (PERF.md).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kHeadDim = 128;
-constexpr int kChunks = kHeadDim / 8;  // 16-byte chunks per row
 constexpr int kRows = 64;              // resident rows per block (q rows in K6a, k rows in K6b)
 constexpr int kWarps = kRows / 16;
 constexpr int kThreads = kWarps * 32;
@@ -64,70 +58,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 struct Strides {
   long long qb, ql, qh, kb, kl, kh, vb, vl, vh, ob, ol, oh;
 };
-
-// Element offset of 16-byte chunk `chunk` of row `row` in a swizzled [rows][128] tile.
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * kHeadDim + ((chunk ^ (row & 7)) << 3);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-  // src-size 0 zero-fills the 16 bytes without reading the source
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy rows [row0, row0 + ROWS) of one head into a swizzled tile; rows >= L read as 0.
-template <int ROWS>
-__device__ __forceinline__ void load_tile(bf16* tile, const bf16* base, long long row_stride,
-                                          int row0, int L, int tid) {
-#pragma unroll
-  for (int i = 0; i < ROWS * kChunks / kThreads; ++i) {
-    const int c = tid + i * kThreads;
-    const int row = c / kChunks, chunk = c % kChunks;
-    const bool valid = row0 + row < L;
-    const bf16* src = valid ? base + (long long)(row0 + row) * row_stride + chunk * 8 : base;
-    cp_async_16(tile + swz(row, chunk), src, valid);
-  }
-}
 
 // A fragments (16 rows x 16 of D, chunk pair kk) of this warp's resident rows.
 __device__ __forceinline__ void load_a(uint32_t (&r)[4], const bf16* tile, int warp, int lane,
@@ -170,10 +100,10 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vp = v + b * s.vb + h * s.vh;
   const bf16* op = dout + b * s.ob + h * s.oh;
 
-  load_tile<kRows>(sQ, qp, s.ql, q0, L, tid);
-  load_tile<kRows>(sO, op, s.ol, q0, L, tid);
-  load_tile<kDqKeys>(sK, kp, s.kl, 0, L, tid);
-  load_tile<kDqKeys>(sV, vp, s.vl, 0, L, tid);
+  load_tile<kRows, kThreads>(sQ, qp, s.ql, q0, L, tid);
+  load_tile<kRows, kThreads>(sO, op, s.ol, q0, L, tid);
+  load_tile<kDqKeys, kThreads>(sK, kp, s.kl, 0, L, tid);
+  load_tile<kDqKeys, kThreads>(sV, vp, s.vl, 0, L, tid);
   cp_async_commit();
 
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};  // this thread's q rows
@@ -193,8 +123,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < n_tiles; ++j) {
     const int buf = j & 1;
     if (j + 1 < n_tiles) {
-      load_tile<kDqKeys>(sK + (buf ^ 1) * kTile, kp, s.kl, (j + 1) * kDqKeys, L, tid);
-      load_tile<kDqKeys>(sV + (buf ^ 1) * kTile, vp, s.vl, (j + 1) * kDqKeys, L, tid);
+      load_tile<kDqKeys, kThreads>(sK + (buf ^ 1) * kTile, kp, s.kl, (j + 1) * kDqKeys, L, tid);
+      load_tile<kDqKeys, kThreads>(sV + (buf ^ 1) * kTile, vp, s.vl, (j + 1) * kDqKeys, L, tid);
     }
     cp_async_commit();  // an empty group on the last tile keeps the wait count uniform
     cp_async_wait_prev();
@@ -316,10 +246,10 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   };
 
-  load_tile<kRows>(sK, kp, s.kl, k0, L, tid);
-  load_tile<kRows>(sV, vp, s.vl, k0, L, tid);
-  load_tile<kKvQ>(sQ, qp, s.ql, 0, L, tid);
-  load_tile<kKvQ>(sO, op, s.ol, 0, L, tid);
+  load_tile<kRows, kThreads>(sK, kp, s.kl, k0, L, tid);
+  load_tile<kRows, kThreads>(sV, vp, s.vl, k0, L, tid);
+  load_tile<kKvQ, kThreads>(sQ, qp, s.ql, 0, L, tid);
+  load_tile<kKvQ, kThreads>(sO, op, s.ol, 0, L, tid);
   load_rows(0, 0);
   cp_async_commit();
 
@@ -335,8 +265,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < n_tiles; ++j) {
     const int buf = j & 1;
     if (j + 1 < n_tiles) {
-      load_tile<kKvQ>(sQ + (buf ^ 1) * kTile, qp, s.ql, (j + 1) * kKvQ, L, tid);
-      load_tile<kKvQ>(sO + (buf ^ 1) * kTile, op, s.ol, (j + 1) * kKvQ, L, tid);
+      load_tile<kKvQ, kThreads>(sQ + (buf ^ 1) * kTile, qp, s.ql, (j + 1) * kKvQ, L, tid);
+      load_tile<kKvQ, kThreads>(sO + (buf ^ 1) * kTile, op, s.ol, (j + 1) * kKvQ, L, tid);
       load_rows(buf ^ 1, (j + 1) * kKvQ);
     }
     cp_async_commit();

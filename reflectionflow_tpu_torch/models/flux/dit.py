@@ -7,7 +7,7 @@ modulation from the (timestep, guidance, pooled CLIP) embedding, the cond
 token stream that shares the image-stream weights (optionally through a LoRA
 view, `lora/lora.py`), per-block recomputation for training (`remat`), and
 attention through `ops.attention.joint_attention`, whose "pallas" impl is
-kernel K1 forward and K6a/K6b backward.
+kernel K1 forward and K6a/K6b backward and whose "pallas_int8" impl is K8.
 
 Parameter names follow diffusers' FluxTransformer2DModel
 (`transformer_blocks.{i}.attn.to_q`, `norm1.linear`, ...), the names
@@ -20,12 +20,15 @@ panels under the JAX key names (`attn.qkv`, `attn.txt_qkv`, and in single
 blocks `in_proj`, `out_attn`, `out_mlp`), q/k permuted to the half-split RoPE
 layout (`rope_layout="split"`), then int8 linears (`ops.quant.QuantLinear`).
 The forward dispatches on what the modules hold, as the JAX forward dispatches
-on its parameter keys. With "pallas" attention and W8A8 linears, each W8A8
-linear is fed by a fused kernel (`ops/fused_quant.py`) at any sequence length:
-K3 modulate+quant for qkv, `in_proj` and fc1, K4 gelu+quant for fc2 and
-`out_mlp`, K5 quant for the attention out-projection, and K2 QK-norm+RoPE on
-the q and k panels. (The JAX gate also asks for L % 8 == 0, the TPU kernels'
-row tiling; at other lengths it runs the unfused chain.)
+on its parameter keys. With a pallas attention impl ("pallas", "pallas_nr",
+"pallas_int8") and W8A8 linears, each W8A8 linear is fed by a fused kernel
+(`ops/fused_quant.py`) at any sequence length: K3 modulate+quant for qkv,
+`in_proj` and fc1, K4 gelu+quant for fc2 and `out_mlp`, K5 quant for the
+attention out-projection. The q and k panels get K2 QK-norm+RoPE, except under
+"pallas_nr", where the raw q/k go to K9 (`ops/flash_attention_nr.py`), which
+norms and rotates them inside the attention. (The JAX gates also ask for
+L % 8 == 0, the TPU kernels' row tiling; at other lengths it runs the unfused
+chain.)
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...config import FluxDiTConfig
-from ...ops.attention import cond_attention_bias, joint_attention
+from ...ops.attention import PALLAS_IMPLS, check_impl, cond_attention_bias, joint_attention
+from ...ops.flash_attention_nr import flash_attention_nr
 from ...ops.fused_quant import adaln_quant, gelu_quant, norm_rope, rowquant
 from ...ops.norms import adaln_modulate, layer_norm, rms_norm
 from ...ops.quant import QuantLinear
@@ -184,15 +188,46 @@ def _is_w8a8(m) -> bool:
 
 def _use_fused_quant(flags, attn_impl, m) -> bool:
     """Gate for the fused act-quant kernels: serving layout, a W8A8 linear and
-    K1 attention. Unlike the JAX gate there is no L % 8 == 0 condition: that is
-    the TPU kernels' row tiling, and K3–K5 take any length."""
-    return flags["fast_qk"] and attn_impl == "pallas" and _is_w8a8(m)
+    a pallas attention impl. Unlike the JAX gate there is no L % 8 == 0
+    condition: that is the TPU kernels' row tiling, and K3–K5 take any length."""
+    return flags["fast_qk"] and attn_impl in PALLAS_IMPLS and _is_w8a8(m)
 
 
 def _nr_gate(flags, attn_impl, tables) -> bool:
-    """Use the fused QK-norm+RoPE kernel (K2)? Split tables and K1 attention,
-    at any length (no JAX L % 8 == 0 condition, as in `_use_fused_quant`)."""
-    return flags["fast_qk"] and tables[2] and attn_impl == "pallas"
+    """Use the fused QK-norm+RoPE kernel (K2)? Split tables and a pallas
+    attention impl, at any length (no JAX L % 8 == 0 condition, as in
+    `_use_fused_quant`). The callers ask `_nr_attn_gate` first."""
+    return flags["fast_qk"] and tables[2] and attn_impl in PALLAS_IMPLS
+
+
+def _nr_attn_gate(flags, attn_impl, *tables) -> bool:
+    """QK-norm and split RoPE inside the attention kernel (K9)? "pallas_nr" in
+    the serving layout with split tables for every present stream; the q/k
+    panels then stay raw (`_qkv_split(..., rope="raw")`)."""
+    return attn_impl == "pallas_nr" and flags["fast_qk"] and all(t[2] for t in tables)
+
+
+def _nr_tables(rope, rope_cond):
+    """K9's (cos, sin) over the whole joint sequence: the cond stream's tables
+    follow the main ones. Built once per forward for every block."""
+    if rope_cond is None:
+        return rope[0], rope[1]
+    return torch.cat([rope[0], rope_cond[0]]), torch.cat([rope[1], rope_cond[1]])
+
+
+def _nr_attention(streams, scale_q, scale_k, nr_rope, txt_len, attn_kw):
+    """K9 over the concatenated RAW per-stream q/k/v (`streams` = [qs, ks,
+    vs]) with the joint tables `nr_rope` (`_nr_tables`); per-stream outputs,
+    as `joint_attention`. Norm-scale row 0 serves joint positions below
+    `txt_len`, row 1 the rest; the cond stream shares the image stream's norms
+    (a LoRA view adapts linears only)."""
+    lens = [x.shape[1] for x in streams[0]]
+    q, k, v = (torch.cat(xs, dim=1) if len(xs) > 1 else xs[0] for xs in streams)
+    cos, sin = nr_rope
+    out = flash_attention_nr(q, k, v, cos, sin, scale_q, scale_k, txt_len=txt_len,
+                             main_len=q.shape[1] - attn_kw.get("cond_len", 0),
+                             cross_bias=attn_kw.get("cross_bias", 0.0))
+    return list(torch.split(out, lens, dim=1))
 
 
 def _adaln_quant_matmul(x, shift, scale, m, dtype):
@@ -213,9 +248,12 @@ def _rowquant_matmul(x, m, dtype):
 def _qkv_split(cfg, qkv, norm_q, norm_k, fast, rope=None):
     """Split a (B, L, 3H[+extra]) panel into normed per-head q/k/v. With
     `rope=(cos, sin)` the QK-norm and the split rotation run as K2 on each of
-    the q and k panel slices (the caller then skips `_rope_qk`)."""
+    the q and k panel slices (the caller then skips `_rope_qk`); with
+    `rope="raw"` q and k stay raw for K9."""
     H = cfg.num_heads * cfg.head_dim
     q_r, k_r, v_r = qkv[..., :H], qkv[..., H:2 * H], qkv[..., 2 * H:3 * H]
+    if rope == "raw":
+        return _heads(cfg, q_r), _heads(cfg, k_r), _heads(cfg, v_r)
     if rope is not None:
         cos, sin = rope
         q = _heads(cfg, norm_rope(q_r, norm_q.weight, cos, sin))
@@ -230,7 +268,7 @@ def _qkv(cfg, proj, norm_q, norm_k, x, fast, rope=None):
     """q/k/v of one stream; `proj` is a fused panel or the (q, k, v) linears."""
     if not isinstance(proj, tuple):
         return _qkv_split(cfg, proj(x), norm_q, norm_k, fast, rope)
-    if rope is not None:  # K2 takes the panel layout
+    if rope is not None:  # K2 and K9 take the panel layout
         return _qkv_split(cfg, torch.cat([p(x) for p in proj], dim=-1), norm_q, norm_k, fast, rope)
     to_q, to_k, to_v = proj
     q = _qk_norm(_heads(cfg, to_q(x)), norm_q.weight, fast)
@@ -272,17 +310,25 @@ class DoubleBlock(nn.Module):
         self.ff_context = _FeedForward(cfg.hidden_size, cfg.mlp_hidden)
 
     def forward(self, img, txt, temb, rope, flags, attn_impl, cond=None, cond_temb=None,
-                rope_cond=None, attn_kw=None, bc=None):
+                rope_cond=None, attn_kw=None, bc=None, nr_rope=None):
         """One block; with `cond` the cond stream runs beside [txt | img] in the
-        joint attention, reading block `bc` (this block, or its LoRA view)."""
+        joint attention, reading block `bc` (this block, or its LoRA view).
+        `nr_rope` (the joint tables, when `_nr_attn_gate` holds) takes the K9
+        route."""
         cfg, a = self.cfg, self.attn
         fast = flags["fast_qk"]
         # modulation order: shift, scale, gate for attention, then for the MLP
         i_sh1, i_sc1, i_g1, i_sh2, i_sc2, i_g2 = self.norm1(temb)
         t_sh1, t_sc1, t_g1, t_sh2, t_sc2, t_g2 = self.norm1_context(temb)
         Lt = txt.shape[1]
-        nr = _nr_gate(flags, attn_impl, rope)
+        nr_fuse = nr_rope is not None
+        nr = not nr_fuse and _nr_gate(flags, attn_impl, rope)
         cos, sin, _ = rope
+        if nr_fuse:
+            rope_img = rope_txt = "raw"
+        else:
+            rope_img = (cos[Lt:], sin[Lt:]) if nr else None
+            rope_txt = (cos[:Lt], sin[:Lt]) if nr else None
 
         def stream_qkv(proj, norm_q, norm_k, x, sh, sc, r):
             if not isinstance(proj, tuple) and _use_fused_quant(flags, attn_impl, proj):
@@ -291,27 +337,32 @@ class DoubleBlock(nn.Module):
             return _qkv(cfg, proj, norm_q, norm_k, _modulate(x, sh, sc, fast), fast, r)
 
         img_q, img_k, img_v = stream_qkv(a.img_proj(), a.norm_q, a.norm_k, img, i_sh1, i_sc1,
-                                         (cos[Lt:], sin[Lt:]) if nr else None)
+                                         rope_img)
         txt_q, txt_k, txt_v = stream_qkv(a.txt_proj(), a.norm_added_q, a.norm_added_k, txt,
-                                         t_sh1, t_sc1, (cos[:Lt], sin[:Lt]) if nr else None)
+                                         t_sh1, t_sc1, rope_txt)
         # RoPE covers [txt | img] jointly; the cond stream has its own tables
         q = torch.cat([txt_q, img_q], dim=1)
         k = torch.cat([txt_k, img_k], dim=1)
-        if not nr:
+        if not (nr or nr_fuse):
             q, k = _rope_qk(q, k, rope)
         v = torch.cat([txt_v, img_v], dim=1)
         streams = [[q], [k], [v]]
         if cond is not None:
             ca = bc.attn
             c_sh1, c_sc1, c_g1, c_sh2, c_sc2, c_g2 = bc.norm1(cond_temb)
-            nr_c = _nr_gate(flags, attn_impl, rope_cond)
+            nr_c = not nr_fuse and _nr_gate(flags, attn_impl, rope_cond)
             cq, ck, cv = stream_qkv(ca.img_proj(), ca.norm_q, ca.norm_k, cond, c_sh1, c_sc1,
-                                    rope_cond[:2] if nr_c else None)
-            if not nr_c:
+                                    "raw" if nr_fuse else (rope_cond[:2] if nr_c else None))
+            if not (nr_c or nr_fuse):
                 cq, ck = _rope_qk(cq, ck, rope_cond)
             for lst, x in zip(streams, (cq, ck, cv)):
                 lst.append(x)
-        outs = joint_attention(*streams, impl=attn_impl, **(attn_kw or {}))
+        if nr_fuse:  # scale rows: txt projections' norms, then the img (and cond) ones
+            outs = _nr_attention(streams, torch.stack([a.norm_added_q.weight, a.norm_q.weight]),
+                                 torch.stack([a.norm_added_k.weight, a.norm_k.weight]), nr_rope,
+                                 Lt, attn_kw or {})
+        else:
+            outs = joint_attention(*streams, impl=attn_impl, **(attn_kw or {}))
         joint = outs[0]
         txt_attn = _proj(a.to_add_out, joint[:, :Lt].flatten(2), flags, attn_impl)
         img_attn = _proj(a.to_out[0], joint[:, Lt:].flatten(2), flags, attn_impl)
@@ -379,24 +430,30 @@ class SingleBlock(nn.Module):
         return self.proj_out(torch.cat([attn_out, val], dim=-1))
 
     def forward(self, hidden, temb, rope, flags, attn_impl, cond=None, cond_temb=None,
-                rope_cond=None, attn_kw=None, bc=None):
+                rope_cond=None, attn_kw=None, bc=None, nr_rope=None):
         sh, sc, gate = self.norm(temb)
-        nr = _nr_gate(flags, attn_impl, rope)
+        nr_fuse = nr_rope is not None
+        nr = not nr_fuse and _nr_gate(flags, attn_impl, rope)
         q, k, v, mlp_ctx = self._stream_in(hidden, sh, sc, flags, attn_impl,
-                                           rope[:2] if nr else None)
-        if not nr:
+                                           "raw" if nr_fuse else (rope[:2] if nr else None))
+        if not (nr or nr_fuse):
             q, k = _rope_qk(q, k, rope)
         streams = [[q], [k], [v]]
         if cond is not None:
             c_sh, c_sc, c_gate = bc.norm(cond_temb)
-            nr_c = _nr_gate(flags, attn_impl, rope_cond)
+            nr_c = not nr_fuse and _nr_gate(flags, attn_impl, rope_cond)
             cq, ck, cv, c_ctx = bc._stream_in(cond, c_sh, c_sc, flags, attn_impl,
-                                              rope_cond[:2] if nr_c else None)
-            if not nr_c:
+                                              "raw" if nr_fuse else (rope_cond[:2] if nr_c else None))
+            if not (nr_c or nr_fuse):
                 cq, ck = _rope_qk(cq, ck, rope_cond)
             for lst, x in zip(streams, (cq, ck, cv)):
                 lst.append(x)
-        outs = joint_attention(*streams, impl=attn_impl, **(attn_kw or {}))
+        if nr_fuse:  # one projection per single block: its norm in both scale rows, txt_len 0
+            a = self.attn
+            outs = _nr_attention(streams, torch.stack([a.norm_q.weight] * 2),
+                                 torch.stack([a.norm_k.weight] * 2), nr_rope, 0, attn_kw or {})
+        else:
+            outs = joint_attention(*streams, impl=attn_impl, **(attn_kw or {}))
         out = self._stream_out(outs[0].flatten(2), mlp_ctx, flags, attn_impl)
         hidden = hidden + gate[:, None, :] * out
         if cond is not None:
@@ -515,7 +572,7 @@ class FluxDiT(nn.Module):
         embedding at `c_t` with guidance 1.0 and its own RoPE ids. Its coupling
         to the main tokens is the union mask (`union_cond_attn=False` masks
         it) or log(`c_factor`), which takes precedence: a dense bias on "xla",
-        the structural (cond_len, cross_bias) form on "pallas".
+        the structural (cond_len, cross_bias) form on the pallas impls.
         `add_cond_attn` also adds the cond stream's gated attention output to
         the image stream.
 
@@ -529,6 +586,7 @@ class FluxDiT(nn.Module):
             raise NotImplementedError("velocity-cache modes are ROADMAP slice 5, item 20")
         if controlnet_block_samples is not None or controlnet_single_block_samples is not None:
             raise NotImplementedError("ControlNet residuals are ROADMAP slice 3, item 14")
+        check_impl(attn_impl)
         if rope_layout != self.rope_layout:
             raise ValueError(
                 f"rope_layout={rope_layout!r}, but this model's q/k weights are in the "
@@ -540,6 +598,9 @@ class FluxDiT(nn.Module):
         if use_cond and cond_ids is None:
             raise ValueError("a cond stream needs its RoPE ids (cond_ids)")
         cp = self if cond_params is None else cond_params
+        if use_cond and cp.rope_layout != rope_layout:
+            raise ValueError(f"cond_params are in the {cp.rope_layout!r} layout, the forward in "
+                             f"{rope_layout!r} (FluxPipeline.quantize transforms both)")
         split = rope_layout == "split"
         flags = {"fast_qk": split, "add_cond_attn": add_cond_attn}
         dtype = img.dtype
@@ -557,7 +618,7 @@ class FluxDiT(nn.Module):
                 torch.ones_like(timestep) if cfg.guidance_embeds else None, dtype)
             rope_cond = self.rope(cond_ids, split, dtype)
             L_main, L_cond = img.shape[1] + txt.shape[1], cond_h.shape[1]
-            if attn_impl == "pallas":
+            if attn_impl in PALLAS_IMPLS:
                 # c_factor takes precedence over the union mask
                 if c_factor is not None:
                     cross = float(np.log(np.float32(c_factor)))
@@ -568,6 +629,10 @@ class FluxDiT(nn.Module):
                 attn_kw = {"bias": cond_attention_bias(L_main + L_cond, L_cond, union_cond_attn,
                                                        c_factor, device=img.device)}
 
+        nr_rope = None
+        if _nr_attn_gate(flags, attn_impl, rope, *(() if rope_cond is None else (rope_cond,))):
+            nr_rope = _nr_tables(rope, rope_cond)
+
         def run(block, *args):
             if remat:
                 return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
@@ -576,11 +641,13 @@ class FluxDiT(nn.Module):
         tail = (cond_temb, rope_cond, attn_kw)
         for i, block in enumerate(self.transformer_blocks):
             bc = cp.transformer_blocks[i] if use_cond else None
-            img, txt, cond_h = run(block, img, txt, temb, rope, flags, attn_impl, cond_h, *tail, bc)
+            img, txt, cond_h = run(block, img, txt, temb, rope, flags, attn_impl, cond_h, *tail, bc,
+                                   nr_rope)
         hidden = torch.cat([txt, img], dim=1)
         for i, block in enumerate(self.single_transformer_blocks):
             bc = cp.single_transformer_blocks[i] if use_cond else None
-            hidden, cond_h = run(block, hidden, temb, rope, flags, attn_impl, cond_h, *tail, bc)
+            hidden, cond_h = run(block, hidden, temb, rope, flags, attn_impl, cond_h, *tail, bc,
+                                 nr_rope)
         img = hidden[:, txt.shape[1]:]
         # final AdaLN: scale first, then shift
         sc, sh = self.norm_out(temb)

@@ -6,9 +6,15 @@ stream. `impl` keeps the reference's names:
 
   * "xla"    -> `sdpa`, this package's plain PyTorch attention;
   * "pallas" -> `ops.flash_attention`: kernel K1 forward and K6a/K6b
-    backward (hand-written CUDA); CPU tensors take their plain versions.
+    backward (hand-written CUDA); CPU tensors take their plain versions;
+  * "pallas_int8" -> `ops.flash_attention_int8`: kernel K8 (int8 Q.K^T,
+    serving only);
+  * "pallas_nr" -> K1 here; the DiT sends its serving (split-layout)
+    attention to K9 (`ops.flash_attention_nr`) before it reaches this
+    function, as the JAX package does.
 
-Other impls of the reference are not ported yet and raise.
+The ring impls and the Pallas interpret modes of the reference are not
+ported and raise.
 """
 
 from __future__ import annotations
@@ -19,21 +25,18 @@ import numpy as np
 import torch
 
 from .flash_attention import flash_attention
+from .flash_attention_int8 import flash_attention_int8
 
-_NOT_PORTED = {
-    "pallas_nr": "ROADMAP queue 2, K9 (norm+rope fused flash forward)",
-    "pallas_int8": "ROADMAP queue 2, K8 (int8 QK^T flash forward)",
-    "ring": "ROADMAP slice 7, item 23 (ring attention over K7)",
-}
+PALLAS_IMPLS = ("pallas", "pallas_nr", "pallas_int8")
 
 
 def check_impl(impl: str) -> None:
     """Raise for an attention impl the port does not have."""
-    if impl in ("xla", "pallas"):
+    if impl == "xla" or impl in PALLAS_IMPLS:
         return
-    for prefix, where in _NOT_PORTED.items():
-        if impl.startswith(prefix):
-            raise NotImplementedError(f"attn_impl={impl!r} is not ported yet: {where}")
+    if impl.startswith("ring"):
+        raise NotImplementedError(
+            f"attn_impl={impl!r} is not ported yet: ROADMAP slice 7, item 23 (ring attention over K7)")
     if impl.endswith("interpret"):
         raise NotImplementedError(
             f"attn_impl={impl!r}: Pallas interpret mode has no CUDA counterpart; "
@@ -83,16 +86,17 @@ def joint_attention(
 ) -> list[torch.Tensor]:
     """Attention over concatenated (B, L_i, H, D) streams; returns per-stream
     outputs. The cond-stream modifier is dense `bias` on the "xla" path and
-    structural (`cond_len`, `cross_bias`) on the "pallas" path."""
+    structural (`cond_len`, `cross_bias`) on the pallas paths."""
     check_impl(impl)
     lens = [s.shape[1] for s in streams_q]
     q = torch.cat(streams_q, dim=1) if len(streams_q) > 1 else streams_q[0]
     k = torch.cat(streams_k, dim=1) if len(streams_k) > 1 else streams_k[0]
     v = torch.cat(streams_v, dim=1) if len(streams_v) > 1 else streams_v[0]
-    if impl == "pallas":
+    if impl in PALLAS_IMPLS:
         if bias is not None:
-            raise ValueError("impl='pallas' takes the structural (cond_len, cross_bias) form")
-        out = flash_attention(q, k, v, main_len=q.shape[1] - cond_len, cross_bias=cross_bias)
+            raise ValueError(f"impl={impl!r} takes the structural (cond_len, cross_bias) form")
+        attend = flash_attention_int8 if impl == "pallas_int8" else flash_attention
+        out = attend(q, k, v, main_len=q.shape[1] - cond_len, cross_bias=cross_bias)
     else:
         out = sdpa(q, k, v, bias=bias)
     return list(torch.split(out, lens, dim=1))

@@ -3,9 +3,11 @@
 Route: `nvcc` by hand into a library with a plain C interface, bound with
 `ctypes` (no PyTorch headers, so a build takes seconds). A library lands in
 `.build/kernels/<name>-<hash>/` at the repository root, keyed by a hash of the
-source and the flags, so an edited kernel is rebuilt and an unchanged one is
-reused. `build_all` starts one `nvcc` per source at once. A failed build
-raises; nothing falls back.
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited kernel is
+rebuilt and an unchanged one is reused. `build_all` starts one `nvcc` per
+source at once. A failed build raises; nothing falls back. ptxas's report of
+each kernel's registers and spills is kept beside its library
+(`ptxas_report`).
 """
 
 from __future__ import annotations
@@ -13,16 +15,18 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / ".build" / "kernels"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "act_quant.cu", "norm_rope.cu")
-# K1 takes the approximate exp and division; the flash backward, act-quant
-# and norm+rope kernels need accurate arithmetic to round bf16 and int8
-# values as their plain versions do.
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "act_quant.cu", "norm_rope.cu", "flash_fwd_int8.cu",
+           "flash_fwd_nr.cu")
+# K1 takes the approximate exp and division; the flash backward, act-quant,
+# norm+rope, int8 and norm+rope attention kernels need accurate arithmetic to
+# round bf16 and int8 values as their plain versions do.
 FAST_MATH = frozenset({"flash_fwd.cu"})
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -31,7 +35,7 @@ _LOADED: dict[str, ctypes.CDLL] = {}
 def nvcc_flags(source: str) -> tuple[str, ...]:
     fast = ("--use_fast_math",) if source in FAST_MATH else ()
     return ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", *fast,
-            "-shared", "-Xcompiler", "-fPIC")
+            "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -43,8 +47,11 @@ def _nvcc() -> str:
 
 
 def _library_path(source: str) -> Path:
-    """Where `csrc/<source>` builds to (depends on its content and the flags)."""
-    digest = hashlib.sha256((CSRC / source).read_bytes() + " ".join(nvcc_flags(source)).encode())
+    """Where `csrc/<source>` builds to (depends on its content, the headers and
+    the flags)."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / source).read_bytes() + headers
+                            + " ".join(nvcc_flags(source)).encode())
     stem = Path(source).stem
     return BUILD_ROOT / f"{stem}-{digest.hexdigest()[:16]}" / f"lib{stem}.so"
 
@@ -68,10 +75,44 @@ def build_all(sources=SOURCES) -> list[Path]:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {source}:\n{err}")
         else:
+            out.with_suffix(".ptxas").write_text(err)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
     return outs
+
+
+def _kernel_name(mangled: str) -> str:
+    """The `*_kernel` identifier of an Itanium-mangled name: the last
+    length-prefixed component."""
+    found = mangled
+    for m in re.finditer(r"\d+", mangled):
+        digits = m[0]
+        for i in range(len(digits)):
+            name = mangled[m.end():m.end() + int(digits[i:])]
+            if name.endswith("_kernel") and name.isidentifier():
+                found = name
+    return found
+
+
+def ptxas_report(source: str) -> dict[str, dict[str, int]]:
+    """{kernel: {"registers": n, "spill_stores": n, "spill_loads": n}} from
+    ptxas's report of the built `csrc/<source>`."""
+    report, name = {}, None
+    for line in _library_path(source).with_suffix(".ptxas").read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:  # a template's instances share a name: number the later ones
+            base = name = _kernel_name(m[1])
+            while name in report:
+                name = f"{base}#{sum(k.split('#')[0] == base for k in report)}"
+            report[name] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            report[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name]["registers"] = int(m[1])
+    return report
 
 
 def build(source: str) -> Path:

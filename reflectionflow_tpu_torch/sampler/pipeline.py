@@ -1,12 +1,14 @@
 """FluxPipeline: weights + tokenizers + the sampling loop.
 
-Counterpart of `reflectionflow_tpu/sampler/pipeline.py::FluxPipeline` for the
-text-to-image path: text encoding (T5 sequence + CLIP pooled), packed noise,
-the dynamic-shift schedule, the Euler loop over the DiT, and the VAE decode,
-in bf16 or, after `quantize`, in the W8A8 serving layout. Condition images,
-LoRA, NF4, the phase swap and the prompt cache are later ROADMAP slices (the
-phase swap is on its do-not-port list: the card holds the int8 DiT and T5
-together).
+Counterpart of `reflectionflow_tpu/sampler/pipeline.py::FluxPipeline`: text
+encoding (T5 sequence + CLIP pooled), packed noise, the dynamic-shift
+schedule, the Euler loop over the DiT, and the VAE decode, in bf16 or, after
+`quantize`, in the W8A8 serving layout; with condition images, the
+conditioned generate of the FLUX-Corrector (the cond stream reads
+`cond_dit_params`, a LoRA-folded copy of the DiT from
+`lora.make_dit_param_views`) and image CFG. NF4, the tiled VAE, the phase swap
+and the prompt cache are later ROADMAP slices (the phase swap is on its
+do-not-port list: the card holds the int8 DiT and T5 together).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from ..models.flux.text import CLIPTextEncoder, T5Encoder, clip_text_encode, t5_
 from ..models.flux.vae import FluxVAE, vae_decode
 from ..ops.quant import NF4_NOT_PORTED
 from ..utils.tokenizers import load_tokenizer
+from .condition import Condition, encode_conditions
 from .generate import denoise, make_schedule
 
 # std of the normal init of each embedding table (the JAX package's recipe)
@@ -83,6 +86,8 @@ class FluxPipeline:
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     attn_impl: str = "xla"
     rope_layout: str = "pair"  # "split" after quantize() permutes q/k (ops.fuse)
+    model_flags: dict = field(default_factory=dict)  # union_cond_attn / add_cond_attn
+    cond_dit_params: FluxDiT | None = None  # LoRA-folded model the cond stream reads
 
     # -- construction -------------------------------------------------------
 
@@ -134,8 +139,11 @@ class FluxPipeline:
         """Quantize the big models in place on their device: `which` models go
         int8 W8A8, `weight_only` ones int8 w8a16. The DiT's q/k/v panels are
         always fused and permuted to the split RoPE layout first (`ops.fuse`),
-        the only layout the fused kernels serve. `int4` / `dit_int4_mlp` (NF4)
-        are ROADMAP item 12 and raise. Models: "dit" and "t5"."""
+        the only layout the fused kernels serve. `cond_dit_params`, when set,
+        gets the same layout and, with "dit" in `which`, the same W8A8
+        quantization (fold LoRA views into it before this call, as the JAX CLI
+        does). `int4` / `dit_int4_mlp` (NF4) are ROADMAP item 12 and raise.
+        Models: "dit" and "t5"."""
         from ..ops.fuse import fuse_dit_qkv, fuse_single_block_io, permute_rope_layout
         from ..ops.quant import quantize_dit_params
 
@@ -145,12 +153,18 @@ class FluxPipeline:
         for name in (*which, *weight_only):
             if name not in ("dit", "t5"):
                 raise ValueError(f"quantize: no quantizable model {name!r} (expected 'dit' or 't5')")
+        # a latent_lora view is the DiT itself: transform it once
+        cond = self.cond_dit_params if self.cond_dit_params is not self.dit else None
         if self.rope_layout != "split":
-            permute_rope_layout(fuse_single_block_io(fuse_dit_qkv(self.dit)))
+            for dit in (self.dit, cond):
+                if dit is not None:
+                    permute_rope_layout(fuse_single_block_io(fuse_dit_qkv(dit)))
             self.rope_layout = "split"
         for name in which:
             quantize_dit_params(getattr(self, name), min_size=min_size,
                                 act_quant_exclude=act_quant_exclude)
+        if cond is not None and "dit" in which:
+            quantize_dit_params(cond, min_size=min_size, act_quant_exclude=act_quant_exclude)
         for name in weight_only:
             if name not in which:
                 quantize_dit_params(getattr(self, name), min_size=min_size, act_quant=False)
@@ -187,7 +201,9 @@ class FluxPipeline:
         max_sequence_length: int = 512,
         seed: int | None = 0,
         latents: torch.Tensor | np.ndarray | None = None,
-        conditions: list | None = None,
+        conditions: list[Condition] | None = None,
+        condition_scale: float = 1.0,
+        image_guidance_scale: float = 1.0,
         output_type: str = "np",
         txt: torch.Tensor | None = None,
         pooled: torch.Tensor | None = None,
@@ -195,9 +211,12 @@ class FluxPipeline:
     ):
         """Sample images: uint8 numpy (B, H, W, 3) for "np", the final packed
         latents for "latent". `latents` injection (packed (B, L, C)) bypasses
-        seeding: same latents -> same images."""
-        if conditions:
-            raise NotImplementedError("condition images are ROADMAP slice 3, item 13")
+        seeding: same latents -> same images.
+
+        `conditions` (one per prompt) add the cond stream: VAE-encoded
+        condition tokens read through `cond_dit_params`, coupled to the main
+        tokens by `model_flags` and log(`condition_scale`) when it is not 1.
+        `image_guidance_scale` != 1 adds image CFG against black conditions."""
         if output_type not in ("np", "latent"):
             raise ValueError(f"output_type must be 'np' or 'latent', got {output_type!r}")
         B = len(prompts)
@@ -214,6 +233,11 @@ class FluxPipeline:
         latents = torch.as_tensor(latents).to(self.device, self.dtype)
         if txt is None or pooled is None:
             txt, pooled = self.encode_prompts(prompts, max_sequence_length, prompts_2=prompts_2)
+        cond = cond_ids = cond_empty = None
+        if conditions:
+            cond, cond_ids = encode_conditions(conditions, self.vae, self.dtype)
+            if image_guidance_scale != 1.0:
+                cond_empty, _ = encode_conditions(conditions, self.vae, self.dtype, empty=True)
         final = denoise(
             self.dit,
             latents,
@@ -224,6 +248,14 @@ class FluxPipeline:
             make_schedule(num_inference_steps, ty * tx),
             guidance_scale,
             num_inference_steps,
+            cond=cond,
+            cond_ids=cond_ids,
+            cond_empty=cond_empty,
+            cond_dit_params=self.cond_dit_params if conditions else None,
+            image_guidance_scale=image_guidance_scale,
+            c_factor=None if condition_scale == 1.0 else float(condition_scale),
+            union_cond_attn=self.model_flags.get("union_cond_attn", True),
+            add_cond_attn=self.model_flags.get("add_cond_attn", False),
             attn_impl=self.attn_impl,
             rope_layout=self.rope_layout,
         )

@@ -8,7 +8,8 @@ and JSONL layout per prompt index,
         samples/                  {round}_round@{seed}.png
 
 and `save_image` writes PNG with the standard library (zlib + struct), so the
-port needs no imaging package.
+port needs no imaging package. `load_image` reads PNG with the port's own
+decoder (`train/data.py::decode_png`); JPEG raises, as in training.
 """
 
 from __future__ import annotations
@@ -53,6 +54,14 @@ def save_image(path: str, image: np.ndarray) -> None:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "wb") as f:
         f.write(encode_png(image))
+
+
+def load_image(path: str) -> np.ndarray:
+    """A PNG file -> (H, W, 3) uint8 RGB."""
+    from ..train.data import decode_image
+
+    with open(path, "rb") as f:
+        return decode_image(f.read())
 
 
 @dataclass

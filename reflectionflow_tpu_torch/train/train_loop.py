@@ -4,14 +4,15 @@ Counterpart of `reflectionflow_tpu/train/train_loop.py::train`: streaming
 GenRef batches, the stage-ratio schedule advanced per step, one
 `metrics.jsonl` row per step (loss, t_mean, grad_norm, step, ema_loss,
 step_time_s), a checkpoint every `save_interval` steps and at the end, and
-resume from the latest one.
+resume from the latest one; `make_validation_hook` samples the current
+adapters through the conditioned `generate` every `sample_interval` steps.
 
 Divergence: a checkpoint is `torch.save` of {adapters, opt_state} at
 `<checkpoint_dir>/<step>/state.pt` (the JAX package writes orbax
 checkpoints); the `latest` marker file is the same. As in the JAX package, a
 resumed run restarts its random draws and its data stream from the seed.
-The multi-device mesh and the validation hook (which needs the conditioned
-generate) are not ported yet; `train(hooks=...)` takes any callables.
+The multi-device mesh is not ported yet; `train(hooks=...)` takes any
+callables.
 """
 
 from __future__ import annotations
@@ -107,3 +108,39 @@ def export_diffusers_lora(adapters: dict, path: str) -> None:
         for which in ("lora_A", "lora_B"):
             out[f"transformer.{name}.{which}.weight"] = ab[which].detach().float()
     save_file(out, path)
+
+
+def make_validation_hook(pipeline, cfg, val_samples: list[dict], out_dir: str):
+    """A `train` hook: every `sample_interval` steps, fold the current adapters
+    into a cond view of the DiT, run the conditioned `generate` (20 steps at
+    target_size) on the val conditions, save `step{n}_{i:02d}.png` under
+    `out_dir`, and restore `pipeline.cond_dit_params`.
+
+    val_samples rows: {"prompt": str, "condition": (H, W, 3) uint8}."""
+    from ..lora.lora import make_dit_param_views
+    from ..sampler.condition import Condition, cot_position_delta
+    from ..search.artifacts import save_image
+
+    def hook(step: int, adapters, metrics_row: dict) -> None:
+        if (step + 1) % cfg.sample_interval != 0:
+            return
+        lora = {"_alpha": cfg.lora.alpha, "_r": cfg.lora.r, "adapters": adapters}
+        _, cond_view = make_dit_param_views(pipeline.dit, lora, latent_lora=False)
+        prev_cond = pipeline.cond_dit_params
+        pipeline.cond_dit_params = cond_view
+        try:
+            delta = cot_position_delta(cfg.data.condition_size)
+            images = pipeline.generate(
+                [s["prompt"] for s in val_samples],
+                height=cfg.data.target_size,
+                width=cfg.data.target_size,
+                num_inference_steps=20,
+                conditions=[Condition("cot", s["condition"], position_delta=delta)
+                            for s in val_samples],
+            )
+            for i, img in enumerate(images):
+                save_image(os.path.join(out_dir, f"step{step + 1}_{i:02d}.png"), img)
+        finally:
+            pipeline.cond_dit_params = prev_cond
+
+    return hook

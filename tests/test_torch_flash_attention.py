@@ -78,10 +78,19 @@ def test_sdpa_dense_bias_matches_structural_k1():
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=0)
 
 
-@pytest.mark.parametrize("impl", ["pallas_nr", "pallas_int8", "ring", "ring_pallas", "pallas_interpret"])
+@pytest.mark.parametrize("impl", ["ring", "ring_pallas", "pallas_interpret"])
 def test_unported_impls_raise(impl):
     with pytest.raises(NotImplementedError):
         check_impl(impl)
+
+
+@pytest.mark.parametrize("impl", ["pallas_nr", "pallas_int8"])
+def test_serving_impls_are_accepted(impl):
+    """The serving attention impls are ported (K9, K8); their interpret modes
+    still raise."""
+    check_impl(impl)
+    with pytest.raises(NotImplementedError, match="interpret"):
+        check_impl(impl + "_interpret")
 
 
 def test_k1_wrapper_has_no_silent_fallback():

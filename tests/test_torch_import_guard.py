@@ -1,6 +1,7 @@
 """The PyTorch port imports no JAX, no JAX-package module and none of the
-packages its target machine lacks: every port module, and the noise-scaling
-and train CLIs' --help, run in a subprocess where those imports fail."""
+packages its target machine lacks: every port module (the K8/K9 ops and the
+corrector sampler included), and the noise-scaling, train and sample CLIs'
+--help, run in a subprocess where those imports fail."""
 
 import os
 import pkgutil
@@ -19,9 +20,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert not any(n.split(".")[0] in {BLOCKED!r} for n in sys.modules if sys.modules[n] is not None)
-print(len(names))
+print(len(names), " ".join(names))
 import contextlib, io
-for cli in ("tts_t2i_noise_scaling", "train"):
+for cli in ("tts_t2i_noise_scaling", "train", "sample"):
     main = importlib.import_module("reflectionflow_tpu_torch.cli." + cli).main
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -40,10 +41,16 @@ def test_port_imports_without_jax_and_friends():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n_modules, rest = proc.stdout.split("\n", 1)
+    n_modules = n_modules.split(" ", 1)[0]
     expected = sum(1 for m in pkgutil.walk_packages(
         [os.path.join(REPO, "reflectionflow_tpu_torch")], "reflectionflow_tpu_torch."))
     assert int(n_modules) == expected >= 20
-    noise_help, train_help = rest.split("=== tts_t2i_noise_scaling\n")[1].split("=== train\n")
+    noise_help, rest = rest.split("=== tts_t2i_noise_scaling\n")[1].split("=== train\n")
+    train_help, sample_help = rest.split("=== sample\n")
     assert "--synthetic_weights" in noise_help and "--attn_impl" in noise_help
     assert "--device" in noise_help
     assert "--device" in train_help and "--synthetic_data" in train_help
+    for flag in ("--image_guidance_scale", "--root_dir", "--device", "--synthetic_weights"):
+        assert flag in sample_help
+    for name in ("cli.sample", "ops.flash_attention_int8", "ops.flash_attention_nr"):
+        assert f"reflectionflow_tpu_torch.{name}" in proc.stdout
