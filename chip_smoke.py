@@ -7,10 +7,11 @@ Run from the repository root with no arguments:
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. device: requires CUDA; prints `nvidia-smi` name and power limit;
-  2. build: compiles K1 (`csrc/flash_fwd.cu`), K6a/K6b (`csrc/flash_bwd.cu`),
-     K3–K5 (`csrc/act_quant.cu`), K2 (`csrc/norm_rope.cu`), K8
-     (`csrc/flash_fwd_int8.cu`) and K9 (`csrc/flash_fwd_nr.cu`) into
-     `.build/kernels/`, one nvcc per source, all started together;
+  2. build: compiles K1 and K7a (`csrc/flash_fwd.cu`), K6a/K6b and K7b/K7c
+     (`csrc/flash_bwd.cu`), K3–K5 (`csrc/act_quant.cu`), K2
+     (`csrc/norm_rope.cu`), K8 (`csrc/flash_fwd_int8.cu`) and K9
+     (`csrc/flash_fwd_nr.cu`) into `.build/kernels/`, one nvcc per source,
+     all started together; prints ptxas's registers and spills per kernel;
   3. K1 against its plain PyTorch version on the card (fp32 reference), at
      the main-path shape (B=1, 2; L=4608; H=24; D=128), a ragged L, and the
      cross-segment bias forms; times both at the main-path shape, and
@@ -19,6 +20,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      L=512+1024+1024, main_len 1536, cross bias 0, -1e30, log 0.5), at
      (B=2, L=4608) and at a ragged L; times both kernels, the plain version
      and PyTorch's SDPA backward (the yardstick only);
+  3c. K7a/K7b/K7c (the ring-chunk kernels) against their plain versions at
+     the ring's chunk shapes: the training sequence (8, 2560) and the
+     corrector's (2, 5632) over 4 ring slots (chunks of 640 and 1408 rows)
+     and a ragged (1, 4000) (chunks of 1000), at ring-global offset pairs on
+     both sides of main_len, cross bias 0, log 0.5 and -1e30; the backward
+     from the whole sequence's lse and delta rows. A row that sees no key
+     under the mask must carry lse <= -1e29 (its ring merge weight is 0).
+     Times each kernel, its plain version and SDPA with the chunk's float
+     mask (forward; backward printed; yardsticks only) at the two chunk shapes;
   4. K2–K5 against their plain versions on the card at every shape the W8A8
      path gives them (strided panel slices included) and at a ragged
      L = 4608 + 77; times each kernel and its plain version in turns at
@@ -52,6 +62,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      trained adapters: a conditioned generate of 2 val samples at 512 px,
      20 steps: exactly 20 x 57 = 1140 K1 launches, 2 PNGs of 512x512x3, and
      `cond_dit_params` restored;
+  5d. ring attention (sequence parallel) on the bf16 pipeline, over
+     `make_mesh((4,), ("seq",), devices=[cuda:i % n ...])`:
+     `ring_attention` at (2, 5632) in the three cross forms, forward and
+     backward, against the fp32 dense attention (K1/K6 limits) and K1 + K6
+     (printed), with one call's time against K1 (+ K6); `train()` with
+     attn_impl="ring_pallas" at TrainConfig's defaults for 2 steps: exactly
+     2 x 57 x 16 K7a, 57 x 16 K7b and 57 x 16 K7c launches a step and no
+     K1/K6, s/step and peak memory; at B=1 with union_cond_attn=False (live
+     offsets; add_cond_attn so the adapters reach the loss) the adapter
+     gradients against K1 + K6 (cosine >= 0.99 per family the loss reaches);
+     a conditioned `denoise` at 1024 px with a 512 px condition (B=2 with
+     image CFG, L=5632), 2 steps, union_cond_attn=False, under "ring_pallas"
+     (exactly 2 x 57 x 16 K7a, no K1) against "pallas" (cosine >= 0.999);
   6. W8A8 main path: the trained adapters folded into `pipe.cond_dit_params`
      (a copy of the bf16 DiT), then the pipeline quantized in place with the
      CLI's int8 profile (`pipe.quantize(int4=(), weight_only=("t5",))`: fused,
@@ -74,8 +97,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      with the cond stream under each impl agrees with the plain "xla" serving
      path (cosine >= 0.999); and a profiler split of one corrector step under
      "pallas_nr".
-The training numbers are on the line {"train": {...}}; the line before the
-last is {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
+The training numbers are on the line {"train": {...}}, the ring phase's on
+{"ring": {...}}; the line before the last is {"kernels": [...]}; the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -103,6 +127,14 @@ STEPS, N_PROMPTS, BRANCH = 8, 2, 2
 H, M, D, LT, LI = 3072, 12288, 128, 512, 4096  # FLUX.1-dev widths; txt and img tokens at 1024px
 LC = 1024  # cond tokens of a 512 px condition
 CORR_ITEMS, IMAGE_CFG = 2, 1.5  # corrector items served per impl; image guidance scale
+RING = 4  # ring slots of the sequence-parallel phases (all on the one card)
+RING_TRAIN_STEPS, RING_DENOISE_STEPS = 2, 2
+RING_COS = 0.999  # ring denoise final latents against K1
+# K7 check: (B, whole L, main_len, ring-global (q, k) chunk starts, the timed pair): the training
+# sequence and the corrector's, each over RING slots, and a ragged one (chunks of 1000 rows)
+K7_SHAPES = ((8, 2560, 1536, ((0, 0), (640, 1920), (1920, 0), (1280, 640), (1280, 1280)), (1280, 1280)),
+             (2, 5632, 4608, ((0, 4224), (4224, 1408), (2816, 4224), (4224, 4224), (0, 0)), (4224, 4224)),
+             (1, 4000, 2500, ((2000, 1000), (1000, 2000), (2000, 2000), (0, 3000)), None))
 HBM_TBS = 3.35  # H100 SXM HBM3, TB/s (data sheet)
 BF16_TFLOPS = 989.0  # H100 SXM dense bf16 tensor-core peak, TFLOP/s (data sheet)
 INT8_TOPS = 1979.0  # H100 SXM dense int8 tensor-core peak, TOP/s (data sheet)
@@ -308,6 +340,135 @@ def k6_phase(torch):
             del q, k, v, do, out, lse, delta
             torch.cuda.empty_cache()
     return res
+
+
+def visible_rows(torch, Lc, q_off, k_off, main_len, cross_bias):
+    """(Lc,) bool on the card: the chunk's query rows that see at least one
+    key. Under the -1e30 mask a Q chunk can meet a K/V shard wholly across the
+    cond boundary; such a row's partial is implementation-defined, and the
+    ring needs only that its lse is <= -1e29 (its merge weight is then 0)."""
+    if cross_bias > -1e29:
+        return torch.ones(Lc, dtype=torch.bool, device="cuda")
+    pos = torch.arange(Lc, device="cuda")
+    q_cond, k_cond = (q_off + pos) >= main_len, (k_off + pos) >= main_len
+    return (q_cond[:, None] == k_cond[None, :]).any(1)
+
+
+def k7_phase(torch):
+    """K7a/K7b/K7c against their plain versions at the ring's chunk shapes:
+    the training sequence (8, 2560) and the corrector's (2, 5632), each split
+    over p = 4 (chunks of 640 and 1408 rows), and a ragged (1, 4000) split
+    (chunks of 1000, not a multiple of 64); offset pairs with 0 and non-zero
+    starts on both sides of main_len, cross bias 0, log 0.5 and -1e30. The
+    backward takes the ring-global lse and delta rows of the whole sequence
+    (from K1). Each kernel, its plain version and SDPA (forward and backward,
+    with the chunk's float mask; yardsticks only) timed at the two chunk
+    shapes with a live cross bias."""
+    import torch.nn.functional as F
+
+    from reflectionflow_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd, flash_chunk_bwd, flash_chunk_bwd_ref, flash_chunk_fwd, flash_chunk_fwd_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    res = {"fwd": {"err": 0.0, "lse_err": 0.0}, "dq": {"err": 0.0, "rel": 0.0},
+           "dkv": {"err": 0.0, "rel": 0.0}, "by_shape": {}, "cases": 0}
+    with torch.no_grad():
+        for B, L, main_len, pairs, timed in K7_SHAPES:
+            Lc = L // RING
+            q, k, v, do = (torch.randn((B, L, 24, D), generator=gen, device="cuda").to(torch.bfloat16)
+                           for _ in range(4))
+            for cb in (0.0, math.log(0.5), -1e30):
+                out, lse = flash_attention_fwd(q, k, v, main_len, cb)
+                delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+                del out
+                for q_off, k_off in pairs:
+                    qc, doc = q[:, q_off:q_off + Lc], do[:, q_off:q_off + Lc]
+                    kc, vc = k[:, k_off:k_off + Lc], v[:, k_off:k_off + Lc]
+                    g_lse, g_delta = (x[..., q_off:q_off + Lc].contiguous() for x in (lse, delta))
+                    c_out, c_lse = flash_chunk_fwd(qc, kc, vc, main_len, cb, q_off, k_off)
+                    got = flash_chunk_bwd(qc, kc, vc, doc, g_lse, g_delta, main_len, cb, q_off, k_off)
+                    torch.cuda.synchronize()
+                    r_out, r_lse = flash_chunk_fwd_ref(qc.float(), kc.float(), vc.float(), main_len, cb,
+                                                       q_off, k_off)
+                    rows = visible_rows(torch, Lc, q_off, k_off, main_len, cb)
+                    e_out = (c_out - r_out)[:, rows].abs().amax().item() if rows.any() else 0.0
+                    e_lse = (c_lse - r_lse)[..., rows].abs().amax().item() if rows.any() else 0.0
+                    hidden_ok = bool((c_lse[..., ~rows] <= -1e29).all()) and bool(torch.isfinite(c_out).all())
+                    want = flash_chunk_bwd_ref(qc, kc, vc, doc, g_lse, g_delta, main_len, cb, q_off, k_off)
+                    msg = [f"out {e_out:.3e}, lse {e_lse:.3e} over {int(rows.sum())} of {Lc} rows"]
+                    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                        err = (g.float() - w).abs().max().item()
+                        # a shard wholly across the -1e30 mask: every p is 0, so is the reference
+                        rel = err / max(w.abs().max().item(), 1e-30)
+                        r = res["dq" if name == "dq" else "dkv"]
+                        r["err"], r["rel"] = max(r["err"], err), max(r["rel"], rel)
+                        msg.append(f"{name} {err:.3e} ({rel:.2e} of max|ref|)")
+                        check(bool(torch.isfinite(g).all()) and rel <= K6_REL_TOL,
+                              f"K7 {name} disagrees with its plain version at B={B} Lc={Lc} "
+                              f"offsets ({q_off}, {k_off}) cross_bias={cb}")
+                    log(f"K7 B={B} Lc={Lc} main_len={main_len} offsets ({q_off}, {k_off}) cross_bias={cb}: "
+                        f"max|err| {', '.join(msg)}")
+                    check(e_out <= OUT_TOL and e_lse <= LSE_TOL and hidden_ok,
+                          f"K7a disagrees with its plain version at B={B} Lc={Lc} offsets ({q_off}, {k_off})")
+                    res["fwd"]["err"] = max(res["fwd"]["err"], e_out)
+                    res["fwd"]["lse_err"] = max(res["fwd"]["lse_err"], e_lse)
+                    res["cases"] += 1
+                    del c_out, c_lse, r_out, r_lse, got, want
+                if timed is not None and cb == math.log(0.5):
+                    res["by_shape"][f"B={B} Lc={Lc}"] = _time_k7(
+                        torch, F, q, k, v, do, lse, delta, main_len, cb, *timed, Lc)
+                del lse, delta
+                torch.cuda.empty_cache()
+            del q, k, v, do
+    torch.cuda.empty_cache()
+    return res
+
+
+def _time_k7(torch, F, q, k, v, do, lse, delta, main_len, cb, q_off, k_off, Lc):
+    """K7a/K7b/K7c at one chunk in turns with their plain versions; SDPA's
+    forward and backward with the chunk's float mask as yardsticks."""
+    from reflectionflow_tpu_torch.ops.flash_attention import (
+        flash_chunk_bwd_dkv, flash_chunk_bwd_dq, flash_chunk_bwd_ref, flash_chunk_fwd,
+        flash_chunk_fwd_ref)
+
+    B = q.shape[0]
+    qc, doc = q[:, q_off:q_off + Lc], do[:, q_off:q_off + Lc]
+    kc, vc = k[:, k_off:k_off + Lc], v[:, k_off:k_off + Lc]
+    g_lse, g_delta = (x[..., q_off:q_off + Lc].contiguous() for x in (lse, delta))
+    mods = (main_len, cb, q_off, k_off)
+    t_fwd, p_fwd = in_turns(torch, lambda: flash_chunk_fwd(qc, kc, vc, *mods),
+                            lambda: flash_chunk_fwd_ref(qc, kc, vc, *mods), 20, 3)
+    plain_bwd = lambda: flash_chunk_bwd_ref(qc, kc, vc, doc, g_lse, g_delta, *mods)  # noqa: E731
+    t_dq, p_bwd = in_turns(torch, lambda: flash_chunk_bwd_dq(qc, kc, vc, doc, g_lse, g_delta, *mods),
+                           plain_bwd, 20, 2)
+    t_dkv, _ = in_turns(torch, lambda: flash_chunk_bwd_dkv(qc, kc, vc, doc, g_lse, g_delta, *mods),
+                        plain_bwd, 20, 2)
+    pos = torch.arange(Lc, device="cuda")
+    cross = ((q_off + pos)[:, None] >= main_len) != ((k_off + pos)[None, :] >= main_len)
+    mask = torch.where(cross, cb, 0.0).to(torch.bfloat16)
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (qc, kc, vc, doc))
+    lib_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask), 20)
+    with torch.enable_grad():
+        qs, ks, vs = (x.requires_grad_() for x in (qh, kh, vh))
+        o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+        lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(o, (qs, ks, vs), doh, retain_graph=True), 10)
+        del o, qs, ks, vs
+    pairs = B * 24 * Lc * Lc * D
+    io = B * Lc * 24 * D * 2
+    rows = B * 24 * Lc * 4
+    b_fwd, b_dq, b_dkv = (bound(4 * pairs, 4 * io + rows), bound(6 * pairs, 5 * io + 2 * rows),
+                          bound(8 * pairs, 6 * io + 2 * rows))
+    log(f"K7 B={B} Lc={Lc} offsets ({q_off}, {k_off}) cross_bias={cb}: K7a {t_fwd:.4f} ms "
+        f"({4 * pairs / t_fwd / 1e9:.1f} TFLOP/s, bound {b_fwd[0]:.4f}), plain {p_fwd:.3f} ms; "
+        f"K7b {t_dq:.4f} ms (bound {b_dq[0]:.4f}), K7c {t_dkv:.4f} ms (bound {b_dkv[0]:.4f}), "
+        f"plain backward {p_bwd:.3f} ms; SDPA with the chunk's mask: forward {lib_fwd:.4f} ms, "
+        f"backward {lib_bwd:.4f} ms")
+    return {"fwd": {"ms": t_fwd, "plain_ms": p_fwd, "bound_ms": b_fwd[0], "bound_by": b_fwd[1],
+                    "library_ms": lib_fwd},
+            "dq": {"ms": t_dq, "plain_ms": p_bwd, "bound_ms": b_dq[0], "bound_by": b_dq[1],
+                   "library_ms": None, "sdpa_backward_ms": lib_bwd},
+            "dkv": {"ms": t_dkv, "plain_ms": p_bwd, "bound_ms": b_dkv[0], "bound_by": b_dkv[1],
+                    "library_ms": None, "sdpa_backward_ms": lib_bwd}}
 
 
 def fused_phase(torch):
@@ -526,12 +687,16 @@ def read_png_header(path: str):
 
 def _counters():
     from reflectionflow_tpu_torch.ops import fused_quant as fq
-    from reflectionflow_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq
+    from reflectionflow_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq, flash_chunk_bwd_dkv, flash_chunk_bwd_dq,
+        flash_chunk_fwd)
     from reflectionflow_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
     from reflectionflow_tpu_torch.ops.flash_attention_nr import flash_attention_nr
 
     return {"flash_fwd": flash_attention_fwd, "flash_bwd_dq": flash_bwd_dq,
-            "flash_bwd_dkv": flash_bwd_dkv, "flash_fwd_nr": flash_attention_nr,
+            "flash_bwd_dkv": flash_bwd_dkv, "flash_chunk_fwd": flash_chunk_fwd,
+            "flash_chunk_bwd_dq": flash_chunk_bwd_dq, "flash_chunk_bwd_dkv": flash_chunk_bwd_dkv,
+            "flash_fwd_nr": flash_attention_nr,
             "flash_fwd_int8": flash_attention_int8, **{n: getattr(fq, n) for n, _, _ in KERNELS}}
 
 
@@ -654,6 +819,8 @@ def _family(key: str) -> str:
     name = key.lower()
     for tag, grp in (("flash_fwd_nr", "K9 flash_fwd_nr"), ("nr_prep_k", "K9 flash_fwd_nr"),
                      ("flash_fwd_int8", "K8 flash_fwd_int8"), ("int8_prep_k", "K8 flash_fwd_int8"),
+                     ("flash_chunk_fwd", "K7a flash_chunk_fwd"), ("flash_chunk_bwd_dq", "K7b flash_chunk_bwd_dq"),
+                     ("flash_chunk_bwd_dkv", "K7c flash_chunk_bwd_dkv"),
                      ("flash_fwd", "K1 flash_fwd"), ("flash_bwd_dq", "K6a flash_bwd_dq"),
                      ("flash_bwd_dkv", "K6b flash_bwd_dkv"), ("norm_rope", "K2 norm_rope"),
                      ("act_quant", "K3-K5 act_quant")):
@@ -684,6 +851,101 @@ def log_split(label: str, events, wall_s: float) -> dict:
     return {"wall_ms": wall_s * 1e3, "device_ms": busy, **{k: v / 1e3 for k, v in groups.items()}}
 
 
+def run_train(torch, pipe, cfg, tmp: str, label: str) -> dict:
+    """`train()` over a synthetic 512 px PNG shard written to `tmp`, with every
+    launch count set to 0 just before and read just after; checks the loss,
+    the gradient norm, the adapters, the checkpoint and the metric rows."""
+    from reflectionflow_tpu_torch.train.data import GenRefDataset, write_synthetic_shard
+    from reflectionflow_tpu_torch.train.train_loop import latest_checkpoint, train
+
+    d = cfg.data
+    cfg.checkpoint_dir = os.path.join(tmp, "ckpt")
+    shard = os.path.join(tmp, "genref_000.tar")
+    t0 = time.perf_counter()
+    write_synthetic_shard(shard, n=2 * d.batch_size, size=d.target_size)
+    log(f"{label}: synthetic shard of {2 * d.batch_size} samples at {d.target_size} px in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def dataset():
+        return GenRefDataset(shards=[shard], batch_size=d.batch_size, target_size=d.target_size,
+                             condition_size=d.condition_size, seed=cfg.seed)
+
+    moved = []
+
+    def hook(step, adapters, row):
+        if step == 0:
+            moved.append(any(bool(ab["lora_B"].abs().sum() > 0) for ab in adapters.values()))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = zero_counts()
+    t0 = time.perf_counter()
+    out = train(pipe, cfg, dataset(), hooks=[hook])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(cfg.checkpoint_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    latest = latest_checkpoint(cfg.checkpoint_dir)
+    for r in rows:
+        log(f"{label} step {r['step']}: loss {r['loss']:.5f}, grad_norm {r['grad_norm']:.4e}, "
+            f"t_mean {r['t_mean']:.3f}, {r['step_time_s']:.3f} s")
+    s_per_step = sum(r["step_time_s"] for r in rows[1:]) / (len(rows) - 1)
+    log(f"{label}: {cfg.max_steps} steps in {wall:.1f} s; {s_per_step:.3f} s/step (steps 2-{cfg.max_steps}, "
+        f"B={d.batch_size}, {d.target_size} px); peak device memory {peak / 2**30:.2f} GiB; "
+        f"launches {launches}")
+    check(len(rows) == cfg.max_steps and latest == cfg.max_steps, f"{len(rows)} metric rows, latest {latest}")
+    check(all(math.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in rows), "bad loss or grad_norm")
+    check(moved == [True], "the adapters' B did not move after step 1")
+    return {"adapters": out["adapters"], "rows": rows, "launches": launches, "peak": peak,
+            "s_per_step": s_per_step, "raw": next(iter(dataset()))}
+
+
+def adapter_grad_cosines(torch, pipe, adapters, raw, impls, model_flags=None):
+    """At B=1, the adapter gradients of one rf_loss under each of the two
+    impls (the same t and noise): cosine per adapter family, and the launch
+    counts of the first impl's forward and backward."""
+    from reflectionflow_tpu_torch.config import TrainConfig
+    from reflectionflow_tpu_torch.train.rectified_flow import prepare_batch_tensors, rf_loss
+
+    lc, d = TrainConfig().lora, TrainConfig().data
+    one = {k: v[:1] for k, v in raw.items()}
+    batch = prepare_batch_tensors(pipe, one, (0, -d.condition_size // 16))
+    g = torch.Generator(device="cuda").manual_seed(2)
+    t = torch.sigmoid(torch.randn((1,), generator=g, device="cuda"))
+    noise = torch.randn(batch["x0"].shape, generator=g, device="cuda")
+    names = list(adapters)
+    params = [adapters[n][k] for n in names for k in ("lora_A", "lora_B")]
+    grads, launches = {}, None
+    for impl in impls:
+        counters = zero_counts()
+        loss, _ = rf_loss(adapters, pipe.dit, batch, alpha=lc.alpha, r=lc.r, model_flags=model_flags,
+                          attn_impl=impl, t=t, noise=noise)
+        gs = torch.autograd.grad(loss, params, allow_unused=True)
+        torch.cuda.synchronize()
+        if launches is None:
+            launches = {name: fn.launches for name, fn in counters.items()}
+        grads[impl] = [torch.zeros_like(p) if x is None else x for x, p in zip(gs, params)]
+        log(f"B=1 {impl} (model_flags {model_flags}): loss {loss.item():.6f}")
+    fams: dict[str, list[int]] = {}
+    for i, n in enumerate(names):
+        fam = ".".join(p for p in n.split(".") if not p.isdigit())
+        fams.setdefault(fam, []).extend((2 * i, 2 * i + 1))
+    cos, zero = {}, []
+    for fam, idx in fams.items():
+        a, b = (torch.cat([grads[impl][i].flatten().float() for i in idx]) for impl in impls)
+        if not (a.any() or b.any()):  # a family the loss does not reach under these flags
+            zero.append(fam)
+            continue
+        cos[fam] = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+    log(f"B=1 adapter-gradient cosine, {impls[0]} vs {impls[1]}, per family: "
+        + ", ".join(f"{f} {c:.6f}" for f, c in cos.items())
+        + (f"; exactly 0 under both: {', '.join(zero)}" if zero else ""))
+    check(bool(cos), "every adapter gradient is 0")
+    return cos, launches
+
+
 def train_phase(torch, pipe):
     """Corrector LoRA training on the bf16 FLUX.1-dev pipeline at full width
     and depth: `train()` with TrainConfig's defaults (batch 8, target and
@@ -696,65 +958,26 @@ def train_phase(torch, pipe):
     plain attention."""
     from reflectionflow_tpu_torch.config import TrainConfig
     from reflectionflow_tpu_torch.lora.lora import lora_parameters
-    from reflectionflow_tpu_torch.train.data import GenRefDataset, write_synthetic_shard
     from reflectionflow_tpu_torch.train.rectified_flow import (
-        make_optimizer, make_train_step, prepare_batch_tensors, rf_loss)
-    from reflectionflow_tpu_torch.train.train_loop import latest_checkpoint, train
+        make_optimizer, make_train_step, prepare_batch_tensors)
 
     cfg = TrainConfig()
     cfg.attn_impl, cfg.max_steps = "pallas", TRAIN_STEPS
     d = cfg.data
     n_blocks = pipe.dit_cfg.num_double_blocks + pipe.dit_cfg.num_single_blocks
-    moved = []
     with tempfile.TemporaryDirectory() as tmp:
-        cfg.checkpoint_dir = os.path.join(tmp, "ckpt")
-        shard = os.path.join(tmp, "genref_000.tar")
-        t0 = time.perf_counter()
-        write_synthetic_shard(shard, n=2 * d.batch_size, size=d.target_size)
-        log(f"train: synthetic shard of {2 * d.batch_size} samples at {d.target_size} px in "
-            f"{time.perf_counter() - t0:.1f} s")
-
-        def dataset():
-            return GenRefDataset(shards=[shard], batch_size=d.batch_size, target_size=d.target_size,
-                                 condition_size=d.condition_size, seed=cfg.seed)
-
-        def hook(step, adapters, row):
-            if step == 0:
-                moved.append(any(bool(ab["lora_B"].abs().sum() > 0) for ab in adapters.values()))
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        counters = zero_counts()
-        t0 = time.perf_counter()
-        out = train(pipe, cfg, dataset(), hooks=[hook])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in counters.items()}
-        peak = torch.cuda.max_memory_allocated()
-        with open(os.path.join(cfg.checkpoint_dir, "metrics.jsonl")) as f:
-            rows = [json.loads(line) for line in f if line.strip()]
-        latest = latest_checkpoint(cfg.checkpoint_dir)
-
+        run = run_train(torch, pipe, cfg, tmp, "train")
+        launches = run["launches"]
         expected = {name: 0 for name in launches}
         expected.update(flash_fwd=2 * n_blocks * TRAIN_STEPS, flash_bwd_dq=n_blocks * TRAIN_STEPS,
                         flash_bwd_dkv=n_blocks * TRAIN_STEPS)
-        for r in rows:
-            log(f"train step {r['step']}: loss {r['loss']:.5f}, grad_norm {r['grad_norm']:.4e}, "
-                f"t_mean {r['t_mean']:.3f}, {r['step_time_s']:.3f} s")
-        s_per_step = sum(r["step_time_s"] for r in rows[1:]) / (len(rows) - 1)
-        log(f"train: {TRAIN_STEPS} steps in {wall:.1f} s; {s_per_step:.3f} s/step (steps 2-{TRAIN_STEPS}, "
-            f"B={d.batch_size}, {d.target_size} px); peak device memory {peak / 2**30:.2f} GiB; "
-            f"launches {launches} (expected {expected})")
-        check(len(rows) == TRAIN_STEPS and latest == TRAIN_STEPS, f"{len(rows)} metric rows, latest {latest}")
-        check(all(math.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in rows), "bad loss or grad_norm")
-        check(moved == [True], "the adapters' B did not move after step 1")
+        log(f"train launches {launches} (expected {expected})")
         check(launches == expected, "training did not run K1/K6a/K6b the expected number of times")
 
         # a profiler split of one more step on the trained adapters
-        raw = next(iter(dataset()))
-        delta = (0, -d.condition_size // 16)
-        batch = prepare_batch_tensors(pipe, raw, delta)
-        adapters = out["adapters"]
+        raw = run["raw"]
+        batch = prepare_batch_tensors(pipe, raw, (0, -d.condition_size // 16))
+        adapters = run["adapters"]
         opt = make_optimizer(cfg)
         opt_state = opt.init(lora_parameters({"adapters": adapters}))
         step = make_train_step(pipe.dit, opt, alpha=cfg.lora.alpha, r=cfg.lora.r, attn_impl="pallas")
@@ -772,37 +995,196 @@ def train_phase(torch, pipe):
         del opt_state, batch
 
         # B=1: adapter gradients with K1 + K6 against the plain attention
-        one = {k: v[:1] for k, v in raw.items()}
-        batch = prepare_batch_tensors(pipe, one, delta)
-        g = torch.Generator(device="cuda").manual_seed(2)
-        t = torch.sigmoid(torch.randn((1,), generator=g, device="cuda"))
-        noise = torch.randn(batch["x0"].shape, generator=g, device="cuda")
-        names = list(adapters)
-        params = [adapters[n][k] for n in names for k in ("lora_A", "lora_B")]
-        grads = {}
-        for impl in ("pallas", "xla"):
-            loss, _ = rf_loss(adapters, pipe.dit, batch, alpha=cfg.lora.alpha, r=cfg.lora.r,
-                              attn_impl=impl, t=t, noise=noise)
-            gs = torch.autograd.grad(loss, params, allow_unused=True)
-            grads[impl] = [torch.zeros_like(p) if x is None else x for x, p in zip(gs, params)]
-            log(f"train B=1 {impl}: loss {loss.item():.6f}")
-        fams: dict[str, list[int]] = {}
-        for i, n in enumerate(names):
-            fam = ".".join(p for p in n.split(".") if not p.isdigit())
-            fams.setdefault(fam, []).extend((2 * i, 2 * i + 1))
-        cos = {}
-        for fam, idx in fams.items():
-            a = torch.cat([grads["pallas"][i].flatten().float() for i in idx])
-            b = torch.cat([grads["xla"][i].flatten().float() for i in idx])
-            cos[fam] = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
-        log(f"train B=1 adapter-gradient cosine, K1 + K6 vs plain attention, per family: "
-            + ", ".join(f"{f} {c:.6f}" for f, c in cos.items()))
+        cos, _ = adapter_grad_cosines(torch, pipe, adapters, raw, ("pallas", "xla"))
         check(min(cos.values()) >= TRAIN_COS, f"adapter gradients disagree (min cosine {min(cos.values())})")
-        del grads, params, batch, out
     torch.cuda.empty_cache()
-    return {"s_per_step": s_per_step, "peak_gib": peak / 2**30, "launches": launches,
-            "rows": rows, "profile_ms": prof, "grad_cosine_min": min(cos.values()),
+    return {"s_per_step": run["s_per_step"], "peak_gib": run["peak"] / 2**30, "launches": launches,
+            "rows": run["rows"], "profile_ms": prof, "grad_cosine_min": min(cos.values()),
             "grad_cosine": cos, "adapters": adapters}
+
+
+def ring_phase(torch, pipe):
+    """Sequence-parallel ring attention on the bf16 pipeline, over a mesh of
+    RING slots on the card(s) (`make_mesh((4,), ("seq",), devices=[cuda:i % n
+    ...])`, set with `set_ring_context`):
+      (i) `ring_attention` at (2, 5632), main_len 4608, under the three cross
+          forms, forward and backward, against the fp32 plain dense attention
+          (K1/K6 limits) and against K1 + K6 over the whole sequence (printed);
+      (ii) `train()` with attn_impl="ring_pallas" at TrainConfig's defaults for
+          2 steps: exactly 2 x 57 x p^2 K7a (forward and remat recomputation),
+          57 x p^2 K7b and 57 x p^2 K7c a step, no K1/K6; then at B=1 with
+          union_cond_attn=False (live offsets and cross bias; add_cond_attn so
+          that the adapters reach the loss) the adapter gradients against
+          K1 + K6 under the same flags;
+      (iii) a conditioned `denoise` at 1024 px with a 512 px condition (B=2
+          with image CFG, L=5632), 2 steps, union_cond_attn=False, under
+          "ring_pallas" and "pallas": steps x 57 x p^2 K7a and no K1 under the
+          ring, final latents agree."""
+    from reflectionflow_tpu_torch.ops.attention import set_ring_context
+    from reflectionflow_tpu_torch.parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    mesh = make_mesh((RING,), ("seq",), devices=[torch.device("cuda", i % n) for i in range(RING)])
+    log(f"ring mesh {mesh}")
+    set_ring_context(mesh, "seq")
+    try:
+        t0 = time.perf_counter()
+        attn = ring_attention_check(torch, mesh)
+        t1 = time.perf_counter()
+        train = ring_train(torch, pipe)
+        t2 = time.perf_counter()
+        den = ring_denoise(torch, pipe)
+        t3 = time.perf_counter()
+    finally:
+        set_ring_context(None)
+    log(f"ring phase: attention check {t1 - t0:.1f} s, training {t2 - t1:.1f} s, denoise {t3 - t2:.1f} s")
+    return {"attention": attn, "train": train, "denoise": den}
+
+
+def ring_attention_check(torch, mesh):
+    from reflectionflow_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_ref, flash_attention_ref)
+    from reflectionflow_tpu_torch.ops.ring_attention import ring_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    B, L, main_len = 2, LT + LI + LC, LT + LI
+    q, k, v, do = (torch.randn((B, L, 24, D), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    res = {"out_err": 0.0, "grad_rel": 0.0, "vs_k1_out": 0.0, "vs_k6_grad_rel": 0.0}
+
+    def run(attend):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = attend(*xs)
+        out.backward(do)
+        torch.cuda.synchronize()
+        return out.detach(), [x.grad for x in xs]
+
+    for cb in (0.0, math.log(0.5), -1e30):
+        r_out, r_grads = run(lambda a, b, c: ring_attention(a, b, c, mesh, "seq", "pallas", main_len, cb))  # noqa: B023
+        k_out, k_grads = run(lambda a, b, c: flash_attention(a, b, c, main_len, cb))  # noqa: B023
+        e_out, rels = 0.0, [0.0, 0.0, 0.0]
+        for b in range(B):  # the fp32 dense reference one batch element at a time (≈ 12 GB of logits)
+            sl = slice(b, b + 1)
+            w_out, w_lse = flash_attention_ref(q[sl].float(), k[sl].float(), v[sl].float(), main_len, cb)
+            e_out = max(e_out, (r_out[sl].float() - w_out).abs().max().item())
+            want = flash_attention_bwd_ref(q[sl], k[sl], v[sl], w_out, w_lse, do[sl], main_len, cb)
+            for i, (g, w) in enumerate(zip(r_grads, want)):
+                rels[i] = max(rels[i], ((g[sl].float() - w).abs().max() / w.abs().max()).item())
+            del w_out, w_lse, want
+            torch.cuda.empty_cache()
+        vs_out = (r_out.float() - k_out.float()).abs().max().item()
+        vs_rel = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                     for a, b in zip(r_grads, k_grads))
+        log(f"ring_attention (B={B}, L={L}, p={RING}) main_len={main_len} cross_bias={cb}: against fp32 "
+            f"dense attention max|out err| {e_out:.3e} (tol {OUT_TOL}), dq/dk/dv "
+            f"{', '.join(f'{r:.2e}' for r in rels)} of max|ref| (tol {K6_REL_TOL}); against K1 + K6 "
+            f"max|out diff| {vs_out:.3e}, grads {vs_rel:.2e} of max|K6|")
+        check(bool(torch.isfinite(r_out).all()) and e_out <= OUT_TOL and max(rels) <= K6_REL_TOL,
+              f"ring attention disagrees with dense attention at cross_bias={cb}")
+        res.update(out_err=max(res["out_err"], e_out), grad_rel=max(res["grad_rel"], *rels),
+                   vs_k1_out=max(res["vs_k1_out"], vs_out), vs_k6_grad_rel=max(res["vs_k6_grad_rel"], vs_rel))
+        del r_out, r_grads, k_out, k_grads
+
+    # one call's time, forward and forward + backward, ring against K1 (+ K6)
+    with torch.no_grad():
+        t_ring, t_k1 = in_turns(torch, lambda: ring_attention(q, k, v, mesh, "seq", "pallas", main_len, 0.0),
+                                lambda: flash_attention(q, k, v, main_len, 0.0), 10, 10)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def fwd_bwd(attend):
+        return lambda: torch.autograd.grad(attend(*xs), xs, do)
+
+    t_ring_fb, t_k_fb = in_turns(
+        torch, fwd_bwd(lambda a, b, c: ring_attention(a, b, c, mesh, "seq", "pallas", main_len, 0.0)),
+        fwd_bwd(lambda a, b, c: flash_attention(a, b, c, main_len, 0.0)), 5, 5)
+    res.update(ring_fwd_ms=t_ring, k1_fwd_ms=t_k1, ring_fwd_bwd_ms=t_ring_fb, k1_k6_fwd_bwd_ms=t_k_fb)
+    log(f"ring_attention (B={B}, L={L}, p={RING}) one call: forward {t_ring:.3f} ms (K1 {t_k1:.3f}), "
+        f"forward + backward {t_ring_fb:.3f} ms (K1 + K6 {t_k_fb:.3f})")
+    del q, k, v, do, xs
+    torch.cuda.empty_cache()
+    return res
+
+
+def ring_train(torch, pipe):
+    from reflectionflow_tpu_torch.config import TrainConfig
+
+    cfg = TrainConfig()
+    cfg.attn_impl, cfg.max_steps = "ring_pallas", RING_TRAIN_STEPS
+    n_blocks = pipe.dit_cfg.num_double_blocks + pipe.dit_cfg.num_single_blocks
+    chunks = n_blocks * RING * RING  # chunk calls per pass over the DiT
+    with tempfile.TemporaryDirectory() as tmp:
+        run = run_train(torch, pipe, cfg, tmp, "ring train")
+        launches = run["launches"]
+        expected = {name: 0 for name in launches}
+        expected.update(flash_chunk_fwd=2 * chunks * cfg.max_steps, flash_chunk_bwd_dq=chunks * cfg.max_steps,
+                        flash_chunk_bwd_dkv=chunks * cfg.max_steps)
+        log(f"ring train launches {launches} (expected {expected})")
+        check(launches == expected, "ring training did not run K7a/K7b/K7c the expected number of times")
+        # B=1, union_cond_attn=False: the offsets and the cross bias are live in forward and backward.
+        # The mask cuts the cond stream (the only one the adapters act on) off the image tokens, so
+        # add_cond_attn=True carries its attention output into the image stream: else every adapter
+        # gradient would be 0 under both impls
+        cos, live = adapter_grad_cosines(torch, pipe, run["adapters"], run["raw"], ("ring_pallas", "pallas"),
+                                         model_flags={"union_cond_attn": False, "add_cond_attn": True})
+        expected_live = {name: 0 for name in live}
+        expected_live.update(flash_chunk_fwd=2 * chunks, flash_chunk_bwd_dq=chunks, flash_chunk_bwd_dkv=chunks)
+        log(f"B=1 ring_pallas (union_cond_attn=False, add_cond_attn=True) launches {live} "
+            f"(expected {expected_live})")
+        check(live == expected_live, "the B=1 ring gradient did not run K7a/K7b/K7c as expected")
+        check(min(cos.values()) >= TRAIN_COS,
+              f"ring adapter gradients disagree with K1 + K6 (min cosine {min(cos.values())})")
+    torch.cuda.empty_cache()
+    return {"s_per_step": run["s_per_step"], "peak_gib": run["peak"] / 2**30, "launches": launches,
+            "rows": run["rows"], "live_launches": live, "grad_cosine_min": min(cos.values()),
+            "grad_cosine": cos}
+
+
+def ring_denoise(torch, pipe):
+    from reflectionflow_tpu_torch.models.flux.rope import make_image_ids, make_text_ids
+    from reflectionflow_tpu_torch.sampler.generate import denoise, make_schedule
+
+    cfg_d = pipe.dit_cfg
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(pipe.dtype)
+
+    ty = tx = 2 * LT // 16  # 1024 px: 64 x 64 packed tokens
+    cy = cx = LT // 16  # the 512 px condition: 32 x 32
+    lat, txt, pooled = randn(1, ty * tx, cfg_d.in_channels), randn(1, LT, cfg_d.text_dim), randn(1, cfg_d.pooled_dim)
+    cond, cond_empty = randn(1, cy * cx, cfg_d.in_channels), randn(1, cy * cx, cfg_d.in_channels)
+    ids = dict(img_ids=torch.from_numpy(make_image_ids(ty, tx)).cuda(),
+               txt_ids=torch.from_numpy(make_text_ids(LT)).cuda(),
+               cond_ids=torch.from_numpy(make_image_ids(cy, cx, position_delta=(0, -cx))).cuda())
+    sigmas = make_schedule(RING_DENOISE_STEPS, ty * tx)
+    n_blocks = cfg_d.num_double_blocks + cfg_d.num_single_blocks
+    outs, res = {}, {}
+    for impl in ("ring_pallas", "pallas"):
+        torch.cuda.synchronize()
+        counters = zero_counts()
+        t0 = time.perf_counter()
+        outs[impl] = denoise(pipe.dit, lat, txt, pooled, ids["img_ids"], ids["txt_ids"], sigmas, 3.5,
+                             RING_DENOISE_STEPS, cond=cond, cond_ids=ids["cond_ids"], cond_empty=cond_empty,
+                             cond_dit_params=pipe.dit, image_guidance_scale=IMAGE_CFG,
+                             union_cond_attn=False, attn_impl=impl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        res[impl] = {"s_per_step": wall / RING_DENOISE_STEPS, "launches": launches}
+        log(f"ring denoise {impl} (B=2 with image CFG, L={LT}+{LI}+{LC}, union_cond_attn=False): "
+            f"{RING_DENOISE_STEPS} steps in {wall:.3f} s; launches {launches}")
+        check(tuple(outs[impl].shape) == (1, ty * tx, cfg_d.in_channels)
+              and bool(torch.isfinite(outs[impl]).all()), f"ring denoise {impl}: bad latents")
+    expected = {name: 0 for name in res["ring_pallas"]["launches"]}
+    expected["flash_chunk_fwd"] = RING_DENOISE_STEPS * n_blocks * RING * RING
+    check(res["ring_pallas"]["launches"] == expected,
+          f"the ring denoise did not run K7a as expected ({expected})")
+    cos = torch.nn.functional.cosine_similarity(outs["ring_pallas"].float().flatten(),
+                                                outs["pallas"].float().flatten(), dim=0).item()
+    log(f"ring denoise: cosine(ring_pallas, pallas) of the final latents {cos:.6f} (min {RING_COS})")
+    check(cos >= RING_COS, "the ring denoise disagrees with K1")
+    res["cosine"] = cos
+    return res
 
 
 def validation_phase(torch, pipe, adapters):
@@ -1108,19 +1490,27 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from reflectionflow_tpu_torch.ops import kernel_build
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     kernel_build.build_all()
     log(f"build {', '.join(kernel_build.SOURCES)} (in parallel): {time.perf_counter() - t0:.2f} s")
     ptxas = {src: kernel_build.ptxas_report(src) for src in kernel_build.SOURCES}
     log(json.dumps({"ptxas": ptxas}))
     err_out, err_lse, times, k1_library_ms, k1_bound = k1_phase(torch)
     k6 = k6_phase(torch)
+    t0 = time.perf_counter()
+    k7 = k7_phase(torch)
+    t_k7 = time.perf_counter() - t0
+    log(f"K7 phase (3c): {k7['cases']} chunk cases in {t_k7:.1f} s")
     fused = fused_phase(torch)
     serving_attn = serving_attn_phase(torch)
     pipe, bf16_launches, bf16_calls, bf16_peak = bf16_phase(torch)
     training = train_phase(torch, pipe)
     adapters = training.pop("adapters")
     validation = validation_phase(torch, pipe, adapters)
+    t0 = time.perf_counter()
+    ring = ring_phase(torch, pipe)
+    t_ring = time.perf_counter() - t0
+    log(f"ring phase (5d): {t_ring:.1f} s")
     w8_launches, w8_calls, w8_peak, cond_gib, prof, ragged = w8a8_phase(torch, pipe, adapters)
     del adapters
     corrector = corrector_phase(torch, pipe)
@@ -1132,7 +1522,8 @@ def main() -> int:
         f"training {training['s_per_step']:.4f} s/step at B=8, peak {training['peak_gib']:.2f} GiB; "
         f"corrector (B=2, L={LT + LI + LC}) pallas_nr {step['corrector_pallas_nr']:.4f}, "
         f"pallas_int8 {step['corrector_pallas_int8']:.4f} s/step, peaks "
-        f"{corrector['pallas_nr']['peak_gib']:.2f} / {corrector['pallas_int8']['peak_gib']:.2f} GiB")
+        f"{corrector['pallas_nr']['peak_gib']:.2f} / {corrector['pallas_int8']['peak_gib']:.2f} GiB; "
+        f"ring training {ring['train']['s_per_step']:.4f} s/step, peak {ring['train']['peak_gib']:.2f} GiB")
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -1175,6 +1566,24 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "gbps": r["gbps"], "by_shape": r["by_shape"],
         })
+    k7_train, k7_corr = (f"B={B} Lc={L // RING}" for B, L, *_ in K7_SHAPES[:2])
+    for name, key, line, err_keys in (
+            ("flash_chunk_fwd", "fwd", 63, {"max_abs_err": "err", "lse_max_abs_err": "lse_err"}),
+            ("flash_chunk_bwd_dq", "dq", 126, {"max_abs_err": "err", "rel_err": "rel"}),
+            ("flash_chunk_bwd_dkv", "dkv", 175, {"max_abs_err": "err", "rel_err": "rel"})):
+        at = k7["by_shape"][k7_train][key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"reflectionflow_tpu_torch/csrc/{'flash_fwd.cu' if key == 'fwd' else 'flash_bwd.cu'}",
+            "replaces": f"{PA}:{line} (dyn_offsets=True, via {PA}:{789 if key == 'fwd' else 815})",
+            "launches": ring["train"]["launches"][name],
+            "launches_live_offsets": ring["train"]["live_launches"][name],
+            "launches_ring_denoise": ring["denoise"]["ring_pallas"]["launches"][name],
+            **{k: k7[key][v] for k, v in err_keys.items()},
+            **{k: at[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shape": k7_train, "corrector_shape": {"shape": k7_corr, **k7["by_shape"][k7_corr][key]},
+            **({"sdpa_backward_ms": at["sdpa_backward_ms"]} if key != "fwd" else {}),
+        })
     corr_shape, t2i_shape = f"B=2 L={LT + LI + LC}", f"B=2 L={LT + LI}"
     for name, source, line, impl in (("flash_fwd_int8", "flash_fwd_int8.cu", 234, "pallas_int8"),
                                      ("flash_fwd_nr", "flash_fwd_nr.cu", 313, "pallas_nr")):
@@ -1183,6 +1592,13 @@ def main() -> int:
     log(json.dumps({"train": {k: training[k] for k in ("s_per_step", "peak_gib", "profile_ms",
                                                        "grad_cosine_min", "grad_cosine")},
                     "validation_hook": validation}))
+    log(json.dumps({"ring": {"attention": ring["attention"],
+                             "train": {k: ring["train"][k] for k in ("s_per_step", "peak_gib", "launches",
+                                                                      "grad_cosine_min", "grad_cosine")},
+                             "denoise": ring["denoise"]}}))
+    total = time.perf_counter() - t_start
+    log(f"chip_smoke: {total:.1f} s after the device check, of which the ring phases (3c, 5d) "
+        f"{t_k7 + t_ring:.1f} s")
     log(json.dumps({"kernels": kernels, "s_per_step": step, "w8a8_step_profile_ms": prof,
                     "corrector_step_profile_ms": corrector["profile_ms"],
                     "peak_gib": {"bf16": bf16_peak / 2**30, "w8a8": w8_peak / 2**30,

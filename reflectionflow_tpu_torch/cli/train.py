@@ -8,7 +8,7 @@ Usage, as the JAX package's `reflectionflow_tpu.cli.train`, plus `--device`:
 with the data sizes shrunk to smoke sizes when no config is given;
 `--synthetic_data` writes a random PNG shard when no shards are named. The
 run is on one device (`--device`, default cuda; it raises when CUDA is
-missing); a multi-device mesh is ROADMAP slice 7.
+missing); data parallelism over a device mesh is ROADMAP slice 7b.
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ def main(argv=None):
                                   "counterpart; use 'pallas' (its plain versions run on CPU tensors)")
     if any(d > 1 for d in cfg.mesh_shape):
         raise NotImplementedError(f"mesh_shape={cfg.mesh_shape}: training over a device mesh is "
-                                  "ROADMAP slice 7; the port trains on one device")
+                                  "ROADMAP slice 7b; the port trains on one device")
     if not args.synthetic_weights:
         raise NotImplementedError(
             "loading published weights (FluxPipeline.from_pretrained) is ROADMAP slice 1, "

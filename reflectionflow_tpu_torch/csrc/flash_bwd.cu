@@ -36,6 +36,14 @@
 //   * Exponentials run in the base-2 domain (exp2 of logits pre-scaled by log2(e)).
 // wgmma, TMA and warp specialisation are left for later work.
 //
+// K7b and K7c, the ring-chunk backward, are the same bodies with two more runtime scalars. They
+// replace _flash_dq_kernel and _flash_dkv_kernel with dyn_offsets=True (pallas_attention.py:136-160,
+// :185-212), reached through flash_chunk_bwd (:815): one Q chunk against one K/V shard, from the
+// RING-GLOBAL lse and delta rows, so the chunks' dQ/dK/dV sum to the full-sequence gradients. The
+// cross-segment predicate compares global positions with main_len; the padding masks stay local.
+// The offsets enter as the local boundaries q_main = main_len - q_off and k_main = main_len - k_off,
+// so K6a/K6b (both main_len) compile as before.
+//
 // Built without --use_fast_math (ops/kernel_build.py): exp2f keeps its accurate path, so p
 // and ds round to bf16 where the plain version's do, at a cost that is small next to the four
 // products. On an H100 the outputs stay within 4e-3 of max |ref| (PERF.md).
@@ -77,14 +85,16 @@ __device__ __forceinline__ void load_b_nn(uint32_t (&r)[4], const bf16* tile, in
   ldmatrix_x4_trans(r, tile + swz(ks * 16 + (((lane >> 3) & 1) << 3) + (lane & 7), dp * 2 + (lane >> 4)));
 }
 
-// K6a: one block owns (batch*head, 64 q rows) and streams K/V tiles of 64 keys.
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int L, int H, Strides s, int main_len, int has_cross,
-                    float cross_bias_log2, float scale_log2, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
+// K6a / K7b: one block owns (batch*head, 64 q rows) and streams K/V tiles of 64 keys. The cond
+// boundary is local row q_main among queries, k_main among keys (both main_len for K6a).
+__device__ __forceinline__ void dq_block(unsigned char* smem_raw, const bf16* __restrict__ q,
+                                         const bf16* __restrict__ k, const bf16* __restrict__ v,
+                                         const bf16* __restrict__ dout,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ delta, bf16* __restrict__ dq,
+                                         int L, int H, const Strides& s, int q_main, int k_main,
+                                         int has_cross, float cross_bias_log2, float scale_log2,
+                                         float scale) {
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sO = sQ + kRows * kHeadDim;
   bf16* sK = sO + kRows * kHeadDim;  // [2][kDqKeys][kHeadDim]
@@ -169,7 +179,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float x = sc[n][e] * scale_log2;
         if (masked) {
           const int kpos = k0 + n * 8 + t4 * 2 + (e & 1);
-          if (has_cross && ((rows[r] >= main_len) != (kpos >= main_len))) x += cross_bias_log2;
+          if (has_cross && ((rows[r] >= q_main) != (kpos >= k_main))) x += cross_bias_log2;
           if (kpos >= L) x = kNegInf;
         }
         const float p = exp2f(x - lse_r[r]);
@@ -206,16 +216,16 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// K6b: one block owns (batch*head, 64 k rows) and streams Q/dO tiles of 32 q rows with their
-// lse and delta values.
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int H, Strides s,
-                     int main_len, int has_cross, float cross_bias_log2, float scale_log2,
-                     float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
+// K6b / K7c: one block owns (batch*head, 64 k rows) and streams Q/dO tiles of 32 q rows with
+// their lse and delta values; q_main and k_main as in dq_block.
+__device__ __forceinline__ void dkv_block(unsigned char* smem_raw, const bf16* __restrict__ q,
+                                          const bf16* __restrict__ k, const bf16* __restrict__ v,
+                                          const bf16* __restrict__ dout,
+                                          const float* __restrict__ lse,
+                                          const float* __restrict__ delta, bf16* __restrict__ dk,
+                                          bf16* __restrict__ dv, int L, int H, const Strides& s,
+                                          int q_main, int k_main, int has_cross,
+                                          float cross_bias_log2, float scale_log2, float scale) {
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
   bf16* sV = sK + kRows * kHeadDim;
   bf16* sQ = sV + kRows * kHeadDim;  // [2][kKvQ][kHeadDim]
@@ -312,7 +322,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int col = n * 8 + t4 * 2 + (e & 1);
         const int qpos = q0 + col;
         float x = st[n][e] * scale_log2;
-        if (has_cross && ((rows[e >> 1] >= main_len) != (qpos >= main_len))) x += cross_bias_log2;
+        if (has_cross && ((rows[e >> 1] >= k_main) != (qpos >= q_main))) x += cross_bias_log2;
         p[e] = qpos < L ? exp2f(x - tL[col] * kLog2e) : 0.f;
         ds[e] = p[e] * (dpt[n][e] - tD[col]);
       }
@@ -354,9 +364,83 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+#define DQ_PARAMS                                                                              \
+  const bf16 *__restrict__ q, const bf16 *__restrict__ k, const bf16 *__restrict__ v,           \
+      const bf16 *__restrict__ dout, const float *__restrict__ lse,                             \
+      const float *__restrict__ delta, bf16 *__restrict__ dq, int L, int H, Strides s,          \
+      int q_main, int k_main, int has_cross, float cross_bias_log2, float scale_log2, float scale
+#define DKV_PARAMS                                                                             \
+  const bf16 *__restrict__ q, const bf16 *__restrict__ k, const bf16 *__restrict__ v,           \
+      const bf16 *__restrict__ dout, const float *__restrict__ lse,                             \
+      const float *__restrict__ delta, bf16 *__restrict__ dk, bf16 *__restrict__ dv, int L,     \
+      int H, Strides s, int q_main, int k_main, int has_cross, float cross_bias_log2,           \
+      float scale_log2, float scale
+
+// K6a: q_main and k_main are both main_len (the entry passes it twice).
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(DQ_PARAMS) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  dq_block(smem_raw, q, k, v, dout, lse, delta, dq, L, H, s, q_main, q_main, has_cross,
+           cross_bias_log2, scale_log2, scale);
+}
+
+// K7b
+__global__ void __launch_bounds__(kThreads) flash_chunk_bwd_dq_kernel(DQ_PARAMS) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  dq_block(smem_raw, q, k, v, dout, lse, delta, dq, L, H, s, q_main, k_main, has_cross,
+           cross_bias_log2, scale_log2, scale);
+}
+
+// K6b
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(DKV_PARAMS) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  dkv_block(smem_raw, q, k, v, dout, lse, delta, dk, dv, L, H, s, q_main, q_main, has_cross,
+            cross_bias_log2, scale_log2, scale);
+}
+
+// K7c
+__global__ void __launch_bounds__(kThreads) flash_chunk_bwd_dkv_kernel(DKV_PARAMS) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  dkv_block(smem_raw, q, k, v, dout, lse, delta, dk, dv, L, H, s, q_main, k_main, has_cross,
+            cross_bias_log2, scale_log2, scale);
+}
+
 Strides make_strides(const long long* st) {
   return Strides{st[0], st[1], st[2], st[3], st[4],  st[5],
                  st[6], st[7], st[8], st[9], st[10], st[11]};
+}
+
+int launch_dq(void (*kernel)(DQ_PARAMS), const void* q, const void* k, const void* v,
+              const void* dout, const void* lse, const void* delta, void* dq, int B, int L, int H,
+              const long long* strides, int q_main, int k_main, float cross_bias, void* stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L + kRows - 1) / kRows, B * H);
+  const float scale = 1.f / sqrtf(static_cast<float>(kHeadDim));
+  kernel<<<grid, kThreads, kDqSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), L, H, make_strides(strides),
+      q_main, k_main, cross_bias != 0.f ? 1 : 0, cross_bias * kLog2e, scale * kLog2e, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dkv(void (*kernel)(DKV_PARAMS), const void* q, const void* k, const void* v,
+               const void* dout, const void* lse, const void* delta, void* dk, void* dv, int B,
+               int L, int H, const long long* strides, int q_main, int k_main, float cross_bias,
+               void* stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kKvSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L + kRows - 1) / kRows, B * H);
+  const float scale = 1.f / sqrtf(static_cast<float>(kHeadDim));
+  kernel<<<grid, kThreads, kKvSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), L, H,
+      make_strides(strides), q_main, k_main, cross_bias != 0.f ? 1 : 0, cross_bias * kLog2e,
+      scale * kLog2e, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -364,22 +448,15 @@ Strides make_strides(const long long* st) {
 // q, k, v, dout: (B, L, H, 128) bf16 with unit stride on the last dim and 16-byte aligned
 // rows; `strides` holds their (batch, row, head) element strides in that order (12 values).
 // lse, delta: contiguous (B*H, L) fp32. dq, dk, dv: contiguous (B, L, H, 128) bf16. Each
-// launches on `stream` and returns cudaGetLastError(); neither synchronises.
+// launches on `stream` and returns cudaGetLastError(); none synchronises. The chunk entries
+// (K7b, K7c) take the ring-global cond boundary main_len and the ring-global positions q_off /
+// k_off of the chunk's first query and first key; lse and delta are the ring-global rows.
 extern "C" int flash_bwd_dq_bf16_d128(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       void* dq, int B, int L, int H, const long long* strides,
                                       int main_len, float cross_bias, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((L + kRows - 1) / kRows, B * H);
-  const float scale = 1.f / sqrtf(static_cast<float>(kHeadDim));
-  flash_bwd_dq_kernel<<<grid, kThreads, kDqSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), L, H, make_strides(strides),
-      main_len, cross_bias != 0.f ? 1 : 0, cross_bias * kLog2e, scale * kLog2e, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dq(flash_bwd_dq_kernel, q, k, v, dout, lse, delta, dq, B, L, H, strides, main_len,
+                   main_len, cross_bias, stream);
 }
 
 extern "C" int flash_bwd_dkv_bf16_d128(const void* q, const void* k, const void* v,
@@ -387,16 +464,24 @@ extern "C" int flash_bwd_dkv_bf16_d128(const void* q, const void* k, const void*
                                        void* dk, void* dv, int B, int L, int H,
                                        const long long* strides, int main_len, float cross_bias,
                                        void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kKvSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((L + kRows - 1) / kRows, B * H);
-  const float scale = 1.f / sqrtf(static_cast<float>(kHeadDim));
-  flash_bwd_dkv_kernel<<<grid, kThreads, kKvSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), L, H,
-      make_strides(strides), main_len, cross_bias != 0.f ? 1 : 0, cross_bias * kLog2e,
-      scale * kLog2e, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dkv(flash_bwd_dkv_kernel, q, k, v, dout, lse, delta, dk, dv, B, L, H, strides,
+                    main_len, main_len, cross_bias, stream);
+}
+
+extern "C" int flash_chunk_bwd_dq_bf16_d128(const void* q, const void* k, const void* v,
+                                            const void* dout, const void* lse, const void* delta,
+                                            void* dq, int B, int L, int H,
+                                            const long long* strides, int main_len, int q_off,
+                                            int k_off, float cross_bias, void* stream) {
+  return launch_dq(flash_chunk_bwd_dq_kernel, q, k, v, dout, lse, delta, dq, B, L, H, strides,
+                   main_len - q_off, main_len - k_off, cross_bias, stream);
+}
+
+extern "C" int flash_chunk_bwd_dkv_bf16_d128(const void* q, const void* k, const void* v,
+                                             const void* dout, const void* lse, const void* delta,
+                                             void* dk, void* dv, int B, int L, int H,
+                                             const long long* strides, int main_len, int q_off,
+                                             int k_off, float cross_bias, void* stream) {
+  return launch_dkv(flash_chunk_bwd_dkv_kernel, q, k, v, dout, lse, delta, dk, dv, B, L, H,
+                    strides, main_len - q_off, main_len - k_off, cross_bias, stream);
 }

@@ -1,5 +1,5 @@
-// Device helpers shared by the flash-attention kernels (K1 flash_fwd.cu, K6 flash_bwd.cu,
-// K8 flash_fwd_int8.cu, K9 flash_fwd_nr.cu): head dim 128 rows in XOR-swizzled shared-memory
+// Device helpers shared by the flash-attention kernels (K1 and K7a flash_fwd.cu, K6 and K7b/K7c
+// flash_bwd.cu, K8 flash_fwd_int8.cu, K9 flash_fwd_nr.cu): head dim 128 rows in XOR-swizzled shared-memory
 // tiles, cp.async copies, ldmatrix fragment loads, the bf16 mma.sync, and bf16 packing.
 // Everything is inline PTX or a correctly rounded intrinsic, so it computes the same with or
 // without --use_fast_math.

@@ -27,6 +27,15 @@
 //     and never stored; no host-side padding.
 //   * Softmax runs in the base-2 domain (exp2 of logits pre-scaled by log2(e)).
 // wgmma, TMA and warp specialisation are left for later work.
+//
+// K7a, the ring-chunk forward, is the same body with two more runtime scalars. It replaces
+// _flash_fwd_kernel with dyn_offsets=True (pallas_attention.py:73-82, :103), reached through
+// flash_chunk_fwd (:789): one Q chunk against one K/V shard of a sequence that ring attention
+// splits across a mesh. The cross-segment predicate compares RING-GLOBAL positions (local row plus
+// the chunk's start, q_off or k_off) with main_len; the padding mask (keys >= L) stays local. The
+// offsets enter as the local boundaries q_main = main_len - q_off and k_main = main_len - k_off, so
+// the per-element test is the one K1 runs and K1's own instance compiles as before. Its output is
+// the normalised chunk attention in bf16 and the chunk's lse rows, which the ring merges in fp32.
 
 #include "flash_fwd_tile.cuh"
 
@@ -34,12 +43,14 @@ namespace {
 
 constexpr int kSmemBytes = (kBlockM * kHeadDim + 4 * kTileElems) * 2;  // Q + 2 x (K, V)
 
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
-                 int L, int H, Strides s, int main_len, int has_cross, float cross_bias_log2,
-                 float scale_log2) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
+// One block's rows of K1 or K7a; the cond boundary is local row q_main among queries, k_main among
+// keys (both main_len for K1).
+__device__ __forceinline__ void flash_fwd_block(unsigned char* smem_raw, const bf16* __restrict__ q,
+                                                const bf16* __restrict__ k, const bf16* __restrict__ v,
+                                                bf16* __restrict__ out, float* __restrict__ lse, int L,
+                                                int H, const Strides& s, int q_main, int k_main,
+                                                int has_cross, float cross_bias_log2,
+                                                float scale_log2) {
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sK = sQ + kBlockM * kHeadDim;  // [2][kBlockN][kHeadDim]
   bf16* sV = sK + 2 * kTileElems;
@@ -62,16 +73,38 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       [&](int buf, int k0, ScoreTile& sc) {
         qk_bf16(sc, qf, sK + buf * kTileElems, lane);
         scale_tile(sc, scale_log2);
-        bias_mask(sc, k0, row_a, L, main_len, has_cross, cross_bias_log2, lane);
+        bias_mask(sc, k0, row_a, L, q_main, k_main, has_cross, cross_bias_log2, lane);
       });
   store_rows(st, out, lse + static_cast<long long>(bh) * L, b, h, L, H, row_a, lane);
+}
+
+// K1
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
+                 int L, int H, Strides s, int main_len, int has_cross, float cross_bias_log2,
+                 float scale_log2) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  flash_fwd_block(smem_raw, q, k, v, out, lse, L, H, s, main_len, main_len, has_cross,
+                  cross_bias_log2, scale_log2);
+}
+
+// K7a
+__global__ void __launch_bounds__(kThreads)
+flash_chunk_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
+                       int L, int H, Strides s, int q_main, int k_main, int has_cross,
+                       float cross_bias_log2, float scale_log2) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  flash_fwd_block(smem_raw, q, k, v, out, lse, L, H, s, q_main, k_main, has_cross,
+                  cross_bias_log2, scale_log2);
 }
 
 }  // namespace
 
 // q, k, v: (B, L, H, 128) bf16 with unit stride on the last dim and 16-byte aligned rows.
-// out: contiguous (B, L, H, 128) bf16. lse: contiguous (B*H, L) fp32. Launches on
-// `stream` and returns cudaGetLastError(); it does not synchronise.
+// out: contiguous (B, L, H, 128) bf16. lse: contiguous (B*H, L) fp32. Each entry launches on
+// `stream` and returns cudaGetLastError(); neither synchronises.
 extern "C" int flash_fwd_bf16_d128(const void* q, const void* k, const void* v, void* out,
                                    void* lse, int B, int L, int H, long long q_sb, long long q_sl,
                                    long long q_sh, long long k_sb, long long k_sl, long long k_sh,
@@ -86,5 +119,26 @@ extern "C" int flash_fwd_bf16_d128(const void* q, const void* k, const void* v, 
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), static_cast<float*>(lse), L, H, s, main_len,
       cross_bias != 0.f ? 1 : 0, cross_bias * kLog2e, kLog2e / sqrtf(static_cast<float>(kHeadDim)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7a: as flash_fwd_bf16_d128 on one ring chunk; main_len is the ring-global cond boundary and
+// q_off / k_off the ring-global positions of the chunk's first query and first key.
+extern "C" int flash_chunk_fwd_bf16_d128(const void* q, const void* k, const void* v, void* out,
+                                         void* lse, int B, int L, int H, long long q_sb,
+                                         long long q_sl, long long q_sh, long long k_sb,
+                                         long long k_sl, long long k_sh, long long v_sb,
+                                         long long v_sl, long long v_sh, int main_len, int q_off,
+                                         int k_off, float cross_bias, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(flash_chunk_fwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Strides s{q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh};
+  const dim3 grid((L + kBlockM - 1) / kBlockM, B * H);
+  flash_chunk_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), static_cast<float*>(lse), L, H, s, main_len - q_off,
+      main_len - k_off, cross_bias != 0.f ? 1 : 0, cross_bias * kLog2e,
+      kLog2e / sqrtf(static_cast<float>(kHeadDim)));
   return static_cast<int>(cudaGetLastError());
 }

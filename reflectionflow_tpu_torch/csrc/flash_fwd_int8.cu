@@ -215,7 +215,7 @@ flash_fwd_int8_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ k8,
             sc[n][e] = __fmul_rn(__fmul_rn(static_cast<float>(acc[n][e]), qs[e >> 1]), kscale);
           }
         }
-        bias_mask(sc, k0, row_a, L, main_len, has_cross, cross_bias, lane);
+        bias_mask(sc, k0, row_a, L, main_len, main_len, has_cross, cross_bias, lane);
         scale_tile(sc, kLog2e);
       });
   store_rows(st, out, nullptr, b, h, L, H, row_a, lane);

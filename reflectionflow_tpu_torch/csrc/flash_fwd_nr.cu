@@ -138,7 +138,7 @@ flash_fwd_nr_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kn,
       [&](int buf, int k0, ScoreTile& sc) {
         qk_bf16(sc, qf, sK + buf * kTileElems, lane);
         scale_tile(sc, scale_log2);
-        bias_mask(sc, k0, row_a, L, main_len, has_cross, cross_bias_log2, lane);
+        bias_mask(sc, k0, row_a, L, main_len, main_len, has_cross, cross_bias_log2, lane);
       });
   store_rows(st, out, nullptr, b, h, L, H, row_a, lane);
 }

@@ -1,5 +1,5 @@
-// The forward flash-attention pipeline shared by K1 (flash_fwd.cu), K8b (flash_fwd_int8.cu) and
-// K9b (flash_fwd_nr.cu).
+// The forward flash-attention pipeline shared by K1 and K7a (flash_fwd.cu), K8b
+// (flash_fwd_int8.cu) and K9b (flash_fwd_nr.cu).
 //
 // One block owns (batch*head, kBlockM query rows); each of its eight warps owns 16 rows. The raw
 // bf16 Q tile is copied into shared memory once, then kBlockN-key K/V tiles stream through
@@ -79,11 +79,14 @@ __device__ __forceinline__ void scale_tile(ScoreTile& sc, float f) {
   }
 }
 
-// After the scale, in the TPU kernels' order: a query and a key on opposite sides of main_len
-// get `bias` (in the units of sc) when has_cross, and keys >= L are masked. A tile with
-// neither is left as it is. row_a is the thread's first query row.
-__device__ __forceinline__ void bias_mask(ScoreTile& sc, int k0, int row_a, int L, int main_len,
-                                          int has_cross, float bias, int lane) {
+// After the scale, in the TPU kernels' order: a query and a key on opposite sides of the cond
+// boundary get `bias` (in the units of sc) when has_cross, and keys >= L are masked. A tile with
+// neither is left as it is. row_a is the thread's first query row. The boundary is given in
+// local rows for each side: q_main for queries, k_main for keys. A whole sequence (K1, K8b, K9b)
+// passes main_len for both; a ring chunk (K7a) passes main_len less each side's ring-global start,
+// so the predicate compares global positions while the padding mask stays local.
+__device__ __forceinline__ void bias_mask(ScoreTile& sc, int k0, int row_a, int L, int q_main,
+                                          int k_main, int has_cross, float bias, int lane) {
   if (!has_cross && k0 + kBlockN <= L) return;
   const int t4 = lane & 3;
 #pragma unroll
@@ -92,7 +95,7 @@ __device__ __forceinline__ void bias_mask(ScoreTile& sc, int k0, int row_a, int 
     for (int e = 0; e < 4; ++e) {
       const int kpos = k0 + n * 8 + t4 * 2 + (e & 1);
       const int qpos = e < 2 ? row_a : row_a + 8;
-      if (has_cross && ((qpos >= main_len) != (kpos >= main_len))) sc[n][e] += bias;
+      if (has_cross && ((qpos >= q_main) != (kpos >= k_main))) sc[n][e] += bias;
       if (kpos >= L) sc[n][e] = kNegInf;
     }
   }

@@ -43,7 +43,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...config import FluxDiTConfig
-from ...ops.attention import PALLAS_IMPLS, check_impl, cond_attention_bias, joint_attention
+from ...ops.attention import (PALLAS_IMPLS, RING_IMPLS, check_impl, cond_attention_bias,
+                              joint_attention)
 from ...ops.flash_attention_nr import flash_attention_nr
 from ...ops.fused_quant import adaln_quant, gelu_quant, norm_rope, rowquant
 from ...ops.norms import adaln_modulate, layer_norm, rms_norm
@@ -572,7 +573,7 @@ class FluxDiT(nn.Module):
         embedding at `c_t` with guidance 1.0 and its own RoPE ids. Its coupling
         to the main tokens is the union mask (`union_cond_attn=False` masks
         it) or log(`c_factor`), which takes precedence: a dense bias on "xla",
-        the structural (cond_len, cross_bias) form on the pallas impls.
+        the structural (cond_len, cross_bias) form on the pallas and ring impls.
         `add_cond_attn` also adds the cond stream's gated attention output to
         the image stream.
 
@@ -618,8 +619,9 @@ class FluxDiT(nn.Module):
                 torch.ones_like(timestep) if cfg.guidance_embeds else None, dtype)
             rope_cond = self.rope(cond_ids, split, dtype)
             L_main, L_cond = img.shape[1] + txt.shape[1], cond_h.shape[1]
-            if attn_impl in PALLAS_IMPLS:
-                # c_factor takes precedence over the union mask
+            if attn_impl in PALLAS_IMPLS or attn_impl in RING_IMPLS:
+                # structural form (the ring rebuilds global positions from its
+                # topology); c_factor takes precedence over the union mask
                 if c_factor is not None:
                     cross = float(np.log(np.float32(c_factor)))
                 else:

@@ -11,10 +11,11 @@ stream. `impl` keeps the reference's names:
     serving only);
   * "pallas_nr" -> K1 here; the DiT sends its serving (split-layout)
     attention to K9 (`ops.flash_attention_nr`) before it reaches this
-    function, as the JAX package does.
+    function, as the JAX package does;
+  * "ring" / "ring_pallas" -> `ops.ring_attention` over the mesh axis that
+    `set_ring_context` names, with dense or flash-kernel (K7) chunks.
 
-The ring impls and the Pallas interpret modes of the reference are not
-ported and raise.
+The Pallas interpret modes of the reference have no counterpart and raise.
 """
 
 from __future__ import annotations
@@ -26,17 +27,29 @@ import torch
 
 from .flash_attention import flash_attention
 from .flash_attention_int8 import flash_attention_int8
+from .ring_attention import ring_attention
 
 PALLAS_IMPLS = ("pallas", "pallas_nr", "pallas_int8")
+RING_IMPLS = ("ring", "ring_pallas")
+
+# Sequence-parallel (ring) context: the mesh and axis the concatenated
+# sequence splits over when `impl="ring*"`. Static run configuration, set once
+# before the calls, as in the JAX package (no mesh threads through the models).
+_RING_CTX: dict = {"mesh": None, "axis": "seq"}
+
+
+def set_ring_context(mesh, axis: str = "seq") -> None:
+    """Configure the mesh (`parallel.mesh.Mesh`) and axis ring attention
+    splits the sequence over. Call before the first call with `impl="ring*"`;
+    `set_ring_context(None)` clears it."""
+    _RING_CTX["mesh"] = mesh
+    _RING_CTX["axis"] = axis
 
 
 def check_impl(impl: str) -> None:
     """Raise for an attention impl the port does not have."""
-    if impl == "xla" or impl in PALLAS_IMPLS:
+    if impl == "xla" or impl in PALLAS_IMPLS or impl in RING_IMPLS:
         return
-    if impl.startswith("ring"):
-        raise NotImplementedError(
-            f"attn_impl={impl!r} is not ported yet: ROADMAP slice 7, item 23 (ring attention over K7)")
     if impl.endswith("interpret"):
         raise NotImplementedError(
             f"attn_impl={impl!r}: Pallas interpret mode has no CUDA counterpart; "
@@ -86,13 +99,26 @@ def joint_attention(
 ) -> list[torch.Tensor]:
     """Attention over concatenated (B, L_i, H, D) streams; returns per-stream
     outputs. The cond-stream modifier is dense `bias` on the "xla" path and
-    structural (`cond_len`, `cross_bias`) on the pallas paths."""
+    structural (`cond_len`, `cross_bias`) on the pallas and ring paths."""
     check_impl(impl)
     lens = [s.shape[1] for s in streams_q]
     q = torch.cat(streams_q, dim=1) if len(streams_q) > 1 else streams_q[0]
     k = torch.cat(streams_k, dim=1) if len(streams_k) > 1 else streams_k[0]
     v = torch.cat(streams_v, dim=1) if len(streams_v) > 1 else streams_v[0]
-    if impl in PALLAS_IMPLS:
+    if impl in RING_IMPLS:
+        # sequence parallelism over the set_ring_context axis; the ring rebuilds
+        # global positions for the structural modifiers from its topology
+        if bias is not None:
+            raise NotImplementedError(
+                "impl='ring' takes the structural modifier form (cond_len/cross_bias), "
+                "not a dense bias")
+        if _RING_CTX["mesh"] is None:
+            raise ValueError("impl='ring' requires ops.attention.set_ring_context(mesh, axis)")
+        out = ring_attention(q, k, v, _RING_CTX["mesh"], axis=_RING_CTX["axis"],
+                             impl="pallas" if impl == "ring_pallas" else "xla",
+                             main_len=q.shape[1] - cond_len if cond_len else None,
+                             cross_bias=cross_bias)
+    elif impl in PALLAS_IMPLS:
         if bias is not None:
             raise ValueError(f"impl={impl!r} takes the structural (cond_len, cross_bias) form")
         attend = flash_attention_int8 if impl == "pallas_int8" else flash_attention

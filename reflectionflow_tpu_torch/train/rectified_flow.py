@@ -12,7 +12,10 @@ The base DiT is frozen; the fp32 LoRA adapters are the only trainable
 tensors. They are attached as low-rank adds (`lora.attach_lora`), which the
 condition stream reads (and the image stream too with `latent_lora=True`);
 every block is recomputed in the backward pass. With attn_impl="pallas" the
-attention runs K1 forward and K6a/K6b backward.
+attention runs K1 forward and K6a/K6b backward; "ring" / "ring_pallas" run
+sequence-parallel ring attention (`ops.ring_attention`, K7a forward and
+K7b/K7c backward under "ring_pallas") over the mesh that
+`ops.attention.set_ring_context` names.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from ..models.flux.rope import make_image_ids, make_text_ids
 from ..models.flux.vae import vae_encode
 from . import optim
 
-TRAINABLE_ATTN = ("xla", "pallas")
+TRAINABLE_ATTN = ("xla", "pallas", "ring", "ring_pallas")
 
 
 def rf_loss(adapters: dict, dit, batch: dict, generator: torch.Generator | None = None,

@@ -11,8 +11,10 @@ Divergence: a checkpoint is `torch.save` of {adapters, opt_state} at
 `<checkpoint_dir>/<step>/state.pt` (the JAX package writes orbax
 checkpoints); the `latest` marker file is the same. As in the JAX package, a
 resumed run restarts its random draws and its data stream from the seed.
-The multi-device mesh is not ported yet; `train(hooks=...)` takes any
-callables.
+Data parallelism over a device mesh (`mesh=`) is not ported and raises;
+sequence parallelism is: `ops.attention.set_ring_context(mesh, axis)` and
+`cfg.attn_impl = "ring_pallas"` (or "ring") split each attention's sequence
+over the mesh axis. `train(hooks=...)` takes any callables.
 """
 
 from __future__ import annotations
@@ -52,9 +54,15 @@ def restore_checkpoint(ckpt_dir: str, step: int, device) -> dict:
 
 def train(pipeline, cfg, dataset, mesh=None, position_delta: tuple[int, int] | None = None,
           log_path: str | None = None, hooks: list | None = None) -> dict:
-    """Run (or resume) training; returns {adapters, metrics} of the last step."""
+    """Run (or resume) training; returns {adapters, metrics} of the last step.
+
+    `mesh` (data parallelism) is not ported and raises. Sequence-parallel
+    ring attention needs no argument here: call
+    `ops.attention.set_ring_context(mesh, axis)` and set `cfg.attn_impl` to
+    "ring_pallas" (or "ring")."""
     if mesh is not None:
-        raise NotImplementedError("data-parallel training over a device mesh is ROADMAP slice 7")
+        raise NotImplementedError("data-parallel training over a device mesh is ROADMAP slice 7b "
+                                  "(ring attention runs through ops.attention.set_ring_context)")
     gen = torch.Generator(device=pipeline.device).manual_seed(cfg.seed)
     lora = lora_init(gen, pipeline.dit, r=cfg.lora.r, alpha=cfg.lora.alpha, init=cfg.lora.init)
     adapters = lora["adapters"]

@@ -78,10 +78,20 @@ def test_sdpa_dense_bias_matches_structural_k1():
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=0)
 
 
-@pytest.mark.parametrize("impl", ["ring", "ring_pallas", "pallas_interpret"])
+@pytest.mark.parametrize("impl", ["pallas_interpret", "ring_pallas_interpret"])
 def test_unported_impls_raise(impl):
     with pytest.raises(NotImplementedError):
         check_impl(impl)
+
+
+@pytest.mark.parametrize("impl", ["ring", "ring_pallas"])
+def test_ring_impls_are_accepted(impl):
+    """The ring impls are ported (ops.ring_attention); without
+    set_ring_context, joint_attention refuses them."""
+    check_impl(impl)
+    q = torch.zeros((1, 8, 1, 16))
+    with pytest.raises(ValueError, match="set_ring_context"):
+        joint_attention([q], [q], [q], impl=impl)
 
 
 @pytest.mark.parametrize("impl", ["pallas_nr", "pallas_int8"])

@@ -1,7 +1,8 @@
 """The PyTorch port imports no JAX, no JAX-package module and none of the
-packages its target machine lacks: every port module (the K8/K9 ops and the
-corrector sampler included), and the noise-scaling, train and sample CLIs'
---help, run in a subprocess where those imports fail."""
+packages its target machine lacks: every port module (the K8/K9 ops, the
+corrector sampler, the mesh and ring attention included), and the
+noise-scaling, train and sample CLIs' --help, run in a subprocess where those
+imports fail."""
 
 import os
 import pkgutil
@@ -52,5 +53,6 @@ def test_port_imports_without_jax_and_friends():
     assert "--device" in train_help and "--synthetic_data" in train_help
     for flag in ("--image_guidance_scale", "--root_dir", "--device", "--synthetic_weights"):
         assert flag in sample_help
-    for name in ("cli.sample", "ops.flash_attention_int8", "ops.flash_attention_nr"):
+    for name in ("cli.sample", "ops.flash_attention_int8", "ops.flash_attention_nr", "parallel.mesh",
+                 "ops.ring_attention"):
         assert f"reflectionflow_tpu_torch.{name}" in proc.stdout
