@@ -10,8 +10,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   2. build: compiles K1 and K7a (`csrc/flash_fwd.cu`), K6a/K6b and K7b/K7c
      (`csrc/flash_bwd.cu`), K3–K5 (`csrc/act_quant.cu`), K2
      (`csrc/norm_rope.cu`), K8 (`csrc/flash_fwd_int8.cu`) and K9
-     (`csrc/flash_fwd_nr.cu`) into `.build/kernels/`, one nvcc per source,
-     all started together; prints ptxas's registers and spills per kernel;
+     (`csrc/flash_fwd_nr.cu` on `csrc/flash_fwd_sm90.cuh`) into
+     `.build/kernels/`, one nvcc per source, all started together; prints
+     ptxas's registers and spills per kernel; checks that K9b holds wgmma
+     (HGMMA) and TMA (UTMALDG) instructions and no mma.sync (HMMA), spills
+     nothing, that ptxas honoured its setmaxnreg (no warning C7508) and did
+     not serialize its wgmma instructions;
   3. K1 against its plain PyTorch version on the card (fp32 reference), at
      the main-path shape (B=1, 2; L=4608; H=24; D=128), a ragged L, and the
      cross-segment bias forms; times both at the main-path shape, and
@@ -38,10 +42,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      their plain versions at the corrector shape (B=2, L=512+4096+1024,
      main_len 4608, cross bias 0, log 0.5, -1e30), the t2i shape (B=2,
      L=4608) and a ragged L, K9 in the double (txt_len 512) and single
-     (txt_len 0) layouts; K8's K codes against the plain quantizer and its
-     output against exact fp32 attention (cosine >= 0.999, max |err| < 0.05);
-     times both, their plain versions and SDPA's forward (the yardstick only)
-     at (2, 5632) and (2, 4608);
+     (txt_len 0) layouts, K9 also on column slices of one (2, 4608, 21504)
+     panel (the single-block layout's views) and at L = 100 (below one tile);
+     K8's K codes against the plain quantizer and its output against exact
+     fp32 attention (cosine >= 0.999, max |err| < 0.05); times both, their
+     plain versions and SDPA's forward (the yardstick only) at (2, 5632) and
+     (2, 4608), with K9's K prologue (K9a) and attention (K9b) apart as
+     profiler device time, its TFLOP/s and its share of the bound;
   5. bf16 main path: FLUX.1-dev at full width and depth, random bf16 weights
      from a seeded CUDA generator, attn_impl="pallas", served through
      `run_noise_scaling` (the noise-scaling CLI's function) for 2 prompts x 2
@@ -202,9 +209,10 @@ def profiled(torch, fn):
     return out
 
 
-def device_ms(torch, fn, iters: int) -> float:
-    """Device time per call: the kernels' own durations, without the host's
-    gaps between launches (which a short kernel's event timing includes)."""
+def kernel_split_ms(torch, fn, iters: int, tags=("",)) -> dict:
+    """{tag: device ms per call of the kernels whose names hold tag}: the
+    kernels' own durations, without the host's gaps between launches (which a
+    short kernel's event timing includes)."""
     fn()
 
     def loop():
@@ -212,10 +220,38 @@ def device_ms(torch, fn, iters: int) -> float:
             fn()
 
     for _ in range(3):  # a short window's trace can come back empty; take it again
-        us = sum(t for _, t in profiled(torch, loop))
-        if us > 0:
-            return us / 1e3 / iters
-    raise RuntimeError("the profiler saw no device time")
+        events = profiled(torch, loop)
+        out = {tag: sum(us for key, us in events if tag in key) / 1e3 / iters for tag in tags}
+        if all(ms > 0 for ms in out.values()):
+            return out
+    raise RuntimeError(f"the profiler saw no device time for {tags}")
+
+
+def device_ms(torch, fn, iters: int) -> float:
+    """Device time per call of all the kernels `fn` runs."""
+    return kernel_split_ms(torch, fn, iters)[""]
+
+
+def hopper_check(kernel_build, ptxas) -> dict:
+    """K9b is built as designed for Hopper: wgmma (HGMMA) and TMA (UTMALDG)
+    instructions, no mma.sync (HMMA), no spills, ptxas honoured its setmaxnreg
+    (no warning C7508) and did not serialize its wgmma pipeline (its C751x
+    notices). Returns its SASS opcode counts."""
+    src, name = "flash_fwd_nr.cu", "flash_fwd_nr_kernel"
+    regs = ptxas[src][name]
+    text = kernel_build.build(src).with_suffix(".ptxas").read_text()
+    ops = kernel_build.sass_opcodes(src, name)
+    counts = {op: ops.get(op, 0) for op in ("HGMMA", "UTMALDG", "SYNCS", "USETMAXREG", "BAR", "HMMA")}
+    log(f"K9b SASS opcode counts {counts}; ptxas {regs}")
+    for line in text.splitlines():
+        if "warning" in line.lower() or "Performance" in line:
+            log(f"  ptxas: {line.strip()}")
+    check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0 and counts["HMMA"] == 0,
+          "K9b is not the wgmma/TMA kernel it was written as")
+    check(regs.get("spill_stores") == regs.get("spill_loads") == 0 and "C7508" not in text,
+          "K9b spills or ptxas ignored its setmaxnreg")
+    check("are serialized" not in text, "ptxas serialized K9b's wgmma instructions")
+    return counts
 
 
 def k1_phase(torch):
@@ -610,22 +646,34 @@ def serving_attn_phase(torch):
     nr = {"err": 0.0, "by_shape": {}}
     i8 = {"err": 0.0, "by_shape": {}, "code_max_diff": 0, "code_mismatch_frac": 0.0,
           "scale_rel_err": 0.0, "exact_cosine_min": 1.0, "exact_max_abs_err": 0.0}
+
+    def check_nr(q, k, v, cos, sin, scq, sck, txt_len, main_len, cb, what):
+        out = flash_attention_nr(q, k, v, cos, sin, scq, sck, txt_len, main_len, cb)
+        torch.cuda.synchronize()
+        ref = flash_attention_nr_ref(q, k, v, cos, sin, scq, sck, txt_len, main_len, cb)
+        err = (out.float() - ref.float()).abs().max().item()
+        nr["err"] = max(nr["err"], err)
+        log(f"K9 {what} main_len={main_len} cross_bias={cb} txt_len={txt_len}: "
+            f"max|out err| {err:.3e} (tol {OUT_TOL})")
+        check(bool(torch.isfinite(out).all()) and err <= OUT_TOL, "K9 disagrees with its plain version")
+
     with torch.no_grad():
+        # the single-block layout's views (t2i under pallas_nr): q/k/v are column slices of
+        # one (B, L, 21504) panel, read at its strides; and a length below one 128-row tile
+        panel = randn(2, LT + LI, 7 * H)
+        views = [panel[..., i * H:(i + 1) * H].unflatten(-1, (24, D)) for i in range(3)]
+        scales = [1.0 + randn(2, D, scale=0.1, dtype=torch.float32) for _ in range(2)]
+        check_nr(*views, *tables(LT + LI), *scales, 0, LT + LI, 0.0,
+                 f"B=2 L={LT + LI} (column slices of a (2, {LT + LI}, {7 * H}) panel)")
+        del panel, views
+        check_nr(*(randn(2, 100, 24, D) for _ in range(3)), *tables(100), *scales, 16, 80,
+                 math.log(0.5), "B=2 L=100")
         for B, L, main_len, cb in cases:
             q, k, v = (randn(B, L, 24, D) for _ in range(3))
             cos, sin = tables(L)
             scq, sck = (1.0 + randn(2, D, scale=0.1, dtype=torch.float32) for _ in range(2))
             for txt_len in (LT, 0) if cb == 0.0 else (LT,):
-                out = flash_attention_nr(q, k, v, cos, sin, scq, sck, txt_len, main_len, cb)
-                torch.cuda.synchronize()
-                ref = flash_attention_nr_ref(q, k, v, cos, sin, scq, sck, txt_len, main_len, cb)
-                err = (out.float() - ref.float()).abs().max().item()
-                nr["err"] = max(nr["err"], err)
-                log(f"K9 B={B} L={L} main_len={main_len} cross_bias={cb} txt_len={txt_len}: "
-                    f"max|out err| {err:.3e} (tol {OUT_TOL})")
-                check(bool(torch.isfinite(out).all()) and err <= OUT_TOL,
-                      "K9 disagrees with its plain version")
-                del out, ref
+                check_nr(q, k, v, cos, sin, scq, sck, txt_len, main_len, cb, f"B={B} L={L}")
             k8, ks = quantize_k(k)
             torch.cuda.synchronize()
             rk8, rks = quantize_k_ref(k)
@@ -665,12 +713,20 @@ def serving_attn_phase(torch):
                 b_nr = bound(4 * pairs, io + 2 * L * D * 2 + 2 * 2 * D * 4)  # + tables and scales
                 b_i8 = bound(2 * pairs, io, int8_ops=2 * pairs)
                 label = f"B={B} L={L}"
+                parts = kernel_split_ms(
+                    torch, lambda: flash_attention_nr(q, k, v, cos, sin, scq, sck, LT, main_len),  # noqa: B023
+                    10, ("nr_prep_k", "flash_fwd_nr_kernel"))
+                tflops = 4 * pairs / t_nr / 1e9
                 nr["by_shape"][label] = {"ms": t_nr, "plain_ms": p_nr, "bound_ms": b_nr[0],
-                                         "bound_by": b_nr[1], "library_ms": lib}
+                                         "bound_by": b_nr[1], "library_ms": lib,
+                                         "k9a_ms": parts["nr_prep_k"], "k9b_ms": parts["flash_fwd_nr_kernel"],
+                                         "tflops": tflops, "bound_share": b_nr[0] / t_nr}
                 i8["by_shape"][label] = {"ms": t_i8, "plain_ms": p_i8, "bound_ms": b_i8[0],
                                          "bound_by": b_i8[1], "library_ms": lib}
-                log(f"{label}: K9 {t_nr:.4f} ms ({4 * pairs / t_nr / 1e9:.1f} TFLOP/s, bound {b_nr[0]:.4f} ms), "
-                    f"plain {p_nr:.3f} ms; K8 {t_i8:.4f} ms (bound {b_i8[0]:.4f} ms), plain {p_i8:.3f} ms; "
+                log(f"{label}: K9 {t_nr:.4f} ms ({tflops:.1f} TFLOP/s, bound {b_nr[0]:.4f} ms, "
+                    f"{b_nr[0] / t_nr:.1%} of it; device time K9a {parts['nr_prep_k']:.4f} ms, "
+                    f"K9b {parts['flash_fwd_nr_kernel']:.4f} ms), plain {p_nr:.3f} ms; "
+                    f"K8 {t_i8:.4f} ms (bound {b_i8[0]:.4f} ms), plain {p_i8:.3f} ms; "
                     f"SDPA forward {lib:.4f} ms")
             del q, k, v
             torch.cuda.empty_cache()
@@ -1475,11 +1531,10 @@ def corrector_phase(torch, pipe):
 
 
 def kernel_entry(name, source, replaces, launches, res, main_shape, other_shape):
-    at = res["by_shape"][main_shape]
     return {"name": name, "route": "cuda", "source": f"reflectionflow_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": res["err"],
-            **{k: at[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            "shape": main_shape, "t2i_shape": {"shape": other_shape, **res["by_shape"][other_shape]},
+            **res["by_shape"][main_shape], "shape": main_shape,
+            "t2i_shape": {"shape": other_shape, **res["by_shape"][other_shape]},
             **{k: v for k, v in res.items() if k not in ("err", "by_shape")}}
 
 
@@ -1495,6 +1550,7 @@ def main() -> int:
     log(f"build {', '.join(kernel_build.SOURCES)} (in parallel): {time.perf_counter() - t0:.2f} s")
     ptxas = {src: kernel_build.ptxas_report(src) for src in kernel_build.SOURCES}
     log(json.dumps({"ptxas": ptxas}))
+    k9b_sass = hopper_check(kernel_build, ptxas)
     err_out, err_lse, times, k1_library_ms, k1_bound = k1_phase(torch)
     k6 = k6_phase(torch)
     t0 = time.perf_counter()
@@ -1599,7 +1655,8 @@ def main() -> int:
     total = time.perf_counter() - t_start
     log(f"chip_smoke: {total:.1f} s after the device check, of which the ring phases (3c, 5d) "
         f"{t_k7 + t_ring:.1f} s")
-    log(json.dumps({"kernels": kernels, "s_per_step": step, "w8a8_step_profile_ms": prof,
+    log(json.dumps({"kernels": kernels, "k9b_sass": k9b_sass, "s_per_step": step,
+                    "w8a8_step_profile_ms": prof,
                     "corrector_step_profile_ms": corrector["profile_ms"],
                     "peak_gib": {"bf16": bf16_peak / 2**30, "w8a8": w8_peak / 2**30,
                                  "w8a8_cond_weights": cond_gib,

@@ -89,6 +89,15 @@ def _bwd_ref(q, k, v, do, lse, delta, main_len, cross_bias, q_offset, k_offset):
     return dq, dk, dv
 
 
+def _check_layout(name, x):
+    """What the kernels' copies need of a tensor they read at its own strides
+    (cp.async rows, TMA tensor maps): a unit last stride, the other strides
+    multiples of 8 elements (16 bytes) and a 16-byte aligned base."""
+    if x.stride(-1) != 1 or any(st % 8 for st in x.stride()[:-1]) or x.data_ptr() % 16:
+        raise ValueError(f"{name} needs unit last stride and 16-byte aligned rows, "
+                         f"got strides {x.stride()}")
+
+
 def _check_cuda_inputs(q, k, v, main_len, *more):
     """Raise on what the kernels do not take; main_len=None skips its range
     check (a ring chunk's boundary is global)."""
@@ -99,9 +108,7 @@ def _check_cuda_inputs(q, k, v, main_len, *more):
             raise TypeError(f"flash_fwd takes bf16 {name}, got {x.dtype}")
         if x.shape != q.shape:
             raise ValueError(f"{name} shape {tuple(x.shape)} != q shape {tuple(q.shape)}")
-        if x.stride(-1) != 1 or any(st % 8 for st in x.stride()[:3]) or x.data_ptr() % 16:
-            raise ValueError(f"{name} needs unit last stride and 16-byte aligned rows, "
-                             f"got strides {x.stride()}")
+        _check_layout(name, x)
     if q.dim() != 4 or q.shape[-1] != HEAD_DIM:
         raise NotImplementedError(f"flash_fwd is built for (B, L, H, {HEAD_DIM}), got {tuple(q.shape)}")
     B, L, H, _ = q.shape

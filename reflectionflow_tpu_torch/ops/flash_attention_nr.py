@@ -10,11 +10,15 @@ once to the input dtype, rotates in the half-split RoPE layout, and then runs
 K1's attention (structural `main_len` / `cross_bias` bias). Serving only: no
 backward, and an input that requires grad raises.
 
-The kernel is `csrc/flash_fwd_nr.cu` (CUDA C++ for sm_90a, built by
-`ops/kernel_build.py`); its source notes say what bounds it and how the design
-answers that. Dispatch as K1: a CUDA tensor launches the kernel or the wrapper
-raises; a CPU tensor takes `flash_attention_nr_ref`, which is also what
-`chip_smoke.py` holds the kernel against.
+The kernel is `csrc/flash_fwd_nr.cu` on the Hopper pipeline of
+`csrc/flash_fwd_sm90.cuh` (CUDA C++ for sm_90a: TMA, wgmma, warp
+specialisation; built by `ops/kernel_build.py`); its source notes say what
+bounds it and how the design answers that. Dispatch as K1: a CUDA tensor
+launches the kernel or the wrapper raises; a CPU tensor takes
+`flash_attention_nr_ref`, which is also what `chip_smoke.py` holds the kernel
+against. TMA reads q, k and v at their own strides, so the wrapper checks its
+terms (`_check_layout`) on every tensor not on the CPU, before the device
+check.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import ctypes
 
 import torch
 
-from .flash_attention import HEAD_DIM, _check_cuda_inputs, flash_attention_ref
+from .flash_attention import HEAD_DIM, _check_cuda_inputs, _check_layout, flash_attention_ref
 
 EPS = 1e-6
 
@@ -91,6 +95,8 @@ def flash_attention_nr(q, k, v, cos, sin, scale_q, scale_k, txt_len: int = 0,
     if q.device.type == "cpu":
         return flash_attention_nr_ref(q, k, v, cos, sin, scale_q, scale_k, txt_len, main_len,
                                       cross_bias, eps)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_layout(name, t)  # TMA's terms, before the device check
     if q.device.type != "cuda":
         raise NotImplementedError(f"flash_fwd_nr has no kernel for device {q.device}")
     _check_cuda_inputs(q, k, v, main_len)

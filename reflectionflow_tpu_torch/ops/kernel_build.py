@@ -7,7 +7,8 @@ source, the shared headers (`csrc/*.cuh`) and the flags, so an edited kernel is
 rebuilt and an unchanged one is reused. `build_all` starts one `nvcc` per
 source at once. A failed build raises; nothing falls back. ptxas's report of
 each kernel's registers and spills is kept beside its library
-(`ptxas_report`).
+(`ptxas_report`); `sass_opcodes` counts the instructions a built kernel holds
+(cuobjdump), to show which tensor-core and copy paths it really took.
 """
 
 from __future__ import annotations
@@ -38,12 +39,12 @@ def nvcc_flags(source: str) -> tuple[str, ...]:
             "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 
-def _nvcc() -> str:
+def _cuda_tool(name: str) -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+    for cand in (shutil.which(name), os.path.join(cuda_home, "bin", name)):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    raise RuntimeError(f"{name} not found (set CUDA_HOME or put {name} on PATH)")
 
 
 def _library_path(source: str) -> Path:
@@ -66,7 +67,7 @@ def build_all(sources=SOURCES) -> list[Path]:
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *nvcc_flags(source), "-o", str(tmp), str(CSRC / source)]
+        cmd = [_cuda_tool("nvcc"), *nvcc_flags(source), "-o", str(tmp), str(CSRC / source)]
         running.append((source, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []
@@ -113,6 +114,23 @@ def ptxas_report(source: str) -> dict[str, dict[str, int]]:
         if m and name:
             report[name]["registers"] = int(m[1])
     return report
+
+
+def sass_opcodes(source: str, kernel: str) -> dict[str, int]:
+    """{opcode: count} over the SASS of `kernel` (its `*_kernel` name) in the
+    built `csrc/<source>`, opcodes without their modifiers (HGMMA, UTMALDG,
+    HMMA, ...)."""
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(build(source))],
+                          capture_output=True, text=True, check=True).stdout
+    for block in sass.split("Function : ")[1:]:
+        name, body = block.split("\n", 1)
+        if _kernel_name(name.strip()) != kernel:
+            continue
+        counts: dict[str, int] = {}
+        for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body):
+            counts[op] = counts.get(op, 0) + 1
+        return counts
+    raise KeyError(f"no kernel {kernel} in the SASS of {source}")
 
 
 def build(source: str) -> Path:

@@ -16,6 +16,7 @@ import torch
 from reflectionflow_tpu.lora import lora as jlora
 from reflectionflow_tpu.models.flux import rope as jrope
 from reflectionflow_tpu.models.flux.dit import flux_dit_apply
+from reflectionflow_tpu.ops.attention import _cond_bias_template
 from reflectionflow_tpu_torch.lora import lora as tlora
 from reflectionflow_tpu_torch.utils.jax_bridge import lora_from_jax
 
@@ -23,6 +24,18 @@ from test_torch_flux_dit import TX, TY, _inputs, _models, _t
 
 torch.set_num_threads(1)
 REL_TOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _fresh_cond_bias_cache():
+    """The JAX reference `lru_cache`s its cond bias template; a template built
+    while a jitted `denoise` traces holds a tracer, which an eager call at the
+    same length in a later test of this worker would raise on. Clear it around
+    every test."""
+    _cond_bias_template.cache_clear()
+    yield
+    _cond_bias_template.cache_clear()
+
 
 VARIANTS = {
     "union": dict(union_cond_attn=True, latent_lora=False),

@@ -29,6 +29,7 @@ from reflectionflow_tpu.cli import sample as jsample
 from reflectionflow_tpu.lora import lora as jlora
 from reflectionflow_tpu.models.flux import rope as jrope
 from reflectionflow_tpu.models.flux.dit import flux_dit_apply
+from reflectionflow_tpu.ops.attention import _cond_bias_template
 from reflectionflow_tpu.sampler.condition import Condition as JCondition
 from reflectionflow_tpu.sampler.generate import denoise as jax_denoise
 from reflectionflow_tpu.train.train_loop import export_diffusers_lora as jax_export_lora
@@ -55,6 +56,17 @@ B, TY, TX, LT = 2, 4, 4, 8
 MIN_SIZE = 4096  # quantizes every block linear of the test config
 
 VARIANTS = {"no_cond": {}, "c_factor": {"c_factor": 2.0}, "no_union": {"union_cond_attn": False}}
+
+
+@pytest.fixture(autouse=True)
+def _fresh_cond_bias_cache():
+    """The JAX reference `lru_cache`s its cond bias template; a template built
+    while a jitted `denoise` traces holds a tracer, which an eager call at the
+    same length in a later test of this worker would raise on. Clear it around
+    every test."""
+    _cond_bias_template.cache_clear()
+    yield
+    _cond_bias_template.cache_clear()
 
 
 def _serving_inputs(cfg, with_cond, seed=0):
