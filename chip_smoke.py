@@ -10,16 +10,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   2. build: compiles K1 and K7a (`csrc/flash_fwd.cu`), K6a/K6b and K7b/K7c
      (`csrc/flash_bwd.cu`), K3–K5 (`csrc/act_quant.cu`), K2
      (`csrc/norm_rope.cu`), K8 (`csrc/flash_fwd_int8.cu`) and K9
-     (`csrc/flash_fwd_nr.cu` on `csrc/flash_fwd_sm90.cuh`) into
-     `.build/kernels/`, one nvcc per source, all started together; prints
-     ptxas's registers and spills per kernel; checks that K9b holds wgmma
-     (HGMMA) and TMA (UTMALDG) instructions and no mma.sync (HMMA), spills
-     nothing, that ptxas honoured its setmaxnreg (no warning C7508) and did
-     not serialize its wgmma instructions;
+     (`csrc/flash_fwd_nr.cu`) into `.build/kernels/`, one nvcc per source,
+     all started together; prints ptxas's registers and spills per kernel;
+     checks that each kernel on the Hopper pipeline `csrc/flash_fwd_sm90.cuh`
+     (K1, K8b, K9b) holds wgmma (HGMMA; K8b also the integer IGMMA) and TMA
+     (UTMALDG) instructions and no mma.sync (HMMA, IMMA), spills nothing,
+     that ptxas honoured its setmaxnreg (no warning C7508) and did not
+     serialize its wgmma instructions;
   3. K1 against its plain PyTorch version on the card (fp32 reference), at
-     the main-path shape (B=1, 2; L=4608; H=24; D=128), a ragged L, and the
-     cross-segment bias forms; times both at the main-path shape, and
-     PyTorch's SDPA forward as the yardstick;
+     the main-path shape (B=1, 2; L=4608; H=24; D=128), a ragged L, the
+     cross-segment bias forms and the training shape; times both at the
+     main-path shapes and at the training shape (B=8, L=2560, main_len 1536,
+     cross bias log 0.5), with TFLOP/s, bound and share of the bound, and
+     PyTorch's SDPA forward (the bias as a float mask) as the yardstick;
   3b. K6a/K6b against the fp32 plain backward at the training shape (B=8,
      L=512+1024+1024, main_len 1536, cross bias 0, -1e30, log 0.5), at
      (B=2, L=4608) and at a ragged L; times both kernels, the plain version
@@ -47,8 +50,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      K8's K codes against the plain quantizer and its output against exact
      fp32 attention (cosine >= 0.999, max |err| < 0.05); times both, their
      plain versions and SDPA's forward (the yardstick only) at (2, 5632) and
-     (2, 4608), with K9's K prologue (K9a) and attention (K9b) apart as
-     profiler device time, its TFLOP/s and its share of the bound;
+     (2, 4608), with K9's and K8's K prologues (K9a, K8a) and attentions
+     (K9b, K8b) apart as profiler device time, their rates and their shares
+     of the bound;
   5. bf16 main path: FLUX.1-dev at full width and depth, random bf16 weights
      from a seeded CUDA generator, attn_impl="pallas", served through
      `run_noise_scaling` (the noise-scaling CLI's function) for 2 prompts x 2
@@ -137,6 +141,9 @@ CORR_ITEMS, IMAGE_CFG = 2, 1.5  # corrector items served per impl; image guidanc
 RING = 4  # ring slots of the sequence-parallel phases (all on the one card)
 RING_TRAIN_STEPS, RING_DENOISE_STEPS = 2, 2
 RING_COS = 0.999  # ring denoise final latents against K1
+# K1 timed: (B, L, main_len, cross bias): the t2i forward at B = 1 and 2, and the training
+# sequence (512 + 1024 + 1024 tokens, the cond segment at 1536) with the c_factor bias
+K1_TIMED = ((1, 4608, 4608, 0.0), (2, 4608, 4608, 0.0), (8, 2560, 1536, math.log(0.5)))
 # K7 check: (B, whole L, main_len, ring-global (q, k) chunk starts, the timed pair): the training
 # sequence and the corrector's, each over RING slots, and a ragged one (chunks of 1000 rows)
 K7_SHAPES = ((8, 2560, 1536, ((0, 0), (640, 1920), (1920, 0), (1280, 640), (1280, 1280)), (1280, 1280)),
@@ -232,26 +239,41 @@ def device_ms(torch, fn, iters: int) -> float:
     return kernel_split_ms(torch, fn, iters)[""]
 
 
+HOPPER_KERNELS = (  # label, source, kernel: the kernels on flash_fwd_sm90.cuh
+    ("K1", "flash_fwd.cu", "flash_fwd_kernel"),
+    ("K8b", "flash_fwd_int8.cu", "flash_fwd_int8_kernel"),
+    ("K9b", "flash_fwd_nr.cu", "flash_fwd_nr_kernel"),
+)
+
+
 def hopper_check(kernel_build, ptxas) -> dict:
-    """K9b is built as designed for Hopper: wgmma (HGMMA) and TMA (UTMALDG)
-    instructions, no mma.sync (HMMA), no spills, ptxas honoured its setmaxnreg
-    (no warning C7508) and did not serialize its wgmma pipeline (its C751x
-    notices). Returns its SASS opcode counts."""
-    src, name = "flash_fwd_nr.cu", "flash_fwd_nr_kernel"
-    regs = ptxas[src][name]
-    text = kernel_build.build(src).with_suffix(".ptxas").read_text()
-    ops = kernel_build.sass_opcodes(src, name)
-    counts = {op: ops.get(op, 0) for op in ("HGMMA", "UTMALDG", "SYNCS", "USETMAXREG", "BAR", "HMMA")}
-    log(f"K9b SASS opcode counts {counts}; ptxas {regs}")
-    for line in text.splitlines():
-        if "warning" in line.lower() or "Performance" in line:
-            log(f"  ptxas: {line.strip()}")
-    check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0 and counts["HMMA"] == 0,
-          "K9b is not the wgmma/TMA kernel it was written as")
-    check(regs.get("spill_stores") == regs.get("spill_loads") == 0 and "C7508" not in text,
-          "K9b spills or ptxas ignored its setmaxnreg")
-    check("are serialized" not in text, "ptxas serialized K9b's wgmma instructions")
-    return counts
+    """K1, K8b and K9b are built as designed for Hopper: TMA (UTMALDG) and
+    wgmma instructions (HGMMA for the bf16 products; K8b's int8 QK^T also an
+    integer GMMA, IGMMA as cuobjdump prints it), no mma.sync (HMMA, IMMA), no
+    spills, ptxas honoured their setmaxnreg (no warning C7508) and did not
+    serialize their wgmma pipelines (its "are serialized" notices). Returns
+    each kernel's SASS opcode counts."""
+    out = {}
+    for label, src, name in HOPPER_KERNELS:
+        regs = ptxas[src][name]
+        text = kernel_build.build(src).with_suffix(".ptxas").read_text()
+        ops = kernel_build.sass_opcodes(src, name)
+        gmma = {op: n for op, n in ops.items() if op.endswith("GMMA")}
+        counts = {**gmma, **{op: ops.get(op, 0) for op in ("UTMALDG", "SYNCS", "USETMAXREG", "BAR",
+                                                           "HMMA", "IMMA")}}
+        log(f"{label} SASS opcode counts {counts}; ptxas {regs}")
+        for line in text.splitlines():
+            if "warning" in line.lower() or "Performance" in line:
+                log(f"  ptxas ({src}): {line.strip()}")
+        int_gmma = sum(n for op, n in gmma.items() if op != "HGMMA")
+        check(counts.get("HGMMA", 0) > 0 and counts["UTMALDG"] > 0
+              and counts["HMMA"] == counts["IMMA"] == 0 and (int_gmma > 0) == (label == "K8b"),
+              f"{label} is not the wgmma/TMA kernel it was written as")
+        check(regs.get("spill_stores") == regs.get("spill_loads") == 0 and "C7508" not in text,
+              f"{label} spills or ptxas ignored its setmaxnreg")
+        check("are serialized" not in text, f"ptxas serialized {label}'s wgmma instructions")
+        out[label] = counts
+    return out
 
 
 def k1_phase(torch):
@@ -264,7 +286,7 @@ def k1_phase(torch):
                 for _ in range(3)]
 
     cases = [(1, 4608, None, 0.0), (2, 4608, None, 0.0), (1, 4608 + 77, None, 0.0),
-             (1, 4608, 4096, -1e30), (1, 4608, 4096, math.log(0.5))]
+             (1, 4608, 4096, -1e30), (1, 4608, 4096, math.log(0.5)), (8, 2560, 1536, math.log(0.5))]
     err_out = err_lse = 0.0
     with torch.no_grad():
         for B, L, main_len, cross_bias in cases:
@@ -280,21 +302,33 @@ def k1_phase(torch):
             err_out, err_lse = max(err_out, e_out), max(err_lse, e_lse)
             del q, k, v, out, lse, ref_out, ref_lse
         times = {}
-        for B in (1, 2):
-            q, k, v = qkv(B, 4608)
-            times[B] = in_turns(torch, lambda: flash_attention_fwd(q, k, v),  # noqa: B023
-                                lambda: flash_attention_ref(q, k, v), 20, 5)  # noqa: B023
-            flops = 4 * 4608 * 4608 * 128 * 24 * B
-            log(f"K1 B={B} L=4608: kernel {times[B][0]:.4f} ms ({flops / times[B][0] / 1e9:.1f} TFLOP/s), "
-                f"plain {times[B][1]:.4f} ms")
-        # yardstick only: PyTorch's SDPA forward on (B, H, L, D) copies of the same inputs
-        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        library_ms = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh), 20)
-        bound_k1 = bound(4 * 4608 * 4608 * 128 * 24 * 2, 4 * 2 * 4608 * 24 * 128 * 2 + 2 * 24 * 4608 * 4)
-        log(f"K1 B=2 L=4608: SDPA forward {library_ms:.4f} ms; bound {bound_k1[0]:.4f} ms ({bound_k1[1]})")
-        del q, k, v, qh, kh, vh
+        for B, L, main_len, cb in K1_TIMED:
+            q, k, v = qkv(B, L)
+            label = f"B={B} L={L}"
+            kern_ms, plain_ms = in_turns(
+                torch, lambda: flash_attention_fwd(q, k, v, main_len, cb),  # noqa: B023
+                lambda: flash_attention_ref(q, k, v, main_len, cb), 20, 3)  # noqa: B023
+            # yardstick only: PyTorch's SDPA forward on (B, H, L, D) copies of the same inputs,
+            # with the cross bias as a float mask where there is one
+            qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            mask = None
+            if cb != 0.0:
+                pos = torch.arange(L, device="cuda")
+                cross = (pos[:, None] >= main_len) != (pos[None, :] >= main_len)
+                mask = torch.where(cross, cb, 0.0).to(torch.bfloat16)
+            lib = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: B023
+                qh, kh, vh, attn_mask=mask), 20)  # noqa: B023
+            flops = 4 * B * L * L * D * 24
+            b = bound(flops, 4 * B * L * 24 * D * 2 + B * 24 * L * 4)  # q, k, v, out bf16; lse fp32
+            times[label] = {"ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib, "bound_ms": b[0],
+                            "bound_by": b[1], "tflops": flops / kern_ms / 1e9, "bound_share": b[0] / kern_ms,
+                            "main_len": main_len, "cross_bias": cb}
+            log(f"K1 {label} main_len={main_len} cross_bias={cb}: kernel {kern_ms:.4f} ms "
+                f"({flops / kern_ms / 1e9:.1f} TFLOP/s, bound {b[0]:.4f} ms ({b[1]}), "
+                f"{b[0] / kern_ms:.1%} of it), plain {plain_ms:.4f} ms, SDPA forward {lib:.4f} ms")
+            del q, k, v, qh, kh, vh, mask
     torch.cuda.empty_cache()
-    return err_out, err_lse, times, library_ms, bound_k1
+    return err_out, err_lse, times
 
 
 def bound(flops: float, nbytes: float, int8_ops: float = 0.0):
@@ -716,17 +750,26 @@ def serving_attn_phase(torch):
                 parts = kernel_split_ms(
                     torch, lambda: flash_attention_nr(q, k, v, cos, sin, scq, sck, LT, main_len),  # noqa: B023
                     10, ("nr_prep_k", "flash_fwd_nr_kernel"))
+                parts8 = kernel_split_ms(
+                    torch, lambda: flash_attention_int8(q, k, v, main_len),  # noqa: B023
+                    10, ("int8_prep_k", "flash_fwd_int8_kernel"))
                 tflops = 4 * pairs / t_nr / 1e9
+                tops8 = 4 * pairs / t_i8 / 1e9  # int8 QK^T and bf16 P.V operations together
                 nr["by_shape"][label] = {"ms": t_nr, "plain_ms": p_nr, "bound_ms": b_nr[0],
                                          "bound_by": b_nr[1], "library_ms": lib,
                                          "k9a_ms": parts["nr_prep_k"], "k9b_ms": parts["flash_fwd_nr_kernel"],
                                          "tflops": tflops, "bound_share": b_nr[0] / t_nr}
                 i8["by_shape"][label] = {"ms": t_i8, "plain_ms": p_i8, "bound_ms": b_i8[0],
-                                         "bound_by": b_i8[1], "library_ms": lib}
+                                         "bound_by": b_i8[1], "library_ms": lib,
+                                         "k8a_ms": parts8["int8_prep_k"],
+                                         "k8b_ms": parts8["flash_fwd_int8_kernel"],
+                                         "tops": tops8, "bound_share": b_i8[0] / t_i8}
                 log(f"{label}: K9 {t_nr:.4f} ms ({tflops:.1f} TFLOP/s, bound {b_nr[0]:.4f} ms, "
                     f"{b_nr[0] / t_nr:.1%} of it; device time K9a {parts['nr_prep_k']:.4f} ms, "
                     f"K9b {parts['flash_fwd_nr_kernel']:.4f} ms), plain {p_nr:.3f} ms; "
-                    f"K8 {t_i8:.4f} ms (bound {b_i8[0]:.4f} ms), plain {p_i8:.3f} ms; "
+                    f"K8 {t_i8:.4f} ms ({tops8:.1f} TOP/s, bound {b_i8[0]:.4f} ms, "
+                    f"{b_i8[0] / t_i8:.1%} of it; device time K8a {parts8['int8_prep_k']:.4f} ms, "
+                    f"K8b {parts8['flash_fwd_int8_kernel']:.4f} ms), plain {p_i8:.3f} ms; "
                     f"SDPA forward {lib:.4f} ms")
             del q, k, v
             torch.cuda.empty_cache()
@@ -1550,8 +1593,8 @@ def main() -> int:
     log(f"build {', '.join(kernel_build.SOURCES)} (in parallel): {time.perf_counter() - t0:.2f} s")
     ptxas = {src: kernel_build.ptxas_report(src) for src in kernel_build.SOURCES}
     log(json.dumps({"ptxas": ptxas}))
-    k9b_sass = hopper_check(kernel_build, ptxas)
-    err_out, err_lse, times, k1_library_ms, k1_bound = k1_phase(torch)
+    hopper_sass = hopper_check(kernel_build, ptxas)
+    err_out, err_lse, k1_times = k1_phase(torch)
     k6 = k6_phase(torch)
     t0 = time.perf_counter()
     k7 = k7_phase(torch)
@@ -1590,13 +1633,9 @@ def main() -> int:
         "launches_train": training["launches"]["flash_fwd"],
         "max_abs_err": err_out,
         "lse_max_abs_err": err_lse,
-        "ms": times[2][0],
-        "plain_ms": times[2][1],
-        "bound_ms": k1_bound[0],
-        "bound_by": k1_bound[1],
-        "library_ms": k1_library_ms,
-        "ms_b1": times[1][0],
-        "plain_ms_b1": times[1][1],
+        **{k: k1_times["B=2 L=4608"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": "B=2 L=4608",
+        "by_shape": k1_times,
     }]
     train_shape, serve_shape = "B=8 L=2560", "B=2 L=4608"
     for name, key, replaces in (("flash_bwd_dq", "dq", f"{PA}:126"), ("flash_bwd_dkv", "dkv", f"{PA}:175")):
@@ -1655,7 +1694,7 @@ def main() -> int:
     total = time.perf_counter() - t_start
     log(f"chip_smoke: {total:.1f} s after the device check, of which the ring phases (3c, 5d) "
         f"{t_k7 + t_ring:.1f} s")
-    log(json.dumps({"kernels": kernels, "k9b_sass": k9b_sass, "s_per_step": step,
+    log(json.dumps({"kernels": kernels, "hopper_sass": hopper_sass, "s_per_step": step,
                     "w8a8_step_profile_ms": prof,
                     "corrector_step_profile_ms": corrector["profile_ms"],
                     "peak_gib": {"bf16": bf16_peak / 2**30, "w8a8": w8_peak / 2**30,

@@ -131,10 +131,6 @@ flash_fwd_nr_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * sm90::kBlockM;
-  // a consumer thread's first query row: its warpgroup's 64, its warp's 16, its lane's quad
-  auto first_row = [&](int wg, int t) {
-    return q0 + wg * sm90::kRowsWG + (t >> 5) * 16 + ((t & 31) >> 2);
-  };
   sm90::flash_ws(
       smem_raw, (L + sm90::kBlockN - 1) / sm90::kBlockN,
       [&](uint32_t dst, uint32_t bar) { sm90::load_rows(dst, &tq, bar, h, q0, b); },
@@ -158,13 +154,14 @@ flash_fwd_nr_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
         }
       },
       [&](uint32_t q, uint32_t k, sm90::ScoreTile& sc) { sm90::qk_wgmma(sc, q, k); },
-      [&](int k0, int wg, sm90::ScoreTile& sc) {
+      [&](int k0, int wg, uint32_t, sm90::ScoreTile& sc) {
         const int t = threadIdx.x & 127;
-        sm90::scale_bias_mask(sc, scale_log2, k0, first_row(wg, t), L, main_len, has_cross,
-                              cross_bias_log2, t & 31);
+        sm90::fence_acc(sc);
+        sm90::scale_bias_mask(sc, scale_log2, k0, sm90::first_row(q0, wg, t), L, main_len,
+                              has_cross, cross_bias_log2, t & 31);
       },
       [&](int wg, int t, sm90::RowState& st) {
-        sm90::store_rows(st, out, b, h, L, H, first_row(wg, t), t & 31);
+        sm90::store_rows(st, out, b, h, L, H, sm90::first_row(q0, wg, t), t & 31);
       });
 }
 

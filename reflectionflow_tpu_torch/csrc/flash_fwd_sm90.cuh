@@ -1,6 +1,6 @@
 // The Hopper (sm_90a) forward flash-attention pipeline: TMA, mbarriers, wgmma and warp
-// specialisation. K9b (flash_fwd_nr.cu) runs on it; K1, K7a and K8b still run on
-// flash_fwd_tile.cuh.
+// specialisation. K1 (flash_fwd.cu), K8b (flash_fwd_int8.cu) and K9b (flash_fwd_nr.cu) run on
+// it; only K7a, the ring-chunk forward, still runs on flash_fwd_tile.cuh.
 //
 // One block owns (batch*head, kBlockM = 128 query rows) and has three warpgroups:
 //   * warpgroup 0, the producer, with its registers cut to kProducerRegs by setmaxnreg. One of
@@ -9,32 +9,42 @@
 //     (the TMA bytes have landed) and an "empty" one for each (all 8 consumer warps are done
 //     with it), so the copy of K and V for later tiles runs under this tile's math;
 //   * warpgroups 1 and 2, the consumers, each own 64 query rows and raise their registers to
-//     kConsumerRegs. Per K tile: S = Q K^T by wgmma.m64n128k16 (bf16 -> fp32) with Q and K
-//     read from shared memory through descriptors; the score step's scale, bias and mask; the
-//     online softmax in fp32 with ex2.approx; P rounded to bf16 stays in registers as the A
-//     operand of O += P V (the S accumulator layout is P's A layout), V read MN-major from
-//     shared memory (the transpose bit of the bf16 form). Within a warpgroup, tile j's Q K^T
-//     and tile j - 1's P V are issued together and tile j's softmax runs while that P V is on
-//     the tensor cores; O is rescaled and tile j's P packed only once it is done. No register
-//     an in-flight wgmma reads is written meanwhile: ptxas would otherwise serialize every
-//     wgmma (its C7513 notice), which a build of this loop with a separate P buffer did.
+//     kConsumerRegs. Per K tile: S = Q K^T by wgmma with Q and K read from shared memory
+//     through descriptors (m64n128k16 bf16 -> fp32, or m64n128k32 s8 -> s32 for K8b); the score
+//     step's scale, bias and mask; the online softmax in fp32 with ex2.approx; P rounded to
+//     bf16 stays in registers as the A operand of O += P V (the S accumulator layout is P's A
+//     layout), V read MN-major from shared memory (the transpose bit of the bf16 form). Within
+//     a warpgroup, tile j's Q K^T and tile j - 1's P V are issued together and tile j's softmax
+//     runs while that P V is on the tensor cores; O is rescaled and tile j's P packed only once
+//     it is done. No register an in-flight wgmma reads is written meanwhile: ptxas would
+//     otherwise serialize every wgmma (its C7513 notice), which a build of this loop with a
+//     separate P buffer did.
 // Every 128 x 128 bf16 tile is held as two boxes of [128 rows][64 columns] with 128-byte rows
-// under CU_TENSOR_MAP_SWIZZLE_128B: the layout the descriptors' 128B swizzle reads. Rows past L
-// arrive as zeros from TMA; the score step masks keys >= L and the epilogue skips rows >= L.
+// under CU_TENSOR_MAP_SWIZZLE_128B: the layout the descriptors' 128B swizzle reads. An int8
+// tile of 128 rows is one [128][128 bytes] box in the same swizzle. Rows past L arrive as
+// zeros from TMA; the score step masks keys >= L and the epilogue skips rows >= L.
 // The roles split once, in one if/else at the top of the pipeline, and never reconverge, so
 // ptxas honours setmaxnreg.
 //
-// The seams, as flash_rows in flash_fwd_tile.cuh has them, passed in as functors:
+// The seams, passed in as functors:
 //   load_k(dst, bar, k0)        the K-tile source, run by the producer thread: issues the loads
-//                               of the K tile whose first key is k0 into stage memory dst and
-//                               their expect_tx on bar;
+//                               of the K tile whose first key is k0 into stage memory dst (a
+//                               kTileBytes stage: a bf16 tile by load_rows, or K8b's int8 tile
+//                               and its 128 fp32 key scales) and their expect_tx on bar;
 //   prepare_q(sq, wg, t)        the Q step, run by each consumer warpgroup once the raw Q tile
 //                               has landed in sq (thread t of consumer warpgroup wg, on its own
-//                               64 rows; the pipeline fences and syncs the warpgroup after it);
+//                               64 rows; the pipeline fences and syncs the warpgroup after it).
+//                               K1 has none, K9b norms and rotates the rows in place, K8b
+//                               quantizes them in place to the int8 tile that box 0 then holds;
 //   issue_scores(q, k, sc)      the score step, in two parts: issues the product of the
-//   finish_scores(k0, wg, sc)   warpgroup's Q rows at q and the K tile at k into sc as one wgmma
-//                               group; once that group is done, turns sc into the base-2
-//                               logits of the tile whose first key is k0, biased and masked.
+//   finish_scores(k0, wg, k, sc)  warpgroup's Q rows at q and the K tile at stage address k as
+//                               one wgmma group (into sc, or into an accumulator of its own);
+//                               once the pipeline has waited for that group, fences the
+//                               accumulator and turns it into the base-2 logits of the tile
+//                               whose first key is k0, biased and masked, in sc. The stage is
+//                               released only after the finish, which may read it (K8b's key
+//                               scales);
+//   store(wg, t, st)            the epilogue: store_rows, with the lse rows for K1.
 // Q and V are always bf16 tiles loaded by load_q / load_v.
 
 #pragma once
@@ -60,6 +70,8 @@ constexpr int kBars = 1 + 4 * kStages;                  // full Q; full/empty K 
 constexpr int kSmemBytes = (1 + 2 * kStages) * kTileBytes + kBars * 8 + 1024;  // + alignment
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr uint32_t kInt8TileBytes = 128 * kHeadDim;  // one [128][128] int8 box, 16 KB
 static_assert(kBlockM == kBlockN, "Q, K and V tiles share one box shape (encode_rows)");
 
 // A consumer thread's share of its warpgroup's 64 x 128 logits in the wgmma accumulator
@@ -112,6 +124,24 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // Rows [row0, row0 + 128) of head h of batch b of a map made by encode_rows, as two 64-column
 // boxes at dst and dst + kBoxBytes, with their bytes expected on bar.
 __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -119,6 +149,18 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, 
   mbar_expect_tx(bar, kTileBytes);
   tma_load_4d(dst, map, bar, 0, h, row0, b);
   tma_load_4d(dst + kBoxBytes, map, bar, kBoxCols, h, row0, b);
+}
+
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+
+// A consumer thread's first query row: block row q0, then its warpgroup's 64, its warp's 16 and
+// its lane's quad (the second row is 8 below).
+__device__ __forceinline__ int first_row(int q0, int wg, int t) {
+  return q0 + wg * kRowsWG + (t >> 5) * 16 + ((t & 31) >> 2);
 }
 
 // Generic-proxy writes to shared memory become visible to the async proxy (wgmma, TMA).
@@ -183,12 +225,22 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[8][4]) {
   }
 }
 
-#define SM90_ACC4(d, i) "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
-#define SM90_ACC64(d)                                                                      \
-  SM90_ACC4(d, 0), SM90_ACC4(d, 1), SM90_ACC4(d, 2), SM90_ACC4(d, 3), SM90_ACC4(d, 4),     \
-      SM90_ACC4(d, 5), SM90_ACC4(d, 6), SM90_ACC4(d, 7), SM90_ACC4(d, 8), SM90_ACC4(d, 9), \
-      SM90_ACC4(d, 10), SM90_ACC4(d, 11), SM90_ACC4(d, 12), SM90_ACC4(d, 13),              \
-      SM90_ACC4(d, 14), SM90_ACC4(d, 15)
+__device__ __forceinline__ void fence_acc(int (&d)[16][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[i][e]) :: "memory");
+  }
+}
+
+// The 64 accumulator operands: c is the constraint ("+f", "+r" or "=r").
+#define SM90_ACC4(c, d, i) c(d[i][0]), c(d[i][1]), c(d[i][2]), c(d[i][3])
+#define SM90_ACC64C(c, d)                                                                       \
+  SM90_ACC4(c, d, 0), SM90_ACC4(c, d, 1), SM90_ACC4(c, d, 2), SM90_ACC4(c, d, 3),               \
+      SM90_ACC4(c, d, 4), SM90_ACC4(c, d, 5), SM90_ACC4(c, d, 6), SM90_ACC4(c, d, 7),           \
+      SM90_ACC4(c, d, 8), SM90_ACC4(c, d, 9), SM90_ACC4(c, d, 10), SM90_ACC4(c, d, 11),         \
+      SM90_ACC4(c, d, 12), SM90_ACC4(c, d, 13), SM90_ACC4(c, d, 14), SM90_ACC4(c, d, 15)
+#define SM90_ACC64(d) SM90_ACC64C("+f", d)
 #define SM90_D64                                                                           \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
@@ -217,7 +269,27 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[16][4], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (+)= A B, 64 x 128 x 32, int8 A and B K-major in shared memory (int8 wgmma takes no
+// transpose), int32 sums. The first k-step overwrites d and declares it an output only, so the
+// previous tile's sums need not stay live until the next product is issued.
+__device__ __forceinline__ void wgmma_ss_s8_first(int (&d)[16][4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " SM90_D64 ", %64, %65, p;\n}\n"
+      : SM90_ACC64C("=r", d)
+      : "l"(a), "l"(b), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_ss_s8(int (&d)[16][4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " SM90_D64 ", %64, %65, p;\n}\n"
+      : SM90_ACC64C("+r", d)
+      : "l"(a), "l"(b), "r"(1));
+}
+
 #undef SM90_ACC4
+#undef SM90_ACC64C
 #undef SM90_ACC64
 #undef SM90_D64
 
@@ -233,6 +305,18 @@ __device__ __forceinline__ void qk_wgmma(ScoreTile& sc, uint32_t q, uint32_t k) 
     const uint32_t off = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
     wgmma_ss(sc, desc_sw128(q + off, 16, 1024), desc_sw128(k + off, 16, 1024), kk > 0);
   }
+  wgmma_commit();
+}
+
+// The int8 form: S = Q8 K8^T in int32 as one wgmma group (fence_acc before acc is read). q: the
+// warpgroup's first row of the [128][128 B] int8 Q tile; k: an int8 K tile. A 32-byte k-step
+// moves 32 bytes inside the 128-byte row, so four steps cover the head dim.
+__device__ __forceinline__ void qk_wgmma_s8(int (&acc)[16][4], uint32_t q, uint32_t k) {
+  wgmma_fence();
+  wgmma_ss_s8_first(acc, desc_sw128(q, 16, 1024), desc_sw128(k, 16, 1024));
+#pragma unroll
+  for (int kk = 1; kk < kHeadDim / 32; ++kk)
+    wgmma_ss_s8(acc, desc_sw128(q + kk * 32, 16, 1024), desc_sw128(k + kk * 32, 16, 1024));
   wgmma_commit();
 }
 
@@ -352,9 +436,12 @@ __device__ __forceinline__ void rescale_o(RowState& st, const float (&corr)[2]) 
 }
 
 // The epilogue: full row sums, then out = o / max(l, 1e-20) into the contiguous
-// (B, L, H, 128) out for the thread's rows below L.
+// (B, L, H, 128) out for the thread's rows below L. With lse (the (b, h) row of a (B*H, L)
+// array, K1's form) the quad's t4 == 0 lane also writes lse = m ln2 + log(max(l, 1e-20)), the
+// rows K6a/K6b read back.
 __device__ __forceinline__ void store_rows(RowState& st, bf16* __restrict__ out, int b, int h,
-                                           int L, int H, int row, int lane) {
+                                           int L, int H, int row, int lane,
+                                           float* __restrict__ lse = nullptr) {
   const int t4 = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -365,13 +452,15 @@ __device__ __forceinline__ void store_rows(RowState& st, bf16* __restrict__ out,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= L) continue;
-    const float inv = 1.f / fmaxf(st.l[r], 1e-20f);
+    const float l_safe = fmaxf(st.l[r], 1e-20f);
+    const float inv = 1.f / l_safe;
     bf16* orow = out + ((static_cast<long long>(b) * L + rows[r]) * H + h) * kHeadDim;
 #pragma unroll
     for (int n = 0; n < kHeadDim / 8; ++n) {
       *reinterpret_cast<uint32_t*>(orow + n * 8 + t4 * 2) =
           pack_bf16(st.o[n][2 * r] * inv, st.o[n][2 * r + 1] * inv);
     }
+    if (lse != nullptr && t4 == 0) lse[rows[r]] = st.m[r] * kLn2 + logf(l_safe);
   }
 }
 
@@ -450,9 +539,8 @@ __device__ __forceinline__ void flash_ws(unsigned char* smem_raw, int n_tiles, L
     mbar_wait(full_k(0), 0);
     issue_scores(q_rows, k_tiles, sc);
     wgmma_wait<0>();
-    fence_acc(sc);
+    finish_scores(0, c, k_tiles, sc);
     release(empty_k(0));
-    finish_scores(0, c, sc);
     softmax_tile(st, sc, corr);
     pack_p(sc, pf);
     // tile j: its scores run on the tensor cores beside tile j - 1's P V; then its softmax runs
@@ -464,9 +552,8 @@ __device__ __forceinline__ void flash_ws(unsigned char* smem_raw, int n_tiles, L
       mbar_wait(full_v(sp), ((j - 1) / kStages) & 1);
       pv_wgmma(st, pf, v_tiles + sp * kTileBytes);
       wgmma_wait<1>();
-      fence_acc(sc);
+      finish_scores(j * kBlockN, c, k_tiles + s * kTileBytes, sc);
       release(empty_k(s));
-      finish_scores(j * kBlockN, c, sc);
       softmax_tile(st, sc, corr);
       wgmma_wait<0>();
       fence_acc(st.o);
@@ -526,6 +613,39 @@ inline bool encode_rows(CUtensorMap* map, const void* base, int B, int L, int H,
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D map over a contiguous (n_heads, L, 128) int8 tensor (K8a's workspace): boxes of 128
+// rows of 128 bytes of one head, 128-byte swizzle, zeros past L. The driver has no signed 8-bit
+// type; the bytes are copied as they are.
+inline bool encode_int8_rows(CUtensorMap* map, const void* base, int n_heads, int L) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(kHeadDim), static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(n_heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(kHeadDim),
+                                 static_cast<cuuint64_t>(L) * kHeadDim};
+  const cuuint32_t box[3] = {kHeadDim, kBlockN, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims, strides, box,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 2-D map over n_rows rows of L fp32 values, ld apart (K8a's key scales, one row a head; ld
+// a multiple of 4, so every row starts on 16 bytes as TMA needs): boxes of kBlockN values of
+// one row, no swizzle, zeros past L.
+inline bool encode_float_rows(CUtensorMap* map, const void* base, int n_rows, int L,
+                              long long ld) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(n_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 4};
+  const cuuint32_t box[2] = {kBlockN, 1};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides, box,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

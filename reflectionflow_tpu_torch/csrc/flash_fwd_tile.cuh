@@ -1,5 +1,6 @@
-// The forward flash-attention pipeline shared by K1 and K7a (flash_fwd.cu), K8b
-// (flash_fwd_int8.cu) and K9b (flash_fwd_nr.cu).
+// The first forward flash-attention pipeline of the port (mma.sync), which now serves only K7a,
+// the ring-chunk forward (flash_fwd.cu). K1, K8b and K9b run on the Hopper pipeline of
+// flash_fwd_sm90.cuh instead.
 //
 // One block owns (batch*head, kBlockM query rows); each of its eight warps owns 16 rows. The raw
 // bf16 Q tile is copied into shared memory once, then kBlockN-key K/V tiles stream through
@@ -8,11 +9,8 @@
 // domain (`bias_mask` applies the structural cross-segment bias and the ragged-tail mask); the
 // online softmax runs in fp32, and P, rounded to bf16, stays in registers as the A operand of the
 // bf16 mma.sync P.V (the S accumulator layout is P's A-operand layout). The epilogue writes
-// out = acc / max(l, 1e-20) and, for K1, the lse rows.
-//
-// The kernels differ in how each warp prepares its Q rows (K9 norms and rotates them, K8
-// quantizes them to int8), how a K tile is held (bf16, or int8 with per-row scales) and how a
-// score tile is made; they pass those steps in as functors, so the pipeline is written once.
+// out = acc / max(l, 1e-20) and the lse rows. The Q step, the K copy and the score step are
+// passed in as functors (flash_rows).
 
 #pragma once
 
@@ -82,9 +80,9 @@ __device__ __forceinline__ void scale_tile(ScoreTile& sc, float f) {
 // After the scale, in the TPU kernels' order: a query and a key on opposite sides of the cond
 // boundary get `bias` (in the units of sc) when has_cross, and keys >= L are masked. A tile with
 // neither is left as it is. row_a is the thread's first query row. The boundary is given in
-// local rows for each side: q_main for queries, k_main for keys. A whole sequence (K1, K8b, K9b)
-// passes main_len for both; a ring chunk (K7a) passes main_len less each side's ring-global start,
-// so the predicate compares global positions while the padding mask stays local.
+// local rows for each side, q_main for queries and k_main for keys: a ring chunk (K7a) passes
+// main_len less each side's ring-global start, so the predicate compares global positions while
+// the padding mask stays local.
 __device__ __forceinline__ void bias_mask(ScoreTile& sc, int k0, int row_a, int L, int q_main,
                                           int k_main, int has_cross, float bias, int lane) {
   if (!has_cross && k0 + kBlockN <= L) return;
@@ -197,8 +195,8 @@ __device__ __forceinline__ void flash_rows(RowState& st, bf16* sQ, const bf16* q
 }
 
 // The epilogue: full row sums, then out = o / max(l, 1e-20) into (B, L, H, 128) for the thread's
-// rows below L. With lse (the (b, h) row of a (B*H, L) array) it also writes
-// lse = m ln2 + log(max(l, 1e-20)).
+// rows below L, and the lse = m ln2 + log(max(l, 1e-20)) rows into lse (the (b, h) row of a
+// (B*H, L) array).
 __device__ __forceinline__ void store_rows(RowState& st, bf16* __restrict__ out,
                                            float* __restrict__ lse, int b, int h, int L, int H,
                                            int row_a, int lane) {
@@ -220,7 +218,7 @@ __device__ __forceinline__ void store_rows(RowState& st, bf16* __restrict__ out,
       *reinterpret_cast<uint32_t*>(orow + n * 8 + t4 * 2) =
           pack_bf16(st.o[n][2 * r] * inv, st.o[n][2 * r + 1] * inv);
     }
-    if (lse != nullptr && t4 == 0) lse[rows[r]] = st.m[r] * kLn2 + logf(l_safe);
+    if (t4 == 0) lse[rows[r]] = st.m[r] * kLn2 + logf(l_safe);
   }
 }
 

@@ -7,8 +7,10 @@ Counterpart of `reflectionflow_tpu/ops/pallas_attention.py`:
 (K6b); and `flash_chunk_fwd` / `flash_chunk_bwd`, the same three bodies on one
 ring chunk with ring-global offsets (K7a, K7b, K7c), which
 `ops.ring_attention` runs. The kernels are `csrc/flash_fwd.cu` and
-`csrc/flash_bwd.cu` (CUDA C++ for sm_90a, built by `ops/kernel_build.py`);
-their source notes say what bounds them and how the design answers that.
+`csrc/flash_bwd.cu` (CUDA C++ for sm_90a, built by `ops/kernel_build.py`;
+K1 runs on the Hopper pipeline of `csrc/flash_fwd_sm90.cuh`: TMA, wgmma,
+warp specialisation); their source notes say what bounds them and how the
+design answers that.
 `FlashAttention` is the `torch.autograd.Function` that joins K1 forward and
 K6a + K6b backward.
 
@@ -163,6 +165,8 @@ def flash_attention_fwd(q, k, v, main_len: int | None = None, cross_bias: float 
     main_len = L if main_len is None else int(main_len)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, main_len, cross_bias)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_layout(name, t)  # TMA's terms, before the device check
     if q.device.type != "cuda":
         raise NotImplementedError(f"flash_fwd has no kernel for device {q.device}")
     _check_cuda_inputs(q, k, v, main_len)

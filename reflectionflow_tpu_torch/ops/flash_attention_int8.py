@@ -11,10 +11,11 @@ over `_flash_fwd_int8_kernel` (K8), the attention of `attn_impl="pallas_int8"`
 Serving only: no backward, and an input that requires grad raises.
 
 The kernel is `csrc/flash_fwd_int8.cu` (CUDA C++ for sm_90a, built by
-`ops/kernel_build.py`): K8a quantizes K, K8b attends. Dispatch as K1: a CUDA
-tensor launches the kernel or the wrapper raises; a CPU tensor takes
-`flash_attention_int8_ref`, which is also what `chip_smoke.py` holds the kernel
-against.
+`ops/kernel_build.py`): K8a quantizes K, K8b attends on the Hopper pipeline
+of `csrc/flash_fwd_sm90.cuh` (TMA, wgmma, warp specialisation). Dispatch as
+K1: a CUDA tensor launches the kernel or the wrapper raises; a CPU tensor
+takes `flash_attention_int8_ref`, which is also what `chip_smoke.py` holds
+the kernel against.
 
 Quantizer rounding as the TPU kernel: factor = 127 / amax in fp32, codes =
 round-half-even(x * factor), scales amax * fp32(1/127) for K and
@@ -28,7 +29,7 @@ import math
 
 import torch
 
-from .flash_attention import HEAD_DIM, _check_cuda_inputs
+from .flash_attention import HEAD_DIM, _check_cuda_inputs, _check_layout
 
 
 def _codes(x: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
@@ -69,8 +70,8 @@ def flash_attention_int8_ref(q, k, v, main_len: int | None = None, cross_bias: f
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGS = {
-    "int8_prep_k_d128": [_P, _LL, _LL, _LL, _P, _P, _I, _I, _I, _F, _P],
-    "flash_fwd_int8_d128": [_P] * 5 + [_I] * 3 + [_LL] * 6 + [_I, _F, _F, _P],
+    "int8_prep_k_d128": [_P, _LL, _LL, _LL, _P, _P, _LL, _I, _I, _I, _F, _P],
+    "flash_fwd_int8_d128": [_P] * 3 + [_LL] + [_P] * 2 + [_I] * 3 + [_LL] * 6 + [_I, _F, _F, _P],
 }
 
 
@@ -93,17 +94,18 @@ def _launch(symbol: str, device, *args) -> None:
 
 def quantize_k(k):
     """K8a alone on a CUDA (B, L, H, 128) bf16 K -> (codes int8 (B, H, L, 128),
-    scales fp32 (B, H, L)), the layout of `quantize_k_ref`. The attention
-    wrapper runs it inside each call; on its own it serves the check of the
-    codes against the plain version."""
+    scales fp32 (B, H, L)), the layout of `quantize_k_ref`; the scales are a
+    view of rows padded to a multiple of 4 values (16 bytes), where K8b's TMA
+    box of scales may start. The attention wrapper runs it inside each call; on
+    its own it serves the check of the codes against the plain version."""
     if k.device.type != "cuda":
         raise NotImplementedError(f"int8_prep_k has no kernel for device {k.device}")
     _check_cuda_inputs(k, k, k, k.shape[1])
     B, L, H, D = k.shape
     k8 = torch.empty((B, H, L, D), dtype=torch.int8, device=k.device)
-    ks = torch.empty((B, H, L), dtype=torch.float32, device=k.device)
+    ks = torch.empty((B, H, -(-L // 4) * 4), dtype=torch.float32, device=k.device)[..., :L]
     _launch("int8_prep_k_d128", k.device, k.data_ptr(), *k.stride()[:3], k8.data_ptr(),
-            ks.data_ptr(), B, L, H, 1.0 / L)
+            ks.data_ptr(), ks.stride(1), B, L, H, 1.0 / L)
     return k8, ks
 
 
@@ -118,6 +120,8 @@ def flash_attention_int8(q, k, v, main_len: int | None = None, cross_bias: float
     main_len = L if main_len is None else int(main_len)
     if q.device.type == "cpu":
         return flash_attention_int8_ref(q, k, v, main_len, cross_bias)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_layout(name, t)  # TMA's terms (q, v), K8a's rows (k), before the device check
     if q.device.type != "cuda":
         raise NotImplementedError(f"flash_fwd_int8 has no kernel for device {q.device}")
     _check_cuda_inputs(q, k, v, main_len)
@@ -125,8 +129,8 @@ def flash_attention_int8(q, k, v, main_len: int | None = None, cross_bias: float
     k8, ks = quantize_k(k)
     out = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
     _launch("flash_fwd_int8_d128", q.device, q.data_ptr(), k8.data_ptr(), ks.data_ptr(),
-            v.data_ptr(), out.data_ptr(), B, L, H, *q.stride()[:3], *v.stride()[:3], main_len,
-            float(cross_bias), 1.0 / math.sqrt(HEAD_DIM) / 127.0)
+            ks.stride(1), v.data_ptr(), out.data_ptr(), B, L, H, *q.stride()[:3],
+            *v.stride()[:3], main_len, float(cross_bias), 1.0 / math.sqrt(HEAD_DIM) / 127.0)
     flash_attention_int8.launches += 1
     return out
 

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / ".build" / "kernels"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "act_quant.cu", "norm_rope.cu", "flash_fwd_int8.cu",
            "flash_fwd_nr.cu")
-# K1 takes the approximate exp and division; the flash backward, act-quant,
+# K1 and K7a take the approximate exp and division; the flash backward, act-quant,
 # norm+rope, int8 and norm+rope attention kernels need accurate arithmetic to
 # round bf16 and int8 values as their plain versions do.
 FAST_MATH = frozenset({"flash_fwd.cu"})

@@ -82,32 +82,3 @@ def test_k9_wrapper_has_no_silent_fallback():
     args[0].requires_grad_(True)
     with pytest.raises(RuntimeError, match="no backward"):
         flash_attention_nr(*args)
-
-
-def _meta(shape, strides=None, offset=0):
-    """A bf16 meta tensor (no data; data_ptr() is its byte offset)."""
-    n = offset + 4 * math.prod(shape)
-    base = torch.empty(n, dtype=torch.bfloat16, device="meta")
-    return base.as_strided(shape, strides or torch.empty(shape, device="meta").stride(), offset)
-
-
-TMA_FAULTS = {  # (tensor the wrapper must name, its fault)
-    "odd_row_stride": ("k", dict(strides=(8 * 132, 132, 128, 1))),
-    "misaligned_base": ("v", dict(offset=1)),
-    "strided_last_dim": ("q", dict(strides=(8 * 256, 256, 256, 2))),
-}
-
-
-@pytest.mark.parametrize("fault", list(TMA_FAULTS))
-def test_k9_wrapper_checks_tma_terms(fault):
-    """What TMA cannot read (a stride that is not a multiple of 8 elements, a
-    base off a 16-byte boundary, a strided last dim) raises a ValueError that
-    names the tensor, before any launch and before the device check."""
-    name, kw = TMA_FAULTS[fault]
-    shape = (1, 8, 1, 128)
-    x = {n: _meta(shape, **(kw if n == name else {})) for n in ("q", "k", "v")}
-    t, s = _meta((8, 128)), torch.ones((2, 128), device="meta")
-    before = flash_attention_nr.launches
-    with pytest.raises(ValueError, match=f"^{name} needs"):
-        flash_attention_nr(x["q"], x["k"], x["v"], t, t, s, s)
-    assert flash_attention_nr.launches == before
