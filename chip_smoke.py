@@ -12,11 +12,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (`csrc/norm_rope.cu`), K8 (`csrc/flash_fwd_int8.cu`) and K9
      (`csrc/flash_fwd_nr.cu`) into `.build/kernels/`, one nvcc per source,
      all started together; prints ptxas's registers and spills per kernel;
-     checks that each kernel on the Hopper pipeline `csrc/flash_fwd_sm90.cuh`
-     (K1, K8b, K9b) holds wgmma (HGMMA; K8b also the integer IGMMA) and TMA
-     (UTMALDG) instructions and no mma.sync (HMMA, IMMA), spills nothing,
-     that ptxas honoured its setmaxnreg (no warning C7508) and did not
-     serialize its wgmma instructions;
+     checks that each kernel on the Hopper pipelines `csrc/flash_fwd_sm90.cuh`
+     (K1, K8b, K9b) and `csrc/flash_bwd_sm90.cuh` (K6a, K6b) holds wgmma
+     (HGMMA; K8b also the integer IGMMA) and TMA (UTMALDG) instructions and no
+     mma.sync (HMMA, IMMA), spills nothing, that ptxas honoured its
+     setmaxnreg (no warning C7508) and did not serialize its wgmma
+     instructions;
   3. K1 against its plain PyTorch version on the card (fp32 reference), at
      the main-path shape (B=1, 2; L=4608; H=24; D=128), a ragged L, the
      cross-segment bias forms and the training shape; times both at the
@@ -25,8 +26,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      PyTorch's SDPA forward (the bias as a float mask) as the yardstick;
   3b. K6a/K6b against the fp32 plain backward at the training shape (B=8,
      L=512+1024+1024, main_len 1536, cross bias 0, -1e30, log 0.5), at
-     (B=2, L=4608) and at a ragged L; times both kernels, the plain version
-     and PyTorch's SDPA backward (the yardstick only);
+     (B=2, L=4608) and at a ragged L; a second launch at (8, 2560, log 0.5)
+     must give bitwise the same dQ, dK and dV (no atomics); times both
+     kernels, the plain version and PyTorch's SDPA backward (the yardstick
+     only), with each kernel's share of its bound;
   3c. K7a/K7b/K7c (the ring-chunk kernels) against their plain versions at
      the ring's chunk shapes: the training sequence (8, 2560) and the
      corrector's (2, 5632) over 4 ring slots (chunks of 640 and 1408 rows)
@@ -239,15 +242,17 @@ def device_ms(torch, fn, iters: int) -> float:
     return kernel_split_ms(torch, fn, iters)[""]
 
 
-HOPPER_KERNELS = (  # label, source, kernel: the kernels on flash_fwd_sm90.cuh
+HOPPER_KERNELS = (  # label, source, kernel: the kernels on flash_fwd_sm90.cuh / flash_bwd_sm90.cuh
     ("K1", "flash_fwd.cu", "flash_fwd_kernel"),
     ("K8b", "flash_fwd_int8.cu", "flash_fwd_int8_kernel"),
     ("K9b", "flash_fwd_nr.cu", "flash_fwd_nr_kernel"),
+    ("K6a", "flash_bwd.cu", "flash_bwd_dq_kernel"),
+    ("K6b", "flash_bwd.cu", "flash_bwd_dkv_kernel"),
 )
 
 
 def hopper_check(kernel_build, ptxas) -> dict:
-    """K1, K8b and K9b are built as designed for Hopper: TMA (UTMALDG) and
+    """K1, K8b, K9b, K6a and K6b are built as designed for Hopper: TMA (UTMALDG) and
     wgmma instructions (HGMMA for the bf16 products; K8b's int8 QK^T also an
     integer GMMA, IGMMA as cuobjdump prints it), no mma.sync (HMMA, IMMA), no
     spills, ptxas honoured their setmaxnreg (no warning C7508) and did not
@@ -343,8 +348,10 @@ def bound(flops: float, nbytes: float, int8_ops: float = 0.0):
 def k6_phase(torch):
     """K6a/K6b against the fp32 plain backward at the training shape (B=8,
     L=512+1024+1024, main_len 1536, three cross-bias forms), the serving shape
-    (B=2, L=4608) and a ragged L; times both kernels in turns against the plain
-    version and against PyTorch's SDPA backward (the yardstick only)."""
+    (B=2, L=4608) and a ragged L; at (8, 2560, log 0.5) a second launch must
+    be bitwise equal to the first; times both kernels in turns against the
+    plain version and against PyTorch's SDPA backward (the yardstick only),
+    with each kernel's share of its bound."""
     import torch.nn.functional as F
 
     from reflectionflow_tpu_torch.ops.flash_attention import (
@@ -380,7 +387,15 @@ def k6_phase(torch):
                       f"K6 {name} disagrees with its plain version at B={B} L={L} cross_bias={cb}")
             log(f"K6 B={B} L={L} main_len={main_len} cross_bias={cb}: {', '.join(msg)} "
                 f"(tol {K6_REL_TOL} of max|ref|)")
-            del got, want
+            del want
+            if cb == math.log(0.5):  # the design has no atomics: a second launch is bitwise equal
+                again = (flash_bwd_dq(q, k, v, do, lse, delta, main_len, cb),
+                         *flash_bwd_dkv(q, k, v, do, lse, delta, main_len, cb))
+                same = [torch.equal(a, g) for a, g in zip(again, got)]
+                log(f"K6 B={B} L={L} cross_bias={cb}: second launch bitwise equal (dq, dk, dv) {same}")
+                check(all(same), "K6's second launch differs from its first")
+                del again
+            del got
             if cb == 0.0 and L % 8 == 0:
                 t_dq, plain = in_turns(
                     torch, lambda: flash_bwd_dq(q, k, v, do, lse, delta, main_len),  # noqa: B023
@@ -400,13 +415,16 @@ def k6_phase(torch):
                 b_dq = bound(6 * pairs, 5 * io + 2 * B * 24 * L * 4)
                 b_dkv = bound(8 * pairs, 6 * io + 2 * B * 24 * L * 4)
                 res["by_shape"][f"B={B} L={L}"] = {
-                    "dq": {"ms": t_dq, "bound_ms": b_dq[0], "bound_by": b_dq[1]},
-                    "dkv": {"ms": t_dkv, "bound_ms": b_dkv[0], "bound_by": b_dkv[1]},
+                    "dq": {"ms": t_dq, "bound_ms": b_dq[0], "bound_by": b_dq[1],
+                           "bound_share": b_dq[0] / t_dq},
+                    "dkv": {"ms": t_dkv, "bound_ms": b_dkv[0], "bound_by": b_dkv[1],
+                            "bound_share": b_dkv[0] / t_dkv},
                     "plain_ms": plain, "library_ms": lib}
-                log(f"K6 B={B} L={L}: K6a {t_dq:.3f} ms ({6 * pairs / t_dq / 1e9:.1f} TFLOP/s, bound "
-                    f"{b_dq[0]:.3f} ms), K6b {t_dkv:.3f} ms ({8 * pairs / t_dkv / 1e9:.1f} TFLOP/s, "
-                    f"bound {b_dkv[0]:.3f} ms), plain backward {plain:.3f} ms, "
-                    f"SDPA backward {lib:.3f} ms")
+                log(f"K6 B={B} L={L}: K6a {t_dq:.4f} ms ({6 * pairs / t_dq / 1e9:.1f} TFLOP/s, bound "
+                    f"{b_dq[0]:.4f} ms, {b_dq[0] / t_dq:.1%} of it), K6b {t_dkv:.4f} ms "
+                    f"({8 * pairs / t_dkv / 1e9:.1f} TFLOP/s, bound {b_dkv[0]:.4f} ms, "
+                    f"{b_dkv[0] / t_dkv:.1%} of it), together {t_dq + t_dkv:.4f} ms, plain backward "
+                    f"{plain:.3f} ms, SDPA backward {lib:.4f} ms")
             del q, k, v, do, out, lse, delta
             torch.cuda.empty_cache()
     return res
@@ -1091,6 +1109,9 @@ def train_phase(torch, pipe):
 
         events = profiled(torch, one_step)
         prof = log_split(f"train step profile (B={d.batch_size}, L=512+1024+1024)", events, wall_prof[0])
+        log(f"train step: K6a {prof.get('K6a flash_bwd_dq', 0.0):.2f} ms, K6b "
+            f"{prof.get('K6b flash_bwd_dkv', 0.0):.2f} ms device time (57 launches each), "
+            f"K1 {prof.get('K1 flash_fwd', 0.0):.2f} ms (114)")
         del opt_state, batch
 
         # B=1: adapter gradients with K1 + K6 against the plain attention
@@ -1646,9 +1667,10 @@ def main() -> int:
             "max_abs_err": k6[key]["err"], "rel_err": k6[key]["rel"],
             "ms": at[train_shape][key]["ms"], "plain_ms": at[train_shape]["plain_ms"],
             "bound_ms": at[train_shape][key]["bound_ms"], "bound_by": at[train_shape][key]["bound_by"],
-            "library_ms": at[train_shape]["library_ms"],
+            "bound_share": at[train_shape][key]["bound_share"], "library_ms": at[train_shape]["library_ms"],
             "serving_shape": {"ms": at[serve_shape][key]["ms"], "plain_ms": at[serve_shape]["plain_ms"],
                               "bound_ms": at[serve_shape][key]["bound_ms"],
+                              "bound_share": at[serve_shape][key]["bound_share"],
                               "library_ms": at[serve_shape]["library_ms"]},
         })
     for name, source, replaces in KERNELS:

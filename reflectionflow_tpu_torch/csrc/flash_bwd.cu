@@ -1,4 +1,5 @@
-// K6a and K6b: flash-attention backward for Hopper (sm_90a), bf16 in and out, fp32 sums.
+// K6a and K6b: flash-attention backward for Hopper (sm_90a), bf16 in and out, fp32 sums; and K7b
+// and K7c, the ring-chunk backward.
 //
 // Replaces reflectionflow_tpu/ops/pallas_attention.py::_flash_dq_kernel (K6a, :126) and
 // ::_flash_dkv_kernel (K6b, :175), the TPU kernels behind the custom VJP of
@@ -13,50 +14,55 @@
 // yardstick.
 //
 // What bounds them on an H100: tensor-core FLOPs. K6a does three products per (q, k) pair
-// (6 * L^2 * D per head), K6b four (8 * L^2 * D): at the training shape (8, 2560, 24, 128)
-// that is 0.97 and 1.29 TFLOP against ~0.3 GB of operands, far above the card's ~295
-// FLOP/byte balance point.
+// (6 * B * H * L^2 * D operations), K6b four (8 * B * H * L^2 * D): at the training shape
+// (8, 2560, 24, 128) that is 0.97 and 1.29 TFLOP, 0.98 and 1.30 ms at the bf16 peak, against
+// ~0.3 GB of operands, far above the card's ~295 FLOP/byte balance point.
 //
-// Design, against that bound and against what the TPU version leans on:
+// Design (K6a, K6b), against that bound and against what the TPU version leans on:
 //   * The TPU kernels hold a head's whole K/V (K6a) or Q/dO (K6b) stripe in VMEM, padded to
-//     512-row blocks. Here a block owns 64 rows (four warps of 16): K6a its q rows, K6b its
-//     k rows. The rows it owns sit in shared memory for the whole block; the other side
-//     streams through double-buffered shared-memory tiles filled with cp.async, so the next
-//     tile's copy overlaps this tile's math.
+//     512-row blocks. Here both run the warp-specialised Hopper pipeline of flash_bwd_sm90.cuh:
+//     a block owns (batch*head, 128 rows), K6a its q rows, K6b its keys, held in shared memory
+//     for the whole block (K6a: Q and dO; K6b: K and V); one producer thread streams the other
+//     side in 64-row tiles (K6a: K and V; K6b: Q and dO) by TMA through a 3-stage mbarrier ring,
+//     so the next tiles' copies run under this tile's math. Two consumer warpgroups of 64 rows
+//     run the score products (S and dP, or their transposes for K6b) as m64n64k16 wgmma from
+//     shared memory, and the gradient products as m64n128k16 wgmma with p and ds, rounded to bf16
+//     in the accumulator layout, as the A operand in registers.
 //   * Two kernels, no atomics: K6a writes each dQ tile once, K6b each dK/dV tile once, so the
-//     results are deterministic. (A single kernel with atomic dQ adds is a later choice.)
-//   * All four products run on mma.sync m16n8k16 (bf16 in, fp32 accumulate) fed by ldmatrix
-//     from XOR-swizzled tiles. The recomputed S and dP stay in registers; p and ds are packed
-//     to bf16 in the accumulator layout, which is the A-operand layout of the next product, so
-//     they never touch shared memory. A operands of the resident rows are re-read from shared
-//     memory per tile instead of held in registers, which keeps the accumulators unspilled.
-//   * q, k, v and dO are read in their (B, L, H, D) layout through strides (views of the qkv
-//     panels); the ragged tail is masked in the kernel (rows past L load as zeros and are
-//     never stored, K6a masks keys >= L, K6b zeroes p for q rows >= L). No padding copies.
+//     results are the same every run. A fused kernel would compute S and dP once (5 products
+//     against 3 + 4) but add dQ with fp32 atomics in an order that changes from run to run.
+//   * lse and delta: K6a's consumer threads read their rows' values once into registers; K6b
+//     needs 64 of each per streamed tile, which a producer warp copies into the stage with plain
+//     loads (a (B*H, L) fp32 row starts on 16 bytes only when L % 4 == 0, and TMA needs that).
+//   * q, k, v and dO are read in their (B, L, H, D) layout through 4-D tensor maps at the
+//     caller's strides (views of the qkv panels); rows past L arrive as zeros from TMA and are
+//     never stored, K6a masks keys >= L, K6b zeroes p for q rows >= L. No padding copies.
 //   * Exponentials run in the base-2 domain (exp2 of logits pre-scaled by log2(e)).
-// wgmma, TMA and warp specialisation are left for later work.
 //
-// K7b and K7c, the ring-chunk backward, are the same bodies with two more runtime scalars. They
-// replace _flash_dq_kernel and _flash_dkv_kernel with dyn_offsets=True (pallas_attention.py:136-160,
-// :185-212), reached through flash_chunk_bwd (:815): one Q chunk against one K/V shard, from the
-// RING-GLOBAL lse and delta rows, so the chunks' dQ/dK/dV sum to the full-sequence gradients. The
-// cross-segment predicate compares global positions with main_len; the padding masks stay local.
-// The offsets enter as the local boundaries q_main = main_len - q_off and k_main = main_len - k_off,
-// so K6a/K6b (both main_len) compile as before.
+// K7b and K7c keep the earlier design: one block of four warps owns 64 rows (q rows or keys) and
+// streams 64-key or 32-row tiles through cp.async double buffers; all four products run on
+// mma.sync m16n8k16 fed by ldmatrix from XOR-swizzled tiles, p and ds stay in registers as the
+// next product's A operand. They replace _flash_dq_kernel and _flash_dkv_kernel with
+// dyn_offsets=True (pallas_attention.py:136-160, :185-212), reached through flash_chunk_bwd (:815):
+// one Q chunk against one K/V shard, from the RING-GLOBAL lse and delta rows, so the chunks'
+// dQ/dK/dV sum to the full-sequence gradients. The cross-segment predicate compares global
+// positions with main_len; the padding masks stay local. The offsets enter as the local
+// boundaries q_main = main_len - q_off and k_main = main_len - k_off.
 //
-// Built without --use_fast_math (ops/kernel_build.py): exp2f keeps its accurate path, so p
-// and ds round to bf16 where the plain version's do, at a cost that is small next to the four
-// products. On an H100 the outputs stay within 4e-3 of max |ref| (PERF.md).
+// Built without --use_fast_math (ops/kernel_build.py): exp2f keeps its accurate path (not the
+// forward header's ex2.approx), so p and ds round to bf16 where the plain version's do, at a cost
+// that is small next to the products. On an H100 the outputs stay within 4e-3 of max |ref|
+// (PERF.md).
 
-#include "flash_common.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace {
 
-constexpr int kRows = 64;              // resident rows per block (q rows in K6a, k rows in K6b)
+constexpr int kRows = 64;              // resident rows per block (q rows in K7b, k rows in K7c)
 constexpr int kWarps = kRows / 16;
 constexpr int kThreads = kWarps * 32;
-constexpr int kDqKeys = 64;  // K6a: keys per streamed K/V tile
-constexpr int kKvQ = 32;     // K6b: q rows per streamed Q/dO tile
+constexpr int kDqKeys = 64;  // K7b: keys per streamed K/V tile
+constexpr int kKvQ = 32;     // K7c: q rows per streamed Q/dO tile
 constexpr int kDqSmemBytes = (2 * kRows + 4 * kDqKeys) * kHeadDim * 2;  // Q, dO + 2 x (K, V)
 constexpr int kKvSmemBytes = (2 * kRows + 4 * kKvQ) * kHeadDim * 2      // K, V + 2 x (Q, dO)
                              + 4 * kKvQ * 4;                            // 2 x (lse, delta)
@@ -85,8 +91,8 @@ __device__ __forceinline__ void load_b_nn(uint32_t (&r)[4], const bf16* tile, in
   ldmatrix_x4_trans(r, tile + swz(ks * 16 + (((lane >> 3) & 1) << 3) + (lane & 7), dp * 2 + (lane >> 4)));
 }
 
-// K6a / K7b: one block owns (batch*head, 64 q rows) and streams K/V tiles of 64 keys. The cond
-// boundary is local row q_main among queries, k_main among keys (both main_len for K6a).
+// K7b: one block owns (batch*head, 64 q rows) and streams K/V tiles of 64 keys. The cond
+// boundary is local row q_main among queries, k_main among keys.
 __device__ __forceinline__ void dq_block(unsigned char* smem_raw, const bf16* __restrict__ q,
                                          const bf16* __restrict__ k, const bf16* __restrict__ v,
                                          const bf16* __restrict__ dout,
@@ -216,7 +222,7 @@ __device__ __forceinline__ void dq_block(unsigned char* smem_raw, const bf16* __
   }
 }
 
-// K6b / K7c: one block owns (batch*head, 64 k rows) and streams Q/dO tiles of 32 q rows with
+// K7c: one block owns (batch*head, 64 k rows) and streams Q/dO tiles of 32 q rows with
 // their lse and delta values; q_main and k_main as in dq_block.
 __device__ __forceinline__ void dkv_block(unsigned char* smem_raw, const bf16* __restrict__ q,
                                           const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -364,41 +370,26 @@ __device__ __forceinline__ void dkv_block(unsigned char* smem_raw, const bf16* _
   }
 }
 
-#define DQ_PARAMS                                                                              \
-  const bf16 *__restrict__ q, const bf16 *__restrict__ k, const bf16 *__restrict__ v,           \
-      const bf16 *__restrict__ dout, const float *__restrict__ lse,                             \
-      const float *__restrict__ delta, bf16 *__restrict__ dq, int L, int H, Strides s,          \
-      int q_main, int k_main, int has_cross, float cross_bias_log2, float scale_log2, float scale
-#define DKV_PARAMS                                                                             \
-  const bf16 *__restrict__ q, const bf16 *__restrict__ k, const bf16 *__restrict__ v,           \
-      const bf16 *__restrict__ dout, const float *__restrict__ lse,                             \
-      const float *__restrict__ delta, bf16 *__restrict__ dk, bf16 *__restrict__ dv, int L,     \
-      int H, Strides s, int q_main, int k_main, int has_cross, float cross_bias_log2,           \
-      float scale_log2, float scale
-
-// K6a: q_main and k_main are both main_len (the entry passes it twice).
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(DQ_PARAMS) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  dq_block(smem_raw, q, k, v, dout, lse, delta, dq, L, H, s, q_main, q_main, has_cross,
-           cross_bias_log2, scale_log2, scale);
-}
-
 // K7b
-__global__ void __launch_bounds__(kThreads) flash_chunk_bwd_dq_kernel(DQ_PARAMS) {
+__global__ void __launch_bounds__(kThreads)
+flash_chunk_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int L, int H, Strides s, int q_main, int k_main,
+                          int has_cross, float cross_bias_log2, float scale_log2, float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   dq_block(smem_raw, q, k, v, dout, lse, delta, dq, L, H, s, q_main, k_main, has_cross,
            cross_bias_log2, scale_log2, scale);
 }
 
-// K6b
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(DKV_PARAMS) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  dkv_block(smem_raw, q, k, v, dout, lse, delta, dk, dv, L, H, s, q_main, q_main, has_cross,
-            cross_bias_log2, scale_log2, scale);
-}
-
 // K7c
-__global__ void __launch_bounds__(kThreads) flash_chunk_bwd_dkv_kernel(DKV_PARAMS) {
+__global__ void __launch_bounds__(kThreads)
+flash_chunk_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int H, Strides s,
+                           int q_main, int k_main, int has_cross, float cross_bias_log2,
+                           float scale_log2, float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   dkv_block(smem_raw, q, k, v, dout, lse, delta, dk, dv, L, H, s, q_main, k_main, has_cross,
             cross_bias_log2, scale_log2, scale);
@@ -409,15 +400,98 @@ Strides make_strides(const long long* st) {
                  st[6], st[7], st[8], st[9], st[10], st[11]};
 }
 
-int launch_dq(void (*kernel)(DQ_PARAMS), const void* q, const void* k, const void* v,
-              const void* dout, const void* lse, const void* delta, void* dq, int B, int L, int H,
-              const long long* strides, int q_main, int k_main, float cross_bias, void* stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes);
+// K6a
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, int L, int H, int main_len, int has_cross,
+                    float cross_bias_log2, float scale_log2, float scale) {
+  // not smem_raw: K7b/K7c's declaration of the same dynamic shared memory asks for another alignment
+  extern __shared__ __align__(1024) unsigned char smem_ws[];
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * sm90::kBlockM;
+  sm90::dq_ws(
+      smem_ws,
+      [&](uint32_t dst, uint32_t bar) {
+        sm90::mbar_expect_tx(bar, 2 * sm90::kTileBytes);
+        sm90::tma_rows<sm90::kBlockM>(dst, &tq, bar, h, q0, b);
+        sm90::tma_rows<sm90::kBlockM>(dst + sm90::kTileBytes, &to, bar, h, q0, b);
+      },
+      [&](uint32_t dst, uint32_t bar, int k0) {
+        sm90::mbar_expect_tx(bar, 2 * sm90::kHalfTileBytes);
+        sm90::tma_rows<sm90::kTileRows>(dst, &tk, bar, h, k0, b);
+        sm90::tma_rows<sm90::kTileRows>(dst + sm90::kHalfTileBytes, &tv, bar, h, k0, b);
+      },
+      lse, delta, dq, q0, b, h, L, H, main_len, has_cross, cross_bias_log2, scale_log2, scale);
+}
+
+// K6b
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int H, int main_len,
+                     int has_cross, float cross_bias_log2, float scale_log2, float scale) {
+  extern __shared__ __align__(1024) unsigned char smem_ws[];
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * sm90::kBlockM;
+  const float* lrow = lse + static_cast<long long>(bh) * L;
+  const float* drow = delta + static_cast<long long>(bh) * L;
+  sm90::dkv_ws(
+      smem_ws,
+      [&](uint32_t dst, uint32_t bar) {
+        sm90::mbar_expect_tx(bar, 2 * sm90::kTileBytes);
+        sm90::tma_rows<sm90::kBlockM>(dst, &tk, bar, h, k0, b);
+        sm90::tma_rows<sm90::kBlockM>(dst + sm90::kTileBytes, &tv, bar, h, k0, b);
+      },
+      [&](uint32_t dst, uint32_t bar, int q0) {
+        sm90::mbar_expect_tx(bar, 2 * sm90::kHalfTileBytes);
+        sm90::tma_rows<sm90::kTileRows>(dst, &tq, bar, h, q0, b);
+        sm90::tma_rows<sm90::kTileRows>(dst + sm90::kHalfTileBytes, &to, bar, h, q0, b);
+      },
+      [&](float* vals, int q0, int lane) {  // lse * log2 e, then delta, of rows q0 .. q0 + 63
+        for (int i = lane; i < sm90::kTileRows; i += 32) {
+          const bool ok = q0 + i < L;
+          vals[i] = ok ? lrow[q0 + i] * sm90::kLog2e : 0.f;
+          vals[sm90::kTileRows + i] = ok ? drow[q0 + i] : 0.f;
+        }
+      },
+      dk, dv, k0, b, h, L, H, main_len, has_cross, cross_bias_log2, scale_log2, scale);
+}
+
+// The four tensor maps of a K6 launch: the resident pair at 128-row boxes, the streamed pair at
+// 64-row boxes (q, k, v, dout strides in `st`, three each).
+bool encode_bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v,
+                     const void* dout, int B, int L, int H, const long long* st, bool q_resident) {
+  const int rq = q_resident ? sm90::kBlockM : sm90::kTileRows;
+  const int rk = q_resident ? sm90::kTileRows : sm90::kBlockM;
+  return sm90::encode_rows(&m[0], q, B, L, H, st[0], st[1], st[2], rq) &&
+         sm90::encode_rows(&m[1], k, B, L, H, st[3], st[4], st[5], rk) &&
+         sm90::encode_rows(&m[2], v, B, L, H, st[6], st[7], st[8], rk) &&
+         sm90::encode_rows(&m[3], dout, B, L, H, st[9], st[10], st[11], rq);
+}
+
+template <class Kernel, class... Args>
+int launch_ws(Kernel kernel, int B, int L, int H, void* stream, Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm90::kBwdSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L + sm90::kBlockM - 1) / sm90::kBlockM, B * H);
+  kernel<<<grid, sm90::kThreads, sm90::kBwdSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, int B, int L, int H, const long long* strides,
+              int q_main, int k_main, float cross_bias, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(flash_chunk_bwd_dq_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((L + kRows - 1) / kRows, B * H);
   const float scale = 1.f / sqrtf(static_cast<float>(kHeadDim));
-  kernel<<<grid, kThreads, kDqSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  flash_chunk_bwd_dq_kernel<<<grid, kThreads, kDqSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dq), L, H, make_strides(strides),
@@ -425,16 +499,15 @@ int launch_dq(void (*kernel)(DQ_PARAMS), const void* q, const void* k, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_dkv(void (*kernel)(DKV_PARAMS), const void* q, const void* k, const void* v,
-               const void* dout, const void* lse, const void* delta, void* dk, void* dv, int B,
-               int L, int H, const long long* strides, int q_main, int k_main, float cross_bias,
-               void* stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kKvSmemBytes);
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, int B, int L, int H,
+               const long long* strides, int q_main, int k_main, float cross_bias, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(flash_chunk_bwd_dkv_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kKvSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((L + kRows - 1) / kRows, B * H);
   const float scale = 1.f / sqrtf(static_cast<float>(kHeadDim));
-  kernel<<<grid, kThreads, kKvSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  flash_chunk_bwd_dkv_kernel<<<grid, kThreads, kKvSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), L, H,
@@ -445,18 +518,26 @@ int launch_dkv(void (*kernel)(DKV_PARAMS), const void* q, const void* k, const v
 
 }  // namespace
 
-// q, k, v, dout: (B, L, H, 128) bf16 with unit stride on the last dim and 16-byte aligned
-// rows; `strides` holds their (batch, row, head) element strides in that order (12 values).
-// lse, delta: contiguous (B*H, L) fp32. dq, dk, dv: contiguous (B, L, H, 128) bf16. Each
-// launches on `stream` and returns cudaGetLastError(); none synchronises. The chunk entries
+// q, k, v, dout: (B, L, H, 128) bf16 with unit stride on the last dim, strides that are
+// multiples of 8 elements and 16-byte aligned bases (TMA's terms for K6a/K6b; K7b/K7c need only
+// 16-byte aligned rows); `strides` holds their (batch, row, head) element strides in that order
+// (12 values). lse, delta: contiguous (B*H, L) fp32. dq, dk, dv: contiguous (B, L, H, 128) bf16.
+// Each launches on `stream` and returns the first cudaError (K6a/K6b: cudaErrorInvalidValue if
+// a tensor map cannot be encoded); none synchronises. The chunk entries
 // (K7b, K7c) take the ring-global cond boundary main_len and the ring-global positions q_off /
 // k_off of the chunk's first query and first key; lse and delta are the ring-global rows.
 extern "C" int flash_bwd_dq_bf16_d128(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       void* dq, int B, int L, int H, const long long* strides,
                                       int main_len, float cross_bias, void* stream) {
-  return launch_dq(flash_bwd_dq_kernel, q, k, v, dout, lse, delta, dq, B, L, H, strides, main_len,
-                   main_len, cross_bias, stream);
+  CUtensorMap m[4];
+  if (B < 1 || L < 1 || H < 1 || !encode_bwd_maps(m, q, k, v, dout, B, L, H, strides, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_ws(flash_bwd_dq_kernel, B, L, H, stream, m[0], m[1], m[2], m[3],
+                   static_cast<const float*>(lse), static_cast<const float*>(delta),
+                   static_cast<bf16*>(dq), L, H, main_len, cross_bias != 0.f ? 1 : 0,
+                   cross_bias * kLog2e, kLog2e / sqrtf(static_cast<float>(kHeadDim)),
+                   1.f / sqrtf(static_cast<float>(kHeadDim)));
 }
 
 extern "C" int flash_bwd_dkv_bf16_d128(const void* q, const void* k, const void* v,
@@ -464,8 +545,15 @@ extern "C" int flash_bwd_dkv_bf16_d128(const void* q, const void* k, const void*
                                        void* dk, void* dv, int B, int L, int H,
                                        const long long* strides, int main_len, float cross_bias,
                                        void* stream) {
-  return launch_dkv(flash_bwd_dkv_kernel, q, k, v, dout, lse, delta, dk, dv, B, L, H, strides,
-                    main_len, main_len, cross_bias, stream);
+  CUtensorMap m[4];
+  if (B < 1 || L < 1 || H < 1 || !encode_bwd_maps(m, q, k, v, dout, B, L, H, strides, false))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_ws(flash_bwd_dkv_kernel, B, L, H, stream, m[0], m[1], m[2], m[3],
+                   static_cast<const float*>(lse), static_cast<const float*>(delta),
+                   static_cast<bf16*>(dk), static_cast<bf16*>(dv), L, H, main_len,
+                   cross_bias != 0.f ? 1 : 0, cross_bias * kLog2e,
+                   kLog2e / sqrtf(static_cast<float>(kHeadDim)),
+                   1.f / sqrtf(static_cast<float>(kHeadDim)));
 }
 
 extern "C" int flash_chunk_bwd_dq_bf16_d128(const void* q, const void* k, const void* v,
@@ -473,7 +561,7 @@ extern "C" int flash_chunk_bwd_dq_bf16_d128(const void* q, const void* k, const 
                                             void* dq, int B, int L, int H,
                                             const long long* strides, int main_len, int q_off,
                                             int k_off, float cross_bias, void* stream) {
-  return launch_dq(flash_chunk_bwd_dq_kernel, q, k, v, dout, lse, delta, dq, B, L, H, strides,
+  return launch_dq(q, k, v, dout, lse, delta, dq, B, L, H, strides,
                    main_len - q_off, main_len - k_off, cross_bias, stream);
 }
 
@@ -482,6 +570,6 @@ extern "C" int flash_chunk_bwd_dkv_bf16_d128(const void* q, const void* k, const
                                              void* dk, void* dv, int B, int L, int H,
                                              const long long* strides, int main_len, int q_off,
                                              int k_off, float cross_bias, void* stream) {
-  return launch_dkv(flash_chunk_bwd_dkv_kernel, q, k, v, dout, lse, delta, dk, dv, B, L, H,
+  return launch_dkv(q, k, v, dout, lse, delta, dk, dv, B, L, H,
                     strides, main_len - q_off, main_len - k_off, cross_bias, stream);
 }

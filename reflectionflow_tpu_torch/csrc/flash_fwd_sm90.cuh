@@ -1,6 +1,8 @@
 // The Hopper (sm_90a) forward flash-attention pipeline: TMA, mbarriers, wgmma and warp
 // specialisation. K1 (flash_fwd.cu), K8b (flash_fwd_int8.cu) and K9b (flash_fwd_nr.cu) run on
-// it; only K7a, the ring-chunk forward, still runs on flash_fwd_tile.cuh.
+// it; only K7a, the ring-chunk forward, still runs on flash_fwd_tile.cuh. The backward pipeline
+// of K6a/K6b, flash_bwd_sm90.cuh, builds on its primitives (mbarriers, TMA, descriptors, wgmma,
+// setmaxnreg, encode_rows).
 //
 // One block owns (batch*head, kBlockM = 128 query rows) and has three warpgroups:
 //   * warpgroup 0, the producer, with its registers cut to kProducerRegs by setmaxnreg. One of
@@ -72,7 +74,7 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr uint32_t kInt8TileBytes = 128 * kHeadDim;  // one [128][128] int8 box, 16 KB
-static_assert(kBlockM == kBlockN, "Q, K and V tiles share one box shape (encode_rows)");
+static_assert(kBlockM == kBlockN, "the forward's Q, K and V tiles share one box shape");
 
 // A consumer thread's share of its warpgroup's 64 x 128 logits in the wgmma accumulator
 // layout: [n][e] is row 16 * warp + lane / 4 (+ 8 for e >= 2), key 8 n + 2 (lane % 4) + e % 2.
@@ -142,13 +144,21 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// Rows [row0, row0 + 128) of head h of batch b of a map made by encode_rows, as two 64-column
-// boxes at dst and dst + kBoxBytes, with their bytes expected on bar.
+// Issues the TMA loads of rows [row0, row0 + ROWS) of head h of batch b of a map made by
+// encode_rows with ROWS-row boxes, as two 64-column boxes at dst and dst + ROWS * 128,
+// completing on bar (whose expect_tx the caller has issued).
+template <int ROWS>
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int h, int row0, int b) {
+  tma_load_4d(dst, map, bar, 0, h, row0, b);
+  tma_load_4d(dst + ROWS * 128, map, bar, kBoxCols, h, row0, b);
+}
+
+// Rows [row0, row0 + 128) of head h of batch b, with their bytes expected on bar.
 __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                           int h, int row0, int b) {
   mbar_expect_tx(bar, kTileBytes);
-  tma_load_4d(dst, map, bar, 0, h, row0, b);
-  tma_load_4d(dst + kBoxBytes, map, bar, kBoxCols, h, row0, b);
+  tma_rows<kBlockM>(dst, map, bar, h, row0, b);
 }
 
 __device__ __forceinline__ float2 lds_f2(uint32_t addr) {
@@ -209,17 +219,19 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keeps the compiler from moving reads or writes of a wgmma operand held in registers (an
 // accumulator, or P) across the asynchronous wgmma that uses it.
-__device__ __forceinline__ void fence_acc(float (&d)[16][4]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N][4]) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < N; ++i) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e]) :: "memory");
   }
 }
 
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[8][4]) {
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < N; ++i) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e]) :: "memory");
   }
@@ -341,37 +353,46 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// logits = s * scale, then, in the TPU kernels' order: a query and a key on opposite sides of
-// main_len get `bias` (log2 units) when has_cross, and keys >= L are masked. row is the
-// thread's first query row (the second is row + 8). Only the tile that straddles main_len
-// needs the side of each key; elsewhere a row's bias is one value.
-__device__ __forceinline__ void scale_bias_mask(ScoreTile& sc, float scale, int k0, int row,
-                                                int L, int main_len, int has_cross, float bias,
-                                                int lane) {
-  const int t4 = lane & 3;
-  if (has_cross && k0 < main_len && k0 + kBlockN > main_len) {
+// s = s * scale, then, in the TPU kernels' order, `bias` (log2 units) where the row and the
+// column lie on opposite sides of main_len (has_cross), over an accumulator tile of 8 N columns:
+// rows row (e < 2) and row + 8, columns c0 + 8 n + 2 t4 + e % 2. Rows are queries and columns
+// keys, or the other way round (K6b; the cross predicate is symmetric). Only a tile that
+// straddles main_len needs the side of each column; elsewhere a row's bias is one value.
+template <int N>
+__device__ __forceinline__ void scale_bias(float (&sc)[N][4], float scale, int c0, int row,
+                                           int main_len, int has_cross, float bias, int t4) {
+  if (has_cross && c0 < main_len && c0 + 8 * N > main_len) {
 #pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n) {
+    for (int n = 0; n < N; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + n * 8 + t4 * 2 + (e & 1);
-        const int qpos = e < 2 ? row : row + 8;
-        const bool cross = (qpos >= main_len) != (kpos >= main_len);
+        const int cpos = c0 + n * 8 + t4 * 2 + (e & 1);
+        const int rpos = e < 2 ? row : row + 8;
+        const bool cross = (rpos >= main_len) != (cpos >= main_len);
         sc[n][e] = sc[n][e] * scale + (cross ? bias : 0.f);
       }
     }
   } else {
-    const bool k_cond = k0 >= main_len;
-    const float b0 = has_cross && ((row >= main_len) != k_cond) ? bias : 0.f;
-    const float b1 = has_cross && ((row + 8 >= main_len) != k_cond) ? bias : 0.f;
+    const bool c_cond = c0 >= main_len;
+    const float b0 = has_cross && ((row >= main_len) != c_cond) ? bias : 0.f;
+    const float b1 = has_cross && ((row + 8 >= main_len) != c_cond) ? bias : 0.f;
 #pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n) {
+    for (int n = 0; n < N; ++n) {
       sc[n][0] = sc[n][0] * scale + b0;
       sc[n][1] = sc[n][1] * scale + b0;
       sc[n][2] = sc[n][2] * scale + b1;
       sc[n][3] = sc[n][3] * scale + b1;
     }
   }
+}
+
+// The forward's score step: scale_bias over the tile of keys [k0, k0 + 128) for the thread's
+// query rows row and row + 8, then keys >= L masked.
+__device__ __forceinline__ void scale_bias_mask(ScoreTile& sc, float scale, int k0, int row,
+                                                int L, int main_len, int has_cross, float bias,
+                                                int lane) {
+  const int t4 = lane & 3;
+  scale_bias(sc, scale, k0, row, main_len, has_cross, bias, t4);
   if (k0 + kBlockN > L) {
 #pragma unroll
     for (int n = 0; n < kBlockN / 8; ++n) {
@@ -599,17 +620,17 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A 4-D map over a (B, L, H, 128) bf16 tensor with element strides sb, sl, sh and a unit last
-// stride: dims {128, H, L, B}, boxes of 64 columns x 1 head x 128 rows x 1 batch, 128-byte
+// stride: dims {128, H, L, B}, boxes of 64 columns x 1 head x box_rows rows x 1 batch, 128-byte
 // swizzle, zeros outside. TMA needs a 16-byte aligned base and strides of 16-byte multiples.
 inline bool encode_rows(CUtensorMap* map, const void* base, int B, int L, int H, long long sb,
-                        long long sl, long long sh) {
+                        long long sl, long long sh, int box_rows = kBlockM) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kHeadDim), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(sl) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kBoxCols, 1, kBlockM, 1};
+  const cuuint32_t box[4] = {kBoxCols, 1, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,

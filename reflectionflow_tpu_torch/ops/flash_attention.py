@@ -7,17 +7,23 @@ Counterpart of `reflectionflow_tpu/ops/pallas_attention.py`:
 (K6b); and `flash_chunk_fwd` / `flash_chunk_bwd`, the same three bodies on one
 ring chunk with ring-global offsets (K7a, K7b, K7c), which
 `ops.ring_attention` runs. The kernels are `csrc/flash_fwd.cu` and
-`csrc/flash_bwd.cu` (CUDA C++ for sm_90a, built by `ops/kernel_build.py`;
-K1 runs on the Hopper pipeline of `csrc/flash_fwd_sm90.cuh`: TMA, wgmma,
-warp specialisation); their source notes say what bounds them and how the
-design answers that.
+`csrc/flash_bwd.cu` (CUDA C++ for sm_90a, built by `ops/kernel_build.py`).
+K1 runs on the Hopper pipeline of `csrc/flash_fwd_sm90.cuh` and K6a/K6b on
+its backward counterpart `csrc/flash_bwd_sm90.cuh` (TMA, wgmma, warp
+specialisation); K7a/K7b/K7c keep the earlier `mma.sync` bodies. The
+source notes say what bounds each kernel and how the design answers that.
 `FlashAttention` is the `torch.autograd.Function` that joins K1 forward and
 K6a + K6b backward.
 
 Dispatch: a CUDA tensor goes to the kernel, or the wrapper raises. A CPU
-tensor goes to the plain version (`flash_attention_ref`,
-`flash_attention_bwd_ref`), the same function written in plain PyTorch in
-fp32; it is also what `chip_smoke.py` holds the kernels against.
+tensor given to `flash_attention_fwd`, `flash_attention_bwd`,
+`flash_chunk_fwd` or `flash_chunk_bwd` goes to the plain version
+(`flash_attention_ref`, `flash_attention_bwd_ref`, ...), the same function
+written in plain PyTorch in fp32; it is also what `chip_smoke.py` holds the
+kernels against. The four backward kernel entries (`flash_bwd_dq`,
+`flash_bwd_dkv`, `flash_chunk_bwd_dq`, `flash_chunk_bwd_dkv`) take CUDA
+tensors only: after their dtype, shape and layout checks they raise
+`NotImplementedError` for any other device.
 
 Semantics (all as the TPU kernels): scale 1/sqrt(D); tokens at or past
 `main_len` form the cond segment and (cond x main) logits get `cross_bias`
@@ -179,6 +185,9 @@ flash_attention_fwd.launches = 0
 
 
 def _check_bwd_inputs(q, k, v, do, lse, delta, main_len):
+    """The backward entries' checks: dtype, shape and layout first (so a
+    meta tensor gets the error that names it), then the device, before any
+    build or launch."""
     _check_cuda_inputs(q, k, v, main_len, ("do", do))
     B, L, H, _ = q.shape
     for name, x in (("lse", lse), ("delta", delta)):
@@ -186,6 +195,8 @@ def _check_bwd_inputs(q, k, v, do, lse, delta, main_len):
                 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous fp32 (B, H, L) tensor on {q.device}, "
                              f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if q.device.type != "cuda":
+        raise NotImplementedError(f"flash_bwd has no kernel for device {q.device}")
 
 
 def _launch_bwd(fn, q, k, v, do, lse, delta, outs, ints, cross_bias):
@@ -205,7 +216,8 @@ def _launch_bwd(fn, q, k, v, do, lse, delta, outs, ints, cross_bias):
 
 def flash_bwd_dq(q, k, v, do, lse, delta, main_len: int, cross_bias: float = 0.0):
     """K6a: dQ (B, L, H, 128) bf16 from q/k/v/dO and the fp32 (B, H, L) lse
-    and delta = rowsum(dO * O). CUDA tensors only; `.launches` counts launches."""
+    and delta = rowsum(dO * O). CUDA tensors only (another device raises
+    NotImplementedError); `.launches` counts launches."""
     _check_bwd_inputs(q, k, v, do, lse, delta, main_len)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd(_bind_bwd("flash_bwd_dq_bf16_d128", 7), q, k, v, do, lse, delta, (dq,),
@@ -345,8 +357,8 @@ flash_chunk_fwd.launches = 0
 def flash_chunk_bwd_dq(q, k, v, do, lse, delta, main_len: int, cross_bias: float,
                        q_offset: int, k_offset: int):
     """K7b: the chunk's dQ (B, L, H, 128) bf16 from the ring-global fp32
-    (B, H, L) lse and delta. CUDA tensors only; the modifiers as
-    `_chunk_modifiers` gives them. `.launches` counts launches."""
+    (B, H, L) lse and delta. CUDA tensors only, as `flash_bwd_dq`; the
+    modifiers as `_chunk_modifiers` gives them. `.launches` counts launches."""
     _check_bwd_inputs(q, k, v, do, lse, delta, None)
     _check_offsets(main_len, q_offset, k_offset)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)

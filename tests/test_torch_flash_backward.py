@@ -17,9 +17,10 @@ import torch
 
 from reflectionflow_tpu.ops.pallas_attention import flash_attention_structured
 from reflectionflow_tpu_torch.ops.attention import joint_attention
+from reflectionflow_tpu_torch.ops import kernel_build
 from reflectionflow_tpu_torch.ops.flash_attention import (
     FlashAttention, flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
-    flash_attention_ref, flash_bwd_dkv, flash_bwd_dq)
+    flash_attention_ref, flash_bwd_dkv, flash_bwd_dq, flash_chunk_bwd_dkv, flash_chunk_bwd_dq)
 
 torch.set_num_threads(1)
 REL_TOL = 1e-4
@@ -95,15 +96,35 @@ def test_joint_attention_pallas_is_differentiable():
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
-def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
-    """K6a/K6b wrappers take CUDA tensors only; the CPU path never counts."""
-    q, k, v, w = (torch.from_numpy(x) for x in _inputs(32, seed=4))
-    out, lse = flash_attention_fwd(q, k, v)
-    delta = (w * out).sum(-1).transpose(1, 2).contiguous()
-    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
-    with pytest.raises(TypeError, match="bf16"):
-        flash_bwd_dq(q, k, v, w, lse, delta, 32)
-    with pytest.raises(TypeError, match="bf16"):
-        flash_bwd_dkv(q, k, v, w, lse, delta, 32)
-    flash_attention_bwd(q, k, v, out, lse, w)
-    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == before
+BWD_ENTRIES = {  # K6a, K6b, K7b, K7c: the entry and its arguments after (q, k, v, do, lse, delta)
+    "flash_bwd_dq": (flash_bwd_dq, (32,)),
+    "flash_bwd_dkv": (flash_bwd_dkv, (32,)),
+    "flash_chunk_bwd_dq": (flash_chunk_bwd_dq, (16, math.log(0.5), 0, 32)),
+    "flash_chunk_bwd_dkv": (flash_chunk_bwd_dkv, (16, math.log(0.5), 0, 32)),
+}
+COUNTED = (flash_bwd_dq, flash_bwd_dkv, flash_chunk_bwd_dq, flash_chunk_bwd_dkv)
+
+
+@pytest.mark.parametrize("dtype,error", [(torch.float32, TypeError), (torch.bfloat16, NotImplementedError)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("entry", list(BWD_ENTRIES))
+def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing(entry, dtype, error, monkeypatch):
+    """The four backward kernel entries take CUDA tensors only: fp32 stops at
+    the dtype check, bf16 CPU tensors at the device check after the layout
+    checks. Neither builds nor counts a launch; the CPU path never counts."""
+    def no_build(*_):
+        raise AssertionError("a refused call reached the kernel build")
+
+    monkeypatch.setattr(kernel_build, "build_all", no_build)
+    monkeypatch.setattr(kernel_build, "load", no_build)
+    rng = np.random.default_rng(4)  # the kernels' head dim, so only the device stops bf16
+    q, k, v, w = (torch.from_numpy(rng.standard_normal((1, 32, 2, 128)).astype(np.float32)).to(dtype)
+                  for _ in range(4))
+    out, lse = flash_attention_fwd(q.float(), k.float(), v.float())
+    delta = (w.float() * out).sum(-1).transpose(1, 2).contiguous()
+    before = [fn.launches for fn in COUNTED]
+    fn, args = BWD_ENTRIES[entry]
+    with pytest.raises(error, match="bf16" if error is TypeError else "no kernel for device cpu"):
+        fn(q, k, v, w, lse, delta, *args)
+    flash_attention_bwd(q, k, v, out.to(dtype), lse, w)
+    assert [fn.launches for fn in COUNTED] == before
