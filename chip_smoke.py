@@ -13,7 +13,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (`csrc/flash_fwd_nr.cu`) into `.build/kernels/`, one nvcc per source,
      all started together; prints ptxas's registers and spills per kernel;
      checks that each kernel on the Hopper pipelines `csrc/flash_fwd_sm90.cuh`
-     (K1, K8b, K9b) and `csrc/flash_bwd_sm90.cuh` (K6a, K6b) holds wgmma
+     (K1, K7a, K8b, K9b) and `csrc/flash_bwd_sm90.cuh` (K6a, K6b, K7c) holds wgmma
      (HGMMA; K8b also the integer IGMMA) and TMA (UTMALDG) instructions and no
      mma.sync (HMMA, IMMA), spills nothing, that ptxas honoured its
      setmaxnreg (no warning C7508) and did not serialize its wgmma
@@ -37,8 +37,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      both sides of main_len, cross bias 0, log 0.5 and -1e30; the backward
      from the whole sequence's lse and delta rows. A row that sees no key
      under the mask must carry lse <= -1e29 (its ring merge weight is 0).
-     Times each kernel, its plain version and SDPA with the chunk's float
-     mask (forward; backward printed; yardsticks only) at the two chunk shapes;
+     At (8, 640, log 0.5) a second K7c launch must give bitwise the same dK
+     and dV (no atomics). Times each kernel, its plain version and SDPA with
+     the chunk's float mask (forward; backward printed; yardsticks only) at
+     the two chunk shapes, with K7a's and K7c's TFLOP/s and shares of the
+     bound and each kernel's device time (profiler);
   4. K2–K5 against their plain versions on the card at every shape the W8A8
      path gives them (strided panel slices included) and at a ragged
      L = 4608 + 77; times each kernel and its plain version in turns at
@@ -244,15 +247,17 @@ def device_ms(torch, fn, iters: int) -> float:
 
 HOPPER_KERNELS = (  # label, source, kernel: the kernels on flash_fwd_sm90.cuh / flash_bwd_sm90.cuh
     ("K1", "flash_fwd.cu", "flash_fwd_kernel"),
+    ("K7a", "flash_fwd.cu", "flash_chunk_fwd_kernel"),
     ("K8b", "flash_fwd_int8.cu", "flash_fwd_int8_kernel"),
     ("K9b", "flash_fwd_nr.cu", "flash_fwd_nr_kernel"),
     ("K6a", "flash_bwd.cu", "flash_bwd_dq_kernel"),
     ("K6b", "flash_bwd.cu", "flash_bwd_dkv_kernel"),
+    ("K7c", "flash_bwd.cu", "flash_chunk_bwd_dkv_kernel"),
 )
 
 
 def hopper_check(kernel_build, ptxas) -> dict:
-    """K1, K8b, K9b, K6a and K6b are built as designed for Hopper: TMA (UTMALDG) and
+    """K1, K7a, K8b, K9b, K6a, K6b and K7c are built as designed for Hopper: TMA (UTMALDG) and
     wgmma instructions (HGMMA for the bf16 products; K8b's int8 QK^T also an
     integer GMMA, IGMMA as cuobjdump prints it), no mma.sync (HMMA, IMMA), no
     spills, ptxas honoured their setmaxnreg (no warning C7508) and did not
@@ -449,17 +454,19 @@ def k7_phase(torch):
     (chunks of 1000, not a multiple of 64); offset pairs with 0 and non-zero
     starts on both sides of main_len, cross bias 0, log 0.5 and -1e30. The
     backward takes the ring-global lse and delta rows of the whole sequence
-    (from K1). Each kernel, its plain version and SDPA (forward and backward,
-    with the chunk's float mask; yardsticks only) timed at the two chunk
-    shapes with a live cross bias."""
+    (from K1). At the training chunk with the log 0.5 bias a second K7c
+    launch must be bitwise equal to the first. Each kernel, its plain version
+    and SDPA (forward and backward, with the chunk's float mask; yardsticks
+    only) timed at the two chunk shapes with a live cross bias."""
     import torch.nn.functional as F
 
     from reflectionflow_tpu_torch.ops.flash_attention import (
-        flash_attention_fwd, flash_chunk_bwd, flash_chunk_bwd_ref, flash_chunk_fwd, flash_chunk_fwd_ref)
+        flash_attention_fwd, flash_chunk_bwd, flash_chunk_bwd_dkv, flash_chunk_bwd_ref, flash_chunk_fwd,
+        flash_chunk_fwd_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     res = {"fwd": {"err": 0.0, "lse_err": 0.0}, "dq": {"err": 0.0, "rel": 0.0},
-           "dkv": {"err": 0.0, "rel": 0.0}, "by_shape": {}, "cases": 0}
+           "dkv": {"err": 0.0, "rel": 0.0}, "by_shape": {}, "cases": 0, "dkv_bitwise_cases": 0}
     with torch.no_grad():
         for B, L, main_len, pairs, timed in K7_SHAPES:
             Lc = L // RING
@@ -498,6 +505,14 @@ def k7_phase(torch):
                         f"max|err| {', '.join(msg)}")
                     check(e_out <= OUT_TOL and e_lse <= LSE_TOL and hidden_ok,
                           f"K7a disagrees with its plain version at B={B} Lc={Lc} offsets ({q_off}, {k_off})")
+                    if B == 8 and cb == math.log(0.5):  # no atomics: a second launch is bitwise equal
+                        again = flash_chunk_bwd_dkv(qc, kc, vc, doc, g_lse, g_delta, main_len, cb, q_off, k_off)
+                        same = [torch.equal(a, g) for a, g in zip(again, got[1:])]
+                        log(f"K7c B={B} Lc={Lc} offsets ({q_off}, {k_off}) cross_bias={cb}: second launch "
+                            f"bitwise equal (dk, dv) {same}")
+                        check(all(same), "K7c's second launch differs from its first")
+                        res["dkv_bitwise_cases"] += 1
+                        del again
                     res["fwd"]["err"] = max(res["fwd"]["err"], e_out)
                     res["fwd"]["lse_err"] = max(res["fwd"]["lse_err"], e_lse)
                     res["cases"] += 1
@@ -546,17 +561,31 @@ def _time_k7(torch, F, q, k, v, do, lse, delta, main_len, cb, q_off, k_off, Lc):
     rows = B * 24 * Lc * 4
     b_fwd, b_dq, b_dkv = (bound(4 * pairs, 4 * io + rows), bound(6 * pairs, 5 * io + 2 * rows),
                           bound(8 * pairs, 6 * io + 2 * rows))
+    rate = {key: (n * pairs / t / 1e9, b[0] / t) for key, n, t, b in (
+        ("fwd", 4, t_fwd, b_fwd), ("dq", 6, t_dq, b_dq), ("dkv", 8, t_dkv, b_dkv))}
+    # each kernel's own device time (profiler), without the wrapper's host time between launches
+    dev = {key: kernel_split_ms(torch, fn, 20, (tag,))[tag] for key, tag, fn in (
+        ("fwd", "flash_chunk_fwd_kernel", lambda: flash_chunk_fwd(qc, kc, vc, *mods)),
+        ("dq", "flash_chunk_bwd_dq_kernel",
+         lambda: flash_chunk_bwd_dq(qc, kc, vc, doc, g_lse, g_delta, *mods)),
+        ("dkv", "flash_chunk_bwd_dkv_kernel",
+         lambda: flash_chunk_bwd_dkv(qc, kc, vc, doc, g_lse, g_delta, *mods)))}
     log(f"K7 B={B} Lc={Lc} offsets ({q_off}, {k_off}) cross_bias={cb}: K7a {t_fwd:.4f} ms "
-        f"({4 * pairs / t_fwd / 1e9:.1f} TFLOP/s, bound {b_fwd[0]:.4f}), plain {p_fwd:.3f} ms; "
-        f"K7b {t_dq:.4f} ms (bound {b_dq[0]:.4f}), K7c {t_dkv:.4f} ms (bound {b_dkv[0]:.4f}), "
-        f"plain backward {p_bwd:.3f} ms; SDPA with the chunk's mask: forward {lib_fwd:.4f} ms, "
-        f"backward {lib_bwd:.4f} ms")
-    return {"fwd": {"ms": t_fwd, "plain_ms": p_fwd, "bound_ms": b_fwd[0], "bound_by": b_fwd[1],
-                    "library_ms": lib_fwd},
-            "dq": {"ms": t_dq, "plain_ms": p_bwd, "bound_ms": b_dq[0], "bound_by": b_dq[1],
-                   "library_ms": None, "sdpa_backward_ms": lib_bwd},
-            "dkv": {"ms": t_dkv, "plain_ms": p_bwd, "bound_ms": b_dkv[0], "bound_by": b_dkv[1],
-                    "library_ms": None, "sdpa_backward_ms": lib_bwd}}
+        f"({rate['fwd'][0]:.1f} TFLOP/s, bound {b_fwd[0]:.4f} ms, {rate['fwd'][1]:.1%} of it), "
+        f"plain {p_fwd:.3f} ms; K7b {t_dq:.4f} ms ({rate['dq'][0]:.1f} TFLOP/s, bound {b_dq[0]:.4f} ms, "
+        f"{rate['dq'][1]:.1%} of it), K7c {t_dkv:.4f} ms ({rate['dkv'][0]:.1f} TFLOP/s, bound "
+        f"{b_dkv[0]:.4f} ms, {rate['dkv'][1]:.1%} of it), plain backward {p_bwd:.3f} ms; SDPA with "
+        f"the chunk's mask: forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms; device time "
+        f"K7a {dev['fwd']:.4f}, K7b {dev['dq']:.4f}, K7c {dev['dkv']:.4f} ms")
+    out = {"fwd": {"ms": t_fwd, "plain_ms": p_fwd, "bound_ms": b_fwd[0], "bound_by": b_fwd[1],
+                   "library_ms": lib_fwd},
+           "dq": {"ms": t_dq, "plain_ms": p_bwd, "bound_ms": b_dq[0], "bound_by": b_dq[1],
+                  "library_ms": None, "sdpa_backward_ms": lib_bwd},
+           "dkv": {"ms": t_dkv, "plain_ms": p_bwd, "bound_ms": b_dkv[0], "bound_by": b_dkv[1],
+                   "library_ms": None, "sdpa_backward_ms": lib_bwd}}
+    for key, (tflops, share) in rate.items():
+        out[key].update(tflops=tflops, bound_share=share, device_ms=dev[key])
+    return out
 
 
 def fused_phase(torch):
@@ -1620,7 +1649,9 @@ def main() -> int:
     t0 = time.perf_counter()
     k7 = k7_phase(torch)
     t_k7 = time.perf_counter() - t0
-    log(f"K7 phase (3c): {k7['cases']} chunk cases in {t_k7:.1f} s")
+    log(f"K7 phase (3c): {k7['cases']} chunk cases ({k7['dkv_bitwise_cases']} with K7c's second launch) "
+        f"in {t_k7:.1f} s")
+    check(k7["dkv_bitwise_cases"] > 0, "K7c's second launch was not checked")
     fused = fused_phase(torch)
     serving_attn = serving_attn_phase(torch)
     pipe, bf16_launches, bf16_calls, bf16_peak = bf16_phase(torch)

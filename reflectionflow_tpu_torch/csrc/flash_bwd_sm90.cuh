@@ -1,5 +1,5 @@
-// The Hopper (sm_90a) flash-attention backward pipeline: K6a (dQ) and K6b (dK, dV) of
-// flash_bwd.cu run on it. It reuses the forward header's primitives (mbarriers, TMA, wgmma
+// The Hopper (sm_90a) flash-attention backward pipeline: K6a (dQ), K6b (dK, dV) and K7c (K6b on
+// one ring chunk) of flash_bwd.cu run on it. It reuses the forward header's primitives (mbarriers, TMA, wgmma
 // descriptors and products, setmaxnreg, the tensor-map encoders).
 //
 // One block owns (batch*head, 128 resident rows) and has three warpgroups, as the forward:
@@ -227,7 +227,7 @@ __device__ __forceinline__ void dq_ws(unsigned char* smem_raw, LoadQO&& load_qo,
           wgmma_commit();
           wgmma_wait<1>();
           fence_acc(s);
-          scale_bias(s, scale_log2, k0, row, main_len, has_cross, bias, t4);
+          scale_bias(s, scale_log2, k0, row, main_len, main_len, has_cross, bias, t4);
           const bool tail = k0 + kTileRows > L;
 #pragma unroll
           for (int n = 0; n < kTileRows / 8; ++n) {
@@ -260,8 +260,9 @@ __device__ __forceinline__ void dq_ws(unsigned char* smem_raw, LoadQO&& load_qo,
 }
 
 // K6b: dK and dV of the block's 128 keys [k0, k0 + 128) of head h of batch b. Resident: K and
-// V; streamed: Q and dO tiles of 64 query rows with their lse and delta values. Per tile, for
-// the warpgroup's 64 keys:
+// V; streamed: Q and dO tiles of 64 query rows with their lse and delta values. The rows of
+// its score tiles are keys and the columns query rows: the cond boundary is k_main among the rows
+// and q_main among the columns (both main_len for K6b). Per tile, for the warpgroup's 64 keys:
 //   S^T = K Q^T, dP^T = V dO^T (one wgmma group); p^T = exp2(S^T scale + bias - lse), 0 for
 //   query rows >= L, rounded to bf16 and dV += p^T dO issued; ds^T = p^T (dP^T - delta),
 //   rounded to bf16, while that runs; then dK += ds^T Q.
@@ -269,7 +270,7 @@ template <class LoadKV, class LoadQO, class LoadVals>
 __device__ __forceinline__ void dkv_ws(unsigned char* smem_raw, LoadKV&& load_kv,
                                        LoadQO&& load_qo, LoadVals&& load_vals,
                                        bf16* __restrict__ dk, bf16* __restrict__ dv, int k0, int b,
-                                       int h, int L, int H, int main_len, int has_cross,
+                                       int h, int L, int H, int k_main, int q_main, int has_cross,
                                        float bias, float scale_log2, float scale) {
   bwd_ws<true>(
       smem_raw, (L + kTileRows - 1) / kTileRows, load_kv, load_qo, load_vals,
@@ -299,7 +300,7 @@ __device__ __forceinline__ void dkv_ws(unsigned char* smem_raw, LoadKV&& load_kv
           wgmma_wait<0>();
           fence_acc(s);
           fence_acc(dp);
-          scale_bias(s, scale_log2, q0, row, main_len, has_cross, bias, t4);
+          scale_bias(s, scale_log2, q0, row, k_main, q_main, has_cross, bias, t4);
 #pragma unroll
           for (int n = 0; n < kTileRows / 8; ++n) {  // p^T in place (fp32), and rounded into pf
             const int col = n * 8 + t4 * 2;

@@ -1,6 +1,7 @@
-// Device helpers shared by the flash-attention kernels (K1 and K7a flash_fwd.cu, K6 and K7b/K7c
-// flash_bwd.cu, K8 flash_fwd_int8.cu, K9 flash_fwd_nr.cu): head dim 128 rows in XOR-swizzled shared-memory
-// tiles, cp.async copies, ldmatrix fragment loads, the bf16 mma.sync, and bf16 packing.
+// Device helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
+// flash_fwd_int8.cu, flash_fwd_nr.cu): the head dim, bf16 packing and 4-value loads and stores;
+// and, for K7b's mma.sync body in flash_bwd.cu, head dim 128 rows in XOR-swizzled shared-memory
+// tiles, cp.async copies, ldmatrix fragment loads and the bf16 mma.sync.
 // Everything is inline PTX or a correctly rounded intrinsic, so it computes the same with or
 // without --use_fast_math.
 
@@ -31,11 +32,6 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool val
   // src-size 0 zero-fills the 16 bytes without reading the source
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }

@@ -1,4 +1,5 @@
-// K1: flash-attention forward for Hopper (sm_90a), bf16 in and out, fp32 softmax state.
+// K1: flash-attention forward for Hopper (sm_90a), bf16 in and out, fp32 softmax state; and
+// K7a, the same body on one ring chunk.
 //
 // Replaces reflectionflow_tpu/ops/pallas_attention.py::_flash_fwd_kernel, the TPU
 // kernel behind joint_attention(impl="pallas"): online-softmax attention over the
@@ -28,43 +29,47 @@
 //     are never stored; no host-side padding.
 //   * Softmax runs in the base-2 domain (exp2 of logits pre-scaled by log2(e)).
 //
-// K7a, the ring-chunk forward, stays on the earlier design of flash_fwd_tile.cuh (eight warps of
-// 16 rows, 64-key tiles by cp.async, mma.sync from ldmatrix). It replaces _flash_fwd_kernel with
-// dyn_offsets=True (pallas_attention.py:73-82, :103), reached through flash_chunk_fwd (:789):
-// one Q chunk against one K/V shard of a sequence that ring attention splits across a mesh. The
+// K7a, the ring-chunk forward, is K1's function and K1's block on one Q chunk against one K/V
+// shard of a sequence that ring attention splits across a mesh. It replaces _flash_fwd_kernel with
+// dyn_offsets=True (pallas_attention.py:73-82, :103), reached through flash_chunk_fwd (:789). The
 // cross-segment predicate compares RING-GLOBAL positions (local row plus the chunk's start, q_off
-// or k_off) with main_len; the padding mask (keys >= L) stays local. The offsets enter as the
-// local boundaries q_main = main_len - q_off and k_main = main_len - k_off. Its output is the
-// normalised chunk attention in bf16 and the chunk's lse rows, which the ring merges in fp32.
+// or k_off) with main_len; the padding mask (keys >= L) stays local. The offsets enter the score
+// step as two local boundaries, q_main = main_len - q_off among the block's query rows and
+// k_main = main_len - k_off among the keys (K1 passes main_len for both). A chunk is a view into
+// the whole (B, L, H, D) sequence: its three tensor maps are encoded at the view's base and
+// strides with the chunk's own length as L, so TMA zero-fills past the chunk and never reads the
+// next chunk's rows as keys. Its outputs are the normalised chunk attention, rounded to bf16 as
+// the TPU kernel's output and written as fp32 (the JAX entry upcasts that output; here the
+// epilogue does, which saves a separate cast pass over it), and the chunk's lse rows, which the
+// ring merges in fp32. A row that the -1e30 bias hides from the whole
+// shard ends with m ln2 ~ -1e30 (or, in a ragged chunk, with the -1e30 of the padded keys, whose
+// zero-filled V gives out = 0), so its lse stays far below -1e29 and its merge weight is 0.
 
 #include "flash_fwd_sm90.cuh"
-#include "flash_fwd_tile.cuh"
 
 namespace {
 
-constexpr int kTileSmemBytes = (kBlockM * kHeadDim + 4 * kTileElems) * 2;  // K7a: Q + 2 x (K, V)
-
-// K1
-__global__ void __launch_bounds__(sm90::kThreads, 1)
-flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
-                 float* __restrict__ lse, int L, int H, int main_len, int has_cross,
-                 float cross_bias_log2, float scale_log2) {
-  // not smem_raw: K7a's declaration of the same dynamic shared memory asks for another alignment
-  extern __shared__ __align__(1024) unsigned char smem_ws[];
+// One block: the 128 query rows [q0, q0 + 128) of head h of batch b; the cond boundary is local
+// row q_main among queries, k_main among keys. out: bf16 (K1) or fp32 (K7a).
+template <class T>
+__device__ __forceinline__ void fwd_block(unsigned char* smem, const CUtensorMap* tq,
+                                          const CUtensorMap* tk, const CUtensorMap* tv,
+                                          T* __restrict__ out, float* __restrict__ lse, int L,
+                                          int H, int q_main, int k_main, int has_cross,
+                                          float cross_bias_log2, float scale_log2) {
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * sm90::kBlockM;
   sm90::flash_ws(
-      smem_ws, (L + sm90::kBlockN - 1) / sm90::kBlockN,
-      [&](uint32_t dst, uint32_t bar) { sm90::load_rows(dst, &tq, bar, h, q0, b); },
-      [&](uint32_t dst, uint32_t bar, int k0) { sm90::load_rows(dst, &tk, bar, h, k0, b); },
-      [&](uint32_t dst, uint32_t bar, int k0) { sm90::load_rows(dst, &tv, bar, h, k0, b); },
+      smem, (L + sm90::kBlockN - 1) / sm90::kBlockN,
+      [&](uint32_t dst, uint32_t bar) { sm90::load_rows(dst, tq, bar, h, q0, b); },
+      [&](uint32_t dst, uint32_t bar, int k0) { sm90::load_rows(dst, tk, bar, h, k0, b); },
+      [&](uint32_t dst, uint32_t bar, int k0) { sm90::load_rows(dst, tv, bar, h, k0, b); },
       [](bf16*, int, int) {},
       [&](uint32_t q, uint32_t k, sm90::ScoreTile& sc) { sm90::qk_wgmma(sc, q, k); },
       [&](int k0, int wg, uint32_t, sm90::ScoreTile& sc) {
         const int t = threadIdx.x & 127;
         sm90::fence_acc(sc);
-        sm90::scale_bias_mask(sc, scale_log2, k0, sm90::first_row(q0, wg, t), L, main_len,
+        sm90::scale_bias_mask(sc, scale_log2, k0, sm90::first_row(q0, wg, t), L, q_main, k_main,
                               has_cross, cross_bias_log2, t & 31);
       },
       [&](int wg, int t, sm90::RowState& st) {
@@ -73,87 +78,82 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       });
 }
 
-// K7a: one block's rows of a ring chunk; the cond boundary is local row q_main among queries,
-// k_main among keys.
-__global__ void __launch_bounds__(kThreads)
-flash_chunk_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
-                       int L, int H, Strides s, int q_main, int k_main, int has_cross,
-                       float cross_bias_log2, float scale_log2) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + kBlockM * kHeadDim;  // [2][kBlockN][kHeadDim]
-  bf16* sV = sK + 2 * kTileElems;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kBlockM;
-  const int row_a = q0 + warp * 16 + (lane >> 2);
-  const bf16* kp = k + b * s.kb + h * s.kh;
-  const bf16* vp = v + b * s.vb + h * s.vh;
-  uint32_t qf[kHeadDim / 16][4];
-  RowState st;
-  flash_rows(
-      st, sQ, q + b * s.qb + h * s.qh, s.ql, q0, L, sV,
-      [&](int buf, int row0) {
-        load_tile<kBlockN, kThreads>(sK + buf * kTileElems, kp, s.kl, row0, L, tid);
-        load_tile<kBlockN, kThreads>(sV + buf * kTileElems, vp, s.vl, row0, L, tid);
-      },
-      [&] { load_q_frags(qf, sQ, warp, lane); },
-      [&](int buf, int k0, ScoreTile& sc) {
-        qk_bf16(sc, qf, sK + buf * kTileElems, lane);
-        scale_tile(sc, scale_log2);
-        bias_mask(sc, k0, row_a, L, q_main, k_main, has_cross, cross_bias_log2, lane);
-      });
-  store_rows(st, out, lse + static_cast<long long>(bh) * L, b, h, L, H, row_a, lane);
+// K1
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+                 float* __restrict__ lse, int L, int H, int main_len, int has_cross,
+                 float cross_bias_log2, float scale_log2) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  fwd_block(smem_raw, &tq, &tk, &tv, out, lse, L, H, main_len, main_len, has_cross,
+            cross_bias_log2, scale_log2);
 }
+
+// K7a
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+flash_chunk_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, float* __restrict__ out,
+                       float* __restrict__ lse, int L, int H, int q_main, int k_main,
+                       int has_cross, float cross_bias_log2, float scale_log2) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  fwd_block(smem_raw, &tq, &tk, &tv, out, lse, L, H, q_main, k_main, has_cross, cross_bias_log2,
+            scale_log2);
+}
+
+// The three tensor maps of a launch: L rows of q, k and v at their (batch, row, head) strides.
+bool encode_fwd_maps(CUtensorMap (&m)[3], const void* q, const void* k, const void* v, int B,
+                     int L, int H, const long long (&st)[9]) {
+  return B >= 1 && L >= 1 && H >= 1 && sm90::encode_rows(&m[0], q, B, L, H, st[0], st[1], st[2]) &&
+         sm90::encode_rows(&m[1], k, B, L, H, st[3], st[4], st[5]) &&
+         sm90::encode_rows(&m[2], v, B, L, H, st[6], st[7], st[8]);
+}
+
+template <class Kernel, class... Args>
+int launch(Kernel kernel, int B, int L, int H, void* stream, Args... args) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm90::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L + sm90::kBlockM - 1) / sm90::kBlockM, B * H);
+  kernel<<<grid, sm90::kThreads, sm90::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const float kScaleLog2 = sm90::kLog2e / sqrtf(static_cast<float>(kHeadDim));
 
 }  // namespace
 
 // q, k, v: (B, L, H, 128) bf16 with unit stride on the last dim, strides that are multiples of 8
-// elements and 16-byte aligned bases (TMA's terms; K7a needs only 16-byte aligned rows). out:
-// contiguous (B, L, H, 128) bf16. lse: contiguous (B*H, L) fp32. Each entry launches on `stream`
-// and returns the first cudaError (K1: cudaErrorInvalidValue if a tensor map cannot be
-// encoded); neither synchronises.
+// elements and 16-byte aligned bases (TMA's terms). out: contiguous (B, L, H, 128), bf16 for K1
+// and fp32 for K7a. lse: contiguous (B*H, L) fp32. Each entry launches on `stream` and returns the first cudaError
+// (cudaErrorInvalidValue if a tensor map cannot be encoded); neither synchronises.
 extern "C" int flash_fwd_bf16_d128(const void* q, const void* k, const void* v, void* out,
                                    void* lse, int B, int L, int H, long long q_sb, long long q_sl,
                                    long long q_sh, long long k_sb, long long k_sl, long long k_sh,
                                    long long v_sb, long long v_sl, long long v_sh, int main_len,
                                    float cross_bias, void* stream) {
-  if (B < 1 || L < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap tq, tk, tv;
-  if (!sm90::encode_rows(&tq, q, B, L, H, q_sb, q_sl, q_sh) ||
-      !sm90::encode_rows(&tk, k, B, L, H, k_sb, k_sl, k_sh) ||
-      !sm90::encode_rows(&tv, v, B, L, H, v_sb, v_sl, v_sh))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm90::kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((L + sm90::kBlockM - 1) / sm90::kBlockM, B * H);
-  flash_fwd_kernel<<<grid, sm90::kThreads, sm90::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse), L, H, main_len,
-      cross_bias != 0.f ? 1 : 0, cross_bias * sm90::kLog2e,
-      sm90::kLog2e / sqrtf(static_cast<float>(kHeadDim)));
-  return static_cast<int>(cudaGetLastError());
+  const long long st[9] = {q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh};
+  CUtensorMap m[3];
+  if (!encode_fwd_maps(m, q, k, v, B, L, H, st)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(flash_fwd_kernel, B, L, H, stream, m[0], m[1], m[2], static_cast<bf16*>(out),
+                static_cast<float*>(lse), L, H, main_len, cross_bias != 0.f ? 1 : 0,
+                cross_bias * sm90::kLog2e, kScaleLog2);
 }
 
-// K7a: as flash_fwd_bf16_d128 on one ring chunk; main_len is the ring-global cond boundary and
-// q_off / k_off the ring-global positions of the chunk's first query and first key.
+// K7a: as flash_fwd_bf16_d128 on one ring chunk of L rows (q, k and v views of the whole
+// sequence); main_len is the ring-global cond boundary and q_off / k_off the ring-global
+// positions of the chunk's first query and first key.
 extern "C" int flash_chunk_fwd_bf16_d128(const void* q, const void* k, const void* v, void* out,
                                          void* lse, int B, int L, int H, long long q_sb,
                                          long long q_sl, long long q_sh, long long k_sb,
                                          long long k_sl, long long k_sh, long long v_sb,
                                          long long v_sl, long long v_sh, int main_len, int q_off,
                                          int k_off, float cross_bias, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_chunk_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Strides s{q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh};
-  const dim3 grid((L + kBlockM - 1) / kBlockM, B * H);
-  flash_chunk_fwd_kernel<<<grid, kThreads, kTileSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), static_cast<float*>(lse), L, H, s, main_len - q_off,
-      main_len - k_off, cross_bias != 0.f ? 1 : 0, cross_bias * kLog2e,
-      kLog2e / sqrtf(static_cast<float>(kHeadDim)));
-  return static_cast<int>(cudaGetLastError());
+  const long long st[9] = {q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh};
+  CUtensorMap m[3];
+  if (!encode_fwd_maps(m, q, k, v, B, L, H, st)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(flash_chunk_fwd_kernel, B, L, H, stream, m[0], m[1], m[2],
+                static_cast<float*>(out), static_cast<float*>(lse), L, H, main_len - q_off,
+                main_len - k_off, cross_bias != 0.f ? 1 : 0, cross_bias * sm90::kLog2e,
+                kScaleLog2);
 }

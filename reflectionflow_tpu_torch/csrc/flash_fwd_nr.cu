@@ -158,7 +158,7 @@ flash_fwd_nr_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
         const int t = threadIdx.x & 127;
         sm90::fence_acc(sc);
         sm90::scale_bias_mask(sc, scale_log2, k0, sm90::first_row(q0, wg, t), L, main_len,
-                              has_cross, cross_bias_log2, t & 31);
+                              main_len, has_cross, cross_bias_log2, t & 31);
       },
       [&](int wg, int t, sm90::RowState& st) {
         sm90::store_rows(st, out, b, h, L, H, sm90::first_row(q0, wg, t), t & 31);

@@ -1,8 +1,7 @@
 // The Hopper (sm_90a) forward flash-attention pipeline: TMA, mbarriers, wgmma and warp
-// specialisation. K1 (flash_fwd.cu), K8b (flash_fwd_int8.cu) and K9b (flash_fwd_nr.cu) run on
-// it; only K7a, the ring-chunk forward, still runs on flash_fwd_tile.cuh. The backward pipeline
-// of K6a/K6b, flash_bwd_sm90.cuh, builds on its primitives (mbarriers, TMA, descriptors, wgmma,
-// setmaxnreg, encode_rows).
+// specialisation. K1 and K7a, the ring-chunk forward (flash_fwd.cu), K8b (flash_fwd_int8.cu) and
+// K9b (flash_fwd_nr.cu) run on it. The backward pipeline of K6a/K6b and K7c, flash_bwd_sm90.cuh,
+// builds on its primitives (mbarriers, TMA, descriptors, wgmma, setmaxnreg, encode_rows).
 //
 // One block owns (batch*head, kBlockM = 128 query rows) and has three warpgroups:
 //   * warpgroup 0, the producer, with its registers cut to kProducerRegs by setmaxnreg. One of
@@ -46,7 +45,7 @@
 //                               whose first key is k0, biased and masked, in sc. The stage is
 //                               released only after the finish, which may read it (K8b's key
 //                               scales);
-//   store(wg, t, st)            the epilogue: store_rows, with the lse rows for K1.
+//   store(wg, t, st)            the epilogue: store_rows, with the lse rows for K1 and K7a.
 // Q and V are always bf16 tiles loaded by load_q / load_v.
 
 #pragma once
@@ -354,28 +353,32 @@ __device__ __forceinline__ float exp2_approx(float x) {
 }
 
 // s = s * scale, then, in the TPU kernels' order, `bias` (log2 units) where the row and the
-// column lie on opposite sides of main_len (has_cross), over an accumulator tile of 8 N columns:
-// rows row (e < 2) and row + 8, columns c0 + 8 n + 2 t4 + e % 2. Rows are queries and columns
-// keys, or the other way round (K6b; the cross predicate is symmetric). Only a tile that
-// straddles main_len needs the side of each column; elsewhere a row's bias is one value.
+// column lie on opposite sides of the cond boundary (has_cross), over an accumulator tile of 8 N
+// columns: rows row (e < 2) and row + 8, columns c0 + 8 n + 2 t4 + e % 2. Rows are queries and
+// columns keys, or the other way round (K6b, K7c). The boundary is local: row_main among the
+// rows, col_main among the columns; both are main_len for a whole sequence (K1, K6, K9b), and a
+// ring chunk's (K7a, K7c) differ, since each side is main_len less its chunk's ring-global start
+// (either may be negative or past L). Only a tile that straddles col_main needs the side of each
+// column; elsewhere a row's bias is one value.
 template <int N>
 __device__ __forceinline__ void scale_bias(float (&sc)[N][4], float scale, int c0, int row,
-                                           int main_len, int has_cross, float bias, int t4) {
-  if (has_cross && c0 < main_len && c0 + 8 * N > main_len) {
+                                           int row_main, int col_main, int has_cross, float bias,
+                                           int t4) {
+  if (has_cross && c0 < col_main && c0 + 8 * N > col_main) {
 #pragma unroll
     for (int n = 0; n < N; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int cpos = c0 + n * 8 + t4 * 2 + (e & 1);
         const int rpos = e < 2 ? row : row + 8;
-        const bool cross = (rpos >= main_len) != (cpos >= main_len);
+        const bool cross = (rpos >= row_main) != (cpos >= col_main);
         sc[n][e] = sc[n][e] * scale + (cross ? bias : 0.f);
       }
     }
   } else {
-    const bool c_cond = c0 >= main_len;
-    const float b0 = has_cross && ((row >= main_len) != c_cond) ? bias : 0.f;
-    const float b1 = has_cross && ((row + 8 >= main_len) != c_cond) ? bias : 0.f;
+    const bool c_cond = c0 >= col_main;
+    const float b0 = has_cross && ((row >= row_main) != c_cond) ? bias : 0.f;
+    const float b1 = has_cross && ((row + 8 >= row_main) != c_cond) ? bias : 0.f;
 #pragma unroll
     for (int n = 0; n < N; ++n) {
       sc[n][0] = sc[n][0] * scale + b0;
@@ -387,12 +390,13 @@ __device__ __forceinline__ void scale_bias(float (&sc)[N][4], float scale, int c
 }
 
 // The forward's score step: scale_bias over the tile of keys [k0, k0 + 128) for the thread's
-// query rows row and row + 8, then keys >= L masked.
+// query rows row and row + 8 (boundaries q_main among queries, k_main among keys), then keys >= L
+// masked.
 __device__ __forceinline__ void scale_bias_mask(ScoreTile& sc, float scale, int k0, int row,
-                                                int L, int main_len, int has_cross, float bias,
-                                                int lane) {
+                                                int L, int q_main, int k_main, int has_cross,
+                                                float bias, int lane) {
   const int t4 = lane & 3;
-  scale_bias(sc, scale, k0, row, main_len, has_cross, bias, t4);
+  scale_bias(sc, scale, k0, row, q_main, k_main, has_cross, bias, t4);
   if (k0 + kBlockN > L) {
 #pragma unroll
     for (int n = 0; n < kBlockN / 8; ++n) {
@@ -456,12 +460,23 @@ __device__ __forceinline__ void rescale_o(RowState& st, const float (&corr)[2]) 
   }
 }
 
+// Two neighbouring output values: a bf16 pair, or (K7a) the pair rounded to bf16 and stored as
+// fp32, the upcast the ring's fp32 merge takes.
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(round_bf16(a), round_bf16(b));
+}
+
 // The epilogue: full row sums, then out = o / max(l, 1e-20) into the contiguous
-// (B, L, H, 128) out for the thread's rows below L. With lse (the (b, h) row of a (B*H, L)
-// array, K1's form) the quad's t4 == 0 lane also writes lse = m ln2 + log(max(l, 1e-20)), the
-// rows K6a/K6b read back.
-__device__ __forceinline__ void store_rows(RowState& st, bf16* __restrict__ out, int b, int h,
-                                           int L, int H, int row, int lane,
+// (B, L, H, 128) out (bf16, or bf16-rounded fp32) for the thread's rows below L. With lse (the
+// (b, h) row of a (B*H, L) array, K1's form) the quad's t4 == 0 lane also writes
+// lse = m ln2 + log(max(l, 1e-20)), the rows K6a/K6b read back.
+template <class T>
+__device__ __forceinline__ void store_rows(RowState& st, T* __restrict__ out, int b, int h, int L,
+                                           int H, int row, int lane,
                                            float* __restrict__ lse = nullptr) {
   const int t4 = lane & 3;
 #pragma unroll
@@ -475,12 +490,10 @@ __device__ __forceinline__ void store_rows(RowState& st, bf16* __restrict__ out,
     if (rows[r] >= L) continue;
     const float l_safe = fmaxf(st.l[r], 1e-20f);
     const float inv = 1.f / l_safe;
-    bf16* orow = out + ((static_cast<long long>(b) * L + rows[r]) * H + h) * kHeadDim;
+    T* orow = out + ((static_cast<long long>(b) * L + rows[r]) * H + h) * kHeadDim;
 #pragma unroll
-    for (int n = 0; n < kHeadDim / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + t4 * 2) =
-          pack_bf16(st.o[n][2 * r] * inv, st.o[n][2 * r + 1] * inv);
-    }
+    for (int n = 0; n < kHeadDim / 8; ++n)
+      store_pair(orow + n * 8 + t4 * 2, st.o[n][2 * r] * inv, st.o[n][2 * r + 1] * inv);
     if (lse != nullptr && t4 == 0) lse[rows[r]] = st.m[r] * kLn2 + logf(l_safe);
   }
 }

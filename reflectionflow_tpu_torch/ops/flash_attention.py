@@ -8,9 +8,9 @@ Counterpart of `reflectionflow_tpu/ops/pallas_attention.py`:
 ring chunk with ring-global offsets (K7a, K7b, K7c), which
 `ops.ring_attention` runs. The kernels are `csrc/flash_fwd.cu` and
 `csrc/flash_bwd.cu` (CUDA C++ for sm_90a, built by `ops/kernel_build.py`).
-K1 runs on the Hopper pipeline of `csrc/flash_fwd_sm90.cuh` and K6a/K6b on
-its backward counterpart `csrc/flash_bwd_sm90.cuh` (TMA, wgmma, warp
-specialisation); K7a/K7b/K7c keep the earlier `mma.sync` bodies. The
+K1 and K7a run on the Hopper pipeline of `csrc/flash_fwd_sm90.cuh`, K6a, K6b
+and K7c on its backward counterpart `csrc/flash_bwd_sm90.cuh` (TMA, wgmma,
+warp specialisation); K7b keeps the earlier `mma.sync` body. The
 source notes say what bounds each kernel and how the design answers that.
 `FlashAttention` is the `torch.autograd.Function` that joins K1 forward and
 K6a + K6b backward.
@@ -126,10 +126,10 @@ def _check_cuda_inputs(q, k, v, main_len, *more):
         raise ValueError(f"main_len={main_len} outside [0, {L}]")
 
 
-def _launch_fwd(name: str, q, k, v, ints, cross_bias):
-    """Launch forward entry `name` of flash_fwd.cu -> (out, lse (B, H, L)).
-    `ints` are its integer scalars after the strides: (main_len,) for K1,
-    (main_len, q_offset, k_offset) for K7a."""
+def _launch_fwd(name: str, q, k, v, ints, cross_bias, out_dtype):
+    """Launch forward entry `name` of flash_fwd.cu -> (out in out_dtype, lse
+    (B, H, L)). `ints` are its integer scalars after the strides: (main_len,)
+    for K1, (main_len, q_offset, k_offset) for K7a."""
     from .kernel_build import load
 
     fn = getattr(load("flash_fwd.cu"), name)
@@ -138,7 +138,7 @@ def _launch_fwd(name: str, q, k, v, ints, cross_bias):
                        + [ctypes.c_int] * len(ints) + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     B, L, H, D = q.shape
-    out = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, L, H, D), dtype=out_dtype, device=q.device)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -176,7 +176,7 @@ def flash_attention_fwd(q, k, v, main_len: int | None = None, cross_bias: float 
     if q.device.type != "cuda":
         raise NotImplementedError(f"flash_fwd has no kernel for device {q.device}")
     _check_cuda_inputs(q, k, v, main_len)
-    out, lse = _launch_fwd("flash_fwd_bf16_d128", q, k, v, (main_len,), cross_bias)
+    out, lse = _launch_fwd("flash_fwd_bf16_d128", q, k, v, (main_len,), cross_bias, q.dtype)
     flash_attention_fwd.launches += 1
     return out, lse
 
@@ -334,11 +334,14 @@ def flash_chunk_fwd(q, k, v, main_len: int | None = None, cross_bias: float = 0.
     boundary and bias; `q_offset` / `k_offset` the ring-global positions of
     this Q chunk and of the K/V shard it meets.
 
-    CUDA tensors launch K7a (bf16, D = 128; its bf16 output is cast to fp32,
-    as the JAX entry upcasts its kernel's); CPU tensors take
-    `flash_chunk_fwd_ref`. `flash_chunk_fwd.launches` counts launches."""
+    CUDA tensors launch K7a (bf16, D = 128; it rounds its output to bf16 and
+    writes it as fp32, the JAX entry's upcast of its kernel's bf16 output);
+    CPU tensors take `flash_chunk_fwd_ref`. `flash_chunk_fwd.launches` counts
+    launches."""
     if q.device.type == "cpu":
         return flash_chunk_fwd_ref(q, k, v, main_len, cross_bias, q_offset, k_offset)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_layout(name, t)  # TMA's terms, before the device check
     if q.device.type != "cuda":
         raise NotImplementedError(f"flash_chunk_fwd has no kernel for device {q.device}")
     main_len, cross_bias, q_offset, k_offset = _chunk_modifiers(q, main_len, cross_bias,
@@ -346,9 +349,9 @@ def flash_chunk_fwd(q, k, v, main_len: int | None = None, cross_bias: float = 0.
     _check_cuda_inputs(q, k, v, None)
     _check_offsets(main_len, q_offset, k_offset)
     out, lse = _launch_fwd("flash_chunk_fwd_bf16_d128", q, k, v, (main_len, q_offset, k_offset),
-                           cross_bias)
+                           cross_bias, torch.float32)
     flash_chunk_fwd.launches += 1
-    return out.float(), lse
+    return out, lse
 
 
 flash_chunk_fwd.launches = 0
