@@ -17,7 +17,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (HGMMA; K8b also the integer IGMMA) and TMA (UTMALDG) instructions and no
      mma.sync (HMMA, IMMA), spills nothing, that ptxas honoured its
      setmaxnreg (no warning C7508) and did not serialize its wgmma
-     instructions;
+     instructions; that K2–K5 spill nothing, printing their registers and
+     the SASS opcodes that bound them (load and store widths, shuffles, MUFU,
+     F2I, calls to the division's slow path);
   3. K1 against its plain PyTorch version on the card (fp32 reference), at
      the main-path shape (B=1, 2; L=4608; H=24; D=128), a ragged L, the
      cross-segment bias forms and the training shape; times both at the
@@ -44,9 +46,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      bound and each kernel's device time (profiler);
   4. K2–K5 against their plain versions on the card at every shape the W8A8
      path gives them (strided panel slices included) and at a ragged
-     L = 4608 + 77; times each kernel and its plain version in turns at
-     each of those shapes but the ragged one, as device time (profiler) and
-     as time per call (CUDA events, host gaps included);
+     L = 4608 + 77, K2 bit-identical at each; times each kernel and its plain
+     version in turns at each of those shapes but the ragged one, as device
+     time (profiler) and as time per call (CUDA events, host gaps included),
+     K2's bytes with its cos/sin tables read once; and K5 in turns with K4 on
+     K4's single-block view (2, 4608, 12288), the same bytes without the GELU;
   4b. K8 (`csrc/flash_fwd_int8.cu`) and K9 (`csrc/flash_fwd_nr.cu`) against
      their plain versions at the corrector shape (B=2, L=512+4096+1024,
      main_len 4608, cross bias 0, log 0.5, -1e30), the t2i shape (B=2,
@@ -160,12 +164,15 @@ BF16_TFLOPS = 989.0  # H100 SXM dense bf16 tensor-core peak, TFLOP/s (data sheet
 INT8_TOPS = 1979.0  # H100 SXM dense int8 tensor-core peak, TOP/s (data sheet)
 PA = "reflectionflow_tpu/ops/pallas_attention.py"
 PQ = "reflectionflow_tpu/ops/pallas_quant.py"
-KERNELS = (  # name, source, TPU kernel it replaces
-    ("norm_rope", "norm_rope.cu", f"{PQ}:116"),
-    ("adaln_quant", "act_quant.cu", f"{PQ}:32"),
-    ("gelu_quant", "act_quant.cu", f"{PQ}:44"),
-    ("rowquant", "act_quant.cu", f"{PQ}:52"),
+KERNELS = (  # name, label, source, its `*_kernel`, TPU kernel it replaces
+    ("norm_rope", "K2", "norm_rope.cu", "norm_rope_kernel", f"{PQ}:116"),
+    ("adaln_quant", "K3", "act_quant.cu", "act_quant_adaln_kernel", f"{PQ}:32"),
+    ("gelu_quant", "K4", "act_quant.cu", "act_quant_gelu_kernel", f"{PQ}:44"),
+    ("rowquant", "K5", "act_quant.cu", "act_quant_row_kernel", f"{PQ}:52"),
 )
+# the SASS opcodes (with their modifiers: load widths, MUFU functions) printed for K2–K5
+FUSED_OPS = ("LDG", "STG", "SHFL", "F2I", "MUFU", "CALL", "BRA", "FFMA", "FMUL", "FADD", "FSETP",
+             "PRMT", "F2FP", "BAR")
 
 
 def log(msg: str) -> None:
@@ -283,6 +290,22 @@ def hopper_check(kernel_build, ptxas) -> dict:
               f"{label} spills or ptxas ignored its setmaxnreg")
         check("are serialized" not in text, f"ptxas serialized {label}'s wgmma instructions")
         out[label] = counts
+    return out
+
+
+def fused_check(kernel_build, ptxas) -> dict:
+    """K2–K5 spill nothing; returns each one's registers and the counts of the
+    SASS opcodes that bound it (FUSED_OPS, with modifiers) and of all its
+    instructions."""
+    out = {}
+    for name, label, src, kernel, _ in KERNELS:
+        regs = ptxas[src][kernel]
+        ops = kernel_build.sass_opcodes(src, kernel, modifiers=True)
+        sass = {op: n for op, n in sorted(ops.items()) if op.split(".")[0] in FUSED_OPS}
+        sass["total"] = sum(ops.values())
+        log(f"{label} {kernel}: ptxas {regs}; SASS {sass}")
+        check(regs.get("spill_stores") == regs.get("spill_loads") == 0, f"{label} spills")
+        out[name] = {"registers": regs.get("registers"), "sass": sass}
     return out
 
 
@@ -604,7 +627,7 @@ def fused_phase(torch):
         return (torch.cat([ang.cos()] * 2, -1).to(torch.bfloat16),
                 torch.cat([ang.sin()] * 2, -1).to(torch.bfloat16))
 
-    res = {name: {"err": 0.0, "by_shape": {}} for name, _, _ in KERNELS}
+    res = {name: {"err": 0.0, "by_shape": {}} for name, *_ in KERNELS}
 
     def timed(name, label, kern, plain, nbytes):
         """Kernel and plain version in turns, per call: device time (the
@@ -656,12 +679,14 @@ def fused_phase(torch):
             err = (got.float() - ref.float()).abs()
             ok = bool((err <= NR_REL * ref.float().abs() + NR_ABS).all())
             res["norm_rope"]["err"] = max(res["norm_rope"]["err"], err.max().item())
+            same = torch.equal(got, ref)
             log(f"K2 x (2, {L}, {H}) row stride {row}: max|err| {err.max().item():.3e}, "
-                f"bit-identical {torch.equal(got, ref)}")
+                f"bit-identical {same}")
             check(ok, f"K2 disagrees with its plain version at L={L}")
-            if L <= LT + LI:  # bytes: the slice read and the output written, bf16
+            check(same, f"K2 is not bit-identical to its plain version at L={L}")
+            if L <= LT + LI:  # bytes: the slice read and the output written, and cos/sin read once, bf16
                 timed("norm_rope", f"row stride {row} L={L}", lambda: fq.norm_rope(x, scale, cos, sin),
-                      lambda: fq.norm_rope_ref(x, scale, cos, sin), 2 * (2 * L * H * 2))
+                      lambda: fq.norm_rope_ref(x, scale, cos, sin), 2 * (2 * L * H * 2) + 2 * L * D * 2)
         for L in (LT, LI, LT + LI, LT + LI + 77):
             x = randn(2, L, H, scale=2.0)
             mod = randn(2, 6 * H, scale=0.5)  # shift/scale: strided chunks of the modulation output
@@ -681,6 +706,15 @@ def fused_phase(torch):
             if L <= LT + LI:
                 timed("gelu_quant", f"row stride {row} L={L}", lambda: fq.gelu_quant(x),
                       lambda: fq.gelu_quant_ref(x), 3 * L * M * 2)
+        # K5 on K4's single-block view: the same bytes without the GELU; in turns with K4
+        L = LT + LI
+        x = randn(2, L, 3 * H + M, scale=2.0)[..., 3 * H:]
+        r1, g1, g2, r2 = (device_ms(torch, f, 20) for f in (lambda: fq.rowquant(x), lambda: fq.gelu_quant(x),
+                                                            lambda: fq.gelu_quant(x), lambda: fq.rowquant(x)))
+        k5_ms, k4_ms, bound = (r1 + r2) / 2, (g1 + g2) / 2, 3 * L * M * 2 / (HBM_TBS * 1e9)
+        res["gelu_quant"].update(rowquant_same_view_ms=k5_ms)
+        log(f"K5 on K4's view {tuple(x.shape)} row stride {x.stride(1)}: device {k5_ms:.4f} ms "
+            f"({bound / k5_ms:.1%} of the bound {bound:.4f} ms); K4 there {k4_ms:.4f} ms ({bound / k4_ms:.1%})")
         joint = randn(2, LT + LI, 24, D)  # K1's output; the out-projections read views of it
         for label, x in (("joint[:, :512]", joint[:, :LT].flatten(2)),
                          ("joint[:, 512:]", joint[:, LT:].flatten(2)),
@@ -843,7 +877,7 @@ def _counters():
             "flash_bwd_dkv": flash_bwd_dkv, "flash_chunk_fwd": flash_chunk_fwd,
             "flash_chunk_bwd_dq": flash_chunk_bwd_dq, "flash_chunk_bwd_dkv": flash_chunk_bwd_dkv,
             "flash_fwd_nr": flash_attention_nr,
-            "flash_fwd_int8": flash_attention_int8, **{n: getattr(fq, n) for n, _, _ in KERNELS}}
+            "flash_fwd_int8": flash_attention_int8, **{n: getattr(fq, n) for n, *_ in KERNELS}}
 
 
 def zero_counts():
@@ -1644,6 +1678,7 @@ def main() -> int:
     ptxas = {src: kernel_build.ptxas_report(src) for src in kernel_build.SOURCES}
     log(json.dumps({"ptxas": ptxas}))
     hopper_sass = hopper_check(kernel_build, ptxas)
+    fused_build = fused_check(kernel_build, ptxas)
     err_out, err_lse, k1_times = k1_phase(torch)
     k6 = k6_phase(torch)
     t0 = time.perf_counter()
@@ -1704,15 +1739,15 @@ def main() -> int:
                               "bound_share": at[serve_shape][key]["bound_share"],
                               "library_ms": at[serve_shape]["library_ms"]},
         })
-    for name, source, replaces in KERNELS:
+    for name, _, source, _, replaces in KERNELS:
         r = fused[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"reflectionflow_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": w8_launches[name],
             "launches_ragged": ragged["launches"][name], "max_abs_err": r["err"],
-            **{k: r[k] for k in ("scale_rel_err", "mismatch_frac") if k in r},
+            **{k: r[k] for k in ("scale_rel_err", "mismatch_frac", "rowquant_same_view_ms") if k in r},
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
-            "library_ms": None, "gbps": r["gbps"], "by_shape": r["by_shape"],
+            "library_ms": None, "gbps": r["gbps"], "by_shape": r["by_shape"], **fused_build[name],
         })
     k7_train, k7_corr = (f"B={B} Lc={L // RING}" for B, L, *_ in K7_SHAPES[:2])
     for name, key, line, err_keys in (

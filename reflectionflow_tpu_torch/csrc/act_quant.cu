@@ -7,12 +7,16 @@
 //   K4 _gelu_quant_kernel (gelu_quant): tanh-GELU, per-token absmax int8;
 //   K5 _rowquant_kernel (rowquant): per-token absmax int8.
 // All three end in the same row-quant epilogue: s = max(amax, 1e-12) / 127 and
-// q = round-half-even(y / s), in fp32; the division by 127 is the product with
+// q = round-half-even(RN(y / s)), in fp32; the division by 127 is the product with
 // fp32(1/127), as the compiled JAX kernels compute it.
 //
-// What bounds it on an H100: HBM bandwidth. A row is read once (6 KB at H = 3072,
-// 24 KB at M = 12288) and written once as int8, for a few FLOPs per byte, far under
-// the card's ~295 FLOP/byte balance point.
+// What bounds it on an H100: HBM bandwidth, if the per-element arithmetic stays under
+// it. A row is read once (6 KB at H = 3072, 24 KB at M = 12288) and written once as
+// int8. A correctly rounded division per element (a reciprocal, a check, a slow-path
+// call), an F2I conversion and libdevice tanhf are about four operations an element on
+// the unit that does MUFU and conversions at 16 a clock per SM: at K4's 113 M elements
+// that unit alone takes longer than the bytes (PERF.md: K4 at 48% of its byte bound,
+// K5 on the same view at 86%). So the epilogue and the GELU below avoid all three.
 //
 // Design, against that bound:
 //   * One block per row. Each thread holds up to kMaxVec 16-byte vectors (8 bf16
@@ -24,10 +28,28 @@
 //   * The row is addressed through (batch, row) strides, so the strided panel slices
 //     of the serving forward (gelu input fused[..., 3H:], attention-output views,
 //     modulation chunks for shift/scale) are read in place, without a copy.
-//   * The TPU kernels tile rows in blocks of 8..256 for VMEM; here any L works.
-//   * Division and square root use the correctly rounded intrinsics, and the
-//     elementwise chain the _rn ones, so the int8 values round as the plain PyTorch
-//     version's do (this file is built without --use_fast_math).
+//   * The epilogue, per row one correctly rounded reciprocal inv = RN(1/s); per
+//     element t = RN(y * inv), r = RN(t + 1.5 * 2^23), whose low byte is the int8
+//     n = rhe(t), and d = t - (r - 1.5 * 2^23) = t - n (both exact). Four bytes are
+//     packed with byte permutes. No division and no F2I an element.
+//   * Exactness of that epilogue. Let Q = y / s (real), q = RN(Q), |Q| <= 127 * (1 +
+//     2^-22) since |y| <= amax. Then |t - Q| <= |Q| * 2^-24 (from inv) + 2^-18 (half an
+//     ulp below 128) < 1.2e-5, and |q - Q| <= 2^-18. If |d| < 1/2 - 2^-15, t lies more
+//     than 2^-15 from every k + 1/2, so Q lies on t's side more than 1.8e-5 from it,
+//     and q, within 3.9e-6 of Q, on the same side and not on the boundary: rhe(q) = n.
+//     Otherwise (about 2 * 2^-15 of the elements, and any NaN, which max.NaN carries
+//     into the thread's test) the thread writes that element's vector again, from the
+//     correctly rounded division and F2I, as the plain version computes it. The int8
+//     values are therefore bit for bit those of the plain division. Each vector is
+//     stored as soon as it is packed; the rare second write follows it in program order.
+//   * K4's GELU as x / (1 + 2^a), a = -2 sqrt(2/pi) log2(e) (x + 0.044715 x^3), which
+//     is 0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3))) without the cancellation of
+//     1 + tanh: one MUFU.EX2 and one MUFU.RCP an element in place of tanhf. Its
+//     relative error is a few 2^-24 (tanh.approx's 2^-11 would move ~1% of the int8
+//     values); against the plain version int8 values move by 1 on ~3e-5 of elements.
+//   * Division, square root and the elementwise chain of K3 use the correctly rounded
+//     intrinsics, and this file is built without --use_fast_math, so that K3 and K5
+//     round as their plain versions (K5 bit for bit).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,6 +62,8 @@ using bf16 = __nv_bfloat16;
 constexpr int kVec = 8;       // bf16 per 16-byte vector
 constexpr int kMaxVec = 4;    // vectors held per thread
 constexpr int kMaxThreads = 1024;
+constexpr float kMagic = 12582912.f;  // 1.5 * 2^23
+constexpr float kWindow = 0x1p-15f;   // |t - (k + 1/2)| below this takes the exact path
 
 enum Op { kAdaLN = 0, kGelu = 1, kRow = 2 };
 
@@ -76,20 +100,35 @@ __device__ __forceinline__ float block_reduce(float v, float* smem) {
   return v;
 }
 
-// tanh-GELU as PyTorch writes it: 0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3))).
+// tanh-GELU, 0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3))), as x / (1 + 2^a).
 __device__ __forceinline__ float gelu_tanh(float x) {
-  const float kBeta = 0.7978845608028654f;
-  const float kKappa = 0.044715f;
-  const float inner = kBeta * (x + kKappa * (x * x * x));
-  return 0.5f * x * (1.f + tanhf(inner));
+  constexpr float kA = static_cast<float>(-2.0 * 0.7978845608028654 * 1.4426950408889634);
+  constexpr float kB = static_cast<float>(-2.0 * 0.7978845608028654 * 0.044715 * 1.4426950408889634);
+  const float a = x * fmaf(kB, x * x, kA);
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(a));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.f + e));
+  return x * r;
+}
+
+// max(a, b) that returns NaN if either is NaN
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float m;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));
+  return m;
+}
+
+// The int8 of y / step for one element, exactly as the plain version computes it.
+__device__ __forceinline__ uint32_t quant_exact(float y, float step) {
+  return static_cast<uint8_t>(static_cast<int8_t>(__float2int_rn(__fdiv_rn(y, step))));
 }
 
 template <int kOp>
-__global__ void act_quant_kernel(const bf16* __restrict__ x, long long sxb, long long sxl,
-                                 const bf16* __restrict__ shift, long long sshb,
-                                 const bf16* __restrict__ scale, long long sscb,
-                                 int8_t* __restrict__ q, float* __restrict__ s, int L, int W,
-                                 float eps) {
+__device__ __forceinline__ void act_quant_row(const bf16* __restrict__ x, long long sxb,
+                                              long long sxl, const bf16* __restrict__ shift,
+                                              long long sshb, const bf16* __restrict__ scale,
+                                              long long sscb, int8_t* __restrict__ q,
+                                              float* __restrict__ s, int L, int W, float eps) {
   __shared__ float red[32];
   const long long row = blockIdx.x;
   const int b = static_cast<int>(row / L), l = static_cast<int>(row % L);
@@ -152,22 +191,63 @@ __global__ void act_quant_kernel(const bf16* __restrict__ x, long long sxb, long
     for (int j = 0; j < kVec; ++j) amax = fmaxf(amax, fabsf(y[i][j]));
   amax = block_reduce<true>(amax, red);
   const float step = __fmul_rn(fmaxf(amax, 1e-12f), 1.f / 127.f);
+  const float inv = __frcp_rn(step);
   int8_t* qr = q + row * W;
+  float dmax = 0.f;  // the largest |t - rhe(t)| of this thread's elements
 #pragma unroll
   for (int i = 0; i < kMaxVec; ++i) {
-    const int c = threadIdx.x + i * blockDim.x;
-    if (c >= nvec) continue;
-    union {
-      int8_t b[kVec];
-      uint2 u;
-    } out;
+    uint32_t packed[2];
 #pragma unroll
-    for (int j = 0; j < kVec; ++j)
-      out.b[j] = static_cast<int8_t>(__float2int_rn(__fdiv_rn(y[i][j], step)));
-    *reinterpret_cast<uint2*>(qr + c * kVec) = out.u;
+    for (int j = 0; j < kVec; j += 4) {
+      uint32_t w[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float t = __fmul_rn(y[i][j + k], inv);
+        const float r = __fadd_rn(t, kMagic);
+        dmax = max_nan(dmax, fabsf(__fsub_rn(t, __fsub_rn(r, kMagic))));
+        w[k] = __float_as_uint(r);
+      }
+      packed[j / 4] = __byte_perm(__byte_perm(w[0], w[1], 0x0040), __byte_perm(w[2], w[3], 0x0040),
+                                  0x5410);
+    }
+    const int c = threadIdx.x + i * blockDim.x;
+    if (c < nvec) *reinterpret_cast<uint2*>(qr + c * kVec) = make_uint2(packed[0], packed[1]);
+  }
+  if (!(dmax < 0.5f - kWindow)) {
+    // An element near a rounding boundary (or NaN): its vector is written again, from the
+    // exact division. t again as fma(y, inv, +0): the same value but for the sign of a zero
+    // (which does not move d), and not the same instruction, so the compiler recomputes it
+    // rather than keeping the loop's 32 products live in registers until here.
+#pragma unroll
+    for (int i = 0; i < kMaxVec; ++i) {
+      bool near = false;
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const float t = __fmaf_rn(y[i][j], inv, 0.f);
+        near |= !(fabsf(__fsub_rn(t, __fsub_rn(__fadd_rn(t, kMagic), kMagic))) < 0.5f - kWindow);
+      }
+      if (near) {  // padding vectors hold zeros and are never near
+        uint32_t packed[2] = {0u, 0u};
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) packed[j / 4] |= quant_exact(y[i][j], step) << (8 * (j % 4));
+        *reinterpret_cast<uint2*>(qr + (threadIdx.x + i * blockDim.x) * kVec) =
+            make_uint2(packed[0], packed[1]);
+      }
+    }
   }
   if (threadIdx.x == 0) s[row] = step;
 }
+
+#define ACT_QUANT_ARGS                                                                         \
+  const bf16 *__restrict__ x, long long sxb, long long sxl, const bf16 *__restrict__ shift,   \
+      long long sshb, const bf16 *__restrict__ scale, long long sscb, int8_t *__restrict__ q, \
+      float *__restrict__ s, int L, int W, float eps
+#define ACT_QUANT_PASS x, sxb, sxl, shift, sshb, scale, sscb, q, s, L, W, eps
+
+// One entry point per op, so that ptxas's report and the SASS name each kernel.
+__global__ void act_quant_adaln_kernel(ACT_QUANT_ARGS) { act_quant_row<kAdaLN>(ACT_QUANT_PASS); }
+__global__ void act_quant_gelu_kernel(ACT_QUANT_ARGS) { act_quant_row<kGelu>(ACT_QUANT_PASS); }
+__global__ void act_quant_row_kernel(ACT_QUANT_ARGS) { act_quant_row<kRow>(ACT_QUANT_PASS); }
 
 }  // namespace
 
@@ -186,20 +266,12 @@ extern "C" int act_quant_bf16(int op, const void* x, long long sxb, long long sx
   const int per_thread = (nvec + kMaxVec - 1) / kMaxVec;
   const int threads = ((per_thread + 31) / 32) * 32;
   const dim3 grid(static_cast<unsigned>(static_cast<long long>(B) * L));
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* xp = static_cast<const bf16*>(x);
-  const bf16* shp = static_cast<const bf16*>(shift);
-  const bf16* scp = static_cast<const bf16*>(scale);
-  int8_t* qp = static_cast<int8_t*>(q);
-  float* sp = static_cast<float*>(s);
-  if (op == kAdaLN)
-    act_quant_kernel<kAdaLN><<<grid, threads, 0, st>>>(xp, sxb, sxl, shp, sshb, scp, sscb, qp,
-                                                       sp, L, W, eps);
-  else if (op == kGelu)
-    act_quant_kernel<kGelu><<<grid, threads, 0, st>>>(xp, sxb, sxl, shp, sshb, scp, sscb, qp, sp,
-                                                      L, W, eps);
-  else
-    act_quant_kernel<kRow><<<grid, threads, 0, st>>>(xp, sxb, sxl, shp, sshb, scp, sscb, qp, sp,
-                                                     L, W, eps);
+  void (*kernel)(ACT_QUANT_ARGS) = op == kAdaLN ? act_quant_adaln_kernel
+                                  : op == kGelu  ? act_quant_gelu_kernel
+                                                 : act_quant_row_kernel;
+  kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), sxb, sxl, static_cast<const bf16*>(shift), sshb,
+      static_cast<const bf16*>(scale), sscb, static_cast<int8_t*>(q), static_cast<float*>(s), L, W,
+      eps);
   return static_cast<int>(cudaGetLastError());
 }

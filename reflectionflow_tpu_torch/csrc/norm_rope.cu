@@ -10,19 +10,29 @@
 // the serving forward, every product and sum after the norm rounds to bf16.
 //
 // What bounds it on an H100: HBM bandwidth. The panel is read once and written once
-// (12 MB each way per stream at L = 4096), with ~10 FLOPs per element.
+// (12 MB each way per stream at L = 4096), with ~10 FLOPs per element. To run at that
+// bound an SM needs ~20 KB of loads in flight at all times, while each (token, head)
+// ends in a serial chain (shuffles, a square root and a reciprocal, bf16 roundings)
+// before its store: the loads have to be wide and issued ahead of that chain, and the
+// chain's instructions (~20 an element) have to stay under the bytes' time.
 //
 // Design, against that bound:
-//   * One warp per (token, head): lane i holds elements 4i..4i+3 (one 8-byte load),
-//     so a warp reads a head's 256 contiguous bytes. The mean of squares is a 5-step
-//     xor-shuffle reduction; no shared memory, no __syncthreads.
-//   * The rotation partner of element e is e +- 64, four lanes of 16 away:
-//     one __shfl_xor_sync(..., 16) brings the partner's four values.
+//   * One block of 128 threads per token row. A head is 16 lanes; lane i of a head
+//     holds elements 8i..8i+7 (one 16-byte load and one 16-byte store), so a
+//     half-warp reads a head's 256 contiguous bytes and the block's 8 half-warps
+//     cover 8 heads at a time.
+//   * Each thread loads the x vectors of kPasses heads (24 heads at once for FLUX's
+//     H = 24) before any arithmetic, so ~6 KB a block is in flight from its start.
+//   * cos, sin and scale are the same for all of a token's heads: each thread loads
+//     its 16 bytes of each once, for all its heads.
+//   * The mean of squares is 8 products summed in sequence, then a 4-step xor-shuffle
+//     tree over the head's 16 lanes; the rotation partner of element e is e +- 64,
+//     8 lanes away: one __shfl_xor_sync(..., 8) per pair of bf16 values.
 //   * The panel is a strided slice of the qkv (row stride 3H) or in_proj (row stride
 //     3H + M) matmul output and is read through its strides, without a copy; the cos
 //     and sin tables likewise (row offset for the txt/img halves of the joint table).
-//   * Arithmetic uses the correctly rounded intrinsics, and the per-lane sum of squares
-//     runs in a fixed order (4 in sequence, then the shuffle tree), which
+//   * Arithmetic uses the correctly rounded intrinsics, and the sum of squares runs in
+//     a fixed order (8 in sequence, then the shuffle tree), which
 //     ops/fused_quant.py::norm_rope_ref reproduces: the kernel and its plain version
 //     agree bit for bit on the same inputs. Built without --use_fast_math.
 
@@ -35,89 +45,133 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kHeadDim = 128;
-constexpr int kPerLane = kHeadDim / 32;  // 4
-constexpr int kWarps = 8;                // warps (token-heads) per block
+constexpr int kPerLane = 8;                            // bf16 per lane: one 16-byte vector
+constexpr int kLanesPerHead = kHeadDim / kPerLane;     // 16
+constexpr int kThreads = 128;                          // a block: one token row
+constexpr int kHeadsPerPass = kThreads / kLanesPerHead;  // 8
+constexpr int kPasses = 3;                             // heads a thread loads before its math
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void load4(const bf16* p, float (&f)[kPerLane]) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+__device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[kPerLane]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  f[0] = a.x;
-  f[1] = a.y;
-  f[2] = b.x;
-  f[3] = b.y;
+#pragma unroll
+  for (int i = 0; i < kPerLane / 2; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
 }
 
-__global__ void norm_rope_kernel(const bf16* __restrict__ x, long long sxb, long long sxl,
-                                 const bf16* __restrict__ scale, const bf16* __restrict__ cos,
-                                 long long scl, const bf16* __restrict__ sin, long long ssl,
-                                 bf16* __restrict__ out, int L, int n_heads,
-                                 long long n_items, float eps) {
-  const long long item = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (item >= n_items) return;  // warp-uniform
-  const int lane = threadIdx.x & 31;
-  const int h = static_cast<int>(item % n_heads);
-  const long long row = item / n_heads;
-  const int b = static_cast<int>(row / L), l = static_cast<int>(row % L);
-  const int col = lane * kPerLane;
+// two floats rounded to bf16, packed (one F2FP)
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
 
-  float v[kPerLane], sc[kPerLane], c[kPerLane], sn[kPerLane];
-  load4(x + b * sxb + l * sxl + h * kHeadDim + col, v);
-  load4(scale + col, sc);
-  load4(cos + l * scl + col, c);
-  load4(sin + l * ssl + col, sn);
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
 
+// RN_bf16(a * b) for two pairs, back in fp32
+__device__ __forceinline__ float2 mul_bf16(float2 a, float b0, float b1) {
+  return unpack2(pack2(__fmul_rn(a.x, b0), __fmul_rn(a.y, b1)));
+}
+
+// One head's 8 values of this lane: norm, scale, rotate; returns the 16 output bytes.
+// `sn` holds -sin on the head's first 8 lanes, so that both halves add.
+__device__ __forceinline__ uint4 norm_rope8(const uint4& raw, const float (&sc)[kPerLane],
+                                           const float (&c)[kPerLane], const float (&sn)[kPerLane],
+                                           float eps) {
+  float v[kPerLane];
+  unpack8(raw, v);
   float ss = __fmul_rn(v[0], v[0]);
 #pragma unroll
   for (int j = 1; j < kPerLane; ++j) ss = __fadd_rn(ss, __fmul_rn(v[j], v[j]));
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, o));
-  const float var = __fdiv_rn(ss, static_cast<float>(kHeadDim));
-  const float r = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
+  for (int o = kLanesPerHead / 2; o > 0; o >>= 1)
+    ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, o));
+  // var = ss / 128 and r = 1 / sqrt(var + eps), each correctly rounded
+  const float r = __frcp_rn(__fsqrt_rn(__fadd_rn(__fmul_rn(ss, 1.f / kHeadDim), eps)));
 
-  float xs[kPerLane], partner[kPerLane];
+  uint32_t xs[kPerLane / 2];
 #pragma unroll
-  for (int j = 0; j < kPerLane; ++j) xs[j] = round_bf16(__fmul_rn(round_bf16(__fmul_rn(v[j], r)), sc[j]));
-#pragma unroll
-  for (int j = 0; j < kPerLane; ++j) partner[j] = __shfl_xor_sync(0xffffffffu, xs[j], 16);
-
-  // lanes 0..15 hold x1 (out = x1 c - x2 s), lanes 16..31 hold x2 (out = x2 c + x1 s)
-  const bool first = lane < 16;
-  union {
-    bf16 h[kPerLane];
-    uint2 u;
-  } res;
-#pragma unroll
-  for (int j = 0; j < kPerLane; ++j) {
-    const float a = round_bf16(__fmul_rn(xs[j], c[j]));
-    const float p = round_bf16(__fmul_rn(partner[j], sn[j]));
-    res.h[j] = __float2bfloat16_rn(first ? __fsub_rn(a, p) : __fadd_rn(a, p));
+  for (int i = 0; i < kPerLane / 2; ++i) {
+    const float2 n = unpack2(pack2(__fmul_rn(v[2 * i], r), __fmul_rn(v[2 * i + 1], r)));
+    xs[i] = pack2(__fmul_rn(n.x, sc[2 * i]), __fmul_rn(n.y, sc[2 * i + 1]));
   }
-  *reinterpret_cast<uint2*>(out + row * (static_cast<long long>(n_heads) * kHeadDim) +
-                            h * kHeadDim + col) = res.u;
+  // lanes 0..7 of a head hold x1 (out = x1 c - x2 s), lanes 8..15 hold x2 (out = x2 c + x1 s);
+  // the partner of element e is e +- 64, 8 lanes away
+  uint32_t res[kPerLane / 2];
+#pragma unroll
+  for (int i = 0; i < kPerLane / 2; ++i) {
+    const uint32_t partner = __shfl_xor_sync(0xffffffffu, xs[i], kLanesPerHead / 2);
+    const float2 a = mul_bf16(unpack2(xs[i]), c[2 * i], c[2 * i + 1]);
+    const float2 p = mul_bf16(unpack2(partner), sn[2 * i], sn[2 * i + 1]);
+    res[i] = pack2(__fadd_rn(a.x, p.x), __fadd_rn(a.y, p.y));
+  }
+  return make_uint4(res[0], res[1], res[2], res[3]);
+}
+
+__device__ __forceinline__ void store16(bf16* p, const uint4& v) {
+  asm volatile("st.global.v4.b32 [%0], {%1, %2, %3, %4};" ::"l"(p), "r"(v.x), "r"(v.y), "r"(v.z),
+               "r"(v.w)
+               : "memory");
+}
+
+__global__ void __launch_bounds__(kThreads)
+    norm_rope_kernel(const bf16* __restrict__ x, long long sxb, long long sxl,
+                     const bf16* __restrict__ scale, const bf16* __restrict__ cos, long long scl,
+                     const bf16* __restrict__ sin, long long ssl, bf16* __restrict__ out, int L,
+                     int n_heads, float eps) {
+  const long long row = blockIdx.x;  // b * L + l
+  const int b = static_cast<int>(row / L), l = static_cast<int>(row % L);
+  const int sub = threadIdx.x % kLanesPerHead, slot = threadIdx.x / kLanesPerHead;
+  const int col = sub * kPerLane;
+  const bf16* xr = x + b * sxb + l * sxl + col;
+  bf16* outr = out + row * (static_cast<long long>(n_heads) * kHeadDim) + col;
+
+  float sc[kPerLane], c[kPerLane], sn[kPerLane];
+  unpack8(__ldg(reinterpret_cast<const uint4*>(scale + col)), sc);
+  unpack8(__ldg(reinterpret_cast<const uint4*>(cos + l * scl + col)), c);
+  unpack8(__ldg(reinterpret_cast<const uint4*>(sin + l * ssl + col)), sn);
+  if (sub < kLanesPerHead / 2) {  // x1 c - x2 s = x1 c + x2 (-s): RN_bf16 is odd, so exact
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) sn[j] = -sn[j];
+  }
+
+  // Every lane runs every pass (a head past n_heads computes on zeros and is not
+  // stored), so that the shuffles are warp-wide.
+  for (int h0 = slot; h0 - slot < n_heads; h0 += kHeadsPerPass * kPasses) {
+    uint4 raw[kPasses];
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {  // 16-byte loads by intrinsic (nvcc split the plain
+      const int h = h0 + p * kHeadsPerPass;  // uint4 loads here in four)
+      raw[p] = h < n_heads ? __ldg(reinterpret_cast<const uint4*>(xr + h * kHeadDim))
+                           : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+      const int h = h0 + p * kHeadsPerPass;
+      const uint4 o = norm_rope8(raw[p], sc, c, sn, eps);
+      if (h < n_heads) store16(outr + h * kHeadDim, o);
+    }
+  }
 }
 
 }  // namespace
 
 // x: (B, L, n_heads * 128) bf16 with strides (sxb, sxl, 1); scale: (128,) bf16;
 // cos/sin: (L, 128) bf16 with row strides scl/ssl; out: (B, L, n_heads * 128) bf16
-// contiguous. Needs 8-byte aligned rows. Returns the cudaError_t of the launch.
+// contiguous. Needs 16-byte aligned rows. Returns the cudaError_t of the launch.
 extern "C" int norm_rope_bf16_d128(const void* x, long long sxb, long long sxl, const void* scale,
                                    const void* cos, long long scl, const void* sin, long long ssl,
                                    void* out, int B, int L, int n_heads, float eps,
                                    void* stream) {
-  if (B < 1 || L < 1 || n_heads < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_items = static_cast<long long>(B) * L * n_heads;
-  const long long blocks = (n_items + kWarps - 1) / kWarps;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  norm_rope_kernel<<<static_cast<unsigned>(blocks), kWarps * 32, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  const long long rows = static_cast<long long>(B) * L;
+  if (B < 1 || L < 1 || n_heads < 1 || rows > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  norm_rope_kernel<<<static_cast<unsigned>(rows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), sxb, sxl, static_cast<const bf16*>(scale),
       static_cast<const bf16*>(cos), scl, static_cast<const bf16*>(sin), ssl,
-      static_cast<bf16*>(out), L, n_heads, n_items, eps);
+      static_cast<bf16*>(out), L, n_heads, eps);
   return static_cast<int>(cudaGetLastError());
 }

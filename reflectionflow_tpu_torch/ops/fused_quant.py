@@ -67,18 +67,21 @@ def rowquant_ref(x):
     return _row_quant(x.float())
 
 
+_HEAD_LANES = 16  # K2's lanes per head
+
+
 def _sum_sq(xf: torch.Tensor) -> torch.Tensor:
-    """Sum of squares over the last axis (a head) in K2's order: D/32 values per
-    lane in sequence, then the 32 lanes' xor-shuffle tree. The kernel and this
-    version then agree bit for bit; for D not a multiple of 32 (tiny test
-    configs) a plain sum."""
+    """Sum of squares over the last axis (a head) in K2's order: D/16
+    consecutive values per lane in sequence, then the 16 lanes' xor-shuffle
+    tree. The kernel and this version then agree bit for bit; for D not a
+    multiple of 16 (tiny test configs) a plain sum."""
     sq = xf * xf
     D = sq.shape[-1]
-    if D % 32:
+    if D % _HEAD_LANES:
         return sq.sum(dim=-1, keepdim=True)
-    lanes = sq.unflatten(-1, (32, D // 32))
+    lanes = sq.unflatten(-1, (_HEAD_LANES, D // _HEAD_LANES))
     acc = lanes[..., 0]
-    for j in range(1, D // 32):
+    for j in range(1, D // _HEAD_LANES):
         acc = acc + lanes[..., j]
     while acc.shape[-1] > 1:
         half = acc.shape[-1] // 2

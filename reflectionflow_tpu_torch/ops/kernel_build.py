@@ -116,10 +116,10 @@ def ptxas_report(source: str) -> dict[str, dict[str, int]]:
     return report
 
 
-def sass_opcodes(source: str, kernel: str) -> dict[str, int]:
+def sass_opcodes(source: str, kernel: str, modifiers: bool = False) -> dict[str, int]:
     """{opcode: count} over the SASS of `kernel` (its `*_kernel` name) in the
     built `csrc/<source>`, opcodes without their modifiers (HGMMA, UTMALDG,
-    HMMA, ...)."""
+    HMMA, ...), or with them when `modifiers` (LDG.E.128, MUFU.EX2, ...)."""
     sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(build(source))],
                           capture_output=True, text=True, check=True).stdout
     for block in sass.split("Function : ")[1:]:
@@ -127,7 +127,9 @@ def sass_opcodes(source: str, kernel: str) -> dict[str, int]:
         if _kernel_name(name.strip()) != kernel:
             continue
         counts: dict[str, int] = {}
-        for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body):
+        for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)",
+                             body):
+            op = op if modifiers else op.split(".")[0]
             counts[op] = counts.get(op, 0) + 1
         return counts
     raise KeyError(f"no kernel {kernel} in the SASS of {source}")
