@@ -13,7 +13,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (`csrc/flash_fwd_nr.cu`) into `.build/kernels/`, one nvcc per source,
      all started together; prints ptxas's registers and spills per kernel;
      checks that each kernel on the Hopper pipelines `csrc/flash_fwd_sm90.cuh`
-     (K1, K7a, K8b, K9b) and `csrc/flash_bwd_sm90.cuh` (K6a, K6b, K7c) holds wgmma
+     (K1, K7a, K8b, K9b) and `csrc/flash_bwd_sm90.cuh` (K6a, K6b, K7b, K7c) holds wgmma
      (HGMMA; K8b also the integer IGMMA) and TMA (UTMALDG) instructions and no
      mma.sync (HMMA, IMMA), spills nothing, that ptxas honoured its
      setmaxnreg (no warning C7508) and did not serialize its wgmma
@@ -39,11 +39,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      both sides of main_len, cross bias 0, log 0.5 and -1e30; the backward
      from the whole sequence's lse and delta rows. A row that sees no key
      under the mask must carry lse <= -1e29 (its ring merge weight is 0).
-     At (8, 640, log 0.5) a second K7c launch must give bitwise the same dK
-     and dV (no atomics). Times each kernel, its plain version and SDPA with
-     the chunk's float mask (forward; backward printed; yardsticks only) at
-     the two chunk shapes, with K7a's and K7c's TFLOP/s and shares of the
-     bound and each kernel's device time (profiler);
+     At (8, 640, log 0.5) a second K7b and K7c launch must give bitwise the
+     same dQ, dK and dV (no atomics). Times each kernel, its plain version
+     and SDPA with the chunk's float mask (forward; backward printed;
+     yardsticks only) at the two chunk shapes, with each kernel's TFLOP/s,
+     share of the bound and device time (profiler), and K6a on the chunk
+     view (q and k from the same rows, no live boundary) in turns with K7b:
+     the pipeline K7b shares, without the chunk's modifiers;
   4. K2–K5 against their plain versions on the card at every shape the W8A8
      path gives them (strided panel slices included) and at a ragged
      L = 4608 + 77, K2 bit-identical at each; times each kernel and its plain
@@ -259,12 +261,13 @@ HOPPER_KERNELS = (  # label, source, kernel: the kernels on flash_fwd_sm90.cuh /
     ("K9b", "flash_fwd_nr.cu", "flash_fwd_nr_kernel"),
     ("K6a", "flash_bwd.cu", "flash_bwd_dq_kernel"),
     ("K6b", "flash_bwd.cu", "flash_bwd_dkv_kernel"),
+    ("K7b", "flash_bwd.cu", "flash_chunk_bwd_dq_kernel"),
     ("K7c", "flash_bwd.cu", "flash_chunk_bwd_dkv_kernel"),
 )
 
 
 def hopper_check(kernel_build, ptxas) -> dict:
-    """K1, K7a, K8b, K9b, K6a, K6b and K7c are built as designed for Hopper: TMA (UTMALDG) and
+    """K1, K7a, K8b, K9b, K6a, K6b, K7b and K7c are built as designed for Hopper: TMA (UTMALDG) and
     wgmma instructions (HGMMA for the bf16 products; K8b's int8 QK^T also an
     integer GMMA, IGMMA as cuobjdump prints it), no mma.sync (HMMA, IMMA), no
     spills, ptxas honoured their setmaxnreg (no warning C7508) and did not
@@ -477,19 +480,19 @@ def k7_phase(torch):
     (chunks of 1000, not a multiple of 64); offset pairs with 0 and non-zero
     starts on both sides of main_len, cross bias 0, log 0.5 and -1e30. The
     backward takes the ring-global lse and delta rows of the whole sequence
-    (from K1). At the training chunk with the log 0.5 bias a second K7c
-    launch must be bitwise equal to the first. Each kernel, its plain version
+    (from K1). At the training chunk with the log 0.5 bias a second K7b and
+    K7c launch must be bitwise equal to the first. Each kernel, its plain version
     and SDPA (forward and backward, with the chunk's float mask; yardsticks
     only) timed at the two chunk shapes with a live cross bias."""
     import torch.nn.functional as F
 
     from reflectionflow_tpu_torch.ops.flash_attention import (
-        flash_attention_fwd, flash_chunk_bwd, flash_chunk_bwd_dkv, flash_chunk_bwd_ref, flash_chunk_fwd,
-        flash_chunk_fwd_ref)
+        flash_attention_fwd, flash_chunk_bwd, flash_chunk_bwd_dkv, flash_chunk_bwd_dq, flash_chunk_bwd_ref,
+        flash_chunk_fwd, flash_chunk_fwd_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     res = {"fwd": {"err": 0.0, "lse_err": 0.0}, "dq": {"err": 0.0, "rel": 0.0},
-           "dkv": {"err": 0.0, "rel": 0.0}, "by_shape": {}, "cases": 0, "dkv_bitwise_cases": 0}
+           "dkv": {"err": 0.0, "rel": 0.0}, "by_shape": {}, "cases": 0, "bitwise_cases": 0}
     with torch.no_grad():
         for B, L, main_len, pairs, timed in K7_SHAPES:
             Lc = L // RING
@@ -529,12 +532,15 @@ def k7_phase(torch):
                     check(e_out <= OUT_TOL and e_lse <= LSE_TOL and hidden_ok,
                           f"K7a disagrees with its plain version at B={B} Lc={Lc} offsets ({q_off}, {k_off})")
                     if B == 8 and cb == math.log(0.5):  # no atomics: a second launch is bitwise equal
-                        again = flash_chunk_bwd_dkv(qc, kc, vc, doc, g_lse, g_delta, main_len, cb, q_off, k_off)
-                        same = [torch.equal(a, g) for a, g in zip(again, got[1:])]
-                        log(f"K7c B={B} Lc={Lc} offsets ({q_off}, {k_off}) cross_bias={cb}: second launch "
-                            f"bitwise equal (dk, dv) {same}")
-                        check(all(same), "K7c's second launch differs from its first")
-                        res["dkv_bitwise_cases"] += 1
+                        mods = (main_len, cb, q_off, k_off)
+                        again = (flash_chunk_bwd_dq(qc, kc, vc, doc, g_lse, g_delta, *mods),
+                                 *flash_chunk_bwd_dkv(qc, kc, vc, doc, g_lse, g_delta, *mods))
+                        same = [torch.equal(a, g) for a, g in zip(again, got)]
+                        log(f"K7b/K7c B={B} Lc={Lc} offsets ({q_off}, {k_off}) cross_bias={cb}: second "
+                            f"launch bitwise equal (dq, dk, dv) {same}")
+                        check(same[0], "K7b's second launch differs from its first")
+                        check(all(same[1:]), "K7c's second launch differs from its first")
+                        res["bitwise_cases"] += 1
                         del again
                     res["fwd"]["err"] = max(res["fwd"]["err"], e_out)
                     res["fwd"]["lse_err"] = max(res["fwd"]["lse_err"], e_lse)
@@ -554,7 +560,7 @@ def _time_k7(torch, F, q, k, v, do, lse, delta, main_len, cb, q_off, k_off, Lc):
     """K7a/K7b/K7c at one chunk in turns with their plain versions; SDPA's
     forward and backward with the chunk's float mask as yardsticks."""
     from reflectionflow_tpu_torch.ops.flash_attention import (
-        flash_chunk_bwd_dkv, flash_chunk_bwd_dq, flash_chunk_bwd_ref, flash_chunk_fwd,
+        flash_bwd_dq, flash_chunk_bwd_dkv, flash_chunk_bwd_dq, flash_chunk_bwd_ref, flash_chunk_fwd,
         flash_chunk_fwd_ref)
 
     B = q.shape[0]
@@ -569,6 +575,12 @@ def _time_k7(torch, F, q, k, v, do, lse, delta, main_len, cb, q_off, k_off, Lc):
                            plain_bwd, 20, 2)
     t_dkv, _ = in_turns(torch, lambda: flash_chunk_bwd_dkv(qc, kc, vc, doc, g_lse, g_delta, *mods),
                         plain_bwd, 20, 2)
+    # the pipeline K7b shares with K6a, without the chunk's modifiers: K6a on the chunk view with
+    # q and k from the same rows and no live boundary, in turns with K7b
+    k_same, v_same = k[:, q_off:q_off + Lc], v[:, q_off:q_off + Lc]
+    k6a = lambda: flash_bwd_dq(qc, k_same, v_same, doc, g_lse, g_delta, Lc)  # noqa: E731
+    t_dq_pair, t_k6a = in_turns(
+        torch, lambda: flash_chunk_bwd_dq(qc, kc, vc, doc, g_lse, g_delta, *mods), k6a, 20, 20)
     pos = torch.arange(Lc, device="cuda")
     cross = ((q_off + pos)[:, None] >= main_len) != ((k_off + pos)[None, :] >= main_len)
     mask = torch.where(cross, cb, 0.0).to(torch.bfloat16)
@@ -592,7 +604,8 @@ def _time_k7(torch, F, q, k, v, do, lse, delta, main_len, cb, q_off, k_off, Lc):
         ("dq", "flash_chunk_bwd_dq_kernel",
          lambda: flash_chunk_bwd_dq(qc, kc, vc, doc, g_lse, g_delta, *mods)),
         ("dkv", "flash_chunk_bwd_dkv_kernel",
-         lambda: flash_chunk_bwd_dkv(qc, kc, vc, doc, g_lse, g_delta, *mods)))}
+         lambda: flash_chunk_bwd_dkv(qc, kc, vc, doc, g_lse, g_delta, *mods)),
+        ("k6a", "flash_bwd_dq_kernel", k6a))}
     log(f"K7 B={B} Lc={Lc} offsets ({q_off}, {k_off}) cross_bias={cb}: K7a {t_fwd:.4f} ms "
         f"({rate['fwd'][0]:.1f} TFLOP/s, bound {b_fwd[0]:.4f} ms, {rate['fwd'][1]:.1%} of it), "
         f"plain {p_fwd:.3f} ms; K7b {t_dq:.4f} ms ({rate['dq'][0]:.1f} TFLOP/s, bound {b_dq[0]:.4f} ms, "
@@ -600,10 +613,13 @@ def _time_k7(torch, F, q, k, v, do, lse, delta, main_len, cb, q_off, k_off, Lc):
         f"{b_dkv[0]:.4f} ms, {rate['dkv'][1]:.1%} of it), plain backward {p_bwd:.3f} ms; SDPA with "
         f"the chunk's mask: forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms; device time "
         f"K7a {dev['fwd']:.4f}, K7b {dev['dq']:.4f}, K7c {dev['dkv']:.4f} ms")
+    log(f"K7 B={B} Lc={Lc}: K6a on the chunk view (same rows, no live boundary) {t_k6a:.4f} ms "
+        f"(device {dev['k6a']:.4f}), K7b {t_dq_pair:.4f} ms in turns with it")
     out = {"fwd": {"ms": t_fwd, "plain_ms": p_fwd, "bound_ms": b_fwd[0], "bound_by": b_fwd[1],
                    "library_ms": lib_fwd},
            "dq": {"ms": t_dq, "plain_ms": p_bwd, "bound_ms": b_dq[0], "bound_by": b_dq[1],
-                  "library_ms": None, "sdpa_backward_ms": lib_bwd},
+                  "library_ms": None, "sdpa_backward_ms": lib_bwd, "k6a_same_chunk_ms": t_k6a,
+                  "k6a_same_chunk_device_ms": dev["k6a"]},
            "dkv": {"ms": t_dkv, "plain_ms": p_bwd, "bound_ms": b_dkv[0], "bound_by": b_dkv[1],
                    "library_ms": None, "sdpa_backward_ms": lib_bwd}}
     for key, (tflops, share) in rate.items():
@@ -1684,9 +1700,9 @@ def main() -> int:
     t0 = time.perf_counter()
     k7 = k7_phase(torch)
     t_k7 = time.perf_counter() - t0
-    log(f"K7 phase (3c): {k7['cases']} chunk cases ({k7['dkv_bitwise_cases']} with K7c's second launch) "
-        f"in {t_k7:.1f} s")
-    check(k7["dkv_bitwise_cases"] > 0, "K7c's second launch was not checked")
+    log(f"K7 phase (3c): {k7['cases']} chunk cases ({k7['bitwise_cases']} with K7b's and K7c's second "
+        f"launches) in {t_k7:.1f} s")
+    check(k7["bitwise_cases"] > 0, "K7b's and K7c's second launches were not checked")
     fused = fused_phase(torch)
     serving_attn = serving_attn_phase(torch)
     pipe, bf16_launches, bf16_calls, bf16_peak = bf16_phase(torch)
@@ -1766,6 +1782,7 @@ def main() -> int:
             **{k: at[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "shape": k7_train, "corrector_shape": {"shape": k7_corr, **k7["by_shape"][k7_corr][key]},
             **({"sdpa_backward_ms": at["sdpa_backward_ms"]} if key != "fwd" else {}),
+            **({k: at[k] for k in ("k6a_same_chunk_ms", "k6a_same_chunk_device_ms")} if key == "dq" else {}),
         })
     corr_shape, t2i_shape = f"B=2 L={LT + LI + LC}", f"B=2 L={LT + LI}"
     for name, source, line, impl in (("flash_fwd_int8", "flash_fwd_int8.cu", 234, "pallas_int8"),

@@ -1,6 +1,6 @@
-// The Hopper (sm_90a) flash-attention backward pipeline: K6a (dQ), K6b (dK, dV) and K7c (K6b on
-// one ring chunk) of flash_bwd.cu run on it. It reuses the forward header's primitives (mbarriers, TMA, wgmma
-// descriptors and products, setmaxnreg, the tensor-map encoders).
+// The Hopper (sm_90a) flash-attention backward pipeline: K6a (dQ), K6b (dK, dV), K7b and K7c (K6a
+// and K6b on one ring chunk) of flash_bwd.cu run on it. It reuses the forward header's primitives
+// (mbarriers, TMA, wgmma descriptors and products, setmaxnreg, the tensor-map encoders).
 //
 // One block owns (batch*head, 128 resident rows) and has three warpgroups, as the forward:
 //   * warpgroup 0, the producer, cut to kBwdProducerRegs by setmaxnreg. Its thread 0 brings the
@@ -183,8 +183,10 @@ __device__ __forceinline__ void release_stage(const BwdSmem& sm, int s, int lane
   if (lane == 0) mbar_arrive(sm.empty(s));
 }
 
-// K6a: dQ of the block's 128 query rows [q0, q0 + 128) of head h of batch b. Resident: Q and dO;
-// streamed: K and V tiles of 64 keys. Per tile, for the warpgroup's 64 rows:
+// K6a and K7b: dQ of the block's 128 query rows [q0, q0 + 128) of head h of batch b. Resident: Q
+// and dO; streamed: K and V tiles of 64 keys. The rows of its score tiles are query rows and the
+// columns keys: the cond boundary is q_main among the rows and k_main among the columns (both
+// main_len for K6a). Per tile, for the warpgroup's 64 rows:
 //   S = Q K^T, dP = dO V^T (one wgmma group); p = exp2(S scale + bias - lse) with keys >= L
 //   masked, ds = p (dP - delta), rounded to bf16; dQ += ds K.
 // lse (times log2 e) and delta of the thread's two rows are read once into registers.
@@ -192,7 +194,7 @@ template <class LoadQO, class LoadKV>
 __device__ __forceinline__ void dq_ws(unsigned char* smem_raw, LoadQO&& load_qo, LoadKV&& load_kv,
                                       const float* __restrict__ lse,
                                       const float* __restrict__ delta, bf16* __restrict__ dq,
-                                      int q0, int b, int h, int L, int H, int main_len,
+                                      int q0, int b, int h, int L, int H, int q_main, int k_main,
                                       int has_cross, float bias, float scale_log2, float scale) {
   bwd_ws<false>(
       smem_raw, (L + kTileRows - 1) / kTileRows, load_qo, load_kv, [](float*, int, int) {},
@@ -227,7 +229,7 @@ __device__ __forceinline__ void dq_ws(unsigned char* smem_raw, LoadQO&& load_qo,
           wgmma_commit();
           wgmma_wait<1>();
           fence_acc(s);
-          scale_bias(s, scale_log2, k0, row, main_len, main_len, has_cross, bias, t4);
+          scale_bias(s, scale_log2, k0, row, q_main, k_main, has_cross, bias, t4);
           const bool tail = k0 + kTileRows > L;
 #pragma unroll
           for (int n = 0; n < kTileRows / 8; ++n) {

@@ -8,10 +8,10 @@ Counterpart of `reflectionflow_tpu/ops/pallas_attention.py`:
 ring chunk with ring-global offsets (K7a, K7b, K7c), which
 `ops.ring_attention` runs. The kernels are `csrc/flash_fwd.cu` and
 `csrc/flash_bwd.cu` (CUDA C++ for sm_90a, built by `ops/kernel_build.py`).
-K1 and K7a run on the Hopper pipeline of `csrc/flash_fwd_sm90.cuh`, K6a, K6b
-and K7c on its backward counterpart `csrc/flash_bwd_sm90.cuh` (TMA, wgmma,
-warp specialisation); K7b keeps the earlier `mma.sync` body. The
-source notes say what bounds each kernel and how the design answers that.
+K1 and K7a run on the Hopper pipeline of `csrc/flash_fwd_sm90.cuh`, K6a, K6b,
+K7b and K7c on its backward counterpart `csrc/flash_bwd_sm90.cuh` (TMA,
+wgmma, warp specialisation). The source notes say what bounds each kernel and
+how the design answers that.
 `FlashAttention` is the `torch.autograd.Function` that joins K1 forward and
 K6a + K6b backward.
 
@@ -98,9 +98,9 @@ def _bwd_ref(q, k, v, do, lse, delta, main_len, cross_bias, q_offset, k_offset):
 
 
 def _check_layout(name, x):
-    """What the kernels' copies need of a tensor they read at its own strides
-    (cp.async rows, TMA tensor maps): a unit last stride, the other strides
-    multiples of 8 elements (16 bytes) and a 16-byte aligned base."""
+    """What the kernels' TMA tensor maps need of a tensor they read at its own
+    strides: a unit last stride, the other strides multiples of 8 elements
+    (16 bytes) and a 16-byte aligned base."""
     if x.stride(-1) != 1 or any(st % 8 for st in x.stride()[:-1]) or x.data_ptr() % 16:
         raise ValueError(f"{name} needs unit last stride and 16-byte aligned rows, "
                          f"got strides {x.stride()}")

@@ -1,13 +1,13 @@
 """The wrappers of the kernels on the Hopper pipelines (`csrc/flash_fwd_sm90.cuh`:
 K1 `flash_attention_fwd`, K7a `flash_chunk_fwd`, K8 `flash_attention_int8`, K9
 `flash_attention_nr`; `csrc/flash_bwd_sm90.cuh`: K6a `flash_bwd_dq`, K6b
-`flash_bwd_dkv`, K7c `flash_chunk_bwd_dkv`) read q, k, v (and dO) through TMA
-tensor maps at the caller's strides. What TMA cannot read must raise a
-ValueError that names the tensor before any launch and before the device check
-(meta tensors stand in for CUDA ones: they hold no data and reach the same
-checks), while CPU tensors of the same layout still go to the plain version
-(for K6a/K6b/K7c, CUDA-only entries, through `flash_attention_bwd` or
-`flash_chunk_bwd`).
+`flash_bwd_dkv`, K7b `flash_chunk_bwd_dq`, K7c `flash_chunk_bwd_dkv`) read q, k,
+v (and dO) through TMA tensor maps at the caller's strides. What TMA cannot
+read must raise a ValueError that names the tensor before any launch and before
+the device check (meta tensors stand in for CUDA ones: they hold no data and
+reach the same checks), while CPU tensors of the same layout still go to the
+plain version (for K6a/K6b/K7b/K7c, CUDA-only entries, through
+`flash_attention_bwd` or `flash_chunk_bwd`).
 """
 
 import math
@@ -17,7 +17,7 @@ import torch
 
 from reflectionflow_tpu_torch.ops.flash_attention import (
     flash_attention_bwd, flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq, flash_chunk_bwd,
-    flash_chunk_bwd_dkv, flash_chunk_fwd)
+    flash_chunk_bwd_dkv, flash_chunk_bwd_dq, flash_chunk_fwd)
 from reflectionflow_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
 from reflectionflow_tpu_torch.ops.flash_attention_nr import flash_attention_nr
 
@@ -74,18 +74,22 @@ def _k7a(q, k, v):
     return flash_chunk_fwd(q, k, v, *CHUNK)[0]
 
 
-def _k7c(q, k, v, do=None):
-    """K7c's dK on q, k, v and a cotangent do: `flash_chunk_bwd_dkv` on meta
-    tensors, `flash_chunk_bwd` (the plain version) on CPU tensors, from the
-    chunk's own lse and delta rows."""
-    do = _tensor(q.device.type, seed=3) if do is None else do
-    if q.device.type == "cpu":
-        out, lse = flash_chunk_fwd(q, k, v, *CHUNK)
-        delta = (do.float() * out).sum(-1).transpose(1, 2)
-        return flash_chunk_bwd(q, k, v, do, lse, delta, *CHUNK)[1]
-    B, L, H, _ = q.shape
-    lse = torch.empty((B, H, L), device=q.device)
-    return flash_chunk_bwd_dkv(q, k, v, do, lse, torch.empty_like(lse), *CHUNK)[0]
+def _k7(entry, pick):
+    """K7b (pick 0: dQ) or K7c (pick 1: dK) on q, k, v and a cotangent do: the
+    CUDA-only entry on meta tensors, `flash_chunk_bwd` (the plain version) on
+    CPU tensors, from the chunk's own lse and delta rows, with CHUNK's
+    modifiers."""
+    def call(q, k, v, do=None):
+        do = _tensor(q.device.type, seed=3) if do is None else do
+        if q.device.type == "cpu":
+            out, lse = flash_chunk_fwd(q, k, v, *CHUNK)
+            delta = (do.float() * out).sum(-1).transpose(1, 2)
+            return flash_chunk_bwd(q, k, v, do, lse, delta, *CHUNK)[pick]
+        B, L, H, _ = q.shape
+        lse = torch.empty((B, H, L), device=q.device)
+        grads = entry(q, k, v, do, lse, torch.empty_like(lse), *CHUNK)
+        return grads if pick == 0 else grads[0]
+    return call
 
 
 WRAPPERS = {  # kernel -> (call on q, k, v returning the output, the wrapper that counts launches)
@@ -95,7 +99,8 @@ WRAPPERS = {  # kernel -> (call on q, k, v returning the output, the wrapper tha
     "k6a": (_k6(flash_bwd_dq, 0), flash_bwd_dq),
     "k6b": (_k6(flash_bwd_dkv, 1), flash_bwd_dkv),
     "k7a": (_k7a, flash_chunk_fwd),
-    "k7c": (_k7c, flash_chunk_bwd_dkv),
+    "k7b": (_k7(flash_chunk_bwd_dq, 0), flash_chunk_bwd_dq),
+    "k7c": (_k7(flash_chunk_bwd_dkv, 1), flash_chunk_bwd_dkv),
 }
 
 
@@ -120,9 +125,9 @@ def test_hopper_wrapper_checks_tma_terms(kernel, fault):
 
 
 @pytest.mark.parametrize("fault", list(TMA_FAULTS))
-@pytest.mark.parametrize("kernel", ["k6a", "k6b", "k7c"])
+@pytest.mark.parametrize("kernel", ["k6a", "k6b", "k7b", "k7c"])
 def test_backward_wrapper_checks_tma_terms_of_do(kernel, fault):
-    """K6a/K6b/K7c read the cotangent dO through a tensor map too: each fault on
+    """K6a/K6b/K7b/K7c read the cotangent dO through a tensor map too: each fault on
     dO raises a ValueError naming it, with no launch counted; the same dO on
     the CPU is served by the plain version, as its contiguous copy is."""
     _, kw = TMA_FAULTS[fault]
