@@ -119,10 +119,28 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      and 266 K2; 190 K3, 133 K4, 133 K5; no K1); a full-width W8A8 forward
      with the cond stream under each impl agrees with the plain "xla" serving
      path (cosine >= 0.999); and a profiler split of one corrector step under
-     "pallas_nr".
+     "pallas_nr";
+  8. reflection round: on that W8A8 pipeline under "pallas_nr", with the
+     prompt-embedding cache on (the CLI's int8 profile),
+     `run_reflectionflow_block` (the reflectionflow CLI's function) with the
+     fake verifier, reflector and refiner of configs/flux.1_dev_fake.json:
+     one prompt, 2 candidates per call at 1024 px with a 512 px condition,
+     round 0 bootstrapped (t2i), then 2 rounds (cut from 16) of verify ->
+     reflect -> refine -> conditioned generate, 8 steps each; checks finite
+     latents, the JAX artifact tree (midimg/{round}_round@{seed}.png,
+     samples_lastround/, samples_path_bestround/, samples_best/00000.png, all
+     1024x1024x3), 2 metadata rows and round_done 2 in search_state.json,
+     every conditioned FLUX prompt "<refined> [Reflexion]: <reflection>",
+     exact launch counts from the block counts (per t2i forward 57 K9, 114
+     K3, 76 K4, 76 K5; per conditioned forward 57 K9, 190 K3, 133 K4, 133 K5;
+     no K1, K2 or K8), the prompt cache's misses (1, then the 2 new prompts of
+     each round); a second call on the same directory must generate, encode
+     and write nothing; prints each round's time and its split (generate,
+     verify, reflect, refine, the rest), their p50 and peak memory.
 The training numbers are on the line {"train": {...}}, the ring phase's on
-{"ring": {...}}; the line before the last is {"kernels": [...]}; the last
-line is {"ok": true, "device": {...}}.
+{"ring": {...}}, the reflection round's on {"reflection_round": {...}}; the
+line before the last is {"kernels": [...]}; the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -153,6 +171,7 @@ CORR_ITEMS, IMAGE_CFG = 2, 1.5  # corrector items served per impl; image guidanc
 RING = 4  # ring slots of the sequence-parallel phases (all on the one card)
 RING_TRAIN_STEPS, RING_DENOISE_STEPS = 2, 2
 RING_COS = 0.999  # ring denoise final latents against K1
+REFLECT_ROUNDS = 2  # reflection rounds of phase 8 (the fake preset's 16, cut)
 # K1 timed: (B, L, main_len, cross bias): the t2i forward at B = 1 and 2, and the training
 # sequence (512 + 1024 + 1024 tokens, the cond segment at 1536) with the c_factor bias
 K1_TIMED = ((1, 4608, 4608, 0.0), (2, 4608, 4608, 0.0), (8, 2560, 1536, math.log(0.5)))
@@ -1673,6 +1692,174 @@ def corrector_phase(torch, pipe):
     return runs
 
 
+def reflection_phase(torch, pipe):
+    """Phase 8: the reflection round. `run_reflectionflow_block` (the loop of
+    the reflectionflow CLI) with the fake verifier, reflector and refiner of
+    configs/flux.1_dev_fake.json, on the W8A8 pipeline with its folded int8
+    cond model, under "pallas_nr" and with the prompt-embedding cache on, as
+    `cli/common.py::load_pipeline` sets the int8 profile: one prompt at 1024
+    px with a 512 px condition, 2 candidates per call, round 0 bootstrapped,
+    then REFLECT_ROUNDS verify -> reflect -> refine -> conditioned generate
+    rounds of STEPS steps. Every launch count is set to 0 just before and read
+    just after; a second call on the same directory must be a resume no-op."""
+    import re
+
+    from reflectionflow_tpu_torch.config import TTSConfig
+    from reflectionflow_tpu_torch.reflect import FakeReflector, FakeRefiner
+    from reflectionflow_tpu_torch.search.artifacts import round_image_name
+    from reflectionflow_tpu_torch.search.reflectionflow import run_reflectionflow_block
+    from reflectionflow_tpu_torch.search.seeds import candidate_seeds
+    from reflectionflow_tpu_torch.search.state import SearchManifest
+    from reflectionflow_tpu_torch.utils.jsonl import read_jsonl
+    from reflectionflow_tpu_torch.utils.timing import PhaseTimer
+    from reflectionflow_tpu_torch.verifiers import FakeVerifier
+
+    t_phase = time.perf_counter()
+    cfg = TTSConfig.load(os.path.join(REPO, "configs", "flux.1_dev_fake.json"))
+    pa, sa = cfg.pipeline_args, cfg.search_args
+    check(sa.search_branch == BRANCH and cfg.batch_size_for_img_gen == BRANCH and pa.height == pa.width == 2 * LT
+          and pa.condition_size == LT and pa.image_guidance_scale == 1.0 and sa.search_rounds == 16
+          and cfg.verifier_args.name == cfg.reflection_args.name == cfg.prompt_refiner_args.name == "fake",
+          "flux.1_dev_fake.json no longer serves fake models, 2 candidates per call at 1024 px with a "
+          "512 px condition and no image CFG")
+    sa.search_rounds, pa.num_inference_steps = REFLECT_ROUNDS, STEPS  # cut from 16 rounds and 30 steps
+    pipe.model_flags = {"union_cond_attn": cfg.model.union_cond_attn, "add_cond_attn": cfg.model.add_cond_attn}
+    pipe.attn_impl = "pallas_nr"
+    pipe.enable_prompt_cache()
+    with open(os.path.join(REPO, "configs", "geneval_sample.jsonl")) as f:
+        rows = [json.loads(line) for line in f if line.strip()][:1]
+
+    calls, encoded = [], []
+    generate, encode_raw = pipe.generate, pipe._encode_raw
+
+    def generate_checked(prompts, **kw):
+        conds = kw.get("conditions") or []
+        check(all(c.image.shape == (LT, LT, 3) and tuple(c.position_delta) == (0, -LT // 16) for c in conds),
+              "reflection round: a condition is not a 512 px cot image at (0, -32)")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat = generate(prompts, **{**kw, "output_type": "latent"})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        check(tuple(lat.shape) == (len(prompts), LI, 64) and bool(torch.isfinite(lat).all()),
+              f"reflection round: bad final latents {tuple(lat.shape)}")
+        images = pipe.decode_latents(lat, kw["height"], kw["width"])
+        calls.append({"prompts": list(prompts), "conditions": len(conds), "denoise_s": t1 - t0,
+                      "decode_s": time.perf_counter() - t1})
+        return images
+
+    def encode_counted(pairs, length):
+        encoded.append(list(pairs))
+        return encode_raw(pairs, length)
+
+    pipe.generate, pipe._encode_raw = generate_checked, encode_counted
+    timer = PhaseTimer()
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counters = zero_counts()
+            t0 = time.perf_counter()
+            dps = run_reflectionflow_block(pipe, FakeVerifier(), FakeReflector(), FakeRefiner(), cfg, rows,
+                                           out_dir, timer=timer)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in counters.items()}
+            peak = torch.cuda.max_memory_allocated()
+            root = os.path.join(out_dir, "00000")
+            pngs = sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root)
+                          for f in fs if f.endswith(".png"))
+            headers = {p: read_png_header(os.path.join(root, p)) for p in pngs}
+            meta = read_jsonl(os.path.join(root, "metadata.jsonl"))
+            manifest = SearchManifest.load(root)
+            n_calls, n_encoded = len(calls), len(encoded)
+
+            # the same call again on the same directory: a resume no-op
+            mtimes = {p: os.path.getmtime(os.path.join(root, p)) for p in pngs}
+            counters = zero_counts()
+            again = run_reflectionflow_block(pipe, FakeVerifier(), FakeReflector(), FakeRefiner(), cfg, rows,
+                                             out_dir, timer=PhaseTimer())
+            resume_launches = sum(fn.launches for fn in counters.values())
+            check(len(calls) == n_calls and len(encoded) == n_encoded and resume_launches == 0
+                  and again == dps and mtimes == {p: os.path.getmtime(os.path.join(root, p)) for p in pngs},
+                  "the second call on a finished run was not a resume no-op")
+    finally:
+        pipe.generate, pipe._encode_raw = generate, encode_raw
+
+    # the JAX artifact tree: every candidate at midimg/{round}_round@{seed}.png, 1024x1024x3
+    want = {f"midimg/{round_image_name(r, s)}" for r in range(REFLECT_ROUNDS + 1)
+            for s in candidate_seeds(0, 0, r, BRANCH)}
+    want |= {f"{d}/{i:05d}.png" for d in ("samples_lastround", "samples_path_bestround") for i in range(BRANCH)}
+    want.add("samples_best/00000.png")
+    check(set(pngs) == want, f"reflection round wrote {pngs}, expected {sorted(want)}")
+    check(all(h == (pa.width, pa.height, 8, 2) for h in headers.values()), f"PNG headers {headers}")
+    check(len(meta) == REFLECT_ROUNDS and manifest.round_done == REFLECT_ROUNDS and dps[0]["flag_terminated"],
+          f"{len(meta)} metadata rows, round_done {manifest.round_done}")
+
+    # the calls: round 0 one t2i call, then one conditioned call a round whose FLUX prompts are
+    # "<refined> [Reflexion]: <reflection>" of that round's metadata row
+    t2i = [c for c in calls if not c["conditions"]]
+    cond = [c for c in calls if c["conditions"]]
+    check(len(t2i) == 1 and len(cond) == REFLECT_ROUNDS and all(c["conditions"] == BRANCH for c in cond),
+          f"reflection round: {len(t2i)} t2i and {len(cond)} conditioned generate calls")
+    form = re.compile(r"^(.+) \[Reflexion\]: (.+)$", re.S)
+    for c, row in zip(cond, meta):
+        parts = [form.match(p) for p in c["prompts"]]
+        check(all(parts) and [m.groups() for m in parts] == list(zip(row["refined_prompt"], row["reflections"])),
+              f"round {row['search_round']}: FLUX prompts {c['prompts']} are not '<refined> [Reflexion]: "
+              "<reflection>' of the round's metadata")
+
+    # the prompt cache: each encode is one batch of misses; round 0 asks twice for one prompt
+    requested = sum(len(c["prompts"]) for c in calls)
+    misses = [len(batch) for batch in encoded]
+    check(misses == [1] + [BRANCH] * REFLECT_ROUNDS and encoded[0] == [(rows[0]["prompt"],) * 2]
+          and all([p for p, _ in batch] == sorted(c["prompts"]) for batch, c in zip(encoded[1:], cond)),
+          f"prompt cache: miss batches {encoded}")
+    log(f"reflection round prompt cache: {requested} embeddings read, {sum(misses)} misses encoded in "
+        f"{len(misses)} batches {misses}, {requested - sum(misses)} hits; the resume run encoded nothing")
+
+    # launch counts from the block counts: per t2i forward K9 and the W8A8 prologues of every block, per
+    # conditioned forward (L = 512 + 4096 + 1024) also the cond stream's
+    cfg_d = pipe.dit_cfg
+    nd, ns = cfg_d.num_double_blocks, cfg_d.num_single_blocks
+    per_t2i = {"flash_fwd_nr": nd + ns, "adaln_quant": 4 * nd + ns, "gelu_quant": 2 * nd + ns,
+               "rowquant": 2 * nd + ns}
+    per_cond = {"flash_fwd_nr": nd + ns, "adaln_quant": 6 * nd + 2 * ns, "gelu_quant": 3 * nd + 2 * ns,
+                "rowquant": 3 * nd + 2 * ns}
+    expected = {name: 0 for name in launches}
+    for name in per_t2i:
+        expected[name] = STEPS * (len(t2i) * per_t2i[name] + len(cond) * per_cond[name])
+    log(f"reflection round launches {launches} (expected {expected}: {STEPS * len(t2i)} t2i forwards, "
+        f"{STEPS * len(cond)} conditioned forwards)")
+    check(launches == expected, "the reflection round did not run K9 and K3–K5 the expected number of times")
+
+    spans = timer.spans
+    rounds = []
+    for r in range(REFLECT_ROUNDS):
+        split = {"round_s": spans["round"][r], "generate_s": spans["generate"][r + 1],
+                 "verify_s": spans["verify"][2 * r] + spans["verify"][2 * r + 1],
+                 "reflect_s": spans["reflect"][r], "refine_s": spans["refine"][r],
+                 "denoise_s": cond[r]["denoise_s"], "decode_s": cond[r]["decode_s"]}
+        split["rest_s"] = split["round_s"] - sum(split[k] for k in ("generate_s", "verify_s", "reflect_s",
+                                                                      "refine_s"))
+        split["host_share"] = 1.0 - split["generate_s"] / split["round_s"]
+        rounds.append(split)
+        log(f"reflection round {r + 1}: {split['round_s']:.3f} s = generate {split['generate_s']:.3f} "
+            f"(denoise and encode {split['denoise_s']:.3f}, decode {split['decode_s']:.3f}) + verify "
+            f"{split['verify_s']:.4f} + reflect {split['reflect_s']:.5f} + refine {split['refine_s']:.5f} + "
+            f"rest (PNG writes and loads) {split['rest_s']:.3f}; host work outside generate "
+            f"{split['host_share']:.1%}")
+    p50 = timer.percentile("round", 50)
+    wall_phase = time.perf_counter() - t_phase
+    log(f"reflection round p50 {p50:.3f} s over {REFLECT_ROUNDS} rounds (B={BRANCH}, L={LT}+{LI}+{LC}, "
+        f"{STEPS} steps, W8A8 pallas_nr; fake verify/reflect/refine, so not BASELINE's item-19 metric); "
+        f"round-0 generate {spans['generate'][0]:.3f} s; block {wall:.1f} s; phase {wall_phase:.1f} s; "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+    return {"rounds": rounds, "p50_s": p50, "round0_generate_s": spans["generate"][0], "block_s": wall,
+            "phase_s": wall_phase, "peak_gib": peak / 2**30, "launches": launches,
+            "cache": {"read": requested, "misses": misses}, "note": "fake verify/reflect/refine: not item 19"}
+
+
 def kernel_entry(name, source, replaces, launches, res, main_shape, other_shape):
     return {"name": name, "route": "cuda", "source": f"reflectionflow_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": res["err"],
@@ -1716,6 +1903,7 @@ def main() -> int:
     w8_launches, w8_calls, w8_peak, cond_gib, prof, ragged = w8a8_phase(torch, pipe, adapters)
     del adapters
     corrector = corrector_phase(torch, pipe)
+    reflection = reflection_phase(torch, pipe)
     step = {name: calls[-1]["denoise_s"] / STEPS for name, calls in (("bf16", bf16_calls),
                                                                       ("w8a8", w8_calls))}
     step.update({f"corrector_{impl}": corrector[impl]["s_per_step"] for impl in ("pallas_nr", "pallas_int8")})
@@ -1760,7 +1948,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"reflectionflow_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": w8_launches[name],
-            "launches_ragged": ragged["launches"][name], "max_abs_err": r["err"],
+            "launches_ragged": ragged["launches"][name], "launches_round": reflection["launches"][name],
+            "max_abs_err": r["err"],
             **{k: r[k] for k in ("scale_rel_err", "mismatch_frac", "rowquant_same_view_ms") if k in r},
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "gbps": r["gbps"], "by_shape": r["by_shape"], **fused_build[name],
@@ -1789,9 +1978,12 @@ def main() -> int:
                                      ("flash_fwd_nr", "flash_fwd_nr.cu", 313, "pallas_nr")):
         kernels.append(kernel_entry(name, source, f"{PA}:{line}", corrector[impl]["launches"][name],
                                     serving_attn[name], corr_shape, t2i_shape))
+    next(k for k in kernels if k["name"] == "flash_fwd_nr")["launches_round"] = \
+        reflection["launches"]["flash_fwd_nr"]
     log(json.dumps({"train": {k: training[k] for k in ("s_per_step", "peak_gib", "profile_ms",
                                                        "grad_cosine_min", "grad_cosine")},
                     "validation_hook": validation}))
+    log(json.dumps({"reflection_round": reflection}))
     log(json.dumps({"ring": {"attention": ring["attention"],
                              "train": {k: ring["train"][k] for k in ("s_per_step", "peak_gib", "launches",
                                                                       "grad_cosine_min", "grad_cosine")},

@@ -2,7 +2,8 @@
 
 Counterpart of `reflectionflow_tpu/cli/common.py`, with the same flags. The
 port runs the bf16 text-to-image path and, with `--quantize int8`, the W8A8
-serving profile, with or without the corrector's condition stream; options
+serving profile, with or without the corrector's condition stream, and builds
+the search loops' verifier, reflector and refiner from the config; options
 that select later ROADMAP slices raise `NotImplementedError` naming the slice.
 
 `--device` (default `cuda`) picks where the pipeline is built and runs; when
@@ -12,7 +13,8 @@ on either device; on the card, fp32 with `--attn_impl pallas` raises K1's
 dtype error (the kernels take bf16), as any non-bf16 input does.
 
 One divergence: the int8 profile keeps T5 resident and does not phase-swap it
-(the JAX package offloads it to fit a 16 GB chip; the card has 80 GB). That
+(the JAX package offloads it to fit a 16 GB chip; the card has 80 GB), with
+the prompt-embedding cache on, as JAX's co-resident profile has it. That
 changes memory orchestration only, never outputs.
 """
 
@@ -26,7 +28,9 @@ import torch
 from ..config import CLIPTextConfig, FluxDiTConfig, FluxVAEConfig, T5Config, TTSConfig
 from ..ops.attention import check_impl
 from ..ops.quant import NF4_NOT_PORTED
+from ..reflect import load_reflector, load_refiner
 from ..sampler.pipeline import FluxPipeline
+from ..verifiers import load_verifier
 
 
 def add_device_arg(p: argparse.ArgumentParser) -> None:
@@ -165,7 +169,10 @@ def apply_lora_path(pipe: FluxPipeline, cfg: TTSConfig, args) -> None:
     pipe.dit, pipe.cond_dit_params = make_dit_param_views(pipe.dit, lora, latent_lora=False)
 
 
-def load_pipeline(cfg: TTSConfig, args) -> FluxPipeline:
+def load_pipeline(cfg: TTSConfig, args, rewrites_prompts: bool = False) -> FluxPipeline:
+    """`rewrites_prompts` (the loop re-encodes changed prompts every round) is
+    the JAX signature's: there it flags the phase-swap profile, which the port
+    does not have, so here it changes nothing."""
     pa = cfg.pipeline_args
     device = resolve_device(args.device)
     cli_quant = getattr(args, "quantize", None)
@@ -201,4 +208,56 @@ def load_pipeline(cfg: TTSConfig, args) -> FluxPipeline:
         # the JAX int8 profile; T5 stays resident (no phase swap)
         pipe.quantize(act_quant_exclude=tuple(getattr(args, "act_quant_exclude", None) or ()),
                       int4=(), weight_only=("t5",))
+        # co-resident profile: no swap, but each prompt is encoded once
+        pipe.enable_prompt_cache()
     return pipe
+
+
+def build_verifier(cfg: TTSConfig):
+    """The config's verifier; the model verifiers (slice 4b, item 17) raise."""
+    va = cfg.verifier_args
+    kw = {}
+    if va.name == "openai":
+        kw = dict(
+            verifier_prompt=va.verifier_prompt_relpath,
+            refine_prompt=va.refine_prompt_relpath,
+            reflexion_prompt=va.reflexion_prompt_relpath,
+            max_workers=va.max_workers,
+        )
+        if va.model_name:
+            kw["model_name"] = va.model_name
+        if va.base_url:
+            kw["base_url"] = va.base_url
+    return load_verifier(va.name, **kw)
+
+
+def build_reflector(cfg: TTSConfig):
+    """None without run_reflection; `local_qwen` (slice 4b, item 17) raises;
+    any other backend name than openai gets the fake reflector, as in JAX."""
+    ra = cfg.reflection_args
+    if not ra.run_reflection:
+        return None
+    if ra.backend == "openai":
+        kw = {"max_retries": ra.max_retries, "retry_delay_s": ra.retry_delay_s}
+        if ra.base_url:
+            kw["base_url"] = ra.base_url
+        if ra.model_name:
+            kw["model_name"] = ra.model_name
+        return load_reflector("openai", **kw)
+    if ra.backend == "local_qwen":
+        return load_reflector("local_qwen")
+    return load_reflector("fake")
+
+
+def build_refiner(cfg: TTSConfig):
+    pr = cfg.prompt_refiner_args
+    if not pr.run_refinement:
+        return None
+    if pr.backend == "openai":
+        kw = {}
+        if pr.base_url:
+            kw["base_url"] = pr.base_url
+        if pr.model_name:
+            kw["model_name"] = pr.model_name
+        return load_refiner("openai", **kw)
+    return load_refiner("fake")

@@ -268,11 +268,12 @@ class PipelineArgs:
     torch_dtype: str = "bf16"  # reference key name; maps through DTYPE_MAP
     lora_path: Optional[str] = None
     image_guidance_scale: float = 1.0
-    # The keys below are parsed for config compatibility. The port serves
-    # bf16 only so far: cli/common.py rejects quantize, vae_tiling and vcache
-    # with the ROADMAP slice that brings each.
+    # The port serves quantize="int8" (W8A8 DiT + w8a16 T5) and attn_impl
+    # since its second slice; cli/common.py rejects the NF4 profiles
+    # (t5_quant="int4", dit_quant="int8_int4mlp"), vae_tiling and vcache,
+    # naming the ROADMAP item that brings each.
     quantize: Optional[str] = None  # "int8": W8A8 DiT + quantized T5
-    attn_impl: Optional[str] = None  # "pallas" (kernel K1) | "xla" (plain PyTorch)
+    attn_impl: Optional[str] = None  # "xla" (plain) | "pallas" (K1) | "pallas_nr" (K9) | "pallas_int8" (K8)
     t5_quant: Optional[str] = None  # "int8" (w8a16) | "int4" (NF4), under quantize="int8"
     dit_quant: str = "int8"  # "int8" | "int8_int4mlp", under quantize="int8"
     vae_tiling: bool = False  # tiled VAE decode/encode

@@ -6,9 +6,10 @@ schedule, the Euler loop over the DiT, and the VAE decode, in bf16 or, after
 `quantize`, in the W8A8 serving layout; with condition images, the
 conditioned generate of the FLUX-Corrector (the cond stream reads
 `cond_dit_params`, a LoRA-folded copy of the DiT from
-`lora.make_dit_param_views`) and image CFG. NF4, the tiled VAE, the phase swap
-and the prompt cache are later ROADMAP slices (the phase swap is on its
-do-not-port list: the card holds the int8 DiT and T5 together).
+`lora.make_dit_param_views`) and image CFG; and the bounded prompt-embedding
+cache (`enable_prompt_cache`). NF4 and the tiled VAE are later ROADMAP
+slices; the phase swap is on its do-not-port list (the card holds the int8
+DiT and T5 together).
 """
 
 from __future__ import annotations
@@ -88,6 +89,10 @@ class FluxPipeline:
     rope_layout: str = "pair"  # "split" after quantize() permutes q/k (ops.fuse)
     model_flags: dict = field(default_factory=dict)  # union_cond_attn / add_cond_attn
     cond_dit_params: FluxDiT | None = None  # LoRA-folded model the cond stream reads
+    # prompt-embedding cache, ((clip_prompt, t5_prompt), L) -> host (txt, pooled);
+    # None until enable_prompt_cache()
+    _embed_cache: dict | None = field(default=None, repr=False)
+    _embed_cache_cap: int = 2048
 
     # -- construction -------------------------------------------------------
 
@@ -170,6 +175,15 @@ class FluxPipeline:
                 quantize_dit_params(getattr(self, name), min_size=min_size, act_quant=False)
         return self
 
+    def enable_prompt_cache(self) -> "FluxPipeline":
+        """Cache prompt embeddings per ((clip_prompt, t5_prompt), L) with the
+        text encoders resident: fixed-prompt loops encode each prompt once.
+        Entries are host copies; the cache holds at most `_embed_cache_cap`
+        of them (first in, first out)."""
+        if self._embed_cache is None:
+            self._embed_cache = {}
+        return self
+
     # -- text ---------------------------------------------------------------
 
     @torch.no_grad()
@@ -177,14 +191,48 @@ class FluxPipeline:
                        prompts_2: Sequence[str] | None = None):
         """-> (txt (B, L, text_dim), pooled (B, pooled_dim)) on the device.
         `prompts_2` splits the towers as diffusers' prompt_2 does: CLIP pools
-        `prompts`, T5 encodes `prompts_2`."""
+        `prompts`, T5 encodes `prompts_2`.
+
+        With the prompt cache on, only the misses reach the encoders, as one
+        batch in sorted order; a key this call reads is never evicted (the
+        cache may then exceed its cap until a later call)."""
         if prompts_2 is not None and len(prompts_2) != len(prompts):
             raise ValueError(
                 f"prompts_2 must pair 1:1 with prompts: got {len(prompts_2)} vs {len(prompts)}")
-        t5_prompts = list(prompts_2) if prompts_2 is not None else list(prompts)
-        t5_ids = self.t5_tokenizer(t5_prompts, max_length=max_sequence_length)["input_ids"]
+        pairs = list(zip(prompts, prompts_2 if prompts_2 is not None else prompts))
+        cache = self._embed_cache
+        if cache is None:
+            return self._encode_raw(pairs, max_sequence_length)
+        misses = sorted({pr for pr in pairs if (pr, max_sequence_length) not in cache})
+        if misses:
+            txt_m, pooled_m = (t.cpu() for t in self._encode_raw(misses, max_sequence_length))
+            for i, pr in enumerate(misses):
+                cache[(pr, max_sequence_length)] = (txt_m[i].clone(), pooled_m[i].clone())
+            # refined-prompt loops mint new prompts every round: bound the cache
+            needed = {(pr, max_sequence_length) for pr in pairs}
+            while len(cache) > self._embed_cache_cap:
+                victim = next((k for k in cache if k not in needed), None)
+                if victim is None:
+                    break
+                cache.pop(victim)
+        txt = torch.stack([cache[(pr, max_sequence_length)][0] for pr in pairs])
+        pooled = torch.stack([cache[(pr, max_sequence_length)][1] for pr in pairs])
+        return txt.to(self.device), pooled.to(self.device)
+
+    def warm_prompt_cache(self, prompts: Sequence[str], max_sequence_length: int = 512,
+                          batch: int = 16) -> None:
+        """Encode every distinct prompt once, in batches of `batch`, so later
+        `generate` calls read the cache."""
+        uniq = sorted(set(prompts))
+        for i in range(0, len(uniq), batch):
+            self.encode_prompts(uniq[i : i + batch], max_sequence_length)
+
+    def _encode_raw(self, pairs: Sequence[tuple[str, str]], max_sequence_length: int):
+        """(clip_prompt, t5_prompt) pairs -> (txt, pooled) on the device."""
+        t5_ids = self.t5_tokenizer([t for _, t in pairs], max_length=max_sequence_length)["input_ids"]
         txt = t5_encode(self.t5, torch.from_numpy(t5_ids).long().to(self.device))
-        clip_ids = self.clip_tokenizer(list(prompts), max_length=self.clip_cfg.max_position_embeddings)
+        clip_ids = self.clip_tokenizer([c for c, _ in pairs],
+                                       max_length=self.clip_cfg.max_position_embeddings)
         _, pooled = clip_text_encode(self.clip, torch.from_numpy(clip_ids["input_ids"]).long().to(self.device))
         return txt.to(self.dtype), pooled.to(self.dtype)
 

@@ -1,11 +1,18 @@
-"""Filesystem artifact contract (the stage-1 part).
+"""Filesystem artifact contract.
 
 Counterpart of `reflectionflow_tpu/search/artifacts.py`: the same directory
 and JSONL layout per prompt index,
 
     {output_root}/{index:05d}/
         metadata.jsonl
-        samples/                  {round}_round@{seed}.png
+        samples/                  {round}_round@{seed}.png   (stage 1)
+        midimg/                   {round}_round@{seed}.png   (reflection rounds)
+        samples_lastround/        {i:05d}.png
+        samples_path_bestround/   {i:05d}.png  (best per chain)
+        samples_best/             {i:05d}.png  (global best)
+        best_img_detailedscore.jsonl
+        best_img_meta.jsonl
+        search_state.json         (resume manifest)
 
 and `save_image` writes PNG with the standard library (zlib + struct), so the
 port needs no imaging package. `load_image` reads PNG with the port's own
@@ -69,9 +76,12 @@ class PromptDirs:
     root: str
 
     @classmethod
-    def create(cls, output_root: str, prompt_index: int) -> "PromptDirs":
+    def create(cls, output_root: str, prompt_index: int, stage2: bool = False) -> "PromptDirs":
         d = cls(os.path.join(output_root, f"{prompt_index:05d}"))
         os.makedirs(d.samples, exist_ok=True)
+        if stage2:
+            for sub in (d.midimg, d.samples_lastround, d.samples_bestround, d.samples_best):
+                os.makedirs(sub, exist_ok=True)
         return d
 
     @property
@@ -79,9 +89,47 @@ class PromptDirs:
         return os.path.join(self.root, "samples")
 
     @property
+    def midimg(self):
+        return os.path.join(self.root, "midimg")
+
+    @property
+    def samples_lastround(self):
+        return os.path.join(self.root, "samples_lastround")
+
+    @property
+    def samples_bestround(self):
+        return os.path.join(self.root, "samples_path_bestround")
+
+    @property
+    def samples_best(self):
+        return os.path.join(self.root, "samples_best")
+
+    @property
     def metadata(self):
         return os.path.join(self.root, "metadata.jsonl")
+
+    @property
+    def detailed_scores(self):
+        return os.path.join(self.root, "best_img_detailedscore.jsonl")
+
+    @property
+    def best_meta(self):
+        return os.path.join(self.root, "best_img_meta.jsonl")
 
     def append_metadata(self, datapoint: dict) -> None:
         with open(self.metadata, "a") as f:
             f.write(json.dumps(datapoint) + "\n")
+
+    def append_detailed_scores(self, evaluation: list[dict], filenames: list[str]) -> None:
+        with open(self.detailed_scores, "a") as f:
+            f.write(json.dumps({"evaluation": evaluation, "filenames_batch": filenames}) + "\n")
+
+    def append_best_meta(self, search_round: int, reflections=None, refined_prompt=None,
+                         filenames=None) -> None:
+        with open(self.best_meta, "a") as f:
+            if reflections is not None:
+                f.write(f"reflections{search_round}: " + json.dumps(reflections) + "\n")
+            if refined_prompt is not None:
+                f.write(f"refined_prompt{search_round}: " + json.dumps(refined_prompt) + "\n")
+            if filenames is not None:
+                f.write(f"filenames_batch{search_round}: " + json.dumps(filenames) + "\n")

@@ -39,6 +39,11 @@ def run_noise_scaling(
         idx = start_index + offset
         entries.append((idx, prompt, PromptDirs.create(output_root, idx)))
 
+    if getattr(pipeline, "_embed_cache", None) is not None:
+        # encode every prompt once; the rounds then read cached embeddings
+        with timer.span("encode"):
+            pipeline.warm_prompt_cache([e[1] for e in entries], pa.max_sequence_length)
+
     for c0 in range(0, len(entries), chunk):
         block = entries[c0 : c0 + chunk]
         for rnd in range(1, sa.search_rounds + 1):

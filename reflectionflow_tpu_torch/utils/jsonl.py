@@ -1,11 +1,22 @@
-"""JSONL writing, as `reflectionflow_tpu/utils/jsonl.py`: one JSON object per
-line, UTF-8, non-ASCII kept as is."""
+"""JSONL IO, as `reflectionflow_tpu/utils/jsonl.py`: one JSON object per
+line, UTF-8, non-ASCII kept as is; and the best-effort JSON recovery the
+OpenAI-compatible backend applies to model replies."""
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Iterable
+from typing import Any, Iterable
+
+
+def read_jsonl(path: str | os.PathLike) -> list[dict]:
+    out = []
+    with open(path, "r", encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                out.append(json.loads(line))
+    return out
 
 
 def write_jsonl(path: str | os.PathLike, rows: Iterable[dict], append: bool = False) -> None:
@@ -17,3 +28,30 @@ def write_jsonl(path: str | os.PathLike, rows: Iterable[dict], append: bool = Fa
 
 def append_jsonl(path: str | os.PathLike, row: dict) -> None:
     write_jsonl(path, [row], append=True)
+
+
+def recover_json_from_text(text: str) -> Any:
+    """Best-effort JSON extraction from LLM output (code fences, prefix text):
+    the whole string, then each fenced chunk, then the largest {...} / [...]
+    span."""
+    text = text.strip()
+    for candidate in _json_candidates(text):
+        try:
+            return json.loads(candidate)
+        except (json.JSONDecodeError, ValueError):
+            continue
+    raise ValueError(f"no JSON object found in: {text[:200]!r}")
+
+
+def _json_candidates(text: str):
+    yield text
+    if "```" in text:
+        for chunk in text.split("```"):
+            chunk = chunk.strip()
+            if chunk.startswith("json"):
+                chunk = chunk[4:].strip()
+            yield chunk
+    for open_c, close_c in (("{", "}"), ("[", "]")):
+        start, end = text.find(open_c), text.rfind(close_c)
+        if 0 <= start < end:
+            yield text[start : end + 1]

@@ -1,8 +1,9 @@
 """The PyTorch port imports no JAX, no JAX-package module and none of the
 packages its target machine lacks: every port module (the K8/K9 ops, the
-corrector sampler, the mesh and ring attention included), and the
-noise-scaling, train and sample CLIs' --help, run in a subprocess where those
-imports fail."""
+corrector sampler, the mesh and ring attention, the verifiers, reflectors and
+search loops included), and the noise-scaling, train, sample, reflectionflow,
+noise-prompt-scaling and verifier-filter CLIs' --help, run in a subprocess
+where those imports fail."""
 
 import os
 import pkgutil
@@ -23,7 +24,8 @@ for name in names:
 assert not any(n.split(".")[0] in {BLOCKED!r} for n in sys.modules if sys.modules[n] is not None)
 print(len(names), " ".join(names))
 import contextlib, io
-for cli in ("tts_t2i_noise_scaling", "train", "sample"):
+for cli in ("tts_t2i_noise_scaling", "train", "sample", "tts_reflectionflow",
+            "tts_t2i_noise_prompt_scaling", "verifier_filter"):
     main = importlib.import_module("reflectionflow_tpu_torch.cli." + cli).main
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -47,12 +49,23 @@ def test_port_imports_without_jax_and_friends():
         [os.path.join(REPO, "reflectionflow_tpu_torch")], "reflectionflow_tpu_torch."))
     assert int(n_modules) == expected >= 20
     noise_help, rest = rest.split("=== tts_t2i_noise_scaling\n")[1].split("=== train\n")
-    train_help, sample_help = rest.split("=== sample\n")
+    train_help, rest = rest.split("=== sample\n")
+    sample_help, rest = rest.split("=== tts_reflectionflow\n")
+    rf_help, rest = rest.split("=== tts_t2i_noise_prompt_scaling\n")
+    nps_help, filter_help = rest.split("=== verifier_filter\n")
     assert "--synthetic_weights" in noise_help and "--attn_impl" in noise_help
     assert "--device" in noise_help
     assert "--device" in train_help and "--synthetic_data" in train_help
     for flag in ("--image_guidance_scale", "--root_dir", "--device", "--synthetic_weights"):
         assert flag in sample_help
+    for flag in ("--prompt_block", "--parallel_blocks", "--imgpath"):
+        assert flag in rf_help
+    for text in (rf_help, nps_help, filter_help):
+        assert "--device" in text and "--synthetic_weights" in text
+    assert "--nfes" in filter_help and "--images_subdir" in filter_help
     for name in ("cli.sample", "ops.flash_attention_int8", "ops.flash_attention_nr", "parallel.mesh",
-                 "ops.ring_attention"):
+                 "ops.ring_attention", "verifiers.openai_backend", "verifiers.schemas", "verifiers.prompts",
+                 "reflect.generator", "reflect.refiner", "reflect.parsing", "search.reflectionflow",
+                 "search.state", "search.noise_prompt_scaling", "search.nfe_filter",
+                 "cli.tts_reflectionflow", "cli.tts_t2i_noise_prompt_scaling", "cli.verifier_filter"):
         assert f"reflectionflow_tpu_torch.{name}" in proc.stdout
