@@ -136,11 +136,39 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      no K1, K2 or K8), the prompt cache's misses (1, then the 2 new prompts of
      each round); a second call on the same directory must generate, encode
      and write nothing; prints each round's time and its split (generate,
-     verify, reflect, refine, the rest), their p50 and peak memory.
+     verify, reflect, refine, the rest), their p50 and peak memory;
+  9. snapshot load: writes a diffusers-layout FLUX.1-dev snapshot of seeded
+     random bf16 weights (full width: DiT 3072, 24 x 128 heads, text 4096; the
+     whole VAE; CLIP-L with a byte-level tokenizer; T5-XXL at d_model 4096,
+     d_ff 10240, 64 heads; depth cut to DiT 2 double + 4 single blocks and T5
+     to 2 layers) and a Qwen2.5-VL-7B-width snapshot (LM 2 layers, vision 2
+     blocks, the last full attention; transformers' newer key layout in two
+     shards) with the port's safetensors writer to a temporary directory;
+     `FluxPipeline.from_pretrained(dir)` and `load_qwen_vl(dir)` without a
+     device must land on cuda with every tensor bitwise what was written; then
+     1 prompt x 2 candidates at 1024 px, 4 steps, "pallas", `vae_tiling`: 128^2
+     latents decode as 3 x 3 tiles, exactly 4 x 6 K1 launches; then the CLI's
+     int8 profile and one more call with exact K1–K5 counts; the loaded Qwen
+     scores those 2 images in bf16 and under quantize="int8" (|diff| <= 0.1;
+     the 3420-wide vision MLP's padded W8A8 products bitwise equal to fp64);
+     the tiled decode of a 64^2 latent bitwise equal to the untiled decode;
+  10. the reflection round with models: one Qwen2.5-VL-7B at full width and
+     depth (LM 28 x 3584, 28/4 heads, vocab 152064; vision 32 x 1280, window
+     112, full blocks 7/15/23/31), seeded random bf16 weights, shared by
+     `QwenRewardVerifier` (random head, "last" pooling) and
+     `LocalQwenReflector` (64 new tokens, cut from 256; a byte-level stub
+     tokenizer, as random weights have no vocabulary); phase 8's round with
+     them and the fake refiner, with phase 8's checks and launch counts,
+     finite scores one per candidate and one reflection per candidate; the
+     cached decode against a full recompute (logits cosine >= 0.999 at the last
+     prefill position and 4 decode steps, B=2 with left pads); prints each
+     round's split, the p50, prefill ms, decode ms per token at B=2, vision ms
+     per image and peak memory.
 The training numbers are on the line {"train": {...}}, the ring phase's on
-{"ring": {...}}, the reflection round's on {"reflection_round": {...}}; the
-line before the last is {"kernels": [...]}; the last line is {"ok": true,
-"device": {...}}.
+{"ring": {...}}, the reflection round's on {"reflection_round": {...}}, the
+snapshot phase's on {"snapshot_load": {...}} and the round with models on
+{"reflection_round_models": {...}}; the line before the last is
+{"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -172,6 +200,13 @@ RING = 4  # ring slots of the sequence-parallel phases (all on the one card)
 RING_TRAIN_STEPS, RING_DENOISE_STEPS = 2, 2
 RING_COS = 0.999  # ring denoise final latents against K1
 REFLECT_ROUNDS = 2  # reflection rounds of phase 8 (the fake preset's 16, cut)
+# phase 9: the written snapshots' depth cuts (FLUX.1-dev has 19 + 38 DiT blocks and 24 T5 layers;
+# Qwen2.5-VL-7B 28 LM layers and 32 vision blocks) and the steps of its generate calls
+SNAP_DIT_BLOCKS, SNAP_T5_LAYERS, SNAP_STEPS = (2, 4), 2, 4
+SNAP_QWEN_LM_LAYERS, SNAP_QWEN_VIS_BLOCKS = 2, 2
+QWEN_NEW_TOKENS = 64  # phase 10's reflection decode (LocalQwenReflector's default 256, cut)
+QWEN_COS = 0.999  # cached decode logits against a full recompute
+QWEN_INT8_TOL = 0.1  # phase 9's Qwen verifier: |W8A8 score - bf16 score|, scores of order 1
 # K1 timed: (B, L, main_len, cross bias): the t2i forward at B = 1 and 2, and the training
 # sequence (512 + 1024 + 1024 tokens, the cond segment at 1536) with the c_factor bias
 K1_TIMED = ((1, 4608, 4608, 0.0), (2, 4608, 4608, 0.0), (8, 2560, 1536, math.log(0.5)))
@@ -1692,7 +1727,8 @@ def corrector_phase(torch, pipe):
     return runs
 
 
-def reflection_phase(torch, pipe):
+def reflection_phase(torch, pipe, verifier=None, reflector=None, label="reflection round",
+                     note="fake verify/reflect/refine: not item 19"):
     """Phase 8: the reflection round. `run_reflectionflow_block` (the loop of
     the reflectionflow CLI) with the fake verifier, reflector and refiner of
     configs/flux.1_dev_fake.json, on the W8A8 pipeline with its folded int8
@@ -1701,7 +1737,9 @@ def reflection_phase(torch, pipe):
     px with a 512 px condition, 2 candidates per call, round 0 bootstrapped,
     then REFLECT_ROUNDS verify -> reflect -> refine -> conditioned generate
     rounds of STEPS steps. Every launch count is set to 0 just before and read
-    just after; a second call on the same directory must be a resume no-op."""
+    just after; a second call on the same directory must be a resume no-op.
+    Phase 10 passes its Qwen2.5-VL `verifier` and `reflector` in place of the
+    fake ones."""
     import re
 
     from reflectionflow_tpu_torch.config import TTSConfig
@@ -1715,6 +1753,7 @@ def reflection_phase(torch, pipe):
     from reflectionflow_tpu_torch.verifiers import FakeVerifier
 
     t_phase = time.perf_counter()
+    verifier, reflector = verifier or FakeVerifier(), reflector or FakeReflector()
     cfg = TTSConfig.load(os.path.join(REPO, "configs", "flux.1_dev_fake.json"))
     pa, sa = cfg.pipeline_args, cfg.search_args
     check(sa.search_branch == BRANCH and cfg.batch_size_for_img_gen == BRANCH and pa.height == pa.width == 2 * LT
@@ -1725,6 +1764,7 @@ def reflection_phase(torch, pipe):
     sa.search_rounds, pa.num_inference_steps = REFLECT_ROUNDS, STEPS  # cut from 16 rounds and 30 steps
     pipe.model_flags = {"union_cond_attn": cfg.model.union_cond_attn, "add_cond_attn": cfg.model.add_cond_attn}
     pipe.attn_impl = "pallas_nr"
+    pipe._embed_cache = None  # each run of the round starts with an empty prompt cache
     pipe.enable_prompt_cache()
     with open(os.path.join(REPO, "configs", "geneval_sample.jsonl")) as f:
         rows = [json.loads(line) for line in f if line.strip()][:1]
@@ -1760,8 +1800,8 @@ def reflection_phase(torch, pipe):
             torch.cuda.reset_peak_memory_stats()
             counters = zero_counts()
             t0 = time.perf_counter()
-            dps = run_reflectionflow_block(pipe, FakeVerifier(), FakeReflector(), FakeRefiner(), cfg, rows,
-                                           out_dir, timer=timer)
+            dps = run_reflectionflow_block(pipe, verifier, reflector, FakeRefiner(), cfg, rows, out_dir,
+                                           timer=timer)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {name: fn.launches for name, fn in counters.items()}
@@ -1777,8 +1817,8 @@ def reflection_phase(torch, pipe):
             # the same call again on the same directory: a resume no-op
             mtimes = {p: os.path.getmtime(os.path.join(root, p)) for p in pngs}
             counters = zero_counts()
-            again = run_reflectionflow_block(pipe, FakeVerifier(), FakeReflector(), FakeRefiner(), cfg, rows,
-                                             out_dir, timer=PhaseTimer())
+            again = run_reflectionflow_block(pipe, verifier, reflector, FakeRefiner(), cfg, rows, out_dir,
+                                             timer=PhaseTimer())
             resume_launches = sum(fn.launches for fn in counters.values())
             check(len(calls) == n_calls and len(encoded) == n_encoded and resume_launches == 0
                   and again == dps and mtimes == {p: os.path.getmtime(os.path.join(root, p)) for p in pngs},
@@ -1815,7 +1855,7 @@ def reflection_phase(torch, pipe):
     check(misses == [1] + [BRANCH] * REFLECT_ROUNDS and encoded[0] == [(rows[0]["prompt"],) * 2]
           and all([p for p, _ in batch] == sorted(c["prompts"]) for batch, c in zip(encoded[1:], cond)),
           f"prompt cache: miss batches {encoded}")
-    log(f"reflection round prompt cache: {requested} embeddings read, {sum(misses)} misses encoded in "
+    log(f"{label} prompt cache: {requested} embeddings read, {sum(misses)} misses encoded in "
         f"{len(misses)} batches {misses}, {requested - sum(misses)} hits; the resume run encoded nothing")
 
     # launch counts from the block counts: per t2i forward K9 and the W8A8 prologues of every block, per
@@ -1829,7 +1869,7 @@ def reflection_phase(torch, pipe):
     expected = {name: 0 for name in launches}
     for name in per_t2i:
         expected[name] = STEPS * (len(t2i) * per_t2i[name] + len(cond) * per_cond[name])
-    log(f"reflection round launches {launches} (expected {expected}: {STEPS * len(t2i)} t2i forwards, "
+    log(f"{label} launches {launches} (expected {expected}: {STEPS * len(t2i)} t2i forwards, "
         f"{STEPS * len(cond)} conditioned forwards)")
     check(launches == expected, "the reflection round did not run K9 and K3–K5 the expected number of times")
 
@@ -1844,20 +1884,454 @@ def reflection_phase(torch, pipe):
                                                                       "refine_s"))
         split["host_share"] = 1.0 - split["generate_s"] / split["round_s"]
         rounds.append(split)
-        log(f"reflection round {r + 1}: {split['round_s']:.3f} s = generate {split['generate_s']:.3f} "
+        log(f"{label} {r + 1}: {split['round_s']:.3f} s = generate {split['generate_s']:.3f} "
             f"(denoise and encode {split['denoise_s']:.3f}, decode {split['decode_s']:.3f}) + verify "
             f"{split['verify_s']:.4f} + reflect {split['reflect_s']:.5f} + refine {split['refine_s']:.5f} + "
             f"rest (PNG writes and loads) {split['rest_s']:.3f}; host work outside generate "
             f"{split['host_share']:.1%}")
     p50 = timer.percentile("round", 50)
     wall_phase = time.perf_counter() - t_phase
-    log(f"reflection round p50 {p50:.3f} s over {REFLECT_ROUNDS} rounds (B={BRANCH}, L={LT}+{LI}+{LC}, "
-        f"{STEPS} steps, W8A8 pallas_nr; fake verify/reflect/refine, so not BASELINE's item-19 metric); "
+    log(f"{label} p50 {p50:.3f} s over {REFLECT_ROUNDS} rounds (B={BRANCH}, L={LT}+{LI}+{LC}, "
+        f"{STEPS} steps, W8A8 pallas_nr; {note}); "
         f"round-0 generate {spans['generate'][0]:.3f} s; block {wall:.1f} s; phase {wall_phase:.1f} s; "
         f"peak device memory {peak / 2**30:.2f} GiB")
     return {"rounds": rounds, "p50_s": p50, "round0_generate_s": spans["generate"][0], "block_s": wall,
             "phase_s": wall_phase, "peak_gib": peak / 2**30, "launches": launches,
-            "cache": {"read": requested, "misses": misses}, "note": "fake verify/reflect/refine: not item 19"}
+            "cache": {"read": requested, "misses": misses}, "note": note}
+
+
+def _qwen_cfgs(lm_layers=None, vis_blocks=None):
+    """Qwen2.5-VL-7B's configs, at full depth or cut to `lm_layers` LM layers
+    and `vis_blocks` vision blocks (the last block full attention)."""
+    import dataclasses
+
+    from reflectionflow_tpu_torch.config import QwenLMConfig, QwenVLVisionConfig
+
+    lm, vis = QwenLMConfig(), QwenVLVisionConfig()
+    if lm_layers is not None:
+        lm = dataclasses.replace(lm, num_layers=lm_layers)
+        vis = dataclasses.replace(vis, depth=vis_blocks, fullatt_block_indexes=(vis_blocks - 1,))
+    return lm, vis
+
+
+def _flux_snapshot_cfgs():
+    """FLUX.1-dev's configs at full width with the depth cuts of phase 9."""
+    import dataclasses
+
+    from reflectionflow_tpu_torch.config import CLIPTextConfig, FluxDiTConfig, FluxVAEConfig, T5Config
+
+    nd, ns = SNAP_DIT_BLOCKS
+    return (dataclasses.replace(FluxDiTConfig(), num_double_blocks=nd, num_single_blocks=ns), FluxVAEConfig(),
+            dataclasses.replace(T5Config(), num_layers=SNAP_T5_LAYERS), CLIPTextConfig())
+
+
+def write_flux_snapshot(torch, root: str, cfgs) -> dict:
+    """A diffusers-layout FLUX.1 snapshot of seeded random bf16 weights (made on the
+    card) under `root`, with a byte-level CLIP tokenizer at the published special
+    ids; -> the written state dicts, on the card."""
+    from reflectionflow_tpu_torch.sampler.pipeline import FluxPipeline
+    from reflectionflow_tpu_torch.utils.bpe import bytes_to_unicode
+    from reflectionflow_tpu_torch.utils.safetensors_io import save_file
+
+    dit, vae, t5, clip = cfgs
+    src = FluxPipeline.random_init(torch.Generator(device="cuda").manual_seed(9), dit, vae, t5, clip,
+                                   dtype=torch.bfloat16, device="cuda")
+    configs = {
+        "transformer": {"in_channels": dit.in_channels, "num_attention_heads": dit.num_heads,
+                        "attention_head_dim": dit.head_dim, "num_layers": dit.num_double_blocks,
+                        "num_single_layers": dit.num_single_blocks, "joint_attention_dim": dit.text_dim,
+                        "pooled_projection_dim": dit.pooled_dim, "axes_dims_rope": list(dit.axes_dims_rope),
+                        "guidance_embeds": dit.guidance_embeds},
+        "vae": {"in_channels": vae.in_channels, "latent_channels": vae.latent_channels,
+                "block_out_channels": list(vae.block_out_channels), "layers_per_block": vae.layers_per_block,
+                "norm_num_groups": vae.norm_num_groups, "scaling_factor": vae.scaling_factor,
+                "shift_factor": vae.shift_factor},
+        "text_encoder_2": {"vocab_size": t5.vocab_size, "d_model": t5.d_model, "d_kv": t5.d_kv, "d_ff": t5.d_ff,
+                           "num_layers": t5.num_layers, "num_heads": t5.num_heads},
+        "text_encoder": {"vocab_size": clip.vocab_size, "hidden_size": clip.hidden_size,
+                         "intermediate_size": clip.intermediate_size, "num_hidden_layers": clip.num_layers,
+                         "num_attention_heads": clip.num_heads,
+                         "max_position_embeddings": clip.max_position_embeddings, "eos_token_id": clip.eos_token_id},
+    }
+    written = {}
+    for sub, module in (("transformer", src.dit), ("vae", src.vae), ("text_encoder_2", src.t5),
+                        ("text_encoder", src.clip)):
+        sd = module.state_dict()
+        save_file(sd, os.path.join(root, sub, "diffusion_pytorch_model.safetensors"))
+        with open(os.path.join(root, sub, "config.json"), "w") as f:
+            json.dump(configs[sub], f)
+        written[sub] = sd
+    chars = list(bytes_to_unicode().values())
+    vocab = {t: i for i, t in enumerate(chars + [c + "</w>" for c in chars])}
+    vocab.update({"<|startoftext|>": clip.vocab_size - 2, "<|endoftext|>": clip.vocab_size - 1})
+    os.makedirs(os.path.join(root, "tokenizer"))
+    with open(os.path.join(root, "tokenizer", "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(root, "tokenizer", "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+    return written
+
+
+def write_qwen_snapshot(torch, root: str, lm_cfg, vis_cfg) -> dict:
+    """A Qwen2.5-VL snapshot of seeded random bf16 weights: transformers' newer key
+    layout in two shards, config.json and a byte-level tokenizer.json with the
+    chat special tokens at their published ids; -> {written name: tensor}."""
+    from reflectionflow_tpu_torch.models.qwen_vl.model import QwenVLModel, QwenVLSpecialTokens
+    from reflectionflow_tpu_torch.utils.bpe import bytes_to_unicode
+    from reflectionflow_tpu_torch.utils.safetensors_io import save_file
+
+    model = QwenVLModel.random_init(torch.Generator(device="cuda").manual_seed(10), lm_cfg, vis_cfg,
+                                    dtype=torch.bfloat16, device="cuda")
+    sd = {k.replace("model.", "model.language_model.", 1).replace("visual.", "model.visual.", 1): v
+          for k, v in model.state_dict().items()}
+    names = sorted(sd)
+    for i in range(2):
+        save_file({k: sd[k] for k in names[i::2]}, os.path.join(root, f"model-0000{i + 1}-of-00002.safetensors"))
+    cfg = {"vocab_size": lm_cfg.vocab_size, "hidden_size": lm_cfg.hidden_size,
+           "intermediate_size": lm_cfg.intermediate_size, "num_hidden_layers": lm_cfg.num_layers,
+           "num_attention_heads": lm_cfg.num_heads, "num_key_value_heads": lm_cfg.num_kv_heads,
+           "rope_theta": lm_cfg.rope_theta, "rope_scaling": {"type": "mrope", "mrope_section": list(lm_cfg.mrope_section)},
+           "tie_word_embeddings": lm_cfg.tie_word_embeddings,
+           "vision_config": {"depth": vis_cfg.depth, "hidden_size": vis_cfg.hidden_size,
+                             "intermediate_size": vis_cfg.intermediate_size, "num_heads": vis_cfg.num_heads,
+                             "patch_size": vis_cfg.patch_size, "temporal_patch_size": vis_cfg.temporal_patch_size,
+                             "spatial_merge_size": vis_cfg.spatial_merge_size, "window_size": vis_cfg.window_size,
+                             "fullatt_block_indexes": list(vis_cfg.fullatt_block_indexes),
+                             "out_hidden_size": vis_cfg.out_hidden_size}}
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    tok = QwenVLSpecialTokens()
+    added = [{"id": i, "content": c, "special": True} for c, i in (
+        ("<|endoftext|>", tok.endoftext), ("<|im_start|>", tok.im_start), ("<|im_end|>", tok.im_end),
+        ("<|vision_start|>", tok.vision_start), ("<|vision_end|>", tok.vision_end),
+        ("<|image_pad|>", tok.image_pad), ("<|video_pad|>", tok.video_pad))]
+    with open(os.path.join(root, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump({"added_tokens": added, "model": {"type": "BPE", "merges": [],
+                                                    "vocab": {c: i for i, c in enumerate(bytes_to_unicode().values())}}},
+                  f, ensure_ascii=False)
+    return {k: v for k, v in model.state_dict().items()}
+
+
+def snapshot_phase(torch):
+    """Phase 9: `FluxPipeline.from_pretrained` and `load_qwen_vl` on snapshots this
+    phase writes (full width, depth cut), every tensor bitwise what was written, on
+    cuda without a device argument; then generate 1 prompt x 2 candidates at 1024 px
+    with `vae_tiling` (128^2 latents in 3 x 3 tiles) under "pallas", once in bf16
+    and once after the CLI's int8 profile, with exact K1–K5 counts; the loaded
+    Qwen's verifier scores of the two images in bf16 and under quantize="int8"
+    (`qwen_int8_check`); and the single-tile decode of a 64^2 latent bitwise
+    equal to the untiled decode."""
+    import shutil
+
+    from reflectionflow_tpu_torch.models.flux import vae as fvae
+    from reflectionflow_tpu_torch.sampler.pipeline import FluxPipeline
+    from reflectionflow_tpu_torch.utils.hf_loader import load_qwen_vl
+
+    t0, px = time.perf_counter(), 1024
+    lm_cfg, vis_cfg = _qwen_cfgs(SNAP_QWEN_LM_LAYERS, SNAP_QWEN_VIS_BLOCKS)
+    root = tempfile.mkdtemp(prefix="snapshot_")
+    try:
+        written = write_flux_snapshot(torch, os.path.join(root, "flux"), _flux_snapshot_cfgs())
+        q_written = write_qwen_snapshot(torch, os.path.join(root, "qwen"), lm_cfg, vis_cfg)
+        torch.cuda.synchronize()
+        t_write = time.perf_counter() - t0
+        gib = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs) / 2**30
+
+        t1 = time.perf_counter()
+        pipe = FluxPipeline.from_pretrained(os.path.join(root, "flux"))  # no device: cuda
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t1
+        check(pipe.device.type == "cuda" and pipe.dtype == torch.bfloat16, f"from_pretrained landed on {pipe.device}")
+        for sub, module in (("transformer", pipe.dit), ("vae", pipe.vae), ("text_encoder_2", pipe.t5),
+                            ("text_encoder", pipe.clip)):
+            got = module.state_dict()
+            check(set(got) == set(written[sub]) and all(
+                v.device.type == "cuda" and torch.equal(v, written[sub][k]) for k, v in got.items()),
+                f"{sub}: the loaded tensors are not bitwise the written ones")
+        del written
+        check(type(pipe.clip_tokenizer).__name__ == "CLIPBPETokenizer", "the snapshot's CLIP tokenizer was not loaded")
+        t2 = time.perf_counter()
+        qmodel, qtok = load_qwen_vl(os.path.join(root, "qwen"))
+        torch.cuda.synchronize()
+        t_qload = time.perf_counter() - t2
+        got = qmodel.state_dict()
+        check(qmodel.device.type == "cuda" and set(got) == set(q_written)
+              and all(torch.equal(v, q_written[k]) for k, v in got.items()),
+              "load_qwen_vl: the loaded tensors are not bitwise the written ones")
+        check(qtok is not None and qtok.encode("<|im_start|>user\n")[0] == 151644, "the Qwen tokenizer was not loaded")
+        del q_written, got
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"snapshot load: wrote {gib:.2f} GiB in {t_write:.1f} s; FLUX from_pretrained {t_load:.1f} s, "
+        f"load_qwen_vl {t_qload:.1f} s; every tensor bitwise equal on cuda (cut to DiT {SNAP_DIT_BLOCKS}, "
+        f"T5 {SNAP_T5_LAYERS} layers, Qwen LM {lm_cfg.num_layers} layers, vision {vis_cfg.depth} blocks)")
+
+    decode_calls = []
+    vae_decode = fvae.vae_decode
+
+    def counted_decode(vae, z):
+        decode_calls.append(tuple(z.shape))
+        return vae_decode(vae, z)
+
+    pipe.attn_impl, pipe.vae_tiling = "pallas", True
+    nd, ns = pipe.dit_cfg.num_double_blocks, pipe.dit_cfg.num_single_blocks
+    kw = dict(height=px, width=px, num_inference_steps=SNAP_STEPS, max_sequence_length=LT, seed=0)
+    res = {"gib_written": gib, "write_s": t_write, "flux_load_s": t_load, "qwen_load_s": t_qload,
+           "cut": {"dit_blocks": list(SNAP_DIT_BLOCKS), "t5_layers": SNAP_T5_LAYERS,
+                   "qwen_lm_layers": lm_cfg.num_layers, "qwen_vision_blocks": vis_cfg.depth}}
+    fvae.vae_decode = counted_decode
+    try:
+        for label in ("bf16", "int8"):
+            if label == "int8":  # the CLI's int8 profile (cli/common.py::load_pipeline)
+                pipe.quantize(int4=(), weight_only=("t5",))
+                pipe.enable_prompt_cache()
+            decode_calls.clear()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            counters = zero_counts()
+            images = pipe.generate(["a photo of a red cube on a wooden table"] * BRANCH, **kw)
+            launches = {name: fn.launches for name, fn in counters.items()}
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t3
+            lat = px // pipe.vae_cfg.downscale
+            n_tiles = (-(-lat // 48)) ** 2  # tiles of 64 latents at stride 48
+            check(images.shape == (BRANCH, px, px, 3) and images.dtype.name == "uint8",
+                  f"snapshot {label} generate: images {images.shape}")
+            check(len(decode_calls) == n_tiles and all(s[1] <= 64 and s[2] <= 64 for s in decode_calls),
+                  f"snapshot {label}: {len(decode_calls)} decode tiles {decode_calls[:4]}, expected {n_tiles}")
+            expected = {name: 0 for name in launches}
+            expected["flash_fwd"] = SNAP_STEPS * (nd + ns)
+            if label == "int8":
+                expected.update({"norm_rope": SNAP_STEPS * (4 * nd + 2 * ns),
+                                 "adaln_quant": SNAP_STEPS * (4 * nd + ns),
+                                 "gelu_quant": SNAP_STEPS * (2 * nd + ns), "rowquant": SNAP_STEPS * (2 * nd + ns)})
+            check(launches == expected, f"snapshot {label} generate launched {launches}, expected {expected}")
+            log(f"snapshot {label} generate (B={BRANCH}, {px} px, {SNAP_STEPS} steps, vae_tiling: "
+                f"{len(decode_calls)} tiles): {dt:.2f} s; launches {launches}")
+            res[f"launches_{label}"], res[f"generate_{label}_s"] = launches, dt
+            res["decode_tiles"] = len(decode_calls)
+    finally:
+        fvae.vae_decode = vae_decode
+    res["qwen_int8"] = qwen_int8_check(torch, qmodel, qtok, list(images), px)
+    del qmodel
+    z = torch.randn((1, 64, 64, pipe.vae_cfg.latent_channels), generator=torch.Generator(device="cuda").manual_seed(3),
+                    device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        check(torch.equal(fvae.vae_decode_tiled(pipe.vae, z), fvae.vae_decode(pipe.vae, z)),
+              "the single-tile decode of a 64^2 latent is not bitwise the untiled decode")
+    del pipe
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"snapshot phase (9): {res['phase_s']:.1f} s")
+    return res
+
+
+def qwen_int8_check(torch, model, tokenizer, images, px: int) -> dict:
+    """The W8A8 Qwen verifier on the card: `model` (phase 9's loaded snapshot)
+    scores `images` in bf16, then `QwenRewardVerifier(quantize="int8")` puts its
+    LM and vision block linears on `QuantLinear` in place and scores them again
+    (|int8 - bf16| <= QWEN_INT8_TOL; the random head's hidden^-1/2 weights on the
+    RMS-normed last state make the scores of order 1). The vision MLP (3420
+    wide) holds its int8 weights padded to 3424 for the library int8 GEMM; its
+    W8A8 product is held bit for bit to an fp64 product of the same int8
+    operands (exact: |sum| < 2^53) with the same fp32 rescale, at M = 5 (the
+    GEMM's short-M path) and M = 300."""
+    from reflectionflow_tpu_torch.models.qwen_vl.reward import RewardHead
+    from reflectionflow_tpu_torch.ops.quant import QuantLinear
+    from reflectionflow_tpu_torch.verifiers.qwen_verifier import QwenRewardVerifier
+
+    head = RewardHead.random_init(torch.Generator(device="cuda").manual_seed(12), model.lm_cfg.hidden_size)
+    prompts = ["a photo of a red cube on a wooden table"] * len(images)
+    t0 = time.perf_counter()
+    bf16 = QwenRewardVerifier(model=model, tokenizer=tokenizer, head=head).raw_scores(images, prompts)
+    verifier = QwenRewardVerifier(model=model, tokenizer=tokenizer, head=head, quantize="int8")
+    int8 = verifier.raw_scores(images, prompts)
+    mlp = model.visual.blocks[0].mlp
+    check(all(isinstance(m, QuantLinear) for m in (mlp.gate_proj, mlp.down_proj,
+                                                    model.model.layers[0].self_attn.q_proj)),
+          "quantize='int8' left a block linear in bf16")
+    inter = model.vis_cfg.intermediate_size
+    padded = -(-inter // 8) * 8
+    check(tuple(mlp.gate_proj.w_q.shape) == (padded, model.vis_cfg.hidden_size)
+          and mlp.down_proj.w_q.shape[1] == padded, f"vision MLP int8 weights {tuple(mlp.gate_proj.w_q.shape)}")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    for lin in (mlp.gate_proj, mlp.down_proj):
+        n, k = lin.w_scale.shape[0], lin.in_features
+        for m in (5, 300):
+            x_q = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+            x_scale = torch.rand((m, 1), generator=g, device="cuda") + 0.5
+            with torch.no_grad():
+                got = lin.matmul_pre(x_q, x_scale, torch.float32)
+                acc = (x_q.double() @ lin.w_q[:n, :k].double().t()).float()
+                want = (acc * x_scale).mul_(lin.w_scale)
+                want = want if lin.bias is None else want + lin.bias
+            check(torch.equal(got, want), f"W8A8 ({m}, {k}) x ({n}, {k}): max |err| {(got - want).abs().max().item()}")
+    err = max(abs(a - b) for a, b in zip(int8, bf16))
+    log(f"Qwen verifier, quantize='int8' ({len(images)} images at {px} px, W8A8 LM and vision blocks, vision MLP "
+        f"padded {inter} -> {mlp.gate_proj.w_q.shape[0]}): scores {list(map(float, int8))} against bf16 "
+        f"{list(map(float, bf16))}, max |diff| {err:.4f} (limit {QWEN_INT8_TOL}); padded W8A8 products bitwise "
+        f"equal to fp64 at M = 5 and 300; {time.perf_counter() - t0:.1f} s")
+    check(all(map(math.isfinite, int8)) and len(int8) == len(images) and err <= QWEN_INT8_TOL,
+          f"int8 verifier scores {int8} against bf16 {bf16}")
+    return {"scores_bf16": [float(v) for v in bf16], "scores_int8": [float(v) for v in int8], "max_abs_diff": err}
+
+
+class ByteStubTokenizer:
+    """Random weights have no vocabulary: phase 10's reflector encodes text as
+    its UTF-8 bytes (ids 5..260, so prompts keep their length) and decodes ids
+    as numbers."""
+
+    def encode(self, text, add_special_tokens=False):
+        return [5 + b for b in text.encode("utf-8")]
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(str(i) for i in ids)
+
+
+def _cosine(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float((a @ b) / (a.norm() * b.norm()))
+
+
+def reflection_models_phase(torch, pipe):
+    """Phase 10: the reflection round with the local models. One Qwen2.5-VL-7B
+    (full width and depth, seeded random bf16 weights on the card) is both the
+    `QwenRewardVerifier` (random head, "last" pooling) and the `LocalQwenReflector`
+    (QWEN_NEW_TOKENS new tokens); phase 8's W8A8 "pallas_nr" round runs with them
+    (exact K9/K3–K5 counts, no K1/K2/K8). Checks finite scores and one reflection
+    per candidate; the cached decode against a full recompute (cosine >= QWEN_COS
+    at the last prefill position and the first 4 decode steps); times prefill,
+    decode per token at B=2 and the vision tower per image."""
+    import numpy as np
+
+    from reflectionflow_tpu_torch.models.qwen_vl.generate import QwenVLGenerator, decode_tokens, prefill
+    from reflectionflow_tpu_torch.models.qwen_vl.lm import qwen_lm_apply
+    from reflectionflow_tpu_torch.models.qwen_vl.model import QwenVLModel
+    from reflectionflow_tpu_torch.models.qwen_vl.reward import RewardHead
+    from reflectionflow_tpu_torch.models.qwen_vl.vision import image_to_patches, qwen_vision_apply, smart_resize
+    from reflectionflow_tpu_torch.reflect.generator import LocalQwenReflector
+    from reflectionflow_tpu_torch.train.data import resize
+    from reflectionflow_tpu_torch.verifiers.qwen_verifier import QwenRewardVerifier
+
+    t0 = time.perf_counter()
+    lm_cfg, vis_cfg = _qwen_cfgs()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    model = QwenVLModel.random_init(gen, lm_cfg, vis_cfg, dtype=torch.bfloat16, device="cuda")
+    qwen_gib = sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30
+    verifier = QwenRewardVerifier(model=model, head=RewardHead.random_init(gen, lm_cfg.hidden_size, pooling="last"))
+    generator = QwenVLGenerator(model=model, tokenizer=ByteStubTokenizer())
+    reflector = LocalQwenReflector(generator, max_new_tokens=QWEN_NEW_TOKENS)
+    torch.cuda.synchronize()
+    log(f"Qwen2.5-VL ({lm_cfg.num_layers} x {lm_cfg.hidden_size} LM, {vis_cfg.depth} x {vis_cfg.hidden_size} "
+        f"vision): {qwen_gib:.2f} GiB of bf16 weights made in {time.perf_counter() - t0:.1f} s")
+
+    scores, reflections, inputs = [], [], []
+    score, generate = verifier.score, reflector.generate
+
+    def score_recorded(images, prompts, **kw):
+        out = score(images, prompts, **kw)
+        scores.append([o["VQ"] for o in out])
+        check(len(out) == len(images) and all(math.isfinite(v) for v in scores[-1]),
+              f"verifier scores {scores[-1]} for {len(images)} images")
+        return out
+
+    def generate_recorded(images, *args, **kw):
+        out = generate(images, *args, **kw)
+        reflections.append(out)
+        inputs.append(list(images))
+        check(len(out) == len(images) and all(isinstance(t, str) and t for t in out),
+              f"{len(out)} reflections for {len(images)} candidates")
+        return out
+
+    verifier.score, reflector.generate = score_recorded, generate_recorded
+    res = reflection_phase(torch, pipe, verifier=verifier, reflector=reflector, label="reflection round (Qwen)",
+                           note="Qwen2.5-VL verify and reflect, random weights, fake refine")
+    check(len(reflections) == REFLECT_ROUNDS and all(len(s) == BRANCH for s in scores),
+          f"{len(reflections)} reflect calls, verifier calls of {[len(s) for s in scores]} images")
+
+    # the cached decode against a full recompute, on the last round's two reflection inputs
+    factor = vis_cfg.patch_size * vis_cfg.spatial_merge_size
+    imgs = [resize(img, smart_resize(*img.shape[:2], factor=factor, max_pixels=448 * 448)[::-1]) for img in inputs[-1]]
+    seqs = [(generator._build_chat_ids(img, f"prompt {i} " * (3 * i + 1), system="You are a helpful assistant."),
+             [img]) for i, img in enumerate(imgs)]
+    with torch.no_grad():
+        embeds, pos, cache, next_pos0 = generator.prepare_batch(seqs, 8)
+        logits, cache = prefill(model, embeds, pos, cache)
+        pads = cache["pad"].tolist()
+        toks, cos = [], []
+        for step in range(5):
+            if step:
+                tok = torch.argmax(logits[:, -1], dim=-1)
+                toks.append(tok)
+                p = (next_pos0 + step - 1)[None, :, None].expand(3, len(seqs), 1)
+                logits, cache = qwen_lm_apply(model.model, model.lm_head, model.model.embed_tokens(tok)[:, None], p,
+                                              kv_cache=cache)
+            for b in range(len(seqs)):
+                e = embeds[b : b + 1, pads[b]:]
+                q = pos[:, b : b + 1, pads[b]:]
+                if toks:
+                    e = torch.cat([e, model.model.embed_tokens(torch.stack(toks, 1)[b : b + 1])], dim=1)
+                    q = torch.cat([q, (next_pos0[b] + torch.arange(len(toks), device="cuda"))[None, None].expand(3, 1, -1)], -1)
+                full, _ = qwen_lm_apply(model.model, model.lm_head, e, q)
+                cos.append(_cosine(logits[b, -1], full[0, -1]))
+    log(f"cached decode vs full recompute (B={len(seqs)}, left pads {pads}): logits cosine min {min(cos):.6f} over "
+        f"the last prefill position and 4 decode steps (limit {QWEN_COS})")
+    check(min(cos) >= QWEN_COS, f"cached decode disagrees with the full recompute: cosines {cos}")
+
+    # prefill, decode per token at B=2, the vision tower per image
+    def timed(fn, reps=3):
+        best = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            ta = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - ta)
+        return best * 1e3
+
+    patches, grid = image_to_patches(imgs[0], vis_cfg)
+    stack = torch.from_numpy(np.stack([patches, patches])).to("cuda", torch.bfloat16)
+    with torch.no_grad():
+        vision_ms = timed(lambda: qwen_vision_apply(model.visual, stack, grid)) / 2
+        L = embeds.shape[1]
+
+        def fresh():
+            return generator.prepare_batch(seqs, QWEN_NEW_TOKENS)
+
+        def run_prefill():
+            e, p, c, _ = state
+            c["len"] = 0  # refill the same cache
+            prefill(model, e, p, c)
+
+        state = fresh()
+        prefill_ms = timed(run_prefill)
+
+        def run_decode():
+            e, p, c, n0 = fresh()
+            lg, c = prefill(model, e, p, c)
+            torch.cuda.synchronize()
+            t_a = time.perf_counter()
+            decode_tokens(model, c, lg[:, -1], n0, max_new_tokens=QWEN_NEW_TOKENS, eos_id=-1)
+            torch.cuda.synchronize()
+            decode_s.append(time.perf_counter() - t_a)
+
+        decode_s = []
+        for _ in range(2):
+            run_decode()
+    decode_ms = min(decode_s) * 1e3 / QWEN_NEW_TOKENS
+    weight_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters() if not n.startswith("visual"))
+    bound_ms = weight_bytes / (HBM_TBS * 1e12) * 1e3
+    log(f"Qwen timings: prefill {prefill_ms:.2f} ms (B={len(seqs)}, L={L}); decode {decode_ms:.2f} ms/token "
+        f"(B={len(seqs)}, {QWEN_NEW_TOKENS} tokens; LM weight-read bound {bound_ms:.2f} ms); vision "
+        f"{vision_ms:.2f} ms/image (grid {grid}, B=2)")
+    res.update({"qwen_gib": qwen_gib, "verifier_scores": scores, "reflection_chars": [[len(t) for t in r] for r in reflections],
+                "cache_cosine_min": min(cos), "prefill_ms": prefill_ms, "prefill_len": L, "decode_ms_per_token": decode_ms,
+                "decode_bound_ms": bound_ms, "vision_ms_per_image": vision_ms, "vision_grid": list(grid),
+                "new_tokens": QWEN_NEW_TOKENS, "phase_s_with_model": time.perf_counter() - t0})
+    del verifier, reflector, generator, model
+    torch.cuda.empty_cache()
+    log(f"reflection round with models (10): {res['phase_s_with_model']:.1f} s")
+    return res
 
 
 def kernel_entry(name, source, replaces, launches, res, main_shape, other_shape):
@@ -1904,6 +2378,8 @@ def main() -> int:
     del adapters
     corrector = corrector_phase(torch, pipe)
     reflection = reflection_phase(torch, pipe)
+    snapshot = snapshot_phase(torch)
+    round_models = reflection_models_phase(torch, pipe)
     step = {name: calls[-1]["denoise_s"] / STEPS for name, calls in (("bf16", bf16_calls),
                                                                       ("w8a8", w8_calls))}
     step.update({f"corrector_{impl}": corrector[impl]["s_per_step"] for impl in ("pallas_nr", "pallas_int8")})
@@ -1922,6 +2398,8 @@ def main() -> int:
         "launches": bf16_launches["flash_fwd"],
         "launches_w8a8": w8_launches["flash_fwd"],
         "launches_train": training["launches"]["flash_fwd"],
+        "launches_snapshot": {"bf16": snapshot["launches_bf16"]["flash_fwd"],
+                              "w8a8": snapshot["launches_int8"]["flash_fwd"]},
         "max_abs_err": err_out,
         "lse_max_abs_err": err_lse,
         **{k: k1_times["B=2 L=4608"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -1949,7 +2427,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"reflectionflow_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": w8_launches[name],
             "launches_ragged": ragged["launches"][name], "launches_round": reflection["launches"][name],
-            "max_abs_err": r["err"],
+            "max_abs_err": r["err"], "launches_snapshot": snapshot["launches_int8"][name],
+            **({"launches_round_models": round_models["launches"][name]} if name != "norm_rope" else {}),
             **{k: r[k] for k in ("scale_rel_err", "mismatch_frac", "rowquant_same_view_ms") if k in r},
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "gbps": r["gbps"], "by_shape": r["by_shape"], **fused_build[name],
@@ -1978,12 +2457,15 @@ def main() -> int:
                                      ("flash_fwd_nr", "flash_fwd_nr.cu", 313, "pallas_nr")):
         kernels.append(kernel_entry(name, source, f"{PA}:{line}", corrector[impl]["launches"][name],
                                     serving_attn[name], corr_shape, t2i_shape))
-    next(k for k in kernels if k["name"] == "flash_fwd_nr")["launches_round"] = \
-        reflection["launches"]["flash_fwd_nr"]
+    k9 = next(k for k in kernels if k["name"] == "flash_fwd_nr")
+    k9["launches_round"] = reflection["launches"]["flash_fwd_nr"]
+    k9["launches_round_models"] = round_models["launches"]["flash_fwd_nr"]
     log(json.dumps({"train": {k: training[k] for k in ("s_per_step", "peak_gib", "profile_ms",
                                                        "grad_cosine_min", "grad_cosine")},
                     "validation_hook": validation}))
     log(json.dumps({"reflection_round": reflection}))
+    log(json.dumps({"snapshot_load": snapshot}))
+    log(json.dumps({"reflection_round_models": round_models}))
     log(json.dumps({"ring": {"attention": ring["attention"],
                              "train": {k: ring["train"][k] for k in ("s_per_step", "peak_gib", "launches",
                                                                       "grad_cosine_min", "grad_cosine")},

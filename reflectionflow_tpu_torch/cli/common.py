@@ -6,11 +6,14 @@ serving profile, with or without the corrector's condition stream, and builds
 the search loops' verifier, reflector and refiner from the config; options
 that select later ROADMAP slices raise `NotImplementedError` naming the slice.
 
-`--device` (default `cuda`) picks where the pipeline is built and runs; when
-CUDA is missing the CLI raises unless `--device cpu` was given, and never
-falls back. `--synthetic_weights` keeps the JAX recipe of tiny fp32 weights
-on either device; on the card, fp32 with `--attn_impl pallas` raises K1's
-dtype error (the kernels take bf16), as any non-bf16 input does.
+The pipeline is `FluxPipeline.from_pretrained` of the config's
+`pretrained_model_name_or_path`, a local diffusers snapshot, or with
+`--synthetic_weights` the JAX recipe of tiny fp32 random weights.
+`--device` (default `cuda`) picks where the pipeline and the colocated
+verifier and reflector are built and run; when CUDA is missing the CLI raises
+unless `--device cpu` was given, and never falls back. On the card, fp32 with
+`--attn_impl pallas` raises K1's dtype error (the kernels take bf16), as any
+non-bf16 input does.
 
 One divergence: the int8 profile keeps T5 resident and does not phase-swap it
 (the JAX package offloads it to fit a 16 GB chip; the card has 80 GB), with
@@ -189,18 +192,16 @@ def load_pipeline(cfg: TTSConfig, args, rewrites_prompts: bool = False) -> FluxP
     if getattr(args, "phase_swap", False):
         raise NotImplementedError("--phase_swap offloads text encoders for 16 GB devices; "
                                   "it is on the ROADMAP's do-not-port list")
-    if pa.vae_tiling:
-        raise NotImplementedError("vae_tiling (vae_decode_tiled) is ROADMAP slice 1, item 8")
     if pa.vcache:
         raise NotImplementedError("the velocity cache is ROADMAP slice 5, item 20")
     attn_impl = args.attn_impl or pa.attn_impl or "xla"
     check_impl(attn_impl)
-    if not args.synthetic_weights:
-        raise NotImplementedError(
-            "loading published weights (FluxPipeline.from_pretrained) is ROADMAP slice 1, "
-            "item 9; use --synthetic_weights")
-    pipe = synthetic_pipeline(device)
+    if args.synthetic_weights:
+        pipe = synthetic_pipeline(device)
+    else:
+        pipe = FluxPipeline.from_pretrained(cfg.pretrained_model_name_or_path, dtype=pa.dtype, device=device)
     pipe.attn_impl = attn_impl
+    pipe.vae_tiling = pa.vae_tiling
     pipe.model_flags = {"union_cond_attn": cfg.model.union_cond_attn,
                         "add_cond_attn": cfg.model.add_cond_attn}
     apply_lora_path(pipe, cfg, args)  # before quantize: the fold needs float weights
@@ -213,8 +214,10 @@ def load_pipeline(cfg: TTSConfig, args, rewrites_prompts: bool = False) -> FluxP
     return pipe
 
 
-def build_verifier(cfg: TTSConfig):
-    """The config's verifier; the model verifiers (slice 4b, item 17) raise."""
+def build_verifier(cfg: TTSConfig, device: str | None = None):
+    """The config's verifier; `qwen_rm` / `image_verifier` load
+    `verifier_args.model_path` on `device` (or cuda:`device_index`); the NVILA
+    verifiers (slice 4b's rest) raise."""
     va = cfg.verifier_args
     kw = {}
     if va.name == "openai":
@@ -228,12 +231,19 @@ def build_verifier(cfg: TTSConfig):
             kw["model_name"] = va.model_name
         if va.base_url:
             kw["base_url"] = va.base_url
+    elif va.name in ("qwen_rm", "image_verifier"):
+        kw = dict(model_path=va.model_path, device=device)
+        if va.quantize:
+            kw["quantize"] = va.quantize
+        if va.device_index is not None:
+            kw["device_index"] = va.device_index
     return load_verifier(va.name, **kw)
 
 
-def build_reflector(cfg: TTSConfig):
-    """None without run_reflection; `local_qwen` (slice 4b, item 17) raises;
-    any other backend name than openai gets the fake reflector, as in JAX."""
+def build_reflector(cfg: TTSConfig, device: str | None = None):
+    """None without run_reflection; `local_qwen` loads `reflection_args.model_path`
+    (else the verifier's) on `device` (or cuda:`device_index`); any other
+    backend name than openai gets the fake reflector, as in JAX."""
     ra = cfg.reflection_args
     if not ra.run_reflection:
         return None
@@ -245,7 +255,15 @@ def build_reflector(cfg: TTSConfig):
             kw["model_name"] = ra.model_name
         return load_reflector("openai", **kw)
     if ra.backend == "local_qwen":
-        return load_reflector("local_qwen")
+        from ..models.qwen_vl import load_generator
+
+        return load_reflector(
+            "local_qwen",
+            model=load_generator(ra.model_path or cfg.verifier_args.model_path, quantize=ra.quantize,
+                                 device_index=ra.device_index, device=device),
+            template=ra.template,
+            system=ra.system_prompt,
+        )
     return load_reflector("fake")
 
 

@@ -4,8 +4,10 @@ Usage, as the JAX package's `reflectionflow_tpu.cli.train`, plus `--device`:
   python -m reflectionflow_tpu_torch.cli.train --config train.json \
       [--shards genref_000.tar ...] [--synthetic_data] [--synthetic_weights] [--device cpu]
 
-`--synthetic_weights` trains the tiny fp32 pipeline (random weights, seeded)
-with the data sizes shrunk to smoke sizes when no config is given;
+Without `--synthetic_weights` it trains the bf16 FLUX.1 snapshot in the local
+directory `$FLUX_MODEL_DIR` (default: the working directory), as the JAX CLI
+does. `--synthetic_weights` trains the tiny fp32 pipeline (random weights,
+seeded) with the data sizes shrunk to smoke sizes when no config is given;
 `--synthetic_data` writes a random PNG shard when no shards are named. The
 run is on one device (`--device`, default cuda; it raises when CUDA is
 missing); data parallelism over a device mesh is ROADMAP slice 7b.
@@ -16,6 +18,8 @@ from __future__ import annotations
 import argparse
 import glob
 import os
+
+import torch
 
 from ..config import TrainConfig
 from ..train.data import GenRefDataset, StageSchedule, write_synthetic_shard
@@ -58,10 +62,6 @@ def main(argv=None):
     if any(d > 1 for d in cfg.mesh_shape):
         raise NotImplementedError(f"mesh_shape={cfg.mesh_shape}: training over a device mesh is "
                                   "ROADMAP slice 7b; the port trains on one device")
-    if not args.synthetic_weights:
-        raise NotImplementedError(
-            "loading published weights (FluxPipeline.from_pretrained) is ROADMAP slice 1, "
-            "item 9; use --synthetic_weights")
 
     shards = []
     for pat in args.shards or list(cfg.data.shards):
@@ -91,7 +91,14 @@ def main(argv=None):
         schedule=schedule,
         seed=cfg.seed,
     )
-    out = train(synthetic_pipeline(device), cfg, ds)
+    if args.synthetic_weights:
+        pipe = synthetic_pipeline(device)
+    else:
+        from ..sampler.pipeline import FluxPipeline
+
+        pipe = FluxPipeline.from_pretrained(os.environ.get("FLUX_MODEL_DIR", "."), dtype=torch.bfloat16,
+                                            device=device)
+    out = train(pipe, cfg, ds)
     print({"final_metrics": out["metrics"]})
 
 

@@ -55,8 +55,8 @@ def main(argv=None):
     prompts = load_prompts(args)
     # the models behind the host stages first: an unported one raises before the
     # pipeline is built
-    verifier = build_verifier(cfg)
-    reflector = build_reflector(cfg)
+    verifier = build_verifier(cfg, device=args.device)
+    reflector = build_reflector(cfg, device=args.device)
     refiner = build_refiner(cfg)
     pipe = load_pipeline(
         cfg, args,

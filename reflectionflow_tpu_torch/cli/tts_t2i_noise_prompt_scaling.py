@@ -26,7 +26,7 @@ def main(argv=None):
     args = build_parser(__doc__).parse_args(argv)
     cfg = load_config(args)
     prompts = load_prompts(args)
-    verifier = build_verifier(cfg)
+    verifier = build_verifier(cfg, device=args.device)
     refiner = build_refiner(cfg)
     pipe = load_pipeline(cfg, args, rewrites_prompts=cfg.prompt_refiner_args.run_refinement)
     timer = PhaseTimer()

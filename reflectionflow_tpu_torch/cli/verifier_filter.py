@@ -22,7 +22,7 @@ def main(argv=None):
     resolve_device(args.device)
     cfg = load_config(args)
     prompts = load_prompts(args)
-    verifier = build_verifier(cfg)
+    verifier = build_verifier(cfg, device=args.device)
     rule = RankingRule(
         kind=verifier.output_kind,
         choice_of_metric=cfg.verifier_args.choice_of_metric,

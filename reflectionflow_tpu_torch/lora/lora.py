@@ -23,6 +23,12 @@ Two ways to apply an adapter, as in the JAX package:
 the corrector adapter acts on the condition stream only, unless
 `latent_lora=True`.
 
+`save_lora_adapter` / `load_lora_adapter` read and write the JAX package's
+one-file interchange (an adapter tree keyed by JAX tree paths, stacked per
+block family), and `fold_qwen_lora` folds such an adapter into the Qwen2.5-VL
+LM's linears: how a finetuned Reflection-Generator or reward-model adapter
+reaches the port.
+
 The target set is the corrector's: x_embedder; in double blocks the
 image-side norm1.linear, attn to_q/to_k/to_v/to_out.0 and ff.net.2; in single
 blocks norm.linear, attn to_q/to_k/to_v, proj_mlp and proj_out. Text-side
@@ -176,3 +182,61 @@ def convert_diffusers_lora(sd: dict, alpha: float | None = None) -> dict:
     if r is None:
         raise ValueError("no lora_A weights in the state dict")
     return {"_alpha": float(alpha if alpha is not None else r), "_r": int(r), "adapters": adapters}
+
+
+# JAX tree path of a Qwen LM block linear -> its module under `model.layers.{i}`
+_QWEN_LM_LINEARS = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+                    "o": "self_attn.o_proj", "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+                    "down": "mlp.down_proj"}
+
+
+def save_lora_adapter(path: str, lora: dict) -> None:
+    """A JAX-format adapter ({_alpha, _r, adapters: {tree path: {A, B}}}) as one
+    safetensors file: keys `{path with "/" as "__"}.A` / `.B` in fp32, and 0-d
+    `_alpha` / `_r`; the file `reflectionflow_tpu.lora.lora.load_lora_adapter`
+    reads."""
+    from ..utils.safetensors_io import save_file
+
+    flat = {"_alpha": torch.tensor(float(lora["_alpha"])), "_r": torch.tensor(float(lora["_r"]))}
+    for p, ab in lora["adapters"].items():
+        safe = p.replace("/", "__")
+        for which in ("A", "B"):
+            flat[f"{safe}.{which}"] = torch.as_tensor(np.array(ab[which], np.float32))
+    save_file(flat, path)
+
+
+def load_lora_adapter(path: str) -> dict:
+    """Inverse of `save_lora_adapter` (fp32 tensors)."""
+    from ..utils.safetensors_io import load_file
+
+    flat = load_file(path)
+    adapters: dict = {}
+    for k, v in flat.items():
+        if k in ("_alpha", "_r"):
+            continue
+        p, which = k.rsplit(".", 1)
+        adapters.setdefault(p.replace("__", "/"), {})[which] = v.float()
+    return {"_alpha": float(flat["_alpha"]), "_r": float(flat["_r"]), "adapters": adapters}
+
+
+@torch.no_grad()
+def fold_qwen_lora(model: nn.Module, lora: dict, scale: float = 1.0) -> nn.Module:
+    """Fold a JAX-format adapter over the LM's tree paths (`blocks/<q|k|v|o|
+    gate|up|down>/w` stacked (N, in, r) / (N, r, out), or `lm_head/w`) into a
+    `QwenVLModel` in place: W' = W + scale * alpha / r * (A B)^T, the delta in
+    fp32 and added in the weight's dtype."""
+    scaling = scale * lora["_alpha"] / lora["_r"]
+    layers = model.model.layers
+    for path, ab in lora["adapters"].items():
+        A, B = torch.as_tensor(ab["A"]).float(), torch.as_tensor(ab["B"]).float()
+        parts = path.split("/")
+        if len(parts) == 3 and parts[0] == "blocks" and parts[1] in _QWEN_LM_LINEARS and parts[2] == "w":
+            targets = [(layers[i].get_submodule(_QWEN_LM_LINEARS[parts[1]]), A[i], B[i]) for i in range(len(layers))]
+        elif path == "lm_head/w" and model.lm_head is not None:
+            targets = [(model.lm_head, A, B)]
+        else:
+            raise KeyError(f"adapter path {path!r} names no Qwen LM linear")
+        for lin, a, b in targets:
+            w = lin.weight
+            w.copy_(w + ((a @ b) * scaling).t().to(w.device, w.dtype))
+    return model

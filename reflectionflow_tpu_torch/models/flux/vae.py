@@ -5,9 +5,13 @@ Counterpart of `reflectionflow_tpu/models/flux/vae.py::vae_encode` and
 inside, both halves run NCHW, PyTorch's convolution layout. Parameters carry
 diffusers' AutoencoderKL names (`encoder.down_blocks.{i}.resnets.{j}.conv1`,
 `decoder.up_blocks.{i}...`), the names
-`reflectionflow_tpu/utils/hf_convert.py::convert_flux_vae_state` reads. The
-tiled encode and decode (`vae_encode_tiled`, `vae_decode_tiled`) are not
-ported yet (ROADMAP queue 1).
+`reflectionflow_tpu/utils/hf_convert.py::convert_flux_vae_state` reads.
+
+`vae_decode_tiled` / `vae_encode_tiled` are diffusers' `enable_vae_tiling`
+scheme (overlapping tiles, linear cross-fades over the overlap), as the JAX
+package has it: per-tile GroupNorm statistics make a multi-tile result differ
+slightly from the untiled one near the seams; a single-tile input takes the
+exact untiled path.
 """
 
 from __future__ import annotations
@@ -182,18 +186,22 @@ def vae_encode_moments(vae: FluxVAE, images: torch.Tensor) -> torch.Tensor:
     return enc.conv_out(x).permute(0, 2, 3, 1)
 
 
-def vae_encode(vae: FluxVAE, images: torch.Tensor,
-               generator: torch.Generator | None = None) -> torch.Tensor:
-    """Images (B, H, W, 3) in [-1, 1] -> scaled latents (B, h, w, C_lat):
-    (mean - shift) * scale, the posterior's mode; with a `generator`, a
-    sample mean + exp(logvar / 2) * N(0, 1) (logvar clipped to [-30, 20])."""
-    cfg = vae.cfg
-    mean, logvar = vae_encode_moments(vae, images).chunk(2, dim=-1)
+def _moments_to_latents(moments: torch.Tensor, cfg: FluxVAEConfig,
+                        generator: torch.Generator | None = None) -> torch.Tensor:
+    mean, logvar = moments.chunk(2, dim=-1)
     if generator is not None:
         noise = torch.randn(mean.shape, generator=generator, device=generator.device)
         std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
         mean = mean + std * noise.to(mean.device, mean.dtype)
     return (mean - cfg.shift_factor) * cfg.scaling_factor
+
+
+def vae_encode(vae: FluxVAE, images: torch.Tensor,
+               generator: torch.Generator | None = None) -> torch.Tensor:
+    """Images (B, H, W, 3) in [-1, 1] -> scaled latents (B, h, w, C_lat):
+    (mean - shift) * scale, the posterior's mode; with a `generator`, a
+    sample mean + exp(logvar / 2) * N(0, 1) (logvar clipped to [-30, 20])."""
+    return _moments_to_latents(vae_encode_moments(vae, images), vae.cfg, generator)
 
 
 def vae_decode(vae: FluxVAE, latents: torch.Tensor) -> torch.Tensor:
@@ -206,3 +214,86 @@ def vae_decode(vae: FluxVAE, latents: torch.Tensor) -> torch.Tensor:
         x = block(x)
     x = F.silu(group_norm(x, dec.conv_norm_out))
     return dec.conv_out(x).permute(0, 2, 3, 1)
+
+
+def _blend_v(top: torch.Tensor, bottom: torch.Tensor, extent: int) -> torch.Tensor:
+    """Cross-fade `bottom`'s first rows with `top`'s last rows (NHWC)."""
+    extent = min(extent, top.shape[1], bottom.shape[1])
+    if extent <= 0:
+        return bottom
+    w = (torch.arange(extent, dtype=torch.float32, device=bottom.device) / extent)[None, :, None, None]
+    mixed = top[:, -extent:].float() * (1.0 - w) + bottom[:, :extent].float() * w
+    return torch.cat([mixed.to(bottom.dtype), bottom[:, extent:]], dim=1)
+
+
+def _blend_h(left: torch.Tensor, right: torch.Tensor, extent: int) -> torch.Tensor:
+    """Cross-fade `right`'s first columns with `left`'s last columns (NHWC)."""
+    extent = min(extent, left.shape[2], right.shape[2])
+    if extent <= 0:
+        return right
+    w = (torch.arange(extent, dtype=torch.float32, device=right.device) / extent)[None, None, :, None]
+    mixed = left[:, :, -extent:].float() * (1.0 - w) + right[:, :, :extent].float() * w
+    return torch.cat([mixed.to(right.dtype), right[:, :, extent:]], dim=2)
+
+
+def _tiled_grid(full_fn, x: torch.Tensor, tile: int, overlap_factor: float, tile_out: int) -> torch.Tensor:
+    """Split NHWC `x` into `tile`-sized windows at stride tile * (1 - overlap),
+    map each through `full_fn` (a `tile` window -> a `tile_out` window), cross-fade
+    neighbours over the overlap and crop, so the kept extents add up to x's
+    extent * tile_out / tile."""
+    _, h, w, _ = x.shape
+    stride = int(tile * (1.0 - overlap_factor))
+    if not 0 < stride <= tile:
+        raise ValueError(f"overlap_factor {overlap_factor} leaves no stride")
+    blend = int(tile_out * overlap_factor)
+    row_limit = tile_out - blend
+    rows = [[full_fn(x[:, i : i + tile, j : j + tile]) for j in range(0, w, stride)]
+            for i in range(0, h, stride)]
+    out_rows = []
+    for i, row in enumerate(rows):
+        out_row = []
+        for j, t in enumerate(row):
+            if i > 0:
+                t = _blend_v(rows[i - 1][j], t, blend)
+            if j > 0:
+                t = _blend_h(row[j - 1], t, blend)
+            out_row.append(t[:, :row_limit, :row_limit])
+        out_rows.append(torch.cat(out_row, dim=2))
+    return torch.cat(out_rows, dim=1)
+
+
+def vae_decode_tiled(vae: FluxVAE, latents: torch.Tensor, tile_latent: int = 64,
+                     overlap_factor: float = 0.25) -> torch.Tensor:
+    """`vae_decode` in overlapping `tile_latent`-sized latent tiles (64 latents =
+    512 px, diffusers' default tile). An input of one tile takes the untiled path."""
+    _, h, w, _ = latents.shape
+    if h <= tile_latent and w <= tile_latent:
+        return vae_decode(vae, latents)
+    scale = vae.cfg.downscale
+    tile_out = tile_latent * scale
+    stride, blend = int(tile_latent * (1.0 - overlap_factor)), int(tile_out * overlap_factor)
+    # each kept tile extent (tile_out - blend) must be the latent stride upscaled,
+    # or the output is silently mis-sized or shifted
+    if stride * scale != tile_out - blend:
+        raise ValueError(
+            f"tile_latent {tile_latent} / overlap {overlap_factor} misalign: kept extent "
+            f"{tile_out - blend}px != stride {stride}*{scale}px; pick an overlap where "
+            "int(tile*(1-f))*scale == tile*scale - int(tile*scale*f)")
+    return _tiled_grid(lambda z: vae_decode(vae, z), latents, tile_latent, overlap_factor, tile_out)
+
+
+def vae_encode_tiled(vae: FluxVAE, images: torch.Tensor, generator: torch.Generator | None = None,
+                     tile_sample: int = 512, overlap_factor: float = 0.25) -> torch.Tensor:
+    """`vae_encode` in overlapping `tile_sample`-sized image tiles: the moments
+    are blended across the seams (diffusers' `tiled_encode`), then sampled or
+    taken at the mode once."""
+    _, h, w, _ = images.shape
+    if h <= tile_sample and w <= tile_sample:
+        return vae_encode(vae, images, generator)
+    s = vae.cfg.downscale
+    if tile_sample % s or int(tile_sample * (1.0 - overlap_factor)) % s:
+        raise ValueError(f"tile_sample {tile_sample} / overlap {overlap_factor} must keep tile and "
+                         f"stride multiples of the VAE scale {s} so latent tiles align")
+    moments = _tiled_grid(lambda t: vae_encode_moments(vae, t), images, tile_sample, overlap_factor,
+                          tile_sample // s)
+    return _moments_to_latents(moments, vae.cfg, generator)

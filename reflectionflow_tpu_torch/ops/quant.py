@@ -44,7 +44,8 @@ def dequantize_weight(w_q: torch.Tensor, w_scale: torch.Tensor, dtype) -> torch.
 def _int_mm(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 x (N, K) int8 -> (M, N) int32, exact. On CUDA the library
     GEMM wants M > 16 and K, N multiples of 8; short inputs (the modulation
-    linears see M = batch) are padded with zero rows, which changes nothing."""
+    linears see M = batch) are padded with zero rows, which changes nothing.
+    `QuantLinear` keeps K and N on the multiple."""
     M = x_q.shape[0]
     if x_q.is_cuda:
         K, N = x_q.shape[1], w_q.shape[0]
@@ -57,9 +58,12 @@ def _int_mm(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
 
 def int8_matmul_pre(x_q, x_scale, w_q, w_scale, bias=None, dtype=torch.bfloat16):
     """W8A8 product of a pre-quantized activation (ops.fused_quant): x_q
-    (..., in) int8, x_scale (..., 1) fp32 -> (..., out) in `dtype`."""
-    lead = x_q.shape[:-1]
-    acc = _int_mm(x_q.reshape(-1, x_q.shape[-1]), w_q).reshape(*lead, -1)
+    (..., in) int8, x_scale (..., 1) fp32 -> (..., out) in `dtype`, out =
+    len(w_scale). w_q may be padded with zeros past (out, in), as
+    `QuantLinear` keeps it; x_q is padded to match."""
+    lead, k_pad = x_q.shape[:-1], w_q.shape[1] - x_q.shape[-1]
+    x2 = x_q.reshape(-1, x_q.shape[-1])
+    acc = _int_mm(F.pad(x2, (0, k_pad)) if k_pad else x2, w_q)[:, :w_scale.shape[0]].reshape(*lead, -1)
     out = (acc * x_scale).mul_(w_scale).to(dtype)  # int32 -> fp32 inside the first product
     return out if bias is None else out + bias
 
@@ -75,11 +79,16 @@ def int8_matmul(x, w_q, w_scale):
 class QuantLinear(nn.Module):
     """An int8 linear: weight (out, in) int8, fp32 per-output-channel scale,
     optional bias in the activation dtype. `act_quant` selects W8A8 (True) or
-    w8a16 (False)."""
+    w8a16 (False). `w_q` is stored padded with zeros to multiples of 8 in both
+    dimensions, once, for the CUDA int8 GEMM (Qwen2.5-VL's vision MLP is 3420
+    wide); the product pads the activation and drops the padded outputs."""
 
     def __init__(self, w_q: torch.Tensor, w_scale: torch.Tensor, bias: torch.Tensor | None,
                  act_quant: bool):
         super().__init__()
+        self.in_features = w_q.shape[1]
+        if w_q.shape[0] % 8 or w_q.shape[1] % 8:
+            w_q = F.pad(w_q, (0, -w_q.shape[1] % 8, 0, -w_q.shape[0] % 8))
         self.register_buffer("w_q", w_q)
         self.register_buffer("w_scale", w_scale)
         self.bias = None if bias is None else nn.Parameter(bias, requires_grad=False)
@@ -92,7 +101,7 @@ class QuantLinear(nn.Module):
         return cls(w_q, w_scale, bias, act_quant)
 
     def extra_repr(self) -> str:
-        return (f"in={self.w_q.shape[1]}, out={self.w_q.shape[0]}, "
+        return (f"in={self.in_features}, out={self.w_scale.shape[0]}, "
                 f"mode={'w8a8' if self.act_quant else 'w8a16'}, bias={self.bias is not None}")
 
     def matmul_pre(self, x_q, x_scale, dtype):
@@ -103,7 +112,8 @@ class QuantLinear(nn.Module):
         if self.act_quant:
             out = int8_matmul(x, self.w_q, self.w_scale)
         else:
-            out = x @ dequantize_weight(self.w_q, self.w_scale, x.dtype).t()
+            w_q = self.w_q[: self.w_scale.shape[0], : self.in_features]
+            out = x @ dequantize_weight(w_q, self.w_scale, x.dtype).t()
         return out if self.bias is None else out + self.bias
 
 

@@ -2,9 +2,8 @@
 
 Counterpart of `reflectionflow_tpu/reflect/generator.py`:
   * `openai`: any OpenAI-compatible endpoint (a local server included);
+  * `local_qwen`: the colocated Qwen2.5-VL generator (`models.qwen_vl`);
   * `fake`: deterministic strings for hermetic tests.
-The colocated Qwen2.5-VL reflector (`local_qwen`) needs the Qwen model,
-ROADMAP slice 4b, item 17: asking for it raises.
 
 Every backend keeps input order and never drops an entry (a failed request
 gives an empty reflection, not a shorter list).
@@ -17,11 +16,6 @@ import hashlib
 from typing import Sequence
 
 import numpy as np
-
-LOCAL_QWEN_NOT_PORTED = (
-    "reflection_args.name 'local_qwen' (LocalQwenReflector) needs the Qwen2.5-VL model, "
-    "ROADMAP slice 4b, item 17; the port serves 'fake' and 'openai'")
-
 
 class Reflector(abc.ABC):
     @abc.abstractmethod
@@ -60,11 +54,56 @@ class OpenAIReflector(Reflector):
         )
 
 
+# The default user message: the reference's local-reflection message shape,
+# one image and a text naming the prompt. A finetuned Reflection-Generator has
+# a training-time input format: pass `template` / `system` (config:
+# reflection_args.template / system_prompt). Fields: {original_prompt}
+# {current_prompt} {prev_reflection} {evaluation}.
+DEFAULT_TEMPLATE = (
+    'Generate reflections to improve the input image according to the prompt. '
+    'The prompt is: "{original_prompt}"'
+)
+DEFAULT_SYSTEM = "You are a helpful assistant."
+
+
+class LocalQwenReflector(Reflector):
+    """The colocated Qwen2.5-VL reflection generator: one batched decode of a
+    round's candidates (`models.qwen_vl.generate.QwenVLGenerator`)."""
+
+    def __init__(self, model, max_new_tokens: int = 256, template: str | None = None,
+                 system: str | None = None):
+        self.model = model  # models.qwen_vl.generate.QwenVLGenerator
+        self.max_new_tokens = max_new_tokens
+        self.template = template or DEFAULT_TEMPLATE
+        self.system = DEFAULT_SYSTEM if system is None else system
+        self.template.format(**self._fields("p", "p", "", ""))  # unknown {fields} raise here, not mid-round
+
+    @staticmethod
+    def _fields(orig, cur, refl, ev):
+        return {"original_prompt": orig, "current_prompt": cur, "prev_reflection": refl or "",
+                "evaluation": ev or ""}
+
+    def generate(self, images, original_prompts, current_prompts, prev_reflections=None, evaluations=None,
+                 max_new_tokens=None):
+        n = len(original_prompts)
+        prev_reflections = prev_reflections or [""] * n
+        evaluations = evaluations or [""] * n
+        for name, seq in (("images", images), ("current_prompts", current_prompts),
+                          ("prev_reflections", prev_reflections), ("evaluations", evaluations)):
+            if len(seq) != n:  # zip would truncate the batch
+                raise ValueError(f"{name} has {len(seq)} entries, expected {n}")
+        prompts = [self.template.format(**self._fields(orig, cur, refl, ev))
+                   for orig, cur, refl, ev in zip(original_prompts, current_prompts, prev_reflections, evaluations)]
+        return self.model.generate(images=list(images), prompts=prompts,
+                                   max_new_tokens=max_new_tokens or self.max_new_tokens,
+                                   system=self.system or None)
+
+
 def load_reflector(backend: str, **kw) -> Reflector:
     if backend == "fake":
         return FakeReflector()
     if backend == "openai":
         return OpenAIReflector(**kw)
     if backend == "local_qwen":
-        raise NotImplementedError(LOCAL_QWEN_NOT_PORTED)
+        return LocalQwenReflector(**kw)
     raise ValueError(f"unknown reflector backend: {backend}")

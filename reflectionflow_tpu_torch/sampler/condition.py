@@ -7,8 +7,7 @@ and given RoPE ids offset by `position_delta` (ReflectionFlow uses
 broadcasts it, the unconditional branch of image CFG.
 
 The identity preprocessors are ported. The ones that need OpenCV or a depth
-model (`canny`, `coloring`, `deblurring`, `depth`) raise, as does the tiled
-encode.
+model (`canny`, `coloring`, `deblurring`, `depth`) raise.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ import torch
 
 from ..models.flux.latents import pack_latents
 from ..models.flux.rope import make_image_ids
-from ..models.flux.vae import FluxVAE, vae_encode
+from ..models.flux.vae import FluxVAE, vae_encode, vae_encode_tiled
 
 # condition_type -> type id, as the JAX package
 CONDITION_TYPE_IDS = {
@@ -78,20 +77,20 @@ def encode_conditions(conditions: list[Condition], vae: FluxVAE, dtype=torch.bfl
                       empty: bool = False, tiled: bool = False):
     """Batch-encode one condition per candidate -> (cond tokens (B, L_c, 4 C),
     cond ids (L_c, 3)) on the VAE's device. All conditions share size and
-    position_delta."""
-    if tiled:
-        raise NotImplementedError("vae_encode_tiled is not ported yet: ROADMAP queue 1")
+    position_delta. `tiled` encodes through `vae_encode_tiled` (diffusers'
+    enable_vae_tiling covers encode too; a no-op at conditions of <= 512 px)."""
+    encode = vae_encode_tiled if tiled else vae_encode
     device = next(vae.parameters()).device
     if empty:
         # black image: encode one frame and broadcast it (an all-identical batch)
         H, W = conditions[0].preprocess().shape[:2]
         x = torch.full((1, H, W, 3), -1.0, dtype=dtype, device=device)
-        latents = vae_encode(vae, x)
+        latents = encode(vae, x)
         latents = latents.expand(len(conditions), *latents.shape[1:])
     else:
         imgs = np.stack([c.preprocess() for c in conditions])  # (B, H, W, 3) uint8
         x = torch.from_numpy(imgs.astype(np.float32) / 127.5 - 1.0).to(device, dtype)
-        latents = vae_encode(vae, x)  # deterministic (mode)
+        latents = encode(vae, x)  # deterministic (mode)
     ids = make_image_ids(latents.shape[1] // 2, latents.shape[2] // 2,
                          position_delta=conditions[0].position_delta)
     return pack_latents(latents).to(dtype), torch.from_numpy(ids).to(device)

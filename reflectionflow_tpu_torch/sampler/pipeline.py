@@ -7,9 +7,10 @@ schedule, the Euler loop over the DiT, and the VAE decode, in bf16 or, after
 conditioned generate of the FLUX-Corrector (the cond stream reads
 `cond_dit_params`, a LoRA-folded copy of the DiT from
 `lora.make_dit_param_views`) and image CFG; and the bounded prompt-embedding
-cache (`enable_prompt_cache`). NF4 and the tiled VAE are later ROADMAP
-slices; the phase swap is on its do-not-port list (the card holds the int8
-DiT and T5 together).
+cache (`enable_prompt_cache`); `vae_tiling` encodes and decodes in tiles.
+`from_pretrained` loads a local diffusers snapshot (`utils/hf_loader.py`).
+NF4 is a later ROADMAP slice; the phase swap is on its do-not-port list (the
+card holds the int8 DiT and T5 together).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from ..models.flux.dit import FluxDiT
 from ..models.flux.latents import draw_packed_noise, latent_tokens, unpack_latents
 from ..models.flux.rope import make_image_ids, make_text_ids
 from ..models.flux.text import CLIPTextEncoder, T5Encoder, clip_text_encode, t5_encode
-from ..models.flux.vae import FluxVAE, vae_decode
+from ..models.flux.vae import FluxVAE, vae_decode, vae_decode_tiled
 from ..ops.quant import NF4_NOT_PORTED
 from ..utils.tokenizers import load_tokenizer
 from .condition import Condition, encode_conditions
@@ -38,6 +39,7 @@ _EMBED_STD = {
     "encoder.block.0.layer.0.SelfAttention.relative_attention_bias": 0.1,
     "text_model.embeddings.token_embedding": 0.02,
     "text_model.embeddings.position_embedding": 0.02,
+    "model.embed_tokens": 0.02,  # Qwen2.5-VL
 }
 
 
@@ -47,7 +49,7 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     linear and conv weights ~ N(0, 1/fan_in), zero biases, unit norm scales,
     and the per-table embedding stds of `_EMBED_STD`."""
     for name, m in module.named_modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d)):
             m.weight.normal_(0.0, m.weight[0].numel() ** -0.5, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
@@ -89,6 +91,7 @@ class FluxPipeline:
     rope_layout: str = "pair"  # "split" after quantize() permutes q/k (ops.fuse)
     model_flags: dict = field(default_factory=dict)  # union_cond_attn / add_cond_attn
     cond_dit_params: FluxDiT | None = None  # LoRA-folded model the cond stream reads
+    vae_tiling: bool = False  # diffusers enable_vae_tiling: 512 px tiles for encode and decode
     # prompt-embedding cache, ((clip_prompt, t5_prompt), L) -> host (txt, pooled);
     # None until enable_prompt_cache()
     _embed_cache: dict | None = field(default=None, repr=False)
@@ -130,6 +133,15 @@ class FluxPipeline:
             dtype=dtype,
             device=device,
         )
+
+    @classmethod
+    def from_pretrained(cls, model_dir: str, dtype: torch.dtype = torch.bfloat16,
+                        device: str | torch.device | None = None) -> "FluxPipeline":
+        """Load a local diffusers FLUX.1 snapshot (`utils.hf_loader`) on `device`:
+        cuda by default; without CUDA that raises unless device="cpu"."""
+        from ..utils.hf_loader import load_flux_pipeline
+
+        return load_flux_pipeline(cls, model_dir, dtype=dtype, device=device)
 
     @torch.no_grad()
     def quantize(
@@ -283,9 +295,10 @@ class FluxPipeline:
             txt, pooled = self.encode_prompts(prompts, max_sequence_length, prompts_2=prompts_2)
         cond = cond_ids = cond_empty = None
         if conditions:
-            cond, cond_ids = encode_conditions(conditions, self.vae, self.dtype)
+            cond, cond_ids = encode_conditions(conditions, self.vae, self.dtype, tiled=self.vae_tiling)
             if image_guidance_scale != 1.0:
-                cond_empty, _ = encode_conditions(conditions, self.vae, self.dtype, empty=True)
+                cond_empty, _ = encode_conditions(conditions, self.vae, self.dtype, empty=True,
+                                                  tiled=self.vae_tiling)
         final = denoise(
             self.dit,
             latents,
@@ -315,6 +328,6 @@ class FluxPipeline:
     def decode_latents(self, final: torch.Tensor, height: int, width: int) -> np.ndarray:
         """Packed latents -> uint8 images (B, H, W, 3) on the host."""
         grid = unpack_latents(final, *latent_tokens(height, width, self.vae_cfg.downscale))
-        images = vae_decode(self.vae, grid)
+        images = (vae_decode_tiled if self.vae_tiling else vae_decode)(self.vae, grid)
         images = ((images.float() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
         return images.cpu().numpy()

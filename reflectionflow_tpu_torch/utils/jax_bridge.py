@@ -10,6 +10,10 @@ LoRA adapters go both ways (`lora_from_jax`, `lora_to_jax`): the JAX
 package stacks them per block family, `{path: {A: (N, in, r), B: (N, r,
 out)}}`; the port keeps one per linear in the diffusers-peft layout.
 
+Qwen2.5-VL trees (`qwen_lm_init` / `convert_qwen_lm_state`, `qwen_vision_init`
+/ `convert_qwen_vision_state`) go to `QwenVLModel`'s transformers names
+through `qwen_lm_state_dict` and `qwen_vision_state_dict`.
+
 Quantized trees (`reflectionflow_tpu/ops/quant.py`: int8 nodes {w_q, w_scale,
 b, act_q}) go by `load_jax_tree_`, which walks the port model's modules and
 reads each one's JAX node through the model's `jax_path`:
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import CLIPTextConfig, FluxDiTConfig, T5Config
+from ..config import CLIPTextConfig, FluxDiTConfig, QwenLMConfig, QwenVLVisionConfig, T5Config
 from ..models.flux.dit import FluxDiT
 from ..models.flux.text import T5Encoder
 from ..ops.fuse import fuse_dit_qkv, fuse_single_block_io
@@ -175,6 +179,46 @@ def clip_state_dict(params: dict, cfg: CLIPTextConfig) -> dict[str, torch.Tensor
             _lin(sd, f"{b}.self_attn.{ours}", bp[theirs])
         _lin(sd, f"{b}.mlp.fc1", bp["fc1"])
         _lin(sd, f"{b}.mlp.fc2", bp["fc2"])
+    return sd
+
+
+def qwen_lm_state_dict(params: dict, cfg: QwenLMConfig) -> dict[str, torch.Tensor]:
+    """`qwen_lm_init` / `convert_qwen_lm_state` tree -> the `model.*` and
+    `lm_head` entries of a `QwenVLModel` state dict."""
+    sd = {"model.embed_tokens.weight": _t(params["embed"]),
+          "model.norm.weight": _t(params["final_ln"]["scale"])}
+    for i in range(cfg.num_layers):
+        bp, b = _block(params["blocks"], i), f"model.layers.{i}"
+        sd[f"{b}.input_layernorm.weight"] = _t(bp["ln1"]["scale"])
+        sd[f"{b}.post_attention_layernorm.weight"] = _t(bp["ln2"]["scale"])
+        for n in ("q", "k", "v"):
+            _lin(sd, f"{b}.self_attn.{n}_proj", bp[n])
+        _lin(sd, f"{b}.self_attn.o_proj", bp["o"], bias=False)
+        for n in ("gate", "up", "down"):
+            _lin(sd, f"{b}.mlp.{n}_proj", bp[n], bias=False)
+    if "lm_head" in params:
+        _lin(sd, "lm_head", params["lm_head"], bias=False)
+    return sd
+
+
+def qwen_vision_state_dict(params: dict, cfg: QwenVLVisionConfig) -> dict[str, torch.Tensor]:
+    """`qwen_vision_init` / `convert_qwen_vision_state` tree -> the `visual.*`
+    entries of a `QwenVLModel` state dict (the patch embedding back to its
+    Conv3d (C, 3, tp, ps, ps))."""
+    w = np.asarray(params["patch_embed"]["w"])
+    sd = {"visual.patch_embed.proj.weight": _t(w.T.reshape(
+              w.shape[1], 3, cfg.temporal_patch_size, cfg.patch_size, cfg.patch_size)),
+          "visual.merger.ln_q.weight": _t(params["merger"]["ln_q"]["scale"])}
+    _lin(sd, "visual.merger.mlp.0", params["merger"]["fc1"])
+    _lin(sd, "visual.merger.mlp.2", params["merger"]["fc2"])
+    for i in range(cfg.depth):
+        bp, b = _block(params["blocks"], i), f"visual.blocks.{i}"
+        sd[f"{b}.norm1.weight"] = _t(bp["ln1"]["scale"])
+        sd[f"{b}.norm2.weight"] = _t(bp["ln2"]["scale"])
+        _lin(sd, f"{b}.attn.qkv", bp["qkv"])
+        _lin(sd, f"{b}.attn.proj", bp["proj"])
+        for n in ("gate", "up", "down"):
+            _lin(sd, f"{b}.mlp.{n}_proj", bp[n])
     return sd
 
 

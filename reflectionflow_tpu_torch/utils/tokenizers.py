@@ -1,7 +1,8 @@
 """Tokenizer loading with a hermetic fallback.
 
-Copy of `reflectionflow_tpu/utils/tokenizers.py` without the transformers
-branch.
+Counterpart of `reflectionflow_tpu/utils/tokenizers.py`, whose first choice,
+a transformers tokenizer, is replaced by the pure-Python readers of the same
+snapshot files: `utils/spm.py` for T5 and `utils/bpe.py` for CLIP.
 
 Real runs load HF tokenizers from a local snapshot directory (no network).
 When no tokenizer files exist (unit tests, synthetic benchmarks) the
@@ -44,16 +45,18 @@ class HashTokenizer:
 
 def load_tokenizer(path: str | None, kind: str, vocab_size: int, eos_token_id: int):
     """kind: 't5' | 'clip'. A T5 snapshot with `spiece.model` loads the
-    pure-python sentencepiece unigram (`utils.spm`); everything else gets the
-    HashTokenizer (hermetic tests, synthetic weights). The reference's first
-    choice, a transformers fast tokenizer, is not used: the port runs where
-    transformers is not installed."""
-    if path is not None and kind == "t5":
+    pure-Python sentencepiece unigram (`utils.spm`), a CLIP one with
+    `vocab.json` + `merges.txt` the pure-Python byte-level BPE (`utils.bpe`);
+    anything else gets the HashTokenizer (hermetic tests, synthetic weights)."""
+    if path is not None:
         import os
 
-        from .spm import SPMTokenizer
+        if kind == "t5" and os.path.exists(os.path.join(path, "spiece.model")):
+            from .spm import SPMTokenizer
 
-        spiece = os.path.join(path, "spiece.model")
-        if os.path.exists(spiece):
-            return SPMTokenizer(spiece, eos_token_id=eos_token_id)
+            return SPMTokenizer(os.path.join(path, "spiece.model"), eos_token_id=eos_token_id)
+        if kind == "clip" and all(os.path.exists(os.path.join(path, f)) for f in ("vocab.json", "merges.txt")):
+            from .bpe import CLIPBPETokenizer
+
+            return CLIPBPETokenizer.from_dir(path)
     return HashTokenizer(vocab_size=vocab_size, eos_token_id=eos_token_id)

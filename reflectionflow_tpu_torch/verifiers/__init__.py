@@ -1,15 +1,16 @@
-"""Verifiers of the port: the fake ones and the OpenAI-compatible backend.
+"""Verifiers of the port: the fake ones, the OpenAI-compatible backend and the
+colocated Qwen2.5-VL reward model (`qwen_rm` / `image_verifier`).
 
-The model verifiers (`qwen_rm` / `image_verifier`, `nvila`, `nvila_jax`)
-need the Qwen2.5-VL and NVILA models, ROADMAP slice 4b, item 17: asking for
-one raises `NotImplementedError`, never a silent fallback."""
+The NVILA verifiers (`nvila`, `nvila_jax`) are the next slice (ROADMAP queue
+1, slice 4b's rest): asking for one raises `NotImplementedError`, never a
+silent fallback."""
 
 from .base import RankingRule, Verifier, select_topk  # noqa: F401
 from .fake import FakeNvilaVerifier, FakeVerifier  # noqa: F401
 
-MODEL_VERIFIERS_NOT_PORTED = (
-    "the Qwen2.5-VL / NVILA verifier models are ROADMAP slice 4b, item 17; the port serves "
-    "verifier_args.name 'fake', 'fake_nvila' and 'openai'")
+NVILA_NOT_PORTED = (
+    "the NVILA verifier models are ROADMAP slice 4b's rest (item 17); the port serves "
+    "verifier_args.name 'fake', 'fake_nvila', 'openai' and 'qwen_rm' / 'image_verifier'")
 
 
 def load_verifier(name: str, **kw) -> Verifier:
@@ -22,6 +23,10 @@ def load_verifier(name: str, **kw) -> Verifier:
         from .openai_backend import OpenAICompatVerifier
 
         return OpenAICompatVerifier(**kw)
-    if name in ("qwen_rm", "image_verifier", "nvila", "nvila_jax"):
-        raise NotImplementedError(f"verifier {name!r}: {MODEL_VERIFIERS_NOT_PORTED}")
+    if name in ("qwen_rm", "image_verifier"):
+        from .qwen_verifier import QwenRewardVerifier
+
+        return QwenRewardVerifier(**kw)
+    if name in ("nvila", "nvila_jax"):
+        raise NotImplementedError(f"verifier {name!r}: {NVILA_NOT_PORTED}")
     raise ValueError(f"unknown verifier: {name}")

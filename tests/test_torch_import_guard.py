@@ -1,9 +1,11 @@
 """The PyTorch port imports no JAX, no JAX-package module and none of the
 packages its target machine lacks: every port module (the K8/K9 ops, the
 corrector sampler, the mesh and ring attention, the verifiers, reflectors and
-search loops included), and the noise-scaling, train, sample, reflectionflow,
-noise-prompt-scaling and verifier-filter CLIs' --help, run in a subprocess
-where those imports fail."""
+search loops, the BPE tokenizers, the snapshot loader, the Qwen2.5-VL models,
+the reward-checkpoint reader and the Qwen verifier included), and the
+noise-scaling, train, sample, reflectionflow, noise-prompt-scaling,
+verifier-filter and score-images CLIs' --help, run in a subprocess where
+those imports fail."""
 
 import os
 import pkgutil
@@ -11,7 +13,7 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "reflectionflow_tpu", "pydantic", "PIL", "safetensors", "transformers")
+BLOCKED = ("jax", "jaxlib", "reflectionflow_tpu", "pydantic", "PIL", "safetensors", "transformers", "regex")
 
 _SCRIPT = f"""
 import importlib, pkgutil, sys
@@ -25,7 +27,7 @@ assert not any(n.split(".")[0] in {BLOCKED!r} for n in sys.modules if sys.module
 print(len(names), " ".join(names))
 import contextlib, io
 for cli in ("tts_t2i_noise_scaling", "train", "sample", "tts_reflectionflow",
-            "tts_t2i_noise_prompt_scaling", "verifier_filter"):
+            "tts_t2i_noise_prompt_scaling", "verifier_filter", "score_images"):
     main = importlib.import_module("reflectionflow_tpu_torch.cli." + cli).main
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -52,7 +54,8 @@ def test_port_imports_without_jax_and_friends():
     train_help, rest = rest.split("=== sample\n")
     sample_help, rest = rest.split("=== tts_reflectionflow\n")
     rf_help, rest = rest.split("=== tts_t2i_noise_prompt_scaling\n")
-    nps_help, filter_help = rest.split("=== verifier_filter\n")
+    nps_help, rest = rest.split("=== verifier_filter\n")
+    filter_help, score_help = rest.split("=== score_images\n")
     assert "--synthetic_weights" in noise_help and "--attn_impl" in noise_help
     assert "--device" in noise_help
     assert "--device" in train_help and "--synthetic_data" in train_help
@@ -63,9 +66,14 @@ def test_port_imports_without_jax_and_friends():
     for text in (rf_help, nps_help, filter_help):
         assert "--device" in text and "--synthetic_weights" in text
     assert "--nfes" in filter_help and "--images_subdir" in filter_help
+    for flag in ("--meta_path", "--output_json", "--model_path", "--device"):
+        assert flag in score_help
     for name in ("cli.sample", "ops.flash_attention_int8", "ops.flash_attention_nr", "parallel.mesh",
                  "ops.ring_attention", "verifiers.openai_backend", "verifiers.schemas", "verifiers.prompts",
                  "reflect.generator", "reflect.refiner", "reflect.parsing", "search.reflectionflow",
                  "search.state", "search.noise_prompt_scaling", "search.nfe_filter",
-                 "cli.tts_reflectionflow", "cli.tts_t2i_noise_prompt_scaling", "cli.verifier_filter"):
+                 "cli.tts_reflectionflow", "cli.tts_t2i_noise_prompt_scaling", "cli.verifier_filter",
+                 "utils.bpe", "utils.hf_loader", "utils.device", "models.registry", "models.qwen_vl.lm",
+                 "models.qwen_vl.vision", "models.qwen_vl.model", "models.qwen_vl.reward",
+                 "models.qwen_vl.generate", "rm_train.train", "verifiers.qwen_verifier", "cli.score_images"):
         assert f"reflectionflow_tpu_torch.{name}" in proc.stdout

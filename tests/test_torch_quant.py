@@ -76,15 +76,12 @@ def test_quantize_linear_matches_jax():
                                   np.asarray(jquant.dequantize_weight(want, jnp.float32)))
 
 
-@pytest.mark.parametrize("act_quant", [True, False], ids=["w8a8", "w8a16"])
-def test_quant_linear_matches_jax_linear(act_quant):
-    """QuantLinear against the int8 branches of the JAX `linear`, and the
-    pre-quantized W8A8 product against `int8_matmul_pre`."""
+def _check_quant_linear(act_quant, d_in, d_out):
     rng = np.random.default_rng(1)
-    w, b = _weight(rng, 64, 48), rng.standard_normal(48).astype(np.float32)
-    x = (rng.standard_normal((2, 5, 64)) * 3).astype(np.float32)
+    w, b = _weight(rng, d_in, d_out), rng.standard_normal(d_out).astype(np.float32)
+    x = (rng.standard_normal((2, 5, d_in)) * 3).astype(np.float32)
     jp = jquant.quantize_linear({"w": jnp.asarray(w), "b": jnp.asarray(b)}, act_quant=act_quant)
-    lin = nn.Linear(64, 48)
+    lin = nn.Linear(d_in, d_out)
     with torch.no_grad():
         lin.weight.copy_(torch.from_numpy(w.T))
         lin.bias.copy_(torch.from_numpy(b))
@@ -98,6 +95,26 @@ def test_quant_linear_matches_jax_linear(act_quant):
         want_pre = np.asarray(jquant.int8_matmul_pre(jnp.asarray(xq), jnp.asarray(xs), jp, jnp.float32))
         got_pre = ql.matmul_pre(torch.from_numpy(xq), torch.from_numpy(xs), torch.float32).numpy()
         np.testing.assert_allclose(got_pre, want_pre, atol=1e-5 * np.abs(want_pre).max(), rtol=0)
+    return ql, jp
+
+
+@pytest.mark.parametrize("act_quant", [True, False], ids=["w8a8", "w8a16"])
+def test_quant_linear_matches_jax_linear(act_quant):
+    """QuantLinear against the int8 branches of the JAX `linear`, and the
+    pre-quantized W8A8 product against `int8_matmul_pre`."""
+    _check_quant_linear(act_quant, 64, 48)
+
+
+@pytest.mark.parametrize("act_quant", [True, False], ids=["w8a8", "w8a16"])
+def test_quant_linear_pads_widths_off_eight(act_quant):
+    """Widths off a multiple of 8 (Qwen2.5-VL's vision MLP is 3420 wide): the
+    weight is stored once with zero rows and columns up to (48, 64), the
+    CUDA int8 GEMM's rule, and the products still match the JAX package."""
+    ql, jp = _check_quant_linear(act_quant, 60, 42)
+    assert ql.w_q.shape == (48, 64) and ql.in_features == 60 and ql.w_scale.shape == (42,)
+    np.testing.assert_array_equal(ql.w_q[:42, :60].numpy().T, np.asarray(jp["w_q"]))
+    assert not ql.w_q[42:].any() and not ql.w_q[:, 60:].any()
+    assert "in=60, out=42" in repr(ql)
 
 
 def _jax_serving(params, cfg, min_size, exclude):

@@ -207,7 +207,7 @@ def test_png_decoder_reads_pil_filters_and_refuses_jpeg():
         tdata.decode_image(buf.getvalue())
 
 
-def test_train_cli_runs_on_cpu(tmp_path):
+def test_train_cli_runs_on_cpu(tmp_path, monkeypatch):
     from reflectionflow_tpu_torch.cli.train import main
 
     cfg = {"max_steps": 1, "save_interval": 1, "checkpoint_dir": str(tmp_path / "ck"),
@@ -220,5 +220,7 @@ def test_train_cli_runs_on_cpu(tmp_path):
     if not torch.cuda.is_available():  # the default device is cuda, with no fallback
         with pytest.raises(RuntimeError, match="--device cpu"):
             main(args)
-    with pytest.raises(NotImplementedError, match="from_pretrained"):
+    # without --synthetic_weights: the snapshot in $FLUX_MODEL_DIR, here a directory without one
+    monkeypatch.setenv("FLUX_MODEL_DIR", str(tmp_path / "no_snapshot"))
+    with pytest.raises(FileNotFoundError, match="no_snapshot"):
         main(["--config", str(tmp_path / "cfg.json"), "--device", "cpu"])

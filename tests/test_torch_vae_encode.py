@@ -96,5 +96,7 @@ def test_condition_types_and_unported_preprocessors():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tcond.Condition(name, img).preprocess()
     _, _, vae = _vae()
-    with pytest.raises(NotImplementedError, match="vae_encode_tiled"):
-        tcond.encode_conditions([tcond.Condition("cot", img)], vae, tiled=True)
+    # tiled encode (vae_tiling) of a condition within one 512 px tile is the untiled encode
+    tiled = tcond.encode_conditions([tcond.Condition("cot", img)], vae, torch.float32, tiled=True)
+    plain = tcond.encode_conditions([tcond.Condition("cot", img)], vae, torch.float32)
+    assert all(torch.equal(a, b) for a, b in zip(tiled, plain))

@@ -151,10 +151,15 @@ def test_fake_reflector_and_refiner_match_jax():
 
 
 def test_model_backends_raise_naming_their_item():
-    for name in ("qwen_rm", "image_verifier", "nvila", "nvila_jax"):
+    """NVILA (slice 4b's rest) raises naming item 17; the ported Qwen backends
+    raise for what they lack: a model path, a generator."""
+    for name in ("nvila", "nvila_jax"):
         with pytest.raises(NotImplementedError, match="item 17"):
             load_verifier(name)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    for name in ("qwen_rm", "image_verifier"):
+        with pytest.raises(ValueError, match="model_path"):
+            load_verifier(name)
+    with pytest.raises(TypeError, match="model"):
         load_reflector("local_qwen")
     with pytest.raises(ValueError, match="unknown"):
         load_verifier("nope")
