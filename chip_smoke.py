@@ -163,12 +163,34 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      cached decode against a full recompute (logits cosine >= 0.999 at the last
      prefill position and 4 decode steps, B=2 with left pads); prints each
      round's split, the p50, prefill ms, decode ms per token at B=2, vision ms
-     per image and peak memory.
+     per image and peak memory; then, with the model still resident, one
+     synthetic clip of 8 frames at 448 px through the verifier: a finite score
+     on the grid `fetch_video` + `video_to_patches` give it ((4, 32, 32)), and
+     its ms;
+  11. the NVILA-scored round: K1 at the preset's shape (B=1, L=512+4096+1024,
+     main_len 4608, cross bias 0) against its plain version, a second launch
+     bitwise equal, timed in turns with it and beside SDPA; a full-size
+     NVILA-Lite-2B VILA bundle (SigLIP-SO400M-patch14-448 tower, Qwen2-1.5B
+     LM with the tied 151936 x 1536 embedding, mlp_downsample_3x3_fix
+     projector) of seeded random bf16 weights written to a temporary
+     directory and read by `load_nvila` without a device, every tensor bitwise;
+     the verifier that configs/flux.1_dev_nvilascore.json asks for
+     (`nvila_jax`, quantize int8) built by `build_verifier`, and phase 8's
+     round from that preset (W8A8 "pallas": K1 with the cond segment and K2–K5;
+     1 candidate a call; fake reflect and refine, the preset's being OpenAI
+     backends) with exact launch counts (per forward 57 K1; K2 152 a t2i and
+     266 a conditioned forward; K3–K5 as phase 8; no K8, K9); on the round's
+     images the int8 yes/no logits against the bf16 model's (|diff| <=
+     NVILA_INT8_TOL), the score pass timed at B=2 in int8 and bf16 in turns
+     (the median of NVILA_TIMED_REPS; tower and LM apart, host preprocess),
+     and the `verifier_filter` CLI with --nfes 1 2 writing
+     nfe1/ and nfe2/; prints each round's split, the p50 and peak memory.
 The training numbers are on the line {"train": {...}}, the ring phase's on
 {"ring": {...}}, the reflection round's on {"reflection_round": {...}}, the
-snapshot phase's on {"snapshot_load": {...}} and the round with models on
-{"reflection_round_models": {...}}; the line before the last is
-{"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
+snapshot phase's on {"snapshot_load": {...}}, the round with models on
+{"reflection_round_models": {...}} and the NVILA round on
+{"nvila_round": {...}}; the line before the last is {"kernels": [...]}; the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -176,6 +198,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import struct
 import subprocess
 import sys
@@ -207,6 +230,11 @@ SNAP_QWEN_LM_LAYERS, SNAP_QWEN_VIS_BLOCKS = 2, 2
 QWEN_NEW_TOKENS = 64  # phase 10's reflection decode (LocalQwenReflector's default 256, cut)
 QWEN_COS = 0.999  # cached decode logits against a full recompute
 QWEN_INT8_TOL = 0.1  # phase 9's Qwen verifier: |W8A8 score - bf16 score|, scores of order 1
+QWEN_CLIP_FRAMES, QWEN_CLIP_PX = 8, 448  # phase 10's synthetic video clip
+NVILA_INT8_TOL = 0.12  # phase 11: |W8A8 - bf16| of the yes and no logits (|logit| 0.03-0.70; read 0.060, 0.074)
+NVILA_TIMED_B = 2  # phase 11: the NVILA score pass timed at this batch
+NVILA_TIMED_REPS = 9  # phase 11: its repetitions, int8 and bf16 in turns; the median is kept
+K1_PRESET = (1, LT + LI + LC, LT + LI, 0.0)  # phase 11: K1 at the NVILA preset's (B, L, main_len, cross bias)
 # K1 timed: (B, L, main_len, cross bias): the t2i forward at B = 1 and 2, and the training
 # sequence (512 + 1024 + 1024 tokens, the cond segment at 1536) with the c_factor bias
 K1_TIMED = ((1, 4608, 4608, 0.0), (2, 4608, 4608, 0.0), (8, 2560, 1536, math.log(0.5)))
@@ -1727,8 +1755,26 @@ def corrector_phase(torch, pipe):
     return runs
 
 
+def round_counts(pipe, impl: str):
+    """Kernel launches per t2i forward and per conditioned forward (L = 512 +
+    4096 + 1024) of the W8A8 DiT, from its block counts: the attention kernel
+    of `impl` once a block (K9 under "pallas_nr", K1 under "pallas", which also
+    runs K2 on each stream's q and k), K3–K5 before every W8A8 linear."""
+    nd, ns = pipe.dit_cfg.num_double_blocks, pipe.dit_cfg.num_single_blocks
+    per_t2i = {"adaln_quant": 4 * nd + ns, "gelu_quant": 2 * nd + ns, "rowquant": 2 * nd + ns}
+    per_cond = {"adaln_quant": 6 * nd + 2 * ns, "gelu_quant": 3 * nd + 2 * ns, "rowquant": 3 * nd + 2 * ns}
+    if impl == "pallas_nr":
+        per_t2i["flash_fwd_nr"] = per_cond["flash_fwd_nr"] = nd + ns
+    else:
+        check(impl == "pallas", f"round_counts: impl {impl!r}")
+        per_t2i.update({"flash_fwd": nd + ns, "norm_rope": 4 * nd + 2 * ns})
+        per_cond.update({"flash_fwd": nd + ns, "norm_rope": 6 * nd + 4 * ns})
+    return per_t2i, per_cond
+
+
 def reflection_phase(torch, pipe, verifier=None, reflector=None, label="reflection round",
-                     note="fake verify/reflect/refine: not item 19"):
+                     note="fake verify/reflect/refine: not item 19", preset="flux.1_dev_fake.json",
+                     impl="pallas_nr", out_dir=None):
     """Phase 8: the reflection round. `run_reflectionflow_block` (the loop of
     the reflectionflow CLI) with the fake verifier, reflector and refiner of
     configs/flux.1_dev_fake.json, on the W8A8 pipeline with its folded int8
@@ -1739,7 +1785,10 @@ def reflection_phase(torch, pipe, verifier=None, reflector=None, label="reflecti
     rounds of STEPS steps. Every launch count is set to 0 just before and read
     just after; a second call on the same directory must be a resume no-op.
     Phase 10 passes its Qwen2.5-VL `verifier` and `reflector` in place of the
-    fake ones."""
+    fake ones; phase 11 the NVILA preset (`preset`, its `impl` and
+    micro-batches) with its verifier, and an `out_dir` of its own, which it
+    reads after the round and removes (else the run's directory is temporary)."""
+    import contextlib
     import re
 
     from reflectionflow_tpu_torch.config import TTSConfig
@@ -1754,20 +1803,22 @@ def reflection_phase(torch, pipe, verifier=None, reflector=None, label="reflecti
 
     t_phase = time.perf_counter()
     verifier, reflector = verifier or FakeVerifier(), reflector or FakeReflector()
-    cfg = TTSConfig.load(os.path.join(REPO, "configs", "flux.1_dev_fake.json"))
+    cfg = TTSConfig.load(os.path.join(REPO, "configs", preset))
     pa, sa = cfg.pipeline_args, cfg.search_args
-    check(sa.search_branch == BRANCH and cfg.batch_size_for_img_gen == BRANCH and pa.height == pa.width == 2 * LT
-          and pa.condition_size == LT and pa.image_guidance_scale == 1.0 and sa.search_rounds == 16
-          and cfg.verifier_args.name == cfg.reflection_args.name == cfg.prompt_refiner_args.name == "fake",
-          "flux.1_dev_fake.json no longer serves fake models, 2 candidates per call at 1024 px with a "
-          "512 px condition and no image CFG")
+    micro = cfg.batch_size_for_img_gen
+    check(sa.search_branch == BRANCH and BRANCH % micro == 0 and pa.height == pa.width == 2 * LT
+          and pa.condition_size == LT and pa.image_guidance_scale == 1.0 and sa.search_rounds == 16,
+          f"{preset} no longer serves 2 candidates at 1024 px with a 512 px condition and no image CFG")
+    check(preset != "flux.1_dev_fake.json" or (micro == BRANCH and cfg.verifier_args.name
+                                               == cfg.reflection_args.name == cfg.prompt_refiner_args.name
+                                               == "fake"),
+          "flux.1_dev_fake.json no longer serves fake models, 2 candidates per call")
     sa.search_rounds, pa.num_inference_steps = REFLECT_ROUNDS, STEPS  # cut from 16 rounds and 30 steps
     pipe.model_flags = {"union_cond_attn": cfg.model.union_cond_attn, "add_cond_attn": cfg.model.add_cond_attn}
-    pipe.attn_impl = "pallas_nr"
+    pipe.attn_impl = impl
     pipe._embed_cache = None  # each run of the round starts with an empty prompt cache
     pipe.enable_prompt_cache()
-    with open(os.path.join(REPO, "configs", "geneval_sample.jsonl")) as f:
-        rows = [json.loads(line) for line in f if line.strip()][:1]
+    rows = round_rows()
 
     calls, encoded = [], []
     generate, encode_raw = pipe.generate, pipe._encode_raw
@@ -1795,7 +1846,7 @@ def reflection_phase(torch, pipe, verifier=None, reflector=None, label="reflecti
     pipe.generate, pipe._encode_raw = generate_checked, encode_counted
     timer = PhaseTimer()
     try:
-        with tempfile.TemporaryDirectory() as out_dir:
+        with contextlib.nullcontext(out_dir) if out_dir else tempfile.TemporaryDirectory() as out_dir:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             counters = zero_counts()
@@ -1836,50 +1887,56 @@ def reflection_phase(torch, pipe, verifier=None, reflector=None, label="reflecti
     check(len(meta) == REFLECT_ROUNDS and manifest.round_done == REFLECT_ROUNDS and dps[0]["flag_terminated"],
           f"{len(meta)} metadata rows, round_done {manifest.round_done}")
 
-    # the calls: round 0 one t2i call, then one conditioned call a round whose FLUX prompts are
-    # "<refined> [Reflexion]: <reflection>" of that round's metadata row
+    # the calls: round 0 t2i calls, then the conditioned calls of each round, each of `micro`
+    # candidates, whose FLUX prompts are "<refined> [Reflexion]: <reflection>" of that round's row
+    per_round = BRANCH // micro
     t2i = [c for c in calls if not c["conditions"]]
     cond = [c for c in calls if c["conditions"]]
-    check(len(t2i) == 1 and len(cond) == REFLECT_ROUNDS and all(c["conditions"] == BRANCH for c in cond),
-          f"reflection round: {len(t2i)} t2i and {len(cond)} conditioned generate calls")
+    check(len(t2i) == per_round and len(cond) == REFLECT_ROUNDS * per_round
+          and all(len(c["prompts"]) == micro for c in calls) and all(c["conditions"] == micro for c in cond),
+          f"reflection round: {len(t2i)} t2i and {len(cond)} conditioned generate calls of "
+          f"{[len(c['prompts']) for c in calls]} candidates")
     form = re.compile(r"^(.+) \[Reflexion\]: (.+)$", re.S)
-    for c, row in zip(cond, meta):
-        parts = [form.match(p) for p in c["prompts"]]
+    for r, row in enumerate(meta):
+        prompts = [p for c in cond[r * per_round:(r + 1) * per_round] for p in c["prompts"]]
+        parts = [form.match(p) for p in prompts]
         check(all(parts) and [m.groups() for m in parts] == list(zip(row["refined_prompt"], row["reflections"])),
-              f"round {row['search_round']}: FLUX prompts {c['prompts']} are not '<refined> [Reflexion]: "
+              f"round {row['search_round']}: FLUX prompts {prompts} are not '<refined> [Reflexion]: "
               "<reflection>' of the round's metadata")
 
-    # the prompt cache: each encode is one batch of misses; round 0 asks twice for one prompt
+    # the prompt cache: each encode is one batch of a call's prompts not seen before
     requested = sum(len(c["prompts"]) for c in calls)
+    seen, want_batches = set(), []
+    for c in calls:
+        new = sorted(set(c["prompts"]) - seen)
+        if new:
+            want_batches.append(new)
+            seen |= set(new)
     misses = [len(batch) for batch in encoded]
-    check(misses == [1] + [BRANCH] * REFLECT_ROUNDS and encoded[0] == [(rows[0]["prompt"],) * 2]
-          and all([p for p, _ in batch] == sorted(c["prompts"]) for batch, c in zip(encoded[1:], cond)),
+    check([[p for p, _ in batch] for batch in encoded] == want_batches and all(p == q for b in encoded for p, q in b)
+          and want_batches[0] == [rows[0]["prompt"]] and misses == [1] + [micro] * len(cond),
           f"prompt cache: miss batches {encoded}")
     log(f"{label} prompt cache: {requested} embeddings read, {sum(misses)} misses encoded in "
         f"{len(misses)} batches {misses}, {requested - sum(misses)} hits; the resume run encoded nothing")
 
-    # launch counts from the block counts: per t2i forward K9 and the W8A8 prologues of every block, per
-    # conditioned forward (L = 512 + 4096 + 1024) also the cond stream's
-    cfg_d = pipe.dit_cfg
-    nd, ns = cfg_d.num_double_blocks, cfg_d.num_single_blocks
-    per_t2i = {"flash_fwd_nr": nd + ns, "adaln_quant": 4 * nd + ns, "gelu_quant": 2 * nd + ns,
-               "rowquant": 2 * nd + ns}
-    per_cond = {"flash_fwd_nr": nd + ns, "adaln_quant": 6 * nd + 2 * ns, "gelu_quant": 3 * nd + 2 * ns,
-                "rowquant": 3 * nd + 2 * ns}
+    # launch counts from the block counts
+    per_t2i, per_cond = round_counts(pipe, impl)
     expected = {name: 0 for name in launches}
     for name in per_t2i:
         expected[name] = STEPS * (len(t2i) * per_t2i[name] + len(cond) * per_cond[name])
     log(f"{label} launches {launches} (expected {expected}: {STEPS * len(t2i)} t2i forwards, "
-        f"{STEPS * len(cond)} conditioned forwards)")
-    check(launches == expected, "the reflection round did not run K9 and K3–K5 the expected number of times")
+        f"{STEPS * len(cond)} conditioned forwards, B={micro})")
+    check(launches == expected, f"the reflection round did not run the kernels of {impl!r} the expected number "
+          "of times")
 
     spans = timer.spans
     rounds = []
     for r in range(REFLECT_ROUNDS):
+        mine = cond[r * per_round:(r + 1) * per_round]
         split = {"round_s": spans["round"][r], "generate_s": spans["generate"][r + 1],
                  "verify_s": spans["verify"][2 * r] + spans["verify"][2 * r + 1],
                  "reflect_s": spans["reflect"][r], "refine_s": spans["refine"][r],
-                 "denoise_s": cond[r]["denoise_s"], "decode_s": cond[r]["decode_s"]}
+                 "denoise_s": sum(c["denoise_s"] for c in mine), "decode_s": sum(c["decode_s"] for c in mine)}
         split["rest_s"] = split["round_s"] - sum(split[k] for k in ("generate_s", "verify_s", "reflect_s",
                                                                       "refine_s"))
         split["host_share"] = 1.0 - split["generate_s"] / split["round_s"]
@@ -1891,13 +1948,19 @@ def reflection_phase(torch, pipe, verifier=None, reflector=None, label="reflecti
             f"{split['host_share']:.1%}")
     p50 = timer.percentile("round", 50)
     wall_phase = time.perf_counter() - t_phase
-    log(f"{label} p50 {p50:.3f} s over {REFLECT_ROUNDS} rounds (B={BRANCH}, L={LT}+{LI}+{LC}, "
-        f"{STEPS} steps, W8A8 pallas_nr; {note}); "
+    log(f"{label} p50 {p50:.3f} s over {REFLECT_ROUNDS} rounds ({BRANCH} candidates in calls of B={micro}, "
+        f"L={LT}+{LI}+{LC}, {STEPS} steps, W8A8 {impl}; {note}); "
         f"round-0 generate {spans['generate'][0]:.3f} s; block {wall:.1f} s; phase {wall_phase:.1f} s; "
         f"peak device memory {peak / 2**30:.2f} GiB")
     return {"rounds": rounds, "p50_s": p50, "round0_generate_s": spans["generate"][0], "block_s": wall,
             "phase_s": wall_phase, "peak_gib": peak / 2**30, "launches": launches,
             "cache": {"read": requested, "misses": misses}, "note": note}
+
+
+def round_rows() -> list[dict]:
+    """The round phases' one prompt: the first row of configs/geneval_sample.jsonl."""
+    with open(os.path.join(REPO, "configs", "geneval_sample.jsonl")) as f:
+        return [json.loads(line) for line in f if line.strip()][:1]
 
 
 def _qwen_cfgs(lm_layers=None, vis_blocks=None):
@@ -2279,20 +2342,10 @@ def reflection_models_phase(torch, pipe):
     check(min(cos) >= QWEN_COS, f"cached decode disagrees with the full recompute: cosines {cos}")
 
     # prefill, decode per token at B=2, the vision tower per image
-    def timed(fn, reps=3):
-        best = float("inf")
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            ta = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            best = min(best, time.perf_counter() - ta)
-        return best * 1e3
-
     patches, grid = image_to_patches(imgs[0], vis_cfg)
     stack = torch.from_numpy(np.stack([patches, patches])).to("cuda", torch.bfloat16)
     with torch.no_grad():
-        vision_ms = timed(lambda: qwen_vision_apply(model.visual, stack, grid)) / 2
+        vision_ms = _best_ms(torch, lambda: qwen_vision_apply(model.visual, stack, grid)) / 2
         L = embeds.shape[1]
 
         def fresh():
@@ -2304,7 +2357,7 @@ def reflection_models_phase(torch, pipe):
             prefill(model, e, p, c)
 
         state = fresh()
-        prefill_ms = timed(run_prefill)
+        prefill_ms = _best_ms(torch, run_prefill)
 
         def run_decode():
             e, p, c, n0 = fresh()
@@ -2324,14 +2377,320 @@ def reflection_models_phase(torch, pipe):
     log(f"Qwen timings: prefill {prefill_ms:.2f} ms (B={len(seqs)}, L={L}); decode {decode_ms:.2f} ms/token "
         f"(B={len(seqs)}, {QWEN_NEW_TOKENS} tokens; LM weight-read bound {bound_ms:.2f} ms); vision "
         f"{vision_ms:.2f} ms/image (grid {grid}, B=2)")
+    res["clip"] = qwen_clip_check(torch, verifier)
     res.update({"qwen_gib": qwen_gib, "verifier_scores": scores, "reflection_chars": [[len(t) for t in r] for r in reflections],
                 "cache_cosine_min": min(cos), "prefill_ms": prefill_ms, "prefill_len": L, "decode_ms_per_token": decode_ms,
                 "decode_bound_ms": bound_ms, "vision_ms_per_image": vision_ms, "vision_grid": list(grid),
                 "new_tokens": QWEN_NEW_TOKENS, "phase_s_with_model": time.perf_counter() - t0})
-    del verifier, reflector, generator, model
+    del verifier.score, reflector.generate  # the recording wrappers hold their bound methods: a cycle
+    del verifier, reflector, generator, model  # so the Qwen model is freed here, not at a later gc
     torch.cuda.empty_cache()
     log(f"reflection round with models (10): {res['phase_s_with_model']:.1f} s")
     return res
+
+
+def qwen_clip_check(torch, verifier) -> dict:
+    """Phase 10's video clip: QWEN_CLIP_FRAMES synthetic frames at QWEN_CLIP_PX
+    through the resident `QwenRewardVerifier`; a finite score on the grid that
+    `fetch_video` + `video_to_patches` give the clip at the verifier's
+    max_pixels, video pads for every merged patch; its ms (a second call)."""
+    import numpy as np
+
+    from reflectionflow_tpu_torch.models.qwen_vl.video import fetch_video, video_to_patches
+
+    clip = np.random.default_rng(15).integers(0, 256, (QWEN_CLIP_FRAMES, QWEN_CLIP_PX, QWEN_CLIP_PX, 3), np.uint8)
+    prompt = "a red cube rotating on a wooden table"
+    model = verifier.rm.model
+    merge = model.vis_cfg.spatial_merge_size
+    want = video_to_patches(fetch_video(clip, image_factor=model.vis_cfg.patch_size * merge,
+                                        max_pixels=verifier.max_pixels), model.vis_cfg)[1]
+    ids, _, grid = verifier._prepare_ids(clip, prompt)
+    n_pads = int((ids == model.tokens.video_pad).sum())
+    check(grid == want and n_pads == grid[0] * (grid[1] // merge) * (grid[2] // merge),
+          f"clip grid {grid} with {n_pads} video pads, fetch_video + video_to_patches give {want}")
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        score = verifier.raw_scores([clip], [prompt])[0]
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(math.isfinite(score), f"clip score {score}")
+    log(f"Qwen2.5-VL clip ({QWEN_CLIP_FRAMES} x {QWEN_CLIP_PX} px, max_pixels {verifier.max_pixels}): grid {grid}, "
+        f"{n_pads} video pads, score {score:.4f}, {times[-1]:.1f} ms (first call {times[0]:.1f} ms)")
+    return {"grid": list(grid), "video_pads": n_pads, "score": score, "ms": times[-1], "first_ms": times[0]}
+
+
+def k1_preset_check(torch) -> dict:
+    """Phase 11 (c): K1 at the NVILA preset's serving shape, K1_PRESET (B=1:
+    batch_size_for_img_gen 1; L = 512 + 4096 + 1024 with the cond segment at
+    4608, cross bias 0: union attention, nothing masked), against the fp32
+    plain version (OUT_TOL, LSE_TOL); a second launch bitwise equal to the
+    first; timed in turns with the plain version (CUDA events) and beside SDPA
+    (no mask needed: cross bias 0 masks nothing), with its bound."""
+    from reflectionflow_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_ref
+
+    B, L, main_len, cb = K1_PRESET
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v = (torch.randn((B, L, 24, D), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    with torch.no_grad():
+        out, lse = flash_attention_fwd(q, k, v, main_len, cb)
+        out2, lse2 = flash_attention_fwd(q, k, v, main_len, cb)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = flash_attention_ref(q.float(), k.float(), v.float(), main_len, cb)
+        e_out = (out.float() - ref_out).abs().max().item()
+        e_lse = (lse - ref_lse).abs().max().item()
+        bitwise = torch.equal(out, out2) and torch.equal(lse, lse2)
+        del ref_out, ref_lse, out2, lse2
+        kern_ms, plain_ms = in_turns(torch, lambda: flash_attention_fwd(q, k, v, main_len, cb),
+                                     lambda: flash_attention_ref(q, k, v, main_len, cb), 20, 3)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh), 20)
+    flops = 4 * B * L * L * D * 24
+    b = bound(flops, 4 * B * L * 24 * D * 2 + B * 24 * L * 4)
+    log(f"K1 B={B} L={L} main_len={main_len} cross_bias={cb} (NVILA preset): max|out err| {e_out:.3e} (tol {OUT_TOL}), "
+        f"max|lse err| {e_lse:.3e} (tol {LSE_TOL}), second launch bitwise {bitwise}; kernel {kern_ms:.4f} ms "
+        f"({flops / kern_ms / 1e9:.1f} TFLOP/s, bound {b[0]:.4f} ms ({b[1]}), {b[0] / kern_ms:.1%} of it), plain "
+        f"{plain_ms:.4f} ms, SDPA forward {lib:.4f} ms")
+    check(e_out <= OUT_TOL and e_lse <= LSE_TOL, "K1 disagrees with its plain version at the NVILA preset's shape")
+    check(bitwise, "K1's second launch at the NVILA preset's shape is not bitwise its first")
+    del q, k, v, qh, kh, vh, out, lse
+    torch.cuda.empty_cache()
+    return {"ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib, "bound_ms": b[0], "bound_by": b[1],
+            "tflops": flops / kern_ms / 1e9, "bound_share": b[0] / kern_ms, "main_len": main_len, "cross_bias": cb,
+            "max_abs_err": e_out, "lse_max_abs_err": e_lse, "bitwise": bitwise}
+
+
+def _nvila_cfgs():
+    """NVILA-Lite-2B's published widths: the SigLIP-SO400M-patch14-448 tower
+    (`SiglipVisionConfig`'s defaults), the Qwen2-1.5B `llm/` (vocab 151936,
+    hidden 1536, MLP 8960, 28 layers, 12 heads, 2 KV heads, head_dim 128,
+    theta 1e6, tied embeddings) and the mlp_downsample_3x3_fix projector."""
+    from reflectionflow_tpu_torch.config import NvilaConfig, QwenLMConfig, SiglipVisionConfig
+
+    lm = QwenLMConfig(vocab_size=151936, hidden_size=1536, intermediate_size=8960, num_layers=28, num_heads=12,
+                      num_kv_heads=2, head_dim=128, rope_theta=1e6, mrope_section=(64, 0, 0),
+                      tie_word_embeddings=True)
+    return SiglipVisionConfig(), lm, NvilaConfig(select_layer=-2, downsample=3)
+
+
+def write_nvila_bundle(torch, root: str, vis_cfg, lm_cfg, cfg) -> dict:
+    """A VILA bundle of seeded random bf16 weights made on the card: `llm/`
+    (Qwen2 config and a byte-level tokenizer.json with the chat tokens at their
+    published ids), `vision_tower/`, `mm_projector/` (mlp_downsample_3x3_fix:
+    layers.{1,2,4}) and the root config.json; -> {subdir: written state dict}."""
+    from reflectionflow_tpu_torch.models.nvila.model import NvilaModel
+    from reflectionflow_tpu_torch.models.qwen_vl.model import QwenVLSpecialTokens
+    from reflectionflow_tpu_torch.utils.bpe import bytes_to_unicode
+    from reflectionflow_tpu_torch.utils.safetensors_io import save_file
+
+    model = NvilaModel.random_init(torch.Generator(device="cuda").manual_seed(14), vis_cfg, lm_cfg, cfg,
+                                   dtype=torch.bfloat16, device="cuda")
+    configs = {
+        "llm": {"architectures": ["Qwen2ForCausalLM"], "vocab_size": lm_cfg.vocab_size,
+                "hidden_size": lm_cfg.hidden_size, "intermediate_size": lm_cfg.intermediate_size,
+                "num_hidden_layers": lm_cfg.num_layers, "num_attention_heads": lm_cfg.num_heads,
+                "num_key_value_heads": lm_cfg.num_kv_heads, "rope_theta": lm_cfg.rope_theta,
+                "rms_norm_eps": lm_cfg.rms_norm_eps, "tie_word_embeddings": lm_cfg.tie_word_embeddings},
+        "vision_tower": {"hidden_size": vis_cfg.hidden_size, "intermediate_size": vis_cfg.intermediate_size,
+                         "num_hidden_layers": vis_cfg.num_layers, "num_attention_heads": vis_cfg.num_heads,
+                         "patch_size": vis_cfg.patch_size, "image_size": vis_cfg.image_size,
+                         "layer_norm_eps": vis_cfg.layer_norm_eps},
+        "mm_projector": {"mm_projector_type": "mlp_downsample_3x3_fix"},
+    }
+    written = {}
+    for sub, module in (("llm", model.llm), ("vision_tower", model.vision_tower), ("mm_projector", model.mm_projector)):
+        sd = module.state_dict()
+        save_file(sd, os.path.join(root, sub, "model.safetensors"))
+        with open(os.path.join(root, sub, "config.json"), "w") as f:
+            json.dump(configs[sub], f)
+        written[sub] = sd
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump({"mm_vision_select_layer": cfg.select_layer}, f)
+    tok = QwenVLSpecialTokens()
+    added = [{"id": i, "content": c, "special": True} for c, i in (
+        ("<|endoftext|>", tok.endoftext), ("<|im_start|>", tok.im_start), ("<|im_end|>", tok.im_end))]
+    with open(os.path.join(root, "llm", "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump({"added_tokens": added, "model": {"type": "BPE", "merges": [],
+                                                    "vocab": {c: i for i, c in enumerate(bytes_to_unicode().values())}}},
+                  f, ensure_ascii=False)
+    return written
+
+
+def _turns_ms(torch, fns: dict, reps: int) -> dict:
+    """Each thunk of `fns` run `reps` times in turns with the others, the card
+    synchronised on each side; -> the same keys, each a list of `reps` ms."""
+    ms = {key: [] for key in fns}
+    for _ in range(reps):
+        for key, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms[key].append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def _best_ms(torch, fn, reps=3) -> float:
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def nvila_phase(torch, pipe):
+    """Phase 11: the NVILA-scored round. (c) K1 at the preset's shape; (a) a
+    full-size NVILA-Lite-2B bundle of random bf16 weights written and read back
+    by `load_nvila` (no device: cuda), every tensor bitwise; (b) the verifier
+    of configs/flux.1_dev_nvilascore.json (`nvila_jax`, quantize int8) built by
+    `build_verifier`, and phase 8's round under the preset's pipeline args
+    (W8A8, "pallas", 1 candidate a call) with fake reflect and refine (the
+    preset's are OpenAI backends): exact K1–K5 counts, no K8/K9; on the round's
+    directory (d) the int8 yes/no logits against the bf16 model's and (e) the
+    `verifier_filter` CLI with --nfes 1 2; (f) the score pass timed at
+    NVILA_TIMED_B, int8 and bf16 in turns, tower and LM apart, and the
+    phase's peak memory."""
+    import glob
+    import shutil
+
+    from reflectionflow_tpu_torch.cli import verifier_filter
+    from reflectionflow_tpu_torch.cli.common import build_verifier
+    from reflectionflow_tpu_torch.config import TTSConfig
+    from reflectionflow_tpu_torch.models.nvila.model import nvila_logits
+    from reflectionflow_tpu_torch.models.nvila.siglip import siglip_apply
+    from reflectionflow_tpu_torch.ops.quant import QuantLinear
+    from reflectionflow_tpu_torch.search.artifacts import load_image
+    from reflectionflow_tpu_torch.utils.hf_loader import load_nvila
+    from reflectionflow_tpu_torch.verifiers.nvila import NvilaJaxVerifier
+
+    t0 = time.perf_counter()
+    start_gib = torch.cuda.memory_allocated() / 2**30
+    log(f"NVILA phase (11) starts with {start_gib:.2f} GiB allocated on the card (the W8A8 pipeline)")
+    k1 = k1_preset_check(torch)
+    torch.cuda.reset_peak_memory_stats()
+    vis_cfg, lm_cfg, ncfg = _nvila_cfgs()
+    preset = os.path.join(REPO, "configs", "flux.1_dev_nvilascore.json")
+    cfg = TTSConfig.load(preset)
+    va, pa = cfg.verifier_args, cfg.pipeline_args
+    check((va.name, va.quantize, pa.quantize, pa.attn_impl, cfg.batch_size_for_img_gen) ==
+          ("nvila_jax", "int8", "int8", "pallas", 1),
+          f"{preset} no longer asks for nvila_jax int8 beside a W8A8 'pallas' DiT, 1 candidate a call")
+    root = tempfile.mkdtemp(prefix="nvila_")
+    try:
+        bundle = os.path.join(root, "bundle")
+        t1 = time.perf_counter()
+        written = write_nvila_bundle(torch, bundle, vis_cfg, lm_cfg, ncfg)
+        torch.cuda.synchronize()
+        t_write = time.perf_counter() - t1
+        gib = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(bundle) for f in fs) / 2**30
+        t1 = time.perf_counter()
+        bf16 = load_nvila(bundle)  # no device: cuda
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t1
+        for sub, part in (("llm", bf16.llm), ("vision_tower", bf16.vision_tower), ("mm_projector", bf16.mm_projector)):
+            got = part.state_dict()
+            check(set(got) == set(written[sub]) and all(v.device.type == "cuda" and torch.equal(v, written[sub][k])
+                                                        for k, v in got.items()),
+                  f"load_nvila {sub}: the loaded tensors are not bitwise the written ones")
+        del written, got
+        check((bf16.cfg.select_layer, bf16.cfg.downsample) == (-2, 3) and bf16.tokenizer is not None
+              and bf16.tokenizer.encode("<|im_start|>user\n")[0] == 151644, "load_nvila: bundle config or tokenizer")
+        log(f"NVILA bundle: wrote {gib:.2f} GiB in {t_write:.1f} s, load_nvila {t_load:.1f} s, every tensor bitwise "
+            f"on cuda (tower {vis_cfg.num_layers} x {vis_cfg.hidden_size}, LM {lm_cfg.num_layers} x "
+            f"{lm_cfg.hidden_size}, vocab {lm_cfg.vocab_size}, projector mlp_downsample_3x3_fix; full depth)")
+        bf16 = bf16.cpu()  # the bf16 copy waits on the host while the preset's int8 verifier serves the round
+
+        va.model_path = bundle
+        t1 = time.perf_counter()
+        verifier = build_verifier(cfg, device="cuda")  # as the CLIs build it
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t1
+        m = verifier.model
+        check(isinstance(verifier, NvilaJaxVerifier) and m.device.type == "cuda" and all(
+            isinstance(lin, QuantLinear) for blocks in (m.llm.model.layers, m.vision_tower.vision_model.encoder.layers)
+            for lin in blocks.modules() if isinstance(lin, (QuantLinear, torch.nn.Linear))),
+            "the preset's verifier is not the int8 nvila_jax on cuda")
+        int8_gib = sum(t.numel() * t.element_size() for t in list(m.parameters()) + list(m.buffers())) / 2**30
+
+        out_dir, rows = os.path.join(root, "round"), round_rows()
+        res = reflection_phase(torch, pipe, verifier=verifier, label="reflection round (NVILA preset)",
+                               note="NVILA-Lite-2B int8 verify, random weights; fake reflect and refine; the "
+                               "trained adapters folded into the cond model stand in for lora_path",
+                               preset="flux.1_dev_nvilascore.json", impl=pa.attn_impl, out_dir=out_dir)
+
+        # (d) the int8 verifier against the bf16 model on the round's candidates
+        images = [load_image(p) for p in sorted(glob.glob(os.path.join(out_dir, "00000", "midimg", "*.png")))]
+        prompts = [rows[0]["prompt"]] * len(images)
+        ref = bf16.cuda()
+        ids = [verifier.yes_id, verifier.no_id]
+        lq = m.first_token_logits(images, prompts)
+        lb = ref.first_token_logits(images, prompts)
+        err = float(abs(lq[:, ids] - lb[:, ids]).max())
+        log(f"NVILA int8 vs bf16 on the round's {len(images)} images: yes/no logits {lq[:, ids].round(4).tolist()} "
+            f"against {lb[:, ids].round(4).tolist()}, max |diff| {err:.4f} (limit {NVILA_INT8_TOL}); logit std "
+            f"{float(lb.std()):.3f}")
+        check(all(map(math.isfinite, lq[:, ids].ravel())) and err <= NVILA_INT8_TOL,
+              f"NVILA int8 logits differ from bf16 by {err}")
+
+        # (f) the score pass at NVILA_TIMED_B, int8 and bf16 in turns: host preprocess, tower + projector,
+        # the whole forward
+        batch_imgs, batch_prompts = images[:NVILA_TIMED_B], prompts[:NVILA_TIMED_B]
+        n_img = math.ceil(vis_cfg.image_size // vis_cfg.patch_size / ncfg.downsample) ** 2
+        fns, tokens = {}, {}
+        with torch.no_grad():
+            for name, model in (("int8", m), ("bf16", ref)):
+                args = model.batch(batch_imgs, batch_prompts)
+                tokens[name] = int(args[1].shape[1] + args[3].shape[1]) + n_img
+                fns[name, "tower"] = lambda model=model, args=args: model.mm_projector(siglip_apply(
+                    model.vision_tower, args[0], model.cfg.select_layer))
+                fns[name, "total"] = lambda model=model, args=args: nvila_logits(model, *args)
+                fns[name, "prep"] = lambda model=model: model.batch(batch_imgs, batch_prompts)
+            ms = _turns_ms(torch, fns, NVILA_TIMED_REPS)
+        timings = {}
+        for name in ("int8", "bf16"):
+            med = {part: statistics.median(ms[name, part]) / NVILA_TIMED_B for part in ("tower", "total", "prep")}
+            timings[name] = {"per_image_ms": med["total"], "tower_ms": med["tower"], "lm_ms": med["total"] - med["tower"],
+                             "preprocess_ms": med["prep"], "tokens": tokens[name],
+                             "per_image_ms_reps": [t / NVILA_TIMED_B for t in ms[name, "total"]]}
+            log(f"NVILA score pass {name} (B={NVILA_TIMED_B}, {tokens[name]} positions; median of {NVILA_TIMED_REPS} "
+                f"in turns with the other): {med['total']:.2f} ms an image (reps {min(ms[name, 'total']) / NVILA_TIMED_B:.2f}"
+                f"-{max(ms[name, 'total']) / NVILA_TIMED_B:.2f}) = tower + projector {med['tower']:.2f} + LM "
+                f"{med['total'] - med['tower']:.2f}; host preprocess {med['prep']:.2f} ms an image")
+        ref.cpu()
+
+        # (e) the post-hoc filter CLI over the round's candidates
+        cfg_path, meta_path = os.path.join(root, "preset.json"), os.path.join(root, "meta.jsonl")
+        with open(preset) as f:
+            raw = json.load(f)
+        raw["verifier_args"]["model_path"] = bundle
+        with open(cfg_path, "w") as f:
+            json.dump(raw, f)
+        with open(meta_path, "w") as f:
+            f.write(json.dumps(rows[0]) + "\n")
+        nfe_dir = os.path.join(root, "nfe")
+        t_f = time.perf_counter()
+        verifier_filter.main(["--pipeline_config_path", cfg_path, "--meta_path", meta_path, "--imgpath", out_dir,
+                              "--output_dir", nfe_dir, "--nfes", "1", "2", "--device", "cuda"])
+        t_f = time.perf_counter() - t_f
+        picked = sorted(os.path.relpath(p, nfe_dir) for p in glob.glob(os.path.join(nfe_dir, "*", "*.png")))
+        check(picked == ["nfe1/00000.png", "nfe2/00000.png"], f"verifier_filter wrote {picked}")
+        log(f"verifier_filter --nfes 1 2 (preset, int8 NVILA loaded by the CLI): {picked} in {t_f:.1f} s")
+        peak = max(res["peak_gib"], torch.cuda.max_memory_allocated() / 2**30)
+        del verifier, m, bf16, ref, fns
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out = {"start_gib": start_gib, "k1_preset": k1, "bundle_gib": gib, "write_s": t_write, "load_s": t_load, "build_verifier_s": t_build,
+           "int8_gib": int8_gib, "round": res, "int8_vs_bf16_max_abs": err, "logits_int8": lq[:, ids].tolist(),
+           "logits_bf16": lb[:, ids].tolist(), "timings": timings, "filter_s": t_f, "filter_wrote": picked,
+           "peak_gib": peak, "phase_s": time.perf_counter() - t0}
+    log(f"NVILA phase (11): {out['phase_s']:.1f} s; int8 verifier {int8_gib:.2f} GiB resident; peak device memory "
+        f"{peak:.2f} GiB")
+    return out
 
 
 def kernel_entry(name, source, replaces, launches, res, main_shape, other_shape):
@@ -2380,6 +2739,7 @@ def main() -> int:
     reflection = reflection_phase(torch, pipe)
     snapshot = snapshot_phase(torch)
     round_models = reflection_models_phase(torch, pipe)
+    nvila = nvila_phase(torch, pipe)
     step = {name: calls[-1]["denoise_s"] / STEPS for name, calls in (("bf16", bf16_calls),
                                                                       ("w8a8", w8_calls))}
     step.update({f"corrector_{impl}": corrector[impl]["s_per_step"] for impl in ("pallas_nr", "pallas_int8")})
@@ -2457,6 +2817,9 @@ def main() -> int:
                                      ("flash_fwd_nr", "flash_fwd_nr.cu", 313, "pallas_nr")):
         kernels.append(kernel_entry(name, source, f"{PA}:{line}", corrector[impl]["launches"][name],
                                     serving_attn[name], corr_shape, t2i_shape))
+    kernels[0]["by_shape"][f"B={K1_PRESET[0]} L={K1_PRESET[1]}"] = nvila["k1_preset"]
+    for k in kernels:
+        k["launches_round_nvila"] = nvila["round"]["launches"][k["name"]]
     k9 = next(k for k in kernels if k["name"] == "flash_fwd_nr")
     k9["launches_round"] = reflection["launches"]["flash_fwd_nr"]
     k9["launches_round_models"] = round_models["launches"]["flash_fwd_nr"]
@@ -2466,6 +2829,7 @@ def main() -> int:
     log(json.dumps({"reflection_round": reflection}))
     log(json.dumps({"snapshot_load": snapshot}))
     log(json.dumps({"reflection_round_models": round_models}))
+    log(json.dumps({"nvila_round": nvila}))
     log(json.dumps({"ring": {"attention": ring["attention"],
                              "train": {k: ring["train"][k] for k in ("s_per_step", "peak_gib", "launches",
                                                                       "grad_cosine_min", "grad_cosine")},

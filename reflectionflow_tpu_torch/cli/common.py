@@ -215,9 +215,10 @@ def load_pipeline(cfg: TTSConfig, args, rewrites_prompts: bool = False) -> FluxP
 
 
 def build_verifier(cfg: TTSConfig, device: str | None = None):
-    """The config's verifier; `qwen_rm` / `image_verifier` load
-    `verifier_args.model_path` on `device` (or cuda:`device_index`); the NVILA
-    verifiers (slice 4b's rest) raise."""
+    """The config's verifier; `qwen_rm` / `image_verifier` and `nvila_jax` load
+    `verifier_args.model_path` on `device` (or cuda:`device_index`), `nvila`
+    the local hub snapshot of `verifier_args.model_name` (under `cache_dir`)
+    on `device`, at full precision whatever `quantize` says, as in JAX."""
     va = cfg.verifier_args
     kw = {}
     if va.name == "openai":
@@ -232,6 +233,18 @@ def build_verifier(cfg: TTSConfig, device: str | None = None):
         if va.base_url:
             kw["base_url"] = va.base_url
     elif va.name in ("qwen_rm", "image_verifier"):
+        kw = dict(model_path=va.model_path, device=device)
+        if va.quantize:
+            kw["quantize"] = va.quantize
+        if va.device_index is not None:
+            kw["device_index"] = va.device_index
+    elif va.name == "nvila":  # as JAX: the hub name and cache only, never quantize or device_index
+        kw = dict(device=device)
+        if va.model_name:
+            kw["model_name"] = va.model_name
+        if va.cache_dir:
+            kw["cache_dir"] = va.cache_dir
+    elif va.name == "nvila_jax":
         kw = dict(model_path=va.model_path, device=device)
         if va.quantize:
             kw["quantize"] = va.quantize

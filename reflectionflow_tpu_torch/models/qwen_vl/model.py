@@ -5,7 +5,8 @@ Counterpart of `reflectionflow_tpu/models/qwen_vl/model.py`. `QwenVLModel`
 is one `nn.Module` whose state dict is a Qwen2.5-VL checkpoint's (after
 `utils/hf_loader.py` normalises transformers' two key layouts): `model.*`
 (the LM), `visual.*` (the tower) and `lm_head` (absent when the embeddings
-are tied). Video clips (4-D inputs) are the next slice (ROADMAP queue 1).
+are tied). A 4-D (T, H, W, 3) input is a video clip, patched by
+`video.py::video_to_patches`.
 """
 
 from __future__ import annotations
@@ -19,9 +20,6 @@ from torch import nn
 from ...config import QwenLMConfig, QwenVLVisionConfig
 from .lm import QwenLM, qwen_lm_apply
 from .vision import QwenVisionTower, image_to_patches, qwen_vision_apply
-
-VIDEO_NOT_PORTED = ("video clips (models/qwen_vl/video.py) are not ported yet: ROADMAP queue 1, "
-                    "slice 4b's rest")
 
 
 @dataclass(frozen=True)
@@ -129,9 +127,12 @@ class QwenVLModel(nn.Module):
             grids, vision_embeds = [], []
             for img in images:
                 img = np.asarray(img)
-                if img.ndim == 4:
-                    raise NotImplementedError(VIDEO_NOT_PORTED)
-                patches, grid = image_to_patches(img, self.vis_cfg)
+                if img.ndim == 4:  # (T, H, W, 3) video clip
+                    from .video import video_to_patches
+
+                    patches, grid = video_to_patches(img, self.vis_cfg)
+                else:
+                    patches, grid = image_to_patches(img, self.vis_cfg)
                 vision_embeds.append(self.vision(torch.from_numpy(np.ascontiguousarray(patches)), grid))
                 grids.append(grid)
         ids = torch.from_numpy(np.asarray(input_ids, np.int64)).to(self.device)

@@ -39,7 +39,8 @@ _EMBED_STD = {
     "encoder.block.0.layer.0.SelfAttention.relative_attention_bias": 0.1,
     "text_model.embeddings.token_embedding": 0.02,
     "text_model.embeddings.position_embedding": 0.02,
-    "model.embed_tokens": 0.02,  # Qwen2.5-VL
+    "model.embed_tokens": 0.02,  # Qwen2.5-VL, and NVILA's Qwen2 LM
+    "vision_model.embeddings.position_embedding": 0.02,  # NVILA's SigLIP tower
 }
 
 

@@ -3,7 +3,9 @@
 Counterpart of `reflectionflow_tpu/utils/hf_loader.py`:
   * FLUX.1 (diffusers layout): `transformer/`, `vae/`, `text_encoder/` (CLIP),
     `text_encoder_2/` (T5), `tokenizer/`, `tokenizer_2/`;
-  * Qwen2.5-VL: flat safetensors shards, `config.json` and the tokenizer files.
+  * Qwen2.5-VL: flat safetensors shards, `config.json` and the tokenizer files;
+  * NVILA (a VILA bundle): `llm/` (Qwen2 causal LM and its tokenizer),
+    `vision_tower/` (SigLIP), `mm_projector/` and a root `config.json`.
 
 The port's modules carry the diffusers / transformers parameter names, so a
 snapshot needs no conversion: each module is built on the meta device,
@@ -13,8 +15,9 @@ checkpoint's adapter and reward-head files, `QWEN_SIDECARS`, are not
 shards). A tensor
 the module lacks, or one the snapshot lacks, raises; the only names dropped
 are the ones that are not parameters of the module (`_IGNORED`: T5's tied
-`encoder.embed_tokens.weight`, CLIP's `position_ids` buffer, and a tied
-Qwen `lm_head.weight`).
+`encoder.embed_tokens.weight`, CLIP's `position_ids` buffer, SigLIP's
+attention-pooling head, which no VILA tap reads, and a tied Qwen
+`lm_head.weight`).
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import os
 import torch
 from torch import nn
 
-from ..config import CLIPTextConfig, FluxDiTConfig, FluxVAEConfig, QwenLMConfig, QwenVLVisionConfig, T5Config
+from ..config import (CLIPTextConfig, FluxDiTConfig, FluxVAEConfig, NvilaConfig, QwenLMConfig, QwenVLVisionConfig,
+                      SiglipVisionConfig, T5Config)
 from .device import default_device
 from .safetensors_io import load_file
 
@@ -36,6 +40,11 @@ QWEN_SIDECARS = ("lora.safetensors", "rm_head.safetensors", "rm_lora.safetensors
 _IGNORED = {
     "text_encoder_2": ("encoder.embed_tokens.weight",),  # T5: tied to shared.weight
     "text_encoder": ("text_model.embeddings.position_ids",),  # CLIP: an index buffer
+    # transformers' SiglipVisionModel attention-pooling head: the VILA tap reads hidden states
+    "vision_tower": tuple(f"vision_model.head.{n}" for n in (
+        "probe", "attention.in_proj_weight", "attention.in_proj_bias", "attention.out_proj.weight",
+        "attention.out_proj.bias", "layernorm.weight", "layernorm.bias", "mlp.fc1.weight", "mlp.fc1.bias",
+        "mlp.fc2.weight", "mlp.fc2.bias")),
 }
 
 
@@ -227,3 +236,100 @@ def load_qwen_vl(model_dir: str, dtype=torch.bfloat16, device: torch.device | No
                         exclude_files=QWEN_SIDECARS)
     tokenizer = Qwen2BPETokenizer.from_dir(model_dir) if has_qwen2_files(model_dir) else None
     return model, tokenizer
+
+
+# ---------------------------------------------------------------------------
+# NVILA (a VILA bundle: llm/ + vision_tower/ + mm_projector/)
+# ---------------------------------------------------------------------------
+
+PROJECTOR_DOWNSAMPLE = {
+    "mlp": 1,
+    "mlp_downsample": 2,
+    "mlp_downsample_2x2_fix": 2,
+    "mlp_downsample_3x3": 3,
+    "mlp_downsample_3x3_fix": 3,
+}
+
+
+def qwen2_lm_config_from_json(cfg_json: dict) -> QwenLMConfig:
+    """A plain Qwen2 / Qwen2.5 causal-LM config (the `llm/` of a VILA bundle);
+    1-D RoPE as an M-RoPE whose first section spans the frequency axis."""
+    head_dim = cfg_json.get("head_dim") or cfg_json["hidden_size"] // cfg_json["num_attention_heads"]
+    return QwenLMConfig(
+        vocab_size=cfg_json["vocab_size"],
+        hidden_size=cfg_json["hidden_size"],
+        intermediate_size=cfg_json["intermediate_size"],
+        num_layers=cfg_json["num_hidden_layers"],
+        num_heads=cfg_json["num_attention_heads"],
+        num_kv_heads=cfg_json["num_key_value_heads"],
+        head_dim=head_dim,
+        rope_theta=cfg_json.get("rope_theta", 1000000.0),
+        rms_norm_eps=cfg_json.get("rms_norm_eps", 1e-6),
+        mrope_section=(head_dim // 2, 0, 0),
+        tie_word_embeddings=cfg_json.get("tie_word_embeddings", False),
+    )
+
+
+def siglip_config_from_json(cfg_json: dict) -> SiglipVisionConfig:
+    v = cfg_json.get("vision_config", cfg_json)
+    return SiglipVisionConfig(
+        hidden_size=v["hidden_size"],
+        intermediate_size=v["intermediate_size"],
+        num_layers=v["num_hidden_layers"],
+        num_heads=v["num_attention_heads"],
+        patch_size=v["patch_size"],
+        image_size=v["image_size"],
+        layer_norm_eps=v.get("layer_norm_eps", 1e-6),
+    )
+
+
+def projector_type(model_dir: str, root_cfg: dict) -> str:
+    """`mm_projector/config.json`'s `mm_projector_type` (some releases nest it in
+    a dict), else the root config's `mm_projector`, else "mlp_downsample_3x3_fix"."""
+    proj_type = root_cfg.get("mm_projector", "mlp_downsample_3x3_fix")
+    proj_cfg_path = os.path.join(model_dir, "mm_projector", "config.json")
+    if os.path.exists(proj_cfg_path):
+        proj_type = _read_json(proj_cfg_path).get("mm_projector_type", proj_type)
+    if isinstance(proj_type, dict):
+        proj_type = proj_type.get("mm_projector_type", "mlp_downsample_3x3_fix")
+    return proj_type
+
+
+def load_nvila(model_dir: str, dtype=torch.bfloat16, device: torch.device | None = None):
+    """A VILA bundle directory -> `NvilaModel` on `device` (default cuda) with the
+    bundle's Qwen2 tokenizer from `llm/` (None without tokenizer files).
+
+    The projector's layout follows its type: `layers.{1,2,4}` (LayerNorm,
+    Linear, Linear) for the downsample types, `layers.{0,2}` for plain "mlp";
+    an unknown type raises ValueError. The tower's names may carry the
+    `vision_model.` prefix or not; the tap is the root config's
+    `mm_vision_select_layer` (default -2)."""
+    from ..models.nvila.model import NvilaModel, NvilaProjector, Qwen2CausalLM
+    from ..models.nvila.siglip import SiglipVisionModel
+    from .bpe import Qwen2BPETokenizer, has_qwen2_files
+
+    device = default_device(device)
+    root_cfg_path = os.path.join(model_dir, "config.json")
+    root_cfg = _read_json(root_cfg_path) if os.path.exists(root_cfg_path) else {}
+    lm_dir, vis_dir, proj_dir = (os.path.join(model_dir, d) for d in ("llm", "vision_tower", "mm_projector"))
+    lm_cfg = qwen2_lm_config_from_json(_read_json(os.path.join(lm_dir, "config.json")))
+    vis_cfg = siglip_config_from_json(_read_json(os.path.join(vis_dir, "config.json")))
+    proj_type = projector_type(model_dir, root_cfg)
+    if proj_type not in PROJECTOR_DOWNSAMPLE:
+        raise ValueError(f"unsupported mm_projector type: {proj_type!r}")
+    cfg = NvilaConfig(select_layer=root_cfg.get("mm_vision_select_layer", -2),
+                      downsample=PROJECTOR_DOWNSAMPLE[proj_type])
+    norm = proj_type != "mlp"
+    with torch.device("meta"):
+        model = NvilaModel(vis_cfg, lm_cfg, cfg, norm=norm)
+    model.vision_tower = load_module(
+        lambda: SiglipVisionModel(vis_cfg), vis_dir, dtype, device,
+        rename=lambda k: k if k.startswith("vision_model.") else "vision_model." + k,
+        ignore=_IGNORED["vision_tower"])
+    model.mm_projector = load_module(
+        lambda: NvilaProjector(vis_cfg.hidden_size, lm_cfg.hidden_size, cfg.downsample, norm), proj_dir, dtype,
+        device, rename=lambda k: k.removeprefix("mm_projector."))
+    model.llm = load_module(lambda: Qwen2CausalLM(lm_cfg), lm_dir, dtype, device,
+                            ignore=("lm_head.weight",) if lm_cfg.tie_word_embeddings else ())
+    model.tokenizer = Qwen2BPETokenizer.from_dir(lm_dir) if has_qwen2_files(lm_dir) else None
+    return model.eval()

@@ -12,7 +12,10 @@ out)}}`; the port keeps one per linear in the diffusers-peft layout.
 
 Qwen2.5-VL trees (`qwen_lm_init` / `convert_qwen_lm_state`, `qwen_vision_init`
 / `convert_qwen_vision_state`) go to `QwenVLModel`'s transformers names
-through `qwen_lm_state_dict` and `qwen_vision_state_dict`.
+through `qwen_lm_state_dict` and `qwen_vision_state_dict`; NVILA's
+(`siglip_init` / `convert_siglip_state`, `convert_nvila_projector_state`) to
+`NvilaModel`'s through `siglip_state_dict`, `nvila_projector_state_dict` and
+`nvila_from_jax`.
 
 Quantized trees (`reflectionflow_tpu/ops/quant.py`: int8 nodes {w_q, w_scale,
 b, act_q}) go by `load_jax_tree_`, which walks the port model's modules and
@@ -27,7 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import CLIPTextConfig, FluxDiTConfig, QwenLMConfig, QwenVLVisionConfig, T5Config
+from ..config import (CLIPTextConfig, FluxDiTConfig, NvilaConfig, QwenLMConfig, QwenVLVisionConfig,
+                      SiglipVisionConfig, T5Config)
 from ..models.flux.dit import FluxDiT
 from ..models.flux.text import T5Encoder
 from ..ops.fuse import fuse_dit_qkv, fuse_single_block_io
@@ -222,20 +226,72 @@ def qwen_vision_state_dict(params: dict, cfg: QwenVLVisionConfig) -> dict[str, t
     return sd
 
 
+def _ln(sd: dict, name: str, p: dict) -> None:
+    sd[f"{name}.weight"] = _t(p["scale"])
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def siglip_state_dict(params: dict, cfg: SiglipVisionConfig) -> dict[str, torch.Tensor]:
+    """`siglip_init` / `convert_siglip_state` tree -> `SiglipVisionModel` state
+    dict (the patch matmul back to its Conv2d (H, 3, P, P))."""
+    w, P = np.asarray(params["patch_embed"]["w"]), cfg.patch_size
+    pre = "vision_model."
+    sd = {f"{pre}embeddings.patch_embedding.weight": _t(w.T.reshape(w.shape[1], 3, P, P)),
+          f"{pre}embeddings.patch_embedding.bias": _t(params["patch_embed"]["b"]),
+          f"{pre}embeddings.position_embedding.weight": _t(params["pos_embed"])}
+    _ln(sd, f"{pre}post_layernorm", params["post_ln"])
+    for i in range(cfg.num_layers):
+        bp, b = _block(params["blocks"], i), f"{pre}encoder.layers.{i}"
+        _ln(sd, f"{b}.layer_norm1", bp["ln1"])
+        _ln(sd, f"{b}.layer_norm2", bp["ln2"])
+        for ours, theirs in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"), ("out_proj", "o")):
+            _lin(sd, f"{b}.self_attn.{ours}", bp[theirs])
+        _lin(sd, f"{b}.mlp.fc1", bp["fc1"])
+        _lin(sd, f"{b}.mlp.fc2", bp["fc2"])
+    return sd
+
+
+def nvila_projector_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """`convert_nvila_projector_state` tree -> `NvilaProjector` state dict:
+    `layers.{1,2,4}` with the LayerNorm, `layers.{0,2}` without."""
+    sd: dict[str, torch.Tensor] = {}
+    if "ln" in params:
+        _ln(sd, "layers.1", params["ln"])
+        _lin(sd, "layers.2", params["fc1"])
+        _lin(sd, "layers.4", params["fc2"])
+    else:
+        _lin(sd, "layers.0", params["fc1"])
+        _lin(sd, "layers.2", params["fc2"])
+    return sd
+
+
+def nvila_from_jax(jm) -> "NvilaModel":
+    """A JAX `NvilaModel` (float trees) -> the port's, on the CPU in fp32, with
+    its configs, template and tokenizer."""
+    import dataclasses
+
+    from ..models.nvila.model import NvilaModel
+
+    vis_cfg = SiglipVisionConfig(**dataclasses.asdict(jm.vis_cfg))
+    lm_cfg = QwenLMConfig(**dataclasses.asdict(jm.lm_cfg))
+    cfg = NvilaConfig(**dataclasses.asdict(jm.cfg))
+    model = NvilaModel(vis_cfg, lm_cfg, cfg, norm="ln" in jm.proj_params, tokenizer=jm.tokenizer,
+                       template=jm.template)
+    model.vision_tower.load_state_dict(siglip_state_dict(jm.vis_params, vis_cfg))
+    model.mm_projector.load_state_dict(nvila_projector_state_dict(jm.proj_params))
+    model.llm.load_state_dict(qwen_lm_state_dict(jm.lm_params, lm_cfg))
+    return model.eval().requires_grad_(False)
+
+
 def _conv(sd: dict, name: str, p: dict) -> None:
     sd[f"{name}.weight"] = _t(np.asarray(p["w"]).transpose(3, 2, 0, 1))  # HWIO -> OIHW
     sd[f"{name}.bias"] = _t(p["b"])
 
 
-def _gn(sd: dict, name: str, p: dict) -> None:
-    sd[f"{name}.weight"] = _t(p["scale"])
-    sd[f"{name}.bias"] = _t(p["bias"])
-
-
 def _resnet(sd: dict, name: str, p: dict) -> None:
-    _gn(sd, f"{name}.norm1", p["norm1"])
+    _ln(sd, f"{name}.norm1", p["norm1"])
     _conv(sd, f"{name}.conv1", p["conv1"])
-    _gn(sd, f"{name}.norm2", p["norm2"])
+    _ln(sd, f"{name}.norm2", p["norm2"])
     _conv(sd, f"{name}.conv2", p["conv2"])
     if "shortcut" in p:
         _conv(sd, f"{name}.conv_shortcut", p["shortcut"])
@@ -245,7 +301,7 @@ def _mid(sd: dict, name: str, mid: dict) -> None:
     _resnet(sd, f"{name}.resnets.0", mid["res1"])
     _resnet(sd, f"{name}.resnets.1", mid["res2"])
     at, a = mid["attn"], f"{name}.attentions.0"
-    _gn(sd, f"{a}.group_norm", at["norm"])
+    _ln(sd, f"{a}.group_norm", at["norm"])
     for ours, theirs in (("to_q", "q"), ("to_k", "k"), ("to_v", "v"), ("to_out.0", "out")):
         # 1x1 conv (1, 1, C_in, C_out) -> Linear (C_out, C_in)
         sd[f"{a}.{ours}.weight"] = _t(np.asarray(at[theirs]["w"])[0, 0].T)
@@ -264,7 +320,7 @@ def vae_state_dict(vae: dict) -> dict[str, torch.Tensor]:
         if "down" in block:
             _conv(sd, f"{e}.down_blocks.{i}.downsamplers.0.conv", block["down"])
     _mid(sd, f"{e}.mid_block", enc["mid"])
-    _gn(sd, f"{e}.conv_norm_out", enc["norm_out"])
+    _ln(sd, f"{e}.conv_norm_out", enc["norm_out"])
     _conv(sd, f"{e}.conv_out", enc["conv_out"])
     decoder, d = vae["decoder"], "decoder"
     _conv(sd, f"{d}.conv_in", decoder["conv_in"])
@@ -274,7 +330,7 @@ def vae_state_dict(vae: dict) -> dict[str, torch.Tensor]:
             _resnet(sd, f"{d}.up_blocks.{i}.resnets.{j}", rp)
         if "up" in block:
             _conv(sd, f"{d}.up_blocks.{i}.upsamplers.0.conv", block["up"])
-    _gn(sd, f"{d}.conv_norm_out", decoder["norm_out"])
+    _ln(sd, f"{d}.conv_norm_out", decoder["norm_out"])
     _conv(sd, f"{d}.conv_out", decoder["conv_out"])
     return sd
 

@@ -1,16 +1,9 @@
-"""Verifiers of the port: the fake ones, the OpenAI-compatible backend and the
-colocated Qwen2.5-VL reward model (`qwen_rm` / `image_verifier`).
-
-The NVILA verifiers (`nvila`, `nvila_jax`) are the next slice (ROADMAP queue
-1, slice 4b's rest): asking for one raises `NotImplementedError`, never a
-silent fallback."""
+"""Verifiers of the port: the fake ones, the OpenAI-compatible backend, the
+colocated Qwen2.5-VL reward model (`qwen_rm` / `image_verifier`) and the
+native NVILA yes/no verifiers (`nvila`, `nvila_jax`)."""
 
 from .base import RankingRule, Verifier, select_topk  # noqa: F401
 from .fake import FakeNvilaVerifier, FakeVerifier  # noqa: F401
-
-NVILA_NOT_PORTED = (
-    "the NVILA verifier models are ROADMAP slice 4b's rest (item 17); the port serves "
-    "verifier_args.name 'fake', 'fake_nvila', 'openai' and 'qwen_rm' / 'image_verifier'")
 
 
 def load_verifier(name: str, **kw) -> Verifier:
@@ -27,6 +20,12 @@ def load_verifier(name: str, **kw) -> Verifier:
         from .qwen_verifier import QwenRewardVerifier
 
         return QwenRewardVerifier(**kw)
-    if name in ("nvila", "nvila_jax"):
-        raise NotImplementedError(f"verifier {name!r}: {NVILA_NOT_PORTED}")
+    if name == "nvila":
+        from .nvila import NvilaVerifier
+
+        return NvilaVerifier(**kw)
+    if name == "nvila_jax":
+        from .nvila import NvilaJaxVerifier
+
+        return NvilaJaxVerifier(**kw)
     raise ValueError(f"unknown verifier: {name}")

@@ -10,8 +10,9 @@ special token, score statistics), `rm_head.safetensors` and, when trained,
 The score of a same-length, same-grid group is one batched vision-tower pass
 and one LM forward + pooling + head (`models.qwen_vl.reward.rm_scores`),
 eager under `torch.no_grad`. The image resize is the port's PIL-order bicubic
-(`train/data.py::resize`), within 1 level of PIL's; video clips (4-D inputs)
-are the next slice.
+(`train/data.py::resize`), within 1 level of PIL's. A (T, H, W, 3) clip is
+sampled and resized by `models/qwen_vl/video.py::fetch_video` and scored with
+video pads and the `video_score` template.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..models.qwen_vl.model import VIDEO_NOT_PORTED, QwenVLModel, QwenVLSpecialTokens, get_rope_index
+from ..models.qwen_vl.model import QwenVLModel, QwenVLSpecialTokens, get_rope_index
 from ..models.qwen_vl.reward import QwenRewardModel, RewardHead, rm_scores
 from ..models.qwen_vl.vision import image_to_patches, qwen_vision_apply, smart_resize
 from .base import Verifier
@@ -114,22 +115,29 @@ class QwenRewardVerifier(Verifier):
     # ------------------------------------------------------------------
 
     def _prepare_ids(self, image: np.ndarray, prompt: str):
-        """smart_resize the image and build the chat sequence around its pads:
-        (ids, patches, grid), patchified once."""
+        """smart_resize the image (or sample and resize a (T, H, W, 3) clip) and
+        build the chat sequence around its image or video pads: (ids, patches,
+        grid), patchified once."""
         from ..train.data import resize
 
-        if image.ndim == 4:
-            raise NotImplementedError(VIDEO_NOT_PORTED)
         vis_cfg = self.rm.model.vis_cfg
         merge = vis_cfg.spatial_merge_size
+        factor = vis_cfg.patch_size * merge
         tokens = QwenVLSpecialTokens()
-        nh, nw = smart_resize(image.shape[0], image.shape[1], factor=vis_cfg.patch_size * merge,
-                              max_pixels=self.max_pixels)
-        patches, grid = image_to_patches(resize(image, (nw, nh)), vis_cfg)
+        if image.ndim == 4:  # a video clip: video pads and the video_score prompt
+            from ..models.qwen_vl.video import fetch_video, video_to_patches
+            from ..rm_train.prompt_template import build_prompt
+
+            patches, grid = video_to_patches(fetch_video(image, image_factor=factor, max_pixels=self.max_pixels),
+                                             vis_cfg)
+            pad_id, text = tokens.video_pad, build_prompt(prompt, template_type="video_score")
+        else:
+            nh, nw = smart_resize(image.shape[0], image.shape[1], factor=factor, max_pixels=self.max_pixels)
+            patches, grid = image_to_patches(resize(image, (nw, nh)), vis_cfg)
+            pad_id, text = tokens.image_pad, DEFAULT_TEMPLATE.format(prompt=prompt)
         gt, gh, gw = grid
         n_vis = gt * (gh // merge) * (gw // merge)
-        return self._assemble_ids(DEFAULT_TEMPLATE.format(prompt=prompt), n_vis, tokens.image_pad, tokens), \
-            patches, grid
+        return self._assemble_ids(text, n_vis, pad_id, tokens), patches, grid
 
     def _assemble_ids(self, text: str, n_vis: int, pad_id: int, tokens) -> np.ndarray:
         # Qwen's chat template with the system turn and the generation prompt,

@@ -316,7 +316,7 @@ def test_cli_builders_wire_the_qwen_models(tmp_path, monkeypatch):
         build_verifier(cfg, device="cpu")
     with pytest.raises(ValueError, match="model_path"):
         build_reflector(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="model_path"):  # as the JAX nvila_jax refuses
         load_verifier("nvila_jax")
 
 

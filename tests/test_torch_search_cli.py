@@ -1,9 +1,9 @@
 """The port's search CLIs (`tts_reflectionflow`, `tts_t2i_noise_prompt_scaling`,
 `verifier_filter`) on the tiny fp32 `--synthetic_weights` pipeline on the
 CPU: they finish with the JAX package's artifact tree, resume as a no-op,
-raise without CUDA unless `--device cpu` is given, and raise naming ROADMAP
-item 17 for the model backends the port does not have yet (NVILA); the Qwen
-backends it has raise without a model_path, before any output is written."""
+raise without CUDA unless `--device cpu` is given, and the model backends
+raise for what they lack before any output is written: `nvila` a local hub
+snapshot, `nvila_jax` and the Qwen backends a model_path."""
 
 import contextlib
 import glob
@@ -103,16 +103,18 @@ def test_clis_need_cuda_unless_told_cpu(tmp_path):
 
 @pytest.mark.parametrize("section,name", [("verifier_args", "qwen_rm"), ("verifier_args", "nvila"),
                                           ("verifier_args", "nvila_jax"), ("reflection_args", "local_qwen")])
-def test_model_backends_raise_naming_item_17(tmp_path, section, name):
-    """NVILA (slice 4b's rest) raises naming item 17; qwen_rm and local_qwen,
-    ported, raise for the missing model_path."""
+def test_model_backends_raise_naming_item_17(tmp_path, monkeypatch, section, name):
+    """The model backends of item 17 raise for what they lack: `nvila` a local
+    snapshot (it never downloads), `nvila_jax`, qwen_rm and local_qwen the
+    model_path."""
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "hub"))
     argv = _setup(tmp_path, **{section: {"name": name}}) + [
         "--output_dir", str(tmp_path / "out"), "--synthetic_weights", "--device", "cpu"]
     mains = [tts_reflectionflow.main]
     if section == "verifier_args":
         mains += [tts_t2i_noise_prompt_scaling.main,
                   lambda a: verifier_filter.main(a + ["--imgpath", str(tmp_path)])]
-    error, match = (NotImplementedError, "item 17") if name.startswith("nvila") else (ValueError, "model_path")
+    error, match = (FileNotFoundError, "never downloads") if name == "nvila" else (ValueError, "model_path")
     for main in mains:
         with pytest.raises(error, match=match):
             main(argv)

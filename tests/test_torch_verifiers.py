@@ -150,13 +150,14 @@ def test_fake_reflector_and_refiner_match_jax():
     assert isinstance(load_refiner("fake"), FakeRefiner)
 
 
-def test_model_backends_raise_naming_their_item():
-    """NVILA (slice 4b's rest) raises naming item 17; the ported Qwen backends
-    raise for what they lack: a model path, a generator."""
-    for name in ("nvila", "nvila_jax"):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            load_verifier(name)
-    for name in ("qwen_rm", "image_verifier"):
+def test_model_backends_raise_naming_their_item(tmp_path, monkeypatch):
+    """The model backends raise for what they lack: `nvila` a local snapshot
+    (it never downloads), `nvila_jax` and the Qwen verifiers a model path, the
+    local reflector a generator."""
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="never downloads"):
+        load_verifier("nvila", device="cpu")
+    for name in ("nvila_jax", "qwen_rm", "image_verifier"):
         with pytest.raises(ValueError, match="model_path"):
             load_verifier(name)
     with pytest.raises(TypeError, match="model"):
