@@ -184,13 +184,32 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      NVILA_INT8_TOL), the score pass timed at B=2 in int8 and bf16 in turns
      (the median of NVILA_TIMED_REPS; tower and LM apart, host preprocess),
      and the `verifier_filter` CLI with --nfes 1 2 writing
-     nfe1/ and nfe2/; prints each round's split, the p50 and peak memory.
+     nfe1/ and nfe2/; prints each round's split, the p50 and peak memory;
+  12. the velocity cache and the NF4 profile, on the W8A8 pipeline under
+     "pallas" at 1024 px, 1 prompt x 2 candidates: `vcache={"interval": 1}`
+     at 8 steps bitwise the dense latents; the static schedule (interval 3,
+     warmup 2, tail 1, order 2) at 30 steps: 12 full forwards, exactly 12
+     forwards' K1–K5 launches, cosine >= W8A8_COS against the same schedule
+     on the plain serving path ("xla"), and its denoise timed against the
+     dense 30-step denoise in turns (dense, cached, cached, dense); the
+     teacache preset's schedule (residual, threshold 0.6, its polynomial) at 8
+     steps: launches exactly n_full forwards' worth (none on a skip step),
+     then phase 8's round from configs/flux.1_dev_qwenscore_v5e_teacache.json
+     (W8A8 "pallas", 1 candidate a call, fake verify/reflect/refine) with
+     launch counts from each call's n_full and the per-round split; module
+     mode at interval 3 (8 steps): launches on full steps only, cosine >=
+     W8A8_COS against the plain path, peak memory against the B=2 snapshot
+     arithmetic; the `_v5e_co` profile (NF4 MLPs + W8A8 panels, NF4 T5) from
+     a fresh seeded bf16 FLUX.1-dev at full width and depth: 2 candidates at 4
+     steps with exact K1/K2/K3/K5 counts (no K4), NF4 resident bytes, s/step
+     against W8A8 in turns, an NF4 linear of each packing against fp64 on its
+     decoded weight (NF4_REL_TOL) and the NF4 T5 encode's cosine against bf16.
 The training numbers are on the line {"train": {...}}, the ring phase's on
 {"ring": {...}}, the reflection round's on {"reflection_round": {...}}, the
 snapshot phase's on {"snapshot_load": {...}}, the round with models on
-{"reflection_round_models": {...}} and the NVILA round on
-{"nvila_round": {...}}; the line before the last is {"kernels": [...]}; the
-last line is {"ok": true, "device": {...}}.
+{"reflection_round_models": {...}}, the NVILA round on {"nvila_round":
+{...}} and phase 12's on {"vcache_nf4": {...}}; the line before the last is
+{"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -211,6 +230,7 @@ DIT_REL_TOL = 3e-2  # bf16 DiT forward, K1 vs plain attention, relative to max |
 NR_REL, NR_ABS = 7.9e-3, 1e-3  # K2: |err| <= NR_REL * |ref| + NR_ABS (two bf16 ulps)
 Q_SCALE_RTOL, Q_MISMATCH = 1e-5, 1e-3  # K3/K4: scale rtol; |dq| <= 1 on <= 0.1% of values
 W8A8_COS = 0.999  # full-width W8A8 DiT, fused path vs plain serving path
+NF4_REL_TOL = 1e-2  # phase 12: an NF4 linear's bf16 product vs fp64 on its decoded weight, of max |ref|
 K8_COS, K8_EXACT_ERR = 0.999, 0.05  # K8 against exact fp32 attention (the JAX test's bounds)
 K6_REL_TOL = 1e-2  # K6a/K6b: max |err| <= K6_REL_TOL * max |ref| for each of dQ, dK, dV
 TRAIN_STEPS = 3  # corrector training steps at TrainConfig defaults (B=8, 512 px, r=32)
@@ -223,6 +243,9 @@ RING = 4  # ring slots of the sequence-parallel phases (all on the one card)
 RING_TRAIN_STEPS, RING_DENOISE_STEPS = 2, 2
 RING_COS = 0.999  # ring denoise final latents against K1
 REFLECT_ROUNDS = 2  # reflection rounds of phase 8 (the fake preset's 16, cut)
+VC_STEPS = 30  # phase 12's static schedule and its dense baseline: the presets' 30 steps
+VC_STATIC = {"interval": 3, "warmup": 2, "tail": 1, "order": 2}  # 12 full forwards at 30 steps
+VC_NF4_STEPS = 4  # phase 12's NF4 profile generate
 # phase 9: the written snapshots' depth cuts (FLUX.1-dev has 19 + 38 DiT blocks and 24 T5 layers;
 # Qwen2.5-VL-7B 28 LM layers and 32 vision blocks) and the steps of its generate calls
 SNAP_DIT_BLOCKS, SNAP_T5_LAYERS, SNAP_STEPS = (2, 4), 2, 4
@@ -273,8 +296,10 @@ def device_phase(torch):
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    return card
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -1787,9 +1812,15 @@ def reflection_phase(torch, pipe, verifier=None, reflector=None, label="reflecti
     Phase 10 passes its Qwen2.5-VL `verifier` and `reflector` in place of the
     fake ones; phase 11 the NVILA preset (`preset`, its `impl` and
     micro-batches) with its verifier, and an `out_dir` of its own, which it
-    reads after the round and removes (else the run's directory is temporary)."""
+    reads after the round and removes (else the run's directory is temporary);
+    phase 12 the teacache preset, whose `vcache` the pipeline takes for the
+    round, as `load_pipeline` sets it. Each generate call's full forwards
+    (n_full, every step without a velocity cache) are read from `denoise`, and
+    the expected launch counts are n_full times the per-forward counts."""
     import contextlib
     import re
+
+    from reflectionflow_tpu_torch.sampler import pipeline as pipeline_mod
 
     from reflectionflow_tpu_torch.config import TTSConfig
     from reflectionflow_tpu_torch.reflect import FakeReflector, FakeRefiner
@@ -1818,10 +1849,16 @@ def reflection_phase(torch, pipe, verifier=None, reflector=None, label="reflecti
     pipe.attn_impl = impl
     pipe._embed_cache = None  # each run of the round starts with an empty prompt cache
     pipe.enable_prompt_cache()
+    pipe.vcache = pa.vcache
     rows = round_rows()
 
-    calls, encoded = [], []
-    generate, encode_raw = pipe.generate, pipe._encode_raw
+    calls, encoded, forwards = [], [], []
+    generate, encode_raw, denoise = pipe.generate, pipe._encode_raw, pipeline_mod.denoise
+
+    def denoise_counted(*a, **kw):
+        lat, n_full = denoise(*a, **kw, return_vcache_stats=True)
+        forwards.append(n_full)
+        return lat
 
     def generate_checked(prompts, **kw):
         conds = kw.get("conditions") or []
@@ -1836,14 +1873,14 @@ def reflection_phase(torch, pipe, verifier=None, reflector=None, label="reflecti
               f"reflection round: bad final latents {tuple(lat.shape)}")
         images = pipe.decode_latents(lat, kw["height"], kw["width"])
         calls.append({"prompts": list(prompts), "conditions": len(conds), "denoise_s": t1 - t0,
-                      "decode_s": time.perf_counter() - t1})
+                      "decode_s": time.perf_counter() - t1, "n_full": forwards[-1]})
         return images
 
     def encode_counted(pairs, length):
         encoded.append(list(pairs))
         return encode_raw(pairs, length)
 
-    pipe.generate, pipe._encode_raw = generate_checked, encode_counted
+    pipe.generate, pipe._encode_raw, pipeline_mod.denoise = generate_checked, encode_counted, denoise_counted
     timer = PhaseTimer()
     try:
         with contextlib.nullcontext(out_dir) if out_dir else tempfile.TemporaryDirectory() as out_dir:
@@ -1875,7 +1912,7 @@ def reflection_phase(torch, pipe, verifier=None, reflector=None, label="reflecti
                   and again == dps and mtimes == {p: os.path.getmtime(os.path.join(root, p)) for p in pngs},
                   "the second call on a finished run was not a resume no-op")
     finally:
-        pipe.generate, pipe._encode_raw = generate, encode_raw
+        pipe.generate, pipe._encode_raw, pipeline_mod.denoise, pipe.vcache = generate, encode_raw, denoise, None
 
     # the JAX artifact tree: every candidate at midimg/{round}_round@{seed}.png, 1024x1024x3
     want = {f"midimg/{round_image_name(r, s)}" for r in range(REFLECT_ROUNDS + 1)
@@ -1919,13 +1956,16 @@ def reflection_phase(torch, pipe, verifier=None, reflector=None, label="reflecti
     log(f"{label} prompt cache: {requested} embeddings read, {sum(misses)} misses encoded in "
         f"{len(misses)} batches {misses}, {requested - sum(misses)} hits; the resume run encoded nothing")
 
-    # launch counts from the block counts
+    # launch counts from the block counts and each call's full forwards
     per_t2i, per_cond = round_counts(pipe, impl)
+    n_t2i, n_cond = sum(c["n_full"] for c in t2i), sum(c["n_full"] for c in cond)
+    check(pa.vcache is not None or all(c["n_full"] == STEPS for c in calls),
+          f"{label}: a dense generate call ran {[c['n_full'] for c in calls]} forwards")
     expected = {name: 0 for name in launches}
     for name in per_t2i:
-        expected[name] = STEPS * (len(t2i) * per_t2i[name] + len(cond) * per_cond[name])
-    log(f"{label} launches {launches} (expected {expected}: {STEPS * len(t2i)} t2i forwards, "
-        f"{STEPS * len(cond)} conditioned forwards, B={micro})")
+        expected[name] = n_t2i * per_t2i[name] + n_cond * per_cond[name]
+    log(f"{label} launches {launches} (expected {expected}: {n_t2i} t2i forwards, {n_cond} conditioned "
+        f"forwards over {STEPS}-step calls, B={micro}; full forwards a call {[c['n_full'] for c in calls]})")
     check(launches == expected, f"the reflection round did not run the kernels of {impl!r} the expected number "
           "of times")
 
@@ -1940,6 +1980,7 @@ def reflection_phase(torch, pipe, verifier=None, reflector=None, label="reflecti
         split["rest_s"] = split["round_s"] - sum(split[k] for k in ("generate_s", "verify_s", "reflect_s",
                                                                       "refine_s"))
         split["host_share"] = 1.0 - split["generate_s"] / split["round_s"]
+        split["n_full"] = [c["n_full"] for c in mine]
         rounds.append(split)
         log(f"{label} {r + 1}: {split['round_s']:.3f} s = generate {split['generate_s']:.3f} "
             f"(denoise and encode {split['denoise_s']:.3f}, decode {split['decode_s']:.3f}) + verify "
@@ -1954,7 +1995,8 @@ def reflection_phase(torch, pipe, verifier=None, reflector=None, label="reflecti
         f"peak device memory {peak / 2**30:.2f} GiB")
     return {"rounds": rounds, "p50_s": p50, "round0_generate_s": spans["generate"][0], "block_s": wall,
             "phase_s": wall_phase, "peak_gib": peak / 2**30, "launches": launches,
-            "cache": {"read": requested, "misses": misses}, "note": note}
+            "cache": {"read": requested, "misses": misses}, "note": note,
+            "n_full": [c["n_full"] for c in calls]}
 
 
 def round_rows() -> list[dict]:
@@ -2693,6 +2735,199 @@ def nvila_phase(torch, pipe):
     return out
 
 
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def nf4_counts(pipe) -> dict:
+    """K1–K5 launches per t2i forward of the `_v5e_co` DiT (NF4 MLPs, W8A8
+    attention and modulation panels) under "pallas", from `dit.py`'s gates:
+    K1 once a block; K2 on each stream's q and k; K3 before the fused W8A8
+    qkv panels (two a double block) and `in_proj`; K5 before the double
+    blocks' two out-projections; none before an NF4 linear (fc1, fc2,
+    `out_mlp`) and none for the single blocks' `out_attn`, which the unfused
+    output path multiplies by itself, as JAX's `_single_out` does; no K4."""
+    nd, ns = pipe.dit_cfg.num_double_blocks, pipe.dit_cfg.num_single_blocks
+    return {"flash_fwd": nd + ns, "norm_rope": 4 * nd + 2 * ns, "adaln_quant": 2 * nd + ns, "rowquant": 2 * nd}
+
+
+def vcache_phase(torch, pipe):
+    """Phase 12: the velocity cache and the NF4 serving profile on the W8A8
+    pipeline ("pallas", 1024 px, 1 prompt x 2 candidates): (1) interval 1 is
+    bitwise the dense loop; (2) the static schedule at VC_STEPS steps (12 full
+    forwards) launches K1–K5 12 times a forward's counts, agrees with the plain
+    serving path (cosine >= W8A8_COS) and is timed against the dense denoise in
+    turns; (3) the teacache preset's schedule at STEPS steps launches n_full
+    forwards' worth and nothing on skip steps, then the preset's round (fake
+    verify, reflect and refine); (4) module mode at interval 3 launches only
+    on full steps, agrees with the plain path and prints its peak memory; (5)
+    the `_v5e_co` profile from a fresh seeded bf16 pipeline at full width and
+    depth: exact K1/K2/K3/K5 counts at VC_NF4_STEPS steps, resident bytes,
+    s/step against W8A8 in turns, an NF4 linear of each packing against fp64
+    on its decoded weight, and the NF4 T5 encode's cosine against bf16
+    (printed: through 24 random layers the rounding grows, so it is no
+    check)."""
+    from reflectionflow_tpu_torch.config import TTSConfig
+    from reflectionflow_tpu_torch.models.flux.rope import make_image_ids, make_text_ids
+    from reflectionflow_tpu_torch.ops.quant import NF4Linear, QuantLinear, int4_matmul, int4_matmul_plane
+    from reflectionflow_tpu_torch.sampler.generate import denoise, make_schedule, make_step_mask, vcache_kwargs
+    from reflectionflow_tpu_torch.sampler.pipeline import FluxPipeline
+
+    t_phase = time.perf_counter()
+    pipe.attn_impl, pipe.vcache = "pallas", None
+    nd, ns = pipe.dit_cfg.num_double_blocks, pipe.dit_cfg.num_single_blocks
+    per_forward = round_counts(pipe, "pallas")[0]
+    prompt = round_rows()[0]["prompt"]
+    txt, pooled = pipe.encode_prompts([prompt] * BRANCH, LT)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    lat0 = torch.randn((BRANCH, LI, pipe.dit_cfg.in_channels), generator=gen, device="cuda").to(torch.bfloat16)
+    side = math.isqrt(LI)
+    ids = (torch.from_numpy(make_image_ids(side, side)).cuda(), torch.from_numpy(make_text_ids(LT)).cuda())
+
+    def run(steps, kw, impl="pallas", dit=None, text=(txt, pooled)):
+        """-> (final latents, n_full, launches, seconds) of one denoise, every
+        launch count set to 0 just before and read just after."""
+        counters = zero_counts()
+        (lat, n_full), secs = _timed(torch, lambda: denoise(
+            pipe.dit if dit is None else dit, lat0, *text, *ids, make_schedule(steps, LI), 3.5, steps, attn_impl=impl,
+            rope_layout="split", return_vcache_stats=True, **kw))
+        return lat, n_full, {k: fn.launches for k, fn in counters.items()}, secs
+
+    def want(n_full, counts=per_forward):
+        return {k: n_full * counts.get(k, 0) for k in _counters()}
+
+    def cosine(a, b):
+        return torch.nn.functional.cosine_similarity(a.float().flatten(), b.float().flatten(), dim=0).item()
+
+    out = {}
+    # (1) every step full through the cached path: bitwise the dense loop
+    dense8, n8, l_dense, _ = run(STEPS, {})
+    every8, n_every, l_every, _ = run(STEPS, vcache_kwargs({"interval": 1}, STEPS))
+    check(n8 == n_every == STEPS and l_dense == l_every == want(STEPS) and torch.equal(dense8, every8),
+          "vcache interval 1 is not bitwise the dense loop")
+    log(f"vcache interval 1 ({STEPS} steps, B={BRANCH}): bitwise the dense latents; launches {l_every}")
+    out["interval1_bitwise"] = True
+
+    # (2) the static schedule at VC_STEPS steps, timed in turns with the dense denoise
+    kw = vcache_kwargs(VC_STATIC, VC_STEPS)
+    n_mask = int(make_step_mask(VC_STEPS, VC_STATIC["interval"], VC_STATIC["warmup"], VC_STATIC["tail"]).sum())
+    _, _, _, t_d1 = run(VC_STEPS, {})
+    cached, n_full, launches, t_c1 = run(VC_STEPS, kw)
+    _, _, _, t_c2 = run(VC_STEPS, kw)
+    _, _, _, t_d2 = run(VC_STEPS, {})
+    plain, n_plain, l_plain, _ = run(VC_STEPS, kw, impl="xla")
+    cos = cosine(cached, plain)
+    log(f"vcache static {VC_STATIC} at {VC_STEPS} steps: n_full {n_full} (mask {n_mask}), launches {launches}; "
+        f"cosine against the plain serving path {cos:.6f} (min {W8A8_COS}); denoise dense {t_d1:.3f} / "
+        f"{t_d2:.3f} s, cached {t_c1:.3f} / {t_c2:.3f} s (in turns): speedup "
+        f"{(t_d1 + t_d2) / (t_c1 + t_c2):.3f}x (forward ratio {VC_STEPS / n_mask:.3f})")
+    check(n_full == n_plain == n_mask == 12 and launches == want(n_full) and sum(l_plain.values()) == 0,
+          "the static schedule did not run K1–K5 on exactly its full steps")
+    check(bool(torch.isfinite(cached).all()) and cos >= W8A8_COS,
+          "the static schedule disagrees with the plain serving path")
+    out["static"] = {"vcache": VC_STATIC, "steps": VC_STEPS, "n_full": n_full, "launches": launches,
+                     "cosine_plain": cos, "dense_s": [t_d1, t_d2], "cached_s": [t_c1, t_c2],
+                     "speedup": (t_d1 + t_d2) / (t_c1 + t_c2)}
+
+    # (3) the teacache preset's schedule, then its round
+    preset = "flux.1_dev_qwenscore_v5e_teacache.json"
+    pa = TTSConfig.load(os.path.join(REPO, "configs", preset)).pipeline_args
+    check(pa.vcache.get("residual") and pa.vcache.get("poly") and pa.attn_impl == "pallas"
+          and pa.quantize == "int8", f"{preset} no longer asks for the TeaCache residual schedule under W8A8 pallas")
+    tea, n_tea, l_tea, t_tea = run(STEPS, vcache_kwargs(pa.vcache, STEPS))
+    log(f"vcache teacache preset {pa.vcache} at {STEPS} steps (B={BRANCH}): n_full {n_tea} (random weights: "
+        f"not predicted), launches {l_tea}, denoise {t_tea:.3f} s")
+    check(bool(torch.isfinite(tea).all()) and 2 <= n_tea <= STEPS and l_tea == want(n_tea),
+          "the teacache schedule's launches are not n_full forwards' worth (a skip step launched K1–K5)")
+    round_res = reflection_phase(torch, pipe, label="reflection round (teacache preset)",
+                                 note="the teacache preset's residual schedule; fake verify/reflect/refine",
+                                 preset=preset, impl="pallas")
+    out["teacache"] = {"vcache": pa.vcache, "steps": STEPS, "n_full": n_tea, "launches": l_tea,
+                       "denoise_s": t_tea, "round": round_res}
+
+    # (4) module mode (TaylorSeer per-module forecast) at interval 3
+    kw = vcache_kwargs({"interval": 3, "module": True}, STEPS)
+    n_mod_mask = int(kw["step_mask"].sum())
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mod, n_mod, l_mod, t_mod = run(STEPS, kw)
+    peak = torch.cuda.max_memory_allocated()
+    mod_plain, _, _, _ = run(STEPS, kw, impl="xla")
+    cos_mod = cosine(mod, mod_plain)
+    snap_gb = BRANCH * (nd * 2 * (LI + LT) + ns * (LT + LI)) * H * 2 / 1e9
+    log(f"vcache module mode (interval 3) at {STEPS} steps: n_full {n_mod}, launches {l_mod}, denoise "
+        f"{t_mod:.3f} s; cosine against the plain serving path {cos_mod:.6f}; peak device memory "
+        f"{peak / 2**30:.2f} GiB ({(peak - base) / 1e9:.2f} GB above the {base / 2**30:.2f} GiB resident), "
+        f"one B={BRANCH} module snapshot {snap_gb:.2f} GB bf16 (the port holds up to 3)")
+    check(n_mod == n_mod_mask and l_mod == want(n_mod) and bool(torch.isfinite(mod).all()) and cos_mod >= W8A8_COS,
+          "module mode launched on a skip step or disagrees with the plain serving path")
+    out["module"] = {"n_full": n_mod, "launches": l_mod, "denoise_s": t_mod, "cosine_plain": cos_mod,
+                     "peak_gib": peak / 2**30, "above_resident_gb": (peak - base) / 1e9,
+                     "snapshot_gb": snap_gb}
+    del dense8, every8, cached, plain, tea, mod, mod_plain
+    torch.cuda.empty_cache()
+
+    # (5) the `_v5e_co` profile from a fresh seeded bf16 pipeline at full size
+    t0 = time.perf_counter()
+    co = FluxPipeline.random_init(torch.Generator(device="cuda").manual_seed(13), pipe.dit_cfg, pipe.vae_cfg,
+                                  pipe.t5_cfg, pipe.clip_cfg, dtype=torch.bfloat16)
+    co.attn_impl = "pallas"
+    t5_bf16, _ = co.encode_prompts([prompt] * BRANCH, LT)
+    co.quantize(int4=("t5",), dit_int4_mlp=True)  # the CLI's int8 profile with dit_quant int8_int4mlp
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    co_txt, co_pooled = co.encode_prompts([prompt] * BRANCH, LT)
+    t5_cos = cosine(co_txt, t5_bf16)
+    kinds = {}
+    for name, model in (("dit", co.dit), ("t5", co.t5)):
+        nf4 = [m for m in model.modules() if isinstance(m, NF4Linear)]
+        i8 = [m for m in model.modules() if isinstance(m, QuantLinear)]
+        kinds[name] = {"nf4": len(nf4), "int8": len(i8),
+                       "gib": sum(t.numel() * t.element_size() for t in (*model.parameters(), *model.buffers()))
+                       / 2**30}
+    check(kinds["dit"]["nf4"] == 4 * nd + ns and kinds["t5"]["nf4"] == 7 * co.t5_cfg.num_layers,
+          f"the _v5e_co profile's NF4 layers {kinds}")
+    nf4_lat, n_nf4, l_nf4, _ = run(VC_NF4_STEPS, {}, dit=co.dit, text=(co_txt, co_pooled))
+    check(n_nf4 == VC_NF4_STEPS and l_nf4 == want(VC_NF4_STEPS, nf4_counts(co)) and bool(torch.isfinite(nf4_lat).all()),
+          f"the NF4 profile's launches {l_nf4} are not {want(VC_NF4_STEPS, nf4_counts(co))}")
+    images = co.generate([prompt] * BRANCH, height=2 * LT, width=2 * LT, num_inference_steps=VC_NF4_STEPS, seed=0)
+    check(images.shape == (BRANCH, 2 * LT, 2 * LT, 3), f"NF4 generate images {images.shape}")
+    ms = _turns_ms(torch, {"w8a8": lambda: run(VC_NF4_STEPS, {}), "nf4": lambda: run(
+        VC_NF4_STEPS, {}, dit=co.dit, text=(co_txt, co_pooled))}, 2)
+    step_s = {k: statistics.mean(v) / 1e3 / VC_NF4_STEPS for k, v in ms.items()}
+    log(f"NF4 _v5e_co profile (full width and depth; built and quantized in {t_build:.1f} s): DiT "
+        f"{kinds['dit']['nf4']} NF4 + {kinds['dit']['int8']} int8 linears, {kinds['dit']['gib']:.2f} GiB; T5 "
+        f"{kinds['t5']['nf4']} NF4 + {kinds['t5']['int8']} int8, {kinds['t5']['gib']:.2f} GiB; launches at "
+        f"{VC_NF4_STEPS} steps {l_nf4}; s/step at B={BRANCH} NF4 {step_s['nf4']:.4f} against W8A8 "
+        f"{step_s['w8a8']:.4f} (in turns, {ms}); T5 NF4 encode cosine against bf16 {t5_cos:.6f}")
+    # each NF4 packing's product on the card against fp64 on the decoded weight
+    errs = {}
+    for name, lin in (("dit fc1", co.dit.transformer_blocks[0].ff.net[0].proj), ("t5 wo", co.t5.encoder.block[0]
+                                                                               .layer[1].DenseReluDense.wo)):
+        x = torch.randn((BRANCH * LT, lin.in_features), generator=gen, device="cuda").to(torch.bfloat16)
+        mm = int4_matmul_plane if lin.layout == "plane" else int4_matmul
+        ref = mm(x.double(), lin.w_packed, lin.w_scale4)
+        ref = ref if lin.bias is None else ref + lin.bias.double()
+        with torch.no_grad():
+            errs[name] = ((lin(x).double() - ref).abs().max() / ref.abs().max()).item()
+    log(f"NF4 linears on the card against fp64 on their decoded weights: max |err| / max |ref| {errs} "
+        f"(limit {NF4_REL_TOL})")
+    check(math.isfinite(t5_cos) and all(e <= NF4_REL_TOL for e in errs.values()),
+          f"an NF4 linear disagrees with its decoded weight: {errs}")
+    out["nf4"] = {"depth": "full", "build_s": t_build, "kinds": kinds, "launches": l_nf4, "steps": VC_NF4_STEPS,
+                  "s_per_step": step_s, "ms": ms, "t5_cosine": t5_cos, "linear_rel_err": errs}
+    del co, nf4_lat
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"vcache and NF4 phase (12): {out['phase_s']:.1f} s")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, res, main_shape, other_shape):
     return {"name": name, "route": "cuda", "source": f"reflectionflow_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": res["err"],
@@ -2704,7 +2939,7 @@ def kernel_entry(name, source, replaces, launches, res, main_shape, other_shape)
 def main() -> int:
     import torch
 
-    device_phase(torch)
+    card = device_phase(torch)
     sys.path.insert(0, REPO)
     from reflectionflow_tpu_torch.ops import kernel_build
 
@@ -2740,6 +2975,7 @@ def main() -> int:
     snapshot = snapshot_phase(torch)
     round_models = reflection_models_phase(torch, pipe)
     nvila = nvila_phase(torch, pipe)
+    vcache = vcache_phase(torch, pipe)
     step = {name: calls[-1]["denoise_s"] / STEPS for name, calls in (("bf16", bf16_calls),
                                                                       ("w8a8", w8_calls))}
     step.update({f"corrector_{impl}": corrector[impl]["s_per_step"] for impl in ("pallas_nr", "pallas_int8")})
@@ -2820,6 +3056,12 @@ def main() -> int:
     kernels[0]["by_shape"][f"B={K1_PRESET[0]} L={K1_PRESET[1]}"] = nvila["k1_preset"]
     for k in kernels:
         k["launches_round_nvila"] = nvila["round"]["launches"][k["name"]]
+    for k in kernels:
+        k["launches_vcache_static"] = vcache["static"]["launches"][k["name"]]
+        k["launches_vcache_teacache"] = vcache["teacache"]["launches"][k["name"]]
+        k["launches_round_teacache"] = vcache["teacache"]["round"]["launches"][k["name"]]
+        k["launches_vcache_module"] = vcache["module"]["launches"][k["name"]]
+        k["launches_nf4"] = vcache["nf4"]["launches"][k["name"]]
     k9 = next(k for k in kernels if k["name"] == "flash_fwd_nr")
     k9["launches_round"] = reflection["launches"]["flash_fwd_nr"]
     k9["launches_round_models"] = round_models["launches"]["flash_fwd_nr"]
@@ -2830,11 +3072,13 @@ def main() -> int:
     log(json.dumps({"snapshot_load": snapshot}))
     log(json.dumps({"reflection_round_models": round_models}))
     log(json.dumps({"nvila_round": nvila}))
+    log(json.dumps({"vcache_nf4": vcache}))
     log(json.dumps({"ring": {"attention": ring["attention"],
                              "train": {k: ring["train"][k] for k in ("s_per_step", "peak_gib", "launches",
                                                                       "grad_cosine_min", "grad_cosine")},
                              "denoise": ring["denoise"]}}))
     total = time.perf_counter() - t_start
+    log(card)  # again beside the summary lines, which a log's tail keeps
     log(f"chip_smoke: {total:.1f} s after the device check, of which the ring phases (3c, 5d) "
         f"{t_k7 + t_ring:.1f} s")
     log(json.dumps({"kernels": kernels, "hopper_sass": hopper_sass, "s_per_step": step,

@@ -2,9 +2,11 @@
 
 Counterpart of `reflectionflow_tpu/cli/common.py`, with the same flags. The
 port runs the bf16 text-to-image path and, with `--quantize int8`, the W8A8
-serving profile, with or without the corrector's condition stream, and builds
-the search loops' verifier, reflector and refiner from the config; options
-that select later ROADMAP slices raise `NotImplementedError` naming the slice.
+serving profile (or, by `pipeline_args.dit_quant` / `t5_quant`, its NF4
+co-residency profiles), with or without the corrector's condition stream and
+the velocity cache (`pipeline_args.vcache`), and builds the search loops'
+verifier, reflector and refiner from the config; options that select later
+ROADMAP slices raise `NotImplementedError` naming the slice.
 
 The pipeline is `FluxPipeline.from_pretrained` of the config's
 `pretrained_model_name_or_path`, a local diffusers snapshot, or with
@@ -30,7 +32,6 @@ import torch
 
 from ..config import CLIPTextConfig, FluxDiTConfig, FluxVAEConfig, T5Config, TTSConfig
 from ..ops.attention import check_impl
-from ..ops.quant import NF4_NOT_PORTED
 from ..reflect import load_reflector, load_refiner
 from ..sampler.pipeline import FluxPipeline
 from ..verifiers import load_verifier
@@ -89,7 +90,8 @@ def build_parser(description: str) -> argparse.ArgumentParser:
         "the *_interpret impls have no CUDA counterpart and raise",
     )
     p.add_argument("--quantize", type=str, default=None, choices=["none", "int8"],
-                   help="int8: W8A8 DiT in the fused split-RoPE serving layout + w8a16 T5; "
+                   help="int8: W8A8 DiT in the fused split-RoPE serving layout + w8a16 T5 (NF4 "
+                   "MLPs and T5 by pipeline_args.dit_quant/t5_quant); "
                    "unset -> the config's pipeline_args.quantize; none turns it off")
     p.add_argument("--phase_swap", action="store_true",
                    help="not ported: text-encoder offload is a 16 GB-device measure")
@@ -133,9 +135,10 @@ def print_throughput(timer, pipe) -> None:
         print(f"candidates/sec/chip: {rate:.4f} ({timer.counts['candidates']} candidates, 1 chip(s))")
 
 
-def _int8_profile(pa) -> None:
-    """Validate the int8 serving profile's t5_quant/dit_quant as the JAX CLI
-    does; the NF4 profiles (ROADMAP item 12) raise NotImplementedError."""
+def _int8_profile(pa) -> tuple[str, bool]:
+    """The int8 serving profile's T5 mode ("int8" w8a16 or "int4" NF4) and
+    whether the DiT's MLPs go NF4, from t5_quant/dit_quant with the JAX CLI's
+    defaults and errors."""
     t5_mode, dit_mode = pa.t5_quant, pa.dit_quant
     if t5_mode not in (None, "int4", "int8"):
         raise ValueError(
@@ -145,15 +148,16 @@ def _int8_profile(pa) -> None:
         raise ValueError(
             f"pipeline_args.dit_quant={dit_mode!r}: expected 'int8' (full "
             "W8A8 + phase swap) or 'int8_int4mlp' (NF4 MLP co-residency)")
-    if dit_mode == "int8_int4mlp" and t5_mode == "int8":
+    int4mlp = dit_mode == "int8_int4mlp"
+    if int4mlp and t5_mode == "int8":
         raise ValueError(
             "pipeline_args.t5_quant='int8' cannot combine with "
             "dit_quant='int8_int4mlp': the 4.8 GB w8a16 T5 does not "
             "co-reside with the DiT on 16 GB — use t5_quant='int4' or "
             "leave it unset")
-    if dit_mode == "int8_int4mlp" or t5_mode == "int4":
-        raise NotImplementedError(
-            f"dit_quant={dit_mode!r}, t5_quant={t5_mode!r}: {NF4_NOT_PORTED}")
+    if t5_mode is None:  # the profile's default: NF4 T5 beside NF4 MLPs, else w8a16
+        t5_mode = "int4" if int4mlp else "int8"
+    return t5_mode, int4mlp
 
 
 def apply_lora_path(pipe: FluxPipeline, cfg: TTSConfig, args) -> None:
@@ -181,7 +185,7 @@ def load_pipeline(cfg: TTSConfig, args, rewrites_prompts: bool = False) -> FluxP
     cli_quant = getattr(args, "quantize", None)
     quantize = pa.quantize if cli_quant is None else (None if cli_quant == "none" else cli_quant)
     if quantize == "int8":
-        _int8_profile(pa)
+        t5_mode, int4mlp = _int8_profile(pa)
     elif cli_quant is None and (pa.t5_quant or pa.dit_quant != "int8"):
         # the quant fields only act under quantize="int8": set without it, the
         # profile is misconfigured; an explicit --quantize none is allowed
@@ -192,8 +196,6 @@ def load_pipeline(cfg: TTSConfig, args, rewrites_prompts: bool = False) -> FluxP
     if getattr(args, "phase_swap", False):
         raise NotImplementedError("--phase_swap offloads text encoders for 16 GB devices; "
                                   "it is on the ROADMAP's do-not-port list")
-    if pa.vcache:
-        raise NotImplementedError("the velocity cache is ROADMAP slice 5, item 20")
     attn_impl = args.attn_impl or pa.attn_impl or "xla"
     check_impl(attn_impl)
     if args.synthetic_weights:
@@ -202,13 +204,15 @@ def load_pipeline(cfg: TTSConfig, args, rewrites_prompts: bool = False) -> FluxP
         pipe = FluxPipeline.from_pretrained(cfg.pretrained_model_name_or_path, dtype=pa.dtype, device=device)
     pipe.attn_impl = attn_impl
     pipe.vae_tiling = pa.vae_tiling
+    pipe.vcache = pa.vcache
     pipe.model_flags = {"union_cond_attn": cfg.model.union_cond_attn,
                         "add_cond_attn": cfg.model.add_cond_attn}
     apply_lora_path(pipe, cfg, args)  # before quantize: the fold needs float weights
     if quantize == "int8":
-        # the JAX int8 profile; T5 stays resident (no phase swap)
+        # the JAX int8 profiles; T5 stays resident (no phase swap)
         pipe.quantize(act_quant_exclude=tuple(getattr(args, "act_quant_exclude", None) or ()),
-                      int4=(), weight_only=("t5",))
+                      int4=("t5",) if t5_mode == "int4" else (),
+                      weight_only=("t5",) if t5_mode == "int8" else (), dit_int4_mlp=int4mlp)
         # co-resident profile: no swap, but each prompt is encoded once
         pipe.enable_prompt_cache()
     return pipe

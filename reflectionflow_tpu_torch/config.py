@@ -268,10 +268,9 @@ class PipelineArgs:
     torch_dtype: str = "bf16"  # reference key name; maps through DTYPE_MAP
     lora_path: Optional[str] = None
     image_guidance_scale: float = 1.0
-    # The port serves quantize="int8" (W8A8 DiT + w8a16 T5) and attn_impl
-    # since its second slice, vae_tiling since its slice with from_pretrained;
-    # cli/common.py rejects the NF4 profiles (t5_quant="int4",
-    # dit_quant="int8_int4mlp") and vcache, naming the ROADMAP item of each.
+    # The port serves quantize="int8" (W8A8 DiT + w8a16 T5, or the NF4
+    # profiles t5_quant="int4" / dit_quant="int8_int4mlp"), attn_impl,
+    # vae_tiling and the velocity cache (vcache, sampler/generate.py).
     quantize: Optional[str] = None  # "int8": W8A8 DiT + quantized T5
     attn_impl: Optional[str] = None  # "xla" (plain) | "pallas" (K1) | "pallas_nr" (K9) | "pallas_int8" (K8)
     t5_quant: Optional[str] = None  # "int8" (w8a16) | "int4" (NF4), under quantize="int8"

@@ -9,6 +9,14 @@ view, `lora/lora.py`), per-block recomputation for training (`remat`), and
 attention through `ops.attention.joint_attention`, whose "pallas" impl is
 kernel K1 forward and K6a/K6b backward and whose "pallas_int8" impl is K8.
 
+The velocity cache's hooks (`sampler/generate.py`) live here too: the skip
+signal `flux_mod_signal`, the TeaCache skip step `flux_residual_decode` over
+the image-stream residual that `forward(return_img_residual=True)` returns,
+and the TaylorSeer module cache: `forward(return_module_outs=True)` returns
+every block's pre-gate module outputs, and `forward(module_cache=...)` runs
+the glue only (fresh AdaLN gates, residual adds, output head) on forecast
+ones, no attention or MLP.
+
 Parameter names follow diffusers' FluxTransformer2DModel
 (`transformer_blocks.{i}.attn.to_q`, `norm1.linear`, ...), the names
 `reflectionflow_tpu/utils/hf_convert.py::convert_flux_dit_state` reads, so a
@@ -311,16 +319,26 @@ class DoubleBlock(nn.Module):
         self.ff_context = _FeedForward(cfg.hidden_size, cfg.mlp_hidden)
 
     def forward(self, img, txt, temb, rope, flags, attn_impl, cond=None, cond_temb=None,
-                rope_cond=None, attn_kw=None, bc=None, nr_rope=None):
+                rope_cond=None, attn_kw=None, bc=None, nr_rope=None, modules=None,
+                return_modules=False):
         """One block; with `cond` the cond stream runs beside [txt | img] in the
         joint attention, reading block `bc` (this block, or its LoRA view).
         `nr_rope` (the joint tables, when `_nr_attn_gate` holds) takes the K9
-        route."""
+        route. `modules` (img_attn, txt_attn, img_mlp, txt_mlp), forecast
+        pre-gate outputs, make a TaylorSeer skip step: only the gates from this
+        `temb` and the residual adds run. `return_modules` also returns the
+        four pre-gate outputs of a full step."""
         cfg, a = self.cfg, self.attn
         fast = flags["fast_qk"]
         # modulation order: shift, scale, gate for attention, then for the MLP
         i_sh1, i_sc1, i_g1, i_sh2, i_sc2, i_g2 = self.norm1(temb)
         t_sh1, t_sc1, t_g1, t_sh2, t_sc2, t_g2 = self.norm1_context(temb)
+        if modules is not None:
+            ia, ta, im, tm = modules
+            dt = img.dtype
+            img = img + i_g1[:, None, :] * ia.to(dt) + i_g2[:, None, :] * im.to(dt)
+            txt = txt + t_g1[:, None, :] * ta.to(dt) + t_g2[:, None, :] * tm.to(dt)
+            return img, txt, cond
         Lt = txt.shape[1]
         nr_fuse = nr_rope is not None
         nr = not nr_fuse and _nr_gate(flags, attn_impl, rope)
@@ -376,12 +394,15 @@ class DoubleBlock(nn.Module):
                 if cond.shape[1] != img.shape[1]:
                     raise ValueError("add_cond_attn requires L_cond == L_img")
                 img = img + gated
-        img = img + i_g2[:, None, :] * _mlp_apply(self.ff, img, i_sh2, i_sc2, flags, attn_impl, fast)
-        txt = txt + t_g2[:, None, :] * _mlp_apply(self.ff_context, txt, t_sh2, t_sc2, flags,
-                                                  attn_impl, fast)
+        img_mlp = _mlp_apply(self.ff, img, i_sh2, i_sc2, flags, attn_impl, fast)
+        txt_mlp = _mlp_apply(self.ff_context, txt, t_sh2, t_sc2, flags, attn_impl, fast)
+        img = img + i_g2[:, None, :] * img_mlp
+        txt = txt + t_g2[:, None, :] * txt_mlp
         if cond is not None:
             cond = cond + c_g2[:, None, :] * _mlp_apply(bc.ff, cond, c_sh2, c_sc2, flags,
                                                         attn_impl, fast)
+        if return_modules:
+            return img, txt, cond, (img_attn, txt_attn, img_mlp, txt_mlp)
         return img, txt, cond
 
 
@@ -431,8 +452,14 @@ class SingleBlock(nn.Module):
         return self.proj_out(torch.cat([attn_out, val], dim=-1))
 
     def forward(self, hidden, temb, rope, flags, attn_impl, cond=None, cond_temb=None,
-                rope_cond=None, attn_kw=None, bc=None, nr_rope=None):
+                rope_cond=None, attn_kw=None, bc=None, nr_rope=None, modules=None,
+                return_modules=False):
+        """One block; `modules` (the forecast pre-gate output) makes a
+        TaylorSeer skip step, `return_modules` also returns the pre-gate
+        output, as in `DoubleBlock`."""
         sh, sc, gate = self.norm(temb)
+        if modules is not None:
+            return hidden + gate[:, None, :] * modules.to(hidden.dtype), cond
         nr_fuse = nr_rope is not None
         nr = not nr_fuse and _nr_gate(flags, attn_impl, rope)
         q, k, v, mlp_ctx = self._stream_in(hidden, sh, sc, flags, attn_impl,
@@ -460,6 +487,8 @@ class SingleBlock(nn.Module):
         if cond is not None:
             cond = cond + c_gate[:, None, :] * bc._stream_out(outs[1].flatten(2), c_ctx, flags,
                                                               attn_impl)
+        if return_modules:
+            return hidden, cond, out
         return hidden, cond
 
 
@@ -562,9 +591,9 @@ class FluxDiT(nn.Module):
         controlnet_block_samples=None,
         controlnet_single_block_samples=None,
         return_img_residual: bool = False,
-        module_cache=None,
-        return_module_outs: bool = False,
-    ) -> torch.Tensor:
+        module_cache: dict | None = None,  # skip step: forecast module outputs per block
+        return_module_outs: bool = False,  # full step: also return the module outputs
+    ):
         """Predict the rectified-flow velocity (B, L_img, in_channels).
 
         `cond` adds the condition token stream: it shares the image-stream
@@ -582,9 +611,32 @@ class FluxDiT(nn.Module):
 
         `rope_layout="split"` is the serving layout: it needs q/k permuted by
         `ops.fuse.permute_rope_layout` and runs the storage-dtype QK-norm,
-        AdaLN and RoPE of the JAX package's serving forward."""
-        if return_img_residual or module_cache is not None or return_module_outs:
-            raise NotImplementedError("velocity-cache modes are ROADMAP slice 5, item 20")
+        AdaLN and RoPE of the JAX package's serving forward.
+
+        `return_img_residual=True` also returns the image-stream residual
+        across the blocks (post-blocks hidden minus the `img_in` embedding,
+        (B, L_img, hidden), model dtype): TeaCache's cached quantity, which
+        `flux_residual_decode` consumes on skipped steps.
+
+        `return_module_outs=True` also returns the TaylorSeer cache, every
+        block's pre-gate module outputs, stacked per block:
+        {"double": (img_attn, txt_attn, img_mlp, txt_mlp) each (Nd, B, L, H),
+        "single": (Ns, B, L_txt + L_img, H)}. `module_cache=` takes the same
+        structure, whose leaves may be any objects that give block i's
+        outputs at `[i]` (the sampler forecasts one block at a time), and
+        runs the glue only. Module mode is plain t2i: it raises ValueError with
+        the cond stream, ControlNet residuals, `return_img_residual` or
+        `remat` (the JAX package drops `remat` there without a word).
+
+        Returns (B, L_img, in_channels), with the residual or the module
+        cache as a second value when asked."""
+        module_mode = return_module_outs or module_cache is not None
+        if module_mode and (cond is not None or controlnet_block_samples is not None
+                            or controlnet_single_block_samples is not None or return_img_residual):
+            raise ValueError("module cache covers the plain t2i path (no cond/controlnet streams, "
+                             "not combinable with return_img_residual)")
+        if module_mode and remat:
+            raise ValueError("module cache is a serving path: remat=True does not apply to it")
         if controlnet_block_samples is not None or controlnet_single_block_samples is not None:
             raise NotImplementedError("ControlNet residuals are ROADMAP slice 3, item 14")
         check_impl(attn_impl)
@@ -606,6 +658,7 @@ class FluxDiT(nn.Module):
         flags = {"fast_qk": split, "add_cond_attn": add_cond_attn}
         dtype = img.dtype
         img = self.x_embedder(img)
+        img_embed = img if return_img_residual else None
         txt = self.context_embedder(txt)
         temb = self.time_text_embed_apply(pooled, timestep, guidance, dtype)
         rope = self.rope(torch.cat([txt_ids, img_ids], dim=0), split, dtype)
@@ -641,17 +694,66 @@ class FluxDiT(nn.Module):
             return block(*args)
 
         tail = (cond_temb, rope_cond, attn_kw)
+        if return_module_outs:  # block i's pre-gate outputs land in slice i
+            Nd, Ns = len(self.transformer_blocks), len(self.single_transformer_blocks)
+            d_mods = tuple(x.new_empty((Nd, *x.shape)) for x in (img, txt, img, txt))
+            s_mods = img.new_empty((Ns, img.shape[0], txt.shape[1] + img.shape[1], img.shape[2]))
         for i, block in enumerate(self.transformer_blocks):
-            bc = cp.transformer_blocks[i] if use_cond else None
-            img, txt, cond_h = run(block, img, txt, temb, rope, flags, attn_impl, cond_h, *tail, bc,
-                                   nr_rope)
+            if module_cache is not None:
+                img, txt, _ = block(img, txt, temb, rope, flags, attn_impl,
+                                    modules=tuple(a[i] for a in module_cache["double"]))
+            elif return_module_outs:
+                img, txt, _, mods = block(img, txt, temb, rope, flags, attn_impl, nr_rope=nr_rope,
+                                          return_modules=True)
+                for buf, m in zip(d_mods, mods):
+                    buf[i] = m
+            else:
+                bc = cp.transformer_blocks[i] if use_cond else None
+                img, txt, cond_h = run(block, img, txt, temb, rope, flags, attn_impl, cond_h, *tail,
+                                       bc, nr_rope)
         hidden = torch.cat([txt, img], dim=1)
         for i, block in enumerate(self.single_transformer_blocks):
-            bc = cp.single_transformer_blocks[i] if use_cond else None
-            hidden, cond_h = run(block, hidden, temb, rope, flags, attn_impl, cond_h, *tail, bc,
-                                 nr_rope)
+            if module_cache is not None:
+                hidden, _ = block(hidden, temb, rope, flags, attn_impl,
+                                  modules=module_cache["single"][i])
+            elif return_module_outs:
+                hidden, _, s_mods[i] = block(hidden, temb, rope, flags, attn_impl, nr_rope=nr_rope,
+                                             return_modules=True)
+            else:
+                bc = cp.single_transformer_blocks[i] if use_cond else None
+                hidden, cond_h = run(block, hidden, temb, rope, flags, attn_impl, cond_h, *tail, bc,
+                                     nr_rope)
         img = hidden[:, txt.shape[1]:]
+        resid = img - img_embed if return_img_residual else None
         # final AdaLN: scale first, then shift
         sc, sh = self.norm_out(temb)
         img = layer_norm(img) * (1.0 + sc[:, None, :]) + sh[:, None, :]
-        return self.proj_out(img)
+        out = self.proj_out(img)
+        if return_module_outs:
+            return out, {"double": d_mods, "single": s_mods}
+        return (out, resid) if return_img_residual else out
+
+
+def flux_mod_signal(dit: FluxDiT, img, pooled, timestep, guidance=None) -> torch.Tensor:
+    """The velocity cache's skip signal: block 0's AdaLN-modulated image-stream
+    input (TeaCache, arXiv 2411.19108, applied to FLUX), (B, L_img, hidden).
+    `img_in`, the conditioning embedding, block 0's `img_mod` shift and scale,
+    and the plain (non-serving) modulate, in any layout; it runs on whatever
+    linears the model holds (float, W8A8, NF4)."""
+    dtype = img.dtype
+    h = dit.x_embedder(img)
+    temb = dit.time_text_embed_apply(pooled, timestep, guidance, dtype)
+    sh1, sc1 = dit.transformer_blocks[0].norm1(temb)[:2]
+    return _modulate(h, sh1, sc1, fast=False)
+
+
+def flux_residual_decode(dit: FluxDiT, img, resid, pooled, timestep, guidance=None) -> torch.Tensor:
+    """TeaCache's skip step: a fresh `img_in` embedding of the current latents
+    plus the cached image-stream residual, then the live final AdaLN and
+    projection. (B, L_img, in_channels)."""
+    dtype = img.dtype
+    h = dit.x_embedder(img) + resid.to(dtype)
+    temb = dit.time_text_embed_apply(pooled, timestep, guidance, dtype)
+    sc, sh = dit.norm_out(temb)
+    h = layer_norm(h) * (1.0 + sc[:, None, :]) + sh[:, None, :]
+    return dit.proj_out(h)

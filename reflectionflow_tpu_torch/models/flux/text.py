@@ -5,8 +5,9 @@ parameters under transformers' names (`encoder.block.{i}.layer.0.SelfAttention.q
 `text_model.encoder.layers.{i}.self_attn.q_proj`, ...), the names
 `reflectionflow_tpu/utils/hf_convert.py::convert_t5_state` and
 `convert_clip_text_state` read; `t5_encode` and `clip_text_encode` compute.
-T5's linears may be `ops.quant.QuantLinear`s (the w8a16 serving profile), as
-the JAX T5 runs its matmuls through `dit.linear`.
+T5's linears may be `ops.quant.QuantLinear`s (the w8a16 serving profile) or
+`ops.quant.NF4Linear`s (the NF4 co-residency profile, `quantize_params_int4`),
+as the JAX T5 runs its matmuls through `dit.linear`.
 """
 
 from __future__ import annotations

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from ..models.flux.rope import rope_split_perm
-from .quant import QuantLinear
+from .quant import NF4Linear, QuantLinear
 
 
 def _cat_linears(parts: list[nn.Linear]) -> nn.Linear:
@@ -113,7 +113,7 @@ def permute_rope_layout(dit: nn.Module) -> nn.Module:
     on a model already permuted."""
     if dit.rope_layout == "split":
         raise ValueError("permute_rope_layout: the model is already in the split layout")
-    if any(isinstance(m, QuantLinear) for m in dit.modules()):
+    if any(isinstance(m, (QuantLinear, NF4Linear)) for m in dit.modules()):
         raise ValueError("permute_rope_layout: the model holds quantized linears; "
                          "apply load-time fusions BEFORE quantization")
     D = dit.cfg.head_dim

@@ -9,8 +9,11 @@ conditioned generate of the FLUX-Corrector (the cond stream reads
 `lora.make_dit_param_views`) and image CFG; and the bounded prompt-embedding
 cache (`enable_prompt_cache`); `vae_tiling` encodes and decodes in tiles.
 `from_pretrained` loads a local diffusers snapshot (`utils/hf_loader.py`).
-NF4 is a later ROADMAP slice; the phase swap is on its do-not-port list (the
-card holds the int8 DiT and T5 together).
+`quantize` makes the W8A8 serving layout, with the NF4 profiles (packed NF4
+MLPs, NF4 T5) when asked; the phase swap is on the ROADMAP's do-not-port list
+(the card holds the int8 DiT and T5 together). `vcache` opts into the velocity
+cache (`generate.vcache_kwargs`: static, TeaCache-dynamic, Taylor, residual
+and module modes).
 """
 
 from __future__ import annotations
@@ -28,10 +31,9 @@ from ..models.flux.latents import draw_packed_noise, latent_tokens, unpack_laten
 from ..models.flux.rope import make_image_ids, make_text_ids
 from ..models.flux.text import CLIPTextEncoder, T5Encoder, clip_text_encode, t5_encode
 from ..models.flux.vae import FluxVAE, vae_decode, vae_decode_tiled
-from ..ops.quant import NF4_NOT_PORTED
 from ..utils.tokenizers import load_tokenizer
 from .condition import Condition, encode_conditions
-from .generate import denoise, make_schedule
+from .generate import denoise, make_schedule, vcache_kwargs
 
 # std of the normal init of each embedding table (the JAX package's recipe)
 _EMBED_STD = {
@@ -93,6 +95,9 @@ class FluxPipeline:
     model_flags: dict = field(default_factory=dict)  # union_cond_attn / add_cond_attn
     cond_dit_params: FluxDiT | None = None  # LoRA-folded model the cond stream reads
     vae_tiling: bool = False  # diffusers enable_vae_tiling: 512 px tiles for encode and decode
+    # opt-in velocity cache (PipelineArgs.vcache): {"interval": k} static schedule or
+    # {"threshold": x} TeaCache-style dynamic skipping (generate.vcache_kwargs)
+    vcache: dict | None = None
     # prompt-embedding cache, ((clip_prompt, t5_prompt), L) -> host (txt, pooled);
     # None until enable_prompt_cache()
     _embed_cache: dict | None = field(default=None, repr=False)
@@ -153,22 +158,23 @@ class FluxPipeline:
         weight_only: tuple[str, ...] = (),
         dit_int4_mlp: bool = False,
         min_size: int = 1 << 20,
+        int4_group: int = 128,
     ) -> "FluxPipeline":
-        """Quantize the big models in place on their device: `which` models go
-        int8 W8A8, `weight_only` ones int8 w8a16. The DiT's q/k/v panels are
-        always fused and permuted to the split RoPE layout first (`ops.fuse`),
-        the only layout the fused kernels serve. `cond_dit_params`, when set,
-        gets the same layout and, with "dit" in `which`, the same W8A8
+        """Quantize the big models in place on their device, as the JAX
+        `FluxPipeline.quantize`: `which` models go int8 W8A8, `weight_only`
+        ones int8 w8a16, `int4` ones (not in the other two) packed NF4 (w4a16,
+        the plane packing, groups of 128). The DiT's q/k/v panels are always
+        fused and permuted to the split RoPE layout first (`ops.fuse`), the
+        only layout the fused kernels serve. `dit_int4_mlp` packs the DiT's MLP
+        linears NF4 in groups of `int4_group` (the co-residency profile; the
+        attention and modulation panels stay W8A8). `cond_dit_params`, when
+        set, gets the same layout and, with "dit" in `which`, the same
         quantization (fold LoRA views into it before this call, as the JAX CLI
-        does). `int4` / `dit_int4_mlp` (NF4) are ROADMAP item 12 and raise.
-        Models: "dit" and "t5"."""
+        does). Models: "dit" and "t5"."""
         from ..ops.fuse import fuse_dit_qkv, fuse_single_block_io, permute_rope_layout
-        from ..ops.quant import quantize_dit_params
+        from ..ops.quant import quantize_dit_params, quantize_params_int4
 
-        nf4 = [n for n in int4 if n not in which and n not in weight_only]
-        if dit_int4_mlp or nf4:
-            raise NotImplementedError(f"int4={tuple(nf4)}, dit_int4_mlp={dit_int4_mlp}: {NF4_NOT_PORTED}")
-        for name in (*which, *weight_only):
+        for name in (*which, *weight_only, *int4):
             if name not in ("dit", "t5"):
                 raise ValueError(f"quantize: no quantizable model {name!r} (expected 'dit' or 't5')")
         # a latent_lora view is the DiT itself: transform it once
@@ -178,14 +184,23 @@ class FluxPipeline:
                 if dit is not None:
                     permute_rope_layout(fuse_single_block_io(fuse_dit_qkv(dit)))
             self.rope_layout = "split"
+        # the fused serving names (out_mlp) and the unfused ones (mlp_in,
+        # single_blocks/out/; the trailing slash keeps out_attn int8), as JAX
+        int4_paths = (("img_mlp", "txt_mlp", "out_mlp", "mlp_in", "single_blocks/out/")
+                      if dit_int4_mlp else ())
+        dit_kw = dict(min_size=min_size, act_quant_exclude=act_quant_exclude, int4_group=int4_group,
+                      int4_layout="plane")
         for name in which:
-            quantize_dit_params(getattr(self, name), min_size=min_size,
-                                act_quant_exclude=act_quant_exclude)
+            quantize_dit_params(getattr(self, name), int4_paths=int4_paths if name == "dit" else (),
+                                **dit_kw)
         if cond is not None and "dit" in which:
-            quantize_dit_params(cond, min_size=min_size, act_quant_exclude=act_quant_exclude)
+            quantize_dit_params(cond, int4_paths=int4_paths, **dit_kw)
         for name in weight_only:
             if name not in which:
                 quantize_dit_params(getattr(self, name), min_size=min_size, act_quant=False)
+        for name in int4:
+            if name not in which and name not in weight_only:
+                quantize_params_int4(getattr(self, name), min_size=min_size, layout="plane")
         return self
 
     def enable_prompt_cache(self) -> "FluxPipeline":
@@ -320,6 +335,7 @@ class FluxPipeline:
             add_cond_attn=self.model_flags.get("add_cond_attn", False),
             attn_impl=self.attn_impl,
             rope_layout=self.rope_layout,
+            **vcache_kwargs(self.vcache, num_inference_steps),
         )
         if output_type == "latent":
             return final

@@ -18,10 +18,10 @@ through `qwen_lm_state_dict` and `qwen_vision_state_dict`; NVILA's
 `nvila_from_jax`.
 
 Quantized trees (`reflectionflow_tpu/ops/quant.py`: int8 nodes {w_q, w_scale,
-b, act_q}) go by `load_jax_tree_`, which walks the port model's modules and
-reads each one's JAX node through the model's `jax_path`:
-`serving_dit_from_jax` for the W8A8 serving DiT, `t5_from_jax` for a
-(w8a16 or float) T5.
+b, act_q}, NF4 nodes {w_p4 or w_p4p, w_scale4, b}) go by `load_jax_tree_`,
+which walks the port model's modules and reads each one's JAX node through
+the model's `jax_path`: `serving_dit_from_jax` for the serving DiT (W8A8,
+with NF4 MLPs or not), `t5_from_jax` for a float, w8a16 or NF4 T5.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from ..config import (CLIPTextConfig, FluxDiTConfig, NvilaConfig, QwenLMConfig, 
 from ..models.flux.dit import FluxDiT
 from ..models.flux.text import T5Encoder
 from ..ops.fuse import fuse_dit_qkv, fuse_single_block_io
-from ..ops.quant import NF4_NOT_PORTED, QuantLinear
+from ..ops.quant import NF4Linear, QuantLinear
 
 
 def _t(a) -> torch.Tensor:
@@ -110,13 +110,18 @@ def _node(tree: dict, path: str, index: int | None):
 def load_jax_tree_(model: nn.Module, params: dict) -> nn.Module:
     """Copy a JAX parameter tree into `model` in place. Each linear takes its
     node's float weight, or becomes a `QuantLinear` for an int8 node (W8A8 when
-    the node has the `act_q` marker); embeddings and norm scales take their
-    leaves. NF4 nodes raise."""
+    the node has the `act_q` marker) or an `NF4Linear` for an NF4 node (its
+    packed codes and scales as they are); embeddings and norm scales take their
+    leaves."""
     for name, mod in list(model.named_modules()):
         if isinstance(mod, nn.Linear):
             node = _node(params, *model.jax_path(name)[:2])
-            if "w_p4" in node or "w_p4p" in node:
-                raise NotImplementedError(f"{name}: {NF4_NOT_PORTED}")
+            packed = next((k for k in ("w_p4", "w_p4p") if k in node), None)
+            if packed is not None:
+                model.set_submodule(name, NF4Linear(
+                    _t(node[packed]), _t(node["w_scale4"]), _t(node["b"]) if "b" in node else None,
+                    "pair" if packed == "w_p4" else "plane").to(mod.weight.device))
+                continue
             if "w_q" not in node:
                 mod.weight.copy_(_t(np.asarray(node["w"]).T))
                 if mod.bias is not None:
@@ -134,16 +139,16 @@ def load_jax_tree_(model: nn.Module, params: dict) -> nn.Module:
 
 def serving_dit_from_jax(params: dict, cfg: FluxDiTConfig) -> FluxDiT:
     """The JAX serving tree, `quantize_dit_params(permute_rope_layout(
-    fuse_single_block_io(fuse_dit_qkv(p))))`, -> a `FluxDiT` in the same fused,
-    split-layout, int8 form."""
+    fuse_single_block_io(fuse_dit_qkv(p))))` (with `int4_paths` or not), -> a
+    `FluxDiT` in the same fused, split-layout, int8 (and NF4) form."""
     dit = fuse_single_block_io(fuse_dit_qkv(FluxDiT(cfg)))
     dit.rope_layout = "split"  # the tree's q/k are permuted already
     return load_jax_tree_(dit, params).eval()
 
 
 def t5_from_jax(params: dict, cfg: T5Config) -> T5Encoder:
-    """A JAX T5 tree (float, or int8 w8a16 from `quantize_dit_params(t5,
-    act_quant=False)`) -> `T5Encoder`."""
+    """A JAX T5 tree (float, int8 w8a16 from `quantize_dit_params(t5,
+    act_quant=False)`, or NF4 from `quantize_params_int4`) -> `T5Encoder`."""
     return load_jax_tree_(T5Encoder(cfg), params).eval()
 
 

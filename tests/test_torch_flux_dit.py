@@ -109,9 +109,12 @@ def test_dit_rejects_unported_modes():
     _, tcfg = _cfg()
     dit = FluxDiT(tcfg)
     x = {k: _t(v) for k, v in _inputs(tcfg, seed=4).items()}
-    for kw in ({"return_img_residual": True}, {"controlnet_block_samples": [x["img"]]}):
-        with pytest.raises(NotImplementedError):
-            dit(**x, **kw)
+    with pytest.raises(NotImplementedError, match="ControlNet"):
+        dit(**x, controlnet_block_samples=[x["img"]])
+    # the velocity-cache hooks are ported (tests/test_torch_vcache.py)
+    with torch.no_grad():
+        out, resid = dit(**x, return_img_residual=True)
+    assert out.shape == x["img"].shape and resid.shape == (*x["img"].shape[:2], tcfg.hidden_size)
     # the cond stream is ported (tests/test_torch_cond_dit.py); it needs its ids
     with pytest.raises(ValueError, match="cond_ids"):
         dit(**x, cond=x["img"])

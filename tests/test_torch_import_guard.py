@@ -4,7 +4,7 @@ corrector sampler, the mesh and ring attention, the verifiers, reflectors and
 search loops, the BPE tokenizers, the snapshot loader, the Qwen2.5-VL models,
 the reward-checkpoint reader and the Qwen verifier included), and the
 noise-scaling, train, sample, reflectionflow, noise-prompt-scaling,
-verifier-filter and score-images CLIs' --help, run in a subprocess where
+verifier-filter, score-images and vcache-calibrate CLIs' --help, run in a subprocess where
 those imports fail."""
 
 import os
@@ -27,7 +27,7 @@ assert not any(n.split(".")[0] in {BLOCKED!r} for n in sys.modules if sys.module
 print(len(names), " ".join(names))
 import contextlib, io
 for cli in ("tts_t2i_noise_scaling", "train", "sample", "tts_reflectionflow",
-            "tts_t2i_noise_prompt_scaling", "verifier_filter", "score_images"):
+            "tts_t2i_noise_prompt_scaling", "verifier_filter", "score_images", "vcache_calibrate"):
     main = importlib.import_module("reflectionflow_tpu_torch.cli." + cli).main
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -55,7 +55,8 @@ def test_port_imports_without_jax_and_friends():
     sample_help, rest = rest.split("=== tts_reflectionflow\n")
     rf_help, rest = rest.split("=== tts_t2i_noise_prompt_scaling\n")
     nps_help, rest = rest.split("=== verifier_filter\n")
-    filter_help, score_help = rest.split("=== score_images\n")
+    filter_help, rest = rest.split("=== score_images\n")
+    score_help, cal_help = rest.split("=== vcache_calibrate\n")
     assert "--synthetic_weights" in noise_help and "--attn_impl" in noise_help
     assert "--device" in noise_help
     assert "--device" in train_help and "--synthetic_data" in train_help
@@ -68,6 +69,8 @@ def test_port_imports_without_jax_and_friends():
     assert "--nfes" in filter_help and "--images_subdir" in filter_help
     for flag in ("--meta_path", "--output_json", "--model_path", "--device"):
         assert flag in score_help
+    for flag in ("--synthetic_weights", "--synthetic_scale", "--out", "--device", "--verifier"):
+        assert flag in cal_help
     for name in ("cli.sample", "ops.flash_attention_int8", "ops.flash_attention_nr", "parallel.mesh",
                  "ops.ring_attention", "verifiers.openai_backend", "verifiers.schemas", "verifiers.prompts",
                  "reflect.generator", "reflect.refiner", "reflect.parsing", "search.reflectionflow",
@@ -75,5 +78,6 @@ def test_port_imports_without_jax_and_friends():
                  "cli.tts_reflectionflow", "cli.tts_t2i_noise_prompt_scaling", "cli.verifier_filter",
                  "utils.bpe", "utils.hf_loader", "utils.device", "models.registry", "models.qwen_vl.lm",
                  "models.qwen_vl.vision", "models.qwen_vl.model", "models.qwen_vl.reward",
-                 "models.qwen_vl.generate", "rm_train.train", "verifiers.qwen_verifier", "cli.score_images"):
+                 "models.qwen_vl.generate", "rm_train.train", "verifiers.qwen_verifier", "cli.score_images",
+                 "cli.vcache_calibrate", "sampler.vcache_calibrate"):
         assert f"reflectionflow_tpu_torch.{name}" in proc.stdout

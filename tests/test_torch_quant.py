@@ -130,17 +130,27 @@ def _port_serving(dit, min_size, exclude):
 
 def _assert_same_as_tree(dit, tree):
     """Every linear of the port model holds what its JAX node holds; returns
-    the (W8A8, w8a16) path sets."""
-    modes = {"w8a8": set(), "w8a16": set()}
+    the path sets by kind: W8A8, w8a16, NF4 in the plane or pair packing
+    (codes and scales bitwise)."""
+    modes = {"w8a8": set(), "w8a16": set(), "nf4_plane": set(), "nf4_pair": set()}
     tree = jax.tree.map(np.asarray, tree)
     for name, m in dit.named_modules():
-        if not isinstance(m, (nn.Linear, quant.QuantLinear)):
+        if not isinstance(m, (nn.Linear, quant.QuantLinear, quant.NF4Linear)):
             continue
         path, idx, _ = dit.jax_path(name)
         node = jax_bridge._node(tree, path, idx)
         if isinstance(m, nn.Linear):
             assert "w" in node, name
             np.testing.assert_array_equal(m.weight.detach().numpy().T, node["w"])
+            continue
+        if isinstance(m, quant.NF4Linear):
+            key = "w_p4p" if m.layout == "plane" else "w_p4"
+            assert key in node, name
+            np.testing.assert_array_equal(m.w_packed.numpy(), node[key])
+            np.testing.assert_array_equal(m.w_scale4.numpy(), node["w_scale4"])
+            if m.bias is not None:
+                np.testing.assert_array_equal(m.bias.detach().numpy(), node["b"])
+            modes[f"nf4_{m.layout}"].add(path)
             continue
         assert "w_q" in node, name
         np.testing.assert_array_equal(m.w_q.numpy().T, node["w_q"])
@@ -188,6 +198,9 @@ def test_bridge_carries_the_serving_tree():
 
 
 def test_surgery_guards_and_nf4_raise():
+    """The layout guards hold, NF4 linears included; the NF4 surgery and the
+    bridge's NF4 nodes, refused before, now make what JAX makes
+    (`tests/test_torch_nf4.py` holds them bitwise)."""
     jcfg, params, dit = numpy_models()
     _port_serving(dit, 4096, ())
     quantized_unpermuted = quant.quantize_dit_params(numpy_models()[2], min_size=4096)
@@ -195,31 +208,46 @@ def test_surgery_guards_and_nf4_raise():
         permute_rope_layout(quantized_unpermuted)
     with pytest.raises(ValueError, match="already"):
         permute_rope_layout(dit)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        quant.quantize_dit_params(numpy_models()[2], int4_paths=("img_mlp",))
+    nf4_unpermuted = quant.quantize_dit_params(numpy_models()[2], min_size=4096, int4_paths=("img_mlp",),
+                                               int4_group=32)
+    assert isinstance(nf4_unpermuted.transformer_blocks[0].ff.net[2], quant.NF4Linear)
+    with pytest.raises(ValueError, match="BEFORE quantization"):
+        permute_rope_layout(nf4_unpermuted)
     nf4 = jfuse.fuse_single_block_io(jfuse.fuse_dit_qkv(jax.tree.map(jnp.asarray, params)))
-    nf4 = jquant.quantize_dit_params(nf4, min_size=4096, int4_paths=("img_mlp",))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        jax_bridge.serving_dit_from_jax(jax.tree.map(np.asarray, nf4), dit.cfg)
+    nf4 = jquant.quantize_dit_params(nf4, min_size=4096, int4_paths=("img_mlp",), int4_group=32)
+    carried = jax_bridge.serving_dit_from_jax(jax.tree.map(np.asarray, nf4), dit.cfg)
+    modes = _assert_same_as_tree(carried, nf4)
+    assert modes["nf4_pair"] == {"double_blocks/img_mlp/fc1", "double_blocks/img_mlp/fc2"}
 
 
 def test_pipeline_quantize_rejects_nf4_profiles():
-    from reflectionflow_tpu_torch import config as tconfig
+    """`FluxPipeline.quantize` takes JAX's NF4 knobs: its default int4=("t5",)
+    and dit_int4_mlp make the layers JAX's `quantize` makes on the same
+    weights; a model that is not there, and the unfused layout, still raise."""
+    from reflectionflow_tpu.sampler.pipeline import FluxPipeline as JaxFluxPipeline
 
-    pipe = FluxPipeline.random_init(torch.Generator().manual_seed(0), *(
-        c.tiny() for c in (tconfig.FluxDiTConfig, tconfig.FluxVAEConfig, tconfig.T5Config,
-                           tconfig.CLIPTextConfig)), dtype=torch.float32)
-    for kw in ({}, {"dit_int4_mlp": True, "int4": ()}):  # the JAX default int4=("t5",) is NF4
-        with pytest.raises(NotImplementedError, match="item 12"):
+    jcfg, params, dit = numpy_models(seed=1)
+    t5cfg = T5Config(vocab_size=64, d_model=32, d_kv=8, d_ff=256, num_layers=1, num_heads=4)
+    t5_params = perturbed(t5_encoder_init(jax.random.PRNGKey(1), t5cfg), seed=3)
+    t5 = T5Encoder(TT5Config(**{f: getattr(t5cfg, f) for f in t5cfg.__dataclass_fields__}))
+    t5.load_state_dict(jax_bridge.t5_state_dict(t5_params, t5cfg))
+    pipe = FluxPipeline(dit_cfg=dit.cfg, vae_cfg=None, t5_cfg=t5.cfg, clip_cfg=None, dit=dit, vae=None, t5=t5,
+                        clip=None, t5_tokenizer=None, clip_tokenizer=None, dtype=torch.float32)
+    for kw in ({"fuse_qkv": False}, {"int4": ("vae",)}):
+        with pytest.raises((TypeError, ValueError)):
             pipe.quantize(**kw)
     assert pipe.rope_layout == "pair"  # nothing changed before the refusal
-    for kw in ({"fuse_qkv": False}, {"int4_group": 64}):  # no unfused or NF4-only knobs
-        with pytest.raises(TypeError):
-            pipe.quantize(int4=(), **kw)
-    pipe.quantize(int4=(), weight_only=("t5",), min_size=256)
-    assert pipe.rope_layout == "split"
-    assert isinstance(pipe.t5.encoder.block[0].layer[0].SelfAttention.q, quant.QuantLinear)
-    assert not pipe.t5.encoder.block[0].layer[0].SelfAttention.q.act_quant
+    kw = dict(dit_int4_mlp=True, int4_group=64, min_size=4096)
+    pipe.quantize(**kw)  # the JAX default int4=("t5",): NF4 T5
+    jpipe = JaxFluxPipeline(dit_cfg=jcfg, vae_cfg=None, t5_cfg=t5cfg, clip_cfg=None, t5_tokenizer=None,
+                            clip_tokenizer=None,
+                            params=jax.tree.map(jnp.asarray, {"dit": params, "t5": t5_params}))
+    jpipe.quantize(**kw)
+    assert pipe.rope_layout == jpipe.rope_layout == "split"
+    dit_modes = _assert_same_as_tree(pipe.dit, jpipe.params["dit"])
+    assert dit_modes["nf4_pair"] and dit_modes["nf4_plane"]
+    t5_modes = _assert_same_as_tree(pipe.t5, jpipe.params["t5"])
+    assert t5_modes["nf4_plane"] == {"blocks/wo"} and t5_modes["w8a16"]
 
 
 @pytest.mark.parametrize("route", ["port_quantize", "bridge"])

@@ -207,18 +207,45 @@ def _load(cfg_path, quantize="int8"):
     return load_pipeline(load_config(args), args)
 
 
-def test_int8_profile_validation(tmp_path):
+def test_int8_profile_validation(tmp_path, monkeypatch):
     """The JAX CLI's t5_quant/dit_quant errors, raised the same way; the NF4
-    profiles are refused; the int8 profile makes the split serving layout."""
+    profiles load and ask `FluxPipeline.quantize` for what the JAX CLI asks
+    (its quantize recorded on a stub pipeline); the int8 profile makes the
+    split serving layout."""
+    from reflectionflow_tpu.cli import common as jcommon
+    from reflectionflow_tpu.sampler.pipeline import FluxPipeline as JaxFluxPipeline
+    from reflectionflow_tpu_torch.sampler.pipeline import FluxPipeline
+
     with pytest.raises(ValueError, match="t5_quant"):
         _load(_tiny_cfg(tmp_path, t5_quant="nf4"))
     with pytest.raises(ValueError, match="dit_quant"):
         _load(_tiny_cfg(tmp_path, dit_quant="int4"))
     with pytest.raises(ValueError, match="co-reside"):
         _load(_tiny_cfg(tmp_path, t5_quant="int8", dit_quant="int8_int4mlp"))
-    for kw in ({"dit_quant": "int8_int4mlp"}, {"t5_quant": "int4"}):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            _load(_tiny_cfg(tmp_path, **kw))
+    asked = {"jax": [], "port": []}
+    port_quantize = FluxPipeline.quantize
+
+    def port_recorded(self, **kw):
+        asked["port"].append({k: kw.get(k) for k in ("int4", "weight_only", "dit_int4_mlp")})
+        return port_quantize(self, **kw)
+
+    def jax_recorded(self, **kw):
+        asked["jax"].append({k: kw.get(k) for k in ("int4", "weight_only", "dit_int4_mlp")})
+        return self
+
+    stub = lambda *a, **k: JaxFluxPipeline(dit_cfg=None, vae_cfg=None, t5_cfg=None, clip_cfg=None,  # noqa: E731
+                                           params={"dit": {}, "t5": {}}, t5_tokenizer=None, clip_tokenizer=None)
+    monkeypatch.setattr(FluxPipeline, "quantize", port_recorded)
+    monkeypatch.setattr(JaxFluxPipeline, "quantize", jax_recorded)
+    monkeypatch.setattr(JaxFluxPipeline, "random_init", stub)
+    for kw in ({"dit_quant": "int8_int4mlp"}, {"t5_quant": "int4"}, {"dit_quant": "int8_int4mlp", "t5_quant": "int4"},
+               {}, {"t5_quant": "int8"}):
+        path = _tiny_cfg(tmp_path, **kw)
+        pipe = _load(path)
+        jcommon.load_pipeline(load_config(_args(path)), _args(path))
+        assert pipe.rope_layout == "split" and asked["port"][-1] == asked["jax"][-1], (kw, asked)
+    assert [a["dit_int4_mlp"] for a in asked["port"]] == [True, False, True, False, False]
+    assert [a["int4"] for a in asked["port"]] == [("t5",)] * 3 + [()] * 2
     bad = _tiny_cfg(tmp_path, t5_quant="int8")
     with pytest.raises(ValueError, match="quantization\\s+is disabled"):
         _load(bad, quantize=None)
