@@ -203,13 +203,29 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      a fresh seeded bf16 FLUX.1-dev at full width and depth: 2 candidates at 4
      steps with exact K1/K2/K3/K5 counts (no K4), NF4 resident bytes, s/step
      against W8A8 in turns, an NF4 linear of each packing against fp64 on its
-     decoded weight (NF4_REL_TOL) and the NF4 T5 encode's cosine against bf16.
+     decoded weight (NF4_REL_TOL) and the NF4 T5 encode's cosine against bf16;
+  13. reward-model training: Qwen2.5-VL-7B at full width and depth (seeded
+     random bf16, lm_head dropped), LoRA r=16 / alpha=32 on the LM and the
+     vision tower, the LM's and the tower's blocks quantized weight-only int8
+     (`quantize_rm_base`), RM_STEPS steps of `make_rm_train_step` (btt loss,
+     special pooling) on a batch of B=2 synthetic GSB pairs of 448 px PNG
+     images collated in the vision-training layout (grid (1, 32, 32), 256
+     image rows a side): finite losses, the loss on that batch lower after the
+     steps, every group (LM adapters, tower adapters, head, special row)
+     moved, no float weight left on a block linear and none quantizing its
+     activation, no launch of K1–K9; s/step, peak device memory and the base's
+     resident bytes; `save_rm_checkpoint` -> `load_rm_checkpoint` bitwise;
+     a `QwenRewardVerifier` over the same seeded base reads that checkpoint
+     and gives the two images of a pair finite, different scores; then an NF4
+     base (`quantize_base="nf4"`) for RM_NF4_STEPS steps, its s/step beside
+     int8's.
 The training numbers are on the line {"train": {...}}, the ring phase's on
 {"ring": {...}}, the reflection round's on {"reflection_round": {...}}, the
 snapshot phase's on {"snapshot_load": {...}}, the round with models on
 {"reflection_round_models": {...}}, the NVILA round on {"nvila_round":
-{...}} and phase 12's on {"vcache_nf4": {...}}; the line before the last is
-{"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
+{...}}, phase 12's on {"vcache_nf4": {...}} and phase 13's on {"rm_train":
+{...}}; the line before the last is {"kernels": [...]}; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -257,6 +273,11 @@ QWEN_CLIP_FRAMES, QWEN_CLIP_PX = 8, 448  # phase 10's synthetic video clip
 NVILA_INT8_TOL = 0.12  # phase 11: |W8A8 - bf16| of the yes and no logits (|logit| 0.03-0.70; read 0.060, 0.074)
 NVILA_TIMED_B = 2  # phase 11: the NVILA score pass timed at this batch
 NVILA_TIMED_REPS = 9  # phase 11: its repetitions, int8 and bf16 in turns; the median is kept
+RM_STEPS, RM_NF4_STEPS = 3, 2  # phase 13: int8-base training steps; NF4 steps (the first warms up)
+RM_PAIRS, RM_PX = 2, 448  # train_reward's per_device_train_batch_size and max_pixels side
+RM_LORA_R, RM_LORA_ALPHA = 16, 32.0  # train_reward's defaults
+RM_LR = 1e-5  # train_reward's default
+RM_SEED = 13
 K1_PRESET = (1, LT + LI + LC, LT + LI, 0.0)  # phase 11: K1 at the NVILA preset's (B, L, main_len, cross bias)
 # K1 timed: (B, L, main_len, cross bias): the t2i forward at B = 1 and 2, and the training
 # sequence (512 + 1024 + 1024 tokens, the cond segment at 1536) with the c_factor bias
@@ -321,15 +342,20 @@ def in_turns(torch, kern, plain, k_iters: int, p_iters: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def profiled(torch, fn):
-    """[(kernel name, self device µs)] of the device kernels `fn()` ran."""
+def profile_events(torch, fn):
+    """torch.profiler's `key_averages()` over `fn()` (host and device)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return prof.key_averages()
+
+
+def profiled(torch, fn):
+    """[(kernel name, self device µs)] of the device kernels `fn()` ran."""
     out = []
-    for evt in prof.key_averages():
+    for evt in profile_events(torch, fn):
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0.0)
@@ -2928,6 +2954,219 @@ def vcache_phase(torch, pipe):
     return out
 
 
+def _module_bytes(module) -> int:
+    return sum(t.numel() * t.element_size() for t in [*module.parameters(), *module.buffers()])
+
+
+def rm_train_phase(torch, card: str) -> dict:
+    """Phase 13: the reward-model trainer on Qwen2.5-VL-7B (full width and
+    depth, seeded random bf16, no lm_head): LoRA on the LM and the tower over
+    a weight-only int8 base, RM_STEPS steps on one collated batch of
+    RM_PAIRS synthetic GSB pairs (RM_PX px PNG files); the checkpoint round
+    trip; a `QwenRewardVerifier` over the same seeded base from that
+    checkpoint; RM_NF4_STEPS steps on an NF4 base. No step may launch K1–K9."""
+    import gc
+
+    import numpy as np
+
+    from reflectionflow_tpu_torch.lora.lora import qwen_adapters_to_jax
+    from reflectionflow_tpu_torch.models.qwen_vl.model import QwenVLModel
+    from reflectionflow_tpu_torch.ops.quant import NF4Linear, QuantLinear
+    from reflectionflow_tpu_torch.rm_train import train as rt
+    from reflectionflow_tpu_torch.rm_train.data import collate_rm_batch, vision_train_geometry
+    from reflectionflow_tpu_torch.rm_train.losses import reward_loss
+    from reflectionflow_tpu_torch.search.artifacts import load_image, save_image
+    from reflectionflow_tpu_torch.train import optim
+    from reflectionflow_tpu_torch.verifiers.qwen_verifier import QwenRewardVerifier
+
+    t_phase = time.perf_counter()
+    start_gib = torch.cuda.memory_allocated() / 2**30
+    lm_cfg, vis_cfg = _qwen_cfgs()
+    sp = lm_cfg.vocab_size - 1  # the CLI's <|VQ_reward|> id
+    side, grid = vision_train_geometry(vis_cfg, RM_PX * RM_PX)
+    check(side == RM_PX and grid == (1, 32, 32), f"vision-training geometry {side}, {grid}")
+
+    def base():
+        gen = torch.Generator(device="cuda").manual_seed(RM_SEED)
+        model = QwenVLModel.random_init(gen, lm_cfg, vis_cfg, dtype=torch.bfloat16, device="cuda")
+        model.lm_head = None  # the reward model reads hidden states, never logits
+        return model
+
+    def fresh_trainable(model, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        H = lm_cfg.hidden_size
+        return {"lora": rt.rm_lora_init(gen, model.model, RM_LORA_R, RM_LORA_ALPHA)["adapters"],
+                "rm_head": torch.randn((H, 1), generator=gen, device="cuda") * 0.02,
+                "special": torch.randn((H,), generator=gen, device="cuda") * 0.02,
+                "vision_lora": rt.rm_vision_lora_init(gen, model.visual, RM_LORA_R, RM_LORA_ALPHA)["adapters"]}
+
+    def make_step(model, mode):
+        opt = rt.make_rm_optimizer(lr=RM_LR)
+        step = rt.make_rm_train_step(model.model, opt, loss_type="btt", pooling="special", special_token_id=sp,
+                                     alpha=RM_LORA_ALPHA, r=RM_LORA_R, tower=model.visual, grid_thw=grid,
+                                     quantize_base=mode)
+        blocks = [*model.model.layers, *model.visual.blocks]
+        left = [type(m).__name__ for b in blocks for m in b.modules() if isinstance(m, torch.nn.Linear)]
+        check(not left, f"{len(left)} block linears left float under quantize_base={mode}")
+        w8a8 = [m for b in blocks for m in b.modules() if isinstance(m, QuantLinear) and m.act_quant]
+        check(not w8a8, f"{len(w8a8)} block linears quantize their activation (W8A8) in the training base")
+        kinds = {}
+        for b in blocks:
+            for m in b.modules():
+                if isinstance(m, (QuantLinear, NF4Linear)):
+                    k = f"nf4_{m.layout}" if isinstance(m, NF4Linear) else "int8_w8a16"
+                    kinds[k] = kinds.get(k, 0) + 1
+        nbytes = {"lm_blocks": _module_bytes(model.model.layers), "embed": _module_bytes(model.model.embed_tokens),
+                  "tower": _module_bytes(model.visual), "total": _module_bytes(model)}
+        return opt, step, kinds, nbytes
+
+    def timed_steps(step, trainable, state, batch, n):
+        counters = zero_counts()
+        losses, secs = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainable, state, aux = step(trainable, state, batch)
+            losses.append(float(aux["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        check(not any(launches.values()), f"reward-model training launched kernels of the DiT path: {launches}")
+        check(all(math.isfinite(x) for x in losses), f"reward-model losses {losses}")
+        return trainable, state, losses, secs, launches
+
+    tmp = tempfile.mkdtemp(prefix="rm_train_")
+    rng = np.random.default_rng(RM_SEED)
+    rows = []
+    for i in range(RM_PAIRS):
+        row = {"prompt": f"a photo of {i + 2} red cubes on a wooden table", "gsb": "GB"[i % 2],
+               "score_A": 4.0 - i, "score_B": 2.0 + i}
+        for s in "AB":
+            row[f"image_{s}"] = os.path.join(tmp, f"{s}{i}.png")
+            save_image(row[f"image_{s}"], rng.integers(0, 256, (RM_PX, RM_PX, 3), dtype=np.uint8))
+        rows.append(row)
+
+    t0 = time.perf_counter()
+    model = base()
+    trainable = fresh_trainable(model, RM_SEED + 1)
+    n_adapter = {g: sum(t.numel() for ab in trainable[g].values() for t in ab.values())
+                 for g in ("lora", "vision_lora")}
+    batch = collate_rm_batch(model, rows, max_pixels=RM_PX * RM_PX, special_token_id=sp, train_vision=True)
+    opt, step, kinds, base_bytes = make_step(model, "int8")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    L = batch["ids_A"].shape[1]
+    log(f"reward model: Qwen2.5-VL-7B int8 base {base_bytes['total'] / 2**30:.2f} GiB (LM blocks "
+        f"{base_bytes['lm_blocks'] / 2**30:.2f}, embeddings {base_bytes['embed'] / 2**30:.2f}, tower "
+        f"{base_bytes['tower'] / 2**30:.2f}); {kinds}; adapters {n_adapter} (r={RM_LORA_R}); batch "
+        f"{RM_PAIRS} pairs x {L} tokens a side; built in {build_s:.1f} s; {card}")
+
+    def fixed_loss():
+        with torch.no_grad():
+            rw = []
+            for s in "AB":
+                emb = rt.apply_vision_lora_embeds(trainable, model.visual, batch[f"embeds_{s}"], batch[f"patches_{s}"],
+                                                  grid, RM_LORA_ALPHA, RM_LORA_R)
+                rw.append(rt.rm_forward_rewards(trainable, model.model, emb, batch[f"pos_{s}"], batch[f"mask_{s}"],
+                                                batch[f"ids_{s}"], "special", sp, RM_LORA_ALPHA, RM_LORA_R))
+            return float(reward_loss(rw[0].float(), rw[1].float(), batch["scores_A"], batch["scores_B"],
+                                     batch["chosen_label"], "btt"))
+
+    before = {k: v.detach().clone() for k, v in optim.flatten_tree(trainable).items()}
+    state = opt.init(trainable)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainable, state, losses, secs, launches = timed_steps(step, trainable, state, batch, RM_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    after = fixed_loss()
+    check(after < losses[0], f"the loss on the fixed batch did not fall: {losses} then {after}")
+    moved = {}
+    for group in ("lora/", "vision_lora/", "rm_head", "special"):
+        moved[group.rstrip("/")] = max(float((v.detach() - before[k]).abs().max())
+                                       for k, v in optim.flatten_tree(trainable).items() if k.startswith(group))
+    check(all(m > 0 for m in moved.values()), f"a trainable group did not move: {moved}")
+    s_per_step = secs[1:]
+    log(f"reward-model int8 steps: losses {[round(x, 5) for x in losses]} then {after:.5f} on the same batch; "
+        f"s/step {[round(x, 4) for x in secs]} (steps 2-{RM_STEPS}: {statistics.mean(s_per_step):.4f}); peak "
+        f"{peak:.2f} GiB ({peak - start_gib:.2f} above the phase's start); K1-K9 launches 0; {card}")
+
+    wall = []
+
+    def one_step():  # one more step, under the profiler: device kernels by family, host ops by self time
+        nonlocal trainable, state
+        t0 = time.perf_counter()
+        trainable, state, _ = step(trainable, state, batch)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+
+    events = profile_events(torch, one_step)
+    device = [(e.key, getattr(e, "self_device_time_total", 0.0)) for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA and getattr(e, "self_device_time_total", 0.0) > 0]
+    profile = log_split(f"reward-model int8 step profile (B={RM_PAIRS} pairs, {card})", device, wall[0])
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU), key=lambda t: -t[1])[:10]
+    profile["host_top_ms"] = {k: [round(ms, 2), n] for k, ms, n in host}
+    log(f"  host ops by self time (ms, calls): {profile['host_top_ms']}")
+
+    ckpt = os.path.join(tmp, "checkpoint")
+    t0 = time.perf_counter()
+    rt.save_rm_checkpoint(ckpt, trainable, "special", sp, lora_alpha=RM_LORA_ALPHA, lora_r=RM_LORA_R)
+    back, cfg = rt.load_rm_checkpoint(ckpt)
+    ckpt_s = time.perf_counter() - t0
+    want = {"lora": qwen_adapters_to_jax(trainable["lora"]),
+            "vision_lora": qwen_adapters_to_jax(trainable["vision_lora"], tower=True),
+            "rm_head": trainable["rm_head"].detach().float().cpu(), "special": trainable["special"].detach().float().cpu()}
+    check(set(back) == set(want) and all(set(back[g]) == set(want[g]) for g in ("lora", "vision_lora")),
+          f"checkpoint groups {sorted(back)}")
+    for g in ("lora", "vision_lora"):
+        for p, ab in want[g].items():
+            check(all(torch.equal(back[g][p][k], ab[k]) for k in ("A", "B")), f"checkpoint {g} {p} differs")
+    check(torch.equal(back["rm_head"], want["rm_head"]) and torch.equal(back["special"], want["special"]),
+          "checkpoint head or special row differs")
+    check(cfg["special_token_id"] == sp and cfg["lora_r"] == RM_LORA_R, f"model_config {cfg}")
+    ckpt_mb = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt)) / 2**20
+
+    del step, opt, state, trainable, before, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = base()
+    verifier = QwenRewardVerifier(model=model, model_path=ckpt)
+    pair = [load_image(rows[0]["image_A"]), load_image(rows[0]["image_B"])]
+    scores = verifier.raw_scores(pair, [rows[0]["prompt"]] * 2)
+    check(all(math.isfinite(x) for x in scores) and scores[0] != scores[1], f"verifier scores {scores}")
+    log(f"checkpoint ({ckpt_mb:.1f} MiB) written and read back bitwise in {ckpt_s:.1f} s; QwenRewardVerifier "
+        f"from it over the same seeded base: raw scores {scores}")
+    del verifier
+    gc.collect()
+
+    trainable = fresh_trainable(model, RM_SEED + 2)
+    batch = collate_rm_batch(model, rows, max_pixels=RM_PX * RM_PX, special_token_id=sp, train_vision=True)
+    opt, step, nf4_kinds, nf4_bytes = make_step(model, "nf4")
+    state = opt.init(trainable)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainable, state, nf4_losses, nf4_secs, nf4_launches = timed_steps(step, trainable, state, batch, RM_NF4_STEPS)
+    nf4_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"reward-model NF4 base {nf4_bytes['total'] / 2**30:.2f} GiB (LM blocks "
+        f"{nf4_bytes['lm_blocks'] / 2**30:.2f}, tower {nf4_bytes['tower'] / 2**30:.2f}); {nf4_kinds}; "
+        f"losses {nf4_losses}; s/step {[round(x, 4) for x in nf4_secs]} (int8 {statistics.mean(s_per_step):.4f}); "
+        f"peak {nf4_peak:.2f} GiB; K1-K9 launches 0; {card}")
+    del step, opt, state, trainable, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": card, "start_gib": start_gib, "batch_pairs": RM_PAIRS, "tokens_per_side": L, "px": RM_PX,
+           "lora_r": RM_LORA_R, "lora_alpha": RM_LORA_ALPHA, "lr": RM_LR, "adapter_params": n_adapter,
+           "int8": {"losses": losses, "loss_after": after, "s_per_step_all": secs,
+                    "s_per_step": statistics.mean(s_per_step), "peak_gib": peak, "base_bytes": base_bytes,
+                    "kinds": kinds, "moved": moved, "launches": launches, "profile": profile},
+           "nf4": {"losses": nf4_losses, "s_per_step_all": nf4_secs, "s_per_step": nf4_secs[-1],
+                   "peak_gib": nf4_peak, "base_bytes": nf4_bytes, "kinds": nf4_kinds, "launches": nf4_launches},
+           "checkpoint_mib": ckpt_mb, "checkpoint_s": ckpt_s, "verifier_raw_scores": scores,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"reward-model training phase (13): {out['phase_s']:.1f} s")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, res, main_shape, other_shape):
     return {"name": name, "route": "cuda", "source": f"reflectionflow_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": res["err"],
@@ -2976,6 +3215,7 @@ def main() -> int:
     round_models = reflection_models_phase(torch, pipe)
     nvila = nvila_phase(torch, pipe)
     vcache = vcache_phase(torch, pipe)
+    rm_train = rm_train_phase(torch, card)
     step = {name: calls[-1]["denoise_s"] / STEPS for name, calls in (("bf16", bf16_calls),
                                                                       ("w8a8", w8_calls))}
     step.update({f"corrector_{impl}": corrector[impl]["s_per_step"] for impl in ("pallas_nr", "pallas_int8")})
@@ -3062,6 +3302,7 @@ def main() -> int:
         k["launches_round_teacache"] = vcache["teacache"]["round"]["launches"][k["name"]]
         k["launches_vcache_module"] = vcache["module"]["launches"][k["name"]]
         k["launches_nf4"] = vcache["nf4"]["launches"][k["name"]]
+        k["launches_rm_train"] = rm_train["int8"]["launches"][k["name"]] + rm_train["nf4"]["launches"][k["name"]]
     k9 = next(k for k in kernels if k["name"] == "flash_fwd_nr")
     k9["launches_round"] = reflection["launches"]["flash_fwd_nr"]
     k9["launches_round_models"] = round_models["launches"]["flash_fwd_nr"]
@@ -3073,6 +3314,7 @@ def main() -> int:
     log(json.dumps({"reflection_round_models": round_models}))
     log(json.dumps({"nvila_round": nvila}))
     log(json.dumps({"vcache_nf4": vcache}))
+    log(json.dumps({"rm_train": rm_train}))
     log(json.dumps({"ring": {"attention": ring["attention"],
                              "train": {k: ring["train"][k] for k in ("s_per_step", "peak_gib", "launches",
                                                                       "grad_cosine_min", "grad_cosine")},

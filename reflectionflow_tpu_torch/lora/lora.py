@@ -1,5 +1,5 @@
-"""LoRA for the FLUX DiT: adapters, the low-rank view the cond stream reads,
-and folding.
+"""LoRA for the FLUX DiT and the Qwen2.5-VL reward model: adapters, the
+low-rank view the cond stream (and the reward trainer) reads, and folding.
 
 Counterpart of `reflectionflow_tpu/lora/lora.py`. The JAX package stacks an
 adapter per block family (`{path: {A: (N, in, r), B: (N, r, out)}}`); this
@@ -29,10 +29,15 @@ block family), and `fold_qwen_lora` folds such an adapter into the Qwen2.5-VL
 LM's linears: how a finetuned Reflection-Generator or reward-model adapter
 reaches the port.
 
-The target set is the corrector's: x_embedder; in double blocks the
-image-side norm1.linear, attn to_q/to_k/to_v/to_out.0 and ff.net.2; in single
-blocks norm.linear, attn to_q/to_k/to_v, proj_mlp and proj_out. Text-side
-projections are never adapted.
+The default target set is the corrector's: x_embedder; in double blocks
+the image-side norm1.linear, attn to_q/to_k/to_v/to_out.0 and ff.net.2; in
+single blocks norm.linear, attn to_q/to_k/to_v, proj_mlp and proj_out.
+Text-side projections are never adapted. A target names a module with its
+block index left out ("transformer_blocks.attn.to_q", "layers.mlp.up_proj"
+of a Qwen LM, "blocks.attn.qkv" of its vision tower), so the reward-model
+trainer's Qwen target sets go through the same `lora_init`. Its adapters
+cross to the JAX package's stacked tree paths through `qwen_adapters_to_jax`
+/ `qwen_adapters_from_jax` (checkpoints keep the JAX layout).
 """
 
 from __future__ import annotations
@@ -44,9 +49,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.quant import NF4Linear, QuantLinear
+
 _DOUBLE = ("norm1.linear", "attn.to_q", "attn.to_k", "attn.to_v", "attn.to_out.0", "ff.net.2")
 _SINGLE = ("norm.linear", "attn.to_q", "attn.to_k", "attn.to_v", "proj_mlp", "proj_out")
-_BLOCK = re.compile(r"(transformer_blocks|single_transformer_blocks)\.\d+\.(.+)")
+_LINEARS = (nn.Linear, QuantLinear, NF4Linear)  # what an adapter may sit on
+_BLOCK = re.compile(r"(transformer_blocks|single_transformer_blocks|layers|blocks)\.\d+\.(.+)")
 
 
 def corrector_target_paths() -> tuple[str, ...]:
@@ -61,10 +69,11 @@ def _is_target(name: str, targets: tuple[str, ...]) -> bool:
 
 
 class LoRALinear(nn.Module):
-    """A frozen base linear plus the low-rank add `x @ A^T @ (scaling B)^T`,
-    computed in x's dtype (the JAX package's `linear` with `lora_A`/`lora_B`)."""
+    """A frozen base linear (`nn.Linear`, or a weight-only `QuantLinear` /
+    `NF4Linear`) plus the low-rank add `x @ A^T @ (scaling B)^T`, computed in
+    x's dtype (the JAX package's `linear` with `lora_A`/`lora_B`)."""
 
-    def __init__(self, base: nn.Linear, lora_A: torch.Tensor, lora_B: torch.Tensor, scaling: float):
+    def __init__(self, base: nn.Module, lora_A: torch.Tensor, lora_B: torch.Tensor, scaling: float):
         super().__init__()
         self.base, self.lora_A, self.lora_B, self.scaling = base, lora_A, lora_B, scaling
 
@@ -121,7 +130,7 @@ def _with_modules(root: nn.Module, replacements: dict[str, nn.Module]) -> nn.Mod
                 copied.add(id(child))
                 parent._modules[part] = child
             parent = child
-        if not isinstance(parent._modules.get(leaf), nn.Linear):
+        if not isinstance(parent._modules.get(leaf), _LINEARS):
             raise KeyError(f"{name} is not a linear of the model")
         parent._modules[leaf] = rep
     return new_root
@@ -188,6 +197,62 @@ def convert_diffusers_lora(sd: dict, alpha: float | None = None) -> dict:
 _QWEN_LM_LINEARS = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
                     "o": "self_attn.o_proj", "gate": "mlp.gate_proj", "up": "mlp.up_proj",
                     "down": "mlp.down_proj"}
+# the same for the vision tower's blocks (`visual.blocks.{i}`) and its patch merger
+_QWEN_VISION_LINEARS = {"qkv": "attn.qkv", "proj": "attn.proj", "gate": "mlp.gate_proj",
+                        "up": "mlp.up_proj", "down": "mlp.down_proj"}
+_QWEN_MERGER_LINEARS = {"merger/fc1/w": "merger.mlp.0", "merger/fc2/w": "merger.mlp.2"}
+
+
+def _qwen_layout(tower: bool):
+    """(block list name, block linears, unstacked linears) of the Qwen LM or tower."""
+    return ("blocks", _QWEN_VISION_LINEARS, _QWEN_MERGER_LINEARS) if tower else ("layers", _QWEN_LM_LINEARS, {})
+
+
+def qwen_adapters_to_jax(adapters: dict, tower: bool = False) -> dict:
+    """Per-module Qwen adapters of `lora_init` over a `QwenLM` (names
+    "layers.{i}.self_attn.q_proj", ...) or, with `tower`, a `QwenVisionTower`
+    ("blocks.{i}.attn.qkv", "merger.mlp.0", ...) -> the JAX package's tree:
+    {"blocks/q/w": {A (N, in, r), B (N, r, out)}, "merger/fc1/w": {A (in, r),
+    B (r, out)}, ...}, fp32 CPU tensors (stacked in block order)."""
+    blocks, linears, single = _qwen_layout(tower)
+    out: dict = {}
+    for path, name in single.items():
+        if name in adapters:
+            ab = adapters[name]
+            out[path] = {"A": ab["lora_A"].detach().float().cpu().t(), "B": ab["lora_B"].detach().float().cpu().t()}
+    for short, sub in linears.items():
+        found = {int(n.split(".")[1]): ab for n, ab in adapters.items()
+                 if n.startswith(f"{blocks}.") and n.split(".", 2)[2] == sub}
+        if found:
+            if sorted(found) != list(range(len(found))):
+                raise KeyError(f"adapters of {blocks}.*.{sub} cover blocks {sorted(found)}, not 0..{len(found) - 1}")
+            out[f"blocks/{short}/w"] = {
+                "A": torch.stack([found[i]["lora_A"].detach().float().cpu().t() for i in range(len(found))]),
+                "B": torch.stack([found[i]["lora_B"].detach().float().cpu().t() for i in range(len(found))])}
+    if sum(ab["A"].shape[0] if ab["A"].dim() == 3 else 1 for ab in out.values()) != len(adapters):
+        raise KeyError(f"adapters {sorted(set(adapters))} name modules outside the Qwen target layout")
+    return out
+
+
+def qwen_adapters_from_jax(tree: dict, tower: bool = False, device=None) -> dict:
+    """Inverse of `qwen_adapters_to_jax`: {JAX path: {A, B}} (tensors or
+    arrays) -> {module name: {lora_A (r, in), lora_B (out, r)}} as fp32
+    parameters on `device`."""
+    blocks, linears, single = _qwen_layout(tower)
+    out = {}
+    for path, ab in tree.items():
+        A, B = torch.as_tensor(np.array(ab["A"], np.float32)), torch.as_tensor(np.array(ab["B"], np.float32))
+        parts = path.split("/")
+        if path in single:
+            pairs = [(single[path], A, B)]
+        elif len(parts) == 3 and parts[0] == "blocks" and parts[1] in linears and parts[2] == "w":
+            pairs = [(f"{blocks}.{i}.{linears[parts[1]]}", A[i], B[i]) for i in range(A.shape[0])]
+        else:
+            raise KeyError(f"adapter path {path!r} names no Qwen {'vision' if tower else 'LM'} linear")
+        for name, a, b in pairs:
+            out[name] = {"lora_A": nn.Parameter(a.t().contiguous().to(device)),
+                         "lora_B": nn.Parameter(b.t().contiguous().to(device))}
+    return out
 
 
 def save_lora_adapter(path: str, lora: dict) -> None:

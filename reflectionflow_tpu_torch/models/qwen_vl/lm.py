@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...config import QwenLMConfig
 
@@ -140,36 +141,53 @@ def _attention_bias(B: int, L: int, attention_mask, kv_cache, device) -> torch.T
     return bias
 
 
+def _decoder_layer(layer: _DecoderLayer, cfg: QwenLMConfig, h: torch.Tensor, cos, sin, bias,
+                   cache=None) -> torch.Tensor:
+    """One decoder layer. `cache` = (k slots, v slots, offset) of this layer:
+    the new positions are written at `offset` in place and attend to every
+    slot."""
+    nH, nKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    a = layer.self_attn
+    x = layer.input_layernorm(h)
+    q = apply_rope_rh(a.q_proj(x).unflatten(-1, (nH, D)), cos, sin)
+    k = apply_rope_rh(a.k_proj(x).unflatten(-1, (nKV, D)), cos, sin)
+    v = a.v_proj(x).unflatten(-1, (nKV, D))
+    if cache is not None:
+        k_slots, v_slots, offset = cache
+        k_slots[:, offset : offset + h.shape[1]] = k
+        v_slots[:, offset : offset + h.shape[1]] = v
+        k, v = k_slots, v_slots
+    attn = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                          attn_mask=bias, enable_gqa=nH != nKV)
+    h = h + a.o_proj(attn.transpose(1, 2).flatten(2))
+    return h + layer.mlp(layer.post_attention_layernorm(h))
+
+
 def qwen_lm_apply(lm: QwenLM, lm_head: nn.Module | None, inputs_embeds: torch.Tensor,
                   position_ids: torch.Tensor, attention_mask: torch.Tensor | None = None,
-                  kv_cache: dict | None = None, return_hidden: bool = False):
+                  kv_cache: dict | None = None, return_hidden: bool = False, remat: bool = False):
     """-> (logits, or the final-norm hidden states with `return_hidden`, cache).
 
     Without a cache: causal self-attention over L, `attention_mask` (B, L) 1 =
     valid. With a cache: the L new positions are written at `cache["len"]` in
     place and attend to every filled slot; the cache comes back with "len"
-    advanced. `lm_head` None ties the output projection to the embeddings."""
+    advanced. `lm_head` None ties the output projection to the embeddings.
+    `remat` (the training path; no cache) recomputes each layer in the
+    backward instead of saving its activations (`torch.utils.checkpoint`), so a
+    quantized base's dequantized weights are not kept for the backward."""
     cfg = lm.cfg
     B, L, _ = inputs_embeds.shape
-    nH, nKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     cos, sin = mrope_tables(position_ids, cfg)
     h = inputs_embeds
     bias = _attention_bias(B, L, attention_mask, kv_cache, h.device).to(h.dtype)
     offset = kv_cache["len"] if kv_cache is not None else 0
+    remat = remat and kv_cache is None and torch.is_grad_enabled()
     for i, layer in enumerate(lm.layers):
-        a = layer.self_attn
-        x = layer.input_layernorm(h)
-        q = apply_rope_rh(a.q_proj(x).unflatten(-1, (nH, D)), cos, sin)
-        k = apply_rope_rh(a.k_proj(x).unflatten(-1, (nKV, D)), cos, sin)
-        v = a.v_proj(x).unflatten(-1, (nKV, D))
-        if kv_cache is not None:
-            kv_cache["k"][i, :, offset : offset + L] = k
-            kv_cache["v"][i, :, offset : offset + L] = v
-            k, v = kv_cache["k"][i], kv_cache["v"][i]
-        attn = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                              attn_mask=bias, enable_gqa=nH != nKV)
-        h = h + a.o_proj(attn.transpose(1, 2).flatten(2))
-        h = h + layer.mlp(layer.post_attention_layernorm(h))
+        if remat:
+            h = checkpoint(_decoder_layer, layer, cfg, h, cos, sin, bias, use_reentrant=False)
+        else:
+            cache = None if kv_cache is None else (kv_cache["k"][i], kv_cache["v"][i], offset)
+            h = _decoder_layer(layer, cfg, h, cos, sin, bias, cache)
     if kv_cache is not None:
         kv_cache["len"] = offset + L
     h = lm.norm(h)

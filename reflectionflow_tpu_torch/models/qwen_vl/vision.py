@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...config import QwenVLVisionConfig
 from .lm import RMSNorm, _MLP, rotate_half
@@ -113,10 +114,25 @@ def _segment_mask(seg: np.ndarray, device) -> torch.Tensor | None:
     return s[:, None] == s[None, :]
 
 
+def _vision_block(blk: _VisionBlock, x: torch.Tensor, cos, sin, mask, nH: int) -> torch.Tensor:
+    B, L, C = x.shape
+    D = C // nH
+    hs = blk.norm1(x)
+    q, k, v = blk.attn.qkv(hs).reshape(B, L, 3, nH, D).unbind(2)
+    q = (q.float() * cos + rotate_half(q.float()) * sin).to(x.dtype)
+    k = (k.float() * cos + rotate_half(k.float()) * sin).to(x.dtype)
+    attn = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                          attn_mask=mask)
+    x = x + blk.attn.proj(attn.transpose(1, 2).reshape(B, L, nH * D))
+    return x + blk.mlp(blk.norm2(x))
+
+
 def qwen_vision_apply(tower: QwenVisionTower, patches: torch.Tensor,
-                      grid_thw: tuple[int, int, int]) -> torch.Tensor:
+                      grid_thw: tuple[int, int, int], remat: bool = False) -> torch.Tensor:
     """Patches (L, 3*tp*ps*ps), or a same-grid batch (B, L, ...), -> image
-    embeddings (L / merge**2, out_hidden_size), or (B, L / merge**2, ...)."""
+    embeddings (L / merge**2, out_hidden_size), or (B, L / merge**2, ...).
+    `remat` (vision-adapter training) recomputes each block in the backward
+    (`torch.utils.checkpoint`) instead of saving its activations."""
     cfg = tower.cfg
     single = patches.dim() == 2
     x = patches[None] if single else patches
@@ -143,16 +159,12 @@ def qwen_vision_apply(tower: QwenVisionTower, patches: torch.Tensor,
     sin = torch.from_numpy(np.sin(ang)).float().to(dev)[None, :, None, :]
     masks = {False: _segment_mask(seg_window, dev), True: _segment_mask(seg_full, dev)}
     fullatt = set(cfg.fullatt_block_indexes)
-
+    remat = remat and torch.is_grad_enabled()
     for i, blk in enumerate(tower.blocks):
-        hs = blk.norm1(x)
-        q, k, v = blk.attn.qkv(hs).reshape(B, L, 3, nH, D).unbind(2)
-        q = (q.float() * cos + rotate_half(q.float()) * sin).to(x.dtype)
-        k = (k.float() * cos + rotate_half(k.float()) * sin).to(x.dtype)
-        attn = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                              attn_mask=masks[i in fullatt])
-        x = x + blk.attn.proj(attn.transpose(1, 2).reshape(B, L, nH * D))
-        x = x + blk.mlp(blk.norm2(x))
+        if remat:
+            x = checkpoint(_vision_block, blk, x, cos, sin, masks[i in fullatt], nH, use_reentrant=False)
+        else:
+            x = _vision_block(blk, x, cos, sin, masks[i in fullatt], nH)
 
     m = tower.merger.ln_q(x).reshape(B, L // unit, unit * cfg.hidden_size)
     m = tower.merger.mlp(m)

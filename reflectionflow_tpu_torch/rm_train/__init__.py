@@ -1,1 +1,3 @@
-"""The reward-model trainer's checkpoint reader (the trainer is ROADMAP item 22)."""
+"""The Image-Verifier (reward model) trainer: losses, GSB data and the LoRA step."""
+
+from .losses import convert_A_B_to_chosen_rejected, pairwise_accuracy, reward_loss  # noqa: F401

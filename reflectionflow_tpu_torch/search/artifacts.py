@@ -133,3 +133,10 @@ class PromptDirs:
                 f.write(f"refined_prompt{search_round}: " + json.dumps(refined_prompt) + "\n")
             if filenames is not None:
                 f.write(f"filenames_batch{search_round}: " + json.dumps(filenames) + "\n")
+
+
+def load_geneval_metadata(path: str, start: int = 0, end: int | None = None) -> list[dict]:
+    """Rows [start:end] of a GenEval `evaluation_metadata.jsonl` ({"prompt", "tag", ...})."""
+    from ..utils.jsonl import read_jsonl
+
+    return read_jsonl(path)[start:end]

@@ -4,8 +4,10 @@ Counterpart of the optax transformations `train/rectified_flow.py::
 make_optimizer` builds in the JAX package: `optax.contrib.prodigy` (at the
 arguments it passes: `safeguard_warmup=True`, betas (0.9, 0.999), eps 1e-8,
 estim_lr0 1e-6), `optax.adamw`, `optax.sgd`, `optax.clip_by_global_norm`
-chained before them, and `optax.MultiSteps` around the chain. PyTorch has no
-Prodigy, so it is written here from optax's update rule.
+chained before them, and `optax.MultiSteps` around the chain; and the
+`optax.multi_transform` of the reward-model trainer's parameter groups
+(`rm_train/train.py::make_rm_optimizer`). PyTorch has no Prodigy, so it is
+written here from optax's update rule.
 
 Each transformation has `init(params) -> state` and `update(grads, state,
 params) -> (updates, state)`; states are dicts of fp32 tensors and ints (so
@@ -167,3 +169,49 @@ class MultiSteps:
         updates, inner = self.opt.update(acc, state["inner_opt_state"], params)
         return updates, {"mini_step": 0, "gradient_step": state["gradient_step"] + 1,
                          "inner_opt_state": inner, "acc_grads": _zeros(acc)}
+
+
+def flatten_tree(tree: dict, prefix: str = "") -> dict:
+    """A nested dict of tensors -> {"a/b/c": tensor}, in the dict's order."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flatten_tree(v, path + "/"))
+        else:
+            out[path] = v
+    return out
+
+
+class multi_transform:
+    """optax.multi_transform over a nested dict of tensors: `label_fn(path)`
+    ("lora/layers.0.self_attn.q_proj/lora_A", ...) names the transformation
+    each tensor belongs to; each transformation sees only its own tensors and
+    keeps its own state. `update` takes grads and params as nested or flat
+    dicts and returns the updates as a flat {path: update} dict."""
+
+    def __init__(self, transforms: dict, label_fn):
+        self.transforms, self.label_fn = transforms, label_fn
+
+    def _groups(self, params: dict) -> dict:
+        flat = flatten_tree(params)
+        groups = {k: [] for k in self.transforms}
+        for path in flat:
+            label = self.label_fn(path)
+            if label not in groups:
+                raise KeyError(f"{path}: label {label!r} has no transformation")
+            groups[label].append(path)
+        return groups
+
+    def init(self, params: dict):
+        flat = flatten_tree(params)
+        return {k: self.transforms[k].init([flat[p] for p in paths]) for k, paths in self._groups(params).items()}
+
+    def update(self, grads: dict, state, params: dict):
+        flat_g, flat_p = flatten_tree(grads), flatten_tree(params)
+        updates, new_state = {}, {}
+        for k, paths in self._groups(params).items():
+            u, new_state[k] = self.transforms[k].update([flat_g[p] for p in paths], state[k],
+                                                        [flat_p[p] for p in paths])
+            updates.update(zip(paths, u))
+        return updates, new_state

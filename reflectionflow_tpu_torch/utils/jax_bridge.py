@@ -8,7 +8,10 @@ keys are the diffusers/transformers names the converters read.
 
 LoRA adapters go both ways (`lora_from_jax`, `lora_to_jax`): the JAX
 package stacks them per block family, `{path: {A: (N, in, r), B: (N, r,
-out)}}`; the port keeps one per linear in the diffusers-peft layout.
+out)}}`; the port keeps one per linear in the diffusers-peft layout. The
+reward-model trainer's trainable tree (Qwen LM and tower adapters, rm_head,
+the special row) goes both ways by `rm_trainable_from_jax` /
+`rm_trainable_to_jax`, over `lora.qwen_adapters_from_jax` / `_to_jax`.
 
 Qwen2.5-VL trees (`qwen_lm_init` / `convert_qwen_lm_state`, `qwen_vision_init`
 / `convert_qwen_vision_state`) go to `QwenVLModel`'s transformers names
@@ -386,3 +389,35 @@ def lora_to_jax(lora: dict, dit: FluxDiT) -> dict:
                                           "B": np.zeros((n, *B.shape), np.float32)})
         node["A"][index], node["B"][index] = A, B
     return {"_alpha": lora["_alpha"], "_r": lora["_r"], "adapters": adapters}
+
+
+def rm_trainable_from_jax(trainable: dict, model: nn.Module | None = None) -> dict:
+    """A JAX reward-model trainable tree ({"lora": {"blocks/q/w": {A (N, in, r),
+    B (N, r, out)}}, "rm_head": (H, out), "special": (H,), "vision_lora": ...};
+    numpy leaves) -> the port's (`rm_train/train.py`): adapters per module
+    under the `QwenLM` / `QwenVisionTower` names, fp32 on `model`'s device
+    (CPU without one)."""
+    from ..lora.lora import qwen_adapters_from_jax
+
+    device = next(model.parameters()).device if model is not None else torch.device("cpu")
+    out = {}
+    for key, value in trainable.items():
+        if key in ("lora", "vision_lora"):
+            out[key] = qwen_adapters_from_jax(value, tower=key == "vision_lora", device=device)
+        else:
+            out[key] = _t(np.asarray(value, np.float32)).to(device)
+    return out
+
+
+def rm_trainable_to_jax(trainable: dict) -> dict:
+    """Inverse of `rm_trainable_from_jax`: a tree of fp32 numpy arrays."""
+    from ..lora.lora import qwen_adapters_to_jax
+
+    out = {}
+    for key, value in trainable.items():
+        if key in ("lora", "vision_lora"):
+            out[key] = {p: {k: v.numpy() for k, v in ab.items()}
+                        for p, ab in qwen_adapters_to_jax(value, tower=key == "vision_lora").items()}
+        else:
+            out[key] = value.detach().float().cpu().numpy()
+    return out

@@ -6,17 +6,20 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Iterable
+from typing import Any, Iterable, Iterator
 
 
 def read_jsonl(path: str | os.PathLike) -> list[dict]:
-    out = []
+    return list(iter_jsonl(path))
+
+
+def iter_jsonl(path: str | os.PathLike) -> Iterator[dict]:
+    """The rows of `path` one at a time (blank lines skipped)."""
     with open(path, "r", encoding="utf-8") as f:
         for line in f:
             line = line.strip()
             if line:
-                out.append(json.loads(line))
-    return out
+                yield json.loads(line)
 
 
 def write_jsonl(path: str | os.PathLike, rows: Iterable[dict], append: bool = False) -> None:

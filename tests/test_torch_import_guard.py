@@ -2,10 +2,10 @@
 packages its target machine lacks: every port module (the K8/K9 ops, the
 corrector sampler, the mesh and ring attention, the verifiers, reflectors and
 search loops, the BPE tokenizers, the snapshot loader, the Qwen2.5-VL models,
-the reward-checkpoint reader and the Qwen verifier included), and the
+the reward-model trainer and the Qwen verifier included), and the
 noise-scaling, train, sample, reflectionflow, noise-prompt-scaling,
-verifier-filter, score-images and vcache-calibrate CLIs' --help, run in a subprocess where
-those imports fail."""
+verifier-filter, score-images, vcache-calibrate and train-reward CLIs' --help, run in a
+subprocess where those imports fail."""
 
 import os
 import pkgutil
@@ -27,7 +27,8 @@ assert not any(n.split(".")[0] in {BLOCKED!r} for n in sys.modules if sys.module
 print(len(names), " ".join(names))
 import contextlib, io
 for cli in ("tts_t2i_noise_scaling", "train", "sample", "tts_reflectionflow",
-            "tts_t2i_noise_prompt_scaling", "verifier_filter", "score_images", "vcache_calibrate"):
+            "tts_t2i_noise_prompt_scaling", "verifier_filter", "score_images", "vcache_calibrate",
+            "train_reward"):
     main = importlib.import_module("reflectionflow_tpu_torch.cli." + cli).main
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -56,7 +57,8 @@ def test_port_imports_without_jax_and_friends():
     rf_help, rest = rest.split("=== tts_t2i_noise_prompt_scaling\n")
     nps_help, rest = rest.split("=== verifier_filter\n")
     filter_help, rest = rest.split("=== score_images\n")
-    score_help, cal_help = rest.split("=== vcache_calibrate\n")
+    score_help, rest = rest.split("=== vcache_calibrate\n")
+    cal_help, reward_help = rest.split("=== train_reward\n")
     assert "--synthetic_weights" in noise_help and "--attn_impl" in noise_help
     assert "--device" in noise_help
     assert "--device" in train_help and "--synthetic_data" in train_help
@@ -71,6 +73,9 @@ def test_port_imports_without_jax_and_friends():
         assert flag in score_help
     for flag in ("--synthetic_weights", "--synthetic_scale", "--out", "--device", "--verifier"):
         assert flag in cal_help
+    for flag in ("--meta_data", "--quantize_base", "--vision_lora", "--resume_from", "--fsdp_devices",
+                 "--synthetic_weights", "--device"):
+        assert flag in reward_help
     for name in ("cli.sample", "ops.flash_attention_int8", "ops.flash_attention_nr", "parallel.mesh",
                  "ops.ring_attention", "verifiers.openai_backend", "verifiers.schemas", "verifiers.prompts",
                  "reflect.generator", "reflect.refiner", "reflect.parsing", "search.reflectionflow",
@@ -79,5 +84,6 @@ def test_port_imports_without_jax_and_friends():
                  "utils.bpe", "utils.hf_loader", "utils.device", "models.registry", "models.qwen_vl.lm",
                  "models.qwen_vl.vision", "models.qwen_vl.model", "models.qwen_vl.reward",
                  "models.qwen_vl.generate", "rm_train.train", "verifiers.qwen_verifier", "cli.score_images",
-                 "cli.vcache_calibrate", "sampler.vcache_calibrate"):
+                 "cli.vcache_calibrate", "sampler.vcache_calibrate", "rm_train.losses", "rm_train.data",
+                 "cli.train_reward"):
         assert f"reflectionflow_tpu_torch.{name}" in proc.stdout
