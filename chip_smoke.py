@@ -11,7 +11,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (`csrc/flash_bwd.cu`), K3–K5 (`csrc/act_quant.cu`), K2
      (`csrc/norm_rope.cu`), K8 (`csrc/flash_fwd_int8.cu`) and K9
      (`csrc/flash_fwd_nr.cu`) into `.build/kernels/`, one nvcc per source,
-     all started together; prints ptxas's registers and spills per kernel;
+     all started together, and with g++ beside them the host image codecs
+     (`csrc/host/image_io.cpp`) and the native tar indexer
+     (`native/genref_loader.cpp`) into `.build/host/`; prints ptxas's
+     registers and spills per kernel;
      checks that each kernel on the Hopper pipelines `csrc/flash_fwd_sm90.cuh`
      (K1, K7a, K8b, K9b) and `csrc/flash_bwd_sm90.cuh` (K6a, K6b, K7b, K7c) holds wgmma
      (HGMMA; K8b also the integer IGMMA) and TMA (UTMALDG) instructions and no
@@ -81,6 +84,24 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      171 K6b launches (no K2–K5); prints s/step, peak memory and a profiler
      split of one step; at B=1 the adapter gradients with K1 + K6 agree with
      the plain attention's (cosine >= 0.99 per adapter family);
+  5e. GenRef JPEG training, on the same bf16 pipeline: each committed JPEG
+     fixture of tests/data/torch_jpeg/ decodes (`utils/image_io.py`) to the
+     sha256 of PIL's decode in its manifest, and `resize_bicubic` gives the
+     manifest's PIL resize hashes at the paired-crop shapes and equals
+     `resize_ref` bit for bit; the progressive fixture raises
+     NotImplementedError; the median of GENREF_REPS runs of: a 1024^2 4:2:0
+     decode (and the other 1024-wide fixtures), a 1024^2 -> 512^2 resize in
+     C++ and in `resize_ref` in turns, and the Paeth PNG unfilter of a
+     1024^2 RGB image in C++ and in its numpy loop in turns; a GenRef-format
+     tar of GENREF_SAMPLES samples (the 1024^2 fixtures good, the 1024x768
+     one bad, subsets general / length / rule / editing, every other sample's
+     members under PAX long names) indexed by `utils/native.py`; one
+     `GenRefDataset` batch (B=8, 512 px, condition 512, the train CLI's
+     GenRef subset schedule) timed alone and split into decode, resize and
+     the rest; then `train()` for 3 steps from that shard at TrainConfig's
+     defaults: phase 5b's checks and launch counts (342 K1, 171 K6a, 171 K6b),
+     no `tarfile` read and no native fallback, JPEG decodes counted; prints
+     s/step and the data's share of it;
   5c. the training validation hook (`make_validation_hook`) once on the
      trained adapters: a conditioned generate of 2 val samples at 512 px,
      20 steps: exactly 20 x 57 = 1140 K1 launches, 2 PNGs of 512x512x3, and
@@ -219,7 +240,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      and gives the two images of a pair finite, different scores; then an NF4
      base (`quantize_base="nf4"`) for RM_NF4_STEPS steps, its s/step beside
      int8's.
-The training numbers are on the line {"train": {...}}, the ring phase's on
+The training numbers are on the line {"train": {...}}, phase 5e's on
+{"genref_data": {...}}, the ring phase's on
 {"ring": {...}}, the reflection round's on {"reflection_round": {...}}, the
 snapshot phase's on {"snapshot_load": {...}}, the round with models on
 {"reflection_round_models": {...}}, the NVILA round on {"nvila_round":
@@ -251,6 +273,11 @@ K8_COS, K8_EXACT_ERR = 0.999, 0.05  # K8 against exact fp32 attention (the JAX t
 K6_REL_TOL = 1e-2  # K6a/K6b: max |err| <= K6_REL_TOL * max |ref| for each of dQ, dK, dV
 TRAIN_STEPS = 3  # corrector training steps at TrainConfig defaults (B=8, 512 px, r=32)
 TRAIN_COS = 0.99  # adapter gradients, K1 + K6 vs plain attention, cosine per adapter family
+GENREF_SAMPLES = 16  # phase 5e's shard: 2 batches at B=8
+GENREF_REPS = 9  # phase 5e's host timings: the median of this many runs
+GENREF_SUBSETS = ("general", "length", "rule", "editing")
+GENREF_STAGES = [0, 1000]  # the train CLI's subset ratios (`GENREF_SPLIT_RATIOS`), stage 0 -> 1
+FIXTURES = os.path.join(REPO, "tests", "data", "torch_jpeg")
 STEPS, N_PROMPTS, BRANCH = 8, 2, 2
 H, M, D, LT, LI = 3072, 12288, 128, 512, 4096  # FLUX.1-dev widths; txt and img tokens at 1024px
 LC = 1024  # cond tokens of a 512 px condition
@@ -1180,24 +1207,44 @@ def log_split(label: str, events, wall_s: float) -> dict:
     return {"wall_ms": wall_s * 1e3, "device_ms": busy, **{k: v / 1e3 for k, v in groups.items()}}
 
 
-def run_train(torch, pipe, cfg, tmp: str, label: str) -> dict:
-    """`train()` over a synthetic 512 px PNG shard written to `tmp`, with every
-    launch count set to 0 just before and read just after; checks the loss,
-    the gradient norm, the adapters, the checkpoint and the metric rows."""
+class TimedData:
+    """A dataset whose iterator records the seconds of each `next` in `secs`."""
+
+    def __init__(self, ds):
+        self.ds, self.secs = ds, []
+
+    def set_step(self, step):
+        self.ds.set_step(step)
+
+    def __iter__(self):
+        it = iter(self.ds)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it)
+            self.secs.append(time.perf_counter() - t0)
+            yield batch
+
+
+def run_train(torch, pipe, cfg, tmp: str, label: str, shard: str | None = None, schedule=None) -> dict:
+    """`train()` over `shard` (by default a synthetic 512 px PNG shard written
+    to `tmp`), with every launch count set to 0 just before and read just
+    after; checks the loss, the gradient norm, the adapters, the checkpoint
+    and the metric rows. `data_s` holds the seconds of each step's batch."""
     from reflectionflow_tpu_torch.train.data import GenRefDataset, write_synthetic_shard
     from reflectionflow_tpu_torch.train.train_loop import latest_checkpoint, train
 
     d = cfg.data
     cfg.checkpoint_dir = os.path.join(tmp, "ckpt")
-    shard = os.path.join(tmp, "genref_000.tar")
-    t0 = time.perf_counter()
-    write_synthetic_shard(shard, n=2 * d.batch_size, size=d.target_size)
-    log(f"{label}: synthetic shard of {2 * d.batch_size} samples at {d.target_size} px in "
-        f"{time.perf_counter() - t0:.1f} s")
+    if shard is None:
+        shard = os.path.join(tmp, "genref_000.tar")
+        t0 = time.perf_counter()
+        write_synthetic_shard(shard, n=2 * d.batch_size, size=d.target_size)
+        log(f"{label}: synthetic shard of {2 * d.batch_size} samples at {d.target_size} px in "
+            f"{time.perf_counter() - t0:.1f} s")
 
     def dataset():
         return GenRefDataset(shards=[shard], batch_size=d.batch_size, target_size=d.target_size,
-                             condition_size=d.condition_size, seed=cfg.seed)
+                             condition_size=d.condition_size, schedule=schedule, seed=cfg.seed)
 
     moved = []
 
@@ -1208,8 +1255,9 @@ def run_train(torch, pipe, cfg, tmp: str, label: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counters = zero_counts()
+    data = TimedData(dataset())
     t0 = time.perf_counter()
-    out = train(pipe, cfg, dataset(), hooks=[hook])
+    out = train(pipe, cfg, data, hooks=[hook])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -1228,7 +1276,7 @@ def run_train(torch, pipe, cfg, tmp: str, label: str) -> dict:
     check(all(math.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in rows), "bad loss or grad_norm")
     check(moved == [True], "the adapters' B did not move after step 1")
     return {"adapters": out["adapters"], "rows": rows, "launches": launches, "peak": peak,
-            "s_per_step": s_per_step, "raw": next(iter(dataset()))}
+            "s_per_step": s_per_step, "data_s": data.secs, "raw": next(iter(dataset()))}
 
 
 def adapter_grad_cosines(torch, pipe, adapters, raw, impls, model_flags=None):
@@ -1275,6 +1323,16 @@ def adapter_grad_cosines(torch, pipe, adapters, raw, impls, model_flags=None):
     return cos, launches
 
 
+def check_train_launches(launches: dict, n_blocks: int, label: str) -> None:
+    """Exactly 2 K1, 1 K6a and 1 K6b launch per attention call and step
+    (forward, recomputation, backward) and no other kernel."""
+    expected = {name: 0 for name in launches}
+    expected.update(flash_fwd=2 * n_blocks * TRAIN_STEPS, flash_bwd_dq=n_blocks * TRAIN_STEPS,
+                    flash_bwd_dkv=n_blocks * TRAIN_STEPS)
+    log(f"{label} launches {launches} (expected {expected})")
+    check(launches == expected, f"{label} did not run K1/K6a/K6b the expected number of times")
+
+
 def train_phase(torch, pipe):
     """Corrector LoRA training on the bf16 FLUX.1-dev pipeline at full width
     and depth: `train()` with TrainConfig's defaults (batch 8, target and
@@ -1297,11 +1355,7 @@ def train_phase(torch, pipe):
     with tempfile.TemporaryDirectory() as tmp:
         run = run_train(torch, pipe, cfg, tmp, "train")
         launches = run["launches"]
-        expected = {name: 0 for name in launches}
-        expected.update(flash_fwd=2 * n_blocks * TRAIN_STEPS, flash_bwd_dq=n_blocks * TRAIN_STEPS,
-                        flash_bwd_dkv=n_blocks * TRAIN_STEPS)
-        log(f"train launches {launches} (expected {expected})")
-        check(launches == expected, "training did not run K1/K6a/K6b the expected number of times")
+        check_train_launches(launches, n_blocks, "train")
 
         # a profiler split of one more step on the trained adapters
         raw = run["raw"]
@@ -1333,6 +1387,201 @@ def train_phase(torch, pipe):
     return {"s_per_step": run["s_per_step"], "peak_gib": run["peak"] / 2**30, "launches": launches,
             "rows": run["rows"], "profile_ms": prof, "grad_cosine_min": min(cos.values()),
             "grad_cosine": cos, "adapters": adapters}
+
+
+def _sha256(a) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _median_ms(fns: dict, reps: int) -> dict:
+    """{name: median ms of `reps` calls}, the functions called in turns."""
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(ts) for name, ts in times.items()}
+
+
+def genref_fixtures(image_io) -> dict:
+    """Every committed fixture: its decode and its resize chains against the
+    manifest's PIL hashes, each resize against `resize_ref` bit for bit.
+    Returns {name: (bytes, decoded image)} of the decodable ones."""
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    out = {}
+    for name, entry in sorted(manifest.items()):
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            data = f.read()
+        check(_sha256(data) == entry["file_sha256"], f"{name}: not the committed fixture")
+        if "raises" in entry:
+            try:
+                image_io.decode_jpeg(data)
+            except NotImplementedError as e:
+                log(f"fixture {name}: NotImplementedError ({e})")
+                continue
+            check(False, f"{name} decoded; it must raise NotImplementedError")
+        img = image_io.decode_jpeg(data)
+        check(_sha256(img) == entry["decode_sha256"], f"{name}: decode differs from PIL's")
+        for chain, want in entry["resize_sha256"].items():
+            got = ref = img
+            for step in chain.split(","):
+                size = tuple(int(v) for v in step.split("x"))
+                got, ref = image_io.resize_bicubic(got, size), image_io.resize_ref(ref, size)
+            check(_sha256(got) == want, f"{name}: resize {chain} differs from PIL's")
+            check(bool((got == ref).all()), f"{name}: resize {chain} differs from resize_ref")
+        log(f"fixture {name} ({img.shape[1]}x{img.shape[0]}): decode and {len(entry['resize_sha256'])} "
+            "resize chains equal PIL's hashes; resize_ref bitwise")
+        out[name] = (data, img)
+    return out
+
+
+def write_genref_jpeg_shard(path: str, goods: list, bad: bytes) -> None:
+    """GENREF_SAMPLES GenRef samples of JPEG bytes; every other sample's
+    members sit under a directory name long enough to need PAX records."""
+    import io
+    import tarfile
+
+    with tarfile.open(path, "w", format=tarfile.PAX_FORMAT) as tar:
+        for i in range(GENREF_SAMPLES):
+            key = f"{i:06d}"
+            prefix = ("genref_" + "x" * 120 + "/") if i % 2 else ""
+            files = {"good_image.jpg": goods[i % len(goods)], "bad_image.jpg": bad,
+                     "prompt.txt": f"a photo of object {i} on a table".encode(),
+                     "reflection.txt": f"make object {i} sharper and correctly colored".encode(),
+                     "subset.txt": GENREF_SUBSETS[i % len(GENREF_SUBSETS)].encode()}
+            for field, data in files.items():
+                info = tarfile.TarInfo(f"{prefix}{key}.{field}")
+                info.size = len(data)
+                tar.addfile(info, io.BytesIO(data))
+
+
+def genref_phase(torch, pipe, card: str, host_build_s: float) -> dict:
+    """Phase 5e: the GenRef data path from a JPEG shard (see the module's
+    docstring)."""
+    import tarfile
+
+    import numpy as np
+
+    from reflectionflow_tpu_torch.config import TrainConfig
+    from reflectionflow_tpu_torch.train import data as tdata
+    from reflectionflow_tpu_torch.utils import image_io, native
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "host_build_s": host_build_s}
+    fixtures = genref_fixtures(image_io)
+    out["fixtures_checked"] = len(fixtures)
+    good_names = sorted(n for n, (_, img) in fixtures.items() if img.shape[:2] == (1024, 1024))
+    bad_name = next(n for n, (_, img) in fixtures.items() if img.shape[:2] == (768, 1024))
+    check(len(good_names) >= 2, "fewer than two 1024^2 fixtures")
+
+    # host timings, the median of GENREF_REPS runs
+    dec = _median_ms({n: (lambda d=fixtures[n][0]: image_io.decode_jpeg(d))
+                      for n in good_names + [bad_name]}, GENREF_REPS)
+    img = fixtures["good_a_1024_q75_420.jpg"][1]
+    res = _median_ms({"cpp": lambda: image_io.resize_bicubic(img, (512, 512)),
+                      "resize_ref": lambda: image_io.resize_ref(img, (512, 512))}, GENREF_REPS)
+    raw = np.random.default_rng(0).integers(0, 256, (1024, 3 * 1024 + 1), dtype=np.uint8)
+    raw[:, 0] = 4  # Paeth on every row
+    check(bool((image_io.png_unfilter(raw, 1024, 3072, 3)
+                == image_io.png_unfilter_ref(raw, 1024, 3072, 3)).all()), "Paeth unfilter differs")
+    paeth = _median_ms({"cpp": lambda: image_io.png_unfilter(raw, 1024, 3072, 3),
+                        "numpy": lambda: image_io.png_unfilter_ref(raw, 1024, 3072, 3)}, GENREF_REPS)
+    out.update(decode_ms=dec, decode_ms_1024_420=dec["good_a_1024_q75_420.jpg"], resize_ms=res["cpp"],
+               resize_ref_ms=res["resize_ref"], resize_ref_ratio=res["resize_ref"] / res["cpp"],
+               paeth_unfilter_ms=paeth["cpp"], paeth_unfilter_numpy_ms=paeth["numpy"])
+    log(f"host codecs (median of {GENREF_REPS}): decode ms {', '.join(f'{n} {v:.2f}' for n, v in dec.items())}; "
+        f"resize 1024^2 -> 512^2 {res['cpp']:.2f} ms C++, {res['resize_ref']:.1f} ms resize_ref "
+        f"({out['resize_ref_ratio']:.1f}x); Paeth unfilter 1024^2 RGB {paeth['cpp']:.2f} ms C++, "
+        f"{paeth['numpy']:.0f} ms numpy loop; {card}")
+
+    cfg = TrainConfig()
+    cfg.attn_impl, cfg.max_steps = "pallas", TRAIN_STEPS
+    d = cfg.data
+    schedule = tdata.StageSchedule(tdata.GENREF_SPLIT_RATIOS, list(GENREF_STAGES))
+    n_blocks = pipe.dit_cfg.num_double_blocks + pipe.dit_cfg.num_single_blocks
+    with tempfile.TemporaryDirectory() as tmp:
+        shard = os.path.join(tmp, "genref_jpeg_000.tar")
+        write_genref_jpeg_shard(shard, [fixtures[n][0] for n in good_names], fixtures[bad_name][0])
+        idx = native.tar_index(shard)
+        check(idx is not None and len(idx[0]) == 5 * GENREF_SAMPLES, "the native indexer did not take the shard")
+        check(sum(len(n) > 100 for n in idx[0]) == 5 * (GENREF_SAMPLES // 2), "PAX long names not indexed")
+        out["shard_mib"] = os.path.getsize(shard) / 2**20
+
+        # one batch alone, split into decode, resize and the rest
+        spent = {"decode": 0.0, "resize": 0.0}
+
+        def timed(fn, key):
+            def wrapper(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    spent[key] += time.perf_counter() - t0
+            return wrapper
+
+        orig = tdata.decode_image, tdata.resize
+        tdata.decode_image, tdata.resize = timed(orig[0], "decode"), timed(orig[1], "resize")
+        calls0 = dict(image_io.calls)
+        try:
+            ds = tdata.GenRefDataset(shards=[shard], batch_size=d.batch_size, target_size=d.target_size,
+                                     condition_size=d.condition_size, schedule=schedule, seed=cfg.seed)
+            t0 = time.perf_counter()
+            batch = next(iter(ds))
+            batch_s = time.perf_counter() - t0
+        finally:
+            tdata.decode_image, tdata.resize = orig
+        n_dec = image_io.calls["decode_jpeg"] - calls0.get("decode_jpeg", 0)
+        n_res = image_io.calls["resize_bicubic"] - calls0.get("resize_bicubic", 0)
+        shape = (d.batch_size, d.target_size, d.target_size, 3)
+        check(batch["image"].shape == shape and batch["condition"].shape[0] == d.batch_size,
+              f"batch shapes {batch['image'].shape}, {batch['condition'].shape}")
+        check(bool(np.isfinite(batch["image"]).all() and np.abs(batch["image"]).max() <= 1.0), "bad batch values")
+        check(set(batch["subset"]) <= set(GENREF_SUBSETS), f"subsets {batch['subset']}")
+        out["batch"] = {"s": batch_s, "decode_s": spent["decode"], "resize_s": spent["resize"],
+                        "rest_s": batch_s - spent["decode"] - spent["resize"], "jpeg_decodes": n_dec,
+                        "resizes": n_res, "subsets": batch["subset"]}
+        log(f"one GenRef batch (B={d.batch_size}, {d.target_size} px, condition {d.condition_size}): "
+            f"{batch_s:.3f} s = decode {spent['decode']:.3f} s ({n_dec} JPEGs) + resize {spent['resize']:.3f} s "
+            f"({n_res}) + rest {out['batch']['rest_s']:.3f} s; subsets {batch['subset']}")
+
+        # train 3 steps from the shard: no tarfile read, no native fallback
+        opened = []
+        tar_open, fallbacks0, calls0 = tarfile.open, native.fallbacks, dict(image_io.calls)
+
+        def counting_open(*a, **k):
+            opened.append(a[0] if a else k.get("name"))
+            return tar_open(*a, **k)
+
+        tarfile.open = counting_open
+        try:
+            run = run_train(torch, pipe, cfg, tmp, "genref train", shard=shard, schedule=schedule)
+        finally:
+            tarfile.open = tar_open
+        n_dec = image_io.calls["decode_jpeg"] - calls0.get("decode_jpeg", 0)
+        check(not opened and native.fallbacks == fallbacks0, f"tarfile opened {opened}; "
+              f"fallbacks {native.fallbacks - fallbacks0}")
+        check(n_dec > 0, "training decoded no JPEG")
+        check_train_launches(run["launches"], n_blocks, "genref train")
+        data_s = run["data_s"][:TRAIN_STEPS]
+        out.update(launches=run["launches"], s_per_step=run["s_per_step"], peak_gib=run["peak"] / 2**30,
+                   losses=[r["loss"] for r in run["rows"]], step_time_s=[r["step_time_s"] for r in run["rows"]],
+                   data_s_in_loop=data_s, jpeg_decodes_in_training=n_dec,
+                   batch_share_of_step=batch_s / run["s_per_step"],
+                   loop_data_share=statistics.mean(data_s[1:]) / run["s_per_step"])
+        del run
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"GenRef JPEG training (5e): {out['s_per_step']:.3f} s/step (steps 2-{TRAIN_STEPS}); one batch "
+        f"{batch_s:.3f} s alone = {100 * out['batch_share_of_step']:.1f}% of a step; in the loop "
+        f"{[round(x, 3) for x in data_s]} s ({100 * out['loop_data_share']:.1f}%); phase {out['phase_s']:.1f} s; "
+        f"{card}")
+    torch.cuda.empty_cache()
+    return out
 
 
 def ring_phase(torch, pipe):
@@ -3182,9 +3431,23 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from reflectionflow_tpu_torch.ops import kernel_build
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from reflectionflow_tpu_torch.utils import image_io, native
+
     t_start = t0 = time.perf_counter()
-    kernel_build.build_all()
-    log(f"build {', '.join(kernel_build.SOURCES)} (in parallel): {time.perf_counter() - t0:.2f} s")
+
+    def build_host():
+        t1 = time.perf_counter()
+        kernel_build.build_host_all([image_io.SOURCE, native.SOURCE])
+        return time.perf_counter() - t1
+
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(build_host)
+        kernel_build.build_all()
+        host_build_s = host.result()
+    log(f"build {', '.join(kernel_build.SOURCES)} (in parallel): {time.perf_counter() - t0:.2f} s; "
+        f"host libraries image_io.cpp and genref_loader.cpp (g++, beside them): {host_build_s:.2f} s")
     ptxas = {src: kernel_build.ptxas_report(src) for src in kernel_build.SOURCES}
     log(json.dumps({"ptxas": ptxas}))
     hopper_sass = hopper_check(kernel_build, ptxas)
@@ -3202,6 +3465,7 @@ def main() -> int:
     pipe, bf16_launches, bf16_calls, bf16_peak = bf16_phase(torch)
     training = train_phase(torch, pipe)
     adapters = training.pop("adapters")
+    genref = genref_phase(torch, pipe, card, host_build_s)
     validation = validation_phase(torch, pipe, adapters)
     t0 = time.perf_counter()
     ring = ring_phase(torch, pipe)
@@ -3234,6 +3498,7 @@ def main() -> int:
         "launches": bf16_launches["flash_fwd"],
         "launches_w8a8": w8_launches["flash_fwd"],
         "launches_train": training["launches"]["flash_fwd"],
+        "launches_genref": genref["launches"]["flash_fwd"],
         "launches_snapshot": {"bf16": snapshot["launches_bf16"]["flash_fwd"],
                               "w8a8": snapshot["launches_int8"]["flash_fwd"]},
         "max_abs_err": err_out,
@@ -3248,6 +3513,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": "reflectionflow_tpu_torch/csrc/flash_bwd.cu",
             "replaces": replaces, "launches": training["launches"][name],
+            "launches_genref": genref["launches"][name],
             "max_abs_err": k6[key]["err"], "rel_err": k6[key]["rel"],
             "ms": at[train_shape][key]["ms"], "plain_ms": at[train_shape]["plain_ms"],
             "bound_ms": at[train_shape][key]["bound_ms"], "bound_by": at[train_shape][key]["bound_by"],
@@ -3309,6 +3575,7 @@ def main() -> int:
     log(json.dumps({"train": {k: training[k] for k in ("s_per_step", "peak_gib", "profile_ms",
                                                        "grad_cosine_min", "grad_cosine")},
                     "validation_hook": validation}))
+    log(json.dumps({"genref_data": genref}))
     log(json.dumps({"reflection_round": reflection}))
     log(json.dumps({"snapshot_load": snapshot}))
     log(json.dumps({"reflection_round_models": round_models}))

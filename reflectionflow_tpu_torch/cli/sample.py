@@ -10,8 +10,9 @@ sheet per item, named `{image_id}.png` or `result_{index}.png`.
 Meta file: a JSON list or JSONL of items with `prompt`, `bad_image` (path),
 optional `good_image`, and a reflection under one of `reflection_prompt` /
 `instruction` / `reflection` / `edited_prompt_list`. Paths resolve against
---root_dir. Images are PNG: the port decodes them itself (JPEG raises), and
-resizes with its PIL-order bicubic (`train/data.py::resize`).
+--root_dir. Images are JPEG (baseline) or PNG, decoded by the port itself as
+PIL decodes them, and resized with its copy of PIL's bicubic
+(`train/data.py::resize`, bit for bit).
 
 Usage:
   python -m reflectionflow_tpu_torch.cli.sample \\

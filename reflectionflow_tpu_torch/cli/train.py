@@ -22,7 +22,7 @@ import os
 import torch
 
 from ..config import TrainConfig
-from ..train.data import GenRefDataset, StageSchedule, write_synthetic_shard
+from ..train.data import GENREF_SPLIT_RATIOS, GenRefDataset, StageSchedule, write_synthetic_shard
 from ..train.train_loop import train
 from .common import add_device_arg, resolve_device, synthetic_pipeline
 
@@ -74,10 +74,7 @@ def main(argv=None):
     schedule = None
     if cfg.data.training_stages:
         stages = [s if isinstance(s, int) else s[0] for s in cfg.data.training_stages]
-        ratios = cfg.split_ratios or {
-            # GenRef defaults
-            "general": [0.1, 0.3], "length": [0.1, 0.3], "rule": [0.1, 0.4], "editing": [0.7, 0.0],
-        }
+        ratios = cfg.split_ratios or GENREF_SPLIT_RATIOS
         schedule = StageSchedule(split_ratios=ratios, training_stages=stages)
 
     ds = GenRefDataset(

@@ -96,7 +96,7 @@ class Qwen2CausalLM(nn.Module):
 
 def preprocess_images(images: Sequence[np.ndarray], size: int) -> np.ndarray:
     """uint8 HWC images -> (B, size, size, 3) float32 in [-1, 1]: square resize
-    with the port's PIL-order bicubic (within 1 level of PIL's), then
+    with the port's copy of PIL's bicubic (bit for bit), then
     (x / 255 - 0.5) / 0.5, SigLIP's processor."""
     from ...train.data import resize
 

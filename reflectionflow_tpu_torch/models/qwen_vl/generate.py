@@ -9,8 +9,8 @@ flags on the host once every `_DONE_CHECK` steps to stop early, which changes
 no output (a finished row records nothing more), where the JAX loop tests
 them on the device every step.
 
-The image resize is the port's PIL-order antialiased bicubic
-(`train/data.py::resize`), within 1 level of PIL's. Sampling (temperature >
+The image resize is the port's copy of PIL's bicubic
+(`train/data.py::resize`, bit for bit). Sampling (temperature >
 0) draws from a `torch.Generator`, so sampled tokens differ from the JAX
 package's `jax.random` draws; greedy decoding is the same function.
 """

@@ -8,9 +8,10 @@ frames, the last frame repeated to fill one, grid (T/tp, H/ps, W/ps)).
 
 Readers (`_read_decoded`): decoded sources only, as in the JAX package: a
 (T, H, W, 3) array, a list of frames, a `.npy` / `.npz` file, or a directory
-of PNG frames read by the port's PNG decoder (the card's machine has no PIL);
-a codec container path raises. Frames are resized with the port's PIL-order
-bicubic (`train/data.py::resize`, within 1 level of PIL's).
+of JPEG or PNG frames read by the port's own decoders
+(`train/data.py::decode_image`, the same pixels as PIL; the card's machine
+has no PIL); a codec container path raises. Frames are resized with the port's copy of PIL's
+bicubic (`train/data.py::resize`, bit for bit).
 """
 
 from __future__ import annotations
@@ -89,7 +90,7 @@ def sample_frame_indices(total_frames: int, video_fps: float, sample_type: str =
     raise ValueError(f"unknown sample_type {sample_type!r}")
 
 
-def _read_png_dir(path: str) -> np.ndarray:
+def _read_frame_dir(path: str) -> np.ndarray:
     from ...train.data import decode_image
 
     names = sorted(n for n in os.listdir(path) if n.lower().endswith((".png", ".jpg", ".jpeg", ".bmp", ".webp")))
@@ -113,7 +114,7 @@ def _read_decoded(source) -> np.ndarray:
         if path.startswith("file://"):
             path = path[7:]
         if os.path.isdir(path):
-            frames = _read_png_dir(path)
+            frames = _read_frame_dir(path)
         elif path.endswith(".npy"):
             frames = np.load(path)
         elif path.endswith(".npz"):

@@ -9,6 +9,13 @@ source at once. A failed build raises; nothing falls back. ptxas's report of
 each kernel's registers and spills is kept beside its library
 (`ptxas_report`); `sass_opcodes` counts the instructions a built kernel holds
 (cuobjdump), to show which tensor-core and copy paths it really took.
+
+Host route: `build_host_all` compiles C++ sources that run on the CPU (the
+image codecs of `csrc/host/`, the repository's `native/genref_loader.cpp`)
+with `g++ -O3 -shared -fPIC -std=c++17` into
+`.build/host/<name>-<hash>/lib<name>.so`, keyed by the source and the flags,
+through the same process-unique temporary file and rename; a missing compiler
+or a failed build raises, as on the nvcc route.
 """
 
 from __future__ import annotations
@@ -22,7 +29,10 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / ".build" / "kernels"
+REPO = Path(__file__).resolve().parents[2]
+BUILD_ROOT = REPO / ".build" / "kernels"
+HOST_BUILD_ROOT = REPO / ".build" / "host"
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "act_quant.cu", "norm_rope.cu", "flash_fwd_int8.cu",
            "flash_fwd_nr.cu")
 # K1 and K7a take the approximate exp and division; the flash backward, act-quant,
@@ -31,6 +41,7 @@ SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "act_quant.cu", "norm_rope.cu", "flas
 FAST_MATH = frozenset({"flash_fwd.cu"})
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_LOADED_HOST: dict[Path, ctypes.CDLL] = {}
 
 
 def nvcc_flags(source: str) -> tuple[str, ...]:
@@ -57,29 +68,37 @@ def _library_path(source: str) -> Path:
     return BUILD_ROOT / f"{stem}-{digest.hexdigest()[:16]}" / f"lib{stem}.so"
 
 
+def _compile_all(jobs, tool: str) -> None:
+    """Run every (label, output, command, report) compile job at once; each
+    output is written to a process-unique temporary file and renamed into
+    place after `report(output, stderr)`. Raises after all have ended if any
+    failed."""
+    running = []
+    for label, out, cmd, report in jobs:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        running.append((label, out, tmp, report, subprocess.Popen(
+            [*cmd, "-o", str(tmp)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for label, out, tmp, report, proc in running:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{tool} failed for {label}:\n{err}")
+        else:
+            report(out, err)
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build_all(sources=SOURCES) -> list[Path]:
     """Compile each `csrc/<source>` whose library is missing, all at once;
     returns the library paths in order."""
     outs = [_library_path(s) for s in sources]
-    running = []
-    for source, out in zip(sources, outs):
-        if out.exists():
-            continue
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_cuda_tool("nvcc"), *nvcc_flags(source), "-o", str(tmp), str(CSRC / source)]
-        running.append((source, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failed = []
-    for source, out, tmp, proc in running:
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {source}:\n{err}")
-        else:
-            out.with_suffix(".ptxas").write_text(err)
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("\n".join(failed))
+    jobs = [(source, out, [_cuda_tool("nvcc"), *nvcc_flags(source), str(CSRC / source)],
+             lambda out, err: out.with_suffix(".ptxas").write_text(err))
+            for source, out in zip(sources, outs) if not out.exists()]
+    _compile_all(jobs, "nvcc")
     return outs
 
 
@@ -145,4 +164,36 @@ def load(source: str) -> ctypes.CDLL:
     lib = _LOADED.get(source)
     if lib is None:
         lib = _LOADED[source] = ctypes.CDLL(str(build(source)))
+    return lib
+
+
+def host_library_path(source: Path) -> Path:
+    """Where the host C++ file `source` builds to (depends on its content and
+    the flags)."""
+    source = Path(source)
+    digest = hashlib.sha256(source.read_bytes() + " ".join(HOST_FLAGS).encode())
+    return HOST_BUILD_ROOT / f"{source.stem}-{digest.hexdigest()[:16]}" / f"lib{source.stem}.so"
+
+
+def build_host_all(sources) -> list[Path]:
+    """Compile each host C++ file whose library is missing, all at once, with
+    g++; returns the library paths in order."""
+    sources = [Path(s) for s in sources]
+    outs = [host_library_path(s) for s in sources]
+    missing = [(s, o) for s, o in zip(sources, outs) if not o.exists()]
+    if missing:
+        compiler = shutil.which(os.environ.get("CXX", "g++"))
+        if compiler is None:
+            raise RuntimeError(f"no C++ compiler to build {missing[0][0]} (install g++ or set CXX)")
+        _compile_all([(source, out, [compiler, *HOST_FLAGS, str(source)], lambda out, err: None)
+                      for source, out in missing], "g++")
+    return outs
+
+
+def load_host(source: Path) -> ctypes.CDLL:
+    """Build (if needed) and load the host C++ file `source` once per process."""
+    source = Path(source).resolve()
+    lib = _LOADED_HOST.get(source)
+    if lib is None:
+        lib = _LOADED_HOST[source] = ctypes.CDLL(str(build_host_all([source])[0]))
     return lib

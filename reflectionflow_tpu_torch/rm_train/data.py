@@ -8,10 +8,10 @@ right-pads both sides to a common length.
 Rows: {"image_A": path or (H, W, 3) uint8, "image_B": ..., "prompt": str,
        "gsb": "G"|"S"|"B" or "chosen_label": int, "score_A"/"score_B": float}
 
-Images are read by the port's PNG decoder (`search/artifacts.py::load_image`)
-and resized with the port's bicubic (`train/data.py::resize`), which is
-within 1 level of PIL's; an image already at the target size is not
-resized.
+Images are read by the port's decoders (`search/artifacts.py::load_image`:
+JPEG and PNG, as PIL decodes them) and resized with the port's copy of PIL's
+bicubic (`train/data.py::resize`, bit for bit); an image already at the
+target size is not resized.
 """
 
 from __future__ import annotations

@@ -15,8 +15,9 @@ and JSONL layout per prompt index,
         search_state.json         (resume manifest)
 
 and `save_image` writes PNG with the standard library (zlib + struct), so the
-port needs no imaging package. `load_image` reads PNG with the port's own
-decoder (`train/data.py::decode_png`); JPEG raises, as in training.
+port needs no imaging package. `load_image` reads JPEG (baseline) and PNG
+with the port's own decoders (`train/data.py::decode_image`), as PIL's
+`Image.open(...).convert("RGB")` does.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ def save_image(path: str, image: np.ndarray) -> None:
 
 
 def load_image(path: str) -> np.ndarray:
-    """A PNG file -> (H, W, 3) uint8 RGB."""
+    """A JPEG or PNG file -> (H, W, 3) uint8 RGB."""
     from ..train.data import decode_image
 
     with open(path, "rb") as f:

@@ -16,8 +16,8 @@ round:
 
 The round structure, the per-path score cache, the resume rules, every file
 name and every JSONL field are the JAX package's. Two differences: the
-condition resize is the port's PIL-order bicubic (`train/data.py::resize`,
-within 1 level of PIL), and each micro-batch's `generate` returns host
+condition resize is the port's C++ copy of PIL's bicubic
+(`train/data.py::resize`, bit for bit the same pixels), and each micro-batch's `generate` returns host
 images before the next one starts, where JAX dispatches every micro-batch
 before fetching any.
 """

@@ -5,7 +5,10 @@ and the same numpy PCG64 seeds, so that subset choices, crops and drops
 match the JAX package's run draw for draw:
   * a sample is the group of files `{key}.good_image.{png,jpg}`,
     `{key}.bad_image.*`, `{key}.reflection.txt`, `{key}.prompt.txt`,
-    `{key}.subset.txt` in one shard, read with Python's `tarfile`;
+    `{key}.subset.txt` in one shard, indexed by the native C++ reader
+    (`utils/native.py`) and read in one batched call per sample; a shard the
+    indexer cannot take (return code -2 or -3) is read with Python's
+    `tarfile`, as in the JAX package, and counted in `native.fallbacks`;
   * subset streams (general/length/rule/editing) mixed with stage-scheduled
     ratios (`StageSchedule`); each stream loops over the shards forever;
   * paired augmentation: bad resized to good, shorter-edge resize to
@@ -16,12 +19,13 @@ match the JAX package's run draw for draw:
     description falls back to the prompt; description =
     "{prompt} [Reflexion] {reflection}".
 
-Divergences (the port's machine has no PIL): images are decoded by a PNG
-reader written here (8-bit grey/RGB/RGBA, non-interlaced); JPEG raises. The
-resize is `torch.nn.functional.interpolate(mode="bicubic", antialias=True)`
-run as PIL runs it (width pass, rounded to uint8, then height pass), which is
-not bit-exact to PIL's fixed-point bicubic (tests/test_torch_train.py states
-the bound). An identity resize is a copy, as in PIL.
+The port's machine has no PIL: images are decoded by the port's own readers
+(`utils/image_io.py`: baseline JPEG bit-exact to PIL's decode; PNG at 8-bit
+grey/RGB/RGBA, non-interlaced) and resized by its C++ copy of PIL's bicubic
+`Image.resize`, bit for bit. A sample whose image is corrupt is skipped, as in
+the JAX package; an image format the readers do not take (progressive JPEG,
+for one) raises `NotImplementedError`. `write_synthetic_shard` writes PNG
+where the JAX package writes JPEG: the port has no JPEG encoder.
 """
 
 from __future__ import annotations
@@ -35,51 +39,18 @@ from dataclasses import dataclass
 from typing import Iterator
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
 from ..search.artifacts import encode_png
+from ..utils import native
+from ..utils.image_io import decode_jpeg, png_unfilter
+from ..utils.image_io import resize_bicubic as resize
 
-_JPEG_NOT_PORTED = "JPEG decoding is not ported yet (ROADMAP queue 1); shards must hold PNG"
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # color type -> channels (grey, RGB, RGBA)
 
 
 def _to_float(img: np.ndarray) -> np.ndarray:
     return img.astype(np.float32) / 127.5 - 1.0
-
-
-def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the per-scanline PNG filters (None, Sub, Up, Average, Paeth)."""
-    out = np.zeros((h, stride), np.uint8)
-    prev = np.zeros(stride, np.int32)
-    rows = raw.reshape(h, stride + 1)
-    for y in range(h):
-        ftype, line = rows[y, 0], rows[y, 1:].astype(np.int32)
-        if ftype == 0:
-            cur = line
-        elif ftype == 1:  # Sub: a running sum per channel
-            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) & 0xFF
-        elif ftype == 2:  # Up
-            cur = (line + prev) & 0xFF
-        elif ftype in (3, 4):  # Average, Paeth: sequential along the row
-            cur = line.copy()
-            for x in range(stride):
-                a = cur[x - bpp] if x >= bpp else 0
-                b = prev[x]
-                if ftype == 3:
-                    pred = (a + b) >> 1
-                else:
-                    c = prev[x - bpp] if x >= bpp else 0
-                    p = a + b - c
-                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-                cur[x] = (cur[x] + pred) & 0xFF
-        else:
-            raise ValueError(f"bad PNG filter type {ftype}")
-        out[y] = cur
-        prev = cur
-    return out
 
 
 def decode_png(data: bytes) -> np.ndarray:
@@ -105,39 +76,18 @@ def decode_png(data: bytes) -> np.ndarray:
                                   f"{interlace}: the port reads 8-bit grey/RGB/RGBA, non-interlaced")
     c = _PNG_CHANNELS[color]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    img = _unfilter(raw, h, w * c, c).reshape(h, w, c)
+    img = png_unfilter(raw, h, w * c, c).reshape(h, w, c)
     if c == 1:
         return np.repeat(img, 3, axis=2)
     return np.ascontiguousarray(img[..., :3])
 
 
 def decode_image(data: bytes) -> np.ndarray:
+    """JPEG or PNG bytes -> (H, W, 3) uint8 RGB, as PIL's
+    `Image.open(...).convert("RGB")` gives them."""
     if data.startswith(b"\xff\xd8"):
-        raise NotImplementedError(_JPEG_NOT_PORTED)
+        return decode_jpeg(data)
     return decode_png(data)
-
-
-def _resize_axis(x: torch.Tensor, size: int, axis: int) -> torch.Tensor:
-    """One bicubic antialiased pass over `axis` (2 = H, 3 = W) of (1, C, H, W)
-    float pixel values, rounded half up and clamped to [0, 255]."""
-    out = list(x.shape[2:])
-    out[axis - 2] = size
-    y = F.interpolate(x, size=tuple(out), mode="bicubic", antialias=True, align_corners=False)
-    return torch.floor(y + 0.5).clamp(0, 255)
-
-
-def resize(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
-    """(H, W, 3) uint8 -> (size[1], size[0], 3) uint8, PIL's `Image.resize(size)`
-    with its default bicubic filter: width first, then height."""
-    w, h = size
-    if (img.shape[1], img.shape[0]) == (w, h):
-        return img.copy()
-    x = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None].double()
-    if img.shape[1] != w:
-        x = _resize_axis(x, w, 3)
-    if img.shape[0] != h:
-        x = _resize_axis(x, h, 2)
-    return x[0].permute(1, 2, 0).to(torch.uint8).numpy()
 
 
 @dataclass
@@ -155,21 +105,52 @@ _FIELD_SUFFIXES = (
 )
 
 
+def _split_key(base: str) -> tuple[str, str] | None:
+    for suffix in _FIELD_SUFFIXES:
+        if base.endswith("." + suffix):
+            return base[: -(len(suffix) + 1)], suffix
+    return None
+
+
 def iter_tar_samples(shard_path: str) -> Iterator[Sample]:
-    """Stream grouped samples out of one tar shard (consecutive members that
-    share a key form a sample)."""
+    """Stream grouped samples out of one GenRef tar shard: the native indexer
+    and batched reads, or Python's `tarfile` where the indexer returns -2/-3."""
+    idx = native.tar_index(shard_path)
+    if idx is not None:
+        yield from _iter_tar_samples_native(shard_path, idx)
+        return
+    native.fallbacks += 1
+    yield from _iter_tar_samples_py(shard_path)
+
+
+def _iter_tar_samples_native(shard_path: str, idx) -> Iterator[Sample]:
+    """Members grouped by key in order of first appearance, one batched read
+    per sample."""
+    names, offsets, sizes = idx
+    groups: dict[str, dict[str, int]] = {}
+    for i, name in enumerate(names):
+        ks = _split_key(name.split("/")[-1])
+        if ks is not None:
+            groups.setdefault(ks[0], {})[ks[1]] = i
+    for members in groups.values():
+        idxs = list(members.values())
+        parts = dict(zip(members, native.tar_read_batch(shard_path, offsets[idxs], sizes[idxs])))
+        sample = _assemble(parts)
+        if sample is not None:
+            yield sample
+
+
+def _iter_tar_samples_py(shard_path: str) -> Iterator[Sample]:
+    """Consecutive members that share a key form a sample."""
     with tarfile.open(shard_path, "r") as tar:
         current_key, parts = None, {}
         for member in tar:
             if not member.isfile():
                 continue
-            base = member.name.split("/")[-1]
-            for suffix in _FIELD_SUFFIXES:
-                if base.endswith("." + suffix):
-                    key = base[: -(len(suffix) + 1)]
-                    break
-            else:
+            ks = _split_key(member.name.split("/")[-1])
+            if ks is None:
                 continue
+            key, suffix = ks
             if current_key is not None and key != current_key and parts:
                 sample = _assemble(parts)
                 if sample is not None:
@@ -190,8 +171,8 @@ def _assemble(parts: dict[str, bytes]) -> Sample | None:
         return None
     try:
         good, bad = decode_image(good_b), decode_image(bad_b)
-    except (ValueError, zlib.error, struct.error):  # corrupt sample -> skip
-        return None
+    except (ValueError, zlib.error, struct.error):  # corrupt sample -> skip; an unsupported
+        return None  # format's NotImplementedError propagates
     return Sample(
         good=good,
         bad=bad,
@@ -212,6 +193,10 @@ def _paired_crop(good: np.ndarray, bad: np.ndarray, target: int, rng: np.random.
     x0 = int(rng.integers(0, nw - target + 1))
     y0 = int(rng.integers(0, nh - target + 1))
     return g[y0:y0 + target, x0:x0 + target], b[y0:y0 + target, x0:x0 + target]
+
+
+# GenRef's subset mix at its two training stages (the train CLI's default)
+GENREF_SPLIT_RATIOS = {"general": [0.1, 0.3], "length": [0.1, 0.3], "rule": [0.1, 0.4], "editing": [0.7, 0.0]}
 
 
 @dataclass

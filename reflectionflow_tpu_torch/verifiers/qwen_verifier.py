@@ -9,8 +9,8 @@ special token, score statistics), `rm_head.safetensors` and, when trained,
 
 The score of a same-length, same-grid group is one batched vision-tower pass
 and one LM forward + pooling + head (`models.qwen_vl.reward.rm_scores`),
-eager under `torch.no_grad`. The image resize is the port's PIL-order bicubic
-(`train/data.py::resize`), within 1 level of PIL's. A (T, H, W, 3) clip is
+eager under `torch.no_grad`. The image resize is the port's copy of PIL's bicubic
+(`train/data.py::resize`, bit for bit). A (T, H, W, 3) clip is
 sampled and resized by `models/qwen_vl/video.py::fetch_video` and scored with
 video pads and the `video_score` template.
 """

@@ -2,7 +2,8 @@
 packages its target machine lacks: every port module (the K8/K9 ops, the
 corrector sampler, the mesh and ring attention, the verifiers, reflectors and
 search loops, the BPE tokenizers, the snapshot loader, the Qwen2.5-VL models,
-the reward-model trainer and the Qwen verifier included), and the
+the reward-model trainer, the Qwen verifier and the host image codecs and
+tar indexer included), and the
 noise-scaling, train, sample, reflectionflow, noise-prompt-scaling,
 verifier-filter, score-images, vcache-calibrate and train-reward CLIs' --help, run in a
 subprocess where those imports fail."""
@@ -13,7 +14,8 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "reflectionflow_tpu", "pydantic", "PIL", "safetensors", "transformers", "regex")
+BLOCKED = ("jax", "jaxlib", "reflectionflow_tpu", "pydantic", "PIL", "safetensors", "transformers", "regex",
+           "cv2", "torchvision")
 
 _SCRIPT = f"""
 import importlib, pkgutil, sys
@@ -85,5 +87,5 @@ def test_port_imports_without_jax_and_friends():
                  "models.qwen_vl.vision", "models.qwen_vl.model", "models.qwen_vl.reward",
                  "models.qwen_vl.generate", "rm_train.train", "verifiers.qwen_verifier", "cli.score_images",
                  "cli.vcache_calibrate", "sampler.vcache_calibrate", "rm_train.losses", "rm_train.data",
-                 "cli.train_reward"):
+                 "cli.train_reward", "utils.image_io", "utils.native"):
         assert f"reflectionflow_tpu_torch.{name}" in proc.stdout

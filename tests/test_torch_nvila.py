@@ -149,8 +149,8 @@ def test_first_token_logits_match_jax(template):
     got = pm.first_token_logits(imgs[:3], prompts[:3])
     assert got.shape == (3, 150001) and got.dtype == np.float32
     close(got, want)
-    # a resized image: the port's bicubic is within 1 level of PIL's, so its logits move a little
-    close(pm.first_token_logits(imgs[3:], prompts[3:]), jm.first_token_logits(imgs[3:], prompts[3:]), rel=5e-2)
+    # a resized image: the port's bicubic gives PIL's pixels, so the logits hold the same bound
+    close(pm.first_token_logits(imgs[3:], prompts[3:]), jm.first_token_logits(imgs[3:], prompts[3:]))
 
 
 def _write_bundle(root, seed=7, proj_type="mlp_downsample", tower_prefix=True, image_size=24):

@@ -6,9 +6,9 @@ from PNG files and given as arrays, `build_side_sequence` with and without
 the special token, `vision_train_geometry`, `convert_gsb_csv`, the JSONL
 helpers `iter_jsonl` and `load_geneval_metadata`, the prompt templates, and
 JAX `tests/test_rm_data.py`'s collate-then-step check on the port. Images
-are fed at their target size, where neither package resizes (JAX resizes
-with PIL, the port with its own bicubic, within 1 level). About 20 s on one
-core."""
+are mostly fed at their target size; `tests/test_torch_train.py::
+test_resize_sites_match_jax` holds the side builder's resize to JAX's
+(PIL's) bit for bit. About 20 s on one core."""
 
 import json
 

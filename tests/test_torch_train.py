@@ -148,14 +148,22 @@ def test_train_step_rejects_untrainable_attention():
 
 
 def test_genref_dataset_matches_jax(tmp_path):
-    """A PNG shard at identity sizes: the same pixels, prompts, descriptions,
-    drops and subsets, batch for batch, as the JAX pipeline."""
+    """A JPEG shard written by the JAX package (PIL's encoder), read by both
+    packages on their native tar route, at sizes that really resize (40 px
+    sources, target 16, condition 8): the same pixels, prompts,
+    descriptions, drops and subsets, batch for batch."""
+    from reflectionflow_tpu.utils import native as jnative
+    from reflectionflow_tpu_torch.utils import native as tnative
+
     shard = str(tmp_path / "genref_000.tar")
-    tdata.write_synthetic_shard(shard, n=8, size=16)
+    jdata.write_synthetic_shard(shard, n=8, size=40)
+    assert jnative.get_lib() is not None and jnative.tar_index(shard) is not None
+    assert tnative.tar_index(shard) is not None
+    fallbacks = tnative.fallbacks
     samples = list(tdata.iter_tar_samples(shard))
-    assert len(samples) == 8 and samples[0].good.shape == (16, 16, 3)
+    assert len(samples) == 8 and samples[0].good.shape == (40, 40, 3)
     ratios = {"general": [0.5, 0.2], "editing": [0.5, 0.8]}
-    kw = dict(shards=[shard], batch_size=3, target_size=16, condition_size=16, seed=5,
+    kw = dict(shards=[shard], batch_size=3, target_size=16, condition_size=8, seed=5,
               drop_text_prob=0.3, drop_image_prob=0.3, drop_reflection_prob=0.3)
     j_ds = jdata.GenRefDataset(schedule=jdata.StageSchedule(ratios, [0, 4]), **kw)
     t_ds = tdata.GenRefDataset(schedule=tdata.StageSchedule(ratios, [0, 4]), **kw)
@@ -165,31 +173,32 @@ def test_genref_dataset_matches_jax(tmp_path):
         t_ds.set_step(step)
         want, got = next(j_it), next(t_it)
         assert sorted(got) == sorted(want)
+        assert got["image"].shape == (3, 16, 16, 3) and got["condition"].shape == (3, 8, 8, 3)
         for k in ("image", "condition"):
             np.testing.assert_array_equal(got[k], want[k])
         for k in ("original_prompt", "description", "subset", "condition_type"):
             assert got[k] == want[k]
     assert t_ds.schedule.ratios_at(2) == j_ds.schedule.ratios_at(2)
+    assert tnative.fallbacks == fallbacks
 
 
 def test_resize_bound_against_pil():
-    """PIL's bicubic `Image.resize`, emulated with torch's antialiased
-    bicubic (width pass, uint8 rounding, height pass): at most 1 level apart
-    on at most 1e-4 of the values; identity sizes are exact copies."""
+    """PIL's bicubic `Image.resize`, bit for bit (the port's C++ copy of
+    Pillow's fixed-point resampler); identity sizes are exact copies."""
     rng = np.random.default_rng(0)
-    for (h, w), size in [((37, 53), (16, 16)), ((20, 20), (47, 31)), ((300, 200), (512, 341))]:
+    for (h, w), size in [((37, 53), (16, 16)), ((20, 20), (47, 31)), ((300, 200), (512, 341)),
+                         ((512, 512), (333, 250))]:
         img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
-        want = np.asarray(Image.fromarray(img).resize(size)).astype(int)
-        got = tdata.resize(img, size).astype(int)
-        diff = np.abs(got - want)
-        assert got.shape == want.shape and diff.max() <= 1 and (diff > 0).mean() <= 1e-4
+        want = np.asarray(Image.fromarray(img).resize(size))
+        np.testing.assert_array_equal(tdata.resize(img, size), want)
     img = rng.integers(0, 256, (9, 7, 3), dtype=np.uint8)
     assert np.array_equal(tdata.resize(img, (7, 9)), img)
 
 
-def test_png_decoder_reads_pil_filters_and_refuses_jpeg():
-    """PIL writes adaptive scanline filters (Sub/Up/Average/Paeth); the
-    decoder undoes them exactly, for RGB, RGBA and grey."""
+def test_png_and_jpeg_decoders_match_pil():
+    """PIL writes adaptive scanline filters (Sub/Up/Average/Paeth); the PNG
+    decoder undoes them exactly, for RGB, RGBA and grey. A baseline JPEG
+    decodes to PIL's pixels."""
     import io
 
     rng = np.random.default_rng(1)
@@ -201,10 +210,59 @@ def test_png_decoder_reads_pil_filters_and_refuses_jpeg():
         Image.fromarray(arr).save(buf, format="PNG")
         want = np.asarray(Image.fromarray(arr).convert("RGB"))
         np.testing.assert_array_equal(tdata.decode_image(buf.getvalue()), want)
-    buf = io.BytesIO()
-    Image.fromarray(smooth).save(buf, format="JPEG")
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        tdata.decode_image(buf.getvalue())
+    for arr in (smooth, np.stack([smooth, smooth[::-1], 255 - smooth], -1)):
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format="JPEG")
+        want = np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"))
+        np.testing.assert_array_equal(tdata.decode_image(buf.getvalue()), want)
+
+
+def _site_pair(site):
+    """(JAX function, port function) of one image -> resized-array site."""
+    if site == "round":
+        from reflectionflow_tpu.search import reflectionflow as jrf
+        from reflectionflow_tpu_torch.search import reflectionflow as trf
+
+        return (lambda img: jrf._resize(img, 24)), (lambda img: trf.resize(img, (24, 24)))
+    if site == "nvila":
+        from reflectionflow_tpu.models.nvila.model import preprocess_images as jprep
+        from reflectionflow_tpu_torch.models.nvila.model import preprocess_images as tprep
+
+        return (lambda img: jprep([img], 24)), (lambda img: tprep([img], 24))
+    import dataclasses
+    from types import SimpleNamespace
+
+    from reflectionflow_tpu.config import QwenLMConfig as JLMConfig
+    from reflectionflow_tpu.config import QwenVLVisionConfig as JVisConfig
+    from reflectionflow_tpu.rm_train.data import build_side_sequence as jside
+    from reflectionflow_tpu_torch.config import QwenLMConfig, QwenVLVisionConfig
+    from reflectionflow_tpu_torch.rm_train.data import build_side_sequence as tside
+
+    jl, jv = JLMConfig.tiny(), JVisConfig.tiny()
+    jm = SimpleNamespace(lm_cfg=jl, vis_cfg=jv)
+    tm = SimpleNamespace(lm_cfg=QwenLMConfig(**dataclasses.asdict(jl)),
+                         vis_cfg=QwenVLVisionConfig(**dataclasses.asdict(jv)))
+    side = dict(prompt="a red cube", max_pixels=32 * 32)
+
+    def pair(fn, model):
+        return lambda img: (lambda out: (out["image"], out["ids"]))(fn(model, img, **side))
+
+    return pair(jside, jm), pair(tside, tm)
+
+
+@pytest.mark.parametrize("site", ["round", "nvila", "rm_collate"])
+def test_resize_sites_match_jax(site):
+    """A non-square image that is not at any target size, through the round's
+    condition resize, NVILA's preprocessing and the reward model's side
+    builder: the same arrays as the JAX package's."""
+    img = np.random.default_rng(7).integers(0, 256, (45, 61, 3), dtype=np.uint8)
+    j, t = _site_pair(site)
+    want, got = j(img), t(img)
+    if site == "rm_collate":
+        (want, want_ids), (got, ids) = want, got
+        np.testing.assert_array_equal(ids, want_ids)
+    assert got.shape == np.asarray(want).shape and got.shape[-3:-1] != img.shape[:2]
+    np.testing.assert_array_equal(got, np.asarray(want))
 
 
 def test_train_cli_runs_on_cpu(tmp_path, monkeypatch):

@@ -72,14 +72,13 @@ def test_frame_counts_and_indices_match_jax(total, fps_in):
     dict(shape=(6, 100, 60), kw=dict(max_pixels=64 * 64, image_factor=8)),
 ])
 def test_fetch_video_matches_jax(case):
-    """The same frames and grid; pixels within 1 level where frames are resized
-    (the port's bicubic against PIL's), bitwise where they are not."""
+    """The same frames and grid, bit for bit, resized or not (the port's copy
+    of PIL's bicubic)."""
     frames = clip(*case["shape"], seed=1)
     want = jvideo.fetch_video(frames, **case["kw"])
     got = video.fetch_video(frames, **case["kw"])
     assert got.shape == want.shape and got.dtype == np.uint8
-    diff = np.abs(got.astype(np.int16) - want.astype(np.int16)).max()
-    assert diff <= (1 if want.shape[1:3] != case["shape"][1:] else 0)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_readers_match_jax(tmp_path):
