@@ -239,19 +239,52 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      a `QwenRewardVerifier` over the same seeded base reads that checkpoint
      and gives the two images of a pair finite, different scores; then an NF4
      base (`quantize_base="nf4"`) for RM_NF4_STEPS steps, its s/step beside
-     int8's.
+     int8's;
+  14. serving over a mesh of ranks (`reflectionflow_tpu_torch/parallel/`), the
+     parent holding no model: MESH_WORLD gloo ranks on cuda:0 (NCCL refuses two
+     ranks on one GPU, so every collective goes through host memory and is
+     counted), each sub-phase spawned afresh by `parallel.distributed.launch`,
+     full-width FLUX.1-dev of random bf16 weights from seed 0 built one rank at a
+     time, the ranks' weights checked equal, MESH_STEPS steps at 1024 px (cut
+     from 30); every launch count read on each rank around its sharded call:
+     (a) TP, data 1 x model MESH_WORLD, bf16 "pallas", 2 prompts x 2
+     candidates: final latents cosine >= MESH_COS against rank 0's one-rank
+     generate of the same seed, exactly 57 K1 and 114 all-reduces a forward on
+     each rank (all through host memory, no gather), each rank's DiT holding
+     exactly its shard's bytes (the specs' cut dims halved; < 0.7 of the whole),
+     K1's first launch at each of its shapes on the sharded forward (B=4,
+     L=4608, 12 heads a rank) held against its plain version on those same
+     inputs (OUT_TOL, LSE_TOL), s/step and the all-reduce time share
+     (synchronised around each call);
+     (b) DP, data MESH_WORLD, W8A8 "pallas", the same 4 candidates, one prompt a
+     rank: cosine >= MESH_COS against the one-rank W8A8 generate, the uint8 max
+     |diff| printed, exactly 57 K1, 152 K2, 114 K3, 76 K4, 76 K5 a forward on
+     each rank and one gather;
+     (c) `parallel.dryrun.dryrun_multihost` on the card: a cross-rank sum and
+     prompt-sharded `run_noise_scaling` (tiny fp32 weights) over NCCL in a
+     world of one (the one-rank tree), at MESH_WORLD over gloo against it, and
+     over NCCL at `torch.cuda.device_count()` ranks where there are several
+     cards: the same files, the PNGs byte for byte;
+     (d) `run_reflectionflow_block` at data MESH_WORLD under W8A8 "pallas_nr"
+     with the fake models (1 prompt, round 0 + 1 round, the cond stream on the
+     DiT itself): on rank 0 alone first, one data slice a generate call, then
+     on both ranks; the same files, byte for byte, and exactly the K9 and
+     K3–K5 launches of MESH_STEPS t2i and MESH_STEPS conditioned forwards a
+     rank.
 The training numbers are on the line {"train": {...}}, phase 5e's on
 {"genref_data": {...}}, the ring phase's on
 {"ring": {...}}, the reflection round's on {"reflection_round": {...}}, the
 snapshot phase's on {"snapshot_load": {...}}, the round with models on
 {"reflection_round_models": {...}}, the NVILA round on {"nvila_round":
 {...}}, phase 12's on {"vcache_nf4": {...}} and phase 13's on {"rm_train":
-{...}}; the line before the last is {"kernels": [...]}; the last line is
+{...}}, phase 14's on {"mesh": {...}}; the line before the last is
+{"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -261,6 +294,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_TOL, LSE_TOL = 1e-2, 1e-3  # K1 (bf16 out, fp32 lse) against the fp32 plain version
@@ -305,6 +339,12 @@ RM_PAIRS, RM_PX = 2, 448  # train_reward's per_device_train_batch_size and max_p
 RM_LORA_R, RM_LORA_ALPHA = 16, 32.0  # train_reward's defaults
 RM_LR = 1e-5  # train_reward's default
 RM_SEED = 13
+MESH_WORLD = 2  # phase 14: ranks on the one card (gloo; NCCL refuses two ranks on one GPU)
+MESH_STEPS = 4  # phase 14's Euler steps (cut from 30)
+MESH_COS = 0.999  # phase 14: sharded final latents against the one-rank run of the same seed
+MESH_SEED = 21
+MESH_TIMEOUT = 420  # seconds a phase-14 launch may take
+MESH_PARENT_GIB = 4.0  # phase 14: what the parent may still hold of the card its ranks share
 K1_PRESET = (1, LT + LI + LC, LT + LI, 0.0)  # phase 11: K1 at the NVILA preset's (B, L, main_len, cross bias)
 # K1 timed: (B, L, main_len, cross bias): the t2i forward at B = 1 and 2, and the training
 # sequence (512 + 1024 + 1024 tokens, the cond segment at 1536) with the c_factor bias
@@ -3416,6 +3456,385 @@ def rm_train_phase(torch, card: str) -> dict:
     return out
 
 
+# -- phase 14: serving over a mesh of ranks ----------------------------------
+
+
+def _mesh_ctx():
+    import torch
+    import torch.distributed as dist
+
+    from reflectionflow_tpu_torch.parallel import collectives
+
+    return torch, dist, collectives
+
+
+def _mesh_prompts(n: int) -> list[str]:
+    """n prompts of configs/geneval_sample.jsonl, each BRANCH times."""
+    with open(os.path.join(REPO, "configs", "geneval_sample.jsonl")) as f:
+        rows = [json.loads(line)["prompt"] for line in f if line.strip()][:n]
+    return [p for p in rows for _ in range(BRANCH)]
+
+
+def _mesh_build(device, mesh, quantize: bool, setup=None, first=None):
+    """The full-width FLUX.1-dev pipeline of random bf16 weights from seed 0 on
+    every rank, built one rank at a time, each rank down to its serving size
+    before the next builds (two bf16 pipelines at once, 2 x 34 GB, would not
+    fit beside a third rank's): W8A8 after `quantize` (the CLI's int8
+    profile), then `setup(pipe)`, on rank 0 `first(pipe)` (the one-rank
+    reference), then `pipe.set_mesh(mesh)` (the TP cut). Weights are not
+    broadcast: every rank draws the same seed on the same card
+    (`mesh_weight_check` holds them equal)."""
+    torch, dist, _ = _mesh_ctx()
+    from reflectionflow_tpu_torch.sampler.pipeline import FluxPipeline
+
+    pipe, ref, build_s = None, None, 0.0
+    for turn in range(dist.get_world_size()):
+        if dist.get_rank() == turn:
+            t0 = time.perf_counter()
+            pipe = FluxPipeline.random_init(torch.Generator(device=device).manual_seed(0),
+                                            dtype=torch.bfloat16, device=device)
+            if quantize:
+                pipe.quantize(int4=(), weight_only=("t5",))
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            if setup is not None:
+                setup(pipe)
+            if turn == 0 and first is not None:
+                ref = first(pipe)
+            pipe.set_mesh(mesh)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return pipe, ref, build_s
+
+
+def mesh_weight_check(pipe) -> None:
+    """Every rank holds rank 0's weights: a checksum of each model (the DiT's
+    whole modules only) gathered and compared."""
+    torch, dist, _ = _mesh_ctx()
+    from reflectionflow_tpu_torch.parallel.specs import dit_param_spec
+
+    sums = []
+    for name in ("dit", "t5", "clip", "vae"):
+        for k, t in getattr(pipe, name).state_dict().items():
+            if name != "dit" or dit_param_spec(k) is None:
+                sums.append(t.float().sum())
+    mine = torch.stack(sums).double().cpu()
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    check(all(torch.equal(every[0], x) for x in every), "phase 14: the ranks' weights differ")
+
+
+def _timed_all_reduce(collectives, torch):
+    """Wrap `collectives.all_reduce_sum` to add each call's seconds (synchronised
+    before and after) to the returned list; returns (list, restore)."""
+    spent, inner = [], collectives.all_reduce_sum
+
+    def timed(x, group=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(x, group)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    collectives.all_reduce_sum = timed
+    return spent, lambda: setattr(collectives, "all_reduce_sum", inner)
+
+
+def _launch_counts():
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _spy_k1():
+    """Wrap K1's wrapper where `FlashAttention` calls it, to keep a copy of the
+    inputs and outputs of its first launch at each (shape, main_len,
+    cross_bias). The wrapper counts its launches on the name it is called
+    by, the spy while it is in place; `restore` hands that count back.
+    Returns (captured, restore)."""
+    from reflectionflow_tpu_torch.ops import flash_attention as fa
+
+    seen, inner = {}, fa.flash_attention_fwd
+
+    def spy(q, k, v, main_len=None, cross_bias=0.0):
+        out, lse = inner(q, k, v, main_len, cross_bias)
+        key = (tuple(q.shape), main_len, cross_bias)
+        if key not in seen:
+            seen[key] = [t.clone() for t in (q, k, v, out, lse)]
+        return out, lse
+
+    def restore():
+        inner.launches = spy.launches
+        fa.flash_attention_fwd = inner
+
+    spy.launches = inner.launches
+    fa.flash_attention_fwd = spy
+    return seen, restore
+
+
+def _k1_against_plain(torch, seen) -> list[dict]:
+    """K1's outputs kept by `_spy_k1` against `flash_attention_ref` on the same
+    inputs (OUT_TOL, LSE_TOL), one batch row at a time (the plain version's
+    fp32 logits of 12 heads at L = 4608 take 1 GB a row)."""
+    from reflectionflow_tpu_torch.ops.flash_attention import flash_attention_ref
+
+    res = []
+    with torch.no_grad():
+        for (shape, main_len, cb), (q, k, v, out, lse) in seen.items():
+            e_out = e_lse = ref_max = 0.0
+            for b in range(shape[0]):
+                r_out, r_lse = flash_attention_ref(q[b:b + 1].float(), k[b:b + 1].float(),
+                                                   v[b:b + 1].float(), main_len, cb)
+                e_out = max(e_out, (out[b:b + 1].float() - r_out).abs().max().item())
+                e_lse = max(e_lse, (lse[b:b + 1] - r_lse).abs().max().item())
+                ref_max = max(ref_max, r_out.abs().max().item())
+                del r_out, r_lse
+            res.append({"shape": list(shape), "main_len": main_len, "cross_bias": cb,
+                        "max_abs_err": e_out, "max_lse_err": e_lse, "ref_max_abs": ref_max})
+    seen.clear()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_tp_rank(device, _td):
+    """14a: data 1 x model MESH_WORLD, bf16 "pallas", 2 prompts x BRANCH."""
+    torch, dist, collectives = _mesh_ctx()
+    from reflectionflow_tpu_torch.models.flux.dit import FluxDiT
+    from reflectionflow_tpu_torch.parallel.mesh import make_mesh
+    from reflectionflow_tpu_torch.parallel.specs import dit_param_spec
+
+    prompts = _mesh_prompts(N_PROMPTS)
+    kw = dict(num_inference_steps=MESH_STEPS, seed=MESH_SEED, output_type="latent")
+
+    def setup(pipe):
+        pipe.attn_impl = "pallas"
+
+    tp = MESH_WORLD
+    pipe, ref, build_s = _mesh_build(device, make_mesh((1, tp), ("data", "model")), quantize=False,
+                                     setup=setup, first=lambda pipe: pipe.generate(prompts, **kw))
+    mesh_weight_check(pipe)
+    with torch.device("meta"):  # the whole DiT's bytes, from its shapes
+        full = {k: t.numel() * pipe.dtype.itemsize for k, t in FluxDiT(pipe.dit_cfg).state_dict().items()}
+    want_bytes = sum(b // tp if dit_param_spec(k) is not None else b for k, b in full.items())
+    dit_bytes = sum(t.numel() * t.element_size() for t in pipe.dit.state_dict().values())
+    check(dit_bytes == want_bytes, f"14a: rank DiT holds {dit_bytes} bytes, its shard {want_bytes}")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    collectives.reset_counts()
+    spent, restore = _timed_all_reduce(collectives, torch)
+    k1_seen, restore_k1 = _spy_k1()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        final = pipe.generate(prompts, **kw)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+        restore_k1()
+    wall = time.perf_counter() - t0
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend(), "launches": _launch_counts(),
+           "collectives": dict(collectives.COUNTS), "dit_bytes": dit_bytes, "dit_bytes_full": sum(full.values()),
+           "generate_s": wall, "s_per_step": wall / MESH_STEPS, "all_reduce_s": sum(spent),
+           "all_reduce_share": sum(spent) / wall, "build_s": build_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "finite": bool(torch.isfinite(final).all()), "k1_vs_plain": _k1_against_plain(torch, k1_seen)}
+    if ref is not None:
+        out["cosine"] = _cosine(final, ref)
+    return out
+
+
+def mesh_dp_rank(device, _td):
+    """14b: data MESH_WORLD, W8A8 "pallas", 2 prompts x BRANCH (one prompt a rank)."""
+    torch, dist, collectives = _mesh_ctx()
+    from reflectionflow_tpu_torch.parallel.mesh import make_mesh
+
+    prompts = _mesh_prompts(N_PROMPTS)
+    kw = dict(num_inference_steps=MESH_STEPS, seed=MESH_SEED, output_type="latent")
+
+    def setup(pipe):
+        pipe.attn_impl = "pallas"
+
+    def reference(pipe):
+        lat = pipe.generate(prompts, **kw)
+        return lat, pipe.decode_latents(lat, 1024, 1024)
+
+    pipe, ref, build_s = _mesh_build(device, make_mesh((MESH_WORLD,), ("data",)), quantize=True,
+                                     setup=setup, first=reference)
+    mesh_weight_check(pipe)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    collectives.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final = pipe.generate(prompts, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"rank": dist.get_rank(), "launches": _launch_counts(), "collectives": dict(collectives.COUNTS),
+           "generate_s": wall, "s_per_step": wall / MESH_STEPS, "build_s": build_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "shape": list(final.shape),
+           "finite": bool(torch.isfinite(final).all())}
+    if ref is not None:
+        images = pipe.decode_latents(final, 1024, 1024)
+        out["cosine"] = _cosine(final, ref[0])
+        out["uint8_max_diff"] = int(abs(images.astype(int) - ref[1].astype(int)).max())
+    return out
+
+
+def mesh_round_rank(device, td):
+    """14d: `run_reflectionflow_block` at data MESH_WORLD under W8A8 "pallas_nr"
+    with the fake models of configs/flux.1_dev_fake.json (1 prompt, round 0 +
+    1 round, MESH_STEPS steps): first on rank 0 alone, one data slice a
+    generate call, then on both ranks; rank 0 holds the trees against each
+    other (the same files, byte for byte)."""
+    torch, dist, collectives = _mesh_ctx()
+    from reflectionflow_tpu_torch.config import TTSConfig
+    from reflectionflow_tpu_torch.parallel.dryrun import compare_trees
+    from reflectionflow_tpu_torch.parallel.mesh import make_mesh
+    from reflectionflow_tpu_torch.reflect import FakeReflector, FakeRefiner
+    from reflectionflow_tpu_torch.search.reflectionflow import run_reflectionflow_block
+    from reflectionflow_tpu_torch.verifiers import FakeVerifier
+
+    cfg = TTSConfig.load(os.path.join(REPO, "configs", "flux.1_dev_fake.json"))
+    cfg.search_args.search_rounds, cfg.pipeline_args.num_inference_steps = 1, MESH_STEPS
+    base_cfg = TTSConfig.load(os.path.join(REPO, "configs", "flux.1_dev_fake.json"))
+    base_cfg.search_args.search_rounds, base_cfg.pipeline_args.num_inference_steps = 1, MESH_STEPS
+    base_cfg.batch_size_for_img_gen = cfg.batch_size_for_img_gen // MESH_WORLD
+    rows = round_rows()
+    models = lambda: (FakeVerifier(), FakeReflector(), FakeRefiner())  # noqa: E731
+
+    def setup(pipe):
+        # the cond stream reads the DiT itself (no second W8A8 model beside it on the shared card)
+        pipe.cond_dit_params = pipe.dit
+        pipe.attn_impl = "pallas_nr"
+        pipe.model_flags = {"union_cond_attn": cfg.model.union_cond_attn,
+                            "add_cond_attn": cfg.model.add_cond_attn}
+        pipe.enable_prompt_cache()
+
+    def reference(pipe):
+        run_reflectionflow_block(pipe, *models(), base_cfg, rows, os.path.join(td, "base"))
+        pipe._embed_cache.clear()
+
+    pipe, _, build_s = _mesh_build(device, make_mesh((MESH_WORLD,), ("data",)), quantize=True,
+                                   setup=setup, first=reference)
+    zero_counts()
+    collectives.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_reflectionflow_block(pipe, *models(), cfg, rows, os.path.join(td, "mesh"))
+    torch.cuda.synchronize()
+    out = {"rank": dist.get_rank(), "launches": _launch_counts(), "collectives": dict(collectives.COUNTS),
+           "block_s": time.perf_counter() - t0, "build_s": build_s}
+    if dist.get_rank() == 0:
+        out["compare"] = compare_trees(os.path.join(td, "base"), os.path.join(td, "mesh"))
+    return out
+
+
+def mesh_phase(torch, card: str) -> dict:
+    """Phase 14: serving over a mesh of ranks on the one card (see the module
+    docstring). Each sub-phase spawns fresh ranks; every launch count is read
+    on each rank around its sharded call only."""
+    from reflectionflow_tpu_torch.parallel.distributed import launch
+    from reflectionflow_tpu_torch.parallel.dryrun import dryrun_multihost, file_init, multihost_reference
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    log(f"phase 14: parent holds {held:.2f} GiB; {MESH_WORLD} gloo ranks "
+        f"on cuda:0 ({card}); collectives through host memory (NCCL refuses two ranks on one GPU)")
+    check(held < MESH_PARENT_GIB, f"phase 14: the parent still holds {held:.2f} GiB of the card its ranks share")
+    cfg = _dit_cfg()
+    nd, ns = cfg.num_double_blocks, cfg.num_single_blocks
+    res = {"world": MESH_WORLD, "backend": "gloo", "steps": MESH_STEPS}
+    with tempfile.TemporaryDirectory() as td:
+        def run(fn):
+            t0 = time.perf_counter()
+            out = launch(fn, MESH_WORLD, args=(td,), backend="gloo", device="cuda:0",
+                         init_method=file_init(td), timeout=MESH_TIMEOUT)
+            return out, time.perf_counter() - t0
+
+        # 14a: tensor parallelism, bf16
+        tp, res["tp_wall_s"] = run(mesh_tp_rank)
+        per_rank = MESH_STEPS * (nd + ns)
+        sums = MESH_STEPS * (4 * nd + ns)
+        for r in tp:
+            want = {name: 0 for name in r["launches"]}
+            want["flash_fwd"] = per_rank
+            check(r["launches"] == want, f"14a rank {r['rank']}: launches {r['launches']}, expected {want}")
+            check(r["collectives"]["all_reduce_sum"] == sums and r["collectives"]["host_copies"] == sums
+                  and r["collectives"]["all_gather_batch"] == 0,
+                  f"14a rank {r['rank']}: collectives {r['collectives']}, expected {sums} all-reduces")
+            check(r["finite"] and r["dit_bytes"] < 0.7 * r["dit_bytes_full"], f"14a rank {r['rank']}: {r}")
+            # K1 at this rank's heads (num_heads / MESH_WORLD) against its plain version
+            k1 = r["k1_vs_plain"]
+            check(bool(k1) and all(c["shape"][2] == cfg.num_heads // MESH_WORLD for c in k1)
+                  and all(c["max_abs_err"] <= OUT_TOL and c["max_lse_err"] <= LSE_TOL for c in k1),
+                  f"14a rank {r['rank']}: K1 at the sharded heads against its plain version: {k1}")
+            log(f"14a rank {r['rank']}: K1 on the TP forward's own inputs against its plain version "
+                f"(tol {OUT_TOL}, lse {LSE_TOL}): {json.dumps(k1)}")
+        check(tp[0]["cosine"] >= MESH_COS, f"14a: cosine {tp[0]['cosine']:.6f} against the one-rank run")
+        res["tp"] = tp
+        log(f"14a TP (data 1 x model {MESH_WORLD}, bf16 pallas, B={N_PROMPTS * BRANCH}, {MESH_STEPS} steps): "
+            f"cosine {tp[0]['cosine']:.6f} vs one rank; per rank {per_rank} K1, {sums} all-reduces "
+            f"(all through host memory); DiT bytes {tp[0]['dit_bytes'] / 2**30:.2f} of "
+            f"{tp[0]['dit_bytes_full'] / 2**30:.2f} GiB ({tp[0]['dit_bytes'] / tp[0]['dit_bytes_full']:.3f}); "
+            f"s/step {[round(r['s_per_step'], 4) for r in tp]}, all-reduce share "
+            f"{[round(r['all_reduce_share'], 4) for r in tp]}; {card}")
+
+        # 14b: data parallelism, W8A8
+        dp, res["dp_wall_s"] = run(mesh_dp_rank)
+        per_fwd = {"flash_fwd": nd + ns, "norm_rope": 4 * nd + 2 * ns, "adaln_quant": 4 * nd + ns,
+                   "gelu_quant": 2 * nd + ns, "rowquant": 2 * nd + ns}
+        for r in dp:
+            want = {name: MESH_STEPS * per_fwd.get(name, 0) for name in r["launches"]}
+            check(r["launches"] == want, f"14b rank {r['rank']}: launches {r['launches']}, expected {want}")
+            check(r["collectives"]["all_gather_batch"] == 1 and r["collectives"]["all_reduce_sum"] == 0
+                  and r["finite"] and r["shape"][0] == N_PROMPTS * BRANCH, f"14b rank {r['rank']}: {r}")
+        check(dp[0]["cosine"] >= MESH_COS, f"14b: cosine {dp[0]['cosine']:.6f} against the one-rank run")
+        res["dp"] = dp
+        log(f"14b DP (data {MESH_WORLD}, W8A8 pallas, {N_PROMPTS * BRANCH} candidates): cosine "
+            f"{dp[0]['cosine']:.6f}, uint8 max |diff| {dp[0]['uint8_max_diff']} vs one rank; launches per rank "
+            f"{dp[0]['launches']}; s/step {[round(r['s_per_step'], 4) for r in dp]}; {card}")
+
+        # 14c: the multihost dryrun on the card: NCCL at a world of one (the one-rank tree), gloo at
+        # MESH_WORLD against it, and NCCL at the card count where there is more than one card
+        t0 = time.perf_counter()
+        ref, ref_rank = multihost_reference(td, device="cuda", backend="nccl")
+        runs = [([ref_rank], {"reference": True})]
+        for n, dev, backend in ((MESH_WORLD, "cuda:0", "gloo"), (torch.cuda.device_count(), "cuda", "nccl")):
+            if backend == "gloo" or n > 1:
+                out = dryrun_multihost(n, device=dev, backend=backend, workdir=td, reference=ref)
+                runs.append((out["ranks"], out["compare"]))
+        res["multihost_wall_s"] = time.perf_counter() - t0
+        res["multihost"] = []
+        for ranks, compare in runs:
+            line = {"backend": ranks[0]["backend"], "world": ranks[0]["world"], **compare,
+                    "host_copies": [r["counts"]["host_copies"] for r in ranks]}
+            check(all(r["sum"] == r["world"] * (r["world"] - 1) / 2 for r in ranks), f"14c: {ranks}")
+            res["multihost"].append(line)
+            log(f"14c dryrun_multihost: {json.dumps(line)}")
+
+        # 14d: the reflection block under W8A8 pallas_nr at data MESH_WORLD
+        rnd, res["round_wall_s"] = run(mesh_round_rank)
+        per_t2i, per_cond = round_counts(types.SimpleNamespace(dit_cfg=cfg), "pallas_nr")
+        for r in rnd:
+            # one candidate a rank: round 0 (t2i) and round 1 (conditioned), MESH_STEPS forwards each
+            want = {name: MESH_STEPS * (per_t2i.get(name, 0) + per_cond.get(name, 0)) for name in r["launches"]}
+            check(r["launches"] == want, f"14d rank {r['rank']}: launches {r['launches']}, expected {want}")
+        res["round"] = rnd
+        log(f"14d reflection block (data {MESH_WORLD}, W8A8 pallas_nr, fake models): "
+            f"{json.dumps(rnd[0]['compare'])}; launches per rank {rnd[0]['launches']}; "
+            f"block s {[round(r['block_s'], 2) for r in rnd]}")
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 14: {res['wall_s']:.1f} s")
+    return res
+
+
+def _dit_cfg():
+    from reflectionflow_tpu_torch.config import FluxDiTConfig
+
+    return FluxDiTConfig()
+
+
 def kernel_entry(name, source, replaces, launches, res, main_shape, other_shape):
     return {"name": name, "route": "cuda", "source": f"reflectionflow_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": res["err"],
@@ -3480,6 +3899,10 @@ def main() -> int:
     nvila = nvila_phase(torch, pipe)
     vcache = vcache_phase(torch, pipe)
     rm_train = rm_train_phase(torch, card)
+    del pipe  # phase 14's ranks share the card: the parent keeps no model (the phases'
+    gc.collect()  # generate wrappers leave reference cycles through the pipeline)
+    torch.cuda.empty_cache()
+    mesh = mesh_phase(torch, card)
     step = {name: calls[-1]["denoise_s"] / STEPS for name, calls in (("bf16", bf16_calls),
                                                                       ("w8a8", w8_calls))}
     step.update({f"corrector_{impl}": corrector[impl]["s_per_step"] for impl in ("pallas_nr", "pallas_int8")})
@@ -3569,6 +3992,8 @@ def main() -> int:
         k["launches_vcache_module"] = vcache["module"]["launches"][k["name"]]
         k["launches_nf4"] = vcache["nf4"]["launches"][k["name"]]
         k["launches_rm_train"] = rm_train["int8"]["launches"][k["name"]] + rm_train["nf4"]["launches"][k["name"]]
+        for sub in ("tp", "dp", "round"):  # per rank: rank 0's (the checks hold every rank's)
+            k[f"launches_mesh_{sub}"] = mesh[sub][0]["launches"][k["name"]]
     k9 = next(k for k in kernels if k["name"] == "flash_fwd_nr")
     k9["launches_round"] = reflection["launches"]["flash_fwd_nr"]
     k9["launches_round_models"] = round_models["launches"]["flash_fwd_nr"]
@@ -3582,6 +4007,7 @@ def main() -> int:
     log(json.dumps({"nvila_round": nvila}))
     log(json.dumps({"vcache_nf4": vcache}))
     log(json.dumps({"rm_train": rm_train}))
+    log(json.dumps({"mesh": mesh}))
     log(json.dumps({"ring": {"attention": ring["attention"],
                              "train": {k: ring["train"][k] for k in ("s_per_step", "peak_gib", "launches",
                                                                       "grad_cosine_min", "grad_cosine")},

@@ -129,10 +129,15 @@ def load_prompts(args) -> list[dict]:
 
 
 def print_throughput(timer, pipe) -> None:
-    """Candidate images per second of generate-phase wall time (one device)."""
+    """Candidate images per second per chip of generate-phase wall time: the
+    data axis of `pipe.mesh` is the chip count (each candidate runs on one
+    data slice)."""
     rate = timer.rate("candidates", "generate")
     if rate == rate:  # skip when no generate spans ran
-        print(f"candidates/sec/chip: {rate:.4f} ({timer.counts['candidates']} candidates, 1 chip(s))")
+        mesh = getattr(pipe, "mesh", None)
+        n_chips = mesh.shape.get("data", 1) if mesh is not None else 1
+        print(f"candidates/sec/chip: {rate / n_chips:.4f} ({timer.counts['candidates']} candidates, "
+              f"{n_chips} chip(s))")
 
 
 def _int8_profile(pa) -> tuple[str, bool]:

@@ -10,7 +10,7 @@ does. `--synthetic_weights` trains the tiny fp32 pipeline (random weights,
 seeded) with the data sizes shrunk to smoke sizes when no config is given;
 `--synthetic_data` writes a random PNG shard when no shards are named. The
 run is on one device (`--device`, default cuda; it raises when CUDA is
-missing); data parallelism over a device mesh is ROADMAP slice 7b.
+missing); data parallelism over a device mesh is ROADMAP slice 7b part 2.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ def main(argv=None):
                                   "counterpart; use 'pallas' (its plain versions run on CPU tensors)")
     if any(d > 1 for d in cfg.mesh_shape):
         raise NotImplementedError(f"mesh_shape={cfg.mesh_shape}: training over a device mesh is "
-                                  "ROADMAP slice 7b; the port trains on one device")
+                                  "ROADMAP slice 7b part 2; the port trains on one device")
 
     shards = []
     for pat in args.shards or list(cfg.data.shards):

@@ -16,7 +16,7 @@ reads in both packages. `--resume_from checkpoint-N` continues the run (the
 checkpoint's lora_r / lora_alpha win). `--synthetic_weights` trains a tiny
 random fp32 Qwen2.5-VL. The run is on one device (`--device`, default cuda;
 it raises when CUDA is missing); `--fsdp_devices` (FSDP over a mesh) is
-ROADMAP slice 7b.
+ROADMAP slice 7b part 2.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vision_lr", type=float, default=None, help="LR for the vision-tower adapters")
     p.add_argument("--merger_lr", type=float, default=None, help="LR for the patch-merger adapters")
     p.add_argument("--fsdp_devices", type=int, default=0,
-                   help=">0: shard the frozen base over a device mesh (ROADMAP slice 7b; raises)")
+                   help=">0: shard the frozen base over a device mesh (ROADMAP slice 7b part 2; raises)")
     p.add_argument("--num_train_epochs", type=float, default=1.0)
     p.add_argument("--per_device_train_batch_size", type=int, default=2)
     p.add_argument("--save_epochs", type=float, default=1.0)
@@ -158,7 +158,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     if args.fsdp_devices > 0:
         raise NotImplementedError(f"--fsdp_devices {args.fsdp_devices}: sharding the frozen base over a "
-                                  "device mesh is ROADMAP slice 7b; the port trains on one device")
+                                  "device mesh is ROADMAP slice 7b part 2; the port trains on one device")
 
     from ..rm_train.data import collate_rm_batch, vision_train_geometry
     from ..rm_train.train import (apply_vision_lora_embeds, load_rm_checkpoint, load_rm_opt_state,

@@ -37,6 +37,12 @@ attention out-projection. The q and k panels get K2 QK-norm+RoPE, except under
 norms and rotates them inside the attention. (The JAX gates also ask for
 L % 8 == 0, the TPU kernels' row tiling; at other lengths it runs the unfused
 chain.)
+
+Under tensor parallelism (`parallel/specs.py::shard_dit_params`) the same
+forward runs on each rank of the mesh's "model" axis: its blocks hold their
+shard's heads and MLP hidden (`block.cfg.num_heads` is the shard's), and the
+attention out-projections, the MLP's second linears and the single blocks'
+`proj_out` are `RowParallelLinear`s that sum across the group.
 """
 
 from __future__ import annotations

@@ -1,0 +1,285 @@
+"""Serving dryruns over a mesh of ranks, with tiny fp32 weights.
+
+Counterpart of the serving half of `__graft_entry__.py`: `dryrun_multichip`
+(:60; the conditioned denoise on a data x model mesh with a skipped step at
+`vcache_order=2` and the TeaCache schedule, :147-171, and
+`_dryrun_search_block`, :290) and `dryrun_multihost` (:354, its worker
+:426-475: a cross-process sum and prompt-sharded `run_noise_scaling` whose
+artifacts equal a one-process run's). The training step, the ring denoise
+and the reward-model step of `dryrun_multichip` are ROADMAP slice 7b part 2.
+
+Each dryrun spawns its ranks with `distributed.launch` (one process per
+device; by default `"cuda"` with NCCL, rank i on cuda:i; `device="cpu"`
+with gloo, as the tests run them; or `"cuda:0"` with gloo for several
+ranks on one card) and raises on a mismatch. Where the
+JAX dryruns only check that values are finite, these also hold the sharded
+results against the unsharded ones.
+
+    python -c "from reflectionflow_tpu_torch.parallel.dryrun import dryrun_multihost; \\
+               print(dryrun_multihost(2, device='cpu'))"
+"""
+
+from __future__ import annotations
+
+import copy
+import glob
+import hashlib
+import os
+import tempfile
+import uuid
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from . import collectives
+from .distributed import launch
+from .mesh import gather_candidates, make_mesh, shard_batch
+from .specs import shard_dit_params
+
+ROWS = [{"prompt": f"p{i}", "tag": None} for i in range(4)]
+
+
+def file_init(root: str) -> str:
+    """A fresh file rendezvous under `root`."""
+    return f"file://{os.path.join(os.path.abspath(root), 'rdzv-' + uuid.uuid4().hex)}"
+
+
+def tiny_pipeline(device):
+    """The tiny fp32 pipeline of the tests and the CLIs' --synthetic_weights,
+    made from seed 0 on `device` (the same weights on every rank)."""
+    from ..config import CLIPTextConfig, FluxDiTConfig, FluxVAEConfig, T5Config
+    from ..sampler.pipeline import FluxPipeline
+
+    device = torch.device(device)
+    return FluxPipeline.random_init(
+        torch.Generator(device=device).manual_seed(0), dit_cfg=FluxDiTConfig.tiny(),
+        vae_cfg=FluxVAEConfig.tiny(), t5_cfg=T5Config.tiny(), clip_cfg=CLIPTextConfig.tiny(),
+        dtype=torch.float32, device=device)
+
+
+def tiny_tts_cfg(micro: int = 8):
+    """16 px, 2 steps, an 8 px condition, 2 rounds of 2 candidates: the JAX
+    dryruns' search config, with generate calls of at most `micro`
+    candidates."""
+    from ..config import TTSConfig
+
+    cfg = TTSConfig()
+    cfg.batch_size_for_img_gen = micro
+    cfg.pipeline_args.height = cfg.pipeline_args.width = 16
+    cfg.pipeline_args.num_inference_steps = 2
+    cfg.pipeline_args.condition_size = 8
+    cfg.search_args.search_rounds = cfg.search_args.search_branch = 2
+    return cfg
+
+
+def tree_digest(root: str) -> dict[str, str]:
+    """relative path -> sha256 of every file under `root`."""
+    digest = {}
+    for dirpath, _dirs, files in os.walk(root):
+        for fname in sorted(files):
+            path = os.path.join(dirpath, fname)
+            with open(path, "rb") as f:
+                digest[os.path.relpath(path, root)] = hashlib.sha256(f.read()).hexdigest()
+    return digest
+
+
+def compare_trees(ref_root: str, got_root: str) -> dict:
+    """Raise unless both trees hold the same files, the PNGs byte for byte
+    and the others (JSON, JSONL: names, seeds, selections; each tree's root
+    in the paths they hold read as one name) equal; the error names the
+    PNGs' max |pixel diff|. Returns the file count, that diff and whether
+    every PNG matched."""
+    from ..search.artifacts import load_image
+
+    ref, got = tree_digest(ref_root), tree_digest(got_root)
+    if not ref:
+        raise AssertionError(f"{ref_root} holds no artifact")
+    if set(ref) != set(got):
+        raise AssertionError(f"artifact sets differ: only in the reference "
+                             f"{sorted(set(ref) - set(got))[:5]}, only in the run "
+                             f"{sorted(set(got) - set(ref))[:5]}")
+
+    def text(root, k):
+        with open(os.path.join(root, k)) as f:
+            return f.read().replace(root, "<root>")
+
+    differ = sorted(k for k in ref if ref[k] != got[k])
+    pngs = [k for k in differ if k.endswith(".png")]
+    bad = [k for k in differ if not k.endswith(".png") and text(ref_root, k) != text(got_root, k)]
+    diff = 0
+    for k in pngs:
+        a, b = (load_image(os.path.join(r, k)).astype(np.int16) for r in (ref_root, got_root))
+        diff = max(diff, int(np.abs(a - b).max()))
+    if bad or pngs:
+        raise AssertionError(f"artifacts differ: {(bad + pngs)[:10]}; PNG max |pixel diff| {diff}")
+    return {"files": len(ref), "png_max_diff": diff, "identical": not pngs}
+
+
+# -- the search block on a data mesh (JAX `_dryrun_search_block` :290) --------
+
+
+def search_block_check(pipe, mesh, out_root: str) -> dict:
+    """Run `run_reflectionflow_block` (the fake models, `tiny_tts_cfg()`,
+    `ROWS`) unsharded on rank 0 alone, then on every rank with
+    `pipe.mesh = mesh`; rank 0 holds the two artifact trees against each
+    other (`compare_trees`). Called on every rank of the mesh; returns rank
+    0's comparison (None elsewhere).
+
+    The unsharded run generates in micro-batches of one data slice, so each
+    candidate meets the same shapes in both runs: a matmul's last bit may
+    depend on its batch, and the fake verifier's hash of the pixels turns any
+    flipped pixel into another selection."""
+    from ..reflect import FakeReflector, FakeRefiner
+    from ..search.reflectionflow import run_reflectionflow_block
+    from ..verifiers import FakeVerifier
+
+    cfg = tiny_tts_cfg()
+    models = (FakeVerifier(), FakeReflector(), FakeRefiner())
+    base, sharded = os.path.join(out_root, "base"), os.path.join(out_root, "mesh")
+    base_cfg = copy.deepcopy(cfg)
+    base_cfg.batch_size_for_img_gen = max(1, cfg.batch_size_for_img_gen // mesh.axis_size("data"))
+    saved, pipe.mesh = pipe.mesh, None
+    try:
+        if mesh.rank == 0:
+            run_reflectionflow_block(pipe, *models, base_cfg, ROWS, base, run_seed=5)
+        dist.barrier()
+        pipe.mesh = mesh
+        run_reflectionflow_block(pipe, *models, cfg, ROWS, sharded, run_seed=5)
+    finally:
+        pipe.mesh = saved
+    if mesh.rank != 0:
+        return None
+    out = compare_trees(base, sharded)
+    for i in range(len(ROWS)):
+        names = sorted(glob.glob(os.path.join(sharded, f"{i:05d}", "midimg", "*.png")))
+        if len(names) < 2 * cfg.search_args.search_branch:
+            raise AssertionError(f"prompt {i}: {len(names)} midimg candidates")
+    return out
+
+
+# -- the conditioned denoise on a data x model mesh (JAX :147-171) -----------
+
+
+def mesh_denoise_check(device, mesh) -> dict:
+    """The tiny DiT's conditioned denoise, B = 2 per data slice, 4 steps: with
+    a skipped step after two full ones at `vcache_order=2`, and under the
+    TeaCache schedule (dynamic threshold, residual cache), sharded over the
+    mesh (candidates over "data", heads over "model") against the same calls
+    unsharded on this rank. Returns the max |diff| and each run's n_full."""
+    from ..config import FluxDiTConfig
+    from ..models.flux.dit import FluxDiT
+    from ..models.flux.rope import make_image_ids, make_text_ids
+    from ..sampler.generate import denoise, make_schedule, vcache_kwargs
+    from ..sampler.pipeline import _build
+    from ..sampler.vcache_calibrate import teacache_flux_schedule
+
+    cfg = FluxDiTConfig.tiny()
+    gen = torch.Generator().manual_seed(0)
+    dit = _build(FluxDiT, cfg, torch.float32, device, torch.Generator(device=device).manual_seed(0))
+    B = 2 * mesh.axis_size("data")
+    ty = tx = 4
+    Lt, cty = 8, 2
+    x = {k: torch.randn(shape, generator=gen).to(device) for k, shape in (
+        ("lat", (B, ty * tx, cfg.in_channels)), ("cond", (B, cty * cty, cfg.in_channels)),
+        ("txt", (B, Lt, cfg.text_dim)), ("pooled", (B, cfg.pooled_dim)))}
+    common = dict(img_ids=torch.from_numpy(make_image_ids(ty, tx)).to(device),
+                  txt_ids=torch.from_numpy(make_text_ids(Lt)).to(device),
+                  sigmas=make_schedule(4, ty * tx), guidance_scale=3.5, num_steps=4,
+                  cond_ids=torch.from_numpy(make_image_ids(cty, cty, position_delta=(0, -cty))).to(device),
+                  return_vcache_stats=True)
+    modes = {"taylor2": dict(step_mask=np.array([True, True, False, True]), vcache_order=2),
+             "teacache": vcache_kwargs(teacache_flux_schedule(), 4)}
+
+    def run(dit, x, kw):
+        return denoise(dit, x["lat"], x["txt"], x["pooled"], cond=x["cond"], **common, **kw)
+
+    ref = {name: run(dit, x, kw) for name, kw in modes.items()}
+    shard_dit_params(dit, mesh)
+    mine = shard_batch(x, mesh)
+    out = {}
+    for name, kw in modes.items():
+        lat, n_full = run(dit, mine, kw)
+        lat = gather_candidates(lat, mesh)
+        if not torch.isfinite(lat).all():
+            raise AssertionError(f"{name}: non-finite sharded denoise")
+        out[name] = {"max_abs_diff": float((lat - ref[name][0]).abs().max()), "n_full": n_full,
+                     "n_full_unsharded": ref[name][1]}
+    return out
+
+
+def _multichip_rank(device, shape, out_root):
+    torch.set_num_threads(1)
+    mesh = make_mesh(shape, ("data", "model"))
+    denoise = mesh_denoise_check(device, mesh)
+    data_mesh = make_mesh((dist.get_world_size(),), ("data",))
+    search = search_block_check(tiny_pipeline(device), data_mesh, out_root)
+    return {"denoise": denoise, "search_block": search, "counts": dict(collectives.COUNTS)}
+
+
+def dryrun_multichip(world_size: int = 4, *, device="cuda", backend: str | None = None,
+                     workdir: str | None = None) -> dict:
+    """The serving half of the JAX `dryrun_multichip` on `world_size` ranks: a
+    (world/2, 2) data x model mesh (tensor parallelism needs an even world;
+    an odd world runs data alone) for the denoise check, and a data mesh of
+    every rank for the search block. Raises on a mismatch (the denoise: a
+    max |diff| above 1e-4 or another n_full)."""
+    tp = 2 if world_size % 2 == 0 else 1
+    with tempfile.TemporaryDirectory(dir=workdir) as td:
+        results = launch(_multichip_rank, world_size, args=((world_size // tp, tp), td),
+                         backend=backend, device=device, init_method=file_init(td))
+    for name, r in results[0]["denoise"].items():
+        if r["max_abs_diff"] > 1e-4 or r["n_full"] != r["n_full_unsharded"]:
+            raise AssertionError(f"sharded denoise {name} differs from the unsharded one: {r}")
+    return {"mesh": (world_size // tp, tp), **results[0]}
+
+
+# -- prompt-sharded noise scaling across processes (JAX :354-475) ------------
+
+
+def _multihost_rank(device, out_dir):
+    from ..search.noise_scaling import run_noise_scaling
+
+    torch.set_num_threads(1)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    # each rank contributes its own slice of arange(world): the sum is world*(world-1)/2
+    part = torch.tensor([float(rank)], device=device)
+    total = float(collectives.all_reduce_sum(part).item())
+    if total != world * (world - 1) / 2:
+        raise AssertionError(f"all_reduce_sum gave {total} on rank {rank} of {world}")
+    pipe = tiny_pipeline(device)
+    lo, hi = rank * len(ROWS) // world, (rank + 1) * len(ROWS) // world
+    # candidate seeds are pure functions of the global prompt index; one
+    # prompt's candidates a generate call, so every world meets the same shapes
+    cfg = tiny_tts_cfg(micro=2)
+    run_noise_scaling(pipe, cfg, ROWS[lo:hi], out_dir, start_index=lo, run_seed=5)
+    return {"rank": rank, "world": world, "backend": dist.get_backend(), "device": str(device),
+            "sum": total, "prompts": [lo, hi], "counts": dict(collectives.COUNTS)}
+
+
+def dryrun_multihost(n_processes: int = 2, *, device="cuda", backend: str | None = None,
+                     workdir: str | None = None, reference: str | None = None) -> dict:
+    """`n_processes` ranks, each with its own process group membership: one
+    cross-rank `all_reduce_sum` check, then `run_noise_scaling` over a
+    rank-contiguous shard of the prompts (`ROWS[lo:hi]`, `start_index=lo`)
+    into one output tree, which must equal a one-rank run's byte for byte
+    (`compare_trees`). `reference` names a one-rank tree to compare with (kept
+    there), else one is made in a world of 1 first. Raises on a mismatch;
+    returns each rank's result and the comparison."""
+    with tempfile.TemporaryDirectory(dir=workdir) as td:
+        if reference is None:
+            reference, _ = multihost_reference(td, device=device, backend=backend)
+        got = os.path.join(td, "mh")
+        ranks = launch(_multihost_rank, n_processes, args=(got,), backend=backend,
+                       device=device, init_method=file_init(td))
+        return {"ranks": ranks, "compare": compare_trees(reference, got)}
+
+
+def multihost_reference(root: str, *, device="cuda", backend: str | None = None) -> tuple[str, dict]:
+    """The one-rank tree `dryrun_multihost(reference=...)` compares with,
+    written under `root` by a world of 1; returns its path and the rank's
+    result."""
+    out = os.path.join(root, f"ref-{uuid.uuid4().hex}")
+    (rank,) = launch(_multihost_rank, 1, args=(out,), backend=backend, device=device,
+                     init_method=file_init(root))
+    return out, rank

@@ -22,7 +22,7 @@ the collator; with it, the tower runs inside the step on raw patches, one
 batched pass for the batch. The LM and the tower recompute each block in
 the backward (`remat`), so the dequantized weights of a quantized base are
 not saved per block. Training runs on one device; `mesh=` (the JAX
-package's FSDP) is ROADMAP slice 7b. The optimizer state is saved with
+package's FSDP) is ROADMAP slice 7b part 2. The optimizer state is saved with
 `torch.save` (JAX writes optax leaves to `opt_state.npz`).
 """
 
@@ -153,7 +153,7 @@ def make_rm_train_step(lm: QwenLM, optimizer, loss_type: str = "btt", pooling: s
     tower's under vision training, in place (`quantize_rm_base`)."""
     if mesh is not None:
         raise NotImplementedError("mesh=: training the reward model over a device mesh (the JAX package's "
-                                  "FSDP) is ROADMAP slice 7b; the port trains on one device")
+                                  "FSDP) is ROADMAP slice 7b part 2; the port trains on one device")
     train_vision = tower is not None
     if train_vision and grid_thw is None:
         raise ValueError("vision training needs grid_thw (one grid per batch)")

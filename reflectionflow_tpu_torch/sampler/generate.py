@@ -20,6 +20,12 @@ output does not depend on its micro-batch. Skip-step velocities are computed
 only when some row skips (the reference computes them every step, a
 shape-static scan body). The dense path (no mask, no threshold) is the loop
 it always was, with no host read.
+
+Under tensor parallelism (a DiT cut by `parallel.specs.shard_dit_params`)
+the dynamic mode's decision is broadcast from the model group's first rank,
+so every rank of the group runs the same forward (the ranks compute the
+same signal from the same replicated weights; the broadcast makes it so by
+construction).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 
 from ..models.flux.dit import FluxDiT, flux_mod_signal, flux_residual_decode
+from ..parallel.collectives import broadcast
 from .scheduler import FlowMatchSchedule
 
 VCACHE_CACHED = ("velocity", "residual", "module")
@@ -235,6 +242,7 @@ def denoise(
         raise ValueError("vcache_cached='module' covers the plain t2i path (no cond stream)")
 
     poly = None if not vcache_poly else torch.tensor(vcache_poly, dtype=torch.float32)
+    tp = getattr(dit, "tp", None) if dynamic else None
     sig_prev = torch.zeros((B, latents.shape[1], dit.cfg.hidden_size), dtype=torch.float32,
                            device=device) if dynamic else None
     acc = torch.zeros((B,), dtype=torch.float32, device=device)
@@ -255,6 +263,8 @@ def denoise(
                 est = est * rel + c
         acc = acc + est
         do_full = (acc >= vcache_threshold) | bool(forced[i])
+        if tp is not None:  # one decision for the model group: every rank runs the same forward
+            do_full = broadcast(do_full.to(torch.uint8), 0, tp.group).bool()
         acc = torch.where(do_full, 0.0, acc)
         sig_prev = s
         n = int(do_full.sum())  # the one host read of the step

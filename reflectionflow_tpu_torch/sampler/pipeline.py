@@ -14,6 +14,13 @@ MLPs, NF4 T5) when asked; the phase swap is on the ROADMAP's do-not-port list
 (the card holds the int8 DiT and T5 together). `vcache` opts into the velocity
 cache (`generate.vcache_kwargs`: static, TeaCache-dynamic, Taylor, residual
 and module modes).
+
+`mesh` (a `parallel.mesh.RankMesh`, set by `set_mesh`) serves one generate
+call over a mesh of ranks, as the JAX `FluxPipeline.mesh` does: the batch's
+candidates shard over "data" (every rank draws the whole batch's noise from
+the seed and keeps its slice, and the images are gathered so that every rank
+returns the whole batch), and the DiT's heads and MLP hidden over "model"
+(`parallel/specs.py`). The quantized profiles run over "data" alone.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ from ..models.flux.latents import draw_packed_noise, latent_tokens, unpack_laten
 from ..models.flux.rope import make_image_ids, make_text_ids
 from ..models.flux.text import CLIPTextEncoder, T5Encoder, clip_text_encode, t5_encode
 from ..models.flux.vae import FluxVAE, vae_decode, vae_decode_tiled
+from ..parallel.mesh import gather_candidates, shard_batch
+from ..parallel.specs import TP_QUANTIZE_MSG, shard_dit_params
 from ..utils.tokenizers import load_tokenizer
 from .condition import Condition, encode_conditions
 from .generate import denoise, make_schedule, vcache_kwargs
@@ -102,6 +111,8 @@ class FluxPipeline:
     # None until enable_prompt_cache()
     _embed_cache: dict | None = field(default=None, repr=False)
     _embed_cache_cap: int = 2048
+    # parallel.mesh.RankMesh: candidates sharded over "data", the DiT over "model" (set_mesh)
+    mesh: Any = None
 
     # -- construction -------------------------------------------------------
 
@@ -149,6 +160,31 @@ class FluxPipeline:
 
         return load_flux_pipeline(cls, model_dir, dtype=dtype, device=device)
 
+    def to_device(self, device: str | torch.device) -> "FluxPipeline":
+        """Move every model to `device` (a rank's own device under a mesh)."""
+        device = torch.device(device)
+        for name in ("dit", "vae", "t5", "clip", "cond_dit_params"):
+            model = getattr(self, name)
+            if model is not None:
+                model.to(device)
+        self.device = device
+        return self
+
+    def set_mesh(self, mesh) -> "FluxPipeline":
+        """Serve over `mesh` (a `RankMesh`; every rank of it calls this, each
+        holding the same weights: the same snapshot or seed, or
+        `parallel.mesh.replicate_params` first). With a "model" axis of more
+        than one rank, the DiT and the cond model are cut to this rank's shard
+        (`parallel.specs.shard_dit_params`). `mesh=None` serves unsharded
+        again (a cut DiT stays cut)."""
+        if mesh is not None and mesh.axis_size("model") > 1:
+            shard_dit_params(self.dit, mesh)
+            cond = self.cond_dit_params
+            if cond is not None and cond is not self.dit:
+                shard_dit_params(cond, mesh)
+        self.mesh = mesh
+        return self
+
     @torch.no_grad()
     def quantize(
         self,
@@ -174,6 +210,9 @@ class FluxPipeline:
         from ..ops.fuse import fuse_dit_qkv, fuse_single_block_io, permute_rope_layout
         from ..ops.quant import quantize_dit_params, quantize_params_int4
 
+        if (self.mesh is not None and self.mesh.axis_size("model") > 1) or \
+                getattr(self.dit, "tp_size", 1) > 1:
+            raise NotImplementedError(f"quantize under a \"model\" axis: {TP_QUANTIZE_MSG}")
         for name in (*which, *weight_only, *int4):
             if name not in ("dit", "t5"):
                 raise ValueError(f"quantize: no quantizable model {name!r} (expected 'dit' or 't5')")
@@ -307,6 +346,11 @@ class FluxPipeline:
             latents = draw_packed_noise(gen, B, height, width, self.vae_cfg.latent_channels,
                                         self.dtype, vae_downscale=down)
         latents = torch.as_tensor(latents).to(self.device, self.dtype)
+        mesh = self._data_mesh(B)
+        if mesh is not None:  # this rank's candidates: the whole batch was drawn above
+            prompts, prompts_2, latents, txt, pooled, conditions = shard_batch(
+                (list(prompts), None if prompts_2 is None else list(prompts_2), latents, txt, pooled,
+                 None if not conditions else list(conditions)), mesh)
         if txt is None or pooled is None:
             txt, pooled = self.encode_prompts(prompts, max_sequence_length, prompts_2=prompts_2)
         cond = cond_ids = cond_empty = None
@@ -338,13 +382,39 @@ class FluxPipeline:
             **vcache_kwargs(self.vcache, num_inference_steps),
         )
         if output_type == "latent":
-            return final
-        return self.decode_latents(final, height, width)
+            return final if mesh is None else gather_candidates(final, mesh)
+        images = self._decode_uint8(final, height, width)
+        if mesh is not None:
+            images = gather_candidates(images, mesh)
+        return images.cpu().numpy()
+
+    def _data_mesh(self, batch: int):
+        """The mesh when this call shards its candidates over "data", else
+        None. A "model" axis needs the DiT cut by `set_mesh`; a batch that
+        the data axis does not divide warns and runs unsharded, as JAX does."""
+        mesh = self.mesh
+        if mesh is None:
+            return None
+        if mesh.axis_size("model") != getattr(self.dit, "tp_size", 1):
+            raise ValueError(f"mesh {mesh.shape} has a model axis of {mesh.axis_size('model')}, the "
+                             f"DiT is cut {getattr(self.dit, 'tp_size', 1)} ways: use set_mesh")
+        d = mesh.axis_size("data")
+        if d == 1:
+            return None
+        if batch % d:
+            import warnings
+
+            warnings.warn(f"batch {batch} not divisible by data axis {d}; running unsharded "
+                          "(use parallel.mesh.pad_candidates)", stacklevel=3)
+            return None
+        return mesh
 
     @torch.no_grad()
     def decode_latents(self, final: torch.Tensor, height: int, width: int) -> np.ndarray:
         """Packed latents -> uint8 images (B, H, W, 3) on the host."""
+        return self._decode_uint8(final, height, width).cpu().numpy()
+
+    def _decode_uint8(self, final: torch.Tensor, height: int, width: int) -> torch.Tensor:
         grid = unpack_latents(final, *latent_tokens(height, width, self.vae_cfg.downscale))
         images = (vae_decode_tiled if self.vae_tiling else vae_decode)(self.vae, grid)
-        images = ((images.float() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
-        return images.cpu().numpy()
+        return ((images.float() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)

@@ -77,8 +77,13 @@ class PromptDirs:
     root: str
 
     @classmethod
-    def create(cls, output_root: str, prompt_index: int, stage2: bool = False) -> "PromptDirs":
+    def create(cls, output_root: str, prompt_index: int, stage2: bool = False,
+               make: bool = True) -> "PromptDirs":
+        """The prompt's directories, made unless `make` is False (a rank that
+        does not write)."""
         d = cls(os.path.join(output_root, f"{prompt_index:05d}"))
+        if not make:
+            return d
         os.makedirs(d.samples, exist_ok=True)
         if stage2:
             for sub in (d.midimg, d.samples_lastround, d.samples_bestround, d.samples_best):

@@ -8,7 +8,9 @@ feed the next round. Prompts run in lockstep blocks: a round's generation for
 the whole block is one batched `generate` (micro-batched to
 `batch_size_for_img_gen`), and the verify / refine host stages are one
 batched call each across the block (tag-grouped for the per-GenEval-tag
-schemas), as in `reflectionflow.run_reflectionflow_block`.
+schemas), as in `reflectionflow.run_reflectionflow_block`, and, with
+`pipeline.mesh` set, on every rank with rank 0 reading, writing and calling
+the verifier and refiner (`parallel.distributed.RankZero`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from ..config import TTSConfig
+from ..parallel.distributed import RankZero
 from ..utils.timing import PhaseTimer
 from ..verifiers.base import RankingRule, Verifier, select_topk
 from .artifacts import PromptDirs, load_image, round_image_name, save_image
@@ -46,6 +49,7 @@ def run_noise_prompt_scaling(
         choice_of_metric=cfg.verifier_args.choice_of_metric,
     )
     refine_on = refiner is not None and cfg.prompt_refiner_args.run_refinement
+    r0 = RankZero(getattr(pipeline, "mesh", None))
 
     states = []
     for offset, row in enumerate(prompts):
@@ -55,7 +59,7 @@ def run_noise_prompt_scaling(
         states.append(
             {
                 "idx": idx, "prompt": prompt, "tag": tag,
-                "dirs": PromptDirs.create(output_root, idx),
+                "dirs": PromptDirs.create(output_root, idx, make=r0.is_writer),
                 "current": [prompt] * branch, "prev": [],
             }
         )
@@ -68,15 +72,14 @@ def run_noise_prompt_scaling(
             if rnd > 1 and refine_on:
                 with timer.span("verify"):
                     v_imgs, v_prompts, v_tags = [], [], []
-                    arrays_of = []
-                    for s in block:
-                        arrays = [load_image(p) for p in s["prev"]]
-                        arrays_of.append(arrays)
+                    arrays_of = r0.call(lambda: [[load_image(p) for p in s["prev"]] for s in block])
+                    for s, arrays in zip(block, arrays_of):
                         v_imgs += arrays
                         v_prompts += [s["prompt"]] * len(arrays)
                         v_tags += [s["tag"]] * len(arrays)
-                    flat = _score_grouped(
-                        verifier, v_imgs, v_prompts, v_tags, cfg.verifier_args.max_new_tokens
+                    flat = r0.call(
+                        _score_grouped, verifier, v_imgs, v_prompts, v_tags,
+                        cfg.verifier_args.max_new_tokens,
                     )
                 r_args = {"images": [], "orig": [], "cur": [], "evals": []}
                 off = 0
@@ -90,12 +93,14 @@ def run_noise_prompt_scaling(
                     r_args["orig"] += [s["prompt"]] * branch
                     r_args["cur"] += list(s["current"])
                     r_args["evals"] += [json.dumps(outputs[i]) for i in topk_idx]
-                    s["dirs"].append_detailed_scores(
-                        [outputs[i] for i in topk_idx], [s["prev"][i] for i in topk_idx]
+                    r0.write(
+                        s["dirs"].append_detailed_scores,
+                        [outputs[i] for i in topk_idx], [s["prev"][i] for i in topk_idx],
                     )
                 with timer.span("refine"):
-                    flat_refined = refiner.refine(
-                        r_args["images"], r_args["orig"], r_args["cur"], evaluations=r_args["evals"]
+                    flat_refined = r0.call(
+                        refiner.refine, r_args["images"], r_args["orig"], r_args["cur"],
+                        evaluations=r_args["evals"],
                     )
                 for i, s in enumerate(block):
                     s["current"] = list(flat_refined[i * branch : (i + 1) * branch])
@@ -130,9 +135,10 @@ def run_noise_prompt_scaling(
                 s["prev"] = []
                 for k, seed in enumerate(seed_lists[bi]):
                     path = os.path.join(s["dirs"].samples, round_image_name(rnd, seed))
-                    save_image(path, images[bi * branch + k])
+                    r0.write(save_image, path, images[bi * branch + k])
                     s["prev"].append(path)
-                s["dirs"].append_metadata(
+                r0.write(
+                    s["dirs"].append_metadata,
                     {
                         "prompt": s["prompt"],
                         "current_prompts": s["current"],

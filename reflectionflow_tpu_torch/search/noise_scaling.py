@@ -3,7 +3,9 @@
 Counterpart of `reflectionflow_tpu/search/noise_scaling.py`. Each generate
 call carries a chunk of prompts x `search_branch` candidates on the batch
 axis; every candidate image lands at `samples/{round}_round@{seed}.png` and
-every (prompt, round) appends one row to `metadata.jsonl`.
+every (prompt, round) appends one row to `metadata.jsonl`. With
+`pipeline.mesh` set, every rank of the mesh runs the loop (each generate
+call is collective) and rank 0 alone writes (`parallel.distributed.RankZero`).
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..config import TTSConfig
+from ..parallel.distributed import RankZero
 from ..utils.timing import PhaseTimer
 from .artifacts import PromptDirs, round_image_name, save_image
 from .seeds import candidate_seeds, seeds_to_latents
@@ -32,12 +35,13 @@ def run_noise_scaling(
     branch = sa.search_branch
     # prompts per generate call (>=1), from the configured generation batch
     chunk = max(1, cfg.batch_size_for_img_gen // branch)
+    r0 = RankZero(getattr(pipeline, "mesh", None))
 
     entries = []
     for offset, row in enumerate(prompts):
         prompt = row["prompt"] if isinstance(row, dict) else row
         idx = start_index + offset
-        entries.append((idx, prompt, PromptDirs.create(output_root, idx)))
+        entries.append((idx, prompt, PromptDirs.create(output_root, idx, make=r0.is_writer)))
 
     if getattr(pipeline, "_embed_cache", None) is not None:
         # encode every prompt once; the rounds then read cached embeddings
@@ -68,9 +72,9 @@ def run_noise_scaling(
             timer.add_count("candidates", images.shape[0])
             for bi, (idx, prompt, dirs) in enumerate(block):
                 for k, seed in enumerate(all_seeds[bi]):
-                    save_image(f"{dirs.samples}/{round_image_name(rnd, seed)}",
-                               images[bi * branch + k])
-                dirs.append_metadata({
+                    r0.write(save_image, f"{dirs.samples}/{round_image_name(rnd, seed)}",
+                             images[bi * branch + k])
+                r0.write(dirs.append_metadata, {
                     "prompt": prompt,
                     "search_round": rnd,
                     "num_noises": branch,

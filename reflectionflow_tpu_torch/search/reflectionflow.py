@@ -20,6 +20,14 @@ condition resize is the port's C++ copy of PIL's bicubic
 (`train/data.py::resize`, bit for bit the same pixels), and each micro-batch's `generate` returns host
 images before the next one starts, where JAX dispatches every micro-batch
 before fetching any.
+
+With `pipeline.mesh` set (a `parallel.mesh.RankMesh`), every rank runs the
+loop, since each generate call is collective and returns the gathered
+batch. Rank 0 alone writes the artifacts, reads the files, and calls the
+verifier, reflector and refiner, whose answers (an OpenAI-compatible
+backend's may differ from call to call) it hands every rank
+(`parallel.distributed.RankZero`); so every rank takes the same selections
+and builds the same conditions.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import numpy as np
 import torch
 
 from ..config import TTSConfig
+from ..parallel.distributed import RankZero
 from ..sampler.condition import Condition, cot_position_delta
 from ..train.data import resize
 from ..utils.jsonl import read_jsonl
@@ -60,6 +69,10 @@ def _score_grouped(verifier, images, prompts, tags, max_new_tokens):
         for i, sc in zip(idxs, scores):
             out[i] = sc
     return out
+
+
+def _copy_image(src: str, dst: str) -> None:
+    save_image(dst, load_image(src))
 
 
 def run_reflectionflow_prompt(
@@ -126,24 +139,17 @@ def run_reflectionflow_block(
         choice_of_metric=cfg.verifier_args.choice_of_metric,
     )
 
-    # per-prompt state
-    states = []
-    for offset, row in enumerate(rows):
-        idx = start_index + offset
-        prompt = row["prompt"] if isinstance(row, dict) else row
-        tag = row.get("tag") if isinstance(row, dict) else None
-        dirs = PromptDirs.create(output_root, idx, stage2=True)
+    r0 = RankZero(getattr(pipeline, "mesh", None))
+
+    def load_state(dirs, idx, prompt, tag):
+        """The prompt's manifest, its round-0 parents and, when complete, its
+        final datapoint, from the files (rank 0's, under a mesh)."""
         manifest = SearchManifest.load(dirs.root)
         if manifest is None or manifest.original_prompt != prompt:
             manifest = SearchManifest(
                 prompt_index=idx, original_prompt=prompt, tag=tag,
                 updated_prompts=[prompt] * branch, reflections=[""] * branch,
             )
-        chains = (
-            Chains.from_json({"chains": manifest.chains, "rule": rule.__dict__})
-            if manifest.chains
-            else Chains(rule)
-        )
         round0 = None
         if manifest.round_done > 0:
             # resume: parents are the LAST COMPLETED round's images
@@ -160,11 +166,26 @@ def run_reflectionflow_block(
             rows_done = read_jsonl(dirs.metadata)
             if rows_done:
                 datapoint = rows_done[-1]
+        return manifest, round0, datapoint
+
+    # per-prompt state
+    states = []
+    for offset, row in enumerate(rows):
+        idx = start_index + offset
+        prompt = row["prompt"] if isinstance(row, dict) else row
+        tag = row.get("tag") if isinstance(row, dict) else None
+        dirs = PromptDirs.create(output_root, idx, stage2=True, make=r0.is_writer)
+        manifest, round0, datapoint = r0.call(load_state, dirs, idx, prompt, tag)
+        chains = (
+            Chains.from_json({"chains": manifest.chains, "rule": rule.__dict__})
+            if manifest.chains
+            else Chains(rule)
+        )
         states.append(
             {
                 "idx": idx, "prompt": prompt, "tag": tag, "dirs": dirs,
                 "manifest": manifest, "chains": chains, "prev": round0,
-                "datapoint": datapoint,
+                "pixels": {}, "datapoint": datapoint,
             }
         )
 
@@ -201,9 +222,10 @@ def run_reflectionflow_block(
             paths = []
             for k, seed in enumerate(seed_lists[bi]):
                 path = os.path.join(s["dirs"].midimg, round_image_name(0, seed))
-                save_image(path, images[bi * branch + k])
+                r0.write(save_image, path, images[bi * branch + k])
                 paths.append(path)
             s["prev"] = paths
+            s["pixels"] = dict(zip(paths, images[bi * branch : (bi + 1) * branch]))
 
     total_rounds = sa.search_rounds
     for rnd in range(1, total_rounds + 1):
@@ -211,6 +233,13 @@ def run_reflectionflow_block(
         if not active:
             continue
         with timer.span("round"):
+            # the parents' pixels stay in memory from the round that made
+            # them; parents from the files (resume, stage-1 images) are read
+            # on rank 0 and handed every rank
+            for s in active:
+                missing = [p for p in s["prev"] if p not in s["pixels"]]
+                if missing:
+                    s["pixels"].update(zip(missing, r0.call(lambda m=missing: [load_image(p) for p in m])))
             # --- batched host stages: one verify / reflect / refine call per
             # round across the whole block ---
             with timer.span("verify"):
@@ -223,25 +252,26 @@ def run_reflectionflow_block(
                     cache = s.setdefault("_score_cache", {})
                     for p in s["prev"]:
                         if p not in cache:
-                            v_imgs.append(load_image(p))
+                            v_imgs.append(s["pixels"][p])
                             v_prompts.append(s["prompt"])
                             v_tags.append(s["tag"])
                             need_idx.append((s, p))
-                fresh = _score_grouped(
-                    verifier, v_imgs, v_prompts, v_tags, cfg.verifier_args.max_new_tokens
+                fresh = r0.call(
+                    _score_grouped, verifier, v_imgs, v_prompts, v_tags,
+                    cfg.verifier_args.max_new_tokens,
                 )
                 for (s, p), out in zip(need_idx, fresh):
                     s["_score_cache"][p] = out
             # split scores back per prompt, pick top-k parents
             sel = []
             for s in active:
-                prev_arrays = [load_image(p) for p in s["prev"]]
+                prev_arrays = [s["pixels"][p] for p in s["prev"]]
                 outputs = [s["_score_cache"][p] for p in s["prev"]]
                 topk_idx = select_topk(outputs, branch, rule)
                 sel_imgs = [s["prev"][i] for i in topk_idx]
                 sel_arrays = [prev_arrays[i] for i in topk_idx]
                 sel_outputs = [outputs[i] for i in topk_idx]
-                s["dirs"].append_detailed_scores(sel_outputs, sel_imgs)
+                r0.write(s["dirs"].append_detailed_scores, sel_outputs, sel_imgs)
                 sel.append((s, sel_imgs, sel_arrays, sel_outputs))
 
             reflection_performed = cfg.reflection_args.run_reflection and reflector is not None
@@ -255,8 +285,8 @@ def run_reflectionflow_block(
                     r_args["prev"] += list(s["manifest"].reflections)
                     r_args["evals"] += [json.dumps(o) for o in sel_outputs]
                 with timer.span("reflect"):
-                    flat_refl = reflector.generate(
-                        r_args["images"], r_args["orig"], r_args["cur"],
+                    flat_refl = r0.call(
+                        reflector.generate, r_args["images"], r_args["orig"], r_args["cur"],
                         prev_reflections=r_args["prev"], evaluations=r_args["evals"],
                     )
                 all_reflections = [flat_refl[i * branch : (i + 1) * branch] for i in range(len(sel))]
@@ -272,8 +302,8 @@ def run_reflectionflow_block(
                     f_args["refl"] += list(all_reflections[i])
                     f_args["evals"] += [json.dumps(o) for o in sel_outputs]
                 with timer.span("refine"):
-                    flat_ref = refiner.refine(
-                        f_args["images"], f_args["orig"], f_args["cur"],
+                    flat_ref = r0.call(
+                        refiner.refine, f_args["images"], f_args["orig"], f_args["cur"],
                         reflections=f_args["refl"], evaluations=f_args["evals"],
                     )
                 all_refined = [flat_ref[i * branch : (i + 1) * branch] for i in range(len(sel))]
@@ -283,8 +313,8 @@ def run_reflectionflow_block(
                 reflections = list(all_reflections[i])
                 refined = list(all_refined[i])
                 if reflection_performed or refinement_performed:
-                    s["dirs"].append_best_meta(
-                        rnd,
+                    r0.write(
+                        s["dirs"].append_best_meta, rnd,
                         reflections=reflections if reflection_performed else None,
                         refined_prompt=refined if refinement_performed else None,
                         filenames=sel_imgs,
@@ -344,8 +374,9 @@ def run_reflectionflow_block(
                 nv_imgs = [images[bi * branch + k] for bi in range(len(plans)) for k in range(branch)]
                 nv_prompts = [plan["state"]["prompt"] for plan in plans for _ in range(branch)]
                 nv_tags = [plan["state"]["tag"] for plan in plans for _ in range(branch)]
-                flat_new = _score_grouped(
-                    verifier, nv_imgs, nv_prompts, nv_tags, cfg.verifier_args.max_new_tokens
+                flat_new = r0.call(
+                    _score_grouped, verifier, nv_imgs, nv_prompts, nv_tags,
+                    cfg.verifier_args.max_new_tokens,
                 )
 
             # --- per-prompt: save, chains, manifest ---
@@ -355,7 +386,7 @@ def run_reflectionflow_block(
                 full_imgnames = []
                 for k, seed in enumerate(plan["seeds"]):
                     path = os.path.join(s["dirs"].midimg, round_image_name(rnd, seed))
-                    save_image(path, block_imgs[k])
+                    r0.write(save_image, path, block_imgs[k])
                     full_imgnames.append(path)
                 new_outputs = flat_new[bi * branch : (bi + 1) * branch]
                 # next round's "verify prev" reuses these scores by path
@@ -366,18 +397,19 @@ def run_reflectionflow_block(
                     s["chains"].update(plan["sel_imgs"], full_imgnames, new_outputs)
                 if rnd == total_rounds:
                     for i, img in enumerate(block_imgs):
-                        save_image(os.path.join(s["dirs"].samples_lastround, f"{i:05d}.png"), img)
+                        r0.write(save_image, os.path.join(s["dirs"].samples_lastround, f"{i:05d}.png"),
+                                 img)
                 best_paths = full_imgnames if rnd == 1 else s["chains"].best_per_chain()
                 for i, path in enumerate(best_paths):
-                    save_image(os.path.join(s["dirs"].samples_bestround, f"{i:05d}.png"), load_image(path))
+                    r0.write(_copy_image, path, os.path.join(s["dirs"].samples_bestround, f"{i:05d}.png"))
                 if rnd == total_rounds:
                     best_img, _ = s["chains"].global_best()
-                    save_image(os.path.join(s["dirs"].samples_best, "00000.png"), load_image(best_img))
+                    r0.write(_copy_image, best_img, os.path.join(s["dirs"].samples_best, "00000.png"))
                 s["manifest"].updated_prompts = list(plan["refined"])
                 s["manifest"].reflections = list(plan["reflections"])
                 s["manifest"].round_done = rnd
                 s["manifest"].chains = s["chains"].chains
-                s["manifest"].save(s["dirs"].root)
+                r0.write(s["manifest"].save, s["dirs"].root)
                 datapoint = {
                     "original_prompt": s["prompt"],
                     "search_round": rnd,
@@ -391,7 +423,8 @@ def run_reflectionflow_block(
                     datapoint["refined_prompt"] = plan["refined"]
                 if plan["reflection_performed"]:
                     datapoint["reflections"] = plan["reflections"]
-                s["dirs"].append_metadata(datapoint)
+                r0.write(s["dirs"].append_metadata, datapoint)
                 s["prev"] = full_imgnames
+                s["pixels"] = dict(zip(full_imgnames, block_imgs))
                 s["datapoint"] = datapoint
     return [s["datapoint"] for s in states]

@@ -61,7 +61,7 @@ def train(pipeline, cfg, dataset, mesh=None, position_delta: tuple[int, int] | N
     `ops.attention.set_ring_context(mesh, axis)` and set `cfg.attn_impl` to
     "ring_pallas" (or "ring")."""
     if mesh is not None:
-        raise NotImplementedError("data-parallel training over a device mesh is ROADMAP slice 7b "
+        raise NotImplementedError("data-parallel training over a device mesh is ROADMAP slice 7b part 2 "
                                   "(ring attention runs through ops.attention.set_ring_context)")
     gen = torch.Generator(device=pipeline.device).manual_seed(cfg.seed)
     lora = lora_init(gen, pipeline.dit, r=cfg.lora.r, alpha=cfg.lora.alpha, init=cfg.lora.init)

@@ -1,6 +1,7 @@
 """The PyTorch port imports no JAX, no JAX-package module and none of the
 packages its target machine lacks: every port module (the K8/K9 ops, the
-corrector sampler, the mesh and ring attention, the verifiers, reflectors and
+corrector sampler, the meshes (of ranks and of one process's devices), the
+collectives, the TP specs, the mesh dryruns and ring attention, the verifiers, reflectors and
 search loops, the BPE tokenizers, the snapshot loader, the Qwen2.5-VL models,
 the reward-model trainer, the Qwen verifier and the host image codecs and
 tar indexer included), and the
@@ -87,5 +88,6 @@ def test_port_imports_without_jax_and_friends():
                  "models.qwen_vl.vision", "models.qwen_vl.model", "models.qwen_vl.reward",
                  "models.qwen_vl.generate", "rm_train.train", "verifiers.qwen_verifier", "cli.score_images",
                  "cli.vcache_calibrate", "sampler.vcache_calibrate", "rm_train.losses", "rm_train.data",
-                 "cli.train_reward", "utils.image_io", "utils.native"):
+                 "cli.train_reward", "utils.image_io", "utils.native", "parallel.collectives",
+                 "parallel.distributed", "parallel.specs", "parallel.dryrun"):
         assert f"reflectionflow_tpu_torch.{name}" in proc.stdout
