@@ -247,16 +247,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      full-width FLUX.1-dev of random bf16 weights from seed 0 built one rank at a
      time, the ranks' weights checked equal, MESH_STEPS steps at 1024 px (cut
      from 30); every launch count read on each rank around its sharded call:
-     (a) TP, data 1 x model MESH_WORLD, bf16 "pallas", 2 prompts x 2
-     candidates: final latents cosine >= MESH_COS against rank 0's one-rank
+     (a) TP, data 1 x model MESH_WORLD, bf16 "pallas", MESH_TP_B candidate(s) of
+     one prompt: final latents cosine >= MESH_COS against rank 0's one-rank
      generate of the same seed, exactly 57 K1 and 114 all-reduces a forward on
      each rank (all through host memory, no gather), each rank's DiT holding
      exactly its shard's bytes (the specs' cut dims halved; < 0.7 of the whole),
-     K1's first launch at each of its shapes on the sharded forward (B=4,
-     L=4608, 12 heads a rank) held against its plain version on those same
+     K1's first launch at each of its shapes on the sharded forward (B =
+     MESH_TP_B, L=4608, 12 heads a rank) held against its plain version on those same
      inputs (OUT_TOL, LSE_TOL), s/step and the all-reduce time share
      (synchronised around each call);
-     (b) DP, data MESH_WORLD, W8A8 "pallas", the same 4 candidates, one prompt a
+     (b) DP, data MESH_WORLD, W8A8 "pallas", 2 prompts x 2 candidates, one prompt a
      rank: cosine >= MESH_COS against the one-rank W8A8 generate, the uint8 max
      |diff| printed, exactly 57 K1, 152 K2, 114 K3, 76 K4, 76 K5 a forward on
      each rank and one gather;
@@ -270,20 +270,56 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      DiT itself): on rank 0 alone first, one data slice a generate call, then
      on both ranks; the same files, byte for byte, and exactly the K9 and
      K3–K5 launches of MESH_STEPS t2i and MESH_STEPS conditioned forwards a
-     rank.
+     rank;
+  15. training over a mesh of ranks, MESH_WORLD gloo ranks on cuda:0 as in
+     phase 14, at FLUX.1-dev's full width with random bf16 weights from a
+     seed, one launch for 15b, 15a and 15d in turn (15c runs in 14a's launch):
+     (a) DP corrector training, data MESH_WORLD, "pallas", global B =
+     MESH_TRAIN_B at 512 px, MESH_TRAIN_STEPS steps of sgd with the 0.5 clip
+     at full depth, after rank 0 ran the same global batches alone: the
+     adapters bitwise equal on every rank after each step, each step's loss
+     within MESH_TRAIN_LOSS_RTOL and every adapter tensor at cosine >=
+     MESH_ADAPTER_COS of the one-rank run, exactly 114 K1, 57 K6a and 57 K6b
+     a step on each rank and one gradient all-reduce a step;
+     (b) TP corrector training, data 1 x model MESH_WORLD, depth
+     MESH_TP_DEPTH, B=2, one sgd step without a clip from adapters with a
+     non-zero B: each adapter's gradient at cosine >= MESH_TP_GRAD_COS of the
+     one-rank step, K1's first launch on each rank (2, 2560, 12, 128) against
+     its plain version (OUT_TOL, LSE_TOL), and K6a + K6b's first launch there,
+     dQ, dK, dV against the plain backward on the same q, k, v, out, lse and
+     dO (K6_REL_TOL of max |ref|), 2 K1, 1 K6a, 1 K6b a block, the saved
+     adapters whole-shaped and byte-identical on both ranks;
+     (c) W8A8 under TP: in 14a's launch, `quantize` (DiT W8A8) on the cut
+     model, which keeps the unfused layout, and MESH_STEPS steps: cosine >=
+     MESH_COS against rank 0's one-rank W8A8 run of that layout, 57 K1 a
+     forward and no K2–K5, one all_reduce_max and one int32 all_reduce_sum a
+     row-cut linear;
+     (d) the reward trainer's FSDP, data MESH_WORLD: Qwen2.5-VL-7B's widths
+     at depth MESH_RM_DEPTH, int8 weight-only base sharded over the ranks,
+     one step on RM_PAIRS pairs at RM_PX px: the loss within
+     MESH_RM_LOSS_RTOL of the one-rank step, each trainable's reduced
+     gradient at cosine >= MESH_RM_GRAD_COS of the one-rank step's, the whole
+     gradient within MESH_RM_GRAD_NORM_RTOL of its norm, each change over the
+     step at cosine >= MESH_RM_DELTA_COS of the one-rank change (a tensor
+     whose one-rank gradient is zero, as lora_A's under a zero lora_B, must
+     be zero too), the trainables bitwise equal on every rank, each rank
+     holding at most 0.55 of the base's bytes, no K1–K9 launch.
+     Each sub-phase prints its seconds and each rank's peak GiB.
 The training numbers are on the line {"train": {...}}, phase 5e's on
 {"genref_data": {...}}, the ring phase's on
 {"ring": {...}}, the reflection round's on {"reflection_round": {...}}, the
 snapshot phase's on {"snapshot_load": {...}}, the round with models on
 {"reflection_round_models": {...}}, the NVILA round on {"nvila_round":
 {...}}, phase 12's on {"vcache_nf4": {...}} and phase 13's on {"rm_train":
-{...}}, phase 14's on {"mesh": {...}}; the line before the last is
+{...}}, phase 14's on {"mesh": {...}}, phase 15's on {"mesh_train": {...}};
+the line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import copy
 import gc
 import json
 import math
@@ -340,11 +376,24 @@ RM_LORA_R, RM_LORA_ALPHA = 16, 32.0  # train_reward's defaults
 RM_LR = 1e-5  # train_reward's default
 RM_SEED = 13
 MESH_WORLD = 2  # phase 14: ranks on the one card (gloo; NCCL refuses two ranks on one GPU)
-MESH_STEPS = 4  # phase 14's Euler steps (cut from 30)
+MESH_STEPS = 2  # phase 14's Euler steps (cut from 30; 4 until phase 15 needed the time)
+MESH_TP_B = 2  # phase 14a / 15c: candidates of one prompt (2 prompts x BRANCH until phase 15 needed the time)
 MESH_COS = 0.999  # phase 14: sharded final latents against the one-rank run of the same seed
 MESH_SEED = 21
-MESH_TIMEOUT = 420  # seconds a phase-14 launch may take
+MESH_TIMEOUT = 420  # seconds a phase-14 or phase-15 launch may take
 MESH_PARENT_GIB = 4.0  # phase 14: what the parent may still hold of the card its ranks share
+# phase 15: training over a mesh of ranks, MESH_WORLD gloo ranks on the one card
+MESH_TRAIN_B, MESH_TRAIN_STEPS = 4, 2  # 15a: global batch (2 a rank), steps
+MESH_TRAIN_PX = 512  # 15a / 15b: target and condition size (TrainConfig's)
+MESH_TRAIN_LOSS_RTOL = 1e-2  # 15a: each step's loss against the one-rank step on the same global batch
+MESH_ADAPTER_COS = 0.9999  # 15a: every adapter tensor after the steps against the one-rank run
+MESH_TP_DEPTH = (2, 4)  # 15b: double and single blocks (full width; a block's K1/K6 shapes ignore depth)
+MESH_TP_GRAD_COS = 0.999  # 15b: each adapter's gradient against the one-rank step
+MESH_RM_DEPTH = (2, 4)  # 15d: Qwen2.5-VL-7B LM layers and vision blocks (full width; phase 13 runs full depth)
+MESH_RM_LOSS_RTOL = 1e-2  # 15d: the FSDP step's loss against the one-rank step
+MESH_RM_GRAD_COS = 0.99  # 15d: each trainable's reduced gradient against the one-rank step's, cosine
+MESH_RM_GRAD_NORM_RTOL = 2e-2  # 15d: |the whole gradient's norm / the one-rank norm - 1| (a scale is global)
+MESH_RM_DELTA_COS = 0.95  # 15d: each trainable's change over the step (AdamW) against the one-rank change
 K1_PRESET = (1, LT + LI + LC, LT + LI, 0.0)  # phase 11: K1 at the NVILA preset's (B, L, main_len, cross bias)
 # K1 timed: (B, L, main_len, cross bias): the t2i forward at B = 1 and 2, and the training
 # sequence (512 + 1024 + 1024 tokens, the cond segment at 1536) with the c_factor bias
@@ -2609,7 +2658,7 @@ class ByteStubTokenizer:
 
 
 def _cosine(a, b) -> float:
-    a, b = a.double().flatten(), b.double().flatten()
+    a, b = a.detach().double().flatten(), b.detach().double().flatten()
     return float((a @ b) / (a.norm() * b.norm()))
 
 
@@ -3525,21 +3574,22 @@ def mesh_weight_check(pipe) -> None:
     check(all(torch.equal(every[0], x) for x in every), "phase 14: the ranks' weights differ")
 
 
-def _timed_all_reduce(collectives, torch):
-    """Wrap `collectives.all_reduce_sum` to add each call's seconds (synchronised
-    before and after) to the returned list; returns (list, restore)."""
-    spent, inner = [], collectives.all_reduce_sum
+def _timed_call(torch, module, name: str = "all_reduce_sum"):
+    """Wrap `module.<name>` (a collective) to add each call's seconds
+    (synchronised before and after) to the returned list; returns (list,
+    restore)."""
+    spent, inner = [], getattr(module, name)
 
-    def timed(x, group=None):
+    def timed(*args, **kwargs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = inner(x, group)
+        out = inner(*args, **kwargs)
         torch.cuda.synchronize()
         spent.append(time.perf_counter() - t0)
         return out
 
-    collectives.all_reduce_sum = timed
-    return spent, lambda: setattr(collectives, "all_reduce_sum", inner)
+    setattr(module, name, timed)
+    return spent, lambda: setattr(module, name, inner)
 
 
 def _launch_counts():
@@ -3596,22 +3646,84 @@ def _k1_against_plain(torch, seen) -> list[dict]:
     return res
 
 
+def _spy_k6():
+    """Wrap `flash_attention_bwd` where `FlashAttention.backward` calls it, to
+    keep a copy of the inputs and gradients of its first call at each (shape,
+    main_len, cross_bias). K6a and K6b launch inside it and count as they
+    would without the spy. Returns (captured, restore)."""
+    from reflectionflow_tpu_torch.ops import flash_attention as fa
+
+    seen, inner = {}, fa.flash_attention_bwd
+
+    def spy(q, k, v, out, lse, do, main_len=None, cross_bias=0.0):
+        grads = inner(q, k, v, out, lse, do, main_len, cross_bias)
+        key = (tuple(q.shape), main_len, cross_bias)
+        if key not in seen:
+            seen[key] = [t.clone() for t in (q, k, v, out, lse, do, *grads)]
+        return grads
+
+    fa.flash_attention_bwd = spy
+    return seen, lambda: setattr(fa, "flash_attention_bwd", inner)
+
+
+def _k6_against_plain(torch, seen) -> list[dict]:
+    """K6a + K6b's dQ, dK, dV kept by `_spy_k6` against
+    `flash_attention_bwd_ref` on the same inputs, one batch row at a time;
+    each error is relative to the max |ref| over the rows (K6_REL_TOL)."""
+    from reflectionflow_tpu_torch.ops.flash_attention import flash_attention_bwd_ref
+
+    res = []
+    with torch.no_grad():
+        for (shape, main_len, cb), (q, k, v, out, lse, do, *got) in seen.items():
+            err, ref_max = [0.0] * 3, [0.0] * 3
+            for b in range(shape[0]):
+                rows = slice(b, b + 1)
+                want = flash_attention_bwd_ref(q[rows], k[rows], v[rows], out[rows], lse[rows], do[rows],
+                                               main_len, cb)
+                for j, (g, w) in enumerate(zip(got, want)):
+                    err[j] = max(err[j], (g[rows].float() - w).abs().max().item())
+                    ref_max[j] = max(ref_max[j], w.abs().max().item())
+                del want
+            res.append({"shape": list(shape), "main_len": main_len, "cross_bias": cb,
+                        **{f"{n}_max_abs_err": e for n, e in zip(("dq", "dk", "dv"), err)},
+                        **{f"{n}_rel": e / m for n, e, m in zip(("dq", "dk", "dv"), err, ref_max)},
+                        "finite": all(bool(torch.isfinite(g).all()) for g in got)})
+    seen.clear()
+    torch.cuda.empty_cache()
+    return res
+
+
 def mesh_tp_rank(device, _td):
-    """14a: data 1 x model MESH_WORLD, bf16 "pallas", 2 prompts x BRANCH."""
+    """14a: data 1 x model MESH_WORLD, bf16 "pallas", MESH_TP_B candidate(s) of
+    one prompt; then 15c: `quantize` (W8A8 DiT) on the cut model, which keeps the
+    unfused layout, and the same generate. Rank 0 makes the one-rank
+    references before the cut: the bf16 run, and the W8A8 run of that layout
+    on a copy of its DiT."""
     torch, dist, collectives = _mesh_ctx()
     from reflectionflow_tpu_torch.models.flux.dit import FluxDiT
     from reflectionflow_tpu_torch.parallel.mesh import make_mesh
     from reflectionflow_tpu_torch.parallel.specs import dit_param_spec
 
-    prompts = _mesh_prompts(N_PROMPTS)
+    prompts = _mesh_prompts(1)[:MESH_TP_B]
     kw = dict(num_inference_steps=MESH_STEPS, seed=MESH_SEED, output_type="latent")
 
     def setup(pipe):
         pipe.attn_impl = "pallas"
 
+    def references(pipe):
+        bf16 = pipe.generate(prompts, **kw)
+        t0 = time.perf_counter()
+        unfused = copy.copy(pipe)
+        unfused.dit = copy.deepcopy(pipe.dit)
+        unfused.quantize(which=("dit",), int4=(), fuse_qkv=False)
+        w8a8 = unfused.generate(prompts, **kw)
+        del unfused
+        torch.cuda.empty_cache()
+        return bf16, w8a8, time.perf_counter() - t0
+
     tp = MESH_WORLD
     pipe, ref, build_s = _mesh_build(device, make_mesh((1, tp), ("data", "model")), quantize=False,
-                                     setup=setup, first=lambda pipe: pipe.generate(prompts, **kw))
+                                     setup=setup, first=references)
     mesh_weight_check(pipe)
     with torch.device("meta"):  # the whole DiT's bytes, from its shapes
         full = {k: t.numel() * pipe.dtype.itemsize for k, t in FluxDiT(pipe.dit_cfg).state_dict().items()}
@@ -3621,7 +3733,7 @@ def mesh_tp_rank(device, _td):
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     collectives.reset_counts()
-    spent, restore = _timed_all_reduce(collectives, torch)
+    spent, restore = _timed_call(torch, collectives)
     k1_seen, restore_k1 = _spy_k1()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3639,7 +3751,31 @@ def mesh_tp_rank(device, _td):
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "finite": bool(torch.isfinite(final).all()), "k1_vs_plain": _k1_against_plain(torch, k1_seen)}
     if ref is not None:
-        out["cosine"] = _cosine(final, ref)
+        out["cosine"] = _cosine(final, ref[0])
+    del final
+
+    # 15c: W8A8 under the model axis, on the cut DiT
+    t_q = time.perf_counter()
+    pipe.quantize(which=("dit",), int4=())
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t_q
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    final = pipe.generate(prompts, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    q = {"launches": _launch_counts(), "collectives": dict(collectives.COUNTS), "rope_layout": pipe.rope_layout,
+         "quantize_s": quantize_s, "generate_s": wall, "s_per_step": wall / MESH_STEPS,
+         "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "finite": bool(torch.isfinite(final).all()),
+         "dit_bytes": sum(t.numel() * t.element_size() for t in (*pipe.dit.parameters(), *pipe.dit.buffers())),
+         "phase_s": time.perf_counter() - t_q}
+    if ref is not None:
+        q["cosine"] = _cosine(final, ref[1])
+        q["reference_s"] = ref[2]
+    out["w8a8"] = q
     return out
 
 
@@ -3752,7 +3888,7 @@ def mesh_phase(torch, card: str) -> dict:
                          init_method=file_init(td), timeout=MESH_TIMEOUT)
             return out, time.perf_counter() - t0
 
-        # 14a: tensor parallelism, bf16
+        # 14a: tensor parallelism, bf16; then 15c, W8A8 under the same cut
         tp, res["tp_wall_s"] = run(mesh_tp_rank)
         per_rank = MESH_STEPS * (nd + ns)
         sums = MESH_STEPS * (4 * nd + ns)
@@ -3760,6 +3896,14 @@ def mesh_phase(torch, card: str) -> dict:
             want = {name: 0 for name in r["launches"]}
             want["flash_fwd"] = per_rank
             check(r["launches"] == want, f"14a rank {r['rank']}: launches {r['launches']}, expected {want}")
+            q = r["w8a8"]
+            check(q["launches"] == want, f"15c rank {r['rank']}: launches {q['launches']}, expected {want} "
+                  "(K1 alone: no K2-K5 under tensor parallelism, as JAX runs none there)")
+            # each row-cut W8A8 linear: one amax of its input's rows and one int32 sum, through host memory
+            check(q["collectives"]["all_reduce_max"] == sums and q["collectives"]["all_reduce_sum"] == sums
+                  and q["collectives"]["host_copies"] == 2 * sums and q["rope_layout"] == "pair" and q["finite"],
+                  f"15c rank {r['rank']}: {q['collectives']}, layout {q['rope_layout']}, expected {sums} "
+                  "max and sum all-reduces")
             check(r["collectives"]["all_reduce_sum"] == sums and r["collectives"]["host_copies"] == sums
                   and r["collectives"]["all_gather_batch"] == 0,
                   f"14a rank {r['rank']}: collectives {r['collectives']}, expected {sums} all-reduces")
@@ -3772,8 +3916,19 @@ def mesh_phase(torch, card: str) -> dict:
             log(f"14a rank {r['rank']}: K1 on the TP forward's own inputs against its plain version "
                 f"(tol {OUT_TOL}, lse {LSE_TOL}): {json.dumps(k1)}")
         check(tp[0]["cosine"] >= MESH_COS, f"14a: cosine {tp[0]['cosine']:.6f} against the one-rank run")
+        check(tp[0]["w8a8"]["cosine"] >= MESH_COS,
+              f"15c: cosine {tp[0]['w8a8']['cosine']:.6f} against the one-rank W8A8 run of the unfused layout")
         res["tp"] = tp
-        log(f"14a TP (data 1 x model {MESH_WORLD}, bf16 pallas, B={N_PROMPTS * BRANCH}, {MESH_STEPS} steps): "
+        log(f"15c W8A8 under TP (data 1 x model {MESH_WORLD}, `quantize` after the cut, unfused layout, "
+            f"B={MESH_TP_B}, {MESH_STEPS} steps): cosine {tp[0]['w8a8']['cosine']:.6f} vs the "
+            f"one-rank W8A8 run (made in {tp[0]['w8a8']['reference_s']:.1f} s); per rank {per_rank} K1, no K2-K5, "
+            f"{tp[0]['w8a8']['collectives']['all_reduce_max']} all_reduce_max + "
+            f"{tp[0]['w8a8']['collectives']['all_reduce_sum']} int32 all_reduce_sum; quantize "
+            f"{[round(r['w8a8']['quantize_s'], 2) for r in tp]} s; s/step "
+            f"{[round(r['w8a8']['s_per_step'], 4) for r in tp]}; peak {[round(r['w8a8']['peak_gib'], 2) for r in tp]} "
+            f"GiB; DiT bytes a rank {tp[0]['w8a8']['dit_bytes'] / 2**30:.2f} GiB; 15c's seconds a rank "
+            f"{[round(r['w8a8']['phase_s'], 1) for r in tp]}; {card}")
+        log(f"14a TP (data 1 x model {MESH_WORLD}, bf16 pallas, B={MESH_TP_B}, {MESH_STEPS} steps): "
             f"cosine {tp[0]['cosine']:.6f} vs one rank; per rank {per_rank} K1, {sums} all-reduces "
             f"(all through host memory); DiT bytes {tp[0]['dit_bytes'] / 2**30:.2f} of "
             f"{tp[0]['dit_bytes_full'] / 2**30:.2f} GiB ({tp[0]['dit_bytes'] / tp[0]['dit_bytes_full']:.3f}); "
@@ -3826,6 +3981,445 @@ def mesh_phase(torch, card: str) -> dict:
             f"block s {[round(r['block_s'], 2) for r in rnd]}")
     res["wall_s"] = time.perf_counter() - t_phase
     log(f"phase 14: {res['wall_s']:.1f} s")
+    return res
+
+
+# -- phase 15: training over a mesh of ranks ----------------------------------
+
+
+def _train_batch(torch, cfg, B: int, seed: int, device) -> dict:
+    """A prepared corrector batch at MESH_TRAIN_PX (the tensors
+    `prepare_batch_tensors` makes from the VAE and the text encoders), random
+    bf16 from a seeded generator on the card: the same on every rank."""
+    from reflectionflow_tpu_torch.models.flux.rope import make_image_ids, make_text_ids
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    side = MESH_TRAIN_PX // 16  # packed latent tokens a side
+    bf = dict(device=device, dtype=torch.bfloat16, generator=g)
+    return {"x0": torch.randn((B, side * side, cfg.in_channels), **bf),
+            "cond": torch.randn((B, side * side, cfg.in_channels), **bf),
+            "txt": torch.randn((B, LT, cfg.text_dim), **bf), "pooled": torch.randn((B, cfg.pooled_dim), **bf),
+            "img_ids": torch.from_numpy(make_image_ids(side, side)).to(device),
+            "txt_ids": torch.from_numpy(make_text_ids(LT)).to(device),
+            "cond_ids": torch.from_numpy(make_image_ids(side, side, position_delta=(0, -side))).to(device)}
+
+
+def _data_slice(batch: dict, mesh) -> dict:
+    """This rank's rows over "data" of a corrector batch's batch-leading
+    tensors: what each rank's loader yields under `train(mesh=)`."""
+    from reflectionflow_tpu_torch.parallel.mesh import shard_batch
+
+    return dict(batch, **shard_batch({k: batch[k] for k in ("x0", "cond", "txt", "pooled")}, mesh))
+
+
+def _same_on_every_rank(torch, collectives, tensors) -> bool:
+    """This rank's tensors equal rank 0's bit for bit (rank 0's broadcast
+    into a copy); the collective counts are left as they were."""
+    saved = dict(collectives.COUNTS)
+    mine = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    theirs = collectives.broadcast(mine.clone(), 0)
+    collectives.COUNTS.update(saved)
+    return bool(torch.equal(mine, theirs))
+
+
+def _adapter_list(adapters):
+    return [ab[k] for ab in adapters.values() for k in ("lora_A", "lora_B")]
+
+
+def _train_dit(torch, cfg, device):
+    from reflectionflow_tpu_torch.models.flux.dit import FluxDiT
+    from reflectionflow_tpu_torch.sampler.pipeline import _build
+
+    return _build(FluxDiT, cfg, torch.bfloat16, device, torch.Generator(device=device).manual_seed(0)).requires_grad_(False)
+
+
+def mesh_tp_train(torch, dist, collectives, device, td) -> dict:
+    """15b: one corrector step over data 1 x model MESH_WORLD on FLUX.1-dev's
+    full width cut to MESH_TP_DEPTH blocks (B=2, 512 px, "pallas"): sgd at
+    lr 1 without a clip from adapters with a seeded non-zero B, so that the
+    update is the reduced gradient; the same step unsharded on the rank's
+    whole DiT first."""
+    import dataclasses
+    import hashlib
+
+    from reflectionflow_tpu_torch.config import TrainConfig
+    from reflectionflow_tpu_torch.lora.lora import lora_init, lora_parameters
+    from reflectionflow_tpu_torch.models.flux.dit import FluxDiT
+    from reflectionflow_tpu_torch.parallel.mesh import make_mesh
+    from reflectionflow_tpu_torch.parallel.specs import shard_dit_params
+    from reflectionflow_tpu_torch.train import rectified_flow
+    from reflectionflow_tpu_torch.train.rectified_flow import make_optimizer, make_train_step
+    from reflectionflow_tpu_torch.train.train_loop import export_diffusers_lora
+
+    t_sub = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    nd, ns = MESH_TP_DEPTH
+    cfg = dataclasses.replace(_dit_cfg(), num_double_blocks=nd, num_single_blocks=ns)
+    tcfg = TrainConfig()
+    tcfg.optimizer.name, tcfg.optimizer.lr, tcfg.optimizer.grad_clip = "sgd", 1.0, 0.0
+    batch = _train_batch(torch, cfg, 2, MESH_SEED, device)
+
+    def step_delta(dit, mesh):
+        """The adapters' change over one step (= minus the reduced gradient)."""
+        lora = lora_init(torch.Generator(device=device).manual_seed(MESH_SEED), dit, r=tcfg.lora.r,
+                         alpha=tcfg.lora.alpha)
+        with torch.no_grad():
+            g = torch.Generator(device=device).manual_seed(MESH_SEED + 1)
+            for ab in lora["adapters"].values():
+                ab["lora_B"].normal_(0.0, 0.02, generator=g)
+        before = [t.detach().clone() for t in lora_parameters(lora)]
+        opt = make_optimizer(tcfg)
+        step = make_train_step(dit, opt, alpha=tcfg.lora.alpha, r=tcfg.lora.r, attn_impl="pallas", mesh=mesh)
+        mine = batch if mesh is None else _data_slice(batch, mesh)
+        adapters, _, metrics = step(lora["adapters"], opt.init(lora_parameters(lora)), mine,
+                                    torch.Generator(device=device).manual_seed(MESH_SEED + 2))
+        return adapters, [a.detach() - b for a, b in zip(_adapter_list(adapters), before)], float(metrics["loss"])
+
+    dit = _train_dit(torch, cfg, device)
+    _, want, want_loss = step_delta(dit, None)
+    mesh = make_mesh((1, MESH_WORLD), ("data", "model"))
+    shard_dit_params(dit, mesh)
+    torch.cuda.synchronize()
+    zero_counts()
+    collectives.reset_counts()
+    k1_seen, restore_k1 = _spy_k1()
+    k6_seen, restore_k6 = _spy_k6()
+    sums, restore_sums = _timed_call(torch, collectives)  # the row sums and the column copies' backward
+    bucket, restore_bucket = _timed_call(torch, rectified_flow, "reduce_gradients")
+    t0 = time.perf_counter()
+    try:
+        adapters, got, loss = step_delta(dit, mesh)
+        torch.cuda.synchronize()
+    finally:
+        restore_k1()
+        restore_k6()
+        restore_sums()
+        restore_bucket()
+    step_s = time.perf_counter() - t0
+    launches, counts = _launch_counts(), dict(collectives.COUNTS)
+    cos = [_cosine(a, b) for a, b in zip(got, want)]
+    path = os.path.join(td, f"tp_adapters_rank{dist.get_rank()}.safetensors")
+    export_diffusers_lora(adapters, path)
+    with torch.device("meta"):  # the whole model's linears
+        whole = dict(FluxDiT(cfg).named_modules())
+    r = tcfg.lora.r
+    shapes_whole = all(tuple(ab["lora_A"].shape) == (r, whole[n].in_features)
+                       and tuple(ab["lora_B"].shape) == (whole[n].out_features, r) for n, ab in adapters.items())
+    with open(path, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    out = {"launches": launches, "collectives": counts, "step_s": step_s, "loss": loss, "loss_one_rank": want_loss,
+           "all_reduce_s": sum(sums) + sum(bucket), "all_reduce_share": (sum(sums) + sum(bucket)) / step_s,
+           "grad_cosine_min": min(cos), "adapters_sha256": digest, "shapes_whole": shapes_whole,
+           "same_on_every_rank": _same_on_every_rank(torch, collectives, _adapter_list(adapters)),
+           "k1_vs_plain": _k1_against_plain(torch, k1_seen), "k6_vs_plain": _k6_against_plain(torch, k6_seen),
+           "depth": [nd, ns],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del dit, adapters, got, want, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["sub_s"] = time.perf_counter() - t_sub
+    return out
+
+
+def mesh_dp_train(torch, dist, collectives, device) -> dict:
+    """15a: MESH_TRAIN_STEPS corrector steps over data MESH_WORLD on the full
+    FLUX.1-dev DiT (19 + 38 blocks, random bf16 from seed 0 on every rank),
+    "pallas", r = alpha = 32, sgd (an update along the clipped gradient, so
+    that the adapters' cosines read the gradients) with the 0.5 clip, global
+    B = MESH_TRAIN_B at 512 px, each rank passing its data slice; rank 0 first
+    runs the same steps on the same global batches alone. After each mesh step the adapters are checked equal
+    on every rank, bit for bit."""
+    from reflectionflow_tpu_torch.config import TrainConfig
+    from reflectionflow_tpu_torch.lora.lora import lora_init, lora_parameters
+    from reflectionflow_tpu_torch.parallel.mesh import make_mesh
+    from reflectionflow_tpu_torch.train import rectified_flow
+    from reflectionflow_tpu_torch.train.rectified_flow import make_optimizer, make_train_step
+
+    t_sub = time.perf_counter()
+    cfg = _dit_cfg()
+    t0 = time.perf_counter()
+    dit = _train_dit(torch, cfg, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    weights_same = _same_on_every_rank(torch, collectives, [dit.x_embedder.weight, dit.proj_out.weight,
+                                                            dit.transformer_blocks[-1].attn.to_q.weight,
+                                                            dit.single_transformer_blocks[-1].proj_mlp.weight])
+    batches = [_train_batch(torch, cfg, MESH_TRAIN_B, MESH_SEED + i, device) for i in range(MESH_TRAIN_STEPS)]
+    tcfg = TrainConfig()
+    tcfg.optimizer.name = "sgd"
+
+    def trainer(mesh):
+        gen = torch.Generator(device=device).manual_seed(MESH_SEED)
+        lora = lora_init(gen, dit, r=tcfg.lora.r, alpha=tcfg.lora.alpha)
+        opt = make_optimizer(tcfg)
+        step = make_train_step(dit, opt, alpha=tcfg.lora.alpha, r=tcfg.lora.r, attn_impl="pallas", mesh=mesh)
+        return lora["adapters"], opt.init(lora_parameters(lora)), step, gen
+
+    ref = None
+    if dist.get_rank() == 0:  # the one-rank run of the same global batches, draws and seed
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        adapters, state, step, gen = trainer(None)
+        losses = []
+        for batch in batches:
+            adapters, state, m = step(adapters, state, batch, gen)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ref = {"adapters": [t.detach().clone() for t in _adapter_list(adapters)], "losses": losses,
+               "s": time.perf_counter() - t0, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del adapters, state, step, gen
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = make_mesh((MESH_WORLD,), ("data",))
+    adapters, state, step, gen = trainer(mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    collectives.reset_counts()
+    losses, secs, same = [], [], []
+    bucket, restore_bucket = _timed_call(torch, rectified_flow, "reduce_gradients")
+    try:
+        for batch in batches:
+            t0 = time.perf_counter()
+            adapters, state, m = step(adapters, state, _data_slice(batch, mesh), gen)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            same.append(_same_on_every_rank(torch, collectives, _adapter_list(adapters)))
+    finally:
+        restore_bucket()
+    out = {"launches": _launch_counts(), "collectives": dict(collectives.COUNTS), "losses": losses,
+           "s_per_step_all": secs, "all_reduce_s_all": bucket,
+           "all_reduce_share": sum(bucket) / sum(secs), "same_on_every_rank": same, "weights_same": weights_same,
+           "build_s": build_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "adapter_params": sum(t.numel() for t in _adapter_list(adapters))}
+    if ref is not None:
+        cos = [_cosine(a, b) for a, b in zip(_adapter_list(adapters), ref["adapters"])]
+        out.update(adapter_cosine_min=min(cos), losses_one_rank=ref["losses"], one_rank_s=ref["s"],
+                   one_rank_peak_gib=ref["peak_gib"],
+                   loss_rel=max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])))
+    del dit, adapters, state, step, batches, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["sub_s"] = time.perf_counter() - t_sub
+    return out
+
+
+def mesh_fsdp_rm(torch, dist, collectives, device) -> dict:
+    """15d: one reward-model step over data MESH_WORLD on Qwen2.5-VL-7B's
+    widths cut to MESH_RM_DEPTH (random bf16 from RM_SEED on every rank), the
+    LM and the tower int8 weight-only and sharded FSDP, the LM and vision
+    adapters, the head and the special row trained, RM_PAIRS pairs at RM_PX
+    (one a rank); the same step unsharded on each rank's own model first.
+    The optimizer's `update` is wrapped to keep the gradients it is handed
+    (reduced, under the mesh), which are held with each trainable's change
+    over the step against the one-rank step's."""
+    import numpy as np
+
+    from reflectionflow_tpu_torch.models.qwen_vl.model import QwenVLModel
+    from reflectionflow_tpu_torch.parallel.mesh import make_mesh
+    from reflectionflow_tpu_torch.parallel.specs import fsdp_local_bytes
+    from reflectionflow_tpu_torch.rm_train import train as rt
+    from reflectionflow_tpu_torch.rm_train.data import collate_rm_batch, vision_train_geometry
+    from reflectionflow_tpu_torch.train.optim import flatten_tree
+
+    t_sub = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    lm_cfg, vis_cfg = _qwen_cfgs(*MESH_RM_DEPTH)
+    sp = lm_cfg.vocab_size - 1
+    _, grid = vision_train_geometry(vis_cfg, RM_PX * RM_PX)
+    rng = np.random.default_rng(RM_SEED)
+    rows = [{"prompt": f"a photo of {i + 2} red cubes on a wooden table", "gsb": "GB"[i % 2],
+             "score_A": 4.0 - i, "score_B": 2.0 + i,
+             **{f"image_{s}": rng.integers(0, 256, (RM_PX, RM_PX, 3), dtype=np.uint8) for s in "AB"}}
+            for i in range(RM_PAIRS)]
+
+    def run(mesh):
+        model = QwenVLModel.random_init(torch.Generator(device=device).manual_seed(RM_SEED), lm_cfg, vis_cfg,
+                                        dtype=torch.bfloat16, device=device)
+        model.lm_head = None
+        batch = collate_rm_batch(model, rows, max_pixels=RM_PX * RM_PX, special_token_id=sp, train_vision=True)
+        gen = torch.Generator(device=device).manual_seed(RM_SEED + 1)
+        H = lm_cfg.hidden_size
+        trainable = {"lora": rt.rm_lora_init(gen, model.model, RM_LORA_R, RM_LORA_ALPHA)["adapters"],
+                     "rm_head": torch.randn((H, 1), generator=gen, device=device) * 0.02,
+                     "special": torch.randn((H,), generator=gen, device=device) * 0.02,
+                     "vision_lora": rt.rm_vision_lora_init(gen, model.visual, RM_LORA_R, RM_LORA_ALPHA)["adapters"]}
+        opt = rt.make_rm_optimizer(lr=RM_LR)
+        step = rt.make_rm_train_step(model.model, opt, loss_type="btt", pooling="special", special_token_id=sp,
+                                     alpha=RM_LORA_ALPHA, r=RM_LORA_R, tower=model.visual, grid_thw=grid,
+                                     quantize_base="int8", mesh=mesh)
+        held = fsdp_local_bytes(model.model) + fsdp_local_bytes(model.visual)
+        state = opt.init(trainable)
+        before = {k: v.detach().clone() for k, v in flatten_tree(trainable).items()}
+        grads, update = {}, opt.update
+
+        def keep_grads(g, *args):
+            grads.update((k, t.detach().clone()) for k, t in flatten_tree(g).items())
+            return update(g, *args)
+
+        opt.update = keep_grads
+        torch.cuda.synchronize()
+        zero_counts()
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        trainable, state, aux = step(trainable, state, batch)
+        torch.cuda.synchronize()
+        res = {"loss": float(aux["loss"]), "step_s": time.perf_counter() - t0, "bytes": held,
+               "launches": _launch_counts(), "collectives": dict(collectives.COUNTS),
+               "same_on_every_rank": _same_on_every_rank(torch, collectives, list(flatten_tree(trainable).values())),
+               "grads": grads,
+               "change": {k: v.detach() - before[k] for k, v in flatten_tree(trainable).items()}}
+        del model, batch, trainable, state, step, opt, before
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    one = run(None)
+    out = run(make_mesh((MESH_WORLD,), ("data",)))
+    out.update(_against_one_rank(out.pop("grads"), one.pop("grads"), out.pop("change"), one.pop("change")))
+    out.update(loss_one_rank=one["loss"], bytes_whole=one["bytes"], one_rank_step_s=one["step_s"],
+               depth=list(MESH_RM_DEPTH), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               sub_s=time.perf_counter() - t_sub)
+    return out
+
+
+def _against_one_rank(grads, grads_one, change, change_one) -> dict:
+    """15d's gradients and changes of each trainable against the one-rank
+    step's: the least cosines, the whole gradient's norm ratio and each
+    tensor's (their range, printed), and whether every tensor whose one-rank
+    gradient is zero is zero here too (its cosine is then not taken)."""
+    cos_g, cos_d, ratio, zeros = [], [], [], []
+    whole = [sum(float(g.double().norm()) ** 2 for g in gs.values()) ** 0.5 for gs in (grads, grads_one)]
+    for k, want in grads_one.items():
+        if not bool(want.any()):
+            zeros.append(not bool(grads[k].any()) and not bool(change[k].any()))
+            continue
+        cos_g.append(_cosine(grads[k], want))
+        ratio.append(float(grads[k].double().norm() / want.double().norm()))
+        cos_d.append(_cosine(change[k], change_one[k]))
+    return {"grad_cosine_min": min(cos_g), "grad_norm_ratio": whole[0] / whole[1],
+            "grad_norm_ratio_tensors": [min(ratio), max(ratio)],
+            "change_cosine_min": min(cos_d), "tensors": len(grads_one), "zero_tensors": len(zeros),
+            "zeros_match": all(zeros)}
+
+
+def mesh_train_rank(device, td):
+    """Phase 15's launch: 15b, 15a, 15d in turn on every rank, each read
+    around its own run (15c runs inside 14a's launch)."""
+    torch, dist, collectives = _mesh_ctx()
+    out = {"rank": dist.get_rank()}
+    out["tp"] = mesh_tp_train(torch, dist, collectives, device, td)
+    dist.barrier()
+    out["dp"] = mesh_dp_train(torch, dist, collectives, device)
+    dist.barrier()
+    out["fsdp"] = mesh_fsdp_rm(torch, dist, collectives, device)
+    return out
+
+
+def mesh_train_phase(torch, card: str, quant: list[dict]) -> dict:
+    """Phase 15: training over a mesh of ranks on the one card (see the module
+    docstring); `quant` is 15c's result on each rank from 14a's launch."""
+    from reflectionflow_tpu_torch.parallel.distributed import launch
+    from reflectionflow_tpu_torch.parallel.dryrun import file_init
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    check(held < MESH_PARENT_GIB, f"phase 15: the parent still holds {held:.2f} GiB of the card its ranks share")
+    cfg = _dit_cfg()
+    nd, ns = cfg.num_double_blocks, cfg.num_single_blocks
+    with tempfile.TemporaryDirectory() as td:
+        ranks = launch(mesh_train_rank, MESH_WORLD, args=(td,), backend="gloo", device="cuda:0",
+                       init_method=file_init(td), timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t_phase
+    tp, dp, fs = ([r[k] for r in ranks] for k in ("tp", "dp", "fsdp"))
+
+    # 15b: TP step at MESH_TP_DEPTH
+    n = sum(MESH_TP_DEPTH)
+    for i, r in enumerate(tp):
+        want = {k: 0 for k in r["launches"]}
+        want.update(flash_fwd=2 * n, flash_bwd_dq=n, flash_bwd_dkv=n)
+        check(r["launches"] == want, f"15b rank {i}: launches {r['launches']}, expected {want}")
+        check(r["grad_cosine_min"] >= MESH_TP_GRAD_COS, f"15b rank {i}: adapter gradient cosine "
+              f"{r['grad_cosine_min']:.6f} against the one-rank step")
+        check(r["shapes_whole"] and r["same_on_every_rank"] and r["collectives"]["grad_all_reduce"] == 1,
+              f"15b rank {i}: {r}")
+        k1 = r["k1_vs_plain"]
+        check(bool(k1) and all(c["shape"][2] == cfg.num_heads // MESH_WORLD for c in k1)
+              and all(c["max_abs_err"] <= OUT_TOL and c["max_lse_err"] <= LSE_TOL for c in k1),
+              f"15b rank {i}: K1 at the sharded heads against its plain version: {k1}")
+        k6 = r["k6_vs_plain"]
+        check(bool(k6) and all(c["shape"][2] == cfg.num_heads // MESH_WORLD and c["finite"] for c in k6)
+              and all(c[f"{n}_rel"] <= K6_REL_TOL for c in k6 for n in ("dq", "dk", "dv")),
+              f"15b rank {i}: K6a + K6b at the sharded heads against the plain backward: {k6}")
+    check(len({r["adapters_sha256"] for r in tp}) == 1, "15b: the saved adapters differ between the ranks")
+    log(f"15b TP training (data 1 x model {MESH_WORLD}, depth {MESH_TP_DEPTH} at full width, B=2, 512 px, "
+        f"pallas): adapter gradients min cosine {min(r['grad_cosine_min'] for r in tp):.6f} vs one rank; loss "
+        f"{tp[0]['loss']:.6f} (one rank {tp[0]['loss_one_rank']:.6f}); per rank {tp[0]['launches']['flash_fwd']} K1, "
+        f"{tp[0]['launches']['flash_bwd_dq']} K6a, {tp[0]['launches']['flash_bwd_dkv']} K6b; collectives "
+        f"{tp[0]['collectives']}; K1 on its own inputs: {json.dumps(tp[0]['k1_vs_plain'])}; K6a + K6b on their "
+        f"own inputs (tol {K6_REL_TOL} of max |ref|): {json.dumps([r['k6_vs_plain'] for r in tp])}; saved adapters "
+        f"whole-shaped, sha256 {tp[0]['adapters_sha256'][:16]} on both ranks; step s "
+        f"{[round(r['step_s'], 3) for r in tp]}, all-reduce share {[round(r['all_reduce_share'], 3) for r in tp]}; peak {[round(r['peak_gib'], 2) for r in tp]} GiB; "
+        f"{[round(r['sub_s'], 1) for r in tp]} s")
+
+    # 15a: DP steps at full depth
+    for i, r in enumerate(dp):
+        want = {k: 0 for k in r["launches"]}
+        want.update(flash_fwd=2 * (nd + ns) * MESH_TRAIN_STEPS, flash_bwd_dq=(nd + ns) * MESH_TRAIN_STEPS,
+                    flash_bwd_dkv=(nd + ns) * MESH_TRAIN_STEPS)
+        check(r["launches"] == want, f"15a rank {i}: launches {r['launches']}, expected {want}")
+        check(all(r["same_on_every_rank"]) and r["weights_same"], f"15a rank {i}: adapters or weights differ "
+              f"from rank 0's: {r['same_on_every_rank']}, {r['weights_same']}")
+        check(r["collectives"]["grad_all_reduce"] == MESH_TRAIN_STEPS
+              and r["collectives"]["all_reduce_sum"] == 0, f"15a rank {i}: collectives {r['collectives']}")
+        check(all(math.isfinite(x) for x in r["losses"]), f"15a rank {i}: losses {r['losses']}")
+    check(dp[0]["loss_rel"] <= MESH_TRAIN_LOSS_RTOL and dp[0]["adapter_cosine_min"] >= MESH_ADAPTER_COS,
+          f"15a: losses {dp[0]['losses']} vs one rank {dp[0]['losses_one_rank']}, adapter cosine min "
+          f"{dp[0]['adapter_cosine_min']:.6f}")
+    log(f"15a DP training (data {MESH_WORLD}, full depth, global B={MESH_TRAIN_B}, 512 px, pallas, "
+        f"{MESH_TRAIN_STEPS} steps): losses {dp[0]['losses']} vs one rank {dp[0]['losses_one_rank']} (max rel "
+        f"{dp[0]['loss_rel']:.2e}); adapters ({dp[0]['adapter_params']} parameters) min cosine "
+        f"{dp[0]['adapter_cosine_min']:.7f}, bitwise equal across ranks after each step; per rank a step "
+        f"{dp[0]['launches']['flash_fwd'] // MESH_TRAIN_STEPS} K1, {dp[0]['launches']['flash_bwd_dq'] // MESH_TRAIN_STEPS} "
+        f"K6a, {dp[0]['launches']['flash_bwd_dkv'] // MESH_TRAIN_STEPS} K6b; collectives {dp[0]['collectives']}; "
+        f"s/step {[[round(x, 3) for x in r['s_per_step_all']] for r in dp]}, gradient all-reduce "
+        f"{[[round(x, 3) for x in r['all_reduce_s_all']] for r in dp]} s (share "
+        f"{[round(r['all_reduce_share'], 3) for r in dp]}) (one rank at B={MESH_TRAIN_B}: "
+        f"{dp[0]['one_rank_s'] / MESH_TRAIN_STEPS:.3f}); peak {[round(r['peak_gib'], 2) for r in dp]} GiB (one "
+        f"rank {dp[0]['one_rank_peak_gib']:.2f}); build {[round(r['build_s'], 1) for r in dp]} s; "
+        f"{[round(r['sub_s'], 1) for r in dp]} s")
+
+    # 15d: the reward trainer's FSDP
+    for i, r in enumerate(fs):
+        check(not any(r["launches"].values()), f"15d rank {i}: launched kernels of the DiT path: {r['launches']}")
+        check(r["same_on_every_rank"] and r["bytes"] <= 0.55 * r["bytes_whole"]
+              and r["collectives"]["all_gather_dim"] > 0 and r["collectives"]["grad_all_reduce"] == 1,
+              f"15d rank {i}: {r}")
+        check(abs(r["loss"] - r["loss_one_rank"]) <= MESH_RM_LOSS_RTOL * abs(r["loss_one_rank"]),
+              f"15d rank {i}: loss {r['loss']} vs one rank {r['loss_one_rank']}")
+        check(r["grad_cosine_min"] >= MESH_RM_GRAD_COS and r["change_cosine_min"] >= MESH_RM_DELTA_COS
+              and abs(r["grad_norm_ratio"] - 1.0) <= MESH_RM_GRAD_NORM_RTOL and r["zeros_match"],
+              f"15d rank {i}: gradients and changes against the one-rank step: gradient cosine min "
+              f"{r['grad_cosine_min']:.6f}, norm ratio {r['grad_norm_ratio']}, change cosine min "
+              f"{r['change_cosine_min']:.6f}, zero tensors {r['zero_tensors']} matched {r['zeros_match']}")
+    log(f"15d reward-model FSDP (data {MESH_WORLD}, Qwen2.5-VL-7B widths, depth {MESH_RM_DEPTH}, int8 base, "
+        f"{RM_PAIRS} pairs at {RM_PX} px): loss {fs[0]['loss']:.6f} vs one rank {fs[0]['loss_one_rank']:.6f}; "
+        f"reduced gradients min cosine {min(r['grad_cosine_min'] for r in fs):.6f} (limit {MESH_RM_GRAD_COS}), "
+        f"norm ratio {[r['grad_norm_ratio'] for r in fs]} (limit 1 +- {MESH_RM_GRAD_NORM_RTOL}; a tensor's "
+        f"{fs[0]['grad_norm_ratio_tensors']}), changes min cosine {min(r['change_cosine_min'] for r in fs):.6f} "
+        f"(limit {MESH_RM_DELTA_COS}) over the {fs[0]['tensors'] - fs[0]['zero_tensors']} of {fs[0]['tensors']} "
+        f"tensors with a gradient, {fs[0]['zero_tensors']} zero on both; "
+        f"trainables bitwise equal across ranks; base bytes a rank {[r['bytes'] for r in fs]} of "
+        f"{fs[0]['bytes_whole']} ({fs[0]['bytes'] / fs[0]['bytes_whole']:.3f}); collectives {fs[0]['collectives']}; "
+        f"step s {[round(r['step_s'], 3) for r in fs]} (one rank {fs[0]['one_rank_step_s']:.3f}); peak "
+        f"{[round(r['peak_gib'], 2) for r in fs]} GiB; {[round(r['sub_s'], 1) for r in fs]} s")
+    q_s = max(q["phase_s"] + q.get("reference_s", 0.0) for q in quant)
+    res = {"world": MESH_WORLD, "backend": "gloo", "tp": tp, "dp": dp, "fsdp": fs, "quant_tp": quant,
+           "launch_wall_s": wall, "quant_tp_s": q_s, "phase_s": wall + q_s}
+    log(f"phase 15: {res['phase_s']:.1f} s (its launch {wall:.1f} s, 15c inside 14a's launch {q_s:.1f} s); {card}")
     return res
 
 
@@ -3903,6 +4497,7 @@ def main() -> int:
     gc.collect()  # generate wrappers leave reference cycles through the pipeline)
     torch.cuda.empty_cache()
     mesh = mesh_phase(torch, card)
+    mesh_train = mesh_train_phase(torch, card, [r["w8a8"] for r in mesh["tp"]])
     step = {name: calls[-1]["denoise_s"] / STEPS for name, calls in (("bf16", bf16_calls),
                                                                       ("w8a8", w8_calls))}
     step.update({f"corrector_{impl}": corrector[impl]["s_per_step"] for impl in ("pallas_nr", "pallas_int8")})
@@ -3994,6 +4589,9 @@ def main() -> int:
         k["launches_rm_train"] = rm_train["int8"]["launches"][k["name"]] + rm_train["nf4"]["launches"][k["name"]]
         for sub in ("tp", "dp", "round"):  # per rank: rank 0's (the checks hold every rank's)
             k[f"launches_mesh_{sub}"] = mesh[sub][0]["launches"][k["name"]]
+        k["launches_mesh_quant_tp"] = mesh["tp"][0]["w8a8"]["launches"][k["name"]]
+        for sub in ("tp", "dp"):  # phase 15's training, per rank (15b at MESH_TP_DEPTH)
+            k[f"launches_mesh_train_{sub}"] = mesh_train[sub][0]["launches"][k["name"]]
     k9 = next(k for k in kernels if k["name"] == "flash_fwd_nr")
     k9["launches_round"] = reflection["launches"]["flash_fwd_nr"]
     k9["launches_round_models"] = round_models["launches"]["flash_fwd_nr"]
@@ -4008,6 +4606,7 @@ def main() -> int:
     log(json.dumps({"vcache_nf4": vcache}))
     log(json.dumps({"rm_train": rm_train}))
     log(json.dumps({"mesh": mesh}))
+    log(json.dumps({"mesh_train": mesh_train}))
     log(json.dumps({"ring": {"attention": ring["attention"],
                              "train": {k: ring["train"][k] for k in ("s_per_step", "peak_gib", "launches",
                                                                       "grad_cosine_min", "grad_cosine")},

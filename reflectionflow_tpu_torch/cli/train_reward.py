@@ -14,9 +14,18 @@ accuracy on the held-out rows, and `final_model` with the training rewards'
 mean and std as `VQ_mean` / `VQ_std`: the directory `QwenRewardVerifier`
 reads in both packages. `--resume_from checkpoint-N` continues the run (the
 checkpoint's lora_r / lora_alpha win). `--synthetic_weights` trains a tiny
-random fp32 Qwen2.5-VL. The run is on one device (`--device`, default cuda;
-it raises when CUDA is missing); `--fsdp_devices` (FSDP over a mesh) is
-ROADMAP slice 7b part 2.
+random fp32 Qwen2.5-VL. `--device` (default cuda) raises when CUDA is
+missing.
+
+`--fsdp_devices N` trains over a "data" mesh of N ranks, one process a
+device, as the JAX CLI's FSDP mesh of N devices: the frozen base sharded and
+gathered on use, each step's `--per_device_train_batch_size` rows (the
+global batch, as in JAX) split over the ranks, rank 0 writing. Under
+torchrun (`torchrun --nproc_per_node N -m
+reflectionflow_tpu_torch.cli.train_reward --fsdp_devices N ...`) each
+process joins the group; otherwise the CLI spawns the N ranks on this host
+(`--device cuda`: rank i on cuda:i; `cpu`: gloo ranks on the CPU). A world of
+another size raises ValueError.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .common import add_device_arg, resolve_device
 
@@ -64,7 +74,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vision_lr", type=float, default=None, help="LR for the vision-tower adapters")
     p.add_argument("--merger_lr", type=float, default=None, help="LR for the patch-merger adapters")
     p.add_argument("--fsdp_devices", type=int, default=0,
-                   help=">0: shard the frozen base over a device mesh (ROADMAP slice 7b part 2; raises)")
+                   help=">0: shard the frozen base over a \"data\" mesh of this many ranks (FSDP)")
     p.add_argument("--num_train_epochs", type=float, default=1.0)
     p.add_argument("--per_device_train_batch_size", type=int, default=2)
     p.add_argument("--save_epochs", type=float, default=1.0)
@@ -155,10 +165,47 @@ def _resume(trainable: dict, resumed: dict) -> None:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    resolve_device(args.device)
+    if args.fsdp_devices > 0 and not dist.is_initialized():
+        from ..parallel.distributed import init_distributed, launch
+
+        if "WORLD_SIZE" in os.environ:  # torchrun
+            init_distributed(device=args.device)
+        elif args.fsdp_devices > 1:
+            import tempfile
+
+            from ..parallel.dryrun import file_init
+
+            with tempfile.TemporaryDirectory() as td:
+                return launch(_rank_main, args.fsdp_devices, args=(argv,), device=args.device,
+                              init_method=file_init(td), timeout=7 * 86400.0)[0]
+    return _run(args)
+
+
+def _rank_main(device, argv):
+    return _run(build_parser().parse_args(argv), device)
+
+
+def _run(args, device=None):
+    from ..parallel.distributed import RankZero
+
+    device = device or resolve_device(args.device)
+    mesh = None
     if args.fsdp_devices > 0:
-        raise NotImplementedError(f"--fsdp_devices {args.fsdp_devices}: sharding the frozen base over a "
-                                  "device mesh is ROADMAP slice 7b part 2; the port trains on one device")
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world != args.fsdp_devices:
+            raise ValueError(f"--fsdp_devices {args.fsdp_devices}, but the process group has {world} ranks")
+        if device.type == "cuda" and dist.is_initialized():
+            device = torch.device("cuda", torch.cuda.current_device())
+        if args.per_device_train_batch_size % world:
+            raise ValueError(f"--per_device_train_batch_size {args.per_device_train_batch_size} (the global "
+                             f"batch) does not divide by --fsdp_devices {world}")
+        if world > 1:
+            from ..parallel.mesh import make_mesh
+
+            mesh = make_mesh((world,), ("data",))
+    writer = RankZero(mesh)
+    say = print if writer.is_writer else (lambda *a, **k: None)
 
     from ..rm_train.data import collate_rm_batch, vision_train_geometry
     from ..rm_train.train import (apply_vision_lora_embeds, load_rm_checkpoint, load_rm_opt_state,
@@ -184,7 +231,7 @@ def main(argv=None):
         with open(os.path.join(args.resume_from, "model_config.json")) as f:
             ck = json.load(f)
         if (ck.get("lora_r"), ck.get("lora_alpha")) != (args.lora_r, args.lora_alpha):
-            print(f"resume: overriding lora_r/alpha {args.lora_r}/{args.lora_alpha} "
+            say(f"resume: overriding lora_r/alpha {args.lora_r}/{args.lora_alpha} "
                   f"-> checkpoint {ck['lora_r']}/{ck['lora_alpha']}")
             args.lora_r = int(ck["lora_r"])
             args.lora_alpha = float(ck["lora_alpha"])
@@ -204,14 +251,14 @@ def main(argv=None):
         start_step = int(m.group(1)) if m else 0
         # continue the data stream, don't replay it
         rng = np.random.default_rng(args.seed + start_step)
-        print(f"resumed from {args.resume_from} at step {start_step}")
+        say(f"resumed from {args.resume_from} at step {start_step}")
     grid_thw = vision_train_geometry(model.vis_cfg, args.max_pixels)[1] if args.vision_lora else None
     step_fn = make_rm_train_step(
         model.model, optimizer, loss_type=args.loss_type, pooling=pooling, special_token_id=special_token_id,
         alpha=args.lora_alpha, r=args.lora_r, tower=model.visual if args.vision_lora else None,
-        grid_thw=grid_thw, quantize_base=args.quantize_base)
+        grid_thw=grid_thw, quantize_base=args.quantize_base, mesh=mesh)
 
-    os.makedirs(args.output_dir, exist_ok=True)
+    writer.write(os.makedirs, args.output_dir, exist_ok=True)
     metrics_path = os.path.join(args.output_dir, "metrics.jsonl")
     bs = args.per_device_train_batch_size
     steps_per_epoch = max(1, len(train_rows) // bs)
@@ -237,13 +284,13 @@ def main(argv=None):
             all_rewards.extend(aux["rewards_A"].float().cpu().ravel().tolist())
             all_rewards.extend(aux["rewards_B"].float().cpu().ravel().tolist())
             rec = {"step": step, "loss": float(aux["loss"]), "elapsed_s": round(time.time() - t0, 2)}
-            append_jsonl(metrics_path, rec)
-            print(f"step {step}/{total_steps} loss={rec['loss']:.4f}")
+            writer.write(append_jsonl, metrics_path, rec)
+            say(f"step {step}/{total_steps} loss={rec['loss']:.4f}")
             if step % save_every == 0 or step == total_steps:
                 ckpt = os.path.join(args.output_dir, f"checkpoint-{step}")
-                save_rm_checkpoint(ckpt, trainable, pooling, special_token_id, lora_alpha=args.lora_alpha,
-                                   lora_r=args.lora_r)
-                save_rm_opt_state(ckpt, opt_state, trainable)
+                writer.write(save_rm_checkpoint, ckpt, trainable, pooling, special_token_id,
+                             lora_alpha=args.lora_alpha, lora_r=args.lora_r)
+                writer.write(save_rm_opt_state, ckpt, opt_state, trainable)
 
     # held-out pairwise accuracy
     if eval_rows:
@@ -265,16 +312,16 @@ def main(argv=None):
                 if not np.isnan(acc):
                     accs.append(acc)
         eval_acc = float(np.mean(accs)) if accs else None
-        append_jsonl(metrics_path, {"eval_pairwise_accuracy": eval_acc})
-        print(f"eval pairwise accuracy: {eval_acc}")
+        writer.write(append_jsonl, metrics_path, {"eval_pairwise_accuracy": eval_acc})
+        say(f"eval pairwise accuracy: {eval_acc}")
 
     # final_model with the z-norm statistics of the training rewards (the verifier's normalisation)
     vq_mean = float(np.mean(all_rewards)) if all_rewards else 0.0
     vq_std = float(np.std(all_rewards) + 1e-6) if all_rewards else 1.0
     final = os.path.join(args.output_dir, "final_model")
-    save_rm_checkpoint(final, trainable, pooling, special_token_id, vq_mean=vq_mean, vq_std=vq_std,
-                       lora_alpha=args.lora_alpha, lora_r=args.lora_r)
-    print(f"saved {final} (VQ_mean={vq_mean:.4f}, VQ_std={vq_std:.4f})")
+    writer.write(save_rm_checkpoint, final, trainable, pooling, special_token_id, vq_mean=vq_mean,
+                 vq_std=vq_std, lora_alpha=args.lora_alpha, lora_r=args.lora_r)
+    say(f"saved {final} (VQ_mean={vq_mean:.4f}, VQ_std={vq_std:.4f})")
     return final
 
 

@@ -32,7 +32,16 @@ reaches the port.
 The default target set is the corrector's: x_embedder; in double blocks
 the image-side norm1.linear, attn to_q/to_k/to_v/to_out.0 and ff.net.2; in
 single blocks norm.linear, attn to_q/to_k/to_v, proj_mlp and proj_out.
-Text-side projections are never adapted. A target names a module with its
+Text-side projections are never adapted.
+
+On a DiT cut for tensor parallelism (`parallel.specs.shard_dit_params`) the
+adapters stay whole and replicated, as JAX keeps them (`P()`): `lora_init`
+draws the whole model's tensors in the same order, so a seed gives every
+rank, and every mesh, the same adapters, and `LoRALinear` uses this rank's
+part: the rows of `lora_B` of a column-cut linear, the columns of `lora_A`
+of a row-cut one, whose rank-r product joins the partial sum before the
+group's all-reduce. Each rank's adapter gradients are then its share of the
+whole gradient, summed over "model" by the training step. A target names a module with its
 block index left out ("transformer_blocks.attn.to_q", "layers.mlp.up_proj"
 of a Qwen LM, "blocks.attn.qkv" of its vision tower), so the reward-model
 trainer's Qwen target sets go through the same `lora_init`. Its adapters
@@ -50,10 +59,11 @@ import torch
 from torch import nn
 
 from ..ops.quant import NF4Linear, QuantLinear
+from ..parallel.specs import COL, RowParallelLinear
 
 _DOUBLE = ("norm1.linear", "attn.to_q", "attn.to_k", "attn.to_v", "attn.to_out.0", "ff.net.2")
 _SINGLE = ("norm.linear", "attn.to_q", "attn.to_k", "attn.to_v", "proj_mlp", "proj_out")
-_LINEARS = (nn.Linear, QuantLinear, NF4Linear)  # what an adapter may sit on
+_LINEARS = (nn.Linear, QuantLinear, NF4Linear, RowParallelLinear)  # what an adapter may sit on
 _BLOCK = re.compile(r"(transformer_blocks|single_transformer_blocks|layers|blocks)\.\d+\.(.+)")
 
 
@@ -79,24 +89,53 @@ class LoRALinear(nn.Module):
 
     def forward(self, x):
         B = (self.lora_B * self.scaling).to(x.dtype)
-        return self.base(x) + (x @ self.lora_A.to(x.dtype).t()) @ B.t()
+        A = self.lora_A.to(x.dtype)
+        cut = getattr(self.base, "tp_cut", None)
+        if cut is None:
+            return self.base(x) + (x @ A.t()) @ B.t()
+        kind, index = cut
+        if kind == COL:  # this rank's output rows
+            return self.base(x) + (x @ A.t()) @ B[index].t()
+        return self.base(x, extra=(x @ A[:, index].t()) @ B.t())  # its input columns, before the sum
+
+
+def _whole_shape(m: nn.Module) -> tuple[int, int]:
+    """(out, in) of a linear as the whole model has it (a tensor-parallel cut
+    records its whole size in `tp_numel`)."""
+    cut = getattr(m, "tp_cut", None)
+    if cut is None:
+        return m.out_features, m.in_features
+    if cut[0] == COL:
+        return m.tp_numel // m.in_features, m.in_features
+    return m.out_features, m.tp_numel // m.out_features
+
+
+def _shard_delta(m: nn.Module, delta: torch.Tensor) -> torch.Tensor:
+    """The part of a whole-shape (out, in) weight delta that a cut linear holds."""
+    cut = getattr(m, "tp_cut", None)
+    if cut is None:
+        return delta
+    kind, index = cut
+    return delta[index] if kind == COL else delta[:, index]
 
 
 def lora_init(generator: torch.Generator, dit: nn.Module, r: int = 32, alpha: float = 32.0,
               init: str = "gaussian", targets: tuple[str, ...] | None = None) -> dict:
     """A zero-effect adapter (B = 0) for every target linear of `dit`:
     A ~ N(0, (1/r)^2) for init="gaussian" (else 0), fp32 trainable
-    parameters on `dit`'s device, drawn from `generator` in module order."""
+    parameters on `dit`'s device, drawn from `generator` in module order,
+    at the whole model's shapes on a tensor-parallel cut too."""
     targets = targets or corrector_target_paths()
     adapters = {}
     for name, m in dit.named_modules():
-        if not (isinstance(m, nn.Linear) and _is_target(name, targets)):
+        if not (isinstance(m, (nn.Linear, RowParallelLinear)) and _is_target(name, targets)):
             continue
-        A = torch.randn((r, m.in_features), generator=generator, device=generator.device)
+        out_f, in_f = _whole_shape(m)
+        A = torch.randn((r, in_f), generator=generator, device=generator.device)
         A = A * (1.0 / r if init == "gaussian" else 0.0)
         adapters[name] = {
             "lora_A": nn.Parameter(A.to(m.weight.device)),
-            "lora_B": nn.Parameter(torch.zeros((m.out_features, r), device=m.weight.device)),
+            "lora_B": nn.Parameter(torch.zeros((out_f, r), device=m.weight.device)),
         }
     if not adapters:
         raise ValueError("lora_init: no target linear in the model (fused serving layout?)")
@@ -155,7 +194,7 @@ def fold_lora(dit: nn.Module, lora: dict, scale: float = 1.0) -> nn.Module:
     modules = dict(out.named_modules())
     for name, ab in lora["adapters"].items():
         w = modules[name].weight
-        delta = scaling * (ab["lora_B"].float() @ ab["lora_A"].float())
+        delta = _shard_delta(modules[name], scaling * (ab["lora_B"].float() @ ab["lora_A"].float()))
         w.add_(delta.to(w.device, w.dtype))
     return out
 

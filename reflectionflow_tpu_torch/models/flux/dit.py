@@ -42,7 +42,10 @@ Under tensor parallelism (`parallel/specs.py::shard_dit_params`) the same
 forward runs on each rank of the mesh's "model" axis: its blocks hold their
 shard's heads and MLP hidden (`block.cfg.num_heads` is the shard's), and the
 attention out-projections, the MLP's second linears and the single blocks'
-`proj_out` are `RowParallelLinear`s that sum across the group.
+`proj_out` are `RowParallelLinear`s that sum across the group. The
+modulated input of the COL linears (q/k/v of each stream, the MLPs' first
+linears, the single blocks' `proj_mlp`) passes `collectives.col_copy` once
+(`_col_in`), so that a training backward sums its gradient over the group.
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ from ...ops.flash_attention_nr import flash_attention_nr
 from ...ops.fused_quant import adaln_quant, gelu_quant, norm_rope, rowquant
 from ...ops.norms import adaln_modulate, layer_norm, rms_norm
 from ...ops.quant import QuantLinear
+from ...parallel.collectives import col_copy
 from .rope import apply_rope, apply_rope_split, rope_split_perm, rope_tables
 
 
@@ -197,6 +201,13 @@ def _qk_norm(x, scale, fast):
     return _rms_fast(x, scale) if fast else rms_norm(x, scale)
 
 
+def _col_in(block, x):
+    """The shared input of a block's column-cut linears under tensor
+    parallelism (`block.tp`, set by `parallel.specs.shard_dit_params`)."""
+    tp = getattr(block, "tp", None)
+    return x if tp is None else col_copy(x, tp.group)
+
+
 def _is_w8a8(m) -> bool:
     return isinstance(m, QuantLinear) and m.act_quant
 
@@ -304,14 +315,14 @@ def _proj(m, x, flags, attn_impl):
     return m(x)
 
 
-def _mlp_apply(ff: _FeedForward, x, sh2, sc2, flags, attn_impl, fast):
+def _mlp_apply(ff: _FeedForward, x, sh2, sc2, flags, attn_impl, fast, block=None):
     """modulate -> fc1 -> gelu -> fc2; K3 and K4 feed both W8A8 GEMMs on the
-    serving path."""
+    serving path. `block` holds the tensor-parallel group, if any."""
     fc1, fc2 = ff.net[0].proj, ff.net[2]
     if _use_fused_quant(flags, attn_impl, fc1) and _is_w8a8(fc2):
         pre = _adaln_quant_matmul(x, sh2, sc2, fc1, x.dtype)
         return _gelu_quant_matmul(pre, fc2, x.dtype)
-    return fc2(gelu_tanh(fc1(_modulate(x, sh2, sc2, fast))))
+    return fc2(gelu_tanh(fc1(_col_in(block, _modulate(x, sh2, sc2, fast)))))
 
 
 class DoubleBlock(nn.Module):
@@ -359,7 +370,7 @@ class DoubleBlock(nn.Module):
             if not isinstance(proj, tuple) and _use_fused_quant(flags, attn_impl, proj):
                 panel = _adaln_quant_matmul(x, sh, sc, proj, x.dtype)
                 return _qkv_split(cfg, panel, norm_q, norm_k, True, r)
-            return _qkv(cfg, proj, norm_q, norm_k, _modulate(x, sh, sc, fast), fast, r)
+            return _qkv(cfg, proj, norm_q, norm_k, _col_in(self, _modulate(x, sh, sc, fast)), fast, r)
 
         img_q, img_k, img_v = stream_qkv(a.img_proj(), a.norm_q, a.norm_k, img, i_sh1, i_sc1,
                                          rope_img)
@@ -400,13 +411,13 @@ class DoubleBlock(nn.Module):
                 if cond.shape[1] != img.shape[1]:
                     raise ValueError("add_cond_attn requires L_cond == L_img")
                 img = img + gated
-        img_mlp = _mlp_apply(self.ff, img, i_sh2, i_sc2, flags, attn_impl, fast)
-        txt_mlp = _mlp_apply(self.ff_context, txt, t_sh2, t_sc2, flags, attn_impl, fast)
+        img_mlp = _mlp_apply(self.ff, img, i_sh2, i_sc2, flags, attn_impl, fast, self)
+        txt_mlp = _mlp_apply(self.ff_context, txt, t_sh2, t_sc2, flags, attn_impl, fast, self)
         img = img + i_g2[:, None, :] * img_mlp
         txt = txt + t_g2[:, None, :] * txt_mlp
         if cond is not None:
             cond = cond + c_g2[:, None, :] * _mlp_apply(bc.ff, cond, c_sh2, c_sc2, flags,
-                                                        attn_impl, fast)
+                                                        attn_impl, fast, bc)
         if return_modules:
             return img, txt, cond, (img_attn, txt_attn, img_mlp, txt_mlp)
         return img, txt, cond
@@ -438,7 +449,7 @@ class SingleBlock(nn.Module):
             panel = _adaln_quant_matmul(x, sh, sc, self.in_proj, x.dtype)
             q, k, v = _qkv_split(cfg, panel, a.norm_q, a.norm_k, True, rope)
             return q, k, v, ("pre", panel[..., H3:])
-        h_n = _modulate(x, sh, sc, fast)
+        h_n = _col_in(self, _modulate(x, sh, sc, fast))
         if fused:
             panel = self.in_proj(h_n)
             q, k, v = _qkv_split(cfg, panel, a.norm_q, a.norm_k, fast, rope)

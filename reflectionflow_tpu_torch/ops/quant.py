@@ -39,10 +39,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-def quantize_linear(w: torch.Tensor):
-    """(out, in) float weight -> (w_q int8 (out, in), w_scale fp32 (out,))."""
+def quantize_linear(w: torch.Tensor, amax: torch.Tensor | None = None):
+    """(out, in) float weight -> (w_q int8 (out, in), w_scale fp32 (out,));
+    `amax` (out,) replaces each row's max |w| where the row is cut across
+    ranks."""
     wf = w.float()
-    scale = (wf.abs().amax(dim=-1) / 127.0).clamp_min(1e-12)
+    scale = ((wf.abs().amax(dim=-1) if amax is None else amax) / 127.0).clamp_min(1e-12)
     w_q = torch.round(wf / scale[:, None]).clamp(-127, 127).to(torch.int8)
     return w_q, scale
 
@@ -66,23 +68,38 @@ def _int_mm(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(x_q, w_q.t())
 
 
+def int8_acc(x_q: torch.Tensor, w_q: torch.Tensor, n_out: int) -> torch.Tensor:
+    """x_q (..., in) int8 x w_q (out', in') int8 -> (..., n_out) int32, exact.
+    w_q may be padded with zeros past (n_out, in), as `QuantLinear` keeps it;
+    x_q is padded to match."""
+    lead, k_pad = x_q.shape[:-1], w_q.shape[1] - x_q.shape[-1]
+    x2 = x_q.reshape(-1, x_q.shape[-1])
+    return _int_mm(F.pad(x2, (0, k_pad)) if k_pad else x2, w_q)[:, :n_out].reshape(*lead, -1)
+
+
 def int8_matmul_pre(x_q, x_scale, w_q, w_scale, bias=None, dtype=torch.bfloat16):
     """W8A8 product of a pre-quantized activation (ops.fused_quant): x_q
     (..., in) int8, x_scale (..., 1) fp32 -> (..., out) in `dtype`, out =
-    len(w_scale). w_q may be padded with zeros past (out, in), as
-    `QuantLinear` keeps it; x_q is padded to match."""
-    lead, k_pad = x_q.shape[:-1], w_q.shape[1] - x_q.shape[-1]
-    x2 = x_q.reshape(-1, x_q.shape[-1])
-    acc = _int_mm(F.pad(x2, (0, k_pad)) if k_pad else x2, w_q)[:, :w_scale.shape[0]].reshape(*lead, -1)
+    len(w_scale) (`int8_acc`, then the rank-1 rescale)."""
+    acc = int8_acc(x_q, w_q, w_scale.shape[0])
     out = (acc * x_scale).mul_(w_scale).to(dtype)  # int32 -> fp32 inside the first product
     return out if bias is None else out + bias
 
 
+def quantize_act(x: torch.Tensor, amax: torch.Tensor | None = None):
+    """Per-token dynamic int8: -> (x_q int8, x_scale (..., 1) fp32), x_scale =
+    max(amax, 1e-12) / 127 with `amax` the row's max |x| (given where it is
+    taken over more than `x`, as a row cut across ranks)."""
+    xf = x.float()
+    if amax is None:
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+    x_scale = amax.clamp_min(1e-12) / 127.0
+    return torch.round(xf / x_scale).to(torch.int8), x_scale  # |xf| <= 127 * x_scale: no clip
+
+
 def int8_matmul(x, w_q, w_scale):
     """W8A8 with per-token dynamic activation quantization; (..., out) in x.dtype."""
-    xf = x.float()
-    x_scale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-12) / 127.0
-    x_q = torch.round(xf / x_scale).to(torch.int8)  # |xf| <= 127 * x_scale: no clip needed
+    x_q, x_scale = quantize_act(x)
     return int8_matmul_pre(x_q, x_scale, w_q, w_scale, dtype=x.dtype)
 
 
@@ -255,14 +272,25 @@ def nf4_linear(lin: nn.Linear, group: int = 128, layout: str = "pair") -> nn.Mod
 def _swap_linears(model: nn.Module, min_size: int, make) -> nn.Module:
     """Replace, in place, each `nn.Linear` whose JAX-tree weight (elements x
     blocks stacked in its family) is at least `min_size` by `make(lin, path)`,
-    `path` its JAX leaf path ("double_blocks/img_mlp/fc1/w")."""
-    names = [n for n, m in model.named_modules() if isinstance(m, nn.Linear)]
+    `path` its JAX leaf path ("double_blocks/img_mlp/fc1/w"). A linear cut
+    over a mesh's "model" axis is sized by its whole weight (`tp_numel`); a
+    row-cut one (`parallel.specs.RowParallelLinear`) quantizes its own
+    columns (`quantize_shard`)."""
+    names = [n for n, m in model.named_modules()
+             if isinstance(m, nn.Linear) or hasattr(m, "quantize_shard")]
     for name in names:  # one at a time, so each float weight is freed when replaced
         lin = model.get_submodule(name)
         path, _, n_stack = model.jax_path(name)
-        if lin.weight.numel() * n_stack < min_size:
+        if getattr(lin, "tp_numel", lin.weight.numel()) * n_stack < min_size:
             continue
-        model.set_submodule(name, make(lin, f"{path}/w"))
+        if hasattr(lin, "quantize_shard"):
+            lin.quantize_shard(lambda stand_in: make(stand_in, f"{path}/w"))
+        else:
+            new = make(lin, f"{path}/w")
+            for attr in ("tp_cut", "tp_numel"):  # a column cut stays recorded
+                if hasattr(lin, attr):
+                    setattr(new, attr, getattr(lin, attr))
+            model.set_submodule(name, new)
         del lin
     return model
 
@@ -280,6 +308,10 @@ def quantize_dit_params(model: nn.Module, min_size: int = 1 << 20, act_quant: bo
 
     def make(lin, path):
         if any(sub in path for sub in int4_paths):
+            cut = getattr(lin, "tp_segments", ())  # a row cut: its input spans in the whole row
+            if any(b % int4_group for seg in cut for b in seg):
+                raise ValueError(f"{path}: the \"model\" axis cuts its input at {cut}, which splits "
+                                 f"NF4 groups of {int4_group}")
             return nf4_linear(lin, int4_group, int4_layout)
         aq = act_quant and not any(sub in path for sub in act_quant_exclude)
         return QuantLinear.from_linear(lin, aq)

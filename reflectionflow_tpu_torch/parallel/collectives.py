@@ -6,9 +6,21 @@ on the host). The port runs one process per device under
 `torch.distributed`, so it places them itself, and every one of them goes
 through this module:
 
-  * `all_reduce_sum` — the tensor-parallel DiT's sum after each row-sharded
-    linear (`parallel/specs.py::RowParallelLinear`) and the check of
-    `parallel/dryrun.py::dryrun_multihost`;
+  * `all_reduce_sum` — a sum in place: the check of
+    `parallel/dryrun.py::dryrun_multihost`, a W8A8 row-sharded linear's int32
+    accumulators (`parallel/specs.py::RowParallelLinear`);
+  * `row_sum` and `col_copy` — Megatron's two operators, which autograd
+    sees: the sum after each row-sharded linear (forward all-reduce, backward
+    identity) and the copy before the column-sharded linears that share one
+    input (forward identity, backward all-reduce of the input's gradient);
+    without a gradient to track they are `all_reduce_sum` and nothing;
+  * `all_reduce_max` — a max in place: a row-sharded W8A8 linear's per-token
+    activation amax and per-channel weight amax, taken over the whole row;
+  * `all_gather_dim` — the ranks' shards of a tensor joined along one dim:
+    FSDP's gather on use (`parallel/specs.py::shard_fsdp_params`);
+  * `reduce_gradients` — the training step's one bucketed all-reduce: every
+    gradient (and the loss) in one flat fp32 buffer, averaged over "data"
+    and summed over "model" where a rank holds a partial sum;
   * `all_gather_batch` — a batch-leading tensor gathered over the "data"
     axis in rank order (`parallel/mesh.py::gather_candidates`);
   * `broadcast` — a tensor from one rank of a group (`replicate_params`, the
@@ -30,8 +42,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-COUNTS = {"all_reduce_sum": 0, "all_gather_batch": 0, "broadcast": 0, "broadcast_object": 0,
-          "host_copies": 0}
+COUNTS = {"all_reduce_sum": 0, "all_reduce_max": 0, "all_gather_batch": 0, "all_gather_dim": 0,
+          "broadcast": 0, "broadcast_object": 0, "grad_all_reduce": 0, "host_copies": 0}
 
 
 def reset_counts() -> None:
@@ -51,18 +63,117 @@ def _staged(x: torch.Tensor, group) -> bool:
     return x.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum `x` over the ranks of `group`, in place; returns `x`."""
+def _all_reduce(x: torch.Tensor, op, group, key: str) -> torch.Tensor:
     if group_size(group) == 1:
         return x
-    COUNTS["all_reduce_sum"] += 1
+    COUNTS[key] += 1
     if _staged(x, group):
         COUNTS["host_copies"] += 1
         host = x.detach().cpu()
-        dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(host, op=op, group=group)
         return x.copy_(host)
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(x, op=op, group=group)
     return x
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum `x` over the ranks of `group`, in place; returns `x`."""
+    return _all_reduce(x, dist.ReduceOp.SUM, group, "all_reduce_sum")
+
+
+def all_reduce_max(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise max of `x` over the ranks of `group`, in place; returns `x`."""
+    return _all_reduce(x, dist.ReduceOp.MAX, group, "all_reduce_max")
+
+
+class _RowSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _ColCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad.clone(), ctx.group), None
+
+
+def row_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over `group` of each rank's partial `x` (a row-sharded
+    linear's output). Under autograd a new tensor whose gradient passes to
+    every rank's `x` unchanged; otherwise `x` summed in place."""
+    if group_size(group) == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _RowSum.apply(x, group)
+    return all_reduce_sum(x, group)
+
+
+def col_copy(x: torch.Tensor, group=None) -> torch.Tensor:
+    """`x`, the replicated input of the column-sharded linears that read it;
+    in the backward the gradients that those linears give `x` on each rank
+    are summed over `group`. Nothing without a gradient to track."""
+    if group_size(group) == 1 or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _ColCopy.apply(x, group)
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The ranks' `x` (equal shapes) concatenated along `dim` in group rank
+    order, as a new tensor on `x`'s device."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    COUNTS["all_gather_dim"] += 1
+    staged = _staged(x, group)
+    src = x.detach().cpu() if staged else x.detach().contiguous()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    if staged:
+        COUNTS["host_copies"] += 1
+        out = out.to(x.device)
+    return out
+
+
+def reduce_gradients(grads: list[torch.Tensor], partial: list[bool], mesh,
+                     extras: list[torch.Tensor] = ()) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    """One bucketed all-reduce over every rank of `mesh` (a `RankMesh`):
+    `grads` and the scalars `extras` (a rank's loss) go into one flat fp32
+    buffer, and each comes back averaged over "data"; a gradient marked
+    `partial` (a rank's share of a tensor cut over "model") is also summed
+    over "model", the others (replicated, the same on every rank of a model
+    group) and the extras averaged. Every rank gets the same bits. Returns
+    (grads, extras), new tensors in the gradients' dtypes."""
+    dp, tp = mesh.axis_size("data"), mesh.axis_size("model")
+    if dp * tp == 1:
+        return list(grads), list(extras)
+    tensors = [*grads, *extras]
+    scales = [1.0 / (dp if p else dp * tp) for p in partial] + [1.0 / (dp * tp)] * len(extras)
+    flat = torch.cat([(t.detach().float() * s).reshape(-1) for t, s in zip(tensors, scales)])
+    group = mesh.world_group if mesh.size > 1 else None
+    COUNTS["grad_all_reduce"] += 1
+    if _staged(flat, group):
+        COUNTS["host_copies"] += 1
+        host = flat.cpu()
+        dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
+        flat = host.to(flat.device)
+    else:
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    out, i = [], 0
+    for t in tensors:
+        out.append(flat[i:i + t.numel()].view(t.shape).to(t.dtype))
+        i += t.numel()
+    return out[:len(grads)], out[len(grads):]
 
 
 def all_gather_batch(x: torch.Tensor, group=None) -> torch.Tensor:

@@ -1,12 +1,14 @@
-"""Serving dryruns over a mesh of ranks, with tiny fp32 weights.
+"""Dryruns over a mesh of ranks, with tiny fp32 weights.
 
-Counterpart of the serving half of `__graft_entry__.py`: `dryrun_multichip`
-(:60; the conditioned denoise on a data x model mesh with a skipped step at
-`vcache_order=2` and the TeaCache schedule, :147-171, and
-`_dryrun_search_block`, :290) and `dryrun_multihost` (:354, its worker
-:426-475: a cross-process sum and prompt-sharded `run_noise_scaling` whose
-artifacts equal a one-process run's). The training step, the ring denoise
-and the reward-model step of `dryrun_multichip` are ROADMAP slice 7b part 2.
+Counterpart of `__graft_entry__.py`'s `dryrun_multichip` (:60: the corrector
+training step on a data x model mesh with the DiT cut for TP and replicated
+r=4 adapters; the conditioned denoise with a skipped step at
+`vcache_order=2` and the TeaCache schedule, :147-171; `_dryrun_search_block`
+:290; `_dryrun_ring_denoise` :205, on the port's one-process ring mesh; and
+`_dryrun_rm_train_step` :246, FSDP over "data" with the vision adapters)
+and `dryrun_multihost` (:354, its worker :426-475: a cross-process sum and
+prompt-sharded `run_noise_scaling` whose artifacts equal a one-process
+run's).
 
 Each dryrun spawns its ranks with `distributed.launch` (one process per
 device; by default `"cuda"` with NCCL, rank i on cuda:i; `device="cpu"`
@@ -158,6 +160,151 @@ def search_block_check(pipe, mesh, out_root: str) -> dict:
     return out
 
 
+# -- the training step on a data x model mesh (JAX :60-146) ------------------
+
+
+def train_step_check(device, mesh) -> dict:
+    """One corrector training step of the tiny DiT cut over the mesh's
+    "model" axis, with replicated r=4 adapters (non-zero B, so every adapter
+    moves) and B = 2 per data slice (each rank passes its slice), against the
+    same step unsharded on this rank (the global batch): the loss, and the
+    adapters' max |diff|."""
+    from ..config import FluxDiTConfig, TrainConfig
+    from ..lora.lora import lora_init, lora_parameters
+    from ..models.flux.dit import FluxDiT
+    from ..models.flux.rope import make_image_ids, make_text_ids
+    from ..sampler.pipeline import _build
+    from ..train.rectified_flow import make_optimizer, make_train_step
+
+    cfg = FluxDiTConfig.tiny()
+    tcfg = TrainConfig()
+    tcfg.optimizer.name, tcfg.optimizer.lr = "sgd", 0.5
+
+    def fresh():
+        dit = _build(FluxDiT, cfg, torch.float32, device, torch.Generator(device=device).manual_seed(0))
+        return dit.requires_grad_(False)
+
+    B, ty, tx, cty, Lt = 2 * mesh.axis_size("data"), 4, 4, 2, 8
+    gen = torch.Generator().manual_seed(2)
+    batch = {k: torch.randn(shape, generator=gen).to(device) for k, shape in (
+        ("x0", (B, ty * tx, cfg.in_channels)), ("cond", (B, cty * cty, cfg.in_channels)),
+        ("txt", (B, Lt, cfg.text_dim)), ("pooled", (B, cfg.pooled_dim)))}
+    batch.update(img_ids=torch.from_numpy(make_image_ids(ty, tx)).to(device),
+                 txt_ids=torch.from_numpy(make_text_ids(Lt)).to(device),
+                 cond_ids=torch.from_numpy(make_image_ids(cty, cty, position_delta=(0, -cty))).to(device))
+
+    def run(dit, on):
+        lora = lora_init(torch.Generator(device=device).manual_seed(1), dit, r=4, alpha=4)
+        with torch.no_grad():
+            noise = torch.Generator(device=device).manual_seed(3)
+            for ab in lora["adapters"].values():
+                ab["lora_B"].normal_(0.0, 0.05, generator=noise)
+        optimizer = make_optimizer(tcfg)
+        state = optimizer.init(lora_parameters(lora))
+        step = make_train_step(dit, optimizer, alpha=4, r=4, mesh=on)
+        mine = dict(batch, **shard_batch({k: batch[k] for k in ("x0", "cond", "txt", "pooled")}, on)) \
+            if on is not None else batch
+        adapters, _, metrics = step(lora["adapters"], state, mine, torch.Generator(device=device).manual_seed(6))
+        return adapters, float(metrics["loss"])
+
+    want, want_loss = run(fresh(), None)
+    dit = shard_dit_params(fresh(), mesh)
+    got, loss = run(dit, mesh)
+    if not np.isfinite(loss):
+        raise AssertionError(f"non-finite loss in the mesh training step: {loss}")
+    diff = max(float((got[n][k] - want[n][k]).detach().abs().max()) for n in want for k in ("lora_A", "lora_B"))
+    return {"loss": loss, "loss_unsharded": want_loss, "adapter_max_abs_diff": diff}
+
+
+# -- the reward-model step, FSDP over "data" (JAX `_dryrun_rm_train_step` :246)
+
+
+def rm_train_step_check(device, mesh) -> dict:
+    """One reward-model step of the tiny Qwen2.5-VL with its frozen LM and
+    tower sharded FSDP over "data" (one pair a rank), the LM and vision
+    adapters, the head and the special row trained, against the same step
+    on this rank's whole model: the loss and the trainables' max |diff|, and
+    the LM's bytes on this rank against the whole's."""
+    from ..models.qwen_vl.model import QwenVLModel
+    from ..rm_train import train as rt
+    from ..rm_train.data import collate_rm_batch, vision_train_geometry
+    from ..train.optim import flatten_tree
+    from .specs import fsdp_local_bytes
+
+    rng = np.random.default_rng(0)
+    rows = [{"image_A": rng.integers(0, 255, (24, 24, 3), dtype=np.uint8),
+             "image_B": rng.integers(0, 255, (24, 24, 3), dtype=np.uint8),
+             "prompt": f"p{i}", "gsb": "G", "score_A": 4.0, "score_B": 2.0}
+            for i in range(mesh.axis_size("data"))]
+
+    def run(on):
+        model = QwenVLModel.random_init(torch.Generator(device=device).manual_seed(0), dtype=torch.float32,
+                                        device=device)
+        batch = collate_rm_batch(model, rows, max_pixels=256, special_token_id=9, train_vision=True)
+        gen = torch.Generator(device=device).manual_seed(1)
+        H = model.lm_cfg.hidden_size
+        trainable = {"lora": rt.rm_lora_init(gen, model.model, r=2, alpha=2)["adapters"],
+                     "rm_head": torch.randn((H, 1), generator=gen, device=device) * 0.1,
+                     "special": torch.randn((H,), generator=gen, device=device) * 0.02,
+                     "vision_lora": rt.rm_vision_lora_init(gen, model.visual, r=2, alpha=2)["adapters"]}
+        opt = rt.make_rm_optimizer(lr=1e-2, vision_lr=1e-3)
+        whole = fsdp_local_bytes(model.model)
+        step = rt.make_rm_train_step(model.model, opt, loss_type="btt", pooling="special", special_token_id=9,
+                                     r=2, alpha=2, tower=model.visual,
+                                     grid_thw=vision_train_geometry(model.vis_cfg, 256)[1], mesh=on)
+        trainable, _, aux = step(trainable, opt.init(trainable), batch)
+        return flatten_tree(trainable), float(aux["loss"]), whole, fsdp_local_bytes(model.model)
+
+    want, want_loss, _, _ = run(None)
+    got, loss, whole, mine = run(mesh)
+    if not np.isfinite(loss):
+        raise AssertionError(f"non-finite reward-model loss on the mesh: {loss}")
+    diff = max(float((got[k] - want[k]).detach().abs().max()) for k in want)
+    return {"loss": loss, "loss_unsharded": want_loss, "trainable_max_abs_diff": diff,
+            "lm_bytes": mine, "lm_bytes_whole": whole}
+
+
+# -- the ring denoise on a one-process mesh (JAX `_dryrun_ring_denoise` :205) -
+
+
+def ring_denoise_check(device, n: int) -> dict:
+    """The conditioned denoise with the structural cond mask
+    (`union_cond_attn=False`) under ring attention over a one-process ("seq",)
+    mesh of `n` slots on `device`, against the dense "xla" denoise: the max
+    |diff| (JAX holds it within 2e-4)."""
+    from ..config import FluxDiTConfig
+    from ..models.flux.dit import FluxDiT
+    from ..models.flux.rope import make_image_ids, make_text_ids
+    from ..ops.attention import set_ring_context
+    from ..sampler.generate import denoise, make_schedule
+    from ..sampler.pipeline import _build
+
+    cfg = FluxDiTConfig(in_channels=4, hidden_size=32, num_heads=2, head_dim=16, mlp_ratio=2.0,
+                        num_double_blocks=1, num_single_blocks=1, text_dim=16, pooled_dim=8,
+                        axes_dims_rope=(4, 6, 6), time_freq_dim=16)
+    dit = _build(FluxDiT, cfg, torch.float32, device, torch.Generator(device=device).manual_seed(0))
+    B, Lt, ty, tx, cty, ctx = 1, 8, 4, 4, 2, 4  # joint sequence 8 + 16 + 8 = 32
+    gen = torch.Generator().manual_seed(1)
+    lat, txt, pooled, cond = (torch.randn(shape, generator=gen).to(device) for shape in (
+        (B, ty * tx, cfg.in_channels), (B, Lt, cfg.text_dim), (B, cfg.pooled_dim),
+        (B, cty * ctx, cfg.in_channels)))
+    kw = dict(img_ids=torch.from_numpy(make_image_ids(ty, tx)).to(device),
+              txt_ids=torch.from_numpy(make_text_ids(Lt)).to(device), sigmas=make_schedule(2, ty * tx),
+              guidance_scale=3.5, num_steps=2, cond=cond,
+              cond_ids=torch.from_numpy(make_image_ids(cty, ctx, position_delta=(0, -ctx))).to(device),
+              union_cond_attn=False)
+    ref = denoise(dit, lat, txt, pooled, attn_impl="xla", **kw)
+    set_ring_context(make_mesh((n,), ("seq",), devices=[torch.device(device)] * n), "seq")
+    try:
+        out = denoise(dit, lat, txt, pooled, attn_impl="ring", **kw)
+    finally:
+        set_ring_context(None)
+    diff = float((out - ref).abs().max())
+    if diff > 2e-4:
+        raise AssertionError(f"ring denoise differs from the dense one by {diff}")
+    return {"slots": n, "max_abs_diff": diff}
+
+
 # -- the conditioned denoise on a data x model mesh (JAX :147-171) -----------
 
 
@@ -211,27 +358,47 @@ def mesh_denoise_check(device, mesh) -> dict:
 def _multichip_rank(device, shape, out_root):
     torch.set_num_threads(1)
     mesh = make_mesh(shape, ("data", "model"))
+    train = train_step_check(device, mesh)
     denoise = mesh_denoise_check(device, mesh)
     data_mesh = make_mesh((dist.get_world_size(),), ("data",))
     search = search_block_check(tiny_pipeline(device), data_mesh, out_root)
-    return {"denoise": denoise, "search_block": search, "counts": dict(collectives.COUNTS)}
+    rm = rm_train_step_check(device, data_mesh)
+    return {"train": train, "denoise": denoise, "search_block": search, "rm_train": rm,
+            "counts": dict(collectives.COUNTS)}
 
 
 def dryrun_multichip(world_size: int = 4, *, device="cuda", backend: str | None = None,
                      workdir: str | None = None) -> dict:
-    """The serving half of the JAX `dryrun_multichip` on `world_size` ranks: a
-    (world/2, 2) data x model mesh (tensor parallelism needs an even world;
-    an odd world runs data alone) for the denoise check, and a data mesh of
-    every rank for the search block. Raises on a mismatch (the denoise: a
-    max |diff| above 1e-4 or another n_full)."""
+    """The JAX `dryrun_multichip` on `world_size` ranks: a (world/2, 2) data x
+    model mesh (tensor parallelism needs an even world; an odd world runs
+    data alone) for the training step and the denoise check, a data mesh of
+    every rank for the search block and the FSDP reward-model step, then the
+    ring denoise in this process over `world_size` slots on one device
+    (`device`, or cuda:0 for "cuda"). Raises on a
+    mismatch (the training step: adapters 1e-5 from the unsharded step's;
+    the denoise: a max |diff| above 1e-4 or another n_full; the reward step:
+    trainables 1e-5 from the unsharded's); the result's "summary" names each
+    half, as JAX's line does."""
     tp = 2 if world_size % 2 == 0 else 1
     with tempfile.TemporaryDirectory(dir=workdir) as td:
         results = launch(_multichip_rank, world_size, args=((world_size // tp, tp), td),
                          backend=backend, device=device, init_method=file_init(td))
-    for name, r in results[0]["denoise"].items():
+    r0 = results[0]
+    for name, r in r0["denoise"].items():
         if r["max_abs_diff"] > 1e-4 or r["n_full"] != r["n_full_unsharded"]:
             raise AssertionError(f"sharded denoise {name} differs from the unsharded one: {r}")
-    return {"mesh": (world_size // tp, tp), **results[0]}
+    if r0["train"]["adapter_max_abs_diff"] > 1e-5:
+        raise AssertionError(f"the mesh training step differs from the unsharded one: {r0['train']}")
+    if r0["rm_train"]["trainable_max_abs_diff"] > 1e-5:
+        raise AssertionError(f"the FSDP reward-model step differs from the unsharded one: {r0['rm_train']}")
+    ring_device = "cuda:0" if str(device) == "cuda" else device
+    ring = ring_denoise_check(ring_device, world_size)
+    mesh = (world_size // tp, tp)
+    summary = (f"dryrun_multichip ok: mesh=({mesh[0]}x{mesh[1]}) loss={r0['train']['loss']:.4f} "
+               f"denoise={sorted(r0['denoise'])} search_block={r0['search_block']['files']} files identical "
+               f"ring_sp=masked-denoise-matches-dense({ring['slots']}slots) "
+               f"rm_train=fsdp-vision-lora-step({world_size}ranks,loss={r0['rm_train']['loss']:.3f})")
+    return {"mesh": mesh, **r0, "ring": ring, "summary": summary}
 
 
 # -- prompt-sharded noise scaling across processes (JAX :354-475) ------------

@@ -1,4 +1,4 @@
-"""Meshes: of ranks (serving), and of one process's devices (the ring).
+"""Meshes: of ranks (serving and training), and of one process's devices (the ring).
 
 Counterpart of `reflectionflow_tpu/parallel/mesh.py`. The workload's scale
 axis is candidates: N parallel trajectories a prompt. Two forms:

@@ -21,9 +21,17 @@ Without vision training the vision embeddings are precomputed per pair by
 the collator; with it, the tower runs inside the step on raw patches, one
 batched pass for the batch. The LM and the tower recompute each block in
 the backward (`remat`), so the dequantized weights of a quantized base are
-not saved per block. Training runs on one device; `mesh=` (the JAX
-package's FSDP) is ROADMAP slice 7b part 2. The optimizer state is saved with
-`torch.save` (JAX writes optax leaves to `opt_state.npz`).
+not saved per block. The optimizer state is saved with `torch.save` (JAX
+writes optax leaves to `opt_state.npz`).
+
+`make_rm_train_step(mesh=)` trains over a "data" mesh of ranks, as the JAX
+package's FSDP: the frozen LM, and the tower under vision training, keep
+1/n of every tensor and gather each on use (`parallel.specs.
+shard_fsdp_params`, after `quantize_rm_base`), each rank takes its slice of
+the pairwise batch (`pos_*` on dim 1, as JAX's `P(None, "data")`), and the
+trainable gradients and the loss are averaged over "data" in one bucket
+before the update (`reward_loss` is a plain mean, so equal slices give the
+global one); the rewards come back gathered, the global batch's.
 """
 
 from __future__ import annotations
@@ -37,6 +45,9 @@ from ..lora.lora import attach_lora, lora_init, qwen_adapters_to_jax
 from ..models.qwen_vl.lm import QwenLM, qwen_lm_apply
 from ..models.qwen_vl.reward import pool_hidden
 from ..models.qwen_vl.vision import QwenVisionTower, qwen_vision_apply
+from ..parallel.collectives import reduce_gradients
+from ..parallel.mesh import candidate_sharding, gather_candidates
+from ..parallel.specs import shard_fsdp_params
 from ..train import optim
 from .losses import reward_loss
 
@@ -150,10 +161,14 @@ def make_rm_train_step(lm: QwenLM, optimizer, loss_type: str = "btt", pooling: s
     grid, and the tower runs inside the step with trainable["vision_lora"].
 
     `quantize_base` ("int8" | "nf4") quantizes the LM's blocks, and the
-    tower's under vision training, in place (`quantize_rm_base`)."""
-    if mesh is not None:
-        raise NotImplementedError("mesh=: training the reward model over a device mesh (the JAX package's "
-                                  "FSDP) is ROADMAP slice 7b part 2; the port trains on one device")
+    tower's under vision training, in place (`quantize_rm_base`).
+
+    `mesh`: a `RankMesh` of a "data" axis (every rank calls the step on the
+    same global batch; see the module docstring). The LM, and the tower
+    under vision training, are sharded in place."""
+    sharded = mesh is not None and mesh.size > 1
+    if sharded and mesh.axis_size("data") != mesh.size:
+        raise ValueError(f"the reward trainer shards over \"data\" alone; mesh {mesh.shape}")
     train_vision = tower is not None
     if train_vision and grid_thw is None:
         raise ValueError("vision training needs grid_thw (one grid per batch)")
@@ -161,6 +176,10 @@ def make_rm_train_step(lm: QwenLM, optimizer, loss_type: str = "btt", pooling: s
         quantize_rm_base(lm, quantize_base, quantize_min_size)
         if train_vision:
             quantize_rm_base(tower, quantize_base, quantize_min_size)
+    if sharded:
+        shard_fsdp_params(lm, mesh)
+        if train_vision:
+            shard_fsdp_params(tower, mesh)
 
     def side_rewards(trainable, batch, side):
         embeds = batch[f"embeds_{side}"]
@@ -170,7 +189,18 @@ def make_rm_train_step(lm: QwenLM, optimizer, loss_type: str = "btt", pooling: s
         return rm_forward_rewards(trainable, lm, embeds, batch[f"pos_{side}"], batch[f"mask_{side}"],
                                   batch[f"ids_{side}"], pooling, special_token_id, alpha, r)
 
+    def local(batch):
+        """This rank's rows of the global batch (`pos_*` on dim 1)."""
+        out = {}
+        for k, v in batch.items():
+            dim = 1 if k.startswith("pos_") else 0
+            out[k] = v.narrow(dim, candidate_sharding(mesh, v.shape[dim]).start,
+                              v.shape[dim] // mesh.axis_size("data"))
+        return out
+
     def step(trainable, opt_state, batch):
+        if sharded:
+            batch = local(batch)
         flat = optim.flatten_tree(trainable)
         params = list(flat.values())
         for p in params:
@@ -181,7 +211,11 @@ def make_rm_train_step(lm: QwenLM, optimizer, loss_type: str = "btt", pooling: s
             loss = reward_loss(rw_A.float(), rw_B.float(), batch["scores_A"], batch["scores_B"],
                                batch["chosen_label"], loss_type)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(flat.items(), grads)}
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if sharded:
+            grads, (loss,) = reduce_gradients(grads, [False] * len(grads), mesh, [loss.detach()])
+            rw_A, rw_B = (gather_candidates(r.detach(), mesh) for r in (rw_A, rw_B))
+        grads = dict(zip(flat, grads))
         with torch.no_grad():
             updates, opt_state = optimizer.update(grads, opt_state, flat)
             optim.apply_updates(params, [updates[k] for k in flat])

@@ -39,7 +39,7 @@ from ..models.flux.rope import make_image_ids, make_text_ids
 from ..models.flux.text import CLIPTextEncoder, T5Encoder, clip_text_encode, t5_encode
 from ..models.flux.vae import FluxVAE, vae_decode, vae_decode_tiled
 from ..parallel.mesh import gather_candidates, shard_batch
-from ..parallel.specs import TP_QUANTIZE_MSG, shard_dit_params
+from ..parallel.specs import shard_dit_params
 from ..utils.tokenizers import load_tokenizer
 from .condition import Condition, encode_conditions
 from .generate import denoise, make_schedule, vcache_kwargs
@@ -175,8 +175,9 @@ class FluxPipeline:
         holding the same weights: the same snapshot or seed, or
         `parallel.mesh.replicate_params` first). With a "model" axis of more
         than one rank, the DiT and the cond model are cut to this rank's shard
-        (`parallel.specs.shard_dit_params`). `mesh=None` serves unsharded
-        again (a cut DiT stays cut)."""
+        (`parallel.specs.shard_dit_params`); call it before `quantize`, which
+        then quantizes the cut model in the unfused layout. `mesh=None` serves
+        unsharded again (a cut DiT stays cut)."""
         if mesh is not None and mesh.axis_size("model") > 1:
             shard_dit_params(self.dit, mesh)
             cond = self.cond_dit_params
@@ -189,6 +190,7 @@ class FluxPipeline:
     def quantize(
         self,
         which: tuple[str, ...] = ("dit",),
+        fuse_qkv: bool = True,
         int4: tuple[str, ...] = ("t5",),
         act_quant_exclude: tuple[str, ...] = (),
         weight_only: tuple[str, ...] = (),
@@ -199,9 +201,14 @@ class FluxPipeline:
         """Quantize the big models in place on their device, as the JAX
         `FluxPipeline.quantize`: `which` models go int8 W8A8, `weight_only`
         ones int8 w8a16, `int4` ones (not in the other two) packed NF4 (w4a16,
-        the plane packing, groups of 128). The DiT's q/k/v panels are always
-        fused and permuted to the split RoPE layout first (`ops.fuse`), the
-        only layout the fused kernels serve. `dit_int4_mlp` packs the DiT's MLP
+        the plane packing, groups of 128). With `fuse_qkv` the DiT's q/k/v
+        panels are fused and permuted to the split RoPE layout first
+        (`ops.fuse`), the only layout the fused kernels (K2–K5, K8, K9)
+        serve. A DiT cut over a "model" axis (`set_mesh`) keeps the unfused
+        layout, as JAX does there: its W8A8 linears quantize their
+        activations in plain PyTorch (ROW linears over the whole row, through
+        a cross-rank amax) and K1 serves the attention; the codes are the
+        whole model's (`parallel.specs`). `dit_int4_mlp` packs the DiT's MLP
         linears NF4 in groups of `int4_group` (the co-residency profile; the
         attention and modulation panels stay W8A8). `cond_dit_params`, when
         set, gets the same layout and, with "dit" in `which`, the same
@@ -210,15 +217,13 @@ class FluxPipeline:
         from ..ops.fuse import fuse_dit_qkv, fuse_single_block_io, permute_rope_layout
         from ..ops.quant import quantize_dit_params, quantize_params_int4
 
-        if (self.mesh is not None and self.mesh.axis_size("model") > 1) or \
-                getattr(self.dit, "tp_size", 1) > 1:
-            raise NotImplementedError(f"quantize under a \"model\" axis: {TP_QUANTIZE_MSG}")
+        tp = getattr(self.dit, "tp_size", 1) > 1
         for name in (*which, *weight_only, *int4):
             if name not in ("dit", "t5"):
                 raise ValueError(f"quantize: no quantizable model {name!r} (expected 'dit' or 't5')")
         # a latent_lora view is the DiT itself: transform it once
         cond = self.cond_dit_params if self.cond_dit_params is not self.dit else None
-        if self.rope_layout != "split":
+        if fuse_qkv and not tp and self.rope_layout != "split":
             for dit in (self.dit, cond):
                 if dit is not None:
                     permute_rope_layout(fuse_single_block_io(fuse_dit_qkv(dit)))

@@ -16,6 +16,18 @@ attention runs K1 forward and K6a/K6b backward; "ring" / "ring_pallas" run
 sequence-parallel ring attention (`ops.ring_attention`, K7a forward and
 K7b/K7c backward under "ring_pallas") over the mesh that
 `ops.attention.set_ring_context` names.
+
+Over a mesh of ranks (`make_train_step(mesh=)`, a `parallel.mesh.RankMesh`)
+each rank passes its slice over "data" of the global batch, the slice JAX's
+`P("data")` sharding constraint gives its devices; `t` and the noise are
+drawn for the whole global batch from the one generator on every rank, then
+sliced, so the step is the one-device step on the global batch. A DiT cut
+over "model" (`parallel.specs.shard_dit_params`) runs its heads' share, K1
+and K6 at H / tp heads. The gradients, and the loss, are all-reduced in one bucket
+(`collectives.reduce_gradients`: a mean over "data", a sum over "model" of
+the adapters of cut linears) before the optimizer's global-norm clip, as
+XLA's all-reduce precedes optax's clip; every rank then applies the same
+update to the same adapters.
 """
 
 from __future__ import annotations
@@ -28,6 +40,8 @@ from ..lora.lora import attach_lora, lora_parameters
 from ..models.flux.latents import pack_latents
 from ..models.flux.rope import make_image_ids, make_text_ids
 from ..models.flux.vae import vae_encode
+from ..parallel.collectives import reduce_gradients
+from ..parallel.mesh import candidate_sharding
 from . import optim
 
 TRAINABLE_ATTN = ("xla", "pallas", "ring", "ring_pallas")
@@ -70,23 +84,47 @@ def rf_loss(adapters: dict, dit, batch: dict, generator: torch.Generator | None 
 
 
 def make_train_step(dit, optimizer, alpha: float = 32.0, r: int = 32, latent_lora: bool = False,
-                    model_flags: dict | None = None, attn_impl: str = "xla"):
+                    model_flags: dict | None = None, attn_impl: str = "xla", mesh=None):
     """-> `step(adapters, opt_state, batch, generator) -> (adapters, opt_state,
     metrics)`: loss and adapter gradients, the gradient norm before clipping,
     and the optimizer update applied to the adapters in place. `optimizer`
     must be the transformation whose `init` made `opt_state`
-    (`make_optimizer`)."""
+    (`make_optimizer`).
+
+    `mesh` (a `RankMesh`; every rank calls the step): `batch` is this rank's
+    slice over "data" of the global batch (`parallel.mesh.shard_batch` of its
+    batch-leading tensors); `t` and `noise`, drawn or given, cover the global
+    batch. The metrics are the global batch's."""
     if attn_impl not in TRAINABLE_ATTN:
         raise ValueError(f"attn_impl={attn_impl!r} has no backward pass in the port; training "
                          f"supports {TRAINABLE_ATTN}")
+    sharded = mesh is not None and mesh.size > 1
+    modules = dict(dit.named_modules())
+
+    def draw(x0, generator, t, noise):
+        """The global batch's t, and this rank's rows of t and the noise."""
+        B = x0.shape[0] * mesh.axis_size("data")
+        if t is None:
+            t = torch.sigmoid(torch.randn((B,), generator=generator, device=generator.device))
+        if noise is None:
+            noise = torch.randn((B, *x0.shape[1:]), generator=generator, device=generator.device)
+        rows = candidate_sharding(mesh, B)
+        return t, t[rows], noise[rows]
 
     def step(adapters, opt_state, batch, generator=None, t=None, noise=None):
         params = lora_parameters({"adapters": adapters})
+        t_all = t
+        if sharded:
+            t_all, t, noise = draw(batch["x0"], generator, t, noise)
         loss, metrics = rf_loss(adapters, dit, batch, generator, alpha=alpha, r=r,
                                 latent_lora=latent_lora, model_flags=model_flags,
                                 attn_impl=attn_impl, t=t, noise=noise)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+        if sharded:
+            partial = [hasattr(modules[name], "tp_cut") for name in adapters for _ in (0, 1)]
+            grads, (loss,) = reduce_gradients(grads, partial, mesh, [loss.detach()])
+            metrics = {"loss": loss, "t_mean": t_all.to(loss.device).mean()}
         gnorm = optim.global_norm(grads)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         optim.apply_updates(params, updates)

@@ -11,10 +11,17 @@ Divergence: a checkpoint is `torch.save` of {adapters, opt_state} at
 `<checkpoint_dir>/<step>/state.pt` (the JAX package writes orbax
 checkpoints); the `latest` marker file is the same. As in the JAX package, a
 resumed run restarts its random draws and its data stream from the seed.
-Data parallelism over a device mesh (`mesh=`) is not ported and raises;
-sequence parallelism is: `ops.attention.set_ring_context(mesh, axis)` and
-`cfg.attn_impl = "ring_pallas"` (or "ring") split each attention's sequence
-over the mesh axis. `train(hooks=...)` takes any callables.
+
+`train(mesh=)` trains over a mesh of ranks (`parallel.mesh.RankMesh`; every
+rank calls it): the DiT is cut over "model" first when the mesh has that
+axis, each rank's `dataset` yields its slice of the global batch (the CLI
+splits the shards by the rank's data coordinate, as JAX splits them by
+host), and `make_train_step(mesh=)` reduces the gradients.
+Rank 0 alone writes the checkpoints and `metrics.jsonl`; every rank reads the
+same checkpoint on resume. Sequence parallelism runs through
+`ops.attention.set_ring_context(mesh, axis)` and `cfg.attn_impl =
+"ring_pallas"` (or "ring") on a one-process mesh. `train(hooks=...)` takes
+any callables; they run on every rank.
 """
 
 from __future__ import annotations
@@ -23,8 +30,11 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..lora.lora import lora_init, lora_parameters
+from ..parallel.distributed import RankZero
+from ..parallel.specs import shard_dit_params
 from ..utils.jsonl import append_jsonl
 from ..utils.safetensors_io import save_file
 from .rectified_flow import make_optimizer, make_train_step, prepare_batch_tensors
@@ -56,20 +66,21 @@ def train(pipeline, cfg, dataset, mesh=None, position_delta: tuple[int, int] | N
           log_path: str | None = None, hooks: list | None = None) -> dict:
     """Run (or resume) training; returns {adapters, metrics} of the last step.
 
-    `mesh` (data parallelism) is not ported and raises. Sequence-parallel
+    `mesh`: a `RankMesh` to train over (see the module docstring); `dataset`
+    then yields this rank's slice of each global batch. Sequence-parallel
     ring attention needs no argument here: call
     `ops.attention.set_ring_context(mesh, axis)` and set `cfg.attn_impl` to
     "ring_pallas" (or "ring")."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training over a device mesh is ROADMAP slice 7b part 2 "
-                                  "(ring attention runs through ops.attention.set_ring_context)")
+    if mesh is not None and mesh.axis_size("model") > 1 and getattr(pipeline.dit, "tp_size", 1) == 1:
+        shard_dit_params(pipeline.dit, mesh)
+    writer = RankZero(mesh)
     gen = torch.Generator(device=pipeline.device).manual_seed(cfg.seed)
     lora = lora_init(gen, pipeline.dit, r=cfg.lora.r, alpha=cfg.lora.alpha, init=cfg.lora.init)
     adapters = lora["adapters"]
     optimizer = make_optimizer(cfg)
     opt_state = optimizer.init(lora_parameters(lora))
     step_fn = make_train_step(pipeline.dit, optimizer, alpha=cfg.lora.alpha, r=cfg.lora.r,
-                              latent_lora=False, attn_impl=cfg.attn_impl)
+                              latent_lora=False, attn_impl=cfg.attn_impl, mesh=mesh)
 
     start_step = 0
     last = latest_checkpoint(cfg.checkpoint_dir) if os.path.isdir(cfg.checkpoint_dir) else None
@@ -84,7 +95,7 @@ def train(pipeline, cfg, dataset, mesh=None, position_delta: tuple[int, int] | N
     if position_delta is None:
         position_delta = (0, -cfg.data.condition_size // 16)
     log_path = log_path or os.path.join(cfg.checkpoint_dir, "metrics.jsonl")
-    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+    writer.write(os.makedirs, cfg.checkpoint_dir, exist_ok=True)
 
     data_iter = iter(dataset)
     metrics: dict = {}
@@ -99,11 +110,11 @@ def train(pipeline, cfg, dataset, mesh=None, position_delta: tuple[int, int] | N
         metrics = {k: float(v) for k, v in metrics.items()}
         ema_loss = metrics["loss"] if ema_loss is None else 0.95 * ema_loss + 0.05 * metrics["loss"]
         row = dict(metrics, step=step, ema_loss=ema_loss, step_time_s=time.perf_counter() - t0)
-        append_jsonl(log_path, row)
+        writer.write(append_jsonl, log_path, row)
         for hook in hooks or []:
             hook(step, adapters, row)
         if (step + 1) % cfg.save_interval == 0 or step + 1 == cfg.max_steps:
-            save_checkpoint(cfg.checkpoint_dir, step + 1, adapters, opt_state)
+            writer.write(save_checkpoint, cfg.checkpoint_dir, step + 1, adapters, opt_state)
     return {"adapters": adapters, "metrics": metrics}
 
 
@@ -121,8 +132,10 @@ def export_diffusers_lora(adapters: dict, path: str) -> None:
 def make_validation_hook(pipeline, cfg, val_samples: list[dict], out_dir: str):
     """A `train` hook: every `sample_interval` steps, fold the current adapters
     into a cond view of the DiT, run the conditioned `generate` (20 steps at
-    target_size) on the val conditions, save `step{n}_{i:02d}.png` under
-    `out_dir`, and restore `pipeline.cond_dit_params`.
+    target_size) on the val conditions unsharded (`pipeline.mesh = None`, as
+    JAX; a DiT cut over "model" still sums across its group), save
+    `step{n}_{i:02d}.png` under `out_dir` (rank 0 alone under a process
+    group), and restore `pipeline.cond_dit_params` and `pipeline.mesh`.
 
     val_samples rows: {"prompt": str, "condition": (H, W, 3) uint8}."""
     from ..lora.lora import make_dit_param_views
@@ -134,8 +147,10 @@ def make_validation_hook(pipeline, cfg, val_samples: list[dict], out_dir: str):
             return
         lora = {"_alpha": cfg.lora.alpha, "_r": cfg.lora.r, "adapters": adapters}
         _, cond_view = make_dit_param_views(pipeline.dit, lora, latent_lora=False)
-        prev_cond = pipeline.cond_dit_params
+        prev_cond, prev_mesh = pipeline.cond_dit_params, pipeline.mesh
         pipeline.cond_dit_params = cond_view
+        pipeline.mesh = None
+        writes = not dist.is_initialized() or dist.get_rank() == 0
         try:
             delta = cot_position_delta(cfg.data.condition_size)
             images = pipeline.generate(
@@ -147,8 +162,9 @@ def make_validation_hook(pipeline, cfg, val_samples: list[dict], out_dir: str):
                             for s in val_samples],
             )
             for i, img in enumerate(images):
-                save_image(os.path.join(out_dir, f"step{step + 1}_{i:02d}.png"), img)
+                if writes:
+                    save_image(os.path.join(out_dir, f"step{step + 1}_{i:02d}.png"), img)
         finally:
-            pipeline.cond_dit_params = prev_cond
+            pipeline.cond_dit_params, pipeline.mesh = prev_cond, prev_mesh
 
     return hook

@@ -228,8 +228,9 @@ def test_sharded_generate_matches_unsharded_port_and_jax(setup, world):
         np.testing.assert_allclose(r["gen_latent_out"], want, atol=1e-4)
         # replicate_params: a broadcast a tensor; then one gather a generate call, nothing else
         assert r["replicate_broadcasts"] == r["replicate_params"]
-        assert r["gen_counts"] == {"all_reduce_sum": 0, "all_gather_batch": 3, "broadcast": 0,
-                                   "broadcast_object": 0, "host_copies": 0}
+        assert r["gen_counts"] == {"all_reduce_sum": 0, "all_reduce_max": 0, "all_gather_batch": 3,
+                                   "all_gather_dim": 0, "broadcast": 0, "broadcast_object": 0,
+                                   "grad_all_reduce": 0, "host_copies": 0}
 
 
 def test_reflectionflow_block_on_a_data4_mesh(setup):
@@ -259,8 +260,27 @@ def test_mesh_denoise_on_data_by_model(setup):
 
 
 def test_quantize_under_a_model_axis_raises(setup):
+    """Quantize under a model axis serves (it raised before the training
+    slice): W8A8 on the cut DiT in the unfused layout, as JAX keeps it under a
+    model mesh, equal to the one-rank W8A8 run of that layout (the row-cut
+    linears' int32 sums are exact), with one amax and one sum a row-cut
+    linear, and near the fused serving profile (another scale per
+    out-projection: cosine >= 0.999)."""
+    ref = _pipelines(setup["params"])[1]
+    ref.quantize(min_size=16, fuse_qkv=False)
+    kw = dict(latents=setup["lat"], output_type="latent", **GEN_KW)
+    want = ref.generate(PROMPTS, **kw).numpy()
+    fused = _pipelines(setup["params"])[1]
+    fused.quantize(min_size=16)
+    served = fused.generate(PROMPTS, **kw).numpy()
+    rows = GEN_KW["num_inference_steps"] * (CFG.num_double_blocks * 4 + CFG.num_single_blocks)
     for r in setup["ranks"][2]:
-        assert "7b part 2" in r["quantize_error"]
+        assert r["quantized_tp_layout"] == "pair"
+        np.testing.assert_allclose(r["quantized_tp"], want, atol=1e-5)
+        a, b = r["quantized_tp"].ravel(), served.ravel()
+        assert float(a @ b / np.linalg.norm(a) / np.linalg.norm(b)) >= 0.999
+        counts = r["quantized_tp_counts"]
+        assert counts["all_reduce_max"] == counts["all_reduce_sum"] == rows
 
 
 def test_a_failing_rank_ends_the_launch(tmp_path):

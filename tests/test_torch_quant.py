@@ -223,7 +223,9 @@ def test_surgery_guards_and_nf4_raise():
 def test_pipeline_quantize_rejects_nf4_profiles():
     """`FluxPipeline.quantize` takes JAX's NF4 knobs: its default int4=("t5",)
     and dit_int4_mlp make the layers JAX's `quantize` makes on the same
-    weights; a model that is not there, and the unfused layout, still raise."""
+    weights; a model that is not there still raises. `fuse_qkv=False` (JAX's
+    flag, which the port takes since quantized serving under tensor
+    parallelism keeps the unfused layout) makes JAX's unfused tree."""
     from reflectionflow_tpu.sampler.pipeline import FluxPipeline as JaxFluxPipeline
 
     jcfg, params, dit = numpy_models(seed=1)
@@ -233,9 +235,8 @@ def test_pipeline_quantize_rejects_nf4_profiles():
     t5.load_state_dict(jax_bridge.t5_state_dict(t5_params, t5cfg))
     pipe = FluxPipeline(dit_cfg=dit.cfg, vae_cfg=None, t5_cfg=t5.cfg, clip_cfg=None, dit=dit, vae=None, t5=t5,
                         clip=None, t5_tokenizer=None, clip_tokenizer=None, dtype=torch.float32)
-    for kw in ({"fuse_qkv": False}, {"int4": ("vae",)}):
-        with pytest.raises((TypeError, ValueError)):
-            pipe.quantize(**kw)
+    with pytest.raises((TypeError, ValueError)):
+        pipe.quantize(int4=("vae",))
     assert pipe.rope_layout == "pair"  # nothing changed before the refusal
     kw = dict(dit_int4_mlp=True, int4_group=64, min_size=4096)
     pipe.quantize(**kw)  # the JAX default int4=("t5",): NF4 T5
@@ -248,6 +249,17 @@ def test_pipeline_quantize_rejects_nf4_profiles():
     assert dit_modes["nf4_pair"] and dit_modes["nf4_plane"]
     t5_modes = _assert_same_as_tree(pipe.t5, jpipe.params["t5"])
     assert t5_modes["nf4_plane"] == {"blocks/wo"} and t5_modes["w8a16"]
+
+    _, _, unfused = numpy_models(seed=1)
+    upipe = FluxPipeline(dit_cfg=unfused.cfg, vae_cfg=None, t5_cfg=t5.cfg, clip_cfg=None, dit=unfused, vae=None,
+                         t5=None, clip=None, t5_tokenizer=None, clip_tokenizer=None, dtype=torch.float32)
+    upipe.quantize(fuse_qkv=False, int4=(), **kw)
+    jpipe = JaxFluxPipeline(dit_cfg=jcfg, vae_cfg=None, t5_cfg=t5cfg, clip_cfg=None, t5_tokenizer=None,
+                            clip_tokenizer=None, params={"dit": jax.tree.map(jnp.asarray, params)})
+    jpipe.quantize(fuse_qkv=False, int4=(), **kw)
+    assert upipe.rope_layout == jpipe.rope_layout == "pair"
+    unfused_modes = _assert_same_as_tree(upipe.dit, jpipe.params["dit"])
+    assert unfused_modes["nf4_plane"] and unfused_modes["w8a8"]
 
 
 @pytest.mark.parametrize("route", ["port_quantize", "bridge"])

@@ -469,10 +469,42 @@ def test_quantize_rm_base_matches_jax_tree(small, mode, tiny_jm):
         ptrain.make_rm_train_step(edge.model, ptrain.make_rm_optimizer(), quantize_base="fp8")
 
 
-def test_mesh_raises_naming_slice_7b(small):
-    pm = _port_model(small)
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        ptrain.make_rm_train_step(pm.model, ptrain.make_rm_optimizer(), mesh=object())
+def test_mesh_raises_naming_slice_7b(small, tmp_path):
+    """`make_rm_train_step(mesh=)` trains (it raised before the training
+    slice): two gloo ranks, the NF4 base sharded FSDP over "data" (every
+    packed code and scale gathered on use), one pair a rank, against the
+    same step unsharded on one rank: every trainable within 1e-4 of its max
+    |value|, bitwise equal on both ranks, the loss rtol 1e-5, the global
+    batch's rewards, and each rank holding about half of the base."""
+    from reflectionflow_tpu_torch.parallel import distributed
+    from reflectionflow_tpu_torch.parallel.dryrun import file_init
+
+    import torch_mesh_train_ranks
+
+    jlm, jvis, _, _ = small
+    lm_cfg, vis_cfg = QwenLMConfig(**LM), QwenVLVisionConfig(**VIS)
+    pt = rm_trainable_from_jax(_jax_trainable(jlm, jvis, seed=5))
+    case = {"lm_cfg": LM, "vis_cfg": VIS,
+            "qwen": {k: v.numpy() for k, v in {**qwen_lm_state_dict(jlm, lm_cfg),
+                                                 **qwen_vision_state_dict(jvis, vis_cfg)}.items()},
+            "trainable": {k: ({n: {kk: t.detach().numpy() for kk, t in ab.items()} for n, ab in v.items()}
+                              if isinstance(v, dict) else v.detach().numpy()) for k, v in pt.items()},
+            "batch": _batch(jlm["embed"], seed=6), "lr": 1e-2, "vision_lr": 1e-3, "sp": SP, "alpha": ALPHA,
+            "r": R, "grid": GRID, "quantize_base": "nf4"}
+    path = str(tmp_path / "case.pt")
+    torch.save({"fsdp": case, "one": case, "checks": [("fsdp", "rm", True), ("one", "rm", False)]}, path)
+    ranks = distributed.launch(torch_mesh_train_ranks.run_world, 2, args=(path,), device="cpu",
+                               init_method=file_init(str(tmp_path)), timeout=300)
+    want = ranks[0]["one"]
+    for r in ranks:
+        got = r["fsdp"]
+        for k, v in got["trainable"].items():
+            np.testing.assert_array_equal(v, ranks[0]["fsdp"]["trainable"][k])
+            _close(v, want["trainable"][k], GRAD_REL)
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+        np.testing.assert_allclose(got["rewards_A"], want["rewards_A"], rtol=1e-5)
+        held, whole = got["bytes"]
+        assert held < 0.55 * whole and got["counts"]["all_gather_dim"] > 0
 
 
 # ---------------------------------------------------------------- the JAX tests' checks on the port

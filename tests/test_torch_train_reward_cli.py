@@ -11,7 +11,9 @@ checkpoint files (the optimizer state aside: `opt_state.pt` here,
 `tests/test_rm_train.py`'s two CLI checks on the port (the final model
 scores through `QwenRewardVerifier`; `--vision_lora` saves trained tower
 adapters), `load_rows` over csv / jsonl / json, and the refusals
-(`--fsdp_devices`, cuda without CUDA). About 40 s on one core."""
+(cuda without CUDA); `--fsdp_devices 2` over two gloo ranks against one
+device (losses rtol 1e-5) and a world of another size. About 50 s on one
+core."""
 
 import json
 import os
@@ -182,10 +184,34 @@ def test_load_rows_matches_jax(tmp_path):
 
 
 def test_cli_refusals(tmp_path):
-    meta = _write_rows(tmp_path, 2, 16)
+    """The refusals, and `--fsdp_devices 2 --device cpu` (it raised before
+    the training slice): the CLI spawns two gloo ranks that train the
+    FSDP-sharded base on the global batch of 2 and rank 0 writes; its losses
+    are the one-device run's (rtol 1e-5). Inside a process group of another
+    size the flag raises ValueError."""
+    import torch.distributed as dist
+
+    from reflectionflow_tpu_torch.parallel.dryrun import file_init
+
+    meta = _write_rows(tmp_path, 4, 16)
     base = ["--meta_data", meta, "--output_dir", str(tmp_path / "out"), "--synthetic_weights"]
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        pcli.main(base + ["--fsdp_devices", "2", "--device", "cpu"])
+    train = ["--meta_data", meta, "--data_dir", str(tmp_path), "--synthetic_weights",
+             "--per_device_train_batch_size", "2", "--lora_r", "2",
+             "--eval_fraction", "0", "--max_pixels", "256", "--device", "cpu"]
+    losses = {}
+    for label, extra in (("one", []), ("fsdp", ["--fsdp_devices", "2"])):
+        out = tmp_path / label
+        final = pcli.main(train + ["--output_dir", str(out)] + extra)
+        assert os.path.exists(os.path.join(final, "rm_lora.safetensors"))
+        losses[label] = [json.loads(line)["loss"] for line in open(out / "metrics.jsonl")]
+    assert len(losses["one"]) == 2
+    np.testing.assert_allclose(losses["fsdp"], losses["one"], rtol=1e-5)
+    dist.init_process_group("gloo", init_method=file_init(str(tmp_path)), rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="process group has 1 ranks"):
+            pcli.main(base + ["--fsdp_devices", "2", "--device", "cpu"])
+    finally:
+        dist.destroy_process_group()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             pcli.main(base)  # the default device is cuda; no CPU fallback

@@ -87,13 +87,16 @@ def run_checks(device, data_path, out_root):
         lat, n_full = denoise(dit, v.pop("lat"), v.pop("txt"), v.pop("pooled"), **v,
                               **data["vcache_kw"], return_vcache_stats=True)
         res["vcache"] = (lat.numpy(), n_full, collectives.COUNTS["broadcast"])
-        # W8A8 under a model axis is part 2: quantize raises
-        qpipe = tiny_pipeline(device)
+        # W8A8 under the model axis: quantize the cut DiT (every linear at min_size 16) and serve
+        qpipe = load_pipeline(device, data["tp_dit"])
+        qpipe.attn_impl = "pallas"
         qpipe.set_mesh(tmesh)
-        try:
-            qpipe.quantize()
-        except NotImplementedError as e:
-            res["quantize_error"] = str(e)
+        qpipe.quantize(min_size=16)
+        collectives.reset_counts()
+        res["quantized_tp"] = qpipe.generate(data["prompts"], latents=data["gen_latents"],
+                                             output_type="latent", **kw).numpy()
+        res["quantized_tp_counts"] = dict(collectives.COUNTS)
+        res["quantized_tp_layout"] = qpipe.rope_layout
     if world == 4:
         res["search"] = search_block_check(pipe, dmesh, out_root)
         res["denoise"] = mesh_denoise_check(device, mesh)
