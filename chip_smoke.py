@@ -305,13 +305,48 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      be zero too), the trainables bitwise equal on every rank, each rank
      holding at most 0.55 of the base's bytes, no K1–K9 launch.
      Each sub-phase prints its seconds and each rank's peak GiB.
+  16. ring attention across ranks (`ops/ring_attention.py` over a
+     `RankMesh`, `parallel.collectives.ring_shift`), RING_RANKS gloo ranks on
+     cuda:0 as in phase 14, FLUX.1-dev widths, random bf16 weights from a
+     seeded CUDA generator, one launch for 16a-c, one of four ranks for 16d:
+     (a) `ring_attention` over a ("seq",) mesh at the corrector's (2, 5632,
+     24, 128), main_len 4608, cross bias 0, log 0.5 and -1e30, forward and
+     backward: against the fp32 plain dense attention (OUT_TOL, K6_REL_TOL
+     of max |ref|), output and dq/dk/dv bitwise equal to the one-process
+     ring of as many slots on the same rank and equal across ranks, exactly
+     2 K7a a forward and 2 K7b + 2 K7c a backward on each rank; prints the
+     shifted bytes, the ring shifts' seconds and their share;
+     (b) the conditioned denoise at 1024 px (512 px condition, image CFG:
+     B=2 rows, L=5632, union_cond_attn=False), RING_RANK_STEPS steps, full
+     depth, "ring_pallas" over the two ranks: final latents bitwise equal
+     across ranks and to the one-process ring on rank 0, cosine >= RING_COS
+     against "pallas" (K1), steps x 57 x 2 K7a a rank and no K1;
+     (c) one corrector training step, full width, depth RING_RANK_DEPTH,
+     512 px, B=2, "ring_pallas" over the two ranks: adapter gradients at
+     cosine >= MESH_TP_GRAD_COS of the one-process ring's step (printed
+     whether bitwise), exactly 2 x 6 x 2 K7a, 6 x 2 K7b and 6 x 2 K7c a rank;
+     (d) four ranks, (data 2, seq 2), depth RING_RANK_DEPTH: the conditioned
+     denoise of B=4 items at 1024 px, 2 a data row: each data row's latents
+     at cosine >= MESH_COS of the one-rank K1 run, the gathered latents
+     bitwise equal on every rank, steps x 6 x 2 K7a a rank.
+     Two ranks that share one card are a correctness path: their seconds are
+     not a ring across cards.
+  17. ControlNet residuals and the condition preprocessors, on the bf16
+     pipeline after phase 5d: a 1024 px DiT forward (B=2) under "pallas" with
+     seeded residuals (CN_HOOKS double and single hooks): all-zero residuals
+     bitwise the forward without them, non-zero ones at cosine >= CN_COS of
+     "xla", 57 K1; a conditioned `generate` (1024 px, image CFG, 8 steps)
+     whose 512 px condition is the port's `canny` of a seeded image: finite
+     latents, 8 x 57 K1; the host milliseconds of `canny`, `coloring` and
+     `deblurring` on a 1024^2 image.
 The training numbers are on the line {"train": {...}}, phase 5e's on
 {"genref_data": {...}}, the ring phase's on
 {"ring": {...}}, the reflection round's on {"reflection_round": {...}}, the
 snapshot phase's on {"snapshot_load": {...}}, the round with models on
 {"reflection_round_models": {...}}, the NVILA round on {"nvila_round":
 {...}}, phase 12's on {"vcache_nf4": {...}} and phase 13's on {"rm_train":
-{...}}, phase 14's on {"mesh": {...}}, phase 15's on {"mesh_train": {...}};
+{...}}, phase 14's on {"mesh": {...}}, phase 15's on {"mesh_train": {...}},
+phase 16's on {"ring_ranks": {...}}, phase 17's on {"controlnet": {...}};
 the line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -376,7 +411,7 @@ RM_LORA_R, RM_LORA_ALPHA = 16, 32.0  # train_reward's defaults
 RM_LR = 1e-5  # train_reward's default
 RM_SEED = 13
 MESH_WORLD = 2  # phase 14: ranks on the one card (gloo; NCCL refuses two ranks on one GPU)
-MESH_STEPS = 2  # phase 14's Euler steps (cut from 30; 4 until phase 15 needed the time)
+MESH_STEPS = 1  # phase 14's Euler steps (cut from 30; 4 until phase 15 needed the time, 2 until phase 16 did)
 MESH_TP_B = 2  # phase 14a / 15c: candidates of one prompt (2 prompts x BRANCH until phase 15 needed the time)
 MESH_COS = 0.999  # phase 14: sharded final latents against the one-rank run of the same seed
 MESH_SEED = 21
@@ -394,6 +429,13 @@ MESH_RM_LOSS_RTOL = 1e-2  # 15d: the FSDP step's loss against the one-rank step
 MESH_RM_GRAD_COS = 0.99  # 15d: each trainable's reduced gradient against the one-rank step's, cosine
 MESH_RM_GRAD_NORM_RTOL = 2e-2  # 15d: |the whole gradient's norm / the one-rank norm - 1| (a scale is global)
 MESH_RM_DELTA_COS = 0.95  # 15d: each trainable's change over the step (AdamW) against the one-rank change
+# phase 16: ring attention across ranks, RING_RANKS gloo ranks on the one card
+RING_RANKS = 2
+RING_RANK_STEPS = 1  # 16b / 16d: Euler steps (cut from 30 for the run's time)
+RING_RANK_DEPTH = (2, 4)  # 16c / 16d: double and single blocks (full width; a chunk's shapes ignore depth)
+RING_RANK_TIMEOUT = MESH_TIMEOUT  # seconds a phase-16 launch may take
+CN_HOOKS = (2, 4)  # phase 17: ControlNet double and single hooks (10 blocks a hook of 19 + 38)
+CN_COS = 0.999  # phase 17: the ControlNet forward under "pallas" against "xla"
 K1_PRESET = (1, LT + LI + LC, LT + LI, 0.0)  # phase 11: K1 at the NVILA preset's (B, L, main_len, cross bias)
 # K1 timed: (B, L, main_len, cross bias): the t2i forward at B = 1 and 2, and the training
 # sequence (512 + 1024 + 1024 tokens, the cond segment at 1536) with the c_factor bias
@@ -4423,6 +4465,497 @@ def mesh_train_phase(torch, card: str, quant: list[dict]) -> dict:
     return res
 
 
+# -- phase 16: ring attention across ranks -------------------------------------
+
+
+def _ring_inputs(torch, cfg_d, B: int, seed: int, device):
+    """A conditioned denoise's inputs at 1024 px with a 512 px condition: B
+    items of random bf16 latents, text states, pooled and condition tokens
+    (and black-condition tokens) from a seeded generator: the same on every
+    rank."""
+    from reflectionflow_tpu_torch.models.flux.rope import make_image_ids, make_text_ids
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+
+    ty = tx = 2 * LT // 16  # 64 x 64 packed tokens
+    cy = cx = LT // 16  # the 512 px condition: 32 x 32
+    x = {"lat": randn(B, ty * tx, cfg_d.in_channels), "txt": randn(B, LT, cfg_d.text_dim),
+         "pooled": randn(B, cfg_d.pooled_dim), "cond": randn(B, cy * cx, cfg_d.in_channels),
+         "cond_empty": randn(B, cy * cx, cfg_d.in_channels)}
+    ids = {"img_ids": torch.from_numpy(make_image_ids(ty, tx)).to(device),
+           "txt_ids": torch.from_numpy(make_text_ids(LT)).to(device),
+           "cond_ids": torch.from_numpy(make_image_ids(cy, cx, position_delta=(0, -cx))).to(device)}
+    return x, ids
+
+
+def _ring_denoise(torch, dit, x, ids, impl, image_cfg: float, steps: int):
+    from reflectionflow_tpu_torch.sampler.generate import denoise, make_schedule
+
+    kw = {"cond_empty": x["cond_empty"], "image_guidance_scale": image_cfg} if image_cfg != 1.0 else {}
+    return denoise(dit, x["lat"], x["txt"], x["pooled"], ids["img_ids"], ids["txt_ids"],
+                   make_schedule(steps, x["lat"].shape[1]), 3.5, steps, cond=x["cond"], cond_ids=ids["cond_ids"],
+                   cond_dit_params=dit, union_cond_attn=False, attn_impl=impl, **kw)
+
+
+def _one_process_ring(device):
+    from reflectionflow_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh((RING_RANKS,), ("seq",), devices=[device] * RING_RANKS)
+
+
+def ring_rank_attention(torch, dist, collectives, device, mesh) -> dict:
+    """16a: `ring_attention` over the rank ring at the corrector's (2, 5632,
+    24, 128), main_len 4608, in the three cross forms, forward and backward:
+    launches counted around each pass, the ring shifts and gathers timed
+    (synchronised around each call); then the one-process ring of as many
+    slots on this rank and, on rank 0, the fp32 plain dense attention."""
+    from reflectionflow_tpu_torch.ops.flash_attention import flash_attention_bwd_ref, flash_attention_ref
+    from reflectionflow_tpu_torch.ops.ring_attention import ring_attention
+
+    t_sub = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(12)
+    B, L, main_len = 2, LT + LI + LC, LT + LI
+    q, k, v, do = (torch.randn((B, L, 24, D), generator=gen, device=device).to(torch.bfloat16) for _ in range(4))
+    one = _one_process_ring(device)
+    cases = []
+    for cb in (0.0, math.log(0.5), -1e30):
+        def run(on):
+            xs = [x.clone().requires_grad_() for x in (q, k, v)]
+            out = ring_attention(*xs, on, "seq", "pallas", main_len, cb)  # noqa: B023
+            torch.cuda.synchronize()
+            fwd = _launch_counts()
+            grads = torch.autograd.grad(out, xs, do)
+            torch.cuda.synchronize()
+            return out.detach(), grads, fwd
+
+        zero_counts()
+        collectives.reset_counts()
+        shifts, restore_shift = _timed_call(torch, collectives, "ring_shift")
+        gathers, restore_gather = _timed_call(torch, collectives, "all_gather_dim")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out, grads, fwd = run(mesh)
+        finally:
+            restore_shift()
+            restore_gather()
+        call_s = time.perf_counter() - t0
+        launches, counts = _launch_counts(), dict(collectives.COUNTS)
+        w_out, w_grads, _ = run(one)
+        bitwise = bool(torch.equal(out, w_out)) and all(torch.equal(a, b) for a, b in zip(grads, w_grads))
+        same = _same_on_every_rank(torch, collectives, [out, *grads])
+        case = {"cross_bias": cb, "fwd_launches": fwd, "launches": launches, "collectives": counts,
+                "bitwise_one_process": bitwise, "same_on_every_rank": same, "fwd_bwd_s": call_s,
+                "ring_shift_s": sum(shifts), "all_gather_s": sum(gathers),
+                "p2p_share": sum(shifts) / call_s, "shifted_gb": counts["ring_shift_bytes"] / 1e9}
+        if dist.get_rank() == 0:  # the fp32 dense reference one batch element at a time (the ranks agree)
+            e_out, rels = 0.0, [0.0, 0.0, 0.0]
+            for b in range(B):
+                sl = slice(b, b + 1)
+                w_o, w_lse = flash_attention_ref(q[sl].float(), k[sl].float(), v[sl].float(), main_len, cb)
+                e_out = max(e_out, (out[sl].float() - w_o).abs().max().item())
+                want = flash_attention_bwd_ref(q[sl], k[sl], v[sl], w_o, w_lse, do[sl], main_len, cb)
+                for i, (g_, w) in enumerate(zip(grads, want)):
+                    rels[i] = max(rels[i], ((g_[sl].float() - w).abs().max() / w.abs().max()).item())
+                del w_o, w_lse, want
+            case.update(out_err=e_out, grad_rel=rels)
+        case["finite"] = bool(torch.isfinite(out).all()) and all(bool(torch.isfinite(g_).all()) for g_ in grads)
+        cases.append(case)
+        del out, grads, w_out, w_grads
+        torch.cuda.empty_cache()
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return {"cases": cases, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "sub_s": time.perf_counter() - t_sub}
+
+
+def ring_rank_denoise(torch, dist, collectives, device, mesh) -> dict:
+    """16b: the conditioned denoise at 1024 px (512 px condition, image CFG:
+    B=2 rows, L=5632, union_cond_attn=False), RING_RANK_STEPS steps, at full
+    depth under "ring_pallas" over the rank ring; rank 0 then runs the
+    one-process ring of as many slots and "pallas" (K1) on the same inputs."""
+    from reflectionflow_tpu_torch.ops.attention import set_ring_context
+
+    t_sub = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dit = _train_dit(torch, _dit_cfg(), device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    x, ids = _ring_inputs(torch, dit.cfg, 1, 13, device)
+    set_ring_context(mesh, "seq")
+    zero_counts()
+    collectives.reset_counts()
+    shifts, restore_shift = _timed_call(torch, collectives, "ring_shift")
+    gathers, restore_gather = _timed_call(torch, collectives, "all_gather_dim")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = _ring_denoise(torch, dit, x, ids, "ring_pallas", IMAGE_CFG, RING_RANK_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        restore_shift()
+        restore_gather()
+        set_ring_context(None)
+    wall = time.perf_counter() - t0
+    launches, counts = _launch_counts(), dict(collectives.COUNTS)
+    res = {"launches": launches, "collectives": counts, "s_per_step": wall / RING_RANK_STEPS,
+           "ring_shift_s": sum(shifts), "all_gather_s": sum(gathers), "p2p_share": sum(shifts) / wall,
+           "shifted_gb": counts["ring_shift_bytes"] / 1e9, "build_s": build_s,
+           "finite": bool(torch.isfinite(out).all()), "shape": list(out.shape),
+           "same_on_every_rank": _same_on_every_rank(torch, collectives, [out])}
+    if dist.get_rank() == 0:
+        set_ring_context(_one_process_ring(device), "seq")
+        try:
+            ref = _ring_denoise(torch, dit, x, ids, "ring_pallas", IMAGE_CFG, RING_RANK_STEPS)
+        finally:
+            set_ring_context(None)
+        k1 = _ring_denoise(torch, dit, x, ids, "pallas", IMAGE_CFG, RING_RANK_STEPS)
+        res.update(bitwise_one_process=bool(torch.equal(out, ref)), cosine_k1=_cosine(out, k1))
+        del ref, k1
+    dist.barrier()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del dit, out, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["sub_s"] = time.perf_counter() - t_sub
+    return res
+
+
+def ring_rank_train(torch, dist, collectives, device, mesh) -> dict:
+    """16c: one corrector step at full width, depth RING_RANK_DEPTH, 512 px,
+    B=2, under "ring_pallas" over the rank ring (sgd at lr 1 without a clip
+    from adapters with a seeded non-zero B: the update is the gradient),
+    against the same step with the one-process ring of as many slots on this
+    rank."""
+    import dataclasses
+
+    from reflectionflow_tpu_torch.config import TrainConfig
+    from reflectionflow_tpu_torch.lora.lora import lora_init, lora_parameters
+    from reflectionflow_tpu_torch.ops.attention import set_ring_context
+    from reflectionflow_tpu_torch.train.rectified_flow import make_optimizer, make_train_step
+
+    t_sub = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    nd, ns = RING_RANK_DEPTH
+    cfg = dataclasses.replace(_dit_cfg(), num_double_blocks=nd, num_single_blocks=ns)
+    tcfg = TrainConfig()
+    tcfg.optimizer.name, tcfg.optimizer.lr, tcfg.optimizer.grad_clip = "sgd", 1.0, 0.0
+    batch = _train_batch(torch, cfg, 2, MESH_SEED, device)
+    dit = _train_dit(torch, cfg, device)
+
+    def step_delta(on, ring):
+        lora = lora_init(torch.Generator(device=device).manual_seed(MESH_SEED), dit, r=tcfg.lora.r,
+                         alpha=tcfg.lora.alpha)
+        with torch.no_grad():
+            g = torch.Generator(device=device).manual_seed(MESH_SEED + 1)
+            for ab in lora["adapters"].values():
+                ab["lora_B"].normal_(0.0, 0.02, generator=g)
+        before = [t.detach().clone() for t in lora_parameters(lora)]
+        opt = make_optimizer(tcfg)
+        step = make_train_step(dit, opt, alpha=tcfg.lora.alpha, r=tcfg.lora.r, attn_impl="ring_pallas", mesh=on)
+        set_ring_context(ring, "seq")
+        try:
+            adapters, _, metrics = step(lora["adapters"], opt.init(lora_parameters(lora)), batch,
+                                        torch.Generator(device=device).manual_seed(MESH_SEED + 2))
+        finally:
+            set_ring_context(None)
+        return [a.detach() - b for a, b in zip(_adapter_list(adapters), before)], float(metrics["loss"])
+
+    want, want_loss = step_delta(None, _one_process_ring(device))
+    torch.cuda.synchronize()
+    zero_counts()
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    got, loss = step_delta(mesh, mesh)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches, counts = _launch_counts(), dict(collectives.COUNTS)
+    cos = [_cosine(a, b) for a, b in zip(got, want)]
+    out = {"launches": launches, "collectives": counts, "step_s": step_s, "loss": loss, "loss_one_process": want_loss,
+           "grad_cosine_min": min(cos), "bitwise_one_process": all(torch.equal(a, b) for a, b in zip(got, want)),
+           "same_on_every_rank": _same_on_every_rank(torch, collectives, got), "depth": [nd, ns],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del dit, got, want, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["sub_s"] = time.perf_counter() - t_sub
+    return out
+
+
+def ring_rank(device, _td):
+    """Phase 16's two-rank launch: 16a, 16b, 16c in turn over a ("seq",) mesh
+    of RING_RANKS ranks."""
+    torch, dist, collectives = _mesh_ctx()
+    from reflectionflow_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((RING_RANKS,), ("seq",))
+    out = {"rank": dist.get_rank(), "coords": mesh.coords}
+    out["attention"] = ring_rank_attention(torch, dist, collectives, device, mesh)
+    dist.barrier()
+    out["denoise"] = ring_rank_denoise(torch, dist, collectives, device, mesh)
+    dist.barrier()
+    out["train"] = ring_rank_train(torch, dist, collectives, device, mesh)
+    return out
+
+
+def ring_data_seq_rank(device, _td):
+    """16d: a (data 2, seq 2) mesh of four ranks, depth RING_RANK_DEPTH at
+    full width: the conditioned denoise (1024 px, 512 px condition,
+    union_cond_attn=False) of B=4 items, 2 a data row, RING_RANK_STEPS steps
+    under "ring_pallas", each rank passing its data row's items; rank 0 first
+    runs the four items alone under "pallas". The latents gathered over
+    "data" on every rank."""
+    import dataclasses
+
+    torch, dist, collectives = _mesh_ctx()
+    from reflectionflow_tpu_torch.ops.attention import set_ring_context
+    from reflectionflow_tpu_torch.parallel.mesh import gather_candidates, make_mesh, shard_batch
+
+    t_sub = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh((2, 2), ("data", "seq"))
+    nd, ns = RING_RANK_DEPTH
+    dit = _train_dit(torch, dataclasses.replace(_dit_cfg(), num_double_blocks=nd, num_single_blocks=ns), device)
+    x, ids = _ring_inputs(torch, dit.cfg, 4, MESH_SEED, device)
+    ref = _ring_denoise(torch, dit, x, ids, "pallas", 1.0, RING_RANK_STEPS) if dist.get_rank() == 0 else None
+    dist.barrier()
+    mine = shard_batch(x, mesh)
+    set_ring_context(mesh, "seq")
+    zero_counts()
+    collectives.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        lat = _ring_denoise(torch, dit, mine, ids, "ring_pallas", 1.0, RING_RANK_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        set_ring_context(None)
+    wall = time.perf_counter() - t0
+    launches, counts = _launch_counts(), dict(collectives.COUNTS)
+    every = gather_candidates(lat, mesh)
+    out = {"rank": dist.get_rank(), "coords": mesh.coords, "launches": launches, "collectives": counts,
+           "s_per_step": wall / RING_RANK_STEPS, "finite": bool(torch.isfinite(every).all()),
+           "shape": list(every.shape), "same_on_every_rank": _same_on_every_rank(torch, collectives, [every]),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if ref is not None:
+        out["row_cosines"] = [_cosine(every[2 * i:2 * i + 2], ref[2 * i:2 * i + 2]) for i in range(2)]
+    out["sub_s"] = time.perf_counter() - t_sub
+    return out
+
+
+def ring_ranks_phase(torch, card: str) -> dict:
+    """Phase 16: ring attention across ranks on the one card (see the module
+    docstring): one launch of RING_RANKS gloo ranks for 16a-c, one of four
+    for 16d. Two ranks that share one card are a correctness path: their
+    seconds are not a ring across cards."""
+    from reflectionflow_tpu_torch.parallel.distributed import launch
+    from reflectionflow_tpu_torch.parallel.dryrun import file_init
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    check(held < MESH_PARENT_GIB, f"phase 16: the parent still holds {held:.2f} GiB of the card its ranks share")
+    cfg = _dit_cfg()
+    n_blocks = cfg.num_double_blocks + cfg.num_single_blocks
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        ranks = launch(ring_rank, RING_RANKS, args=(td,), backend="gloo", device="cuda:0",
+                       init_method=file_init(td), timeout=RING_RANK_TIMEOUT)
+        two_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        four = launch(ring_data_seq_rank, 4, args=(td,), backend="gloo", device="cuda:0",
+                      init_method=file_init(td), timeout=RING_RANK_TIMEOUT)
+        four_s = time.perf_counter() - t0
+    p = RING_RANKS
+    check(sorted(r["coords"]["seq"] for r in ranks) == list(range(p)), f"16: ring coordinates {ranks}")
+
+    # 16a
+    for r in ranks:
+        for c in r["attention"]["cases"]:
+            want_fwd = {name: 0 for name in c["fwd_launches"]}
+            want_fwd["flash_chunk_fwd"] = p
+            want = dict(want_fwd, flash_chunk_bwd_dq=p, flash_chunk_bwd_dkv=p)
+            check(c["fwd_launches"] == want_fwd and c["launches"] == want,
+                  f"16a rank {r['rank']} cross_bias={c['cross_bias']}: launches {c['fwd_launches']} / "
+                  f"{c['launches']}, expected {want_fwd} / {want}")
+            check(c["bitwise_one_process"] and c["same_on_every_rank"] and c["finite"],
+                  f"16a rank {r['rank']} cross_bias={c['cross_bias']}: bitwise one-process "
+                  f"{c['bitwise_one_process']}, same on every rank {c['same_on_every_rank']}")
+            check(c["collectives"]["ring_shift"] == 2 * p - 1 and c["collectives"]["host_copies"] > 0,
+                  f"16a rank {r['rank']}: collectives {c['collectives']}")
+    for c in ranks[0]["attention"]["cases"]:
+        check(c["out_err"] <= OUT_TOL and max(c["grad_rel"]) <= K6_REL_TOL,
+              f"16a cross_bias={c['cross_bias']}: against fp32 dense attention max|out err| {c['out_err']:.3e}, "
+              f"dq/dk/dv {c['grad_rel']} of max|ref|")
+        per = [cc for r in ranks for cc in r["attention"]["cases"] if cc["cross_bias"] == c["cross_bias"]]
+
+        def each(key, digits=3):
+            return [round(cc[key], digits) for cc in per]  # noqa: B023
+
+        log(f"16a ring_attention over {p} ranks (B=2, L={LT + LI + LC}, main_len {LT + LI}, cross_bias "
+            f"{c['cross_bias']}): against fp32 dense attention max|out err| {c['out_err']:.3e} (tol {OUT_TOL}), "
+            f"dq/dk/dv {', '.join(f'{x:.2e}' for x in c['grad_rel'])} of max|ref| (tol {K6_REL_TOL}); output "
+            f"and dq/dk/dv bitwise the one-process {p}-slot ring's on each rank and equal across ranks; per rank "
+            f"{c['launches']['flash_chunk_fwd']} K7a, {c['launches']['flash_chunk_bwd_dq']} K7b, "
+            f"{c['launches']['flash_chunk_bwd_dkv']} K7c; shifted {each('shifted_gb', 4)} GB a rank, forward + "
+            f"backward {each('fwd_bwd_s')} s, ring shifts {each('ring_shift_s')} s (share {each('p2p_share')}), "
+            f"gathers {each('all_gather_s')} s; {card}")
+
+    # 16b
+    for r in ranks:
+        d = r["denoise"]
+        want = {name: 0 for name in d["launches"]}
+        want["flash_chunk_fwd"] = RING_RANK_STEPS * n_blocks * p
+        check(d["launches"] == want, f"16b rank {r['rank']}: launches {d['launches']}, expected {want}")
+        check(d["finite"] and d["same_on_every_rank"], f"16b rank {r['rank']}: {d}")
+    d0 = ranks[0]["denoise"]
+    check(d0["bitwise_one_process"], "16b: the rank ring's denoise differs from the one-process ring's on rank 0")
+    check(d0["cosine_k1"] >= RING_COS, f"16b: cosine {d0['cosine_k1']:.6f} against K1")
+    log(f"16b ring denoise over {p} ranks (1024 px, 512 px condition, image CFG: B=2 rows, L={LT + LI + LC}, "
+        f"union_cond_attn=False, {RING_RANK_STEPS} steps, full depth, ring_pallas): final latents bitwise equal "
+        f"across ranks and to the one-process {p}-slot ring on rank 0, cosine {d0['cosine_k1']:.6f} against K1 "
+        f"(min {RING_COS}); per rank {d0['launches']['flash_chunk_fwd']} K7a, no K1; s/step "
+        f"{[round(r['denoise']['s_per_step'], 3) for r in ranks]}, P2P {[round(r['denoise']['ring_shift_s'], 3) for r in ranks]} s "
+        f"(share {[round(r['denoise']['p2p_share'], 3) for r in ranks]}), gathers "
+        f"{[round(r['denoise']['all_gather_s'], 3) for r in ranks]} s, shifted "
+        f"{[round(r['denoise']['shifted_gb'], 3) for r in ranks]} GB a rank; collectives {d0['collectives']}; "
+        f"peak {[round(r['denoise']['peak_gib'], 2) for r in ranks]} GiB; build "
+        f"{[round(r['denoise']['build_s'], 1) for r in ranks]} s; {[round(r['denoise']['sub_s'], 1) for r in ranks]} s; "
+        f"{card}")
+
+    # 16c
+    n = sum(RING_RANK_DEPTH)
+    for r in ranks:
+        t = r["train"]
+        want = {name: 0 for name in t["launches"]}
+        want.update(flash_chunk_fwd=2 * n * p, flash_chunk_bwd_dq=n * p, flash_chunk_bwd_dkv=n * p)
+        check(t["launches"] == want, f"16c rank {r['rank']}: launches {t['launches']}, expected {want}")
+        check(t["grad_cosine_min"] >= MESH_TP_GRAD_COS and t["same_on_every_rank"]
+              and t["collectives"]["grad_all_reduce"] == 0,
+              f"16c rank {r['rank']}: gradient cosine {t['grad_cosine_min']:.6f} against the one-process ring, {t}")
+    t0_ = ranks[0]["train"]
+    log(f"16c ring training over {p} ranks (depth {RING_RANK_DEPTH} at full width, B=2, 512 px, ring_pallas, one "
+        f"sgd step): adapter gradients min cosine {min(r['train']['grad_cosine_min'] for r in ranks):.7f} against "
+        f"the one-process {p}-slot ring (bitwise {[r['train']['bitwise_one_process'] for r in ranks]}); loss "
+        f"{t0_['loss']:.6f} (one process {t0_['loss_one_process']:.6f}); per rank {t0_['launches']['flash_chunk_fwd']} "
+        f"K7a, {t0_['launches']['flash_chunk_bwd_dq']} K7b, {t0_['launches']['flash_chunk_bwd_dkv']} K7c; collectives "
+        f"{t0_['collectives']}; step s {[round(r['train']['step_s'], 3) for r in ranks]}; peak "
+        f"{[round(r['train']['peak_gib'], 2) for r in ranks]} GiB; {[round(r['train']['sub_s'], 1) for r in ranks]} s")
+
+    # 16d
+    for r in four:
+        want = {name: 0 for name in r["launches"]}
+        want["flash_chunk_fwd"] = RING_RANK_STEPS * n * 2
+        check(r["launches"] == want, f"16d rank {r['rank']}: launches {r['launches']}, expected {want}")
+        check(r["finite"] and r["same_on_every_rank"] and r["shape"][0] == 4, f"16d rank {r['rank']}: {r}")
+    cos = four[0]["row_cosines"]
+    check(min(cos) >= MESH_COS, f"16d: data rows' cosines {cos} against the one-rank run")
+    log(f"16d (data 2, seq 2) ring denoise (4 ranks, depth {RING_RANK_DEPTH}, 1024 px, B=4, 2 a data row, "
+        f"{RING_RANK_STEPS} steps): data rows' cosine {[round(c, 6) for c in cos]} against the one-rank K1 run "
+        f"(min {MESH_COS}); latents bitwise equal on every rank; per rank {four[0]['launches']['flash_chunk_fwd']} "
+        f"K7a; s/step {[round(r['s_per_step'], 3) for r in four]}; peak {[round(r['peak_gib'], 2) for r in four]} GiB; "
+        f"{[round(r['sub_s'], 1) for r in four]} s")
+    res = {"ranks": p, "backend": "gloo", "attention": [r["attention"] for r in ranks],
+           "denoise": [r["denoise"] for r in ranks], "train": [r["train"] for r in ranks], "data_seq": four,
+           "two_rank_launch_s": two_s, "four_rank_launch_s": four_s, "phase_s": time.perf_counter() - t_phase}
+    log(f"phase 16: {res['phase_s']:.1f} s (launches {two_s:.1f} s and {four_s:.1f} s); {card}")
+    return res
+
+
+# -- phase 17: ControlNet residuals and the condition preprocessors -------------
+
+
+def controlnet_phase(torch, pipe) -> dict:
+    """Phase 17 on the bf16 pipeline: a 1024 px DiT forward (B=2) under
+    "pallas" with seeded ControlNet residuals (CN_HOOKS hooks) against the
+    same forward without them (all-zero residuals: bitwise) and against
+    "xla" (non-zero: cosine >= CN_COS); a conditioned `generate` (1024 px,
+    512 px condition, image CFG, STEPS steps) whose condition is the port's
+    `canny` of a seeded 512^2 image, launches counted around it; and the
+    three preprocessors' host milliseconds on a 1024^2 image."""
+    import numpy as np
+
+    from reflectionflow_tpu_torch.models.flux.rope import make_image_ids, make_text_ids
+    from reflectionflow_tpu_torch.sampler.condition import PREPROCESSORS, Condition, cot_position_delta
+
+    t_phase = time.perf_counter()
+    cfg_d = pipe.dit_cfg
+    g = torch.Generator(device="cuda").manual_seed(17)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device="cuda")).to(pipe.dtype)
+
+    ty = tx = 2 * LT // 16
+    x = {"img": randn(2, ty * tx, cfg_d.in_channels), "txt": randn(2, LT, cfg_d.text_dim),
+         "pooled": randn(2, cfg_d.pooled_dim), "timestep": torch.tensor([0.7, 0.3], device="cuda"),
+         "img_ids": torch.from_numpy(make_image_ids(ty, tx)).cuda(),
+         "txt_ids": torch.from_numpy(make_text_ids(LT)).cuda(),
+         "guidance": torch.full((2,), 3.5, device="cuda")}
+    nd_h, ns_h = CN_HOOKS
+    with torch.no_grad():
+        plain = pipe.dit(**x, attn_impl="pallas")
+        hidden_scale = float(pipe.dit.x_embedder(x["img"]).float().std())
+        res_d = randn(nd_h, 2, ty * tx, cfg_d.hidden_size, scale=0.1 * hidden_scale)
+        res_s = randn(ns_h, 2, ty * tx, cfg_d.hidden_size, scale=0.1 * hidden_scale)
+        zeros = pipe.dit(**x, attn_impl="pallas", controlnet_block_samples=torch.zeros_like(res_d),
+                         controlnet_single_block_samples=torch.zeros_like(res_s))
+        counters = zero_counts()
+        hooked = pipe.dit(**x, attn_impl="pallas", controlnet_block_samples=res_d,
+                          controlnet_single_block_samples=res_s)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        dense = pipe.dit(**x, attn_impl="xla", controlnet_block_samples=res_d, controlnet_single_block_samples=res_s)
+    n_blocks = cfg_d.num_double_blocks + cfg_d.num_single_blocks
+    want = {name: 0 for name in launches}
+    want["flash_fwd"] = n_blocks
+    check(launches == want, f"17: ControlNet forward launches {launches}, expected {want}")
+    check(torch.equal(zeros, plain), "17: all-zero ControlNet residuals changed the forward")
+    cos, moved = _cosine(hooked, dense), _cosine(hooked, plain)
+    check(bool(torch.isfinite(hooked).all()) and cos >= CN_COS,
+          f"17: ControlNet forward under pallas against xla: cosine {cos:.6f} (min {CN_COS})")
+    del plain, zeros, hooked, dense, res_d, res_s
+    torch.cuda.empty_cache()
+
+    # the preprocessors' host milliseconds on a 1024^2 image, then a canny-conditioned generate
+    rng = np.random.default_rng(17)
+    big = np.repeat(np.repeat(rng.integers(0, 256, (32, 32, 3), dtype=np.uint8), 32, 0), 32, 1)
+    names = ("canny", "coloring", "deblurring")
+    for name in names:
+        PREPROCESSORS[name](big)  # the first call imports what it needs
+    host_ms = _median_ms({name: (lambda n=name: PREPROCESSORS[n](big)) for name in names}, 5)
+    small = np.repeat(np.repeat(rng.integers(0, 256, (16, 16, 3), dtype=np.uint8), 32, 0), 32, 1)
+    cond = Condition("canny", small, cot_position_delta(LT))
+    edges = cond.preprocess()
+    check(edges.shape == small.shape and int((edges > 0).sum()) > 0, "17: canny found no edge on the seeded image")
+    counters = zero_counts()
+    t0 = time.perf_counter()
+    lat = pipe.generate(["a photo of a red cube"], height=2 * LT, width=2 * LT, num_inference_steps=STEPS,
+                        conditions=[cond], image_guidance_scale=IMAGE_CFG, output_type="latent", seed=17)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: 0 for name in gen_launches}
+    want["flash_fwd"] = STEPS * n_blocks
+    check(gen_launches == want, f"17: canny-conditioned generate launches {gen_launches}, expected {want}")
+    check(tuple(lat.shape) == (1, ty * tx, cfg_d.in_channels) and bool(torch.isfinite(lat).all()),
+          "17: canny-conditioned generate gave bad latents")
+    res = {"hooks": list(CN_HOOKS), "cosine_xla": cos, "cosine_without": moved, "launches": launches,
+           "generate_launches": gen_launches, "generate_s": gen_s, "edge_pixels": int((edges[..., 0] > 0).sum()),
+           "host_ms_1024": host_ms, "phase_s": time.perf_counter() - t_phase}
+    log(f"17 ControlNet (1024 px, B=2, {nd_h} double + {ns_h} single hooks, pallas): zero residuals bitwise the "
+        f"plain forward; cosine {cos:.6f} against xla (min {CN_COS}), {moved:.6f} against the forward without "
+        f"them; {launches['flash_fwd']} K1; canny-conditioned generate (1024 px, 512 px condition of "
+        f"{res['edge_pixels']} edge pixels, image CFG {IMAGE_CFG}, {STEPS} steps) {gen_s:.2f} s, "
+        f"{gen_launches['flash_fwd']} K1; preprocessors on 1024^2 (host ms, median of 5): "
+        f"{json.dumps({k: round(v, 2) for k, v in host_ms.items()})}; phase 17 {res['phase_s']:.1f} s")
+    return res
+
+
 def _dit_cfg():
     from reflectionflow_tpu_torch.config import FluxDiTConfig
 
@@ -4484,6 +5017,7 @@ def main() -> int:
     ring = ring_phase(torch, pipe)
     t_ring = time.perf_counter() - t0
     log(f"ring phase (5d): {t_ring:.1f} s")
+    controlnet = controlnet_phase(torch, pipe)
     w8_launches, w8_calls, w8_peak, cond_gib, prof, ragged = w8a8_phase(torch, pipe, adapters)
     del adapters
     corrector = corrector_phase(torch, pipe)
@@ -4498,6 +5032,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh = mesh_phase(torch, card)
     mesh_train = mesh_train_phase(torch, card, [r["w8a8"] for r in mesh["tp"]])
+    ring_ranks = ring_ranks_phase(torch, card)
     step = {name: calls[-1]["denoise_s"] / STEPS for name, calls in (("bf16", bf16_calls),
                                                                       ("w8a8", w8_calls))}
     step.update({f"corrector_{impl}": corrector[impl]["s_per_step"] for impl in ("pallas_nr", "pallas_int8")})
@@ -4571,6 +5106,11 @@ def main() -> int:
             "shape": k7_train, "corrector_shape": {"shape": k7_corr, **k7["by_shape"][k7_corr][key]},
             **({"sdpa_backward_ms": at["sdpa_backward_ms"]} if key != "fwd" else {}),
             **({k: at[k] for k in ("k6a_same_chunk_ms", "k6a_same_chunk_device_ms")} if key == "dq" else {}),
+            # phase 16, per rank (rank 0's; the checks hold every rank's)
+            "launches_ring_ranks": {"attention_fwd_bwd": ring_ranks["attention"][0]["cases"][0]["launches"][name],
+                                    "denoise": ring_ranks["denoise"][0]["launches"][name],
+                                    "train": ring_ranks["train"][0]["launches"][name],
+                                    "data_seq_denoise": ring_ranks["data_seq"][0]["launches"][name]},
         })
     corr_shape, t2i_shape = f"B=2 L={LT + LI + LC}", f"B=2 L={LT + LI}"
     for name, source, line, impl in (("flash_fwd_int8", "flash_fwd_int8.cu", 234, "pallas_int8"),
@@ -4578,6 +5118,8 @@ def main() -> int:
         kernels.append(kernel_entry(name, source, f"{PA}:{line}", corrector[impl]["launches"][name],
                                     serving_attn[name], corr_shape, t2i_shape))
     kernels[0]["by_shape"][f"B={K1_PRESET[0]} L={K1_PRESET[1]}"] = nvila["k1_preset"]
+    kernels[0]["launches_controlnet"] = {"forward": controlnet["launches"]["flash_fwd"],
+                                         "canny_generate": controlnet["generate_launches"]["flash_fwd"]}
     for k in kernels:
         k["launches_round_nvila"] = nvila["round"]["launches"][k["name"]]
     for k in kernels:
@@ -4607,6 +5149,8 @@ def main() -> int:
     log(json.dumps({"rm_train": rm_train}))
     log(json.dumps({"mesh": mesh}))
     log(json.dumps({"mesh_train": mesh_train}))
+    log(json.dumps({"ring_ranks": ring_ranks}))
+    log(json.dumps({"controlnet": controlnet}))
     log(json.dumps({"ring": {"attention": ring["attention"],
                              "train": {k: ring["train"][k] for k in ("s_per_step", "peak_gib", "launches",
                                                                       "grad_cosine_min", "grad_cosine")},

@@ -626,6 +626,13 @@ class FluxDiT(nn.Module):
         `remat=True` recomputes each block in the backward pass
         (`torch.utils.checkpoint`), as `jax.checkpoint` wraps each scan body.
 
+        `controlnet_block_samples` / `controlnet_single_block_samples`:
+        stacked ControlNet residuals (n_hooks, B, L_img, hidden), cast to the
+        model dtype. Hook i serves blocks [i k, (i + 1) k) with k =
+        ceil(n_blocks / n_hooks); its residual is added to the image stream
+        after each double block, and to the image rows after each single
+        block.
+
         `rope_layout="split"` is the serving layout: it needs q/k permuted by
         `ops.fuse.permute_rope_layout` and runs the storage-dtype QK-norm,
         AdaLN and RoPE of the JAX package's serving forward.
@@ -654,8 +661,6 @@ class FluxDiT(nn.Module):
                              "not combinable with return_img_residual)")
         if module_mode and remat:
             raise ValueError("module cache is a serving path: remat=True does not apply to it")
-        if controlnet_block_samples is not None or controlnet_single_block_samples is not None:
-            raise NotImplementedError("ControlNet residuals are ROADMAP slice 3, item 14")
         check_impl(attn_impl)
         if rope_layout != self.rope_layout:
             raise ValueError(
@@ -711,6 +716,17 @@ class FluxDiT(nn.Module):
             return block(*args)
 
         tail = (cond_temb, rope_cond, attn_kw)
+
+        def hooks(samples, n_blocks):
+            """Block i's ControlNet residual, or None for every block."""
+            if samples is None:
+                return [None] * n_blocks
+            samples = samples.to(dtype)
+            interval = -(-n_blocks // samples.shape[0])
+            return [samples[i // interval] for i in range(n_blocks)]
+
+        ctrl_d = hooks(controlnet_block_samples, len(self.transformer_blocks))
+        ctrl_s = hooks(controlnet_single_block_samples, len(self.single_transformer_blocks))
         if return_module_outs:  # block i's pre-gate outputs land in slice i
             Nd, Ns = len(self.transformer_blocks), len(self.single_transformer_blocks)
             d_mods = tuple(x.new_empty((Nd, *x.shape)) for x in (img, txt, img, txt))
@@ -728,7 +744,10 @@ class FluxDiT(nn.Module):
                 bc = cp.transformer_blocks[i] if use_cond else None
                 img, txt, cond_h = run(block, img, txt, temb, rope, flags, attn_impl, cond_h, *tail,
                                        bc, nr_rope)
+                if ctrl_d[i] is not None:
+                    img = img + ctrl_d[i]
         hidden = torch.cat([txt, img], dim=1)
+        Lt = txt.shape[1]
         for i, block in enumerate(self.single_transformer_blocks):
             if module_cache is not None:
                 hidden, _ = block(hidden, temb, rope, flags, attn_impl,
@@ -740,7 +759,9 @@ class FluxDiT(nn.Module):
                 bc = cp.single_transformer_blocks[i] if use_cond else None
                 hidden, cond_h = run(block, hidden, temb, rope, flags, attn_impl, cond_h, *tail, bc,
                                      nr_rope)
-        img = hidden[:, txt.shape[1]:]
+                if ctrl_s[i] is not None:
+                    hidden = torch.cat([hidden[:, :Lt], hidden[:, Lt:] + ctrl_s[i]], dim=1)
+        img = hidden[:, Lt:]
         resid = img - img_embed if return_img_residual else None
         # final AdaLN: scale first, then shift
         sc, sh = self.norm_out(temb)

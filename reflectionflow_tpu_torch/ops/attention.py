@@ -13,7 +13,10 @@ stream. `impl` keeps the reference's names:
     attention to K9 (`ops.flash_attention_nr`) before it reaches this
     function, as the JAX package does;
   * "ring" / "ring_pallas" -> `ops.ring_attention` over the mesh axis that
-    `set_ring_context` names, with dense or flash-kernel (K7) chunks.
+    `set_ring_context` names, with dense or flash-kernel (K7) chunks: a ring
+    of ranks on a `parallel.mesh.RankMesh` (every rank of the axis line
+    calls the attention), a ring of one process's devices on a
+    `parallel.mesh.Mesh`.
 
 The Pallas interpret modes of the reference have no counterpart and raise.
 """
@@ -39,8 +42,11 @@ _RING_CTX: dict = {"mesh": None, "axis": "seq"}
 
 
 def set_ring_context(mesh, axis: str = "seq") -> None:
-    """Configure the mesh (`parallel.mesh.Mesh`) and axis ring attention
-    splits the sequence over. Call before the first call with `impl="ring*"`;
+    """Configure the mesh and axis ring attention splits the sequence over:
+    a `parallel.mesh.RankMesh` (one ring of ranks a line along `axis`, each
+    rank running its own chunk; every rank of the mesh sets it) or a
+    one-process `parallel.mesh.Mesh` (one ring over its devices along
+    `axis`). Call before the first call with `impl="ring*"`;
     `set_ring_context(None)` clears it."""
     _RING_CTX["mesh"] = mesh
     _RING_CTX["axis"] = axis

@@ -20,7 +20,13 @@ through this module:
     FSDP's gather on use (`parallel/specs.py::shard_fsdp_params`);
   * `reduce_gradients` — the training step's one bucketed all-reduce: every
     gradient (and the loss) in one flat fp32 buffer, averaged over "data"
-    and summed over "model" where a rank holds a partial sum;
+    and summed over "model" where a rank holds a partial sum, within the
+    ranks of one "seq" coordinate (the ranks of a seq line hold the same
+    gradients);
+  * `ring_shift` — `lax.ppermute` along a ring: each rank of a group sends
+    its tensors to the next group rank and receives the previous one's (ring
+    attention's K/V rotation, `ops/ring_attention.py`), counted with the
+    bytes it sends;
   * `all_gather_batch` — a batch-leading tensor gathered over the "data"
     axis in rank order (`parallel/mesh.py::gather_candidates`);
   * `broadcast` — a tensor from one rank of a group (`replicate_params`, the
@@ -43,7 +49,8 @@ import torch
 import torch.distributed as dist
 
 COUNTS = {"all_reduce_sum": 0, "all_reduce_max": 0, "all_gather_batch": 0, "all_gather_dim": 0,
-          "broadcast": 0, "broadcast_object": 0, "grad_all_reduce": 0, "host_copies": 0}
+          "broadcast": 0, "broadcast_object": 0, "grad_all_reduce": 0, "ring_shift": 0,
+          "ring_shift_bytes": 0, "host_copies": 0}
 
 
 def reset_counts() -> None:
@@ -147,20 +154,25 @@ def all_gather_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
 
 def reduce_gradients(grads: list[torch.Tensor], partial: list[bool], mesh,
                      extras: list[torch.Tensor] = ()) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
-    """One bucketed all-reduce over every rank of `mesh` (a `RankMesh`):
+    """One bucketed all-reduce over the data x model ranks of `mesh` (a
+    `RankMesh`) that share this rank's "seq" coordinate (`mesh.grad_group`):
     `grads` and the scalars `extras` (a rank's loss) go into one flat fp32
     buffer, and each comes back averaged over "data"; a gradient marked
     `partial` (a rank's share of a tensor cut over "model") is also summed
     over "model", the others (replicated, the same on every rank of a model
-    group) and the extras averaged. Every rank gets the same bits. Returns
-    (grads, extras), new tensors in the gradients' dtypes."""
+    group) and the extras averaged. The ranks of a "seq" line compute the
+    same gradients (ring attention joins its output and its input
+    gradients over the line), so "seq" enters neither the sum nor the
+    scale: a (data, seq) step is the data-only step. Every rank gets the
+    same bits. Returns (grads, extras), new tensors in the gradients'
+    dtypes."""
     dp, tp = mesh.axis_size("data"), mesh.axis_size("model")
     if dp * tp == 1:
         return list(grads), list(extras)
     tensors = [*grads, *extras]
     scales = [1.0 / (dp if p else dp * tp) for p in partial] + [1.0 / (dp * tp)] * len(extras)
     flat = torch.cat([(t.detach().float() * s).reshape(-1) for t, s in zip(tensors, scales)])
-    group = mesh.world_group if mesh.size > 1 else None
+    group = mesh.grad_group
     COUNTS["grad_all_reduce"] += 1
     if _staged(flat, group):
         COUNTS["host_copies"] += 1
@@ -174,6 +186,36 @@ def reduce_gradients(grads: list[torch.Tensor], partial: list[bool], mesh,
         out.append(flat[i:i + t.numel()].view(t.shape).to(t.dtype))
         i += t.numel()
     return out[:len(grads)], out[len(grads):]
+
+
+def ring_shift(xs: list[torch.Tensor], group) -> list[torch.Tensor]:
+    """One step of a ring over `group` (JAX's `lax.ppermute` with the perm
+    i -> i + 1): this rank, group rank i of p, sends each tensor of `xs` to
+    group rank (i + 1) mod p and receives the same shapes from (i - 1) mod p;
+    returns the received tensors on `xs`' devices. Every send and receive is
+    posted before any is waited on, so every rank of the ring may call it at
+    once. NCCL moves the CUDA tensors themselves; a CUDA tensor under gloo
+    goes through host memory (one host copy counted per call). Counts one
+    call and the bytes this rank sends."""
+    n = group_size(group)
+    if n == 1:
+        return list(xs)
+    me = dist.get_group_rank(group, dist.get_rank()) if group is not None else dist.get_rank()
+    nxt = dist.get_global_rank(group, (me + 1) % n) if group is not None else (me + 1) % n
+    prv = dist.get_global_rank(group, (me - 1) % n) if group is not None else (me - 1) % n
+    staged = _staged(xs[0], group)
+    srcs = [x.detach().cpu() if staged else x.detach().contiguous() for x in xs]
+    outs = [torch.empty_like(s) for s in srcs]
+    ops = [dist.P2POp(dist.isend, s, nxt, group) for s in srcs]
+    ops += [dist.P2POp(dist.irecv, o, prv, group) for o in outs]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    COUNTS["ring_shift"] += 1
+    COUNTS["ring_shift_bytes"] += sum(s.numel() * s.element_size() for s in srcs)
+    if staged:
+        COUNTS["host_copies"] += 1
+        outs = [o.to(x.device) for o, x in zip(outs, xs)]
+    return outs
 
 
 def all_gather_batch(x: torch.Tensor, group=None) -> torch.Tensor:

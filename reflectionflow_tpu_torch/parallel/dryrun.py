@@ -4,7 +4,7 @@ Counterpart of `__graft_entry__.py`'s `dryrun_multichip` (:60: the corrector
 training step on a data x model mesh with the DiT cut for TP and replicated
 r=4 adapters; the conditioned denoise with a skipped step at
 `vcache_order=2` and the TeaCache schedule, :147-171; `_dryrun_search_block`
-:290; `_dryrun_ring_denoise` :205, on the port's one-process ring mesh; and
+:290; `_dryrun_ring_denoise` :205, over a ring of every rank; and
 `_dryrun_rm_train_step` :246, FSDP over "data" with the vision adapters)
 and `dryrun_multihost` (:354, its worker :426-475: a cross-process sum and
 prompt-sharded `run_noise_scaling` whose artifacts equal a one-process
@@ -264,14 +264,14 @@ def rm_train_step_check(device, mesh) -> dict:
             "lm_bytes": mine, "lm_bytes_whole": whole}
 
 
-# -- the ring denoise on a one-process mesh (JAX `_dryrun_ring_denoise` :205) -
+# -- the ring denoise over a ring of ranks (JAX `_dryrun_ring_denoise` :205) -
 
 
-def ring_denoise_check(device, n: int) -> dict:
+def ring_denoise_check(device, mesh) -> dict:
     """The conditioned denoise with the structural cond mask
-    (`union_cond_attn=False`) under ring attention over a one-process ("seq",)
-    mesh of `n` slots on `device`, against the dense "xla" denoise: the max
-    |diff| (JAX holds it within 2e-4)."""
+    (`union_cond_attn=False`) under ring attention over the "seq" axis of
+    `mesh` (a `RankMesh`; every rank of it calls this), against the dense
+    "xla" denoise on this rank: the max |diff| (JAX holds it within 2e-4)."""
     from ..config import FluxDiTConfig
     from ..models.flux.dit import FluxDiT
     from ..models.flux.rope import make_image_ids, make_text_ids
@@ -294,7 +294,8 @@ def ring_denoise_check(device, n: int) -> dict:
               cond_ids=torch.from_numpy(make_image_ids(cty, ctx, position_delta=(0, -ctx))).to(device),
               union_cond_attn=False)
     ref = denoise(dit, lat, txt, pooled, attn_impl="xla", **kw)
-    set_ring_context(make_mesh((n,), ("seq",), devices=[torch.device(device)] * n), "seq")
+    set_ring_context(mesh, "seq")
+    shifts = collectives.COUNTS["ring_shift"]
     try:
         out = denoise(dit, lat, txt, pooled, attn_impl="ring", **kw)
     finally:
@@ -302,7 +303,8 @@ def ring_denoise_check(device, n: int) -> dict:
     diff = float((out - ref).abs().max())
     if diff > 2e-4:
         raise AssertionError(f"ring denoise differs from the dense one by {diff}")
-    return {"slots": n, "max_abs_diff": diff}
+    return {"ranks": mesh.axis_size("seq"), "max_abs_diff": diff,
+            "ring_shifts": collectives.COUNTS["ring_shift"] - shifts}
 
 
 # -- the conditioned denoise on a data x model mesh (JAX :147-171) -----------
@@ -363,7 +365,8 @@ def _multichip_rank(device, shape, out_root):
     data_mesh = make_mesh((dist.get_world_size(),), ("data",))
     search = search_block_check(tiny_pipeline(device), data_mesh, out_root)
     rm = rm_train_step_check(device, data_mesh)
-    return {"train": train, "denoise": denoise, "search_block": search, "rm_train": rm,
+    ring = ring_denoise_check(device, make_mesh((dist.get_world_size(),), ("seq",)))
+    return {"train": train, "denoise": denoise, "search_block": search, "rm_train": rm, "ring": ring,
             "counts": dict(collectives.COUNTS)}
 
 
@@ -372,13 +375,13 @@ def dryrun_multichip(world_size: int = 4, *, device="cuda", backend: str | None 
     """The JAX `dryrun_multichip` on `world_size` ranks: a (world/2, 2) data x
     model mesh (tensor parallelism needs an even world; an odd world runs
     data alone) for the training step and the denoise check, a data mesh of
-    every rank for the search block and the FSDP reward-model step, then the
-    ring denoise in this process over `world_size` slots on one device
-    (`device`, or cuda:0 for "cuda"). Raises on a
-    mismatch (the training step: adapters 1e-5 from the unsharded step's;
-    the denoise: a max |diff| above 1e-4 or another n_full; the reward step:
-    trainables 1e-5 from the unsharded's); the result's "summary" names each
-    half, as JAX's line does."""
+    every rank for the search block and the FSDP reward-model step, and a
+    ("seq",) ring of every rank for the ring denoise (its joint sequence of
+    32 tokens must divide by the world). Raises on a mismatch (the training
+    step: adapters 1e-5 from the unsharded step's; the denoise: a max |diff|
+    above 1e-4 or another n_full; the reward step: trainables 1e-5 from the
+    unsharded's; the ring denoise: 2e-4 from the dense one); the result's
+    "summary" names each half, as JAX's line does."""
     tp = 2 if world_size % 2 == 0 else 1
     with tempfile.TemporaryDirectory(dir=workdir) as td:
         results = launch(_multichip_rank, world_size, args=((world_size // tp, tp), td),
@@ -391,14 +394,13 @@ def dryrun_multichip(world_size: int = 4, *, device="cuda", backend: str | None 
         raise AssertionError(f"the mesh training step differs from the unsharded one: {r0['train']}")
     if r0["rm_train"]["trainable_max_abs_diff"] > 1e-5:
         raise AssertionError(f"the FSDP reward-model step differs from the unsharded one: {r0['rm_train']}")
-    ring_device = "cuda:0" if str(device) == "cuda" else device
-    ring = ring_denoise_check(ring_device, world_size)
+    ring = r0["ring"]
     mesh = (world_size // tp, tp)
     summary = (f"dryrun_multichip ok: mesh=({mesh[0]}x{mesh[1]}) loss={r0['train']['loss']:.4f} "
                f"denoise={sorted(r0['denoise'])} search_block={r0['search_block']['files']} files identical "
-               f"ring_sp=masked-denoise-matches-dense({ring['slots']}slots) "
+               f"ring_sp=masked-denoise-matches-dense({ring['ranks']}ranks) "
                f"rm_train=fsdp-vision-lora-step({world_size}ranks,loss={r0['rm_train']['loss']:.3f})")
-    return {"mesh": mesh, **r0, "ring": ring, "summary": summary}
+    return {"mesh": mesh, **r0, "summary": summary}
 
 
 # -- prompt-sharded noise scaling across processes (JAX :354-475) ------------

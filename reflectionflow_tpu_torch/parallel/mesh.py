@@ -9,7 +9,13 @@ axis is candidates: N parallel trajectories a prompt. Two forms:
     (`candidate_sharding` / `shard_batch` give this rank's contiguous slice of
     a batch-leading tensor, as `P("data")`; `gather_candidates` is the
     all-gather JAX's host read of a sharded array does), "model" shards the
-    DiT's heads and MLP hidden (`parallel/specs.py`). `replicate_params`
+    DiT's heads and MLP hidden (`parallel/specs.py`), "seq" splits the joint
+    sequence of each attention over a ring of ranks (`ops.ring_attention`,
+    through `ops.attention.set_ring_context(mesh, "seq")`). "seq" composes
+    with the others: ("seq",), ("data", "seq") and ("model", "seq"). The
+    candidate helpers key on "data" alone, so the ranks of a seq line read
+    the same rows; under ("model", "seq") each rank's ring runs over its own
+    TP-cut heads, the function JAX's one program computes. `replicate_params`
     broadcasts weights from rank 0; `pad_candidates` is JAX's.
   * `Mesh`, a numpy object array of `torch.device`s that one process drives
     (a device may appear more than once): ring attention
@@ -18,10 +24,13 @@ axis is candidates: N parallel trajectories a prompt. Two forms:
     after another on one card and with peer copies across cards. It is what
     `make_mesh` returns with `devices=`, or with no process group.
 
-Divergence: a JAX `Mesh` holds distinct devices and one program runs on all
+Divergences: a JAX `Mesh` holds distinct devices and one program runs on all
 of them, with XLA placing the collectives. Here each rank runs the program
 on its own slice and the collectives are the port's own
-(`parallel/collectives.py`).
+(`parallel/collectives.py`). On a one-process `Mesh` of more than one axis
+the ring runs once, over the devices along its axis at index 0 of the others
+(`Mesh.axis_devices`), where JAX runs one ring a row: the output is the
+same.
 """
 
 from __future__ import annotations
@@ -53,7 +62,9 @@ class Mesh:
 
     def axis_devices(self, axis: str) -> list[torch.device]:
         """The devices along `axis`, at index 0 of every other axis (the
-        ring's order: shard i lives on the i-th)."""
+        ring's order: shard i lives on the i-th). One ring for the whole
+        mesh, where JAX runs one a row of the other axes: the same output
+        (the module docstring's divergence)."""
         arr = np.moveaxis(self.devices, self.axis_names.index(axis), 0)
         return list(arr.reshape(arr.shape[0], -1)[:, 0])
 
@@ -97,6 +108,14 @@ class RankMesh:
                 group = dist.new_group([int(r) for r in line]) if shape[i] > 1 else None
                 if rank in line:
                     self.groups[axis] = group
+        # the gradient bucket's group: the data x model ranks of this rank's seq coordinate
+        sp = self.axis_size("seq")
+        self.grad_group = self.world_group if world > sp else None
+        if sp > 1 and world > sp:
+            for plane in np.moveaxis(self.ranks, self.axis_names.index("seq"), 0).reshape(sp, -1):
+                group = dist.new_group([int(r) for r in plane])
+                if rank in plane:
+                    self.grad_group = group
 
     @property
     def shape(self) -> dict[str, int]:
@@ -155,7 +174,8 @@ def pad_candidates(n: int, mesh) -> int:
 
 def candidate_sharding(mesh: RankMesh, n: int) -> slice:
     """This rank's contiguous rows of an n-row batch along "data" (JAX's
-    `P("data")`); n must divide by the data axis."""
+    `P("data")`); n must divide by the data axis. The other axes do not
+    enter: the ranks of a "model" or "seq" line read the same rows."""
     d = mesh.axis_size("data")
     if n % d:
         raise ValueError(f"batch {n} does not divide by the data axis {d} (pad_candidates)")

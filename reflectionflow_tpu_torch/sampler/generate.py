@@ -25,7 +25,10 @@ Under tensor parallelism (a DiT cut by `parallel.specs.shard_dit_params`)
 the dynamic mode's decision is broadcast from the model group's first rank,
 so every rank of the group runs the same forward (the ranks compute the
 same signal from the same replicated weights; the broadcast makes it so by
-construction).
+construction). Under ring attention over a mesh of ranks (a "seq" axis) no
+broadcast is needed: the ring joins each attention's output over the seq
+line, so its ranks hold the same latents and signals, bit for bit, and take
+the same decisions.
 """
 
 from __future__ import annotations

@@ -176,8 +176,12 @@ class FluxPipeline:
         `parallel.mesh.replicate_params` first). With a "model" axis of more
         than one rank, the DiT and the cond model are cut to this rank's shard
         (`parallel.specs.shard_dit_params`); call it before `quantize`, which
-        then quantizes the cut model in the unfused layout. `mesh=None` serves
-        unsharded again (a cut DiT stays cut)."""
+        then quantizes the cut model in the unfused layout. With a "seq" axis
+        and `attn_impl` "ring" or "ring_pallas", call
+        `ops.attention.set_ring_context(mesh, "seq")` too: every attention
+        then runs over the ring of this rank's seq line (whose ranks take the
+        same candidates). `mesh=None` serves unsharded again (a cut DiT stays
+        cut)."""
         if mesh is not None and mesh.axis_size("model") > 1:
             shard_dit_params(self.dit, mesh)
             cond = self.cond_dit_params

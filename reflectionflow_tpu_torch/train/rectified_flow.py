@@ -27,7 +27,12 @@ and K6 at H / tp heads. The gradients, and the loss, are all-reduced in one buck
 (`collectives.reduce_gradients`: a mean over "data", a sum over "model" of
 the adapters of cut linears) before the optimizer's global-norm clip, as
 XLA's all-reduce precedes optax's clip; every rank then applies the same
-update to the same adapters.
+update to the same adapters. With a "seq" axis and a ring impl
+(`set_ring_context(mesh, "seq")`), the ranks of a seq line pass the same
+slice and each runs its chunk of every attention (K7a, K7b/K7c under
+"ring_pallas"); the ring joins the results over the line, so those ranks
+hold the same gradients and the bucket reduces over "data" and "model"
+only.
 """
 
 from __future__ import annotations

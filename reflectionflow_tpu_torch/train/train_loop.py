@@ -19,9 +19,15 @@ splits the shards by the rank's data coordinate, as JAX splits them by
 host), and `make_train_step(mesh=)` reduces the gradients.
 Rank 0 alone writes the checkpoints and `metrics.jsonl`; every rank reads the
 same checkpoint on resume. Sequence parallelism runs through
-`ops.attention.set_ring_context(mesh, axis)` and `cfg.attn_impl =
-"ring_pallas"` (or "ring") on a one-process mesh. `train(hooks=...)` takes
-any callables; they run on every rank.
+`ops.attention.set_ring_context(mesh, "seq")` and `cfg.attn_impl =
+"ring_pallas"` (or "ring"): on a `RankMesh` with a "seq" axis (("seq",),
+("data", "seq") or ("model", "seq")) each rank runs K7a forward and K7b/K7c
+backward on its chunk of every attention, the ranks of a seq line feed the
+same data slice, and the gradients are reduced over "data" (and "model")
+only; on a one-process `parallel.mesh.Mesh` the one process runs the whole
+ring. The train CLI's `TrainConfig.mesh_shape` reads ("data", "model"), as
+the JAX CLI, which has no ring entry. `train(hooks=...)` takes any
+callables; they run on every rank.
 """
 
 from __future__ import annotations
@@ -67,10 +73,12 @@ def train(pipeline, cfg, dataset, mesh=None, position_delta: tuple[int, int] | N
     """Run (or resume) training; returns {adapters, metrics} of the last step.
 
     `mesh`: a `RankMesh` to train over (see the module docstring); `dataset`
-    then yields this rank's slice of each global batch. Sequence-parallel
-    ring attention needs no argument here: call
-    `ops.attention.set_ring_context(mesh, axis)` and set `cfg.attn_impl` to
-    "ring_pallas" (or "ring")."""
+    then yields this rank's slice over "data" of each global batch (the
+    ranks of a "seq" line take the same slice). Sequence-parallel ring
+    attention needs no argument here: call
+    `ops.attention.set_ring_context(mesh, "seq")` (a `RankMesh` with a "seq"
+    axis, or a one-process `Mesh`) and set `cfg.attn_impl` to "ring_pallas"
+    (or "ring")."""
     if mesh is not None and mesh.axis_size("model") > 1 and getattr(pipeline.dit, "tp_size", 1) == 1:
         shard_dit_params(pipeline.dit, mesh)
     writer = RankZero(mesh)

@@ -109,8 +109,9 @@ def test_dit_rejects_unported_modes():
     _, tcfg = _cfg()
     dit = FluxDiT(tcfg)
     x = {k: _t(v) for k, v in _inputs(tcfg, seed=4).items()}
-    with pytest.raises(NotImplementedError, match="ControlNet"):
-        dit(**x, controlnet_block_samples=[x["img"]])
+    # ControlNet residuals are ported (tests/test_torch_controlnet_preprocess.py); module mode refuses them
+    with pytest.raises(ValueError, match="module cache"):
+        dit(**x, controlnet_block_samples=x["img"][None], return_module_outs=True)
     # the velocity-cache hooks are ported (tests/test_torch_vcache.py)
     with torch.no_grad():
         out, resid = dit(**x, return_img_residual=True)

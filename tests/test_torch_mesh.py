@@ -230,7 +230,8 @@ def test_sharded_generate_matches_unsharded_port_and_jax(setup, world):
         assert r["replicate_broadcasts"] == r["replicate_params"]
         assert r["gen_counts"] == {"all_reduce_sum": 0, "all_reduce_max": 0, "all_gather_batch": 3,
                                    "all_gather_dim": 0, "broadcast": 0, "broadcast_object": 0,
-                                   "grad_all_reduce": 0, "host_copies": 0}
+                                   "grad_all_reduce": 0, "ring_shift": 0, "ring_shift_bytes": 0,
+                                   "host_copies": 0}
 
 
 def test_reflectionflow_block_on_a_data4_mesh(setup):

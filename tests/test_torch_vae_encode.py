@@ -92,9 +92,11 @@ def test_condition_types_and_unported_preprocessors():
     img = np.zeros((8, 8, 3), np.uint8)
     assert tcond.Condition("cot", img).type_id == 12
     assert tcond.Condition("subject", img).preprocess() is img
-    for name in ("canny", "coloring", "deblurring", "depth"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcond.Condition(name, img).preprocess()
+    # canny, coloring and deblurring are ported (tests/test_torch_controlnet_preprocess.py)
+    for name in ("canny", "coloring", "deblurring"):
+        np.testing.assert_array_equal(tcond.Condition(name, img).preprocess(), img)  # black stays black
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcond.Condition("depth", img).preprocess()
     _, _, vae = _vae()
     # tiled encode (vae_tiling) of a condition within one 512 px tile is the untiled encode
     tiled = tcond.encode_conditions([tcond.Condition("cot", img)], vae, torch.float32, tiled=True)

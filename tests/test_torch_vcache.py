@@ -228,8 +228,8 @@ def test_module_mode_refusals(setup):
             dit(**tx, return_module_outs=True, **kw)
     with pytest.raises(ValueError, match="module cache"):
         dit(**tx, module_cache={"double": [], "single": []}, remat=True)
-    with pytest.raises(NotImplementedError, match="ControlNet"):  # still refused
-        dit(**tx, controlnet_block_samples=[tx["img"]])
+    with pytest.raises(ValueError, match="module cache"):  # ControlNet residuals: plain t2i only
+        dit(**tx, return_module_outs=True, controlnet_block_samples=tx["img"][None])
 
 
 def test_dynamic_signal_on_the_w8a8_tree(setup):
