@@ -23,6 +23,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      instructions; that K2–K5 spill nothing, printing their registers and
      the SASS opcodes that bound them (load and store widths, shuffles, MUFU,
      F2I, calls to the division's slow path);
+  2b. threefry: `utils/threefry.py` on the card against the committed
+     `jax.random` fixtures of tests/data/torch_prng/ (keys from seeds and
+     split / fold_in chains; bits and float32 / bfloat16 uniforms bit for
+     bit; normals within NORMAL_ULPS fp32 ulps; a 1024 px FLUX latent with at
+     most LATENT_DIFF_FRAC of its bf16 elements one ulp off); times a
+     2-candidate 1024 px latent draw and a training step's t and noise (B=8,
+     512 px). Every seeded draw of the phases below (the search loops'
+     latents, `generate(seed=)`, `train`'s LoRA init and step draws, the
+     reward trainer's heads) goes through it;
   3. K1 against its plain PyTorch version on the card (fp32 reference), at
      the main-path shape (B=1, 2; L=4608; H=24; D=128), a ragged L, the
      cross-segment bias forms and the training shape; times both at the
@@ -85,11 +94,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      split of one step; at B=1 the adapter gradients with K1 + K6 agree with
      the plain attention's (cosine >= 0.99 per adapter family);
   5e. GenRef JPEG training, on the same bf16 pipeline: each committed JPEG
-     fixture of tests/data/torch_jpeg/ decodes (`utils/image_io.py`) to the
-     sha256 of PIL's decode in its manifest, and `resize_bicubic` gives the
-     manifest's PIL resize hashes at the paired-crop shapes and equals
-     `resize_ref` bit for bit; the progressive fixture raises
-     NotImplementedError; the median of GENREF_REPS runs of: a 1024^2 4:2:0
+     fixture of tests/data/torch_jpeg/ (sequential, progressive, grey, CMYK,
+     YCCK) decodes (`utils/image_io.py`) to the sha256 of PIL's decode in its
+     manifest, and `resize_bicubic` gives the manifest's PIL resize hashes at
+     the paired-crop shapes and equals `resize_ref` bit for bit; the
+     progressive fixture cut after its fifth scan raises
+     NotImplementedError; each PNG fixture (every colour type and bit depth,
+     PLTE, tRNS, Adam7) decodes to PIL's hash; `encode_jpeg` of each
+     committed pixel array gives the sha256 of PIL's default save; the median of GENREF_REPS runs of: a 1024^2 4:2:0
      decode (and the other 1024-wide fixtures), a 1024^2 -> 512^2 resize in
      C++ and in `resize_ref` in turns, and the Paeth PNG unfilter of a
      1024^2 RGB image in C++ and in its numpy loop in turns; a GenRef-format
@@ -383,6 +395,10 @@ GENREF_REPS = 9  # phase 5e's host timings: the median of this many runs
 GENREF_SUBSETS = ("general", "length", "rule", "editing")
 GENREF_STAGES = [0, 1000]  # the train CLI's subset ratios (`GENREF_SPLIT_RATIOS`), stage 0 -> 1
 FIXTURES = os.path.join(REPO, "tests", "data", "torch_jpeg")
+PRNG_FIXTURES = os.path.join(REPO, "tests", "data", "torch_prng")
+NORMAL_ULPS = 4  # threefry normals against JAX's, fp32 ulps (log1p's last bit differs)
+LATENT_DIFF_FRAC = 1e-4  # bf16 latent elements allowed to differ from JAX's, by one ulp each
+PRNG_REPS = 20  # threefry timings: the median of this many draws
 STEPS, N_PROMPTS, BRANCH = 8, 2, 2
 H, M, D, LT, LI = 3072, 12288, 128, 512, 4096  # FLUX.1-dev widths; txt and img tokens at 1024px
 LC = 1024  # cond tokens of a 512 px condition
@@ -1474,6 +1490,7 @@ def train_phase(torch, pipe):
     recomputation, backward of 57 attention calls). Then a profiler split of
     one more step, and at B=1 the adapter gradients with K1 + K6 against the
     plain attention."""
+    from reflectionflow_tpu_torch.utils import threefry
     from reflectionflow_tpu_torch.config import TrainConfig
     from reflectionflow_tpu_torch.lora.lora import lora_parameters
     from reflectionflow_tpu_torch.train.rectified_flow import (
@@ -1495,12 +1512,11 @@ def train_phase(torch, pipe):
         opt = make_optimizer(cfg)
         opt_state = opt.init(lora_parameters({"adapters": adapters}))
         step = make_train_step(pipe.dit, opt, alpha=cfg.lora.alpha, r=cfg.lora.r, attn_impl="pallas")
-        gen = torch.Generator(device="cuda").manual_seed(1)
         wall_prof = []
 
         def one_step():
             t1 = time.perf_counter()
-            step(adapters, opt_state, batch, gen)
+            step(adapters, opt_state, batch, threefry.prng_key(1))
             torch.cuda.synchronize()
             wall_prof.append(time.perf_counter() - t1)
 
@@ -1528,6 +1544,97 @@ def _sha256(a) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
+def _raw_words(a):
+    """A float tensor's raw bits as an unsigned numpy array of its width."""
+    import numpy as np
+    import torch
+
+    a = a.detach().cpu().contiguous()
+    words = a.view(torch.int16 if a.element_size() == 2 else torch.int32).numpy()
+    return words.view(np.uint16 if a.element_size() == 2 else np.uint32)
+
+
+def _ulp_distance(a, b) -> int:
+    """The largest distance in units in the last place between two arrays of
+    raw float words (sign-magnitude mapped onto a monotone integer line)."""
+    import numpy as np
+
+    sign = np.int64(1) << (8 * a.dtype.itemsize - 1)
+
+    def line(x):
+        x = x.astype(np.int64)
+        return np.where(x & sign, -(x & (sign - 1)), x)
+
+    return int(np.abs(line(a) - line(b)).max()) if a.size else 0
+
+
+def threefry_phase(torch) -> dict:
+    """Phase 2b: `utils/threefry.py` on the card against the committed JAX
+    fixtures of tests/data/torch_prng/ (keys, split / fold_in chains, bits and
+    uniforms bit for bit, normals within NORMAL_ULPS, a 1024 px FLUX latent
+    within LATENT_DIFF_FRAC one-ulp elements); times a 2-candidate 1024 px
+    latent draw (`search.seeds.seeds_to_latents`, as the search loops draw)
+    and one training step's t and noise (B=8, 512 px: `train.rectified_flow`)."""
+    import numpy as np
+
+    from reflectionflow_tpu_torch.models.flux.latents import draw_packed_noise
+    from reflectionflow_tpu_torch.search.seeds import seeds_to_latents
+    from reflectionflow_tpu_torch.train.rectified_flow import _draw_t_noise
+    from reflectionflow_tpu_torch.utils import threefry
+
+    with open(os.path.join(PRNG_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    normals = np.load(os.path.join(PRNG_FIXTURES, "normals.npz"))
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    worst = 0
+    for name, case in sorted(manifest["cases"].items()):
+        key = threefry.prng_key(case["seed"])
+        for step in case["chain"]:
+            op, arg = step.split(":")
+            key = threefry.fold_in(key, int(arg)) if op == "fold_in" else \
+                threefry.split(key, int(op[len("split"):]))[int(arg)]
+        check(list(key) == case["key"], f"threefry {name}: key {key} != JAX's {case['key']}")
+        shape, dt = tuple(case["shape"]), dtypes[case["dtype"]]
+        bits = threefry.random_bits(key, shape, device="cuda")
+        check(bits.is_cuda, "threefry drew off the card")
+        check(_sha256(bits.cpu().numpy().astype(np.uint32)) == case["bits_sha256"], f"threefry {name}: bits")
+        check(_sha256(_raw_words(threefry.uniform(key, shape, dt, device="cuda"))) == case["uniform_sha256"],
+              f"threefry {name}: uniforms")
+        ulps = _ulp_distance(_raw_words(threefry.normal(key, shape, dt, device="cuda")), normals[name])
+        check(ulps <= NORMAL_ULPS, f"threefry {name}: normals {ulps} ulps from JAX's")
+        worst = max(worst, ulps)
+    lat = manifest["latent"]
+    got = _raw_words(draw_packed_noise(threefry.prng_key(lat["seed"]), 1, lat["height"], lat["width"],
+                                       lat["channels"], torch.bfloat16, device="cuda"))
+    want = normals["latent"]
+    diff_frac = float((got != want).mean())
+    lat_ulps = _ulp_distance(got, want)
+    check(diff_frac <= LATENT_DIFF_FRAC and lat_ulps <= 1,
+          f"1024 px latent: {diff_frac:.2e} of the elements differ from JAX's, by up to {lat_ulps} ulps")
+
+    def timed(fn) -> float:
+        times = []
+        for _ in range(PRNG_REPS + 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times[2:])
+
+    latent_ms = timed(lambda: seeds_to_latents([11, 12], 1024, 1024, 16, torch.bfloat16, 8, "cuda"))
+    x0 = torch.empty((8, 1024, 64), device="cuda")
+    train_ms = timed(lambda: _draw_t_noise(threefry.prng_key(5), tuple(x0.shape), x0.device))
+    out = {"cases": len(manifest["cases"]), "normal_max_ulps": worst, "latent_diff_frac": diff_frac,
+           "latent_max_ulps": lat_ulps, "latent_2x1024px_ms": latent_ms, "train_draw_b8_512px_ms": train_ms}
+    log(f"threefry on the card: {len(manifest['cases'])} JAX fixture cases, bits and uniforms bitwise, normals "
+        f"within {worst} ulps; 1024 px latent {diff_frac:.2e} of elements off by <= {lat_ulps} ulp; "
+        f"2-candidate 1024 px latent draw {latent_ms:.3f} ms, training draw (B=8, 512 px) {train_ms:.3f} ms "
+        f"(medians of {PRNG_REPS})")
+    log(json.dumps({"threefry": out}))
+    return out
+
+
 def _median_ms(fns: dict, reps: int) -> dict:
     """{name: median ms of `reps` calls}, the functions called in turns."""
     times = {name: [] for name in fns}
@@ -1540,16 +1647,35 @@ def _median_ms(fns: dict, reps: int) -> dict:
 
 
 def genref_fixtures(image_io) -> dict:
-    """Every committed fixture: its decode and its resize chains against the
-    manifest's PIL hashes, each resize against `resize_ref` bit for bit.
-    Returns {name: (bytes, decoded image)} of the decodable ones."""
+    """Every committed fixture: a JPEG's decode and its resize chains against
+    the manifest's PIL hashes, each resize against `resize_ref` bit for bit
+    (a progressive file cut short raises NotImplementedError); a PNG's
+    decode (`train/data.py::decode_png`) against PIL's hash; the JPEG
+    writer's bytes for each committed pixel array against PIL's save.
+    Returns {name: (bytes, decoded image)} of the decodable JPEG files."""
+    import hashlib
+
+    import numpy as np
+
+    from reflectionflow_tpu_torch.train.data import decode_png
+
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
-    out = {}
+    out, kinds = {}, {}
     for name, entry in sorted(manifest.items()):
+        kinds[entry["kind"]] = kinds.get(entry["kind"], 0) + 1
+        if entry["kind"] == "encode":
+            arr = np.load(os.path.join(FIXTURES, "encode_pixels.npz"))[entry["pixels"]]
+            check(_sha256(arr) == entry["pixels_sha256"], f"{name}: not the committed pixels")
+            jpeg = image_io.encode_jpeg(arr)
+            check(hashlib.sha256(jpeg).hexdigest() == entry["jpeg_sha256"], f"{name}: JPEG bytes differ from PIL's")
+            continue
         with open(os.path.join(FIXTURES, name), "rb") as f:
             data = f.read()
         check(_sha256(data) == entry["file_sha256"], f"{name}: not the committed fixture")
+        if entry["kind"] == "png":
+            check(_sha256(decode_png(data)) == entry["decode_sha256"], f"{name}: decode differs from PIL's")
+            continue
         if "raises" in entry:
             try:
                 image_io.decode_jpeg(data)
@@ -1569,6 +1695,7 @@ def genref_fixtures(image_io) -> dict:
         log(f"fixture {name} ({img.shape[1]}x{img.shape[0]}): decode and {len(entry['resize_sha256'])} "
             "resize chains equal PIL's hashes; resize_ref bitwise")
         out[name] = (data, img)
+    log(f"fixtures by kind {kinds}: JPEG and PNG decodes and JPEG writer bytes equal PIL's hashes")
     return out
 
 
@@ -3338,6 +3465,21 @@ def _module_bytes(module) -> int:
     return sum(t.numel() * t.element_size() for t in [*module.parameters(), *module.buffers()])
 
 
+def _rm_trainable(torch, model, seed: int, device) -> dict:
+    """Fresh reward-model trainables from `seed`, as the train_reward CLI draws
+    them: LM adapters from the seed's key, rm_head, the special row and the
+    tower adapters from its fold_in 1, 2 and 3."""
+    from reflectionflow_tpu_torch.rm_train import train as rt
+    from reflectionflow_tpu_torch.utils import threefry
+
+    key, H = threefry.prng_key(seed), model.lm_cfg.hidden_size
+    return {"lora": rt.rm_lora_init(key, model.model, RM_LORA_R, RM_LORA_ALPHA)["adapters"],
+            "rm_head": threefry.normal(threefry.fold_in(key, 1), (H, 1), device=device) * 0.02,
+            "special": threefry.normal(threefry.fold_in(key, 2), (H,), device=device) * 0.02,
+            "vision_lora": rt.rm_vision_lora_init(threefry.fold_in(key, 3), model.visual, RM_LORA_R,
+                                                  RM_LORA_ALPHA)["adapters"]}
+
+
 def rm_train_phase(torch, card: str) -> dict:
     """Phase 13: the reward-model trainer on Qwen2.5-VL-7B (full width and
     depth, seeded random bf16, no lm_head): LoRA on the LM and the tower over
@@ -3373,12 +3515,7 @@ def rm_train_phase(torch, card: str) -> dict:
         return model
 
     def fresh_trainable(model, seed):
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        H = lm_cfg.hidden_size
-        return {"lora": rt.rm_lora_init(gen, model.model, RM_LORA_R, RM_LORA_ALPHA)["adapters"],
-                "rm_head": torch.randn((H, 1), generator=gen, device="cuda") * 0.02,
-                "special": torch.randn((H,), generator=gen, device="cuda") * 0.02,
-                "vision_lora": rt.rm_vision_lora_init(gen, model.visual, RM_LORA_R, RM_LORA_ALPHA)["adapters"]}
+        return _rm_trainable(torch, model, seed, "cuda")
 
     def make_step(model, mode):
         opt = rt.make_rm_optimizer(lr=RM_LR)
@@ -4081,6 +4218,7 @@ def mesh_tp_train(torch, dist, collectives, device, td) -> dict:
     lr 1 without a clip from adapters with a seeded non-zero B, so that the
     update is the reduced gradient; the same step unsharded on the rank's
     whole DiT first."""
+    from reflectionflow_tpu_torch.utils import threefry
     import dataclasses
     import hashlib
 
@@ -4103,8 +4241,7 @@ def mesh_tp_train(torch, dist, collectives, device, td) -> dict:
 
     def step_delta(dit, mesh):
         """The adapters' change over one step (= minus the reduced gradient)."""
-        lora = lora_init(torch.Generator(device=device).manual_seed(MESH_SEED), dit, r=tcfg.lora.r,
-                         alpha=tcfg.lora.alpha)
+        lora = lora_init(threefry.prng_key(MESH_SEED), dit, r=tcfg.lora.r, alpha=tcfg.lora.alpha)
         with torch.no_grad():
             g = torch.Generator(device=device).manual_seed(MESH_SEED + 1)
             for ab in lora["adapters"].values():
@@ -4114,7 +4251,7 @@ def mesh_tp_train(torch, dist, collectives, device, td) -> dict:
         step = make_train_step(dit, opt, alpha=tcfg.lora.alpha, r=tcfg.lora.r, attn_impl="pallas", mesh=mesh)
         mine = batch if mesh is None else _data_slice(batch, mesh)
         adapters, _, metrics = step(lora["adapters"], opt.init(lora_parameters(lora)), mine,
-                                    torch.Generator(device=device).manual_seed(MESH_SEED + 2))
+                                    threefry.prng_key(MESH_SEED + 2))
         return adapters, [a.detach() - b for a, b in zip(_adapter_list(adapters), before)], float(metrics["loss"])
 
     dit = _train_dit(torch, cfg, device)
@@ -4171,6 +4308,7 @@ def mesh_dp_train(torch, dist, collectives, device) -> dict:
     B = MESH_TRAIN_B at 512 px, each rank passing its data slice; rank 0 first
     runs the same steps on the same global batches alone. After each mesh step the adapters are checked equal
     on every rank, bit for bit."""
+    from reflectionflow_tpu_torch.utils import threefry
     from reflectionflow_tpu_torch.config import TrainConfig
     from reflectionflow_tpu_torch.lora.lora import lora_init, lora_parameters
     from reflectionflow_tpu_torch.parallel.mesh import make_mesh
@@ -4191,29 +4329,34 @@ def mesh_dp_train(torch, dist, collectives, device) -> dict:
     tcfg.optimizer.name = "sgd"
 
     def trainer(mesh):
-        gen = torch.Generator(device=device).manual_seed(MESH_SEED)
-        lora = lora_init(gen, dit, r=tcfg.lora.r, alpha=tcfg.lora.alpha)
+        """Adapters, optimizer state and step, and the step keys, as `train` draws them."""
+        k_init, key = threefry.split(threefry.prng_key(MESH_SEED))
+        lora = lora_init(k_init, dit, r=tcfg.lora.r, alpha=tcfg.lora.alpha)
         opt = make_optimizer(tcfg)
         step = make_train_step(dit, opt, alpha=tcfg.lora.alpha, r=tcfg.lora.r, attn_impl="pallas", mesh=mesh)
-        return lora["adapters"], opt.init(lora_parameters(lora)), step, gen
+        keys = []
+        for _ in batches:
+            key, k_step = threefry.split(key)
+            keys.append(k_step)
+        return lora["adapters"], opt.init(lora_parameters(lora)), step, keys
 
     ref = None
     if dist.get_rank() == 0:  # the one-rank run of the same global batches, draws and seed
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        adapters, state, step, gen = trainer(None)
+        adapters, state, step, keys = trainer(None)
         losses = []
-        for batch in batches:
-            adapters, state, m = step(adapters, state, batch, gen)
+        for batch, k_step in zip(batches, keys):
+            adapters, state, m = step(adapters, state, batch, k_step)
             losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         ref = {"adapters": [t.detach().clone() for t in _adapter_list(adapters)], "losses": losses,
                "s": time.perf_counter() - t0, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-        del adapters, state, step, gen
+        del adapters, state, step
         torch.cuda.empty_cache()
     dist.barrier()
     mesh = make_mesh((MESH_WORLD,), ("data",))
-    adapters, state, step, gen = trainer(mesh)
+    adapters, state, step, keys = trainer(mesh)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -4221,9 +4364,9 @@ def mesh_dp_train(torch, dist, collectives, device) -> dict:
     losses, secs, same = [], [], []
     bucket, restore_bucket = _timed_call(torch, rectified_flow, "reduce_gradients")
     try:
-        for batch in batches:
+        for batch, k_step in zip(batches, keys):
             t0 = time.perf_counter()
-            adapters, state, m = step(adapters, state, _data_slice(batch, mesh), gen)
+            adapters, state, m = step(adapters, state, _data_slice(batch, mesh), k_step)
             losses.append(float(m["loss"]))
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
@@ -4282,12 +4425,7 @@ def mesh_fsdp_rm(torch, dist, collectives, device) -> dict:
                                         dtype=torch.bfloat16, device=device)
         model.lm_head = None
         batch = collate_rm_batch(model, rows, max_pixels=RM_PX * RM_PX, special_token_id=sp, train_vision=True)
-        gen = torch.Generator(device=device).manual_seed(RM_SEED + 1)
-        H = lm_cfg.hidden_size
-        trainable = {"lora": rt.rm_lora_init(gen, model.model, RM_LORA_R, RM_LORA_ALPHA)["adapters"],
-                     "rm_head": torch.randn((H, 1), generator=gen, device=device) * 0.02,
-                     "special": torch.randn((H,), generator=gen, device=device) * 0.02,
-                     "vision_lora": rt.rm_vision_lora_init(gen, model.visual, RM_LORA_R, RM_LORA_ALPHA)["adapters"]}
+        trainable = _rm_trainable(torch, model, RM_SEED + 1, device)
         opt = rt.make_rm_optimizer(lr=RM_LR)
         step = rt.make_rm_train_step(model.model, opt, loss_type="btt", pooling="special", special_token_id=sp,
                                      alpha=RM_LORA_ALPHA, r=RM_LORA_R, tower=model.visual, grid_thw=grid,
@@ -4632,6 +4770,7 @@ def ring_rank_train(torch, dist, collectives, device, mesh) -> dict:
     from adapters with a seeded non-zero B: the update is the gradient),
     against the same step with the one-process ring of as many slots on this
     rank."""
+    from reflectionflow_tpu_torch.utils import threefry
     import dataclasses
 
     from reflectionflow_tpu_torch.config import TrainConfig
@@ -4649,8 +4788,7 @@ def ring_rank_train(torch, dist, collectives, device, mesh) -> dict:
     dit = _train_dit(torch, cfg, device)
 
     def step_delta(on, ring):
-        lora = lora_init(torch.Generator(device=device).manual_seed(MESH_SEED), dit, r=tcfg.lora.r,
-                         alpha=tcfg.lora.alpha)
+        lora = lora_init(threefry.prng_key(MESH_SEED), dit, r=tcfg.lora.r, alpha=tcfg.lora.alpha)
         with torch.no_grad():
             g = torch.Generator(device=device).manual_seed(MESH_SEED + 1)
             for ab in lora["adapters"].values():
@@ -4661,7 +4799,7 @@ def ring_rank_train(torch, dist, collectives, device, mesh) -> dict:
         set_ring_context(ring, "seq")
         try:
             adapters, _, metrics = step(lora["adapters"], opt.init(lora_parameters(lora)), batch,
-                                        torch.Generator(device=device).manual_seed(MESH_SEED + 2))
+                                        threefry.prng_key(MESH_SEED + 2))
         finally:
             set_ring_context(None)
         return [a.detach() - b for a, b in zip(_adapter_list(adapters), before)], float(metrics["loss"])
@@ -4998,6 +5136,7 @@ def main() -> int:
     log(json.dumps({"ptxas": ptxas}))
     hopper_sass = hopper_check(kernel_build, ptxas)
     fused_build = fused_check(kernel_build, ptxas)
+    threefry_phase(torch)
     err_out, err_lse, k1_times = k1_phase(torch)
     k6 = k6_phase(torch)
     t0 = time.perf_counter()

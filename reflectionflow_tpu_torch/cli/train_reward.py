@@ -133,18 +133,21 @@ def build_model(args, device: torch.device):
 
 def init_trainable(model, args, device: torch.device) -> dict:
     """Fresh adapters (B = 0) on the LM (and the tower under `--vision_lora`),
-    rm_head and the special row ~ N(0, 0.02^2), fp32, drawn from `--seed`."""
+    rm_head and the special row ~ N(0, 0.02^2), fp32, drawn from `--seed` as
+    the JAX CLI draws them: the LM adapters from the seed's key, the head, the
+    special row and the tower adapters from its `fold_in` 1, 2 and 3."""
     from ..rm_train.train import rm_lora_init, rm_vision_lora_init
+    from ..utils import threefry
 
-    gen = torch.Generator(device=device).manual_seed(args.seed)
+    key = threefry.prng_key(args.seed)
     H = model.lm_cfg.hidden_size
     trainable = {
-        "lora": rm_lora_init(gen, model.model, r=args.lora_r, alpha=args.lora_alpha)["adapters"],
-        "rm_head": torch.randn((H, args.output_dim), generator=gen, device=device) * 0.02,
-        "special": torch.randn((H,), generator=gen, device=device) * 0.02,
+        "lora": rm_lora_init(key, model.model, r=args.lora_r, alpha=args.lora_alpha)["adapters"],
+        "rm_head": threefry.normal(threefry.fold_in(key, 1), (H, args.output_dim), device=device) * 0.02,
+        "special": threefry.normal(threefry.fold_in(key, 2), (H,), device=device) * 0.02,
     }
     if args.vision_lora:
-        trainable["vision_lora"] = rm_vision_lora_init(gen, model.visual, r=args.lora_r,
+        trainable["vision_lora"] = rm_vision_lora_init(threefry.fold_in(key, 3), model.visual, r=args.lora_r,
                                                        alpha=args.lora_alpha)["adapters"]
     return trainable
 

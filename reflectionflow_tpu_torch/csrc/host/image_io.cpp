@@ -44,6 +44,10 @@ struct Fail {
 [[noreturn]] void unsupported(const std::string& msg) {
   throw Fail{RF_UNSUPPORTED, msg + " is not supported yet (ROADMAP queue 1)"};
 }
+// What PIL cannot open either: refused for good, not queued.
+[[noreturn]] void refused(const std::string& msg) {
+  throw Fail{RF_UNSUPPORTED, msg + " is refused, as PIL refuses it"};
+}
 
 void write_err(const std::string& msg, char* err, int64_t cap) {
   if (!err || cap <= 0) return;
@@ -387,6 +391,9 @@ class Decoder {
     }
     for (auto& c : comps_)
       if (!c.scanned) corrupt("a component has no scan");
+    if (would_smooth())
+      unsupported("a progressive JPEG whose scans leave AC coefficients 1-9 unrefined (libjpeg's "
+                  "block smoothing)");
     finish(out);
   }
 
@@ -398,7 +405,9 @@ class Decoder {
   size_t n_, pos_ = 0;
   int W_ = 0, H_ = 0, max_h_ = 1, max_v_ = 1, mcux_ = 0, mcuy_ = 0;
   int restart_ = 0;
-  bool have_frame_ = false, jfif_ = false, adobe_ = false;
+  bool have_frame_ = false, jfif_ = false, adobe_ = false, progressive_ = false;
+  int eobrun_ = 0;
+  int coef_bits_[4][64];  // jdphuff.c: the Al of each coefficient's last scan, -1 before any
   int adobe_transform_ = -1;
   bool qt_present_[4] = {false, false, false, false};
   int32_t qt_[4][64];
@@ -438,24 +447,26 @@ class Decoder {
     switch (m) {
       case 0xC0:
       case 0xC1:
-        frame(end);
+        frame(end, false);
         break;
       case 0xC2:
-      case 0xC6:
-      case 0xCA:
-      case 0xCE:
-        unsupported("progressive JPEG");
+        frame(end, true);
+        break;
       case 0xC3:
-      case 0xC7:
-      case 0xCB:
-      case 0xCF:
         unsupported("lossless JPEG");
       case 0xC5:
-        unsupported("hierarchical JPEG");
-      case 0xC9:
+      case 0xC6:
+      case 0xC7:
       case 0xCD:
+      case 0xCE:
+      case 0xCF:
+        refused("hierarchical (differential) JPEG");
+      case 0xC9:
+      case 0xCA:
       case 0xCC:
         unsupported("arithmetic-coded JPEG");
+      case 0xCB:
+        unsupported("arithmetic-coded lossless JPEG");
       case 0xC4:
         dht(end);
         break;
@@ -484,16 +495,16 @@ class Decoder {
     pos_ = end;
   }
 
-  void frame(size_t end) {
+  void frame(size_t end, bool progressive) {
     if (have_frame_) corrupt("two frames in one JPEG");
     if (end - pos_ < 6) corrupt("bad SOF segment");
+    progressive_ = progressive;
     int precision = byte();
     H_ = word();
     W_ = word();
     int nc = byte();
-    if (precision != 8) unsupported(std::to_string(precision) + "-bit JPEG");
-    if (nc == 4) unsupported("4-component (CMYK/YCCK) JPEG");
-    if (nc != 1 && nc != 3) unsupported(std::to_string(nc) + "-component JPEG");
+    if (precision != 8) refused(std::to_string(precision) + "-bit JPEG");
+    if (nc != 1 && nc != 3 && nc != 4) refused(std::to_string(nc) + "-component JPEG");
     if (H_ == 0) unsupported("a JPEG whose height is given by DNL");
     if (W_ == 0) corrupt("JPEG of width 0");
     if (end - pos_ < static_cast<size_t>(3 * nc)) corrupt("bad SOF segment");
@@ -510,6 +521,8 @@ class Decoder {
     }
     mcux_ = (W_ + 8 * max_h_ - 1) / (8 * max_h_);
     mcuy_ = (H_ + 8 * max_v_ - 1) / (8 * max_v_);
+    for (auto& row : coef_bits_)
+      for (int& b : row) b = -1;
     for (auto& c : comps_) {
       if (max_h_ % c.h || max_v_ % c.v) unsupported("fractional JPEG sampling");
       c.dw = static_cast<int>((static_cast<int64_t>(W_) * c.h + max_h_ - 1) / max_h_);
@@ -570,10 +583,22 @@ class Decoder {
       sc.push_back(found);
     }
     int ss = byte(), se = byte(), ahal = byte();
-    if (ss != 0 || se != 63 || ahal != 0) corrupt("bad sequential scan parameters");
+    int ah = ahal >> 4, al = ahal & 15;
+    if (!progressive_) {
+      if (ss != 0 || se != 63 || ahal != 0) corrupt("bad sequential scan parameters");
+    } else {  // jdphuff.c start_pass_phuff_decoder
+      bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+      if ((ah != 0 && al != ah - 1) || al > 13 || bad) corrupt("bad progressive scan parameters");
+      for (auto* c : sc) {
+        int* cb = coef_bits_[c - comps_.data()];
+        for (int k = ss; k <= se; ++k) cb[k] = al;
+      }
+    }
     int blocks_in_mcu = 0;
     for (auto* c : sc) {
-      if (!dc_[c->td].present || !ac_[c->ta].present) corrupt("missing Huffman table");
+      bool needs_dc = !progressive_ || (ss == 0 && ah == 0), needs_ac = !progressive_ || ss != 0;
+      if ((needs_dc && !dc_[c->td].present) || (needs_ac && !ac_[c->ta].present))
+        corrupt("missing Huffman table");
       if (!c->latched) {  // jdinput.c latch_quant_tables
         if (!qt_present_[c->tq]) corrupt("missing quantization table");
         memcpy(c->quant, qt_[c->tq], sizeof(c->quant));
@@ -586,6 +611,7 @@ class Decoder {
 
     BitReader br(d_, n_, pos_);
     int pred[4] = {0, 0, 0, 0};
+    eobrun_ = 0;
     int mx = ns == 1 ? sc[0]->wblocks : mcux_, my = ns == 1 ? sc[0]->hblocks : mcuy_;
     int64_t total = static_cast<int64_t>(mx) * my;
     int next_rst = 0;
@@ -598,6 +624,7 @@ class Decoder {
         next_rst = (next_rst + 1) & 7;
         br.set_pos(p + 1);
         pred[0] = pred[1] = pred[2] = pred[3] = 0;
+        eobrun_ = 0;
       }
       int mxi = static_cast<int>(m % mx), myi = static_cast<int>(m / mx);
       for (int ci = 0; ci < ns; ++ci) {
@@ -607,7 +634,12 @@ class Decoder {
           for (int bx = 0; bx < bwn; ++bx) {
             int row = ns == 1 ? myi : myi * c->v + by, col = ns == 1 ? mxi : mxi * c->h + bx;
             int16_t* blk = c->coef.data() + (static_cast<size_t>(row) * c->bw + col) * 64;
-            block(br, *c, pred[ci], blk);
+            if (!progressive_)
+              block(br, *c, pred[ci], blk);
+            else if (ss == 0)
+              ah == 0 ? dc_first(br, *c, pred[ci], blk, al) : dc_refine(br, blk, al);
+            else
+              ah == 0 ? ac_first(br, *c, blk, ss, se, al) : ac_refine(br, *c, blk, ss, se, al);
           }
       }
       if (br.overran()) corrupt("truncated JPEG data");
@@ -641,6 +673,98 @@ class Decoder {
     }
   }
 
+  // jdphuff.c decode_mcu_DC_first / _DC_refine / _AC_first / _AC_refine, one block each.
+  inline void dc_first(BitReader& br, const Component& c, int& pred, int16_t* blk, int al) {
+    int s = br.decode(dc_[c.td]);
+    pred += s ? extend(br.bits(s), s) : 0;
+    blk[0] = static_cast<int16_t>(static_cast<int>(static_cast<unsigned>(pred) << al));
+  }
+
+  inline void dc_refine(BitReader& br, int16_t* blk, int al) {
+    if (br.bits(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+  }
+
+  inline void ac_first(BitReader& br, const Component& c, int16_t* blk, int ss, int se, int al) {
+    if (eobrun_ > 0) {
+      --eobrun_;
+      return;
+    }
+    const Huffman& ac = ac_[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      int rs = br.decode(ac);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > 63) corrupt("bad JPEG coefficient index");
+        int v = extend(br.bits(s), s);
+        blk[kZigzag[k]] = static_cast<int16_t>(static_cast<int>(static_cast<unsigned>(v) << al));
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun_ = 1 << r;
+        if (r) eobrun_ += br.bits(r);
+        --eobrun_;
+        break;
+      }
+    }
+  }
+
+  inline void ac_refine(BitReader& br, const Component& c, int16_t* blk, int ss, int se, int al) {
+    const int p1 = 1 << al, m1 = -(1 << al);
+    const Huffman& ac = ac_[c.ta];
+    int k = ss;
+    auto correct = [&](int16_t& coef) {
+      if (br.bits(1) && (coef & p1) == 0) coef = static_cast<int16_t>(coef + (coef >= 0 ? p1 : m1));
+    };
+    if (eobrun_ == 0) {
+      for (; k <= se; ++k) {
+        int rs = br.decode(ac);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = br.bits(1) ? p1 : m1;  // a new coefficient's size is always 1
+        } else if (r != 15) {
+          eobrun_ = 1 << r;
+          if (r) eobrun_ += br.bits(r);
+          break;
+        }
+        do {
+          int16_t& coef = blk[kZigzag[k]];
+          if (coef != 0) {
+            correct(coef);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kZigzag[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun_ > 0) {
+      for (; k <= se; ++k) {
+        int16_t& coef = blk[kZigzag[k]];
+        if (coef != 0) correct(coef);
+      }
+      --eobrun_;
+    }
+  }
+
+  // jdcoefct.c smoothing_ok: libjpeg smooths across blocks (decompress_smooth_data)
+  // when a progressive file leaves any of the first 9 AC coefficients of a
+  // component unrefined, its DC is known and the 10 quantizers are nonzero.
+  bool would_smooth() const {
+    if (!progressive_) return false;
+    static const int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (size_t ci = 0; ci < comps_.size(); ++ci) {
+      for (int p : kPos)
+        if (comps_[ci].quant[p] == 0) return false;
+      if (coef_bits_[ci][0] < 0) return false;
+      for (int k = 1; k < 10; ++k)
+        if (coef_bits_[ci][k] != 0) useful = true;
+    }
+    return useful;
+  }
+
   void finish(uint8_t* out) {
     std::vector<std::vector<uint8_t>> full(comps_.size());
     for (size_t ci = 0; ci < comps_.size(); ++ci) {
@@ -669,6 +793,44 @@ class Decoder {
       }
       return;
     }
+    // jdcolor.c build_ycc_rgb_table (the YCCK -> CMYK conversion shares it)
+    constexpr int SB = 16;
+    constexpr int64_t HALF = int64_t(1) << (SB - 1);
+    auto fix = [](double v) { return static_cast<int64_t>(v * (1 << SB) + 0.5); };
+    int cr_r[256], cb_b[256];
+    int64_t cr_g[256], cb_g[256];
+    for (int i = 0; i < 256; ++i) {
+      int64_t x = i - 128;
+      cr_r[i] = static_cast<int>((fix(1.40200) * x + HALF) >> SB);
+      cb_b[i] = static_cast<int>((fix(1.77200) * x + HALF) >> SB);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + HALF;
+    }
+    auto clamp = [](int v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); };
+    if (comps_.size() == 4) {
+      // jdapimin.c: an Adobe transform other than 0 means YCCK (jdcolor.c
+      // ycck_cmyk_convert), else straight CMYK. PIL reads the CMYK as "CMYK;I"
+      // (every channel inverted, Adobe's polarity) and converts it to RGB by
+      // Convert.c cmyk2rgb: nk = 255 - k, out = nk - nk * c / 255 (MULDIV255).
+      const bool ycck = adobe_ && adobe_transform_ != 0;
+      auto muldiv255 = [](int a, int b) { int t = a * b + 128; return ((t >> 8) + t) >> 8; };
+      for (int y = 0; y < H_; ++y) {
+        const uint8_t *p0 = plane_row(0, y), *p1 = plane_row(1, y), *p2 = plane_row(2, y), *p3 = plane_row(3, y);
+        uint8_t* o = out + static_cast<size_t>(y) * W_ * 3;
+        for (int x = 0; x < W_; ++x) {
+          int cmy[3] = {p0[x], p1[x], p2[x]};
+          if (ycck) {
+            int yy = p0[x], cb = p1[x], cr = p2[x];
+            cmy[0] = clamp(255 - (yy + cr_r[cr]));
+            cmy[1] = clamp(255 - (yy + static_cast<int>((cb_g[cb] + cr_g[cr]) >> SB)));
+            cmy[2] = clamp(255 - (yy + cb_b[cb]));
+          }
+          int nk = p3[x];  // 255 - (255 - K)
+          for (int k = 0; k < 3; ++k) o[3 * x + k] = clamp(nk - muldiv255(255 - cmy[k], nk));
+        }
+      }
+      return;
+    }
     bool rgb;  // jdapimin.c default_decompress_parms
     if (jfif_)
       rgb = false;
@@ -688,20 +850,7 @@ class Decoder {
       }
       return;
     }
-    // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert
-    constexpr int SB = 16;
-    constexpr int64_t HALF = int64_t(1) << (SB - 1);
-    auto fix = [](double v) { return static_cast<int64_t>(v * (1 << SB) + 0.5); };
-    int cr_r[256], cb_b[256];
-    int64_t cr_g[256], cb_g[256];
-    for (int i = 0; i < 256; ++i) {
-      int64_t x = i - 128;
-      cr_r[i] = static_cast<int>((fix(1.40200) * x + HALF) >> SB);
-      cb_b[i] = static_cast<int>((fix(1.77200) * x + HALF) >> SB);
-      cr_g[i] = -fix(0.71414) * x;
-      cb_g[i] = -fix(0.34414) * x + HALF;
-    }
-    auto clamp = [](int v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); };
+    // jdcolor.c ycc_rgb_convert
     for (int y = 0; y < H_; ++y) {
       const uint8_t *py = plane_row(0, y), *pb = plane_row(1, y), *pr = plane_row(2, y);
       uint8_t* o = out + static_cast<size_t>(y) * W_ * 3;
@@ -714,6 +863,289 @@ class Decoder {
     }
   }
 };
+
+// ------------------------------------------------------------ JPEG writer ----
+//
+// PIL's default `Image.save(buf, format="JPEG")` of an RGB image, byte for
+// byte: libjpeg(-turbo) with quality 75 and 4:2:0 sampling, in the marker
+// order PIL writes (SOI, APP0 JFIF 1.01 without density units, the two DQT
+// segments, SOF0, the four standard DHT segments, one interleaved SOS, EOI).
+// The encode path is libjpeg's: jccolor.c's fixed-point RGB -> YCbCr (SCALEBITS
+// 16, Cb/Cr rounded with ONE_HALF - 1), jcprepct.c's edge replication (the
+// last row repeated to the row group and to the iMCU height, the last column
+// to the blocks' width), jcsample.c's h2v2 box average with the bias
+// alternating 1, 2 along the row, jfdctint.c's islow forward DCT on samples
+// less 128, jcdctmgr.c's quantization (round half away from zero by the
+// divisor quant * 8), jccoefct.c's dummy blocks past the image (AC 0, DC of
+// the previous block of the MCU) and jchuff.c's standard tables (Annex K.3),
+// 0xFF byte stuffing and the final pad with 1 bits.
+
+const uint8_t kStdLumQ[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+const uint8_t kStdChrQ[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99, 99, 99,
+    99, 99, 47, 66, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+const uint8_t kDcLumBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChrBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumBits[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125};
+const uint8_t kAcLumVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61, 0x07, 0x22,
+    0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33,
+    0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34,
+    0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55,
+    0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76,
+    0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96,
+    0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5,
+    0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4,
+    0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1,
+    0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChrBits[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119};
+const uint8_t kAcChrVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71, 0x13,
+    0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62,
+    0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29,
+    0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54,
+    0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94,
+    0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3,
+    0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2,
+    0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea,
+    0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+// jchuff.c jpeg_make_c_derived_tbl
+struct HuffEnc {
+  uint32_t code[256] = {0};
+  uint8_t size[256] = {0};
+  HuffEnc(const uint8_t* bits, const uint8_t* vals) {
+    int p = 0;
+    uint32_t c = 0;
+    for (int l = 1; l <= 16; ++l) {
+      for (int i = 0; i < bits[l - 1]; ++i, ++p) {
+        code[vals[p]] = c++;
+        size[vals[p]] = static_cast<uint8_t>(l);
+      }
+      c <<= 1;
+    }
+  }
+};
+
+class BitWriter {
+ public:
+  explicit BitWriter(std::vector<uint8_t>& out) : out_(out) {}
+  void put(uint32_t code, int size) {
+    acc_ = (acc_ << size) | (code & ((1u << size) - 1));
+    n_ += size;
+    while (n_ >= 8) {
+      uint8_t b = static_cast<uint8_t>(acc_ >> (n_ - 8));
+      out_.push_back(b);
+      if (b == 0xFF) out_.push_back(0);
+      n_ -= 8;
+    }
+    acc_ &= (uint64_t(1) << n_) - 1;
+  }
+  void flush() {  // jchuff.c flush_bits: pad the last byte with 1 bits
+    if (n_) put((1u << (8 - n_)) - 1, 8 - n_);
+  }
+
+ private:
+  std::vector<uint8_t>& out_;
+  uint64_t acc_ = 0;
+  int n_ = 0;
+};
+
+// jfdctint.c jpeg_fdct_islow + jcdctmgr.c quantize on one 8x8 block of
+// samples (row stride `stride`) -> quantized coefficients, natural order.
+void fdct_quantize(const uint8_t* in, int stride, const int32_t* divisors, int16_t* out) {
+  constexpr int CB = 13, P1 = 2;
+  constexpr int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373,
+                    F1175 = 9633, F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819,
+                    F2562 = 20995, F3072 = 25172;
+  auto descale = [](int64_t x, int n) { return (x + (int64_t(1) << (n - 1))) >> n; };
+  int64_t d[64];
+  for (int r = 0; r < 8; ++r)
+    for (int c = 0; c < 8; ++c) d[r * 8 + c] = static_cast<int64_t>(in[r * stride + c]) - 128;
+  for (int pass = 0; pass < 2; ++pass) {
+    const int step = pass ? 8 : 1, next = pass ? 1 : 8;
+    for (int i = 0; i < 8; ++i) {
+      int64_t* p = d + i * next;
+      int64_t tmp0 = p[0] + p[7 * step], tmp7 = p[0] - p[7 * step];
+      int64_t tmp1 = p[step] + p[6 * step], tmp6 = p[step] - p[6 * step];
+      int64_t tmp2 = p[2 * step] + p[5 * step], tmp5 = p[2 * step] - p[5 * step];
+      int64_t tmp3 = p[3 * step] + p[4 * step], tmp4 = p[3 * step] - p[4 * step];
+      int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+      const int s = pass ? CB + P1 : CB - P1;
+      if (pass) {
+        p[0] = descale(tmp10 + tmp11, P1);
+        p[4 * step] = descale(tmp10 - tmp11, P1);
+      } else {
+        p[0] = (tmp10 + tmp11) * (1 << P1);
+        p[4 * step] = (tmp10 - tmp11) * (1 << P1);
+      }
+      int64_t z1 = (tmp12 + tmp13) * F0541;
+      p[2 * step] = descale(z1 + tmp13 * F0765, s);
+      p[6 * step] = descale(z1 + tmp12 * -F1847, s);
+      z1 = tmp4 + tmp7;
+      int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+      int64_t z5 = (z3 + z4) * F1175;
+      tmp4 *= F0298; tmp5 *= F2053; tmp6 *= F3072; tmp7 *= F1501;
+      z1 *= -F0899; z2 *= -F2562; z3 *= -F1961; z4 *= -F0390;
+      z3 += z5; z4 += z5;
+      p[7 * step] = descale(tmp4 + z1 + z3, s);
+      p[5 * step] = descale(tmp5 + z2 + z4, s);
+      p[3 * step] = descale(tmp6 + z2 + z3, s);
+      p[step] = descale(tmp7 + z1 + z4, s);
+    }
+  }
+  for (int i = 0; i < 64; ++i) {
+    int64_t q = divisors[i], t = d[i];
+    out[i] = static_cast<int16_t>(t < 0 ? -((-t + (q >> 1)) / q) : (t + (q >> 1)) / q);
+  }
+}
+
+void encode_block(BitWriter& bw, const int16_t* blk, int& last_dc, const HuffEnc& dc, const HuffEnc& ac) {
+  auto nbits_of = [](int v) { int n = 0; while (v) { ++n; v >>= 1; } return n; };
+  int t = blk[0] - last_dc, t2 = t;
+  last_dc = blk[0];
+  if (t < 0) { t = -t; --t2; }
+  int nb = nbits_of(t);
+  bw.put(dc.code[nb], dc.size[nb]);
+  if (nb) bw.put(static_cast<uint32_t>(t2), nb);
+  int run = 0;
+  for (int k = 1; k < 64; ++k) {
+    t = blk[kZigzag[k]];
+    if (t == 0) { ++run; continue; }
+    while (run > 15) { bw.put(ac.code[0xF0], ac.size[0xF0]); run -= 16; }
+    t2 = t;
+    if (t < 0) { t = -t; --t2; }
+    nb = nbits_of(t);
+    int sym = (run << 4) + nb;
+    bw.put(ac.code[sym], ac.size[sym]);
+    bw.put(static_cast<uint32_t>(t2), nb);
+    run = 0;
+  }
+  if (run) bw.put(ac.code[0], ac.size[0]);
+}
+
+void put_marker(std::vector<uint8_t>& o, int m, const std::vector<uint8_t>& body) {
+  o.push_back(0xFF);
+  o.push_back(static_cast<uint8_t>(m));
+  size_t len = body.size() + 2;
+  o.push_back(static_cast<uint8_t>(len >> 8));
+  o.push_back(static_cast<uint8_t>(len & 0xFF));
+  o.insert(o.end(), body.begin(), body.end());
+}
+
+std::vector<uint8_t> encode_jpeg(const uint8_t* rgb, int H, int W) {
+  constexpr int SB = 16;
+  constexpr int64_t HALF = int64_t(1) << (SB - 1), CBCR_OFF = int64_t(128) << SB;
+  auto fix = [](double v) { return static_cast<int64_t>(v * (1 << SB) + 0.5); };
+  // jccolor.c rgb_ycc_convert on the whole image
+  std::vector<uint8_t> ycc(static_cast<size_t>(H) * W * 3);
+  for (size_t i = 0; i < static_cast<size_t>(H) * W; ++i) {
+    int64_t r = rgb[3 * i], g = rgb[3 * i + 1], b = rgb[3 * i + 2];
+    ycc[3 * i] = static_cast<uint8_t>((fix(0.29900) * r + fix(0.58700) * g + fix(0.11400) * b + HALF) >> SB);
+    ycc[3 * i + 1] = static_cast<uint8_t>(
+        (-fix(0.16874) * r - fix(0.33126) * g + fix(0.50000) * b + CBCR_OFF + HALF - 1) >> SB);
+    ycc[3 * i + 2] = static_cast<uint8_t>(
+        (fix(0.50000) * r - fix(0.41869) * g - fix(0.08131) * b + CBCR_OFF + HALF - 1) >> SB);
+  }
+  const int mcux = (W + 15) / 16, mcuy = (H + 15) / 16;
+  const int ywb = (W + 7) / 8, yhb = (H + 7) / 8;  // Y blocks holding samples
+  auto px = [&](int r, int c, int ch) {
+    r = r < H ? r : H - 1;
+    c = c < W ? c : W - 1;
+    return ycc[(static_cast<size_t>(r) * W + c) * 3 + ch];
+  };
+  // Y: the last column repeated to ywb * 8, the last row to the iMCU height
+  const int yw = ywb * 8, yh = mcuy * 16;
+  std::vector<uint8_t> yp(static_cast<size_t>(yw) * yh);
+  for (int r = 0; r < yh; ++r)
+    for (int c = 0; c < yw; ++c) yp[static_cast<size_t>(r) * yw + c] = px(r, c, 0);
+  // Cb, Cr: h2v2 over the rows padded to a pair and the columns to 2 * mcux * 8,
+  // then the last chroma row repeated to the iMCU height
+  const int cw = mcux * 8, ch = mcuy * 8, crows = (H + 1) / 2;
+  std::vector<uint8_t> cp[2] = {std::vector<uint8_t>(static_cast<size_t>(cw) * ch),
+                                std::vector<uint8_t>(static_cast<size_t>(cw) * ch)};
+  for (int k = 0; k < 2; ++k)
+    for (int r = 0; r < ch; ++r) {
+      int rr = r < crows ? r : crows - 1;
+      int bias = 1;
+      for (int c = 0; c < cw; ++c) {
+        int s = px(2 * rr, 2 * c, k + 1) + px(2 * rr, 2 * c + 1, k + 1) + px(2 * rr + 1, 2 * c, k + 1) +
+                px(2 * rr + 1, 2 * c + 1, k + 1);
+        cp[k][static_cast<size_t>(r) * cw + c] = static_cast<uint8_t>((s + bias) >> 2);
+        bias ^= 3;
+      }
+    }
+  // jcparam.c jpeg_set_quality(75): scale factor 50, baseline-clamped
+  int32_t qtab[2][64], div[2][64];
+  for (int i = 0; i < 64; ++i) {
+    const uint8_t* std_tab[2] = {kStdLumQ, kStdChrQ};
+    for (int t = 0; t < 2; ++t) {
+      int32_t q = (std_tab[t][i] * 50 + 50) / 100;
+      q = q < 1 ? 1 : (q > 255 ? 255 : q);
+      qtab[t][i] = q;
+      div[t][i] = q << 3;
+    }
+  }
+  std::vector<uint8_t> o = {0xFF, 0xD8};
+  put_marker(o, 0xE0, {'J', 'F', 'I', 'F', 0, 1, 1, 0, 0, 1, 0, 1, 0, 0});
+  for (int t = 0; t < 2; ++t) {
+    std::vector<uint8_t> body = {static_cast<uint8_t>(t)};
+    for (int i = 0; i < 64; ++i) body.push_back(static_cast<uint8_t>(qtab[t][kZigzag[i]]));
+    put_marker(o, 0xDB, body);
+  }
+  put_marker(o, 0xC0, {8, static_cast<uint8_t>(H >> 8), static_cast<uint8_t>(H), static_cast<uint8_t>(W >> 8),
+                       static_cast<uint8_t>(W), 3, 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1});
+  const uint8_t* tables[4][2] = {{kDcLumBits, kDcVals}, {kAcLumBits, kAcLumVals},
+                                 {kDcChrBits, kDcVals}, {kAcChrBits, kAcChrVals}};
+  const uint8_t ids[4] = {0x00, 0x10, 0x01, 0x11};
+  for (int t = 0; t < 4; ++t) {
+    std::vector<uint8_t> body = {ids[t]};
+    int n = 0;
+    for (int l = 0; l < 16; ++l) {
+      body.push_back(tables[t][0][l]);
+      n += tables[t][0][l];
+    }
+    body.insert(body.end(), tables[t][1], tables[t][1] + n);
+    put_marker(o, 0xC4, body);
+  }
+  put_marker(o, 0xDA, {3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0});
+  const HuffEnc dc_l(kDcLumBits, kDcVals), ac_l(kAcLumBits, kAcLumVals), dc_c(kDcChrBits, kDcVals),
+      ac_c(kAcChrBits, kAcChrVals);
+  BitWriter bw(o);
+  int last_dc[3] = {0, 0, 0};
+  int16_t mcu[6][64];
+  for (int my = 0; my < mcuy; ++my)
+    for (int mx = 0; mx < mcux; ++mx) {
+      int blkn = 0;
+      for (int by = 0; by < 2; ++by)
+        for (int bx = 0; bx < 2; ++bx, ++blkn) {
+          int row = my * 2 + by, col = mx * 2 + bx;
+          if (row < yhb && col < ywb) {
+            fdct_quantize(yp.data() + static_cast<size_t>(row) * 8 * yw + col * 8, yw, div[0], mcu[blkn]);
+          } else {  // jccoefct.c dummy block: AC 0, the previous block's DC
+            memset(mcu[blkn], 0, sizeof(mcu[blkn]));
+            mcu[blkn][0] = mcu[blkn - 1][0];
+          }
+        }
+      for (int k = 0; k < 2; ++k, ++blkn)
+        fdct_quantize(cp[k].data() + static_cast<size_t>(my) * 8 * cw + mx * 8, cw, div[1], mcu[blkn]);
+      for (int b = 0; b < 4; ++b) encode_block(bw, mcu[b], last_dc[0], dc_l, ac_l);
+      encode_block(bw, mcu[4], last_dc[1], dc_c, ac_c);
+      encode_block(bw, mcu[5], last_dc[2], dc_c, ac_c);
+    }
+  bw.flush();
+  o.push_back(0xFF);
+  o.push_back(0xD9);
+  return o;
+}
 
 // -------------------------------------------------------------- resize ----
 
@@ -831,6 +1263,23 @@ int rf_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t cap, in
     return f.code;
   } catch (const std::exception& e) {
     write_err(std::string("JPEG decode failed: ") + e.what(), err, err_cap);
+    return RF_CORRUPT;
+  }
+}
+
+// (h, w, 3) uint8 RGB -> PIL's default JPEG save of it in `out` (capacity
+// `cap` bytes); the length goes to *n. Returns RF_OK, RF_NEED_BUFFER when
+// `out` is null or too small (*n is then the length), or RF_CORRUPT for an
+// image outside 1..65535 pixels a side.
+int rf_jpeg_encode(const uint8_t* rgb, int32_t h, int32_t w, uint8_t* out, int64_t cap, int64_t* n) {
+  if (h < 1 || w < 1 || h > 65535 || w > 65535) return RF_CORRUPT;
+  try {
+    std::vector<uint8_t> data = encode_jpeg(rgb, h, w);
+    *n = static_cast<int64_t>(data.size());
+    if (!out || cap < *n) return RF_NEED_BUFFER;
+    memcpy(out, data.data(), data.size());
+    return RF_OK;
+  } catch (const std::exception&) {
     return RF_CORRUPT;
   }
 }

@@ -36,9 +36,9 @@ Text-side projections are never adapted.
 
 On a DiT cut for tensor parallelism (`parallel.specs.shard_dit_params`) the
 adapters stay whole and replicated, as JAX keeps them (`P()`): `lora_init`
-draws the whole model's tensors in the same order, so a seed gives every
-rank, and every mesh, the same adapters, and `LoRALinear` uses this rank's
-part: the rows of `lora_B` of a column-cut linear, the columns of `lora_A`
+draws the whole model's tensors from the key as the JAX package does, so a
+seed gives every rank and every mesh JAX's adapters, and `LoRALinear` uses
+this rank's part: the rows of `lora_B` of a column-cut linear, the columns of `lora_A`
 of a row-cut one, whose rank-r product joins the partial sum before the
 group's all-reduce. Each rank's adapter gradients are then its share of the
 whole gradient, summed over "model" by the training step. A target names a module with its
@@ -60,6 +60,7 @@ from torch import nn
 
 from ..ops.quant import NF4Linear, QuantLinear
 from ..parallel.specs import COL, RowParallelLinear
+from ..utils import threefry
 
 _DOUBLE = ("norm1.linear", "attn.to_q", "attn.to_k", "attn.to_v", "attn.to_out.0", "ff.net.2")
 _SINGLE = ("norm.linear", "attn.to_q", "attn.to_k", "attn.to_v", "proj_mlp", "proj_out")
@@ -119,27 +120,58 @@ def _shard_delta(m: nn.Module, delta: torch.Tensor) -> torch.Tensor:
     return delta[index] if kind == COL else delta[:, index]
 
 
-def lora_init(generator: torch.Generator, dit: nn.Module, r: int = 32, alpha: float = 32.0,
+def _jax_leaf(model: nn.Module, name: str) -> tuple[str, int | None, int]:
+    """Module name -> (the JAX package's weight path, block index or None, the
+    blocks stacked in that leaf): a FLUX DiT through its `jax_path`, a Qwen LM
+    or vision tower through `_qwen_layout`."""
+    if hasattr(model, "jax_path"):
+        path, index, n = model.jax_path(name)
+        return f"{path}/w", index, n
+    m = re.fullmatch(r"(layers|blocks)\.(\d+)\.(.+)", name)
+    blocks, linears, single = _qwen_layout(tower=name.startswith("blocks.") or name.startswith("merger."))
+    if m is None:
+        return {v: k for k, v in single.items()}[name], None, 1
+    short = {v: k for k, v in linears.items()}[m[3]]
+    return f"blocks/{short}/w", int(m[2]), len(getattr(model, blocks))
+
+
+def lora_init(key, dit: nn.Module, r: int = 32, alpha: float = 32.0,
               init: str = "gaussian", targets: tuple[str, ...] | None = None) -> dict:
     """A zero-effect adapter (B = 0) for every target linear of `dit`:
     A ~ N(0, (1/r)^2) for init="gaussian" (else 0), fp32 trainable
-    parameters on `dit`'s device, drawn from `generator` in module order,
-    at the whole model's shapes on a tensor-parallel cut too."""
+    parameters on `dit`'s device, at the whole model's shapes on a
+    tensor-parallel cut too.
+
+    `key` (a `utils.threefry` key) draws what the JAX package's `lora_init`
+    draws from it: one split a JAX weight leaf, in the JAX tree's flatten
+    order (sorted paths); a leaf stacked over N blocks draws its (N, in, r)
+    A whole and block i takes A[i] transposed."""
     targets = targets or corrector_target_paths()
-    adapters = {}
+    names, leaves = [], {}  # leaves: JAX path -> (blocks stacked, {block index or None: (name, module)})
     for name, m in dit.named_modules():
         if not (isinstance(m, (nn.Linear, RowParallelLinear)) and _is_target(name, targets)):
             continue
-        out_f, in_f = _whole_shape(m)
-        A = torch.randn((r, in_f), generator=generator, device=generator.device)
-        A = A * (1.0 / r if init == "gaussian" else 0.0)
-        adapters[name] = {
-            "lora_A": nn.Parameter(A.to(m.weight.device)),
-            "lora_B": nn.Parameter(torch.zeros((out_f, r), device=m.weight.device)),
-        }
-    if not adapters:
+        path, index, n = _jax_leaf(dit, name)
+        leaves.setdefault(path, (n, {}))[1][index] = (name, m)
+        names.append(name)
+    if not names:
         raise ValueError("lora_init: no target linear in the model (fused serving layout?)")
-    return {"_alpha": float(alpha), "_r": int(r), "adapters": adapters}
+    adapters = {}
+    for path in sorted(leaves, key=lambda p: tuple(p.split("/"))):
+        n, members = leaves[path]
+        key, sub = threefry.split(key)
+        stacked = None not in members
+        first = next(iter(members.values()))[1]
+        in_f = _whole_shape(first)[1]
+        A = threefry.normal(sub, (n, in_f, r) if stacked else (in_f, r), device=first.weight.device)
+        A = A * (1.0 / r if init == "gaussian" else 0.0)
+        for index, (name, m) in members.items():
+            a = A[index] if stacked else A
+            adapters[name] = {
+                "lora_A": nn.Parameter(a.t().contiguous().to(m.weight.device)),
+                "lora_B": nn.Parameter(torch.zeros((_whole_shape(m)[0], r), device=m.weight.device)),
+            }
+    return {"_alpha": float(alpha), "_r": int(r), "adapters": {name: adapters[name] for name in names}}
 
 
 def lora_parameters(lora: dict) -> list[torch.Tensor]:

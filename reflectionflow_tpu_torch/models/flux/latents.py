@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from ...utils import threefry
+
 
 def latent_tokens(height_px: int, width_px: int, vae_downscale: int = 8) -> tuple[int, int]:
     """(tokens_y, tokens_x) of the packed grid for an image size in pixels."""
@@ -32,18 +34,18 @@ def unpack_latents(tokens: torch.Tensor, tokens_y: int, tokens_x: int) -> torch.
 
 
 def draw_packed_noise(
-    generator: torch.Generator,
+    key: threefry.Key,
     batch: int,
     height_px: int,
     width_px: int,
     channels: int = 16,
     dtype=torch.bfloat16,
     vae_downscale: int = 8,
+    device=None,
 ) -> torch.Tensor:
-    """Seeded initial latents, already packed: (B, L, channels*4), drawn in
-    fp32 on the generator's device. Not the JAX package's noise for the same
-    seed: `torch.Generator` and `jax.random` are different generators."""
+    """Seeded initial latents, already packed: (B, L, channels*4), the JAX
+    package's `jax.random.normal(key, ...)` in fp32 (`utils/threefry.py`),
+    drawn on `device`."""
     ty, tx = latent_tokens(height_px, width_px, vae_downscale)
-    noise = torch.randn((batch, ty * 2, tx * 2, channels), generator=generator,
-                        dtype=torch.float32, device=generator.device)
+    noise = threefry.normal(key, (batch, ty * 2, tx * 2, channels), device=device)
     return pack_latents(noise).to(dtype)

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...config import FluxVAEConfig
+from ...utils import threefry
 
 
 def group_norm(x: torch.Tensor, norm: nn.GroupNorm, eps: float = 1e-6) -> torch.Tensor:
@@ -186,22 +187,20 @@ def vae_encode_moments(vae: FluxVAE, images: torch.Tensor) -> torch.Tensor:
     return enc.conv_out(x).permute(0, 2, 3, 1)
 
 
-def _moments_to_latents(moments: torch.Tensor, cfg: FluxVAEConfig,
-                        generator: torch.Generator | None = None) -> torch.Tensor:
+def _moments_to_latents(moments: torch.Tensor, cfg: FluxVAEConfig, key=None) -> torch.Tensor:
     mean, logvar = moments.chunk(2, dim=-1)
-    if generator is not None:
-        noise = torch.randn(mean.shape, generator=generator, device=generator.device)
+    if key is not None:  # the JAX package's draw, in the mean's dtype
+        noise = threefry.normal(key, tuple(mean.shape), mean.dtype, device=mean.device)
         std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
-        mean = mean + std * noise.to(mean.device, mean.dtype)
+        mean = mean + std * noise
     return (mean - cfg.shift_factor) * cfg.scaling_factor
 
 
-def vae_encode(vae: FluxVAE, images: torch.Tensor,
-               generator: torch.Generator | None = None) -> torch.Tensor:
+def vae_encode(vae: FluxVAE, images: torch.Tensor, key=None) -> torch.Tensor:
     """Images (B, H, W, 3) in [-1, 1] -> scaled latents (B, h, w, C_lat):
-    (mean - shift) * scale, the posterior's mode; with a `generator`, a
+    (mean - shift) * scale, the posterior's mode; with a threefry `key`, a
     sample mean + exp(logvar / 2) * N(0, 1) (logvar clipped to [-30, 20])."""
-    return _moments_to_latents(vae_encode_moments(vae, images), vae.cfg, generator)
+    return _moments_to_latents(vae_encode_moments(vae, images), vae.cfg, key)
 
 
 def vae_decode(vae: FluxVAE, latents: torch.Tensor) -> torch.Tensor:
@@ -282,18 +281,18 @@ def vae_decode_tiled(vae: FluxVAE, latents: torch.Tensor, tile_latent: int = 64,
     return _tiled_grid(lambda z: vae_decode(vae, z), latents, tile_latent, overlap_factor, tile_out)
 
 
-def vae_encode_tiled(vae: FluxVAE, images: torch.Tensor, generator: torch.Generator | None = None,
+def vae_encode_tiled(vae: FluxVAE, images: torch.Tensor, key=None,
                      tile_sample: int = 512, overlap_factor: float = 0.25) -> torch.Tensor:
     """`vae_encode` in overlapping `tile_sample`-sized image tiles: the moments
     are blended across the seams (diffusers' `tiled_encode`), then sampled or
     taken at the mode once."""
     _, h, w, _ = images.shape
     if h <= tile_sample and w <= tile_sample:
-        return vae_encode(vae, images, generator)
+        return vae_encode(vae, images, key)
     s = vae.cfg.downscale
     if tile_sample % s or int(tile_sample * (1.0 - overlap_factor)) % s:
         raise ValueError(f"tile_sample {tile_sample} / overlap {overlap_factor} must keep tile and "
                          f"stride multiples of the VAE scale {s} so latent tiles align")
     moments = _tiled_grid(lambda t: vae_encode_moments(vae, t), images, tile_sample, overlap_factor,
                           tile_sample // s)
-    return _moments_to_latents(moments, vae.cfg, generator)
+    return _moments_to_latents(moments, vae.cfg, key)

@@ -10,9 +10,9 @@ no output (a finished row records nothing more), where the JAX loop tests
 them on the device every step.
 
 The image resize is the port's copy of PIL's bicubic
-(`train/data.py::resize`, bit for bit). Sampling (temperature >
-0) draws from a `torch.Generator`, so sampled tokens differ from the JAX
-package's `jax.random` draws; greedy decoding is the same function.
+(`train/data.py::resize`, bit for bit). Sampling (temperature > 0) draws
+what the JAX package draws: `jax.random.categorical` on a key split once a
+step (`utils/threefry.py`), from `PRNGKey(0)` unless a key is given.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ...utils import threefry
 from .lm import init_kv_cache, qwen_lm_apply
 from .model import QwenVLModel, QwenVLSpecialTokens
 from .vision import image_to_patches, qwen_vision_apply, smart_resize
@@ -43,11 +44,12 @@ def prefill(model: QwenVLModel, embeds: torch.Tensor, pos: torch.Tensor, cache: 
 
 @torch.no_grad()
 def decode_tokens(model: QwenVLModel, cache: dict, last_logits: torch.Tensor, next_pos0: torch.Tensor, *,
-                  max_new_tokens: int, eos_id: int, temperature: float = 0.0,
-                  generator: torch.Generator | None = None):
+                  max_new_tokens: int, eos_id: int, temperature: float = 0.0, key=None):
     """Token loop -> (out_ids (B, max_new_tokens), lengths (B,)), on the device.
     Rows record tokens until their EOS; slots past a row's EOS hold 0 (trim by
-    length, not by value)."""
+    length, not by value). Sampling splits the threefry `key` (default
+    `prng_key(0)`) once a step, as the JAX loop does."""
+    key = threefry.prng_key(0) if key is None else key
     B = last_logits.shape[0]
     dev = last_logits.device
     out = torch.zeros((B, max_new_tokens), dtype=torch.long, device=dev)
@@ -56,8 +58,8 @@ def decode_tokens(model: QwenVLModel, cache: dict, last_logits: torch.Tensor, ne
     logits = last_logits
     for step in range(max_new_tokens):
         if temperature > 0:
-            probs = torch.softmax(logits.float() / temperature, dim=-1)
-            tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            key, sub = threefry.split(key)
+            tok = threefry.categorical(sub, logits.float() / temperature, axis=-1)
         else:
             tok = torch.argmax(logits, dim=-1)
         done = done | (tok == eos_id)
@@ -152,22 +154,21 @@ class QwenVLGenerator:
 
     @torch.no_grad()
     def decode_batch(self, sequences: list[tuple[np.ndarray, list[np.ndarray]]], max_new_tokens: int = 128,
-                     temperature: float = 0.0, generator: torch.Generator | None = None) -> list[list[int]]:
+                     temperature: float = 0.0, key=None) -> list[list[int]]:
         """Left-pad the sequences into one batch, prefill once and decode the
         batch together. Lengths may be ragged; vision grids may differ per row."""
         embeds, pos, cache, next_pos0 = self.prepare_batch(sequences, max_new_tokens)
         logits, cache = prefill(self.model, embeds, pos, cache)
         out, lengths = decode_tokens(self.model, cache, logits[:, -1], next_pos0, max_new_tokens=max_new_tokens,
-                                     eos_id=self.eos_token_id, temperature=float(temperature),
-                                     generator=generator)
+                                     eos_id=self.eos_token_id, temperature=float(temperature), key=key)
         out, lengths = out.cpu().numpy(), lengths.cpu().numpy()
         return [out[b, : lengths[b]].tolist() for b in range(len(sequences))]
 
     def decode_ids(self, input_ids: np.ndarray, images: list[np.ndarray], max_new_tokens: int = 128,
-                   temperature: float = 0.0, generator: torch.Generator | None = None) -> list[int]:
+                   temperature: float = 0.0, key=None) -> list[int]:
         """Greedy (or sampled) continuation of one multimodal sequence."""
         return self.decode_batch([(input_ids, images)], max_new_tokens=max_new_tokens, temperature=temperature,
-                                 generator=generator)[0]
+                                 key=key)[0]
 
     def generate(self, images: list[np.ndarray], prompts: list[str], max_new_tokens: int = 128,
                  max_pixels: int = 448 * 448, system: str | None = None) -> list[str]:

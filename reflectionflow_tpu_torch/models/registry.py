@@ -12,6 +12,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils import threefry
 from .flux.latents import latent_tokens, pack_latents
 
 
@@ -21,16 +22,14 @@ class LatentSpec:
     vae_downscale: int
     packed: bool  # FLUX-style 2x2 token packing
 
-    def prepare(self, generator: torch.Generator, batch: int, height: int, width: int,
-                dtype=torch.bfloat16) -> torch.Tensor:
-        """Initial noise on the generator's device, drawn in fp32: (B, L, 4C)
-        packed tokens for a packed family, else the (B, h, w, C) grid. Not the
-        JAX package's noise for the same seed (`torch.Generator` is another
-        generator than `jax.random`) until ROADMAP item 24."""
+    def prepare(self, key: threefry.Key, batch: int, height: int, width: int,
+                dtype=torch.bfloat16, device=None) -> torch.Tensor:
+        """Initial noise on `device`, the JAX package's `jax.random.normal(key,
+        ...)` in fp32: (B, L, 4C) packed tokens for a packed family, else the
+        (B, h, w, C) grid."""
         h = height // self.vae_downscale
         w = width // self.vae_downscale
-        noise = torch.randn((batch, h, w, self.channels), generator=generator, dtype=torch.float32,
-                            device=generator.device)
+        noise = threefry.normal(key, (batch, h, w, self.channels), device=device)
         if self.packed:
             return pack_latents(noise).to(dtype)
         return noise.to(dtype)

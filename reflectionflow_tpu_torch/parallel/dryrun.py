@@ -37,6 +37,7 @@ import torch.distributed as dist
 from . import collectives
 from .distributed import launch
 from .mesh import gather_candidates, make_mesh, shard_batch
+from ..utils import threefry
 from .specs import shard_dit_params
 
 ROWS = [{"prompt": f"p{i}", "tag": None} for i in range(4)]
@@ -194,7 +195,7 @@ def train_step_check(device, mesh) -> dict:
                  cond_ids=torch.from_numpy(make_image_ids(cty, cty, position_delta=(0, -cty))).to(device))
 
     def run(dit, on):
-        lora = lora_init(torch.Generator(device=device).manual_seed(1), dit, r=4, alpha=4)
+        lora = lora_init(threefry.prng_key(1), dit, r=4, alpha=4)
         with torch.no_grad():
             noise = torch.Generator(device=device).manual_seed(3)
             for ab in lora["adapters"].values():
@@ -204,7 +205,7 @@ def train_step_check(device, mesh) -> dict:
         step = make_train_step(dit, optimizer, alpha=4, r=4, mesh=on)
         mine = dict(batch, **shard_batch({k: batch[k] for k in ("x0", "cond", "txt", "pooled")}, on)) \
             if on is not None else batch
-        adapters, _, metrics = step(lora["adapters"], state, mine, torch.Generator(device=device).manual_seed(6))
+        adapters, _, metrics = step(lora["adapters"], state, mine, threefry.prng_key(6))
         return adapters, float(metrics["loss"])
 
     want, want_loss = run(fresh(), None)
@@ -241,12 +242,13 @@ def rm_train_step_check(device, mesh) -> dict:
         model = QwenVLModel.random_init(torch.Generator(device=device).manual_seed(0), dtype=torch.float32,
                                         device=device)
         batch = collate_rm_batch(model, rows, max_pixels=256, special_token_id=9, train_vision=True)
-        gen = torch.Generator(device=device).manual_seed(1)
+        key = threefry.prng_key(1)
         H = model.lm_cfg.hidden_size
-        trainable = {"lora": rt.rm_lora_init(gen, model.model, r=2, alpha=2)["adapters"],
-                     "rm_head": torch.randn((H, 1), generator=gen, device=device) * 0.1,
-                     "special": torch.randn((H,), generator=gen, device=device) * 0.02,
-                     "vision_lora": rt.rm_vision_lora_init(gen, model.visual, r=2, alpha=2)["adapters"]}
+        trainable = {"lora": rt.rm_lora_init(key, model.model, r=2, alpha=2)["adapters"],
+                     "rm_head": threefry.normal(threefry.fold_in(key, 1), (H, 1), device=device) * 0.1,
+                     "special": threefry.normal(threefry.fold_in(key, 2), (H,), device=device) * 0.02,
+                     "vision_lora": rt.rm_vision_lora_init(threefry.fold_in(key, 3), model.visual, r=2,
+                                                           alpha=2)["adapters"]}
         opt = rt.make_rm_optimizer(lr=1e-2, vision_lr=1e-3)
         whole = fsdp_local_bytes(model.model)
         step = rt.make_rm_train_step(model.model, opt, loss_type="btt", pooling="special", special_token_id=9,

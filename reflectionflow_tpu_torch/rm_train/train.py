@@ -60,15 +60,16 @@ RM_VISION_LORA_TARGETS = ("blocks.attn.qkv", "blocks.attn.proj", "blocks.mlp.gat
                           "blocks.mlp.down_proj", "merger.mlp.0", "merger.mlp.2")
 
 
-def rm_lora_init(generator: torch.Generator, lm: QwenLM, r: int = 16, alpha: float = 16.0) -> dict:
-    """Zero-effect adapters (B = 0) on every decoder-layer linear of `lm`."""
-    return lora_init(generator, lm, r=r, alpha=alpha, targets=RM_LORA_TARGETS)
+def rm_lora_init(key, lm: QwenLM, r: int = 16, alpha: float = 16.0) -> dict:
+    """Zero-effect adapters (B = 0) on every decoder-layer linear of `lm`,
+    drawn from the threefry `key` as the JAX package's `rm_lora_init`."""
+    return lora_init(key, lm, r=r, alpha=alpha, targets=RM_LORA_TARGETS)
 
 
-def rm_vision_lora_init(generator: torch.Generator, tower: QwenVisionTower, r: int = 16,
-                        alpha: float = 16.0) -> dict:
-    """Zero-effect adapters on every block linear of `tower` and its merger."""
-    return lora_init(generator, tower, r=r, alpha=alpha, targets=RM_VISION_LORA_TARGETS)
+def rm_vision_lora_init(key, tower: QwenVisionTower, r: int = 16, alpha: float = 16.0) -> dict:
+    """Zero-effect adapters on every block linear of `tower` and its merger,
+    drawn from the threefry `key` as the JAX package's `rm_vision_lora_init`."""
+    return lora_init(key, tower, r=r, alpha=alpha, targets=RM_VISION_LORA_TARGETS)
 
 
 def _attached(module, adapters: dict, alpha: float, r: int):

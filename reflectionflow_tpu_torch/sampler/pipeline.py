@@ -40,6 +40,7 @@ from ..models.flux.text import CLIPTextEncoder, T5Encoder, clip_text_encode, t5_
 from ..models.flux.vae import FluxVAE, vae_decode, vae_decode_tiled
 from ..parallel.mesh import gather_candidates, shard_batch
 from ..parallel.specs import shard_dit_params
+from ..utils import threefry
 from ..utils.tokenizers import load_tokenizer
 from .condition import Condition, encode_conditions
 from .generate import denoise, make_schedule, vcache_kwargs
@@ -351,9 +352,9 @@ class FluxPipeline:
                 import secrets
 
                 seed = secrets.randbits(31)
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            latents = draw_packed_noise(gen, B, height, width, self.vae_cfg.latent_channels,
-                                        self.dtype, vae_downscale=down)
+            latents = draw_packed_noise(threefry.prng_key(seed), B, height, width,
+                                        self.vae_cfg.latent_channels, self.dtype, vae_downscale=down,
+                                        device=self.device)
         latents = torch.as_tensor(latents).to(self.device, self.dtype)
         mesh = self._data_mesh(B)
         if mesh is not None:  # this rank's candidates: the whole batch was drawn above

@@ -17,10 +17,6 @@ latents and prompts and measures, per schedule:
 "real" (headline-eligible) tier without a scored selection. The literature
 anchors (TeaCache's published FLUX.1-dev schedule, a TaylorSeer-family
 schedule) are this module's own copies of the JAX package's constants.
-
-One divergence: `calibrate` draws its latents from a `torch.Generator` seeded
-with `seed` (the JAX package uses `jax.random`), so the two packages sweep
-different noise for the same seed (ROADMAP item 24).
 """
 
 from __future__ import annotations
@@ -34,6 +30,7 @@ import torch
 from ..models.flux.latents import latent_tokens, unpack_latents
 from ..models.flux.rope import make_image_ids, make_text_ids
 from ..models.flux.vae import vae_decode
+from ..utils import threefry
 from .generate import denoise, make_schedule, make_step_mask, vcache_kwargs
 
 
@@ -118,9 +115,8 @@ def calibrate(
     the verifier's own scale); `max_latent_rel_err` bounds the latent error."""
     B = len(prompts)
     ty, tx = latent_tokens(height, width, pipe.vae_cfg.downscale)
-    gen = torch.Generator(device=pipe.device).manual_seed(seed)
-    latents = torch.randn((B, ty * tx, pipe.dit_cfg.in_channels), generator=gen,
-                          device=pipe.device).to(pipe.dtype)
+    latents = threefry.normal(threefry.prng_key(seed), (B, ty * tx, pipe.dit_cfg.in_channels),
+                              device=pipe.device).to(pipe.dtype)
     txt, pooled = pipe.encode_prompts(list(prompts), max_sequence_length)
     img_ids = torch.from_numpy(make_image_ids(ty, tx)).to(pipe.device)
     txt_ids = torch.from_numpy(make_text_ids(txt.shape[1])).to(pipe.device)

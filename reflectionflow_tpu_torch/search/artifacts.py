@@ -15,9 +15,11 @@ and JSONL layout per prompt index,
         search_state.json         (resume manifest)
 
 and `save_image` writes PNG with the standard library (zlib + struct), so the
-port needs no imaging package. `load_image` reads JPEG (baseline) and PNG
-with the port's own decoders (`train/data.py::decode_image`), as PIL's
-`Image.open(...).convert("RGB")` does.
+port needs no imaging package. `load_image` reads JPEG (sequential or
+progressive; grey, YCbCr, RGB, CMYK, YCCK) and PNG (every colour type and bit
+depth, interlaced or not) with the port's own decoders
+(`train/data.py::decode_image`), as PIL's `Image.open(...).convert("RGB")`
+does.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Deterministic candidate seeding.
 
 Counterpart of `reflectionflow_tpu/search/seeds.py`. `candidate_seeds` is the
-same numpy PCG64 function, so both packages name the same seeds; the noise a
-seed turns into differs, because `torch.Generator` is not `jax.random`.
+same numpy PCG64 function, so both packages name the same seeds, and a seed
+turns into the same noise (`utils/threefry.py` draws what `jax.random` draws).
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..models.flux.latents import draw_packed_noise
+from ..utils import threefry
 
 
 def candidate_seeds(run_seed: int, prompt_idx: int, round_idx: int, n: int) -> list[int]:
@@ -21,8 +22,8 @@ def candidate_seeds(run_seed: int, prompt_idx: int, round_idx: int, n: int) -> l
 def seeds_to_latents(seeds, height, width, channels, dtype, vae_downscale=8, device="cpu"):
     """One packed-noise latent per seed, concatenated on the batch axis."""
     lats = [
-        draw_packed_noise(torch.Generator(device=device).manual_seed(s), 1, height, width,
-                          channels, dtype, vae_downscale)
+        draw_packed_noise(threefry.prng_key(s), 1, height, width, channels, dtype, vae_downscale,
+                          device=device)
         for s in seeds
     ]
     return torch.cat(lats, dim=0)

@@ -20,12 +20,14 @@ match the JAX package's run draw for draw:
     "{prompt} [Reflexion] {reflection}".
 
 The port's machine has no PIL: images are decoded by the port's own readers
-(`utils/image_io.py`: baseline JPEG bit-exact to PIL's decode; PNG at 8-bit
-grey/RGB/RGBA, non-interlaced) and resized by its C++ copy of PIL's bicubic
-`Image.resize`, bit for bit. A sample whose image is corrupt is skipped, as in
-the JAX package; an image format the readers do not take (progressive JPEG,
-for one) raises `NotImplementedError`. `write_synthetic_shard` writes PNG
-where the JAX package writes JPEG: the port has no JPEG encoder.
+(`utils/image_io.py`: sequential and progressive Huffman JPEG, grey, YCbCr,
+RGB, CMYK and YCCK, bit-exact to PIL's decode; `decode_png`: every PNG colour
+type and bit depth, interlaced or not, as PIL converts it to RGB) and resized
+by its C++ copy of PIL's bicubic `Image.resize`, bit for bit. A sample whose
+image is corrupt is skipped, as in the JAX package; an image format the
+readers do not take (arithmetic-coded JPEG, for one) raises
+`NotImplementedError`. `write_synthetic_shard` writes the JAX package's shard
+byte for byte: its JPEG bytes are PIL's default save (`image_io.encode_jpeg`).
 """
 
 from __future__ import annotations
@@ -40,30 +42,71 @@ from typing import Iterator
 
 import numpy as np
 
-from ..search.artifacts import encode_png
 from ..utils import native
-from ..utils.image_io import decode_jpeg, png_unfilter
+from ..utils.image_io import decode_jpeg, encode_jpeg, png_unfilter
 from ..utils.image_io import resize_bicubic as resize
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # color type -> channels (grey, RGB, RGBA)
+# color type -> (channels, the bit depths the PNG spec allows)
+_PNG_KINDS = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)),
+              6: (4, (8, 16))}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _to_float(img: np.ndarray) -> np.ndarray:
     return img.astype(np.float32) / 127.5 - 1.0
 
 
+def _png_samples(rows: np.ndarray, w: int, depth: int, channels: int) -> np.ndarray:
+    """Unfiltered scanlines (h, stride) -> (h, w, channels) samples, uint16
+    at depth 16, else uint8 at their own depth (sub-byte samples packed
+    from the high bits)."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows[:, : 2 * w * channels].view(">u2").astype(np.uint16).reshape(h, w, channels)
+    if depth == 8:
+        return rows[:, : w * channels].reshape(h, w, channels)
+    per_byte = 8 // depth
+    shifts = (8 - depth * (1 + np.arange(per_byte))).astype(np.uint8)
+    vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return vals.reshape(h, -1)[:, :w, None]
+
+
+def _png_to_rgb(samples: np.ndarray, color: int, depth: int, palette: np.ndarray | None) -> np.ndarray:
+    """PIL's `convert("RGB")` of the mode PIL opens a PNG kind in: 16-bit
+    colour and alpha samples keep their high byte ("RGB;16B", "LA;16B"), a
+    16-bit grey ("I;16") clips to 255, sub-byte grey scales to 0..255 ("1",
+    "L;2", "L;4"), a palette index reads PLTE (entries past it are black, as
+    PIL reads them), and alpha and tRNS are dropped."""
+    if color == 3:
+        lut = np.zeros((256, 3), np.uint8)
+        lut[: len(palette)] = palette[:256]
+        return lut[samples[..., 0]]
+    if depth == 16:
+        samples = np.minimum(samples, 255).astype(np.uint8) if color == 0 else (samples >> 8).astype(np.uint8)
+    elif depth < 8:
+        samples = (samples * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    if color in (0, 4):
+        return np.repeat(samples[..., :1], 3, axis=2)
+    return np.ascontiguousarray(samples[..., :3])
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes (8-bit grey, RGB or RGBA, non-interlaced) -> (H, W, 3) uint8 RGB."""
+    """PNG bytes -> (H, W, 3) uint8 RGB, as PIL's `Image.open(...).convert("RGB")`
+    gives them: colour types 0, 2, 3, 4 and 6 at every bit depth the PNG spec
+    allows, with PLTE and tRNS, plain or Adam7-interlaced."""
     if not data.startswith(_PNG_MAGIC):
         raise ValueError("not a PNG file")
-    pos, idat, header = 8, [], None
+    pos, idat, header, palette = 8, [], None, None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
         pos += 12 + length
         if tag == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            palette = np.frombuffer(body[: len(body) // 3 * 3], np.uint8).reshape(-1, 3)
         elif tag == b"IDAT":
             idat.append(body)
         elif tag == b"IEND":
@@ -71,15 +114,27 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _PNG_CHANNELS or interlace:
-        raise NotImplementedError(f"PNG with bit depth {depth}, color type {color}, interlace "
-                                  f"{interlace}: the port reads 8-bit grey/RGB/RGBA, non-interlaced")
-    c = _PNG_CHANNELS[color]
+    if color not in _PNG_KINDS or depth not in _PNG_KINDS[color][1] or interlace > 1:
+        raise ValueError(f"PNG with bit depth {depth}, color type {color}, interlace {interlace}")
+    if color == 3 and palette is None:
+        raise ValueError("palette PNG without PLTE")
+    channels = _PNG_KINDS[color][0]
+    bits = depth * channels
+    bpp = max(1, bits // 8)
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    img = png_unfilter(raw, h, w * c, c).reshape(h, w, c)
-    if c == 1:
-        return np.repeat(img, 3, axis=2)
-    return np.ascontiguousarray(img[..., :3])
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    dtype = np.uint16 if depth == 16 else np.uint8
+    img = np.zeros((h, w, channels), dtype)
+    off = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = -(-pw * bits // 8)
+        rows = png_unfilter(raw[off:off + ph * (stride + 1)], ph, stride, bpp)
+        off += ph * (stride + 1)
+        img[y0::dy, x0::dx] = _png_samples(rows, pw, depth, channels)
+    return _png_to_rgb(img, color, depth, palette)
 
 
 def decode_image(data: bytes) -> np.ndarray:
@@ -314,16 +369,17 @@ class GenRefDataset:
 
 def write_synthetic_shard(path: str, n: int = 8, size: int = 32, seed: int = 0,
                           subsets=("general", "editing")) -> None:
-    """A small GenRef-format shard of random PNG images (the JAX package's
-    draws, written as PNG instead of JPEG)."""
+    """A small GenRef-format shard of random images, byte for byte the JAX
+    package's: the same draws, JPEG bytes equal to PIL's default save
+    (`utils/image_io.py::encode_jpeg`), the same members in the same order."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     rng = np.random.default_rng(seed)
     with tarfile.open(path, "w") as tar:
         for i in range(n):
             key = f"{i:06d}"
             files = {
-                "good_image.png": encode_png(rng.integers(0, 255, (size, size, 3), dtype=np.uint8)),
-                "bad_image.png": encode_png(rng.integers(0, 255, (size, size, 3), dtype=np.uint8)),
+                "good_image.jpg": encode_jpeg(rng.integers(0, 255, (size, size, 3), dtype=np.uint8)),
+                "bad_image.jpg": encode_jpeg(rng.integers(0, 255, (size, size, 3), dtype=np.uint8)),
                 "prompt.txt": f"prompt {i}".encode(),
                 "reflection.txt": f"make object {i} sharper and correctly colored".encode(),
                 "subset.txt": subsets[i % len(subsets)].encode(),

@@ -20,7 +20,7 @@ K7b/K7c backward under "ring_pallas") over the mesh that
 Over a mesh of ranks (`make_train_step(mesh=)`, a `parallel.mesh.RankMesh`)
 each rank passes its slice over "data" of the global batch, the slice JAX's
 `P("data")` sharding constraint gives its devices; `t` and the noise are
-drawn for the whole global batch from the one generator on every rank, then
+drawn for the whole global batch from the one key on every rank, then
 sliced, so the step is the one-device step on the global batch. A DiT cut
 over "model" (`parallel.specs.shard_dit_params`) runs its heads' share, K1
 and K6 at H / tp heads. The gradients, and the loss, are all-reduced in one bucket
@@ -47,27 +47,36 @@ from ..models.flux.rope import make_image_ids, make_text_ids
 from ..models.flux.vae import vae_encode
 from ..parallel.collectives import reduce_gradients
 from ..parallel.mesh import candidate_sharding
+from ..utils import threefry
 from . import optim
 
 TRAINABLE_ATTN = ("xla", "pallas", "ring", "ring_pallas")
 
 
-def rf_loss(adapters: dict, dit, batch: dict, generator: torch.Generator | None = None,
+def _draw_t_noise(key, shape: tuple[int, ...], device):
+    """The JAX package's `rf_loss` draws: `k_t, k_noise = split(key)`, t =
+    sigmoid(N(0, 1)) of (B,) and the noise of the batch's latent shape."""
+    k_t, k_noise = threefry.split(key)
+    return (torch.sigmoid(threefry.normal(k_t, (shape[0],), device=device)),
+            threefry.normal(k_noise, shape, device=device))
+
+
+def rf_loss(adapters: dict, dit, batch: dict, key=None,
             alpha: float = 32.0, r: int = 32, latent_lora: bool = False,
             model_flags: dict | None = None, attn_impl: str = "xla",
             t: torch.Tensor | None = None, noise: torch.Tensor | None = None):
     """-> (loss, metrics) for batch {x0 (B, L, C), cond (B, Lc, C), txt (B, Lt,
     D), pooled (B, P), img_ids (L, 3), txt_ids (Lt, 3), cond_ids (Lc, 3)}.
 
-    `t` (B,) and `noise` (the shape of x0) are drawn from `generator` unless
-    given (tests pass the JAX package's draws)."""
+    `t` (B,) and `noise` (the shape of x0) are drawn from the threefry `key`
+    as the JAX package draws them, unless given."""
     model_flags = model_flags or {}
     x0 = batch["x0"].float()
     B = x0.shape[0]
-    if t is None:
-        t = torch.sigmoid(torch.randn((B,), generator=generator, device=generator.device))
-    if noise is None:
-        noise = torch.randn(x0.shape, generator=generator, device=generator.device)
+    if t is None or noise is None:
+        t_key, noise_key = _draw_t_noise(key, tuple(x0.shape), x0.device)
+        t = t_key if t is None else t
+        noise = noise_key if noise is None else noise
     t, x1 = t.to(x0.device, torch.float32), noise.to(x0.device, torch.float32)
     x_t = ((1.0 - t[:, None, None]) * x0 + t[:, None, None] * x1).to(batch["x0"].dtype)
 
@@ -90,7 +99,7 @@ def rf_loss(adapters: dict, dit, batch: dict, generator: torch.Generator | None 
 
 def make_train_step(dit, optimizer, alpha: float = 32.0, r: int = 32, latent_lora: bool = False,
                     model_flags: dict | None = None, attn_impl: str = "xla", mesh=None):
-    """-> `step(adapters, opt_state, batch, generator) -> (adapters, opt_state,
+    """-> `step(adapters, opt_state, batch, key) -> (adapters, opt_state,
     metrics)`: loss and adapter gradients, the gradient norm before clipping,
     and the optimizer update applied to the adapters in place. `optimizer`
     must be the transformation whose `init` made `opt_state`
@@ -106,22 +115,22 @@ def make_train_step(dit, optimizer, alpha: float = 32.0, r: int = 32, latent_lor
     sharded = mesh is not None and mesh.size > 1
     modules = dict(dit.named_modules())
 
-    def draw(x0, generator, t, noise):
+    def draw(x0, key, t, noise):
         """The global batch's t, and this rank's rows of t and the noise."""
         B = x0.shape[0] * mesh.axis_size("data")
-        if t is None:
-            t = torch.sigmoid(torch.randn((B,), generator=generator, device=generator.device))
-        if noise is None:
-            noise = torch.randn((B, *x0.shape[1:]), generator=generator, device=generator.device)
+        if t is None or noise is None:
+            t_key, noise_key = _draw_t_noise(key, (B, *x0.shape[1:]), x0.device)
+            t = t_key if t is None else t
+            noise = noise_key if noise is None else noise
         rows = candidate_sharding(mesh, B)
         return t, t[rows], noise[rows]
 
-    def step(adapters, opt_state, batch, generator=None, t=None, noise=None):
+    def step(adapters, opt_state, batch, key=None, t=None, noise=None):
         params = lora_parameters({"adapters": adapters})
         t_all = t
         if sharded:
-            t_all, t, noise = draw(batch["x0"], generator, t, noise)
-        loss, metrics = rf_loss(adapters, dit, batch, generator, alpha=alpha, r=r,
+            t_all, t, noise = draw(batch["x0"], key, t, noise)
+        loss, metrics = rf_loss(adapters, dit, batch, key, alpha=alpha, r=r,
                                 latent_lora=latent_lora, model_flags=model_flags,
                                 attn_impl=attn_impl, t=t, noise=noise)
         grads = torch.autograd.grad(loss, params, allow_unused=True)

@@ -9,8 +9,11 @@ adapters through the conditioned `generate` every `sample_interval` steps.
 
 Divergence: a checkpoint is `torch.save` of {adapters, opt_state} at
 `<checkpoint_dir>/<step>/state.pt` (the JAX package writes orbax
-checkpoints); the `latest` marker file is the same. As in the JAX package, a
-resumed run restarts its random draws and its data stream from the seed.
+checkpoints); the `latest` marker file is the same. The LoRA init and each
+step's t and noise come from `cfg.seed` through the JAX package's key chain
+(`utils/threefry.py`), so a seed draws what it draws in JAX; as in the JAX
+package, a resumed run restarts its key chain and its data stream from the
+seed.
 
 `train(mesh=)` trains over a mesh of ranks (`parallel.mesh.RankMesh`; every
 rank calls it): the DiT is cut over "model" first when the mesh has that
@@ -41,6 +44,7 @@ import torch.distributed as dist
 from ..lora.lora import lora_init, lora_parameters
 from ..parallel.distributed import RankZero
 from ..parallel.specs import shard_dit_params
+from ..utils import threefry
 from ..utils.jsonl import append_jsonl
 from ..utils.safetensors_io import save_file
 from .rectified_flow import make_optimizer, make_train_step, prepare_batch_tensors
@@ -82,8 +86,8 @@ def train(pipeline, cfg, dataset, mesh=None, position_delta: tuple[int, int] | N
     if mesh is not None and mesh.axis_size("model") > 1 and getattr(pipeline.dit, "tp_size", 1) == 1:
         shard_dit_params(pipeline.dit, mesh)
     writer = RankZero(mesh)
-    gen = torch.Generator(device=pipeline.device).manual_seed(cfg.seed)
-    lora = lora_init(gen, pipeline.dit, r=cfg.lora.r, alpha=cfg.lora.alpha, init=cfg.lora.init)
+    k_init, key = threefry.split(threefry.prng_key(cfg.seed))
+    lora = lora_init(k_init, pipeline.dit, r=cfg.lora.r, alpha=cfg.lora.alpha, init=cfg.lora.init)
     adapters = lora["adapters"]
     optimizer = make_optimizer(cfg)
     opt_state = optimizer.init(lora_parameters(lora))
@@ -114,7 +118,8 @@ def train(pipeline, cfg, dataset, mesh=None, position_delta: tuple[int, int] | N
         t0 = time.perf_counter()
         raw = next(data_iter)
         batch = prepare_batch_tensors(pipeline, raw, position_delta)
-        adapters, opt_state, metrics = step_fn(adapters, opt_state, batch, gen)
+        key, k_step = threefry.split(key)
+        adapters, opt_state, metrics = step_fn(adapters, opt_state, batch, k_step)
         metrics = {k: float(v) for k, v in metrics.items()}
         ema_loss = metrics["loss"] if ema_loss is None else 0.95 * ema_loss + 0.05 * metrics["loss"]
         row = dict(metrics, step=step, ema_loss=ema_loss, step_time_s=time.perf_counter() - t0)

@@ -1,14 +1,22 @@
-"""Host image codecs of the data path: JPEG decoding, PIL's bicubic resize and
-the PNG unfilter, in C++ (`csrc/host/image_io.cpp`, built with g++ by
-`ops/kernel_build.py::build_host_all`, bound with ctypes), beside their plain
-numpy versions.
+"""Host image codecs of the data path: JPEG decoding and writing, PIL's bicubic
+resize and the PNG unfilter, in C++ (`csrc/host/image_io.cpp`, built with g++
+by `ops/kernel_build.py::build_host_all`, bound with ctypes), beside their
+plain numpy versions.
 
-  * `decode_jpeg`: baseline / extended sequential Huffman JPEG at 8 bits,
-    bit-exact to PIL's `Image.open(...).convert("RGB")` (libjpeg-turbo's
-    default decode: accurate integer IDCT, fancy upsampling, fixed-point
-    YCbCr -> RGB). It has no plain version: PIL is its reference in the tests.
-    Progressive, arithmetic-coded, lossless, 12-bit and CMYK/YCCK files raise
-    `NotImplementedError`; corrupt or truncated data raises `ValueError`.
+  * `decode_jpeg`: sequential and progressive Huffman JPEG at 8 bits, grey,
+    YCbCr, RGB, CMYK and YCCK, bit-exact to PIL's
+    `Image.open(...).convert("RGB")` (libjpeg-turbo's default decode:
+    accurate integer IDCT, fancy upsampling, fixed-point YCbCr -> RGB, YCCK
+    -> CMYK, then PIL's inverted CMYK and its CMYK -> RGB). It has no plain
+    version: PIL is its reference in the tests. A progressive file that
+    leaves any of AC coefficients 1-9 unrefined (where libjpeg smooths
+    across blocks), arithmetic-coded and lossless files raise
+    `NotImplementedError` naming ROADMAP queue 1; 12-bit and hierarchical
+    files are refused as PIL refuses them; corrupt or truncated data raises
+    `ValueError`.
+  * `encode_jpeg`: PIL's default `save(format="JPEG")` of an RGB image,
+    byte for byte (quality 75, 4:2:0, libjpeg-turbo's encode path). It has
+    no plain version either: PIL's bytes are its reference.
   * `resize_bicubic`: PIL's `Image.resize(size)` with its default bicubic
     filter, bit for bit; `resize_ref` is its numpy int64 version.
   * `png_unfilter`: the PNG scanline filters undone; `png_unfilter_ref` is its
@@ -49,6 +57,9 @@ def get_lib() -> ctypes.CDLL:
         lib.rf_resize_bicubic.restype = ctypes.c_int
         lib.rf_resize_bicubic.argtypes = [u8p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, u8p,
                                           ctypes.c_int32, ctypes.c_int32]
+        lib.rf_jpeg_encode.restype = ctypes.c_int
+        lib.rf_jpeg_encode.argtypes = [u8p, ctypes.c_int32, ctypes.c_int32, u8p, ctypes.c_int64,
+                                       ctypes.POINTER(ctypes.c_int64)]
         lib.rf_png_unfilter.restype = ctypes.c_int
         lib.rf_png_unfilter.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, u8p]
         _lib = lib
@@ -76,6 +87,23 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     if rc == _UNSUPPORTED:
         raise NotImplementedError(msg)
     raise ValueError(f"corrupt JPEG: {msg}")
+
+
+def encode_jpeg(rgb: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> the bytes of PIL's default
+    `Image.fromarray(rgb).save(buf, format="JPEG")` (quality 75, 4:2:0)."""
+    rgb = np.ascontiguousarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise TypeError(f"encode_jpeg takes (H, W, 3) uint8 images, got {rgb.dtype} {rgb.shape}")
+    h, w = rgb.shape[:2]
+    blocks = ((h + 15) // 16) * ((w + 15) // 16) * 6
+    out = np.empty(1024 + 512 * blocks, np.uint8)  # no block codes to more than 512 bytes
+    n = ctypes.c_int64()
+    calls["encode_jpeg"] += 1
+    rc = get_lib().rf_jpeg_encode(_u8p(rgb), h, w, _u8p(out), out.nbytes, ctypes.byref(n))
+    if rc != _OK:
+        raise ValueError(f"JPEG encode of a {rgb.shape} image failed")
+    return out[: n.value].tobytes()
 
 
 def _check_image(img: np.ndarray, size) -> tuple[np.ndarray, int, int]:

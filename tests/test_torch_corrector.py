@@ -44,6 +44,7 @@ from reflectionflow_tpu_torch.sampler.generate import denoise, make_schedule
 from reflectionflow_tpu_torch.search.artifacts import save_image
 from reflectionflow_tpu_torch.train.data import decode_png
 from reflectionflow_tpu_torch.train.train_loop import make_validation_hook
+from reflectionflow_tpu_torch.utils import threefry
 from reflectionflow_tpu_torch.utils.jax_bridge import dit_state_dict, lora_from_jax, serving_dit_from_jax
 
 from test_torch_cond_dit import cond_inputs, jax_lora
@@ -300,7 +301,7 @@ def test_validation_hook_samples_and_restores(tmp_path):
     cfg.sample_interval = 2
     cfg.data.target_size, cfg.data.condition_size = 32, 16
     cfg.lora.r, cfg.lora.alpha = 4, 8.0
-    lora = tlora.lora_init(torch.Generator().manual_seed(0), tpipe.dit, r=4, alpha=8.0)
+    lora = tlora.lora_init(threefry.prng_key(0), tpipe.dit, r=4, alpha=8.0)
     with torch.no_grad():
         for ab in lora["adapters"].values():
             ab["lora_B"].normal_(0.0, 0.05, generator=torch.Generator().manual_seed(1))

@@ -25,6 +25,7 @@ from reflectionflow_tpu_torch.models.flux import rope as trope
 from reflectionflow_tpu_torch.models.flux.dit import FluxDiT, timestep_embedding as t_temb
 from reflectionflow_tpu_torch.ops import norms as tnorms
 from reflectionflow_tpu_torch.utils.jax_bridge import dit_state_dict
+from reflectionflow_tpu_torch.utils import threefry
 
 torch.set_num_threads(1)
 ATOL = 1e-4
@@ -154,8 +155,10 @@ def test_latent_packing_matches_jax():
     np.testing.assert_array_equal(packed.numpy(), np.asarray(jlat.pack_latents(jnp.asarray(grid))))
     np.testing.assert_array_equal(tlat.unpack_latents(packed, 4, 6).numpy(), grid)
     assert tlat.latent_tokens(1024, 768) == jlat.latent_tokens(1024, 768)
-    noise = tlat.draw_packed_noise(torch.Generator().manual_seed(0), 2, 64, 32, dtype=torch.float32)
+    noise = tlat.draw_packed_noise(threefry.prng_key(0), 2, 64, 32, dtype=torch.float32, device="cpu")
     assert noise.shape == (2, 4 * 2, 64)
+    want = jlat.draw_packed_noise(jax.random.PRNGKey(0), 2, 64, 32, dtype=jnp.float32)
+    np.testing.assert_allclose(noise.numpy(), np.asarray(want), rtol=5e-7, atol=1e-6)
 
 
 def test_norms_and_timestep_embedding_match_jax():

@@ -2,11 +2,15 @@
 `csrc/host/image_io.cpp`) against PIL's `Image.open(...).convert("RGB")`,
 bit for bit: chroma subsampling 4:4:4 / 4:2:2 / 4:2:0 and grey, qualities 50
 to 100, optimized Huffman tables, restart intervals, sizes from 1x1 to
-257x129 (edge MCUs, odd sizes). Progressive and CMYK files raise
+257x129 (edge MCUs, odd sizes). 12-bit and hierarchical files are refused
+as PIL refuses them; arithmetic-coded and lossless files raise
 `NotImplementedError` naming ROADMAP queue 1; truncated and corrupt files
 raise `ValueError` and never crash. The committed fixtures of
-`tests/data/torch_jpeg/` decode and resize to their manifest's PIL hashes,
-and PIL itself gives those hashes from the committed bytes. About 5 s."""
+`tests/data/torch_jpeg/` (JPEG of every kind the port reads, PNG of every
+kind, and pixel arrays for the JPEG writer) decode, resize and encode to
+their manifest's PIL hashes, and PIL itself gives those hashes from the
+committed bytes. Progressive, CMYK and YCCK files and every PNG kind are
+swept against PIL in `test_torch_image_files.py`. About 6 s."""
 
 import hashlib
 import io
@@ -17,6 +21,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from reflectionflow_tpu_torch.train.data import decode_image
 from reflectionflow_tpu_torch.utils import image_io
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_jpeg")
@@ -82,16 +87,41 @@ def test_restart_intervals(opts):
     np.testing.assert_array_equal(image_io.decode_jpeg(data), _pil(data))
 
 
-@pytest.mark.parametrize("kind", ["progressive", "cmyk"])
+def _frame_kind(kind: str) -> bytes:
+    """A baseline PIL file made into another frame kind: precision 12 in its
+    SOF0, or its SOF0 marker made SOF5 (hierarchical), SOF9 (arithmetic) or
+    SOF3 (lossless, with the SOS's predictor 1 and Se 0)."""
+    data = _encode(_image(32, 24))
+    sof, sos = data.index(b"\xff\xc0"), data.index(b"\xff\xda")
+    if kind == "12bit":
+        return data[:sof + 4] + bytes([12]) + data[sof + 5:]
+    marker = {"hierarchical": 0xC5, "arithmetic": 0xC9, "lossless": 0xC3}[kind]
+    data = data[:sof + 1] + bytes([marker]) + data[sof + 2:]
+    if kind == "lossless":
+        at = sos + 4 + 1 + 2 * 3  # Ss, Se, AhAl after the three component selectors
+        data = data[:at] + bytes([1, 0, 0]) + data[at + 3:]
+    return data
+
+
+# What PIL 12.1 (libjpeg-turbo 3.1) does with each: 12-bit files it
+# cannot open, hierarchical ones libjpeg refuses, arithmetic-coded ones it
+# decodes, and this lossless stream (Huffman data of a DCT file) it rejects.
+_PIL_ON = {"12bit": "UnidentifiedImageError", "hierarchical": "OSError", "arithmetic": "decodes",
+           "lossless": "OSError"}
+
+
+@pytest.mark.parametrize("kind", sorted(_PIL_ON))
 def test_unsupported_frames_raise(kind):
-    img = Image.fromarray(_image(32, 24))
-    buf = io.BytesIO()
-    if kind == "progressive":
-        img.save(buf, format="JPEG", progressive=True)
-    else:
-        img.convert("CMYK").save(buf, format="JPEG")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        image_io.decode_jpeg(buf.getvalue())
+    data = _frame_kind(kind)
+    try:
+        Image.open(io.BytesIO(data)).convert("RGB")
+        pil = "decodes"
+    except Exception as e:  # noqa: BLE001 - recording what PIL raises
+        pil = type(e).__name__
+    assert pil == _PIL_ON[kind]
+    match = "ROADMAP queue 1" if kind in ("arithmetic", "lossless") else "as PIL refuses it"
+    with pytest.raises(NotImplementedError, match=match):
+        image_io.decode_jpeg(data)
 
 
 _VALID = _encode(_image(65, 33, seed=5), quality=75, restart_marker_blocks=2)
@@ -128,9 +158,19 @@ def _chain(img, chain, resize):
     return img
 
 
+def _encode_pixels(entry):
+    arr = np.load(os.path.join(FIXTURES, "encode_pixels.npz"))[entry["pixels"]]
+    assert _sha(arr) == entry["pixels_sha256"]
+    return arr
+
+
 @pytest.mark.parametrize("name", sorted(MANIFEST))
 def test_fixture_decodes_to_manifest(name):
     entry = MANIFEST[name]
+    if entry["kind"] == "encode":
+        got = image_io.encode_jpeg(_encode_pixels(entry))
+        assert hashlib.sha256(got).hexdigest() == entry["jpeg_sha256"]
+        return
     with open(os.path.join(FIXTURES, name), "rb") as f:
         data = f.read()
     assert hashlib.sha256(data).hexdigest() == entry["file_sha256"]
@@ -138,23 +178,30 @@ def test_fixture_decodes_to_manifest(name):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             image_io.decode_jpeg(data)
         return
-    img = image_io.decode_jpeg(data)
+    img = decode_image(data)
     assert img.shape == (entry["size"][1], entry["size"][0], 3)
     assert _sha(img) == entry["decode_sha256"]
-    for chain, want in entry["resize_sha256"].items():
+    for chain, want in entry.get("resize_sha256", {}).items():
         assert _sha(_chain(img, chain, image_io.resize_bicubic)) == want, chain
 
 
 @pytest.mark.parametrize("name", sorted(MANIFEST))
 def test_manifest_is_pil(name):
-    """PIL decodes and resizes the committed bytes to the manifest's hashes."""
+    """PIL decodes and resizes the committed bytes to the manifest's hashes,
+    and saves the committed pixel arrays to the writer's."""
     entry = MANIFEST[name]
+    if entry["kind"] == "encode":
+        buf = io.BytesIO()
+        Image.fromarray(_encode_pixels(entry)).save(buf, format="JPEG")
+        assert hashlib.sha256(buf.getvalue()).hexdigest() == entry["jpeg_sha256"]
+        return
     with open(os.path.join(FIXTURES, name), "rb") as f:
         data = f.read()
-    if "raises" in entry:
-        assert Image.open(io.BytesIO(data)).info.get("progressive")
-        return
     img = Image.open(io.BytesIO(data)).convert("RGB")
+    if "raises" in entry:  # a cut progressive file: PIL decodes it, smoothing across blocks
+        assert Image.open(io.BytesIO(data)).info.get("progressive")
+        assert _sha(np.asarray(img)) == entry["pil_decode_sha256"]
+        return
     assert _sha(np.asarray(img)) == entry["decode_sha256"]
-    for chain, want in entry["resize_sha256"].items():
+    for chain, want in entry.get("resize_sha256", {}).items():
         assert _sha(np.asarray(_chain(img, chain, lambda im, s: im.resize(s)))) == want, chain

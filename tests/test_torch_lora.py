@@ -11,6 +11,7 @@ from reflectionflow_tpu.lora import lora as jlora
 from reflectionflow_tpu_torch.lora import lora as tlora
 from reflectionflow_tpu_torch.train.train_loop import export_diffusers_lora
 from reflectionflow_tpu_torch.utils import safetensors_io
+from reflectionflow_tpu_torch.utils import threefry
 from reflectionflow_tpu_torch.utils.jax_bridge import lora_from_jax, lora_to_jax
 
 from test_torch_cond_dit import cond_inputs, jax_lora
@@ -32,12 +33,15 @@ def test_lora_init_targets_match_jax():
     jcfg, params, dit = _models()
     dit.requires_grad_(False)
     want = jlora.lora_init(jax.random.PRNGKey(0), params, r=4, alpha=8.0)
-    got = tlora.lora_init(torch.Generator().manual_seed(0), dit, r=4, alpha=8.0)
+    got = tlora.lora_init(threefry.prng_key(0), dit, r=4, alpha=8.0)
     back = lora_to_jax(got, dit)
     assert sorted(back["adapters"]) == sorted(want["adapters"])
     for path, ab in want["adapters"].items():
         assert back["adapters"][path]["A"].shape == ab["A"].shape
         assert back["adapters"][path]["B"].shape == ab["B"].shape
+        # the same key draws JAX's A (a normal within 4 fp32 ulps)
+        np.testing.assert_allclose(back["adapters"][path]["A"], np.asarray(ab["A"]), rtol=5e-7, atol=1e-7,
+                                   err_msg=path)
     assert tlora.lora_param_count(got) == jlora.lora_param_count(want)
     params_t = tlora.lora_parameters(got)
     assert all(p.dtype == torch.float32 and p.requires_grad for p in params_t)

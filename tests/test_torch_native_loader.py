@@ -94,7 +94,8 @@ def test_iter_tar_samples_falls_back_to_tarfile_and_counts(tmp_path, monkeypatch
 
 def test_corrupt_sample_is_skipped_and_unsupported_raises(tmp_path):
     """A sample whose image does not decode is skipped, as in the JAX
-    package; a format the port does not read (progressive JPEG) raises."""
+    package; a format the port does not read (arithmetic-coded JPEG: a
+    baseline file with its SOF0 marker made SOF9) raises."""
     path = str(tmp_path / "mixed.tar")
     png = encode_png(np.zeros((4, 4, 3), np.uint8))
     bad_jpeg = b"\xff\xd8\xff\xdb\x00\x03"  # a DQT segment cut short
@@ -106,8 +107,9 @@ def test_corrupt_sample_is_skipped_and_unsupported_raises(tmp_path):
     from PIL import Image
 
     buf = io.BytesIO()
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format="JPEG", progressive=True)
-    _write_tar(path, tarfile.PAX_FORMAT, [("000000.good_image.jpg", buf.getvalue()),
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format="JPEG")
+    arith = buf.getvalue().replace(b"\xff\xc0", b"\xff\xc9", 1)
+    _write_tar(path, tarfile.PAX_FORMAT, [("000000.good_image.jpg", arith),
                                           ("000000.bad_image.png", png)])
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         list(tdata.iter_tar_samples(path))

@@ -2,10 +2,9 @@
 JAX package.
 
 Both pipelines hold the same tiny fp32 weights (the JAX random init, carried
-by `utils/jax_bridge.py`) and take the same injected latents: seeded noise
-differs between `jax.random` and `torch.Generator` (ROADMAP item 24), so
-images are compared through injected latents, and the CLI through its
-filenames and metadata rows, which depend only on the seeds.
+by `utils/jax_bridge.py`) and take the same injected latents; the CLI is
+compared through its filenames and metadata rows, which depend only on the
+seeds. A seed's own latents are held to JAX's in `test_torch_threefry.py`.
 """
 
 import dataclasses

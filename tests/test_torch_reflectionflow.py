@@ -4,8 +4,8 @@
 `run_noise_prompt_scaling` and `run_nfe_filter` run in both packages with the
 same fake verifier, reflector and refiner and a deterministic numpy stub
 pipeline whose images come from sha256 of (prompt, position in the call),
-never from the latents: the same seed gives other latents in the two
-packages (ROADMAP item 24). The directory trees, PNG names and decoded
+never from the latents, so that the check does not rest on the two
+packages' pipelines agreeing to the last bit. The directory trees, PNG names and decoded
 pixels, every JSONL row and `search_state.json` (output root normalised) and
 the recorded generate calls must be equal; the condition images within 1
 level (the port's PIL-order resize against PIL's). Then the loops on the

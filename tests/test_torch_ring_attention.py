@@ -38,6 +38,7 @@ from reflectionflow_tpu_torch.ops.ring_attention import ring_attention
 from reflectionflow_tpu_torch.parallel.mesh import Mesh, make_mesh
 from reflectionflow_tpu_torch.sampler.generate import denoise, make_schedule
 from reflectionflow_tpu_torch.train.rectified_flow import make_optimizer, make_train_step, rf_loss
+from reflectionflow_tpu_torch.utils import threefry
 from reflectionflow_tpu_torch.utils.jax_bridge import lora_from_jax, lora_to_jax
 
 from test_torch_cond_dit import jax_lora
@@ -340,8 +341,7 @@ def test_train_step_runs_under_ring_pallas():
     try:
         step = make_train_step(dit, opt, alpha=2.0, r=2, attn_impl="ring_pallas")
         batch = {k: _t(v) for k, v in _train_batch(jcfg, seed=71).items()}
-        adapters, opt_state, metrics = step(adapters, opt_state, batch,
-                                            torch.Generator().manual_seed(0))
+        adapters, opt_state, metrics = step(adapters, opt_state, batch, threefry.prng_key(0))
     finally:
         tattention.set_ring_context(None)
     assert math.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0

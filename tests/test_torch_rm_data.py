@@ -24,6 +24,7 @@ from reflectionflow_tpu_torch.rm_train import data as pdata
 from reflectionflow_tpu_torch.rm_train import prompt_template as ptemplate
 from reflectionflow_tpu_torch.rm_train import train as ptrain
 from reflectionflow_tpu_torch.search.artifacts import load_geneval_metadata, save_image
+from reflectionflow_tpu_torch.utils import threefry
 from reflectionflow_tpu_torch.utils.jsonl import iter_jsonl
 
 from test_torch_qwen_vl import bridge
@@ -172,7 +173,7 @@ def test_collate_and_step(models):
     assert batch["chosen_label"][:, 0].tolist() == [1, -1]
     gen = torch.Generator().manual_seed(1)
     H = pm.lm_cfg.hidden_size
-    trainable = {"lora": ptrain.rm_lora_init(gen, pm.model, r=2, alpha=2)["adapters"],
+    trainable = {"lora": ptrain.rm_lora_init(threefry.prng_key(1), pm.model, r=2, alpha=2)["adapters"],
                  "rm_head": torch.randn((H, 1), generator=gen) * 0.1, "special": torch.zeros(H)}
     opt = ptrain.make_rm_optimizer(lr=1e-3)
     step = ptrain.make_rm_train_step(pm.model, opt, loss_type="bt", pooling="special", special_token_id=9, r=2, alpha=2)

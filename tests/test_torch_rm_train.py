@@ -38,6 +38,7 @@ from reflectionflow_tpu_torch.ops.quant import NF4Linear, QuantLinear
 from reflectionflow_tpu_torch.rm_train import losses as plosses
 from reflectionflow_tpu_torch.rm_train import train as ptrain
 from reflectionflow_tpu_torch.train.optim import flatten_tree
+from reflectionflow_tpu_torch.utils import threefry
 from reflectionflow_tpu_torch.utils.jax_bridge import (qwen_lm_state_dict, qwen_vision_state_dict,
                                                        rm_trainable_from_jax, rm_trainable_to_jax)
 from reflectionflow_tpu_torch.verifiers.qwen_verifier import QwenRewardVerifier
@@ -513,11 +514,12 @@ def test_mesh_raises_naming_slice_7b(small, tmp_path):
 def _tiny_trainable(pm, vision=False, seed=1):
     gen = torch.Generator().manual_seed(seed)
     H = pm.lm_cfg.hidden_size
-    t = {"lora": ptrain.rm_lora_init(gen, pm.model, r=2, alpha=2)["adapters"],
+    t = {"lora": ptrain.rm_lora_init(threefry.prng_key(seed), pm.model, r=2, alpha=2)["adapters"],
          "rm_head": torch.randn((H, 1), generator=gen) * 0.1,
          "special": torch.randn((H,), generator=gen) * 0.02}
     if vision:
-        t["vision_lora"] = ptrain.rm_vision_lora_init(gen, pm.visual, r=2, alpha=2)["adapters"]
+        t["vision_lora"] = ptrain.rm_vision_lora_init(threefry.fold_in(threefry.prng_key(seed), 3), pm.visual,
+                                                      r=2, alpha=2)["adapters"]
     return t
 
 
@@ -732,7 +734,7 @@ def test_trainable_bridge_roundtrip(small):
     b = pt["vision_lora"]["merger.mlp.2"]["lora_B"]
     np.testing.assert_array_equal(b.detach().numpy(), jt["vision_lora"]["merger/fc2/w"]["B"].T)
     pm = _port_model(small)
-    names = set(ptrain.rm_lora_init(torch.Generator().manual_seed(0), pm.model, r=R)["adapters"])
+    names = set(ptrain.rm_lora_init(threefry.prng_key(0), pm.model, r=R)["adapters"])
     assert names == set(pt["lora"])
-    names = set(ptrain.rm_vision_lora_init(torch.Generator().manual_seed(0), pm.visual, r=R)["adapters"])
+    names = set(ptrain.rm_vision_lora_init(threefry.prng_key(0), pm.visual, r=R)["adapters"])
     assert names == set(pt["vision_lora"])

@@ -19,6 +19,7 @@ from reflectionflow_tpu.utils import hf_convert
 from reflectionflow_tpu_torch import config as tconfig
 from reflectionflow_tpu_torch.models.flux import vae as tvae
 from reflectionflow_tpu_torch.sampler import condition as tcond
+from reflectionflow_tpu_torch.utils import threefry
 from reflectionflow_tpu_torch.utils.jax_bridge import vae_state_dict
 
 from test_torch_flux_dit import perturbed
@@ -48,15 +49,19 @@ def test_vae_encode_matches_jax(chans):
 
 
 def test_vae_encode_samples_with_a_generator():
-    """With a generator the latents are mean + exp(logvar / 2) * noise."""
-    cfg, _, vae = _vae()
-    x = torch.from_numpy(np.random.default_rng(7).uniform(-1, 1, (1, 16, 16, 3)).astype(np.float32))
+    """With a key the latents are mean + exp(logvar / 2) * noise, the noise
+    the JAX package's `vae_encode` draws from the same key."""
+    cfg, params, vae = _vae()
+    x = np.random.default_rng(7).uniform(-1, 1, (1, 16, 16, 3)).astype(np.float32)
     with torch.no_grad():
-        mean, logvar = tvae.vae_encode_moments(vae, x).chunk(2, dim=-1)
-        got = tvae.vae_encode(vae, x, generator=torch.Generator().manual_seed(0))
-    noise = torch.randn(mean.shape, generator=torch.Generator().manual_seed(0))
+        mean, logvar = tvae.vae_encode_moments(vae, torch.from_numpy(x)).chunk(2, dim=-1)
+        got = tvae.vae_encode(vae, torch.from_numpy(x), key=threefry.prng_key(3))
+    noise = threefry.normal(threefry.prng_key(3), tuple(mean.shape))
     want = (mean + torch.exp(0.5 * logvar.clamp(-30, 20)) * noise - cfg.shift_factor) * cfg.scaling_factor
     torch.testing.assert_close(got, want)
+    jwant = vae_encode(jax.tree.map(jnp.asarray, params["encoder"]), cfg, jnp.asarray(x),
+                       jax.random.PRNGKey(3))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jwant), atol=ATOL, rtol=1e-4)
 
 
 def test_bridge_round_trips_vae_encoder():
