@@ -93,18 +93,25 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      171 K6b launches (no K2–K5); prints s/step, peak memory and a profiler
      split of one step; at B=1 the adapter gradients with K1 + K6 agree with
      the plain attention's (cosine >= 0.99 per adapter family);
-  5e. GenRef JPEG training, on the same bf16 pipeline: each committed JPEG
-     fixture of tests/data/torch_jpeg/ (sequential, progressive, grey, CMYK,
-     YCCK) decodes (`utils/image_io.py`) to the sha256 of PIL's decode in its
-     manifest, and `resize_bicubic` gives the manifest's PIL resize hashes at
-     the paired-crop shapes and equals `resize_ref` bit for bit; the
-     progressive fixture cut after its fifth scan raises
-     NotImplementedError; each PNG fixture (every colour type and bit depth,
-     PLTE, tRNS, Adam7) decodes to PIL's hash; `encode_jpeg` of each
-     committed pixel array gives the sha256 of PIL's default save; the median of GENREF_REPS runs of: a 1024^2 4:2:0
+  5e. GenRef JPEG training, on the same bf16 pipeline: each committed image
+     fixture of tests/data/torch_jpeg/ decodes through
+     `train/data.py::decode_image` to the sha256 of PIL's decode in its
+     manifest: JPEG (sequential, progressive, grey, CMYK, YCCK, progressive
+     files cut short that libjpeg smooths, arithmetic-coded SOF9 / SOF10,
+     lossless SOF3), PNG (every colour type and bit depth, PLTE, tRNS,
+     Adam7), WebP (lossy, lossless, alpha, an animation's first frame; its
+     RGBA too) and BMP (every header, depth, bitfields and RLE kind); a
+     JPEG's `resize_bicubic` gives the manifest's PIL resize hashes at the
+     paired-crop shapes and equals `resize_ref` bit for bit; `encode_jpeg` of
+     each committed pixel array gives the sha256 of PIL's default save; the
+     median of GENREF_REPS runs of: a 1024^2 4:2:0
      decode (and the other 1024-wide fixtures), a 1024^2 -> 512^2 resize in
-     C++ and in `resize_ref` in turns, and the Paeth PNG unfilter of a
-     1024^2 RGB image in C++ and in its numpy loop in turns; a GenRef-format
+     C++ and in `resize_ref` in turns, the Paeth PNG unfilter of a
+     1024^2 RGB image in C++ and in its numpy loop in turns, and a 1024x768
+     decode of each kind this port reads beside the baseline JPEG (WebP
+     lossy and lossless, arithmetic-coded progressive, lossless JPEG, a
+     smoothed progressive file cut after 5 scans, and a 24-bit BMP this
+     script writes from the decoded baseline); a GenRef-format
      tar of GENREF_SAMPLES samples (the 1024^2 fixtures good, the 1024x768
      one bad, subsets general / length / rule / editing, every other sample's
      members under PAX long names) indexed by `utils/native.py`; one
@@ -199,7 +206,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      per image and peak memory; then, with the model still resident, one
      synthetic clip of 8 frames at 448 px through the verifier: a finite score
      on the grid `fetch_video` + `video_to_patches` give it ((4, 32, 32)), and
-     its ms;
+     its ms; then a clip of 8 frames at 448 px (`clip_frame`) read back from a
+     frame directory of lossless WebP frames (the committed fixtures) and
+     24-bit BMP frames (written here) by the score CLI's reader
+     (`search/artifacts.py::load_image` -> `_read_frame_dir`): the frames
+     equal the array bitwise, 4 WebP and 4 BMP decodes counted, and the
+     verifier scores the clip finitely;
   11. the NVILA-scored round: K1 at the preset's shape (B=1, L=512+4096+1024,
      main_len 4608, cross bias 0) against its plain version, a second launch
      bitwise equal, timed in turns with it and beside SDPA; a full-size
@@ -417,7 +429,10 @@ SNAP_QWEN_LM_LAYERS, SNAP_QWEN_VIS_BLOCKS = 2, 2
 QWEN_NEW_TOKENS = 64  # phase 10's reflection decode (LocalQwenReflector's default 256, cut)
 QWEN_COS = 0.999  # cached decode logits against a full recompute
 QWEN_INT8_TOL = 0.1  # phase 9's Qwen verifier: |W8A8 score - bf16 score|, scores of order 1
-QWEN_CLIP_FRAMES, QWEN_CLIP_PX = 8, 448  # phase 10's synthetic video clip
+QWEN_CLIP_FRAMES, QWEN_CLIP_PX = 8, 448  # phase 10's synthetic video clips
+# phase 5e's 1024x768 decode timings of the image kinds beside the baseline JPEG (BMP: written here)
+KIND_FIXTURES = ("webp_lossy_1024x768_q75.webp", "webp_lossless_1024x768_m4.webp", "arith_prog_420_1024x768.jpg",
+                 "lossless_p7_rst32_1024x768.jpg", "progressive_cut5_1024x768.jpg")
 NVILA_INT8_TOL = 0.12  # phase 11: |W8A8 - bf16| of the yes and no logits (|logit| 0.03-0.70; read 0.060, 0.074)
 NVILA_TIMED_B = 2  # phase 11: the NVILA score pass timed at this batch
 NVILA_TIMED_REPS = 9  # phase 11: its repetitions, int8 and bf16 in turns; the median is kept
@@ -1647,23 +1662,25 @@ def _median_ms(fns: dict, reps: int) -> dict:
 
 
 def genref_fixtures(image_io) -> dict:
-    """Every committed fixture: a JPEG's decode and its resize chains against
-    the manifest's PIL hashes, each resize against `resize_ref` bit for bit
-    (a progressive file cut short raises NotImplementedError); a PNG's
-    decode (`train/data.py::decode_png`) against PIL's hash; the JPEG
-    writer's bytes for each committed pixel array against PIL's save.
-    Returns {name: (bytes, decoded image)} of the decodable JPEG files."""
+    """Every committed fixture: each image file (JPEG of every kind, PNG,
+    WebP, BMP) decodes through `train/data.py::decode_image` to the sha256 of
+    PIL's decode in the manifest (a WebP's RGBA too); a JPEG's resize chains
+    give the manifest's PIL hashes and equal `resize_ref` bit for bit; the
+    JPEG writer's bytes for each committed pixel array equal PIL's save.
+    Returns {name: (bytes, decoded image)} of the PIL-written JPEG files that
+    are not cut short (phase 5e's shard and timings)."""
     import hashlib
 
     import numpy as np
 
-    from reflectionflow_tpu_torch.train.data import decode_png
+    from reflectionflow_tpu_torch.train.data import decode_image
 
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
     out, kinds = {}, {}
     for name, entry in sorted(manifest.items()):
-        kinds[entry["kind"]] = kinds.get(entry["kind"], 0) + 1
+        kind = entry["kind"] + ("/" + entry["coding"] if "coding" in entry else "")
+        kinds[kind] = kinds.get(kind, 0) + 1
         if entry["kind"] == "encode":
             arr = np.load(os.path.join(FIXTURES, "encode_pixels.npz"))[entry["pixels"]]
             check(_sha256(arr) == entry["pixels_sha256"], f"{name}: not the committed pixels")
@@ -1673,30 +1690,46 @@ def genref_fixtures(image_io) -> dict:
         with open(os.path.join(FIXTURES, name), "rb") as f:
             data = f.read()
         check(_sha256(data) == entry["file_sha256"], f"{name}: not the committed fixture")
-        if entry["kind"] == "png":
-            check(_sha256(decode_png(data)) == entry["decode_sha256"], f"{name}: decode differs from PIL's")
-            continue
-        if "raises" in entry:
-            try:
-                image_io.decode_jpeg(data)
-            except NotImplementedError as e:
-                log(f"fixture {name}: NotImplementedError ({e})")
-                continue
-            check(False, f"{name} decoded; it must raise NotImplementedError")
-        img = image_io.decode_jpeg(data)
+        img = decode_image(data)
         check(_sha256(img) == entry["decode_sha256"], f"{name}: decode differs from PIL's")
-        for chain, want in entry["resize_sha256"].items():
+        if entry["kind"] == "webp":
+            check(_sha256(image_io.decode_webp(data)) == entry["rgba_sha256"], f"{name}: RGBA differs")
+        for chain, want in entry.get("resize_sha256", {}).items():
             got = ref = img
             for step in chain.split(","):
                 size = tuple(int(v) for v in step.split("x"))
                 got, ref = image_io.resize_bicubic(got, size), image_io.resize_ref(ref, size)
             check(_sha256(got) == want, f"{name}: resize {chain} differs from PIL's")
             check(bool((got == ref).all()), f"{name}: resize {chain} differs from resize_ref")
-        log(f"fixture {name} ({img.shape[1]}x{img.shape[0]}): decode and {len(entry['resize_sha256'])} "
-            "resize chains equal PIL's hashes; resize_ref bitwise")
-        out[name] = (data, img)
-    log(f"fixtures by kind {kinds}: JPEG and PNG decodes and JPEG writer bytes equal PIL's hashes")
+        if entry["kind"] == "jpeg" and "coding" not in entry:
+            log(f"fixture {name} ({img.shape[1]}x{img.shape[0]}): decode and {len(entry['resize_sha256'])} "
+                "resize chains equal PIL's hashes; resize_ref bitwise")
+            if "cut_scans" not in entry["save"]:
+                out[name] = (data, img)
+    log(f"fixtures by kind {kinds}: every decode, WebP RGBA and JPEG writer bytes equal PIL's hashes")
     return out
+
+
+def clip_frame(t: int, px: int = QWEN_CLIP_PX):
+    """Frame t of phase 10's frame-directory clip, (px, px, 3) uint8 integer
+    patterns (tests/data/torch_jpeg/make_fixtures.py holds the same function
+    and the lossless WebP files of the even frames)."""
+    import numpy as np
+
+    y, x = np.mgrid[0:px, 0:px]
+    return np.stack([(x + 2 * y + 16 * t) & 255, (4 * ((x >> 3) ^ (y >> 3)) + 8 * t) & 255,
+                     (3 * x - y + 32 * t) & 255], axis=-1).astype(np.uint8)
+
+
+def write_bmp24(rgb) -> bytes:
+    """(H, W, 3) uint8 RGB -> a 24-bit bottom-up BMP (INFO header)."""
+    import numpy as np
+
+    h, w = rgb.shape[:2]
+    rows = np.ascontiguousarray(rgb[::-1, :, ::-1]).reshape(h, w * 3)
+    rows = np.pad(rows, ((0, 0), (0, (-w * 3) % 4))).tobytes()
+    head = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, len(rows), 2835, 2835, 0, 0)
+    return b"BM" + struct.pack("<IHHI", 54 + len(rows), 0, 0, 54) + head + rows
 
 
 def write_genref_jpeg_shard(path: str, goods: list, bad: bytes) -> None:
@@ -1750,7 +1783,16 @@ def genref_phase(torch, pipe, card: str, host_build_s: float) -> dict:
                 == image_io.png_unfilter_ref(raw, 1024, 3072, 3)).all()), "Paeth unfilter differs")
     paeth = _median_ms({"cpp": lambda: image_io.png_unfilter(raw, 1024, 3072, 3),
                         "numpy": lambda: image_io.png_unfilter_ref(raw, 1024, 3072, 3)}, GENREF_REPS)
+    kind_data = {"jpeg_baseline": fixtures[bad_name][0], "bmp_24": write_bmp24(fixtures[bad_name][1])}
+    check(bool((tdata.decode_image(kind_data["bmp_24"]) == fixtures[bad_name][1]).all()), "BMP round trip differs")
+    for name in KIND_FIXTURES:
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            kind_data[name] = f.read()
+    kinds_ms = _median_ms({k: (lambda d=d: tdata.decode_image(d)) for k, d in kind_data.items()}, GENREF_REPS)
+    log(f"host decode at 1024x768 (median of {GENREF_REPS}): "
+        f"{', '.join(f'{n} {v:.2f} ms' for n, v in kinds_ms.items())}; {card}")
     out.update(decode_ms=dec, decode_ms_1024_420=dec["good_a_1024_q75_420.jpg"], resize_ms=res["cpp"],
+               decode_ms_1024x768_kinds=kinds_ms,
                resize_ref_ms=res["resize_ref"], resize_ref_ratio=res["resize_ref"] / res["cpp"],
                paeth_unfilter_ms=paeth["cpp"], paeth_unfilter_numpy_ms=paeth["numpy"])
     log(f"host codecs (median of {GENREF_REPS}): decode ms {', '.join(f'{n} {v:.2f}' for n, v in dec.items())}; "
@@ -2993,7 +3035,43 @@ def qwen_clip_check(torch, verifier) -> dict:
     check(math.isfinite(score), f"clip score {score}")
     log(f"Qwen2.5-VL clip ({QWEN_CLIP_FRAMES} x {QWEN_CLIP_PX} px, max_pixels {verifier.max_pixels}): grid {grid}, "
         f"{n_pads} video pads, score {score:.4f}, {times[-1]:.1f} ms (first call {times[0]:.1f} ms)")
-    return {"grid": list(grid), "video_pads": n_pads, "score": score, "ms": times[-1], "first_ms": times[0]}
+    return {"grid": list(grid), "video_pads": n_pads, "score": score, "ms": times[-1], "first_ms": times[0],
+            "frame_dir": frame_dir_clip(verifier, prompt)}
+
+
+def frame_dir_clip(verifier, prompt: str) -> dict:
+    """Phase 10's clip from a frame directory: even frames the committed
+    lossless WebP fixtures, odd frames 24-bit BMP written here, read by the
+    score CLI's reader; equal to `clip_frame`'s array bitwise and scored
+    finitely."""
+    import shutil
+
+    import numpy as np
+
+    from reflectionflow_tpu_torch.search.artifacts import load_image
+    from reflectionflow_tpu_torch.utils import image_io
+
+    want = np.stack([clip_frame(t) for t in range(QWEN_CLIP_FRAMES)])
+    calls0 = dict(image_io.calls)
+    with tempfile.TemporaryDirectory() as tmp:
+        for t in range(QWEN_CLIP_FRAMES):
+            if t % 2 == 0:
+                shutil.copy(os.path.join(FIXTURES, f"clip_{QWEN_CLIP_PX}_t{t}.webp"),
+                            os.path.join(tmp, f"frame_{t:02d}.webp"))
+            else:
+                with open(os.path.join(tmp, f"frame_{t:02d}.bmp"), "wb") as f:
+                    f.write(write_bmp24(want[t]))
+        t0 = time.perf_counter()
+        frames = load_image(tmp)
+        read_ms = (time.perf_counter() - t0) * 1e3
+    n = {k: image_io.calls[k] - calls0.get(k, 0) for k in ("decode_webp", "decode_bmp")}
+    check(frames.shape == want.shape and bool((frames == want).all()), "frame-directory clip differs from its array")
+    check(n == {"decode_webp": QWEN_CLIP_FRAMES // 2, "decode_bmp": QWEN_CLIP_FRAMES // 2}, f"frame decodes {n}")
+    score = verifier.raw_scores([frames], [prompt])[0]
+    check(math.isfinite(score), f"frame-directory clip score {score}")
+    log(f"Qwen2.5-VL clip from a frame directory ({QWEN_CLIP_FRAMES // 2} WebP + {QWEN_CLIP_FRAMES // 2} BMP frames "
+        f"at {QWEN_CLIP_PX} px): equal to its array bitwise, read in {read_ms:.1f} ms, score {score:.4f}")
+    return {"equal": True, "decodes": n, "read_ms": read_ms, "score": score}
 
 
 def k1_preset_check(torch) -> dict:
@@ -5123,7 +5201,7 @@ def main() -> int:
 
     def build_host():
         t1 = time.perf_counter()
-        kernel_build.build_host_all([image_io.SOURCE, native.SOURCE])
+        kernel_build.build_host_all([*image_io.SOURCES, native.SOURCE])
         return time.perf_counter() - t1
 
     with ThreadPoolExecutor(1) as pool:
@@ -5131,7 +5209,8 @@ def main() -> int:
         kernel_build.build_all()
         host_build_s = host.result()
     log(f"build {', '.join(kernel_build.SOURCES)} (in parallel): {time.perf_counter() - t0:.2f} s; "
-        f"host libraries image_io.cpp and genref_loader.cpp (g++, beside them): {host_build_s:.2f} s")
+        f"host libraries image_io.cpp, bmp.cpp, webp.cpp and genref_loader.cpp (g++, beside them): "
+        f"{host_build_s:.2f} s")
     ptxas = {src: kernel_build.ptxas_report(src) for src in kernel_build.SOURCES}
     log(json.dumps({"ptxas": ptxas}))
     hopper_sass = hopper_check(kernel_build, ptxas)

@@ -2,17 +2,23 @@
 // (bound with ctypes in `utils/image_io.py`, built with g++ by
 // `ops/kernel_build.py::build_host`):
 //
-//   * rf_jpeg_decode: baseline / extended sequential Huffman JPEG at 8 bits,
-//     1 (grey) or 3 (YCbCr, or RGB per the Adobe marker / component ids)
-//     components, any integral sampling, restart intervals, several scans.
-//     It reproduces libjpeg(-turbo)'s default decode, which PIL runs:
-//     the accurate integer IDCT (jidctint.c, CONST_BITS 13, PASS1_BITS 2, the
-//     masked range limit around CENTERJSAMPLE), fancy upsampling (jdsample.c
-//     h2v1 / h2v2 / h1v2 triangle filters over edge-replicated planes, box
-//     replication when the chroma is at most 2 samples wide) and the
-//     fixed-point YCbCr -> RGB tables (jdcolor.c, SCALEBITS 16).
-//     Progressive, arithmetic, lossless, hierarchical and 12-bit frames and
-//     4-component images return RF_UNSUPPORTED; corrupt or truncated data and
+//   * rf_jpeg_decode: every JPEG that PIL's libjpeg-turbo 3.1 decodes at 8
+//     bits, as it decodes it: sequential and progressive DCT frames, Huffman
+//     or arithmetic-coded (jdarith.c, with DAC conditioning), and lossless
+//     frames (SOF3: predictors 1-7, point transform, restarts; jdlossls.c);
+//     1 (grey), 3 (YCbCr, or RGB per the Adobe marker / component ids) or 4
+//     (CMYK, YCCK) components, any integral sampling, restart intervals,
+//     several scans. The DCT path is the accurate integer IDCT (jidctint.c,
+//     CONST_BITS 13, PASS1_BITS 2, the masked range limit around
+//     CENTERJSAMPLE), libjpeg-turbo's block smoothing of progressive files
+//     whose scans leave AC coefficients 1-9 unrefined (jdcoefct.c
+//     decompress_smooth_data), fancy upsampling (jdsample.c h2v1 / h2v2 /
+//     h1v2 triangle filters over edge-replicated planes, box replication
+//     when the chroma is at most 2 samples wide, and always for lossless
+//     frames) and the fixed-point YCbCr -> RGB tables (jdcolor.c, SCALEBITS
+//     16). What PIL refuses (12-bit and hierarchical frames, arithmetic-coded
+//     lossless frames, fractional sampling, height 0, colour conversion of a
+//     lossless frame) returns RF_REFUSED; corrupt or truncated data and
 //     missing tables return RF_CORRUPT. Every read is bounded by the buffer.
 //   * rf_resize_bicubic: Pillow's 8-bit ImagingResample with the bicubic
 //     filter (a = -0.5, support 2 * max(scale, 1), coefficients normalized in
@@ -32,7 +38,7 @@ namespace {
 
 constexpr int RF_OK = 0;
 constexpr int RF_CORRUPT = -1;
-constexpr int RF_UNSUPPORTED = -2;
+constexpr int RF_REFUSED = -3;
 constexpr int RF_NEED_BUFFER = 1;
 
 struct Fail {
@@ -41,12 +47,9 @@ struct Fail {
 };
 
 [[noreturn]] void corrupt(const std::string& msg) { throw Fail{RF_CORRUPT, msg}; }
-[[noreturn]] void unsupported(const std::string& msg) {
-  throw Fail{RF_UNSUPPORTED, msg + " is not supported yet (ROADMAP queue 1)"};
-}
 // What PIL cannot open either: refused for good, not queued.
 [[noreturn]] void refused(const std::string& msg) {
-  throw Fail{RF_UNSUPPORTED, msg + " is refused, as PIL refuses it"};
+  throw Fail{RF_REFUSED, msg + " is refused, as PIL refuses it"};
 }
 
 void write_err(const std::string& msg, char* err, int64_t cap) {
@@ -68,13 +71,14 @@ constexpr int kLookBits = 9;
 
 struct Huffman {
   bool present = false;
+  int max_sym = 0;  // checked per scan: 15 for a DCT DC table, 16 for a lossless one
   uint8_t vals[256] = {0};
   int32_t maxcode[18] = {0};
   int32_t valoffset[18] = {0};
   uint16_t look[1 << kLookBits] = {0};  // (length << 8) | symbol; length 0: slow path
 
   // jdhuff.c jpeg_make_d_derived_tbl
-  void build(const uint8_t* bits, const uint8_t* values, int nvals, bool dc) {
+  void build(const uint8_t* bits, const uint8_t* values, int nvals) {
     uint8_t huffsize[257];
     uint32_t huffcode[257];
     int p = 0;
@@ -112,9 +116,8 @@ struct Huffman {
           look[lookbits++] = static_cast<uint16_t>((l << 8) | vals[p]);
       }
     }
-    if (dc)
-      for (int i = 0; i < nvals; ++i)
-        if (values[i] > 15) corrupt("bad DC Huffman table");
+    max_sym = 0;
+    for (int i = 0; i < nvals; ++i) max_sym = values[i] > max_sym ? values[i] : max_sym;
     present = true;
   }
 };
@@ -128,6 +131,11 @@ struct Component {
   bool latched = false, scanned = false;
   int32_t quant[64] = {0};  // natural order
   std::vector<int16_t> coef;  // (bh * bw) blocks of 64, natural order
+  // lossless: the differences ((bh * bw) samples, the MCU grid), the scan's
+  // predictor and point transform, and the rows undifferenced as a first row
+  std::vector<int32_t> diff;
+  int psv = 0, pt = 0;
+  std::vector<uint8_t> first_row;
   std::vector<uint8_t> plane;  // (hblocks * 8) x (wblocks * 8) samples
 };
 
@@ -208,7 +216,120 @@ class BitReader {
   bool marker_ = false, eod_ = false;
 };
 
-inline int extend(int x, int s) { return x < (1 << (s - 1)) ? x + (-1 << s) + 1 : x; }
+inline int extend(int x, int s) { return x < (1 << (s - 1)) ? x - (1 << s) + 1 : x; }
+
+// T.81 Table D.2, packed as libjpeg's jaricom.c packs it:
+// (Qe << 16) | (Next_Index_MPS << 8) | (Switch_MPS << 7) | Next_Index_LPS.
+const uint32_t kAriTab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617, 0x00e50719,
+    0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09, 0x00030d0a, 0x00010d0c,
+    0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a, 0x0cef152b,
+    0x09a1162d, 0x072f172e, 0x055c1830, 0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36,
+    0x01441d38, 0x00f51e39, 0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320,
+    0x002c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d, 0x0861314e,
+    0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633, 0x02d43734, 0x025c3835,
+    0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39, 0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d,
+    0x008f203d, 0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654,
+    0x23794756, 0x1edf4857, 0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a,
+    0x0d514e4b, 0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f, 0x44d95b60,
+    0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df, 0x4f466165, 0x47e56266,
+    0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b, 0x415e6367,
+    0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
+    0x59eb6ff0, 0x5a1d7171,
+};
+
+// jdarith.c arith_decode: the QM decoder with libjpeg's C register layout. A
+// marker met in the data is left unread and zeros are decoded from then on.
+class ArithDecoder {
+ public:
+  ArithDecoder(const uint8_t* d, size_t n, size_t pos) : d_(d), n_(n), pos_(pos) {}
+
+  void reset() {
+    c_ = 0;
+    a_ = 0;
+    ct_ = -16;
+  }
+  size_t pos() const { return pos_; }
+  int unread_marker() const { return marker_; }
+  size_t marker_pos() const { return marker_pos_; }
+  void take_marker(size_t after) {
+    marker_ = 0;
+    pos_ = after;
+  }
+  bool overran() const { return overran_; }
+
+  int decode(uint8_t* st) {
+    while (a_ < 0x8000) {
+      if (--ct_ < 0) {
+        int data = 0;
+        if (!marker_) {
+          data = byte();
+          if (data == 0xFF) {
+            const size_t at = pos_ - 1;
+            do data = byte(); while (data == 0xFF && !overran_);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              marker_ = data;
+              marker_pos_ = at;
+              data = 0;
+            }
+          }
+        }
+        c_ = (c_ << 8) | data;
+        if ((ct_ += 8) < 0)
+          if (++ct_ == 0) a_ = 0x8000;
+      }
+      a_ <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAriTab[sv & 0x7F];
+    const int nl = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    const int nm = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a_ - qe;
+    a_ = temp;
+    temp <<= ct_;
+    if (c_ >= temp) {
+      c_ -= temp;
+      if (a_ < qe) {
+        a_ = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a_ = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a_ < 0x8000) {
+      if (a_ < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+ private:
+  const uint8_t* d_;
+  size_t n_, pos_;
+  int64_t c_ = 0, a_ = 0;
+  int ct_ = -16, marker_ = 0;
+  size_t marker_pos_ = 0;
+  bool overran_ = false;
+
+  int byte() {
+    if (pos_ >= n_) {
+      overran_ = true;
+      return 0;
+    }
+    return d_[pos_++];
+  }
+};
 
 // jidctint.c jpeg_idct_islow with the masked post-IDCT range limit.
 inline uint8_t range_limit(int64_t x) {
@@ -305,10 +426,11 @@ void idct_islow(const int16_t* in, const int32_t* q, uint8_t* out, int stride) {
 // jdsample.c: a downsampled plane (dw x dh, row stride `ps`) -> its
 // (ceil to W) x H upsampled plane `out` for expansion (eh, ev).
 void upsample(const uint8_t* in, int dw, int dh, int ps, int eh, int ev, uint8_t* out, int W,
-              int H) {
+              int H, bool fancy) {
   std::vector<uint8_t> row(static_cast<size_t>(dw) * eh + 2);
   auto src = [&](int r) { return in + static_cast<size_t>(r < 0 ? 0 : (r >= dh ? dh - 1 : r)) * ps; };
-  if (eh == 2 && ev == 2 && dw > 2) {  // h2v2_fancy_upsample
+  // (Lossless frames: libjpeg's DCT size 1 turns fancy upsampling off.)
+  if (fancy && eh == 2 && ev == 2 && dw > 2) {  // h2v2_fancy_upsample
     for (int y = 0; y < H; ++y) {
       int r = y >> 1;
       const uint8_t* i0 = src(r);
@@ -330,7 +452,7 @@ void upsample(const uint8_t* in, int dw, int dh, int ps, int eh, int ev, uint8_t
       *o++ = static_cast<uint8_t>((this_s * 4 + 7) >> 4);
       memcpy(out + static_cast<size_t>(y) * W, row.data(), static_cast<size_t>(W));
     }
-  } else if (eh == 2 && ev == 1 && dw > 2) {  // h2v1_fancy_upsample
+  } else if (fancy && eh == 2 && ev == 1 && dw > 2) {  // h2v1_fancy_upsample
     for (int y = 0; y < H; ++y) {
       const uint8_t* ip = src(y);
       uint8_t* o = row.data();
@@ -347,7 +469,7 @@ void upsample(const uint8_t* in, int dw, int dh, int ps, int eh, int ev, uint8_t
       *o++ = static_cast<uint8_t>(v);
       memcpy(out + static_cast<size_t>(y) * W, row.data(), static_cast<size_t>(W));
     }
-  } else if (eh == 1 && ev == 2) {  // h1v2_fancy_upsample
+  } else if (fancy && eh == 1 && ev == 2) {  // h1v2_fancy_upsample
     for (int y = 0; y < H; ++y) {
       int r = y >> 1;
       const uint8_t* i0 = src(r);
@@ -391,10 +513,7 @@ class Decoder {
     }
     for (auto& c : comps_)
       if (!c.scanned) corrupt("a component has no scan");
-    if (would_smooth())
-      unsupported("a progressive JPEG whose scans leave AC coefficients 1-9 unrefined (libjpeg's "
-                  "block smoothing)");
-    finish(out);
+    finish(out, would_smooth());
   }
 
   int width() const { return W_; }
@@ -405,7 +524,9 @@ class Decoder {
   size_t n_, pos_ = 0;
   int W_ = 0, H_ = 0, max_h_ = 1, max_v_ = 1, mcux_ = 0, mcuy_ = 0;
   int restart_ = 0;
-  bool have_frame_ = false, jfif_ = false, adobe_ = false, progressive_ = false;
+  bool have_frame_ = false, jfif_ = false, adobe_ = false, progressive_ = false, arith_ = false, lossless_ = false;
+  // DAC conditioning (T.81 defaults): DC L and U, AC Kx, by table
+  int dc_l_[4] = {0, 0, 0, 0}, dc_u_[4] = {1, 1, 1, 1}, ac_k_[4] = {5, 5, 5, 5};
   int eobrun_ = 0;
   int coef_bits_[4][64];  // jdphuff.c: the Al of each coefficient's last scan, -1 before any
   int adobe_transform_ = -1;
@@ -447,13 +568,25 @@ class Decoder {
     switch (m) {
       case 0xC0:
       case 0xC1:
-        frame(end, false);
+        frame(end, false, false, false);
         break;
       case 0xC2:
-        frame(end, true);
+        frame(end, true, false, false);
         break;
       case 0xC3:
-        unsupported("lossless JPEG");
+        frame(end, false, false, true);
+        break;
+      case 0xC9:
+        frame(end, false, true, false);
+        break;
+      case 0xCA:
+        frame(end, true, true, false);
+        break;
+      case 0xCB:
+        refused("arithmetic-coded lossless JPEG");
+      case 0xCC:
+        dac(end);
+        break;
       case 0xC5:
       case 0xC6:
       case 0xC7:
@@ -461,12 +594,6 @@ class Decoder {
       case 0xCE:
       case 0xCF:
         refused("hierarchical (differential) JPEG");
-      case 0xC9:
-      case 0xCA:
-      case 0xCC:
-        unsupported("arithmetic-coded JPEG");
-      case 0xCB:
-        unsupported("arithmetic-coded lossless JPEG");
       case 0xC4:
         dht(end);
         break;
@@ -477,8 +604,6 @@ class Decoder {
         if (end - pos_ < 2) corrupt("bad DRI segment");
         restart_ = word();
         break;
-      case 0xDC:
-        unsupported("a DNL marker");
       case 0xE0:
         if (end - pos_ >= 14 && memcmp(d_ + pos_, "JFIF\0", 5) == 0) jfif_ = true;
         break;
@@ -489,23 +614,25 @@ class Decoder {
         }
         break;
       default:
-        break;  // other APPn, COM, JPGn: skipped
+        break;  // DNL (as libjpeg skips it), other APPn, COM, JPGn: skipped
     }
     if (pos_ > end) corrupt("JPEG segment overrun");
     pos_ = end;
   }
 
-  void frame(size_t end, bool progressive) {
+  void frame(size_t end, bool progressive, bool arith, bool lossless) {
     if (have_frame_) corrupt("two frames in one JPEG");
     if (end - pos_ < 6) corrupt("bad SOF segment");
     progressive_ = progressive;
+    arith_ = arith;
+    lossless_ = lossless;
     int precision = byte();
     H_ = word();
     W_ = word();
     int nc = byte();
     if (precision != 8) refused(std::to_string(precision) + "-bit JPEG");
     if (nc != 1 && nc != 3 && nc != 4) refused(std::to_string(nc) + "-component JPEG");
-    if (H_ == 0) unsupported("a JPEG whose height is given by DNL");
+    if (H_ == 0) refused("a JPEG of height 0 (its height given by DNL)");
     if (W_ == 0) corrupt("JPEG of width 0");
     if (end - pos_ < static_cast<size_t>(3 * nc)) corrupt("bad SOF segment");
     comps_.resize(static_cast<size_t>(nc));
@@ -519,19 +646,23 @@ class Decoder {
       max_h_ = c.h > max_h_ ? c.h : max_h_;
       max_v_ = c.v > max_v_ ? c.v : max_v_;
     }
-    mcux_ = (W_ + 8 * max_h_ - 1) / (8 * max_h_);
-    mcuy_ = (H_ + 8 * max_v_ - 1) / (8 * max_v_);
+    const int unit = lossless ? 1 : 8;  // a lossless "block" is one sample
+    mcux_ = (W_ + unit * max_h_ - 1) / (unit * max_h_);
+    mcuy_ = (H_ + unit * max_v_ - 1) / (unit * max_v_);
     for (auto& row : coef_bits_)
       for (int& b : row) b = -1;
     for (auto& c : comps_) {
-      if (max_h_ % c.h || max_v_ % c.v) unsupported("fractional JPEG sampling");
+      if (max_h_ % c.h || max_v_ % c.v) refused("fractional JPEG sampling");
       c.dw = static_cast<int>((static_cast<int64_t>(W_) * c.h + max_h_ - 1) / max_h_);
       c.dh = static_cast<int>((static_cast<int64_t>(H_) * c.v + max_v_ - 1) / max_v_);
       c.wblocks = (c.dw + 7) / 8;
       c.hblocks = (c.dh + 7) / 8;
       c.bw = mcux_ * c.h;
       c.bh = mcuy_ * c.v;
-      c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+      if (lossless)
+        c.diff.assign(static_cast<size_t>(c.bw) * c.bh, 0);
+      else
+        c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
     }
     have_frame_ = true;
   }
@@ -546,7 +677,7 @@ class Decoder {
       if (end - pos_ < 16) corrupt("bad DHT segment");
       for (int l = 1; l <= 16; ++l) total += bits[l] = static_cast<uint8_t>(byte());
       if (total > 256 || end - pos_ < static_cast<size_t>(total)) corrupt("bad DHT segment");
-      (tc ? ac_ : dc_)[th].build(bits, d_ + pos_, total, tc == 0);
+      (tc ? ac_ : dc_)[th].build(bits, d_ + pos_, total);
       pos_ += static_cast<size_t>(total);
     }
   }
@@ -562,8 +693,36 @@ class Decoder {
     }
   }
 
+  void dac(size_t end) {  // jdmarker.c get_dac
+    if ((end - pos_) % 2) corrupt("bad DAC segment");
+    while (pos_ < end) {
+      int index = byte(), val = byte();
+      if (index >= 32) corrupt("bad DAC table index");
+      if (index >= 16) {
+        if (index - 16 < 4) ac_k_[index - 16] = val;
+      } else if (index < 4) {
+        dc_l_[index] = val & 15;
+        dc_u_[index] = val >> 4;
+        if (dc_l_[index] > dc_u_[index]) corrupt("bad DAC value");
+      }
+    }
+  }
+
+  // jdapimin.c default_decompress_parms: a 3-component frame is RGB or
+  // YCbCr by its markers and component ids (lossless frames without markers
+  // are RGB).
+  bool rgb_frame() const {
+    if (jfif_) return false;
+    if (adobe_) return adobe_transform_ == 0;
+    return lossless_ || (comps_[0].id == 82 && comps_[1].id == 71 && comps_[2].id == 66);
+  }
+
   void scan() {
     if (!have_frame_) corrupt("scan before the frame");
+    // jdcolor.c: libjpeg converts no colour in lossless mode (YCbCr or YCCK),
+    // and refuses before the first scan's data
+    if (lossless_ && ((comps_.size() == 3 && !rgb_frame()) || (comps_.size() == 4 && adobe_ && adobe_transform_)))
+      refused("a lossless JPEG in YCbCr or YCCK (libjpeg converts no colour in lossless mode)");
     size_t end = segment_end();
     if (end - pos_ < 1) corrupt("bad SOS segment");
     int ns = byte();
@@ -584,7 +743,9 @@ class Decoder {
     }
     int ss = byte(), se = byte(), ahal = byte();
     int ah = ahal >> 4, al = ahal & 15;
-    if (!progressive_) {
+    if (lossless_) {  // jdlossls.c start_input_pass: the predictor, and Pt below the precision
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8) corrupt("bad lossless scan parameters");
+    } else if (!progressive_) {
       if (ss != 0 || se != 63 || ahal != 0) corrupt("bad sequential scan parameters");
     } else {  // jdphuff.c start_pass_phuff_decoder
       bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
@@ -596,10 +757,13 @@ class Decoder {
     }
     int blocks_in_mcu = 0;
     for (auto* c : sc) {
-      bool needs_dc = !progressive_ || (ss == 0 && ah == 0), needs_ac = !progressive_ || ss != 0;
-      if ((needs_dc && !dc_[c->td].present) || (needs_ac && !ac_[c->ta].present))
-        corrupt("missing Huffman table");
-      if (!c->latched) {  // jdinput.c latch_quant_tables
+      bool needs_dc = !progressive_ || (ss == 0 && ah == 0), needs_ac = !lossless_ && (!progressive_ || ss != 0);
+      if (!arith_) {
+        if ((needs_dc && !dc_[c->td].present) || (needs_ac && !ac_[c->ta].present))
+          corrupt("missing Huffman table");
+        if (needs_dc && dc_[c->td].max_sym > (lossless_ ? 16 : 15)) corrupt("bad DC Huffman table");
+      }
+      if (!lossless_ && !c->latched) {  // jdinput.c latch_quant_tables
         if (!qt_present_[c->tq]) corrupt("missing quantization table");
         memcpy(c->quant, qt_[c->tq], sizeof(c->quant));
         c->latched = true;
@@ -608,7 +772,34 @@ class Decoder {
       blocks_in_mcu += ns == 1 ? 1 : c->h * c->v;
     }
     if (blocks_in_mcu > 10) corrupt("too many blocks in a JPEG MCU");
+    if (arith_)
+      arith_scan(sc, ss, se, ah, al);
+    else if (lossless_)
+      lossless_scan(sc, ss, al);
+    else
+      huffman_scan(sc, ss, se, ah, al);
+  }
 
+  // The scan's entropy data ends at the next marker (not a restart marker).
+  void end_scan(size_t p) {
+    while (p + 1 < n_ && !(d_[p] == 0xFF && d_[p + 1] != 0x00 && !(d_[p + 1] >= 0xD0 && d_[p + 1] <= 0xD7)))
+      ++p;
+    if (p + 1 >= n_) corrupt("truncated JPEG data (no EOI)");
+    pos_ = p;
+  }
+
+  // jdmarker.c read_restart_marker after a Huffman interval: the marker right
+  // after the interval's bits.
+  static size_t huffman_restart(const uint8_t* d, size_t n, size_t p, int& next_rst) {
+    if (p + 1 >= n || d[p] != 0xFF) corrupt("missing JPEG restart marker");
+    while (p < n && d[p] == 0xFF) ++p;
+    if (p >= n || d[p] != 0xD0 + next_rst) corrupt("missing JPEG restart marker");
+    next_rst = (next_rst + 1) & 7;
+    return p + 1;
+  }
+
+  void huffman_scan(const std::vector<Component*>& sc, int ss, int se, int ah, int al) {
+    const int ns = static_cast<int>(sc.size());
     BitReader br(d_, n_, pos_);
     int pred[4] = {0, 0, 0, 0};
     eobrun_ = 0;
@@ -617,12 +808,7 @@ class Decoder {
     int next_rst = 0;
     for (int64_t m = 0; m < total; ++m) {
       if (restart_ && m > 0 && m % restart_ == 0) {
-        size_t p = br.pos();
-        if (p + 1 >= n_ || d_[p] != 0xFF) corrupt("missing JPEG restart marker");
-        while (p < n_ && d_[p] == 0xFF) ++p;
-        if (p >= n_ || d_[p] != 0xD0 + next_rst) corrupt("missing JPEG restart marker");
-        next_rst = (next_rst + 1) & 7;
-        br.set_pos(p + 1);
+        br.set_pos(huffman_restart(d_, n_, br.pos(), next_rst));
         pred[0] = pred[1] = pred[2] = pred[3] = 0;
         eobrun_ = 0;
       }
@@ -644,12 +830,268 @@ class Decoder {
       }
       if (br.overran()) corrupt("truncated JPEG data");
     }
-    // The scan's entropy data ends at the next marker.
-    size_t p = br.pos();
-    while (p + 1 < n_ && !(d_[p] == 0xFF && d_[p + 1] != 0x00 && !(d_[p + 1] >= 0xD0 && d_[p + 1] <= 0xD7)))
-      ++p;
-    if (p + 1 >= n_) corrupt("truncated JPEG data (no EOI)");
-    pos_ = p;
+    end_scan(br.pos());
+  }
+
+  // jdarith.c: the scan's MCUs (decode_mcu, decode_mcu_DC_first / _DC_refine /
+  // _AC_first / _AC_refine), statistics reset at each restart, and libjpeg's
+  // "bad code" state (nothing more is decoded until the next restart).
+  void arith_scan(const std::vector<Component*>& sc, int ss, int se, int ah, int al) {
+    const int ns = static_cast<int>(sc.size());
+    ArithDecoder ad(d_, n_, pos_);
+    uint8_t dc_stats[4][64], ac_stats[4][256];
+    uint8_t fixed = 113;  // the fixed 0.5 estimate
+    int last_dc[4] = {0, 0, 0, 0}, dc_ctx[4] = {0, 0, 0, 0};
+    auto reset = [&]() {
+      for (int i = 0; i < ns; ++i) {
+        if (!progressive_ || (ss == 0 && ah == 0)) {
+          memset(dc_stats[sc[i]->td], 0, 64);
+          last_dc[i] = dc_ctx[i] = 0;
+        }
+        if (!progressive_ || ss) memset(ac_stats[sc[i]->ta], 0, 256);
+      }
+      ad.reset();
+    };
+    reset();
+    int mx = ns == 1 ? sc[0]->wblocks : mcux_, my = ns == 1 ? sc[0]->hblocks : mcuy_;
+    int64_t total = static_cast<int64_t>(mx) * my, to_go = restart_;
+    int next_rst = 0;
+    bool dead = false;
+    for (int64_t m = 0; m < total; ++m) {
+      if (restart_) {
+        if (to_go == 0) {  // jdarith.c process_restart
+          int marker;
+          size_t after;
+          if (ad.unread_marker()) {
+            marker = ad.unread_marker();
+            after = ad.pos();
+          } else {  // jdmarker.c next_marker: skip to the next marker
+            size_t p = ad.pos();
+            for (;;) {
+              while (p < n_ && d_[p] != 0xFF) ++p;
+              while (p < n_ && d_[p] == 0xFF) ++p;
+              if (p >= n_) corrupt("missing JPEG restart marker");
+              if (d_[p] != 0) break;
+              ++p;
+            }
+            marker = d_[p];
+            after = p + 1;
+          }
+          if (marker != 0xD0 + next_rst) corrupt("missing JPEG restart marker");
+          next_rst = (next_rst + 1) & 7;
+          ad.take_marker(after);
+          reset();
+          dead = false;
+          to_go = restart_;
+        }
+        --to_go;
+      }
+      int mxi = static_cast<int>(m % mx), myi = static_cast<int>(m / mx);
+      for (int ci = 0; ci < ns && !dead; ++ci) {
+        Component* c = sc[ci];
+        int bh = ns == 1 ? 1 : c->v, bwn = ns == 1 ? 1 : c->h;
+        for (int by = 0; by < bh && !dead; ++by)
+          for (int bx = 0; bx < bwn && !dead; ++bx) {
+            int row = ns == 1 ? myi : myi * c->v + by, col = ns == 1 ? mxi : mxi * c->h + bx;
+            int16_t* blk = c->coef.data() + (static_cast<size_t>(row) * c->bw + col) * 64;
+            if (!progressive_ || (ss == 0 && ah == 0)) {
+              int v = arith_dc(ad, dc_stats[c->td], dc_ctx[ci], c->td, dead);
+              if (dead) break;
+              if (!progressive_) {
+                last_dc[ci] = (last_dc[ci] + v) & 0xFFFF;
+                blk[0] = static_cast<int16_t>(last_dc[ci]);
+                dead = !arith_ac(ad, ac_stats[c->ta], c->ta, blk, 1, 63, 0, &fixed);
+              } else {
+                last_dc[ci] += v;
+                blk[0] = static_cast<int16_t>(static_cast<int>(static_cast<unsigned>(last_dc[ci]) << al));
+              }
+            } else if (ss == 0) {
+              if (ad.decode(&fixed)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+            } else if (ah == 0) {
+              dead = !arith_ac(ad, ac_stats[c->ta], c->ta, blk, ss, se, al, &fixed);
+            } else {
+              dead = !arith_ac_refine(ad, ac_stats[c->ta], blk, ss, se, al, &fixed);
+            }
+          }
+      }
+      if (ad.overran()) corrupt("truncated JPEG data");
+    }
+    end_scan(ad.unread_marker() ? ad.marker_pos() : ad.pos());
+  }
+
+  // Figures F.19-F.24: a DC difference; `bad` on a magnitude overflow.
+  int arith_dc(ArithDecoder& ad, uint8_t* stats, int& ctx, int tbl, bool& bad) {
+    uint8_t* st = stats + ctx;
+    if (ad.decode(st) == 0) {
+      ctx = 0;
+      return 0;
+    }
+    const int sign = ad.decode(st + 1);
+    st += 2 + sign;
+    int m = ad.decode(st);
+    if (m != 0) {
+      st = stats + 20;
+      while (ad.decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          bad = true;
+          return 0;
+        }
+        st += 1;
+      }
+    }
+    if (m < ((1 << dc_l_[tbl]) >> 1))
+      ctx = 0;
+    else if (m > ((1 << dc_u_[tbl]) >> 1))
+      ctx = 12 + sign * 4;
+    else
+      ctx = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ad.decode(st)) v |= m;
+    v += 1;
+    return sign ? -v : v;
+  }
+
+  // Figure F.20 over k0..se at point transform al; false on a bad code.
+  bool arith_ac(ArithDecoder& ad, uint8_t* stats, int tbl, int16_t* blk, int k0, int se, int al, uint8_t* fixed) {
+    for (int k = k0; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (ad.decode(st)) break;  // EOB
+      while (ad.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) return false;
+      }
+      const int sign = ad.decode(fixed);
+      st += 2;
+      int m = ad.decode(st);
+      if (m != 0 && ad.decode(st)) {
+        m <<= 1;
+        st = stats + (k <= ac_k_[tbl] ? 189 : 217);
+        while (ad.decode(st)) {
+          if ((m <<= 1) == 0x8000) return false;
+          st += 1;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ad.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kZigzag[k]] = static_cast<int16_t>(static_cast<int>(static_cast<unsigned>(v) << al));
+    }
+    return true;
+  }
+
+  // Figure G.10's decoder side (decode_mcu_AC_refine); false on a bad code.
+  bool arith_ac_refine(ArithDecoder& ad, uint8_t* stats, int16_t* blk, int ss, int se, int al, uint8_t* fixed) {
+    const int p1 = 1 << al, m1 = -p1;
+    int kex = se;
+    for (; kex > 0; --kex)
+      if (blk[kZigzag[kex]]) break;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (k > kex && ad.decode(st)) break;  // EOB
+      for (;;) {
+        int16_t& coef = blk[kZigzag[k]];
+        if (coef) {
+          if (ad.decode(st + 2)) coef = static_cast<int16_t>(coef + (coef < 0 ? m1 : p1));
+          break;
+        }
+        if (ad.decode(st + 1)) {
+          coef = static_cast<int16_t>(ad.decode(fixed) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) return false;
+      }
+    }
+    return true;
+  }
+
+  // jdlhuff.c decode_mcus + jddiffct.c's restart handling: the differences
+  // of a lossless scan, row by row of MCUs. Undifferencing waits for
+  // finish(); each component row that libjpeg undifferences as a scan's or
+  // restart interval's first row (the first row of an iMCU row in which the
+  // scan started or a restart came) is marked.
+  void lossless_scan(const std::vector<Component*>& sc, int psv, int pt) {
+    const int ns = static_cast<int>(sc.size());
+    for (auto* c : sc) {
+      c->psv = psv;
+      c->pt = pt;
+      c->first_row.assign(static_cast<size_t>(c->dh), 0);
+    }
+    const int per_row = ns > 1 ? mcux_ : sc[0]->dw, rows = ns > 1 ? mcuy_ : sc[0]->dh;
+    const int rows_per_imcu = ns > 1 ? 1 : sc[0]->v;
+    if (restart_ % per_row) refused("a lossless JPEG whose restart interval is not whole MCU rows");
+    const int restart_rows = restart_ / per_row;
+    BitReader br(d_, n_, pos_);
+    int to_go = restart_rows, next_rst = 0;
+    for (int r = 0; r < rows; ++r) {
+      bool start = r == 0;
+      if (restart_) {
+        if (to_go == 0) {
+          br.set_pos(huffman_restart(d_, n_, br.pos(), next_rst));
+          to_go = restart_rows;
+          start = true;
+        }
+        --to_go;
+      }
+      if (start)
+        for (auto* c : sc) {
+          const int first = r / rows_per_imcu * (ns > 1 ? c->v : rows_per_imcu);
+          if (first < c->dh) c->first_row[first] = 1;
+        }
+      for (int mx = 0; mx < per_row; ++mx)
+        for (auto* c : sc) {
+          const int bh = ns == 1 ? 1 : c->v, bwn = ns == 1 ? 1 : c->h;
+          for (int by = 0; by < bh; ++by)
+            for (int bx = 0; bx < bwn; ++bx) {
+              const int row = ns == 1 ? r : r * c->v + by, col = ns == 1 ? mx : mx * c->h + bx;
+              int s = br.decode(dc_[c->td]);
+              if (s) s = s == 16 ? 32768 : extend(br.bits(s), s);
+              c->diff[static_cast<size_t>(row) * c->bw + col] = s;
+            }
+        }
+      if (br.overran()) corrupt("truncated JPEG data");
+    }
+    end_scan(br.pos());
+  }
+
+  // jdpred.c undifferencing and jdlossls.c's scaler: a lossless component's
+  // (dh, dw) samples into its plane.
+  void undifference(Component& c, int ps) {
+    std::vector<int> prev(static_cast<size_t>(c.dw)), cur(static_cast<size_t>(c.dw));
+    for (int r = 0; r < c.dh; ++r) {
+      const int32_t* d = c.diff.data() + static_cast<size_t>(r) * c.bw;
+      if (c.first_row[r]) {
+        int ra = (d[0] + (1 << (8 - c.pt - 1))) & 0xFFFF;
+        cur[0] = ra;
+        for (int x = 1; x < c.dw; ++x) cur[x] = ra = (d[x] + ra) & 0xFFFF;
+      } else {
+        int rb = prev[0], ra = (d[0] + rb) & 0xFFFF, rc;
+        cur[0] = ra;
+        for (int x = 1; x < c.dw; ++x) {
+          rc = rb;
+          rb = prev[x];
+          int px;
+          switch (c.psv) {
+            case 1: px = ra; break;
+            case 2: px = rb; break;
+            case 3: px = rc; break;
+            case 4: px = ra + rb - rc; break;
+            case 5: px = ra + ((rb - rc) >> 1); break;
+            case 6: px = rb + ((ra - rc) >> 1); break;
+            default: px = (ra + rb) >> 1; break;
+          }
+          cur[x] = ra = (d[x] + px) & 0xFFFF;
+        }
+      }
+      uint8_t* o = c.plane.data() + static_cast<size_t>(r) * ps;
+      for (int x = 0; x < c.dw; ++x) o[x] = static_cast<uint8_t>(cur[x] << c.pt);
+      prev.swap(cur);
+    }
   }
 
   inline void block(BitReader& br, const Component& c, int& pred, int16_t* blk) {
@@ -765,21 +1207,134 @@ class Decoder {
     return useful;
   }
 
-  void finish(uint8_t* out) {
+  // jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1+): each block's
+  // unknown coefficients among the first 9 AC ones estimated from the 5x5 DC
+  // neighbourhood (and, when no AC data came at all, the DC interpolated),
+  // under the coef_bits latch; then the IDCT. The neighbourhood follows
+  // libjpeg's row bounds per iMCU row and its sliding DC registers.
+  void idct_smoothed(Component& c, const int* cb, uint8_t* plane, int ps) {
+    const bool change_dc = cb[1] == -1 && cb[2] == -1 && cb[3] == -1 && cb[4] == -1 && cb[5] == -1 &&
+                           cb[6] == -1 && cb[7] == -1 && cb[8] == -1 && cb[9] == -1;
+    const int64_t Q00 = c.quant[0], Q01 = c.quant[1], Q10 = c.quant[8], Q20 = c.quant[16], Q11 = c.quant[9],
+                  Q02 = c.quant[2], Q03 = c.quant[3], Q12 = c.quant[10], Q21 = c.quant[17], Q30 = c.quant[24];
+    auto estimate = [](int64_t num, int64_t q, int al) {
+      int pred;
+      if (num >= 0) {
+        pred = static_cast<int>(((q << 7) + num) / (q << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      } else {
+        pred = static_cast<int>(((q << 7) - num) / (q << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+        pred = -pred;
+      }
+      return static_cast<int16_t>(pred);
+    };
+    const int last_col = c.wblocks - 1;
+    for (int r = 0; r < mcuy_; ++r) {
+      int block_rows = c.v;
+      if (r == mcuy_ - 1) {
+        block_rows = c.hblocks % c.v;
+        if (block_rows == 0) block_rows = c.v;
+      }
+      const int image_block_rows = block_rows * mcuy_;
+      for (int br = 0; br < block_rows; ++br) {
+        const int ibr = r * block_rows + br, row = r * c.v + br;
+        if (row >= c.hblocks) continue;
+        auto blk = [&](int rr, int col) { return c.coef.data() + (static_cast<size_t>(rr) * c.bw + col) * 64; };
+        const int prev = ibr > 0 ? row - 1 : row;
+        const int prev2 = ibr > 1 ? row - 2 : prev;
+        const int next = ibr < image_block_rows - 1 ? row + 1 : row;
+        const int next2 = ibr < image_block_rows - 2 ? row + 2 : next;
+        const int rows[5] = {prev2, prev, row, next, next2};
+        int DC[26];
+        for (int k = 0; k < 5; ++k)
+          for (int j = 1; j <= 5; ++j) DC[5 * k + j] = blk(rows[k], 0)[0];
+        for (int col = 0; col <= last_col; ++col) {
+          int16_t ws[64];
+          memcpy(ws, blk(row, col), sizeof(ws));
+          if (col == 0 && col < last_col)
+            for (int k = 0; k < 5; ++k) DC[5 * k + 4] = DC[5 * k + 5] = blk(rows[k], 1)[0];
+          if (col + 1 < last_col)
+            for (int k = 0; k < 5; ++k) DC[5 * k + 5] = blk(rows[k], col + 2)[0];
+          const int DC01 = DC[1], DC02 = DC[2], DC03 = DC[3], DC04 = DC[4], DC05 = DC[5], DC06 = DC[6],
+                    DC07 = DC[7], DC08 = DC[8], DC09 = DC[9], DC10 = DC[10], DC11 = DC[11], DC12 = DC[12],
+                    DC13 = DC[13], DC14 = DC[14], DC15 = DC[15], DC16 = DC[16], DC17 = DC[17], DC18 = DC[18],
+                    DC19 = DC[19], DC20 = DC[20], DC21 = DC[21], DC22 = DC[22], DC23 = DC[23], DC24 = DC[24],
+                    DC25 = DC[25];
+          int al;
+          if ((al = cb[1]) != 0 && ws[1] == 0)
+            ws[1] = estimate(Q00 * (change_dc ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 +
+                                                 3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 -
+                                                 3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 - DC21 - DC22 +
+                                                 DC24 + DC25)
+                                              : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)),
+                             Q01, al);
+          if ((al = cb[2]) != 0 && ws[8] == 0)
+            ws[8] = estimate(Q00 * (change_dc ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 + 13 * DC07 +
+                                                 38 * DC08 + 13 * DC09 - DC10 + DC16 - 13 * DC17 - 38 * DC18 -
+                                                 13 * DC19 + DC20 + DC21 + 3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+                                              : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)),
+                             Q10, al);
+          if ((al = cb[3]) != 0 && ws[16] == 0)
+            ws[16] = estimate(Q00 * (change_dc ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 -
+                                                  5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 + DC23)
+                                               : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)),
+                              Q20, al);
+          if ((al = cb[4]) != 0 && ws[9] == 0)
+            ws[9] = estimate(Q00 * (change_dc ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 + DC21 -
+                                                 DC25)
+                                              : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 -
+                                                 DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09)),
+                             Q11, al);
+          if ((al = cb[5]) != 0 && ws[2] == 0)
+            ws[2] = estimate(Q00 * (change_dc ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 +
+                                                 7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 + 2 * DC19)
+                                              : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)),
+                             Q02, al);
+          if (change_dc) {
+            if ((al = cb[6]) != 0 && ws[3] == 0)
+              ws[3] = estimate(Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19), Q03, al);
+            if ((al = cb[7]) != 0 && ws[10] == 0)
+              ws[10] = estimate(Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19), Q12, al);
+            if ((al = cb[8]) != 0 && ws[17] == 0)
+              ws[17] = estimate(Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19), Q21, al);
+            if ((al = cb[9]) != 0 && ws[24] == 0)
+              ws[24] = estimate(Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19), Q30, al);
+            ws[0] = estimate(Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 + 6 * DC07 +
+                                    42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 + 152 * DC13 +
+                                    42 * DC14 - 8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 -
+                                    6 * DC20 - 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25),
+                             Q00, 0);
+          }
+          idct_islow(ws, c.quant, plane + static_cast<size_t>(row) * 8 * ps + col * 8, ps);
+          for (int k = 0; k < 5; ++k)
+            for (int j = 1; j < 5; ++j) DC[5 * k + j] = DC[5 * k + j + 1];
+        }
+      }
+    }
+  }
+
+  void finish(uint8_t* out, bool smooth) {
     std::vector<std::vector<uint8_t>> full(comps_.size());
     for (size_t ci = 0; ci < comps_.size(); ++ci) {
       Component& c = comps_[ci];
       int ps = c.wblocks * 8;
       c.plane.assign(static_cast<size_t>(ps) * c.hblocks * 8, 0);
-      for (int by = 0; by < c.hblocks; ++by)
-        for (int bx = 0; bx < c.wblocks; ++bx)
-          idct_islow(c.coef.data() + (static_cast<size_t>(by) * c.bw + bx) * 64, c.quant,
-                     c.plane.data() + static_cast<size_t>(by) * 8 * ps + bx * 8, ps);
+      if (lossless_)
+        undifference(c, ps);
+      else if (smooth)
+        idct_smoothed(c, coef_bits_[ci], c.plane.data(), ps);
+      else
+        for (int by = 0; by < c.hblocks; ++by)
+          for (int bx = 0; bx < c.wblocks; ++bx)
+            idct_islow(c.coef.data() + (static_cast<size_t>(by) * c.bw + bx) * 64, c.quant,
+                       c.plane.data() + static_cast<size_t>(by) * 8 * ps + bx * 8, ps);
       std::vector<int16_t>().swap(c.coef);
+      std::vector<int32_t>().swap(c.diff);
       int eh = max_h_ / c.h, ev = max_v_ / c.v;
       if (eh == 1 && ev == 1) continue;
       full[ci].resize(static_cast<size_t>(W_) * H_);
-      upsample(c.plane.data(), c.dw, c.dh, ps, eh, ev, full[ci].data(), W_, H_);
+      upsample(c.plane.data(), c.dw, c.dh, ps, eh, ev, full[ci].data(), W_, H_, !lossless_);
     }
     auto plane_row = [&](size_t ci, int y) -> const uint8_t* {
       if (!full[ci].empty()) return full[ci].data() + static_cast<size_t>(y) * W_;
@@ -831,14 +1386,7 @@ class Decoder {
       }
       return;
     }
-    bool rgb;  // jdapimin.c default_decompress_parms
-    if (jfif_)
-      rgb = false;
-    else if (adobe_)
-      rgb = adobe_transform_ == 0;
-    else
-      rgb = comps_[0].id == 82 && comps_[1].id == 71 && comps_[2].id == 66;
-    if (rgb) {
+    if (rgb_frame()) {
       for (int y = 0; y < H_; ++y) {
         const uint8_t *r = plane_row(0, y), *g = plane_row(1, y), *b = plane_row(2, y);
         uint8_t* o = out + static_cast<size_t>(y) * W_ * 3;
@@ -1247,7 +1795,7 @@ extern "C" {
 // Decodes `data` into `out` ((H, W, 3) uint8, capacity `cap` bytes). With
 // `out` null or too small it stops after the frame header and returns
 // RF_NEED_BUFFER with the size in dims = (H, W). Returns RF_OK, RF_CORRUPT or
-// RF_UNSUPPORTED (with a message in `err`).
+// RF_REFUSED (with a message in `err`).
 int rf_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t cap, int32_t* dims,
                    char* err, int64_t err_cap) {
   try {

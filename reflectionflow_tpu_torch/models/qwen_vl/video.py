@@ -8,7 +8,7 @@ frames, the last frame repeated to fill one, grid (T/tp, H/ps, W/ps)).
 
 Readers (`_read_decoded`): decoded sources only, as in the JAX package: a
 (T, H, W, 3) array, a list of frames, a `.npy` / `.npz` file, or a directory
-of JPEG or PNG frames read by the port's own decoders
+of JPEG, PNG, BMP or WebP frames read by the port's own decoders
 (`train/data.py::decode_image`, the same pixels as PIL; the card's machine
 has no PIL); a codec container path raises. Frames are resized with the port's copy of PIL's
 bicubic (`train/data.py::resize`, bit for bit).

@@ -15,11 +15,10 @@ and JSONL layout per prompt index,
         search_state.json         (resume manifest)
 
 and `save_image` writes PNG with the standard library (zlib + struct), so the
-port needs no imaging package. `load_image` reads JPEG (sequential or
-progressive; grey, YCbCr, RGB, CMYK, YCCK) and PNG (every colour type and bit
-depth, interlaced or not) with the port's own decoders
-(`train/data.py::decode_image`), as PIL's `Image.open(...).convert("RGB")`
-does.
+port needs no imaging package. `load_image` reads JPEG (every kind PIL's
+libjpeg-turbo decodes), PNG (every colour type and bit depth), BMP and WebP
+with the port's own decoders (`train/data.py::decode_image`), as PIL's
+`Image.open(...).convert("RGB")` does.
 """
 
 from __future__ import annotations
@@ -67,7 +66,15 @@ def save_image(path: str, image: np.ndarray) -> None:
 
 
 def load_image(path: str) -> np.ndarray:
-    """A JPEG or PNG file -> (H, W, 3) uint8 RGB."""
+    """An image file (JPEG, PNG, BMP or WebP, told by its content) -> (H, W, 3)
+    uint8 RGB; a decoded video (a frame directory, .npy / .npz) -> (T, H, W, 3),
+    which the score CLI routes through the verifier's video path."""
+    import os
+
+    if os.path.isdir(path) or path.endswith((".npy", ".npz")):
+        from ..models.qwen_vl.video import _read_decoded
+
+        return _read_decoded(path)
     from ..train.data import decode_image
 
     with open(path, "rb") as f:

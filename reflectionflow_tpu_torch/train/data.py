@@ -19,14 +19,15 @@ match the JAX package's run draw for draw:
     description falls back to the prompt; description =
     "{prompt} [Reflexion] {reflection}".
 
-The port's machine has no PIL: images are decoded by the port's own readers
-(`utils/image_io.py`: sequential and progressive Huffman JPEG, grey, YCbCr,
-RGB, CMYK and YCCK, bit-exact to PIL's decode; `decode_png`: every PNG colour
-type and bit depth, interlaced or not, as PIL converts it to RGB) and resized
-by its C++ copy of PIL's bicubic `Image.resize`, bit for bit. A sample whose
-image is corrupt is skipped, as in the JAX package; an image format the
-readers do not take (arithmetic-coded JPEG, for one) raises
-`NotImplementedError`. `write_synthetic_shard` writes the JAX package's shard
+The port's machine has no PIL: images are decoded by the port's own readers,
+told apart by their content as PIL tells them (`decode_image`: JPEG of every
+kind libjpeg-turbo reads, BMP and WebP through `utils/image_io.py`, bit-exact
+to PIL's decode; `decode_png`: every PNG colour type and bit depth,
+interlaced or not, as PIL converts it to RGB) and resized by its C++ copy of
+PIL's bicubic `Image.resize`, bit for bit. A sample whose image is corrupt,
+or of a format the port does not read yet (GIF, TIFF, ...: ROADMAP queue 1),
+raises ValueError and is skipped, as the JAX package skips what PIL cannot
+open. `write_synthetic_shard` writes the JAX package's shard
 byte for byte: its JPEG bytes are PIL's default save (`image_io.encode_jpeg`).
 """
 
@@ -43,7 +44,7 @@ from typing import Iterator
 import numpy as np
 
 from ..utils import native
-from ..utils.image_io import decode_jpeg, encode_jpeg, png_unfilter
+from ..utils.image_io import decode_bmp, decode_jpeg, decode_webp, encode_jpeg, png_unfilter
 from ..utils.image_io import resize_bicubic as resize
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
@@ -137,12 +138,42 @@ def decode_png(data: bytes) -> np.ndarray:
     return _png_to_rgb(img, color, depth, palette)
 
 
+# Signatures of the formats PIL opens that the port does not read (ROADMAP
+# queue 1), to name them when they are refused.
+_OTHER_FORMATS = (
+    (b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+    (b"\x00\x00\x01\x00", "ICO"), (b"\x00\x00\x02\x00", "CUR"), (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"),
+    (b"\xffO\xffQ", "JPEG 2000"), (b"8BPS", "PSD"), (b"qoif", "QOI"), (b"DDS ", "DDS"), (b"icns", "ICNS"),
+    (b"\x01\xda", "SGI"), (b"\x59\xa6\x6a\x95", "Sun raster"), (b"SIMPLE", "FITS"), (b"%!PS", "EPS"),
+    (b"\xc5\xd0\xd3\xc6", "EPS"), (b"/* XPM */", "XPM"), (b"#define", "XBM"), (b"\xd7\xcd\xc6\x9a", "WMF"),
+    (b"BLP1", "BLP"), (b"BLP2", "BLP"), (b"\x89HDF", "HDF5"), (b"GRIB", "GRIB"), (b"BUFR", "BUFR"),
+    (b"P1", "PPM"), (b"P2", "PPM"), (b"P3", "PPM"), (b"P4", "PPM"), (b"P5", "PPM"), (b"P6", "PPM"),
+    (b"P7", "PPM"), (b"Pf", "PPM"), (b"PF", "PPM"),
+)
+
+
 def decode_image(data: bytes) -> np.ndarray:
-    """JPEG or PNG bytes -> (H, W, 3) uint8 RGB, as PIL's
-    `Image.open(...).convert("RGB")` gives them."""
+    """Image bytes -> (H, W, 3) uint8 RGB, as PIL's
+    `Image.open(...).convert("RGB")` gives them. The format is told by the
+    content, as PIL tells it: JPEG, PNG, BMP and WebP (its first frame). Any
+    other signature raises ValueError, naming the format where PIL opens it
+    and the port does not read it yet (ROADMAP queue 1)."""
     if data.startswith(b"\xff\xd8"):
         return decode_jpeg(data)
-    return decode_png(data)
+    if data.startswith(_PNG_MAGIC):
+        return decode_png(data)
+    if data.startswith(b"BM"):
+        return decode_bmp(data)
+    if data.startswith(b"RIFF") and data[8:12] == b"WEBP":
+        return np.ascontiguousarray(decode_webp(data)[..., :3])
+    if len(data) >= 12 and data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis", b"heic", b"mif1"):
+        name = "AVIF"
+    else:
+        name = next((n for sig, n in _OTHER_FORMATS if data.startswith(sig)), None)
+    if name is None:
+        raise ValueError(f"not an image file the port identifies (starts {data[:12]!r}); PIL opens some "
+                         "formats without a signature (TGA, ...): ROADMAP queue 1")
+    raise ValueError(f"{name} images are not read by the port yet (ROADMAP queue 1)")
 
 
 @dataclass
@@ -226,8 +257,8 @@ def _assemble(parts: dict[str, bytes]) -> Sample | None:
         return None
     try:
         good, bad = decode_image(good_b), decode_image(bad_b)
-    except (ValueError, zlib.error, struct.error):  # corrupt sample -> skip; an unsupported
-        return None  # format's NotImplementedError propagates
+    except (ValueError, zlib.error, struct.error):  # corrupt, refused or not yet read (ROADMAP
+        return None  # queue 1) -> skip
     return Sample(
         good=good,
         bad=bad,

@@ -1,19 +1,24 @@
-"""Host image codecs of the data path: JPEG decoding and writing, PIL's bicubic
-resize and the PNG unfilter, in C++ (`csrc/host/image_io.cpp`, built with g++
-by `ops/kernel_build.py::build_host_all`, bound with ctypes), beside their
+"""Host image codecs of the data path: JPEG, BMP and WebP decoding, JPEG
+writing, PIL's bicubic resize and the PNG unfilter, in C++
+(`csrc/host/image_io.cpp`, `bmp.cpp`, `webp.cpp`, built with g++ by
+`ops/kernel_build.py::build_host_all`, bound with ctypes), beside their
 plain numpy versions.
 
-  * `decode_jpeg`: sequential and progressive Huffman JPEG at 8 bits, grey,
-    YCbCr, RGB, CMYK and YCCK, bit-exact to PIL's
-    `Image.open(...).convert("RGB")` (libjpeg-turbo's default decode:
-    accurate integer IDCT, fancy upsampling, fixed-point YCbCr -> RGB, YCCK
-    -> CMYK, then PIL's inverted CMYK and its CMYK -> RGB). It has no plain
-    version: PIL is its reference in the tests. A progressive file that
-    leaves any of AC coefficients 1-9 unrefined (where libjpeg smooths
-    across blocks), arithmetic-coded and lossless files raise
-    `NotImplementedError` naming ROADMAP queue 1; 12-bit and hierarchical
-    files are refused as PIL refuses them; corrupt or truncated data raises
-    `ValueError`.
+  * `decode_jpeg`: every JPEG PIL's libjpeg-turbo 3.1 decodes at 8 bits,
+    bit-exact to PIL's `Image.open(...).convert("RGB")`: sequential and
+    progressive, Huffman or arithmetic-coded, and lossless frames; grey,
+    YCbCr, RGB, CMYK and YCCK (libjpeg-turbo's default decode: accurate
+    integer IDCT, block smoothing of progressive files whose scans leave AC
+    coefficients 1-9 unrefined, fancy upsampling, fixed-point YCbCr -> RGB,
+    YCCK -> CMYK, then PIL's inverted CMYK and its CMYK -> RGB).
+  * `decode_bmp`: BMP as Pillow's BmpImagePlugin reads it (every header,
+    palettes, 16/24/32 bits with their BITFIELDS layouts, RLE8 / RLE4).
+  * `decode_webp`: the first frame of a WebP file as libwebp's
+    WebPAnimDecoder gives it to PIL (VP8 lossy with libwebp's fancy
+    upsampling and fixed-point YUV -> RGB, VP8L lossless, ALPH), RGBA.
+    The decoders have no plain version: PIL is their reference in the tests.
+    What PIL refuses raises `ValueError` "... as PIL refuses it", and so do
+    corrupt or truncated data.
   * `encode_jpeg`: PIL's default `save(format="JPEG")` of an RGB image,
     byte for byte (quality 75, 4:2:0, libjpeg-turbo's encode path). It has
     no plain version either: PIL's bytes are its reference.
@@ -35,12 +40,16 @@ from pathlib import Path
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "host" / "image_io.cpp"
-_OK, _UNSUPPORTED, _NEED_BUFFER = 0, -2, 1  # rf_* return codes; any other is corrupt input
+_HOST = Path(__file__).resolve().parents[1] / "csrc" / "host"
+SOURCE = _HOST / "image_io.cpp"
+BMP_SOURCE, WEBP_SOURCE = _HOST / "bmp.cpp", _HOST / "webp.cpp"
+SOURCES = (SOURCE, BMP_SOURCE, WEBP_SOURCE)  # every host codec library, built together
+_OK, _REFUSED, _NEED_BUFFER = 0, -3, 1  # rf_* return codes; any other is corrupt input
 _PRECISION_BITS = 32 - 8 - 2
 
 calls: Counter = Counter()
 _lib = None
+_decoders: dict = {}
 
 
 def get_lib() -> ctypes.CDLL:
@@ -50,10 +59,7 @@ def get_lib() -> ctypes.CDLL:
         from ..ops.kernel_build import load_host
 
         lib = load_host(SOURCE)
-        u8p, i32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32)
-        lib.rf_jpeg_decode.restype = ctypes.c_int
-        lib.rf_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, u8p, ctypes.c_int64, i32p,
-                                       ctypes.c_char_p, ctypes.c_int64]
+        u8p = ctypes.POINTER(ctypes.c_uint8)
         lib.rf_resize_bicubic.restype = ctypes.c_int
         lib.rf_resize_bicubic.argtypes = [u8p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, u8p,
                                           ctypes.c_int32, ctypes.c_int32]
@@ -70,23 +76,54 @@ def _u8p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """JPEG bytes -> (H, W, 3) uint8 RGB, as PIL decodes them."""
-    lib = get_lib()
+def _decoder(source: Path, name: str):
+    """The C function `name` of the host library built from `source`: (data,
+    n, out, cap, dims, err, err_cap) -> return code."""
+    fn = _decoders.get(name)
+    if fn is None:
+        from ..ops.kernel_build import load_host
+
+        fn = getattr(load_host(source), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+                       ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int64]
+        _decoders[name] = fn
+    return fn
+
+
+def _decode(source: Path, kind: str, data: bytes, channels: int) -> np.ndarray:
+    """Runs rf_<kind>_decode twice (size, then pixels) -> (H, W, channels)
+    uint8; refused or corrupt data raises ValueError."""
+    fn = _decoder(source, f"rf_{kind}_decode")
     data = bytes(data)
     dims = (ctypes.c_int32 * 2)()
     err = ctypes.create_string_buffer(256)
-    rc = lib.rf_jpeg_decode(data, len(data), None, 0, dims, err, len(err))
+    rc = fn(data, len(data), None, 0, dims, err, len(err))
     if rc == _NEED_BUFFER:
-        out = np.empty((dims[0], dims[1], 3), np.uint8)
-        calls["decode_jpeg"] += 1
-        rc = lib.rf_jpeg_decode(data, len(data), _u8p(out), out.nbytes, dims, err, len(err))
+        out = np.empty((dims[0], dims[1], channels), np.uint8)
+        calls[f"decode_{kind}"] += 1
+        rc = fn(data, len(data), _u8p(out), out.nbytes, dims, err, len(err))
     if rc == _OK:
         return out
     msg = err.value.decode("utf-8", "replace")
-    if rc == _UNSUPPORTED:
-        raise NotImplementedError(msg)
-    raise ValueError(f"corrupt JPEG: {msg}")
+    raise ValueError(msg if rc == _REFUSED else f"corrupt {kind.upper()}: {msg}")
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> (H, W, 3) uint8 RGB, as PIL decodes them."""
+    return _decode(SOURCE, "jpeg", data, 3)
+
+
+def decode_bmp(data: bytes) -> np.ndarray:
+    """BMP bytes -> (H, W, 3) uint8 RGB, as PIL decodes them."""
+    return _decode(BMP_SOURCE, "bmp", data, 3)
+
+
+def decode_webp(data: bytes) -> np.ndarray:
+    """WebP bytes -> the (H, W, 4) uint8 RGBA that PIL opens (the first frame
+    of an animation, on its transparent black canvas); PIL's
+    `convert("RGB")` drops the alpha."""
+    return _decode(WEBP_SOURCE, "webp", data, 4)
 
 
 def encode_jpeg(rgb: np.ndarray) -> bytes:

@@ -2,23 +2,31 @@
 
     python tests/data/torch_jpeg/make_fixtures.py
 
-Each image is a seeded smooth procedural RGB image with mild noise. Three
-kinds of entry:
+Each image is a seeded smooth procedural RGB image with mild noise (the
+1024x768 lossless timing files without the noise). Kinds of entry:
   * "jpeg": a file PIL wrote (sequential, progressive, grey, CMYK; YCCK and
-    marker-less CMYK by patching PIL's Adobe segment; one progressive file
-    cut after its fifth scan), with its encode settings, the sha256 of PIL's
-    decode (`Image.open(...).convert("RGB")`, (H, W, 3) uint8 bytes) and of
-    PIL's bicubic `Image.resize` chains that the GenRef data path runs on it
-    (a chain "1024x1024,512x512" resizes to 1024x1024, then that to
-    512x512), or the exception the port raises where PIL's libjpeg would
-    smooth across blocks;
+    marker-less CMYK by patching PIL's Adobe segment; progressive files cut
+    after some scans, which libjpeg smooths across blocks), or one written by
+    the arithmetic (SOF9, SOF10) and lossless (SOF3) encoders below, with its
+    encode settings, the sha256 of PIL's decode (`Image.open(...)
+    .convert("RGB")`, (H, W, 3) uint8 bytes) and of PIL's bicubic
+    `Image.resize` chains that the GenRef data path runs on it (a chain
+    "1024x1024,512x512" resizes to 1024x1024, then that to 512x512);
   * "png": a file of every PNG colour type and bit depth (PLTE, tRNS, Adam7)
     written by `write_png` below, with the sha256 of PIL's decode;
+  * "webp": a file PIL wrote (lossy at several qualities and methods,
+    lossless at methods 0-6 with few or many colours, lossy and lossless
+    alpha, a 2-frame animation; four lossless 448 px frames of `clip_frame`)
+    with the sha256 of PIL's RGB decode and of its RGBA;
+  * "bmp": a file of every header, depth, palette, bitfields and RLE kind,
+    written by `write_bmp` below (PIL writes only raw 1 / L / P / RGB),
+    with the sha256 of PIL's decode;
   * "encode": a committed pixel array (`encode_pixels.npz`) with the sha256
     of PIL's default `save(format="JPEG")` of it.
 `tests/test_torch_jpeg.py` checks the committed bytes against the manifest
 with PIL and the port against it; `chip_smoke.py` phase 5e holds the port's
-decoders, JPEG writer and resize to it on the card's machine.
+decoders, JPEG writer and resize to it on the card's machine, and phase 10
+reads the clip frames.
 """
 
 import hashlib
@@ -56,6 +64,11 @@ FIXTURES = [
     ("progressive_grey_33x17.jpg", (33, 17), 13, {"quality": 85, "progressive": True, "mode": "L"}, []),
     ("progressive_cmyk_40x24.jpg", (40, 24), 14, {"quality": 75, "progressive": True, "mode": "CMYK"}, []),
     ("progressive_cut5_40x24.jpg", (40, 24), 15, {"quality": 75, "progressive": True, "cut_scans": 5}, []),
+    ("progressive_cut1_dc_33x17.jpg", (33, 17), 20, {"quality": 75, "progressive": True, "cut_scans": 1}, []),
+    ("progressive_cut3_grey_50x31.jpg", (50, 31), 21,
+     {"quality": 80, "progressive": True, "mode": "L", "cut_scans": 3}, []),
+    ("progressive_cut5_1024x768.jpg", (1024, 768), 22, {"quality": 75, "progressive": True, "cut_scans": 5},
+     ["1024x1024"]),
     ("cmyk_40x24_q85.jpg", (40, 24), 16, {"quality": 85, "mode": "CMYK"}, []),
     ("cmyk_no_adobe_40x24.jpg", (40, 24), 17, {"quality": 75, "mode": "CMYK", "adobe": None}, []),
     ("ycck_40x24.jpg", (40, 24), 18, {"quality": 75, "mode": "CMYK", "adobe": 2}, []),
@@ -69,17 +82,84 @@ PNGS = [(f"png_c{c}_d{d}{'_adam7' if i else ''}{'_trns' if t else ''}.png", c, d
     (3, 1, False, False), (3, 2, True, False), (3, 4, False, True), (3, 8, True, True), (4, 8, False, False),
     (4, 16, True, False), (6, 8, True, False), (6, 16, False, False)]]
 ENCODE_SIZES = [(32, 32), (1, 1), (17, 9), (33, 65), (16, 48), (100, 37)]  # (W, H)
+# arithmetic-coded and lossless JPEG: name, (W, H), seed, `write_arith_jpeg` /
+# `write_lossless_jpeg` options (lossless: "smooth" drops the noise)
+ARITH = [
+    ("arith_seq_420_40x24.jpg", (40, 24), 400, {}),
+    ("arith_seq_444_rst3_17x9.jpg", (17, 9), 401, {"sampling": ((1, 1), (1, 1), (1, 1)), "restart": 3}),
+    ("arith_seq_422_dac_50x31.jpg", (50, 31), 402,
+     {"sampling": ((2, 1), (1, 1), (1, 1)), "dac": {"L": 1, "U": 3, "K": 2}, "quality": 90}),
+    ("arith_prog_420_67x45.jpg", (67, 45), 403, {"progressive": True}),
+    ("arith_prog_420_rst2_dac_33x65.jpg", (33, 65), 404,
+     {"progressive": True, "restart": 2, "dac": {"L": 0, "U": 0, "K": 63}, "quality": 60}),
+    ("arith_prog_grey_33x17.jpg", (33, 17), 405, {"progressive": True, "grey": True}),
+    ("arith_prog_420_1024x768.jpg", (1024, 768), 406, {"progressive": True}),
+]
+LOSSLESS = [(f"lossless_p{p}_pt{pt}_{w}x{h}.jpg", (w, h), 410 + p, {"predictor": p, "pt": pt})
+            for p, pt, (w, h) in [(1, 0, (40, 24)), (2, 2, (17, 9)), (3, 0, (33, 17)), (4, 0, (40, 24)),
+                                  (5, 2, (40, 24)), (6, 0, (23, 31)), (7, 2, (40, 24))]] + [
+    ("lossless_p4_rst3_40x24.jpg", (40, 24), 420, {"predictor": 4, "restart_rows": 3}),
+    ("lossless_p6_interleaved_rst2_40x24.jpg", (40, 24), 421,
+     {"predictor": 6, "pt": 1, "interleaved": True, "restart_rows": 2}),
+    ("lossless_p5_adobe0_33x17.jpg", (33, 17), 422, {"predictor": 5, "marker": "adobe0"}),
+    ("lossless_p1_420_interleaved_40x24.jpg", (40, 24), 424, {"predictor": 1, "subsample": True}),
+    ("lossless_p7_rst32_1024x768.jpg", (1024, 768), 425, {"predictor": 7, "restart_rows": 32, "smooth": True}),
+]
+# WebP: name, (W, H), seed, PIL save options, and "colours" (quantized to that
+# many), "alpha" (an alpha channel), "frames" (an animation), "smooth"
+WEBPS = [
+    ("webp_lossy_1x1_q75.webp", (1, 1), 300, {"quality": 75}),
+    ("webp_lossy_17x9_q30_m0.webp", (17, 9), 301, {"quality": 30, "method": 0}),
+    ("webp_lossy_17x9_q90_m6.webp", (17, 9), 302, {"quality": 90, "method": 6}),
+    ("webp_lossy_50x31_q10_m4.webp", (50, 31), 303, {"quality": 10}),
+    ("webp_lossy_50x31_q100_m6.webp", (50, 31), 304, {"quality": 100, "method": 6}),
+    ("webp_lossy_1024x768_q75.webp", (1024, 768), 305, {"quality": 75}),
+    ("webp_lossless_50x31_m0.webp", (50, 31), 306, {"lossless": True, "method": 0}),
+    ("webp_lossless_50x31_m6.webp", (50, 31), 307, {"lossless": True, "method": 6}),
+    ("webp_lossless_33x17_3colours.webp", (33, 17), 308, {"lossless": True, "colours": 3}),
+    ("webp_lossless_33x17_16colours.webp", (33, 17), 309, {"lossless": True, "colours": 16}),
+    ("webp_lossless_40x24_200colours.webp", (40, 24), 310, {"lossless": True, "colours": 200}),
+    ("webp_lossless_1024x768_m4.webp", (1024, 768), 311, {"lossless": True, "smooth": True}),
+    ("webp_alpha_lossy_40x24_a50.webp", (40, 24), 312, {"quality": 70, "alpha_quality": 50, "alpha": True}),
+    ("webp_alpha_lossless_40x24.webp", (40, 24), 313, {"lossless": True, "alpha": True}),
+    ("webp_anim_2frames_40x30.webp", (40, 30), 314, {"quality": 80, "frames": 2}),
+]
+CLIP_FRAMES, CLIP_PX = 8, 448  # chip_smoke.py phase 10's frame directory: even frames WebP here, odd ones BMP
+# BMP: name, bits, header size, compression, options ("palette": colours,
+# "grey": Pillow's grey ramp, "colors": the header's count, "masks", "top_down",
+# "wild": RLE only Pillow's reading defines); 37x23 pixels each
+BMPS = [
+    ("bmp_core_24.bmp", 24, 12, "raw", {}),
+    ("bmp_core_8_pal.bmp", 8, 12, "raw", {"palette": 256}),
+    ("bmp_info_1_pal.bmp", 1, 40, "raw", {"palette": 2}),
+    ("bmp_info_4_pal_short.bmp", 4, 40, "raw", {"palette": 11, "colors": 11}),
+    ("bmp_info_8_pal_short.bmp", 8, 40, "raw", {"palette": 100, "colors": 100}),
+    ("bmp_info_8_grey.bmp", 8, 40, "raw", {"grey": True}),
+    ("bmp_info_16_555.bmp", 16, 40, "raw", {}),
+    ("bmp_info_16_565_bitfields.bmp", 16, 40, "bitfields", {"masks": (0xF800, 0x7E0, 0x1F)}),
+    ("bmp_info_24_topdown.bmp", 24, 40, "raw", {"top_down": True}),
+    ("bmp_info_32_bgrx.bmp", 32, 40, "raw", {}),
+    ("bmp_v2_32_bitfields_xbgr.bmp", 32, 52, "bitfields", {"masks": (0xFF000000, 0xFF0000, 0xFF00)}),
+    ("bmp_v3_32_bitfields_rgba.bmp", 32, 56, "bitfields", {"masks": (0xFF, 0xFF00, 0xFF0000, 0xFF000000)}),
+    ("bmp_v4_16_555_bitfields.bmp", 16, 108, "bitfields", {"masks": (0x7C00, 0x3E0, 0x1F)}),
+    ("bmp_v5_24.bmp", 24, 124, "raw", {}),
+    ("bmp_v5_32_bitfields_bgra.bmp", 32, 124, "bitfields", {"masks": (0xFF0000, 0xFF00, 0xFF, 0xFF000000)}),
+    ("bmp_rle8.bmp", 8, 40, "rle8", {"palette": 256}),
+    ("bmp_rle8_wild.bmp", 8, 40, "rle8", {"palette": 256, "wild": True}),
+    ("bmp_rle4.bmp", 4, 40, "rle4", {"palette": 16}),
+    ("bmp_rle4_wild_topdown.bmp", 4, 40, "rle4", {"palette": 16, "wild": True, "top_down": True}),
+]
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
-def procedural(w: int, h: int, seed: int) -> np.ndarray:
+def procedural(w: int, h: int, seed: int, noise: float = 6.0) -> np.ndarray:
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
     f = rng.uniform(0.004, 0.03, (3, 2))
     ph = rng.uniform(0, 2 * np.pi, (3, 2))
     img = np.stack([128 + 70 * np.sin(xx * f[c, 0] + ph[c, 0]) * np.cos(yy * f[c, 1] + ph[c, 1])
                     + 40 * np.sin((xx + yy) * f[c, 0] * 0.5) for c in range(3)], axis=-1)
-    img += rng.normal(0.0, 6.0, img.shape)
+    img += rng.normal(0.0, noise, img.shape)
     return np.clip(np.rint(img), 0, 255).astype(np.uint8)
 
 
@@ -205,6 +285,705 @@ def png_fixture(color: int, depth: int, interlace: bool, trns: bool, seed: int) 
     return write_png(samples, color, depth, palette, t, interlace, seed)
 
 
+def _bmp_header(hsize: int, w: int, h: int, bits: int, compression: int, size: int, colors: int,
+                masks) -> bytes:
+    """A BMP info header of `hsize` bytes (12: core; 40, 52, 56, 64, 108, 124:
+    INFO and its successors, three masks inside at 52 bytes, four from 56)."""
+    if hsize == 12:
+        return struct.pack("<IHHHH", 12, w, h, 1, bits)
+    head = struct.pack("<IiiHHIIiiII", hsize, w, h, 1, bits, compression, size, 2835, 2835, colors, 0)
+    if hsize >= 52:
+        nmasks = 3 if hsize == 52 else 4
+        head += struct.pack(f"<{nmasks}I", *(list(masks or ()) + [0] * 4)[:nmasks])
+    return head + bytes(hsize - len(head))
+
+
+def _bmp_rows(samples: np.ndarray, bits: int) -> bytes:
+    """(h, w) indices or (h, w, k) byte groups -> rows padded to 4 bytes, in
+    file order (the caller flips for bottom-up)."""
+    h = samples.shape[0]
+    if bits < 8:
+        rows = _pack(samples.reshape(h, -1, 1), bits)
+    else:
+        rows = samples.reshape(h, -1).astype(np.uint8)
+    pad = (-rows.shape[1]) % 4
+    return np.pad(rows, ((0, 0), (0, pad))).tobytes()
+
+
+def bmp_rle(indices: np.ndarray, rle4: bool, rng, wild: bool = False) -> bytes:
+    """RLE8 / RLE4 data of (h, w) indices in file (bottom-up) order: encoded
+    and absolute runs (odd lengths padded to 16 bits), end-of-line, a delta
+    over zero pixels now and then, end of bitmap. `wild` adds what only
+    Pillow's reading defines: runs past the row's end, absolute runs that
+    wrap into the next row, rows without end-of-line."""
+    out = bytearray()
+    h, w = indices.shape
+    for y in range(h):
+        row = [int(v) for v in indices[y]]
+        x = 0
+        while x < w:
+            n = int(rng.integers(1, 12))
+            if wild and rng.random() < 0.1:
+                n += w  # a run past the row's end
+            if rng.random() < 0.5 or n < 3:  # encoded run
+                n = min(n, 255)
+                v = (row[x] << 4) | row[min(x + 1, w - 1)] if rle4 else row[x]
+                out += bytes([n, v])
+                x += n
+            else:  # absolute run
+                n = min(n, w - x if not wild else n, 255)
+                if n < 3:
+                    out += bytes([1, (row[x] << 4) if rle4 else row[x]])
+                    x += 1
+                    continue
+                vals = (row + [0] * 300)[x:x + n]
+                if rle4:
+                    vals = vals + [0] * (n % 2)
+                    body = bytes((vals[i] << 4) | vals[i + 1] for i in range(0, n, 2))
+                else:
+                    body = bytes(vals)
+                out += bytes([0, n]) + body + bytes(len(body) % 2)
+                x += n
+        if not (wild and rng.random() < 0.3):
+            out += b"\x00\x00"  # end of line
+        if y + 1 < h and rng.random() < 0.1:  # delta: Pillow reads two bytes, then (right, up)
+            out += b"\x00\x02\x00\x00" + bytes([int(rng.integers(0, 3)), 0])
+    return bytes(out + b"\x00\x01")
+
+
+def write_bmp(pixels: np.ndarray, bits: int, hsize: int = 40, compression: str = "raw", palette=None,
+              colors: int = 0, masks=None, top_down: bool = False, rng=None, wild: bool = False) -> bytes:
+    """A BMP file. `pixels`: (h, w) palette indices for bits <= 8, else
+    (h, w, 3) RGB; `palette`: (n, 3) RGB; `compression`: "raw", "rle8",
+    "rle4" or "bitfields" with `masks` (r, g, b[, a]); `colors`: the header's
+    colour count (0: 2^bits)."""
+    h, w = pixels.shape[:2]
+    comp = {"raw": 0, "rle8": 1, "rle4": 2, "bitfields": 3}[compression]
+    if bits <= 8:
+        data = pixels.astype(np.uint8)
+    elif bits == 16:
+        r, g, b = (pixels[..., i].astype(np.uint32) for i in range(3))
+        if masks is not None and tuple(masks[:3]) == (0xF800, 0x7E0, 0x1F):
+            v = ((r >> 3) << 11) | ((g >> 2) << 5) | (b >> 3)
+        else:
+            v = ((r >> 3) << 10) | ((g >> 3) << 5) | (b >> 3)
+        data = v.astype("<u2").view(np.uint8).reshape(h, w, 2)
+    elif bits == 24:
+        data = pixels[..., ::-1]
+    else:
+        m = list(masks or (0xFF0000, 0xFF00, 0xFF, 0))
+        m += [0] * (4 - len(m))
+        v = np.zeros((h, w), np.uint32)
+        alpha = np.full((h, w), 0x5A, np.uint32)
+        for chan, mask in zip((pixels[..., 0], pixels[..., 1], pixels[..., 2], alpha), m):
+            if mask:
+                v |= chan.astype(np.uint32) << ((mask & -mask).bit_length() - 1)
+        data = v.astype("<u4").view(np.uint8).reshape(h, w, 4)
+    rows = data if top_down else data[::-1]
+    if compression in ("rle8", "rle4"):
+        body = bmp_rle(np.asarray(rows), compression == "rle4", rng or np.random.default_rng(0), wild)
+    else:
+        body = _bmp_rows(np.asarray(rows), bits)
+    pal = b""
+    if palette is not None:
+        pad = 3 if hsize == 12 else 4
+        pal = b"".join(bytes([int(c[2]), int(c[1]), int(c[0])]) + bytes(pad - 3) for c in palette)
+    extra = struct.pack("<III", *masks[:3]) if comp == 3 and hsize == 40 else b""
+    head = _bmp_header(hsize, w, -h if top_down else h, bits, comp, len(body), colors, masks)
+    off = 14 + len(head) + len(extra) + len(pal)
+    return b"BM" + struct.pack("<IHHI", off + len(body), 0, 0, off) + head + extra + pal + body
+
+
+# ------------------------------------------- JPEG kinds PIL cannot write ----
+#
+# PIL writes only Huffman-coded DCT JPEG. The arithmetic-coded and lossless
+# fixtures come from the small encoders below; PIL's decode of each file is
+# its truth.
+
+# T.81 Table D.2 (Qe, Next_Index_MPS, Switch_MPS, Next_Index_LPS), packed as
+# libjpeg's jaricom.c packs it: (Qe << 16) | (NMPS << 8) | (SWITCH << 7) | NLPS.
+ARITAB = [
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617, 0x00e50719,
+    0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09, 0x00030d0a, 0x00010d0c,
+    0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a, 0x0cef152b,
+    0x09a1162d, 0x072f172e, 0x055c1830, 0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36,
+    0x01441d38, 0x00f51e39, 0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320,
+    0x002c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d, 0x0861314e,
+    0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633, 0x02d43734, 0x025c3835,
+    0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39, 0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d,
+    0x008f203d, 0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654,
+    0x23794756, 0x1edf4857, 0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a,
+    0x0d514e4b, 0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f, 0x44d95b60,
+    0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df, 0x4f466165, 0x47e56266,
+    0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b, 0x415e6367,
+    0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
+    0x59eb6ff0, 0x5a1d7171,
+]
+STD_LUM_Q = [16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69, 56, 14, 17,
+             22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92, 49, 64, 78,
+             87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99]
+STD_CHR_Q = [17, 18, 24, 47] + [99] * 4 + [18, 21, 26, 66] + [99] * 4 + [24, 26, 56] + [99] * 5 + [47, 66] + [99] * 38
+ZIGZAG = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7,
+          14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46,
+          53, 60, 61, 54, 47, 55, 62, 63]
+# T.81 Annex K.3 table K.3: the luminance DC code lengths (categories 0-11).
+DC_BITS = [0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0]
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+
+_JFIF = _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+
+
+def _adobe(transform: int) -> bytes:
+    return _segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00" + bytes([transform]))
+
+
+class ArithEncoder:
+    """T.81 Annex D's QM coder as libjpeg's jcarith.c runs it (arith_encode,
+    finish_pass), with its statistics bins."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.reset()
+
+    def reset(self) -> None:
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+
+    def _emit(self, b: int) -> None:
+        self.out.append(b)
+
+    def _flush_zeros(self) -> None:
+        while self.zc:
+            self._emit(0)
+            self.zc -= 1
+
+    def encode(self, st: bytearray, i: int, val: int) -> None:
+        sv = st[i]
+        qe = ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        self.a -= qe
+        if val != (sv >> 7):
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nl
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nm
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    if self.buffer >= 0:
+                        self._flush_zeros()
+                        self._emit(self.buffer + 1)
+                        if self.buffer + 1 == 0xFF:
+                            self._emit(0)
+                    self.zc += self.sc
+                    self.sc = 0
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    if self.buffer == 0:
+                        self.zc += 1
+                    elif self.buffer >= 0:
+                        self._flush_zeros()
+                        self._emit(self.buffer)
+                    if self.sc:
+                        self._flush_zeros()
+                        for _ in range(self.sc):
+                            self._emit(0xFF)
+                            self._emit(0)
+                        self.sc = 0
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def finish(self) -> None:
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                self._flush_zeros()
+                self._emit(self.buffer + 1)
+                if self.buffer + 1 == 0xFF:
+                    self._emit(0)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            if self.buffer == 0:
+                self.zc += 1
+            elif self.buffer >= 0:
+                self._flush_zeros()
+                self._emit(self.buffer)
+            if self.sc:
+                self._flush_zeros()
+                for _ in range(self.sc):
+                    self._emit(0xFF)
+                    self._emit(0)
+                self.sc = 0
+        if self.c & 0x7FFF800:
+            self._flush_zeros()
+            self._emit((self.c >> 19) & 0xFF)
+            if ((self.c >> 19) & 0xFF) == 0xFF:
+                self._emit(0)
+            if self.c & 0x7F800:
+                self._emit((self.c >> 11) & 0xFF)
+                if ((self.c >> 11) & 0xFF) == 0xFF:
+                    self._emit(0)
+
+
+def _quant_table(base, quality: int) -> list:
+    """libjpeg's jpeg_quality_scaling of a base table (natural order)."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return [min(255, max(1, (q * scale + 50) // 100)) for q in base]
+
+
+def dct_components(rgb: np.ndarray, sampling, quality: int = 75):
+    """(H, W, 3) RGB (or (H, W) grey) -> [(h, v, quant (64, natural), coef
+    (bh, bw, 64) int, natural order)], the MCU grid's blocks with the image
+    edge-replicated: JFIF YCbCr, box-averaged chroma, a float DCT rounded to
+    the quantizer. Any close encoding does: PIL's decode of the file is the
+    truth."""
+    planes = [rgb.astype(np.float64)] if rgb.ndim == 2 else None
+    if planes is None:
+        r, g, b = (rgb[..., i].astype(np.float64) for i in range(3))
+        planes = [0.299 * r + 0.587 * g + 0.114 * b, -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+                  0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+    h_img, w_img = planes[0].shape
+    maxh, maxv = max(s[0] for s in sampling), max(s[1] for s in sampling)
+    mcux, mcuy = -(-w_img // (8 * maxh)), -(-h_img // (8 * maxv))
+    full = [np.pad(p, ((0, mcuy * 8 * maxv - h_img), (0, mcux * 8 * maxh - w_img)), mode="edge") for p in planes]
+    k = np.arange(8)
+    cos = np.cos((2 * k[:, None] + 1) * k[None, :] * np.pi / 16)
+    cu = np.where(k == 0, 1 / np.sqrt(2), 1.0)
+    out = []
+    for ci, (p, (h, v)) in enumerate(zip(full, sampling)):
+        fy, fx = maxv // v, maxh // h
+        p = p.reshape(p.shape[0] // fy, fy, p.shape[1] // fx, fx).mean(axis=(1, 3)) - 128
+        q = np.array(_quant_table(STD_LUM_Q if ci == 0 else STD_CHR_Q, quality), np.float64)
+        bh, bw = p.shape[0] // 8, p.shape[1] // 8
+        blocks = p.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+        dct = 0.25 * np.einsum("ij,...jk,kl->...il", (cos * cu[None, :]).T, blocks, cos * cu[None, :])
+        coef = np.rint(dct / q.reshape(8, 8)).astype(np.int64).reshape(bh, bw, 64)
+        out.append((h, v, q.astype(np.int64), coef))
+    return out, w_img, h_img
+
+
+PROGRESSIVE_SCRIPT = [  # libjpeg's jpeg_simple_progression for YCbCr: (components, Ss, Se, Ah, Al)
+    ((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1), ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2),
+    ((0,), 1, 63, 2, 1), ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0), ((0,), 1, 63, 1, 0)]
+
+
+def _arith_scan(comps, w_img, h_img, sel, ss, se, ah, al, restart, dac, enc: ArithEncoder) -> None:
+    """One arithmetic-coded scan (jcarith.c encode_mcu / _DC_first /
+    _DC_refine / _AC_first / _AC_refine) of the components `sel`."""
+    maxh, maxv = max(c[0] for c in comps), max(c[1] for c in comps)
+    progressive = ah or al or se < 63
+    dc_stats = {i: bytearray(64) for i in range(4)}
+    ac_stats = {i: bytearray(256) for i in range(4)}
+    fixed = bytearray([113])
+    last_dc, dc_ctx = [0] * len(sel), [0] * len(sel)
+    dc_l, dc_u, ac_k = dac.get("L", 0), dac.get("U", 1), dac.get("K", 5)
+
+    def code_dc(i, tbl, m):
+        st = dc_stats[tbl]
+        s0 = dc_ctx[i]
+        v = m - last_dc[i]
+        if v == 0:
+            enc.encode(st, s0, 0)
+            dc_ctx[i] = 0
+            return
+        last_dc[i] = m
+        enc.encode(st, s0, 1)
+        if v > 0:
+            enc.encode(st, s0 + 1, 0)
+            at, dc_ctx[i] = s0 + 2, 4
+        else:
+            v = -v
+            enc.encode(st, s0 + 1, 1)
+            at, dc_ctx[i] = s0 + 3, 8
+        m = 0
+        v -= 1
+        if v:
+            enc.encode(st, at, 1)
+            m, v2, at = 1, v, 20
+            v2 >>= 1
+            while v2:
+                enc.encode(st, at, 1)
+                m <<= 1
+                at += 1
+                v2 >>= 1
+        enc.encode(st, at, 0)
+        if m < (1 << dc_l) >> 1:
+            dc_ctx[i] = 0
+        elif m > (1 << dc_u) >> 1:
+            dc_ctx[i] += 8
+        at += 14
+        m >>= 1
+        while m:
+            enc.encode(st, at, 1 if m & v else 0)
+            m >>= 1
+
+    def mag(st, at, k, v):  # Figures F.8 / F.9 after the sign
+        m = 0
+        v -= 1
+        if v:
+            enc.encode(st, at, 1)
+            m, v2 = 1, v >> 1
+            if v2:
+                enc.encode(st, at, 1)
+                m <<= 1
+                at = 189 if k <= ac_k else 217
+                v2 >>= 1
+                while v2:
+                    enc.encode(st, at, 1)
+                    m <<= 1
+                    at += 1
+                    v2 >>= 1
+        enc.encode(st, at, 0)
+        at += 14
+        m >>= 1
+        while m:
+            enc.encode(st, at, 1 if m & v else 0)
+            m >>= 1
+
+    def shifted(x, a):  # |x| >> a with its sign
+        return (x >> a) if x >= 0 else -((-x) >> a)
+
+    def code_ac(st, blk):
+        ke = se
+        while ke > 0 and shifted(blk[ZIGZAG[ke]], al) == 0:
+            ke -= 1
+        k = max(ss, 1)
+        while k <= ke:
+            at = 3 * (k - 1)
+            enc.encode(st, at, 0)
+            while shifted(blk[ZIGZAG[k]], al) == 0:
+                enc.encode(st, at + 1, 0)
+                at += 3
+                k += 1
+            v = shifted(blk[ZIGZAG[k]], al)
+            enc.encode(st, at + 1, 1)
+            enc.encode(fixed, 0, 0 if v > 0 else 1)
+            mag(st, at + 2, k, abs(v))
+            k += 1
+        if k <= se:
+            enc.encode(st, 3 * (k - 1), 1)
+
+    def code_ac_refine(st, blk):
+        ke = se
+        while ke > 0 and abs(blk[ZIGZAG[ke]]) >> al == 0:
+            ke -= 1
+        kex = ke
+        while kex > 0 and abs(blk[ZIGZAG[kex]]) >> ah == 0:
+            kex -= 1
+        k = ss
+        while k <= ke:
+            at = 3 * (k - 1)
+            if k > kex:
+                enc.encode(st, at, 0)
+            while True:
+                x = blk[ZIGZAG[k]]
+                v = abs(x) >> al
+                if v:
+                    if v >> 1:
+                        enc.encode(st, at + 2, v & 1)
+                    else:
+                        enc.encode(st, at + 1, 1)
+                        enc.encode(fixed, 0, 0 if x > 0 else 1)
+                    break
+                enc.encode(st, at + 1, 0)
+                at += 3
+                k += 1
+            k += 1
+        if k <= se:
+            enc.encode(st, 3 * (k - 1), 1)
+
+    def dc_value(x):
+        return x >> al  # arithmetic shift, as libjpeg's IRIGHT_SHIFT
+
+    if len(sel) == 1:
+        h, v, _, coef = comps[sel[0]]
+        dw = -(-w_img * h // maxh)
+        dh = -(-h_img * v // maxv)
+        units = [[(0, (by, bx))] for by in range(-(-dh // 8)) for bx in range(-(-dw // 8))]
+    else:
+        mcux, mcuy = -(-w_img // (8 * maxh)), -(-h_img // (8 * maxv))
+        units = [[(i, (my * comps[ci][1] + y, mx * comps[ci][0] + x)) for i, ci in enumerate(sel)
+                  for y in range(comps[ci][1]) for x in range(comps[ci][0])]
+                 for my in range(mcuy) for mx in range(mcux)]
+    rst = 0
+    for n, unit in enumerate(units):
+        if restart and n and n % restart == 0:
+            enc.finish()
+            enc.out += bytes([0xFF, 0xD0 + rst])
+            rst = (rst + 1) & 7
+            enc.reset()
+            for i, ci in enumerate(sel):
+                if not progressive or (ss == 0 and ah == 0):
+                    dc_stats[ci if ci < 1 else 1][:] = bytes(64)
+                    last_dc[i] = dc_ctx[i] = 0
+                if not progressive or se:
+                    ac_stats[ci if ci < 1 else 1][:] = bytes(256)
+        for i, (by, bx) in unit:
+            ci = sel[i]
+            tbl = 0 if ci == 0 else 1
+            blk = comps[ci][3][by, bx]
+            if not progressive:
+                code_dc(i, tbl, int(blk[0]))
+                code_ac(ac_stats[tbl], [int(x) for x in blk])
+            elif ss == 0 and ah == 0:
+                code_dc(i, tbl, dc_value(int(blk[0])))
+            elif ss == 0:
+                enc.encode(fixed, 0, (int(blk[0]) >> al) & 1)
+            elif ah == 0:
+                code_ac(ac_stats[tbl], [int(x) for x in blk])
+            else:
+                code_ac_refine(ac_stats[tbl], [int(x) for x in blk])
+    enc.finish()
+
+
+def write_arith_jpeg(rgb: np.ndarray, sampling=((2, 2), (1, 1), (1, 1)), quality: int = 75,
+                     progressive: bool = False, restart: int = 0, dac=None) -> bytes:
+    """An arithmetic-coded JPEG (SOF9, or SOF10 with libjpeg's progressive
+    script) of an RGB or grey image, JFIF, with a DRI segment for `restart`
+    MCUs and a DAC segment for `dac` = {"L": .., "U": .., "K": ..} (the
+    conditioning of every table, T.81 defaults 0, 1, 5 where left out)."""
+    grey = rgb.ndim == 2
+    sampling = ((1, 1),) if grey else tuple(sampling)
+    comps, w_img, h_img = dct_components(rgb, sampling, quality)
+    dac = dict(dac or {})
+    out = b"\xff\xd8" + _JFIF
+    for t in range(1 if grey else 2):
+        out += _segment(0xDB, bytes([t]) + bytes(int(comps[t][2][z]) for z in ZIGZAG))
+    sof = struct.pack(">BHHB", 8, h_img, w_img, len(comps))
+    for ci, (h, v, _, _) in enumerate(comps):
+        sof += bytes([ci + 1, (h << 4) | v, 0 if ci == 0 else 1])
+    out += _segment(0xCA if progressive else 0xC9, sof)
+    if dac:
+        body = b""
+        for t in range(1 if grey else 2):
+            body += bytes([t, (dac.get("U", 1) << 4) | dac.get("L", 0), 0x10 | t, dac.get("K", 5)])
+        out += _segment(0xCC, body)
+    if restart:
+        out += _segment(0xDD, struct.pack(">H", restart))
+    if not progressive:
+        script = [(tuple(range(len(comps))), 0, 63, 0, 0)]
+    elif grey:
+        script = [((0,), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                  ((0,), 0, 0, 1, 0), ((0,), 1, 63, 1, 0)]
+    else:
+        script = PROGRESSIVE_SCRIPT
+    for sel, ss, se, ah, al in script:
+        sos = bytes([len(sel)]) + b"".join(bytes([ci + 1, 0 if ci == 0 else 0x11]) for ci in sel)
+        out += _segment(0xDA, sos + bytes([ss, se, (ah << 4) | al]))
+        enc = ArithEncoder()
+        _arith_scan(comps, w_img, h_img, sel, ss, se, ah, al, restart, dac, enc)
+        out += bytes(enc.out)
+    return out + b"\xff\xd9"
+
+
+def _huffman_codes(bits):
+    """Canonical codes of a DHT bits list (lengths 1..16): [(code, length)]."""
+    out, code = [], 0
+    for length in range(1, 17):
+        for _ in range(bits[length - 1]):
+            out.append((code, length))
+            code += 1
+        code <<= 1
+    return out
+
+
+def write_lossless_jpeg(img: np.ndarray, predictor: int, pt: int = 0, restart_rows: int = 0,
+                        marker: str = "jfif", sampling=None, interleaved: bool = False, ids=None) -> bytes:
+    """A lossless JPEG (SOF3, T.81 Annex H) of (H, W[, C]) uint8 samples at
+    8-bit precision: predictor 1-7, point transform `pt`, restart every
+    `restart_rows` MCU rows, one scan a component (or one interleaved scan),
+    the luminance DC Huffman table for every difference. `marker`: "jfif",
+    "adobe0" / "adobe1" (transform) or "none"; `img` may be a list of
+    planes, each at its resolution under `sampling` ((h, v) a component,
+    1x1 by default)."""
+    if isinstance(img, (list, tuple)):
+        planes = list(img)
+    else:
+        planes = [img] if img.ndim == 2 else [img[..., i] for i in range(img.shape[2])]
+    sampling = sampling or [(1, 1)] * len(planes)
+    maxh, maxv = max(s[0] for s in sampling), max(s[1] for s in sampling)
+    h_img, w_img = planes[0].shape[0] * maxv // sampling[0][1], planes[0].shape[1] * maxh // sampling[0][0]
+    codes = _huffman_codes(DC_BITS)
+    out = b"\xff\xd8" + {"jfif": _JFIF, "adobe0": _adobe(0), "adobe1": _adobe(1), "none": b""}[marker]
+    ids = ids or list(range(1, len(planes) + 1))
+    sof = struct.pack(">BHHB", 8, h_img, w_img, len(planes))
+    for ci, (h, v) in enumerate(sampling):
+        sof += bytes([ids[ci], (h << 4) | v, 0])
+    out += _segment(0xC3, sof)
+    out += _segment(0xC4, bytes([0]) + bytes(DC_BITS) + bytes(range(12)))
+    mcux = -(-w_img // maxh) if interleaved else None
+    if restart_rows:
+        per_row = mcux if interleaved else None
+        if not interleaved:  # one scan a component: a component's MCU is one sample
+            per_row = planes[0].shape[1]
+            if len({p.shape[1] for p in planes}) > 1:
+                raise ValueError("restart rows need components of one width")
+        out += _segment(0xDD, struct.pack(">H", restart_rows * per_row))
+    scans = [list(range(len(planes)))] if interleaved else [[ci] for ci in range(len(planes))]
+    for sel in scans:
+        out += _segment(0xDA, bytes([len(sel)]) + b"".join(bytes([ids[ci], 0]) for ci in sel)
+                        + bytes([predictor, 0, pt]))
+        # the differences, per component, at each sample of its plane
+        diffs = {}
+        for ci in sel:
+            x = planes[ci].astype(np.int64) >> pt
+            hh, ww = x.shape
+            rows_per_restart = restart_rows * (sampling[ci][1] if interleaved else 1) if restart_rows else hh
+            d = np.zeros_like(x)
+            for y in range(hh):
+                first = y % rows_per_restart == 0
+                for xx in range(ww):
+                    if first:
+                        px = (1 << (8 - pt - 1)) if xx == 0 else x[y, xx - 1]
+                    elif xx == 0:
+                        px = x[y - 1, 0]
+                    else:
+                        ra, rb, rc = int(x[y, xx - 1]), int(x[y - 1, xx]), int(x[y - 1, xx - 1])
+                        px = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+                              6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor]
+                    d[y, xx] = (int(x[y, xx]) - px) & 0xFFFF
+            diffs[ci] = d
+        bits = []
+
+        def put(value, n):
+            bits.extend((value >> (n - 1 - i)) & 1 for i in range(n))
+
+        def code(diff):
+            diff = diff - 65536 if diff >= 32768 else diff
+            s = abs(diff).bit_length()
+            c, n = codes[s]
+            put(c, n)
+            if 0 < s < 16:
+                put(diff if diff > 0 else diff + (1 << s) - 1, s)
+
+        segments = []
+        if interleaved:
+            mcuy = -(-h_img // maxv)
+            for my in range(mcuy):
+                if restart_rows and my and my % restart_rows == 0:
+                    segments.append(bits)
+                    bits = []
+                for mx in range(mcux):
+                    for ci in sel:
+                        h, v = sampling[ci]
+                        pd = diffs[ci]
+                        for y in range(v):
+                            for x in range(h):
+                                yy, xx = my * v + y, mx * h + x
+                                code(int(pd[yy, xx]) if yy < pd.shape[0] and xx < pd.shape[1] else 0)
+        else:
+            pd = diffs[sel[0]]
+            for y in range(pd.shape[0]):
+                if restart_rows and y and y % restart_rows == 0:
+                    segments.append(bits)
+                    bits = []
+                for x in range(pd.shape[1]):
+                    code(int(pd[y, x]))
+        segments.append(bits)
+        for i, seg in enumerate(segments):
+            if i:
+                out += bytes([0xFF, 0xD0 + (i - 1) % 8])
+            seg = seg + [1] * (-len(seg) % 8)
+            data = bytearray()
+            for j in range(0, len(seg), 8):
+                b = int("".join(map(str, seg[j:j + 8])), 2)
+                data.append(b)
+                if b == 0xFF:
+                    data.append(0)
+            out += bytes(data)
+    return out + b"\xff\xd9"
+
+
+def clip_frame(t: int, px: int = CLIP_PX) -> np.ndarray:
+    """Frame t of chip_smoke.py phase 10's synthetic clip, (px, px, 3) uint8
+    integer patterns (chip_smoke.py holds the same function)."""
+    y, x = np.mgrid[0:px, 0:px]
+    return np.stack([(x + 2 * y + 16 * t) & 255, (4 * ((x >> 3) ^ (y >> 3)) + 8 * t) & 255,
+                     (3 * x - y + 32 * t) & 255], axis=-1).astype(np.uint8)
+
+
+def webp_fixture(size, seed: int, opts: dict) -> bytes:
+    """PIL's WebP save of a procedural image under `opts` (see WEBPS)."""
+    opts = dict(opts)
+    colours, alpha, frames = opts.pop("colours", 0), opts.pop("alpha", False), opts.pop("frames", 0)
+    w, h = size
+    arr = procedural(w, h, seed, 0.0 if opts.pop("smooth", False) else 6.0)
+    img = Image.fromarray(arr)
+    if colours:
+        img = img.quantize(colors=colours).convert("RGB")
+    if alpha:
+        a = procedural(w, h, seed + 1)[..., 0]
+        a[: h // 3] = 255
+        a[h // 3: h // 2] = 0
+        img = Image.fromarray(np.concatenate([np.asarray(img), a[..., None]], axis=-1))
+    buf = io.BytesIO()
+    if frames:
+        more = [Image.fromarray(procedural(w, h, seed + 1 + i)) for i in range(frames - 1)]
+        img.save(buf, format="WEBP", save_all=True, append_images=more, duration=100, **opts)
+    else:
+        img.save(buf, format="WEBP", **opts)
+    return buf.getvalue()
+
+
+def bmp_fixture(bits: int, hsize: int, compression: str, opts: dict, seed: int) -> bytes:
+    """A 37x23 BMP of the kind (see BMPS): a procedural image, quantized by
+    PIL to the palette for 1-8 bits."""
+    opts = dict(opts)
+    rgb = procedural(37, 23, seed)
+    palette, pixels = None, rgb
+    if bits <= 8:
+        n = opts.pop("palette", 0)
+        if opts.pop("grey", False):
+            palette = np.repeat(np.arange(256)[:, None], 3, axis=1)[: 1 << bits]
+            pixels = np.asarray(Image.fromarray(rgb).convert("L")) >> (8 - bits)
+        else:
+            q = Image.fromarray(rgb).quantize(colors=n)
+            palette = np.asarray(q.getpalette()[: 3 * n]).reshape(-1, 3)
+            pixels = np.asarray(q)
+    return write_bmp(pixels, bits, hsize, compression, palette, rng=np.random.default_rng(seed), **opts)
+
+
+def coded_jpeg(size, seed: int, opts: dict, lossless: bool) -> bytes:
+    """An arithmetic-coded or lossless JPEG of a procedural image (see ARITH,
+    LOSSLESS)."""
+    opts = dict(opts)
+    w, h = size
+    rgb = procedural(w, h, seed, 0.0 if opts.pop("smooth", False) else 6.0)
+    if opts.pop("grey", False):
+        rgb = np.asarray(Image.fromarray(rgb).convert("L"))
+    if not lossless:
+        return write_arith_jpeg(rgb, **opts)
+    predictor, pt = opts.pop("predictor"), opts.pop("pt", 0)
+    if opts.pop("subsample", False):  # 4:2:0 planes of the RGB samples, one interleaved scan
+        return write_lossless_jpeg([rgb[..., 0], rgb[::2, ::2, 1], rgb[::2, ::2, 2]], predictor, pt, marker="none",
+                                   sampling=[(2, 2), (1, 1), (1, 1)], interleaved=True, **opts)
+    return write_lossless_jpeg(rgb, predictor, pt, marker=opts.pop("marker", "none"), **opts)
+
+
 def resize_chain(img: Image.Image, chain: str) -> np.ndarray:
     for step in chain.split(","):
         img = img.resize(tuple(int(v) for v in step.split("x")))
@@ -213,6 +992,18 @@ def resize_chain(img: Image.Image, chain: str) -> np.ndarray:
 
 def pil_decode_sha(data: bytes) -> str:
     return sha(np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
+
+
+def write(name: str, data: bytes) -> None:
+    with open(os.path.join(HERE, name), "wb") as f:
+        f.write(data)
+
+
+def webp_entry(data: bytes, size, **extra) -> dict:
+    img = Image.open(io.BytesIO(data))
+    return dict({"kind": "webp", "size": size, "file_sha256": hashlib.sha256(data).hexdigest(),
+                 "decode_sha256": sha(np.asarray(img.convert("RGB"))),
+                 "rgba_sha256": sha(np.asarray(img.convert("RGBA")))}, **extra)
 
 
 def main() -> None:
@@ -237,13 +1028,33 @@ def main() -> None:
         entry = {"kind": "jpeg", "size": [w, h], "mode": mode, "seed": seed, "save": save,
                  "file_sha256": hashlib.sha256(data).hexdigest()}
         dec = Image.open(io.BytesIO(data)).convert("RGB")
-        entry["pil_decode_sha256"] = sha(np.asarray(dec))
-        if cut is not None:  # libjpeg smooths across blocks here; the port refuses
-            entry["raises"] = "NotImplementedError"
-        else:
-            entry["decode_sha256"] = entry.pop("pil_decode_sha256")
-            entry["resize_sha256"] = {c: sha(resize_chain(dec, c)) for c in chains}
+        entry["decode_sha256"] = sha(np.asarray(dec))
+        entry["resize_sha256"] = {c: sha(resize_chain(dec, c)) for c in chains}
         manifest[name] = entry
+    for table, coding in ((ARITH, "arithmetic"), (LOSSLESS, "lossless")):
+        for name, (w, h), seed, opts in table:
+            data = coded_jpeg((w, h), seed, opts, coding == "lossless")
+            write(name, data)
+            manifest[name] = {"kind": "jpeg", "coding": coding, "size": [w, h], "seed": seed, "save": opts,
+                              "file_sha256": hashlib.sha256(data).hexdigest(), "decode_sha256": pil_decode_sha(data),
+                              "resize_sha256": {}}
+    for name, (w, h), seed, opts in WEBPS:
+        data = webp_fixture((w, h), seed, opts)
+        write(name, data)
+        manifest[name] = webp_entry(data, [w, h], seed=seed, save=opts)
+    for t in range(0, CLIP_FRAMES, 2):
+        buf = io.BytesIO()
+        Image.fromarray(clip_frame(t)).save(buf, format="WEBP", lossless=True)
+        name = f"clip_{CLIP_PX}_t{t}.webp"
+        write(name, buf.getvalue())
+        manifest[name] = webp_entry(buf.getvalue(), [CLIP_PX, CLIP_PX], clip_frame=t, save={"lossless": True})
+        assert manifest[name]["decode_sha256"] == sha(clip_frame(t))
+    for i, (name, bits, hsize, compression, opts) in enumerate(BMPS):
+        data = bmp_fixture(bits, hsize, compression, opts, 500 + i)
+        write(name, data)
+        manifest[name] = {"kind": "bmp", "size": [37, 23], "bits": bits, "header": hsize,
+                          "compression": compression, "file_sha256": hashlib.sha256(data).hexdigest(),
+                          "decode_sha256": pil_decode_sha(data)}
     for i, (name, color, depth, interlace, trns) in enumerate(PNGS):
         data = png_fixture(color, depth, interlace, trns, 100 + i)
         with open(os.path.join(HERE, name), "wb") as f:

@@ -4,11 +4,16 @@ default `save(format="JPEG")` byte for byte, so `write_synthetic_shard`'s
 tar is the JAX package's byte for byte; `decode_jpeg` gives PIL's
 `Image.open(...).convert("RGB")` pixels for progressive files (4:4:4, 4:2:2,
 4:2:0, grey, CMYK, odd sizes, restart intervals, optimized tables), for CMYK
-with and without an Adobe marker and for YCCK; a progressive file whose
-scans stop early equals PIL or, where libjpeg would smooth across blocks,
-raises `NotImplementedError`; `train/data.py::decode_png` gives PIL's
-pixels for every PNG colour type and bit depth, with PLTE and tRNS, plain
-and Adam7-interlaced. About 4 s."""
+with and without an Adobe marker and for YCCK; a progressive file cut after
+any of its scans equals PIL, libjpeg-turbo's block smoothing included;
+arithmetic-coded files (SOF9, SOF10, with restarts and DAC conditioning)
+and lossless files (SOF3: predictors 1-7, point transforms, restarts,
+interleaved and subsampled) written by `make_fixtures.py`'s encoders equal
+PIL's decode; what PIL refuses (arithmetic-coded lossless frames, lossless
+YCbCr, fractional sampling, height 0, restarts that are not whole MCU rows)
+raises ValueError, and a DNL segment is skipped as PIL skips it;
+`train/data.py::decode_png` gives PIL's pixels for every PNG colour type
+and bit depth, with PLTE and tRNS, plain and Adam7-interlaced. About 15 s."""
 
 import importlib.util
 import io
@@ -34,6 +39,13 @@ SIZES = [(1, 1), (16, 16), (17, 9), (32, 32), (33, 65), (100, 37), (129, 77), (2
 
 def _pil(data: bytes) -> np.ndarray:
     return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+def _pil_or_error(data: bytes):
+    try:
+        return _pil(data)
+    except Exception as e:  # noqa: BLE001 - what PIL raises is the truth
+        return e
 
 
 def _save(img: Image.Image, **opts) -> bytes:
@@ -78,20 +90,19 @@ def test_progressive_matches_pil(name):
 
 @pytest.mark.parametrize("mode", ["RGB", "L"])
 def test_cut_scan_scripts_match_pil_or_raise(mode):
-    """A progressive file cut after each of its scans: PIL's pixels where no
-    coefficient of the first 9 is left unrefined, else NotImplementedError
-    (libjpeg's block smoothing, ROADMAP queue 1). libjpeg's own script
-    refines coefficient 1 in its last scan, so every cut raises here."""
-    data = _save(Image.fromarray(fixtures.procedural(40, 24, 3)).convert(mode), progressive=True)
-    scans = data.count(b"\xff\xda")
-    for n in range(1, scans + 1):
-        cut = fixtures.cut_scans(data, n) if n < scans else data
-        if n < scans:
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-                image_io.decode_jpeg(cut)
-            assert _pil(cut).shape == (24, 40, 3)  # PIL decodes it, smoothing
-        else:
-            np.testing.assert_array_equal(image_io.decode_jpeg(cut), _pil(cut))
+    """A progressive file cut after each of its scans equals PIL's decode:
+    every cut but the last leaves some of AC coefficients 1-9 unrefined, so
+    libjpeg-turbo smooths across blocks (its 5x5 DC neighbourhood; after the
+    DC scan alone it interpolates the DC too). Sizes of 1 and 2 blocks and
+    uneven last block rows take the narrow-picture and edge paths."""
+    for w, h in ((40, 24), (9, 33), (16, 16), (17, 9), (24, 20), (1, 1)):
+        for sub in ((0, 2) if mode == "RGB" else (0,)):
+            data = _save(Image.fromarray(fixtures.procedural(w, h, 3 + w)).convert(mode), progressive=True,
+                         subsampling=sub)
+            scans = data.count(b"\xff\xda")
+            for n in range(1, scans + 1):
+                cut = fixtures.cut_scans(data, n) if n < scans else data
+                np.testing.assert_array_equal(image_io.decode_jpeg(cut), _pil(cut), err_msg=f"{w}x{h} cut {n}")
 
 
 @pytest.mark.parametrize("adobe", [0, 1, 2, 3, None], ids=["cmyk", "t1_ycck", "ycck", "t3_ycck", "no_marker"])
@@ -136,3 +147,105 @@ def test_png_kinds_match_pil(color, depth):
             data = fixtures.write_png(samples, color, depth, palette, t, interlace, seed)
             np.testing.assert_array_equal(tdata.decode_png(data), _pil(data),
                                           err_msg=f"{w}x{h} interlace={interlace} trns={trns}")
+
+
+ARITH = [{}, {"progressive": True}, {"restart": 3}, {"progressive": True, "restart": 2},
+         {"dac": {"L": 1, "U": 3, "K": 2}}, {"progressive": True, "dac": {"L": 0, "U": 0, "K": 63}, "quality": 30},
+         {"sampling": ((1, 1), (1, 1), (1, 1)), "quality": 95}, {"sampling": ((2, 1), (1, 1), (1, 1))},
+         {"progressive": True, "sampling": ((1, 2), (1, 1), (1, 1)), "restart": 1}]
+
+
+@pytest.mark.parametrize("opts", ARITH, ids=[f"arith{i}" for i in range(len(ARITH))])
+def test_arithmetic_matches_pil(opts):
+    """SOF9 / SOF10 from `write_arith_jpeg` (jcarith.c's QM coder): PIL's
+    pixels, grey and colour, odd sizes."""
+    for w, h in ((1, 1), (17, 9), (40, 24), (33, 65)):
+        rgb = fixtures.procedural(w, h, w * h + 1)
+        for img in ((rgb, rgb[..., 1]) if "sampling" not in opts else (rgb,)):
+            data = fixtures.write_arith_jpeg(img, **opts)
+            np.testing.assert_array_equal(image_io.decode_jpeg(data), _pil(data), err_msg=f"{w}x{h} {img.ndim}")
+
+
+LOSSLESS = [(p, pt) for p in range(1, 8) for pt in (0, 2)]
+
+
+@pytest.mark.parametrize("predictor,pt", LOSSLESS, ids=[f"p{p}_pt{pt}" for p, pt in LOSSLESS])
+def test_lossless_matches_pil(predictor, pt):
+    """SOF3 from `write_lossless_jpeg`: one scan a component and one
+    interleaved scan, with and without restarts, grey and RGB."""
+    for w, h in ((1, 1), (17, 9), (40, 24)):
+        rgb = fixtures.procedural(w, h, w + h + predictor)
+        for opts in ({}, {"restart_rows": 2}, {"interleaved": True}, {"interleaved": True, "restart_rows": 1}):
+            data = fixtures.write_lossless_jpeg(rgb, predictor, pt, marker="none", **opts)
+            np.testing.assert_array_equal(image_io.decode_jpeg(data), _pil(data), err_msg=f"{w}x{h} {opts}")
+        data = fixtures.write_lossless_jpeg(rgb[..., 0], predictor, pt)
+        np.testing.assert_array_equal(image_io.decode_jpeg(data), _pil(data), err_msg=f"{w}x{h} grey")
+
+
+@pytest.mark.parametrize("interleaved", [False, True], ids=["per_component", "interleaved"])
+def test_lossless_subsampled_matches_pil(interleaved):
+    """4:2:0 lossless: libjpeg upsamples by box replication (no fancy
+    upsampling at DCT size 1)."""
+    for w, h in ((2, 2), (18, 10), (40, 24)):
+        rgb = fixtures.procedural(w, h, w)
+        planes = [rgb[..., 0], rgb[::2, ::2, 1], rgb[::2, ::2, 2]]
+        for rst in ((0, 1) if interleaved else (0,)):
+            data = fixtures.write_lossless_jpeg(planes, 3, 0, marker="none", sampling=[(2, 2), (1, 1), (1, 1)],
+                                                interleaved=interleaved, restart_rows=rst)
+            np.testing.assert_array_equal(image_io.decode_jpeg(data), _pil(data), err_msg=f"{w}x{h}")
+
+
+def _refusals():
+    """Files PIL 12.1 refuses, and a DNL segment it skips."""
+    rgb = fixtures.procedural(40, 24, 3)
+    lossless = fixtures.write_lossless_jpeg(rgb, 1, 0, marker="none")
+    dct = _save(Image.fromarray(rgb), subsampling=0)
+    sof, sos = dct.index(b"\xff\xc0"), dct.index(b"\xff\xda")
+    at = lossless.index(b"\xff\xc3")
+    dri = fixtures.write_lossless_jpeg(rgb, 1, 0, marker="none", restart_rows=2)
+    i = dri.index(b"\xff\xdd")
+    return {
+        "arithmetic lossless (SOF11)": lossless[:at + 1] + b"\xcb" + lossless[at + 2:],
+        "lossless YCbCr (JFIF)": fixtures.write_lossless_jpeg(rgb, 1, 0, marker="jfif"),
+        "lossless YCbCr (Adobe 1)": fixtures.write_lossless_jpeg(rgb, 1, 0, marker="adobe1"),
+        "lossless restart of 60 samples": dri[:i + 4] + struct.pack(">H", 60) + dri[i + 6:],
+        "fractional sampling": dct[:sof + 11] + b"\x21" + dct[sof + 12:sof + 14] + b"\x31" + dct[sof + 15:],
+        "height 0": dct[:sof + 5] + b"\x00\x00" + dct[sof + 7:],
+    }, {"DNL before the scan": dct[:sos] + b"\xff\xdc\x00\x04\x00\x18" + dct[sos:],
+        "DNL after the scan": dct[:-2] + b"\xff\xdc\x00\x04\x00\x18" + dct[-2:]}, dct
+
+
+def test_refusals_and_dnl_are_pils():
+    """What PIL refuses, the port raises ValueError for ("as PIL refuses
+    it"); a DNL segment, which libjpeg skips, changes nothing."""
+    refused, dnl, plain = _refusals()
+    for what, data in refused.items():
+        assert isinstance(_pil_or_error(data), Exception), what
+        with pytest.raises(ValueError, match="as PIL refuses it"):
+            image_io.decode_jpeg(data)
+    for what, data in dnl.items():
+        np.testing.assert_array_equal(image_io.decode_jpeg(data), _pil(data), err_msg=what)
+        np.testing.assert_array_equal(image_io.decode_jpeg(data), image_io.decode_jpeg(plain), err_msg=what)
+
+
+@pytest.mark.parametrize("kind", ["arithmetic", "lossless"])
+def test_truncated_and_corrupt_coded_jpeg(kind):
+    """Truncated files raise ValueError; flipped bytes raise ValueError or
+    decode to the frame's size (libjpeg decodes arithmetic data it cannot
+    read as zeros), never crash."""
+    rgb = fixtures.procedural(33, 17, 5)
+    data = (fixtures.write_arith_jpeg(rgb, progressive=True, restart=2) if kind == "arithmetic"
+            else fixtures.write_lossless_jpeg(rgb, 4, 0, marker="none", restart_rows=2))
+    for frac in (0.0, 0.1, 0.3, 0.5, 0.8, 0.95):
+        with pytest.raises(ValueError):
+            image_io.decode_jpeg(data[:int(frac * len(data))])
+    rng = np.random.default_rng(1)
+    for _ in range(200):
+        bad = bytearray(data)
+        for p in rng.integers(2, len(bad), 2):
+            bad[p] = int(rng.integers(0, 256))
+        try:
+            out = image_io.decode_jpeg(bytes(bad))
+        except ValueError:
+            continue
+        assert out.dtype == np.uint8 and out.ndim == 3 and out.shape[2] == 3

@@ -2,15 +2,17 @@
 `csrc/host/image_io.cpp`) against PIL's `Image.open(...).convert("RGB")`,
 bit for bit: chroma subsampling 4:4:4 / 4:2:2 / 4:2:0 and grey, qualities 50
 to 100, optimized Huffman tables, restart intervals, sizes from 1x1 to
-257x129 (edge MCUs, odd sizes). 12-bit and hierarchical files are refused
-as PIL refuses them; arithmetic-coded and lossless files raise
-`NotImplementedError` naming ROADMAP queue 1; truncated and corrupt files
-raise `ValueError` and never crash. The committed fixtures of
-`tests/data/torch_jpeg/` (JPEG of every kind the port reads, PNG of every
-kind, and pixel arrays for the JPEG writer) decode, resize and encode to
-their manifest's PIL hashes, and PIL itself gives those hashes from the
-committed bytes. Progressive, CMYK and YCCK files and every PNG kind are
-swept against PIL in `test_torch_image_files.py`. About 6 s."""
+257x129 (edge MCUs, odd sizes). A file whose SOF marker is patched to
+another frame kind decodes as PIL decodes it or raises where PIL raises
+(12-bit, hierarchical and YCbCr-lossless files are refused with ValueError,
+as PIL refuses them); truncated and corrupt files raise `ValueError` and
+never crash. The committed fixtures of `tests/data/torch_jpeg/` (JPEG of
+every kind the port reads, PNG, WebP and BMP of every kind, and pixel
+arrays for the JPEG writer) decode, resize and encode to their manifest's
+PIL hashes, and PIL itself gives those hashes from the committed bytes.
+Progressive, CMYK, YCCK, arithmetic-coded and lossless files and every PNG
+kind are swept against PIL in `test_torch_image_files.py`, WebP in
+`test_torch_webp.py`, BMP in `test_torch_bmp.py`. About 8 s."""
 
 import hashlib
 import io
@@ -104,24 +106,30 @@ def _frame_kind(kind: str) -> bytes:
 
 
 # What PIL 12.1 (libjpeg-turbo 3.1) does with each: 12-bit files it
-# cannot open, hierarchical ones libjpeg refuses, arithmetic-coded ones it
-# decodes, and this lossless stream (Huffman data of a DCT file) it rejects.
+# cannot open, hierarchical ones libjpeg refuses, this arithmetic-coded
+# stream (Huffman data read by the QM decoder) it decodes, and this lossless
+# stream (a JFIF file, so YCbCr, which libjpeg does not convert in lossless
+# mode) it rejects.
 _PIL_ON = {"12bit": "UnidentifiedImageError", "hierarchical": "OSError", "arithmetic": "decodes",
            "lossless": "OSError"}
 
 
 @pytest.mark.parametrize("kind", sorted(_PIL_ON))
 def test_unsupported_frames_raise(kind):
+    """The port does what PIL does: PIL's pixels where it decodes, else
+    ValueError "as PIL refuses it"."""
     data = _frame_kind(kind)
     try:
-        Image.open(io.BytesIO(data)).convert("RGB")
+        want = _pil(data)
         pil = "decodes"
     except Exception as e:  # noqa: BLE001 - recording what PIL raises
         pil = type(e).__name__
     assert pil == _PIL_ON[kind]
-    match = "ROADMAP queue 1" if kind in ("arithmetic", "lossless") else "as PIL refuses it"
-    with pytest.raises(NotImplementedError, match=match):
-        image_io.decode_jpeg(data)
+    if pil == "decodes":
+        np.testing.assert_array_equal(image_io.decode_jpeg(data), want)
+    else:
+        with pytest.raises(ValueError, match="as PIL refuses it"):
+            image_io.decode_jpeg(data)
 
 
 _VALID = _encode(_image(65, 33, seed=5), quality=75, restart_marker_blocks=2)
@@ -174,13 +182,11 @@ def test_fixture_decodes_to_manifest(name):
     with open(os.path.join(FIXTURES, name), "rb") as f:
         data = f.read()
     assert hashlib.sha256(data).hexdigest() == entry["file_sha256"]
-    if "raises" in entry:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            image_io.decode_jpeg(data)
-        return
     img = decode_image(data)
     assert img.shape == (entry["size"][1], entry["size"][0], 3)
     assert _sha(img) == entry["decode_sha256"]
+    if entry["kind"] == "webp":
+        assert _sha(image_io.decode_webp(data)) == entry["rgba_sha256"]
     for chain, want in entry.get("resize_sha256", {}).items():
         assert _sha(_chain(img, chain, image_io.resize_bicubic)) == want, chain
 
@@ -198,10 +204,8 @@ def test_manifest_is_pil(name):
     with open(os.path.join(FIXTURES, name), "rb") as f:
         data = f.read()
     img = Image.open(io.BytesIO(data)).convert("RGB")
-    if "raises" in entry:  # a cut progressive file: PIL decodes it, smoothing across blocks
-        assert Image.open(io.BytesIO(data)).info.get("progressive")
-        assert _sha(np.asarray(img)) == entry["pil_decode_sha256"]
-        return
     assert _sha(np.asarray(img)) == entry["decode_sha256"]
+    if entry["kind"] == "webp":
+        assert _sha(np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))) == entry["rgba_sha256"]
     for chain, want in entry.get("resize_sha256", {}).items():
         assert _sha(np.asarray(_chain(img, chain, lambda im, s: im.resize(s)))) == want, chain

@@ -94,8 +94,10 @@ def test_iter_tar_samples_falls_back_to_tarfile_and_counts(tmp_path, monkeypatch
 
 def test_corrupt_sample_is_skipped_and_unsupported_raises(tmp_path):
     """A sample whose image does not decode is skipped, as in the JAX
-    package; a format the port does not read (arithmetic-coded JPEG: a
-    baseline file with its SOF0 marker made SOF9) raises."""
+    package; an arithmetic-coded JPEG (a baseline file with its SOF0 marker
+    made SOF9), which the port once refused, now decodes to PIL's pixels;
+    a format the port does not read yet (GIF) raises ValueError naming it,
+    so its sample is skipped."""
     path = str(tmp_path / "mixed.tar")
     png = encode_png(np.zeros((4, 4, 3), np.uint8))
     bad_jpeg = b"\xff\xd8\xff\xdb\x00\x03"  # a DQT segment cut short
@@ -111,8 +113,15 @@ def test_corrupt_sample_is_skipped_and_unsupported_raises(tmp_path):
     arith = buf.getvalue().replace(b"\xff\xc0", b"\xff\xc9", 1)
     _write_tar(path, tarfile.PAX_FORMAT, [("000000.good_image.jpg", arith),
                                           ("000000.bad_image.png", png)])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        list(tdata.iter_tar_samples(path))
+    (sample,) = tdata.iter_tar_samples(path)
+    np.testing.assert_array_equal(sample.good, np.asarray(Image.open(io.BytesIO(arith)).convert("RGB")))
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format="GIF")
+    with pytest.raises(ValueError, match="GIF images are not read by the port yet"):
+        tdata.decode_image(buf.getvalue())
+    _write_tar(path, tarfile.PAX_FORMAT, [("000000.good_image.jpg", buf.getvalue()),
+                                          ("000000.bad_image.png", png)])
+    assert list(tdata.iter_tar_samples(path)) == []
 
 
 def test_host_build_raises_without_compiler_or_on_error(tmp_path, monkeypatch):
