@@ -12,7 +12,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (`csrc/norm_rope.cu`), K8 (`csrc/flash_fwd_int8.cu`) and K9
      (`csrc/flash_fwd_nr.cu`) into `.build/kernels/`, one nvcc per source,
      all started together, and with g++ beside them the host image codecs
-     (`csrc/host/image_io.cpp`) and the native tar indexer
+     (`csrc/host/image_io.cpp`, `bmp.cpp`, `webp.cpp`, `gif.cpp`) and the native tar indexer
      (`native/genref_loader.cpp`) into `.build/host/`; prints ptxas's
      registers and spills per kernel;
      checks that each kernel on the Hopper pipelines `csrc/flash_fwd_sm90.cuh`
@@ -100,7 +100,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      files cut short that libjpeg smooths, arithmetic-coded SOF9 / SOF10,
      lossless SOF3), PNG (every colour type and bit depth, PLTE, tRNS,
      Adam7), WebP (lossy, lossless, alpha, an animation's first frame; its
-     RGBA too) and BMP (every header, depth, bitfields and RLE kind); a
+     RGBA too), BMP (every header, depth, bitfields and RLE kind) and GIF
+     (PIL-written, interlaced, local and short tables, an offset sub-frame
+     with transparency and extensions, code sizes 2 and 5, a full code
+     table); a
      JPEG's `resize_bicubic` gives the manifest's PIL resize hashes at the
      paired-crop shapes and equals `resize_ref` bit for bit; `encode_jpeg` of
      each committed pixel array gives the sha256 of PIL's default save; the
@@ -110,8 +113,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      1024^2 RGB image in C++ and in its numpy loop in turns, and a 1024x768
      decode of each kind this port reads beside the baseline JPEG (WebP
      lossy and lossless, arithmetic-coded progressive, lossless JPEG, a
-     smoothed progressive file cut after 5 scans, and a 24-bit BMP this
-     script writes from the decoded baseline); a GenRef-format
+     smoothed progressive file cut after 5 scans, a PIL-written GIF, and a
+     24-bit BMP this script writes from the decoded baseline); a GenRef-format
      tar of GENREF_SAMPLES samples (the 1024^2 fixtures good, the 1024x768
      one bad, subsets general / length / rule / editing, every other sample's
      members under PAX long names) indexed by `utils/native.py`; one
@@ -363,6 +366,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      whose 512 px condition is the port's `canny` of a seeded image: finite
      latents, 8 x 57 K1; the host milliseconds of `canny`, `coloring` and
      `deblurring` on a 1024^2 image.
+  18. the `depth` condition preprocessor (Depth Anything, `models/depth_anything/`),
+     after phase 17 on the bf16 pipeline: depth-anything-small at full width
+     (DINOv2 384 x 12, neck 48/96/192/384, fusion 64) with seeded random
+     weights (`random_init(DEPTH_SEED)`) written as a snapshot and read back
+     through `Condition("depth", img)` with DEPTH_MODEL_DIR at it: the card's
+     fp32 map of a seeded 512^2 image against the port's CPU fp32 run of the
+     same module (TF32 off; predicted depth within DEPTH_REL_TOL of max |CPU|,
+     uint8 maps at most DEPTH_STEP_SHARE of pixels one step apart and none
+     further); the committed tiny snapshot of tests/data/torch_depth/ on the
+     card against the map the JAX package's `_depth` gave for its committed
+     image (the same limits); a depth-conditioned `generate` (1024 px, 512 px
+     condition, image CFG, STEPS steps): finite latents, exactly STEPS x 57 K1
+     and no other launch; the depth map's host and device milliseconds on a
+     1024^2 image.
 The training numbers are on the line {"train": {...}}, phase 5e's on
 {"genref_data": {...}}, the ring phase's on
 {"ring": {...}}, the reflection round's on {"reflection_round": {...}}, the
@@ -370,7 +387,8 @@ snapshot phase's on {"snapshot_load": {...}}, the round with models on
 {"reflection_round_models": {...}}, the NVILA round on {"nvila_round":
 {...}}, phase 12's on {"vcache_nf4": {...}} and phase 13's on {"rm_train":
 {...}}, phase 14's on {"mesh": {...}}, phase 15's on {"mesh_train": {...}},
-phase 16's on {"ring_ranks": {...}}, phase 17's on {"controlnet": {...}};
+phase 16's on {"ring_ranks": {...}}, phase 17's on {"controlnet": {...}},
+phase 18's on {"depth": {...}};
 the line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -387,6 +405,7 @@ import statistics
 import struct
 import subprocess
 import sys
+import shutil
 import tempfile
 import time
 import types
@@ -432,7 +451,7 @@ QWEN_INT8_TOL = 0.1  # phase 9's Qwen verifier: |W8A8 score - bf16 score|, score
 QWEN_CLIP_FRAMES, QWEN_CLIP_PX = 8, 448  # phase 10's synthetic video clips
 # phase 5e's 1024x768 decode timings of the image kinds beside the baseline JPEG (BMP: written here)
 KIND_FIXTURES = ("webp_lossy_1024x768_q75.webp", "webp_lossless_1024x768_m4.webp", "arith_prog_420_1024x768.jpg",
-                 "lossless_p7_rst32_1024x768.jpg", "progressive_cut5_1024x768.jpg")
+                 "lossless_p7_rst32_1024x768.jpg", "progressive_cut5_1024x768.jpg", "gif_pil_1024x768.gif")
 NVILA_INT8_TOL = 0.12  # phase 11: |W8A8 - bf16| of the yes and no logits (|logit| 0.03-0.70; read 0.060, 0.074)
 NVILA_TIMED_B = 2  # phase 11: the NVILA score pass timed at this batch
 NVILA_TIMED_REPS = 9  # phase 11: its repetitions, int8 and bf16 in turns; the median is kept
@@ -467,6 +486,13 @@ RING_RANK_DEPTH = (2, 4)  # 16c / 16d: double and single blocks (full width; a c
 RING_RANK_TIMEOUT = MESH_TIMEOUT  # seconds a phase-16 launch may take
 CN_HOOKS = (2, 4)  # phase 17: ControlNet double and single hooks (10 blocks a hook of 19 + 38)
 CN_COS = 0.999  # phase 17: the ControlNet forward under "pallas" against "xla"
+DEPTH_SEED = 18  # phase 18: the full-width Depth Anything's random weights and its images
+DEPTH_REL_TOL = 1e-4  # phase 18: fp32 predicted depth, card against CPU, relative to max |CPU|
+# phase 18: uint8 map pixels allowed one step apart (none further): a pixel moves when its
+# min-max scaled value lies within 255 x DEPTH_REL_TOL of a step, on either side
+DEPTH_STEP_SHARE = 2 * 255 * DEPTH_REL_TOL
+DEPTH_REPS = 9  # phase 18: the 1024^2 depth map's timings, the median of this many
+DEPTH_FIXTURE = os.path.join(REPO, "tests", "data", "torch_depth")
 K1_PRESET = (1, LT + LI + LC, LT + LI, 0.0)  # phase 11: K1 at the NVILA preset's (B, L, main_len, cross bias)
 # K1 timed: (B, L, main_len, cross bias): the t2i forward at B = 1 and 2, and the training
 # sequence (512 + 1024 + 1024 tokens, the cond segment at 1536) with the c_factor bias
@@ -1663,7 +1689,7 @@ def _median_ms(fns: dict, reps: int) -> dict:
 
 def genref_fixtures(image_io) -> dict:
     """Every committed fixture: each image file (JPEG of every kind, PNG,
-    WebP, BMP) decodes through `train/data.py::decode_image` to the sha256 of
+    WebP, BMP, GIF) decodes through `train/data.py::decode_image` to the sha256 of
     PIL's decode in the manifest (a WebP's RGBA too); a JPEG's resize chains
     give the manifest's PIL hashes and equal `resize_ref` bit for bit; the
     JPEG writer's bytes for each committed pixel array equal PIL's save.
@@ -5172,6 +5198,112 @@ def controlnet_phase(torch, pipe) -> dict:
     return res
 
 
+def _map_agreement(got, want, what: str) -> dict:
+    """uint8 depth maps: at most DEPTH_STEP_SHARE of pixels one step apart,
+    none further."""
+    import numpy as np
+
+    check(got.shape == want.shape and got.dtype == want.dtype, f"18: {what}: map {got.shape} vs {want.shape}")
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    res = {"max_step": int(diff.max()), "one_step_share": float((diff > 0).mean())}
+    check(res["max_step"] <= 1 and res["one_step_share"] <= DEPTH_STEP_SHARE,
+          f"18: {what}: {res} (limits 1 step, share {DEPTH_STEP_SHARE})")
+    return res
+
+
+def depth_phase(torch, pipe) -> dict:
+    """Phase 18 on the bf16 pipeline: the `depth` preprocessor's full-width
+    Depth Anything on the card against its CPU run and against the JAX
+    package's map of the committed fixture; a depth-conditioned generate with
+    its launches counted; the depth map's host and device milliseconds."""
+    import numpy as np
+
+    from reflectionflow_tpu_torch.config import DepthAnythingConfig
+    from reflectionflow_tpu_torch.models.depth_anything import (DepthAnythingForDepthEstimation, depth_to_uint8,
+                                                                preprocess, resize_depth, save_depth_anything)
+    from reflectionflow_tpu_torch.models.depth_anything.model import no_tf32
+    from reflectionflow_tpu_torch.sampler import condition as tcond
+    from reflectionflow_tpu_torch.train.data import decode_png
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(DEPTH_SEED)
+    tmp = tempfile.mkdtemp(prefix="depth_snapshot_")
+    cpu_model = DepthAnythingForDepthEstimation.random_init(DEPTH_SEED, DepthAnythingConfig(), device="cpu")
+    save_depth_anything(cpu_model, tmp)
+    n_params = sum(p.numel() for p in cpu_model.parameters())
+    os.environ["DEPTH_MODEL_DIR"] = tmp
+    os.environ.pop("DEPTH_DEVICE", None)  # the default device: cuda
+    img = np.repeat(np.repeat(rng.integers(0, 256, (64, 64, 3), dtype=np.uint8), 8, 0), 8, 1)
+    img = np.clip(img.astype(np.int16) + rng.integers(-6, 7, img.shape), 0, 255).astype(np.uint8)
+    t0 = time.perf_counter()
+    card_map = tcond.Condition("depth", img).preprocess()
+    first_s = time.perf_counter() - t0  # the snapshot's load onto the card and the first map
+    model = tcond.depth_model()
+    check(model.device.type == "cuda", f"18: the depth model is on {model.device}")
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(model.state_dict().values(),
+                                                       cpu_model.state_dict().values())),
+          "18: the snapshot read on the card differs from the written weights")
+    card_pred = model.predict(img).cpu()  # fp32, TF32 off inside predict
+    cpu_pred = cpu_model.predict(img)
+    pred_err = float((card_pred - cpu_pred).abs().max()) / float(cpu_pred.abs().max())
+    check(bool(torch.isfinite(card_pred).all()) and pred_err <= DEPTH_REL_TOL,
+          f"18: predicted depth, card against CPU: {pred_err:.3e} of max |CPU| (limit {DEPTH_REL_TOL})")
+    full = _map_agreement(card_map, cpu_model.depth_map(img), "512^2 map, card against CPU")
+
+    # the committed tiny snapshot: the card against the JAX package's map
+    with open(os.path.join(DEPTH_FIXTURE, "image.png"), "rb") as f:
+        fx_img = decode_png(f.read())
+    with open(os.path.join(DEPTH_FIXTURE, "depth.png"), "rb") as f:
+        fx_want = decode_png(f.read())
+    fx_model = tcond.depth_model(DEPTH_FIXTURE, "cuda")
+    fixture = _map_agreement(fx_model.depth_map(fx_img), fx_want, "committed fixture, card against JAX")
+
+    # the depth map's host and device milliseconds on a 1024^2 image
+    big = np.repeat(np.repeat(img, 2, 0), 2, 1)
+    pix = torch.from_numpy(preprocess(big, model.processor))[None].cuda()
+    depth = model.predict(big).cpu().numpy()
+    host_ms = _median_ms({"preprocess": lambda: preprocess(big, model.processor),
+                          "postprocess": lambda: depth_to_uint8(depth),
+                          "depth_map": lambda: model.depth_map(big)}, DEPTH_REPS)
+    with torch.no_grad(), no_tf32():
+        pred = model(pix)[0]
+        device_ms = {"forward": cuda_ms(torch, lambda: model(pix), DEPTH_REPS),
+                     "resize": cuda_ms(torch, lambda: resize_depth(pred, big.shape[:2]), DEPTH_REPS)}
+
+    # a depth-conditioned generate, the launches counted around it
+    cfg_d = pipe.dit_cfg
+    n_blocks = cfg_d.num_double_blocks + cfg_d.num_single_blocks
+    cond = tcond.Condition("depth", img, tcond.cot_position_delta(LT))
+    counters = zero_counts()
+    t0 = time.perf_counter()
+    lat = pipe.generate(["a photo of a red cube"], height=2 * LT, width=2 * LT, num_inference_steps=STEPS,
+                        conditions=[cond], image_guidance_scale=IMAGE_CFG, output_type="latent", seed=DEPTH_SEED)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: 0 for name in gen_launches}
+    want["flash_fwd"] = STEPS * n_blocks
+    check(gen_launches == want, f"18: depth-conditioned generate launches {gen_launches}, expected {want}")
+    ty = tx = 2 * LT // 16
+    check(tuple(lat.shape) == (1, ty * tx, cfg_d.in_channels) and bool(torch.isfinite(lat).all()),
+          "18: depth-conditioned generate gave bad latents")
+    tcond._depth_models.clear()
+    shutil.rmtree(tmp)
+    res = {"params": n_params, "pixel_grid": list(pix.shape[2:]), "first_map_s": first_s,
+           "pred_rel_err_512": pred_err, "map_512": full, "fixture_map": fixture,
+           "host_ms_1024": host_ms, "device_ms_1024": device_ms, "generate_launches": gen_launches,
+           "generate_s": gen_s, "phase_s": time.perf_counter() - t_phase}
+    log(f"18 depth (Depth Anything small widths, {n_params / 1e6:.1f} M random fp32 parameters from a snapshot): "
+        f"512^2 map card against CPU: predicted depth {pred_err:.2e} of max (limit {DEPTH_REL_TOL}), "
+        f"{full['one_step_share']:.2e} of pixels one step apart (limit {DEPTH_STEP_SHARE:.3f}); committed "
+        f"fixture against the JAX map: {fixture['one_step_share']:.2e} one step apart; 1024^2 map (grid "
+        f"{list(pix.shape[2:])}): host ms {json.dumps({k: round(v, 2) for k, v in host_ms.items()})}, device ms "
+        f"{json.dumps({k: round(v, 3) for k, v in device_ms.items()})}; depth-conditioned generate (1024 px, 512 "
+        f"px condition, image CFG {IMAGE_CFG}, {STEPS} steps) {gen_s:.2f} s, {gen_launches['flash_fwd']} K1; "
+        f"phase 18 {res['phase_s']:.1f} s")
+    return res
+
+
 def _dit_cfg():
     from reflectionflow_tpu_torch.config import FluxDiTConfig
 
@@ -5209,7 +5341,7 @@ def main() -> int:
         kernel_build.build_all()
         host_build_s = host.result()
     log(f"build {', '.join(kernel_build.SOURCES)} (in parallel): {time.perf_counter() - t0:.2f} s; "
-        f"host libraries image_io.cpp, bmp.cpp, webp.cpp and genref_loader.cpp (g++, beside them): "
+        f"host libraries image_io.cpp, bmp.cpp, webp.cpp, gif.cpp and genref_loader.cpp (g++, beside them): "
         f"{host_build_s:.2f} s")
     ptxas = {src: kernel_build.ptxas_report(src) for src in kernel_build.SOURCES}
     log(json.dumps({"ptxas": ptxas}))
@@ -5236,6 +5368,7 @@ def main() -> int:
     t_ring = time.perf_counter() - t0
     log(f"ring phase (5d): {t_ring:.1f} s")
     controlnet = controlnet_phase(torch, pipe)
+    depth = depth_phase(torch, pipe)
     w8_launches, w8_calls, w8_peak, cond_gib, prof, ragged = w8a8_phase(torch, pipe, adapters)
     del adapters
     corrector = corrector_phase(torch, pipe)
@@ -5337,7 +5470,8 @@ def main() -> int:
                                     serving_attn[name], corr_shape, t2i_shape))
     kernels[0]["by_shape"][f"B={K1_PRESET[0]} L={K1_PRESET[1]}"] = nvila["k1_preset"]
     kernels[0]["launches_controlnet"] = {"forward": controlnet["launches"]["flash_fwd"],
-                                         "canny_generate": controlnet["generate_launches"]["flash_fwd"]}
+                                         "canny_generate": controlnet["generate_launches"]["flash_fwd"],
+                                         "depth_generate": depth["generate_launches"]["flash_fwd"]}
     for k in kernels:
         k["launches_round_nvila"] = nvila["round"]["launches"][k["name"]]
     for k in kernels:
@@ -5369,6 +5503,7 @@ def main() -> int:
     log(json.dumps({"mesh_train": mesh_train}))
     log(json.dumps({"ring_ranks": ring_ranks}))
     log(json.dumps({"controlnet": controlnet}))
+    log(json.dumps({"depth": depth}))
     log(json.dumps({"ring": {"attention": ring["attention"],
                              "train": {k: ring["train"][k] for k in ("s_per_step", "peak_gib", "launches",
                                                                       "grad_cosine_min", "grad_cosine")},

@@ -252,6 +252,152 @@ class NvilaConfig:
     media_token: str = "<image>"
 
 
+# transformers' `Dinov2Config` defaults: what a snapshot's backbone_config
+# means by a key it leaves out
+_DINOV2_JSON_DEFAULTS = {
+    "hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12, "mlp_ratio": 4,
+    "hidden_act": "gelu", "layer_norm_eps": 1e-6, "image_size": 224, "patch_size": 14, "num_channels": 3,
+    "qkv_bias": True, "layerscale_value": 1.0, "use_swiglu_ffn": False, "apply_layernorm": True,
+    "reshape_hidden_states": True, "use_mask_token": True,
+}
+
+
+@dataclass(frozen=True)
+class Dinov2Config:
+    """DINOv2 backbone of Depth Anything (pre-LN ViT with a CLS token, learned
+    positions interpolated to the input's grid, LayerScale). Defaults =
+    depth-anything-small's backbone, the one transformers'
+    `DepthAnythingConfig` builds when `backbone_config` is None.
+    `out_indices` index [embeddings, layer_1, ..., layer_N]."""
+
+    hidden_size: int = 384
+    num_layers: int = 12
+    num_heads: int = 6
+    mlp_ratio: float = 4
+    layer_norm_eps: float = 1e-6
+    image_size: int = 518
+    patch_size: int = 14
+    num_channels: int = 3
+    qkv_bias: bool = True
+    layerscale_value: float = 1.0
+    out_indices: tuple[int, ...] = (9, 10, 11, 12)
+    apply_layernorm: bool = True
+    use_mask_token: bool = True
+
+    @staticmethod
+    def from_json(d: dict) -> "Dinov2Config":
+        """A snapshot's `backbone_config`, keys missing meaning transformers'
+        `Dinov2Config` defaults; what the port does not run raises ValueError."""
+        if d.get("model_type", "dinov2") != "dinov2":
+            raise ValueError(f"Depth Anything backbone {d.get('model_type')!r}: the port runs DINOv2 only "
+                             "(ROADMAP queue 1)")
+        g = {**_DINOV2_JSON_DEFAULTS, **{k: v for k, v in d.items() if v is not None}}
+        if g["hidden_act"] != "gelu" or g["use_swiglu_ffn"]:
+            raise ValueError(f"a DINOv2 MLP of hidden_act {g['hidden_act']!r}, use_swiglu_ffn "
+                             f"{g['use_swiglu_ffn']}: the port runs the GELU MLP (ROADMAP queue 1)")
+        if g["reshape_hidden_states"]:
+            raise ValueError("a DINOv2 backbone with reshape_hidden_states: Depth Anything's neck reads token "
+                             "rows (ROADMAP queue 1)")
+        n = g["num_hidden_layers"]
+        stages = ["stem"] + [f"stage{i}" for i in range(1, n + 1)]
+        # transformers' backbone keeps the stages named in out_features, in stage order
+        if d.get("out_features") is not None:
+            out = tuple(sorted({stages.index(s) for s in d["out_features"]}))
+        elif d.get("out_indices") is not None:
+            out = tuple(sorted({i % (n + 1) for i in d["out_indices"]}))
+        else:
+            out = (n,)
+        return Dinov2Config(
+            hidden_size=g["hidden_size"], num_layers=n, num_heads=g["num_attention_heads"],
+            mlp_ratio=g["mlp_ratio"], layer_norm_eps=g["layer_norm_eps"], image_size=g["image_size"],
+            patch_size=g["patch_size"], num_channels=g["num_channels"], qkv_bias=g["qkv_bias"],
+            layerscale_value=g["layerscale_value"], out_indices=out,
+            apply_layernorm=g["apply_layernorm"], use_mask_token=g["use_mask_token"])
+
+    def to_json(self) -> dict:
+        """transformers' `backbone_config` keys."""
+        return {"model_type": "dinov2", "hidden_size": self.hidden_size, "num_hidden_layers": self.num_layers,
+                "num_attention_heads": self.num_heads, "mlp_ratio": self.mlp_ratio, "hidden_act": "gelu",
+                "layer_norm_eps": self.layer_norm_eps, "image_size": self.image_size,
+                "patch_size": self.patch_size, "num_channels": self.num_channels, "qkv_bias": self.qkv_bias,
+                "layerscale_value": self.layerscale_value, "use_swiglu_ffn": False,
+                "out_indices": list(self.out_indices), "apply_layernorm": self.apply_layernorm,
+                "reshape_hidden_states": False, "use_mask_token": self.use_mask_token}
+
+    @staticmethod
+    def tiny() -> "Dinov2Config":
+        return Dinov2Config(hidden_size=32, num_layers=4, num_heads=4, out_indices=(1, 2, 3, 4))
+
+
+@dataclass(frozen=True)
+class DepthAnythingConfig:
+    """Depth Anything (`DepthAnythingForDepthEstimation`): a DINOv2 backbone,
+    the DPT neck (reassemble, 3x3 convs, feature fusion) and the depth head.
+    Defaults = depth-anything-small (transformers' `DepthAnythingConfig()`);
+    the V2 checkpoints share the class. "relative" ends the head in ReLU,
+    "metric" in sigmoid x max_depth."""
+
+    backbone: Dinov2Config = field(default_factory=Dinov2Config)
+    patch_size: int = 14
+    reassemble_hidden_size: int = 384
+    reassemble_factors: tuple[float, ...] = (4, 2, 1, 0.5)
+    neck_hidden_sizes: tuple[int, ...] = (48, 96, 192, 384)
+    fusion_hidden_size: int = 64
+    head_in_index: int = -1
+    head_hidden_size: int = 32
+    depth_estimation_type: str = "relative"
+    max_depth: float = 1.0
+
+    def __post_init__(self):
+        if self.depth_estimation_type not in ("relative", "metric"):
+            raise ValueError(f"depth_estimation_type {self.depth_estimation_type!r}: 'relative' or 'metric'")
+        if len(self.neck_hidden_sizes) != len(self.reassemble_factors) or \
+                len(self.neck_hidden_sizes) != len(self.backbone.out_indices):
+            raise ValueError("Depth Anything needs one backbone output, neck width and reassemble factor a stage")
+
+    @staticmethod
+    def from_json(d: dict) -> "DepthAnythingConfig":
+        """A snapshot's `config.json`, keys missing meaning transformers'
+        defaults. Another `model_type`, a backbone named rather than
+        configured, or a timm backbone raises ValueError."""
+        if d.get("model_type") != "depth_anything":
+            raise ValueError(f"model_type {d.get('model_type')!r}: the port's depth preprocessor runs "
+                             "'depth_anything' snapshots only (ROADMAP queue 1)")
+        if d.get("use_timm_backbone") or (d.get("backbone") and d.get("backbone_config") is None):
+            raise ValueError(f"a Depth Anything snapshot with backbone {d.get('backbone')!r}: the port needs "
+                             "backbone_config (ROADMAP queue 1)")
+        bb = d.get("backbone_config")
+        default = DepthAnythingConfig()
+        return DepthAnythingConfig(
+            backbone=Dinov2Config() if bb is None else Dinov2Config.from_json(bb),
+            patch_size=d.get("patch_size", 14),
+            reassemble_hidden_size=d.get("reassemble_hidden_size", default.reassemble_hidden_size),
+            reassemble_factors=tuple(d.get("reassemble_factors", default.reassemble_factors)),
+            neck_hidden_sizes=tuple(d.get("neck_hidden_sizes", default.neck_hidden_sizes)),
+            fusion_hidden_size=d.get("fusion_hidden_size", default.fusion_hidden_size),
+            head_in_index=d.get("head_in_index", -1),
+            head_hidden_size=d.get("head_hidden_size", default.head_hidden_size),
+            depth_estimation_type=d.get("depth_estimation_type", "relative"),
+            max_depth=d.get("max_depth") or 1.0)  # transformers: `max_depth if max_depth else 1`
+
+    def to_json(self) -> dict:
+        """transformers' `config.json` keys."""
+        return {"architectures": ["DepthAnythingForDepthEstimation"], "model_type": "depth_anything",
+                "backbone": None, "backbone_config": self.backbone.to_json(), "patch_size": self.patch_size,
+                "reassemble_hidden_size": self.reassemble_hidden_size,
+                "reassemble_factors": list(self.reassemble_factors), "neck_hidden_sizes": list(self.neck_hidden_sizes),
+                "fusion_hidden_size": self.fusion_hidden_size, "head_in_index": self.head_in_index,
+                "head_hidden_size": self.head_hidden_size, "depth_estimation_type": self.depth_estimation_type,
+                "max_depth": self.max_depth, "torch_dtype": "float32"}
+
+    @staticmethod
+    def tiny(depth_estimation_type: str = "relative") -> "DepthAnythingConfig":
+        return DepthAnythingConfig(backbone=Dinov2Config.tiny(), reassemble_hidden_size=32,
+                                   neck_hidden_sizes=(8, 16, 24, 32), fusion_hidden_size=16, head_hidden_size=8,
+                                   depth_estimation_type=depth_estimation_type,
+                                   max_depth=20.0 if depth_estimation_type == "metric" else 1.0)
+
+
 # ---------------------------------------------------------------------------
 # TTS (search) configs — key names mirror the reference JSON schema
 # ---------------------------------------------------------------------------

@@ -10,14 +10,18 @@ The preprocessors are the JAX package's: the identities, and `canny`,
 `coloring` and `deblurring`, which call OpenCV there and are written here in
 numpy to OpenCV's integer semantics, bit for bit (`cv2.Canny(img, 100, 200)`,
 `cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)`, `cv2.GaussianBlur(img, (0, 0),
-sigmaX=4)`; the tests hold them to cv2). `depth` needs a depth-estimation
-model snapshot, which the repository does not hold, and raises.
+sigmaX=4)`; the tests hold them to cv2). `depth` runs Depth Anything
+(`models/depth_anything/`) from the local snapshot `$DEPTH_MODEL_DIR` on
+`$DEPTH_DEVICE` (default cuda) in fp32, as the JAX package's transformers
+pipeline runs it, without transformers; the loaded model is kept per (path,
+device), where the JAX package builds its pipeline on every call.
 `register_preprocessor` adds one.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Callable
 
@@ -151,10 +155,35 @@ def _deblurring(img: np.ndarray) -> np.ndarray:
     return gaussian_blur(img, 4.0)
 
 
+DEPTH_MODEL_DEFAULT = "LiheYoung/depth-anything-small-hf"  # the JAX package's DEPTH_MODEL_DIR default
+_depth_models: dict = {}
+
+
+def depth_model(model_dir: str | None = None, device: str | torch.device | None = None):
+    """The Depth Anything model of the local snapshot `model_dir` (default
+    `$DEPTH_MODEL_DIR`, else the JAX package's default name) on `device`
+    (default `$DEPTH_DEVICE`, else cuda), in fp32, loaded once per (path,
+    device). A path that is not a local directory raises FileNotFoundError:
+    the port reads no hub."""
+    from ..models.depth_anything import load_depth_anything
+    from ..utils.device import default_device
+
+    model_dir = model_dir or os.environ.get("DEPTH_MODEL_DIR", DEPTH_MODEL_DEFAULT)
+    if not os.path.isdir(model_dir):
+        raise FileNotFoundError(f"DEPTH_MODEL_DIR={model_dir!r} is not a local directory: the 'depth' "
+                                "preprocessor reads a local Depth Anything snapshot (config.json, "
+                                "preprocessor_config.json, *.safetensors) and downloads nothing")
+    device = default_device(device or os.environ.get("DEPTH_DEVICE") or None)
+    key = (os.path.realpath(model_dir), str(device))
+    if key not in _depth_models:
+        _depth_models[key] = load_depth_anything(model_dir, torch.float32, device)
+    return _depth_models[key]
+
+
 def _depth(img: np.ndarray) -> np.ndarray:
-    raise NotImplementedError(
-        "the 'depth' condition preprocessor needs a depth-estimation model snapshot, which the "
-        "repository does not hold: ROADMAP queue 1 (depth preprocessor)")
+    """Monocular depth: the map transformers' depth-estimation pipeline gives
+    the JAX package for the snapshot `$DEPTH_MODEL_DIR`."""
+    return depth_model().depth_map(np.asarray(img))
 
 
 # preprocessors: image (H, W, 3) uint8 -> image (H, W, 3) uint8

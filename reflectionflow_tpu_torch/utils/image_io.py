@@ -1,6 +1,6 @@
-"""Host image codecs of the data path: JPEG, BMP and WebP decoding, JPEG
-writing, PIL's bicubic resize and the PNG unfilter, in C++
-(`csrc/host/image_io.cpp`, `bmp.cpp`, `webp.cpp`, built with g++ by
+"""Host image codecs of the data path: JPEG, BMP, WebP and GIF decoding,
+JPEG writing, PIL's bicubic resize and the PNG unfilter, in C++
+(`csrc/host/image_io.cpp`, `bmp.cpp`, `webp.cpp`, `gif.cpp`, built with g++ by
 `ops/kernel_build.py::build_host_all`, bound with ctypes), beside their
 plain numpy versions.
 
@@ -16,6 +16,11 @@ plain numpy versions.
   * `decode_webp`: the first frame of a WebP file as libwebp's
     WebPAnimDecoder gives it to PIL (VP8 lossy with libwebp's fancy
     upsampling and fixed-point YUV -> RGB, VP8L lossless, ALPH), RGBA.
+  * `decode_gif`: the first frame of a GIF file as Pillow's GifImagePlugin
+    and `convert("RGB")` give it (its LZW decoder with every code size,
+    clear and end codes, a full table; interlaced rows; local, global and
+    short tables, grey without one; a frame smaller than the screen or
+    reaching past it, on index 0 or the GCE's transparency index).
     The decoders have no plain version: PIL is their reference in the tests.
     What PIL refuses raises `ValueError` "... as PIL refuses it", and so do
     corrupt or truncated data.
@@ -42,8 +47,8 @@ import numpy as np
 
 _HOST = Path(__file__).resolve().parents[1] / "csrc" / "host"
 SOURCE = _HOST / "image_io.cpp"
-BMP_SOURCE, WEBP_SOURCE = _HOST / "bmp.cpp", _HOST / "webp.cpp"
-SOURCES = (SOURCE, BMP_SOURCE, WEBP_SOURCE)  # every host codec library, built together
+BMP_SOURCE, WEBP_SOURCE, GIF_SOURCE = _HOST / "bmp.cpp", _HOST / "webp.cpp", _HOST / "gif.cpp"
+SOURCES = (SOURCE, BMP_SOURCE, WEBP_SOURCE, GIF_SOURCE)  # every host codec library, built together
 _OK, _REFUSED, _NEED_BUFFER = 0, -3, 1  # rf_* return codes; any other is corrupt input
 _PRECISION_BITS = 32 - 8 - 2
 
@@ -117,6 +122,12 @@ def decode_jpeg(data: bytes) -> np.ndarray:
 def decode_bmp(data: bytes) -> np.ndarray:
     """BMP bytes -> (H, W, 3) uint8 RGB, as PIL decodes them."""
     return _decode(BMP_SOURCE, "bmp", data, 3)
+
+
+def decode_gif(data: bytes) -> np.ndarray:
+    """GIF bytes -> the (H, W, 3) uint8 RGB of its first frame, as PIL decodes
+    them."""
+    return _decode(GIF_SOURCE, "gif", data, 3)
 
 
 def decode_webp(data: bytes) -> np.ndarray:

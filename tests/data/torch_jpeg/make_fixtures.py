@@ -21,6 +21,10 @@ Each image is a seeded smooth procedural RGB image with mild noise (the
   * "bmp": a file of every header, depth, palette, bitfields and RLE kind,
     written by `write_bmp` below (PIL writes only raw 1 / L / P / RGB),
     with the sha256 of PIL's decode;
+  * "gif": a file PIL wrote, or one written by `write_gif` below (local and
+    short tables, interlaced rows, an offset sub-frame with a transparency
+    index and extensions, code sizes 2 and 5, clear codes mid-stream, a full
+    code table), with the sha256 of PIL's decode;
   * "encode": a committed pixel array (`encode_pixels.npz`) with the sha256
     of PIL's default `save(format="JPEG")` of it.
 `tests/test_torch_jpeg.py` checks the committed bytes against the manifest
@@ -148,6 +152,19 @@ BMPS = [
     ("bmp_rle8_wild.bmp", 8, 40, "rle8", {"palette": 256, "wild": True}),
     ("bmp_rle4.bmp", 4, 40, "rle4", {"palette": 16}),
     ("bmp_rle4_wild_topdown.bmp", 4, 40, "rle4", {"palette": 16, "wild": True, "top_down": True}),
+]
+# GIF: name, (W, H), seed, kind ("pil": PIL's save of the image in `mode`; else
+# `gif_fixture`'s hand-written kinds), options
+GIFS = [
+    ("gif_pil_rgb_37x23.gif", (37, 23), 600, "pil", {"mode": "RGB"}),
+    ("gif_pil_grey_37x23.gif", (37, 23), 601, "pil", {"mode": "L"}),
+    ("gif_pil_interlaced_37x23.gif", (37, 23), 602, "pil", {"mode": "RGB", "interlace": True}),
+    ("gif_interlaced_local_short_37x23.gif", (37, 23), 603, "local", {"interlace": True, "colors": 8}),
+    ("gif_offset_trns_ext_37x23.gif", (37, 23), 604, "offset", {"transparency": 3}),
+    ("gif_codesize2_37x23.gif", (37, 23), 605, "local", {"colors": 4, "global": False}),
+    ("gif_codesize5_clears_37x23.gif", (37, 23), 606, "local", {"colors": 32, "lzw": {"clear_every": 50}}),
+    ("gif_full_table_120x90.gif", (120, 90), 607, "local", {"colors": 256, "lzw": {"full": "keep"}}),
+    ("gif_pil_1024x768.gif", (1024, 768), 608, "pil", {"mode": "RGB", "smooth": True}),
 ]
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
@@ -392,6 +409,143 @@ def write_bmp(pixels: np.ndarray, bits: int, hsize: int = 40, compression: str =
     head = _bmp_header(hsize, w, -h if top_down else h, bits, comp, len(body), colors, masks)
     off = 14 + len(head) + len(extra) + len(pal)
     return b"BM" + struct.pack("<IHHI", off + len(body), 0, 0, off) + head + extra + pal + body
+
+
+# ------------------------------------------------------------------ GIF ----
+#
+# PIL writes GIF with its own LZW encoder (one clear code, 8 bits at most);
+# `write_gif` writes what PIL does not: every code size, local and short
+# tables, interlaced rows, sub-frames, extensions, clear codes mid-stream, a
+# full code table, missing end codes, codes past the table and cut data.
+
+INTERLACE_PASSES = ((0, 8), (4, 8), (2, 4), (1, 2))  # (first row, step)
+
+
+def lzw_codes(indices, bits: int, clear_first: bool = True, end: bool = True, clear_every: int = 0,
+              full: str = "clear", literal: bool = False) -> list:
+    """GIF LZW codes of a flat index sequence as (code, width) pairs, each
+    width the one Pillow's decoder reads it with (its table grows by one entry
+    a code after the first of a run, and the width with it when the entry
+    fills the code space; for bits <= 1 it never grows). `clear_every`: a
+    clear code after that many codes; `full`: "clear" resets a full table
+    (4096 codes), "keep" goes on with 12-bit codes and no new entries;
+    `literal`: no string codes, one code a pixel."""
+    clear, eoi = 1 << bits, (1 << bits) + 1
+    out = []
+    state = {}
+
+    def reset():
+        state.update(table={(v,): v for v in range(clear)}, next=clear + 2, dec_next=clear + 2, cs=bits + 1,
+                     n=0)
+
+    def emit(code):
+        out.append((code, state["cs"]))
+        if state["n"] > 0 and state["dec_next"] < 4096:  # Pillow's decoder adds an entry
+            if state["dec_next"] == (1 << state["cs"]) - 1 and state["cs"] < 12:
+                state["cs"] += 1
+            state["dec_next"] += 1
+        state["n"] += 1
+
+    reset()
+    if clear_first:
+        out.append((clear, state["cs"]))
+    w = ()
+    for v in (int(x) for x in indices):
+        wc = w + (v,)
+        if not literal and wc in state["table"]:
+            w = wc
+            continue
+        if w:
+            emit(state["table"][w])
+            if state["next"] < 4096:
+                state["table"][wc] = state["next"]
+                state["next"] += 1
+            if (clear_every and state["n"] >= clear_every) or (state["next"] >= 4096 and full == "clear"):
+                out.append((clear, state["cs"]))
+                reset()
+        w = (v,)
+    if w:
+        emit(state["table"][w])
+    if end:
+        out.append((eoi, state["cs"]))
+    return out
+
+
+def pack_codes(codes) -> bytes:
+    """(code, width) pairs -> bytes, least significant bit first."""
+    acc = nbits = 0
+    out = bytearray()
+    for code, width in codes:
+        acc |= (code & ((1 << width) - 1)) << nbits
+        nbits += width
+        while nbits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+    if nbits:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def sub_blocks(data: bytes, size: int = 255, terminator: bool = True) -> bytes:
+    """Data as GIF sub-blocks of `size` bytes (the last shorter), then a zero
+    block."""
+    out = b"".join(bytes([len(data[i:i + size])]) + data[i:i + size] for i in range(0, len(data), size))
+    return out + (b"\x00" if terminator else b"")
+
+
+def gif_palette(colors) -> bytes:
+    return np.asarray(colors, np.uint8).reshape(-1).tobytes()
+
+
+def gif_image(indices, x: int = 0, y: int = 0, palette=None, interlace: bool = False, bits: int = 0,
+              block: int = 255, lzw: dict | None = None, codes=None) -> bytes:
+    """An image descriptor, its local table (`palette`: 2^k colours) and its
+    LZW data of (h, w) `indices`. `bits`: the minimum code size (default:
+    enough for the largest index, at least 2); `codes`: (code, width) pairs
+    written as they are."""
+    idx = np.asarray(indices)
+    h, w = idx.shape
+    flags = 0
+    pal = b""
+    if palette is not None:
+        n = len(palette)
+        k = max(1, (n - 1).bit_length())
+        flags |= 0x80 | (k - 1)
+        pal = gif_palette(palette)
+    if interlace:
+        flags |= 0x40
+        idx = np.concatenate([idx[a::s] for a, s in INTERLACE_PASSES])
+    bits = bits or max(2, int(idx.max(initial=0)).bit_length())
+    if codes is None:
+        codes = lzw_codes(idx.reshape(-1), bits, **(lzw or {}))
+    return (b"," + struct.pack("<HHHHB", x, y, w, h, flags) + pal + bytes([bits])
+            + sub_blocks(pack_codes(codes), block))
+
+
+def gif_gce(transparency=None, disposal: int = 0, delay: int = 0) -> bytes:
+    flags = (disposal << 2) | (transparency is not None)
+    return b"!\xf9\x04" + struct.pack("<BHB", flags, delay, transparency or 0) + b"\x00"
+
+
+def gif_extension(label: int, *blocks: bytes) -> bytes:
+    return b"!" + bytes([label]) + b"".join(bytes([len(b)]) + b for b in blocks) + b"\x00"
+
+
+def write_gif(size, blocks, palette=None, background: int = 0, version: bytes = b"GIF89a",
+              trailer: bool = True) -> bytes:
+    """A GIF file: the logical screen (W, H), its global table (`palette`:
+    2^k colours, or None), then `blocks` (bytes from `gif_image`, `gif_gce`,
+    `gif_extension`) and the trailer."""
+    w, h = size
+    flags = 0
+    pal = b""
+    if palette is not None:
+        k = max(1, (len(palette) - 1).bit_length())
+        flags = 0x80 | 0x70 | (k - 1)
+        pal = gif_palette(palette)
+    return (version + struct.pack("<HHBBB", w, h, flags, background, 0) + pal + b"".join(blocks)
+            + (b";" if trailer else b""))
 
 
 # ------------------------------------------- JPEG kinds PIL cannot write ----
@@ -967,6 +1121,34 @@ def bmp_fixture(bits: int, hsize: int, compression: str, opts: dict, seed: int) 
     return write_bmp(pixels, bits, hsize, compression, palette, rng=np.random.default_rng(seed), **opts)
 
 
+def gif_fixture(size, seed: int, kind: str, opts: dict) -> bytes:
+    """A GIF of a procedural image (see GIFS): PIL's save ("pil"), or the
+    image quantized by PIL to `colors` and written by `write_gif` with a
+    local table after a global one ("local"), or as a sub-frame offset inside
+    the screen after a GCE with a transparency index and comment,
+    application and plain-text extensions ("offset")."""
+    opts = dict(opts)
+    w, h = size
+    rgb = procedural(w, h, seed, 0.0 if opts.pop("smooth", False) else 6.0)
+    if kind == "pil":
+        buf = io.BytesIO()
+        Image.fromarray(rgb).convert(opts.pop("mode")).save(buf, format="GIF", **opts)
+        return buf.getvalue()
+    rng = np.random.default_rng(seed)
+    n = opts.pop("colors", 16)
+    q = Image.fromarray(rgb).quantize(colors=n)
+    palette = np.asarray(q.getpalette()[: 3 * n]).reshape(-1, 3)
+    glob = rng.integers(0, 256, (256, 3)) if opts.pop("global", True) else None
+    if kind == "local":
+        return write_gif(size, [gif_image(np.asarray(q), palette=palette, **opts)], palette=glob)
+    sub = np.asarray(q)[2: h - 5, 3: w - 7]
+    return write_gif(size, [gif_extension(0xFE, b"a comment", b"in two blocks"),
+                            gif_extension(0xFF, b"NETSCAPE2.0", b"\x01\x00\x00"),
+                            gif_gce(transparency=opts.pop("transparency")),
+                            gif_extension(0x01, bytes(12), b"plain text"),
+                            gif_image(sub, x=3, y=2)], palette=palette)
+
+
 def coded_jpeg(size, seed: int, opts: dict, lossless: bool) -> bytes:
     """An arithmetic-coded or lossless JPEG of a procedural image (see ARITH,
     LOSSLESS)."""
@@ -1055,6 +1237,11 @@ def main() -> None:
         manifest[name] = {"kind": "bmp", "size": [37, 23], "bits": bits, "header": hsize,
                           "compression": compression, "file_sha256": hashlib.sha256(data).hexdigest(),
                           "decode_sha256": pil_decode_sha(data)}
+    for name, (w, h), seed, kind, opts in GIFS:
+        data = gif_fixture((w, h), seed, kind, opts)
+        write(name, data)
+        manifest[name] = {"kind": "gif", "size": [w, h], "seed": seed, "writer": kind, "save": opts,
+                          "file_sha256": hashlib.sha256(data).hexdigest(), "decode_sha256": pil_decode_sha(data)}
     for i, (name, color, depth, interlace, trns) in enumerate(PNGS):
         data = png_fixture(color, depth, interlace, trns, 100 + i)
         with open(os.path.join(HERE, name), "wb") as f:

@@ -183,7 +183,7 @@ def test_canny_matches_opencv_at_other_thresholds(thresholds):
                                       cv2.Canny(img[..., 1].copy(), *thresholds), err_msg=f"{label} grey")
 
 
-def test_register_preprocessor_and_depth():
+def test_register_preprocessor_and_depth(monkeypatch):
     img = IMAGES["noise5x40"]
     tcond.register_preprocessor("flip", lambda x: x[:, ::-1])
     try:
@@ -191,5 +191,7 @@ def test_register_preprocessor_and_depth():
     finally:
         del tcond.PREPROCESSORS["flip"]
     assert set(tcond.PREPROCESSORS) == set(jcond.PREPROCESSORS)
-    with pytest.raises(NotImplementedError, match="depth-estimation model snapshot"):
+    # depth reads a local snapshot (tests/test_torch_depth.py); the JAX default names a hub model
+    monkeypatch.delenv("DEPTH_MODEL_DIR", raising=False)
+    with pytest.raises(FileNotFoundError, match="local Depth Anything snapshot"):
         tcond.Condition("depth", img).preprocess()

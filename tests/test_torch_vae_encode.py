@@ -92,7 +92,7 @@ def test_encode_conditions_matches_jax(empty):
     np.testing.assert_array_equal(got_ids.numpy(), np.asarray(want_ids))
 
 
-def test_condition_types_and_unported_preprocessors():
+def test_condition_types_and_unported_preprocessors(monkeypatch):
     assert tcond.CONDITION_TYPE_IDS == jcond.CONDITION_TYPE_IDS
     img = np.zeros((8, 8, 3), np.uint8)
     assert tcond.Condition("cot", img).type_id == 12
@@ -100,7 +100,9 @@ def test_condition_types_and_unported_preprocessors():
     # canny, coloring and deblurring are ported (tests/test_torch_controlnet_preprocess.py)
     for name in ("canny", "coloring", "deblurring"):
         np.testing.assert_array_equal(tcond.Condition(name, img).preprocess(), img)  # black stays black
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # depth is ported (tests/test_torch_depth.py): without a local snapshot it raises, downloading nothing
+    monkeypatch.delenv("DEPTH_MODEL_DIR", raising=False)
+    with pytest.raises(FileNotFoundError, match="DEPTH_MODEL_DIR"):
         tcond.Condition("depth", img).preprocess()
     _, _, vae = _vae()
     # tiled encode (vae_tiling) of a condition within one 512 px tile is the untiled encode

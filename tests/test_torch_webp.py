@@ -148,6 +148,12 @@ def test_corrupt_webp_never_crashes(samples):
 @pytest.mark.parametrize("head,name", [(b"GIF89a", "GIF"), (b"II*\x00", "TIFF"), (b"\x00\x00\x01\x00", "ICO"),
                                        (b"8BPS", "PSD"), (b"\x00\x00\x00\x1cftypavif", "AVIF"), (b"P6\n", "PPM")])
 def test_other_formats_raise_naming_them(head, name):
+    if name == "GIF":  # read since GIF support: a header with no image in it raises as PIL refuses it
+        with pytest.raises(Exception):
+            Image.open(io.BytesIO(head + bytes(64))).load()
+        with pytest.raises(ValueError, match="image not found"):
+            tdata.decode_image(head + bytes(64))
+        return
     with pytest.raises(ValueError, match=f"{name} images are not read by the port yet"):
         tdata.decode_image(head + bytes(64))
 
