@@ -103,7 +103,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      RGBA too), BMP (every header, depth, bitfields and RLE kind) and GIF
      (PIL-written, interlaced, local and short tables, an offset sub-frame
      with transparency and extensions, code sizes 2 and 5, a full code
-     table); a
+     table) and TIFF (PIL-written LZW, Group 4 and CMYK JPEG; tiles, planes,
+     BigTIFF, big-endian 16-bit, YCbCr JPEG with JPEGTables and Orientation
+     6, subsampled YCbCr, Group 3 2D with FillOrder 2, a 4-bit ColorMap,
+     associated alpha, predictors 2 and 3, old-style LZW, LAB planes and a
+     1024² LAB grid through the port's copy of PIL's littleCMS transform); a
      JPEG's `resize_bicubic` gives the manifest's PIL resize hashes at the
      paired-crop shapes and equals `resize_ref` bit for bit; `encode_jpeg` of
      each committed pixel array gives the sha256 of PIL's default save; the
@@ -113,17 +117,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      1024^2 RGB image in C++ and in its numpy loop in turns, and a 1024x768
      decode of each kind this port reads beside the baseline JPEG (WebP
      lossy and lossless, arithmetic-coded progressive, lossless JPEG, a
-     smoothed progressive file cut after 5 scans, a PIL-written GIF, and a
-     24-bit BMP this script writes from the decoded baseline); a GenRef-format
-     tar of GENREF_SAMPLES samples (the 1024^2 fixtures good, the 1024x768
-     one bad, subsets general / length / rule / editing, every other sample's
+     smoothed progressive file cut after 5 scans, a PIL-written GIF, a
+     24-bit BMP this script writes from the decoded baseline, and TIFF:
+     uncompressed, PackBits, Adobe Deflate and LZMA written here from the
+     decoded baseline (each decoding to it bit for bit), LZW with predictor
+     2 and YCbCr 4:2:0 JPEG from the fixtures); a GenRef-format tar of
+     GENREF_SAMPLES samples (the 1024^2 fixtures good, the 1024x768 one bad,
+     sample TIFF_SAMPLE's bad member a PackBits TIFF of its decoded pixels,
+     subsets general / length / rule / editing, every other sample's
      members under PAX long names) indexed by `utils/native.py`; one
      `GenRefDataset` batch (B=8, 512 px, condition 512, the train CLI's
      GenRef subset schedule) timed alone and split into decode, resize and
      the rest; then `train()` for 3 steps from that shard at TrainConfig's
      defaults: phase 5b's checks and launch counts (342 K1, 171 K6a, 171 K6b),
-     no `tarfile` read and no native fallback, JPEG decodes counted; prints
-     s/step and the data's share of it;
+     no `tarfile` read and no native fallback, JPEG decodes counted, TIFF
+     decodes counted (the TIFF sample was read); prints s/step and the
+     data's share of it;
   5c. the training validation hook (`make_validation_hook`) once on the
      trained adapters: a conditioned generate of 2 val samples at 512 px,
      20 steps: exactly 20 x 57 = 1140 K1 launches, 2 PNGs of 512x512x3, and
@@ -422,6 +431,9 @@ K6_REL_TOL = 1e-2  # K6a/K6b: max |err| <= K6_REL_TOL * max |ref| for each of dQ
 TRAIN_STEPS = 3  # corrector training steps at TrainConfig defaults (B=8, 512 px, r=32)
 TRAIN_COS = 0.99  # adapter gradients, K1 + K6 vs plain attention, cosine per adapter family
 GENREF_SAMPLES = 16  # phase 5e's shard: 2 batches at B=8
+# phase 5e's shard sample whose bad member is a TIFF: the first "editing"
+# sample (i % 4 == 3), the subset the schedule draws with p = 0.7 at steps 0-2
+TIFF_SAMPLE = 3
 GENREF_REPS = 9  # phase 5e's host timings: the median of this many runs
 GENREF_SUBSETS = ("general", "length", "rule", "editing")
 GENREF_STAGES = [0, 1000]  # the train CLI's subset ratios (`GENREF_SPLIT_RATIOS`), stage 0 -> 1
@@ -451,7 +463,8 @@ QWEN_INT8_TOL = 0.1  # phase 9's Qwen verifier: |W8A8 score - bf16 score|, score
 QWEN_CLIP_FRAMES, QWEN_CLIP_PX = 8, 448  # phase 10's synthetic video clips
 # phase 5e's 1024x768 decode timings of the image kinds beside the baseline JPEG (BMP: written here)
 KIND_FIXTURES = ("webp_lossy_1024x768_q75.webp", "webp_lossless_1024x768_m4.webp", "arith_prog_420_1024x768.jpg",
-                 "lossless_p7_rst32_1024x768.jpg", "progressive_cut5_1024x768.jpg", "gif_pil_1024x768.gif")
+                 "lossless_p7_rst32_1024x768.jpg", "progressive_cut5_1024x768.jpg", "gif_pil_1024x768.gif",
+                 "tiff_lzw_pred2_1024x768.tif", "tiff_jpeg_ycbcr_420_1024x768.tif")
 NVILA_INT8_TOL = 0.12  # phase 11: |W8A8 - bf16| of the yes and no logits (|logit| 0.03-0.70; read 0.060, 0.074)
 NVILA_TIMED_B = 2  # phase 11: the NVILA score pass timed at this batch
 NVILA_TIMED_REPS = 9  # phase 11: its repetitions, int8 and bf16 in turns; the median is kept
@@ -1758,9 +1771,51 @@ def write_bmp24(rgb) -> bytes:
     return b"BM" + struct.pack("<IHHI", 54 + len(rows), 0, 0, 54) + head + rows
 
 
-def write_genref_jpeg_shard(path: str, goods: list, bad: bytes) -> None:
-    """GENREF_SAMPLES GenRef samples of JPEG bytes; every other sample's
-    members sit under a directory name long enough to need PAX records."""
+def write_tiff_rgb(rgb, compression: int = 1, rows_per_strip: int = 64) -> bytes:
+    """(H, W, 3) uint8 RGB -> a little-endian TIFF of strips, uncompressed (1),
+    PackBits (32773: literal runs of 128 bytes), Adobe Deflate (8, zlib) or
+    LZMA (34925, xz), the IFD after the data."""
+    import lzma
+    import zlib
+
+    import numpy as np
+
+    h, w = rgb.shape[:2]
+    chunks = []
+    for y in range(0, h, rows_per_strip):
+        raw = np.ascontiguousarray(rgb[y:y + rows_per_strip]).reshape(-1)
+        if compression == 32773:
+            full, rest = divmod(raw.size, 128)
+            body = np.concatenate([np.full((full, 1), 127, np.uint8), raw[:full * 128].reshape(full, 128)], 1)
+            raw = np.concatenate([body.reshape(-1), [rest - 1] if rest else [], raw[full * 128:]]).astype(np.uint8)
+        data = raw.tobytes()
+        chunks.append(zlib.compress(data) if compression == 8 else
+                      lzma.compress(data, format=lzma.FORMAT_XZ) if compression == 34925 else data)
+    offs = [8 + sum(len(c) for c in chunks[:i]) for i in range(len(chunks))]
+    ifd_at = 8 + sum(len(c) for c in chunks)
+    n = len(chunks)
+    entries = [(256, 4, 1, w), (257, 4, 1, h), (258, 3, 3, None), (259, 3, 1, compression), (262, 3, 1, 2),
+               (273, 4, n, None), (277, 3, 1, 3), (278, 4, 1, rows_per_strip), (279, 4, n, None), (284, 3, 1, 1)]
+    extra_at = ifd_at + 2 + 12 * len(entries) + 4
+    arrays = {258: struct.pack("<3H", 8, 8, 8), 273: struct.pack(f"<{n}I", *offs),
+              279: struct.pack(f"<{n}I", *(len(c) for c in chunks))}
+    ifd, extra = struct.pack("<H", len(entries)), b""
+    for tag, typ, count, value in entries:
+        if value is not None:
+            ifd += struct.pack("<HHI", tag, typ, count) + struct.pack("<I" if typ == 4 else "<HH", value,
+                                                                        *(() if typ == 4 else (0,)))
+        elif len(arrays[tag]) <= 4:
+            ifd += struct.pack("<HHI", tag, typ, count) + arrays[tag].ljust(4, b"\0")
+        else:
+            ifd += struct.pack("<HHI", tag, typ, count) + struct.pack("<I", extra_at + len(extra))
+            extra += arrays[tag]
+    return b"II*\x00" + struct.pack("<I", ifd_at) + b"".join(chunks) + ifd + b"\0" * 4 + extra
+
+
+def write_genref_jpeg_shard(path: str, goods: list, bad: bytes, tiff: bytes | None = None) -> None:
+    """GENREF_SAMPLES GenRef samples of JPEG bytes (sample TIFF_SAMPLE's bad
+    member `tiff` when given); every other sample's members sit under a
+    directory name long enough to need PAX records."""
     import io
     import tarfile
 
@@ -1768,7 +1823,8 @@ def write_genref_jpeg_shard(path: str, goods: list, bad: bytes) -> None:
         for i in range(GENREF_SAMPLES):
             key = f"{i:06d}"
             prefix = ("genref_" + "x" * 120 + "/") if i % 2 else ""
-            files = {"good_image.jpg": goods[i % len(goods)], "bad_image.jpg": bad,
+            files = {"good_image.jpg": goods[i % len(goods)],
+                     "bad_image.jpg": tiff if tiff is not None and i == TIFF_SAMPLE else bad,
                      "prompt.txt": f"a photo of object {i} on a table".encode(),
                      "reflection.txt": f"make object {i} sharper and correctly colored".encode(),
                      "subset.txt": GENREF_SUBSETS[i % len(GENREF_SUBSETS)].encode()}
@@ -1809,8 +1865,12 @@ def genref_phase(torch, pipe, card: str, host_build_s: float) -> dict:
                 == image_io.png_unfilter_ref(raw, 1024, 3072, 3)).all()), "Paeth unfilter differs")
     paeth = _median_ms({"cpp": lambda: image_io.png_unfilter(raw, 1024, 3072, 3),
                         "numpy": lambda: image_io.png_unfilter_ref(raw, 1024, 3072, 3)}, GENREF_REPS)
-    kind_data = {"jpeg_baseline": fixtures[bad_name][0], "bmp_24": write_bmp24(fixtures[bad_name][1])}
-    check(bool((tdata.decode_image(kind_data["bmp_24"]) == fixtures[bad_name][1]).all()), "BMP round trip differs")
+    bad_rgb = fixtures[bad_name][1]
+    kind_data = {"jpeg_baseline": fixtures[bad_name][0], "bmp_24": write_bmp24(bad_rgb)}
+    for kind, comp in (("tiff_raw", 1), ("tiff_packbits", 32773), ("tiff_adobe_deflate", 8), ("tiff_lzma", 34925)):
+        kind_data[kind] = write_tiff_rgb(bad_rgb, comp)
+    for kind in ("bmp_24", "tiff_raw", "tiff_packbits", "tiff_adobe_deflate", "tiff_lzma"):
+        check(bool((tdata.decode_image(kind_data[kind]) == bad_rgb).all()), f"{kind} round trip differs")
     for name in KIND_FIXTURES:
         with open(os.path.join(FIXTURES, name), "rb") as f:
             kind_data[name] = f.read()
@@ -1833,7 +1893,8 @@ def genref_phase(torch, pipe, card: str, host_build_s: float) -> dict:
     n_blocks = pipe.dit_cfg.num_double_blocks + pipe.dit_cfg.num_single_blocks
     with tempfile.TemporaryDirectory() as tmp:
         shard = os.path.join(tmp, "genref_jpeg_000.tar")
-        write_genref_jpeg_shard(shard, [fixtures[n][0] for n in good_names], fixtures[bad_name][0])
+        write_genref_jpeg_shard(shard, [fixtures[n][0] for n in good_names], fixtures[bad_name][0],
+                                tiff=kind_data["tiff_packbits"])
         idx = native.tar_index(shard)
         check(idx is not None and len(idx[0]) == 5 * GENREF_SAMPLES, "the native indexer did not take the shard")
         check(sum(len(n) > 100 for n in idx[0]) == 5 * (GENREF_SAMPLES // 2), "PAX long names not indexed")
@@ -1890,14 +1951,16 @@ def genref_phase(torch, pipe, card: str, host_build_s: float) -> dict:
         finally:
             tarfile.open = tar_open
         n_dec = image_io.calls["decode_jpeg"] - calls0.get("decode_jpeg", 0)
+        n_tiff = image_io.calls["decode_tiff"] - calls0.get("decode_tiff", 0)
         check(not opened and native.fallbacks == fallbacks0, f"tarfile opened {opened}; "
               f"fallbacks {native.fallbacks - fallbacks0}")
         check(n_dec > 0, "training decoded no JPEG")
+        check(n_tiff > 0, f"training never read sample {TIFF_SAMPLE}'s TIFF")
         check_train_launches(run["launches"], n_blocks, "genref train")
         data_s = run["data_s"][:TRAIN_STEPS]
         out.update(launches=run["launches"], s_per_step=run["s_per_step"], peak_gib=run["peak"] / 2**30,
                    losses=[r["loss"] for r in run["rows"]], step_time_s=[r["step_time_s"] for r in run["rows"]],
-                   data_s_in_loop=data_s, jpeg_decodes_in_training=n_dec,
+                   data_s_in_loop=data_s, jpeg_decodes_in_training=n_dec, tiff_decodes_in_training=n_tiff,
                    batch_share_of_step=batch_s / run["s_per_step"],
                    loop_data_share=statistics.mean(data_s[1:]) / run["s_per_step"])
         del run

@@ -20,6 +20,10 @@
 //     lossless frames, fractional sampling, height 0, colour conversion of a
 //     lossless frame) returns RF_REFUSED; corrupt or truncated data and
 //     missing tables return RF_CORRUPT. Every read is bounded by the buffer.
+//   * rf_jpeg_tiff_decode: one strip or tile of a JPEG-compressed TIFF as
+//     libtiff's tif_jpeg.c has libjpeg decode it (JPEGTables then the
+//     abbreviated strip, libtiff's colour space and checks, libjpeg's reading
+//     of damaged data; `Decoder::lenient`), for `tiff.cpp`.
 //   * rf_resize_bicubic: Pillow's 8-bit ImagingResample with the bicubic
 //     filter (a = -0.5, support 2 * max(scale, 1), coefficients normalized in
 //     double and rounded to 22 fractional bits, width pass then height pass,
@@ -141,7 +145,8 @@ struct Component {
 
 class BitReader {
  public:
-  BitReader(const uint8_t* d, size_t end, size_t pos) : d_(d), end_(end), pos_(pos) {}
+  BitReader(const uint8_t* d, size_t end, size_t pos, bool lenient = false)
+      : d_(d), end_(end), pos_(pos), lenient_(lenient) {}
 
   size_t pos() const { return pos_; }
   void set_pos(size_t p) { pos_ = p; buf_ = 0; cnt_ = 0; fake_ = 0; marker_ = false; eod_ = false; }
@@ -158,13 +163,16 @@ class BitReader {
         fake_ += 8;
       } else {
         uint8_t c = d_[pos_];
+        size_t q = pos_ + 1;
+        if (c == 0xFF && lenient_)  // jdhuff.c jpeg_fill_bit_buffer: fill bytes FF FF ... before a 00 or a marker
+          while (q < end_ && d_[q] == 0xFF) ++q;
         if (c == 0xFF) {
-          if (pos_ + 1 >= end_) {
+          if (q >= end_) {
             eod_ = true;
             fake_ += 8;
-          } else if (d_[pos_ + 1] == 0x00) {
+          } else if (d_[q] == 0x00) {
             b = 0xFF;
-            pos_ += 2;
+            pos_ = q + 1;
           } else {
             marker_ = true;  // leave pos_ on the marker
             fake_ += 8;
@@ -205,8 +213,12 @@ class BitReader {
         return t.vals[idx];
       }
     }
-    corrupt("bad Huffman code");
+    if (!lenient_) corrupt("bad Huffman code");
+    fill();  // jdhuff.c jpeg_huff_decode: 17 bits read, a zero faked
+    skip(17);
+    return 0;
   }
+  bool lenient() const { return lenient_; }
 
  private:
   const uint8_t* d_;
@@ -214,6 +226,7 @@ class BitReader {
   uint64_t buf_ = 0;
   int cnt_ = 0, fake_ = 0;
   bool marker_ = false, eod_ = false;
+  bool lenient_ = false;
 };
 
 inline int extend(int x, int s) { return x < (1 << (s - 1)) ? x - (1 << s) + 1 : x; }
@@ -487,6 +500,8 @@ void upsample(const uint8_t* in, int dw, int dh, int ps, int eh, int ev, uint8_t
   }
 }
 
+void std_huffman(bool ac, int slot, Huffman& h);
+
 class Decoder {
  public:
   Decoder(const uint8_t* d, size_t n) : d_(d), n_(n) {}
@@ -507,6 +522,8 @@ class Decoder {
       if (m == 0xD9) break;
       if (m == 0xDA) {
         scan();
+        // tif_jpeg.c ignores what jpeg_finish_decompress meets once every row is out
+        if (lenient_ && !progressive_ && !arith_ && !lossless_ && all_scanned()) break;
         continue;
       }
       segment(m);
@@ -518,6 +535,53 @@ class Decoder {
 
   int width() const { return W_; }
   int height() const { return H_; }
+  int components() const { return static_cast<int>(comps_.size()); }
+  bool all_scanned() const {
+    for (const auto& c : comps_)
+      if (!c.scanned) return false;
+    return true;
+  }
+  const Component& component(int i) const { return comps_[static_cast<size_t>(i)]; }
+  // libtiff's choice of colour space (tif_jpeg.c JPEGPreDecode) in place of
+  // libjpeg's guess: 1 converts YCbCr to RGB whatever the markers say, 0
+  // returns the components as they are (one byte each, interleaved).
+  void force_colour(int f) { force_ = f; }
+  // libjpeg's reading of damaged sequential Huffman data as tif_jpeg.c runs
+  // it (the whole strip, a fake EOI past it, errors after the last row
+  // ignored): entropy data that runs out or meets a marker ends the scan's
+  // decoding (the MCU in progress read on with zero bits, the rest left
+  // zero), a bad Huffman code reads 17 bits as a zero, a coefficient past 63
+  // lands on 63, sequential scan parameters other than 0-63 are a warning,
+  // restart and TEM markers between scans are skipped, the end of the data
+  // is an EOI, bytes before a marker are skipped, reserved markers are
+  // errors, Huffman slots 0 and 1 that no DHT defines hold the standard
+  // tables, and nothing after a scan that completes the image is read.
+  void lenient(bool on) { lenient_ = on; }
+  // tif_jpeg.c JPEGSetupDecode: the JPEGTables stream read on its own
+  // (jpeg_read_header(FALSE)) before the strip's: SOI, then segments up to
+  // EOI or the end of the data, whose tables stay; a scan there makes the
+  // stream bogus, a frame is forgotten with it (jpeg_abort).
+  void load_tables(const uint8_t* t, size_t n) {
+    const uint8_t* d = d_;
+    const size_t nn = n_;
+    d_ = t;
+    n_ = n;
+    if (n < 2 || t[0] != 0xFF || t[1] != 0xD8) corrupt("bogus JPEGTables");
+    pos_ = 2;
+    for (;;) {
+      const int m = next_marker();
+      if (m == 0xD9) break;
+      if (m == 0xDA) corrupt("bogus JPEGTables");
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 || m == 0xCA) {
+        pos_ = segment_end();
+        continue;
+      }
+      segment(m);
+    }
+    d_ = d;
+    n_ = nn;
+    pos_ = 0;
+  }
 
  private:
   const uint8_t* d_;
@@ -530,6 +594,8 @@ class Decoder {
   int eobrun_ = 0;
   int coef_bits_[4][64];  // jdphuff.c: the Al of each coefficient's last scan, -1 before any
   int adobe_transform_ = -1;
+  int force_ = -1;
+  bool lenient_ = false;
   bool qt_present_[4] = {false, false, false, false};
   int32_t qt_[4][64];
   Huffman dc_[4], ac_[4];
@@ -545,6 +611,20 @@ class Decoder {
   }
 
   int next_marker() {
+    if (lenient_) {  // jdmarker.c next_marker: bytes before a marker, and FF 00, discarded; the end an EOI
+      for (;;) {
+        int c;
+        do {
+          if (pos_ >= n_) return 0xD9;
+          c = byte();
+        } while (c != 0xFF);
+        do {
+          if (pos_ >= n_) return 0xD9;
+          c = byte();
+        } while (c == 0xFF);
+        if (c != 0) return c;
+      }
+    }
     if (byte() != 0xFF) corrupt("expected a JPEG marker");
     int m;
     do m = byte(); while (m == 0xFF);
@@ -562,8 +642,14 @@ class Decoder {
   void segment(int m) {
     if (m == 0xD8) corrupt("SOI inside the image");
     if (m == 0xD9 || m == 0xDA) corrupt("scan or EOI before the frame");
-    if (m >= 0xD0 && m <= 0xD7) corrupt("restart marker outside a scan");
+    if (m >= 0xD0 && m <= 0xD7) {
+      if (lenient_) return;  // jdmarker.c: a restart marker outside a scan is traced only
+      corrupt("restart marker outside a scan");
+    }
     if (m == 0x01) return;  // TEM: no payload
+    // jdmarker.c read_markers: RESn, JPG, DHP, EXP and JPGn stop libjpeg
+    if (lenient_ && ((m >= 0x02 && m <= 0xBF) || m == 0xC8 || m == 0xDE || m == 0xDF || (m >= 0xF0 && m <= 0xFD)))
+      corrupt("unsupported JPEG marker");
     size_t end = segment_end();
     switch (m) {
       case 0xC0:
@@ -721,7 +807,8 @@ class Decoder {
     if (!have_frame_) corrupt("scan before the frame");
     // jdcolor.c: libjpeg converts no colour in lossless mode (YCbCr or YCCK),
     // and refuses before the first scan's data
-    if (lossless_ && ((comps_.size() == 3 && !rgb_frame()) || (comps_.size() == 4 && adobe_ && adobe_transform_)))
+    if (lossless_ && force_ != 0 &&
+        (force_ == 1 || (comps_.size() == 3 && !rgb_frame()) || (comps_.size() == 4 && adobe_ && adobe_transform_)))
       refused("a lossless JPEG in YCbCr or YCCK (libjpeg converts no colour in lossless mode)");
     size_t end = segment_end();
     if (end - pos_ < 1) corrupt("bad SOS segment");
@@ -745,8 +832,8 @@ class Decoder {
     int ah = ahal >> 4, al = ahal & 15;
     if (lossless_) {  // jdlossls.c start_input_pass: the predictor, and Pt below the precision
       if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8) corrupt("bad lossless scan parameters");
-    } else if (!progressive_) {
-      if (ss != 0 || se != 63 || ahal != 0) corrupt("bad sequential scan parameters");
+    } else if (!progressive_) {  // jdhuff.c: only a warning to libjpeg, which decodes a full sequential scan
+      if ((ss != 0 || se != 63 || ahal != 0) && !lenient_) corrupt("bad sequential scan parameters");
     } else {  // jdphuff.c start_pass_phuff_decoder
       bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
       if ((ah != 0 && al != ah - 1) || al > 13 || bad) corrupt("bad progressive scan parameters");
@@ -755,6 +842,11 @@ class Decoder {
         for (int k = ss; k <= se; ++k) cb[k] = al;
       }
     }
+    if (lenient_ && !arith_ && !lossless_)  // jdhuff.c jinit_huff_decoder: std_huff_tables for slots never defined
+      for (int t = 0; t < 2; ++t) {
+        if (!dc_[t].present) std_huffman(false, t, dc_[t]);
+        if (!ac_[t].present) std_huffman(true, t, ac_[t]);
+      }
     int blocks_in_mcu = 0;
     for (auto* c : sc) {
       bool needs_dc = !progressive_ || (ss == 0 && ah == 0), needs_ac = !lossless_ && (!progressive_ || ss != 0);
@@ -782,9 +874,13 @@ class Decoder {
 
   // The scan's entropy data ends at the next marker (not a restart marker).
   void end_scan(size_t p) {
-    while (p + 1 < n_ && !(d_[p] == 0xFF && d_[p + 1] != 0x00 && !(d_[p + 1] >= 0xD0 && d_[p + 1] <= 0xD7)))
+    while (p + 1 < n_ && !(d_[p] == 0xFF && d_[p + 1] != 0x00 && !(lenient_ && d_[p + 1] == 0xFF) &&
+                           !(d_[p + 1] >= 0xD0 && d_[p + 1] <= 0xD7)))
       ++p;
-    if (p + 1 >= n_) corrupt("truncated JPEG data (no EOI)");
+    if (p + 1 >= n_) {
+      if (!lenient_) corrupt("truncated JPEG data (no EOI)");
+      p = n_;
+    }
     pos_ = p;
   }
 
@@ -800,7 +896,9 @@ class Decoder {
 
   void huffman_scan(const std::vector<Component*>& sc, int ss, int se, int ah, int al) {
     const int ns = static_cast<int>(sc.size());
-    BitReader br(d_, n_, pos_);
+    const bool lenient = lenient_ && !progressive_ && !restart_;
+    bool insufficient = false;
+    BitReader br(d_, n_, pos_, lenient);
     int pred[4] = {0, 0, 0, 0};
     eobrun_ = 0;
     int mx = ns == 1 ? sc[0]->wblocks : mcux_, my = ns == 1 ? sc[0]->hblocks : mcuy_;
@@ -813,6 +911,7 @@ class Decoder {
         eobrun_ = 0;
       }
       int mxi = static_cast<int>(m % mx), myi = static_cast<int>(m / mx);
+      if (insufficient) continue;
       for (int ci = 0; ci < ns; ++ci) {
         Component* c = sc[ci];
         int bh = ns == 1 ? 1 : c->v, bwn = ns == 1 ? 1 : c->h;
@@ -828,7 +927,10 @@ class Decoder {
               ah == 0 ? ac_first(br, *c, blk, ss, se, al) : ac_refine(br, *c, blk, ss, se, al);
           }
       }
-      if (br.overran()) corrupt("truncated JPEG data");
+      if (br.overran()) {
+        if (!lenient) corrupt("truncated JPEG data");
+        insufficient = true;
+      }
     }
     end_scan(br.pos());
   }
@@ -1106,7 +1208,7 @@ class Decoder {
       s = rs & 15;
       if (s) {
         k += r;
-        if (k > 63) corrupt("bad JPEG coefficient index");
+        if (k > 63 && !br.lenient()) corrupt("bad JPEG coefficient index");
         blk[kZigzag[k]] = static_cast<int16_t>(extend(br.bits(s), s));
       } else {
         if (r != 15) break;
@@ -1340,6 +1442,17 @@ class Decoder {
       if (!full[ci].empty()) return full[ci].data() + static_cast<size_t>(y) * W_;
       return comps_[ci].plane.data() + static_cast<size_t>(y) * comps_[ci].wblocks * 8;
     };
+    if (force_ == 0) {
+      const size_t nc = comps_.size();
+      for (int y = 0; y < H_; ++y) {
+        uint8_t* o = out + static_cast<size_t>(y) * W_ * nc;
+        for (size_t ci = 0; ci < nc; ++ci) {
+          const uint8_t* p = plane_row(ci, y);
+          for (int x = 0; x < W_; ++x) o[nc * x + ci] = p[x];
+        }
+      }
+      return;
+    }
     if (comps_.size() == 1) {
       for (int y = 0; y < H_; ++y) {
         const uint8_t* g = plane_row(0, y);
@@ -1386,7 +1499,7 @@ class Decoder {
       }
       return;
     }
-    if (rgb_frame()) {
+    if (force_ != 1 && rgb_frame()) {
       for (int y = 0; y < H_; ++y) {
         const uint8_t *r = plane_row(0, y), *g = plane_row(1, y), *b = plane_row(2, y);
         uint8_t* o = out + static_cast<size_t>(y) * W_ * 3;
@@ -1465,6 +1578,16 @@ const uint8_t kAcChrVals[162] = {
     0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2,
     0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea,
     0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+// jstdhuff.c std_huff_tables: the standard table of a slot (0 luminance, 1 chrominance).
+void std_huffman(bool ac, int slot, Huffman& h) {
+  const uint8_t* b = ac ? (slot ? kAcChrBits : kAcLumBits) : (slot ? kDcChrBits : kDcLumBits);
+  const uint8_t* v = ac ? (slot ? kAcChrVals : kAcLumVals) : kDcVals;
+  uint8_t bits[17] = {0};
+  int total = 0;
+  for (int l = 1; l <= 16; ++l) total += bits[l] = b[l - 1];
+  h.build(bits, v, total);
+}
 
 // jchuff.c jpeg_make_c_derived_tbl
 struct HuffEnc {
@@ -1805,6 +1928,49 @@ int rf_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t cap, in
     dims[1] = dec.width();
     if (!out || cap < static_cast<int64_t>(dec.height()) * dec.width() * 3) return RF_NEED_BUFFER;
     dec.decode(out);
+    return RF_OK;
+  } catch (const Fail& f) {
+    write_err(f.msg, err, err_cap);
+    return f.code;
+  } catch (const std::exception& e) {
+    write_err(std::string("JPEG decode failed: ") + e.what(), err, err_cap);
+    return RF_CORRUPT;
+  }
+}
+
+// One strip or tile of a JPEG-compressed TIFF as libtiff's tif_jpeg.c reads
+// it: the JPEGTables stream's tables (`tables`, may be empty), then `data` as
+// an abbreviated stream decoded on its own, with libtiff's checks (the
+// component count `nc`, component 0 sampled (hs, vs) and the others 1 x 1, 8
+// bits, a frame no larger than the segment, except a last strip that is only
+// taller) and its colour space: YCbCr -> RGB when `ycc_to_rgb`, else the raw
+// components. Writes seg_h rows of seg_w pixels (3 or nc bytes each) at
+// `out_stride` bytes a row. Returns RF_OK or RF_CORRUPT / RF_REFUSED with a
+// message in `err`.
+int rf_jpeg_tiff_decode(const uint8_t* tables, int64_t tn, const uint8_t* data, int64_t n, int32_t ycc_to_rgb,
+                        int32_t hs, int32_t vs, int32_t nc, int32_t seg_w, int32_t seg_h, int32_t allow_taller,
+                        uint8_t* out, int64_t out_stride, char* err, int64_t err_cap) {
+  try {
+    if (n < 2 || data[0] != 0xFF || data[1] != 0xD8) corrupt("not a JPEG stream (no SOI)");
+    Decoder dec(data, static_cast<size_t>(n));
+    dec.lenient(true);
+    if (tn > 0) dec.load_tables(tables, static_cast<size_t>(tn));
+    dec.header();
+    if (dec.components() != nc) corrupt("improper JPEG component count");
+    if (dec.component(0).h != hs || dec.component(0).v != vs) corrupt("improper JPEG sampling factors");
+    for (int i = 1; i < dec.components(); ++i)
+      if (dec.component(i).h != 1 || dec.component(i).v != 1) corrupt("improper JPEG sampling factors");
+    const int W = dec.width(), H = dec.height();
+    const bool taller = W == seg_w && H > seg_h && allow_taller;
+    if (!taller && (W > seg_w || H > seg_h)) corrupt("JPEG strip/tile size exceeds expected dimensions");
+    if (W < seg_w || H < seg_h) corrupt("JPEG strip/tile smaller than the TIFF segment");
+    const int ch = ycc_to_rgb ? 3 : nc;
+    if (ycc_to_rgb && nc != 3) corrupt("YCbCr JPEG in TIFF without three components");
+    dec.force_colour(ycc_to_rgb ? 1 : 0);
+    std::vector<uint8_t> img(static_cast<size_t>(W) * H * ch);
+    dec.decode(img.data());
+    for (int y = 0; y < seg_h; ++y)
+      memcpy(out + y * out_stride, img.data() + static_cast<size_t>(y) * W * ch, static_cast<size_t>(seg_w) * ch);
     return RF_OK;
   } catch (const Fail& f) {
     write_err(f.msg, err, err_cap);

@@ -21,11 +21,11 @@ match the JAX package's run draw for draw:
 
 The port's machine has no PIL: images are decoded by the port's own readers,
 told apart by their content as PIL tells them (`decode_image`: JPEG of every
-kind libjpeg-turbo reads, BMP, WebP and GIF through `utils/image_io.py`, bit-exact
-to PIL's decode; `decode_png`: every PNG colour type and bit depth,
+kind libjpeg-turbo reads, BMP, WebP, GIF and TIFF through `utils/image_io.py`,
+bit-exact to PIL's decode; `decode_png`: every PNG colour type and bit depth,
 interlaced or not, as PIL converts it to RGB) and resized by its C++ copy of
 PIL's bicubic `Image.resize`, bit for bit. A sample whose image is corrupt,
-or of a format the port does not read yet (TIFF, ICO, ...: ROADMAP queue 1),
+or of a format the port does not read yet (ICO, AVIF, ...: ROADMAP queue 1),
 raises ValueError and is skipped, as the JAX package skips what PIL cannot
 open. `write_synthetic_shard` writes the JAX package's shard
 byte for byte: its JPEG bytes are PIL's default save (`image_io.encode_jpeg`).
@@ -44,7 +44,7 @@ from typing import Iterator
 import numpy as np
 
 from ..utils import native
-from ..utils.image_io import decode_bmp, decode_gif, decode_jpeg, decode_webp, encode_jpeg, png_unfilter
+from ..utils.image_io import decode_bmp, decode_gif, decode_jpeg, decode_tiff, decode_webp, encode_jpeg, png_unfilter
 from ..utils.image_io import resize_bicubic as resize
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
@@ -138,10 +138,13 @@ def decode_png(data: bytes) -> np.ndarray:
     return _png_to_rgb(img, color, depth, palette)
 
 
+# TIFF's signatures as PIL accepts them: classic and BigTIFF in each byte
+# order, and the two classic ones with the magic's bytes swapped.
+_TIFF_MAGIC = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+", b"MM*\x00", b"II\x00*")
+
 # Signatures of the formats PIL opens that the port does not read (ROADMAP
 # queue 1), to name them when they are refused.
 _OTHER_FORMATS = (
-    (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
     (b"\x00\x00\x01\x00", "ICO"), (b"\x00\x00\x02\x00", "CUR"), (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"),
     (b"\xffO\xffQ", "JPEG 2000"), (b"8BPS", "PSD"), (b"qoif", "QOI"), (b"DDS ", "DDS"), (b"icns", "ICNS"),
     (b"\x01\xda", "SGI"), (b"\x59\xa6\x6a\x95", "Sun raster"), (b"SIMPLE", "FITS"), (b"%!PS", "EPS"),
@@ -155,10 +158,13 @@ _OTHER_FORMATS = (
 def decode_image(data: bytes) -> np.ndarray:
     """Image bytes -> (H, W, 3) uint8 RGB, as PIL's
     `Image.open(...).convert("RGB")` gives them. The format is told by the
-    content, as PIL tells it: JPEG, PNG, BMP, WebP and GIF (the first frame
-    of the last two). Any other signature raises ValueError, naming the
-    format where PIL opens it and the port does not read it yet (ROADMAP
-    queue 1)."""
+    content, as PIL tells it: JPEG, PNG, BMP, WebP, GIF (the first frame of
+    these two) and TIFF (its first image, classic or BigTIFF, uncompressed or
+    PackBits, LZW, Deflate, LZMA, JPEG or CCITT RLE / Group 3 / Group 4,
+    transposed by its Orientation). Any other signature raises ValueError,
+    naming the format where PIL opens it and the port does not read it yet
+    (ROADMAP queue 1), as do TIFF's ZSTD, old-style JPEG, ThunderScan and
+    CCITT RLEW compressions (queue 1 entry 6b)."""
     if data.startswith(b"\xff\xd8"):
         return decode_jpeg(data)
     if data.startswith(_PNG_MAGIC):
@@ -167,6 +173,8 @@ def decode_image(data: bytes) -> np.ndarray:
         return decode_bmp(data)
     if data.startswith((b"GIF87a", b"GIF89a")):
         return decode_gif(data)
+    if data.startswith(_TIFF_MAGIC):
+        return decode_tiff(data)
     if data.startswith(b"RIFF") and data[8:12] == b"WEBP":
         return np.ascontiguousarray(decode_webp(data)[..., :3])
     if len(data) >= 12 and data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis", b"heic", b"mif1"):

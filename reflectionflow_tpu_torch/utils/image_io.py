@@ -1,8 +1,8 @@
-"""Host image codecs of the data path: JPEG, BMP, WebP and GIF decoding,
-JPEG writing, PIL's bicubic resize and the PNG unfilter, in C++
-(`csrc/host/image_io.cpp`, `bmp.cpp`, `webp.cpp`, `gif.cpp`, built with g++ by
-`ops/kernel_build.py::build_host_all`, bound with ctypes), beside their
-plain numpy versions.
+"""Host image codecs of the data path: JPEG, BMP, WebP, GIF and TIFF
+decoding, JPEG writing, PIL's bicubic resize and the PNG unfilter, in C++
+(`csrc/host/image_io.cpp`, `bmp.cpp`, `webp.cpp`, `gif.cpp`, `tiff.cpp`, built
+with g++ by `ops/kernel_build.py::build_host_all`, bound with ctypes), beside
+their plain numpy versions.
 
   * `decode_jpeg`: every JPEG PIL's libjpeg-turbo 3.1 decodes at 8 bits,
     bit-exact to PIL's `Image.open(...).convert("RGB")`: sequential and
@@ -21,6 +21,16 @@ plain numpy versions.
     clear and end codes, a full table; interlaced rows; local, global and
     short tables, grey without one; a frame smaller than the screen or
     reaching past it, on index 0 or the GCE's transparency index).
+  * `decode_tiff`: the first image of a TIFF file as Pillow's
+    TiffImagePlugin over libtiff and `convert("RGB")` give it, transposed
+    by its Orientation: classic and BigTIFF, every OPEN_INFO layout, strips
+    and tiles, planes; uncompressed data through Pillow's own unpackers, and
+    PackBits, LZW (old-style codes too), Deflate and LZMA (inflated by
+    Python's zlib and lzma), JPEG (JPEGTables, each strip through
+    `image_io.cpp`'s decoder), CCITT RLE / Group 3 / Group 4, predictors 2
+    and 3 as libtiff decodes them; YCbCr through TIFFRGBAImage; LAB through
+    a copy of PIL's littleCMS transform. ZSTD, old-style JPEG, ThunderScan
+    and CCITT RLEW raise ValueError (ROADMAP queue 1 entry 6b).
     The decoders have no plain version: PIL is their reference in the tests.
     What PIL refuses raises `ValueError` "... as PIL refuses it", and so do
     corrupt or truncated data.
@@ -48,8 +58,9 @@ import numpy as np
 _HOST = Path(__file__).resolve().parents[1] / "csrc" / "host"
 SOURCE = _HOST / "image_io.cpp"
 BMP_SOURCE, WEBP_SOURCE, GIF_SOURCE = _HOST / "bmp.cpp", _HOST / "webp.cpp", _HOST / "gif.cpp"
-SOURCES = (SOURCE, BMP_SOURCE, WEBP_SOURCE, GIF_SOURCE)  # every host codec library, built together
-_OK, _REFUSED, _NEED_BUFFER = 0, -3, 1  # rf_* return codes; any other is corrupt input
+TIFF_SOURCE = _HOST / "tiff.cpp"
+SOURCES = (SOURCE, BMP_SOURCE, WEBP_SOURCE, GIF_SOURCE, TIFF_SOURCE)  # every host codec library, built together
+_OK, _REFUSED, _QUEUED, _NEED_BUFFER = 0, -3, -4, 1  # rf_* return codes; any other is corrupt input
 _PRECISION_BITS = 32 - 8 - 2
 
 calls: Counter = Counter()
@@ -81,9 +92,9 @@ def _u8p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
 
 
-def _decoder(source: Path, name: str):
+def _decoder(source: Path, name: str, extra_types=()):
     """The C function `name` of the host library built from `source`: (data,
-    n, out, cap, dims, err, err_cap) -> return code."""
+    n, out, cap, dims, err, err_cap, *extra) -> return code."""
     fn = _decoders.get(name)
     if fn is None:
         from ..ops.kernel_build import load_host
@@ -91,27 +102,27 @@ def _decoder(source: Path, name: str):
         fn = getattr(load_host(source), name)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-                       ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int64]
+                       ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int64, *extra_types]
         _decoders[name] = fn
     return fn
 
 
-def _decode(source: Path, kind: str, data: bytes, channels: int) -> np.ndarray:
+def _decode(source: Path, kind: str, data: bytes, channels: int, extra=(), extra_types=()) -> np.ndarray:
     """Runs rf_<kind>_decode twice (size, then pixels) -> (H, W, channels)
     uint8; refused or corrupt data raises ValueError."""
-    fn = _decoder(source, f"rf_{kind}_decode")
+    fn = _decoder(source, f"rf_{kind}_decode", extra_types)
     data = bytes(data)
     dims = (ctypes.c_int32 * 2)()
     err = ctypes.create_string_buffer(256)
-    rc = fn(data, len(data), None, 0, dims, err, len(err))
+    rc = fn(data, len(data), None, 0, dims, err, len(err), *extra)
     if rc == _NEED_BUFFER:
         out = np.empty((dims[0], dims[1], channels), np.uint8)
         calls[f"decode_{kind}"] += 1
-        rc = fn(data, len(data), _u8p(out), out.nbytes, dims, err, len(err))
+        rc = fn(data, len(data), _u8p(out), out.nbytes, dims, err, len(err), *extra)
     if rc == _OK:
         return out
     msg = err.value.decode("utf-8", "replace")
-    raise ValueError(msg if rc == _REFUSED else f"corrupt {kind.upper()}: {msg}")
+    raise ValueError(msg if rc in (_REFUSED, _QUEUED) else f"corrupt {kind.upper()}: {msg}")
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
@@ -128,6 +139,61 @@ def decode_gif(data: bytes) -> np.ndarray:
     """GIF bytes -> the (H, W, 3) uint8 RGB of its first frame, as PIL decodes
     them."""
     return _decode(GIF_SOURCE, "gif", data, 3)
+
+
+# rf_tiff_decode's inflate: (kind 8 zlib / 34925 xz, src, n, dst, cap) -> bytes written (at most cap), or
+# -1 - the bytes written before a data error
+_INFLATE_FN = ctypes.CFUNCTYPE(ctypes.c_int64, ctypes.c_int32, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+                               ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64)
+
+
+def decode_tiff(data: bytes) -> np.ndarray:
+    """TIFF bytes -> the (H, W, 3) uint8 RGB of its first image, as PIL's
+    `Image.open(...).convert("RGB")` gives them (after the Orientation
+    transpose PIL applies on load). Deflate and LZMA data are inflated by
+    Python's zlib and lzma, as libtiff inflates them; JPEG data by
+    `image_io.cpp`'s decoder. ZSTD, old-style JPEG, ThunderScan and CCITT
+    RLEW data raise ValueError (ROADMAP queue 1 entry 6b), as does what PIL
+    refuses."""
+    import lzma
+    import zlib
+
+    failed: list = []
+
+    def inflate(kind, src, n, dst, cap):
+        def stream():
+            return zlib.decompressobj() if kind == 8 else lzma.LZMADecompressor(lzma.FORMAT_XZ)
+
+        raw = ctypes.string_at(src, n)
+        try:
+            try:
+                out = stream().decompress(raw, cap)
+            except (zlib.error, lzma.LZMAError, EOFError):
+                # what libtiff's codec wrote before the fault: the data fed a byte at a time
+                d, out = stream(), b""
+                try:
+                    for i in range(n):
+                        out += d.decompress(raw[i:i + 1], cap - len(out))
+                        if len(out) >= cap:
+                            break
+                except (zlib.error, lzma.LZMAError, EOFError):
+                    pass
+                ctypes.memmove(dst, out, len(out))
+                return -1 - len(out)
+        except BaseException as e:  # noqa: BLE001 - cannot cross the C frames: raised again after the call
+            failed.append(e)
+            return -1
+        ctypes.memmove(dst, out, len(out))
+        return len(out)
+
+    jpeg = ctypes.cast(get_lib().rf_jpeg_tiff_decode, ctypes.c_void_p)
+    cb = _INFLATE_FN(inflate)  # held for the calls
+    try:
+        return _decode(TIFF_SOURCE, "tiff", data, 3, (cb, jpeg), (_INFLATE_FN, ctypes.c_void_p))
+    except ValueError:
+        if failed:  # the callback's own error, not the data's
+            raise failed[0] from None
+        raise
 
 
 def decode_webp(data: bytes) -> np.ndarray:

@@ -25,6 +25,12 @@ Each image is a seeded smooth procedural RGB image with mild noise (the
     short tables, interlaced rows, an offset sub-frame with a transparency
     index and extensions, code sizes 2 and 5, clear codes mid-stream, a full
     code table), with the sha256 of PIL's decode;
+  * "tiff": a file PIL wrote or one written by `write_tiff` below (tiles,
+    planes, BigTIFF, big-endian 16-bit, YCbCr JPEG with JPEGTables and
+    Orientation 6, subsampled YCbCr, Group 3 2D with FillOrder 2, a 4-bit
+    ColorMap, associated alpha, predictors 2 and 3, old-style LZW, LAB
+    planes and a LAB grid through PIL's littleCMS transform; two 1024x768
+    timing files), with the sha256 of PIL's decode;
   * "encode": a committed pixel array (`encode_pixels.npz`) with the sha256
     of PIL's default `save(format="JPEG")` of it.
 `tests/test_torch_jpeg.py` checks the committed bytes against the manifest
@@ -165,6 +171,41 @@ GIFS = [
     ("gif_codesize5_clears_37x23.gif", (37, 23), 606, "local", {"colors": 32, "lzw": {"clear_every": 50}}),
     ("gif_full_table_120x90.gif", (120, 90), 607, "local", {"colors": 256, "lzw": {"full": "keep"}}),
     ("gif_pil_1024x768.gif", (1024, 768), 608, "pil", {"mode": "RGB", "smooth": True}),
+]
+# TIFF: name, (W, H), seed, kind ("pil": PIL's save in `mode` with `compression`;
+# else `write_tiff` of the procedural image with the options), options. The
+# 1024x768 pair are chip_smoke.py phase 5e's timing files that it cannot write
+# itself (LZW with predictor 2, JPEG YCbCr 4:2:0 with JPEGTables), from a
+# smooth image.
+TIFFS = [
+    ("tiff_pil_rgb_lzw_37x23.tif", (37, 23), 700, "pil", {"mode": "RGB", "compression": "tiff_lzw"}),
+    ("tiff_pil_1_group4_37x23.tif", (37, 23), 701, "pil", {"mode": "1", "compression": "group4"}),
+    ("tiff_pil_cmyk_jpeg_37x23.tif", (37, 23), 702, "pil", {"mode": "CMYK", "compression": "jpeg"}),
+    ("tiff_tiles_planar_deflate_37x23.tif", (37, 23), 703, "write",
+     {"compression": 8, "tile": (16, 16), "planar": 2}),
+    ("tiff_bigtiff_tiles_lzma_37x23.tif", (37, 23), 704, "write",
+     {"compression": 34925, "tile": (32, 16), "bigtiff": True}),
+    ("tiff_mm_rgb16_packbits_37x23.tif", (37, 23), 705, "write",
+     {"compression": 32773, "order": ">", "bits": 16, "rows_per_strip": 5}),
+    ("tiff_ycbcr_jpeg_420_orient6_37x23.tif", (23, 37), 706, "write",
+     {"photometric": 6, "compression": 7, "subsampling": (2, 2), "rows_per_strip": 16, "orientation": 6}),
+    ("tiff_ycbcr_21_lzw_37x23.tif", (37, 23), 707, "write",
+     {"photometric": 6, "compression": 5, "subsampling": (2, 1), "rows_per_strip": 8, "ycbcr": True}),
+    ("tiff_g3_2d_fillorder2_37x23.tif", (37, 23), 708, "write",
+     {"photometric": 0, "bits": 1, "compression": 3, "t4options": 5, "fillorder": 2}),
+    ("tiff_p4_colormap_37x23.tif", (37, 23), 709, "write", {"photometric": 3, "bits": 4, "palette": 16}),
+    ("tiff_rgba_assoc_pred2_37x23.tif", (37, 23), 710, "write",
+     {"compression": 8, "predictor": 2, "extra_samples": (1,), "alpha": True}),
+    ("tiff_f32_pred3_mm_37x23.tif", (37, 23), 711, "write",
+     {"photometric": 1, "bits": 32, "sample_format": 3, "compression": 5, "predictor": 3, "order": ">"}),
+    ("tiff_old_lzw_orient3_37x23.tif", (37, 23), 712, "write", {"compression": 5, "old_lzw": True, "orientation": 3}),
+    ("tiff_lab_planar_lzw_37x23.tif", (37, 23), 714, "write", {"photometric": 8, "compression": 5, "planar": 2}),
+    ("tiff_lab_grid_1024x1024.tif", (1024, 1024), 715, "write",
+     {"photometric": 8, "compression": 8, "predictor": 2, "rows_per_strip": 64, "lab_grid": True}),
+    ("tiff_lzw_pred2_1024x768.tif", (1024, 768), 713, "write",
+     {"compression": 5, "predictor": 2, "rows_per_strip": 64, "smooth": True}),
+    ("tiff_jpeg_ycbcr_420_1024x768.tif", (1024, 768), 713, "write",
+     {"photometric": 6, "compression": 7, "subsampling": (2, 2), "rows_per_strip": 16, "smooth": True}),
 ]
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
@@ -1072,6 +1113,439 @@ def write_lossless_jpeg(img: np.ndarray, predictor: int, pt: int = 0, restart_ro
     return out + b"\xff\xd9"
 
 
+# ------------------------------------------------------------------- TIFF ----
+#
+# `write_tiff` writes what PIL's TIFF writer cannot: tiles, planes, BigTIFF,
+# either byte order, FillOrder 2, any Orientation, YCbCr (subsampled, and
+# JPEG-compressed with shared JPEGTables), predictors 2 and 3, old-style LZW
+# codes, CCITT RLE / Group 3 (1D and 2D) / Group 4, and every OPEN_INFO layout.
+
+TIFF_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 5: "II", 7: "s", 8: "h", 9: "i", 10: "ii", 11: "f", 12: "d", 16: "Q"}
+
+
+def packbits_encode(data: bytes) -> bytes:
+    """PackBits: runs of 3+ equal bytes as (1 - n, b), the rest literally."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([(257 - (j - i)) & 0xFF, data[i]])
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def tiff_lzw_encode(data: bytes, old: bool = False) -> bytes:
+    """TIFF LZW: a leading clear, codes MSB-first growing one code early
+    (libtiff's LZWDecode), or with `old` the pre-6.0 LSB-first codes growing at
+    the table's size (LZWDecodeCompat); a clear before the table fills; EOI."""
+    codes, width = [], 9
+    table, nxt, dec_free, first = {}, 258, 258, True
+
+    def emit(code):
+        nonlocal width, dec_free, first
+        codes.append((code, width))
+        if code == 256:
+            width, dec_free, first = 9, 258, True
+            return
+        if not first:
+            dec_free += 1
+            if dec_free > (1 << width) - (1 if old else 2):
+                width = min(width + 1, 12)
+        first = False
+
+    emit(256)
+    w = b""
+    for c in data:
+        wc = w + bytes([c])
+        if len(wc) == 1 or wc in table:
+            w = wc
+            continue
+        emit(table[w] if len(w) > 1 else w[0])
+        table[wc] = nxt
+        nxt += 1
+        w = bytes([c])
+        if nxt >= 4093:
+            emit(256)
+            table, nxt = {}, 258
+    if w:
+        emit(table[w] if len(w) > 1 else w[0])
+    emit(257)
+    acc, nacc, out = 0, 0, bytearray()
+    for code, wd in codes:
+        if old:
+            acc |= code << nacc
+            nacc += wd
+            while nacc >= 8:
+                out.append(acc & 0xFF)
+                acc >>= 8
+                nacc -= 8
+        else:
+            acc = (acc << wd) | code
+            nacc += wd
+            while nacc >= 8:
+                out.append((acc >> (nacc - 8)) & 0xFF)
+                nacc -= 8
+                acc &= (1 << nacc) - 1
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF if not old else acc & 0xFF)
+    return bytes(out)
+
+
+FAX_WHITE = [(0x35, 8), (0x7, 6), (0x7, 4), (0x8, 4), (0xB, 4), (0xC, 4), (0xE, 4), (0xF, 4), (0x13, 5), (0x14, 5),
+             (0x7, 5), (0x8, 5), (0x8, 6), (0x3, 6), (0x34, 6), (0x35, 6), (0x2A, 6), (0x2B, 6), (0x27, 7), (0xC, 7),
+             (0x8, 7), (0x17, 7), (0x3, 7), (0x4, 7), (0x28, 7), (0x2B, 7), (0x13, 7), (0x24, 7), (0x18, 7), (0x2, 8),
+             (0x3, 8), (0x1A, 8), (0x1B, 8), (0x12, 8), (0x13, 8), (0x14, 8), (0x15, 8), (0x16, 8), (0x17, 8),
+             (0x28, 8), (0x29, 8), (0x2A, 8), (0x2B, 8), (0x2C, 8), (0x2D, 8), (0x4, 8), (0x5, 8), (0xA, 8), (0xB, 8),
+             (0x52, 8), (0x53, 8), (0x54, 8), (0x55, 8), (0x24, 8), (0x25, 8), (0x58, 8), (0x59, 8), (0x5A, 8),
+             (0x5B, 8), (0x4A, 8), (0x4B, 8), (0x32, 8), (0x33, 8), (0x34, 8)]
+FAX_WHITE_MAKEUP = [(0x1B, 5), (0x12, 5), (0x17, 6), (0x37, 7), (0x36, 8), (0x37, 8), (0x64, 8), (0x65, 8), (0x68, 8),
+                    (0x67, 8), (0xCC, 9), (0xCD, 9), (0xD2, 9), (0xD3, 9), (0xD4, 9), (0xD5, 9), (0xD6, 9), (0xD7, 9),
+                    (0xD8, 9), (0xD9, 9), (0xDA, 9), (0xDB, 9), (0x98, 9), (0x99, 9), (0x9A, 9), (0x18, 6), (0x9B, 9)]
+FAX_BLACK = [(0x37, 10), (0x2, 3), (0x3, 2), (0x2, 2), (0x3, 3), (0x3, 4), (0x2, 4), (0x3, 5), (0x5, 6), (0x4, 6),
+             (0x4, 7), (0x5, 7), (0x7, 7), (0x4, 8), (0x7, 8), (0x18, 9), (0x17, 10), (0x18, 10), (0x8, 10),
+             (0x67, 11), (0x68, 11), (0x6C, 11), (0x37, 11), (0x28, 11), (0x17, 11), (0x18, 11), (0xCA, 12),
+             (0xCB, 12), (0xCC, 12), (0xCD, 12), (0x68, 12), (0x69, 12), (0x6A, 12), (0x6B, 12), (0xD2, 12),
+             (0xD3, 12), (0xD4, 12), (0xD5, 12), (0xD6, 12), (0xD7, 12), (0x6C, 12), (0x6D, 12), (0xDA, 12),
+             (0xDB, 12), (0x54, 12), (0x55, 12), (0x56, 12), (0x57, 12), (0x64, 12), (0x65, 12), (0x52, 12),
+             (0x53, 12), (0x24, 12), (0x37, 12), (0x38, 12), (0x27, 12), (0x28, 12), (0x58, 12), (0x59, 12),
+             (0x2B, 12), (0x2C, 12), (0x5A, 12), (0x66, 12), (0x67, 12)]
+FAX_BLACK_MAKEUP = [(0xF, 10), (0xC8, 12), (0xC9, 12), (0x5B, 12), (0x33, 12), (0x34, 12), (0x35, 12), (0x6C, 13),
+                    (0x6D, 13), (0x4A, 13), (0x4B, 13), (0x4C, 13), (0x4D, 13), (0x72, 13), (0x73, 13), (0x74, 13),
+                    (0x75, 13), (0x76, 13), (0x77, 13), (0x52, 13), (0x53, 13), (0x54, 13), (0x55, 13), (0x5A, 13),
+                    (0x5B, 13), (0x64, 13), (0x65, 13)]
+FAX_EXTENDED = [(0x8, 11), (0xC, 11), (0xD, 11), (0x12, 12), (0x13, 12), (0x14, 12), (0x15, 12), (0x16, 12),
+                (0x17, 12), (0x1C, 12), (0x1D, 12), (0x1E, 12), (0x1F, 12)]  # 1792 .. 2560, both colours
+FAX_VERTICAL = {0: (1, 1), 1: (3, 3), 2: (3, 6), 3: (3, 7), -1: (2, 3), -2: (2, 6), -3: (2, 7)}
+
+
+class _Bits:
+    def __init__(self):
+        self.bits = []
+
+    def put(self, code: int, n: int) -> None:
+        self.bits += [(code >> (n - 1 - i)) & 1 for i in range(n)]
+
+    def align(self) -> None:
+        self.bits += [0] * (-len(self.bits) % 8)
+
+    def tobytes(self) -> bytes:
+        self.align()
+        return np.packbits(np.array(self.bits, np.uint8)).tobytes() if self.bits else b""
+
+
+def _fax_run(b: _Bits, run: int, black: bool) -> None:
+    term, makeup = (FAX_BLACK, FAX_BLACK_MAKEUP) if black else (FAX_WHITE, FAX_WHITE_MAKEUP)
+    while run >= 2624:
+        b.put(*FAX_EXTENDED[-1])
+        run -= 2560
+    if run >= 1792:
+        b.put(*FAX_EXTENDED[(run - 1792) // 64])
+        run %= 64
+    elif run >= 64:
+        b.put(*makeup[run // 64 - 1])
+        run %= 64
+    b.put(*term[run])
+
+
+def _changes(row) -> list:
+    """Changing elements of a row of 0 (white) / 1 (black) pixels."""
+    row = np.concatenate([[0], np.asarray(row, np.int64)])
+    return list(np.nonzero(np.diff(row))[0])
+
+
+def _fax_row_1d(b: _Bits, row) -> None:
+    x, black = 0, False
+    for c in _changes(row) + [len(row)]:
+        _fax_run(b, c - x, black)
+        x, black = c, not black
+
+
+def _fax_row_2d(b: _Bits, row, ref) -> None:
+    w = len(row)
+    cur, rch = _changes(row), _changes(ref)
+    a0, color = -1, 0
+    while a0 < w:
+        a1 = next((c for c in cur if c > a0), w)
+        b1 = next((c for i, c in enumerate(rch) if c > a0 and i % 2 == color), w)
+        b2 = next((c for c in rch if c > b1), w)
+        if b2 < a1:
+            b.put(0x1, 4)
+            a0 = b2
+        elif abs(a1 - b1) <= 3:
+            b.put(*FAX_VERTICAL[a1 - b1])
+            a0, color = a1, 1 - color
+        else:
+            a2 = next((c for c in cur if c > a1), w)
+            b.put(0x1, 3)
+            _fax_run(b, a1 - max(a0, 0), bool(color))
+            _fax_run(b, a2 - a1, not color)
+            a0 = a2
+
+
+def fax_encode(bits: np.ndarray, kind: int, t4options: int = 0, k: int = 2) -> bytes:
+    """(H, W) 0/1 pixels (1 black) as CCITT RLE (kind 2, byte-aligned rows),
+    Group 3 (3: an EOL before each row, then with T4Options bit 0 a tag bit and
+    every k-th row 1D, the rest 2D; bit 2 byte-aligns the EOLs) or Group 4 (4)."""
+    b = _Bits()
+    ref = np.zeros(bits.shape[1], np.uint8)
+    for y, row in enumerate(bits):
+        if kind == 2:
+            _fax_row_1d(b, row)
+            b.align()
+        elif kind == 3:
+            if t4options & 4:
+                b.bits += [0] * ((4 - len(b.bits)) % 8)
+            b.put(1, 12)
+            twod = bool(t4options & 1) and y % k != 0
+            if t4options & 1:
+                b.put(0 if twod else 1, 1)
+            _fax_row_2d(b, row, ref) if twod else _fax_row_1d(b, row)
+        else:
+            _fax_row_2d(b, row, ref)
+        ref = row
+    if kind == 4:
+        b.put(1, 12)
+        b.put(1, 12)
+    return b.tobytes()
+
+
+def _pack_rows(a: np.ndarray, bits: int, order: str, fmt: int) -> bytes:
+    """(rows, W, S) samples -> packed rows (each padded to a byte)."""
+    h = a.shape[0]
+    flat = a.reshape(h, -1)
+    if bits < 8:
+        per = flat.astype(np.uint8)
+        out = []
+        for r in per:
+            bitsarr = np.unpackbits(r[:, None], axis=1)[:, 8 - bits:].reshape(-1)
+            out.append(np.packbits(bitsarr).tobytes())
+        return b"".join(out)
+    if bits == 12:
+        out = []
+        for r in flat.astype(np.uint16):
+            r = np.concatenate([r, [0]]) if len(r) % 2 else r
+            a0, a1 = r[0::2], r[1::2]
+            out.append(np.stack([a0 >> 4, ((a0 & 15) << 4) | (a1 >> 8), a1 & 255], 1).astype(np.uint8).tobytes())
+        return b"".join(out)
+    kind = {1: "u", 2: "i", 3: "f"}[fmt]
+    return flat.astype(f"{order}{kind}{bits // 8}").tobytes()
+
+
+def _predict(seg: np.ndarray, bits: int, predictor: int, stride: int, order: str) -> bytes:
+    """Rows of a segment differenced as libtiff's predictor 2 / 3 encoders do."""
+    h = seg.shape[0]
+    if predictor == 2:
+        flat = seg.reshape(h, -1).astype(np.int64)
+        d = flat.copy()
+        d[:, stride:] = flat[:, stride:] - flat[:, :-stride]
+        return (d & ((1 << bits) - 1)).astype(f"{order}u{bits // 8}").tobytes()
+    rows = []
+    nb = bits // 8
+    for r in seg.reshape(h, -1):
+        raw = np.frombuffer(r.astype(f"<f{nb}").tobytes(), np.uint8).reshape(-1, nb)
+        planes = raw[:, ::-1].T.reshape(-1).astype(np.int64)  # most significant byte plane first
+        d = planes.copy()
+        d[stride:] = planes[stride:] - planes[:-stride]
+        rows.append((d & 255).astype(np.uint8).tobytes())
+    return b"".join(rows)
+
+
+def _jpeg_split(data: bytes):
+    """A JPEG file -> (tables-only stream, abbreviated stream without tables or APPn)."""
+    tables, rest, i = [b"\xff\xd8"], [b"\xff\xd8"], 2
+    while i < len(data):
+        m, n = data[i + 1], (data[i + 2] << 8) | data[i + 3]
+        seg = data[i:i + 2 + n]
+        if m == 0xDA:
+            rest.append(data[i:])
+            break
+        if m in (0xDB, 0xC4):
+            tables.append(seg)
+        elif not 0xE0 <= m <= 0xEF:
+            rest.append(seg)
+        i += 2 + n
+    return b"".join(tables) + b"\xff\xd9", b"".join(rest)
+
+
+def _jpeg_segment(seg: np.ndarray, photometric: int, quality: int, subsampling):
+    mode = "L" if seg.shape[2] == 1 else {2: "RGB", 5: "CMYK", 6: "RGB"}[photometric]
+    img = Image.fromarray(seg[..., 0] if mode == "L" else seg, mode)
+    buf = io.BytesIO()
+    opts = {"quality": quality}
+    if photometric == 6:
+        opts["subsampling"] = {(1, 1): 0, (2, 1): 1, (2, 2): 2}[subsampling]
+    elif photometric == 2:
+        opts.update(keep_rgb=True, subsampling=0)
+    img.save(buf, format="JPEG", **opts)
+    return _jpeg_split(buf.getvalue())
+
+
+def _ycbcr_units(seg: np.ndarray, hs: int, vs: int) -> bytes:
+    """(rows, W, 3) YCbCr samples -> TIFF's subsampled data units: hs x vs
+    luma samples then the block's mean Cb and Cr, edge samples repeated."""
+    h, w = seg.shape[:2]
+    ph, pw = -h % vs, -w % hs
+    p = np.pad(seg, ((0, ph), (0, pw), (0, 0)), mode="edge").astype(np.int64)
+    H, W = p.shape[:2]
+    y = p[..., 0].reshape(H // vs, vs, W // hs, hs).transpose(0, 2, 1, 3).reshape(H // vs, W // hs, hs * vs)
+    c = p[..., 1:].reshape(H // vs, vs, W // hs, hs, 2).mean(axis=(1, 3)).round().astype(np.int64)
+    return np.concatenate([y, c], axis=2).astype(np.uint8).tobytes()
+
+
+def write_tiff(samples, photometric: int, bits: int = 8, compression: int = 1, order: str = "<",
+               bigtiff: bool = False, rows_per_strip=None, tile=None, planar: int = 1, fillorder: int = 1,
+               predictor: int = 1, extra_samples=(), sample_format: int = 1, colormap=None, orientation=None,
+               subsampling=None, t4options: int = 0, old_lzw: bool = False, quality: int = 75, tags=None,
+               ifd_first: bool = False, append=()) -> bytes:
+    """(H, W, S) samples (uint / int / float by `sample_format`; 0/1 pixels,
+    1 black, for CCITT; RGB pixels for JPEG under photometric 6, YCbCr
+    samples otherwise) -> a TIFF file. `tags` {tag: (type, values)} add or
+    replace entries (values None drops one); `append` [(tag, type, values)]
+    go after them, out of order or repeated."""
+    a = np.asarray(samples)
+    if a.ndim == 2:
+        a = a[..., None]
+    h, w, spp = a.shape
+    jpeg = compression == 7
+    ycc_units = photometric == 6 and subsampling not in (None, (1, 1)) and not jpeg
+    if tile:
+        tw, th = tile
+    else:
+        tw, th = w, rows_per_strip or h
+    planes = [a[..., s:s + 1] for s in range(spp)] if planar == 2 else [a]
+    chunks, tables = [], None
+    for plane in planes:
+        for y0 in range(0, h, th):
+            for x0 in range(0, w, tw) if tile else [0]:
+                seg = plane[y0:y0 + th, x0:x0 + tw]
+                if tile:  # full tiles, padded past the image's edges
+                    seg = np.pad(seg, ((0, th - seg.shape[0]), (0, tw - seg.shape[1]), (0, 0)), mode="edge")
+                if jpeg:
+                    tables, data = _jpeg_segment(seg.astype(np.uint8), photometric, quality, subsampling or (1, 1))
+                elif compression in (2, 3, 4):
+                    data = fax_encode(seg[..., 0], compression, t4options)
+                else:
+                    if ycc_units:
+                        raw = _ycbcr_units(seg, *subsampling)
+                    elif predictor != 1:
+                        raw = _predict(seg, bits, predictor, seg.shape[2], order)
+                    else:
+                        raw = _pack_rows(seg, bits, order, sample_format)
+                    if compression == 1:
+                        data = raw
+                    elif compression == 32773:
+                        data = packbits_encode(raw)
+                    elif compression == 5:
+                        data = tiff_lzw_encode(raw, old_lzw)
+                    elif compression in (8, 32946):
+                        data = zlib.compress(raw)
+                    elif compression == 34925:
+                        import lzma
+                        data = lzma.compress(raw, format=lzma.FORMAT_XZ)
+                    else:
+                        raise ValueError(f"no encoder for compression {compression}")
+                if fillorder == 2 and not jpeg:
+                    data = bytes(BITREV[b] for b in data)
+                chunks.append(data)
+    long_t = 16 if bigtiff else 4
+    entries = {256: (3 if w < 65536 else 4, [w]), 257: (3 if h < 65536 else 4, [h]),
+               258: (3, [bits] * spp), 259: (3, [compression]),
+               262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
+    if fillorder != 1:
+        entries[266] = (3, [fillorder])
+    if predictor != 1:
+        entries[317] = (3, [predictor])
+    if extra_samples:
+        entries[338] = (3, list(extra_samples))
+    if sample_format != 1:
+        entries[339] = (3, [sample_format] * spp)
+    if colormap is not None:
+        entries[320] = (3, list(np.asarray(colormap, np.int64).T.reshape(-1)))
+    if orientation is not None:
+        entries[274] = (3, [orientation])
+    if subsampling is not None:
+        entries[530] = (3, list(subsampling))
+    if t4options:
+        entries[292] = (4, [t4options])
+    if tables is not None:
+        entries[347] = (7, tables)
+    if tile:
+        entries[322], entries[323] = (3, [tw]), (3, [th])
+    else:
+        entries[278] = (3 if th < 65536 else 4, [th])
+    for k, v in (tags or {}).items():
+        if v is None:
+            entries.pop(k, None)
+        else:
+            entries[k] = v
+    off_tag, cnt_tag = (324, 325) if tile else (273, 279)
+    return _tiff_file(entries, chunks, off_tag, cnt_tag, order, bigtiff, long_t, ifd_first, append)
+
+
+BITREV = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+
+
+def _tiff_file(entries, chunks, off_tag, cnt_tag, order, bigtiff, long_t, ifd_first, append=()) -> bytes:
+    """Header, strip / tile data and one IFD (after the data, or right after
+    the header) of the entries in tag order, then the `append` ones (tag,
+    type, values) as they come (duplicates included), every value too long
+    for its entry after the IFD."""
+    pre = (b"II" if order == "<" else b"MM")
+    head = pre + struct.pack(order + "HHHQ", 43, 8, 0, 0) if bigtiff else pre + struct.pack(order + "HI", 42, 0)
+    entries = dict(entries)
+    entries[off_tag] = (long_t, [0] * len(chunks))
+    entries[cnt_tag] = (long_t, [len(c) for c in chunks])
+    listed = [(tag, *entries[tag]) for tag in sorted(entries)] + [tuple(e) for e in append]
+    ent_size, cnt_size, inline = (20, 8, 8) if bigtiff else (12, 2, 4)
+    ifd_len = cnt_size + len(listed) * ent_size + inline
+
+    def payload(typ, vals):
+        if typ in (2, 7):
+            return bytes(vals)
+        fmt = TIFF_TYPES[typ]
+        flat = [x for v in vals for x in (v if isinstance(v, tuple) else (v,))]
+        return struct.pack(order + fmt[0] * len(flat), *flat)
+
+    ifd_at = len(head) if ifd_first else len(head) + sum(len(c) for c in chunks)
+    out_of_line, pos = [], ifd_at + ifd_len  # out-of-line values after the IFD
+    for tag, typ, vals in listed:
+        size = len(payload(typ, vals))
+        out_of_line.append(pos if size > inline else None)
+        pos += size + (size & 1) if size > inline else 0
+    data_start = pos if ifd_first else len(head)
+    chunk_offs = [int(o) for o in np.cumsum([data_start] + [len(c) for c in chunks[:-1]])] if chunks else []
+    listed = [(tag, typ, chunk_offs if tag == off_tag and vals == [0] * len(chunks) else vals)
+              for tag, typ, vals in listed]
+    ifd = bytearray(struct.pack(order + ("Q" if bigtiff else "H"), len(listed)))
+    extra = bytearray()
+    for (tag, typ, vals), at in zip(listed, out_of_line):
+        p = payload(typ, vals)
+        count = len(p) if typ in (2, 7) else len(vals)
+        ifd += struct.pack(order + ("HHQ" if bigtiff else "HHI"), tag, typ, count)
+        if at is not None:
+            ifd += struct.pack(order + ("Q" if bigtiff else "I"), at)
+            extra += p + b"\0" * (len(p) & 1)
+        else:
+            ifd += p + b"\0" * (inline - len(p))
+    ifd += b"\0" * inline  # no next IFD
+    head = bytearray(head)
+    if bigtiff:
+        head[8:16] = struct.pack(order + "Q", ifd_at)
+    else:
+        head[4:8] = struct.pack(order + "I", ifd_at)
+    if ifd_first:
+        return bytes(head) + bytes(ifd) + bytes(extra) + b"".join(chunks)
+    return bytes(head) + b"".join(chunks) + bytes(ifd) + bytes(extra)
+
+
 def clip_frame(t: int, px: int = CLIP_PX) -> np.ndarray:
     """Frame t of chip_smoke.py phase 10's synthetic clip, (px, px, 3) uint8
     integer patterns (chip_smoke.py holds the same function)."""
@@ -1147,6 +1621,46 @@ def gif_fixture(size, seed: int, kind: str, opts: dict) -> bytes:
                             gif_gce(transparency=opts.pop("transparency")),
                             gif_extension(0x01, bytes(12), b"plain text"),
                             gif_image(sub, x=3, y=2)], palette=palette)
+
+
+def tiff_fixture(size, seed: int, kind: str, opts: dict) -> bytes:
+    """A TIFF of a procedural image (see TIFFS): PIL's save, or `write_tiff`
+    of its RGB samples, YCbCr samples ("ycbcr"), grey levels reduced to
+    `bits` (one bit: dithered black, 1), palette indices of a quantized
+    image ("palette"), premultiplied RGBA ("alpha") or float grey."""
+    opts = dict(opts)
+    w, h = size
+    rgb = procedural(w, h, seed, 0.0 if opts.pop("smooth", False) else 6.0)
+    if kind == "pil":
+        buf = io.BytesIO()
+        Image.fromarray(rgb).convert(opts.pop("mode")).save(buf, format="TIFF", **opts)
+        return buf.getvalue()
+    photometric, bits = opts.pop("photometric", 2), opts.get("bits", 8)
+    samples = rgb
+    if opts.pop("lab_grid", False):  # every L, a and b in steps of 4: PIL's littleCMS transform sampled
+        g = np.meshgrid(np.arange(256), np.arange(0, 256, 4), np.arange(0, 256, 4), indexing="ij")
+        samples = np.stack(g, -1).reshape(h, w, 3)
+    elif opts.pop("ycbcr", False):
+        samples = np.asarray(Image.fromarray(rgb).convert("YCbCr"))
+    elif photometric == 3:
+        n = opts.pop("palette")
+        q = Image.fromarray(rgb).quantize(colors=n)
+        cmap = np.asarray(q.getpalette()[: 3 * n]).reshape(-1, 3) * 257
+        return write_tiff(np.asarray(q), 3, colormap=cmap, **opts)
+    elif photometric in (0, 1):
+        grey = np.asarray(Image.fromarray(rgb).convert("L")).astype(np.float64)
+        if opts.get("sample_format") == 3:
+            samples = (grey * 1.25 - 20).astype(np.float32)
+        elif bits == 1:
+            samples = (np.asarray(Image.fromarray(grey.astype(np.uint8)).convert("1")) == 0).astype(np.uint8)
+        else:
+            samples = grey.astype(np.int64) >> (8 - bits) if bits < 8 else grey.astype(np.int64) * 257
+    elif bits == 16:
+        samples = rgb.astype(np.int64) * 257
+    if opts.pop("alpha", False):
+        a = np.linspace(0, 255, w * h).reshape(h, w).astype(np.int64)
+        samples = np.concatenate([rgb.astype(np.int64) * a[..., None] // 255, a[..., None]], axis=2)
+    return write_tiff(samples, photometric, **opts)
 
 
 def coded_jpeg(size, seed: int, opts: dict, lossless: bool) -> bytes:
@@ -1241,6 +1755,12 @@ def main() -> None:
         data = gif_fixture((w, h), seed, kind, opts)
         write(name, data)
         manifest[name] = {"kind": "gif", "size": [w, h], "seed": seed, "writer": kind, "save": opts,
+                          "file_sha256": hashlib.sha256(data).hexdigest(), "decode_sha256": pil_decode_sha(data)}
+    for name, (w, h), seed, kind, opts in TIFFS:
+        data = tiff_fixture((w, h) if "orientation" not in opts or opts["orientation"] < 5 else (h, w), seed, kind, opts)
+        write(name, data)
+        manifest[name] = {"kind": "tiff", "size": [w, h], "seed": seed, "writer": kind,
+                          "save": {k: list(v) if isinstance(v, tuple) else v for k, v in opts.items()},
                           "file_sha256": hashlib.sha256(data).hexdigest(), "decode_sha256": pil_decode_sha(data)}
     for i, (name, color, depth, interlace, trns) in enumerate(PNGS):
         data = png_fixture(color, depth, interlace, trns, 100 + i)
