@@ -98,7 +98,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      `train/data.py::decode_image` to the sha256 of PIL's decode in its
      manifest: JPEG (sequential, progressive, grey, CMYK, YCCK, progressive
      files cut short that libjpeg smooths, arithmetic-coded SOF9 / SOF10,
-     lossless SOF3), PNG (every colour type and bit depth, PLTE, tRNS,
+     lossless SOF3, quantizers past libjpeg-turbo's 16-bit IDCT lanes), PNG (every colour type and bit depth, PLTE, tRNS,
      Adam7), WebP (lossy, lossless, alpha, an animation's first frame; its
      RGBA too), BMP (every header, depth, bitfields and RLE kind) and GIF
      (PIL-written, interlaced, local and short tables, an offset sub-frame
@@ -107,7 +107,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      BigTIFF, big-endian 16-bit, YCbCr JPEG with JPEGTables and Orientation
      6, subsampled YCbCr, Group 3 2D with FillOrder 2, a 4-bit ColorMap,
      associated alpha, predictors 2 and 3, old-style LZW, LAB planes and a
-     1024² LAB grid through the port's copy of PIL's littleCMS transform); a
+     1024² LAB grid through the port's copy of PIL's littleCMS transform,
+     ZSTD (PIL-written, tiles with predictor 2), CCITT RLEW, ThunderScan,
+     old-style JPEG from its table tags and from JPEGInterchangeFormat); a
      JPEG's `resize_bicubic` gives the manifest's PIL resize hashes at the
      paired-crop shapes and equals `resize_ref` bit for bit; `encode_jpeg` of
      each committed pixel array gives the sha256 of PIL's default save; the
@@ -121,7 +123,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      24-bit BMP this script writes from the decoded baseline, and TIFF:
      uncompressed, PackBits, Adobe Deflate and LZMA written here from the
      decoded baseline (each decoding to it bit for bit), LZW with predictor
-     2 and YCbCr 4:2:0 JPEG from the fixtures); a GenRef-format tar of
+     2, YCbCr 4:2:0 JPEG, ZSTD with predictor 2 and old-style JPEG 4:2:0
+     from the fixtures); a GenRef-format tar of
      GENREF_SAMPLES samples (the 1024^2 fixtures good, the 1024x768 one bad,
      sample TIFF_SAMPLE's bad member a PackBits TIFF of its decoded pixels,
      subsets general / length / rule / editing, every other sample's
@@ -464,7 +467,8 @@ QWEN_CLIP_FRAMES, QWEN_CLIP_PX = 8, 448  # phase 10's synthetic video clips
 # phase 5e's 1024x768 decode timings of the image kinds beside the baseline JPEG (BMP: written here)
 KIND_FIXTURES = ("webp_lossy_1024x768_q75.webp", "webp_lossless_1024x768_m4.webp", "arith_prog_420_1024x768.jpg",
                  "lossless_p7_rst32_1024x768.jpg", "progressive_cut5_1024x768.jpg", "gif_pil_1024x768.gif",
-                 "tiff_lzw_pred2_1024x768.tif", "tiff_jpeg_ycbcr_420_1024x768.tif")
+                 "tiff_lzw_pred2_1024x768.tif", "tiff_jpeg_ycbcr_420_1024x768.tif", "tiff_zstd_1024x768.tif",
+                 "tiff_ojpeg_420_1024x768.tif")
 NVILA_INT8_TOL = 0.12  # phase 11: |W8A8 - bf16| of the yes and no logits (|logit| 0.03-0.70; read 0.060, 0.074)
 NVILA_TIMED_B = 2  # phase 11: the NVILA score pass timed at this batch
 NVILA_TIMED_REPS = 9  # phase 11: its repetitions, int8 and bf16 in turns; the median is kept
@@ -5404,8 +5408,8 @@ def main() -> int:
         kernel_build.build_all()
         host_build_s = host.result()
     log(f"build {', '.join(kernel_build.SOURCES)} (in parallel): {time.perf_counter() - t0:.2f} s; "
-        f"host libraries image_io.cpp, bmp.cpp, webp.cpp, gif.cpp and genref_loader.cpp (g++, beside them): "
-        f"{host_build_s:.2f} s")
+        f"host libraries {', '.join(os.path.basename(str(p)) for p in [*image_io.SOURCES, native.SOURCE])} "
+        f"(g++, beside them): {host_build_s:.2f} s")
     ptxas = {src: kernel_build.ptxas_report(src) for src in kernel_build.SOURCES}
     log(json.dumps({"ptxas": ptxas}))
     hopper_sass = hopper_check(kernel_build, ptxas)

@@ -8,9 +8,10 @@
 //     frames (SOF3: predictors 1-7, point transform, restarts; jdlossls.c);
 //     1 (grey), 3 (YCbCr, or RGB per the Adobe marker / component ids) or 4
 //     (CMYK, YCCK) components, any integral sampling, restart intervals,
-//     several scans. The DCT path is the accurate integer IDCT (jidctint.c,
-//     CONST_BITS 13, PASS1_BITS 2, the masked range limit around
-//     CENTERJSAMPLE), libjpeg-turbo's block smoothing of progressive files
+//     several scans. The DCT path is the accurate integer IDCT in the 16-bit
+//     arithmetic of libjpeg-turbo's x86-64 SIMD routines (jidctint-sse2.asm;
+//     the AVX2 one computes the same), which PIL runs, so that coefficients
+//     past the 16-bit range decode as there; libjpeg-turbo's block smoothing of progressive files
 //     whose scans leave AC coefficients 1-9 unrefined (jdcoefct.c
 //     decompress_smooth_data), fancy upsampling (jdsample.c h2v1 / h2v2 /
 //     h1v2 triangle filters over edge-replicated planes, box replication
@@ -24,6 +25,9 @@
 //     libtiff's tif_jpeg.c has libjpeg decode it (JPEGTables then the
 //     abbreviated strip, libtiff's colour space and checks, libjpeg's reading
 //     of damaged data; `Decoder::lenient`), for `tiff.cpp`.
+//   * rf_jpeg_ojpeg_decode: the stream tif_ojpeg.c rebuilds for an old-style
+//     JPEG TIFF, decoded to raw components as libjpeg gives them there, for
+//     `tiff.cpp`.
 //   * rf_resize_bicubic: Pillow's 8-bit ImagingResample with the bicubic
 //     filter (a = -0.5, support 2 * max(scale, 1), coefficients normalized in
 //     double and rounded to 22 fractional bits, width pass then height pass,
@@ -31,6 +35,7 @@
 //   * rf_png_unfilter: undoes PNG scanline filters (None, Sub, Up, Average,
 //     Paeth).
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -152,6 +157,7 @@ class BitReader {
   void set_pos(size_t p) { pos_ = p; buf_ = 0; cnt_ = 0; fake_ = 0; marker_ = false; eod_ = false; }
   // True once bits past the data (or past a marker) were consumed.
   bool overran() const { return cnt_ < fake_; }
+  bool at_end() const { return eod_; }  // the bits faked are past the data's end, not a marker
 
   inline void fill() {
     while (cnt_ <= 56) {
@@ -344,95 +350,85 @@ class ArithDecoder {
   }
 };
 
-// jidctint.c jpeg_idct_islow with the masked post-IDCT range limit.
-inline uint8_t range_limit(int64_t x) {
-  int idx = static_cast<int>(x & 1023);
-  if (idx < 128) return static_cast<uint8_t>(idx + 128);
-  if (idx < 512) return 255;
-  if (idx < 896) return 0;
-  return static_cast<uint8_t>(idx - 896);
+// libjpeg-turbo 3.1's SIMD accurate integer IDCT (jidctint-sse2.asm; the AVX2
+// routine computes the same), which PIL runs on every x86-64 machine: the
+// arithmetic of jidctint.c (CONST_BITS 13, PASS1_BITS 2) in 16-bit lanes.
+// Dequantization is pmullw (the product's low 16 bits), the even and odd
+// sums in0 +/- in4, in3 + in7 and in1 + in5 are paddw / psubw (16-bit, they
+// wrap), the products pmaddwd pairs (exact in 32 bits), the other sums paddd
+// (32-bit, they wrap); each pass descales and saturates to 16 bits
+// (packssdw), and pass 2 saturates to 8 bits (packsswb) before adding 128.
+// A block whose rows 1-7 are all zero takes pass 1's shortcut: DC << 2 in 16
+// bits (psllw). Pass 2 has no shortcut. For coefficients whose IDCT stays in
+// range this equals jidctint.c.
+inline int16_t wrap16(int32_t x) { return static_cast<int16_t>(static_cast<uint16_t>(static_cast<uint32_t>(x))); }
+inline int32_t add32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
+}
+inline int32_t sub32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
+}
+inline int16_t sat16(int32_t x) { return static_cast<int16_t>(x < -32768 ? -32768 : (x > 32767 ? 32767 : x)); }
+
+// One 8-point pass over 8 lanes: x[k * 8 + l] is input k of lane l, o[k * 8
+// + l] its output k, descaled by `shift` and saturated to 16 bits.
+inline void idct_lanes(const int16_t* x, int shift, int16_t* o) {
+  constexpr int32_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373, F1175 = 9633,
+                    F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819, F2562 = 20995, F3072 = 25172;
+  const int32_t r = 1 << (shift - 1);
+  for (int l = 0; l < 8; ++l) {
+    const int32_t in0 = x[l], in1 = x[8 + l], in2 = x[16 + l], in3 = x[24 + l], in4 = x[32 + l], in5 = x[40 + l],
+                  in6 = x[48 + l], in7 = x[56 + l];
+    // even part
+    const int32_t tmp3 = add32(in2 * (F0541 + F0765), in6 * F0541);
+    const int32_t tmp2 = add32(in2 * F0541, in6 * (F0541 - F1847));
+    const int32_t tmp0 = static_cast<int32_t>(static_cast<uint32_t>(wrap16(in0 + in4)) << 13);
+    const int32_t tmp1 = static_cast<int32_t>(static_cast<uint32_t>(wrap16(in0 - in4)) << 13);
+    const int32_t tmp10 = add32(tmp0, tmp3), tmp13 = sub32(tmp0, tmp3), tmp11 = add32(tmp1, tmp2),
+                  tmp12 = sub32(tmp1, tmp2);
+    // odd part
+    const int32_t z3 = wrap16(in3 + in7), z4 = wrap16(in1 + in5);
+    const int32_t z3m = add32(z3 * (F1175 - F1961), z4 * F1175);
+    const int32_t z4m = add32(z3 * F1175, z4 * (F1175 - F0390));
+    const int32_t o0 = add32(add32(in7 * (F0298 - F0899), in1 * -F0899), z3m);
+    const int32_t o3 = add32(add32(in7 * -F0899, in1 * (F1501 - F0899)), z4m);
+    const int32_t o1 = add32(add32(in5 * (F2053 - F2562), in3 * -F2562), z4m);
+    const int32_t o2 = add32(add32(in5 * -F2562, in3 * (F3072 - F2562)), z3m);
+    o[l] = sat16(add32(add32(tmp10, o3), r) >> shift);
+    o[56 + l] = sat16(add32(sub32(tmp10, o3), r) >> shift);
+    o[8 + l] = sat16(add32(add32(tmp11, o2), r) >> shift);
+    o[48 + l] = sat16(add32(sub32(tmp11, o2), r) >> shift);
+    o[16 + l] = sat16(add32(add32(tmp12, o1), r) >> shift);
+    o[40 + l] = sat16(add32(sub32(tmp12, o1), r) >> shift);
+    o[24 + l] = sat16(add32(add32(tmp13, o0), r) >> shift);
+    o[32 + l] = sat16(add32(sub32(tmp13, o0), r) >> shift);
+  }
 }
 
 void idct_islow(const int16_t* in, const int32_t* q, uint8_t* out, int stride) {
   constexpr int CB = 13, P1 = 2;
-  constexpr int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373,
-                    F1175 = 9633, F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819,
-                    F2562 = 20995, F3072 = 25172;
-  int ws[64];
-  for (int c = 0; c < 8; ++c) {
-    const int16_t* ip = in + c;
-    const int32_t* qp = q + c;
-    int* wp = ws + c;
-    if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 && ip[40] == 0 && ip[48] == 0 &&
-        ip[56] == 0) {
-      int dc = static_cast<int>(static_cast<int64_t>(ip[0]) * qp[0] * (1 << P1));
-      for (int r = 0; r < 8; ++r) wp[r * 8] = dc;
-      continue;
+  int16_t dq[64], ws[64], wt[64], res[64];
+  for (int i = 0; i < 64; ++i)
+    dq[i] = wrap16(static_cast<int32_t>(static_cast<uint32_t>(in[i]) * static_cast<uint32_t>(q[i])));
+  int16_t ac = 0;
+  for (int i = 8; i < 64; ++i) ac |= in[i];
+  if (!ac) {
+    for (int c = 0; c < 8; ++c) {
+      const int16_t dc = wrap16(static_cast<int32_t>(static_cast<uint32_t>(dq[c]) << P1));
+      for (int r = 0; r < 8; ++r) wt[c * 8 + r] = dc;
     }
-    int64_t z2 = static_cast<int64_t>(ip[16]) * qp[16], z3 = static_cast<int64_t>(ip[48]) * qp[48];
-    int64_t z1 = (z2 + z3) * F0541;
-    int64_t tmp2 = z1 + z3 * -F1847, tmp3 = z1 + z2 * F0765;
-    z2 = static_cast<int64_t>(ip[0]) * qp[0];
-    z3 = static_cast<int64_t>(ip[32]) * qp[32];
-    int64_t tmp0 = (z2 + z3) * (1 << CB), tmp1 = (z2 - z3) * (1 << CB);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = static_cast<int64_t>(ip[56]) * qp[56];
-    tmp1 = static_cast<int64_t>(ip[40]) * qp[40];
-    tmp2 = static_cast<int64_t>(ip[24]) * qp[24];
-    tmp3 = static_cast<int64_t>(ip[8]) * qp[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F1175;
-    tmp0 *= F0298; tmp1 *= F2053; tmp2 *= F3072; tmp3 *= F1501;
-    z1 *= -F0899; z2 *= -F2562; z3 *= -F1961; z4 *= -F0390;
-    z3 += z5; z4 += z5;
-    tmp0 += z1 + z3; tmp1 += z2 + z4; tmp2 += z2 + z3; tmp3 += z1 + z4;
-    constexpr int S = CB - P1;
-    constexpr int64_t R = int64_t(1) << (S - 1);
-    wp[0] = static_cast<int>((tmp10 + tmp3 + R) >> S);
-    wp[56] = static_cast<int>((tmp10 - tmp3 + R) >> S);
-    wp[8] = static_cast<int>((tmp11 + tmp2 + R) >> S);
-    wp[48] = static_cast<int>((tmp11 - tmp2 + R) >> S);
-    wp[16] = static_cast<int>((tmp12 + tmp1 + R) >> S);
-    wp[40] = static_cast<int>((tmp12 - tmp1 + R) >> S);
-    wp[24] = static_cast<int>((tmp13 + tmp0 + R) >> S);
-    wp[32] = static_cast<int>((tmp13 - tmp0 + R) >> S);
+  } else {
+    idct_lanes(dq, CB - P1, ws);
+    for (int r = 0; r < 8; ++r)
+      for (int c = 0; c < 8; ++c) wt[c * 8 + r] = ws[r * 8 + c];
   }
+  idct_lanes(wt, CB + P1 + 3, res);  // lanes are the rows: res[c * 8 + r]
   for (int r = 0; r < 8; ++r) {
-    const int* wp = ws + r * 8;
     uint8_t* op = out + r * stride;
-    if (wp[1] == 0 && wp[2] == 0 && wp[3] == 0 && wp[4] == 0 && wp[5] == 0 && wp[6] == 0 &&
-        wp[7] == 0) {
-      uint8_t dc = range_limit((static_cast<int64_t>(wp[0]) + (1 << (P1 + 2))) >> (P1 + 3));
-      for (int c = 0; c < 8; ++c) op[c] = dc;
-      continue;
+    for (int c = 0; c < 8; ++c) {
+      const int v = res[c * 8 + r];
+      op[c] = static_cast<uint8_t>((v < -128 ? -128 : (v > 127 ? 127 : v)) + 128);
     }
-    int64_t z2 = wp[2], z3 = wp[6];
-    int64_t z1 = (z2 + z3) * F0541;
-    int64_t tmp2 = z1 + z3 * -F1847, tmp3 = z1 + z2 * F0765;
-    int64_t tmp0 = (static_cast<int64_t>(wp[0]) + wp[4]) * (1 << CB);
-    int64_t tmp1 = (static_cast<int64_t>(wp[0]) - wp[4]) * (1 << CB);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = wp[7]; tmp1 = wp[5]; tmp2 = wp[3]; tmp3 = wp[1];
-    z1 = tmp0 + tmp3; z2 = tmp1 + tmp2; z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F1175;
-    tmp0 *= F0298; tmp1 *= F2053; tmp2 *= F3072; tmp3 *= F1501;
-    z1 *= -F0899; z2 *= -F2562; z3 *= -F1961; z4 *= -F0390;
-    z3 += z5; z4 += z5;
-    tmp0 += z1 + z3; tmp1 += z2 + z4; tmp2 += z2 + z3; tmp3 += z1 + z4;
-    constexpr int S = CB + P1 + 3;
-    constexpr int64_t R = int64_t(1) << (S - 1);
-    op[0] = range_limit((tmp10 + tmp3 + R) >> S);
-    op[7] = range_limit((tmp10 - tmp3 + R) >> S);
-    op[1] = range_limit((tmp11 + tmp2 + R) >> S);
-    op[6] = range_limit((tmp11 - tmp2 + R) >> S);
-    op[2] = range_limit((tmp12 + tmp1 + R) >> S);
-    op[5] = range_limit((tmp12 - tmp1 + R) >> S);
-    op[3] = range_limit((tmp13 + tmp0 + R) >> S);
-    op[4] = range_limit((tmp13 - tmp0 + R) >> S);
   }
 }
 
@@ -546,6 +542,42 @@ class Decoder {
   // libjpeg's guess: 1 converts YCbCr to RGB whatever the markers say, 0
   // returns the components as they are (one byte each, interleaved).
   void force_colour(int f) { force_ = f; }
+  // tif_ojpeg.c's session: restart intervals read as libjpeg reads them in
+  // damaged data (the bits left in the interval discarded, the bytes before
+  // the next marker skipped), and a marker there other than the expected
+  // restart marker fatal (OJPEGLibjpegJpegSourceMgrResyncToRestart): the
+  // decoding stops before the MCU row it falls in (`fatal_row`).
+  // `premature`: the stream stops without EOI (tif_ojpeg.c's source ran
+  // out), and reading past it is fatal too.
+  void ojpeg(bool on, bool premature = false) {
+    ojpeg_ = on;
+    premature_ = premature;
+  }
+  int fatal_row() const { return fatal_row_; }
+  // The scans up to EOI, then each component's IDCT output (`plane`,
+  // wblocks * 8 x hblocks * 8 samples) with no upsampling or colour
+  // conversion: libjpeg's raw_data_out.
+  void decode_raw() {
+    for (;;) {
+      int m = next_marker();
+      if (m == 0xD9) break;
+      if (m == 0xDA) {
+        scan();
+        if (all_scanned()) break;
+        continue;
+      }
+      segment(m);
+    }
+    for (auto& c : comps_) {
+      if (!c.scanned) corrupt("a component has no scan");
+      const int ps = c.wblocks * 8;
+      c.plane.assign(static_cast<size_t>(ps) * c.hblocks * 8, 0);
+      for (int by = 0; by < c.hblocks; ++by)
+        for (int bx = 0; bx < c.wblocks; ++bx)
+          idct_islow(c.coef.data() + (static_cast<size_t>(by) * c.bw + bx) * 64, c.quant,
+                     c.plane.data() + static_cast<size_t>(by) * 8 * ps + bx * 8, ps);
+    }
+  }
   // libjpeg's reading of damaged sequential Huffman data as tif_jpeg.c runs
   // it (the whole strip, a fake EOI past it, errors after the last row
   // ignored): entropy data that runs out or meets a marker ends the scan's
@@ -559,31 +591,69 @@ class Decoder {
   void lenient(bool on) { lenient_ = on; }
   // tif_jpeg.c JPEGSetupDecode: the JPEGTables stream read on its own
   // (jpeg_read_header(FALSE)) before the strip's: SOI, then segments up to
-  // EOI or the end of the data, whose tables stay; a scan there makes the
-  // stream bogus, a frame is forgotten with it (jpeg_abort).
+  // EOI, whose tables stay; a scan there makes the stream bogus, a frame is
+  // read (get_sof's checks) and forgotten with it (jpeg_abort). Tables that
+  // end early go on as tif_jpeg.c's source manager has libjpeg read them:
+  // std_fill_input_buffer supplies a fake EOI (FF D9) each time the data runs
+  // out, and std_skip_input_data, asked to skip past the data, lands on a
+  // fresh one (`skip_to`).
   void load_tables(const uint8_t* t, size_t n) {
     const uint8_t* d = d_;
     const size_t nn = n_;
-    d_ = t;
-    n_ = n;
-    if (n < 2 || t[0] != 0xFF || t[1] != 0xD8) corrupt("bogus JPEGTables");
-    pos_ = 2;
-    for (;;) {
-      const int m = next_marker();
-      if (m == 0xD9) break;
-      if (m == 0xDA) corrupt("bogus JPEGTables");
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 || m == 0xCA) {
-        pos_ = segment_end();
-        continue;
+    try {
+      parse_tables(t, n, nullptr);  // tables that end with their EOI need no fake ones
+    } catch (const Fail&) {
+      std::vector<uint8_t> padded(t, t + n);
+      padded.reserve(n + 2 * 32770);
+      for (int i = 0; i < 32770; ++i) {  // past any segment length
+        padded.push_back(0xFF);
+        padded.push_back(0xD9);
       }
-      segment(m);
+      try {
+        parse_tables(padded.data(), padded.size(), &n);
+      } catch (const Fail&) {
+        d_ = d;
+        n_ = nn;
+        tables_end_ = 0;
+        throw;
+      }
     }
     d_ = d;
     n_ = nn;
     pos_ = 0;
+    tables_end_ = 0;
   }
 
  private:
+  // One pass of load_tables over t[0..n) (with `real`, the JPEGTables' own
+  // length, the rest being fake EOIs).
+  void parse_tables(const uint8_t* t, size_t n, const size_t* real) {
+    d_ = t;
+    n_ = n;
+    tables_end_ = real ? *real : 0;
+    pos_ = 0;
+    if (byte() != 0xFF || byte() != 0xD8) corrupt("bogus JPEGTables");
+    bool saw_sof = false;
+    for (;;) {
+      const int m = next_marker();
+      if (m == 0xD9) break;
+      if (m == 0xDA) corrupt("bogus JPEGTables");
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 || m == 0xCA) {  // get_sof
+        if (saw_sof) corrupt("two frames in the JPEGTables");
+        saw_sof = true;
+        const int len = word();
+        byte();
+        const int h = word(), w = word(), nc = byte();
+        if (h <= 0 || w <= 0 || nc <= 0) corrupt("empty JPEG image in the JPEGTables");
+        if (len - 8 != nc * 3) corrupt("bad SOF length in the JPEGTables");
+        if (n_ - pos_ < static_cast<size_t>(3 * nc)) corrupt("JPEGTables cut short");
+        pos_ += static_cast<size_t>(3 * nc);
+        continue;
+      }
+      segment(m);
+    }
+  }
+
   const uint8_t* d_;
   size_t n_, pos_ = 0;
   int W_ = 0, H_ = 0, max_h_ = 1, max_v_ = 1, mcux_ = 0, mcuy_ = 0;
@@ -595,7 +665,9 @@ class Decoder {
   int coef_bits_[4][64];  // jdphuff.c: the Al of each coefficient's last scan, -1 before any
   int adobe_transform_ = -1;
   int force_ = -1;
-  bool lenient_ = false;
+  bool lenient_ = false, ojpeg_ = false, premature_ = false;
+  int fatal_row_ = -1;
+  size_t tables_end_ = 0;  // load_tables: where the JPEGTables' own bytes end and the fake EOIs begin
   bool qt_present_[4] = {false, false, false, false};
   int32_t qt_[4][64];
   Huffman dc_[4], ac_[4];
@@ -687,7 +759,7 @@ class Decoder {
         dqt(end);
         break;
       case 0xDD:
-        if (end - pos_ < 2) corrupt("bad DRI segment");
+        if (end - pos_ != 2) corrupt("bad DRI segment");
         restart_ = word();
         break;
       case 0xE0:
@@ -703,7 +775,20 @@ class Decoder {
         break;  // DNL (as libjpeg skips it), other APPn, COM, JPGn: skipped
     }
     if (pos_ > end) corrupt("JPEG segment overrun");
-    pos_ = end;
+    if (m == 0xE0 || m == 0xEE) pos_ += std::min<size_t>(end - pos_, 14);  // get_interesting_appn reads these
+    skip_to(end);
+  }
+
+  // The rest of a segment skipped. Past the JPEGTables' end,
+  // std_skip_input_data fills the buffer with one fake EOI instead.
+  void skip_to(size_t end) {
+    if (!tables_end_ || end <= tables_end_ || pos_ == end) {
+      pos_ = end;
+    } else if (pos_ < tables_end_) {
+      pos_ = tables_end_;
+    } else {
+      pos_ += (pos_ - tables_end_) & 1;
+    }
   }
 
   void frame(size_t end, bool progressive, bool arith, bool lossless) {
@@ -771,8 +856,8 @@ class Decoder {
   void dqt(size_t end) {
     while (pos_ < end) {
       int pq_tq = byte();
-      int pq = pq_tq >> 4, tq = pq_tq & 15;
-      if (pq > 1 || tq > 3) corrupt("bad DQT table id");
+      int pq = pq_tq >> 4, tq = pq_tq & 15;  // get_dqt: any nonzero precision is 16-bit
+      if (tq > 3) corrupt("bad DQT table id");
       if (end - pos_ < static_cast<size_t>(pq ? 128 : 64)) corrupt("bad DQT segment");
       for (int i = 0; i < 64; ++i) qt_[tq][kZigzag[i]] = pq ? word() : byte();
       qt_present_[tq] = true;
@@ -896,7 +981,7 @@ class Decoder {
 
   void huffman_scan(const std::vector<Component*>& sc, int ss, int se, int ah, int al) {
     const int ns = static_cast<int>(sc.size());
-    const bool lenient = lenient_ && !progressive_ && !restart_;
+    const bool lenient = lenient_ && !progressive_ && (!restart_ || ojpeg_);
     bool insufficient = false;
     BitReader br(d_, n_, pos_, lenient);
     int pred[4] = {0, 0, 0, 0};
@@ -906,7 +991,24 @@ class Decoder {
     int next_rst = 0;
     for (int64_t m = 0; m < total; ++m) {
       if (restart_ && m > 0 && m % restart_ == 0) {
-        br.set_pos(huffman_restart(d_, n_, br.pos(), next_rst));
+        if (ojpeg_) {  // jdhuff.c process_restart, jdmarker.c read_restart_marker / next_marker
+          size_t p = br.pos();
+          for (;;) {
+            while (p < n_ && d_[p] != 0xFF) ++p;
+            while (p < n_ && d_[p] == 0xFF) ++p;
+            if (p >= n_ || d_[p] != 0) break;
+            ++p;
+          }
+          if (p >= n_ || d_[p] != 0xD0 + next_rst) {
+            fatal_row_ = static_cast<int>(m / mx);
+            break;
+          }
+          next_rst = (next_rst + 1) & 7;
+          br.set_pos(p + 1);
+          insufficient = false;
+        } else {
+          br.set_pos(huffman_restart(d_, n_, br.pos(), next_rst));
+        }
         pred[0] = pred[1] = pred[2] = pred[3] = 0;
         eobrun_ = 0;
       }
@@ -929,6 +1031,10 @@ class Decoder {
       }
       if (br.overran()) {
         if (!lenient) corrupt("truncated JPEG data");
+        if (ojpeg_ && premature_ && br.at_end()) {  // OJPEGLibjpegJpegSourceMgrFillInputBuffer fails
+          fatal_row_ = myi;
+          break;
+        }
         insufficient = true;
       }
     }
@@ -1971,6 +2077,57 @@ int rf_jpeg_tiff_decode(const uint8_t* tables, int64_t tn, const uint8_t* data, 
     dec.decode(img.data());
     for (int y = 0; y < seg_h; ++y)
       memcpy(out + y * out_stride, img.data() + static_cast<size_t>(y) * W * ch, static_cast<size_t>(seg_w) * ch);
+    return RF_OK;
+  } catch (const Fail& f) {
+    write_err(f.msg, err, err_cap);
+    return f.code;
+  } catch (const std::exception& e) {
+    write_err(std::string("JPEG decode failed: ") + e.what(), err, err_cap);
+    return RF_CORRUPT;
+  }
+}
+
+// The JPEG stream tif_ojpeg.c builds for an old-style JPEG TIFF (`tiff.cpp`),
+// decoded as libjpeg decodes it there: the frame and tables checked as
+// jpeg_read_header and jpeg_start_decompress check them, then the
+// components' IDCT output as jpeg_read_raw_data gives it (no upsampling or
+// colour conversion), damaged data read as `Decoder::ojpeg` reads it (with
+// `premature`, the stream stops where libtiff's source failed). dims
+// gets (W, H, components, then h, v, plane width and height of each, then
+// the MCU row of a fatal restart marker or -1); `out` the planes one after
+// the other. With `out` null or too small it stops after the frame and
+// returns RF_NEED_BUFFER. Returns RF_OK, or RF_CORRUPT / RF_REFUSED with a
+// message in `err`.
+int rf_jpeg_ojpeg_decode(const uint8_t* data, int64_t n, int32_t premature, uint8_t* out, int64_t cap, int32_t* dims,
+                         char* err, int64_t err_cap) {
+  try {
+    Decoder dec(data, static_cast<size_t>(n));
+    dec.lenient(true);
+    dec.ojpeg(true, premature != 0);
+    dec.header();
+    const int nc = dec.components();
+    dims[0] = dec.width();
+    dims[1] = dec.height();
+    dims[2] = nc;
+    int64_t need = 0;
+    for (int i = 0; i < nc; ++i) {
+      const Component& c = dec.component(i);
+      dims[3 + 4 * i] = c.h;
+      dims[4 + 4 * i] = c.v;
+      dims[5 + 4 * i] = c.wblocks * 8;
+      dims[6 + 4 * i] = c.hblocks * 8;
+      need += static_cast<int64_t>(c.wblocks) * 8 * c.hblocks * 8;
+    }
+    dims[3 + 4 * nc] = -1;
+    if (!out || cap < need) return RF_NEED_BUFFER;
+    dec.decode_raw();
+    uint8_t* o = out;
+    for (int i = 0; i < nc; ++i) {
+      const Component& c = dec.component(i);
+      memcpy(o, c.plane.data(), c.plane.size());
+      o += c.plane.size();
+    }
+    dims[3 + 4 * nc] = dec.fatal_row();
     return RF_OK;
   } catch (const Fail& f) {
     write_err(f.msg, err, err_cap);

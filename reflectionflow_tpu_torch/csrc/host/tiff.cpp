@@ -28,22 +28,25 @@
 //     caller's `inflate`, Python's zlib and lzma), JPEG (decoded through the
 //     caller's `jpeg`, image_io.cpp's decoder as libjpeg runs under
 //     tif_jpeg.c: JPEGTables, then each strip or tile on its own, YCbCr
-//     converted to RGB, every other photometric as raw components), CCITT
-//     RLE, Group 3 (1D and 2D) and Group 4 (tif_fax3.c's state machine),
-//     predictors 2 and 3, planes by TiffDecode.c's per-band unpackers, and
-//     YCbCr that is not JPEG in one plane through TIFFRGBAImage (strips,
-//     tiles and 1x1 planes; tif_getimage.c, tif_color.c), then Pillow's
-//     rawmode (native order);
+//     converted to RGB, every other photometric as raw components), ZSTD
+//     (the caller's `zstd`, zstd.cpp, as tif_zstd.c streams a strip), CCITT
+//     RLE, RLEW (rows word-aligned), Group 3 (1D and 2D) and Group 4
+//     (tif_fax3.c's state machine), ThunderScan (tif_thunder.c), old-style
+//     JPEG (tif_ojpeg.c's rebuilt stream, decoded to raw components by the
+//     caller's `ojpeg`, image_io.cpp), predictors 2 and 3, planes by
+//     TiffDecode.c's per-band unpackers, and YCbCr that is not JPEG in one
+//     plane through TIFFRGBAImage (strips, tiles and 1x1 planes;
+//     tif_getimage.c, tif_color.c), then Pillow's rawmode (native order);
 //   * `convert("RGB")` of each mode (Convert.c; LAB through a copy of
 //     ImageCms's littleCMS transform, LabToRgb below), then
 //     ImageOps.exif_transpose's Orientation (2-8; the XMP tiff:Orientation
 //     when the tag is absent), and Pillow's decompression-bomb limit on the
 //     stored size.
 //
-// ZSTD, old-style JPEG, ThunderScan and CCITT RLEW compressions return
-// RF_QUEUED (ROADMAP queue 1 entry 6b). What PIL refuses returns RF_REFUSED
-// ("... as PIL refuses it"); corrupt or truncated data returns RF_CORRUPT.
-// Every read is bounded by the buffer.
+// Old-style JPEG in tiles or planes, or in a sampling libjpeg upsamples
+// itself, returns RF_REFUSED ("... is not read by the port"). What PIL refuses
+// returns RF_REFUSED ("... as PIL refuses it"); corrupt or truncated data
+// returns RF_CORRUPT. Every read is bounded by the buffer.
 
 #include <algorithm>
 #include <cmath>
@@ -59,7 +62,6 @@ namespace {
 constexpr int RF_OK = 0;
 constexpr int RF_CORRUPT = -1;
 constexpr int RF_REFUSED = -3;
-constexpr int RF_QUEUED = -4;
 constexpr int RF_NEED_BUFFER = 1;
 constexpr uint64_t kMaxPixels = 2ull * (1024ull * 1024 * 1024 / 4 / 3);  // 2 x PIL's MAX_IMAGE_PIXELS
 
@@ -67,6 +69,11 @@ constexpr uint64_t kMaxPixels = 2ull * (1024ull * 1024 * 1024 / 4 / 3);  // 2 x 
 // bytes written (at most cap) or -1 on a decoding error; jpeg(...) -> 0 or an
 // error (image_io.cpp rf_jpeg_tiff_decode).
 typedef int64_t (*InflateFn)(int32_t kind, const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap);
+// ojpeg(stream, n, premature, out, cap, dims, err, err_cap): image_io.cpp rf_jpeg_ojpeg_decode.
+typedef int (*OjpegFn)(const uint8_t* data, int64_t n, int32_t premature, uint8_t* out, int64_t cap, int32_t* dims,
+                       char* err, int64_t err_cap);
+// zstd(src, n, dst, occ) -> 1 when the strip fills occ bytes (zstd.cpp rf_zstd_tiff_decode).
+typedef int (*ZstdFn)(const uint8_t* src, int64_t n, uint8_t* dst, int64_t occ);
 typedef int (*JpegFn)(const uint8_t* tables, int64_t tn, const uint8_t* data, int64_t n, int32_t ycc_to_rgb,
                       int32_t hs, int32_t vs, int32_t nc, int32_t seg_w, int32_t seg_h, int32_t allow_taller,
                       uint8_t* out, int64_t out_stride, char* err, int64_t err_cap);
@@ -781,9 +788,12 @@ struct FaxTables {
 
 class Fax {
  public:
-  // kind: 2 (RLE), 3 (Group 3, 2D rows when T4Options bit 0), 4 (Group 4).
-  Fax(int kind, uint32_t t4, uint32_t width, bool lsb_first)
-      : kind_(kind), twod_(kind == 4 || (kind == 3 && (t4 & 1))), lastx_(static_cast<int64_t>(width)) {
+  // kind: 2 (RLE), 32771 (RLE with rows word-aligned), 3 (Group 3, 2D rows
+  // when T4Options bit 0), 4 (Group 4). `odd`: the strip starts at an odd
+  // file offset (RLEW aligns its byte pointer in the file as libtiff maps it).
+  Fax(int kind, uint32_t t4, uint32_t width, bool lsb_first, bool odd = false)
+      : kind_(kind == 32771 ? 2 : kind), word_(kind == 32771), odd_(odd), twod_(kind == 4 || (kind == 3 && (t4 & 1))),
+        lastx_(static_cast<int64_t>(width)) {
     nruns_ = (static_cast<size_t>(width) + 1 + 31) / 32 * 32;
     if (twod_) nruns_ *= 2;
     runs_.assign(2 * nruns_ + 2, 0);
@@ -814,8 +824,12 @@ class Fax {
         if (r < 0) return -1;
         fill(buf);
         if (r == 1) return -1;
-        const int k = avail_ - (avail_ & ~7);  // FAXMODE_BYTEALIGN
-        clr(k);
+        if (!word_) {  // FAXMODE_BYTEALIGN
+          clr(avail_ - (avail_ & ~7));
+        } else {  // FAXMODE_WORDALIGN: the accumulator to 16 bits, then the pointer to a 2-byte boundary
+          clr(avail_ - (avail_ & ~15));
+          if (avail_ == 0 && ((cp_ - data) & 1) != (odd_ ? 1 : 0)) ++cp_;
+        }
       } else if (kind_ == 3) {
         r = sync_eol() ? 0 : 1;
         int is1d = 1;
@@ -865,6 +879,7 @@ class Fax {
 
  private:
   int kind_;
+  bool word_, odd_;
   bool twod_;
   int64_t lastx_;
   size_t nruns_;
@@ -1292,7 +1307,8 @@ struct Tag {
 
 class Tiff {
  public:
-  Tiff(const uint8_t* d, size_t n, InflateFn inflate, JpegFn jpeg) : d_(d), n_(n), inflate_(inflate), jpeg_(jpeg) {
+  Tiff(const uint8_t* d, size_t n, InflateFn inflate, JpegFn jpeg, ZstdFn zstd, OjpegFn ojpeg)
+      : d_(d), n_(n), inflate_(inflate), jpeg_(jpeg), zstd_(zstd), ojpeg_(ojpeg) {
     header();
     setup();
   }
@@ -1319,6 +1335,8 @@ class Tiff {
   size_t n_;
   InflateFn inflate_;
   JpegFn jpeg_;
+  ZstdFn zstd_;
+  OjpegFn ojpeg_;
   bool le_ = true, big_ = false;
   char prefix_ = 'I';
   uint64_t ifd_ = 0;
@@ -1539,12 +1557,6 @@ class Tiff {
     for (int o = 2; o <= 8; ++o)
       if (is(exif_orientation(), o)) orientation_ = o;
     swap_ = orientation_ >= 5;
-    if (compression_ == 6 || compression_ == 32809 || compression_ == 50000 || compression_ == 32771)
-      throw Fail{RF_QUEUED, std::string(compression_ == 6       ? "old-style JPEG"
-                                        : compression_ == 50000 ? "ZSTD"
-                                        : compression_ == 32771 ? "CCITT RLEW"
-                                                                : "ThunderScan") +
-                                "-compressed TIFF is not read by the port yet (ROADMAP queue 1 entry 6b)"};
     libtiff_ = compression_ != 1;
     if (libtiff_) {
       if (fillorder_ == 2) {  // libtiff undoes the fill order: the fillorder 1 key
@@ -1735,6 +1747,12 @@ class Tiff {
     std::vector<uint64_t> offs, counts, extra, sub;
     std::vector<double> luma, rbw;
     std::vector<uint8_t> tables;
+    // old-style JPEG (tif_ojpeg.c's fields): JPEGInterchangeFormat / Length,
+    // JPEGRestartInterval, JPEGQTables / DCTables / ACTables offsets (unset
+    // past 3 values), whether YCbCrSubsampling was read
+    uint64_t jif = 0, jif_len = 0, restart = 0;
+    bool has_restart = false, has_sub = false, has_counts = true;
+    std::vector<uint64_t> qt, dct, act;
   } lt_;
 
   void libtiff_dir() {
@@ -1839,13 +1857,36 @@ class Tiff {
     if (planar != 1 && planar != 2) corrupt("bad PlanarConfiguration value (libtiff)");
     if (rps == 0 || spp == 0) corrupt("bad RowsPerStrip or SamplesPerPixel value (libtiff)");
     // the fields read later (TIFFFetchNormalTag with recovery: one that libtiff cannot read keeps its default)
+    bool photo_set = false;
     for (auto [tag, v] : {std::pair<int, uint64_t*>{262, &L.photometric}, {266, &L.fillorder}, {317, &L.predictor},
-                          {292, &L.t4}})
-      scalar(tag, *v);
+                          {292, &L.t4}}) {
+      const bool ok = scalar(tag, *v);
+      if (tag == 262) photo_set = ok && es.count(262);
+    }
     if (!es.count(262)) L.photometric = spp >= 3 ? 2 : 1;  // "Photometric tag is missing": not YCbCr either way
+    if (L.comp == 6) {  // TIFFReadDirectory's old-style JPEG hacks
+      if (!photo_set || L.photometric == 2) L.photometric = 6;
+      if (!es.count(258)) L.bps = 8;
+      if (!es.count(277) && (L.photometric == 6 || L.photometric <= 1)) L.spp = L.photometric == 6 ? 3 : 1;
+      auto one = [&](int tag, uint64_t& v, uint64_t limit) {
+        auto it = es.find(tag);
+        std::vector<uint64_t> x;
+        if (it == es.end() || it->second.count != 1 || !values(it->second, x) || x[0] > limit) return false;
+        v = x[0];
+        return true;
+      };
+      one(513, L.jif, ~uint64_t(0));
+      one(514, L.jif_len, ~uint64_t(0));
+      L.has_restart = one(515, L.restart, 0xFFFF);
+      for (auto [tag, v] : {std::pair<int, std::vector<uint64_t>*>{519, &L.qt}, {520, &L.dct}, {521, &L.act}}) {
+        auto it = es.find(tag);
+        if (it == es.end() || it->second.count > 3 || !values(it->second, *v)) v->clear();
+      }
+    }
     {
       auto it = es.find(530);
       if (it != es.end() && !values(it->second, L.sub)) L.sub.clear();
+      L.has_sub = L.comp == 6 && it != es.end() && L.sub.size() >= 2;
     }
     {  // ExtraSamples (read first, fatally; setExtraSamples), then every non-colour channel one
       auto it = es.find(338);
@@ -1922,12 +1963,24 @@ class Tiff {
     if (planar == 2) nstrips *= spp;
     if (nstrips == 0) corrupt("cannot handle zero number of strips (libtiff)");
     const int off_tag = es.count(324) ? 324 : 273, cnt_tag = es.count(325) ? 325 : 279;
-    if (!es.count(273) && !es.count(324)) corrupt("TIFF directory missing StripOffsets (libtiff)");
+    const bool no_offsets = !es.count(273) && !es.count(324);
+    // the old-style JPEG hack: one strip needs no offsets (tif_ojpeg.c reads JPEGInterchangeFormat)
+    if (no_offsets && !(L.comp == 6 && !L.tiled && nstrips == 1))
+      corrupt("TIFF directory missing StripOffsets (libtiff)");
     auto strip_array = [&](int tag, std::vector<uint64_t>& out) {  // TIFFFetchStripThing: nstrips read, zeros past
       if (!values(es.at(tag), out, nstrips)) corrupt("TIFF strip array libtiff cannot read");
       out.resize(static_cast<size_t>(nstrips), 0);
     };
-    strip_array(off_tag, L.offs);
+    if (no_offsets)
+      L.offs.assign(1, 0);
+    else
+      strip_array(off_tag, L.offs);
+    if (L.comp == 6) {  // "no further messing with strip/tile offsets/bytecounts in OJPEG TIFFs"
+      L.has_counts = es.count(cnt_tag) != 0;
+      if (L.has_counts) strip_array(cnt_tag, L.counts);
+      L.counts.resize(static_cast<size_t>(nstrips), 0);
+      return;
+    }
     if (!es.count(cnt_tag) && ((planar == 1 && nstrips > 1) || (planar == 2 && nstrips != spp)))
       corrupt("TIFF directory missing StripByteCounts (libtiff)");
     if (es.count(cnt_tag)) strip_array(cnt_tag, L.counts);
@@ -1950,13 +2003,13 @@ class Tiff {
   }
 
   // Raw bytes of strip or tile `i`, bit-reversed under FillOrder 2 (not
-  // JPEG's; the fax decoders read the fill order themselves).
+  // JPEG's; the fax decoders, CCITT RLEW's too, read the fill order themselves).
   std::vector<uint8_t> chunk(size_t i) const {
     const uint64_t off = i < lt_.offs.size() ? lt_.offs[i] : 0, cnt = i < lt_.counts.size() ? lt_.counts[i] : 0;
     if (cnt == 0) corrupt("invalid TIFF strip byte count 0");
     if (off > n_ || cnt > n_ - off) corrupt("read error on a TIFF strip past the end of the file");
     std::vector<uint8_t> r(d_ + off, d_ + off + cnt);
-    if (lt_.fillorder == 2 && lt_.comp != 7 && (lt_.comp > 4 || lt_.comp == 1))
+    if (lt_.fillorder == 2 && lt_.comp != 7 && lt_.comp != 6 && lt_.comp != 32771 && (lt_.comp > 4 || lt_.comp == 1))
       for (auto& b : r) b = kBitRev[b];
     return r;
   }
@@ -1965,7 +2018,8 @@ class Tiff {
   // One strip or tile through its codec: true when all `occ` bytes were
   // decoded; on a data error what was decoded stays in op (libtiff's codecs
   // write as they go; PackBits zeroes the rest).
-  bool decode_codec(const std::vector<uint8_t>& raw, uint8_t* op, size_t occ, size_t rowsize, int width) {
+  bool decode_codec(const std::vector<uint8_t>& raw, uint8_t* op, size_t occ, size_t rowsize, int width,
+                    uint64_t offset) {
     bool ok = false;
     switch (lt_.comp) {
       case 1:  // tif_dumpmode.c DumpModeDecode
@@ -1989,23 +2043,97 @@ class Tiff {
         ok = got == static_cast<int64_t>(occ) || (lt_.comp == 34925 && got == -1 - static_cast<int64_t>(occ));
         break;
       }
-      case 2: case 3: case 4: {
+      case 2: case 3: case 4: case 32771: {
         if (lt_.bps != 1) break;  // Fax3SetupState: bits/sample must be 1
         Fax fax(static_cast<int>(lt_.comp), static_cast<uint32_t>(lt_.t4), static_cast<uint32_t>(width),
-                lt_.fillorder == 2);
+                lt_.fillorder == 2, offset & 1);
         ok = fax.decode(raw.data(), raw.size(), op, occ, rowsize) > 0;
         break;
       }
+      case 50000:
+        if (!zstd_) corrupt("no ZSTD decoder for ZSTD-compressed TIFF");
+        ok = zstd_(raw.data(), static_cast<int64_t>(raw.size()), op, static_cast<int64_t>(occ)) == 1;
+        break;
+      case 32809:
+        ok = thunder(raw.data(), raw.size(), op, occ);
+        break;
       default:
         refused("TIFF compression " + std::to_string(lt_.comp) + " that this libtiff cannot decode");
     }
     return ok;
   }
-  void decode_chunk(const std::vector<uint8_t>& raw, uint8_t* op, size_t occ, size_t rowsize, int width) {
-    if (!decode_codec(raw, op, occ, rowsize, width)) corrupt("TIFF strip or tile cut short or corrupt");
+  void decode_chunk(const std::vector<uint8_t>& raw, uint8_t* op, size_t occ, size_t rowsize, int width, size_t idx) {
+    if (!decode_codec(raw, op, occ, rowsize, width, lt_.offs[idx])) corrupt("TIFF strip or tile cut short or corrupt");
   }
+  // tif_thunder.c ThunderDecodeRow: rows of the image's scanline size, each
+  // of ImageWidth 4-bit pixels (runs, 2- and 3-bit deltas, raw values); a
+  // row that decodes to another count fails (the rest of it zeroed).
+  bool thunder(const uint8_t* bp, size_t cc, uint8_t* buf, size_t occ) const {
+    if (lt_.bps != 4) return false;  // ThunderSetupDecode
+    const size_t scanline = static_cast<size_t>((static_cast<uint64_t>(xsize_) * lt_.spp * 4 + 7) / 8);
+    if (scanline == 0 || occ % scanline) return false;
+    static const int kDelta2[4] = {0, 1, 0, -1}, kDelta3[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+    const int64_t maxpixels = xsize_;
+    for (uint8_t* row = buf; occ > 0; occ -= scanline, row += scanline) {
+      uint8_t* op = row;
+      unsigned lastpixel = 0;
+      int64_t npixels = 0;
+      auto setpixel = [&](unsigned v) {
+        lastpixel = v & 0xf;
+        if (npixels < maxpixels) {
+          if (npixels++ & 1)
+            *op++ |= static_cast<uint8_t>(lastpixel);
+          else
+            op[0] = static_cast<uint8_t>(lastpixel << 4);
+        }
+      };
+      auto step = [&](int d) { setpixel(static_cast<unsigned>(static_cast<int>(lastpixel) + d)); };
+      while (cc > 0 && npixels < maxpixels) {
+        int n = *bp++;
+        --cc;
+        int delta;
+        switch (n & 0xc0) {
+          case 0x00:  // a run of the last pixel
+            if (npixels & 1) {
+              op[0] |= static_cast<uint8_t>(lastpixel);
+              lastpixel = *op++;
+              ++npixels;
+              --n;
+            } else {
+              lastpixel |= lastpixel << 4;
+            }
+            npixels += n;
+            if (npixels <= maxpixels)
+              for (; n > 0; n -= 2) *op++ = static_cast<uint8_t>(lastpixel);
+            if (n == -1) *--op &= 0xf0;
+            lastpixel &= 0xf;
+            break;
+          case 0x40:  // three 2-bit deltas
+            if ((delta = (n >> 4) & 3) != 2) step(kDelta2[delta]);
+            if ((delta = (n >> 2) & 3) != 2) step(kDelta2[delta]);
+            if ((delta = n & 3) != 2) step(kDelta2[delta]);
+            break;
+          case 0x80:  // two 3-bit deltas
+            if ((delta = (n >> 3) & 7) != 4) step(kDelta3[delta]);
+            if ((delta = n & 7) != 4) step(kDelta3[delta]);
+            break;
+          default:  // a raw pixel
+            setpixel(static_cast<unsigned>(n));
+            break;
+        }
+      }
+      if (npixels != maxpixels) {
+        uint8_t* end = row + (maxpixels + 1) / 2;
+        if (op < end) memset(op, 0, static_cast<size_t>(end - op));
+        return false;
+      }
+    }
+    return true;
+  }
+
   bool predicts() const {
-    return lt_.predictor != 1 && (lt_.comp == 5 || lt_.comp == 8 || lt_.comp == 32946 || lt_.comp == 34925);
+    return lt_.predictor != 1 &&
+           (lt_.comp == 5 || lt_.comp == 8 || lt_.comp == 32946 || lt_.comp == 34925 || lt_.comp == 50000);
   }
   int lzw_compat_ = -1;
 
@@ -2158,7 +2286,7 @@ class Tiff {
       return;
     }
     const int stride = lt_.planar == 2 ? 1 : static_cast<int>(lt_.spp);
-    decode_chunk(raw, buf, occ, rowsize, width);
+    decode_chunk(raw, buf, occ, rowsize, width, idx);
     to_native(buf, occ);
     predictor(buf, occ, rowsize, stride);
   }
@@ -2186,6 +2314,10 @@ class Tiff {
   // its data is not in the file; a decoding fault keeps what was decoded up
   // to it (no predictor; a JPEG fault zeroes it).
   bool rgba_segment(size_t idx, uint8_t* op, size_t occ, size_t rowsize, int width, int rows, bool last) {
+    if (lt_.comp == 6) {  // TIFF_NOREADRAW: tif_ojpeg.c reads the file itself
+      oj_segment(idx, op, occ);
+      return true;
+    }
     std::vector<uint8_t> raw;
     try {
       raw = chunk(idx);
@@ -2199,10 +2331,443 @@ class Tiff {
       } catch (const Fail&) {
         memset(op, 0, occ);
       }
-    } else if (decode_codec(raw, op, occ, rowsize, width) && occ % rowsize == 0) {
+    } else if (decode_codec(raw, op, occ, rowsize, width, lt_.offs[idx]) && occ % rowsize == 0) {
       predictor(op, occ, rowsize, lt_.planar == 2 ? 1 : 3);
     }
     return true;
+  }
+
+  // ------------------------------------------------- old-style JPEG ----
+  //
+  // tif_ojpeg.c as libtiff 4.7 runs it under TIFFRGBAImage: the JPEG stream
+  // it rebuilds (SOI, the tables, DRI, SOF, SOS, then the scan's data with a
+  // restart marker between strips, EOI) from JPEGInterchangeFormat's
+  // segments, or from those that open the first strip, or from the
+  // JPEGQTables / DCTables / ACTables tags around the strips; the sampling
+  // read back from the JPEG's frame (OJPEGSubsamplingCorrect); each strip's
+  // data units written from libjpeg's raw component rows (OJPEGDecodeRaw).
+
+  // The bytes tif_ojpeg.c reads in turn (OJPEGReadBufferFill):
+  // JPEGInterchangeFormat's, then each strip's (a strip past the file
+  // skipped, a byte count of 0 read to the end of the file).
+  struct OjRegion {
+    uint64_t pos, len;
+    int64_t strip;  // -1: JPEGInterchangeFormat
+  };
+  struct OjCursor {
+    const std::vector<OjRegion>* r;
+    const uint8_t* d;
+    size_t i = 0;
+    uint64_t at = 0;
+    bool peek(uint8_t& v) {
+      while (i < r->size() && at >= (*r)[i].len) {
+        ++i;
+        at = 0;
+      }
+      if (i >= r->size()) return false;
+      v = d[(*r)[i].pos + at];
+      return true;
+    }
+    bool byte(uint8_t& v) {
+      if (!peek(v)) return false;
+      ++at;
+      return true;
+    }
+    bool word(uint16_t& v) {
+      uint8_t a, b;
+      if (!byte(a) || !byte(b)) return false;
+      v = static_cast<uint16_t>((a << 8) | b);
+      return true;
+    }
+    void skip(uint64_t k) {  // OJPEGReadSkip: as far as the data goes
+      uint8_t v;
+      for (; k > 0 && peek(v); --k) ++at;
+    }
+  };
+
+  std::vector<OjRegion> oj_regions() const {
+    std::vector<OjRegion> r;
+    const uint64_t size = n_;
+    uint64_t jif = lt_.jif, jlen = lt_.jif_len;
+    if (jif != 0) {
+      if (jif >= size) {
+        jif = 0;
+      } else if (jlen == 0 || jif > UINT64_MAX - jlen || jif + jlen > size) {
+        jlen = size - jif;
+      }
+    }
+    if (jif != 0) r.push_back({jif, jlen, -1});
+    if (!lt_.has_counts) return r;  // TIFFGetStrileByteCountWithErr fails: so does the first strip's read
+    for (size_t k = 0; k < lt_.offs.size(); ++k) {
+      uint64_t pos = lt_.offs[k], cnt = k < lt_.counts.size() ? lt_.counts[k] : 0;
+      if (pos == 0 || pos >= size) continue;
+      if (cnt == 0 || pos > UINT64_MAX - cnt || pos + cnt > size) cnt = size - pos;
+      r.push_back({pos, cnt, static_cast<int64_t>(k)});
+    }
+    return r;
+  }
+
+  struct Oj {
+    int hs = 2, vs = 2;  // the sampling TIFFRGBAImage reads by
+    int fatal_strip = -1;  // the strip whose raw read fails (left zero)
+    int64_t units_w = 0, unit_rows = 0;
+    std::vector<uint8_t> units;  // every unit row of the image
+  } oj_;
+
+  // OJPEGSubsamplingCorrect: the sampling of the JPEG's first frame
+  // component (silently kept as it was when the frame cannot be read), 1 x 1
+  // when it is not 1, 2 or 4 each way or another component is not 1 x 1.
+  bool oj_sampling(int& hs, int& vs) const {
+    hs = lt_.has_sub ? static_cast<int>(lt_.sub[0] & 0xFF) : 2;
+    vs = lt_.has_sub ? static_cast<int>(lt_.sub[1] & 0xFF) : 2;
+    if (lt_.spp != 3 || (lt_.photometric != 6 && lt_.photometric != 10)) {
+      hs = vs = 1;
+      return false;
+    }
+    const std::vector<OjRegion> regions = oj_regions();
+    OjCursor c{&regions, d_};
+    bool force = false;
+    for (;;) {
+      uint8_t m;
+      if (!c.peek(m) || m != 255) break;
+      c.byte(m);
+      do {
+        if (!c.byte(m)) goto done;
+      } while (m == 255);
+      if (m == 0xD8) continue;
+      if (m == 0xFE || (m >= 0xE0 && m <= 0xEF) || m == 0xDD || m == 0xDB || m == 0xC4) {
+        uint16_t n;
+        if (!c.word(n)) goto done;
+        if (m == 0xDD) {
+          if (n != 4) goto done;
+          c.skip(2);
+        } else {
+          if (n < 2 || (n == 2 && m != 0xFE && (m < 0xE0 || m > 0xEF))) goto done;
+          c.skip(n - 2u);
+        }
+        continue;
+      }
+      if (m == 0xC0 || m == 0xC1 || m == 0xC3) {  // OJPEGReadHeaderInfoSecStreamSof
+        uint16_t len;
+        uint8_t o;
+        if (!c.word(len) || len < 11 || (len - 8) % 3) goto done;
+        const int n = (len - 8) / 3;
+        if (!c.byte(o) || o != 8) goto done;
+        c.skip(4);
+        if (!c.byte(o) || o != n) goto done;
+        for (int q = 0; q < n; ++q) {
+          if (!c.byte(o) || !c.byte(o)) goto done;
+          if (q == 0) {
+            hs = o >> 4;
+            vs = o & 15;
+            if ((hs != 1 && hs != 2 && hs != 4) || (vs != 1 && vs != 2 && vs != 4)) force = true;
+          } else if (o != 17) {
+            force = true;
+          }
+          if (!c.byte(o)) goto done;
+        }
+      }
+      break;  // a frame, a scan or another marker ends the search
+    }
+  done:
+    if (force) hs = vs = 1;
+    return force;
+  }
+
+  // OJPEGReadHeaderInfo / OJPEGReadHeaderInfoSec / OJPEGWriteStream: the
+  // stream libjpeg reads.
+  std::vector<uint8_t> oj_stream(int hs, int vs, bool& premature) const {
+    const uint64_t W = lt_.width, H = lt_.length;
+    const uint64_t rps = lt_.rps == 0xFFFFFFFFu ? H : lt_.rps;
+    int restart = lt_.has_restart ? static_cast<int>(lt_.restart) : 0;
+    if (rps < H) {
+      if ((hs != 1 && hs != 2 && hs != 4) || (vs != 1 && vs != 2 && vs != 4))
+        corrupt("old-style JPEG: invalid subsampling values");
+      if (rps % static_cast<uint64_t>(vs * 8)) corrupt("old-style JPEG: strips not a multiple of the MCU height");
+      restart = static_cast<int>(static_cast<uint16_t>(((W + hs * 8 - 1) / (hs * 8)) * (rps / (vs * 8))));
+    }
+    const std::vector<OjRegion> regions = oj_regions();
+    OjCursor c{&regions, d_};
+    std::vector<std::vector<uint8_t>> qt(4), dct(4), act(4);
+    bool sof = false, sos = false;
+    int sof_marker = 0xC0;
+    uint16_t sof_x = 0, sof_y = 0;
+    uint8_t sof_c[3] = {0, 0, 0}, sof_hv[3] = {0, 0, 0}, sof_tq[3] = {0, 0, 0}, sos_cs[3] = {0, 0, 0},
+            sos_tda[3] = {0, 0, 0};
+    auto fail = [](const char* what) { corrupt(std::string("old-style JPEG: ") + what); };
+    auto need = [&](bool ok) {
+      if (!ok) fail("JPEG data cut short");
+    };
+    for (;;) {
+      uint8_t m;
+      need(c.peek(m));
+      if (m != 255) break;
+      c.byte(m);
+      do need(c.byte(m)); while (m == 255);
+      if (m == 0xD8) continue;
+      if (m == 0xFE || (m >= 0xE0 && m <= 0xEF)) {
+        uint16_t n;
+        need(c.word(n));
+        if (n < 2) fail("corrupt JPEG data");
+        if (n > 2) c.skip(n - 2u);
+      } else if (m == 0xDD) {
+        uint16_t n, v;
+        need(c.word(n));
+        if (n != 4) fail("corrupt DRI marker");
+        need(c.word(v));
+        restart = v;
+      } else if (m == 0xDB) {  // each table kept whole (8-bit, 65 bytes)
+        uint16_t n;
+        need(c.word(n));
+        if (n <= 2) fail("corrupt DQT marker");
+        n -= 2;
+        do {
+          if (n < 65) fail("corrupt DQT marker");
+          std::vector<uint8_t> t = {0xFF, 0xDB, 0, 67};
+          for (int i = 0; i < 65; ++i) {
+            uint8_t b;
+            need(c.byte(b));
+            t.push_back(b);
+          }
+          if ((t[4] & 15) > 3) fail("corrupt DQT marker");
+          qt[t[4] & 15] = t;
+          n -= 65;
+        } while (n > 0);
+      } else if (m == 0xC4) {  // the segment kept whole under its first table's class and id
+        uint16_t n;
+        need(c.word(n));
+        if (n <= 2) fail("corrupt DHT marker");
+        std::vector<uint8_t> t = {0xFF, 0xC4, static_cast<uint8_t>(n >> 8), static_cast<uint8_t>(n & 255)};
+        for (int i = 0; i < n - 2; ++i) {
+          uint8_t b;
+          need(c.byte(b));
+          t.push_back(b);
+        }
+        const uint8_t o = t[4];
+        if ((o & 240) == 0) {
+          if (o > 3) fail("corrupt DHT marker");
+          dct[o] = t;
+        } else {
+          if ((o & 240) != 16 || (o & 15) > 3) fail("corrupt DHT marker");
+          act[o & 15] = t;
+        }
+      } else if (m == 0xC0 || m == 0xC1 || m == 0xC3) {  // OJPEGReadHeaderInfoSecStreamSof
+        if (sof) fail("corrupt JPEG data");
+        sof_marker = m;
+        uint16_t len, p;
+        uint8_t o;
+        need(c.word(len));
+        if (len < 11 || (len - 8) % 3) fail("corrupt SOF marker");
+        const int n = (len - 8) / 3;
+        if (n != 3) fail("JPEG data of an unexpected number of samples");
+        need(c.byte(o));
+        if (o != 8) fail("JPEG data of an unexpected number of bits a sample");
+        need(c.word(p));
+        if (p < H && p < H) fail("JPEG data of an unexpected height");
+        sof_y = p;
+        need(c.word(p));
+        if (p < W) fail("JPEG data of an unexpected width");
+        if (p > W) fail("JPEG data wider than the image");
+        sof_x = p;
+        need(c.byte(o));
+        if (o != n) fail("corrupt SOF marker");
+        for (int q = 0; q < n; ++q) {
+          need(c.byte(sof_c[q]));
+          need(c.byte(sof_hv[q]));
+          if (sof_hv[q] != (q == 0 ? ((hs << 4) | vs) : 17)) fail("JPEG data of unexpected sampling");
+          need(c.byte(sof_tq[q]));
+        }
+        sof = true;
+      } else if (m == 0xDA) {  // OJPEGReadHeaderInfoSecStreamSos
+        if (!sof) fail("corrupt SOS marker");
+        uint16_t len;
+        uint8_t n;
+        need(c.word(len));
+        if (len != 12) fail("corrupt SOS marker");
+        need(c.byte(n));
+        if (n != 3) fail("corrupt SOS marker");
+        for (int o = 0; o < 3; ++o) {
+          need(c.byte(sos_cs[o]));
+          need(c.byte(sos_tda[o]));
+        }
+        c.skip(3);
+        sos = true;
+        break;
+      } else {
+        fail("unknown marker type in the JPEG data");
+      }
+    }
+    if (!sof) {  // the tables from the tags, the frame from the image
+      auto table_at = [](const std::vector<uint64_t>& offs, int k) {
+        return k < static_cast<int>(offs.size()) ? offs[static_cast<size_t>(k)] : 0;
+      };
+      auto read_at = [&](uint64_t off, size_t k, std::vector<uint8_t>& out) {
+        if (off > n_ || k > n_ - off) return false;
+        out.insert(out.end(), d_ + off, d_ + off + k);
+        return true;
+      };
+      const std::vector<uint64_t>* lists[3] = {&lt_.qt, &lt_.dct, &lt_.act};
+      for (int kind = 0; kind < 3; ++kind) {
+        if (table_at(*lists[kind], 0) == 0) fail("missing JPEG tables");
+        for (int m = 0; m < 3; ++m) {
+          const uint64_t off = table_at(*lists[kind], m);
+          if (off != 0 && (m == 0 || off != table_at(*lists[kind], m - 1))) {
+            for (int k = 0; k < m - 1; ++k)
+              if (off == table_at(*lists[kind], k)) fail("corrupt JPEG tables tag value");
+            if (kind == 0) {
+              std::vector<uint8_t> t = {0xFF, 0xDB, 0, 67, static_cast<uint8_t>(m)};
+              if (!read_at(off, 64, t)) fail("JPEG quantization table past the file");
+              qt[m] = t;
+              sof_tq[m] = static_cast<uint8_t>(m);
+            } else {
+              std::vector<uint8_t> counts;
+              if (!read_at(off, 16, counts)) fail("JPEG Huffman table past the file");
+              uint32_t q = 0;
+              for (uint8_t b : counts) q += b;
+              std::vector<uint8_t> t = {0xFF, 0xC4, static_cast<uint8_t>((19 + q) >> 8),
+                                        static_cast<uint8_t>((19 + q) & 255),
+                                        static_cast<uint8_t>(kind == 1 ? m : 16 | m)};
+              t.insert(t.end(), counts.begin(), counts.end());
+              if (!read_at(off + 16, q, t)) fail("JPEG Huffman table past the file");
+              (kind == 1 ? dct : act)[m] = t;
+              if (kind == 1)
+                sos_tda[m] = static_cast<uint8_t>(m << 4);
+              else
+                sos_tda[m] = static_cast<uint8_t>(sos_tda[m] | m);
+            }
+          } else if (m > 0) {
+            if (kind == 0) sof_tq[m] = sof_tq[m - 1];
+            else sos_tda[m] = sos_tda[m - 1];
+          }
+        }
+      }
+      sof_marker = 0xC0;
+      for (int o = 0; o < 3; ++o) sof_c[o] = static_cast<uint8_t>(o);
+      sof_hv[0] = static_cast<uint8_t>((hs << 4) | vs);
+      sof_hv[1] = sof_hv[2] = 17;
+      sof_x = static_cast<uint16_t>(W);
+      sof_y = static_cast<uint16_t>(H);
+      for (int o = 1; o < 3; ++o) sos_cs[o] = static_cast<uint8_t>(o);
+    }
+    std::vector<uint8_t> out = {0xFF, 0xD8};
+    for (const auto& t : qt) out.insert(out.end(), t.begin(), t.end());
+    for (const auto& t : dct) out.insert(out.end(), t.begin(), t.end());
+    for (const auto& t : act) out.insert(out.end(), t.begin(), t.end());
+    if (restart)
+      out.insert(out.end(),
+                 {0xFF, 0xDD, 0, 4, static_cast<uint8_t>(restart >> 8), static_cast<uint8_t>(restart & 255)});
+    out.insert(out.end(), {0xFF, static_cast<uint8_t>(sof_marker), 0, 17, 8, static_cast<uint8_t>(sof_y >> 8),
+                           static_cast<uint8_t>(sof_y & 255), static_cast<uint8_t>(sof_x >> 8),
+                           static_cast<uint8_t>(sof_x & 255), 3});
+    for (int o = 0; o < 3; ++o) out.insert(out.end(), {sof_c[o], sof_hv[o], sof_tq[o]});
+    out.insert(out.end(), {0xFF, 0xDA, 0, 12, 3});
+    for (int o = 0; o < 3; ++o) out.insert(out.end(), {sos_cs[o], sos_tda[o]});
+    out.insert(out.end(), {0, 63, 0});
+    // the scan's data: the rest of the region the header ended in, then the
+    // later ones, a restart marker after each strip but the last, then EOI
+    // (EOIs on) once the last strip was read; when that strip is not read
+    // (past the file, or its byte counts missing), libtiff's source fails there
+    int rst = 0;
+    const int64_t last = static_cast<int64_t>(lt_.offs.size()) - 1;
+    if (!sos) {
+      c.i = 0;
+      c.at = 0;
+    }
+    premature = true;  // EOI only after the last strip's data
+    for (size_t i = c.i; i < regions.size(); ++i) {
+      const OjRegion& r = regions[i];
+      const uint64_t from = i == c.i ? c.at : 0;
+      if (from < r.len) out.insert(out.end(), d_ + r.pos + from, d_ + r.pos + r.len);
+      if (r.strip >= 0 && r.strip < last) {
+        out.push_back(0xFF);
+        out.push_back(static_cast<uint8_t>(0xD0 + rst));
+        rst = (rst + 1) & 7;
+      }
+      premature = r.strip != last;
+    }
+    if (!premature)
+      for (int i = 0; i < 4; ++i) out.insert(out.end(), {0xFF, 0xD9});
+    return out;
+  }
+
+  // The image's data units (OJPEGDecodeRaw over every strip): libjpeg's
+  // raw rows of the rebuilt stream, checked as OJPEGWriteHeaderInfo checks
+  // them, hs x vs luma samples then Cb and Cr a unit.
+  void oj_prepare() {
+    if (!ojpeg_) corrupt("no JPEG decoder for old-style JPEG");
+    if (lt_.tiled || lt_.planar != 1)
+      throw Fail{RF_REFUSED, "old-style JPEG in tiles or planes is not read by the port"};
+    int hs, vs;
+    if (oj_sampling(hs, vs))
+      throw Fail{RF_REFUSED, "old-style JPEG in a sampling libjpeg upsamples itself is not read by the port"};
+    oj_.hs = hs;
+    oj_.vs = vs;
+    bool premature = false;
+    const std::vector<uint8_t> stream = oj_stream(hs, vs, premature);
+    int32_t dims[3 + 4 * 4 + 1];
+    char err[256] = {0};
+    int rc = ojpeg_(stream.data(), static_cast<int64_t>(stream.size()), premature, nullptr, 0, dims, err, sizeof(err));
+    if (rc != RF_NEED_BUFFER) corrupt(std::string("old-style JPEG: ") + err);
+    const int nc = dims[2];
+    if (nc != 3) corrupt("old-style JPEG of other than 3 components");
+    if (static_cast<uint64_t>(dims[0]) != lt_.width) corrupt("old-style JPEG: libjpeg's width is not the strip's");
+    int max_h = 1, max_v = 1;
+    size_t total = 0;
+    for (int i = 0; i < nc; ++i) {
+      max_h = std::max(max_h, dims[3 + 4 * i]);
+      max_v = std::max(max_v, dims[4 + 4 * i]);
+      total += static_cast<size_t>(dims[5 + 4 * i]) * static_cast<size_t>(dims[6 + 4 * i]);
+    }
+    if (max_h != hs || max_v != vs) corrupt("old-style JPEG: libjpeg's sampling is not the TIFF's");
+    std::vector<uint8_t> planes(total);
+    rc = ojpeg_(stream.data(), static_cast<int64_t>(stream.size()), premature, planes.data(),
+                static_cast<int64_t>(total), dims, err, sizeof(err));
+    if (rc != RF_OK) corrupt(std::string("old-style JPEG: ") + err);
+    const int fatal_mcu_row = dims[3 + 4 * nc];
+    const uint8_t* y = planes.data();
+    const size_t yw = static_cast<size_t>(dims[5]);
+    const uint8_t* cb = y + yw * static_cast<size_t>(dims[6]);
+    const size_t cw = static_cast<size_t>(dims[9]);
+    const uint8_t* cr = cb + cw * static_cast<size_t>(dims[10]);
+    const int64_t W = xsize_, H = ysize_;
+    oj_.units_w = (W + hs - 1) / hs;
+    oj_.unit_rows = (H + vs - 1) / vs;
+    const size_t unit = static_cast<size_t>(hs * vs + 2);
+    if (oj_.units_w * hs > dims[5] || oj_.unit_rows * vs > dims[6] || oj_.units_w > dims[9] || oj_.unit_rows > dims[10])
+      corrupt("old-style JPEG smaller than the image");
+    oj_.units.assign(static_cast<size_t>(oj_.units_w * oj_.unit_rows) * unit, 0);
+    // a fatal error leaves the whole strip whose raw read meets it zero (as
+    // PIL's decodes show), and the strips after it fail
+    int64_t rows_ok = oj_.unit_rows;
+    if (fatal_mcu_row >= 0) {
+      const uint64_t rps = lt_.rps == 0xFFFFFFFFu ? static_cast<uint64_t>(H) : lt_.rps;
+      const int64_t lines = static_cast<int64_t>((std::min<uint64_t>(rps, static_cast<uint64_t>(H)) + vs - 1) / vs);
+      oj_.fatal_strip = static_cast<int>(static_cast<int64_t>(fatal_mcu_row) * 8 / lines);
+      rows_ok = std::min<int64_t>(rows_ok, oj_.fatal_strip * lines);
+    }
+    for (int64_t u = 0; u < rows_ok; ++u) {
+      uint8_t* p = oj_.units.data() + static_cast<size_t>(u * oj_.units_w) * unit;
+      for (int64_t q = 0; q < oj_.units_w; ++q) {
+        for (int sy = 0; sy < vs; ++sy)
+          for (int sx = 0; sx < hs; ++sx)
+            *p++ = y[static_cast<size_t>(u * vs + sy) * yw + static_cast<size_t>(q * hs + sx)];
+        *p++ = cb[static_cast<size_t>(u) * cw + static_cast<size_t>(q)];
+        *p++ = cr[static_cast<size_t>(u) * cw + static_cast<size_t>(q)];
+      }
+    }
+  }
+
+  // One strip's units from the image's; a strip after the one whose raw read
+  // failed fails too (libtiff retries libjpeg there and meets the error again).
+  void oj_segment(size_t idx, uint8_t* op, size_t occ) const {
+    if (oj_.fatal_strip >= 0 && static_cast<int>(idx) > oj_.fatal_strip)
+      corrupt("old-style JPEG: a restart marker out of place");
+    const uint64_t rps = lt_.rps == 0xFFFFFFFFu ? static_cast<uint64_t>(ysize_) : lt_.rps;
+    const size_t row = static_cast<size_t>(oj_.units_w) * static_cast<size_t>(oj_.hs * oj_.vs + 2);
+    const size_t first = static_cast<size_t>(idx) * static_cast<size_t>((rps + oj_.vs - 1) / oj_.vs);
+    const size_t from = first * row;
+    if (from >= oj_.units.size()) return;
+    memcpy(op, oj_.units.data() + from, std::min(occ, oj_.units.size() - from));
   }
 
   // TiffDecode.c _decodeAsRGBA: YCbCr read by TIFFRGBAImage (top-left
@@ -2216,8 +2781,9 @@ class Tiff {
   void load_rgba() {
     if (lt_.bps != 8 || lt_.spp != 3) corrupt("TIFFRGBAImage cannot handle this YCbCr format");
     const std::vector<uint64_t>& sub = lt_.sub;
-    const int hs = sub.size() >= 1 ? static_cast<int>(sub[0] & 0xFFFF) : 2;
-    const int vs = sub.size() >= 2 ? static_cast<int>(sub[1] & 0xFFFF) : 2;
+    if (lt_.comp == 6) oj_prepare();
+    const int hs = lt_.comp == 6 ? oj_.hs : (sub.size() >= 1 ? static_cast<int>(sub[0] & 0xFFFF) : 2);
+    const int vs = lt_.comp == 6 ? oj_.vs : (sub.size() >= 2 ? static_cast<int>(sub[1] & 0xFFFF) : 2);
     const int code = (hs << 4) | vs;
     const bool separate = lt_.planar == 2;
     if (separate ? code != 0x11
@@ -2457,11 +3023,11 @@ extern "C" {
 // Decodes the first image of `data` into `out` ((H, W, 3) uint8 RGB,
 // capacity `cap` bytes). With `out` null or too small it stops after the IFD
 // and returns RF_NEED_BUFFER with the size in dims = (H, W). Returns RF_OK,
-// RF_CORRUPT, RF_REFUSED or RF_QUEUED (with a message in `err`).
+// RF_CORRUPT or RF_REFUSED (with a message in `err`).
 int rf_tiff_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t cap, int32_t* dims, char* err,
-                   int64_t err_cap, InflateFn inflate, JpegFn jpeg) {
+                   int64_t err_cap, InflateFn inflate, JpegFn jpeg, ZstdFn zstd, OjpegFn ojpeg) {
   try {
-    Tiff tiff(data, static_cast<size_t>(n), inflate, jpeg);
+    Tiff tiff(data, static_cast<size_t>(n), inflate, jpeg, zstd, ojpeg);
     dims[0] = static_cast<int32_t>(tiff.out_height());
     dims[1] = static_cast<int32_t>(tiff.out_width());
     if (!out || cap < tiff.out_height() * tiff.out_width() * 3) return RF_NEED_BUFFER;

@@ -160,11 +160,11 @@ def decode_image(data: bytes) -> np.ndarray:
     `Image.open(...).convert("RGB")` gives them. The format is told by the
     content, as PIL tells it: JPEG, PNG, BMP, WebP, GIF (the first frame of
     these two) and TIFF (its first image, classic or BigTIFF, uncompressed or
-    PackBits, LZW, Deflate, LZMA, JPEG or CCITT RLE / Group 3 / Group 4,
-    transposed by its Orientation). Any other signature raises ValueError,
-    naming the format where PIL opens it and the port does not read it yet
-    (ROADMAP queue 1), as do TIFF's ZSTD, old-style JPEG, ThunderScan and
-    CCITT RLEW compressions (queue 1 entry 6b)."""
+    PackBits, LZW, Deflate, LZMA, ZSTD, JPEG, old-style JPEG, ThunderScan or
+    CCITT RLE / RLEW / Group 3 / Group 4, transposed by its Orientation; what
+    PIL refuses raises ValueError "... as PIL refuses it"). Any other
+    signature raises ValueError, naming the format where PIL opens it and the
+    port does not read it yet (ROADMAP queue 1)."""
     if data.startswith(b"\xff\xd8"):
         return decode_jpeg(data)
     if data.startswith(_PNG_MAGIC):

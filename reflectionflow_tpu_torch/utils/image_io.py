@@ -1,16 +1,22 @@
 """Host image codecs of the data path: JPEG, BMP, WebP, GIF and TIFF
-decoding, JPEG writing, PIL's bicubic resize and the PNG unfilter, in C++
-(`csrc/host/image_io.cpp`, `bmp.cpp`, `webp.cpp`, `gif.cpp`, `tiff.cpp`, built
-with g++ by `ops/kernel_build.py::build_host_all`, bound with ctypes), beside
-their plain numpy versions.
+decoding, Zstandard decompression, JPEG writing, PIL's bicubic resize and the
+PNG unfilter, in C++ (`csrc/host/image_io.cpp`, `bmp.cpp`, `webp.cpp`,
+`gif.cpp`, `tiff.cpp`, `zstd.cpp`, built with g++ by
+`ops/kernel_build.py::build_host_all`, bound with ctypes), beside their plain
+numpy versions.
 
   * `decode_jpeg`: every JPEG PIL's libjpeg-turbo 3.1 decodes at 8 bits,
     bit-exact to PIL's `Image.open(...).convert("RGB")`: sequential and
     progressive, Huffman or arithmetic-coded, and lossless frames; grey,
-    YCbCr, RGB, CMYK and YCCK (libjpeg-turbo's default decode: accurate
-    integer IDCT, block smoothing of progressive files whose scans leave AC
-    coefficients 1-9 unrefined, fancy upsampling, fixed-point YCbCr -> RGB,
-    YCCK -> CMYK, then PIL's inverted CMYK and its CMYK -> RGB).
+    YCbCr, RGB, CMYK and YCCK (libjpeg-turbo's default decode: the accurate
+    integer IDCT in the 16-bit arithmetic of its x86-64 SIMD routines
+    (jidctint-sse2.asm, whose AVX2 twin computes the same), so that
+    coefficients past the 16-bit range give PIL's pixels there, block
+    smoothing of progressive files whose scans leave AC coefficients 1-9
+    unrefined, fancy upsampling, fixed-point YCbCr -> RGB, YCCK -> CMYK,
+    then PIL's inverted CMYK and its CMYK -> RGB). On arm64 libjpeg-turbo
+    runs a NEON IDCT, which is not copied: there PIL's pixels can differ
+    from these where coefficients leave the 16-bit range.
   * `decode_bmp`: BMP as Pillow's BmpImagePlugin reads it (every header,
     palettes, 16/24/32 bits with their BITFIELDS layouts, RLE8 / RLE4).
   * `decode_webp`: the first frame of a WebP file as libwebp's
@@ -26,14 +32,17 @@ their plain numpy versions.
     by its Orientation: classic and BigTIFF, every OPEN_INFO layout, strips
     and tiles, planes; uncompressed data through Pillow's own unpackers, and
     PackBits, LZW (old-style codes too), Deflate and LZMA (inflated by
-    Python's zlib and lzma), JPEG (JPEGTables, each strip through
-    `image_io.cpp`'s decoder), CCITT RLE / Group 3 / Group 4, predictors 2
-    and 3 as libtiff decodes them; YCbCr through TIFFRGBAImage; LAB through
-    a copy of PIL's littleCMS transform. ZSTD, old-style JPEG, ThunderScan
-    and CCITT RLEW raise ValueError (ROADMAP queue 1 entry 6b).
-    The decoders have no plain version: PIL is their reference in the tests.
-    What PIL refuses raises `ValueError` "... as PIL refuses it", and so do
-    corrupt or truncated data.
+    Python's zlib and lzma), ZSTD (`zstd.cpp`), JPEG (JPEGTables, each strip
+    through `image_io.cpp`'s decoder), old-style JPEG (the stream libtiff's
+    tif_ojpeg.c rebuilds, decoded to raw components), ThunderScan, CCITT RLE
+    / RLEW / Group 3 / Group 4, predictors 2 and 3 as libtiff decodes them;
+    YCbCr through TIFFRGBAImage; LAB through a copy of PIL's littleCMS
+    transform. The decoders have no plain version: PIL is their reference
+    in the tests. What PIL refuses raises `ValueError` "... as PIL refuses
+    it", and so do corrupt or truncated data.
+  * `zstd_decompress`: every frame of Zstandard data (RFC 8878) as libzstd
+    decodes it without a dictionary; the `zstandard` module is its
+    reference in the tests.
   * `encode_jpeg`: PIL's default `save(format="JPEG")` of an RGB image,
     byte for byte (quality 75, 4:2:0, libjpeg-turbo's encode path). It has
     no plain version either: PIL's bytes are its reference.
@@ -58,9 +67,10 @@ import numpy as np
 _HOST = Path(__file__).resolve().parents[1] / "csrc" / "host"
 SOURCE = _HOST / "image_io.cpp"
 BMP_SOURCE, WEBP_SOURCE, GIF_SOURCE = _HOST / "bmp.cpp", _HOST / "webp.cpp", _HOST / "gif.cpp"
-TIFF_SOURCE = _HOST / "tiff.cpp"
-SOURCES = (SOURCE, BMP_SOURCE, WEBP_SOURCE, GIF_SOURCE, TIFF_SOURCE)  # every host codec library, built together
-_OK, _REFUSED, _QUEUED, _NEED_BUFFER = 0, -3, -4, 1  # rf_* return codes; any other is corrupt input
+TIFF_SOURCE, ZSTD_SOURCE = _HOST / "tiff.cpp", _HOST / "zstd.cpp"
+# every host codec library, built together
+SOURCES = (SOURCE, BMP_SOURCE, WEBP_SOURCE, GIF_SOURCE, TIFF_SOURCE, ZSTD_SOURCE)
+_OK, _REFUSED, _NEED_BUFFER = 0, -3, 1  # rf_* return codes; any other is corrupt input
 _PRECISION_BITS = 32 - 8 - 2
 
 calls: Counter = Counter()
@@ -122,7 +132,7 @@ def _decode(source: Path, kind: str, data: bytes, channels: int, extra=(), extra
     if rc == _OK:
         return out
     msg = err.value.decode("utf-8", "replace")
-    raise ValueError(msg if rc in (_REFUSED, _QUEUED) else f"corrupt {kind.upper()}: {msg}")
+    raise ValueError(msg if rc == _REFUSED else f"corrupt {kind.upper()}: {msg}")
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
@@ -151,10 +161,9 @@ def decode_tiff(data: bytes) -> np.ndarray:
     """TIFF bytes -> the (H, W, 3) uint8 RGB of its first image, as PIL's
     `Image.open(...).convert("RGB")` gives them (after the Orientation
     transpose PIL applies on load). Deflate and LZMA data are inflated by
-    Python's zlib and lzma, as libtiff inflates them; JPEG data by
-    `image_io.cpp`'s decoder. ZSTD, old-style JPEG, ThunderScan and CCITT
-    RLEW data raise ValueError (ROADMAP queue 1 entry 6b), as does what PIL
-    refuses."""
+    Python's zlib and lzma, as libtiff inflates them; ZSTD data by
+    `zstd.cpp`; JPEG and old-style JPEG data by `image_io.cpp`'s decoder.
+    What PIL refuses raises ValueError."""
     import lzma
     import zlib
 
@@ -187,13 +196,45 @@ def decode_tiff(data: bytes) -> np.ndarray:
         return len(out)
 
     jpeg = ctypes.cast(get_lib().rf_jpeg_tiff_decode, ctypes.c_void_p)
+    zstd = ctypes.cast(_zstd_lib().rf_zstd_tiff_decode, ctypes.c_void_p)
+    ojpeg = ctypes.cast(get_lib().rf_jpeg_ojpeg_decode, ctypes.c_void_p)
     cb = _INFLATE_FN(inflate)  # held for the calls
     try:
-        return _decode(TIFF_SOURCE, "tiff", data, 3, (cb, jpeg), (_INFLATE_FN, ctypes.c_void_p))
+        return _decode(TIFF_SOURCE, "tiff", data, 3, (cb, jpeg, zstd, ojpeg),
+                       (_INFLATE_FN, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p))
     except ValueError:
         if failed:  # the callback's own error, not the data's
             raise failed[0] from None
         raise
+
+
+def _zstd_lib() -> ctypes.CDLL:
+    from ..ops.kernel_build import load_host
+
+    lib = load_host(ZSTD_SOURCE)
+    lib.rf_zstd_decompress.restype = ctypes.c_int
+    lib.rf_zstd_decompress.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p),
+                                       ctypes.POINTER(ctypes.c_int64), ctypes.c_char_p, ctypes.c_int64]
+    lib.rf_zstd_free.restype = None
+    lib.rf_zstd_free.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def zstd_decompress(data: bytes) -> bytes:
+    """Zstandard data (every frame of it, skippable frames skipped) -> its
+    content, as libzstd decodes it; damaged or truncated data, a frame that
+    needs a dictionary and a window past 2^27 + 1 bytes raise ValueError."""
+    data = bytes(data)
+    lib = _zstd_lib()
+    out, n = ctypes.c_void_p(), ctypes.c_int64()
+    err = ctypes.create_string_buffer(256)
+    calls["zstd_decompress"] += 1
+    if lib.rf_zstd_decompress(data, len(data), ctypes.byref(out), ctypes.byref(n), err, len(err)) != _OK:
+        raise ValueError(f"corrupt ZSTD: {err.value.decode('utf-8', 'replace')}")
+    try:
+        return ctypes.string_at(out, n.value) if n.value else b""
+    finally:
+        lib.rf_zstd_free(out)
 
 
 def decode_webp(data: bytes) -> np.ndarray:

@@ -7,7 +7,8 @@ Each image is a seeded smooth procedural RGB image with mild noise (the
   * "jpeg": a file PIL wrote (sequential, progressive, grey, CMYK; YCCK and
     marker-less CMYK by patching PIL's Adobe segment; progressive files cut
     after some scans, which libjpeg smooths across blocks), or one written by
-    the arithmetic (SOF9, SOF10) and lossless (SOF3) encoders below, with its
+    the arithmetic (SOF9, SOF10) and lossless (SOF3) encoders below, or one
+    whose quantizers were all set to 64 after PIL's save (`set_dqt`), with its
     encode settings, the sha256 of PIL's decode (`Image.open(...)
     .convert("RGB")`, (H, W, 3) uint8 bytes) and of PIL's bicubic
     `Image.resize` chains that the GenRef data path runs on it (a chain
@@ -25,11 +26,12 @@ Each image is a seeded smooth procedural RGB image with mild noise (the
     short tables, interlaced rows, an offset sub-frame with a transparency
     index and extensions, code sizes 2 and 5, clear codes mid-stream, a full
     code table), with the sha256 of PIL's decode;
-  * "tiff": a file PIL wrote or one written by `write_tiff` below (tiles,
-    planes, BigTIFF, big-endian 16-bit, YCbCr JPEG with JPEGTables and
-    Orientation 6, subsampled YCbCr, Group 3 2D with FillOrder 2, a 4-bit
-    ColorMap, associated alpha, predictors 2 and 3, old-style LZW, LAB
-    planes and a LAB grid through PIL's littleCMS transform; two 1024x768
+  * "tiff": a file PIL wrote or one written by `write_tiff` or
+    `write_ojpeg` below (tiles, planes, BigTIFF, big-endian 16-bit, YCbCr
+    JPEG with JPEGTables and Orientation 6, subsampled YCbCr, Group 3 2D with
+    FillOrder 2, a 4-bit ColorMap, associated alpha, predictors 2 and 3,
+    old-style LZW, LAB planes and a LAB grid through PIL's littleCMS
+    transform, ZSTD, CCITT RLEW, ThunderScan, old-style JPEG; four 1024x768
     timing files), with the sha256 of PIL's decode;
   * "encode": a committed pixel array (`encode_pixels.npz`) with the sha256
     of PIL's default `save(format="JPEG")` of it.
@@ -84,6 +86,8 @@ FIXTURES = [
     ("ycck_40x24.jpg", (40, 24), 18, {"quality": 75, "mode": "CMYK", "adobe": 2}, []),
     ("ycck_420_prog_41x23.jpg", (41, 23), 19,
      {"quality": 75, "mode": "CMYK", "progressive": True, "subsampling": 2, "adobe": 2}, []),
+    # every quantizer made 64 after the save: coefficients past libjpeg-turbo's 16-bit IDCT lanes
+    ("extreme_dqt64_420_64x48.jpg", (64, 48), 23, {"quality": 100, "subsampling": 2, "dqt": 64}, ["32x24"]),
 ]
 # name, colour type, bit depth, interlaced, with tRNS; 19x13 pixels each
 PNGS = [(f"png_c{c}_d{d}{'_adam7' if i else ''}{'_trns' if t else ''}.png", c, d, i, t) for c, d, i, t in [
@@ -173,10 +177,11 @@ GIFS = [
     ("gif_pil_1024x768.gif", (1024, 768), 608, "pil", {"mode": "RGB", "smooth": True}),
 ]
 # TIFF: name, (W, H), seed, kind ("pil": PIL's save in `mode` with `compression`;
-# else `write_tiff` of the procedural image with the options), options. The
-# 1024x768 pair are chip_smoke.py phase 5e's timing files that it cannot write
-# itself (LZW with predictor 2, JPEG YCbCr 4:2:0 with JPEGTables), from a
-# smooth image.
+# "ojpeg": `write_ojpeg` of the procedural image; else `write_tiff` of it with
+# the options), options. The 1024x768 files are chip_smoke.py phase 5e's
+# timing files that it cannot write itself (LZW with predictor 2, JPEG YCbCr
+# 4:2:0 with JPEGTables, ZSTD with predictor 2, old-style JPEG 4:2:0 with
+# its tables in tags), from a smooth image.
 TIFFS = [
     ("tiff_pil_rgb_lzw_37x23.tif", (37, 23), 700, "pil", {"mode": "RGB", "compression": "tiff_lzw"}),
     ("tiff_pil_1_group4_37x23.tif", (37, 23), 701, "pil", {"mode": "1", "compression": "group4"}),
@@ -206,6 +211,19 @@ TIFFS = [
      {"compression": 5, "predictor": 2, "rows_per_strip": 64, "smooth": True}),
     ("tiff_jpeg_ycbcr_420_1024x768.tif", (1024, 768), 713, "write",
      {"photometric": 6, "compression": 7, "subsampling": (2, 2), "rows_per_strip": 16, "smooth": True}),
+    ("tiff_pil_rgb_zstd_37x23.tif", (37, 23), 716, "pil", {"mode": "RGB", "compression": "tiff_zstd"}),
+    ("tiff_zstd_pred2_tiles_37x23.tif", (37, 23), 717, "write",
+     {"compression": 50000, "predictor": 2, "tile": (16, 16), "zstd_level": 19}),
+    ("tiff_rlew_fillorder2_37x23.tif", (37, 23), 718, "write",
+     {"photometric": 0, "bits": 1, "compression": 32771, "fillorder": 2, "rows_per_strip": 9}),
+    ("tiff_thunderscan_37x23.tif", (37, 23), 719, "write",
+     {"photometric": 1, "bits": 4, "compression": 32809, "rows_per_strip": 8}),
+    ("tiff_ojpeg_tags_420_37x23.tif", (37, 23), 720, "ojpeg", {"subsampling": (2, 2), "rows_per_strip": 16}),
+    ("tiff_ojpeg_jif_422_37x23.tif", (37, 23), 721, "ojpeg", {"subsampling": (2, 1), "source": "header"}),
+    ("tiff_zstd_1024x768.tif", (1024, 768), 713, "write",
+     {"compression": 50000, "predictor": 2, "rows_per_strip": 64, "smooth": True}),
+    ("tiff_ojpeg_420_1024x768.tif", (1024, 768), 713, "ojpeg", {"subsampling": (2, 2), "rows_per_strip": 64,
+                                                                 "smooth": True}),
 ]
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
@@ -246,6 +264,20 @@ def set_adobe(data: bytes, transform) -> bytes:
                 return data[:i] + data[i + 2 + n:]
             return data[:i + 15] + bytes([transform]) + data[i + 16:]
     raise ValueError("no Adobe segment")
+
+
+def set_dqt(data: bytes, q: int) -> bytes:
+    """Every quantizer of every DQT table set to q (8-bit tables)."""
+    d, i = bytearray(data), 2
+    while i < len(d):
+        m, n = d[i + 1], (d[i + 2] << 8) | d[i + 3]
+        if m == 0xDA:
+            break
+        if m == 0xDB:
+            for j in range(i + 4, i + 2 + n, 65):
+                d[j + 1:j + 65] = bytes([q]) * 64
+        i += 2 + n
+    return bytes(d)
 
 
 def cut_scans(data: bytes, n: int) -> bytes:
@@ -1292,14 +1324,17 @@ def _fax_row_2d(b: _Bits, row, ref) -> None:
 
 def fax_encode(bits: np.ndarray, kind: int, t4options: int = 0, k: int = 2) -> bytes:
     """(H, W) 0/1 pixels (1 black) as CCITT RLE (kind 2, byte-aligned rows),
-    Group 3 (3: an EOL before each row, then with T4Options bit 0 a tag bit and
-    every k-th row 1D, the rest 2D; bit 2 byte-aligns the EOLs) or Group 4 (4)."""
+    CCITT RLEW (32771, rows aligned to 2 bytes of the strip), Group 3 (3: an
+    EOL before each row, then with T4Options bit 0 a tag bit and every k-th
+    row 1D, the rest 2D; bit 2 byte-aligns the EOLs) or Group 4 (4)."""
     b = _Bits()
     ref = np.zeros(bits.shape[1], np.uint8)
     for y, row in enumerate(bits):
-        if kind == 2:
+        if kind in (2, 32771):
             _fax_row_1d(b, row)
             b.align()
+            if kind == 32771 and len(b.bits) % 16:
+                b.bits += [0] * 8
         elif kind == 3:
             if t4options & 4:
                 b.bits += [0] * ((4 - len(b.bits)) % 8)
@@ -1400,16 +1435,187 @@ def _ycbcr_units(seg: np.ndarray, hs: int, vs: int) -> bytes:
     return np.concatenate([y, c], axis=2).astype(np.uint8).tobytes()
 
 
+def thunder_encode(rows: np.ndarray, rng) -> bytes:
+    """(H, W) 4-bit pixels as ThunderScan rows (tif_thunder.c's codes: 0x00 | n
+    repeats the last pixel n times, 0x40 three 2-bit deltas (code 2 skips),
+    0x80 two 3-bit deltas (code 4 skips), 0xC0 | v a raw pixel; each row
+    starts from pixel 0), the codes picked at random where several fit."""
+    d2 = {0: 0, 1: 1, -1: 3}
+    d3 = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+    out = bytearray()
+    for row in np.asarray(rows, np.int64):
+        last, x, w = 0, 0, len(row)
+        while x < w:
+            choice = int(rng.integers(0, 4))
+            run = 0
+            while x + run < w and run < 63 and row[x + run] == last:
+                run += 1
+            if run and choice != 3:
+                out.append(run)
+                x += run
+                continue
+            delta = [int((row[x + i] - p) % 16) for i, p in enumerate([last] + list(row[x:x + 2])) if x + i < w]
+            delta = [v - 16 if v > 8 else v for v in delta]
+            if choice == 1 and all(v in d2 for v in delta[:3]):
+                codes = [d2[v] for v in delta[:3]] + [2] * (3 - len(delta[:3]))
+                out.append(0x40 | codes[0] << 4 | codes[1] << 2 | codes[2])
+                x += len(delta[:3])
+                last = int(row[x - 1])
+            elif choice == 2 and all(v in d3 for v in delta[:2]):
+                codes = [d3[v] for v in delta[:2]] + [4] * (2 - len(delta[:2]))
+                out.append(0x80 | codes[0] << 3 | codes[1])
+                x += len(delta[:2])
+                last = int(row[x - 1])
+            else:
+                out.append(0xC0 | int(row[x]))
+                last = int(row[x])
+                x += 1
+    return bytes(out)
+
+
+def _jpeg_segments(data: bytes):
+    """A JPEG file -> ([(marker, segment bytes)] up to and with SOS, the entropy-coded data after it)."""
+    segs, i = [], 2
+    while True:
+        m, n = data[i + 1], (data[i + 2] << 8) | data[i + 3]
+        segs.append((m, data[i:i + 2 + n]))
+        i += 2 + n
+        if m == 0xDA:
+            return segs, data[i:]
+
+
+def _split_restarts(scan: bytes) -> list:
+    """Entropy-coded data -> its restart intervals (the RSTn markers and EOI dropped)."""
+    pieces, start, i = [], 0, 0
+    while i + 1 < len(scan):
+        if scan[i] == 0xFF and (0xD0 <= scan[i + 1] <= 0xD7 or scan[i + 1] == 0xD9):
+            pieces.append(scan[start:i])
+            start = i = i + 2
+            continue
+        i += 1
+    return pieces
+
+
+def write_ojpeg(rgb, subsampling=(2, 2), rows_per_strip=None, source: str = "tags", photometric: int = 6,
+                quality: int = 75, restart_rows: int = 0, tags=None) -> bytes:
+    """(H, W, 3) RGB pixels -> an old-style JPEG TIFF (compression 6; PIL
+    writes none) as libtiff's tif_ojpeg.c reads it: PIL's JPEG of the image
+    (`subsampling` (1, 1), (2, 1) or (2, 2); a restart interval of each strip's
+    MCUs, or of `restart_rows` MCU rows for one strip) cut into its restart
+    intervals, one a strip, the markers dropped (libtiff puts them back). The
+    tables come from `source`: "tags" (JPEGProc 1, JPEGQTables / DCTables /
+    ACTables offsets to 64 quantizers and to counts and values, one a component,
+    the chroma ones shared; JPEGRestartInterval with `restart_rows`), "header"
+    (JPEGInterchangeFormat / Length over the JPEG's segments up to SOS),
+    "whole" (over the whole JPEG, its one strip the scan inside it) or "strip"
+    (no tag: the segments up to SOS open the first strip)."""
+    rgb = np.asarray(rgb, np.uint8)
+    h, w = rgb.shape[:2]
+    hs, vs = subsampling
+    rps = rows_per_strip or h
+    opts = {"quality": quality, "subsampling": {(1, 1): 0, (2, 1): 1, (2, 2): 2}[subsampling]}
+    if rps < h:
+        opts["restart_marker_rows"] = rps // (8 * vs)
+    elif restart_rows:
+        opts["restart_marker_rows"] = restart_rows
+    buf = io.BytesIO()
+    Image.fromarray(rgb).save(buf, format="JPEG", **opts)
+    jpeg = buf.getvalue()
+    segs, scan = _jpeg_segments(jpeg)
+    pieces = _split_restarts(scan)
+    if rps < h and len(pieces) != -(-h // rps):
+        raise ValueError(f"{len(pieces)} restart intervals for {-(-h // rps)} strips")
+    strips = pieces if rps < h else [scan]
+    blobs, entries = [], {256: (3, [w]), 257: (3, [h]), 258: (3, [8, 8, 8]), 259: (3, [6]), 262: (3, [photometric]),
+                          277: (3, [3]), 278: (3, [rps]), 530: (3, [hs, vs])}
+    head = b"".join(seg for m, seg in segs if m not in (0xE0,))
+    if source == "tags":
+        q = {seg[4] & 15: seg[5:69] for m, seg in segs if m == 0xDB}
+        dht = {}
+        for m, seg in segs:
+            if m == 0xC4:
+                dht[seg[4]] = seg[5:]
+        for tid, vals in list(q.items()):
+            q[tid] = len(blobs)
+            blobs.append(vals)
+        for key in list(dht):
+            dht[key], val = len(blobs), dht[key]
+            blobs.append(val)
+        entries[512] = (3, [1])
+        entries[519] = (4, [("blob", q[0]), ("blob", q[1]), ("blob", q[1])])
+        entries[520] = (4, [("blob", dht[0x00]), ("blob", dht[0x01]), ("blob", dht[0x01])])
+        entries[521] = (4, [("blob", dht[0x10]), ("blob", dht[0x11]), ("blob", dht[0x11])])
+        if restart_rows and rps >= h:
+            entries[515] = (3, [restart_rows * -(-w // (8 * hs))])
+    elif source == "header":
+        entries[513] = (4, [("blob", len(blobs))])
+        entries[514] = (4, [len(head)])
+        blobs.append(head)
+    elif source == "whole":
+        entries[513] = (4, [("blob", len(blobs))])
+        entries[514] = (4, [len(jpeg)])
+        blobs.append(jpeg)
+        strips = []
+        entries[273] = (4, [("blob", 0, len(jpeg) - len(scan))])
+        entries[279] = (4, [len(scan)])
+    elif source == "strip":
+        strips = [head + strips[0]] + strips[1:]
+    if strips:
+        entries[273] = (4, [("blob", len(blobs) + i) for i in range(len(strips))])
+        entries[279] = (4, [len(x) for x in strips])
+        blobs += strips
+    for k, v in (tags or {}).items():
+        if v is None:
+            entries.pop(k, None)
+        else:
+            entries[k] = v
+    return _tiff_blobs(entries, blobs)
+
+
+def _tiff_blobs(entries, blobs) -> bytes:
+    """A little-endian classic TIFF: the header, the `blobs` in order, then
+    one IFD of `entries` ({tag: (type, values)}; a value ("blob", i[, delta])
+    is blob i's offset (+ delta)) with its long values after it."""
+    offs, pos = [], 8
+    for b in blobs:
+        offs.append(pos)
+        pos += len(b) + (len(b) & 1)
+    ifd_at = pos
+
+    def value(v):
+        return offs[v[1]] + (v[2] if len(v) > 2 else 0) if isinstance(v, tuple) and v[0] == "blob" else v
+
+    items = sorted((tag, typ, [value(v) for v in vals]) for tag, (typ, vals) in entries.items())
+    extra_at = ifd_at + 2 + 12 * len(items) + 4
+    ifd, extra = struct.pack("<H", len(items)), b""
+    for tag, typ, vals in items:
+        p = bytes(vals) if typ in (2, 7) else struct.pack("<" + TIFF_TYPES[typ][0] * len(vals), *vals)
+        count = len(p) if typ in (2, 7) else len(vals)
+        if len(p) <= 4:
+            ifd += struct.pack("<HHI", tag, typ, count) + p.ljust(4, b"\0")
+        else:
+            ifd += struct.pack("<HHI", tag, typ, count) + struct.pack("<I", extra_at + len(extra))
+            extra += p + b"\0" * (len(p) & 1)
+    body = b"".join(b + b"\0" * (len(b) & 1) for b in blobs)
+    return b"II*\x00" + struct.pack("<I", ifd_at) + body + ifd + b"\0" * 4 + extra
+
+
 def write_tiff(samples, photometric: int, bits: int = 8, compression: int = 1, order: str = "<",
                bigtiff: bool = False, rows_per_strip=None, tile=None, planar: int = 1, fillorder: int = 1,
                predictor: int = 1, extra_samples=(), sample_format: int = 1, colormap=None, orientation=None,
                subsampling=None, t4options: int = 0, old_lzw: bool = False, quality: int = 75, tags=None,
-               ifd_first: bool = False, append=()) -> bytes:
+               ifd_first: bool = False, append=(), zstd_level: int = 3, thunder_seed: int = 0) -> bytes:
     """(H, W, S) samples (uint / int / float by `sample_format`; 0/1 pixels,
-    1 black, for CCITT; RGB pixels for JPEG under photometric 6, YCbCr
-    samples otherwise) -> a TIFF file. `tags` {tag: (type, values)} add or
-    replace entries (values None drops one); `append` [(tag, type, values)]
-    go after them, out of order or repeated."""
+    1 black, for CCITT; 4-bit values for ThunderScan; RGB pixels for JPEG
+    under photometric 6, YCbCr samples otherwise) -> a TIFF file. `tags`
+    {tag: (type, values)} add or replace entries (values None drops one);
+    `append` [(tag, type, values)] go after them, out of order or repeated.
+    ZSTD (50000) is written by the `zstandard` module at `zstd_level`,
+    ThunderScan (32809) by `thunder_encode` (libtiff has no encoder: its
+    "ThunderScan scanline encoding is not implemented"); PIL's
+    `save(compression="tiff_raw_16")` is not used for CCITT RLEW (32771),
+    as it killed the interpreter with SIGSEGV where this file was written."""
+    thunder_rng = np.random.default_rng(thunder_seed)
     a = np.asarray(samples)
     if a.ndim == 2:
         a = a[..., None]
@@ -1430,8 +1636,10 @@ def write_tiff(samples, photometric: int, bits: int = 8, compression: int = 1, o
                     seg = np.pad(seg, ((0, th - seg.shape[0]), (0, tw - seg.shape[1]), (0, 0)), mode="edge")
                 if jpeg:
                     tables, data = _jpeg_segment(seg.astype(np.uint8), photometric, quality, subsampling or (1, 1))
-                elif compression in (2, 3, 4):
+                elif compression in (2, 3, 4, 32771):
                     data = fax_encode(seg[..., 0], compression, t4options)
+                elif compression == 32809:
+                    data = thunder_encode(seg[..., 0], thunder_rng)
                 else:
                     if ycc_units:
                         raw = _ycbcr_units(seg, *subsampling)
@@ -1450,6 +1658,9 @@ def write_tiff(samples, photometric: int, bits: int = 8, compression: int = 1, o
                     elif compression == 34925:
                         import lzma
                         data = lzma.compress(raw, format=lzma.FORMAT_XZ)
+                    elif compression == 50000:
+                        import zstandard
+                        data = zstandard.ZstdCompressor(level=zstd_level).compress(raw)
                     else:
                         raise ValueError(f"no encoder for compression {compression}")
                 if fillorder == 2 and not jpeg:
@@ -1635,6 +1846,8 @@ def tiff_fixture(size, seed: int, kind: str, opts: dict) -> bytes:
         buf = io.BytesIO()
         Image.fromarray(rgb).convert(opts.pop("mode")).save(buf, format="TIFF", **opts)
         return buf.getvalue()
+    if kind == "ojpeg":
+        return write_ojpeg(rgb, **opts)
     photometric, bits = opts.pop("photometric", 2), opts.get("bits", 8)
     samples = rgb
     if opts.pop("lab_grid", False):  # every L, a and b in steps of 4: PIL's littleCMS transform sampled
@@ -1709,10 +1922,13 @@ def main() -> None:
         mode = opts.pop("mode", "RGB")
         adobe = opts.pop("adobe", 0)
         cut = opts.pop("cut_scans", None)
+        dqt = opts.pop("dqt", None)
         img = Image.fromarray(procedural(w, h, seed)).convert(mode)
         buf = io.BytesIO()
         img.save(buf, format="JPEG", **opts)
         data = buf.getvalue()
+        if dqt is not None:
+            data = set_dqt(data, dqt)
         if mode == "CMYK" and adobe != 0:
             data = set_adobe(data, adobe)
         if cut is not None:
@@ -1720,7 +1936,7 @@ def main() -> None:
         with open(os.path.join(HERE, name), "wb") as f:
             f.write(data)
         save = dict(opts, **({"adobe": adobe} if mode == "CMYK" else {}),
-                    **({"cut_scans": cut} if cut is not None else {}))
+                    **({"cut_scans": cut} if cut is not None else {}), **({"dqt": dqt} if dqt is not None else {}))
         entry = {"kind": "jpeg", "size": [w, h], "mode": mode, "seed": seed, "save": save,
                  "file_sha256": hashlib.sha256(data).hexdigest()}
         dec = Image.open(io.BytesIO(data)).convert("RGB")

@@ -6,7 +6,11 @@ to 100, optimized Huffman tables, restart intervals, sizes from 1x1 to
 another frame kind decodes as PIL decodes it or raises where PIL raises
 (12-bit, hierarchical and YCbCr-lossless files are refused with ValueError,
 as PIL refuses them); truncated and corrupt files raise `ValueError` and
-never crash. The committed fixtures of `tests/data/torch_jpeg/` (JPEG of
+never crash. Files whose inverse DCT leaves the 16-bit / 8-bit range (every
+quantizer set to q, baseline and progressive, 4:4:4 and 4:2:0; a Huffman
+value flipped in a TIFF's JPEGTables) decode as PIL's libjpeg-turbo SIMD
+IDCT computes them, on its SSE2 route as on its default one. The committed
+fixtures of `tests/data/torch_jpeg/` (JPEG of
 every kind the port reads, PNG, WebP and BMP of every kind, and pixel
 arrays for the JPEG writer) decode, resize and encode to their manifest's
 PIL hashes, and PIL itself gives those hashes from the committed bytes.
@@ -15,9 +19,12 @@ kind are swept against PIL in `test_torch_image_files.py`, WebP in
 `test_torch_webp.py`, BMP in `test_torch_bmp.py`. About 8 s."""
 
 import hashlib
+import importlib.util
 import io
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -30,6 +37,9 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "tor
 with open(os.path.join(FIXTURES, "manifest.json")) as _f:
     MANIFEST = json.load(_f)
 SIZES = [(1, 1), (17, 9), (33, 65), (257, 129)]  # (W, H)
+_spec = importlib.util.spec_from_file_location("torch_jpeg_fixtures", os.path.join(FIXTURES, "make_fixtures.py"))
+fx = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(fx)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -158,6 +168,61 @@ def test_corrupt_bytes_raise_or_decode_never_crash():
     for data in (b"", b"\xff\xd8", b"\xff\xd8\xff", b"\xff\xd8\xff\xc0\x00\x02", b"not a jpeg"):
         with pytest.raises(ValueError):
             image_io.decode_jpeg(data)
+
+
+def _extreme(q: int, progressive: bool, subsampling: int) -> bytes:
+    noise = np.random.default_rng(q).integers(0, 256, (64, 64, 3)).astype(np.uint8)
+    return fx.set_dqt(_encode(noise, quality=100, progressive=progressive, subsampling=subsampling), q)
+
+
+EXTREME = [(q, p, ss) for q in (8, 16, 32, 128, 255) for p in (False, True) for ss in (0, 2)]
+
+
+@pytest.mark.parametrize("q,progressive,subsampling", EXTREME,
+                         ids=[f"q{q}-{'prog' if p else 'base'}-{'444' if ss == 0 else '420'}" for q, p, ss in EXTREME])
+def test_extreme_quantizers_decode_as_simd_idct(q, progressive, subsampling):
+    """Noise at quality 100 with every quantizer made q: from q = 8 the
+    dequantized coefficients overflow libjpeg-turbo's 16-bit IDCT lanes, and
+    PIL's pixels are those of its SIMD arithmetic (jidctint-sse2.asm /
+    -avx2.asm), which the port copies."""
+    data = _extreme(q, progressive, subsampling)
+    np.testing.assert_array_equal(image_io.decode_jpeg(data), _pil(data))
+
+
+def test_huffman_value_flip_in_jpegtables_decodes_as_pil():
+    """An AC Huffman value of a TIFF's JPEGTables made a wider size category:
+    the strip's coefficients turn extreme (and the rest of the data is read
+    as libjpeg reads damaged data); the port's pixels equal PIL's for each of
+    the table's first 16 values (its shortest codes)."""
+    tiff = bytearray(fx.write_tiff(fx.procedural(32, 16, 9), 6, compression=7, subsampling=(2, 2), quality=100))
+    dht = tiff.index(b"\xff\xc4\x00\xb5\x10")  # the luma AC table: 16 counts, then 162 values
+    changed = 0
+    for k in range(dht + 5 + 16, dht + 5 + 16 + 16):
+        bad = bytearray(tiff)
+        bad[k] = (bad[k] & 0xF0) | 0x0A  # size 10: coefficients to +-1023 before the quantizers
+        want = np.asarray(Image.open(io.BytesIO(bytes(bad))).convert("RGB"))
+        got = image_io.decode_tiff(bytes(bad))
+        np.testing.assert_array_equal(got, want, err_msg=f"value at {k}")
+        changed += bool((got != np.asarray(Image.open(io.BytesIO(bytes(tiff))).convert("RGB"))).any())
+    assert changed >= 8
+
+
+def test_simd_reference_is_the_same_on_the_sse2_route():
+    """PIL decodes the extreme files alike under JSIMD_FORCESSE2=1 (libjpeg-
+    turbo's SSE2 IDCT) and on its default route (AVX2 where the CPU has it),
+    so the reference does not hang on the test machine's vector unit."""
+    names = [f"{q}-{p}-{ss}" for q, p, ss in EXTREME[::3]]
+    code = ("import hashlib, io, sys, numpy as np; from PIL import Image\n"
+            "sys.path.insert(0, sys.argv[1]); from test_torch_jpeg import _extreme, EXTREME\n"
+            "for q, p, ss in EXTREME[::3]:\n"
+            "    d = _extreme(q, p, ss)\n"
+            "    print(hashlib.sha256(np.asarray(Image.open(io.BytesIO(d)).convert('RGB')).tobytes()).hexdigest())\n")
+    env = dict(os.environ, JSIMD_FORCESSE2="1")
+    out = subprocess.run([sys.executable, "-c", code, os.path.dirname(os.path.abspath(__file__))], env=env,
+                         capture_output=True, text=True, check=True).stdout.split()
+    assert len(out) == len(names)
+    for (q, p, ss), sse2 in zip(EXTREME[::3], out):
+        assert _sha(_pil(_extreme(q, p, ss))) == sse2, f"q={q} progressive={p} subsampling={ss}"
 
 
 def _chain(img, chain, resize):
