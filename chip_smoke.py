@@ -109,24 +109,32 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      associated alpha, predictors 2 and 3, old-style LZW, LAB planes and a
      1024² LAB grid through the port's copy of PIL's littleCMS transform,
      ZSTD (PIL-written, tiles with predictor 2), CCITT RLEW, ThunderScan,
-     old-style JPEG from its table tags and from JPEGInterchangeFormat); a
+     old-style JPEG from its table tags and from JPEGInterchangeFormat),
+     JPEG 2000 (PIL-written JP2 and J2K over its options; OpenJPEG-written
+     code-block styles, SOP / EPH, POC, RGN, tile-parts and TLM, PPM / PPT
+     packet headers, sub-sampled sYCC, CMYK, a palette, bpcc, boxes), ICO and
+     CUR (PNG and DIB entries) and the PPM family (P1-P6 plain and raw at
+     every maxval kind, Pf, P0CMYK, PyP, PyRGBA, PyCMYK); a
      JPEG's `resize_bicubic` gives the manifest's PIL resize hashes at the
      paired-crop shapes and equals `resize_ref` bit for bit; `encode_jpeg` of
      each committed pixel array gives the sha256 of PIL's default save; the
      median of GENREF_REPS runs of: a 1024^2 4:2:0
      decode (and the other 1024-wide fixtures), a 1024^2 -> 512^2 resize in
      C++ and in `resize_ref` in turns, the Paeth PNG unfilter of a
-     1024^2 RGB image in C++ and in its numpy loop in turns, and a 1024x768
+     1024^2 RGB image in C++ (and in its numpy loop, of SLOW_REPS), and a 1024x768
      decode of each kind this port reads beside the baseline JPEG (WebP
      lossy and lossless, arithmetic-coded progressive, lossless JPEG, a
      smoothed progressive file cut after 5 scans, a PIL-written GIF, a
-     24-bit BMP this script writes from the decoded baseline, and TIFF:
-     uncompressed, PackBits, Adobe Deflate and LZMA written here from the
-     decoded baseline (each decoding to it bit for bit), LZW with predictor
-     2, YCbCr 4:2:0 JPEG, ZSTD with predictor 2 and old-style JPEG 4:2:0
-     from the fixtures); a GenRef-format tar of
+     24-bit BMP and a P6 PPM this script writes from the decoded baseline,
+     and TIFF: uncompressed, PackBits, Adobe Deflate and LZMA written here
+     from the decoded baseline (each decoding to it bit for bit), LZW with
+     predictor 2, YCbCr 4:2:0 JPEG, ZSTD with predictor 2 and old-style JPEG
+     4:2:0 from the fixtures; JPEG 2000 lossless and 9/7 in three rate
+     layers from the fixtures, the median of SLOW_REPS runs; a 256x256 32-bit
+     DIB ICO); a GenRef-format tar of
      GENREF_SAMPLES samples (the 1024^2 fixtures good, the 1024x768 one bad,
      sample TIFF_SAMPLE's bad member a PackBits TIFF of its decoded pixels,
+     sample JP2_SAMPLE's the 1024x768 9/7 JP2 fixture in three layers,
      subsets general / length / rule / editing, every other sample's
      members under PAX long names) indexed by `utils/native.py`; one
      `GenRefDataset` batch (B=8, 512 px, condition 512, the train CLI's
@@ -134,7 +142,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      the rest; then `train()` for 3 steps from that shard at TrainConfig's
      defaults: phase 5b's checks and launch counts (342 K1, 171 K6a, 171 K6b),
      no `tarfile` read and no native fallback, JPEG decodes counted, TIFF
-     decodes counted (the TIFF sample was read); prints s/step and the
+     and JPEG 2000 decodes counted (the TIFF and JP2 samples were read);
+     prints s/step and the
      data's share of it;
   5c. the training validation hook (`make_validation_hook`) once on the
      trained adapters: a conditioned generate of 2 val samples at 512 px,
@@ -437,7 +446,9 @@ GENREF_SAMPLES = 16  # phase 5e's shard: 2 batches at B=8
 # phase 5e's shard sample whose bad member is a TIFF: the first "editing"
 # sample (i % 4 == 3), the subset the schedule draws with p = 0.7 at steps 0-2
 TIFF_SAMPLE = 3
+JP2_SAMPLE = 7  # and the one whose bad member is a JP2: the second "editing" sample
 GENREF_REPS = 9  # phase 5e's host timings: the median of this many runs
+SLOW_REPS = 3  # ... and of the slow ones: JPEG 2000 decodes (0.1-0.25 s), the numpy Paeth loop (4 s)
 GENREF_SUBSETS = ("general", "length", "rule", "editing")
 GENREF_STAGES = [0, 1000]  # the train CLI's subset ratios (`GENREF_SPLIT_RATIOS`), stage 0 -> 1
 FIXTURES = os.path.join(REPO, "tests", "data", "torch_jpeg")
@@ -468,7 +479,8 @@ QWEN_CLIP_FRAMES, QWEN_CLIP_PX = 8, 448  # phase 10's synthetic video clips
 KIND_FIXTURES = ("webp_lossy_1024x768_q75.webp", "webp_lossless_1024x768_m4.webp", "arith_prog_420_1024x768.jpg",
                  "lossless_p7_rst32_1024x768.jpg", "progressive_cut5_1024x768.jpg", "gif_pil_1024x768.gif",
                  "tiff_lzw_pred2_1024x768.tif", "tiff_jpeg_ycbcr_420_1024x768.tif", "tiff_zstd_1024x768.tif",
-                 "tiff_ojpeg_420_1024x768.tif")
+                 "tiff_ojpeg_420_1024x768.tif", "ico_bmp_rgba_256.ico")
+J2K_KIND_FIXTURES = ("j2k_lossless_1024x768.jp2", "j2k_97_layers_1024x768.jp2")
 NVILA_INT8_TOL = 0.12  # phase 11: |W8A8 - bf16| of the yes and no logits (|logit| 0.03-0.70; read 0.060, 0.074)
 NVILA_TIMED_B = 2  # phase 11: the NVILA score pass timed at this batch
 NVILA_TIMED_REPS = 9  # phase 11: its repetitions, int8 and bf16 in turns; the median is kept
@@ -1706,7 +1718,7 @@ def _median_ms(fns: dict, reps: int) -> dict:
 
 def genref_fixtures(image_io) -> dict:
     """Every committed fixture: each image file (JPEG of every kind, PNG,
-    WebP, BMP, GIF) decodes through `train/data.py::decode_image` to the sha256 of
+    WebP, BMP, GIF, TIFF, JPEG 2000, ICO, CUR, PPM) decodes through `train/data.py::decode_image` to the sha256 of
     PIL's decode in the manifest (a WebP's RGBA too); a JPEG's resize chains
     give the manifest's PIL hashes and equal `resize_ref` bit for bit; the
     JPEG writer's bytes for each committed pixel array equal PIL's save.
@@ -1775,6 +1787,12 @@ def write_bmp24(rgb) -> bytes:
     return b"BM" + struct.pack("<IHHI", 54 + len(rows), 0, 0, 54) + head + rows
 
 
+def write_ppm6(rgb) -> bytes:
+    """(H, W, 3) uint8 RGB -> a raw P6 PPM at maxval 255."""
+    h, w = rgb.shape[:2]
+    return b"P6\n%d %d\n255\n" % (w, h) + rgb.tobytes()
+
+
 def write_tiff_rgb(rgb, compression: int = 1, rows_per_strip: int = 64) -> bytes:
     """(H, W, 3) uint8 RGB -> a little-endian TIFF of strips, uncompressed (1),
     PackBits (32773: literal runs of 128 bytes), Adobe Deflate (8, zlib) or
@@ -1816,10 +1834,11 @@ def write_tiff_rgb(rgb, compression: int = 1, rows_per_strip: int = 64) -> bytes
     return b"II*\x00" + struct.pack("<I", ifd_at) + b"".join(chunks) + ifd + b"\0" * 4 + extra
 
 
-def write_genref_jpeg_shard(path: str, goods: list, bad: bytes, tiff: bytes | None = None) -> None:
+def write_genref_jpeg_shard(path: str, goods: list, bad: bytes, tiff: bytes | None = None,
+                            jp2: bytes | None = None) -> None:
     """GENREF_SAMPLES GenRef samples of JPEG bytes (sample TIFF_SAMPLE's bad
-    member `tiff` when given); every other sample's members sit under a
-    directory name long enough to need PAX records."""
+    member `tiff`, JP2_SAMPLE's `jp2`, when given); every other sample's
+    members sit under a directory name long enough to need PAX records."""
     import io
     import tarfile
 
@@ -1828,7 +1847,8 @@ def write_genref_jpeg_shard(path: str, goods: list, bad: bytes, tiff: bytes | No
             key = f"{i:06d}"
             prefix = ("genref_" + "x" * 120 + "/") if i % 2 else ""
             files = {"good_image.jpg": goods[i % len(goods)],
-                     "bad_image.jpg": tiff if tiff is not None and i == TIFF_SAMPLE else bad,
+                     "bad_image.jpg": (tiff if tiff is not None and i == TIFF_SAMPLE else
+                                       jp2 if jp2 is not None and i == JP2_SAMPLE else bad),
                      "prompt.txt": f"a photo of object {i} on a table".encode(),
                      "reflection.txt": f"make object {i} sharper and correctly colored".encode(),
                      "subset.txt": GENREF_SUBSETS[i % len(GENREF_SUBSETS)].encode()}
@@ -1867,19 +1887,24 @@ def genref_phase(torch, pipe, card: str, host_build_s: float) -> dict:
     raw[:, 0] = 4  # Paeth on every row
     check(bool((image_io.png_unfilter(raw, 1024, 3072, 3)
                 == image_io.png_unfilter_ref(raw, 1024, 3072, 3)).all()), "Paeth unfilter differs")
-    paeth = _median_ms({"cpp": lambda: image_io.png_unfilter(raw, 1024, 3072, 3),
-                        "numpy": lambda: image_io.png_unfilter_ref(raw, 1024, 3072, 3)}, GENREF_REPS)
+    paeth = _median_ms({"cpp": lambda: image_io.png_unfilter(raw, 1024, 3072, 3)}, GENREF_REPS)
+    paeth.update(_median_ms({"numpy": lambda: image_io.png_unfilter_ref(raw, 1024, 3072, 3)}, SLOW_REPS))
     bad_rgb = fixtures[bad_name][1]
-    kind_data = {"jpeg_baseline": fixtures[bad_name][0], "bmp_24": write_bmp24(bad_rgb)}
+    kind_data = {"jpeg_baseline": fixtures[bad_name][0], "bmp_24": write_bmp24(bad_rgb), "ppm_p6": write_ppm6(bad_rgb)}
     for kind, comp in (("tiff_raw", 1), ("tiff_packbits", 32773), ("tiff_adobe_deflate", 8), ("tiff_lzma", 34925)):
         kind_data[kind] = write_tiff_rgb(bad_rgb, comp)
-    for kind in ("bmp_24", "tiff_raw", "tiff_packbits", "tiff_adobe_deflate", "tiff_lzma"):
+    for kind in ("bmp_24", "ppm_p6", "tiff_raw", "tiff_packbits", "tiff_adobe_deflate", "tiff_lzma"):
         check(bool((tdata.decode_image(kind_data[kind]) == bad_rgb).all()), f"{kind} round trip differs")
     for name in KIND_FIXTURES:
         with open(os.path.join(FIXTURES, name), "rb") as f:
             kind_data[name] = f.read()
     kinds_ms = _median_ms({k: (lambda d=d: tdata.decode_image(d)) for k, d in kind_data.items()}, GENREF_REPS)
-    log(f"host decode at 1024x768 (median of {GENREF_REPS}): "
+    j2k_data = {}
+    for name in J2K_KIND_FIXTURES:
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            j2k_data[name] = f.read()
+    kinds_ms.update(_median_ms({k: (lambda d=d: tdata.decode_image(d)) for k, d in j2k_data.items()}, SLOW_REPS))
+    log(f"host decode at 1024x768 (median of {GENREF_REPS}, JPEG 2000 of {SLOW_REPS}; the ICO 256x256): "
         f"{', '.join(f'{n} {v:.2f} ms' for n, v in kinds_ms.items())}; {card}")
     out.update(decode_ms=dec, decode_ms_1024_420=dec["good_a_1024_q75_420.jpg"], resize_ms=res["cpp"],
                decode_ms_1024x768_kinds=kinds_ms,
@@ -1888,7 +1913,7 @@ def genref_phase(torch, pipe, card: str, host_build_s: float) -> dict:
     log(f"host codecs (median of {GENREF_REPS}): decode ms {', '.join(f'{n} {v:.2f}' for n, v in dec.items())}; "
         f"resize 1024^2 -> 512^2 {res['cpp']:.2f} ms C++, {res['resize_ref']:.1f} ms resize_ref "
         f"({out['resize_ref_ratio']:.1f}x); Paeth unfilter 1024^2 RGB {paeth['cpp']:.2f} ms C++, "
-        f"{paeth['numpy']:.0f} ms numpy loop; {card}")
+        f"{paeth['numpy']:.0f} ms numpy loop (median of {SLOW_REPS}); {card}")
 
     cfg = TrainConfig()
     cfg.attn_impl, cfg.max_steps = "pallas", TRAIN_STEPS
@@ -1898,7 +1923,7 @@ def genref_phase(torch, pipe, card: str, host_build_s: float) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         shard = os.path.join(tmp, "genref_jpeg_000.tar")
         write_genref_jpeg_shard(shard, [fixtures[n][0] for n in good_names], fixtures[bad_name][0],
-                                tiff=kind_data["tiff_packbits"])
+                                tiff=kind_data["tiff_packbits"], jp2=j2k_data["j2k_97_layers_1024x768.jp2"])
         idx = native.tar_index(shard)
         check(idx is not None and len(idx[0]) == 5 * GENREF_SAMPLES, "the native indexer did not take the shard")
         check(sum(len(n) > 100 for n in idx[0]) == 5 * (GENREF_SAMPLES // 2), "PAX long names not indexed")
@@ -1956,15 +1981,18 @@ def genref_phase(torch, pipe, card: str, host_build_s: float) -> dict:
             tarfile.open = tar_open
         n_dec = image_io.calls["decode_jpeg"] - calls0.get("decode_jpeg", 0)
         n_tiff = image_io.calls["decode_tiff"] - calls0.get("decode_tiff", 0)
+        n_jp2 = image_io.calls["decode_jpeg2000"] - calls0.get("decode_jpeg2000", 0)
         check(not opened and native.fallbacks == fallbacks0, f"tarfile opened {opened}; "
               f"fallbacks {native.fallbacks - fallbacks0}")
         check(n_dec > 0, "training decoded no JPEG")
         check(n_tiff > 0, f"training never read sample {TIFF_SAMPLE}'s TIFF")
+        check(n_jp2 > 0, f"training never read sample {JP2_SAMPLE}'s JP2")
         check_train_launches(run["launches"], n_blocks, "genref train")
         data_s = run["data_s"][:TRAIN_STEPS]
         out.update(launches=run["launches"], s_per_step=run["s_per_step"], peak_gib=run["peak"] / 2**30,
                    losses=[r["loss"] for r in run["rows"]], step_time_s=[r["step_time_s"] for r in run["rows"]],
                    data_s_in_loop=data_s, jpeg_decodes_in_training=n_dec, tiff_decodes_in_training=n_tiff,
+                   jp2_decodes_in_training=n_jp2,
                    batch_share_of_step=batch_s / run["s_per_step"],
                    loop_data_share=statistics.mean(data_s[1:]) / run["s_per_step"])
         del run

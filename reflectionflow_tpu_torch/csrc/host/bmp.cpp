@@ -17,6 +17,10 @@
 //     its delta that reads four bytes and uses the last two, and the 16-bit
 //     alignment by file offset.
 //
+// `rf_dib_decode` reads the DIB of an ICO or CUR entry (no file header,
+// half the height; Pillow's DibImageFile as its IcoImagePlugin and
+// CurImagePlugin use it).
+//
 // What Pillow refuses (JPEG or PNG compression, other masks or depths, more
 // than 256 colours) returns RF_REFUSED; corrupt or truncated data returns
 // RF_CORRUPT. Every read is bounded by the buffer.
@@ -27,27 +31,9 @@
 #include <string>
 #include <vector>
 
+#include "status.h"
+
 namespace {
-
-constexpr int RF_OK = 0;
-constexpr int RF_CORRUPT = -1;
-constexpr int RF_REFUSED = -3;
-constexpr int RF_NEED_BUFFER = 1;
-
-struct Fail {
-  int code;
-  std::string msg;
-};
-
-[[noreturn]] void corrupt(const std::string& msg) { throw Fail{RF_CORRUPT, msg}; }
-[[noreturn]] void refused(const std::string& msg) { throw Fail{RF_REFUSED, msg + ", as PIL refuses it"}; }
-
-void write_err(const std::string& msg, char* err, int64_t cap) {
-  if (!err || cap <= 0) return;
-  size_t n = msg.size() < static_cast<size_t>(cap - 1) ? msg.size() : static_cast<size_t>(cap - 1);
-  memcpy(err, msg.data(), n);
-  err[n] = 0;
-}
 
 inline uint32_t u16(const uint8_t* p) { return p[0] | (p[1] << 8); }
 inline uint32_t u32(const uint8_t* p) { return u16(p) | (u16(p + 2) << 16); }
@@ -57,15 +43,24 @@ enum Raw { P1, P4, P8, BIT1, GREY8, BGR15, BGR16, BGR24, QUAD };
 
 class Bmp {
  public:
-  Bmp(const uint8_t* d, size_t n) : d_(d), n_(n) {
-    if (n < 18 || d[0] != 'B' || d[1] != 'M') corrupt("not a BMP file");
-    size_t offset = u32(d + 10);
-    const uint32_t hsize = u32(d + 14);
+  // A BMP file, or (dib_at set) the DIB of an ICO / CUR entry at dib_at:
+  // no file header, the data right after the header and palette, and half
+  // the height the header gives (the rest is the AND mask).
+  Bmp(const uint8_t* d, size_t n, const size_t* dib_at = nullptr) : d_(d), n_(n) {
+    size_t offset = 0, at = 14;
+    if (dib_at) {
+      at = *dib_at;
+      if (at > n || n - at < 4) corrupt("truncated DIB header");
+    } else {
+      if (n < 18 || d[0] != 'B' || d[1] != 'M') corrupt("not a BMP file");
+      offset = u32(d + 10);
+    }
+    const uint32_t hsize = u32(d + at);
     if (hsize != 12 && hsize != 40 && hsize != 52 && hsize != 56 && hsize != 64 && hsize != 108 && hsize != 124)
       refused("BMP header of " + std::to_string(hsize) + " bytes");
-    if (n < 14 + static_cast<size_t>(hsize)) corrupt("truncated BMP header");
-    const uint8_t* h = d + 18;  // the header without its size
-    size_t pos = 14 + hsize;
+    if (n - at < static_cast<size_t>(hsize)) corrupt("truncated BMP header");
+    const uint8_t* h = d + at + 4;  // the header without its size
+    size_t pos = at + hsize;
     int bits, palette_pad;
     uint32_t compression = 0, colors = 0;
     uint32_t masks[4] = {0, 0, 0, 0};
@@ -95,10 +90,14 @@ class Bmp {
       }
     }
     if (colors == 0) colors = bits < 32 ? 1u << bits : 0;
-    if (offset == 14 + hsize && bits <= 8) offset += 4 * static_cast<size_t>(colors);
+    if (!dib_at && offset == 14 + hsize && bits <= 8) offset += 4 * static_cast<size_t>(colors);
     if (bits != 1 && bits != 4 && bits != 8 && bits != 16 && bits != 24 && bits != 32)
       refused("BMP of " + std::to_string(bits) + " bits a pixel");
     if (w_ == 0 || h_ == 0 || w_ * h_ > (uint64_t(1) << 31)) corrupt("BMP of size 0 or too large");
+    if (dib_at) {
+      h_ /= 2;
+      if (h_ == 0) corrupt("an icon DIB of height 1");
+    }
     bool palette = bits <= 8;
     if (compression == 3) {  // BITFIELDS: the layouts Pillow accepts
       const uint32_t r = masks[0], g = masks[1], b = masks[2], a = masks[3];
@@ -156,6 +155,7 @@ class Bmp {
   }
 
   int width() const { return static_cast<int>(w_); }
+  size_t data_offset() const { return offset_; }
   int height() const { return static_cast<int>(h_); }
 
   void decode(uint8_t* out) const {
@@ -315,6 +315,29 @@ int rf_bmp_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t cap, int
     return f.code;
   } catch (const std::exception& e) {
     write_err(std::string("BMP decode failed: ") + e.what(), err, err_cap);
+    return RF_CORRUPT;
+  }
+}
+
+// The DIB of an ICO or CUR entry at byte `at` of `data`, as Pillow's
+// DibImageFile reads it there with half its height; otherwise as
+// rf_bmp_decode, with dims = (H, W, offset of the pixel data).
+int rf_dib_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t cap, int32_t* dims, char* err,
+                  int64_t err_cap, int64_t at) {
+  try {
+    const size_t dib_at = static_cast<size_t>(at);
+    Bmp bmp(data, static_cast<size_t>(n), &dib_at);
+    dims[0] = bmp.height();
+    dims[1] = bmp.width();
+    dims[2] = static_cast<int32_t>(bmp.data_offset());
+    if (!out || cap < static_cast<int64_t>(bmp.height()) * bmp.width() * 3) return RF_NEED_BUFFER;
+    bmp.decode(out);
+    return RF_OK;
+  } catch (const Fail& f) {
+    write_err(f.msg, err, err_cap);
+    return f.code;
+  } catch (const std::exception& e) {
+    write_err(std::string("DIB decode failed: ") + e.what(), err, err_cap);
     return RF_CORRUPT;
   }
 }

@@ -40,31 +40,14 @@
 #include <string>
 #include <vector>
 
+#include "status.h"
+
 namespace {
 
-constexpr int RF_OK = 0;
-constexpr int RF_CORRUPT = -1;
-constexpr int RF_REFUSED = -3;
-constexpr int RF_NEED_BUFFER = 1;
 constexpr uint64_t kMaxPixels = 2ull * (1024ull * 1024 * 1024 / 4 / 3);  // 2 x PIL's MAX_IMAGE_PIXELS
 constexpr size_t kReadBlock = 65536;  // ImageFile.decodermaxblock
 constexpr int kTable = 4096;          // GIFTABLE
 constexpr int kMaxBits = 12;          // GIFBITS
-
-struct Fail {
-  int code;
-  std::string msg;
-};
-
-[[noreturn]] void corrupt(const std::string& msg) { throw Fail{RF_CORRUPT, msg}; }
-[[noreturn]] void refused(const std::string& msg) { throw Fail{RF_REFUSED, msg + ", as PIL refuses it"}; }
-
-void write_err(const std::string& msg, char* err, int64_t cap) {
-  if (!err || cap <= 0) return;
-  size_t n = msg.size() < static_cast<size_t>(cap - 1) ? msg.size() : static_cast<size_t>(cap - 1);
-  memcpy(err, msg.data(), n);
-  err[n] = 0;
-}
 
 inline uint32_t u16(const uint8_t* p) { return p[0] | (p[1] << 8); }
 

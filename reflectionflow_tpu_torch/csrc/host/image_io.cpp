@@ -43,30 +43,9 @@
 #include <string>
 #include <vector>
 
+#include "status.h"
+
 namespace {
-
-constexpr int RF_OK = 0;
-constexpr int RF_CORRUPT = -1;
-constexpr int RF_REFUSED = -3;
-constexpr int RF_NEED_BUFFER = 1;
-
-struct Fail {
-  int code;
-  std::string msg;
-};
-
-[[noreturn]] void corrupt(const std::string& msg) { throw Fail{RF_CORRUPT, msg}; }
-// What PIL cannot open either: refused for good, not queued.
-[[noreturn]] void refused(const std::string& msg) {
-  throw Fail{RF_REFUSED, msg + " is refused, as PIL refuses it"};
-}
-
-void write_err(const std::string& msg, char* err, int64_t cap) {
-  if (!err || cap <= 0) return;
-  size_t n = msg.size() < static_cast<size_t>(cap - 1) ? msg.size() : static_cast<size_t>(cap - 1);
-  memcpy(err, msg.data(), n);
-  err[n] = 0;
-}
 
 // ---------------------------------------------------------------- JPEG ----
 
@@ -741,7 +720,7 @@ class Decoder {
         frame(end, true, true, false);
         break;
       case 0xCB:
-        refused("arithmetic-coded lossless JPEG");
+        refused("arithmetic-coded lossless JPEG is refused");
       case 0xCC:
         dac(end);
         break;
@@ -751,7 +730,7 @@ class Decoder {
       case 0xCD:
       case 0xCE:
       case 0xCF:
-        refused("hierarchical (differential) JPEG");
+        refused("hierarchical (differential) JPEG is refused");
       case 0xC4:
         dht(end);
         break;
@@ -801,9 +780,9 @@ class Decoder {
     H_ = word();
     W_ = word();
     int nc = byte();
-    if (precision != 8) refused(std::to_string(precision) + "-bit JPEG");
-    if (nc != 1 && nc != 3 && nc != 4) refused(std::to_string(nc) + "-component JPEG");
-    if (H_ == 0) refused("a JPEG of height 0 (its height given by DNL)");
+    if (precision != 8) refused(std::to_string(precision) + "-bit JPEG is refused");
+    if (nc != 1 && nc != 3 && nc != 4) refused(std::to_string(nc) + "-component JPEG is refused");
+    if (H_ == 0) refused("a JPEG of height 0 (its height given by DNL) is refused");
     if (W_ == 0) corrupt("JPEG of width 0");
     if (end - pos_ < static_cast<size_t>(3 * nc)) corrupt("bad SOF segment");
     comps_.resize(static_cast<size_t>(nc));
@@ -823,7 +802,7 @@ class Decoder {
     for (auto& row : coef_bits_)
       for (int& b : row) b = -1;
     for (auto& c : comps_) {
-      if (max_h_ % c.h || max_v_ % c.v) refused("fractional JPEG sampling");
+      if (max_h_ % c.h || max_v_ % c.v) refused("fractional JPEG sampling is refused");
       c.dw = static_cast<int>((static_cast<int64_t>(W_) * c.h + max_h_ - 1) / max_h_);
       c.dh = static_cast<int>((static_cast<int64_t>(H_) * c.v + max_v_ - 1) / max_v_);
       c.wblocks = (c.dw + 7) / 8;
@@ -894,7 +873,7 @@ class Decoder {
     // and refuses before the first scan's data
     if (lossless_ && force_ != 0 &&
         (force_ == 1 || (comps_.size() == 3 && !rgb_frame()) || (comps_.size() == 4 && adobe_ && adobe_transform_)))
-      refused("a lossless JPEG in YCbCr or YCCK (libjpeg converts no colour in lossless mode)");
+      refused("a lossless JPEG in YCbCr or YCCK (libjpeg converts no colour in lossless mode) is refused");
     size_t end = segment_end();
     if (end - pos_ < 1) corrupt("bad SOS segment");
     int ns = byte();
@@ -1232,7 +1211,7 @@ class Decoder {
     }
     const int per_row = ns > 1 ? mcux_ : sc[0]->dw, rows = ns > 1 ? mcuy_ : sc[0]->dh;
     const int rows_per_imcu = ns > 1 ? 1 : sc[0]->v;
-    if (restart_ % per_row) refused("a lossless JPEG whose restart interval is not whole MCU rows");
+    if (restart_ % per_row) refused("a lossless JPEG whose restart interval is not whole MCU rows is refused");
     const int restart_rows = restart_ / per_row;
     BitReader br(d_, n_, pos_);
     int to_go = restart_rows, next_rst = 0;

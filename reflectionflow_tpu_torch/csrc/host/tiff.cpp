@@ -57,12 +57,10 @@
 #include <string>
 #include <vector>
 
+#include "status.h"
+
 namespace {
 
-constexpr int RF_OK = 0;
-constexpr int RF_CORRUPT = -1;
-constexpr int RF_REFUSED = -3;
-constexpr int RF_NEED_BUFFER = 1;
 constexpr uint64_t kMaxPixels = 2ull * (1024ull * 1024 * 1024 / 4 / 3);  // 2 x PIL's MAX_IMAGE_PIXELS
 
 // The caller's codecs: inflate(kind 8 zlib / 34925 xz, src, n, dst, cap) ->
@@ -77,21 +75,6 @@ typedef int (*ZstdFn)(const uint8_t* src, int64_t n, uint8_t* dst, int64_t occ);
 typedef int (*JpegFn)(const uint8_t* tables, int64_t tn, const uint8_t* data, int64_t n, int32_t ycc_to_rgb,
                       int32_t hs, int32_t vs, int32_t nc, int32_t seg_w, int32_t seg_h, int32_t allow_taller,
                       uint8_t* out, int64_t out_stride, char* err, int64_t err_cap);
-
-struct Fail {
-  int code;
-  std::string msg;
-};
-
-[[noreturn]] void corrupt(const std::string& msg) { throw Fail{RF_CORRUPT, msg}; }
-[[noreturn]] void refused(const std::string& msg) { throw Fail{RF_REFUSED, msg + ", as PIL refuses it"}; }
-
-void write_err(const std::string& msg, char* err, int64_t cap) {
-  if (!err || cap <= 0) return;
-  size_t n = msg.size() < static_cast<size_t>(cap - 1) ? msg.size() : static_cast<size_t>(cap - 1);
-  memcpy(err, msg.data(), n);
-  err[n] = 0;
-}
 
 uint8_t kBitRev[256];
 struct BitRevInit {

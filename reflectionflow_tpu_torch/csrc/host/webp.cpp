@@ -31,25 +31,9 @@
 #include <string>
 #include <vector>
 
+#include "status.h"
+
 namespace {
-
-constexpr int RF_OK = 0;
-constexpr int RF_CORRUPT = -1;
-constexpr int RF_NEED_BUFFER = 1;
-
-struct Fail {
-  int code;
-  std::string msg;
-};
-
-[[noreturn]] void corrupt(const std::string& msg) { throw Fail{RF_CORRUPT, msg}; }
-
-void write_err(const std::string& msg, char* err, int64_t cap) {
-  if (!err || cap <= 0) return;
-  size_t n = msg.size() < static_cast<size_t>(cap - 1) ? msg.size() : static_cast<size_t>(cap - 1);
-  memcpy(err, msg.data(), n);
-  err[n] = 0;
-}
 
 inline uint32_t le24(const uint8_t* p) { return p[0] | (p[1] << 8) | (p[2] << 16); }
 inline uint32_t le32(const uint8_t* p) { return le24(p) | (static_cast<uint32_t>(p[3]) << 24); }

@@ -28,26 +28,12 @@
 #include <string>
 #include <vector>
 
+#include "status.h"
+
 namespace {
 
-constexpr int RF_OK = 0;
-constexpr int RF_CORRUPT = -1;
 constexpr size_t kBlockMax = 128 * 1024;
 constexpr uint64_t kWindowLimit = (uint64_t(1) << 27) + 1;
-
-struct Fail {
-  std::string msg;
-  bool short_input = false;  // the data ran out (a stream decoder would wait for more)
-};
-
-[[noreturn]] void corrupt(const std::string& msg) { throw Fail{msg}; }
-
-void write_err(const std::string& msg, char* err, int64_t cap) {
-  if (!err || cap <= 0) return;
-  size_t n = msg.size() < static_cast<size_t>(cap - 1) ? msg.size() : static_cast<size_t>(cap - 1);
-  memcpy(err, msg.data(), n);
-  err[n] = 0;
-}
 
 inline uint32_t le32(const uint8_t* p) { return p[0] | (p[1] << 8) | (p[2] << 16) | (uint32_t(p[3]) << 24); }
 inline uint64_t le64(const uint8_t* p) { return le32(p) | (static_cast<uint64_t>(le32(p + 4)) << 32); }
@@ -561,7 +547,7 @@ class Decoder {
   uint64_t rep_[3] = {1, 4, 8};
 
   const uint8_t* need(size_t k) {
-    if (n_ - pos_ < k) throw Fail{"ZSTD data cut short", true};
+    if (n_ - pos_ < k) throw Fail{RF_CORRUPT, "ZSTD data cut short", true};
     const uint8_t* p = d_ + pos_;
     pos_ += k;
     return p;

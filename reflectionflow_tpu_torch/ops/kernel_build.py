@@ -13,7 +13,8 @@ each kernel's registers and spills is kept beside its library
 Host route: `build_host_all` compiles C++ sources that run on the CPU (the
 image codecs of `csrc/host/`, the repository's `native/genref_loader.cpp`)
 with `g++ -O3 -shared -fPIC -std=c++17` into
-`.build/host/<name>-<hash>/lib<name>.so`, keyed by the source and the flags,
+`.build/host/<name>-<hash>/lib<name>.so`, keyed by the source, the headers
+beside it (`csrc/host/status.h`) and the flags,
 through the same process-unique temporary file and rename; a missing compiler
 or a failed build raises, as on the nvcc route.
 """
@@ -168,10 +169,11 @@ def load(source: str) -> ctypes.CDLL:
 
 
 def host_library_path(source: Path) -> Path:
-    """Where the host C++ file `source` builds to (depends on its content and
-    the flags)."""
+    """Where the host C++ file `source` builds to (depends on its content, the
+    headers beside it and the flags)."""
     source = Path(source)
-    digest = hashlib.sha256(source.read_bytes() + " ".join(HOST_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.h")))
+    digest = hashlib.sha256(source.read_bytes() + headers + " ".join(HOST_FLAGS).encode())
     return HOST_BUILD_ROOT / f"{source.stem}-{digest.hexdigest()[:16]}" / f"lib{source.stem}.so"
 
 

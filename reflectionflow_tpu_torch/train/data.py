@@ -21,19 +21,23 @@ match the JAX package's run draw for draw:
 
 The port's machine has no PIL: images are decoded by the port's own readers,
 told apart by their content as PIL tells them (`decode_image`: JPEG of every
-kind libjpeg-turbo reads, BMP, WebP, GIF and TIFF through `utils/image_io.py`,
-bit-exact to PIL's decode; `decode_png`: every PNG colour type and bit depth,
-interlaced or not, as PIL converts it to RGB) and resized by its C++ copy of
-PIL's bicubic `Image.resize`, bit for bit. A sample whose image is corrupt,
-or of a format the port does not read yet (ICO, AVIF, ...: ROADMAP queue 1),
-raises ValueError and is skipped, as the JAX package skips what PIL cannot
-open. `write_synthetic_shard` writes the JAX package's shard
-byte for byte: its JPEG bytes are PIL's default save (`image_io.encode_jpeg`).
+kind libjpeg-turbo reads, BMP, WebP, GIF, TIFF, JPEG 2000 (JP2 and J2K, as
+PIL reads them through OpenJPEG 2.5.4) and the PPM family through
+`utils/image_io.py`, bit-exact to PIL's decode; `decode_png`: every PNG colour
+type and bit depth, interlaced or not, as PIL converts it to RGB;
+`decode_ico` / `decode_cur`: the entry Pillow loads, a PNG or a DIB) and
+resized by its C++ copy of PIL's bicubic `Image.resize`, bit for bit. A
+sample whose image is corrupt, or of a format the port does not read yet
+(AVIF, TGA, ...: ROADMAP queue 1), raises ValueError and is skipped, as the
+JAX package skips what PIL cannot open. `write_synthetic_shard` writes the
+JAX package's shard byte for byte: its JPEG bytes are PIL's default save
+(`image_io.encode_jpeg`).
 """
 
 from __future__ import annotations
 
 import io
+import math
 import os
 import struct
 import tarfile
@@ -44,10 +48,12 @@ from typing import Iterator
 import numpy as np
 
 from ..utils import native
-from ..utils.image_io import decode_bmp, decode_gif, decode_jpeg, decode_tiff, decode_webp, encode_jpeg, png_unfilter
+from ..utils.image_io import (decode_bmp, decode_dib, decode_gif, decode_jpeg, decode_jpeg2000, decode_ppm,
+                               decode_tiff, decode_webp, encode_jpeg, png_unfilter)
 from ..utils.image_io import resize_bicubic as resize
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+_MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3  # PIL's Image.MAX_IMAGE_PIXELS
 # color type -> (channels, the bit depths the PNG spec allows)
 _PNG_KINDS = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)),
               6: (4, (8, 16))}
@@ -115,6 +121,8 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, color, _, _, interlace = header
+    if w * h > 2 * _MAX_IMAGE_PIXELS:
+        raise ValueError(f"a {w}x{h} PNG is past twice MAX_IMAGE_PIXELS, as PIL refuses it")
     if color not in _PNG_KINDS or depth not in _PNG_KINDS[color][1] or interlace > 1:
         raise ValueError(f"PNG with bit depth {depth}, color type {color}, interlace {interlace}")
     if color == 3 and palette is None:
@@ -142,27 +150,83 @@ def decode_png(data: bytes) -> np.ndarray:
 # order, and the two classic ones with the magic's bytes swapped.
 _TIFF_MAGIC = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+", b"MM*\x00", b"II\x00*")
 
+_JP2_MAGIC = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
+
 # Signatures of the formats PIL opens that the port does not read (ROADMAP
 # queue 1), to name them when they are refused.
 _OTHER_FORMATS = (
-    (b"\x00\x00\x01\x00", "ICO"), (b"\x00\x00\x02\x00", "CUR"), (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"),
-    (b"\xffO\xffQ", "JPEG 2000"), (b"8BPS", "PSD"), (b"qoif", "QOI"), (b"DDS ", "DDS"), (b"icns", "ICNS"),
+    (b"8BPS", "PSD"), (b"qoif", "QOI"), (b"DDS ", "DDS"), (b"icns", "ICNS"),
     (b"\x01\xda", "SGI"), (b"\x59\xa6\x6a\x95", "Sun raster"), (b"SIMPLE", "FITS"), (b"%!PS", "EPS"),
     (b"\xc5\xd0\xd3\xc6", "EPS"), (b"/* XPM */", "XPM"), (b"#define", "XBM"), (b"\xd7\xcd\xc6\x9a", "WMF"),
     (b"BLP1", "BLP"), (b"BLP2", "BLP"), (b"\x89HDF", "HDF5"), (b"GRIB", "GRIB"), (b"BUFR", "BUFR"),
-    (b"P1", "PPM"), (b"P2", "PPM"), (b"P3", "PPM"), (b"P4", "PPM"), (b"P5", "PPM"), (b"P6", "PPM"),
-    (b"P7", "PPM"), (b"Pf", "PPM"), (b"PF", "PPM"),
 )
+
+
+def _ico_entries(data: bytes) -> list[bytes]:
+    """The 16-byte directory entries of an ICO or CUR file; a short one raises
+    as Pillow's reads do."""
+    if len(data) < 6:
+        raise ValueError("truncated ICO / CUR header")
+    (count,) = struct.unpack_from("<H", data, 4)
+    entries = [data[6 + 16 * i: 22 + 16 * i] for i in range(count)]
+    if not entries or len(entries[-1]) < 16:
+        raise ValueError("truncated or empty ICO / CUR directory")
+    return entries
+
+
+def decode_ico(data: bytes) -> np.ndarray:
+    """ICO bytes -> (H, W, 3) uint8 RGB of the entry Pillow's IcoImagePlugin
+    loads (the largest; of those, the lowest colour depth; of equals, the
+    first in the directory), as `convert("RGB")` gives it: a PNG entry through
+    `decode_png`, a DIB through `image_io.decode_dib` (half its height; the
+    AND mask, or the alpha bytes of a 32-bit entry, must be there, else PIL
+    raises, and `convert("RGB")` drops them)."""
+    entries = []
+    for s in _ico_entries(data):
+        w, h, colors = s[0] or 256, s[1] or 256, s[2]
+        _, bpp, size, offset = struct.unpack_from("<HHII", s, 4)
+        depth = bpp or (colors != 0 and math.ceil(math.log(colors, 2))) or 256
+        entries.append((w * h, depth, bpp, size, offset))
+    entries.sort(key=lambda e: e[1])
+    entries.sort(key=lambda e: e[0], reverse=True)
+    _, _, bpp, size, offset = entries[0]
+    if data[offset:offset + 8] == _PNG_MAGIC:
+        return decode_png(data[offset:])
+    rgb, pixels_at = decode_dib(data, offset)
+    h, w = rgb.shape[:2]
+    if bpp == 32:  # the alpha bytes of the BGRA rows
+        if len(data[pixels_at:pixels_at + w * h * 4][3::4]) < w * h:
+            raise ValueError("not enough image data for the ICO alpha")
+    else:  # the AND mask's rows, padded to 32 bits; the raw decoder needs no padding after the last
+        stride = (w + (32 - w % 32) % 32) // 8
+        total = stride * h
+        mask_at = offset + size - total
+        if mask_at < 0 or len(data[mask_at:mask_at + total]) < (h - 1) * stride + (w + 7) // 8:
+            raise ValueError("not enough image data for the ICO mask")
+    return rgb
+
+
+def decode_cur(data: bytes) -> np.ndarray:
+    """CUR bytes -> (H, W, 3) uint8 RGB, as Pillow's CurImagePlugin reads it:
+    the first entry, or a later one wider and taller than it (the directory's
+    bytes, 0 as 0), a DIB of half its height."""
+    best = b""
+    for s in _ico_entries(data):
+        if not best or (s[0] > best[0] and s[1] > best[1]):
+            best = s
+    return decode_dib(data, struct.unpack_from("<I", best, 12)[0])[0]
 
 
 def decode_image(data: bytes) -> np.ndarray:
     """Image bytes -> (H, W, 3) uint8 RGB, as PIL's
     `Image.open(...).convert("RGB")` gives them. The format is told by the
     content, as PIL tells it: JPEG, PNG, BMP, WebP, GIF (the first frame of
-    these two) and TIFF (its first image, classic or BigTIFF, uncompressed or
+    these two), TIFF (its first image, classic or BigTIFF, uncompressed or
     PackBits, LZW, Deflate, LZMA, ZSTD, JPEG, old-style JPEG, ThunderScan or
-    CCITT RLE / RLEW / Group 3 / Group 4, transposed by its Orientation; what
-    PIL refuses raises ValueError "... as PIL refuses it"). Any other
+    CCITT RLE / RLEW / Group 3 / Group 4, transposed by its Orientation),
+    JPEG 2000 (a JP2 file or a J2K codestream), ICO, CUR and the PPM family
+    (P1-P6, Pf and Pillow's P0CMYK, PyP, PyRGBA, PyCMYK); what PIL refuses
+    raises ValueError "... as PIL refuses it", P7 (PAM) and PF among them. Any other
     signature raises ValueError, naming the format where PIL opens it and the
     port does not read it yet (ROADMAP queue 1)."""
     if data.startswith(b"\xff\xd8"):
@@ -177,6 +241,14 @@ def decode_image(data: bytes) -> np.ndarray:
         return decode_tiff(data)
     if data.startswith(b"RIFF") and data[8:12] == b"WEBP":
         return np.ascontiguousarray(decode_webp(data)[..., :3])
+    if data.startswith((b"\xffO\xffQ", _JP2_MAGIC)):
+        return decode_jpeg2000(data)
+    if data.startswith(b"\x00\x00\x01\x00"):
+        return decode_ico(data)
+    if data.startswith(b"\x00\x00\x02\x00"):
+        return decode_cur(data)
+    if len(data) >= 2 and data[0:1] == b"P" and data[1] in b"0123456fy7F":  # P7 and PF: refused, as by PIL
+        return decode_ppm(data)
     if len(data) >= 12 and data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis", b"heic", b"mif1"):
         name = "AVIF"
     else:

@@ -33,6 +33,16 @@ Each image is a seeded smooth procedural RGB image with mild noise (the
     old-style LZW, LAB planes and a LAB grid through PIL's littleCMS
     transform, ZSTD, CCITT RLEW, ThunderScan, old-style JPEG; four 1024x768
     timing files), with the sha256 of PIL's decode;
+  * "jpeg2000": a file PIL wrote over its save options, or one OpenJPEG's
+    own encoder wrote (`opj_encode`, PIL's bundled libopenjp2 through
+    ctypes: code-block styles, SOP / EPH, POC, RGN, tile-parts, sub-sampled
+    and 4-component images, precisions), rewritten by `to_packed` (PPM /
+    PPT) or `add_tlm`, or wrapped by `jp2_file` (sYCC, CMYK, a palette,
+    bpcc, cdef, res, xml, an ICC colour box); two 1024x768 timing files;
+  * "ico" / "cur": PIL's ICO save (PNG and DIB entries), a directory over two
+    DIBs of one size, a CUR from PIL's DIB ICO (`ico_fixture`);
+  * "ppm": PIL's PPM save and `ppm_fixture`'s raw and plain files of every
+    magic PIL opens and every maxval kind;
   * "encode": a committed pixel array (`encode_pixels.npz`) with the sha256
     of PIL's default `save(format="JPEG")` of it.
 `tests/test_torch_jpeg.py` checks the committed bytes against the manifest
@@ -1893,6 +1903,457 @@ def coded_jpeg(size, seed: int, opts: dict, lossless: bool) -> bytes:
     return write_lossless_jpeg(rgb, predictor, pt, marker=opts.pop("marker", "none"), **opts)
 
 
+# ------------------------------------------------------------- JPEG 2000 ----
+# name, (W, H), seed, writer, options. "pil": PIL's save (mode, save options);
+# "opj": OpenJPEG 2.5.4's own encoder, the one PIL bundles, driven through
+# ctypes (`opj_encode`) for what PIL's save does not expose (code-block
+# styles, SOP / EPH, POC, RGN, tile-parts, sub-sampled components, precision),
+# then `to_ppm` / `to_ppt` / `add_tlm` rewrite the codestream and `jp2_file`
+# wraps it in JP2 boxes (sYCC, CMYK, a palette, bpcc, cdef, res, xml, an ICC
+# colr); "smooth" images have no noise (the 1024x768 timing files).
+J2K_POCS = [(1, 0, 0, 1, 3, 3, "RLCP"), (1, 0, 0, 2, 3, 3, "CPRL")]
+J2KS = [
+    ("j2k_pil_rgb_67x45.jp2", (67, 45), 600, "pil", {}),
+    ("j2k_pil_l_signed_33x17.j2k", (33, 17), 601, "pil", {"mode": "L", "signed": True, "no_jp2": True}),
+    ("j2k_pil_la_33x17.jp2", (33, 17), 602, "pil", {"mode": "LA"}),
+    ("j2k_pil_rgba_tiles_offset_67x45.jp2", (67, 45), 603, "pil",
+     {"mode": "RGBA", "tile_size": (32, 32), "tile_offset": (5, 7), "offset": (9, 11)}),
+    ("j2k_pil_i16_33x17.jp2", (33, 17), 604, "pil", {"mode": "I;16"}),
+    ("j2k_pil_97_layers_67x45.jp2", (67, 45), 605, "pil",
+     {"irreversible": True, "quality_layers": [40, 20, 10], "quality_mode": "rates"}),
+    ("j2k_pil_97_db_rpcl_67x45.j2k", (67, 45), 606, "pil",
+     {"irreversible": True, "quality_layers": [30, 38], "quality_mode": "dB", "progression": "RPCL",
+      "precinct_size": (32, 32), "codeblock_size": (16, 16), "no_jp2": True}),
+    ("j2k_pil_cprl_nomct_res2_plt_67x45.jp2", (67, 45), 607, "pil",
+     {"progression": "CPRL", "mct": 0, "num_resolutions": 2, "plt": True}),
+    ("j2k_pil_pcrl_rlcp_layers_67x45.j2k", (67, 45), 608, "pil",
+     {"progression": "PCRL", "quality_layers": [30, 10], "quality_mode": "rates", "no_jp2": True}),
+    ("j2k_lossless_1024x768.jp2", (1024, 768), 609, "pil", {"smooth": True}),
+    ("j2k_97_layers_1024x768.jp2", (1024, 768), 610, "pil",
+     {"smooth": True, "irreversible": True, "quality_layers": [80, 40, 20], "quality_mode": "rates"}),
+    ("j2k_opj_bypass_termall_41x27.j2k", (41, 27), 620, "opj", {"mode": 1 | 4, "cblk": (8, 8), "rates": (8, 3)}),
+    ("j2k_opj_reset_vsc_segsym_97_41x27.j2k", (41, 27), 621, "opj",
+     {"mode": 2 | 8 | 32, "irreversible": True, "rates": (8, 3), "cblk": (8, 8)}),
+    ("j2k_opj_all_styles_roi_poc_41x27.j2k", (41, 27), 622, "opj",
+     {"mode": 63, "irreversible": True, "rates": (8, 3), "cblk": (8, 8), "roi": (0, 5), "pocs": J2K_POCS}),
+    ("j2k_opj_pterm_lazy_layers_41x27.j2k", (41, 27), 623, "opj", {"mode": 1 | 16, "rates": (10, 4, 2)}),
+    ("j2k_opj_sop_eph_41x27.j2k", (41, 27), 624, "opj", {"csty": 6, "rates": (8, 3)}),
+    ("j2k_opj_poc_tiles_67x45.j2k", (67, 45), 625, "opj",
+     {"tile": (32, 32), "rates": (20, 8), "numres": 4,
+      "pocs": [(1, 0, 0, 1, 4, 3, "LRCP"), (1, 0, 0, 2, 4, 2, "PCRL"), (2, 1, 1, 2, 4, 3, "RPCL")]}),
+    ("j2k_opj_rgn_97_41x27.j2k", (41, 27), 626, "opj", {"roi": (1, 12), "irreversible": True, "rates": (10,)}),
+    ("j2k_opj_tileparts_tlm_41x27.j2k", (41, 27), 627, "opj",
+     {"tile": (16, 16), "tp_flag": "R", "prog": "RPCL", "rates": (4, 2), "numres": 3, "tlm": True}),
+    ("j2k_opj_ppm_41x27.j2k", (41, 27), 628, "opj",
+     {"csty": 6, "rates": (8, 3), "cblk": (8, 8), "packed": "ppm", "chunk": 50}),
+    ("j2k_opj_ppt_tiles_41x27.j2k", (41, 27), 629, "opj",
+     {"csty": 6, "rates": (8, 3), "tile": (16, 16), "packed": "ppt", "keep_markers": True, "chunk": 19}),
+    ("j2k_opj_sycc420_40x26.jp2", (40, 26), 630, "opj", {"ycc": True, "sub": (2, 2), "colr": 18}),
+    ("j2k_opj_sub420_41x27.j2k", (41, 27), 631, "opj", {"ycc": True, "sub": (2, 2)}),
+    ("j2k_opj_srgb_sub422_40x27.jp2", (40, 27), 632, "opj", {"sub": (2, 1), "colr": 16}),
+    ("j2k_opj_cmyk_41x27.jp2", (41, 27), 633, "opj", {"cmyk": True, "colr": 12}),
+    ("j2k_opj_palette_41x27.jp2", (41, 27), 634, "opj", {"palette": 14, "colr": 16}),
+    ("j2k_opj_prec_bpcc_41x27.jp2", (41, 27), 635, "opj", {"prec": (6, 8, 12), "colr": 16}),
+    ("j2k_opj_boxes_icc_41x27.jp2", (41, 27), 636, "opj", {"boxes": True}),
+    ("j2k_opj_grey4_41x27.j2k", (41, 27), 637, "opj", {"grey_prec": 4}),
+]
+
+
+def _opj():
+    """PIL's bundled libopenjp2 (2.5.4) with the encoder's structs, its
+    parameters' layout checked against opj_set_default_encoder_parameters."""
+    import ctypes
+    import glob
+
+    from ctypes import POINTER, c_char, c_char_p, c_float, c_int, c_int32, c_uint16, c_uint32, c_void_p
+
+    import PIL
+
+    class Poc(ctypes.Structure):
+        _fields_ = [(n, c_uint32) for n in ("resno0", "compno0", "layno1", "resno1", "compno1", "layno0",
+                                            "precno0", "precno1")] + [
+            ("prg1", c_int), ("prg", c_int), ("progorder", c_char * 5), ("tile", c_uint32),
+            ("tx0", c_int32), ("tx1", c_int32), ("ty0", c_int32), ("ty1", c_int32)] + [
+            (n, c_uint32) for n in ("layS", "resS", "compS", "prcS", "layE", "resE", "compE", "prcE", "txS", "txE",
+                                    "tyS", "tyE", "dx", "dy", "lay_t", "res_t", "comp_t", "prc_t", "tx0_t", "ty0_t")]
+
+    class CParams(ctypes.Structure):  # opj_cparameters_t, then room for fields this layout may lack
+        _fields_ = [("tile_size_on", c_int), ("cp_tx0", c_int), ("cp_ty0", c_int), ("cp_tdx", c_int),
+                    ("cp_tdy", c_int), ("cp_disto_alloc", c_int), ("cp_fixed_alloc", c_int),
+                    ("cp_fixed_quality", c_int), ("cp_matrice", c_void_p), ("cp_comment", c_char_p), ("csty", c_int),
+                    ("prog_order", c_int), ("POC", Poc * 32), ("numpocs", c_uint32), ("tcp_numlayers", c_int),
+                    ("tcp_rates", c_float * 100), ("tcp_distoratio", c_float * 100), ("numresolution", c_int),
+                    ("cblockw_init", c_int), ("cblockh_init", c_int), ("mode", c_int), ("irreversible", c_int),
+                    ("roi_compno", c_int), ("roi_shift", c_int), ("res_spec", c_int), ("prcw_init", c_int * 33),
+                    ("prch_init", c_int * 33), ("infile", c_char * 4096), ("outfile", c_char * 4096),
+                    ("index_on", c_int), ("index", c_char * 4096), ("image_offset_x0", c_int),
+                    ("image_offset_y0", c_int), ("subsampling_dx", c_int), ("subsampling_dy", c_int),
+                    ("decod_format", c_int), ("cod_format", c_int), ("jpwl", c_int * 134), ("cp_cinema", c_int),
+                    ("max_comp_size", c_int), ("cp_rsiz", c_int), ("tp_on", c_char), ("tp_flag", c_char),
+                    ("tcp_mct", c_char), ("jpip_on", c_int), ("mct_data", c_void_p), ("max_cs_size", c_int),
+                    ("rsiz", c_uint16), ("_room", ctypes.c_uint8 * 65536)]
+
+    class CmptParm(ctypes.Structure):
+        _fields_ = [(n, c_uint32) for n in ("dx", "dy", "w", "h", "x0", "y0", "prec", "bpp", "sgnd")]
+
+    class ImageComp(ctypes.Structure):
+        _fields_ = [(n, c_uint32) for n in ("dx", "dy", "w", "h", "x0", "y0", "prec", "bpp", "sgnd",
+                                            "resno_decoded", "factor")] + [("data", POINTER(c_int32)),
+                                                                          ("alpha", c_uint16)]
+
+    class OpjImage(ctypes.Structure):
+        _fields_ = [(n, c_uint32) for n in ("x0", "y0", "x1", "y1", "numcomps")] + [
+            ("color_space", c_int), ("comps", POINTER(ImageComp)), ("icc_profile_buf", c_void_p),
+            ("icc_profile_len", c_uint32)]
+
+    lib = ctypes.CDLL(glob.glob(os.path.join(os.path.dirname(PIL.__file__), "..", "pillow.libs",
+                                             "libopenjp2-*.so*"))[0])
+    lib.opj_image_create.restype = POINTER(OpjImage)
+    lib.opj_create_compress.restype = c_void_p
+    lib.opj_stream_create_default_file_stream.restype = c_void_p
+    lib.opj_setup_encoder.argtypes = [c_void_p, POINTER(CParams), POINTER(OpjImage)]
+    lib.opj_start_compress.argtypes = [c_void_p, POINTER(OpjImage), c_void_p]
+    lib.opj_encode.argtypes = lib.opj_end_compress.argtypes = [c_void_p, c_void_p]
+    lib.opj_stream_destroy.argtypes = lib.opj_destroy_codec.argtypes = [c_void_p]
+    lib.opj_image_destroy.argtypes = [POINTER(OpjImage)]
+    p = CParams()
+    lib.opj_set_default_encoder_parameters(ctypes.byref(p))
+    assert (p.numresolution, p.cblockw_init, p.cblockh_init, p.roi_compno, p.subsampling_dx, p.subsampling_dy,
+            p.decod_format, p.cod_format) == (6, 64, 64, -1, 1, 1, -1, -1), "opj_cparameters_t layout"
+    return lib, CParams, CmptParm
+
+
+_PROG = {"LRCP": 0, "RLCP": 1, "RPCL": 2, "PCRL": 3, "CPRL": 4}
+
+
+def opj_encode(planes, sub=None, prec=8, irreversible=False, numres=3, cblk=(64, 64), mode=0, csty=0, prog="LRCP",
+               pocs=(), roi=None, tile=None, rates=(), mct=None, tp_flag=None) -> bytes:
+    """A J2K codestream of `planes` (one 2-D int array a component, each at its
+    sub-sampled size; `sub` = (dx, dy) a component) from OpenJPEG's encoder:
+    code-block style bits `mode` (1 bypass, 2 reset, 4 terminate each pass, 8
+    vertically causal, 16 predictable termination, 32 segmentation symbols),
+    Scod `csty` (2 SOP, 4 EPH), POCs (tile from 1, resno0, compno0, layno1,
+    resno1, compno1, order), ROI (component, shift), tiles, tile-parts by
+    `tp_flag` ("R", "L" or "C"), layer rates."""
+    import ctypes
+    import tempfile
+
+    lib, CParams, CmptParm = _opj()
+    n = len(planes)
+    sub = sub or [(1, 1)] * n
+    parms = (CmptParm * n)()
+    for i, plane in enumerate(planes):
+        parms[i].dx, parms[i].dy = sub[i]
+        parms[i].h, parms[i].w = plane.shape
+        parms[i].prec = parms[i].bpp = prec[i] if isinstance(prec, (list, tuple)) else prec
+    img = lib.opj_image_create(n, parms, 1)  # OPJ_CLRSPC_SRGB
+    im = img.contents
+    im.x1, im.y1 = planes[0].shape[1] * sub[0][0], planes[0].shape[0] * sub[0][1]
+    for i, plane in enumerate(planes):
+        flat = np.ascontiguousarray(plane, np.int32).ravel()
+        ctypes.memmove(im.comps[i].data, flat.ctypes.data, flat.nbytes)
+    p = CParams()
+    lib.opj_set_default_encoder_parameters(ctypes.byref(p))
+    p.irreversible, p.numresolution, p.mode, p.csty, p.prog_order = int(irreversible), numres, mode, csty, _PROG[prog]
+    p.cblockw_init, p.cblockh_init = cblk
+    p.tcp_numlayers, p.cp_disto_alloc = max(1, len(rates)), 1
+    for i, r in enumerate(rates or (0,)):
+        p.tcp_rates[i] = r
+    if tile:
+        p.tile_size_on = 1
+        p.cp_tdx, p.cp_tdy = tile
+    for i, (t, r0, c0, l1, r1, c1, order) in enumerate(pocs):
+        q = p.POC[i]
+        q.tile, q.resno0, q.compno0, q.layno1, q.resno1, q.compno1 = t, r0, c0, l1, r1, c1
+        q.prg1, q.progorder = _PROG[order], order.encode()
+    p.numpocs = len(pocs)
+    if roi:
+        p.roi_compno, p.roi_shift = roi
+    if mct is not None:
+        p.tcp_mct = bytes([mct])
+    if tp_flag:
+        p.tp_on, p.tp_flag = b"\x01", tp_flag.encode()
+    codec = lib.opj_create_compress(0)  # OPJ_CODEC_J2K
+    assert lib.opj_setup_encoder(codec, ctypes.byref(p), img), "opj_setup_encoder"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "out.j2k")
+        stream = lib.opj_stream_create_default_file_stream(path.encode(), 0)
+        ok = lib.opj_start_compress(codec, img, stream) and lib.opj_encode(codec, stream) and \
+            lib.opj_end_compress(codec, stream)
+        lib.opj_stream_destroy(stream)
+        lib.opj_destroy_codec(codec)
+        lib.opj_image_destroy(img)
+        assert ok, "OpenJPEG failed to encode"
+        with open(path, "rb") as f:
+            return f.read()
+
+
+def j2k_split(cs: bytes):
+    """A codestream -> ([main header segments], [(tile-part header segments,
+    body)]); a segment is (marker, its bytes)."""
+    def segments(pos, stop):
+        segs = []
+        while struct.unpack(">H", cs[pos:pos + 2])[0] != stop:
+            length = struct.unpack(">H", cs[pos + 2:pos + 4])[0]
+            segs.append((struct.unpack(">H", cs[pos:pos + 2])[0], cs[pos:pos + 2 + length]))
+            pos += 2 + length
+        return segs, pos
+
+    main, pos = segments(2, 0xFF90)
+    parts = []
+    while cs[pos:pos + 2] == b"\xff\x90":
+        start, psot = pos, struct.unpack(">I", cs[pos + 6:pos + 10])[0]
+        segs, pos = segments(pos, 0xFF93)
+        end = start + psot if psot else len(cs) - 2
+        parts.append((segs, cs[pos + 2:end]))
+        pos = end
+    return main, parts
+
+
+def j2k_join(main, parts) -> bytes:
+    """`j2k_split`'s pieces -> a codestream, each Psot set again."""
+    out = bytearray(b"\xff\x4f" + b"".join(s for _, s in main))
+    for segs, body in parts:
+        head = bytearray(b"".join(s for _, s in segs))
+        struct.pack_into(">I", head, 6, len(head) + 2 + len(body))
+        out += bytes(head) + b"\xff\x93" + body
+    return bytes(out + b"\xff\xd9")
+
+
+def _packets(body: bytes):
+    """A tile-part body written with SOP and EPH -> [(SOP, header with its
+    EPH, data)] (no 0xFF91 or 0xFF92 can occur inside a header or data)."""
+    out, pos = [], 0
+    while pos < len(body):
+        eph = body.index(b"\xff\x92", pos + 6) + 2
+        nxt = body.find(b"\xff\x91", eph)
+        nxt = len(body) if nxt < 0 else nxt
+        out.append((body[pos:pos + 6], body[pos + 6:eph], body[eph:nxt]))
+        pos = nxt
+    return out
+
+
+def to_packed(cs: bytes, where: str, keep_markers: bool = False, chunk: int = 60000) -> bytes:
+    """Moves the packet headers of a codestream written with SOP and EPH into
+    PPM markers of the main header (each tile-part's headers after its Nppm)
+    or PPT markers of each tile-part (Zppt counting on across a tile's
+    parts), `chunk` bytes a marker; without `keep_markers` SOP and EPH go and
+    Scod forgets them."""
+    main, parts = j2k_split(cs)
+    packed, new, zppt = b"", [], {}
+    for segs, body in parts:
+        pk = _packets(body)
+        heads = b"".join(h if keep_markers else h[:-2] for _, h, _ in pk)
+        data = b"".join((s if keep_markers else b"") + d for s, _, d in pk)
+        if where == "ppt":
+            tile = struct.unpack(">H", segs[0][1][4:6])[0]
+            for i in range(0, max(len(heads), 1), chunk):
+                z = zppt.get(tile, 0)
+                zppt[tile] = z + 1
+                c = heads[i:i + chunk]
+                segs = segs + [(0xFF61, b"\xff\x61" + struct.pack(">HB", len(c) + 3, z) + c)]
+        else:
+            packed += struct.pack(">I", len(heads)) + heads
+        new.append((segs, data))
+    if not keep_markers:
+        main = [(m, s[:4] + bytes([s[4] & ~6]) + s[5:]) if m == 0xFF52 else (m, s) for m, s in main]
+    if where == "ppm":
+        main = main + [(0xFF60, b"\xff\x60" + struct.pack(">HB", len(packed[i:i + chunk]) + 3, z) + packed[i:i + chunk])
+                       for z, i in enumerate(range(0, len(packed), chunk))]
+    return j2k_join(main, new)
+
+
+def add_tlm(cs: bytes) -> bytes:
+    """A TLM marker (16-bit tile indices, 32-bit lengths) of every tile-part."""
+    main, parts = j2k_split(cs)
+    body = b"".join(struct.pack(">HI", struct.unpack(">H", segs[0][1][4:6])[0],
+                                len(b"".join(s for _, s in segs)) + 2 + len(data)) for segs, data in parts)
+    return j2k_join(main + [(0xFF55, b"\xff\x55" + struct.pack(">HBB", len(body) + 4, 0, 0x60) + body)], parts)
+
+
+def jp2_box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def jp2_file(cs: bytes, w: int, h: int, nc: int, bpc: int = 7, colr=None, icc=None, pclr=None, cmap=None,
+             cdef=None, bpcc=None, extra=(), before=()) -> bytes:
+    """A JP2 file around codestream `cs`: signature, ftyp, then jp2h (ihdr,
+    bpcc, colr by enumeration or ICC, pclr (entries, depths), cmap, cdef,
+    `extra` boxes), boxes `before` it, and jp2c."""
+    head = jp2_box(b"ihdr", struct.pack(">IIHBBBB", h, w, nc, bpc, 7, 0, 0))
+    if bpcc is not None:
+        head += jp2_box(b"bpcc", bytes(bpcc))
+    if colr is not None:
+        head += jp2_box(b"colr", struct.pack(">BBBI", 1, 0, 0, colr))
+    if icc is not None:
+        head += jp2_box(b"colr", struct.pack(">BBB", 2, 0, 0) + icc)
+    if pclr is not None:
+        entries, depths = pclr
+        head += jp2_box(b"pclr", struct.pack(">HB", len(entries), len(depths)) + bytes(d - 1 for d in depths)
+                        + b"".join(bytes(e) for e in entries))
+    if cmap is not None:
+        head += jp2_box(b"cmap", b"".join(struct.pack(">HBB", *c) for c in cmap))
+    if cdef is not None:
+        head += jp2_box(b"cdef", struct.pack(">H", len(cdef)) + b"".join(struct.pack(">HHH", *c) for c in cdef))
+    head += b"".join(extra)
+    return (jp2_box(b"jP  ", b"\r\n\x87\n") + jp2_box(b"ftyp", b"jp2 \x00\x00\x00\x00jp2 ") + b"".join(before)
+            + jp2_box(b"jp2h", head) + jp2_box(b"jp2c", cs))
+
+
+def j2k_fixture(size, seed: int, writer: str, opts: dict) -> bytes:
+    """A JPEG 2000 file of a procedural image (see J2KS)."""
+    opts = dict(opts)
+    w, h = size
+    rgb = procedural(w, h, seed, 0.0 if opts.pop("smooth", False) else 6.0)
+    if writer == "pil":
+        buf = io.BytesIO()
+        mode = opts.pop("mode", "RGB")
+        img = (Image.fromarray(rgb[..., 0].astype(np.uint16) * 257) if mode == "I;16"
+               else Image.fromarray(rgb).convert(mode))
+        img.save(buf, format="JPEG2000", **opts)
+        return buf.getvalue()
+    a = rgb.astype(np.int64)
+    planes = [a[..., i] for i in range(3)]
+    colr = opts.pop("colr", None)
+    if opts.pop("ycc", False):
+        a = np.asarray(Image.fromarray(rgb).convert("YCbCr")).astype(np.int64)
+        planes = [a[..., i] for i in range(3)]
+    if "sub" in opts:
+        dx, dy = opts.pop("sub")
+        hh, ww = (h // dy) * dy, (w // dx) * dx if colr else w
+        if colr is None:  # odd sizes: the chroma planes' last column and row are ceil-sized
+            planes = [planes[0], planes[1][::dy, ::dx], planes[2][::dy, ::dx]]
+        else:
+            planes = [planes[0][:hh, :ww], planes[1][:hh:dy, :ww:dx], planes[2][:hh:dy, :ww:dx]]
+            w, h = ww, hh
+        cs = opj_encode(planes, sub=[(1, 1), (dx, dy), (dx, dy)], **opts)
+        return cs if colr is None else jp2_file(cs, w, h, 3, colr=colr)
+    if opts.pop("cmyk", False):
+        c = np.asarray(Image.fromarray(rgb).convert("CMYK")).astype(np.int64)
+        return jp2_file(opj_encode([c[..., i] for i in range(4)], **opts), w, h, 4, colr=colr)
+    n = opts.pop("palette", 0)
+    if n:
+        yy, xx = np.mgrid[0:h, 0:w]
+        idx = (xx // 5 + yy // 4) % n
+        pal = [((i * 18) % 256, (255 - i * 18) % 256, (i * 77) % 256) for i in range(n)]
+        pal[7] = pal[3]  # a repeated colour: Pillow's ImagePalette.getcolor merges it
+        return jp2_file(opj_encode([idx], **opts), w, h, 1, colr=colr, pclr=(pal, [8, 8, 8]),
+                        cmap=[(0, 1, k) for k in range(3)])
+    prec = opts.pop("prec", None)
+    if prec:
+        planes = [p >> (8 - b) if b < 8 else p << (b - 8) for p, b in zip(planes, prec)]
+        return jp2_file(opj_encode(planes, prec=list(prec), **opts), w, h, 3, bpc=255, bpcc=[b - 1 for b in prec],
+                        colr=colr)
+    if opts.pop("boxes", False):
+        cs = opj_encode(planes, mct=1, **opts)
+        res = jp2_box(b"res ", jp2_box(b"resc", struct.pack(">HHHHbb", 3, 1, 3, 1, 2, 2)))
+        return jp2_file(cs, w, h, 3, icc=bytes(range(40)), cdef=[(0, 0, 1), (1, 0, 2), (2, 0, 3)], extra=[res],
+                        before=[jp2_box(b"xml ", b"<image kind='fixture'/>")])
+    grey = opts.pop("grey_prec", 0)
+    if grey:
+        return opj_encode([planes[0] >> (8 - grey)], prec=grey, **opts)
+    packed, keep, chunk = opts.pop("packed", None), opts.pop("keep_markers", False), opts.pop("chunk", 60000)
+    tlm = opts.pop("tlm", False)
+    cs = opj_encode(planes, mct=1, **opts)
+    if packed:
+        cs = to_packed(cs, packed, keep, chunk)
+    return add_tlm(cs) if tlm else cs
+
+
+# ----------------------------------------------------------- ICO and CUR ----
+# name, seed, writer, options: "pil" (PIL's ICO save: sizes, bitmap_format,
+# mode), "tie" (one directory over two 32x32 DIBs of different depths, the
+# 32-bit one first: PIL loads the lower depth), "cur" (PIL's DIB ICO with
+# the CUR type, a later entry wider and taller than the first).
+ICOS = [
+    ("ico_png_sizes_48.ico", 640, "pil", {"sizes": [(16, 16), (48, 48), (32, 32)]}),
+    ("ico_bmp_p_sizes_48.ico", 641, "pil", {"sizes": [(16, 16), (48, 48)], "bitmap_format": "bmp", "mode": "P"}),
+    ("ico_bmp_1bit_32.ico", 642, "pil", {"sizes": [(32, 32)], "bitmap_format": "bmp", "mode": "1"}),
+    ("ico_bmp_rgba_256.ico", 643, "pil", {"sizes": [(32, 32), (256, 256)], "bitmap_format": "bmp", "mode": "RGBA"}),
+    ("ico_tie_depth_32.ico", 644, "tie", {}),
+    ("cur_bmp_p_48.cur", 645, "cur", {}),
+]
+
+
+def ico_fixture(seed: int, writer: str, opts: dict) -> bytes:
+    opts = dict(opts)
+    rgba = np.concatenate([procedural(256, 256, seed), procedural(256, 256, seed + 1)[..., :1]], axis=-1)
+    img = Image.fromarray(rgba, "RGBA")
+
+    def save(im, **kw):
+        buf = io.BytesIO()
+        im.save(buf, format="ICO", **kw)
+        return buf.getvalue()
+
+    if writer == "pil":
+        return save(img.convert(opts.pop("mode", "RGBA")), **opts)
+    if writer == "tie":
+        a = save(img, sizes=[(32, 32)], bitmap_format="bmp")
+        b = save(img.convert("P"), sizes=[(32, 32)], bitmap_format="bmp")
+        da, db = a[22:], b[22:]  # the DIBs after each one-entry directory
+        ea, eb = bytearray(a[6:22]), bytearray(b[6:22])
+        struct.pack_into("<I", ea, 12, 6 + 32)
+        struct.pack_into("<I", eb, 12, 6 + 32 + len(da))
+        return a[:4] + struct.pack("<H", 2) + bytes(ea) + bytes(eb) + da + db
+    data = bytearray(save(img.convert("P"), sizes=[(16, 16), (48, 48), (32, 32)], bitmap_format="bmp"))
+    data[2] = 2
+    return bytes(data)
+
+
+# -------------------------------------------------------------- PPM family ----
+# name, (W, H), seed, kind, options: "pil" (PIL's save of the mode), "raw"
+# (header + samples at `maxval`, one byte below 256, else two big-endian;
+# Pillow's own magics too), "plain" (P1-P3 text: comments, one inside a
+# token, P1 digits without separators), "pfm" (big-endian floats, scale 2.5).
+PPMS = [
+    ("ppm_p6_pil_9x7.ppm", (9, 7), 650, "pil", {"mode": "RGB"}),
+    ("ppm_p5_pil_9x7.pgm", (9, 7), 651, "pil", {"mode": "L"}),
+    ("ppm_p5_pil_i16_9x7.pgm", (9, 7), 652, "pil", {"mode": "I;16"}),
+    ("ppm_p4_pil_11x7.pbm", (11, 7), 653, "pil", {"mode": "1"}),
+    ("ppm_pf_pil_9x7.pfm", (9, 7), 654, "pil", {"mode": "F"}),
+    ("ppm_pf_bigendian_9x7.pfm", (9, 7), 655, "pfm", {}),
+    ("ppm_p6_maxval31_9x7.ppm", (9, 7), 656, "raw", {"magic": b"P6", "maxval": 31}),
+    ("ppm_p5_maxval1000_9x7.pgm", (9, 7), 657, "raw", {"magic": b"P5", "maxval": 1000}),
+    ("ppm_p6_maxval4095_9x7.ppm", (9, 7), 658, "raw", {"magic": b"P6", "maxval": 4095}),
+    ("ppm_p0cmyk_9x7.ppm", (9, 7), 659, "raw", {"magic": b"P0CMYK", "maxval": 255}),
+    ("ppm_pycmyk_maxval200_9x7.ppm", (9, 7), 660, "raw", {"magic": b"PyCMYK", "maxval": 200}),
+    ("ppm_pyrgba_9x7.ppm", (9, 7), 661, "raw", {"magic": b"PyRGBA", "maxval": 255}),
+    ("ppm_pyp_9x7.ppm", (9, 7), 662, "raw", {"magic": b"PyP", "maxval": 255}),
+    ("ppm_p1_plain_9x7.pbm", (9, 7), 663, "plain", {"magic": b"P1"}),
+    ("ppm_p2_plain_maxval1000_9x7.pgm", (9, 7), 664, "plain", {"magic": b"P2", "maxval": 1000}),
+    ("ppm_p3_plain_maxval100_9x7.ppm", (9, 7), 665, "plain", {"magic": b"P3", "maxval": 100}),
+]
+
+
+def ppm_fixture(size, seed: int, kind: str, opts: dict) -> bytes:
+    w, h = size
+    rgb = procedural(w, h, seed)
+    rng = np.random.default_rng(seed)
+    if kind == "pil":
+        mode = opts["mode"]
+        img = (Image.fromarray(rgb[..., 0].astype(np.uint16) * 250) if mode == "I;16" else
+               Image.fromarray(rgb[..., 0].astype(np.float32) * 1.3 - 20.5) if mode == "F" else
+               Image.fromarray(rgb).convert(mode))
+        buf = io.BytesIO()
+        img.save(buf, format="PPM")
+        return buf.getvalue()
+    if kind == "pfm":
+        return b"Pf\n%d %d\n2.5\n" % (w, h) + (rgb[::-1, :, 1].astype(">f4") * 1.1 - 3.7).tobytes()
+    magic, maxval = opts["magic"], opts.get("maxval", 1)
+    bands = {b"P1": 1, b"P2": 1, b"P3": 3, b"P5": 1, b"P6": 3, b"PyP": 1}.get(magic, 4)
+    v = rng.integers(0, maxval + 1, (h, w, bands))
+    if kind == "raw":
+        body = v.astype(np.uint8).tobytes() if maxval < 256 else v.astype(">u2").tobytes()
+        return magic + b" %d %d %d\n" % (w, h, maxval) + body
+    head = magic + b"\n# a comment\n%d %d\n" % (w, h) + (b"" if magic == b"P1" else b"%d # max\n" % maxval)
+    if magic == b"P1":  # digits without separators, then a comment, then spaced digits
+        flat = "".join(str(int(x)) for x in v.ravel())
+        return head + flat[:20].encode() + b"#c\n" + " ".join(flat[20:]).encode()
+    toks = [b"%d" % x for x in v.ravel()]
+    toks[5] = toks[5][:1] + b"#split\n" + toks[5][1:]  # a comment inside a token joins its halves
+    return head + b"\n".join(b" ".join(toks[i:i + 7]) for i in range(0, len(toks), 7))
+
+
 def resize_chain(img: Image.Image, chain: str) -> np.ndarray:
     for step in chain.split(","):
         img = img.resize(tuple(int(v) for v in step.split("x")))
@@ -1985,6 +2446,27 @@ def main() -> None:
         manifest[name] = {"kind": "png", "size": [19, 13], "color_type": color, "bit_depth": depth,
                           "interlace": interlace, "trns": trns, "file_sha256": hashlib.sha256(data).hexdigest(),
                           "decode_sha256": pil_decode_sha(data)}
+    for name, (w, h), seed, writer, opts in J2KS:
+        data = j2k_fixture((w, h), seed, writer, opts)
+        write(name, data)
+        manifest[name] = {"kind": "jpeg2000", "size": [w, h], "seed": seed, "writer": writer,
+                          "save": {k: v if isinstance(v, (int, float, str, bool, type(None))) else repr(v)
+                                   for k, v in opts.items()},
+                          "file_sha256": hashlib.sha256(data).hexdigest(), "decode_sha256": pil_decode_sha(data)}
+    for name, seed, writer, opts in ICOS:
+        data = ico_fixture(seed, writer, opts)
+        write(name, data)
+        w, h = Image.open(io.BytesIO(data)).size
+        manifest[name] = {"kind": "cur" if name.endswith(".cur") else "ico", "size": [w, h], "seed": seed,
+                          "writer": writer,
+                          "save": {k: repr(v) if isinstance(v, list) else v for k, v in opts.items()},
+                          "file_sha256": hashlib.sha256(data).hexdigest(), "decode_sha256": pil_decode_sha(data)}
+    for name, (w, h), seed, kind, opts in PPMS:
+        data = ppm_fixture((w, h), seed, kind, opts)
+        write(name, data)
+        manifest[name] = {"kind": "ppm", "size": [w, h], "seed": seed, "writer": kind,
+                          "save": {k: v.decode() if isinstance(v, bytes) else v for k, v in opts.items()},
+                          "file_sha256": hashlib.sha256(data).hexdigest(), "decode_sha256": pil_decode_sha(data)}
     pixels = {f"{w}x{h}": procedural(w, h, 200 + i) for i, (w, h) in enumerate(ENCODE_SIZES)}
     np.savez(os.path.join(HERE, "encode_pixels.npz"), **pixels)
     for key, arr in pixels.items():

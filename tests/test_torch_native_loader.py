@@ -96,9 +96,9 @@ def test_corrupt_sample_is_skipped_and_unsupported_raises(tmp_path):
     """A sample whose image does not decode is skipped, as in the JAX
     package; an arithmetic-coded JPEG (a baseline file with its SOF0 marker
     made SOF9), which the port once refused, now decodes to PIL's pixels;
-    a GIF and a TIFF, which the port once refused, now decode to PIL's
-    pixels too; a format the port does not read yet (ICO) raises ValueError
-    naming it, so its sample is skipped."""
+    a GIF, a TIFF and an ICO, which the port once refused, now decode to
+    PIL's pixels too; a format the port does not read yet (AVIF) raises
+    ValueError naming it, so its sample is skipped."""
     path = str(tmp_path / "mixed.tar")
     png = encode_png(np.zeros((4, 4, 3), np.uint8))
     bad_jpeg = b"\xff\xd8\xff\xdb\x00\x03"  # a DQT segment cut short
@@ -129,8 +129,12 @@ def test_corrupt_sample_is_skipped_and_unsupported_raises(tmp_path):
     (sample,) = tdata.iter_tar_samples(path)
     np.testing.assert_array_equal(sample.good, np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB")))
     buf = io.BytesIO()
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format="ICO")
-    with pytest.raises(ValueError, match="ICO images are not read by the port yet"):
+    Image.fromarray(np.arange(192, dtype=np.uint8).reshape(8, 8, 3)).save(buf, format="ICO", sizes=[(8, 8)])
+    np.testing.assert_array_equal(tdata.decode_image(buf.getvalue()),
+                                  np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB")))
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format="AVIF")
+    with pytest.raises(ValueError, match="AVIF images are not read by the port yet"):
         tdata.decode_image(buf.getvalue())
     _write_tar(path, tarfile.PAX_FORMAT, [("000000.good_image.jpg", buf.getvalue()),
                                           ("000000.bad_image.png", png)])

@@ -472,6 +472,25 @@ def test_decode_image_dispatches_every_signature():
     head = struct.pack("<2sHI", b"II", 42, 8)
     with pytest.raises(ValueError, match="TIFF"):
         tdata.decode_image(head)
+    # JPEG 2000 (JP2 and J2K), ICO, CUR and the PPM family, by their signatures as PIL tells them
+    counts = dict(image_io.calls)
+    for no_jp2 in (False, True):
+        buf = io.BytesIO()
+        Image.fromarray(RGB).save(buf, format="JPEG2000", no_jp2=no_jp2)
+        np.testing.assert_array_equal(tdata.decode_image(buf.getvalue()), RGB)
+    buf = io.BytesIO()
+    Image.fromarray(RGB).save(buf, format="ICO", sizes=[(16, 16)], bitmap_format="bmp")
+    ico = buf.getvalue()
+    np.testing.assert_array_equal(tdata.decode_image(ico), _pil(ico))
+    np.testing.assert_array_equal(tdata.decode_image(b"\x00\x00\x02\x00" + ico[4:]), _pil(ico))
+    for magic in (b"P6", b"PyRGBA"):
+        data = magic + b" 37 23 255\n" + (RGB if magic == b"P6" else np.dstack([RGB, RGB[..., :1]])).tobytes()
+        np.testing.assert_array_equal(tdata.decode_image(data), RGB)
+    for kind, n in (("decode_jpeg2000", 2), ("decode_dib", 2), ("decode_ppm", 2)):
+        assert image_io.calls[kind] == counts.get(kind, 0) + n, kind
+    for data in (b"P7\nWIDTH 1\n", b"PF 1 1 -1\n" + bytes(12)):
+        with pytest.raises(ValueError, match="as PIL refuses it"):
+            tdata.decode_image(data)
 
 
 def test_chip_smoke_tiff_writer_is_read_back_by_pil():

@@ -160,6 +160,12 @@ def test_other_formats_raise_naming_them(head, name):
         with pytest.raises(ValueError, match="no image in the TIFF file"):
             tdata.decode_image(head + bytes(64))
         return
+    if name in ("ICO", "PPM"):  # read since ICO and PPM support: no entries, a header of NUL bytes
+        with pytest.raises(Exception):
+            Image.open(io.BytesIO(head + bytes(64))).load()
+        with pytest.raises(ValueError, match="empty ICO / CUR directory" if name == "ICO" else "Token too long"):
+            tdata.decode_image(head + bytes(64))
+        return
     with pytest.raises(ValueError, match=f"{name} images are not read by the port yet"):
         tdata.decode_image(head + bytes(64))
 
