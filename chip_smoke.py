@@ -12,7 +12,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (`csrc/norm_rope.cu`), K8 (`csrc/flash_fwd_int8.cu`) and K9
      (`csrc/flash_fwd_nr.cu`) into `.build/kernels/`, one nvcc per source,
      all started together, and with g++ beside them the host image codecs
-     (`csrc/host/image_io.cpp`, `bmp.cpp`, `webp.cpp`, `gif.cpp`) and the native tar indexer
+     (`csrc/host/`: `image_io.SOURCES`, one g++ each) and the native tar indexer
      (`native/genref_loader.cpp`) into `.build/host/`; prints ptxas's
      registers and spills per kernel;
      checks that each kernel on the Hopper pipelines `csrc/flash_fwd_sm90.cuh`
@@ -113,8 +113,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      JPEG 2000 (PIL-written JP2 and J2K over its options; OpenJPEG-written
      code-block styles, SOP / EPH, POC, RGN, tile-parts and TLM, PPM / PPT
      packet headers, sub-sampled sYCC, CMYK, a palette, bpcc, boxes), ICO and
-     CUR (PNG and DIB entries) and the PPM family (P1-P6 plain and raw at
-     every maxval kind, Pf, P0CMYK, PyP, PyRGBA, PyCMYK); a
+     CUR (PNG and DIB entries), the PPM family (P1-P6 plain and raw at
+     every maxval kind, Pf, P0CMYK, PyP, PyRGBA, PyCMYK), TGA (PIL-written
+     over every mode, RLE and orientation; colour-map starts, 16-bit maps,
+     flips), PSD (every colour mode, raw and PackBits), QOI and DDS
+     (PIL-written DXT1/3/5, BC2/3/5 and uncompressed kinds; BC4, BC5S,
+     BC6H and BC7 blocks numpy drew); a
      JPEG's `resize_bicubic` gives the manifest's PIL resize hashes at the
      paired-crop shapes and equals `resize_ref` bit for bit; `encode_jpeg` of
      each committed pixel array gives the sha256 of PIL's default save; the
@@ -131,18 +135,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      predictor 2, YCbCr 4:2:0 JPEG, ZSTD with predictor 2 and old-style JPEG
      4:2:0 from the fixtures; JPEG 2000 lossless and 9/7 in three rate
      layers from the fixtures, the median of SLOW_REPS runs; a 256x256 32-bit
-     DIB ICO); a GenRef-format tar of
+     DIB ICO; an RLE TGA, a PackBits PSD and a QOI file written here from the
+     decoded baseline (each decoding to it bit for bit) and a BC7 DDS of
+     blocks numpy draws from DDS_TIMING's seed, whose decode equals PIL's hash
+     in tests/data/torch_jpeg/generated.json); a GenRef-format tar of
      GENREF_SAMPLES samples (the 1024^2 fixtures good, the 1024x768 one bad,
      sample TIFF_SAMPLE's bad member a PackBits TIFF of its decoded pixels,
      sample JP2_SAMPLE's the 1024x768 9/7 JP2 fixture in three layers,
+     sample TGA_SAMPLE's the RLE TGA (a format with no signature),
      subsets general / length / rule / editing, every other sample's
      members under PAX long names) indexed by `utils/native.py`; one
      `GenRefDataset` batch (B=8, 512 px, condition 512, the train CLI's
      GenRef subset schedule) timed alone and split into decode, resize and
      the rest; then `train()` for 3 steps from that shard at TrainConfig's
      defaults: phase 5b's checks and launch counts (342 K1, 171 K6a, 171 K6b),
-     no `tarfile` read and no native fallback, JPEG decodes counted, TIFF
-     and JPEG 2000 decodes counted (the TIFF and JP2 samples were read);
+     no `tarfile` read and no native fallback, JPEG decodes counted, TIFF,
+     JPEG 2000 and TGA decodes counted (the TIFF, JP2 and TGA samples were
+     read);
      prints s/step and the
      data's share of it;
   5c. the training validation hook (`make_validation_hook`) once on the
@@ -447,6 +456,7 @@ GENREF_SAMPLES = 16  # phase 5e's shard: 2 batches at B=8
 # sample (i % 4 == 3), the subset the schedule draws with p = 0.7 at steps 0-2
 TIFF_SAMPLE = 3
 JP2_SAMPLE = 7  # and the one whose bad member is a JP2: the second "editing" sample
+TGA_SAMPLE = 11  # and a TGA, which has no signature: the third "editing" sample
 GENREF_REPS = 9  # phase 5e's host timings: the median of this many runs
 SLOW_REPS = 3  # ... and of the slow ones: JPEG 2000 decodes (0.1-0.25 s), the numpy Paeth loop (4 s)
 GENREF_SUBSETS = ("general", "length", "rule", "editing")
@@ -481,6 +491,7 @@ KIND_FIXTURES = ("webp_lossy_1024x768_q75.webp", "webp_lossless_1024x768_m4.webp
                  "tiff_lzw_pred2_1024x768.tif", "tiff_jpeg_ycbcr_420_1024x768.tif", "tiff_zstd_1024x768.tif",
                  "tiff_ojpeg_420_1024x768.tif", "ico_bmp_rgba_256.ico")
 J2K_KIND_FIXTURES = ("j2k_lossless_1024x768.jp2", "j2k_97_layers_1024x768.jp2")
+DDS_TIMING = ("dds_bc7_1024x768", 820)  # phase 5e's BC7 file: its name in generated.json, its seed
 NVILA_INT8_TOL = 0.12  # phase 11: |W8A8 - bf16| of the yes and no logits (|logit| 0.03-0.70; read 0.060, 0.074)
 NVILA_TIMED_B = 2  # phase 11: the NVILA score pass timed at this batch
 NVILA_TIMED_REPS = 9  # phase 11: its repetitions, int8 and bf16 in turns; the median is kept
@@ -1718,7 +1729,8 @@ def _median_ms(fns: dict, reps: int) -> dict:
 
 def genref_fixtures(image_io) -> dict:
     """Every committed fixture: each image file (JPEG of every kind, PNG,
-    WebP, BMP, GIF, TIFF, JPEG 2000, ICO, CUR, PPM) decodes through `train/data.py::decode_image` to the sha256 of
+    WebP, BMP, GIF, TIFF, JPEG 2000, ICO, CUR, PPM, TGA, PSD, QOI, DDS)
+    decodes through `train/data.py::decode_image` to the sha256 of
     PIL's decode in the manifest (a WebP's RGBA too); a JPEG's resize chains
     give the manifest's PIL hashes and equal `resize_ref` bit for bit; the
     JPEG writer's bytes for each committed pixel array equal PIL's save.
@@ -1834,11 +1846,107 @@ def write_tiff_rgb(rgb, compression: int = 1, rows_per_strip: int = 64) -> bytes
     return b"II*\x00" + struct.pack("<I", ifd_at) + b"".join(chunks) + ifd + b"\0" * 4 + extra
 
 
+def write_tga_rle(rgb) -> bytes:
+    """(H, W, 3) uint8 RGB -> a 24-bit RLE TGA (type 10, top-down): a run
+    packet for 3 or more equal pixels in a row, literal packets of at most
+    128 pixels for the rest."""
+    import numpy as np
+
+    h, w = rgb.shape[:2]
+    bgr = np.ascontiguousarray(rgb[..., ::-1])
+    out = []
+    for y in range(h):
+        row = bgr[y]
+        change = np.flatnonzero((row[1:] != row[:-1]).any(1)) + 1
+        starts, ends = np.r_[0, change], np.r_[change, w]  # runs of equal pixels
+        lit = 0  # where the pending literal pixels start
+        for a, b in zip(starts.tolist(), ends.tolist()):
+            if b - a < 3:
+                continue
+            for k in range(lit, a, 128):
+                n = min(128, a - k)
+                out.append(bytes([n - 1]) + row[k:k + n].tobytes())
+            for k in range(a, b, 128):
+                out.append(bytes([0x80 | (min(128, b - k) - 1)]) + row[a].tobytes())
+            lit = b
+        for k in range(lit, w, 128):
+            n = min(128, w - k)
+            out.append(bytes([n - 1]) + row[k:k + n].tobytes())
+    return struct.pack("<BBBHHBHHHHBB", 0, 0, 10, 0, 0, 0, 0, 0, w, h, 24, 0x20) + b"".join(out)
+
+
+def write_psd_packbits(rgb) -> bytes:
+    """(H, W, 3) uint8 RGB -> a PSD's merged image, three planes in PackBits
+    rows of literal packets of 128 bytes, their byte counts first."""
+    import numpy as np
+
+    h, w = rgb.shape[:2]
+    full, rest = divmod(w, 128)
+    rows = []
+    for c in range(3):
+        plane = np.ascontiguousarray(rgb[..., c])
+        body = np.concatenate([np.full((h, full, 1), 127, np.uint8), plane[:, :full * 128].reshape(h, full, 128)], 2)
+        tail = np.concatenate([np.full((h, 1), rest - 1, np.uint8), plane[:, full * 128:]], 1) if rest else None
+        rows.append(body.reshape(h, -1) if tail is None else np.concatenate([body.reshape(h, -1), tail], 1))
+    rows = np.concatenate(rows)
+    head = b"8BPS" + struct.pack(">H6xHIIHH", 1, 3, h, w, 8, 3) + struct.pack(">III", 0, 0, 0)
+    counts = np.full(3 * h, rows.shape[1], ">u2").tobytes()
+    return head + struct.pack(">H", 1) + counts + rows.tobytes()
+
+
+def write_qoi(rgb) -> bytes:
+    """(H, W, 3) uint8 RGB -> QOI, 3 channels: runs of the previous pixel,
+    QOI_OP_DIFF or QOI_OP_LUMA where the step from it fits, else QOI_OP_RGB
+    (no index ops)."""
+    import numpy as np
+
+    h, w = rgb.shape[:2]
+    px = rgb.reshape(-1, 3).astype(np.int16)
+    n = len(px)
+    prev = np.concatenate([np.zeros((1, 3), np.int16), px[:-1]])  # the start pixel (0, 0, 0, 255)
+    same = (px == prev).all(1)
+    d = (px - prev + 128) % 256 - 128
+    dr, dg, db = d[:, 0], d[:, 1], d[:, 2]
+    diff = (np.abs(d + 0.5) <= 2).all(1)  # each step in -2..1
+    luma = ~diff & (dg >= -32) & (dg <= 31) & (np.abs(dr - dg + 0.5) <= 8) & (np.abs(db - dg + 0.5) <= 8)
+    idx = np.arange(n)
+    k = idx - np.maximum.accumulate(np.where(same, -1, idx)) - 1  # the place in a run of repeats
+    run_end = same & ((k % 62 == 61) | ~np.r_[same[1:], False])
+    ops = np.zeros((n, 4), np.int16)
+    ops[:, 0], ops[:, 1:] = 0xFE, px
+    lens = np.full(n, 4)
+    ops[luma, 0], ops[luma, 1] = 0x80 | (dg[luma] + 32), (dr - dg + 8)[luma] << 4 | (db - dg + 8)[luma]
+    lens[luma] = 2
+    ops[diff, 0] = 0x40 | (dr[diff] + 2) << 4 | (dg[diff] + 2) << 2 | (db[diff] + 2)
+    lens[diff] = 1
+    ops[same, 0] = 0xC0 | (k[same] % 62)
+    lens[same] = run_end[same]
+    body = ops.astype(np.uint8)[np.arange(4)[None, :] < lens[:, None]].tobytes()
+    return b"qoif" + struct.pack(">IIBB", w, h, 3, 0) + body + bytes(7) + b"\x01"
+
+
+def dds_timing_file() -> bytes:
+    """Phase 5e's 1024x768 BC7 DDS: blocks numpy draws from DDS_TIMING's seed,
+    each of BC7's eight modes equally often (tests/data/torch_jpeg/
+    make_fixtures.py writes the same file and PIL's decode hash of it)."""
+    import numpy as np
+
+    w, h, n = 1024, 768, 256 * 192
+    rng = np.random.default_rng(DDS_TIMING[1])
+    b = rng.integers(0, 256, (n, 16)).astype(np.uint8)
+    m = rng.integers(0, 8, n)
+    b[:, 0] = (b[:, 0] & ~((2 << m) - 1).astype(np.uint8)) | (1 << m).astype(np.uint8)
+    head = struct.pack("<4s7I44x", b"DDS ", 124, 0x1007, h, w, 0, 0, 0)
+    pf = struct.pack("<2I4s5I", 32, 0x4, b"DX10", 0, 0, 0, 0, 0)
+    return head + pf + struct.pack("<4I4x", 0x1000, 0, 0, 0) + struct.pack("<5I", 98, 3, 0, 1, 0) + b.tobytes()
+
+
 def write_genref_jpeg_shard(path: str, goods: list, bad: bytes, tiff: bytes | None = None,
-                            jp2: bytes | None = None) -> None:
+                            jp2: bytes | None = None, tga: bytes | None = None) -> None:
     """GENREF_SAMPLES GenRef samples of JPEG bytes (sample TIFF_SAMPLE's bad
-    member `tiff`, JP2_SAMPLE's `jp2`, when given); every other sample's
-    members sit under a directory name long enough to need PAX records."""
+    member `tiff`, JP2_SAMPLE's `jp2`, TGA_SAMPLE's `tga`, when given); every
+    other sample's members sit under a directory name long enough to need PAX
+    records."""
     import io
     import tarfile
 
@@ -1848,7 +1956,8 @@ def write_genref_jpeg_shard(path: str, goods: list, bad: bytes, tiff: bytes | No
             prefix = ("genref_" + "x" * 120 + "/") if i % 2 else ""
             files = {"good_image.jpg": goods[i % len(goods)],
                      "bad_image.jpg": (tiff if tiff is not None and i == TIFF_SAMPLE else
-                                       jp2 if jp2 is not None and i == JP2_SAMPLE else bad),
+                                       jp2 if jp2 is not None and i == JP2_SAMPLE else
+                                       tga if tga is not None and i == TGA_SAMPLE else bad),
                      "prompt.txt": f"a photo of object {i} on a table".encode(),
                      "reflection.txt": f"make object {i} sharper and correctly colored".encode(),
                      "subset.txt": GENREF_SUBSETS[i % len(GENREF_SUBSETS)].encode()}
@@ -1893,8 +2002,18 @@ def genref_phase(torch, pipe, card: str, host_build_s: float) -> dict:
     kind_data = {"jpeg_baseline": fixtures[bad_name][0], "bmp_24": write_bmp24(bad_rgb), "ppm_p6": write_ppm6(bad_rgb)}
     for kind, comp in (("tiff_raw", 1), ("tiff_packbits", 32773), ("tiff_adobe_deflate", 8), ("tiff_lzma", 34925)):
         kind_data[kind] = write_tiff_rgb(bad_rgb, comp)
-    for kind in ("bmp_24", "ppm_p6", "tiff_raw", "tiff_packbits", "tiff_adobe_deflate", "tiff_lzma"):
+    kind_data.update(tga_rle=write_tga_rle(bad_rgb), psd_packbits=write_psd_packbits(bad_rgb),
+                     qoi=write_qoi(bad_rgb))
+    for kind in ("bmp_24", "ppm_p6", "tiff_raw", "tiff_packbits", "tiff_adobe_deflate", "tiff_lzma", "tga_rle",
+                 "psd_packbits", "qoi"):
         check(bool((tdata.decode_image(kind_data[kind]) == bad_rgb).all()), f"{kind} round trip differs")
+    with open(os.path.join(FIXTURES, "generated.json")) as f:
+        want = json.load(f)[DDS_TIMING[0]]
+    import hashlib
+
+    kind_data["dds_bc7"] = dds_timing_file()
+    check(hashlib.sha256(kind_data["dds_bc7"]).hexdigest() == want["file_sha256"], "the BC7 DDS is not make_fixtures'")
+    check(_sha256(tdata.decode_image(kind_data["dds_bc7"])) == want["decode_sha256"], "BC7 DDS decode differs from PIL's")
     for name in KIND_FIXTURES:
         with open(os.path.join(FIXTURES, name), "rb") as f:
             kind_data[name] = f.read()
@@ -1923,7 +2042,8 @@ def genref_phase(torch, pipe, card: str, host_build_s: float) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         shard = os.path.join(tmp, "genref_jpeg_000.tar")
         write_genref_jpeg_shard(shard, [fixtures[n][0] for n in good_names], fixtures[bad_name][0],
-                                tiff=kind_data["tiff_packbits"], jp2=j2k_data["j2k_97_layers_1024x768.jp2"])
+                                tiff=kind_data["tiff_packbits"], jp2=j2k_data["j2k_97_layers_1024x768.jp2"],
+                                tga=kind_data["tga_rle"])
         idx = native.tar_index(shard)
         check(idx is not None and len(idx[0]) == 5 * GENREF_SAMPLES, "the native indexer did not take the shard")
         check(sum(len(n) > 100 for n in idx[0]) == 5 * (GENREF_SAMPLES // 2), "PAX long names not indexed")
@@ -1982,17 +2102,19 @@ def genref_phase(torch, pipe, card: str, host_build_s: float) -> dict:
         n_dec = image_io.calls["decode_jpeg"] - calls0.get("decode_jpeg", 0)
         n_tiff = image_io.calls["decode_tiff"] - calls0.get("decode_tiff", 0)
         n_jp2 = image_io.calls["decode_jpeg2000"] - calls0.get("decode_jpeg2000", 0)
+        n_tga = image_io.calls["decode_tga"] - calls0.get("decode_tga", 0)
         check(not opened and native.fallbacks == fallbacks0, f"tarfile opened {opened}; "
               f"fallbacks {native.fallbacks - fallbacks0}")
         check(n_dec > 0, "training decoded no JPEG")
         check(n_tiff > 0, f"training never read sample {TIFF_SAMPLE}'s TIFF")
         check(n_jp2 > 0, f"training never read sample {JP2_SAMPLE}'s JP2")
+        check(n_tga > 0, f"training never read sample {TGA_SAMPLE}'s TGA")
         check_train_launches(run["launches"], n_blocks, "genref train")
         data_s = run["data_s"][:TRAIN_STEPS]
         out.update(launches=run["launches"], s_per_step=run["s_per_step"], peak_gib=run["peak"] / 2**30,
                    losses=[r["loss"] for r in run["rows"]], step_time_s=[r["step_time_s"] for r in run["rows"]],
                    data_s_in_loop=data_s, jpeg_decodes_in_training=n_dec, tiff_decodes_in_training=n_tiff,
-                   jp2_decodes_in_training=n_jp2,
+                   jp2_decodes_in_training=n_jp2, tga_decodes_in_training=n_tga,
                    batch_share_of_step=batch_s / run["s_per_step"],
                    loop_data_share=statistics.mean(data_s[1:]) / run["s_per_step"])
         del run

@@ -43,6 +43,7 @@
 #include <string>
 #include <vector>
 
+#include "codec_common.h"
 #include "status.h"
 
 namespace {
@@ -1564,9 +1565,8 @@ class Decoder {
       // jdapimin.c: an Adobe transform other than 0 means YCCK (jdcolor.c
       // ycck_cmyk_convert), else straight CMYK. PIL reads the CMYK as "CMYK;I"
       // (every channel inverted, Adobe's polarity) and converts it to RGB by
-      // Convert.c cmyk2rgb: nk = 255 - k, out = nk - nk * c / 255 (MULDIV255).
+      // Convert.c cmyk2rgb (`cmyk_to_rgb`).
       const bool ycck = adobe_ && adobe_transform_ != 0;
-      auto muldiv255 = [](int a, int b) { int t = a * b + 128; return ((t >> 8) + t) >> 8; };
       for (int y = 0; y < H_; ++y) {
         const uint8_t *p0 = plane_row(0, y), *p1 = plane_row(1, y), *p2 = plane_row(2, y), *p3 = plane_row(3, y);
         uint8_t* o = out + static_cast<size_t>(y) * W_ * 3;
@@ -1578,8 +1578,7 @@ class Decoder {
             cmy[1] = clamp(255 - (yy + static_cast<int>((cb_g[cb] + cr_g[cr]) >> SB)));
             cmy[2] = clamp(255 - (yy + cb_b[cb]));
           }
-          int nk = p3[x];  // 255 - (255 - K)
-          for (int k = 0; k < 3; ++k) o[3 * x + k] = clamp(nk - muldiv255(255 - cmy[k], nk));
+          cmyk_to_rgb(255 - cmy[0], 255 - cmy[1], 255 - cmy[2], 255 - p3[x], o + 3 * x);
         }
       }
       return;

@@ -65,6 +65,7 @@
 #include <string>
 #include <vector>
 
+#include "codec_common.h"
 #include "status.h"
 
 namespace {
@@ -2345,16 +2346,9 @@ void to_rgb(PilImage& im, const std::vector<uint8_t>& palette, uint8_t* out) {
         case M_LA:
           o[0] = o[1] = o[2] = r[4 * x];
           break;
-        case M_CMYK: {
-          // Convert.c cmyk2rgb: nk - MULDIV255(c, nk)
-          const uint8_t* p = r + 4 * x;
-          int nk = 255 - p[3];
-          for (int k = 0; k < 3; ++k) {
-            int tmp = p[k] * nk + 128;
-            o[k] = clip8(nk - (((tmp >> 8) + tmp) >> 8));
-          }
+        case M_CMYK:
+          cmyk_to_rgb(r[4 * x], r[4 * x + 1], r[4 * x + 2], r[4 * x + 3], o);
           break;
-        }
         default:
           o[0] = r[4 * x], o[1] = r[4 * x + 1], o[2] = r[4 * x + 2];
       }

@@ -33,6 +33,7 @@
 #include <string>
 #include <vector>
 
+#include "codec_common.h"
 #include "status.h"
 
 namespace {
@@ -217,15 +218,9 @@ class Ppm {
         case MP:
           o[0] = o[1] = o[2] = 0;
           break;
-        case MCMYK: {
-          const int nk = 255 - static_cast<int>(p[3]);
-          for (int k = 0; k < 3; ++k) {
-            const int tmp = static_cast<int>(p[k]) * nk + 128;
-            const int v = nk - (((tmp >> 8) + tmp) >> 8);
-            o[k] = static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v);
-          }
+        case MCMYK:
+          cmyk_to_rgb(p[0], p[1], p[2], p[3], o);
           break;
-        }
         default:  // RGB, RGBA
           o[0] = static_cast<uint8_t>(p[0]), o[1] = static_cast<uint8_t>(p[1]), o[2] = static_cast<uint8_t>(p[2]);
       }

@@ -14,7 +14,7 @@ Host route: `build_host_all` compiles C++ sources that run on the CPU (the
 image codecs of `csrc/host/`, the repository's `native/genref_loader.cpp`)
 with `g++ -O3 -shared -fPIC -std=c++17` into
 `.build/host/<name>-<hash>/lib<name>.so`, keyed by the source, the headers
-beside it (`csrc/host/status.h`) and the flags,
+beside it (`csrc/host/*.h`) and the flags,
 through the same process-unique temporary file and rename; a missing compiler
 or a failed build raises, as on the nvcc route.
 """

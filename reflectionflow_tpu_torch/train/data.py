@@ -20,18 +20,19 @@ match the JAX package's run draw for draw:
     "{prompt} [Reflexion] {reflection}".
 
 The port's machine has no PIL: images are decoded by the port's own readers,
-told apart by their content as PIL tells them (`decode_image`: JPEG of every
-kind libjpeg-turbo reads, BMP, WebP, GIF, TIFF, JPEG 2000 (JP2 and J2K, as
-PIL reads them through OpenJPEG 2.5.4) and the PPM family through
-`utils/image_io.py`, bit-exact to PIL's decode; `decode_png`: every PNG colour
-type and bit depth, interlaced or not, as PIL converts it to RGB;
-`decode_ico` / `decode_cur`: the entry Pillow loads, a PNG or a DIB) and
-resized by its C++ copy of PIL's bicubic `Image.resize`, bit for bit. A
-sample whose image is corrupt, or of a format the port does not read yet
-(AVIF, TGA, ...: ROADMAP queue 1), raises ValueError and is skipped, as the
-JAX package skips what PIL cannot open. `write_synthetic_shard` writes the
-JAX package's shard byte for byte: its JPEG bytes are PIL's default save
-(`image_io.encode_jpeg`).
+told apart as PIL tells them, by its plugin order (`decode_image` over
+`utils/image_identify.py::identify`: JPEG of every kind libjpeg-turbo reads,
+BMP, WebP, GIF, TIFF, JPEG 2000 (JP2 and J2K, as PIL reads them through
+OpenJPEG 2.5.4), the PPM family, TGA (which has no signature), PSD's merged
+image, QOI and DDS through `utils/image_io.py`, bit-exact to PIL's decode;
+`decode_png`: every PNG colour type and bit depth, interlaced or not, as PIL
+converts it to RGB; `decode_ico` / `decode_cur`: the entry Pillow loads, a
+PNG or a DIB) and resized by its C++ copy of PIL's bicubic `Image.resize`,
+bit for bit. A sample whose image is corrupt, or of a format the port does
+not read yet (AVIF, ICNS, ...: ROADMAP queue 1), raises ValueError and is
+skipped, as the JAX package skips what PIL cannot open.
+`write_synthetic_shard` writes the JAX package's shard byte for byte: its
+JPEG bytes are PIL's default save (`image_io.encode_jpeg`).
 """
 
 from __future__ import annotations
@@ -48,8 +49,10 @@ from typing import Iterator
 import numpy as np
 
 from ..utils import native
-from ..utils.image_io import (decode_bmp, decode_dib, decode_gif, decode_jpeg, decode_jpeg2000, decode_ppm,
-                               decode_tiff, decode_webp, encode_jpeg, png_unfilter)
+from ..utils.image_identify import identify
+from ..utils.image_io import (decode_bmp, decode_dds, decode_dib, decode_gif, decode_jpeg, decode_jpeg2000,
+                               decode_ppm, decode_psd, decode_qoi, decode_tga, decode_tiff, decode_webp, encode_jpeg,
+                               png_unfilter)
 from ..utils.image_io import resize_bicubic as resize
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
@@ -146,20 +149,10 @@ def decode_png(data: bytes) -> np.ndarray:
     return _png_to_rgb(img, color, depth, palette)
 
 
-# TIFF's signatures as PIL accepts them: classic and BigTIFF in each byte
-# order, and the two classic ones with the magic's bytes swapped.
-_TIFF_MAGIC = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+", b"MM*\x00", b"II\x00*")
-
-_JP2_MAGIC = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
-
-# Signatures of the formats PIL opens that the port does not read (ROADMAP
-# queue 1), to name them when they are refused.
-_OTHER_FORMATS = (
-    (b"8BPS", "PSD"), (b"qoif", "QOI"), (b"DDS ", "DDS"), (b"icns", "ICNS"),
-    (b"\x01\xda", "SGI"), (b"\x59\xa6\x6a\x95", "Sun raster"), (b"SIMPLE", "FITS"), (b"%!PS", "EPS"),
-    (b"\xc5\xd0\xd3\xc6", "EPS"), (b"/* XPM */", "XPM"), (b"#define", "XBM"), (b"\xd7\xcd\xc6\x9a", "WMF"),
-    (b"BLP1", "BLP"), (b"BLP2", "BLP"), (b"\x89HDF", "HDF5"), (b"GRIB", "GRIB"), (b"BUFR", "BUFR"),
-)
+# The formats PIL opens that the port does not read yet, by `identify`'s
+# name: their ROADMAP queue 1 entries.
+_QUEUED = {"AVIF": 7, "ICNS": 15, "PCX": 16, "DCX": 16, "SGI": 17, "SUN": 17, "MSP": 17, "XBM": 17, "XPM": 17,
+           "BLP": 17, "FLI": 17}
 
 
 def _ico_entries(data: bytes) -> list[bytes]:
@@ -217,46 +210,40 @@ def decode_cur(data: bytes) -> np.ndarray:
     return decode_dib(data, struct.unpack_from("<I", best, 12)[0])[0]
 
 
+def _webp_rgb(data: bytes) -> np.ndarray:
+    return np.ascontiguousarray(decode_webp(data)[..., :3])
+
+
+# `identify`'s format -> the port's reader
+_READERS = {"JPEG": decode_jpeg, "PNG": decode_png, "BMP": decode_bmp, "GIF": decode_gif, "TIFF": decode_tiff,
+            "WEBP": _webp_rgb, "JPEG2000": decode_jpeg2000, "ICO": decode_ico, "CUR": decode_cur, "PPM": decode_ppm,
+            "TGA": decode_tga, "PSD": decode_psd, "QOI": decode_qoi, "DDS": decode_dds}
+
+
 def decode_image(data: bytes) -> np.ndarray:
     """Image bytes -> (H, W, 3) uint8 RGB, as PIL's
-    `Image.open(...).convert("RGB")` gives them. The format is told by the
-    content, as PIL tells it: JPEG, PNG, BMP, WebP, GIF (the first frame of
-    these two), TIFF (its first image, classic or BigTIFF, uncompressed or
-    PackBits, LZW, Deflate, LZMA, ZSTD, JPEG, old-style JPEG, ThunderScan or
-    CCITT RLE / RLEW / Group 3 / Group 4, transposed by its Orientation),
-    JPEG 2000 (a JP2 file or a J2K codestream), ICO, CUR and the PPM family
-    (P1-P6, Pf and Pillow's P0CMYK, PyP, PyRGBA, PyCMYK); what PIL refuses
-    raises ValueError "... as PIL refuses it", P7 (PAM) and PF among them. Any other
-    signature raises ValueError, naming the format where PIL opens it and the
-    port does not read it yet (ROADMAP queue 1)."""
-    if data.startswith(b"\xff\xd8"):
-        return decode_jpeg(data)
-    if data.startswith(_PNG_MAGIC):
-        return decode_png(data)
-    if data.startswith(b"BM"):
-        return decode_bmp(data)
-    if data.startswith((b"GIF87a", b"GIF89a")):
-        return decode_gif(data)
-    if data.startswith(_TIFF_MAGIC):
-        return decode_tiff(data)
-    if data.startswith(b"RIFF") and data[8:12] == b"WEBP":
-        return np.ascontiguousarray(decode_webp(data)[..., :3])
-    if data.startswith((b"\xffO\xffQ", _JP2_MAGIC)):
-        return decode_jpeg2000(data)
-    if data.startswith(b"\x00\x00\x01\x00"):
-        return decode_ico(data)
-    if data.startswith(b"\x00\x00\x02\x00"):
-        return decode_cur(data)
-    if len(data) >= 2 and data[0:1] == b"P" and data[1] in b"0123456fy7F":  # P7 and PF: refused, as by PIL
+    `Image.open(...).convert("RGB")` gives them. The format is the one PIL
+    opens the bytes as (`utils/image_identify.py::identify`, PIL's plugin
+    order): JPEG, PNG, BMP, WebP, GIF (the first frame of these two), TIFF
+    (its first image, classic or BigTIFF, uncompressed or PackBits, LZW,
+    Deflate, LZMA, ZSTD, JPEG, old-style JPEG, ThunderScan or CCITT RLE /
+    RLEW / Group 3 / Group 4, transposed by its Orientation), JPEG 2000 (a
+    JP2 file or a J2K codestream), ICO, CUR, the PPM family (P1-P6, Pf and
+    Pillow's P0CMYK, PyP, PyRGBA, PyCMYK), TGA (told apart by its header
+    alone), PSD's merged image, QOI and DDS (BC1-BC7 and the uncompressed
+    kinds); what PIL refuses raises ValueError "... as PIL refuses it", P7
+    (PAM) and PF among them. A format PIL opens that the port does not read
+    yet raises ValueError naming it and its ROADMAP queue 1 entry; bytes PIL
+    opens as nothing raise ValueError too."""
+    fmt = identify(data)
+    reader = _READERS.get(fmt)
+    if reader is not None:
+        return reader(data)
+    if data[:2] in (b"P7", b"PF"):  # PAM and colour PFM: decode_ppm raises as PIL refuses them
         return decode_ppm(data)
-    if len(data) >= 12 and data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis", b"heic", b"mif1"):
-        name = "AVIF"
-    else:
-        name = next((n for sig, n in _OTHER_FORMATS if data.startswith(sig)), None)
-    if name is None:
-        raise ValueError(f"not an image file the port identifies (starts {data[:12]!r}); PIL opens some "
-                         "formats without a signature (TGA, ...): ROADMAP queue 1")
-    raise ValueError(f"{name} images are not read by the port yet (ROADMAP queue 1)")
+    if fmt is None:
+        raise ValueError(f"not an image file PIL opens (starts {data[:12]!r})")
+    raise ValueError(f"{fmt} images are not read by the port yet (ROADMAP queue 1 entry {_QUEUED.get(fmt, 18)})")
 
 
 @dataclass

@@ -1,10 +1,11 @@
 """Host image codecs of the data path: JPEG, BMP (and an ICO / CUR entry's
-DIB), WebP, GIF, TIFF, JPEG 2000 and PPM decoding, Zstandard decompression,
-JPEG writing, PIL's bicubic resize and the PNG unfilter, in C++
-(`csrc/host/image_io.cpp`, `bmp.cpp`, `webp.cpp`, `gif.cpp`, `tiff.cpp`,
-`zstd.cpp`, `jpeg2000.cpp`, `ppm.cpp`, over `status.h`, built with g++ by
-`ops/kernel_build.py::build_host_all`, bound with ctypes), beside their plain
-numpy versions.
+DIB), WebP, GIF, TIFF, JPEG 2000, PPM, TGA, PSD, QOI and DDS decoding,
+Zstandard decompression, JPEG writing, PIL's bicubic resize and the PNG
+unfilter, in C++ (`csrc/host/image_io.cpp`, `bmp.cpp`, `webp.cpp`,
+`gif.cpp`, `tiff.cpp`, `zstd.cpp`, `jpeg2000.cpp`, `ppm.cpp`, `tga.cpp`,
+`psd.cpp`, `qoi.cpp`, `dds.cpp`, over `status.h`, `codec_common.h` and
+`bcn_tables.h`, built with g++ by `ops/kernel_build.py::build_host_all`,
+bound with ctypes), beside their plain numpy versions.
 
   * `decode_jpeg`: every JPEG PIL's libjpeg-turbo 3.1 decodes at 8 bits,
     bit-exact to PIL's `Image.open(...).convert("RGB")`: sequential and
@@ -31,6 +32,15 @@ numpy versions.
     covers raise ValueError citing ROADMAP queue 1 entry 8b.
   * `decode_ppm`: the PPM family as Pillow's PpmImagePlugin reads it (P1-P6
     plain and raw at any maxval, Pf, P0CMYK, PyP, PyRGBA, PyCMYK).
+  * `decode_tga`: TGA as Pillow's TgaImagePlugin reads it (types 1-3 and
+    their RLE forms, colour maps from any first entry, 15-bit pixels, both
+    orientations and the horizontal flip); TGA has no signature, and
+    `utils/image_identify.py` tells it apart as PIL's plugin order does.
+  * `decode_psd`: PSD's merged image (PsdImagePlugin's MODES, raw or
+    PackBits, LAB through the littleCMS copy, CMYK through cmyk2rgb).
+  * `decode_qoi`: QOI as Pillow's Python QoiDecoder reads it.
+  * `decode_dds`: a DDS file's first surface as DdsImagePlugin reads it
+    (bit masks, L, LA, P8, R8G8B8A8, BC1-BC7 as BcnDecode.c decodes them).
   * `decode_webp`: the first frame of a WebP file as libwebp's
     WebPAnimDecoder gives it to PIL (VP8 lossy with libwebp's fancy
     upsampling and fixed-point YUV -> RGB, VP8L lossless, ALPH), RGBA.
@@ -81,8 +91,10 @@ SOURCE = _HOST / "image_io.cpp"
 BMP_SOURCE, WEBP_SOURCE, GIF_SOURCE = _HOST / "bmp.cpp", _HOST / "webp.cpp", _HOST / "gif.cpp"
 TIFF_SOURCE, ZSTD_SOURCE = _HOST / "tiff.cpp", _HOST / "zstd.cpp"
 JPEG2000_SOURCE, PPM_SOURCE = _HOST / "jpeg2000.cpp", _HOST / "ppm.cpp"
+TGA_SOURCE, PSD_SOURCE, QOI_SOURCE, DDS_SOURCE = _HOST / "tga.cpp", _HOST / "psd.cpp", _HOST / "qoi.cpp", _HOST / "dds.cpp"
 # every host codec library, built together
-SOURCES = (SOURCE, BMP_SOURCE, WEBP_SOURCE, GIF_SOURCE, TIFF_SOURCE, ZSTD_SOURCE, JPEG2000_SOURCE, PPM_SOURCE)
+SOURCES = (SOURCE, BMP_SOURCE, WEBP_SOURCE, GIF_SOURCE, TIFF_SOURCE, ZSTD_SOURCE, JPEG2000_SOURCE, PPM_SOURCE,
+           TGA_SOURCE, PSD_SOURCE, QOI_SOURCE, DDS_SOURCE)
 _OK, _REFUSED, _NEED_BUFFER = 0, -3, 1  # rf_* return codes; any other is corrupt input
 _PRECISION_BITS = 32 - 8 - 2
 
@@ -186,6 +198,30 @@ def decode_ppm(data: bytes) -> np.ndarray:
     (H, W, 3) uint8 RGB, as PIL decodes them; P7 and PF raise ValueError, as
     PIL refuses them."""
     return _decode(PPM_SOURCE, "ppm", data, 3)
+
+
+def decode_tga(data: bytes) -> np.ndarray:
+    """TGA bytes -> (H, W, 3) uint8 RGB, as PIL decodes them (types 1, 2, 3
+    and their RLE forms; `train/data.py::identify` tells a TGA file apart,
+    which has no signature)."""
+    return _decode(TGA_SOURCE, "tga", data, 3)
+
+
+def decode_psd(data: bytes) -> np.ndarray:
+    """PSD bytes -> the (H, W, 3) uint8 RGB of the merged image, as PIL
+    decodes it (8-bit modes and bitmaps, raw or PackBits)."""
+    return _decode(PSD_SOURCE, "psd", data, 3)
+
+
+def decode_qoi(data: bytes) -> np.ndarray:
+    """QOI bytes -> (H, W, 3) uint8 RGB, as PIL's QoiDecoder decodes them."""
+    return _decode(QOI_SOURCE, "qoi", data, 3)
+
+
+def decode_dds(data: bytes) -> np.ndarray:
+    """DDS bytes -> the (H, W, 3) uint8 RGB of the first surface, as PIL
+    decodes it (uncompressed masks, L, LA, P8, BC1-BC7)."""
+    return _decode(DDS_SOURCE, "dds", data, 3)
 
 
 # rf_tiff_decode's inflate: (kind 8 zlib / 34925 xz, src, n, dst, cap) -> bytes written (at most cap), or

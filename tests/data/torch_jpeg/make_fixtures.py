@@ -2354,6 +2354,242 @@ def ppm_fixture(size, seed: int, kind: str, opts: dict) -> bytes:
     return head + b"\n".join(b" ".join(toks[i:i + 7]) for i in range(0, len(toks), 7))
 
 
+# ------------------------------------------------------------------ TGA ----
+# name, (W, H), seed, writer, options: "pil" (PIL's save of the mode, RLE on
+# or off, orientation 1 for top-down; not 1-bit RLE, which PIL refuses), "edit" (PIL's save, then the header's
+# flags, or a colour map start / depth rewritten), "rle_rows" (a hand-written
+# RLE file whose literal packets run on across rows).
+TGAS = ([(f"tga_pil_{m.lower()}{'_rle' if rle else ''}{'_topdown' if o > 0 else ''}_19x13.tga", (19, 13),
+          700 + 4 * i + 2 * rle + (o > 0), "pil", {"mode": m, "rle": rle, "orientation": o})
+         for i, m in enumerate(("1", "L", "LA", "P", "RGB", "RGBA")) for rle in (False, True) for o in (-1, 1)
+         if not (m == "1" and rle)]  # PIL cannot read its own 1-bit RLE files back (0 bytes a pixel)
+        + [("tga_flip_h_rgb_19x13.tga", (19, 13), 730, "edit", {"mode": "RGB", "flags": 0x10}),
+           ("tga_flip_hv_rgba_rle_19x13.tga", (19, 13), 731, "edit", {"mode": "RGBA", "rle": True, "flags": 0x38}),
+           ("tga_cmap_start5_24_19x13.tga", (19, 13), 732, "edit", {"mode": "P", "map_start": 5}),
+           ("tga_cmap16_19x13.tga", (19, 13), 733, "edit", {"mode": "P", "map_depth": 16}),
+           ("tga_cmap16_start3_rle_19x13.tga", (19, 13), 734, "edit", {"mode": "P", "map_depth": 16,
+                                                                          "map_start": 3, "rle": True}),
+           ("tga_rgb15_19x13.tga", (19, 13), 735, "edit", {"mode": "RGB", "depth": 16}),
+           ("tga_l_cmap_id_19x13.tga", (19, 13), 736, "edit", {"mode": "L", "grey_map": True, "id": b"port"}),
+           ("tga_rle_rows_rgb_19x13.tga", (19, 13), 737, "rle_rows", {})])
+
+
+def _tga_pil(rgb: np.ndarray, mode: str, **save) -> bytes:
+    img = Image.fromarray(rgb)
+    img = img.quantize(200) if mode == "P" else img.convert(mode if mode != "LA" and mode != "RGBA" else "RGBA")
+    if mode == "LA":
+        img = img.convert("LA")
+    buf = io.BytesIO()
+    img.save(buf, format="TGA", **save)
+    return buf.getvalue()
+
+
+def tga_fixture(size, seed: int, writer: str, opts: dict) -> bytes:
+    w, h = size
+    rgb = procedural(w, h, seed)
+    if writer == "pil":
+        return _tga_pil(rgb, opts["mode"], rle=opts["rle"], orientation=opts["orientation"])
+    if writer == "rle_rows":  # 24-bit RLE: literals of 5 pixels, runs of 3, crossing rows
+        px = rgb[::-1, :, ::-1].reshape(-1, 3)  # bottom-up BGR
+        out, i = bytearray(), 0
+        while i < len(px):
+            n = min(5, len(px) - i)
+            if n == 3 or (i // 8) % 2:  # a run of 3 equal pixels (the first repeated), within a row
+                n = min(3, len(px) - i, w - (i % w))
+                out += bytes([0x80 | (n - 1)]) + px[i].tobytes()
+            else:
+                out += bytes([n - 1]) + px[i:i + n].tobytes()
+            i += n
+        return struct.pack("<BBBHHBHHHHBB", 0, 0, 10, 0, 0, 0, 0, 0, w, h, 24, 0) + bytes(out)
+    data = bytearray(_tga_pil(rgb, opts["mode"], rle=opts.get("rle", False)))
+    if "flags" in opts:
+        data[17] = opts["flags"]
+    if opts.get("depth") == 16:  # 5-5-5 truecolor: rewrite the pixels
+        v = (rgb[::-1].astype(np.uint16) >> 3)
+        words = (v[..., 0] << 10 | v[..., 1] << 5 | v[..., 2] | 0x8000).astype("<u2")
+        return bytes(data[:16]) + bytes([16, 0]) + words.tobytes()
+    if opts.get("grey_map"):  # an L image with a 24-bit colour map (PIL turns it into P) and an ID field
+        ident = opts["id"]
+        pal = bytes(np.arange(256 * 3, dtype=np.uint32).astype(np.uint8)[::-1])
+        head = struct.pack("<BBBHHBHHHHBB", len(ident), 1, 3, 0, 256, 24, 0, 0, w, h, 8, 0)
+        return head + ident + pal + bytes(data[18:18 + w * h])
+    if "map_start" in opts or "map_depth" in opts:  # PIL writes a 24-bit map from index 0
+        count = struct.unpack_from("<H", data, 5)[0]
+        pal = np.frombuffer(bytes(data[18:18 + 3 * count]), np.uint8).reshape(-1, 3)  # BGR
+        start = opts.get("map_start", 0)
+        pal = pal[:max(count - start, 0)]
+        body = bytes(data[18 + 3 * count:])
+        if opts.get("map_depth") == 16:
+            v = pal.astype(np.uint16) >> 3
+            entries = (v[:, 2] << 10 | v[:, 1] << 5 | v[:, 0]).astype("<u2").tobytes()
+        else:
+            entries = pal.tobytes()
+        head = bytearray(data[:18])
+        struct.pack_into("<HHB", head, 3, start, len(pal), opts.get("map_depth", 24))
+        return bytes(head) + entries + body
+    return bytes(data)
+
+
+# ------------------------------------------------------------------ PSD ----
+# name, (W, H), seed, (colour mode, bits, channels), compression (0 raw, 1
+# PackBits), options: "palette" (768 bytes of colour-mode data), "sections"
+# (image resources and a layer section to skip).
+PSDS = [(f"psd_{tag}_{'rle' if comp else 'raw'}_19x13.psd", (19, 13), 760 + 2 * i + comp, mode, comp,
+         {"palette": tag == "indexed", "sections": bool(comp) or i % 2 == 0})
+        for i, (tag, mode) in enumerate((("bitmap", (0, 1, 1)), ("grey", (1, 8, 1)), ("grey_mode0", (0, 8, 1)),
+                                         ("indexed", (2, 8, 1)), ("indexed_nopal", (2, 8, 1)), ("rgb", (3, 8, 3)),
+                                         ("rgba", (3, 8, 4)), ("rgb_5ch", (3, 8, 5)), ("cmyk", (4, 8, 4)),
+                                         ("multichannel", (7, 8, 1)), ("duotone", (8, 8, 1)), ("lab", (9, 8, 3))))
+        for comp in (0, 1)]
+
+
+def write_psd(planes, size, mode: int, bits: int, compression: int, palette: bytes = b"",
+              sections: bool = False) -> bytes:
+    """A PSD of `planes` ((H, row bytes) uint8 each): header, colour-mode
+    data, image resources and a layer section (when `sections`), then the
+    merged image raw or PackBits (`packbits_encode` rows, their byte counts
+    first)."""
+    w, h = size
+    res = lay = b""
+    if sections:
+        res = b"8BIM" + struct.pack(">HB", 1005, 3) + b"abc" + struct.pack(">I", 5) + b"12345\0"
+        res += b"8BIM" + struct.pack(">HB", 1039, 0) + b"\0" + struct.pack(">I", 4) + b"ICC!"
+        lay = struct.pack(">I", 12) + bytes(12) + b"layer data"
+    out = b"8BPS" + struct.pack(">H6xHIIHH", 1, len(planes), h, w, bits, mode)
+    out += struct.pack(">I", len(palette)) + palette + struct.pack(">I", len(res)) + res
+    out += struct.pack(">I", len(lay)) + lay
+    if compression == 0:
+        return out + struct.pack(">H", 0) + b"".join(p.tobytes() for p in planes)
+    rows = [packbits_encode(p[y].tobytes()) for p in planes for y in range(p.shape[0])]
+    return out + struct.pack(">H", 1) + b"".join(struct.pack(">H", len(r)) for r in rows) + b"".join(rows)
+
+
+def psd_fixture(size, seed: int, mode, compression: int, opts: dict) -> bytes:
+    w, h = size
+    rgb = procedural(w, h, seed)
+    psd_mode, bits, channels = mode
+    rng = np.random.default_rng(seed)
+    if bits == 1:
+        planes = [np.packbits(rgb[..., 0] > 128, axis=1)]
+    else:
+        bands = [rgb[..., 0], rgb[..., 1], rgb[..., 2], (rgb[..., 0] // 2 + 60).astype(np.uint8),
+                 rng.integers(0, 256, (h, w)).astype(np.uint8)]
+        planes = [np.ascontiguousarray(b) for b in bands[:channels]]
+        if psd_mode == 2:
+            planes = [(rgb[..., 0] // 4 + rgb[..., 1] // 8).astype(np.uint8)]
+    palette = bytes(rng.integers(0, 256, 768).astype(np.uint8)) if opts["palette"] else b""
+    return write_psd(planes, size, psd_mode, bits, compression, palette, opts["sections"])
+
+
+# ------------------------------------------------------------------ QOI ----
+QOIS = [("qoi_pil_rgb_37x23.qoi", (37, 23), 780, "RGB"), ("qoi_pil_rgba_37x23.qoi", (37, 23), 781, "RGBA")]
+
+
+def qoi_fixture(size, seed: int, mode: str) -> bytes:
+    w, h = size
+    rgb = procedural(w, h, seed, noise=0.0)
+    rgb[:, : w // 3] = rgb[:, :1] // 16 * 16  # flat runs and repeats for the run and index ops
+    alpha = (np.arange(w)[None, :] * 7 % 256 + np.zeros((h, 1))).astype(np.uint8)
+    img = Image.fromarray(np.dstack([rgb, alpha]), "RGBA").convert(mode)
+    buf = io.BytesIO()
+    img.save(buf, format="QOI")
+    return buf.getvalue()
+
+
+# ------------------------------------------------------------------ DDS ----
+# name, (W, H), seed, writer, options: "pil" (PIL's save, `pixel_format` for
+# its BCn encoder), "blocks" (blocks that numpy draws: `fourcc` or `dxgi`
+# names the format, `thin` clears most bits so BC6H's halves stay in range,
+# `mips` appends a smaller surface), "raw" (an uncompressed kind PIL does not
+# write: an 8-bit palette, 5-6-5 bit masks, DX10 R8G8B8A8).
+DDSS = [
+    ("dds_pil_dxt1_37x23.dds", (37, 23), 800, "pil", {"mode": "RGBA", "pixel_format": "DXT1"}),
+    ("dds_pil_dxt3_37x23.dds", (37, 23), 801, "pil", {"mode": "RGBA", "pixel_format": "DXT3"}),
+    ("dds_pil_dxt5_37x23.dds", (37, 23), 802, "pil", {"mode": "RGBA", "pixel_format": "DXT5"}),
+    ("dds_pil_bc2_37x23.dds", (37, 23), 803, "pil", {"mode": "RGBA", "pixel_format": "BC2"}),
+    ("dds_pil_bc3_37x23.dds", (37, 23), 804, "pil", {"mode": "RGBA", "pixel_format": "BC3"}),
+    ("dds_pil_bc5_37x23.dds", (37, 23), 805, "pil", {"mode": "RGB", "pixel_format": "BC5"}),
+    ("dds_pil_rgb_37x23.dds", (37, 23), 806, "pil", {"mode": "RGB"}),
+    ("dds_pil_rgba_37x23.dds", (37, 23), 807, "pil", {"mode": "RGBA"}),
+    ("dds_pil_l_37x23.dds", (37, 23), 808, "pil", {"mode": "L"}),
+    ("dds_pil_la_37x23.dds", (37, 23), 809, "pil", {"mode": "LA"}),
+    ("dds_blocks_bc4u_37x23.dds", (37, 23), 810, "blocks", {"fourcc": b"BC4U"}),
+    ("dds_blocks_ati2_37x23.dds", (37, 23), 811, "blocks", {"fourcc": b"ATI2"}),
+    ("dds_blocks_bc5s_37x23.dds", (37, 23), 812, "blocks", {"fourcc": b"BC5S"}),
+    ("dds_blocks_bc6h_uf16_37x23.dds", (37, 23), 813, "blocks", {"dxgi": 95, "thin": True}),
+    ("dds_blocks_bc6h_sf16_37x23.dds", (37, 23), 814, "blocks", {"dxgi": 96, "thin": True}),
+    ("dds_blocks_bc7_37x23.dds", (37, 23), 815, "blocks", {"dxgi": 98}),
+    ("dds_blocks_bc7_srgb_mips_32x16.dds", (32, 16), 816, "blocks", {"dxgi": 99, "mips": True}),
+    ("dds_raw_p8_19x13.dds", (19, 13), 817, "raw", {"kind": "p8"}),
+    ("dds_raw_rgb565_19x13.dds", (19, 13), 818, "raw", {"kind": "rgb565"}),
+    ("dds_raw_dx10_rgba8_19x13.dds", (19, 13), 819, "raw", {"kind": "rgba8"}),
+]
+# phase 5e's BC7 timing file: not committed; its PIL decode hash is in generated.json
+DDS_TIMING = ("dds_bc7_1024x768", (1024, 768), 820)
+
+
+def write_dds(size, pfflags: int, fourcc: bytes = b"\0\0\0\0", bitcount: int = 0, masks=(0, 0, 0, 0),
+              dxgi: int | None = None, body: bytes = b"", caps2: int = 0) -> bytes:
+    """A DDS file: the 124-byte header (DX10's extension when `dxgi` is
+    given), then `body`."""
+    w, h = size
+    head = struct.pack("<4s7I44x", b"DDS ", 124, 0x1007, h, w, 0, 0, 0)
+    pf = struct.pack("<2I4s5I", 32, pfflags, fourcc, bitcount, *masks)
+    caps = struct.pack("<4I4x", 0x1000, caps2, 0, 0)
+    ext = struct.pack("<5I", dxgi, 3, 0, 1, 0) if dxgi is not None else b""
+    return head + pf + caps + ext + body
+
+
+def bc_blocks(n: int, block: int, seed: int, kind: str = "", thin: bool = False) -> np.ndarray:
+    """(n, block) uint8 random blocks: BC7's eight modes drawn evenly; `thin`
+    keeps one bit in eight (BC6H endpoints that stay in range)."""
+    rng = np.random.default_rng(seed)
+    b = rng.integers(0, 256, (n, block)).astype(np.uint8)
+    if thin:
+        b &= rng.integers(0, 256, (n, block)).astype(np.uint8) & rng.integers(0, 256, (n, block)).astype(np.uint8)
+        b[:, 0] = rng.integers(0, 256, n).astype(np.uint8)  # every mode
+    if kind == "bc7":
+        m = rng.integers(0, 8, n)
+        b[:, 0] = (b[:, 0] & ~((2 << m) - 1).astype(np.uint8)) | (1 << m).astype(np.uint8)
+    return b
+
+
+def dds_fixture(size, seed: int, writer: str, opts: dict) -> bytes:
+    w, h = size
+    rgb = procedural(w, h, seed)
+    if writer == "pil":
+        alpha = (rgb[..., 0] // 3 + 100).astype(np.uint8)
+        img = Image.fromarray(np.dstack([rgb, alpha]), "RGBA").convert(opts["mode"])
+        buf = io.BytesIO()
+        img.save(buf, format="DDS", **{k: v for k, v in opts.items() if k == "pixel_format"})
+        return buf.getvalue()
+    if writer == "blocks":
+        nb = ((w + 3) // 4) * ((h + 3) // 4)
+        fourcc = opts.get("fourcc", b"DX10")
+        block = 8 if fourcc in (b"BC4U", b"ATI1") else 16
+        kind = "bc7" if opts.get("dxgi") in (97, 98, 99) else ""
+        body = bc_blocks(nb, block, seed, kind, opts.get("thin", False)).tobytes()
+        if opts.get("mips"):  # the next level, which PIL does not read
+            body += bc_blocks(((w // 2 + 3) // 4) * ((h // 2 + 3) // 4), block, seed + 1, kind).tobytes()
+        return write_dds(size, 0x4, fourcc, dxgi=opts.get("dxgi"), body=body)
+    rng = np.random.default_rng(seed)
+    if opts["kind"] == "p8":
+        pal = rng.integers(0, 256, 1024).astype(np.uint8).tobytes()
+        return write_dds(size, 0x20, bitcount=8, body=pal + (rgb[..., 0] // 2).tobytes())
+    if opts["kind"] == "rgb565":
+        v = rgb.astype(np.uint16)
+        words = ((v[..., 0] >> 3) << 11 | (v[..., 1] >> 2) << 5 | (v[..., 2] >> 3)).astype("<u2")
+        return write_dds(size, 0x40, bitcount=16, masks=(0xF800, 0x7E0, 0x1F, 0), body=words.tobytes())
+    rgba = np.dstack([rgb, rgb[..., :1]])
+    return write_dds(size, 0x4, b"DX10", dxgi=28, body=rgba.tobytes())
+
+
+def dds_timing_file() -> bytes:
+    """Phase 5e's 1024x768 BC7 DDS: blocks numpy draws from a fixed seed."""
+    _, (w, h), seed = DDS_TIMING
+    return write_dds((w, h), 0x4, b"DX10", dxgi=98, body=bc_blocks((w // 4) * (h // 4), 16, seed, "bc7").tobytes())
+
+
 def resize_chain(img: Image.Image, chain: str) -> np.ndarray:
     for step in chain.split(","):
         img = img.resize(tuple(int(v) for v in step.split("x")))
@@ -2467,6 +2703,35 @@ def main() -> None:
         manifest[name] = {"kind": "ppm", "size": [w, h], "seed": seed, "writer": kind,
                           "save": {k: v.decode() if isinstance(v, bytes) else v for k, v in opts.items()},
                           "file_sha256": hashlib.sha256(data).hexdigest(), "decode_sha256": pil_decode_sha(data)}
+    for name, (w, h), seed, writer, opts in TGAS:
+        data = tga_fixture((w, h), seed, writer, opts)
+        write(name, data)
+        manifest[name] = {"kind": "tga", "size": [w, h], "seed": seed, "writer": writer,
+                          "save": {k: v.decode() if isinstance(v, bytes) else v for k, v in opts.items()},
+                          "file_sha256": hashlib.sha256(data).hexdigest(), "decode_sha256": pil_decode_sha(data)}
+    for name, (w, h), seed, mode, comp, opts in PSDS:
+        data = psd_fixture((w, h), seed, mode, comp, opts)
+        write(name, data)
+        manifest[name] = {"kind": "psd", "size": [w, h], "seed": seed, "mode": list(mode), "compression": comp,
+                          "save": opts, "file_sha256": hashlib.sha256(data).hexdigest(),
+                          "decode_sha256": pil_decode_sha(data)}
+    for name, (w, h), seed, mode in QOIS:
+        data = qoi_fixture((w, h), seed, mode)
+        write(name, data)
+        manifest[name] = {"kind": "qoi", "size": [w, h], "seed": seed, "mode": mode,
+                          "file_sha256": hashlib.sha256(data).hexdigest(), "decode_sha256": pil_decode_sha(data)}
+    for name, (w, h), seed, writer, opts in DDSS:
+        data = dds_fixture((w, h), seed, writer, opts)
+        write(name, data)
+        manifest[name] = {"kind": "dds", "size": [w, h], "seed": seed, "writer": writer,
+                          "save": {k: v.decode() if isinstance(v, bytes) else v for k, v in opts.items()},
+                          "file_sha256": hashlib.sha256(data).hexdigest(), "decode_sha256": pil_decode_sha(data)}
+    timing = dds_timing_file()
+    with open(os.path.join(HERE, "generated.json"), "w") as f:
+        json.dump({DDS_TIMING[0]: {"size": list(DDS_TIMING[1]), "seed": DDS_TIMING[2],
+                                   "file_sha256": hashlib.sha256(timing).hexdigest(),
+                                   "decode_sha256": pil_decode_sha(timing)}}, f, indent=1, sort_keys=True)
+        f.write("\n")
     pixels = {f"{w}x{h}": procedural(w, h, 200 + i) for i, (w, h) in enumerate(ENCODE_SIZES)}
     np.savez(os.path.join(HERE, "encode_pixels.npz"), **pixels)
     for key, arr in pixels.items():

@@ -160,10 +160,12 @@ def test_other_formats_raise_naming_them(head, name):
         with pytest.raises(ValueError, match="no image in the TIFF file"):
             tdata.decode_image(head + bytes(64))
         return
-    if name in ("ICO", "PPM"):  # read since ICO and PPM support: no entries, a header of NUL bytes
+    if name in ("ICO", "PPM", "PSD"):  # read since ICO, PPM and PSD support: no entries, NUL tokens, version 0
         with pytest.raises(Exception):
             Image.open(io.BytesIO(head + bytes(64))).load()
-        with pytest.raises(ValueError, match="empty ICO / CUR directory" if name == "ICO" else "Token too long"):
+        # PIL passes an ICO with no entries and a PSD of version 0 on to its other plugins, which open neither
+        with pytest.raises(ValueError, match={"PPM": "Token too long", "ICO": "not an image file PIL opens",
+                                              "PSD": "not a PSD file"}[name]):
             tdata.decode_image(head + bytes(64))
         return
     with pytest.raises(ValueError, match=f"{name} images are not read by the port yet"):

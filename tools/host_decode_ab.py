@@ -5,7 +5,10 @@
 Times `reflectionflow_tpu_torch.train.data.decode_image` on committed fixtures
 of `tests/data/torch_jpeg/` (default: the 1024x768 baseline JPEG and the
 1024x768 TIFF timing files; a file a checkout does not read is left out of
-its times) in this checkout and in OTHER_CHECKOUT (for
+its times), or on the files `chip_smoke.py` phase 5e writes (the names
+tga_rle, psd_packbits and qoi: this checkout's writers over the decoded
+baseline JPEG; dds_bc7: its 1024x768 BC7 file), in this checkout and in
+OTHER_CHECKOUT (for
 example the parent commit unpacked with `git archive`), each in its own
 process on one thread, in the order this, other, other, this per round; each
 process reports the median of `--reps` decodes per file after one warm-up.
@@ -22,6 +25,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT = ["bad_1024x768_q75_420.jpg", "tiff_lzw_pred2_1024x768.tif", "tiff_jpeg_ycbcr_420_1024x768.tif",
@@ -63,6 +67,31 @@ def run(root: str, fixtures: str, reps: int, names: list) -> dict:
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
+def generated(names: list, where: str) -> list:
+    """`names` with each of phase 5e's written kinds replaced by the path of
+    the file this checkout's `chip_smoke.py` writes for it."""
+    kinds = ("tga_rle", "psd_packbits", "qoi", "dds_bc7")
+    if not set(names) & set(kinds):
+        return names
+    sys.path.insert(0, HERE)
+    import chip_smoke
+    from reflectionflow_tpu_torch.train.data import decode_image
+
+    with open(os.path.join(HERE, "tests", "data", "torch_jpeg", "bad_1024x768_q75_420.jpg"), "rb") as f:
+        rgb = decode_image(f.read())
+    out = []
+    for name in names:
+        if name in kinds:
+            data = (chip_smoke.dds_timing_file() if name == "dds_bc7" else
+                    getattr(chip_smoke, "write_" + name)(rgb))
+            path = os.path.join(where, name)
+            with open(path, "wb") as f:
+                f.write(data)
+            name = path
+        out.append(name)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("other", help="the other checkout's root")
@@ -72,11 +101,14 @@ def main() -> None:
     args = ap.parse_args()
     fixtures = os.path.join(HERE, "tests", "data", "torch_jpeg")  # this checkout's files, for both
     times = {"this": [], "other": []}
-    for _ in range(args.rounds):
-        for which in ("this", "other", "other", "this"):
-            res = run(HERE if which == "this" else os.path.abspath(args.other), fixtures, args.reps, args.names)
-            print(json.dumps({which: res}), flush=True)
-            times[which].append(res)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = generated(args.names, tmp)  # absolute paths: os.path.join(fixtures, path) is the path
+        for _ in range(args.rounds):
+            for which in ("this", "other", "other", "this"):
+                res = run(HERE if which == "this" else os.path.abspath(args.other), fixtures, args.reps, paths)
+                res = {os.path.basename(k): v for k, v in res.items()}
+                print(json.dumps({which: res}), flush=True)
+                times[which].append(res)
     summary = {}
     for name in args.names:
         a = [t[name] for t in times["this"] if name in t]
